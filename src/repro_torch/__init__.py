@@ -1,0 +1,17 @@
+"""TrIM on PyTorch/CUDA: the port of the JAX package ``repro`` to one
+NVIDIA H100.
+
+The module names mirror ``repro``'s so each counterpart is easy to find:
+``kernels`` (the hand-written Hopper TrIM conv kernel, its plain PyTorch
+version, requant and the oracles), ``engine`` (execution policy, layer
+and model plans, the one dispatch site), ``nn.conv`` / ``configs`` (the
+paper's CNNs), ``data`` (the seeded request stream), ``serve`` (the
+bucketed server) and ``launch`` (the serving CLI).
+
+Public functions keep the JAX package's layouts: NHWC activations,
+(K, K, C, F) conv weights and (in, out) FC weights.  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.  The package imports
+``torch`` and numpy, never ``jax`` and nothing of ``repro``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,300 @@
+"""Execute planned TrIM conv layers and planned CNN models.
+
+Port of ``repro/engine/execute.py``.  :func:`run_conv2d` is the ONLY
+kernel dispatch site of the port: it takes a
+:class:`~repro_torch.engine.plan.ConvLayerPlan`, resolves its substrate
+against the input's device (``policy.resolve_substrate``) and runs either
+the CUDA kernel's wrapper — per conv group — or the plain oracle with the
+unfused epilogue.  The model-level entry points iterate a
+:class:`~repro_torch.engine.plan.ModelPlan`'s layers.
+
+Three places decide bit-exactness against the JAX package, and mirror it:
+
+- the int8 lane returns the LAST layer's ReLU'd int32 psums before its
+  pool (:func:`_int8_forward`);
+- :func:`serve_forward` runs the FC head per image, so a bucketed batch
+  gives each image the same bits as an unbatched run;
+- :func:`calibrate_requant` takes each channel's amax as float64 and
+  propagates every layer through the exact requant before calibrating the
+  next.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.engine.plan import ConvLayerPlan, ModelPlan
+from repro_torch.engine.policy import resolve_device, resolve_substrate
+from repro_torch.kernels import ref
+from repro_torch.kernels.requant import requant_mult_shift, scale_to_mult_shift
+from repro_torch.kernels.trim_conv2d import (apply_epilogue, load_library,
+                                             trim_conv2d)
+
+__all__ = [
+    "EXECUTABLE_COMPILES",
+    "apply_epilogue",
+    "calibrate_requant",
+    "calibrate_requant_shifts",
+    "executable_for",
+    "forward",
+    "forward_int8",
+    "max_pool2x2",
+    "run_conv2d",
+    "run_conv_layer",
+    "serve_forward",
+]
+
+
+def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 max pool over NHWC (VALID)."""
+    B, H, W, C = x.shape
+    x = x[:, : H // 2 * 2, : W // 2 * 2]
+    return x.reshape(B, H // 2, 2, W // 2, 2, C).amax(dim=(2, 4))
+
+
+def _kernel_call(plan: ConvLayerPlan, x, w, bias, requant, requant_shift):
+    return trim_conv2d(
+        x, w, stride=plan.stride, padding=plan.padding, bias=bias,
+        relu=plan.relu, requant_shift=requant_shift, requant=requant,
+        tile_h=plan.tile_h, tile_w=plan.tile_w, block_c=plan.block_c,
+        block_f=plan.block_f)
+
+
+def run_conv2d(plan: ConvLayerPlan, x: torch.Tensor, w: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               requant: Optional[Tuple] = None, *,
+               requant_shift: Optional[int] = None) -> torch.Tensor:
+    """Run one planned conv (+ its epilogue).  THE dispatch site.
+
+    x (N,H,W,C), w (K,K,C/groups,F) -> (N,H_O,W_O,F).  ``bias`` /
+    ``requant_shift`` / ``requant=(mult, shift)`` are the runtime epilogue
+    inputs (per-channel pairs are (F,) int32 tensors).
+    """
+    if resolve_substrate(plan.substrate, x.device) == "oracle":
+        out = ref.conv2d(x, w, stride=plan.stride, padding=plan.padding,
+                         groups=plan.groups)
+        return apply_epilogue(out, bias, plan.relu, requant_shift, requant)
+    if plan.groups == 1:
+        return _kernel_call(plan, x, w, bias, requant, requant_shift)
+    cg = x.shape[-1] // plan.groups
+    F = w.shape[-1]
+    fg = F // plan.groups
+    if requant is not None:
+        # per-group slices of per-channel or broadcast per-tensor pairs
+        requant = tuple(
+            torch.as_tensor(v, dtype=torch.int32, device=x.device).expand(F)
+            for v in requant)
+    outs = []
+    for g in range(plan.groups):
+        fs = slice(g * fg, (g + 1) * fg)
+        outs.append(_kernel_call(
+            plan, x[..., g * cg:(g + 1) * cg].contiguous(),
+            w[..., fs].contiguous(),
+            None if bias is None else bias[fs].contiguous(),
+            None if requant is None
+            else (requant[0][fs].contiguous(), requant[1][fs].contiguous()),
+            requant_shift))
+    return torch.cat(outs, dim=-1)
+
+
+def run_conv_layer(plan: ConvLayerPlan, p, x: torch.Tensor) -> torch.Tensor:
+    """One model conv block: planned conv -> optional 2x2 pool.
+
+    ``p``: {"kernel": (K,K,C/groups,F) [, "bias": (F,), "requant":
+    ((F,), (F,))]}.
+    """
+    w = p["kernel"]
+    if x.is_floating_point():
+        w = w.to(x.dtype)
+    x = run_conv2d(plan, x, w, p.get("bias"), p.get("requant"))
+    if plan.pool:
+        x = max_pool2x2(x)
+    return x
+
+
+def _head(params, x: torch.Tensor) -> torch.Tensor:
+    for j, fc in enumerate(params["fc"]):
+        x = torch.matmul(x, fc["kernel"].to(x.dtype)) + fc["bias"].to(x.dtype)
+        if j < len(params["fc"]) - 1:
+            x = torch.relu(x)
+    return x
+
+
+def _conv_stack(plan: ModelPlan, params, images: torch.Tensor):
+    x = images
+    for i, lp in enumerate(plan.layers):
+        x = run_conv_layer(lp, params["conv"][i], x)
+    return x.reshape(x.shape[0], -1)
+
+
+def forward(plan: ModelPlan, params, images: torch.Tensor) -> torch.Tensor:
+    """images (B,H,W,C) float -> logits (B, n_classes)."""
+    return _head(params, _conv_stack(plan, params, images))
+
+
+def serve_forward(plan: ModelPlan, params,
+                  images: torch.Tensor) -> torch.Tensor:
+    """Batch-invariant :func:`forward` for serving.
+
+    The conv stack is batch-invariant (each image's kernel blocks see only
+    that image, with no split of the channel sum).  A batched GEMM is not:
+    its algorithm can change with the row count.  So the FC head runs on
+    (1, K) rows, one image at a time, giving every image the same bits at
+    every batch size.
+    """
+    x = _conv_stack(plan, params, images)
+    return torch.cat([_head(params, x[i:i + 1]) for i in range(x.shape[0])])
+
+
+def _int8_forward(
+    plan: ModelPlan,
+    qparams,
+    images_u8: torch.Tensor,
+    requant_shifts: Optional[Sequence[int]] = None,
+    requant: Optional[Sequence[Tuple]] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Shared int8 datapath: returns (final int32 psums, dynamic shifts)."""
+    if requant_shifts is not None and requant is not None:
+        raise ValueError("requant_shifts and requant are exclusive")
+    x = images_u8
+    shifts: List[torch.Tensor] = []
+    layers = plan.int8.layers
+    n = len(layers)
+    for i, lp in enumerate(layers):
+        w = qparams["conv"][i]["kernel"]
+        last = i == n - 1
+        if requant is not None and not last:
+            x = run_conv2d(lp, x, w, None, tuple(requant[i]))
+        elif requant_shifts is not None and not last:
+            x = run_conv2d(lp, x, w, None, None,
+                           requant_shift=int(requant_shifts[i]))
+        else:
+            psum = run_conv2d(lp, x, w, None, None)
+            if last:
+                return psum, shifts
+            # power-of-two requantize back to uint8 for the next layer
+            amax = psum.max().to(torch.float32).clamp_min(1.0)
+            shift = torch.ceil(torch.log2(amax / 255.0)).clamp_min(0)
+            shift = shift.to(torch.int32)
+            shifts.append(shift)
+            x = (psum >> shift).clamp(0, 255).to(torch.uint8)
+        if lp.pool:
+            x = max_pool2x2(x)
+    return x, shifts
+
+
+def forward_int8(
+    plan: ModelPlan,
+    qparams,
+    images_u8: torch.Tensor,
+    requant_shifts: Optional[Sequence[int]] = None,
+    requant: Optional[Sequence[Tuple]] = None,
+) -> torch.Tensor:
+    """uint8 NHWC images through the integer TrIM datapath; returns the
+    last layer's int32 feature map (pre-classifier, before its pool)."""
+    return _int8_forward(plan, qparams, images_u8, requant_shifts, requant)[0]
+
+
+def calibrate_requant_shifts(plan: ModelPlan, qparams,
+                             sample_u8: torch.Tensor) -> List[int]:
+    """Static per-layer power-of-two requant shifts from a sample batch."""
+    return [int(s) for s in _int8_forward(plan, qparams, sample_u8)[1]]
+
+
+def calibrate_requant(plan: ModelPlan, qparams, sample_u8: torch.Tensor,
+                      per_channel: bool = True) -> List[Tuple]:
+    """Per-layer (mult, shift) pairs mapping each non-last layer's observed
+    post-ReLU psum range [0, amax] onto [0, 255] (``scale = 255 / amax``,
+    amax per output channel as float64).  Returns (F,) int32 tensors on
+    the sample's device."""
+    x = sample_u8
+    pairs: List[Tuple] = []
+    for i, lp in enumerate(plan.int8.layers[:-1]):
+        w = qparams["conv"][i]["kernel"]
+        psum = run_conv2d(lp, x, w, None, None)
+        mx = psum.amax(dim=(0, 1, 2)) if per_channel else psum.max()
+        amax = np.maximum(mx.cpu().numpy().astype(np.float64), 1.0)
+        m, s = scale_to_mult_shift(255.0 / amax)
+        F = w.shape[-1]
+        m = torch.as_tensor(np.broadcast_to(m, (F,)).copy(),
+                            device=psum.device)
+        s = torch.as_tensor(np.broadcast_to(s, (F,)).copy(),
+                            device=psum.device)
+        pairs.append((m, s))
+        # propagate through the exact datapath the fused forward runs
+        x = requant_mult_shift(psum, m, s).to(torch.uint8)
+        if lp.pool:
+            x = max_pool2x2(x)
+    return pairs
+
+
+# ---------------------------------------------------------------------------
+# Serving executables: one callable per (plan, batch, datapath, device)
+# ---------------------------------------------------------------------------
+
+#: Build ledger: (plan, batch, datapath, device) -> number of builds.
+#: Cache hits never touch it, so serving can assert compile-once.
+EXECUTABLE_COMPILES: Dict[Tuple[ModelPlan, int, str, str], int] = {}
+
+
+class Executable:
+    """The serving callable for one static (batch, H, W, C) input.
+
+    ``float``: ``ex(params, images_f32) -> logits`` (:func:`serve_forward`);
+    ``int8``: ``ex(qparams, images_u8, requant) -> int32 features``, with
+    the calibrated per-layer pairs required (the dynamic-shift path depends
+    on the whole batch and cannot serve padded buckets).
+    """
+
+    def __init__(self, plan: ModelPlan, batch: int, datapath: str,
+                 device: torch.device):
+        H, W = plan.cfg.input_hw
+        self.plan = plan
+        self.datapath = datapath
+        self.device = device
+        self.shape = (batch, H, W, plan.layers[0].c_in)
+        self.dtype = torch.float32 if datapath == "float" else torch.uint8
+
+    def __call__(self, params, images: torch.Tensor, requant=None):
+        if tuple(images.shape) != self.shape or images.dtype != self.dtype \
+                or images.device != self.device:
+            raise ValueError(
+                f"executable takes {self.shape} {self.dtype} on "
+                f"{self.device}, got {tuple(images.shape)} {images.dtype} "
+                f"on {images.device}")
+        if self.datapath == "float":
+            return serve_forward(self.plan, params, images)
+        if requant is None:
+            raise ValueError("the int8 executable needs calibrated requant")
+        return forward_int8(self.plan, params, images, requant=requant)
+
+
+@functools.lru_cache(maxsize=None)
+def _executable(plan: ModelPlan, batch: int, datapath: str,
+                device: torch.device) -> Executable:
+    if device.type == "cuda" and resolve_substrate(
+            plan.policy.substrate, device) == "kernel":
+        load_library()  # the build, paid before the first request
+    ex = Executable(plan, batch, datapath, device)
+    key = (plan, batch, datapath, str(device))
+    EXECUTABLE_COMPILES[key] = EXECUTABLE_COMPILES.get(key, 0) + 1
+    return ex
+
+
+def executable_for(plan: ModelPlan, batch: int, datapath: str = "float",
+                   device="cuda") -> Executable:
+    """The cached serving callable for ``plan`` at one static batch size.
+    Building it loads (and if needed compiles) the kernel library; the
+    caller makes the warm call with its params (``ServeEngine``)."""
+    if datapath not in ("float", "int8"):
+        raise ValueError(f"datapath {datapath!r} not in ('float', 'int8')")
+    batch = int(batch)
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _executable(plan, batch, datapath, dev)

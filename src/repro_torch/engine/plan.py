@@ -1,0 +1,206 @@
+"""Static execution plans: resolve each conv layer's schedule once.
+
+Port of ``repro/engine/plan.py``.  A :class:`ConvLayerPlan` is the static
+schedule of one conv layer — its shape, epilogue descriptor, substrate
+choice and GPU tile geometry (``kernels.trim_conv2d.conv_tile``, per conv
+group) — and :func:`plan_model` walks a ``CNNConfig`` into a
+:class:`ModelPlan` whose entry points run the whole network through
+``repro_torch.engine.execute``.  Both are frozen dataclasses of plain
+values: hashable, comparable by value and cached.
+
+The substrate stays unresolved in the plan ("auto" | "kernel" |
+"oracle"): the dispatch rule reads the device of the tensor at run time
+(``policy.resolve_substrate``).  Plan-time tuning and the
+``emulate_hw`` replay of the JAX package are not ported yet.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+from repro_torch.engine.policy import ExecutionPolicy
+from repro_torch.kernels.trim_conv2d import ConvTile, conv_tile
+
+
+@dataclass(frozen=True)
+class ConvLayerPlan:
+    """Static schedule for one TrIM conv layer.
+
+    ``c_in``/``c_out`` count all groups; ``block_c``/``block_f`` are the
+    policy's caps limited to one group's channels/filters, and ``tile`` is
+    one group's launch geometry.
+    """
+
+    x_hw: Tuple[int, int]
+    c_in: int
+    k: int
+    c_out: int
+    stride: int
+    padding: Optional[int]
+    groups: int
+    relu: bool
+    pool: bool
+    has_bias: bool
+    requant_kind: Optional[str]
+    substrate: str
+    tile_h: int
+    tile_w: int
+    block_c: int
+    block_f: int
+    epilogue: str
+    tile: ConvTile
+
+    def describe(self) -> Dict[str, object]:
+        """Compact schedule record (serve artifacts)."""
+        return {"substrate": self.substrate, "epilogue": self.epilogue,
+                "tile": [self.tile.TH, self.tile.TW],
+                "block_c": self.tile.Cb, "block_f": self.tile.Fb}
+
+
+@functools.lru_cache(maxsize=None)
+def plan_conv_layer(
+    x_hw: Tuple[int, int],
+    c_in: int,
+    k: int,
+    c_out: int,
+    *,
+    stride: int = 1,
+    padding: Optional[int] = None,
+    groups: int = 1,
+    relu: bool = False,
+    pool: bool = False,
+    has_bias: bool = False,
+    requant_kind: Optional[str] = None,
+    policy: ExecutionPolicy = ExecutionPolicy(),
+) -> ConvLayerPlan:
+    """One layer's static schedule under ``policy`` (cached).
+
+    ``requant_kind`` is None | "shift" | "mult_shift"; the multiplier and
+    shift values stay runtime arguments.
+    """
+    if c_in % groups or c_out % groups:
+        raise ValueError(f"groups={groups} does not divide c_in={c_in} "
+                         f"and c_out={c_out}")
+    cg, fg = c_in // groups, c_out // groups
+    block_c = min(policy.block_c, cg)
+    block_f = min(policy.block_f, fg)
+    tile = conv_tile(x_hw, cg, k, fg, stride=stride, padding=padding,
+                     tile_h=policy.tile_h, tile_w=policy.tile_w,
+                     block_c=block_c, block_f=block_f)
+    parts = []
+    if has_bias:
+        parts.append("bias")
+    if relu:
+        parts.append("relu")
+    if requant_kind == "shift":
+        parts.append("requant_shift")
+    elif requant_kind == "mult_shift":
+        parts.append("requant")
+    epilogue = "+".join(parts) if parts else "linear"
+    return ConvLayerPlan(
+        x_hw=tuple(x_hw), c_in=c_in, k=k, c_out=c_out, stride=stride,
+        padding=padding, groups=groups, relu=relu, pool=pool,
+        has_bias=has_bias, requant_kind=requant_kind,
+        substrate=policy.substrate, tile_h=policy.tile_h,
+        tile_w=policy.tile_w, block_c=block_c, block_f=block_f,
+        epilogue=epilogue, tile=tile)
+
+
+@dataclass(frozen=True)
+class ModelPlan:
+    """Per-layer plans + entry points for one CNN under one policy."""
+
+    cfg: object
+    policy: ExecutionPolicy
+    layers: Tuple[ConvLayerPlan, ...]
+    datapath: str = "float"
+
+    def init(self, generator, device="cuda"):
+        from repro_torch.nn.conv import init_cnn
+
+        return init_cnn(generator, self.cfg, device)
+
+    def forward(self, params, images):
+        from repro_torch.engine import execute
+
+        return execute.forward(self, params, images)
+
+    def serve_forward(self, params, images):
+        from repro_torch.engine import execute
+
+        return execute.serve_forward(self, params, images)
+
+    def quantize(self, params):
+        from repro_torch.nn.conv import quantize_cnn
+
+        return quantize_cnn(params, self.cfg)
+
+    def forward_int8(self, qparams, images_u8, requant_shifts=None,
+                     requant=None):
+        from repro_torch.engine import execute
+
+        return execute.forward_int8(self, qparams, images_u8,
+                                    requant_shifts=requant_shifts,
+                                    requant=requant)
+
+    def calibrate_requant_shifts(self, qparams, sample_u8):
+        from repro_torch.engine import execute
+
+        return execute.calibrate_requant_shifts(self, qparams, sample_u8)
+
+    def calibrate_requant(self, qparams, sample_u8, per_channel=True):
+        from repro_torch.engine import execute
+
+        return execute.calibrate_requant(self, qparams, sample_u8,
+                                         per_channel=per_channel)
+
+    @property
+    def int8(self) -> "ModelPlan":
+        """The integer-datapath sibling plan (bias-free, fused requant on
+        every non-last layer) — what ``forward_int8`` runs."""
+        return plan_model(self.cfg, self.policy, c_in=self.layers[0].c_in,
+                          datapath="int8")
+
+    def executable_for(self, batch: int, datapath: str = "float",
+                       device="cuda"):
+        """The serving callable for one static batch size (cached per
+        (plan, batch, datapath, device) in ``execute.executable_for``)."""
+        from repro_torch.engine import execute
+
+        return execute.executable_for(self, batch, datapath, device)
+
+    def describe(self) -> Tuple[Dict[str, object], ...]:
+        return tuple(lp.describe() for lp in self.layers)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_model(
+    cfg,
+    policy: ExecutionPolicy = ExecutionPolicy(),
+    c_in: Optional[int] = None,
+    datapath: str = "float",
+) -> ModelPlan:
+    """Compile a ``CNNConfig`` into a :class:`ModelPlan` (cached).
+
+    ``datapath`` is "float" (biased convs, fused bias+ReLU) or "int8"
+    (bias-free, fused ReLU + multiplier+shift requant on every non-last
+    layer; the last layer emits its ReLU'd int32 psums).  ``c_in``
+    overrides the first layer's input channel count.
+    """
+    if datapath not in ("float", "int8"):
+        raise ValueError(f"datapath {datapath!r} not in ('float', 'int8')")
+    int8 = datapath == "int8"
+    plans = []
+    c = cfg.layers[0].M if c_in is None else int(c_in)
+    last_i = len(cfg.layers) - 1
+    for i, l in enumerate(cfg.layers):
+        plans.append(plan_conv_layer(
+            (l.H_I, l.W_I), c, l.K, l.N, stride=l.stride,
+            padding=l.padding, groups=c // l.M, relu=True,
+            pool=i in cfg.pool_after, has_bias=not int8,
+            requant_kind="mult_shift" if int8 and i != last_i else None,
+            policy=policy))
+        c = l.N
+    return ModelPlan(cfg=cfg, policy=policy, layers=tuple(plans),
+                     datapath=datapath)

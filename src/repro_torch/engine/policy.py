@@ -1,0 +1,93 @@
+"""Execution policy: how to run the TrIM conv, decided in one place.
+
+Port of ``repro/engine/policy.py``.  The dispatch rule lives in
+:func:`resolve_substrate` and nowhere else, and it reads
+only the device of the tensor being convolved — never the machine:
+
+- ``"auto"`` / ``"kernel"``: the CUDA kernel's wrapper
+  (``kernels.trim_conv2d.trim_conv2d``), which launches the kernel on a
+  CUDA tensor and runs its plain version on a CPU tensor;
+- ``"oracle"``: the plain PyTorch version on every device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+#: Substrate choices.
+SUBSTRATES = ("auto", "kernel", "oracle")
+
+
+def resolve_substrate(substrate: str, device) -> str:
+    """THE dispatch rule — the only copy in the port: "oracle" runs the
+    plain version anywhere; "auto" runs the kernel's wrapper on a CUDA
+    tensor and the plain version on a CPU tensor; "kernel" always runs the
+    wrapper (which itself takes the plain version for a CPU tensor)."""
+    if substrate == "oracle":
+        return "oracle"
+    if substrate == "auto" and torch.device(device).type != "cuda":
+        return "oracle"
+    return "kernel"
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  ``"cuda"`` without a usable
+    card raises; the port never falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; pass "
+            "device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device!r}")
+    return dev
+
+
+def fp32_ieee() -> None:
+    """Keep fp32 IEEE on the card: PyTorch's fp32 matmuls and cuDNN's fp32
+    convolutions may otherwise take TF32.  The FC head (``torch.matmul``)
+    and the fp32 oracle conv are held to full fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@dataclass(frozen=True)
+class ExecutionPolicy:
+    """Frozen, hashable description of how to run the TrIM conv.
+
+    ``substrate``
+        "auto" (the default), "kernel" or "oracle" — see the module doc.
+    ``tile_h`` / ``tile_w``
+        Output tile of one CUDA block (``tile_h * tile_w <= 128``).
+    ``block_c`` / ``block_f``
+        Upper bounds on the channel chunk and the filter tile (at most
+        32); capped per layer and per conv group at plan time, and the
+        channel chunk also by the shared-memory budget
+        (``kernels.trim_conv2d.conv_tile``).
+    """
+
+    substrate: str = "auto"
+    tile_h: int = 8
+    tile_w: int = 16
+    block_c: int = 32
+    block_f: int = 32
+
+    def __post_init__(self) -> None:
+        if self.substrate not in SUBSTRATES:
+            raise ValueError(
+                f"substrate {self.substrate!r} not in {SUBSTRATES}")
+        from repro_torch.kernels.trim_conv2d import FILT_TILE, PIX_SLOTS
+
+        if min(self.tile_h, self.tile_w, self.block_c, self.block_f) < 1:
+            raise ValueError("tile and block sizes must be >= 1")
+        if self.tile_h * self.tile_w > PIX_SLOTS:
+            raise ValueError(
+                f"tile_h * tile_w must be <= {PIX_SLOTS}, got "
+                f"{self.tile_h * self.tile_w}")
+        if self.block_f > FILT_TILE:
+            raise ValueError(f"block_f must be <= {FILT_TILE}")
+
+    def with_overrides(self, **kw) -> "ExecutionPolicy":
+        return dataclasses.replace(self, **kw)

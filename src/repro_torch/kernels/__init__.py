@@ -1,0 +1,7 @@
+"""TrIM kernels for Hopper and their plain PyTorch versions.
+
+``trim_conv2d`` holds the hand-written CUDA kernel's wrapper (a CUDA
+tensor launches the kernel, a CPU tensor takes the plain version);
+``ref`` the NHWC oracles; ``requant`` the fixed-point requantization;
+``ops`` the public conv op planned through ``repro_torch.engine``.
+"""

@@ -1,0 +1,45 @@
+"""The public TrIM conv op, planned through ``repro_torch.engine``.
+
+Port of ``repro/kernels/ops.py:trim_conv2d``: builds a single-layer
+:class:`~repro_torch.engine.plan.ConvLayerPlan` from the call's shapes and
+an :class:`~repro_torch.engine.policy.ExecutionPolicy`, then runs it
+through :func:`repro_torch.engine.execute.run_conv2d`, the one dispatch
+site.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.engine.execute import run_conv2d
+from repro_torch.engine.plan import plan_conv_layer
+from repro_torch.engine.policy import ExecutionPolicy
+
+
+def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                requant: Optional[Tuple] = None, *,
+                stride: int = 1, padding: Optional[int] = None,
+                groups: int = 1, relu: bool = False,
+                requant_shift: Optional[int] = None,
+                policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """TrIM conv2d. x (N,H,W,C), w (K,K,C/groups,F) -> (N,H_O,W_O,F).
+
+    ``bias`` (F,) / ``relu`` / ``requant_shift`` / ``requant=(mult,
+    shift)``: the layer epilogue, fused into the kernel's final write.
+    Both requantizations need the integer path and return uint8.
+    """
+    if requant_shift is not None and requant is not None:
+        raise ValueError("requant_shift and requant are exclusive")
+    if (requant_shift is not None or requant is not None) \
+            and x.is_floating_point():
+        raise ValueError("requantization needs the integer path")
+    rq_kind = ("shift" if requant_shift is not None
+               else "mult_shift" if requant is not None else None)
+    plan = plan_conv_layer(
+        (int(x.shape[1]), int(x.shape[2])), int(x.shape[3]),
+        int(w.shape[0]), int(w.shape[3]), stride=stride, padding=padding,
+        groups=groups, relu=relu, has_bias=bias is not None,
+        requant_kind=rq_kind, policy=policy or ExecutionPolicy())
+    return run_conv2d(plan, x, w, bias, requant, requant_shift=requant_shift)

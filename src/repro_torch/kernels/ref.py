@@ -1,0 +1,32 @@
+"""The NHWC conv oracle the kernel and the model paths are held against."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+           padding: Optional[int] = None, groups: int = 1) -> torch.Tensor:
+    """NHWC conv oracle. x (N,H,W,C), w (K,K,C/groups,F) -> (N,H_O,W_O,F).
+
+    Float inputs accumulate in fp32.  Integer inputs are computed exactly
+    as a float64 convolution and cast to int32: every partial sum is an
+    integer with |psum| <= 255*127*C*K*K < 2**53, so float64 represents
+    each one exactly, whatever the order of the sum.  (No integer
+    convolution on the GPU is relied on.)
+    """
+    K = w.shape[0]
+    p = K // 2 if padding is None else padding
+    integer = not x.is_floating_point()
+    dt = torch.float64 if integer else torch.float32
+    xc = x.to(dt).permute(0, 3, 1, 2)
+    wc = w.to(dt).permute(3, 2, 0, 1)
+    if x.is_cuda and not integer and torch.backends.cudnn.allow_tf32:
+        raise RuntimeError(
+            "the fp32 oracle needs torch.backends.cudnn.allow_tf32 = False "
+            "(repro_torch.engine.policy.fp32_ieee() sets it)")
+    out = F.conv2d(xc, wc, stride=stride, padding=p, groups=groups)
+    out = out.permute(0, 2, 3, 1).contiguous()
+    return out.to(torch.int32) if integer else out

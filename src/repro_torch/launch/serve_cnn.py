@@ -1,0 +1,202 @@
+"""Serve the paper's CNNs through the port's bucketed Server.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_cnn --arch vgg16 \\
+      --int8 --buckets 1,4,8 --requests 32 --device cuda --check
+
+Port of ``repro/launch/serve_cnn.py:55-265``.  Builds one
+``repro_torch.serve.Server`` from a ``ServeConfig``: seeded random params
+(``init_cnn``), on the int8 lane quantized and calibrated on a sample
+burst, one warmed executable per bucket, then serves a deterministic
+synthetic request stream (``data.pipeline.SyntheticRequestStream``)
+through pad-and-bucket admission — inline (``--producers 0``,
+deterministic) or through producer threads feeding the flush worker.
+``--device`` defaults to ``cuda``; without a card, pass ``--device cpu``
+to run the plain PyTorch path.  ``--check`` exits non-zero unless request
+conservation holds, every executable was built once and, inline, every
+bucket flushed.  The fault-injection flags and fallback lanes of the JAX
+launcher are not ported yet.
+"""
+
+import argparse
+import json
+import sys
+
+import torch
+
+from repro_torch.configs import CNN_REGISTRY, CNN_SMOKES
+from repro_torch.data.pipeline import SyntheticRequestStream
+from repro_torch.engine import SUBSTRATES, ExecutionPolicy, plan_model
+from repro_torch.engine.policy import fp32_ieee, resolve_device
+from repro_torch.kernels import trim_conv2d as kernel
+from repro_torch.serve import OVERLOAD_POLICIES, ServeConfig, Server
+
+
+def make_stream(cfg, args, buckets):
+    """The synthetic request stream for one run: the bursts process cycles
+    the bucket sizes with gaps past the flush deadline, so every bucket
+    flushes at least once."""
+    return SyntheticRequestStream(
+        hw=cfg.input_hw,
+        channels=cfg.layers[0].M,
+        n_classes=cfg.n_classes,
+        n_requests=args.requests,
+        rate_hz=args.rate,
+        seed=args.seed,
+        process=args.arrival,
+        burst_sizes=tuple(buckets),
+        gap_s=4.0 * args.max_delay_ms / 1e3,
+        dtype="uint8" if args.int8 else "float32",
+    )
+
+
+def build_server(cfg, policy, serve_config, *, seed=0, calib_batch=8,
+                 device="cuda"):
+    """ModelPlan -> seeded params (+ int8 quantization and per-channel
+    requant calibration on a sample burst) -> a warm Server on
+    ``device``.  ``device="cuda"`` without a card raises."""
+    dev = resolve_device(device)
+    plan = plan_model(cfg, policy)
+    params = plan.init(seed, dev)
+    if serve_config.datapath == "float":
+        return Server.from_plan(plan, params, serve_config, device=dev)
+    sample = SyntheticRequestStream(
+        hw=cfg.input_hw, channels=cfg.layers[0].M, n_classes=cfg.n_classes,
+        seed=seed, dtype="uint8").sample_batch(calib_batch)
+    qparams, _ = plan.quantize(params)
+    requant = plan.calibrate_requant(qparams,
+                                     torch.from_numpy(sample).to(dev))
+    return Server.from_plan(plan, qparams, serve_config, requant=requant,
+                            device=dev)
+
+
+def check_run(server, metrics, n_requests, *, expect_all_buckets) -> list:
+    """The --check assertions; returns a list of failure strings."""
+    fails = []
+    tot = metrics.snapshot()["totals"]
+    if tot["submitted"] != n_requests:
+        fails.append(f"submitted {tot['submitted']} != offered {n_requests}")
+    failed = tot.get("failed", 0)
+    if tot["images"] + tot["shed"] + tot["expired"] + failed \
+            != tot["submitted"]:
+        fails.append(
+            "conservation violated: served %d + shed %d + expired %d + "
+            "failed %d != submitted %d"
+            % (tot["images"], tot["shed"], tot["expired"], failed,
+               tot["submitted"]))
+    statuses = [r.status for r in metrics.requests]
+    if any(s == "pending" for s in statuses):
+        fails.append(f"{statuses.count('pending')} requests left pending")
+    rids = [r.rid for r in metrics.requests]
+    if len(set(rids)) != len(rids):
+        fails.append("duplicate request ids")
+    for r in metrics.requests:
+        if r.status == "served" and r.result is None:
+            fails.append(f"request {r.rid} served without a result")
+            break
+    if expect_all_buckets:
+        for b in server.engine.buckets:
+            if metrics.flushes(b) < 1:
+                fails.append(f"bucket {b} never flushed")
+    bad = {k: v for k, v in server.engine.compile_counts.items() if v != 1}
+    if bad:
+        fails.append(f"executables built more than once: {bad}")
+    if not metrics.snapshot()["per_bucket"]:
+        fails.append("metrics snapshot is empty")
+    return fails
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", choices=sorted(CNN_REGISTRY), default="vgg16")
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny arch variant (CNN_SMOKES)")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the int8 lane (fused per-channel requant)")
+    ap.add_argument("--substrate", choices=list(SUBSTRATES), default="auto",
+                    help="auto/kernel: the CUDA kernel on the card; "
+                         "oracle: the plain PyTorch version")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--buckets", default="1,4,8",
+                    help="static batch buckets, comma-separated")
+    ap.add_argument("--max-delay-ms", type=float, default=5.0,
+                    help="deadline: oldest request ships within this")
+    ap.add_argument("--queue-capacity", type=int, default=0,
+                    help="bounded admission queue; 0 = unbounded")
+    ap.add_argument("--overload", choices=list(OVERLOAD_POLICIES),
+                    default="block", help="full-queue policy")
+    ap.add_argument("--request-timeout-ms", type=float, default=None,
+                    help="per-request deadline for queued work")
+    ap.add_argument("--producers", type=int, default=0,
+                    help="producer threads (0 = inline open loop)")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="mean arrival rate (req/s) for poisson/uniform")
+    ap.add_argument("--arrival", choices=("poisson", "uniform", "bursts"),
+                    default="bursts")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="experiments/serve_torch/metrics.json")
+    ap.add_argument("--check", action="store_true",
+                    help="assert conservation, build-once and (inline) a "
+                         "flush per bucket; exit non-zero on failure")
+    args = ap.parse_args()
+
+    fp32_ieee()
+    dev = resolve_device(args.device)
+    policy = ExecutionPolicy(substrate=args.substrate)
+    serve_config = ServeConfig.from_args(args)
+    cfg = (CNN_SMOKES if args.smoke else CNN_REGISTRY)[args.arch]
+
+    server = build_server(cfg, policy, serve_config, seed=args.seed,
+                          device=dev)
+    # Images are made before serving starts (set-up, not serving): at full
+    # width making one takes longer than the flush deadline.
+    items = list(make_stream(cfg, args, serve_config.buckets))
+    kernel.LAUNCHES = 0
+    try:
+        metrics = server.run_stream(items, producers=args.producers)
+    finally:
+        server.close()
+    launches = kernel.LAUNCHES
+    snap = metrics.snapshot()
+    extra = {
+        "arch": cfg.name,
+        "datapath": serve_config.datapath,
+        "arrival": args.arrival,
+        "requests": args.requests,
+        "max_delay_ms": args.max_delay_ms,
+        "producers": args.producers,
+        "plan": list(server.engine.plan.describe()),
+        "executables": dict(server.engine.compile_counts),
+        "kernel_launches": launches,
+    }
+    payload = metrics.write(args.out, extra=extra, device=dev)
+
+    tot = snap["totals"]
+    mode = (f"{args.producers} producers" if args.producers
+            else "inline open loop")
+    print(f"[serve_cnn] {cfg.name} {serve_config.datapath} on {dev} "
+          f"buckets={list(serve_config.buckets)} ({mode}) "
+          f"served {tot['images']}/{tot['submitted']} "
+          f"(shed {tot['shed']}, expired {tot['expired']}) in "
+          f"{tot.get('wall_s', 0):.3f}s, p99 {tot['p99_ms']:.1f} ms, "
+          f"{launches} conv kernel launches")
+    for b, rec in snap["per_bucket"].items():
+        print(f"[serve_cnn]   bucket {b:>3}: {rec['flushes']} flushes, "
+              f"p99 {rec['p99_ms']:.2f} ms")
+    print(f"[serve_cnn] wrote {args.out} ({len(json.dumps(payload))} bytes)")
+
+    if args.check:
+        fails = check_run(server, metrics, args.requests,
+                          expect_all_buckets=args.producers == 0)
+        if fails:
+            for f in fails:
+                print(f"[serve_cnn] CHECK FAILED: {f}", file=sys.stderr)
+            sys.exit(1)
+        print("[serve_cnn] check OK: request conservation holds, every "
+              "executable built exactly once"
+              + ("" if args.producers else ", every bucket flushed"))
+
+
+if __name__ == "__main__":
+    main()

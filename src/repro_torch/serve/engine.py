@@ -1,0 +1,264 @@
+"""The serving core: one executable per (plan, bucket), built once.
+
+Port of ``repro/serve/engine.py:39-373``.  :class:`ServeEngine` owns an
+executable cache keyed by ``{backend}-{device_kind}`` plus the workload
+coordinates (arch, lane, bucket).  For CNN serving it holds one callable
+per (ModelPlan, batch bucket) from ``ModelPlan.executable_for``; building
+it loads the kernel library, and the engine makes one warm call on zero
+images with the real params, so the first request pays for no build.
+``compile_counts`` is the compile-once ledger.
+
+Staging (:meth:`ServeEngine.stage`) copies each padded batch through
+pinned host memory with ``non_blocking=True``, so the Server's flush
+worker overlaps batch k+1's copy with batch k's kernels.  Outputs stay on
+the device until the Server's hand-off (``out.cpu()``).
+"""
+
+from __future__ import annotations
+
+import re
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.engine.policy import fp32_ieee, resolve_device
+from repro_torch.serve.batching import pad_batch
+from repro_torch.serve.config import DATAPATHS
+from repro_torch.serve.faults import (CircuitBreaker, FaultInjector, Lane,
+                                      RetryPolicy, with_retries)
+
+
+class ServeEngine:
+    """Compile-once executable cache + bucketed CNN inference."""
+
+    def __init__(self, name: str = "serve",
+                 buckets: Sequence[int] = (1, 4, 16, 64), device="cuda"):
+        self.name = name
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.device = resolve_device(device)
+        self._execs: Dict[str, Any] = {}
+        #: key -> number of times its build ran (the no-rebuild ledger:
+        #: every value must stay 1 for the life of the engine).
+        self.compile_counts: Dict[str, int] = {}
+        self._plan = None
+        self._datapath = "float"
+        #: degradation order: lanes[0] is the primary datapath (fallback
+        #: lanes arrive with the port's fault plane).
+        self.lanes: List[Lane] = []
+        self._active: Dict[int, int] = {}  # bucket -> active lane index
+        self.breaker = CircuitBreaker()
+        self.injector: Optional[FaultInjector] = None
+        #: the int5 wire payload; the Server reads it (not ported yet).
+        self.wire = None
+        self.retry = RetryPolicy()
+        self.on_retry: Optional[Callable[[], None]] = None
+        self._retry_sleep: Callable[[float], None] = time.sleep
+        self.degradations: List[dict] = []
+
+    # -- the executable cache -------------------------------------------
+
+    def executable_key(self, *parts: object) -> str:
+        """Cache key for one executable: ``{backend}-{device_kind}`` stamp
+        + the workload coordinates (arch, lane, bucket)."""
+        if self.device.type == "cuda":
+            kind = torch.cuda.get_device_name(self.device)
+        else:
+            kind = "cpu"
+        slug = re.sub(r"[^A-Za-z0-9_.-]+", "-", kind)
+        stamp = f"{self.device.type}-{slug}"
+        return " ".join((stamp,) + tuple(str(p) for p in parts))
+
+    def executable(self, key: str, build: Callable[[], Any]) -> Any:
+        """Compile-once registry: ``build`` runs at most once per key."""
+        if key not in self._execs:
+            self._execs[key] = build()
+            self.compile_counts[key] = self.compile_counts.get(key, 0) + 1
+        return self._execs[key]
+
+    # -- CNN bucket serving ---------------------------------------------
+
+    @classmethod
+    def build_for_plan(
+        cls,
+        plan,
+        params,
+        *,
+        buckets: Sequence[int] = (1, 4, 16, 64),
+        datapath: str = "float",
+        requant: Optional[Sequence[Tuple[Any, Any]]] = None,
+        warm: bool = True,
+        device="cuda",
+    ) -> "ServeEngine":
+        """A serving engine for one ModelPlan on ``device``.
+
+        ``params`` are the float params ("float") or the quantized int8
+        params ("int8"), already on ``device``.  The int8 lane requires
+        calibrated ``requant`` pairs: the dynamic-shift path requantizes
+        off the whole batch's maximum, so a padded bucket would change
+        per-image outputs.  ``warm=True`` builds and warms every bucket's
+        executable before the first request.
+        """
+        if datapath not in DATAPATHS:
+            raise ValueError(f"datapath {datapath!r} not in {DATAPATHS}")
+        if datapath == "int8" and requant is None:
+            raise ValueError(
+                "int8 serving requires calibrated requant pairs: the "
+                "dynamic (uncalibrated) requant path depends on batch "
+                "composition and cannot serve padded buckets bit-faithfully")
+        fp32_ieee()
+        eng = cls(name=f"{plan.cfg.name}.{datapath}", buckets=buckets,
+                  device=device)
+        eng._plan = plan
+        eng._datapath = datapath
+        rq = None if requant is None else [tuple(p) for p in requant]
+        eng.lanes = [Lane(datapath, datapath, params, rq)]
+        if warm:
+            eng.warmup()
+        return eng
+
+    @property
+    def plan(self):
+        """The ModelPlan this engine serves."""
+        return self._plan
+
+    # -- lanes + the circuit breaker ------------------------------------
+
+    def active_lane(self, bucket: int) -> int:
+        """Index of the lane currently serving ``bucket`` (0 = primary)."""
+        return self._active.get(int(bucket), 0)
+
+    def lane_of(self, bucket: int) -> Lane:
+        return self.lanes[self.active_lane(bucket)]
+
+    def _lane_exec(self, lane: Lane, bucket: int):
+        plan = self._plan
+        if lane.substrate is not None:
+            from repro_torch.engine import plan_model
+
+            plan = plan_model(plan.cfg,
+                              plan.policy.with_overrides(
+                                  substrate=lane.substrate),
+                              c_in=plan.layers[0].c_in)
+        key = self.executable_key(plan.cfg.name, lane.name, f"n{bucket}")
+
+        def build():
+            ex = with_retries(
+                lambda: plan.executable_for(int(bucket), lane.datapath,
+                                            self.device),
+                self.retry, sleep=self._retry_sleep, salt=key,
+                on_retry=self._count_retry)
+            self._warm(ex, lane, bucket)
+            return ex
+
+        return self.executable(key, build)
+
+    def _warm(self, ex, lane: Lane, bucket: int) -> None:
+        """One call on zero images with the lane's params, so the first
+        request meets a built library and allocator pools already sized."""
+        zeros = torch.zeros(ex.shape, dtype=ex.dtype, device=self.device)
+        if lane.datapath == "float":
+            ex(lane.params, zeros)
+        else:
+            ex(lane.params, zeros, lane.requant)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _count_retry(self, attempt: int, err: Exception) -> None:
+        if self.on_retry is not None:
+            self.on_retry()
+
+    def breaker_key(self, bucket: int) -> str:
+        """The circuit breaker's (arch, lane, bucket) coordinate."""
+        lane = self.lane_of(bucket)
+        arch = self._plan.cfg.name if self._plan is not None else self.name
+        return f"{arch} {lane.name} n{int(bucket)}"
+
+    def note_failure(self, bucket: int) -> Optional[dict]:
+        """Feed one batch failure to the breaker; on a trip, degrade the
+        bucket to the next lane.  Returns the degradation event, or None
+        when nothing degraded."""
+        bucket = int(bucket)
+        key = self.breaker_key(bucket)
+        if not self.breaker.failure(key):
+            return None
+        idx = self.active_lane(bucket)
+        if idx + 1 >= len(self.lanes):
+            return None  # tripped, but no lane left to degrade to
+        self._active[bucket] = idx + 1
+        ev = {"key": key, "bucket": bucket,
+              "from": self.lanes[idx].name, "to": self.lanes[idx + 1].name}
+        self.degradations.append(ev)
+        return ev
+
+    def note_success(self, bucket: int) -> None:
+        self.breaker.success(self.breaker_key(int(bucket)))
+
+    def install_resilience(
+        self,
+        *,
+        injector: Optional[FaultInjector] = None,
+        retry: Optional[RetryPolicy] = None,
+        breaker_threshold: Optional[int] = None,
+        sleep: Optional[Callable[[float], None]] = None,
+        on_retry: Optional[Callable[[], None]] = None,
+    ) -> None:
+        """Arm the retry/breaker plane (called by ``Server.__init__``)."""
+        if injector is not None:
+            self.injector = injector
+        if retry is not None:
+            self.retry = retry
+        if breaker_threshold is not None:
+            self.breaker.threshold = max(1, int(breaker_threshold))
+        if sleep is not None:
+            self._retry_sleep = sleep
+        if on_retry is not None:
+            self.on_retry = on_retry
+
+    def warmup(self) -> None:
+        """Build and warm every lane x bucket executable (idempotent)."""
+        for lane in self.lanes:
+            for b in self.buckets:
+                self._lane_exec(lane, b)
+
+    def bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"batch {n} exceeds the largest bucket {self.buckets[-1]}")
+
+    def stage(self, images: np.ndarray) -> torch.Tensor:
+        """Host->device staging for one padded batch: a pinned host copy,
+        then an asynchronous copy on the current stream, so a caller that
+        stages batch k+1 while batch k's kernels run overlaps the two."""
+        if self.injector is not None:
+            self.injector.fire_stage()
+        host = torch.from_numpy(np.ascontiguousarray(images))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def run_bucket(self, bucket: int, images) -> torch.Tensor:
+        """Run one already-padded (bucket, H, W, C) batch (a host array or
+        a ``stage``-d tensor) on the bucket's active lane; returns the
+        device output without waiting for it."""
+        lane_idx = self.active_lane(bucket)
+        lane = self.lanes[lane_idx]
+        if self.injector is not None:
+            self.injector.fire_exec(lane_idx)
+        ex = self._lane_exec(lane, bucket)
+        if isinstance(images, np.ndarray):
+            images = self.stage(images)
+        if lane.datapath == "float":
+            return ex(lane.params, images)
+        return ex(lane.params, images, lane.requant)
+
+    def infer(self, images: np.ndarray) -> np.ndarray:
+        """Pad ``n <= max(buckets)`` images into their bucket, run, slice
+        the padding back off — the synchronous single-shot entry point."""
+        n = int(images.shape[0])
+        b = self.bucket_for(n)
+        out = self.run_bucket(b, pad_batch(list(images), b))
+        return out.cpu().numpy()[:n]
