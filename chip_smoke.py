@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py            # every phase; needs one sm_90 card
     python3 chip_smoke.py --kernels  # environment, build and kernel phases
+    python3 chip_smoke.py --drift 0,1,2  # environment, build and the drift
+                                         # measurement only
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. environment: CUDA available, compute capability (9, 0), the card's
    name and power limit from ``nvidia-smi``;
-2. build: compile the CUDA kernel library from the sources in the
-   checkout (``repro_torch/csrc``) and load it;
+2. build: compile both CUDA kernel libraries (the TrIM conv and its
+   weight gradient) from the sources in the checkout
+   (``repro_torch/csrc``), one ``nvcc`` each, started together, and load
+   them;
 3. kernels: the TrIM conv kernel against its plain PyTorch version on the
    card, at the 13 VGG-16 conv shapes (batch 1) on the float lane
    (bias+ReLU) and the int8 lane (ReLU+requant; ReLU into raw int32 on
@@ -18,13 +22,38 @@ Phases (any failure exits non-zero and prints no result line):
    for bit.  Per shape: kernel ms, plain ms, ``F.conv2d`` ms (cuDNN,
    TF32 off, float shapes only, a yardstick the port never calls) and the
    bound max(operations / peak, bytes / 3.35 TB/s);
+3b. backward kernels: at the same 15 shapes, at batch 1 and at the train
+   phase's batch 8 (TF32 off), dw from the weight-gradient kernel against
+   its plain per-tap version and dx from ``trim_conv2d_input_grad`` (the
+   conv kernel at stride 1 on the flipped weights) against
+   ``torch.nn.grad.conv2d_input`` (cuDNN), both within rtol 1e-3 / atol
+   1e-3 * max|plain|.  Per shape: kernel ms, plain ms (dw),
+   ``conv2d_weight`` / ``conv2d_input`` ms (yardsticks the port never
+   calls) and the bound;
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
    of every flush launched on the kernel, bucketed == unbatched bit for
    bit, logits close to the oracle substrate on the card;
 5. serve int8: the same on the calibrated int8 lane; features bit-equal
-   to the oracle substrate on the card.
+   to the oracle substrate on the card;
+6. train: full-width VGG-16, batch 8, 4 AdamW steps from a seed-0 init
+   on the ``SyntheticImageDataset`` stream through ``make_train_step`` on
+   the default substrate, with the oracle substrate's step run on the
+   same state and batch at every step: every loss and grad_norm finite,
+   conv-kernel launches == steps x (13 forward + 12 dx; the first conv's
+   dx is never computed), weight-gradient launches == steps x 13, step-0
+   loss within rtol 1e-4 of the oracle's, every grad_norm and later loss
+   within rtol 1e-3.
+   A free-running oracle run from the same init is logged beside it; ms
+   per step and images/s.
+
+``--drift SEEDS`` runs only phases 1-2 and then, at the train phase's
+size and at peak lr 1e-3 and 1e-4, for each seed: the kernels' run
+twice, the oracle's twice and the oracle with its batch as two
+microbatches, logging each run's loss and grad_norm per step relative to
+the first oracle run, and each leaf's gradient error against a float64
+reference for the kernels and for the oracle.
 
 Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.
@@ -46,6 +75,10 @@ PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 KERNEL_SOURCE = "src/repro_torch/csrc/trim_conv2d.cu"
 REPLACES = "src/repro/kernels/trim_conv2d.py:283"
+#: The train phase: steps per run, batch, and the launcher's peak lr.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 4, 8, 1e-3
+WGRAD_SOURCE = "src/repro_torch/csrc/trim_conv2d_wgrad.cu"
+WGRAD_REPLACES = "src/repro/kernels/trim_conv2d_vjp.py:92"
 
 
 def fail(msg: str) -> None:
@@ -79,15 +112,21 @@ def phase_environment(torch):
 def phase_build():
     from repro_torch.kernels import _build
     from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
 
+    libs = [(m._LIB_NAME, m._SOURCES) for m in (kern, vjp)]
     t0 = time.perf_counter()
+    _build.build_all(libs)
     kern.load_library()
-    log(f"built+loaded {kern._LIB_NAME} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.BUILD_SECONDS.get(kern._LIB_NAME, 0.0):.1f} s)")
-    for line in (_build.build_log(kern._LIB_NAME, kern._SOURCES) or "")\
-            .splitlines():
-        if "registers" in line or "spill" in line.lower():
-            log(f"ptxas: {line.strip()}")
+    vjp.load_library()
+    log(f"built+loaded {[name for name, _ in libs]} in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc, in parallel: "
+        + ", ".join(f"{name} {_build.BUILD_SECONDS.get(name, 0.0):.1f} s"
+                    for name, _ in libs) + ")")
+    for name, sources in libs:
+        for line in (_build.build_log(name, sources) or "").splitlines():
+            if "registers" in line or "spill" in line.lower():
+                log(f"ptxas {name}: {line.strip()}")
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -118,7 +157,7 @@ def bound(macs: int, nbytes: int, integer: bool) -> dict:
 def phase_kernels(torch, reps: int):
     import torch.nn.functional as F
 
-    from repro_torch.core.model import ALEXNET_LAYERS, VGG16_LAYERS
+    from repro_torch.core.model import VGG16_LAYERS
     from repro_torch.engine import ExecutionPolicy
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.requant import scale_to_mult_shift
@@ -129,10 +168,7 @@ def phase_kernels(torch, reps: int):
     kernel_pol = ExecutionPolicy(substrate="kernel")
     oracle_pol = ExecutionPolicy(substrate="oracle")
     rows = []
-    cases = [("vgg16", i, l, 1) for i, l in enumerate(VGG16_LAYERS)]
-    cases += [("alexnet", 0, ALEXNET_LAYERS[0], 1),
-              ("alexnet", 1, ALEXNET_LAYERS[1], 2)]
-    for arch, i, l, groups in cases:
+    for arch, i, l, groups in _conv_cases():
         C, Cg = l.M * groups, l.M
         K, Fo, S, p = l.K, l.N, l.stride, l.padding
         H_O, W_O = l.H_O, l.W_O
@@ -209,6 +245,408 @@ def phase_kernels(torch, reps: int):
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) err {r['max_abs_err']:.3g}")
     return rows
+
+
+def _conv_cases():
+    from repro_torch.core.model import ALEXNET_LAYERS, VGG16_LAYERS
+
+    cases = [("vgg16", i, l, 1) for i, l in enumerate(VGG16_LAYERS)]
+    return cases + [("alexnet", 0, ALEXNET_LAYERS[0], 1),
+                    ("alexnet", 1, ALEXNET_LAYERS[1], 2)]
+
+
+def _close(got, want, what: str) -> float:
+    """Max |got - want|; fails unless within rtol 1e-3 / atol 1e-3 *
+    max|want| (fp32 sums over up to 224^2 terms in another order)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if got.shape != want.shape or not torch.allclose(
+            got, want, rtol=1e-3, atol=1e-3 * scale):
+        fail(f"{what}: max|kernel-plain| = {err:.3g} (max|plain| "
+             f"{scale:.3g})")
+    return err
+
+
+def phase_backward(torch, reps: int, batches):
+    """The weight-gradient kernel and the input gradient (through the
+    conv kernel) against their plain versions at the model's shapes, at
+    each batch of ``batches`` (one image, and the train phase's batch)."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from repro_torch.kernels.trim_conv2d_vjp import (
+        trim_conv2d_input_grad, trim_conv2d_wgrad, trim_conv2d_wgrad_plain)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for N, (arch, i, l, groups) in ((n, c) for n in batches
+                                    for c in _conv_cases()):
+        Cg, Fg = l.M, l.N // groups
+        K, S, p = l.K, l.stride, l.padding
+        H_O, W_O = l.H_O, l.W_O
+        macs = N * H_O * W_O * Fg * K * K * Cg * groups
+        x = torch.randn((N, l.H_I, l.W_I, Cg * groups), generator=gen,
+                        device=dev)
+        g = torch.randn((N, H_O, W_O, l.N), generator=gen, device=dev)
+        w = torch.randn((K, K, Cg, l.N), generator=gen, device=dev) \
+            * (2.0 / (K * K * Cg)) ** 0.5
+        xs = [x[..., j * Cg:(j + 1) * Cg].contiguous() for j in range(groups)]
+        gs = [g[..., j * Fg:(j + 1) * Fg].contiguous() for j in range(groups)]
+        ws = [w[..., j * Fg:(j + 1) * Fg].contiguous() for j in range(groups)]
+        # NCHW views and OIHW weights for cuDNN
+        xn = [t.permute(0, 3, 1, 2) for t in xs]
+        gn = [t.permute(0, 3, 1, 2) for t in gs]
+        wn = [t.permute(3, 2, 0, 1).contiguous() for t in ws]
+
+        def dw(fn=trim_conv2d_wgrad, xs=xs, gs=gs, K=K, S=S, p=p):
+            return [fn(a, b, K=K, stride=S, padding=p)
+                    for a, b in zip(xs, gs)]
+
+        def dx(gs=gs, ws=ws, l=l, S=S, p=p):
+            return [trim_conv2d_input_grad(b, c, x_hw=(l.H_I, l.W_I),
+                                           stride=S, padding=p)
+                    for b, c in zip(gs, ws)]
+
+        def dw_lib(xn=xn, gn=gn, wn=wn, S=S, p=p):
+            return [conv2d_weight(a, c.shape, b, stride=S, padding=p)
+                    for a, b, c in zip(xn, gn, wn)]
+
+        def dx_lib(xn=xn, gn=gn, wn=wn, S=S, p=p):
+            return [conv2d_input(a.shape, c, b, stride=S, padding=p)
+                    for a, b, c in zip(xn, gn, wn)]
+
+        # dw against the per-tap plain version; dx against cuDNN's input
+        # gradient (F.conv2d's own backward, independent of the zero
+        # stuffing and padding that feed the conv kernel)
+        name = f"{arch} {l.name} batch {N}"
+        err_w = max(_close(a, b, f"{name} dw")
+                    for a, b in zip(dw(), dw(trim_conv2d_wgrad_plain)))
+        err_x = max(_close(a, b.permute(0, 2, 3, 1), f"{name} dx")
+                    for a, b in zip(dx(), dx_lib()))
+        # each fp32 result's error against cuDNN in float64, relative to
+        # the largest float64 value: how accurate the kernel is next to
+        # cuDNN (logged, not checked)
+        x64, g64, w64 = ([t.double() for t in ts] for ts in (xn, gn, wn))
+        dw64 = [conv2d_weight(a, c.shape, b, stride=S, padding=p)
+                for a, b, c in zip(x64, g64, w64)]
+        dx64 = [conv2d_input(a.shape, c, b, stride=S, padding=p)
+                .permute(0, 2, 3, 1) for a, b, c in zip(x64, g64, w64)]
+        f64 = {
+            "dw": (_f64_err(dw(), dw64, lambda t: t.permute(3, 2, 0, 1)),
+                   _f64_err(dw_lib(), dw64)),
+            "dx": (_f64_err(dx(), dx64),
+                   _f64_err([t.permute(0, 2, 3, 1) for t in dx_lib()],
+                            dx64))}
+        nbytes = 4 * (x.numel() + g.numel() + w.numel())
+        common = {"arch": arch, "layer": l.name, "batch": N,
+                  "launches": groups, **bound(macs, nbytes, integer=False)}
+        rows.append({
+            **common, "kind": "dw", "max_abs_err": err_w,
+            "f64_err": f64["dw"],
+            "ms": cuda_ms(torch, dw, reps),
+            "plain_ms": cuda_ms(torch, lambda: dw(trim_conv2d_wgrad_plain),
+                                reps),
+            "library_ms": cuda_ms(torch, dw_lib, reps)})
+        rows.append({
+            **common, "kind": "dx", "max_abs_err": err_x,
+            "f64_err": f64["dx"],
+            "ms": cuda_ms(torch, dx, reps), "plain_ms": None,
+            "library_ms": cuda_ms(torch, dx_lib, reps)})
+    for r in rows:
+        plain = ("-" if r["plain_ms"] is None else f"{r['plain_ms']:.4f}")
+        log(f"backward {r['arch']:7s} {r['layer']:4s} batch {r['batch']} "
+            f"{r['kind']} ms {r['ms']:.4f} plain_ms {plain} library_ms "
+            f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}) err {r['max_abs_err']:.3g}; vs float64 "
+            f"kernel {r['f64_err'][0]:.3g} cuDNN {r['f64_err'][1]:.3g}")
+    return rows
+
+
+def _f64_err(got, want, to_want=lambda t: t) -> float:
+    """max over groups of max|got - want| / max|want| (``to_want`` lays a
+    result out as ``want``)."""
+    return max(((to_want(a).double() - b).abs().max()
+                / b.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def _row(i, ms, m) -> dict:
+    return {"step": i, "ms": ms, **{k: float(v) for k, v in m.items()}}
+
+
+def _train_run(torch, plan, state, batches, scfg, shadow=None):
+    """Train ``plan`` over ``batches``; with ``shadow`` (a second plan),
+    also run its step on the same state and batch at every step (its
+    result is discarded).  Returns (history, shadow history, last state)."""
+    from repro_torch.distributed import make_train_step
+
+    step_fn = make_train_step(plan, scfg)
+    shadow_fn = shadow and make_train_step(shadow, scfg)
+    hist, shadow_hist = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        new, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        hist.append(_row(i, (time.perf_counter() - t0) * 1e3, m))
+        if shadow_fn:
+            shadow_hist.append(_row(i, 0.0, shadow_fn(state, batch)[1]))
+        state = new
+    return hist, shadow_hist, state
+
+
+def _rel(a, b, key) -> float:
+    return abs(a[key] - b[key]) / abs(b[key])
+
+
+def _loss_f64(torch, plan, params, batch):
+    """The model's mean cross-entropy through plain PyTorch ops in the
+    params' dtype (``F.conv2d`` + bias + ReLU, the 2x2 max pool, the FC
+    head): the float64 reference for the fp32 gradients."""
+    import torch.nn.functional as F
+
+    x = batch["images"]
+    for lp, p in zip(plan.layers, params["conv"]):
+        pad = lp.k // 2 if lp.padding is None else lp.padding
+        x = F.conv2d(x.permute(0, 3, 1, 2), p["kernel"].permute(3, 2, 0, 1),
+                     p.get("bias"), stride=lp.stride, padding=pad,
+                     groups=lp.groups).permute(0, 2, 3, 1)
+        if lp.relu:
+            x = torch.relu(x)
+        if lp.pool:
+            B, H, W, C = x.shape
+            x = x[:, :H // 2 * 2, :W // 2 * 2].reshape(
+                B, H // 2, 2, W // 2, 2, C).amax(dim=(2, 4))
+    x = x.reshape(x.shape[0], -1)
+    for j, fc in enumerate(params["fc"]):
+        x = x @ fc["kernel"] + fc["bias"]
+        if j < len(params["fc"]) - 1:
+            x = torch.relu(x)
+    return F.cross_entropy(x, batch["labels"].long())
+
+
+def _leaf_grads(torch, loss_fn, params, batch, dtype):
+    """Every leaf's gradient of ``loss_fn(params, batch)`` with the params
+    and images cast to ``dtype``; returned in float64."""
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+
+    dev = tree_leaves(params)[0].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    batch["images"] = batch["images"].to(dtype)
+    live = [p.detach().to(dtype).requires_grad_(True)
+            for p in tree_leaves(params)]
+    loss = loss_fn(tree_unflatten(params, live), batch)
+    return [g.double() for g in torch.autograd.grad(loss, live)]
+
+
+def _leaf_errors(torch, plan, oracle, params, batch):
+    """Each leaf's gradient through the kernels and through the oracle
+    (cuDNN), both fp32, against :func:`_loss_f64`'s on the same params and
+    batch: [(path, kernel error, oracle error)], an error being max|diff|
+    / max|float64 leaf|."""
+    from repro_torch.core.tree import tree_leaves_with_path
+
+    paths = [path for path, _ in tree_leaves_with_path(params)]
+    want = _leaf_grads(torch, lambda p, b: _loss_f64(torch, plan, p, b),
+                       params, batch, torch.float64)
+    got, base = (_leaf_grads(torch, lambda p, b: m.loss(p, b)[0], params,
+                             batch, torch.float32) for m in (plan, oracle))
+    out = []
+    for path, k, o, d in zip(paths, got, base, want):
+        scale = max(d.abs().max().item(), 1e-30)
+        out.append((path, (k - d).abs().max().item() / scale,
+                    (o - d).abs().max().item() / scale))
+    return out
+
+
+def phase_train(torch, steps: int, batch: int, lr: float):
+    """Full-width VGG-16 trained a few steps on the kernels and, from the
+    same init, on the oracle; returns (conv-kernel launches,
+    weight-gradient launches).
+
+    The checks hold the kernels' step against the oracle's step on the
+    same state and batch at every step (the oracle shadows the kernels'
+    trajectory).  The free-running oracle run is logged
+    beside them: two free-running trajectories part further as fp32
+    rounding grows along the way (``--drift`` measures how far)."""
+    import math
+
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.data.pipeline import SyntheticImageDataset
+    from repro_torch.distributed import StepConfig, make_train_state
+    from repro_torch.engine import ExecutionPolicy, plan_model
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    dev = torch.device("cuda", 0)
+    cfg = CNN_REGISTRY["vgg16"]
+    n_conv = len(cfg.layers)
+    plan = plan_model(cfg, ExecutionPolicy())
+    oracle = plan_model(cfg, ExecutionPolicy(substrate="oracle"))
+    ds = SyntheticImageDataset(hw=cfg.input_hw, channels=cfg.layers[0].M,
+                               n_classes=cfg.n_classes, global_batch=batch,
+                               seed=0)
+    batches = [ds.batch_at(i) for i in range(steps)]   # data set-up
+    scfg = StepConfig(peak_lr=lr, warmup_steps=5, total_steps=steps)
+    state0 = make_train_state(plan, 0, dev)
+    torch.cuda.synchronize()
+    kern.LAUNCHES = vjp.WGRAD_LAUNCHES = 0
+    got, shadow, last = _train_run(torch, plan, state0, batches, scfg,
+                                   shadow=oracle)
+    launches, wlaunches = kern.LAUNCHES, vjp.WGRAD_LAUNCHES
+    free, _, _ = _train_run(torch, oracle, state0, batches, scfg)
+
+    for a, s_, f in zip(got, shadow, free):
+        log(f"train step {a['step']}: kernels loss {a['loss']!r} grad_norm "
+            f"{a['grad_norm']!r} ({a['ms']:.3f} ms); oracle on the same "
+            f"state loss {s_['loss']!r} grad_norm {s_['grad_norm']!r} (rel "
+            f"{_rel(a, s_, 'loss'):.3g}, {_rel(a, s_, 'grad_norm'):.3g}); "
+            f"free-running oracle loss {f['loss']!r} grad_norm "
+            f"{f['grad_norm']!r} ({f['ms']:.3f} ms; kernels vs it rel "
+            f"{_rel(a, f, 'loss'):.3g}, {_rel(a, f, 'grad_norm'):.3g})")
+    steady = got[1:] or got
+    ms = sum(h["ms"] for h in steady) / len(steady)
+    steady_o = free[1:] or free
+    ms_o = sum(h["ms"] for h in steady_o) / len(steady_o)
+    log(f"train vgg16 batch {batch}: {ms:.3f} ms per step, "
+        f"{batch * 1e3 / ms:.3f} images/s on the kernels (oracle "
+        f"{ms_o:.3f} ms, {batch * 1e3 / ms_o:.3f} images/s; steps 1-"
+        f"{steps - 1}); {launches} conv-kernel and {wlaunches} "
+        f"weight-gradient launches in {steps} steps")
+    for h in got + shadow + free:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"train: non-finite loss/grad_norm at step {h['step']}: {h}")
+        if h["skipped"]:
+            fail(f"train: step {h['step']} was skipped")
+    if launches != steps * (2 * n_conv - 1):
+        fail(f"train: {launches} conv-kernel launches, expected {steps} x "
+             f"({n_conv} forward + {n_conv - 1} dx)")
+    if wlaunches != steps * n_conv:
+        fail(f"train: {wlaunches} weight-gradient launches, expected "
+             f"{steps} x {n_conv}")
+    if (free[0]["loss"], free[0]["grad_norm"]) != \
+            (shadow[0]["loss"], shadow[0]["grad_norm"]):
+        fail("train: the oracle's first step differs between two runs "
+             "from the same init")
+    for a, b in zip(got, shadow):
+        for key in ("loss", "grad_norm"):
+            rtol = 1e-4 if (a["step"], key) == (0, "loss") else 1e-3
+            if not math.isclose(a[key], b[key], rel_tol=rtol):
+                fail(f"train: step {a['step']} {key} {a[key]!r} vs the "
+                     f"oracle on the same state {b[key]!r} (rtol {rtol})")
+    return launches, wlaunches
+
+
+def _branch_flips(torch, plan, params, images):
+    """Per ReLU (13 conv layers, then the FC head's), the decisions of the
+    fp32 forward through ``plan`` that differ from the float64 forward's,
+    each fed its own previous layer: [(name, ReLU flips, max-pool window
+    flips, decisions)]."""
+    import torch.nn.functional as F
+
+    from repro_torch.engine.execute import max_pool2x2, run_conv2d
+
+    def windows(y):                     # (B, H/2, W/2, C, 4) pool windows
+        B, H, W, C = y.shape
+        return y[:, :H // 2 * 2, :W // 2 * 2].reshape(
+            B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 5, 2, 4).reshape(
+            B, H // 2, W // 2, C, 4)
+
+    x32, x64, out = images.float(), images.double(), []
+    with torch.no_grad():
+        for i, (lp, p) in enumerate(zip(plan.layers, params["conv"])):
+            y32 = run_conv2d(lp, x32, p["kernel"], p.get("bias"))
+            pad = lp.k // 2 if lp.padding is None else lp.padding
+            y64 = torch.relu(F.conv2d(
+                x64.permute(0, 3, 1, 2),
+                p["kernel"].double().permute(3, 2, 0, 1),
+                p["bias"].double(), stride=lp.stride, padding=pad,
+                groups=lp.groups).permute(0, 2, 3, 1))
+            relu, pool = int(((y32 > 0) != (y64 > 0)).sum()), 0
+            if lp.pool:
+                pool = int((windows(y32).argmax(-1)
+                            != windows(y64).argmax(-1)).sum())
+            out.append((f"CL{i + 1}", relu, pool, y32.numel()))
+            if lp.pool:
+                y32, y64 = max_pool2x2(y32), max_pool2x2(y64)
+            x32, x64 = y32, y64
+        x32, x64 = x32.reshape(x32.shape[0], -1), x64.reshape(x64.shape[0], -1)
+        for j, fc in enumerate(params["fc"][:-1]):
+            x32 = torch.relu(x32 @ fc["kernel"] + fc["bias"])
+            x64 = torch.relu(x64 @ fc["kernel"].double() + fc["bias"].double())
+            out.append((f"FC{j + 1}", int(((x32 > 0) != (x64 > 0)).sum()), 0,
+                        x32.numel()))
+    return out
+
+
+def phase_drift(torch, seeds, steps: int, batch: int, lrs):
+    """How far free-running fp32 trajectories of full-width VGG-16 part.
+
+    For each peak lr and seed (the init's and the data's): the kernels'
+    run twice (K, K2), the oracle's twice (O, O2) and the oracle with its
+    batch summed as two microbatches (R, ``accum=2``: the same function,
+    its sums in another order).  Per step, each run's loss and grad_norm
+    relative to O's.  Then, on the init and on K's last state, each
+    leaf's gradient error (max|diff| / max|leaf|) through the kernels and
+    through the oracle against :func:`_loss_f64` in float64, and how many
+    ReLU and max-pool decisions of each fp32 forward differ from the
+    float64 forward's.  Nothing is asserted: this measures the spread."""
+    import dataclasses
+
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.data.pipeline import SyntheticImageDataset
+    from repro_torch.distributed import StepConfig, make_train_state
+    from repro_torch.engine import ExecutionPolicy, plan_model
+
+    dev = torch.device("cuda", 0)
+    cfg = CNN_REGISTRY["vgg16"]
+    plan = plan_model(cfg, ExecutionPolicy())
+    oracle = plan_model(cfg, ExecutionPolicy(substrate="oracle"))
+    for lr in lrs:
+        scfg = StepConfig(peak_lr=lr, warmup_steps=5, total_steps=steps)
+        for seed in seeds:
+            ds = SyntheticImageDataset(
+                hw=cfg.input_hw, channels=cfg.layers[0].M,
+                n_classes=cfg.n_classes, global_batch=batch, seed=seed)
+            batches = [ds.batch_at(i) for i in range(steps)]
+            state0 = make_train_state(plan, seed, dev)
+            runs, last = {}, {}
+            for name, p, c in (
+                    ("K", plan, scfg), ("K2", plan, scfg),
+                    ("O", oracle, scfg), ("O2", oracle, scfg),
+                    ("R", oracle, dataclasses.replace(scfg, accum=2))):
+                runs[name], _, last[name] = _train_run(torch, p, state0,
+                                                       batches, c)
+            for i, o in enumerate(runs["O"]):
+                rel = "; ".join(
+                    f"{n}-O {_rel(runs[n][i], o, 'loss'):.3g}, "
+                    f"{_rel(runs[n][i], o, 'grad_norm'):.3g}"
+                    for n in ("K", "K2", "R", "O2"))
+                log(f"drift lr {lr:g} seed {seed} step {i}: O loss "
+                    f"{o['loss']!r} grad_norm {o['grad_norm']!r}; K loss "
+                    f"{runs['K'][i]['loss']!r} grad_norm "
+                    f"{runs['K'][i]['grad_norm']!r}; rel loss, grad_norm: "
+                    f"{rel}")
+            for what, state, b in (
+                    ("init", state0, batches[0]),
+                    (f"after {steps} kernel steps", last["K"], batches[-1])):
+                if what == "init" and lr != lrs[0]:
+                    continue            # the same init and batch as before
+                imgs = torch.as_tensor(b["images"], device=dev)
+                log(f"drift lr {lr:g} seed {seed} {what}: ReLU/max-pool "
+                    f"decisions that differ from float64, kernels; oracle: "
+                    + "; ".join(
+                        f"{a[0]} {a[1]}/{a[2]}, {o[1]}/{o[2]} of {a[3]}"
+                        for a, o in zip(
+                            *(_branch_flips(torch, m, state["params"], imgs)
+                              for m in (plan, oracle)))))
+                log(f"drift lr {lr:g} seed {seed} {what}: per-leaf gradient "
+                    f"error against float64, kernels/oracle: " + ", ".join(
+                        f"{path} {ek:.3g}/{eo:.3g}" for path, ek, eo in
+                        _leaf_errors(torch, plan, oracle, state["params"],
+                                     b)))
 
 
 def _served_inputs(server):
@@ -309,19 +747,19 @@ def phase_serve(torch, datapath: str, n_requests: int):
     return launches
 
 
-def kernel_entry(rows, lane: str, launches: int) -> dict:
-    """One kernel instantiation's line entry: the sums over VGG-16's 13
-    conv shapes at batch 1 (one image's conv stack)."""
-    vgg = [r for r in rows if r["lane"] == lane and r["arch"] == "vgg16"]
+def kernel_entry(rows, name: str, launches: int, source: str = KERNEL_SOURCE,
+                 replaces: str = REPLACES) -> dict:
+    """One kernel instantiation's line entry: the sums over the VGG-16
+    conv shapes among ``rows`` (one batch's conv stack)."""
+    vgg = [r for r in rows if r["arch"] == "vgg16"]
     lib = [r["library_ms"] for r in vgg]
     return {
-        "name": f"trim_conv2d_{lane}",
+        "name": name,
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
+        "source": source,
+        "replaces": replaces,
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["lane"] == lane),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in vgg),
         "plain_ms": sum(r["plain_ms"] for r in vgg),
         "bound_ms": sum(r["bound_ms"] for r in vgg),
@@ -339,6 +777,9 @@ def main() -> None:
                     help="timed launches per kernel shape")
     ap.add_argument("--requests", type=int, default=16,
                     help="requests per serve phase")
+    ap.add_argument("--drift", metavar="SEEDS",
+                    help="only measure how far free-running train runs "
+                    "part (comma-separated seeds); no result line")
     args = ap.parse_args()
 
     if not (SRC / "repro_torch" / "csrc" / "trim_conv2d.cu").is_file():
@@ -351,15 +792,29 @@ def main() -> None:
 
     fp32_ieee()
     phase_build()
+    if args.drift:
+        phase_drift(torch, [int(v) for v in args.drift.split(",")],
+                    TRAIN_STEPS, TRAIN_BATCH, (TRAIN_LR, TRAIN_LR / 10))
+        log("stopping after the drift measurement (--drift): no result line")
+        return
     rows = phase_kernels(torch, args.reps)
+    brows = phase_backward(torch, args.reps, (1, TRAIN_BATCH))
     if args.kernels:
-        log("stopping after the kernel phase (--kernels): no result line")
+        log("stopping after the kernel phases (--kernels): no result line")
         return
     launches_f32 = phase_serve(torch, "float", args.requests)
     launches_u8 = phase_serve(torch, "int8", args.requests)
+    train_f32, train_wgrad = phase_train(torch, TRAIN_STEPS, TRAIN_BATCH,
+                                         TRAIN_LR)
     print(json.dumps({"kernels": [
-        kernel_entry(rows, "f32", launches_f32),
-        kernel_entry(rows, "u8s8", launches_u8)]}))
+        kernel_entry([r for r in rows if r["lane"] == "f32"],
+                     "trim_conv2d_f32", launches_f32 + train_f32),
+        kernel_entry([r for r in rows if r["lane"] == "u8s8"],
+                     "trim_conv2d_u8s8", launches_u8),
+        kernel_entry([r for r in brows if r["kind"] == "dw"
+                      and r["batch"] == TRAIN_BATCH],
+                     "trim_conv2d_wgrad_f32", train_wgrad,
+                     source=WGRAD_SOURCE, replaces=WGRAD_REPLACES)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,14 @@
 NVIDIA H100.
 
 The module names mirror ``repro``'s so each counterpart is easy to find:
-``kernels`` (the hand-written Hopper TrIM conv kernel, its plain PyTorch
-version, requant and the oracles), ``engine`` (execution policy, layer
-and model plans, the one dispatch site), ``nn.conv`` / ``configs`` (the
-paper's CNNs), ``data`` (the seeded request stream), ``serve`` (the
-bucketed server) and ``launch`` (the serving CLI).
+``kernels`` (the hand-written Hopper TrIM conv and weight-gradient
+kernels, their plain PyTorch versions, the conv's autograd Function,
+requant and the oracles), ``engine`` (execution policy, layer and model
+plans, the one dispatch site, the loss), ``nn.conv`` / ``configs`` (the
+paper's CNNs), ``optim`` (AdamW, schedules), ``distributed`` (the
+one-device train step and loop), ``data`` (the seeded image and request
+streams), ``serve`` (the bucketed server) and ``launch`` (the serving and
+training CLIs).
 
 Public functions keep the JAX package's layouts: NHWC activations,
 (K, K, C, F) conv weights and (in, out) FC weights.  Entry points run on

@@ -5,7 +5,11 @@ kernel dispatch site of the port: it takes a
 :class:`~repro_torch.engine.plan.ConvLayerPlan`, resolves its substrate
 against the input's device (``policy.resolve_substrate``) and runs either
 the CUDA kernel's wrapper — per conv group — or the plain oracle with the
-unfused epilogue.  The model-level entry points iterate a
+unfused epilogue.  On the float lane the kernel arm is
+:class:`~repro_torch.kernels.trim_conv2d_vjp.TrimConv2dFn`, so autograd
+runs the TrIM backward (dx through the forward kernel, dw through the
+weight-gradient kernel); the integer lanes call the wrapper directly.  The
+model-level entry points iterate a
 :class:`~repro_torch.engine.plan.ModelPlan`'s layers.
 
 Three places decide bit-exactness against the JAX package, and mirror it:
@@ -32,6 +36,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.requant import requant_mult_shift, scale_to_mult_shift
 from repro_torch.kernels.trim_conv2d import (apply_epilogue, load_library,
                                              trim_conv2d)
+from repro_torch.kernels.trim_conv2d_vjp import TrimConv2dFn
 
 __all__ = [
     "EXECUTABLE_COMPILES",
@@ -41,6 +46,7 @@ __all__ = [
     "executable_for",
     "forward",
     "forward_int8",
+    "loss",
     "max_pool2x2",
     "run_conv2d",
     "run_conv_layer",
@@ -56,6 +62,11 @@ def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_call(plan: ConvLayerPlan, x, w, bias, requant, requant_shift):
+    """One conv group on the kernel: the autograd Function on the float
+    lane (mirrors ``repro/engine/execute.py:_group_call``), the wrapper
+    on the integer lanes."""
+    if x.is_floating_point():
+        return TrimConv2dFn.apply(x, w, bias, plan)
     return trim_conv2d(
         x, w, stride=plan.stride, padding=plan.padding, bias=bias,
         relu=plan.relu, requant_shift=requant_shift, requant=requant,
@@ -133,6 +144,17 @@ def _conv_stack(plan: ModelPlan, params, images: torch.Tensor):
 def forward(plan: ModelPlan, params, images: torch.Tensor) -> torch.Tensor:
     """images (B,H,W,C) float -> logits (B, n_classes)."""
     return _head(params, _conv_stack(plan, params, images))
+
+
+def loss(plan: ModelPlan, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """Mean cross-entropy of the logits against ``batch["labels"]``;
+    returns (ce, {"ce", "acc"}).  ``batch["images"]`` (B,H,W,C) float."""
+    logits = forward(plan, params, batch["images"])
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ce = -logp.gather(-1, labels[:, None])[:, 0].mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return ce, {"ce": ce, "acc": acc}
 
 
 def serve_forward(plan: ModelPlan, params,
@@ -258,6 +280,7 @@ class Executable:
         self.shape = (batch, H, W, plan.layers[0].c_in)
         self.dtype = torch.float32 if datapath == "float" else torch.uint8
 
+    @torch.inference_mode()
     def __call__(self, params, images: torch.Tensor, requant=None):
         if tuple(images.shape) != self.shape or images.dtype != self.dtype \
                 or images.device != self.device:

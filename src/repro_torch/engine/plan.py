@@ -131,6 +131,11 @@ class ModelPlan:
 
         return execute.serve_forward(self, params, images)
 
+    def loss(self, params, batch):
+        from repro_torch.engine import execute
+
+        return execute.loss(self, params, batch)
+
     def quantize(self, params):
         from repro_torch.nn.conv import quantize_cnn
 

@@ -9,7 +9,8 @@ into ``build/repro_torch/`` at the root of the checkout, keyed by a hash
 of the sources and flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is.  The compiler's output (``-Xptxas -v``: registers,
 shared memory, spills per kernel) is kept beside the library as
-``<name>-<hash>.log``.  Nothing here runs at import time.
+``<name>-<hash>.log``.  :func:`build_all` compiles several libraries at
+once, one ``nvcc`` process each.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 #: ``<checkout>/build/repro_torch`` (``src/repro_torch/kernels`` is three
@@ -32,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-#: name -> seconds the last build of that library took (0.0: loaded as built)
+#: name -> seconds this process's build of that library took (0.0: it
+#: was built already)
 BUILD_SECONDS: Dict[str, float] = {}
 
 
@@ -71,7 +74,7 @@ def build(name: str, sources: Sequence[str]) -> pathlib.Path:
     unless the hash-keyed library already exists; returns its path."""
     out = library_path(name, sources)
     if out.exists():
-        BUILD_SECONDS[name] = 0.0
+        BUILD_SECONDS.setdefault(name, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
@@ -88,6 +91,16 @@ def build(name: str, sources: Sequence[str]) -> pathlib.Path:
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, out)  # atomic: a reader never sees a partial library
     return out
+
+
+def build_all(libs: Sequence[Tuple[str, Sequence[str]]]
+              ) -> Dict[str, pathlib.Path]:
+    """Build every ``(name, sources)`` library at once: one ``nvcc`` per
+    library, all started together; raises if any build fails."""
+    with ThreadPoolExecutor(max_workers=max(1, len(libs))) as pool:
+        futures = {name: pool.submit(build, name, srcs)
+                   for name, srcs in libs}
+    return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:

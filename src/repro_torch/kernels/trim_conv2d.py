@@ -98,11 +98,13 @@ def apply_epilogue(out: torch.Tensor, bias: Optional[torch.Tensor],
                    requant=None) -> torch.Tensor:
     """Unfused epilogue: bias -> ReLU -> power-of-two shift or
     multiplier+shift requant (both arithmetic shifts, uint8 out) — the
-    fused kernel's order, bit for bit on the integer lane."""
+    fused kernel's order, bit for bit on the integer lane.  ``torch.relu``
+    (on int32 too) has gradient 0 at exactly 0, as the custom VJP's
+    ``out > 0`` mask does."""
     if bias is not None:
         out = out + bias.to(out.dtype)
     if relu:
-        out = out.clamp_min(0)
+        out = torch.relu(out)
     if requant_shift is not None:
         out = (out >> int(requant_shift)).clamp(0, 255).to(torch.uint8)
     if requant is not None:

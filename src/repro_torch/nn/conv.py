@@ -1,15 +1,17 @@
 """The paper's CNNs (VGG-16 / AlexNet) on the TrIM conv kernel.
 
-Port of ``repro/nn/conv.py:44-156``: ``CNNConfig`` is pure architecture;
-how it runs is an ``ExecutionPolicy`` compiled by ``plan_model`` into
-per-layer plans.  Params keep the JAX package's tree and layouts:
+Port of ``repro/nn/conv.py:44-156`` (``cnn_forward`` and ``cnn_loss``
+take only ``policy``, not the deprecated ``emulate_hw``/``force_pallas``
+keywords): ``CNNConfig`` is pure architecture; how it runs is an
+``ExecutionPolicy`` compiled by ``plan_model`` into per-layer plans.
+Params keep the JAX package's tree and layouts:
 ``{"conv": [{"kernel": (K,K,C/groups,F), "bias": (F,)}], "fc":
 [{"kernel": (in,out), "bias": (out,)}]}``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -75,6 +77,24 @@ def init_cnn(generator: Union[torch.Generator, int], cfg: CNNConfig,
             "kernel": normal((dims[i], dims[i + 1]), dims[i] ** -0.5),
             "bias": torch.zeros((dims[i + 1],), dtype=dtype, device=dev)})
     return p
+
+
+def cnn_forward(params: Params, images: torch.Tensor, cfg: CNNConfig,
+                policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """images (B,H,W,C) float -> logits (B, n_classes) through the
+    planned conv stack (each conv fused with its bias and ReLU)."""
+    plan = plan_model(cfg, policy or ExecutionPolicy(),
+                      c_in=int(images.shape[-1]))
+    return plan.forward(params, images)
+
+
+def cnn_loss(params: Params, batch, cfg: CNNConfig,
+             policy: Optional[ExecutionPolicy] = None):
+    """(ce, {"ce", "acc"}) of ``batch`` = {"images", "labels"}; on the
+    kernel substrate its gradient runs the TrIM backward kernels."""
+    plan = plan_model(cfg, policy or ExecutionPolicy(),
+                      c_in=int(batch["images"].shape[-1]))
+    return plan.loss(params, batch)
 
 
 def quantize_cnn(params: Params, cfg: CNNConfig) -> Tuple[Params, List[float]]:

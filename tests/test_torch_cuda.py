@@ -1,4 +1,6 @@
-"""The port's CUDA TrIM conv kernel against its plain version, on a card.
+"""The port's CUDA kernels against their plain versions, on a card: the
+TrIM conv kernel, the weight-gradient kernel and the autograd Function
+that runs both.
 
 ``CASES``/``make_inputs`` are shared with ``test_torch_conv2d.py``, which
 holds the same cases on the CPU against the JAX package.  On the card the
@@ -98,3 +100,105 @@ def test_kernel_matches_plain_on_card(case):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
         assert torch.equal(got, want)
+
+
+# (N, H, W, C, K, F, stride, padding): the weight-gradient kernel's cases
+# -- VGG-like K=3, the remainder rows/cols of (H+2p-K) % S > 0, AlexNet
+# CL1's K=11 S=4 (few channels, many taps per thread), K=5 with more
+# channels than one tile, filters not a multiple of 4, and a reduction
+# split across blocks.
+WGRAD_CASES = [
+    (2, 12, 12, 4, 3, 8, 1, None),
+    (2, 11, 12, 4, 3, 8, 2, 0),
+    (1, 23, 23, 3, 11, 8, 4, 0),
+    (1, 63, 63, 3, 11, 96, 4, 0),
+    (2, 13, 13, 40, 5, 36, 1, 2),
+    (2, 9, 10, 5, 3, 5, 2, 1),
+    (4, 56, 56, 64, 3, 64, 1, 1),
+]
+
+
+def wgrad_id(case):
+    N, H, W, C, K, F, S, p = case
+    return f"N{N}-{H}x{W}x{C}-K{K}-F{F}-S{S}-p{p}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGRAD_CASES, ids=wgrad_id)
+def test_wgrad_kernel_matches_plain_on_card(case):
+    """On a card: the weight-gradient kernel against its plain version,
+    within rtol 1e-4 / atol 1e-4 * max|plain| (fp32 sums over the batch
+    and the output grid, in another order and split across blocks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    fp32_ieee()
+    N, H, W, C, K, F, S, p = case
+    pp = K // 2 if p is None else p
+    H_O, W_O = (H + 2 * pp - K) // S + 1, (W + 2 * pp - K) // S + 1
+    rng = np.random.default_rng(zlib.crc32(wgrad_id(case).encode()))
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.standard_normal((N, H, W, C), np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((N, H_O, W_O, F),
+                                             np.float32)).to(dev)
+    before = vjp.WGRAD_LAUNCHES
+    got = vjp.trim_conv2d_wgrad(x, g, K=K, stride=S, padding=p)
+    torch.cuda.synchronize()
+    assert vjp.WGRAD_LAUNCHES == before + 1
+    want = vjp.trim_conv2d_wgrad_plain(x, g, K=K, stride=S, padding=p)
+    assert got.shape == want.shape == (K, K, C, F)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    # no atomics: the same inputs give the same bits
+    assert torch.equal(got, vjp.trim_conv2d_wgrad(x, g, K=K, stride=S,
+                                                  padding=p))
+
+
+# (H, W, K, stride, padding, groups)
+FN_CASES = [
+    (12, 12, 3, 1, None, 1),
+    (11, 12, 3, 2, 0, 1),
+    (13, 15, 5, 2, 2, 1),
+    (23, 23, 11, 4, 0, 1),
+    (9, 12, 3, 2, 1, 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FN_CASES, ids=str)
+def test_trim_conv2d_fn_grads_on_card(case):
+    """On a card: autograd through the kernel substrate (TrimConv2dFn:
+    forward and dx in the conv kernel, dw in the weight-gradient kernel)
+    against autograd through the plain substrate, within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    fp32_ieee()
+    H, W, K, S, p, groups = case
+    C, F = 4, 8
+    rng = np.random.default_rng(zlib.crc32(str(case).encode()))
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.standard_normal((2, H, W, C), np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, K, C // groups, F),
+                                             np.float32))
+    b = torch.from_numpy(rng.standard_normal(F, np.float32))
+
+    def grads(substrate):
+        xs, ws, bs = (t.to(dev).requires_grad_(True) for t in (x, w, b))
+        out = port_conv(xs, ws, bs, stride=S, padding=p, groups=groups,
+                        relu=True, policy=ExecutionPolicy(substrate))
+        cot = torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)
+        return torch.autograd.grad((out * cot).sum(), (xs, ws, bs))
+
+    k0, w0 = kern.LAUNCHES, vjp.WGRAD_LAUNCHES
+    got = grads("kernel")
+    torch.cuda.synchronize()
+    # per group: one forward launch, one dx launch, one dw launch
+    assert kern.LAUNCHES - k0 == 2 * groups
+    assert vjp.WGRAD_LAUNCHES - w0 == groups
+    want = grads("oracle")
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
