@@ -10,10 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. environment: CUDA available, compute capability (9, 0), the card's
    name and power limit from ``nvidia-smi``;
-2. build: compile both CUDA kernel libraries (the TrIM conv and its
-   weight gradient) from the sources in the checkout
-   (``repro_torch/csrc``), one ``nvcc`` each, started together, and load
-   them;
+2. build: compile the three CUDA kernel libraries (the TrIM conv, its
+   weight gradient and the causal conv1d) from the sources in the
+   checkout (``repro_torch/csrc``), one ``nvcc`` each, started together,
+   and load them;
 3. kernels: the TrIM conv kernel against its plain PyTorch version on the
    card, at the 13 VGG-16 conv shapes (batch 1) on the float lane
    (bias+ReLU) and the int8 lane (ReLU+requant; ReLU into raw int32 on
@@ -30,6 +30,14 @@ Phases (any failure exits non-zero and prints no result line):
    1e-3 * max|plain|.  Per shape: kernel ms, plain ms (dw),
    ``conv2d_weight`` / ``conv2d_input`` ms (yardsticks the port never
    calls) and the bound;
+3c. conv1d kernel: the causal depthwise conv1d kernel against its plain
+   version on the card, bit for bit: at the full-width Mamba shape x
+   (4, 4096, 1792), w (4, 1792) in bf16 and fp32 (as the column slice
+   ``proj[..., 1536:3328]`` of in_proj's output, which is what the path
+   passes, and contiguous), the smoke shape (D = 160), and L in
+   {1, 2, 3, 257} x K in {1, 4, 6}.  At full width, per dtype: kernel
+   ms, plain ms, ``F.conv1d`` ms (cuDNN, groups = D, on an input already
+   in (B, D, L); a yardstick the port never calls) and the bound;
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
@@ -46,7 +54,19 @@ Phases (any failure exits non-zero and prints no result line):
    loss within rtol 1e-4 of the oracle's, every grad_norm and later loss
    within rtol 1e-3.
    A free-running oracle run from the same init is logged beside it; ms
-   per step and images/s.
+   per step and images/s;
+7. LM serve: full-width mamba2-130m (24 layers, d_model 768, vocab
+   50280, bf16, seed-0 random weights) through the functions of
+   ``repro_torch.launch.serve``: one prefill of 4 x 4096 tokens, then 31
+   greedy decode steps (32 generated tokens): prefill ms, decode tok/s,
+   peak device memory; conv1d launches exactly 24 (one per layer) in the
+   prefill and 0 in decode; every logit finite;
+8. LM checks, full width in fp32 (TF32 off): at batch 2 and S = 512,
+   prefill(t[:S-1]) + decode_step(t[S-1]) equal the last row of
+   prefill(t) within rtol = atol = 3e-4 (the JAX package's own serve
+   tolerance), and prefill(t)'s logits through the kernel and through the
+   oracle substrate (the plain conv) agree within 1e-6 of the largest
+   |logit| (logged: bit-equal or not).
 
 ``--drift SEEDS`` runs only phases 1-2 and then, at the train phase's
 size and at peak lr 1e-3 and 1e-4, for each seed: the kernels' run
@@ -79,6 +99,12 @@ REPLACES = "src/repro/kernels/trim_conv2d.py:283"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 4, 8, 1e-3
 WGRAD_SOURCE = "src/repro_torch/csrc/trim_conv2d_wgrad.cu"
 WGRAD_REPLACES = "src/repro/kernels/trim_conv2d_vjp.py:92"
+CONV1D_SOURCE = "src/repro_torch/csrc/trim_conv1d.cu"
+CONV1D_REPLACES = "src/repro/kernels/trim_conv1d.py:24"
+#: The LM serve phase: mamba2-130m at batch 4, a 4096-token prompt, 32
+#: generated tokens; the fp32 checks at batch 2 and 512 tokens.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "mamba2-130m", 4, 4096, 32
+LM_CHECK_BATCH, LM_CHECK_LEN = 2, 512
 
 
 def fail(msg: str) -> None:
@@ -111,14 +137,16 @@ def phase_environment(torch):
 
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels import trim_conv1d as k1d
     from repro_torch.kernels import trim_conv2d as kern
     from repro_torch.kernels import trim_conv2d_vjp as vjp
 
-    libs = [(m._LIB_NAME, m._SOURCES) for m in (kern, vjp)]
+    mods = (kern, vjp, k1d)
+    libs = [(m._LIB_NAME, m._SOURCES) for m in mods]
     t0 = time.perf_counter()
     _build.build_all(libs)
-    kern.load_library()
-    vjp.load_library()
+    for m in mods:
+        m.load_library()
     log(f"built+loaded {[name for name, _ in libs]} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, in parallel: "
         + ", ".join(f"{name} {_build.BUILD_SECONDS.get(name, 0.0):.1f} s"
@@ -747,6 +775,219 @@ def phase_serve(torch, datapath: str, n_requests: int):
     return launches
 
 
+def phase_conv1d(torch, reps: int):
+    """The conv1d kernel against its plain version on the card, bit for
+    bit, at the path's shapes and edge shapes; timed at full width.
+    Returns one row per dtype at full width."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.trim_conv1d import (trim_conv1d,
+                                                 trim_conv1d_plain)
+    from repro_torch.nn.models import build_model
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dims = build_model(get_config(LM_ARCH)).spec.dims
+    # xBC: channels 1536:3328 (D = 1792) of in_proj's 3352 outputs
+    d_in, D, n_proj, K = (dims.d_inner, dims.conv_channels,
+                          dims.in_proj_out, dims.d_conv)
+
+    def check(x, w, what):
+        got, want = trim_conv1d(x, w), trim_conv1d_plain(x, w)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            fail(f"conv1d {what}: kernel != plain (max diff {err:.3g})")
+        return got
+
+    rows, n = [], 0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev
+                                         ).to(dtype)
+        proj = rnd(LM_BATCH, LM_PROMPT, n_proj)
+        x = proj[..., d_in:d_in + D]          # the path's strided view
+        w = rnd(K, D) * K ** -0.5
+        check(x, w, f"{name} full width (view of in_proj's output)")
+        check(x.contiguous(), w, f"{name} full width (contiguous)")
+        check(rnd(LM_BATCH, LM_PROMPT, 160), rnd(K, 160), f"{name} smoke D")
+        n += 3
+        for L in (1, 2, 3, 257):
+            for k in (1, 4, 6):
+                check(rnd(2, L, D), rnd(k, D), f"{name} L={L} K={k}")
+                n += 1
+        x_t = x.permute(0, 2, 1).contiguous()                  # (B, D, L)
+        w_t = w.t().contiguous()[:, None, :]                   # (D, 1, K)
+        B, L = LM_BATCH, LM_PROMPT
+        nbytes = (2 * B * L * D + K * D) * x.element_size()
+        rows.append({
+            "dtype": name, "shape": (B, L, D, K), "launches": 1,
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(torch, lambda: trim_conv1d(x, w), reps),
+            "plain_ms": cuda_ms(torch, lambda: trim_conv1d_plain(x, w), reps),
+            "library_ms": cuda_ms(torch, lambda: F.conv1d(
+                x_t, w_t, groups=D, padding=K - 1)[..., :L], reps),
+            **bound(K * B * L * D, nbytes, integer=False)})
+    log(f"conv1d: kernel bit-equal to plain at {n} shapes x inputs")
+    for r in rows:
+        log(f"conv1d {r['dtype']:8s} {r['shape']} ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    return rows
+
+
+def phase_lm_serve(torch):
+    """Full-width mamba2-130m served in bf16 through the launcher's
+    functions: one prefill, then greedy decode.  Returns the conv1d
+    launches of the prefill."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import trim_conv1d as k1d
+    from repro_torch.launch.serve import (decode_executable,
+                                          prefill_executable, run_decode,
+                                          run_prefill)
+    from repro_torch.nn.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                (LM_BATCH, LM_PROMPT))
+    batch0 = {"tokens": torch.as_tensor(prompts, device=dev)}
+    cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN, dtype=cfg.dtype,
+                             device=dev)
+    eng = ServeEngine(name=f"lm-{cfg.name}", buckets=(LM_BATCH,), device=dev)
+    prefill = prefill_executable(eng, model, params, batch0, cache)
+    torch.cuda.synchronize()
+    log(f"lm serve: {cfg.name} ({cfg.param_count_estimate()} params, "
+        f"{cfg.dtype}) init + warm prefill in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1d.LAUNCHES = 0
+    logits, cache, prefill_s = run_prefill(prefill, params, batch0, cache, dev)
+    n_prefill = k1d.LAUNCHES
+    if logits.shape != (LM_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"lm serve: prefill logits {tuple(logits.shape)} not finite or "
+             "of the wrong shape")
+    tok = logits.argmax(-1)
+    decode = decode_executable(eng, model, params, tok, cache, LM_PROMPT)
+    k1d.LAUNCHES = 0
+    toks, cache, decode_s, finite = run_decode(
+        decode, params, tok, cache, LM_PROMPT, LM_GEN - 1, dev)
+    n_decode = k1d.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = LM_GEN - 1
+    log(f"lm serve: batch {LM_BATCH}, prompt {LM_PROMPT}: prefill "
+        f"{prefill_s * 1e3:.3f} ms; decode {LM_BATCH * steps / decode_s:.3f} "
+        f"tok/s ({decode_s * 1e3 / steps:.3f} ms per step, {steps} steps); "
+        f"peak device memory {peak / 2**30:.3f} GiB; conv1d launches "
+        f"{n_prefill} in the prefill, {n_decode} in decode; sample "
+        f"{torch.stack([tok] + toks, 1)[0, :8].tolist()}")
+    if not finite:
+        fail("lm serve: non-finite decode logits")
+    if n_prefill != cfg.n_layers or n_decode != 0:
+        fail(f"lm serve: {n_prefill} conv1d launches in the prefill "
+             f"(expected {cfg.n_layers}) and {n_decode} in decode (expected 0)")
+    if set(eng.compile_counts.values()) != {1}:
+        fail(f"lm serve: executables built more than once: "
+             f"{eng.compile_counts}")
+    # where the device time goes: one profiled prefill and 4 profiled
+    # decode steps, their kernel time set against the unprofiled wall
+    # times above (the profiler's own overhead stays out of the share)
+    _profile(torch, "prefill", prefill_s * 1e3,
+             lambda: prefill(params, batch0, cache))
+    _profile(torch, "decode step", decode_s * 1e3 / steps,
+             lambda: [decode(params, tok, cache, LM_PROMPT)
+                      for _ in range(4)], calls=4)
+    return n_prefill
+
+
+def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1) -> None:
+    """Log the device (kernel) time per call of ``fn`` under
+    ``torch.profiler``, its share of ``wall_ms`` (the unprofiled time of
+    one call; the rest is the device's idle share) and the kernels that
+    take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    timed = [e for e in prof.key_averages()
+             if getattr(e, "self_device_time_total", 0) > 0]
+    # kernels (device events) give the busy time; the host-side ops that
+    # launched them (aten::mul, our wrappers' kernels by name) the split
+    kernels = [e for e in timed if str(e.device_type).endswith("CUDA")]
+    ops = sorted((e for e in timed if e not in kernels),
+                 key=lambda e: -e.self_device_time_total)
+    if not kernels:
+        log(f"lm profile {what}: the profiler saw no device time "
+            "(device share not measured)")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    ours = [e for e in kernels if "trim_" in e.key]
+    top = "; ".join(
+        f"{e.key[:40]} x{e.count // calls} "
+        f"{e.self_device_time_total / 1e3 / calls:.3f} ms"
+        for e in (ops[:8] + ours))
+    log(f"lm profile {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+        f"wall (idle share {max(0.0, 1 - busy / wall_ms):.3f}); "
+        f"{sum(e.count for e in kernels) // calls} kernels; by op: {top}")
+
+
+def phase_lm_checks(torch):
+    """Full-width mamba2-130m in fp32: prefill + decode against a longer
+    prefill, and the kernel's logits against the plain conv's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine import ExecutionPolicy
+    from repro_torch.nn.models import build_model
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(LM_ARCH).with_overrides(dtype=torch.float32)
+    model = build_model(cfg)
+    oracle = build_model(cfg, policy=ExecutionPolicy("oracle"))
+    params = model.init(0, dev)
+    B, S = LM_CHECK_BATCH, LM_CHECK_LEN
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S)), device=dev)
+
+    def cache():
+        return model.init_cache(B, S, dtype=cfg.dtype, device=dev)
+
+    with torch.inference_mode():
+        full, _ = model.prefill(params, toks, cache())
+        full_o, _ = oracle.prefill(params, toks, cache())
+        _, c = model.prefill(params, toks[:, :S - 1], cache())
+        dec, _ = model.decode_step(params, toks[:, S - 1], c, S - 1)
+    torch.cuda.synchronize()
+    for name, t in (("prefill", full), ("oracle prefill", full_o),
+                    ("decode", dec)):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"lm checks: non-finite {name} logits")
+    err = (dec - full).abs().max().item()
+    if not torch.allclose(dec, full, rtol=3e-4, atol=3e-4):
+        fail(f"lm checks: prefill(t[:S-1]) + decode(t[S-1]) vs prefill(t): "
+             f"max err {err:.3g} (rtol = atol = 3e-4)")
+    scale = full_o.abs().max().item()
+    err_o = (full - full_o).abs().max().item()
+    if err_o > 1e-6 * scale:
+        fail(f"lm checks: kernel vs plain-conv prefill logits max err "
+             f"{err_o:.3g} > 1e-6 * {scale:.3g}")
+    log(f"lm checks (fp32, batch {B}, S {S}): prefill + decode vs prefill "
+        f"max|err| {err:.3g} (rtol = atol = 3e-4); kernel vs plain conv "
+        f"max|err| {err_o:.3g} of max|logit| {scale:.3g} (bit-equal: "
+        f"{bool(torch.equal(full, full_o))})")
+
+
 def kernel_entry(rows, name: str, launches: int, source: str = KERNEL_SOURCE,
                  replaces: str = REPLACES) -> dict:
     """One kernel instantiation's line entry: the sums over the VGG-16
@@ -799,6 +1040,7 @@ def main() -> None:
         return
     rows = phase_kernels(torch, args.reps)
     brows = phase_backward(torch, args.reps, (1, TRAIN_BATCH))
+    crows = phase_conv1d(torch, args.reps)
     if args.kernels:
         log("stopping after the kernel phases (--kernels): no result line")
         return
@@ -806,6 +1048,9 @@ def main() -> None:
     launches_u8 = phase_serve(torch, "int8", args.requests)
     train_f32, train_wgrad = phase_train(torch, TRAIN_STEPS, TRAIN_BATCH,
                                          TRAIN_LR)
+    lm_conv1d = phase_lm_serve(torch)
+    phase_lm_checks(torch)
+    c1 = next(r for r in crows if r["dtype"] == "bfloat16")
     print(json.dumps({"kernels": [
         kernel_entry([r for r in rows if r["lane"] == "f32"],
                      "trim_conv2d_f32", launches_f32 + train_f32),
@@ -814,7 +1059,13 @@ def main() -> None:
         kernel_entry([r for r in brows if r["kind"] == "dw"
                       and r["batch"] == TRAIN_BATCH],
                      "trim_conv2d_wgrad_f32", train_wgrad,
-                     source=WGRAD_SOURCE, replaces=WGRAD_REPLACES)]}))
+                     source=WGRAD_SOURCE, replaces=WGRAD_REPLACES),
+        {"name": "trim_conv1d_bf16", "route": "cuda",
+         "source": CONV1D_SOURCE, "replaces": CONV1D_REPLACES,
+         "launches": lm_conv1d,
+         "max_abs_err": max(r["max_abs_err"] for r in crows),
+         **{k: c1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,34 @@
+"""The configs the port runs: the paper's CNNs (``CNN_REGISTRY``,
+``CNN_SMOKES``) and the LM architectures (``get_config`` / ``get_smoke``
+by architecture id; only mamba2-130m so far).
+
+Mirrors ``repro/configs/__init__.py``.
+"""
+import torch
+
+from repro_torch.configs import mamba2_130m
+from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K, LONG_500K,
+                                      PREFILL_32K, REGISTRY, TRAIN_4K,
+                                      ModelConfig, ShapeCell, get_config,
+                                      register)
+from repro_torch.configs.cnn import (ALEXNET_SMOKE, CNN_REGISTRY, CNN_SMOKES,
+                                     VGG16_SMOKE)
+
+_SMOKES = {mamba2_130m.CONFIG.name: mamba2_130m.SMOKE}
+
+ARCH_IDS = tuple(sorted(REGISTRY))
+
+
+def get_smoke(name: str, dtype=None) -> ModelConfig:
+    """Reduced config of the same family, in fp32 unless ``dtype`` says
+    otherwise (as ``repro.configs.get_smoke``)."""
+    get_config(name)  # raises for an arch the port does not have
+    return _SMOKES[name].with_overrides(dtype=dtype or torch.float32)
+
+
+__all__ = [
+    "ALEXNET_SMOKE", "ALL_SHAPES", "ARCH_IDS", "CNN_REGISTRY", "CNN_SMOKES",
+    "DECODE_32K", "LONG_500K", "ModelConfig", "PREFILL_32K", "REGISTRY",
+    "ShapeCell", "TRAIN_4K", "VGG16_SMOKE", "get_config", "get_smoke",
+    "register",
+]

@@ -1,0 +1,129 @@
+"""ModelConfig: the LM architecture descriptor (a copy of
+``repro/configs/base.py``; the port keeps its own so it imports nothing of
+the JAX package).  The one change: ``dtype`` is a ``torch.dtype``.
+
+Only the ``ssm`` family (mamba2-130m) is registered so far; the other LM
+families arrive with their modules (ROADMAP queue 1, item 9).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) cell of the LM workloads."""
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeCell("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeCell("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeCell("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeCell("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES: Tuple[ShapeCell, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                     LONG_500K)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    vocab: int
+    n_q: int = 0
+    n_kv: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    mlp_kind: str = "swiglu"
+    norm: str = "rmsnorm"
+    rope_theta: float = 1e4
+    tie_embeddings: bool = True
+    scale_embed: bool = False    # gemma: embeddings scaled by sqrt(d_model)
+    vocab_pad_to: int = 256
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1           # layer i is MoE iff i % moe_every == moe_offset
+    moe_offset: int = 0
+    shared_expert: bool = False
+    dense_residual: bool = False
+    dense_ff: Optional[int] = None
+    capacity_factor: float = 1.25
+    moe_impl: str = "gather"
+    # SSM / hybrid
+    ssm_d_state: int = 0
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_n_groups: int = 1
+    ssm_chunk: int = 256
+    attn_every: int = 0          # hybrid: attention iff i % attn_every == attn_offset
+    attn_offset: int = 0
+    # enc-dec
+    n_enc_layers: int = 0
+    # modality frontend stub (vlm/audio): # of precomputed embedding positions
+    frontend_tokens: int = 0
+    # numerics / execution
+    dtype: Any = torch.bfloat16
+    remat: str = "dots"          # none | dots | full
+    chunk_k: int = 1024
+    block_causal: bool = False
+    scan_layers: bool = True
+    ce_impl: str = "padded"      # padded | chunked
+    decode_kv_seqshard: Any = ""
+    fsdp: bool = False
+    ssd_bf16: bool = False       # bf16 SSD within-chunk quadratic term
+    # capability markers
+    subquadratic: bool = False   # may run long_500k
+    shapes: Tuple[str, ...] = ("train_4k", "prefill_32k", "decode_32k")
+    source: str = ""
+
+    def with_overrides(self, **kw) -> "ModelConfig":
+        return replace(self, **kw)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    def param_count_estimate(self) -> int:
+        """Closed-form parameter count of the ``ssm`` family (embedding +
+        per layer: in_proj, conv, A_log/dt_bias/D, the gated norm's scale
+        and out_proj), as ``repro/configs/base.py`` counts it."""
+        if self.family != "ssm":
+            raise NotImplementedError(
+                f"{self.family!r}: only the ssm family is ported "
+                "(ROADMAP queue 1, item 9)")
+        d, v = self.d_model, self.vocab
+        d_in = self.ssm_expand * d
+        gs = self.ssm_n_groups * self.ssm_d_state
+        h = d_in // self.ssm_headdim
+        mamba = (d * (2 * d_in + 2 * gs + h) + self.ssm_d_conv * (d_in + 2 * gs)
+                 + d_in * d + 3 * h + d_in)
+        return v * d * (1 if self.tie_embeddings else 2) + self.n_layers * mamba
+
+
+#: registry of the LM configs the port runs (one entry per architecture id)
+REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  (registers the configs)
+    if name not in REGISTRY:
+        raise KeyError(
+            f"arch {name!r} is not ported: the port serves the ssm family "
+            f"({sorted(REGISTRY)}); the attention, MoE, hybrid and encdec "
+            "families are ROADMAP queue 1, item 9")
+    return REGISTRY[name]

@@ -1,7 +1,7 @@
 """Nested dict/list/tuple trees of tensors, walked as ``jax.tree_util``
-walks them: dict keys in sorted order, sequences in order, and a leaf's
-path string built as ``repro/optim/adamw.py:_path_str`` builds it
-(``conv/0/bias``)."""
+walks them: dict keys in sorted order, sequences (NamedTuples too, such as
+the Mamba cache) in order, and a leaf's path string built as
+``repro/optim/adamw.py:_path_str`` builds it (``conv/0/bias``)."""
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
@@ -44,8 +44,10 @@ def tree_map_with_path(fn: Callable, tree, *rest, prefix: str = ""):
     if isinstance(tree, dict):
         return {k: child(k, tree[k], [r[k] for r in rest])
                 for k in sorted(tree)}
-    return type(tree)(child(i, v, [r[i] for r in rest])
-                      for i, v in enumerate(tree))
+    children = [child(i, v, [r[i] for r in rest]) for i, v in enumerate(tree)]
+    if hasattr(tree, "_fields"):          # a NamedTuple takes its fields
+        return type(tree)(*children)
+    return type(tree)(children)
 
 
 def tree_map(fn: Callable, tree, *rest):

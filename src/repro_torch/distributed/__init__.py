@@ -1,9 +1,10 @@
-"""Training steps and the training loop on one device (port of the
-single-device part of ``repro/distributed``; meshes, sharding and
-compressed gradient reduction belong to a later slice)."""
+"""Training and LM serving steps and the training loop on one device
+(port of the single-device part of ``repro/distributed``; meshes,
+sharding and compressed gradient reduction belong to a later slice)."""
 
-from repro_torch.distributed.steps import (StepConfig, make_train_state,
-                                           make_train_step)
+from repro_torch.distributed.steps import (StepConfig, make_decode_step,
+                                           make_prefill_step,
+                                           make_train_state, make_train_step)
 from repro_torch.distributed.trainer import (StragglerMonitor,
                                              TrainLoopConfig, train_loop)
 
@@ -11,6 +12,8 @@ __all__ = [
     "StepConfig",
     "StragglerMonitor",
     "TrainLoopConfig",
+    "make_decode_step",
+    "make_prefill_step",
     "make_train_state",
     "make_train_step",
     "train_loop",

@@ -1,6 +1,7 @@
-"""The train step on one device: loss -> gradients (through the TrIM
-backward on the kernel substrate) -> AdamW, with gradient accumulation and
-the non-finite step skip.
+"""The steps on one device.  Training: loss -> gradients (through the
+TrIM backward on the kernel substrate) -> AdamW, with gradient
+accumulation and the non-finite step skip.  Serving an LM: the prefill and
+decode steps (``repro/distributed/steps.py:195-210``).
 
 Port of ``repro/distributed/steps.py:26-146`` for one device.  The JAX
 step is a pure function of (state, batch) under ``jit``; this one runs
@@ -111,3 +112,20 @@ def make_train_step(model, scfg: StepConfig = StepConfig(),
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
+
+
+def make_prefill_step(model) -> Callable:
+    """``prefill_step(params, batch, cache) -> (last logits, cache)`` for
+    an LM: ``batch`` holds ``tokens`` (B, S) and optionally ``lengths``
+    (B,)."""
+    def prefill_step(params, batch, cache):
+        return model.prefill(params, batch["tokens"], cache,
+                             lengths=batch.get("lengths"))
+    return prefill_step
+
+
+def make_decode_step(model) -> Callable:
+    """``decode_step(params, token, cache, pos) -> (logits, cache)``."""
+    def decode_step(params, token, cache, pos):
+        return model.decode_step(params, token, cache, pos)
+    return decode_step

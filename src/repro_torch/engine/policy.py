@@ -5,8 +5,9 @@ Port of ``repro/engine/policy.py``.  The dispatch rule lives in
 only the device of the tensor being convolved — never the machine:
 
 - ``"auto"`` / ``"kernel"``: the CUDA kernel's wrapper
-  (``kernels.trim_conv2d.trim_conv2d``), which launches the kernel on a
-  CUDA tensor and runs its plain version on a CPU tensor;
+  (``kernels.trim_conv2d.trim_conv2d``, ``kernels.trim_conv1d.trim_conv1d``),
+  which launches the kernel on a CUDA tensor and runs its plain version
+  on a CPU tensor;
 - ``"oracle"``: the plain PyTorch version on every device.
 """
 from __future__ import annotations
@@ -34,23 +35,26 @@ def resolve_substrate(substrate: str, device) -> str:
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` without a usable
-    card raises; the port never falls back to the CPU on its own."""
+    card raises; the port never falls back to the CPU on its own.
+    ``"meta"`` (shapes and dtypes, no data) is accepted for model init."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but CUDA is not available; pass "
             "device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"device must be cuda or cpu, got {device!r}")
     return dev
 
 
 def fp32_ieee() -> None:
     """Keep fp32 IEEE on the card: PyTorch's fp32 matmuls and cuDNN's fp32
-    convolutions may otherwise take TF32.  The FC head (``torch.matmul``)
-    and the fp32 oracle conv are held to full fp32."""
+    convolutions may otherwise take TF32, and bf16 matmuls reduced-
+    precision (split-K) reductions.  The FC head (``torch.matmul``), the
+    LM projections and the fp32 oracle conv are held to full fp32 sums."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 @dataclass(frozen=True)

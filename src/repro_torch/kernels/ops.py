@@ -1,10 +1,12 @@
-"""The public TrIM conv op, planned through ``repro_torch.engine``.
+"""The public TrIM ops.
 
-Port of ``repro/kernels/ops.py:trim_conv2d``: builds a single-layer
-:class:`~repro_torch.engine.plan.ConvLayerPlan` from the call's shapes and
-an :class:`~repro_torch.engine.policy.ExecutionPolicy`, then runs it
-through :func:`repro_torch.engine.execute.run_conv2d`, the one dispatch
-site.
+Port of ``repro/kernels/ops.py``.  :func:`trim_conv2d` builds a
+single-layer :class:`~repro_torch.engine.plan.ConvLayerPlan` from the
+call's shapes and an :class:`~repro_torch.engine.policy.ExecutionPolicy`,
+then runs it through :func:`repro_torch.engine.execute.run_conv2d`, the
+one dispatch site.  :func:`trim_conv1d` (the Mamba short conv) needs no
+plan: the policy's substrate alone picks the kernel's wrapper or the
+oracle.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import torch
 
 from repro_torch.engine.execute import run_conv2d
 from repro_torch.engine.plan import plan_conv_layer
-from repro_torch.engine.policy import ExecutionPolicy
+from repro_torch.engine.policy import ExecutionPolicy, resolve_substrate
+from repro_torch.kernels import ref
+from repro_torch.kernels import trim_conv1d as conv1d_kernel
 
 
 def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -43,3 +47,15 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
         groups=groups, relu=relu, has_bias=bias is not None,
         requant_kind=rq_kind, policy=policy or ExecutionPolicy())
     return run_conv2d(plan, x, w, bias, requant, requant_shift=requant_shift)
+
+
+def trim_conv1d(x: torch.Tensor, w: torch.Tensor, *,
+                policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """Causal depthwise conv. x (B,L,D), w (K,D) -> (B,L,D).
+
+    The kernel's wrapper (``kernels.trim_conv1d.trim_conv1d``) unless the
+    policy resolves to the oracle (``ref.conv1d_causal_ref``)."""
+    pol = policy or ExecutionPolicy()
+    if resolve_substrate(pol.substrate, x.device) == "oracle":
+        return ref.conv1d_causal_ref(x, w)
+    return conv1d_kernel.trim_conv1d(x, w)

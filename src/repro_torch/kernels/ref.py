@@ -1,4 +1,5 @@
-"""The NHWC conv oracle the kernel and the model paths are held against."""
+"""The oracles the kernels and the model paths are held against: the NHWC
+conv (``conv2d``) and the causal depthwise conv1d (``conv1d_causal_ref``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -30,3 +31,22 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     out = F.conv2d(xc, wc, stride=stride, padding=p, groups=groups)
     out = out.permute(0, 2, 3, 1).contiguous()
     return out.to(torch.int32) if integer else out
+
+
+def conv1d_causal_ref(x: torch.Tensor, w: torch.Tensor,
+                      acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Causal depthwise conv oracle (the Mamba short conv).
+
+    x (B, L, D), w (K, D) -> (B, L, D):
+      out[b, l, d] = sum_k x[b, l - K + 1 + k, d] * w[k, d]
+    with implicit left zero padding.  The taps are summed in order
+    k = 0..K-1 from zero, each product and each sum rounded to
+    ``acc_dtype`` (no fused multiply-add); float results are cast back to
+    ``x.dtype`` once.
+    """
+    K, L = w.shape[0], x.shape[1]
+    xp = F.pad(x.to(acc_dtype), (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
+    for k in range(K):
+        out = out + xp[:, k:k + L, :] * w[k].to(acc_dtype)
+    return out.to(x.dtype) if x.is_floating_point() else out

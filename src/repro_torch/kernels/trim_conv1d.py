@@ -1,0 +1,119 @@
+"""TrIM conv1d on Hopper: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/trim_conv1d.py`` (``_trim_conv1d_kernel`` at line
+24, driven by ``trim_conv1d_pallas`` at line 40): the causal depthwise
+conv before Mamba's SSD.  The kernel itself is
+``repro_torch/csrc/trim_conv1d.cu``; its header says what it keeps out of
+device memory and what bounds it.
+
+- :func:`trim_conv1d` is the wrapper: a CUDA tensor launches the kernel
+  (or the wrapper raises), a CPU tensor takes :func:`trim_conv1d_plain`.
+  Every launch adds one to :data:`LAUNCHES`.
+- :func:`trim_conv1d_plain` is the same function in plain PyTorch
+  (``ref.conv1d_causal_ref``): the taps summed in fp32 in order from zero,
+  each product and sum rounded on its own, one cast to ``x.dtype``, which
+  is how the kernel rounds, so the two agree bit for bit on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: Launches of the CUDA kernel since the last reset (a plain counter:
+#: callers set it to 0 before a run and read it after).
+LAUNCHES = 0
+
+#: Most taps the kernel is compiled for, and its tile: positions and
+#: channels per block (one grid axis each, at most 65535 channel tiles).
+MAX_K = 8
+TILE_L = 128
+BLOCK_D = 64
+
+_LIB_NAME = "trim_conv1d"
+_SOURCES = ("trim_conv1d.cu",)
+_BOUND: set = set()
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[2]:
+        raise ValueError(f"x must be (B, L, D) and w (K, D): "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    if not 1 <= w.shape[0] <= MAX_K:
+        raise ValueError(f"K = {w.shape[0]} taps; the kernel takes 1..{MAX_K}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"x and w must both be float32 or bfloat16, got "
+                         f"x={x.dtype}, w={w.dtype}")
+
+
+def trim_conv1d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch. x (B,L,D), w (K,D) -> (B,L,D)."""
+    _check(x, w)
+    return ref.conv1d_causal_ref(x, w)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with its ctypes
+    signatures declared; returns it."""
+    lib = _build.load(_LIB_NAME, _SOURCES)
+    if lib not in _BOUND:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.trim_conv1d.argtypes = [p, p, p, i, ll, ll, ll, i, ll, ll, p]
+        lib.trim_conv1d.restype = i
+        lib.trim_conv1d_error_string.argtypes = [i]
+        lib.trim_conv1d_error_string.restype = ctypes.c_char_p
+        for fn in ("trim_conv1d_max_k", "trim_conv1d_tile_l",
+                   "trim_conv1d_block_d"):
+            getattr(lib, fn).restype = i
+        if (lib.trim_conv1d_max_k(), lib.trim_conv1d_tile_l(),
+                lib.trim_conv1d_block_d()) != (MAX_K, TILE_L, BLOCK_D):
+            raise RuntimeError("trim_conv1d library constants differ from "
+                               "the wrapper's")
+        _BOUND.add(lib)
+    return lib
+
+
+def trim_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv. x (B, L, D), w (K, D) -> (B, L, D) in x's
+    dtype (fp32 or bf16; fp32 accumulation).
+
+    ``x`` may be a strided view whose channel stride is 1 (a column slice
+    of a wider tensor is read in place); ``w`` must be contiguous.  A CPU
+    ``x`` runs :func:`trim_conv1d_plain`; a CUDA ``x`` launches the kernel
+    on the current stream, or raises.
+    """
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return trim_conv1d_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"trim_conv1d runs on cuda or cpu, not {x.device}")
+    _check(x, w)
+    B, L, D = x.shape
+    K = int(w.shape[0])
+    if w.device != x.device or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous tensor on {x.device}")
+    if D > 1 and x.stride(2) != 1:
+        raise ValueError(f"x's channel stride is {x.stride(2)}: the kernel "
+                         "reads channels contiguously")
+    if min(x.stride(0), x.stride(1)) < 0:
+        raise ValueError(f"negative strides {x.stride()} are not handled")
+    if B > 65535 or -(-D // BLOCK_D) > 65535:
+        raise ValueError(f"batch {B} / channels {D} exceed the launch grid")
+    out = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.trim_conv1d(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                             int(x.dtype == torch.bfloat16), B, L, D, K,
+                             x.stride(0), x.stride(1), stream)
+    if rc != 0:
+        msg = lib.trim_conv1d_error_string(rc).decode()
+        raise RuntimeError(f"trim_conv1d launch failed: CUDA error {rc} "
+                           f"({msg})")
+    LAUNCHES += 1
+    return out

@@ -28,7 +28,8 @@ from repro_torch.data.pipeline import SyntheticRequestStream
 from repro_torch.engine import SUBSTRATES, ExecutionPolicy, plan_model
 from repro_torch.engine.policy import fp32_ieee, resolve_device
 from repro_torch.kernels import trim_conv2d as kernel
-from repro_torch.serve import OVERLOAD_POLICIES, ServeConfig, Server
+from repro_torch.launch.cli import serve_config_from_args, serving_parent
+from repro_torch.serve import Server
 
 
 def make_stream(cfg, args, buckets):
@@ -106,7 +107,8 @@ def check_run(server, metrics, n_requests, *, expect_all_buckets) -> list:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0],
+                                 parents=[serving_parent("1,4,8")])
     ap.add_argument("--arch", choices=sorted(CNN_REGISTRY), default="vgg16")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny arch variant (CNN_SMOKES)")
@@ -117,18 +119,6 @@ def main() -> None:
                          "oracle: the plain PyTorch version")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    ap.add_argument("--buckets", default="1,4,8",
-                    help="static batch buckets, comma-separated")
-    ap.add_argument("--max-delay-ms", type=float, default=5.0,
-                    help="deadline: oldest request ships within this")
-    ap.add_argument("--queue-capacity", type=int, default=0,
-                    help="bounded admission queue; 0 = unbounded")
-    ap.add_argument("--overload", choices=list(OVERLOAD_POLICIES),
-                    default="block", help="full-queue policy")
-    ap.add_argument("--request-timeout-ms", type=float, default=None,
-                    help="per-request deadline for queued work")
-    ap.add_argument("--producers", type=int, default=0,
-                    help="producer threads (0 = inline open loop)")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--rate", type=float, default=200.0,
                     help="mean arrival rate (req/s) for poisson/uniform")
@@ -144,7 +134,7 @@ def main() -> None:
     fp32_ieee()
     dev = resolve_device(args.device)
     policy = ExecutionPolicy(substrate=args.substrate)
-    serve_config = ServeConfig.from_args(args)
+    serve_config = serve_config_from_args(args)
     cfg = (CNN_SMOKES if args.smoke else CNN_REGISTRY)[args.arch]
 
     server = build_server(cfg, policy, serve_config, seed=args.seed,

@@ -1,0 +1,286 @@
+"""Mamba2 (SSD, state-space duality) mixer: the chunked train/prefill scan
+and the O(1) recurrent decode, with the TrIM conv1d kernel as the short
+conv (port of ``repro/nn/mamba.py``).
+
+The SSD recurrence  h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T,
+                    y_t = C_t h_t + D x_t
+is evaluated in chunks (arXiv:2405.21060 §6): a within-chunk quadratic
+term plus an inter-chunk state carried from chunk to chunk (a Python loop
+where the JAX package has ``lax.scan``).  The SSD is plain PyTorch
+einsums, as it is plain XLA in the JAX package.  The B/C groups are not
+repeated per head in memory: heads are viewed as (G, H/G).
+
+Shapes: u (B, L, d_model); internal x (B, L, H, P) with H heads of
+headdim P, state S per head, G B/C groups (G divides H).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.engine.policy import ExecutionPolicy
+from repro_torch.kernels.ops import trim_conv1d
+from repro_torch.nn.layers import Params, _normal, dense, init_dense
+
+#: the masked (above-diagonal) segment sum: exp() of it is 0; -inf would
+#: give NaN through differences of cumulative sums.
+NEG_INF = -1e30
+
+
+class MambaDims(NamedTuple):
+    d_model: int
+    d_inner: int     # expand * d_model
+    n_heads: int     # d_inner // headdim
+    headdim: int
+    d_state: int
+    n_groups: int
+    d_conv: int
+    chunk: int
+
+    @property
+    def conv_channels(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+    @property
+    def in_proj_out(self) -> int:
+        # z, x, B, C, dt
+        return 2 * self.d_inner + 2 * self.n_groups * self.d_state + self.n_heads
+
+
+def mamba_dims(d_model: int, *, expand: int = 2, headdim: int = 64,
+               d_state: int = 128, n_groups: int = 1, d_conv: int = 4,
+               chunk: int = 256) -> MambaDims:
+    d_inner = expand * d_model
+    if d_inner % headdim:
+        raise ValueError(f"d_inner {d_inner} is not a multiple of headdim "
+                         f"{headdim}")
+    return MambaDims(d_model, d_inner, d_inner // headdim, headdim, d_state,
+                     n_groups, d_conv, chunk)
+
+
+def init_mamba(gen: torch.Generator, dims: MambaDims, dtype=torch.float32,
+               device="cpu") -> Params:
+    H = dims.n_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    # dt bias initialized so softplus(dt_bias) spans [1e-3, 1e-1]
+    u = torch.rand((H,), generator=gen, **f32)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    return {
+        "in_proj": init_dense(gen, dims.d_model, dims.in_proj_out,
+                              dtype=dtype, device=device),
+        "conv1d": {"w": _normal(gen, (dims.d_conv, dims.conv_channels),
+                                dims.d_conv ** -0.5, dtype, device)},
+        "A_log": torch.log(torch.arange(1, H + 1, **f32)),
+        "dt_bias": dt_bias,
+        "D": torch.ones((H,), **f32),
+        "ssm_norm": {"scale": torch.ones((dims.d_inner,), dtype=dtype,
+                                         device=device)},
+        "out_proj": init_dense(gen, dims.d_inner, dims.d_model,
+                               std=dims.d_inner ** -0.5, dtype=dtype,
+                               device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Chunked SSD (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x (..., T) -> (..., T, T) lower-triangular segment sums:
+    out[..., t, s] = sum_{s < u <= t} x[..., u] (NEG_INF above diagonal)."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, NEG_INF)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                chunk: int, h0: Optional[torch.Tensor] = None,
+                score_dtype=torch.float32,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.
+
+    x (B, L, H, P) f32; dt (B, L, H) f32 (post-softplus); A (H,) negative;
+    B/C (B, L, G, S); D (H,); h0 optional initial state (B, H, P, S).
+    ``score_dtype``: dtype of the within-chunk quadratic term (the decay
+    statistics and the carried state stay fp32).
+    Returns (y (B, L, H, P), h_final (B, H, P, S)).
+    """
+    Bb, L, H, P = x.shape
+    G, S = B.shape[-2], B.shape[-1]
+    R = H // G
+    CS = min(chunk, L)
+    NC = -(-L // CS)
+    pad = NC * CS - L
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+
+    # heads as (G, R): the B/C group of head g*R + r is g
+    xc = x.reshape(Bb, NC, CS, G, R, P)
+    dtc = dt.reshape(Bb, NC, CS, G, R)
+    Bc = B.reshape(Bb, NC, CS, G, S)
+    Cc = C.reshape(Bb, NC, CS, G, S)
+
+    dA = dtc * A.reshape(G, R)                  # negative decay increments
+    dAcs = torch.cumsum(dA, dim=2)
+
+    # within-chunk quadratic term
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 4, 2))).to(score_dtype)
+    CB = torch.einsum("bntgs,bnugs->bngtu", Cc.to(score_dtype),
+                      Bc.to(score_dtype))                 # (B,NC,G,CS,CS)
+    scores = (CB[:, :, :, None] * Lmat
+              * dtc.permute(0, 1, 3, 4, 2)[..., None, :].to(score_dtype))
+    y_diag = torch.einsum("bngrtu,bnugrp->bntgrp", scores,
+                          xc.to(score_dtype)).float()
+
+    # per-chunk terminal states
+    decay_to_end = torch.exp(dAcs[:, :, -1:] - dAcs)       # (B,NC,CS,G,R)
+    dBx = torch.einsum("bntgrp,bntgs->bngrps",
+                       xc * (dtc * decay_to_end)[..., None], Bc)
+    chunk_decay = torch.exp(dAcs[:, :, -1])                # (B,NC,G,R)
+
+    h = (torch.zeros((Bb, G, R, P, S), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float().reshape(Bb, G, R, P, S))
+    h_prevs = []
+    for n in range(NC):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, n, ..., None, None] + dBx[:, n]
+    h_prevs = torch.stack(h_prevs, dim=1)                  # (B,NC,G,R,P,S)
+
+    # inter-chunk contribution
+    y_off = (torch.einsum("bntgs,bngrps->bntgrp", Cc, h_prevs)
+             * torch.exp(dAcs)[..., None])
+    y = (y_diag + y_off).reshape(Bb, NC * CS, H, P)[:, :L]
+    y = y + x.reshape(Bb, NC * CS, H, P)[:, :L] * D[None, None, :, None]
+    return y, h.reshape(Bb, H, P, S)
+
+
+def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                    D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token recurrence. h (B,H,P,S); x (B,H,P); dt (B,H); B/C (B,G,S).
+    Returns (y (B,H,P), h_new)."""
+    Bb, H, P = x.shape
+    G, S = B.shape[1], B.shape[2]
+    R = H // G
+    decay = torch.exp(dt * A)                                  # (B,H)
+    upd = torch.einsum("bgrp,bgs->bgrps", (dt[..., None] * x).reshape(
+        Bb, G, R, P), B).reshape(Bb, H, P, S)
+    h_new = h * decay[..., None, None] + upd
+    y = torch.einsum("bgs,bgrps->bgrp", C, h_new.reshape(Bb, G, R, P, S))
+    return y.reshape(Bb, H, P) + x * D[None, :, None], h_new
+
+
+# ---------------------------------------------------------------------------
+# Full mixer (block-level API)
+# ---------------------------------------------------------------------------
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor   # (B, d_conv-1, conv_channels) trailing conv window
+    ssm: torch.Tensor    # (B, H, P, S) recurrent state, fp32
+
+
+def init_mamba_cache(batch: int, dims: MambaDims, dtype=torch.float32,
+                     device="cpu") -> MambaCache:
+    return MambaCache(
+        torch.zeros((batch, dims.d_conv - 1, dims.conv_channels),
+                    dtype=dtype, device=device),
+        torch.zeros((batch, dims.n_heads, dims.headdim, dims.d_state),
+                    dtype=torch.float32, device=device))
+
+
+def _gated_rmsnorm(params: Params, y: torch.Tensor, z: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    yf = y.float() * F.silu(z.float())
+    var = (yf * yf).mean(dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(var + eps)
+            * params["scale"].float()).to(y.dtype)
+
+
+def _split_proj(proj: torch.Tensor, dims: MambaDims):
+    """z, xBC, dt: column views of in_proj's output (no copies)."""
+    d_in, gs = dims.d_inner, dims.n_groups * dims.d_state
+    z = proj[..., :d_in]
+    xBC = proj[..., d_in:d_in + d_in + 2 * gs]
+    dt = proj[..., d_in + d_in + 2 * gs:]
+    return z, xBC, dt
+
+
+def mamba_mixer(params: Params, u: torch.Tensor, dims: MambaDims, *,
+                mode: str = "train", cache: Optional[MambaCache] = None,
+                score_dtype=torch.float32,
+                policy: Optional[ExecutionPolicy] = None,
+                ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
+    """u (B, L, d_model) -> (out, new_cache).
+
+    mode "train"/"prefill": the short conv through ``ops.trim_conv1d``
+    under ``policy`` (on ``xBC``, a strided column view of in_proj's
+    output), then the chunked SSD; prefill also returns the terminal
+    cache.  mode "decode": L == 1, the conv as an fp32 sum over the cached
+    window (no kernel, as in the JAX package) and one recurrent step.
+    """
+    Bb, L, _ = u.shape
+    d_in, gs = dims.d_inner, dims.n_groups * dims.d_state
+    proj = dense(params["in_proj"], u)
+    z, xBC, dt_raw = _split_proj(proj, dims)
+    A = -torch.exp(params["A_log"].float())
+    dt = torch.logaddexp(dt_raw.float() + params["dt_bias"].float(),
+                         torch.zeros((), device=u.device))   # softplus
+
+    new_cache = None
+    if mode == "decode":
+        if cache is None or L != 1:
+            raise ValueError("decode takes one token and a cache")
+        window = torch.cat([cache.conv.to(xBC.dtype), xBC], dim=1)  # (B,K,CC)
+        conv_out = torch.einsum("bkc,kc->bc", window.float(),
+                                params["conv1d"]["w"].float())
+        # round to the compute dtype BEFORE the activation, as the
+        # train path does (trim_conv1d returns x.dtype, then silu)
+        xBC_c = F.silu(conv_out.to(xBC.dtype))[:, None]
+        new_conv = window[:, 1:]
+        x = xBC_c[..., :d_in].reshape(Bb, dims.n_heads, dims.headdim)
+        Bm = xBC_c[..., d_in:d_in + gs].reshape(Bb, dims.n_groups,
+                                                dims.d_state)
+        Cm = xBC_c[..., d_in + gs:].reshape(Bb, dims.n_groups, dims.d_state)
+        y, h_new = ssd_decode_step(
+            cache.ssm, x.float(), dt[:, 0], A, Bm.float(), Cm.float(),
+            params["D"])
+        y = y.reshape(Bb, 1, d_in).to(u.dtype)
+        new_cache = MambaCache(new_conv, h_new)
+    elif mode in ("train", "prefill"):
+        xBC_c = F.silu(trim_conv1d(xBC, params["conv1d"]["w"].to(xBC.dtype),
+                                   policy=policy))
+        x = xBC_c[..., :d_in].reshape(Bb, L, dims.n_heads, dims.headdim)
+        Bm = xBC_c[..., d_in:d_in + gs].reshape(Bb, L, dims.n_groups,
+                                                dims.d_state)
+        Cm = xBC_c[..., d_in + gs:].reshape(Bb, L, dims.n_groups,
+                                            dims.d_state)
+        y, h_last = ssd_chunked(x.float(), dt, A, Bm.float(), Cm.float(),
+                                params["D"], chunk=dims.chunk,
+                                score_dtype=score_dtype)
+        y = y.reshape(Bb, L, d_in).to(u.dtype)
+        if mode == "prefill":
+            if cache is None:
+                raise ValueError("prefill needs a cache to fill")
+            # trailing conv window of the raw (pre-activation) stream,
+            # left-padded with zeros when L < d_conv - 1
+            keep = dims.d_conv - 1
+            tail = xBC[:, max(L - keep, 0):]
+            tail = F.pad(tail, (0, 0, keep - tail.shape[1], 0))
+            new_cache = MambaCache(tail.to(cache.conv.dtype), h_last)
+    else:
+        raise ValueError(f"mode {mode!r} not in train/prefill/decode")
+
+    y = _gated_rmsnorm(params["ssm_norm"], y, z)
+    return dense(params["out_proj"], y), new_cache

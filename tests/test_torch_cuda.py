@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on a card: the
-TrIM conv kernel, the weight-gradient kernel and the autograd Function
-that runs both.
+TrIM conv kernel, the weight-gradient kernel, the autograd Function that
+runs both, and the causal conv1d kernel (bit for bit).
 
 ``CASES``/``make_inputs`` are shared with ``test_torch_conv2d.py``, which
 holds the same cases on the CPU against the JAX package.  On the card the
@@ -202,3 +202,64 @@ def test_trim_conv2d_fn_grads_on_card(case):
     want = grads("oracle")
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
+
+
+# (B, L, D, K): the CPU cases of test_torch_conv1d.py (L < K-1, L == 1,
+# ragged tiles, D = 160), K up to 8, and rows longer than one block
+CONV1D_CASES = [
+    (1, 1, 8, 4), (2, 2, 5, 4), (1, 3, 12, 6), (3, 17, 1, 3),
+    (2, 33, 40, 4), (1, 64, 24, 1), (2, 70, 33, 6), (1, 41, 160, 4),
+    (3, 48, 160, 2), (1, 9, 7, 5), (2, 300, 130, 8), (1, 257, 1792, 4),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CONV1D_CASES,
+                         ids=lambda c: "B{}-L{}-D{}-K{}".format(*c))
+def test_conv1d_kernel_bit_equal_to_plain_on_card(case, dtype):
+    """On a card: the conv1d kernel against its plain version, bit for
+    bit (both sum the taps in fp32 in order, without FMA, and round once),
+    on a contiguous input and on a column slice of a wider tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv1d as k1
+
+    B, L, D, K = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(zlib.crc32(str(case).encode()))
+    dev = torch.device("cuda")
+    wide = torch.from_numpy(rng.standard_normal((B, L, D + 9), np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, D), np.float32))
+    wide, w = wide.to(dev, dt), w.to(dev, dt)
+    for x in (wide[..., :D].contiguous(), wide[..., 3:3 + D]):
+        before = k1.LAUNCHES
+        got = k1.trim_conv1d(x, w)
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES == before + 1
+        want = k1.trim_conv1d_plain(x, w)
+        assert got.dtype == dt and got.shape == (B, L, D)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_conv1d_kernel_offsets_past_2_31_on_card():
+    """On a card: an input of more than 2**31 elements (64-bit offsets);
+    the last rows, which depend only on the last K-1+n positions, are
+    held bit for bit against the plain version on that tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv1d as k1
+
+    D, K, n = 128, 4, 300
+    L = 2 ** 31 // D + n
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, L, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    w = torch.randn((K, D), generator=gen, device=dev, dtype=torch.bfloat16)
+    assert x.numel() > 2 ** 31
+    got = k1.trim_conv1d(x, w)[:, -n:]
+    want = k1.trim_conv1d_plain(x[:, -(n + K - 1):], w)[:, -n:]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
