@@ -10,10 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. environment: CUDA available, compute capability (9, 0), the card's
    name and power limit from ``nvidia-smi``;
-2. build: compile the three CUDA kernel libraries (the TrIM conv, its
-   weight gradient and the causal conv1d) from the sources in the
-   checkout (``repro_torch/csrc``), one ``nvcc`` each, started together,
-   and load them;
+2. build: compile the four CUDA kernel libraries (the TrIM conv, its
+   weight gradient, the causal conv1d and flash attention) from the
+   sources in the checkout (``repro_torch/csrc``), one ``nvcc`` each,
+   started together, and load them;
 3. kernels: the TrIM conv kernel against its plain PyTorch version on the
    card, at the 13 VGG-16 conv shapes (batch 1) on the float lane
    (bias+ReLU) and the int8 lane (ReLU+requant; ReLU into raw int32 on
@@ -38,6 +38,18 @@ Phases (any failure exits non-zero and prints no result line):
    {1, 2, 3, 257} x K in {1, 4, 6}.  At full width, per dtype: kernel
    ms, plain ms, ``F.conv1d`` ms (cuDNN, groups = D, on an input already
    in (B, D, L); a yardstick the port never calls) and the bound;
+3d. flash attention: the flash kernel against its plain version on the
+   card (TF32 off), fp32 within rtol = atol = 2e-5 and bf16 within 2e-2
+   and, per output row, within 4 x 2^-7 of the row's max|plain| (2-4 bf16
+   ulps; a kernel that drops one 64-key tile at decode must fail it),
+   keys past kv_length holding NaN for the kernel: ``tests/test_kernels.py``
+   FLASH_CASES at head dim 64, causal and not; GQA G = 4; a per-row
+   kv_length with a row at 0; Sq < Sk with q_offset; D = 128; and
+   granite-3-2b's full-width prefill, q (4, 4096, 8, 4, 64) causal, and
+   decode, q (4, 1, 8, 4, 64) over a (4, 4128, 8, 64) cache with
+   kv_length 4097.  At the two full-width shapes, per dtype: kernel ms,
+   plain ms, ``F.scaled_dot_product_attention`` ms (KV heads repeated; a
+   yardstick the port never calls) and the bound;
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
@@ -59,14 +71,21 @@ Phases (any failure exits non-zero and prints no result line):
    50280, bf16, seed-0 random weights) through the functions of
    ``repro_torch.launch.serve``: one prefill of 4 x 4096 tokens, then 31
    greedy decode steps (32 generated tokens): prefill ms, decode tok/s,
-   peak device memory; conv1d launches exactly 24 (one per layer) in the
-   prefill and 0 in decode; every logit finite;
+   peak device memory, a ``torch.profiler`` split; conv1d launches
+   exactly 24 (one per layer) in the prefill and 0 in decode, flash
+   launches 0; every logit finite;
 8. LM checks, full width in fp32 (TF32 off): at batch 2 and S = 512,
    prefill(t[:S-1]) + decode_step(t[S-1]) equal the last row of
    prefill(t) within rtol = atol = 3e-4 (the JAX package's own serve
    tolerance), and prefill(t)'s logits through the kernel and through the
    oracle substrate (the plain conv) agree within 1e-6 of the largest
-   |logit| (logged: bit-equal or not).
+   |logit| (logged: bit-equal or not);
+9. dense LM serve: phase 7 for full-width granite-3-2b (40 layers,
+   d_model 2048, 32 q / 8 kv heads of 64, vocab 49155, bf16, seed-0
+   random weights); flash launches exactly 40 in the prefill and 40 per
+   decode step (1240 over 31 steps), conv1d launches 0;
+10. dense LM checks: phase 8 for granite-3-2b, the kernels' logits
+   within 1e-4 of the largest |logit| of the plain attention's.
 
 ``--drift SEEDS`` runs only phases 1-2 and then, at the train phase's
 size and at peak lr 1e-3 and 1e-4, for each seed: the kernels' run
@@ -101,10 +120,32 @@ WGRAD_SOURCE = "src/repro_torch/csrc/trim_conv2d_wgrad.cu"
 WGRAD_REPLACES = "src/repro/kernels/trim_conv2d_vjp.py:92"
 CONV1D_SOURCE = "src/repro_torch/csrc/trim_conv1d.cu"
 CONV1D_REPLACES = "src/repro/kernels/trim_conv1d.py:24"
-#: The LM serve phase: mamba2-130m at batch 4, a 4096-token prompt, 32
-#: generated tokens; the fp32 checks at batch 2 and 512 tokens.
-LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "mamba2-130m", 4, 4096, 32
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:38"
+#: H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet)
+PEAK_BF16 = 989e12
+#: The LM serve phases: mamba2-130m (ssm) and granite-3-2b (dense) at
+#: batch 4, a 4096-token prompt, 32 generated tokens; the fp32 checks at
+#: batch 2 and 512 tokens.
+LM_ARCH, DENSE_ARCH = "mamba2-130m", "granite-3-2b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
 LM_CHECK_BATCH, LM_CHECK_LEN = 2, 512
+#: max|kernel - plain| of the fp32 check's prefill logits, as a share of
+#: max|logit|: the conv1d kernel is bit-equal to its plain version (1e-6
+#: leaves room for nothing but reordered matmuls); the flash kernel sums
+#: each score and output in another order than the plain einsums, through
+#: 40 layers (1e-4, about 800 fp32 ulps of the largest logit)
+LM_KERNEL_TOL = {LM_ARCH: 1e-6, DENSE_ARCH: 1e-4}
+#: the bf16 flash lane's row check: max|kernel - plain| over a row of D
+#: outputs within BF16_ROW_ULPS x 2^-7 x the row's max|plain| (2^-7 x is
+#: one to two bf16 ulps).  The kernel rounds P to bf16 for P.V and its
+#: output once, the plain version only its output; a flat atol of 2e-2 is
+#: most of a typical |out| at decode (about 0.026 over 4097 keys), where
+#: this limit is about 2e-3.
+BF16_ROW_ULPS = 4
+#: the planted fault the row check must see: one 64-key tile dropped from
+#: the full-width decode's keys, at key DROP_TILE
+DROP_TILE = 1024
 
 
 def fail(msg: str) -> None:
@@ -137,11 +178,12 @@ def phase_environment(torch):
 
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import trim_conv1d as k1d
     from repro_torch.kernels import trim_conv2d as kern
     from repro_torch.kernels import trim_conv2d_vjp as vjp
 
-    mods = (kern, vjp, k1d)
+    mods = (kern, vjp, k1d, fa)
     libs = [(m._LIB_NAME, m._SOURCES) for m in mods]
     t0 = time.perf_counter()
     _build.build_all(libs)
@@ -172,10 +214,12 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(macs: int, nbytes: int, integer: bool) -> dict:
-    """The least time for one call: operations over the peak rate and
-    bytes (each input read once, each output written once) over HBM."""
-    ops_ms = 2.0 * macs / (PEAK_INT8 if integer else PEAK_FP32) * 1e3
+def bound(macs: int, nbytes: int, integer: bool, peak: float = 0.0) -> dict:
+    """The least time for one call: operations over the peak rate (int8,
+    fp32 or ``peak``) and bytes (each input read once, each output
+    written once) over HBM."""
+    peak = peak or (PEAK_INT8 if integer else PEAK_FP32)
+    ops_ms = 2.0 * macs / peak * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -838,14 +882,179 @@ def phase_conv1d(torch, reps: int):
     return rows
 
 
-def phase_lm_serve(torch):
-    """Full-width mamba2-130m served in bf16 through the launcher's
-    functions: one prefill, then greedy decode.  Returns the conv1d
-    launches of the prefill."""
+def _flash_cases(cfg):
+    """(name, B, Sq, Sk, H, G, D, causal, q_offset, kv_length or None).
+    ``tests/test_kernels.py:150 FLASH_CASES`` (B, H, S, causal) at the
+    kernel's head dim 64 (it is built for 64 and 128, the LM configs'),
+    then GQA, per-row kv_length with a row at 0, Sq < Sk with q_offset,
+    D = 128, and the full-width prefill and decode of ``cfg``."""
+    H, G, D = cfg.n_kv, cfg.n_q // cfg.n_kv, cfg.head_dim
+    s_max = LM_PROMPT + LM_GEN
+    return [
+        ("FLASH_CASES[0]", 2, 64, 64, 3, 1, 64, True, 0, None),
+        ("FLASH_CASES[1]", 1, 33, 33, 2, 1, 64, True, 0, None),
+        ("FLASH_CASES[2]", 2, 40, 40, 2, 1, 64, False, 0, None),
+        ("FLASH_CASES[3]", 1, 128, 128, 1, 1, 64, True, 0, None),
+        ("gqa", 2, 77, 77, 2, 4, 64, True, 0, None),
+        ("kv_length", 3, 40, 40, 2, 4, 64, False, 0, (40, 0, 17)),
+        ("kv_length decode", 3, 1, 300, 2, 4, 64, False, 0, (300, 0, 129)),
+        ("q_offset", 2, 100, 300, 2, 4, 64, True, 200, None),
+        ("d128", 2, 50, 130, 1, 4, 128, True, 80, None),
+        ("prefill", LM_BATCH, LM_PROMPT, LM_PROMPT, H, G, D, True, 0, None),
+        ("decode", LM_BATCH, 1, s_max, H, G, D, False, 0,
+         (LM_PROMPT + 1,) * LM_BATCH),
+    ]
+
+
+def _visible_pairs(Sq, Sk, causal, q_offset, kvl, B):
+    """(query row, key) pairs the inputs make visible, over the batch."""
+    n = 0
+    for b in range(B):
+        keys = min(Sk, Sk if kvl is None else kvl[b])
+        if not causal:
+            n += Sq * max(keys, 0)
+            continue
+        for s in range(Sq):
+            n += max(0, min(keys, q_offset + s + 1))
+    return n
+
+
+def _row_ulps(got, want) -> float:
+    """The largest max|got - want| over a row of the last axis, in units
+    of 2^-7 x the row's max|want| (inf where a row of zeros is missed)."""
+    import torch
+
+    err = (got.float() - want.float()).abs().amax(-1)
+    unit = want.float().abs().amax(-1) * 2.0 ** -7
+    ratio = torch.where(unit > 0, err / unit.clamp_min(1e-30),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return ratio.max().item()
+
+
+def phase_flash(torch, reps: int):
+    """The flash-attention kernel against its plain version on the card
+    (TF32 off), fp32 within rtol = atol = 2e-5 and bf16 within 2e-2 and
+    within BF16_ROW_ULPS per row (``_row_ulps``), with the keys past
+    kv_length holding NaN for the kernel (zero for the plain version,
+    which would sum them).  At the full-width decode, the kernel run with
+    one 64-key tile dropped must fail the bf16 row check.  Timed at
+    granite-3-2b's full-width prefill and decode shapes.  Returns one row
+    per (shape, dtype)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    rows, n, worst_ulps, fault = [], 0, 0.0, None
+    for name, B, Sq, Sk, H, G, D, causal, off, kvl in _flash_cases(
+            get_config(DENSE_ARCH)):
+        for dtype in (torch.bfloat16, torch.float32):
+            rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                             device=dev).to(dtype)
+            q = rnd(B, Sq, H, G, D)
+            k, v = rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+            length, kp, vp = None, k, v
+            if kvl is not None:
+                length = torch.tensor(kvl, dtype=torch.int32, device=dev)
+                stale = (torch.arange(Sk, device=dev)[None, :]
+                         >= length[:, None])[..., None, None]
+                kp, vp = k.masked_fill(stale, 0.0), v.masked_fill(stale, 0.0)
+                k.masked_fill_(stale, float("nan"))
+                v.masked_fill_(stale, float("nan"))
+            kw = dict(causal=causal, q_offset=off, kv_length=length)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, kp, vp, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if got.shape != want.shape or got.dtype != want.dtype \
+                    or not bool(torch.isfinite(got).all()) \
+                    or not torch.allclose(got.float(), want.float(),
+                                          rtol=tol[dtype], atol=tol[dtype]):
+                fail(f"flash {name} {dtype}: max|kernel-plain| = {err:.3g} "
+                     f"(rtol = atol = {tol[dtype]})")
+            ulps = _row_ulps(got, want) if dtype == torch.bfloat16 else None
+            if ulps is not None:
+                worst_ulps = max(worst_ulps, ulps)
+                if ulps > BF16_ROW_ULPS:
+                    fail(f"flash {name} bf16: a row's max|kernel-plain| is "
+                         f"{ulps:.3g} x 2^-7 of its max|plain| (limit "
+                         f"{BF16_ROW_ULPS})")
+            n += 1
+            if name not in ("prefill", "decode"):
+                continue
+            if name == "decode" and dtype == torch.bfloat16:
+                cut = lambda t: torch.cat([t[:, :DROP_TILE],
+                                           t[:, DROP_TILE + 64:]], 1)
+                bad = fa.flash_attention(q, cut(k), cut(v), causal=causal,
+                                         q_offset=off, kv_length=length - 64)
+                fault = ((bad.float() - want.float()).abs().max().item(),
+                         _row_ulps(bad, want),
+                         torch.allclose(bad.float(), want.float(),
+                                        rtol=tol[dtype], atol=tol[dtype]))
+                if fault[1] <= BF16_ROW_ULPS:
+                    fail(f"flash decode bf16: a kernel without keys "
+                         f"[{DROP_TILE}, {DROP_TILE + 64}) passes the row "
+                         f"check ({fault[1]:.3g} x 2^-7)")
+            keys = Sk if kvl is None else kvl[0]
+            kt = k[:, :keys].repeat_interleave(G, dim=2).transpose(1, 2)
+            vt = v[:, :keys].repeat_interleave(G, dim=2).transpose(1, 2)
+            qt = q.reshape(B, Sq, H * G, D).transpose(1, 2)
+            pairs = _visible_pairs(Sq, Sk, causal, off, kvl, B)
+            esz = q.element_size()
+            nbytes = (2 * q.numel() + 2 * B * keys * H * D) * esz
+            rows.append({
+                "shape": name, "dtype": str(dtype).replace("torch.", ""),
+                "q": tuple(q.shape), "kv": tuple(k.shape), "kv_length": kvl,
+                "max_abs_err": err, "row_ulps": ulps,
+                "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                              reps),
+                "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
+                    q, kp, vp, **kw), max(2, reps // 10)),
+                "library_ms": cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal), reps),
+                **bound(2 * H * G * D * pairs, nbytes, integer=False,
+                        peak=PEAK_BF16 if dtype == torch.bfloat16 else 0.0)})
+    log(f"flash: kernel matches plain at {n} cases x dtypes (fp32 2e-5, "
+        f"bf16 2e-2 and per row {BF16_ROW_ULPS} x 2^-7 of max|plain|: the "
+        f"worst bf16 row at {worst_ulps:.3g})")
+    log(f"flash: planted fault, keys [{DROP_TILE}, {DROP_TILE + 64}) dropped "
+        f"at the bf16 decode: max|err| {fault[0]:.3g}, worst row "
+        f"{fault[1]:.3g} x 2^-7 (rejected by the row check); allclose at "
+        f"2e-2 alone would {'pass' if fault[2] else 'reject'} it")
+    for r in rows:
+        log(f"flash {r['shape']:7s} {r['dtype']:8s} q {r['q']} kv {r['kv']} "
+            f"kv_length {r['kv_length']} ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) err "
+            f"{r['max_abs_err']:.3g}"
+            + (f" row_ulps {r['row_ulps']:.3g}" if r["row_ulps"] is not None
+               else ""))
+    return rows
+
+
+def _lm_counters():
+    """The launch counters of the LM path's kernels, by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as k1d
+
+    return {"trim_conv1d": k1d, "flash_attention": fa}
+
+
+def phase_lm_serve(torch, arch: str):
+    """Full-width ``arch`` served in bf16 through the launcher's functions:
+    one prefill, then greedy decode.  Every LM kernel's launches are
+    counted from 0 around the prefill and around the decode run; the
+    conv1d kernel must run once per layer in the prefill of the ssm family
+    and never in decode, the flash kernel once per layer in the prefill
+    and once per layer per decode step of the dense family.  Returns
+    {kernel: (prefill launches, decode launches)}."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import trim_conv1d as k1d
     from repro_torch.launch.serve import (decode_executable,
                                           prefill_executable, run_decode,
                                           run_prefill)
@@ -853,8 +1062,13 @@ def phase_lm_serve(torch):
     from repro_torch.serve import ServeEngine
 
     dev = torch.device("cuda", 0)
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
+    steps = LM_GEN - 1
+    per_layer = ({"trim_conv1d": (1, 0), "flash_attention": (0, 0)}
+                 if cfg.family == "ssm" else
+                 {"trim_conv1d": (0, 0), "flash_attention": (1, steps)})
+    counters = _lm_counters()
     t0 = time.perf_counter()
     params = model.init(0, dev)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab,
@@ -868,44 +1082,48 @@ def phase_lm_serve(torch):
     log(f"lm serve: {cfg.name} ({cfg.param_count_estimate()} params, "
         f"{cfg.dtype}) init + warm prefill in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats(dev)
-    k1d.LAUNCHES = 0
+    for m in counters.values():
+        m.LAUNCHES = 0
     logits, cache, prefill_s = run_prefill(prefill, params, batch0, cache, dev)
-    n_prefill = k1d.LAUNCHES
+    n_prefill = {k: m.LAUNCHES for k, m in counters.items()}
     if logits.shape != (LM_BATCH, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
-        fail(f"lm serve: prefill logits {tuple(logits.shape)} not finite or "
-             "of the wrong shape")
+        fail(f"lm serve {arch}: prefill logits {tuple(logits.shape)} not "
+             "finite or of the wrong shape")
     tok = logits.argmax(-1)
     decode = decode_executable(eng, model, params, tok, cache, LM_PROMPT)
-    k1d.LAUNCHES = 0
+    for m in counters.values():
+        m.LAUNCHES = 0
     toks, cache, decode_s, finite = run_decode(
-        decode, params, tok, cache, LM_PROMPT, LM_GEN - 1, dev)
-    n_decode = k1d.LAUNCHES
+        decode, params, tok, cache, LM_PROMPT, steps, dev)
+    n_decode = {k: m.LAUNCHES for k, m in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    steps = LM_GEN - 1
-    log(f"lm serve: batch {LM_BATCH}, prompt {LM_PROMPT}: prefill "
+    log(f"lm serve {arch}: batch {LM_BATCH}, prompt {LM_PROMPT}: prefill "
         f"{prefill_s * 1e3:.3f} ms; decode {LM_BATCH * steps / decode_s:.3f} "
         f"tok/s ({decode_s * 1e3 / steps:.3f} ms per step, {steps} steps); "
-        f"peak device memory {peak / 2**30:.3f} GiB; conv1d launches "
-        f"{n_prefill} in the prefill, {n_decode} in decode; sample "
+        f"peak device memory {peak / 2**30:.3f} GiB; launches in the "
+        f"prefill {n_prefill}, in decode {n_decode}; sample "
         f"{torch.stack([tok] + toks, 1)[0, :8].tolist()}")
     if not finite:
-        fail("lm serve: non-finite decode logits")
-    if n_prefill != cfg.n_layers or n_decode != 0:
-        fail(f"lm serve: {n_prefill} conv1d launches in the prefill "
-             f"(expected {cfg.n_layers}) and {n_decode} in decode (expected 0)")
+        fail(f"lm serve {arch}: non-finite decode logits")
+    for k, (pre, dec) in per_layer.items():
+        if (n_prefill[k], n_decode[k]) != (pre * cfg.n_layers,
+                                           dec * cfg.n_layers):
+            fail(f"lm serve {arch}: {k} launched {n_prefill[k]} times in "
+                 f"the prefill and {n_decode[k]} in {steps} decode steps "
+                 f"(expected {pre * cfg.n_layers} and {dec * cfg.n_layers})")
     if set(eng.compile_counts.values()) != {1}:
-        fail(f"lm serve: executables built more than once: "
+        fail(f"lm serve {arch}: executables built more than once: "
              f"{eng.compile_counts}")
     # where the device time goes: one profiled prefill and 4 profiled
     # decode steps, their kernel time set against the unprofiled wall
     # times above (the profiler's own overhead stays out of the share)
-    _profile(torch, "prefill", prefill_s * 1e3,
+    _profile(torch, f"{arch} prefill", prefill_s * 1e3,
              lambda: prefill(params, batch0, cache))
-    _profile(torch, "decode step", decode_s * 1e3 / steps,
+    _profile(torch, f"{arch} decode step", decode_s * 1e3 / steps,
              lambda: [decode(params, tok, cache, LM_PROMPT)
                       for _ in range(4)], calls=4)
-    return n_prefill
+    return {k: (n_prefill[k], n_decode[k]) for k in counters}
 
 
 def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1) -> None:
@@ -932,7 +1150,7 @@ def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1) -> None:
             "(device share not measured)")
         return
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
-    ours = [e for e in kernels if "trim_" in e.key]
+    ours = [e for e in kernels if "trim_" in e.key or "flash_" in e.key]
     top = "; ".join(
         f"{e.key[:40]} x{e.count // calls} "
         f"{e.self_device_time_total / 1e3 / calls:.3f} ms"
@@ -942,9 +1160,9 @@ def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1) -> None:
         f"{sum(e.count for e in kernels) // calls} kernels; by op: {top}")
 
 
-def phase_lm_checks(torch):
-    """Full-width mamba2-130m in fp32: prefill + decode against a longer
-    prefill, and the kernel's logits against the plain conv's."""
+def phase_lm_checks(torch, arch: str):
+    """Full-width ``arch`` in fp32: prefill + decode against a longer
+    prefill, and the kernels' logits against the plain versions'."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -952,7 +1170,7 @@ def phase_lm_checks(torch):
     from repro_torch.nn.models import build_model
 
     dev = torch.device("cuda", 0)
-    cfg = get_config(LM_ARCH).with_overrides(dtype=torch.float32)
+    cfg = get_config(arch).with_overrides(dtype=torch.float32)
     model = build_model(cfg)
     oracle = build_model(cfg, policy=ExecutionPolicy("oracle"))
     params = model.init(0, dev)
@@ -972,19 +1190,20 @@ def phase_lm_checks(torch):
     for name, t in (("prefill", full), ("oracle prefill", full_o),
                     ("decode", dec)):
         if not bool(torch.isfinite(t).all()):
-            fail(f"lm checks: non-finite {name} logits")
+            fail(f"lm checks {arch}: non-finite {name} logits")
     err = (dec - full).abs().max().item()
     if not torch.allclose(dec, full, rtol=3e-4, atol=3e-4):
-        fail(f"lm checks: prefill(t[:S-1]) + decode(t[S-1]) vs prefill(t): "
-             f"max err {err:.3g} (rtol = atol = 3e-4)")
+        fail(f"lm checks {arch}: prefill(t[:S-1]) + decode(t[S-1]) vs "
+             f"prefill(t): max err {err:.3g} (rtol = atol = 3e-4)")
     scale = full_o.abs().max().item()
     err_o = (full - full_o).abs().max().item()
-    if err_o > 1e-6 * scale:
-        fail(f"lm checks: kernel vs plain-conv prefill logits max err "
-             f"{err_o:.3g} > 1e-6 * {scale:.3g}")
-    log(f"lm checks (fp32, batch {B}, S {S}): prefill + decode vs prefill "
-        f"max|err| {err:.3g} (rtol = atol = 3e-4); kernel vs plain conv "
-        f"max|err| {err_o:.3g} of max|logit| {scale:.3g} (bit-equal: "
+    if err_o > LM_KERNEL_TOL[arch] * scale:
+        fail(f"lm checks {arch}: kernel vs plain prefill logits max err "
+             f"{err_o:.3g} > {LM_KERNEL_TOL[arch]} * {scale:.3g}")
+    log(f"lm checks {arch} (fp32, batch {B}, S {S}): prefill + decode vs "
+        f"prefill max|err| {err:.3g} (rtol = atol = 3e-4); kernels vs plain "
+        f"max|err| {err_o:.3g} of max|logit| {scale:.3g} (limit "
+        f"{LM_KERNEL_TOL[arch]} of it; bit-equal: "
         f"{bool(torch.equal(full, full_o))})")
 
 
@@ -1041,6 +1260,7 @@ def main() -> None:
     rows = phase_kernels(torch, args.reps)
     brows = phase_backward(torch, args.reps, (1, TRAIN_BATCH))
     crows = phase_conv1d(torch, args.reps)
+    frows = phase_flash(torch, args.reps)
     if args.kernels:
         log("stopping after the kernel phases (--kernels): no result line")
         return
@@ -1048,9 +1268,12 @@ def main() -> None:
     launches_u8 = phase_serve(torch, "int8", args.requests)
     train_f32, train_wgrad = phase_train(torch, TRAIN_STEPS, TRAIN_BATCH,
                                          TRAIN_LR)
-    lm_conv1d = phase_lm_serve(torch)
-    phase_lm_checks(torch)
+    lm_launches = phase_lm_serve(torch, LM_ARCH)
+    phase_lm_checks(torch, LM_ARCH)
+    dense_launches = phase_lm_serve(torch, DENSE_ARCH)
+    phase_lm_checks(torch, DENSE_ARCH)
     c1 = next(r for r in crows if r["dtype"] == "bfloat16")
+    flash = {r["shape"]: r for r in frows if r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": [
         kernel_entry([r for r in rows if r["lane"] == "f32"],
                      "trim_conv2d_f32", launches_f32 + train_f32),
@@ -1062,10 +1285,17 @@ def main() -> None:
                      source=WGRAD_SOURCE, replaces=WGRAD_REPLACES),
         {"name": "trim_conv1d_bf16", "route": "cuda",
          "source": CONV1D_SOURCE, "replaces": CONV1D_REPLACES,
-         "launches": lm_conv1d,
+         "launches": lm_launches["trim_conv1d"][0],
          "max_abs_err": max(r["max_abs_err"] for r in crows),
          **{k: c1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")}}]}))
+                               "library_ms")}}]
+        + [{"name": f"flash_attention_bf16_{shape}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+            "launches": dense_launches["flash_attention"][i],
+            **{k: flash[shape][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+           for i, shape in enumerate(("prefill", "decode"))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 ``repro/configs/base.py``; the port keeps its own so it imports nothing of
 the JAX package).  The one change: ``dtype`` is a ``torch.dtype``.
 
-Only the ``ssm`` family (mamba2-130m) is registered so far; the other LM
-families arrive with their modules (ROADMAP queue 1, item 9).
+The ``ssm`` (mamba2-130m) and ``dense`` (granite-3-2b) families are
+registered so far; the other LM families arrive with their modules
+(ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -94,20 +95,29 @@ class ModelConfig:
         return self.family == "ssm"
 
     def param_count_estimate(self) -> int:
-        """Closed-form parameter count of the ``ssm`` family (embedding +
-        per layer: in_proj, conv, A_log/dt_bias/D, the gated norm's scale
-        and out_proj), as ``repro/configs/base.py`` counts it."""
-        if self.family != "ssm":
+        """Closed-form parameter count of the ``ssm`` and ``dense``
+        families, as ``repro/configs/base.py`` counts it: the embedding
+        (twice if untied) plus, per layer, the Mamba mixer (in_proj, conv,
+        A_log/dt_bias/D, the gated norm's scale and out_proj) or the
+        attention projections and the MLP; norms are not counted."""
+        if self.family not in ("ssm", "dense"):
             raise NotImplementedError(
-                f"{self.family!r}: only the ssm family is ported "
-                "(ROADMAP queue 1, item 9)")
+                f"{self.family!r}: only the ssm and dense families are "
+                "ported (ROADMAP queue 1, item 9)")
         d, v = self.d_model, self.vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "dense":
+            attn = (d * (self.n_q + 2 * self.n_kv) * self.head_dim
+                    + self.n_q * self.head_dim * d)
+            mlp = (3 if self.mlp_kind in ("swiglu", "geglu") else 2) \
+                * d * self.d_ff
+            return emb + self.n_layers * (attn + mlp)
         d_in = self.ssm_expand * d
         gs = self.ssm_n_groups * self.ssm_d_state
         h = d_in // self.ssm_headdim
         mamba = (d * (2 * d_in + 2 * gs + h) + self.ssm_d_conv * (d_in + 2 * gs)
                  + d_in * d + 3 * h + d_in)
-        return v * d * (1 if self.tie_embeddings else 2) + self.n_layers * mamba
+        return emb + self.n_layers * mamba
 
 
 #: registry of the LM configs the port runs (one entry per architecture id)
@@ -123,7 +133,7 @@ def get_config(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (registers the configs)
     if name not in REGISTRY:
         raise KeyError(
-            f"arch {name!r} is not ported: the port serves the ssm family "
-            f"({sorted(REGISTRY)}); the attention, MoE, hybrid and encdec "
-            "families are ROADMAP queue 1, item 9")
+            f"arch {name!r} is not ported: the port serves "
+            f"{sorted(REGISTRY)}; the other dense archs and the MoE, hybrid, "
+            "vlm and encdec families are ROADMAP queue 1, item 9")
     return REGISTRY[name]

@@ -125,7 +125,10 @@ def make_prefill_step(model) -> Callable:
 
 
 def make_decode_step(model) -> Callable:
-    """``decode_step(params, token, cache, pos) -> (logits, cache)``."""
-    def decode_step(params, token, cache, pos):
-        return model.decode_step(params, token, cache, pos)
+    """``decode_step(params, token, cache, pos, kv_length=None) ->
+    (logits, cache)``: ``pos`` is the position written (an int),
+    ``kv_length`` (B,) the keys each row attends to (default pos + 1)."""
+    def decode_step(params, token, cache, pos, kv_length=None):
+        return model.decode_step(params, token, cache, pos,
+                                 kv_length=kv_length)
     return decode_step

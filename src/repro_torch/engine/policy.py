@@ -5,7 +5,8 @@ Port of ``repro/engine/policy.py``.  The dispatch rule lives in
 only the device of the tensor being convolved — never the machine:
 
 - ``"auto"`` / ``"kernel"``: the CUDA kernel's wrapper
-  (``kernels.trim_conv2d.trim_conv2d``, ``kernels.trim_conv1d.trim_conv1d``),
+  (``kernels.trim_conv2d.trim_conv2d``, ``kernels.trim_conv1d.trim_conv1d``,
+  ``kernels.flash_attention.flash_attention``),
   which launches the kernel on a CUDA tensor and runs its plain version
   on a CPU tensor;
 - ``"oracle"``: the plain PyTorch version on every device.

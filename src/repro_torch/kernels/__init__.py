@@ -5,7 +5,9 @@ tensor launches the kernel, a CPU tensor takes the plain version);
 ``trim_conv2d_vjp`` the weight-gradient kernel's wrapper, the input
 gradient through the conv kernel and ``TrimConv2dFn``;
 ``trim_conv1d`` the causal depthwise conv1d kernel's wrapper (Mamba's
-short conv); ``ref`` the oracles; ``requant`` the fixed-point
-requantization; ``ops`` the public ops (the conv planned through
-``repro_torch.engine``, the conv1d dispatched by the policy).
+short conv); ``flash_attention`` the flash-attention kernel's wrapper (the
+LM attention core), its plain version and oracle; ``ref`` the oracles;
+``requant`` the fixed-point requantization; ``ops`` the public ops (the
+conv planned through ``repro_torch.engine``, the conv1d and the attention
+dispatched by the policy).
 """

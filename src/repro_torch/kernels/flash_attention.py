@@ -1,0 +1,249 @@
+"""Flash attention on Hopper: the CUDA kernel's wrapper, its plain version
+and the full-softmax oracle.
+
+Port of ``repro/kernels/flash_attention.py`` (``_flash_kernel`` at line 38,
+driven by ``flash_attention_pallas`` at line 91), on the model's own
+layout: the kernel computes what ``repro/nn/attention.py:75
+flash_attention`` computes.  The kernel itself is
+``repro_torch/csrc/flash_attention.cu``; its header says what it keeps out
+of device memory and what bounds it.
+
+- :func:`flash_attention` is the wrapper: a CUDA tensor launches the
+  kernel (or the wrapper raises), a CPU tensor takes
+  :func:`flash_attention_plain`.  Every launch adds one to
+  :data:`LAUNCHES`.
+- :func:`flash_attention_plain` is ``nn/attention.py:flash_attention``
+  line for line: a streaming softmax over ``chunk_k`` keys at a time, with
+  the same ``NEG_INF`` masking, the zeroed masked ``p``, the division by
+  ``max(l, 1e-20)``, ``q_offset``, a per-row ``kv_length`` and the
+  ``block_causal`` sweep.
+- :func:`flash_attention_ref` is the full-softmax oracle of the Pallas
+  module (``flash_attention.py:135``) on its (B, H, S, D) layout; its
+  causal mask is aligned to the end (``k <= q + Sk - Sq``).
+
+Layout: q (B, Sq, H, G, D) with H the KV heads and G the q heads that
+share each; k, v (B, Sk, H, D); the output is (B, Sq, H, G, D) in q's
+dtype.  Key ``c`` is visible to query row ``r`` iff ``c < kv_length[b]``
+and, when causal, ``c <= q_offset + r``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+
+#: Launches of the CUDA kernel since the last reset (a plain counter:
+#: callers set it to 0 before a run and read it after).
+LAUNCHES = 0
+
+#: Head dims the kernel is compiled for, and its tiles: flattened (query
+#: position, q head) rows and keys per tile, per dtype.
+HEAD_DIMS = (64, 128)
+TILES = {torch.bfloat16: (64, 64), torch.float32: (32, 32)}
+
+_LIB_NAME = "flash_attention"
+_SOURCES = ("flash_attention.cu",)
+_BOUND: set = set()
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_length: Optional[torch.Tensor]) -> None:
+    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B, Sq, H, G, D) and k, v (B, Sk, H, D): "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, _, H, _, D = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, D):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} in batch, heads or head dim")
+    if kv_length is not None and tuple(kv_length.shape) != (B,):
+        raise ValueError(f"kv_length must be (B,) = ({B},), got "
+                         f"{tuple(kv_length.shape)}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool,
+                          q_offset: int = 0,
+                          kv_length: Optional[torch.Tensor] = None,
+                          chunk_k: int = 1024, block_causal: bool = False,
+                          ) -> torch.Tensor:
+    """Streaming-softmax attention in plain PyTorch (fp32 statistics and
+    accumulator, one cast to q's dtype).  q (B, Sq, H, G, D); k/v
+    (B, Sk, H, D); ``kv_length`` (B,) int.  Returns (B, Sq, H, G, D)."""
+    _check(q, k, v, kv_length)
+    B, Sq, H, G, D = q.shape
+    Sk = k.shape[1]
+    scale = D ** -0.5
+    ck = min(chunk_k, Sk)
+    nk = -(-Sk // ck)
+    pad_k = nk * ck - Sk
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+
+    if block_causal and causal and Sq > 1:
+        # q-block sweep: block i only scans kv chunks [0, hi_i], skipping
+        # the fully masked upper triangle
+        outs = []
+        for lo in range(0, Sq, ck):
+            hi = min(lo + ck, Sq)
+            hi_chunk = min(nk, (q_offset + hi + ck - 1) // ck)
+            outs.append(flash_attention_plain(
+                q[:, lo:hi], k[:, :hi_chunk * ck], v[:, :hi_chunk * ck],
+                causal=True, q_offset=q_offset + lo, kv_length=kv_length,
+                chunk_k=ck, block_causal=False))
+        return torch.cat(outs, dim=1)
+
+    dev = q.device
+    qT = q.permute(0, 2, 3, 1, 4).float()                     # (B,H,G,Sq,D)
+    kc = k.reshape(B, nk, ck, H, D).permute(1, 0, 3, 2, 4)    # (nk,B,H,ck,D)
+    vc = v.reshape(B, nk, ck, H, D).permute(1, 0, 3, 2, 4)
+    rows = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, H, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, G, Sq), dtype=torch.float32, device=dev)
+    o = torch.zeros((B, H, G, Sq, D), dtype=torch.float32, device=dev)
+    for idx in range(nk):
+        s = torch.einsum("bhgqd,bhcd->bhgqc", qT, kc[idx].float()) * scale
+        cols = idx * ck + torch.arange(ck, device=dev)
+        mask = torch.ones((Sq, ck), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= cols[None, :] <= rows[:, None]
+        mask &= (cols < Sk)[None, :]
+        if kv_length is not None:
+            mask = mask[None] & (cols[None, None, :]
+                                 < kv_length.to(dev)[:, None, None])
+            mask = mask[:, None, None]                        # (B,1,1,Sq,ck)
+        else:
+            mask = mask[None, None, None]                     # (1,1,1,Sq,ck)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum("bhgqc,bhcd->bhgqd", p,
+                                                vc[idx].float())
+        m = m_new
+    out = o / torch.clamp(l, min=1e-20)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)             # (B,Sq,H,G,D)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        kv_length: Optional[int] = None) -> torch.Tensor:
+    """Full-softmax oracle in fp32 on the Pallas layout: q (B, H, Sq, D),
+    k/v (B, H, Sk, D) -> (B, H, Sq, D); a scalar ``kv_length``."""
+    _, _, Sq, D = q.shape
+    Sk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * D ** -0.5
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= (torch.arange(Sq, device=q.device)[:, None]
+                                   + (Sk - Sq))
+    if kv_length is not None:
+        mask &= (k_pos < kv_length)[None, :]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with its ctypes
+    signatures declared; returns it."""
+    lib = _build.load(_LIB_NAME, _SOURCES)
+    if lib not in _BOUND:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention.argtypes = (
+            [p, p, p, p, p, i, i, i]          # q k v out kv_length bf16 causal D
+            + [ll] * 6                        # B Sq Sk H G q_offset
+            + [ll] * 4 + [ll] * 3 + [ll] * 3  # q, k, v strides (b, s, h[, g])
+            + [ctypes.c_float, p])            # scale, stream
+        lib.flash_attention.restype = i
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        for fn in ("flash_attention_bf16_tile", "flash_attention_f32_tile"):
+            getattr(lib, fn).restype = i
+        if (lib.flash_attention_bf16_tile(), lib.flash_attention_f32_tile()) \
+                != (TILES[torch.bfloat16][0], TILES[torch.float32][0]):
+            raise RuntimeError("flash_attention library constants differ "
+                               "from the wrapper's")
+        _BOUND.add(lib)
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0,
+                    kv_length: Optional[torch.Tensor] = None,
+                    chunk_k: int = 1024, block_causal: bool = False,
+                    ) -> torch.Tensor:
+    """Attention of q (B, Sq, H, G, D) over k/v (B, Sk, H, D) -> (B, Sq, H,
+    G, D) in q's dtype (fp32 or bf16 in; fp32 softmax and accumulator).
+
+    A CPU ``q`` runs :func:`flash_attention_plain`.  A CUDA ``q`` launches
+    the kernel on the current stream, or raises: q, k and v in one dtype,
+    D in :data:`HEAD_DIMS`, the head dim contiguous, every other stride and
+    every base 16-byte aligned (strided views such as a slice of a KV cache
+    are read in place).  ``chunk_k`` and ``block_causal`` choose how the
+    plain version walks the keys; the kernel walks tiles of its own and
+    always skips the tiles that causality or ``kv_length`` mask whole.
+    """
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset, kv_length=kv_length,
+                                     chunk_k=chunk_k,
+                                     block_causal=block_causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check(q, k, v, kv_length)
+    if q.dtype not in TILES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must all be float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"k and v must be on {q.device}")
+    B, Sq, H, G, D = q.shape
+    Sk = k.shape[1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel takes {HEAD_DIMS}")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        strides = t.stride()[:-1]
+        if t.stride(-1) != 1 or t.data_ptr() % 16 \
+                or any(s % vec or s < 0 for s in strides):
+            raise ValueError(
+                f"{name}'s strides {t.stride()} or base: the kernel needs a "
+                f"contiguous head dim and 16-byte aligned rows")
+    if kv_length is not None:
+        if kv_length.device != q.device:
+            raise ValueError(f"kv_length must be on {q.device}")
+        kv_length = kv_length.to(torch.int32).contiguous()
+    rows = TILES[q.dtype][0]
+    if H > 65535 or B > 65535 or -(-Sq * G // rows) > 2 ** 31 - 1:
+        raise ValueError(f"batch {B} / heads {H} / rows {Sq * G} exceed the "
+                         "launch grid")
+    out = torch.empty((B, Sq, H, G, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            kv_length.data_ptr() if kv_length is not None else None,
+            int(q.dtype == torch.bfloat16), int(causal), D,
+            B, Sq, Sk, H, G, int(q_offset),
+            *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+            D ** -0.5, stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
+                           f"({msg})")
+    LAUNCHES += 1
+    return out

@@ -4,9 +4,9 @@ Port of ``repro/kernels/ops.py``.  :func:`trim_conv2d` builds a
 single-layer :class:`~repro_torch.engine.plan.ConvLayerPlan` from the
 call's shapes and an :class:`~repro_torch.engine.policy.ExecutionPolicy`,
 then runs it through :func:`repro_torch.engine.execute.run_conv2d`, the
-one dispatch site.  :func:`trim_conv1d` (the Mamba short conv) needs no
-plan: the policy's substrate alone picks the kernel's wrapper or the
-oracle.
+one dispatch site.  :func:`trim_conv1d` (the Mamba short conv) and
+:func:`flash_attention` (the LM attention core) need no plan: the
+policy's substrate alone picks the kernel's wrapper or the plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from repro_torch.engine.execute import run_conv2d
 from repro_torch.engine.plan import plan_conv_layer
 from repro_torch.engine.policy import ExecutionPolicy, resolve_substrate
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import trim_conv1d as conv1d_kernel
 
@@ -59,3 +60,22 @@ def trim_conv1d(x: torch.Tensor, w: torch.Tensor, *,
     if resolve_substrate(pol.substrate, x.device) == "oracle":
         return ref.conv1d_causal_ref(x, w)
     return conv1d_kernel.trim_conv1d(x, w)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0,
+                    kv_length: Optional[torch.Tensor] = None,
+                    chunk_k: int = 1024, block_causal: bool = False,
+                    policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """Streaming-softmax attention. q (B,Sq,H,G,D), k/v (B,Sk,H,D) ->
+    (B,Sq,H,G,D); ``kv_length`` (B,) masks the keys of each batch row.
+
+    The kernel's wrapper (``kernels.flash_attention.flash_attention``)
+    unless the policy resolves to the oracle
+    (``flash_attention_plain``)."""
+    pol = policy or ExecutionPolicy()
+    kw = dict(causal=causal, q_offset=q_offset, kv_length=kv_length,
+              chunk_k=chunk_k, block_causal=block_causal)
+    if resolve_substrate(pol.substrate, q.device) == "oracle":
+        return flash_kernel.flash_attention_plain(q, k, v, **kw)
+    return flash_kernel.flash_attention(q, k, v, **kw)

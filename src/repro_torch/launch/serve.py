@@ -1,6 +1,6 @@
 """Serving launcher for the port's LMs: batched prefill + greedy decode.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --batch 4 --prompt-len 4096 --gen 32
 
 Port of ``repro/launch/serve.py``.  The prefill and decode steps
@@ -8,14 +8,18 @@ Port of ``repro/launch/serve.py``.  The prefill and decode steps
 once each through the port's ``ServeEngine.executable`` cache, keyed by
 the device stamp and the workload (arch, step, shape), as eager callables
 under ``torch.inference_mode`` warmed by one call, so no kernel build
-lands inside a timer (CUDA graphs are later work).  On the ssm family the
-prefill runs the TrIM conv1d kernel once per layer; decode never does.
+lands inside a timer (CUDA graphs are later work).  On the ssm family
+(mamba2-130m) the prefill runs the TrIM conv1d kernel once per layer;
+decode never does.  On the dense family (granite-3-2b) every layer's
+attention core runs the flash-attention kernel, once per prefill and once
+per decode step; the KV cache is written in place.
 
 Prefill latency and decode tokens/s are reported separately.  The flags
 are the JAX launcher's plus ``--device`` (default ``cuda``: without a
 card it raises, it never falls back to the CPU; pass ``--device cpu`` for
 the plain PyTorch path) and ``--dtype`` (default: the config's; the smoke
-configs are fp32).  Only the ssm family (mamba2-130m) is ported.
+configs are fp32).  ``--arch`` takes the architectures the port registers
+(``repro_torch.configs.ARCH_IDS``).
 """
 from __future__ import annotations
 

@@ -1,3 +1,3 @@
 """Model code of the port: the paper's CNNs (``nn.conv``) and the LM
-family (``layers``, ``mamba``, ``blocks``, ``models``; the ssm family so
-far)."""
+family (``layers``, ``attention``, ``mamba``, ``blocks``, ``models``; the
+ssm and dense families so far)."""

@@ -1,0 +1,185 @@
+"""Attention: GQA/MQA/MHA self-attention with RoPE, a streaming-softmax
+core for train and prefill, and KV-cached decode (port of
+``repro/nn/attention.py`` for one device, ``tp == 1``).
+
+The core is ``kernels.ops.flash_attention``: the hand-written flash
+kernel on a CUDA tensor, its plain version (``nn/attention.py:
+flash_attention`` line for line) on the CPU or under the oracle policy.
+It reads q as the (B, S, n_kv, G, D) view of the q projection and k/v as
+(B, S, n_kv, D), so the G q heads of a KV head share its K/V and nothing
+is repeated in memory.
+
+The KV cache is written in place, where the JAX package's
+``dynamic_update_slice`` returns a new cache: prefill writes rows
+[0, S), decode writes row ``cache_pos``, into the tensors of the
+:class:`KVCache` it is given, and returns that same cache.  The serving
+loop never reads an old cache again, and copying a full-width cache (1.35
+GB for granite-3-2b at batch 4 x 4128) on every decode step would cost
+more HBM traffic than the step's attention reads.  A caller that needs
+the old cache clones it first.
+
+Cross-attention (``cross_kv``, the encdec family) and the sequence-
+sharded decode (``kv_seqshard``, ``nn/decode_attn.py``) are not ported
+(ROADMAP queue 1, item 9).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.engine.policy import ExecutionPolicy
+from repro_torch.kernels.ops import flash_attention
+from repro_torch.nn.layers import (Params, apply_rope, dense, init_dense,
+                                   rope_angles)
+
+
+class AttnLayout(NamedTuple):
+    n_q: int          # logical q heads
+    n_kv: int         # logical kv heads
+    head_dim: int
+    kv_repeat: int    # r
+    g_pad: int        # padded group size (q heads per logical kv head)
+
+    @property
+    def kv_eff(self) -> int:
+        return self.n_kv * self.kv_repeat
+
+    @property
+    def g_eff(self) -> int:
+        return self.g_pad // self.kv_repeat
+
+
+def attn_layout(n_q: int, n_kv: int, head_dim: int, tp: int = 1
+                ) -> AttnLayout:
+    """The head layout on one device: no KV repeat, no q-head padding.
+    (The JAX package repeats KV heads and pads q groups for ``tp > n_kv``;
+    tensor parallelism is ROADMAP queue 1, item 10.)"""
+    if n_q % n_kv:
+        raise ValueError(f"n_q {n_q} is not a multiple of n_kv {n_kv}")
+    if tp != 1:
+        raise NotImplementedError(f"tp={tp}: the port runs on one device "
+                                  "(ROADMAP queue 1, item 10)")
+    return AttnLayout(n_q, n_kv, head_dim, 1, n_q // n_kv)
+
+
+# -- params -------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, d_model: int, n_q: int, n_kv: int,
+                   head_dim: int, dtype=torch.float32, device="cpu") -> Params:
+    return {
+        "q_proj": init_dense(gen, d_model, n_q * head_dim, dtype=dtype,
+                             device=device),
+        "k_proj": init_dense(gen, d_model, n_kv * head_dim, dtype=dtype,
+                             device=device),
+        "v_proj": init_dense(gen, d_model, n_kv * head_dim, dtype=dtype,
+                             device=device),
+        "o_proj": init_dense(gen, n_q * head_dim, d_model,
+                             std=(n_q * head_dim) ** -0.5, dtype=dtype,
+                             device=device),
+    }
+
+
+# -- head layout --------------------------------------------------------------
+
+def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (n, d))
+
+
+def _layout_q(q: torch.Tensor, lay: AttnLayout) -> torch.Tensor:
+    """(B,S,n_q,D) -> (B,S,kv_eff,G',D): a view at ``tp == 1``."""
+    B, S, _, D = q.shape
+    return q.reshape(B, S, lay.kv_eff, lay.g_eff, D)
+
+
+def _unlayout_o(o: torch.Tensor, lay: AttnLayout) -> torch.Tensor:
+    """(B,S,kv_eff,G',D) -> (B,S,n_q*D)."""
+    B, S = o.shape[:2]
+    return o.reshape(B, S, lay.n_q * o.shape[-1])
+
+
+def _repeat_kv(kv: torch.Tensor, r: int) -> torch.Tensor:
+    if r == 1:
+        return kv
+    return torch.repeat_interleave(kv, r, dim=2)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor      # (B, S_max, kv_eff, D)
+    v: torch.Tensor
+
+
+def init_kv_cache(batch: int, max_len: int, lay: AttnLayout,
+                  dtype=torch.bfloat16, device="cpu") -> KVCache:
+    shape = (batch, max_len, lay.kv_eff, lay.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+# -- full layer ---------------------------------------------------------------
+
+def attention(params: Params, x: torch.Tensor, lay: AttnLayout, *,
+              positions: torch.Tensor, rope_theta: float = 10000.0,
+              causal: bool = True, mode: str = "train",
+              cache: Optional[KVCache] = None, cache_pos=None,
+              kv_length: Optional[torch.Tensor] = None,
+              cross_kv=None, chunk_k: int = 1024, block_causal: bool = False,
+              kv_seqshard=False,
+              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              policy: Optional[ExecutionPolicy] = None,
+              ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Self-attention over x (B, S, d_model).
+
+    mode: "train" (no cache), "prefill" (writes the cache's rows [0, S) in
+    place), "decode" (S == 1: writes row ``cache_pos`` in place, then
+    attends over the whole cache under ``kv_length``, by default
+    ``cache_pos + 1`` for every row).  ``rope``, where given, is
+    ``rope_angles(positions, head_dim, rope_theta)`` computed by the caller
+    once for every layer.  ``policy`` picks the flash kernel or its plain
+    version.  Returns (out (B, S, d_model), the cache or None).
+    """
+    if cross_kv is not None:
+        raise NotImplementedError("cross-attention (cross_kv, the encdec "
+                                  "family) is not ported yet: ROADMAP queue "
+                                  "1, item 9")
+    if kv_seqshard:
+        raise NotImplementedError("the sequence-sharded decode "
+                                  "(kv_seqshard, nn/decode_attn.py) is not "
+                                  "ported yet: ROADMAP queue 1, item 9")
+    B, S, _ = x.shape
+    D = lay.head_dim
+    q = _split_heads(dense(params["q_proj"], x), lay.n_q, D)
+    k = _split_heads(dense(params["k_proj"], x), lay.n_kv, D)
+    v = _split_heads(dense(params["v_proj"], x), lay.n_kv, D)
+    cos, sin = rope if rope is not None else rope_angles(positions, D,
+                                                         rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = _repeat_kv(apply_rope(k, cos, sin), lay.kv_repeat)
+    v = _repeat_kv(v, lay.kv_repeat)
+
+    new_cache = None
+    if mode == "decode":
+        if cache is None or cache_pos is None:
+            raise ValueError("decode needs a cache and cache_pos")
+        pos = int(cache_pos)
+        cache.k[:, pos:pos + S] = k.to(cache.k.dtype)
+        cache.v[:, pos:pos + S] = v.to(cache.v.dtype)
+        new_cache = cache
+        length = (kv_length if kv_length is not None
+                  else torch.full((B,), pos + 1, dtype=torch.int32,
+                                  device=x.device))
+        o = flash_attention(_layout_q(q, lay), cache.k, cache.v,
+                            causal=False, kv_length=length, chunk_k=chunk_k,
+                            policy=policy)
+    else:
+        if mode == "prefill":
+            if cache is None:
+                raise ValueError("prefill needs a cache")
+            cache.k[:, :S] = k.to(cache.k.dtype)
+            cache.v[:, :S] = v.to(cache.v.dtype)
+            new_cache = cache
+        o = flash_attention(_layout_q(q, lay), k, v, causal=causal,
+                            kv_length=kv_length, chunk_k=chunk_k,
+                            block_causal=block_causal, policy=policy)
+    out = dense(params["o_proj"], _unlayout_o(o, lay))
+    return out, new_cache

@@ -1,12 +1,14 @@
 """Layer stacks: periodic layer schedules run period by period (the part of
-``repro/nn/blocks.py`` the ssm family uses).
+``repro/nn/blocks.py`` the ssm and dense families use).
 
 An architecture is a *periodic* schedule of slots (mixer, ffn) repeated
-``n_periods`` times; mamba2 is period 1, (mamba, none).  As in the JAX
-package, each slot's params and caches are stacked over periods on a
-leading axis, so the JAX trees carry across as they are; where JAX runs
-the stack with ``lax.scan``, the port loops over periods in Python.
-Attention, MLP and MoE slots are not ported yet (ROADMAP queue 1, item 9).
+``n_periods`` times: a dense transformer is period 1, (attn, mlp); mamba2
+is period 1, (mamba, none).  As in the JAX package, each slot's params and
+caches are stacked over periods on a leading axis, so the JAX trees carry
+across as they are; where JAX runs the stack with ``lax.scan``, the port
+loops over periods in Python.  KV caches are written in place (see
+``nn/attention.py``); Mamba caches are stacked anew.  MoE slots and
+cross-attention are not ported yet (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -17,12 +19,16 @@ import torch
 
 from repro_torch.core.tree import tree_map
 from repro_torch.engine.policy import ExecutionPolicy
-from repro_torch.nn.layers import Params, init_rmsnorm, rmsnorm
+from repro_torch.nn.attention import (AttnLayout, KVCache, attention,
+                                      init_attention, init_kv_cache)
+from repro_torch.nn.layers import (Params, init_layernorm, init_mlp,
+                                   init_rmsnorm, layernorm, mlp, rmsnorm,
+                                   rope_angles)
 from repro_torch.nn.mamba import (MambaCache, MambaDims, init_mamba,
                                   init_mamba_cache, mamba_mixer)
 
-_NOT_PORTED = ("{what} slots are not ported yet: the attention, MLP and MoE "
-               "modules are ROADMAP queue 1, item 9")
+_NOT_PORTED = ("{what} is not ported yet: the MoE module and cross-"
+               "attention are ROADMAP queue 1, item 9")
 
 
 @dataclass(frozen=True)
@@ -37,31 +43,60 @@ class StackSpec:
     slots: Tuple[SlotSpec, ...]
     n_periods: int
     d_model: int
+    d_ff: int = 0
+    mlp_kind: str = "swiglu"
     norm: str = "rmsnorm"
+    layout: Optional[AttnLayout] = None
+    rope_theta: float = 1e4
     dims: Optional[MambaDims] = None          # mamba dims (ssm)
+    chunk_k: int = 1024
+    block_causal: bool = False
     ssd_bf16: bool = False                    # bf16 SSD quadratic term
-    #: how the kernels run (the conv1d's substrate)
+    #: how the kernels run (the conv1d's and the attention core's substrate)
     policy: ExecutionPolicy = field(default_factory=ExecutionPolicy)
 
     def __post_init__(self):
         for slot in self.slots:
-            if slot.mixer not in ("mamba", "none"):
-                raise NotImplementedError(_NOT_PORTED.format(what=slot.mixer))
-            if slot.ffn != "none":
-                raise NotImplementedError(_NOT_PORTED.format(what=slot.ffn))
-        if self.norm != "rmsnorm":
-            raise NotImplementedError(f"norm {self.norm!r} is not ported yet")
+            if slot.mixer not in ("attn", "mamba", "none"):
+                raise ValueError(f"mixer {slot.mixer!r}")
+            if slot.ffn == "moe":
+                raise NotImplementedError(_NOT_PORTED.format(what="the moe "
+                                                             "slot"))
+            if slot.ffn not in ("mlp", "none"):
+                raise ValueError(f"ffn {slot.ffn!r}")
+            if slot.cross_attn:
+                raise NotImplementedError(_NOT_PORTED.format(
+                    what="cross-attention"))
+        _norm_fns(self.norm)
 
     @property
     def n_layers(self) -> int:
         return len(self.slots) * self.n_periods
 
 
+def _norm_fns(kind: str):
+    if kind == "rmsnorm":
+        return init_rmsnorm, rmsnorm
+    if kind == "layernorm":
+        return init_layernorm, layernorm
+    raise ValueError(kind)
+
+
 def _init_slot(gen, spec: StackSpec, slot: SlotSpec, dtype, device) -> Params:
+    init_norm, _ = _norm_fns(spec.norm)
     p: Params = {}
-    if slot.mixer == "mamba":
-        p["norm_mixer"] = init_rmsnorm(spec.d_model, dtype, device)
+    if slot.mixer == "attn":
+        lay = spec.layout
+        p["norm_mixer"] = init_norm(spec.d_model, dtype, device)
+        p["attn"] = init_attention(gen, spec.d_model, lay.n_q, lay.n_kv,
+                                   lay.head_dim, dtype, device)
+    elif slot.mixer == "mamba":
+        p["norm_mixer"] = init_norm(spec.d_model, dtype, device)
         p["mamba"] = init_mamba(gen, spec.dims, dtype, device)
+    if slot.ffn == "mlp":
+        p["norm_ffn"] = init_norm(spec.d_model, dtype, device)
+        p["mlp"] = init_mlp(gen, spec.d_model, spec.d_ff, spec.mlp_kind,
+                            dtype, device)
     return p
 
 
@@ -78,12 +113,17 @@ def init_stack(gen: torch.Generator, spec: StackSpec, dtype=torch.float32,
 
 def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cpu") -> Params:
-    """Decode caches, stacked over periods per slot; slots without state
-    get empty dicts.  (``max_len`` sizes attention caches, which the ssm
-    family has none of.)"""
+    """Decode caches, stacked over periods per slot: a KV cache of
+    ``max_len`` positions per attention slot, a Mamba cache per mamba
+    slot; slots without state get empty dicts."""
     cache: Params = {}
     for i, slot in enumerate(spec.slots):
-        if slot.mixer == "mamba":
+        if slot.mixer == "attn":
+            kv = init_kv_cache(batch, max_len, spec.layout, dtype, device)
+            cache[f"slot{i}"] = {"kv": KVCache(*(
+                t[None].expand((spec.n_periods,) + t.shape).clone()
+                for t in kv))}
+        elif slot.mixer == "mamba":
             mc = init_mamba_cache(batch, spec.dims, dtype, device)
             cache[f"slot{i}"] = {"mamba": MambaCache(*(
                 t[None].expand((spec.n_periods,) + t.shape).clone()
@@ -94,13 +134,29 @@ def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
 
 
 def _run_slot(p: Params, x: torch.Tensor, spec: StackSpec, slot: SlotSpec, *,
-              mode: str, cache: Optional[Dict[str, Any]],
+              mode: str, positions, rope, cache_pos, kv_length,
+              cache: Optional[Dict[str, Any]],
               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    _, norm = _norm_fns(spec.norm)
     new_cache: Dict[str, Any] = {}
-    if slot.mixer == "mamba":
+    if slot.mixer == "attn":
+        kv = cache.get("kv") if cache else None
+        h, nkv = attention(p["attn"], norm(p["norm_mixer"], x), spec.layout,
+                           positions=positions, rope_theta=spec.rope_theta,
+                           mode=mode, cache=kv,
+                           cache_pos=cache_pos, kv_length=kv_length,
+                           chunk_k=spec.chunk_k,
+                           block_causal=spec.block_causal, rope=rope,
+                           policy=spec.policy)
+        x = x + h
+        if nkv is not None:
+            new_cache["kv"] = nkv
+        elif cache and "kv" in cache:
+            new_cache["kv"] = cache["kv"]
+    elif slot.mixer == "mamba":
         mc = cache.get("mamba") if cache else None
         h, nmc = mamba_mixer(
-            p["mamba"], rmsnorm(p["norm_mixer"], x), spec.dims, mode=mode,
+            p["mamba"], norm(p["norm_mixer"], x), spec.dims, mode=mode,
             cache=mc, policy=spec.policy,
             score_dtype=torch.bfloat16 if spec.ssd_bf16 else torch.float32)
         x = x + h
@@ -108,17 +164,29 @@ def _run_slot(p: Params, x: torch.Tensor, spec: StackSpec, slot: SlotSpec, *,
             new_cache["mamba"] = nmc
         elif cache and "mamba" in cache:
             new_cache["mamba"] = cache["mamba"]
+    if slot.ffn == "mlp":
+        x = x + mlp(p["mlp"], norm(p["norm_ffn"], x), spec.mlp_kind)
     return x, new_cache
 
 
 def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
-              mode: str = "train", cache: Optional[Params] = None,
+              mode: str = "train", positions: Optional[torch.Tensor] = None,
+              cache: Optional[Params] = None, cache_pos=None,
+              kv_length: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the full stack. Returns (x, new cache or None).
 
-    mode: "train" (no cache), "prefill", "decode".  The new cache is
-    stacked anew; the one given is left untouched.
+    mode: "train" (no cache), "prefill", "decode".  ``positions`` (B, S)
+    default to ``arange(S)`` in every row; their RoPE angles are computed
+    once for all layers.  The KV caches of the cache
+    given are written in place and returned as they are; the Mamba caches
+    are stacked anew, leaving the given ones untouched.
     """
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+            x.shape[:2])
+    rope = (rope_angles(positions, spec.layout.head_dim, spec.rope_theta)
+            if spec.layout is not None else None)
     new_caches = []
     for i in range(spec.n_periods):
         p_i = tree_map(lambda p: p[i], params)
@@ -127,8 +195,12 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
         for j, slot in enumerate(spec.slots):
             x, nc[f"slot{j}"] = _run_slot(
                 p_i[f"slot{j}"], x, spec, slot, mode=mode,
+                positions=positions, rope=rope, cache_pos=cache_pos,
+                kv_length=kv_length,
                 cache=c_i[f"slot{j}"] if c_i is not None else None)
         new_caches.append(nc)
     if cache is None:
         return x, None
-    return x, tree_map(lambda *cs: torch.stack(cs), *new_caches)
+    return x, {slot: {key: (val if key == "kv" else tree_map(
+        lambda *cs: torch.stack(cs), *[nc[slot][key] for nc in new_caches]))
+        for key, val in c.items()} for slot, c in cache.items()}

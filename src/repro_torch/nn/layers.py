@@ -1,5 +1,6 @@
-"""Base LM layers: embedding, RMSNorm, dense projections and the tied
-readout (the part of ``repro/nn/layers.py`` the ssm serving path uses).
+"""Base LM layers: embedding, RMSNorm and LayerNorm, dense projections,
+the MLPs (swiglu, geglu, gelu), rotary embeddings and the tied readout
+(port of ``repro/nn/layers.py``; an untied ``lm_head`` is not ported yet).
 
 Conventions as in the JAX package: params are nested dicts with its leaf
 names; the compute dtype is the input's (bf16 in production), while
@@ -9,9 +10,10 @@ generator for the ``meta`` device).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 Params = Dict[str, Any]
 
@@ -74,6 +76,21 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype=torch.float32, device="cpu") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
+
+
 # -- dense -------------------------------------------------------------------
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -85,3 +102,56 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
 
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["kernel"].to(x.dtype)
+
+
+# -- MLPs --------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, ff: int, kind: str,
+             dtype=torch.float32, device="cpu") -> Params:
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": init_dense(gen, d, ff, dtype=dtype, device=device),
+                "w_up": init_dense(gen, d, ff, dtype=dtype, device=device),
+                "w_down": init_dense(gen, ff, d, std=ff ** -0.5, dtype=dtype,
+                                     device=device)}
+    if kind == "gelu":
+        return {"w_in": init_dense(gen, d, ff, dtype=dtype, device=device),
+                "w_out": init_dense(gen, ff, d, std=ff ** -0.5, dtype=dtype,
+                                    device=device)}
+    raise ValueError(kind)
+
+
+def mlp(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """``jax.nn.gelu`` defaults to the tanh approximation, and so does this
+    port of it."""
+    if kind in ("swiglu", "geglu"):
+        g = dense(params["w_gate"], x)
+        u = dense(params["w_up"], x)
+        act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
+        return dense(params["w_down"], act * u)
+    if kind == "gelu":
+        h = dense(params["w_in"], x)
+        return dense(params["w_out"], F.gelu(h, approximate="tanh"))
+    raise ValueError(kind)
+
+
+# -- rotary ------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> (cos, sin) of shape (..., head_dim//2), fp32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x (..., S, H, D); cos/sin (..., S, D/2) broadcast over heads; the
+    rotation is taken in fp32 and cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    c, s = cos[..., None, :], sin[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
+                     dim=-1).to(x.dtype)

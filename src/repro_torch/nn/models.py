@@ -1,14 +1,14 @@
-"""Model compositions: the decoder-only ``CausalLM`` for the ``ssm``
-family (port of the part of ``repro/nn/models.py`` that serves it).
+"""Model compositions: the decoder-only ``CausalLM`` for the ``ssm`` and
+``dense`` families (port of the part of ``repro/nn/models.py`` that
+serves them).
 
 Functional, as in the JAX package: a model object holds only static
 structure (the config, the derived StackSpec); params and caches are
-explicit trees.  The loss, ``EncDecLM`` and the other families are ROADMAP
-queue 1, item 9.
+explicit trees (the KV caches are written in place, ``nn/attention.py``).
+The loss, ``EncDecLM`` and the other families are ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -16,11 +16,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.policy import ExecutionPolicy, resolve_device
-from repro_torch.nn.blocks import (SlotSpec, StackSpec, init_stack,
-                                   init_stack_cache, run_stack)
+from repro_torch.nn.attention import attn_layout
+from repro_torch.nn.blocks import (SlotSpec, StackSpec, _norm_fns,
+                                   init_stack, init_stack_cache, run_stack)
 from repro_torch.nn.layers import (Params, embed_logits, embed_lookup,
-                                   init_embedding, init_rmsnorm, rmsnorm)
+                                   init_embedding)
 from repro_torch.nn.mamba import mamba_dims
+
+#: the families ``build_model`` takes
+FAMILIES = ("ssm", "dense")
 
 
 def decoder_schedule(cfg: ModelConfig) -> Tuple[Tuple[SlotSpec, ...], int]:
@@ -46,22 +50,27 @@ def decoder_schedule(cfg: ModelConfig) -> Tuple[Tuple[SlotSpec, ...], int]:
     return full, 1
 
 
-def _stack_spec(cfg: ModelConfig, slots, n_periods, *,
+def _stack_spec(cfg: ModelConfig, slots, n_periods, *, tp: int,
                 policy: ExecutionPolicy) -> StackSpec:
+    lay = (attn_layout(cfg.n_q, cfg.n_kv, cfg.head_dim, tp)
+           if cfg.n_q else None)
     dims = (mamba_dims(cfg.d_model, expand=cfg.ssm_expand,
                        headdim=cfg.ssm_headdim, d_state=cfg.ssm_d_state,
                        n_groups=cfg.ssm_n_groups, d_conv=cfg.ssm_d_conv,
                        chunk=cfg.ssm_chunk)
             if cfg.family in ("ssm", "hybrid") else None)
-    return StackSpec(slots=slots, n_periods=n_periods, d_model=cfg.d_model,
-                     norm=cfg.norm, dims=dims, ssd_bf16=cfg.ssd_bf16,
-                     policy=policy)
+    return StackSpec(
+        slots=slots, n_periods=n_periods, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        mlp_kind=cfg.mlp_kind, norm=cfg.norm, layout=lay,
+        rope_theta=cfg.rope_theta, dims=dims, chunk_k=cfg.chunk_k,
+        block_causal=cfg.block_causal, ssd_bf16=cfg.ssd_bf16, policy=policy)
 
 
 @dataclass(frozen=True)
 class CausalLM:
-    """Decoder-only LM (the ``ssm`` family so far).  ``policy`` decides how
-    the kernels run (the conv1d kernel, or the oracle)."""
+    """Decoder-only LM (the ``ssm`` and ``dense`` families so far).
+    ``policy`` decides how the kernels run (the conv1d and flash-attention
+    kernels, or their plain versions)."""
 
     cfg: ModelConfig
     tp: int = 1
@@ -70,7 +79,8 @@ class CausalLM:
     @property
     def spec(self) -> StackSpec:
         slots, n_periods = decoder_schedule(self.cfg)
-        return _stack_spec(self.cfg, slots, n_periods, policy=self.policy)
+        return _stack_spec(self.cfg, slots, n_periods, tp=self.tp,
+                           policy=self.policy)
 
     # -- params ------------------------------------------------------------
     def init(self, seed, device="cuda") -> Params:
@@ -83,26 +93,23 @@ class CausalLM:
         if isinstance(seed, int):
             gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
             gen.manual_seed(seed)
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("an untied lm_head is not ported yet")
         return {
             "embed": init_embedding(gen, cfg.vocab, cfg.d_model,
                                     pad_to=cfg.vocab_pad_to, dtype=cfg.dtype,
                                     device=dev),
             "stack": init_stack(gen, self.spec, cfg.dtype, dev),
-            "final_norm": init_rmsnorm(cfg.d_model, cfg.dtype, dev),
+            "final_norm": _norm_fns(cfg.norm)[0](cfg.d_model, cfg.dtype,
+                                                 dev),
         }
 
     # -- shared pieces -------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_lookup(params["embed"], tokens)
-        if self.cfg.scale_embed:
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
-        return x
+        return embed_lookup(params["embed"], tokens)
 
     def _logits(self, params: Params, x: torch.Tensor,
                 keep_pad: bool = False) -> torch.Tensor:
-        x = rmsnorm(params["final_norm"], x)
+        _, norm = _norm_fns(self.cfg.norm)
+        x = norm(params["final_norm"], x)
         return embed_logits(params["embed"], x, self.cfg.vocab,
                             keep_pad=keep_pad)
 
@@ -136,25 +143,50 @@ class CausalLM:
         return self._logits(params, last)[:, 0], cache
 
     def decode_step(self, params: Params, token: torch.Tensor, cache: Params,
-                    pos=None) -> Tuple[torch.Tensor, Params]:
-        """token (B,) int; ``pos`` (the position being written) is taken
-        for the JAX signature: the ssm state needs no position.  Returns
-        (logits (B, vocab), new cache)."""
+                    pos, kv_length: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, Params]:
+        """token (B,) int; ``pos`` (an int: the position being written,
+        the rope position of every row); ``kv_length`` (B,) the keys each
+        row attends to (default ``pos + 1``).  Returns (logits (B, vocab),
+        the cache)."""
         x = self._embed(params, token[:, None])
+        positions = torch.full(x.shape[:2], int(pos), dtype=torch.long,
+                               device=x.device)
+        if kv_length is None and self.cfg.n_q:
+            kv_length = torch.full(x.shape[:1], int(pos) + 1,
+                                   dtype=torch.int32, device=x.device)
         x, cache = run_stack(params["stack"], x, self.spec, mode="decode",
-                             cache=cache)
+                             cache=cache, positions=positions, cache_pos=pos,
+                             kv_length=kv_length)
         return self._logits(params, x)[:, 0], cache
+
+
+#: what ``build_model`` refuses: config features the port has not yet held
+#: against the JAX package
+_UNPORTED = (
+    ("tie_embeddings", lambda c: not c.tie_embeddings, "an untied lm_head"),
+    ("n_experts", lambda c: c.n_experts, "the MoE ffn"),
+    ("scale_embed", lambda c: c.scale_embed,
+     "gemma's embedding scale by sqrt(d_model)"),
+    ("decode_kv_seqshard", lambda c: c.decode_kv_seqshard,
+     "the sequence-sharded decode (nn/decode_attn.py)"),
+)
 
 
 def build_model(cfg: ModelConfig, tp: int = 1,
                 policy: Optional[ExecutionPolicy] = None) -> CausalLM:
-    """The model for an LM config: ``CausalLM`` for the ``ssm`` family on
-    one device (``tp == 1``)."""
-    if cfg.family != "ssm":
+    """The model for an LM config: ``CausalLM`` for the ``ssm`` and
+    ``dense`` families on one device (``tp == 1``).  A config that needs a
+    feature the port does not have yet raises NotImplementedError."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port serves the "
-            "ssm family; attention, MoE, hybrid and encdec models are "
-            "ROADMAP queue 1, item 9")
+            f"the {cfg.family} family ({cfg.name!r}) is not ported yet: the "
+            "MoE, hybrid, vlm and encdec families are ROADMAP queue 1, item 9")
+    for name, needs, what in _UNPORTED:
+        if needs(cfg):
+            raise NotImplementedError(
+                f"{cfg.name!r} sets {name}={getattr(cfg, name)!r}: {what} is "
+                "not ported yet (ROADMAP queue 1, item 9)")
     if tp != 1:
         raise NotImplementedError(f"tp={tp}: the port runs on one device "
                                   "(tensor parallelism is ROADMAP queue 1, "

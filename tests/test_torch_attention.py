@@ -1,0 +1,343 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+- ``flash_attention_plain`` (the flash kernel's plain version, also what
+  ``ops.flash_attention`` and the kernel's wrapper run on a CPU tensor)
+  against ``repro.nn.attention.flash_attention`` on the model layout q
+  (B, Sq, H, G, D), k/v (B, Sk, H, D): causal and not, Sq == Sk and
+  Sq < Sk with ``q_offset``, G in {1, 4}, a per-row ``kv_length`` with a
+  row at 0, a ragged ``chunk_k`` and the ``block_causal`` sweep.  fp32
+  within rtol = atol = 2e-5 (the tolerance of the JAX package's own flash
+  tests), bf16 within 2e-2.
+- The same plain version on the Pallas layout (B, H, S, D), with G = 1,
+  against ``flash_attention_pallas(interpret=True)`` and both oracles on
+  ``tests/test_kernels.py``'s ``FLASH_CASES`` and its scalar
+  ``kv_length`` case, at Sq == Sk only: the Pallas kernel aligns its
+  causal mask to the start and the oracle to the end, so they agree only
+  there.
+- ``attention(...)`` in train, prefill and decode modes against JAX's,
+  with JAX's params carried by ``from_jax_params``: outputs and caches.
+- ``rope_angles`` / ``apply_rope``, the three MLP kinds and
+  ``layernorm`` against JAX's.
+"""
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.flash_attention import \
+    flash_attention_ref as jax_flash_ref
+from repro.nn import attention as jattn
+from repro.nn import layers as jlayers
+from repro_torch.engine import ExecutionPolicy
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain,
+                                                 flash_attention_ref)
+from repro_torch.nn import attention as tattn
+from repro_torch.nn import layers as tlayers
+from repro_torch.weights import from_jax_params
+
+TOL = {np.float32: dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+# (B, Sq, Sk, H, G, D, causal, q_offset, kv_length, chunk_k, block_causal)
+CASES = [
+    (2, 16, 16, 2, 1, 8, True, 0, None, 8, False),
+    (2, 16, 16, 2, 1, 8, False, 0, None, 8, False),
+    (1, 24, 24, 2, 4, 16, True, 0, None, 16, False),
+    (2, 20, 20, 1, 4, 8, False, 0, None, 7, False),       # ragged chunk_k
+    (1, 5, 21, 2, 4, 16, True, 16, None, 8, False),       # Sq < Sk, q_offset
+    (2, 7, 30, 2, 1, 8, True, 23, None, 16, False),
+    (3, 1, 33, 2, 4, 16, False, 0, (33, 0, 7), 16, False),  # decode
+    (3, 12, 12, 2, 4, 8, True, 0, (12, 0, 5), 8, False),
+    (2, 40, 40, 2, 2, 8, True, 0, None, 16, True),        # block_causal
+    (1, 33, 33, 1, 4, 16, True, 0, (20,), 8, True),
+]
+
+
+def case_id(case):
+    B, Sq, Sk, H, G, D, causal, off, kvl, ck, bc = case
+    return (f"B{B}-q{Sq}-k{Sk}-H{H}-G{G}-D{D}-{'c' if causal else 'nc'}"
+            f"-off{off}-kvl{'x'.join(map(str, kvl)) if kvl else 'none'}"
+            f"-ck{ck}{'-bc' if bc else ''}")
+
+
+def make_inputs(case):
+    B, Sq, Sk, H, G, D = case[:6]
+    rng = np.random.default_rng(zlib.crc32(case_id(case).encode()))
+    q = rng.standard_normal((B, Sq, H, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, H, D)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, H, D)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_flash(q, k, v, case):
+    *_, causal, off, kvl, ck, bc = case
+    return jattn.flash_attention(
+        q, k, v, causal=causal, q_offset=off,
+        kv_length=None if kvl is None else jnp.asarray(kvl, jnp.int32),
+        chunk_k=ck, block_causal=bc)
+
+
+def _port_kw(case):
+    *_, causal, off, kvl, ck, bc = case
+    return dict(causal=causal, q_offset=off,
+                kv_length=None if kvl is None else torch.tensor(
+                    kvl, dtype=torch.int32),
+                chunk_k=ck, block_causal=bc)
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_flash_plain_fp32_matches_jax(case):
+    q, k, v = make_inputs(case)
+    want = np.asarray(_jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), case))
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    kw = _port_kw(case)
+    for got in (flash_attention_plain(qt, kt, vt, **kw),
+                flash_attention(qt, kt, vt, **kw),
+                ops.flash_attention(qt, kt, vt, **kw),
+                ops.flash_attention(qt, kt, vt, **kw,
+                                    policy=ExecutionPolicy("oracle"))):
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        np.testing.assert_allclose(got.numpy(), want, **TOL[np.float32])
+
+
+@pytest.mark.parametrize("case", CASES[::2], ids=case_id)
+def test_flash_plain_bf16_matches_jax(case):
+    q, k, v = make_inputs(case)
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(_jax_flash(qj, kj, vj, case).astype(jnp.float32))
+    qt, kt, vt = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention_plain(qt, kt, vt, **_port_kw(case))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **TOL["bfloat16"])
+
+
+def test_flash_plain_row_without_keys_is_zero():
+    """A batch row with kv_length 0 sees no key: its output is 0, not
+    NaN."""
+    case = CASES[6]
+    q, k, v = map(torch.from_numpy, make_inputs(case))
+    out = flash_attention_plain(q, k, v, **_port_kw(case))
+    assert bool(torch.isfinite(out).all())
+    assert float(out[1].abs().max()) == 0.0
+
+
+# (B, H, Sq, D, bq, bk, causal): tests/test_kernels.py FLASH_CASES
+FLASH_CASES = [
+    (2, 3, 64, 16, 16, 16, True),
+    (1, 2, 33, 8, 16, 8, True),
+    (2, 2, 40, 16, 16, 16, False),
+    (1, 1, 128, 32, 64, 32, True),
+]
+
+
+def _pallas_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def _plain_on_pallas_layout(q, k, v, causal, kv_length=None, chunk_k=1024):
+    """(B, H, S, D) -> the model layout with G = 1, and back."""
+    B = q.shape[0]
+    qt = torch.from_numpy(q).permute(0, 2, 1, 3)[:, :, :, None]
+    kt = torch.from_numpy(k).permute(0, 2, 1, 3)
+    vt = torch.from_numpy(v).permute(0, 2, 1, 3)
+    kvl = (None if kv_length is None
+           else torch.full((B,), kv_length, dtype=torch.int32))
+    out = flash_attention_plain(qt, kt, vt, causal=causal, kv_length=kvl,
+                                chunk_k=chunk_k)
+    return out[:, :, :, 0].permute(0, 2, 1, 3).numpy()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_plain_matches_pallas_interpret(case):
+    B, H, S, D, bq, bk, causal = case
+    q, k, v = _pallas_inputs((B, H, S, D), sum(case))
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=bq, block_k=bk, interpret=True))
+    got = _plain_on_pallas_layout(q, k, v, causal, chunk_k=bk)
+    np.testing.assert_allclose(got, want, **TOL[np.float32])
+    oracle = flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                 causal=causal).numpy()
+    np.testing.assert_allclose(oracle, want, **TOL[np.float32])
+    np.testing.assert_allclose(oracle, np.asarray(jax_flash_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)),
+        **TOL[np.float32])
+
+
+def test_flash_plain_kv_length_matches_pallas_interpret():
+    q, k, v = _pallas_inputs((1, 2, 16, 8), 9)
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+        kv_length=9, block_q=8, block_k=8, interpret=True))
+    got = _plain_on_pallas_layout(q, k, v, False, kv_length=9, chunk_k=8)
+    np.testing.assert_allclose(got, want, **TOL[np.float32])
+    oracle = flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                 causal=False, kv_length=9).numpy()
+    np.testing.assert_allclose(oracle, want, **TOL[np.float32])
+
+
+def test_flash_plain_sq_lt_sk_matches_end_aligned_oracle():
+    """Sq < Sk with q_offset = Sk - Sq is the oracle's end-aligned causal
+    mask (the decode convention)."""
+    q, k, v = _pallas_inputs((2, 2, 24, 8), 5)
+    q = q[:, :, :7]
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    want = flash_attention_ref(qt, kt, vt, causal=True).numpy()
+    got = flash_attention_plain(
+        qt.permute(0, 2, 1, 3)[:, :, :, None], kt.permute(0, 2, 1, 3),
+        vt.permute(0, 2, 1, 3), causal=True, q_offset=24 - 7, chunk_k=8)
+    np.testing.assert_allclose(got[:, :, :, 0].permute(0, 2, 1, 3).numpy(),
+                               want, **TOL[np.float32])
+
+
+# -- the attention layer ------------------------------------------------------
+
+# (n_q, n_kv, head_dim, chunk_k, block_causal)
+LAYERS = [(8, 2, 8, 64, False), (4, 4, 16, 8, False), (8, 2, 8, 8, True)]
+D_MODEL = 64
+LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _layer_id(layer):
+    return "q{}-kv{}-d{}-ck{}{}".format(*layer[:4], "-bc" if layer[4] else "")
+
+
+@pytest.fixture(scope="module", params=LAYERS, ids=_layer_id)
+def layer(request):
+    n_q, n_kv, hd, ck, bc = request.param
+    params_j = jattn.init_attention(jax.random.PRNGKey(3), D_MODEL, n_q, n_kv,
+                                    hd)
+    lay_j = jattn.attn_layout(n_q, n_kv, hd)
+    lay = tattn.attn_layout(n_q, n_kv, hd)
+    assert tuple(lay) == tuple(lay_j)
+    return params_j, lay_j, from_jax_params(params_j, "cpu"), lay, ck, bc
+
+
+def _x(B, S, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (B, S, D_MODEL)).astype(np.float32)
+
+
+def test_attention_train_matches_jax(layer):
+    params_j, lay_j, params, lay, ck, bc = layer
+    x = _x(2, 19, 1)
+    pos = np.broadcast_to(np.arange(19), (2, 19))
+    want, _ = jattn.attention(params_j, jnp.asarray(x), lay_j,
+                              positions=jnp.asarray(pos), mode="train",
+                              chunk_k=ck, block_causal=bc)
+    got, cache = tattn.attention(params, torch.from_numpy(x), lay,
+                                 positions=torch.from_numpy(pos.copy()),
+                                 mode="train", chunk_k=ck, block_causal=bc)
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+def test_attention_prefill_then_decode_matches_jax(layer):
+    """prefill 11 tokens into a 16-position cache, then 4 decode steps
+    (the last with a per-row kv_length); outputs and the whole cache at
+    every step.  The port writes the cache in place and returns it."""
+    params_j, lay_j, params, lay, ck, bc = layer
+    B, S, S_max = 2, 11, 16
+    x = _x(B, S + 4, 2)
+    cache_j = jattn.init_kv_cache(B, S_max, lay_j, dtype=jnp.float32)
+    cache = tattn.init_kv_cache(B, S_max, lay, dtype=torch.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    want, cache_j = jattn.attention(
+        params_j, jnp.asarray(x[:, :S]), lay_j, positions=jnp.asarray(pos),
+        mode="prefill", cache=cache_j, chunk_k=ck, block_causal=bc)
+    got, new = tattn.attention(
+        params, torch.from_numpy(x[:, :S].copy()), lay,
+        positions=torch.from_numpy(pos.copy()), mode="prefill", cache=cache,
+        chunk_k=ck, block_causal=bc)
+    assert new is cache
+    for i in range(5):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **LAYER_TOL)
+        for a, b in zip(cache, cache_j):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **LAYER_TOL)
+        if i == 4:
+            break
+        p = S + i
+        kvl = np.array([p + 1, p - 3], np.int32) if i == 3 else None
+        xt = x[:, p:p + 1]
+        want, cache_j = jattn.attention(
+            params_j, jnp.asarray(xt), lay_j,
+            positions=jnp.full((B, 1), p, jnp.int32), mode="decode",
+            cache=cache_j, cache_pos=jnp.int32(p),
+            kv_length=None if kvl is None else jnp.asarray(kvl), chunk_k=ck)
+        got, cache = tattn.attention(
+            params, torch.from_numpy(xt.copy()), lay,
+            positions=torch.full((B, 1), p), mode="decode", cache=cache,
+            cache_pos=p,
+            kv_length=None if kvl is None else torch.from_numpy(kvl),
+            chunk_k=ck)
+
+
+def test_attention_unported_options_raise(layer):
+    _, _, params, lay, _, _ = layer
+    x = torch.zeros((1, 2, D_MODEL))
+    pos = torch.arange(2)[None]
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        tattn.attention(params, x, lay, positions=pos,
+                        cross_kv=(x, x))
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        tattn.attention(params, x, lay, positions=pos, kv_seqshard="model")
+
+
+# -- layers -----------------------------------------------------------------
+
+@pytest.mark.parametrize("theta", [1e4, 1e5])
+def test_rope_matches_jax(theta):
+    rng = np.random.default_rng(int(theta))
+    pos = rng.integers(0, 5000, (2, 9))
+    x = rng.standard_normal((2, 9, 3, 16)).astype(np.float32)
+    cos_j, sin_j = jlayers.rope_angles(jnp.asarray(pos), 16, theta)
+    cos, sin = tlayers.rope_angles(torch.from_numpy(pos), 16, theta)
+    np.testing.assert_allclose(cos.numpy(), np.asarray(cos_j), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(sin.numpy(), np.asarray(sin_j), rtol=1e-5,
+                               atol=1e-5)
+    want = jlayers.apply_rope(jnp.asarray(x), cos_j, sin_j)
+    got = tlayers.apply_rope(torch.from_numpy(x), cos, sin)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    assert tlayers.apply_rope(xb, cos, sin).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])
+def test_mlp_matches_jax(kind):
+    params_j = jlayers.init_mlp(jax.random.PRNGKey(4), 32, 96, kind)
+    x = np.random.default_rng(4).standard_normal((2, 5, 32)).astype(
+        np.float32)
+    want = jlayers.mlp(params_j, jnp.asarray(x), kind)
+    got = tlayers.mlp(from_jax_params(params_j, "cpu"), torch.from_numpy(x),
+                      kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    params = tlayers.init_mlp(torch.Generator().manual_seed(0), 32, 96, kind)
+    assert {p: tuple(t["kernel"].shape) for p, t in params.items()} == \
+        {p: tuple(t["kernel"].shape) for p, t in params_j.items()}
+
+
+def test_layernorm_matches_jax():
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((3, 7, 48)) * 3 + 1).astype(np.float32)
+    params_j = {"scale": jnp.asarray(rng.standard_normal(48), jnp.float32),
+                "bias": jnp.asarray(rng.standard_normal(48), jnp.float32)}
+    want = jlayers.layernorm(params_j, jnp.asarray(x))
+    got = tlayers.layernorm(from_jax_params(params_j, "cpu"),
+                            torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    init = tlayers.init_layernorm(48)
+    assert float(init["scale"].sum()) == 48
+    assert float(init["bias"].abs().sum()) == 0

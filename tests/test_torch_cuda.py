@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on a card: the
 TrIM conv kernel, the weight-gradient kernel, the autograd Function that
-runs both, and the causal conv1d kernel (bit for bit).
+runs both, the causal conv1d kernel (bit for bit) and the flash-attention
+kernel (fp32 within 2e-5, bf16 within 2e-2).
 
 ``CASES``/``make_inputs`` are shared with ``test_torch_conv2d.py``, which
 holds the same cases on the CPU against the JAX package.  On the card the
@@ -263,3 +264,100 @@ def test_conv1d_kernel_offsets_past_2_31_on_card():
     want = k1.trim_conv1d_plain(x[:, -(n + K - 1):], w)[:, -n:]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# (B, Sq, Sk, H, G, D, causal, q_offset, kv_length): the chip phase's cases
+# at small size: Sq == Sk causal and not, ragged Sq and Sk against the
+# tiles, GQA G = 4, Sq < Sk with q_offset, a per-row kv_length with a row
+# at 0, decode (Sq = 1) over a longer cache, and D = 128
+FLASH_CASES = [
+    (2, 64, 64, 3, 1, 64, True, 0, None),
+    (1, 33, 33, 2, 1, 64, True, 0, None),
+    (2, 40, 40, 2, 1, 64, False, 0, None),
+    (1, 128, 128, 1, 1, 64, True, 0, None),
+    (2, 77, 77, 2, 4, 64, True, 0, None),
+    (1, 5, 21, 2, 4, 64, True, 16, None),
+    (2, 50, 130, 1, 4, 128, True, 80, None),
+    (3, 16, 16, 2, 4, 64, False, 0, (16, 0, 9)),
+    (3, 1, 200, 2, 4, 64, False, 0, (129, 0, 200)),
+    (2, 1, 300, 2, 4, 128, False, 0, (257, 3)),
+]
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _flash_id(c):
+    return "B{}-q{}-k{}-H{}-G{}-D{}-{}-off{}-kvl{}".format(
+        *c[:6], "c" if c[6] else "nc", c[7],
+        "x".join(map(str, c[8])) if c[8] else "none")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=_flash_id)
+def test_flash_kernel_matches_plain_on_card(case, dtype):
+    """On a card: the flash kernel against its plain version (TF32 off);
+    q read as a view of a wider projection, k/v as one period of a
+    stacked cache whose rows past kv_length hold NaN (zeroed for the plain
+    version, which would sum them): they never reach the kernel's sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+
+    fp32_ieee()
+    B, Sq, Sk, H, G, D, causal, off, kvl = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(zlib.crc32(_flash_id(case).encode()))
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, dt)
+
+    q = rnd(B, Sq, H * G * D + 8 * D)[..., 8 * D:].view(B, Sq, H, G, D)
+    k, v = rnd(2, B, Sk, H, D)[1], rnd(3, B, Sk, H, D)[2]
+    length = None
+    k_plain, v_plain = k, v
+    if kvl is not None:
+        length = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        stale = torch.arange(Sk, device=dev)[None, :] >= length[:, None]
+        k_plain = k.masked_fill(stale[..., None, None], 0.0)
+        v_plain = v.masked_fill(stale[..., None, None], 0.0)
+        k.masked_fill_(stale[..., None, None], float("nan"))
+        v.masked_fill_(stale[..., None, None], float("nan"))
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=off,
+                             kv_length=length)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k_plain, v_plain, causal=causal,
+                                    q_offset=off, kv_length=length)
+    assert got.dtype == dt and got.shape == (B, Sq, H, G, D)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[dtype])
+    if kvl is not None and 0 in kvl:
+        assert float(got[list(kvl).index(0)].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_does_not_take_on_card():
+    """On a card: a head dim the kernel is not built for, mixed dtypes and
+    a non-contiguous head dim raise; nothing falls back to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    q = torch.zeros((1, 4, 2, 1, 32), device=dev)
+    k = torch.zeros((1, 4, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, k, k, causal=True)
+    q, k = torch.zeros((1, 4, 2, 1, 64), device=dev), torch.zeros(
+        (1, 4, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q, k.bfloat16(), k.bfloat16(), causal=True)
+    kt = torch.zeros((1, 4, 64, 2), device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        fa.flash_attention(q, kt, kt, causal=True)

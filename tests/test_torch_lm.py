@@ -1,5 +1,7 @@
-"""The port's LM serving path (the ssm family, mamba2-130m) against the JAX
-package's, on the CPU.
+"""The port's LM serving path against the JAX package's, on the CPU, for
+each architecture it serves: mamba2-130m (the ssm family) and granite-3-2b
+(the dense family).  Every test but the refusals of unported families and
+features runs once per architecture.
 
 - The full config's fields equal JAX's, and the full-width parameter
   tree (init on the ``meta`` device) has JAX's paths, shapes and dtypes
@@ -12,6 +14,11 @@ package's, on the CPU.
   its forward within 3e-4.
 - bfloat16 weights cross bit for bit, both ways.
 - The launcher runs on the CPU when asked to and refuses without a card.
+- ``build_model`` refuses a config by the features the port lacks, and
+  builds a ported one whatever its name.
+
+granite-3-2b's KV caches are written in place (``nn/attention.py``): its
+prefill + decode test checks that the cache returned is the one given.
 """
 import dataclasses
 import os
@@ -35,21 +42,34 @@ from repro_torch.nn.models import CausalLM, build_model
 from repro_torch.weights import from_jax_params, to_numpy
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-ARCH = "mamba2-130m"
+ARCHS = ["mamba2-130m", "granite-3-2b"]
+#: the full-width parameter count: embedding (padded vocab) + layers + the
+#: final norm
+FULL_PARAMS = {
+    "mamba2-130m": 50304 * 768 + 24 * (768 * 3352 + 4 * 1792 + 3 * 24 + 1536
+                                       + 1536 * 768 + 768) + 768,
+    "granite-3-2b": 49280 * 2048 + 40 * (2048 * 48 * 64 + 32 * 64 * 2048
+                                         + 3 * 2048 * 8192 + 2 * 2048)
+    + 2048,
+}
 TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_TOL = dict(rtol=3e-4, atol=3e-4)
 
 
-def test_full_config_matches_jax():
-    port, ref = get_config(ARCH), jax_get_config(ARCH)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_config_matches_jax(arch):
+    port, ref = get_config(arch), jax_get_config(arch)
     a, b = dataclasses.asdict(port), dataclasses.asdict(ref)
     assert str(a.pop("dtype")) == "torch.bfloat16"
     assert jnp.dtype(b.pop("dtype")).name == "bfloat16"
     assert a == b
     assert port.param_count_estimate() == ref.param_count_estimate()
-    assert get_smoke(ARCH).dtype == torch.float32
-    assert dataclasses.asdict(get_smoke(ARCH)).keys() == \
-        dataclasses.asdict(jax_get_smoke(ARCH)).keys()
+    assert get_smoke(arch).dtype == torch.float32
+    smoke, smoke_j = (dataclasses.asdict(c) for c in (get_smoke(arch),
+                                                      jax_get_smoke(arch)))
+    smoke.pop("dtype")
+    smoke_j.pop("dtype")
+    assert smoke == smoke_j
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "seamless-m4t-large-v2",
@@ -61,33 +81,54 @@ def test_unported_families_raise(arch):
         build_model(jax_smoke_as_port(arch))
 
 
+@pytest.mark.parametrize("override", [
+    dict(family="moe"), dict(tie_embeddings=False), dict(n_experts=4),
+    dict(scale_embed=True), dict(decode_kv_seqshard="model")],
+    ids=lambda o: next(iter(o)))
+def test_build_model_refuses_unported_features(override):
+    """build_model refuses by what a config needs, not by its name."""
+    cfg = get_smoke("granite-3-2b").with_overrides(**override)
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        build_model(cfg)
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        build_model(get_smoke("granite-3-2b"), tp=2)
+
+
+def test_build_model_takes_a_renamed_config():
+    cfg = get_smoke("granite-3-2b")
+    model = build_model(cfg.with_overrides(name="granite-copy"))
+    params = build_model(cfg).init(0, "cpu")
+    toks = torch.from_numpy(_tokens(2, 9, cfg.vocab, 2)).long()
+    assert torch.equal(model.forward(params, toks),
+                       build_model(cfg).forward(params, toks))
+
+
 def jax_smoke_as_port(arch):
     """A JAX smoke config's fields on the port's ModelConfig."""
     fields = dataclasses.asdict(jax_get_smoke(arch))
     fields["dtype"] = torch.float32
-    return get_smoke(ARCH).with_overrides(**fields)
+    return get_smoke("mamba2-130m").with_overrides(**fields)
 
 
-def test_full_width_param_tree_matches_jax():
-    params = build_model(get_config(ARCH)).init(0, "meta")
-    shapes = jax.eval_shape(jax_build_model(jax_get_config(ARCH)).init,
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_width_param_tree_matches_jax(arch):
+    params = build_model(get_config(arch)).init(0, "meta")
+    shapes = jax.eval_shape(jax_build_model(jax_get_config(arch)).init,
                             jax.random.PRNGKey(0))
     got = [(p, tuple(t.shape), str(t.dtype).replace("torch.", ""))
            for p, t in tree_leaves_with_path(params)]
     want = [(p, tuple(s.shape), jnp.dtype(s.dtype).name)
             for p, s in tree_leaves_with_path(shapes)]
     assert got == want
-    n = sum(int(np.prod(s)) for _, s, _ in got)
-    assert n == 50304 * 768 + 24 * (768 * 3352 + 4 * 1792 + 3 * 24 + 1536
-                                     + 1536 * 768 + 768) + 768
+    assert sum(int(np.prod(s)) for _, s, _ in got) == FULL_PARAMS[arch]
 
 
-@pytest.fixture(scope="module")
-def smoke():
-    cfg_j = jax_get_smoke(ARCH)
+@pytest.fixture(scope="module", params=ARCHS)
+def smoke(request):
+    cfg_j = jax_get_smoke(request.param)
     model_j = jax_build_model(cfg_j)
     params_j = model_j.init(jax.random.PRNGKey(0))
-    model = build_model(get_smoke(ARCH))
+    model = build_model(get_smoke(request.param))
     return model_j, params_j, model, from_jax_params(params_j, "cpu")
 
 
@@ -101,14 +142,15 @@ def test_smoke_forward_matches_jax(smoke):
     toks = _tokens(2, 40, model.cfg.vocab, 1)
     want, _ = model_j.forward(params_j, jnp.asarray(toks))
     got = model.forward(params, torch.from_numpy(toks).long())
-    assert got.dtype == torch.float32 and got.shape == (2, 40, 512)
+    assert got.dtype == torch.float32 and got.shape == (2, 40,
+                                                        model.cfg.vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_smoke_prefill_and_decode_match_jax(smoke):
-    """prefill on 21 tokens (a ragged last SSD chunk), then 8 decode steps
-    fed the tokens JAX picks greedily; logits and the whole cache at
-    every step."""
+    """prefill on 21 tokens (a ragged last SSD chunk for mamba2-130m),
+    then 8 decode steps fed the tokens JAX picks greedily; logits and the
+    whole cache at every step."""
     model_j, params_j, model, params = smoke
     B, S = 2, 21
     toks = _tokens(B, S, model.cfg.vocab, 2)
@@ -149,7 +191,8 @@ def test_smoke_prefill_with_lengths_matches_jax(smoke):
 
 def test_smoke_prefill_then_decode_equals_forward(smoke):
     """prefill(t[:S-1]) + decode(t[S-1]) == forward(t) at the last two
-    positions, on the port alone; the cache given is never written."""
+    positions, on the port alone.  A Mamba cache given is never written; a
+    KV cache is written in place and returned."""
     _, _, model, params = smoke
     B, S = 2, 12
     toks = torch.from_numpy(_tokens(B, S, model.cfg.vocab, 4)).long()
@@ -157,16 +200,24 @@ def test_smoke_prefill_then_decode_equals_forward(smoke):
     cache = model.init_cache(B, S + 4, dtype=torch.float32, device="cpu")
     pre, cache2 = model.prefill(params, toks[:, :S - 1], cache)
     torch.testing.assert_close(pre, full[:, S - 2], **SERVE_TOL)
-    dec, _ = model.decode_step(params, toks[:, S - 1], cache2, S - 1)
+    dec, cache3 = model.decode_step(params, toks[:, S - 1], cache2, S - 1)
     torch.testing.assert_close(dec, full[:, S - 1], **SERVE_TOL)
-    assert all(float(t.abs().max()) == 0 for _, t in
-               tree_leaves_with_path(cache))
+    if model.cfg.family == "ssm":
+        assert all(float(t.abs().max()) == 0 for _, t in
+                   tree_leaves_with_path(cache))
+    else:
+        assert cache3["slot0"]["kv"] is cache2["slot0"]["kv"] \
+            is cache["slot0"]["kv"]
+        k = cache["slot0"]["kv"].k
+        assert float(k[:, :, S - 1].abs().max()) > 0
+        assert float(k[:, :, S:].abs().max()) == 0
 
 
-def test_bf16_weights_cross_bit_for_bit():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_weights_cross_bit_for_bit(arch):
     """JAX bf16 params -> the port -> numpy: the same 16-bit patterns, and
     the port's bf16 forward runs on them."""
-    cfg_j = jax_get_smoke(ARCH, dtype=jnp.bfloat16)
+    cfg_j = jax_get_smoke(arch, dtype=jnp.bfloat16)
     params_j = jax_build_model(cfg_j).init(jax.random.PRNGKey(1))
     params = from_jax_params(params_j, "cpu")
     back = to_numpy(params)
@@ -178,31 +229,33 @@ def test_bf16_weights_cross_bit_for_bit():
             b = b.view(np.uint16)
         got = dict(tree_leaves_with_path(back))[p]
         np.testing.assert_array_equal(got, b, err_msg=p)
-    model = CausalLM(get_smoke(ARCH, dtype=torch.bfloat16))
-    toks = torch.from_numpy(_tokens(1, 9, 512, 5)).long()
+    model = CausalLM(get_smoke(arch, dtype=torch.bfloat16))
+    toks = torch.from_numpy(_tokens(1, 9, model.cfg.vocab, 5)).long()
     logits = model.forward(params, toks)
     assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
 
 
-def _run_serve(*flags):
+def _run_serve(arch, *flags):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
     return subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--smoke", *flags], env=env, capture_output=True, text=True,
         timeout=300, cwd=REPO)
 
 
-def test_serve_launcher_on_the_cpu():
-    proc = _run_serve("--device", "cpu", "--batch", "2", "--prompt-len",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_launcher_on_the_cpu(arch):
+    proc = _run_serve(arch, "--device", "cpu", "--batch", "2", "--prompt-len",
                       "16", "--gen", "4")
     assert proc.returncode == 0, proc.stderr
     assert "generated (2, 4) tokens" in proc.stdout
     assert "decode" in proc.stdout and "tok/s" in proc.stdout
 
 
-def test_serve_launcher_refuses_without_a_card():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_launcher_refuses_without_a_card(arch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    proc = _run_serve("--batch", "2", "--prompt-len", "16", "--gen", "4")
+    proc = _run_serve(arch, "--batch", "2", "--prompt-len", "16", "--gen", "4")
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
