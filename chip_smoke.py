@@ -10,10 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. environment: CUDA available, compute capability (9, 0), the card's
    name and power limit from ``nvidia-smi``;
-2. build: compile the four CUDA kernel libraries (the TrIM conv, its
-   weight gradient, the causal conv1d and flash attention) from the
-   sources in the checkout (``repro_torch/csrc``), one ``nvcc`` each,
-   started together, and load them;
+2. build: compile the six CUDA kernel libraries (the TrIM conv, its
+   weight gradient, the causal conv1d, flash attention, the matmul and
+   the SSD scan) from the sources in the checkout (``repro_torch/csrc``),
+   one ``nvcc`` each, started together, and load them;
 3. kernels: the TrIM conv kernel against its plain PyTorch version on the
    card, at the 13 VGG-16 conv shapes (batch 1) on the float lane
    (bias+ReLU) and the int8 lane (ReLU+requant; ReLU into raw int32 on
@@ -50,6 +50,28 @@ Phases (any failure exits non-zero and prints no result line):
    kv_length 4097.  At the two full-width shapes, per dtype: kernel ms,
    plain ms, ``F.scaled_dot_product_attention`` ms (KV heads repeated; a
    yardstick the port never calls) and the bound;
+3e. matmul: ``ops.trim_matmul`` (the entry point) at granite-3-2b's
+   full-width projections at a 4 x 4096 prefill, (16384, 2048) @ (2048,
+   8192), (16384, 8192) @ (8192, 2048) and (16384, 2048) @ (2048, 2048),
+   and the decode-shaped (4, 2048) @ (2048, 8192), in bf16, fp32 and
+   int8, its launches counted from 0 around those calls; then the kernel
+   against its plain version there and at ragged shapes: int8 bit for
+   bit (int32 out), fp32 within rtol 1e-4 / atol 1e-4 x max|plain|, bf16
+   within 2 x 2^-7 of each row's max|plain|.  At full width: kernel ms,
+   plain ms, ``torch.matmul`` (cuBLAS, TF32 off) / ``torch._int_mm`` ms
+   (yardsticks the port never calls; none for int8 at M = 4) and the
+   bound, and at the decode shape the host's issue time per call;
+3f. SSD scan: ``trim_ssd`` (the entry point) at mamba2-130m's full-width
+   prefill, x (4, 4096, 24, 64), dt (4, 4096, 24), B/C (4, 4096, 1, 128)
+   expanded over the 24 heads, chunk 256, in fp32 and bf16 (x/B/C), its
+   launches counted from 0 around each call; then the kernel against
+   its plain version: ``tests/test_ssd_kernel.py``'s CASES in fp32 within
+   2e-5, full width and the first mixer's real inputs (a full-width fp32
+   prefill's ``ssd_chunked`` arguments) in fp32 within 1e-4 x max|plain|,
+   bf16 within 5e-2 of the plain version on the same inputs and of the
+   fp32 one.  At full width: kernel ms, plain ms and the bound, which
+   counts the least work that computes y (chunk 1; no PyTorch call
+   computes the scan: no yardstick);
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
@@ -122,6 +144,10 @@ CONV1D_SOURCE = "src/repro_torch/csrc/trim_conv1d.cu"
 CONV1D_REPLACES = "src/repro/kernels/trim_conv1d.py:24"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:38"
+MATMUL_SOURCE = "src/repro_torch/csrc/trim_matmul.cu"
+MATMUL_REPLACES = "src/repro/kernels/trim_matmul.py:27"
+SSD_SOURCE = "src/repro_torch/csrc/trim_ssd.cu"
+SSD_REPLACES = "src/repro/kernels/trim_ssd.py:39"
 #: H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet)
 PEAK_BF16 = 989e12
 #: The LM serve phases: mamba2-130m (ssm) and granite-3-2b (dense) at
@@ -146,6 +172,15 @@ BF16_ROW_ULPS = 4
 #: the planted fault the row check must see: one 64-key tile dropped from
 #: the full-width decode's keys, at key DROP_TILE
 DROP_TILE = 1024
+#: the bf16 matmul lane's row check: max|kernel - plain| over a row within
+#: MATMUL_ROW_ULPS x 2^-7 x the row's max|plain| (both sum exact bf16
+#: products in fp32, in another order, and round once to bf16)
+MATMUL_ROW_ULPS = 2
+#: the SSD kernel at full width (mamba2-130m's shape, random and real
+#: inputs) against its plain version in fp32: max|kernel - plain| within
+#: SSD_FULL_TOL x max|plain| (the kernel's chunk of 64 against the plain
+#: version's 256 and sums in another order: rounding only)
+SSD_FULL_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -182,8 +217,10 @@ def phase_build():
     from repro_torch.kernels import trim_conv1d as k1d
     from repro_torch.kernels import trim_conv2d as kern
     from repro_torch.kernels import trim_conv2d_vjp as vjp
+    from repro_torch.kernels import trim_matmul as mm
+    from repro_torch.kernels import trim_ssd as ks
 
-    mods = (kern, vjp, k1d, fa)
+    mods = (kern, vjp, k1d, fa, mm, ks)
     libs = [(m._LIB_NAME, m._SOURCES) for m in mods]
     t0 = time.perf_counter()
     _build.build_all(libs)
@@ -212,6 +249,20 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def issue_ms(torch, fn, reps: int) -> float:
+    """Host time per call of ``fn`` over ``reps`` calls issued back to
+    back without waiting for the device (after one warm call).  Where it
+    is not below ``cuda_ms``'s time, that time measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
 
 
 def bound(macs: int, nbytes: int, integer: bool, peak: float = 0.0) -> dict:
@@ -1036,6 +1087,321 @@ def phase_flash(torch, reps: int):
     return rows
 
 
+def _matmul_cases(cfg):
+    """(name, M, K, N): granite-3-2b's projections at a LM_BATCH x
+    LM_PROMPT prefill (gate/up, down, q/o), its decode-shaped gate/up at
+    M = LM_BATCH, then ragged shapes (``tests/test_kernels.py:107-128``'s
+    ranges: M 1-200, K 1-120, N 1-150, and its int8 (64, 96, 48))."""
+    M, d, ff = LM_BATCH * LM_PROMPT, cfg.d_model, cfg.d_ff
+    return [("gate/up", M, d, ff), ("down", M, ff, d), ("q/o", M, d, d),
+            ("decode", LM_BATCH, d, ff),
+            ("ragged", 1, 1, 1), ("ragged", 7, 13, 5), ("ragged", 64, 96, 48),
+            ("ragged", 200, 120, 150), ("ragged", 33, 7, 129),
+            ("ragged", 129, 65, 257)]
+
+
+def phase_matmul(torch, reps: int, prefill_reps: int):
+    """The matmul kernel through ``ops.trim_matmul`` (the entry point) at
+    granite-3-2b's full-width projection shapes in bf16, fp32 and int8,
+    its launches counted from 0 around those calls (the prefill-shaped
+    three, then the decode-shaped one); then held against its plain
+    version (TF32 off) there and at ragged shapes: int8 bit for bit (int32
+    out), fp32 within rtol 1e-4 / atol 1e-4 x max|plain|, bf16 within
+    MATMUL_ROW_ULPS x 2^-7 of each row's max|plain|.  Timed at the
+    full-width shapes beside ``torch.matmul`` (cuBLAS) / ``torch._int_mm``
+    (yardsticks the port never calls): ``reps`` calls each at the
+    decode shape (tens of microseconds), ``prefill_reps`` at the prefill
+    projections (milliseconds).  Returns one row per (shape, lane) at full
+    width, each with the launches of its part of the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trim_matmul as mm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = _matmul_cases(get_config(DENSE_ARCH))
+    full = [c for c in cases if c[0] != "ragged"]
+    rows, n, worst = [], 0, {}
+    for lane, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                        ("s8", torch.int8)):
+        def rnd(*shape):
+            if dtype == torch.int8:
+                return torch.randint(-128, 128, shape, generator=gen,
+                                     device=dev, dtype=torch.int8)
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        ins = {c: (rnd(c[1], c[2]), rnd(c[2], c[3])) for c in cases}
+        outs, launches = {}, {}
+        for part in ("prefill", "decode"):
+            mm.LAUNCHES = 0
+            for c in full:
+                if (c[0] == "decode") == (part == "decode"):
+                    outs[c] = ops.trim_matmul(*ins[c])
+            launches[part] = mm.LAUNCHES
+            n_calls = sum((c[0] == "decode") == (part == "decode")
+                          for c in full)
+            if launches[part] != n_calls:
+                fail(f"matmul {lane} {part}: {launches[part]} launches for "
+                     f"{n_calls} entry-point calls")
+        torch.cuda.synchronize()
+        for c in cases:
+            a, b = ins[c]
+            got = outs[c] if c in outs else mm.trim_matmul(a, b)
+            want = mm.trim_matmul_plain(a, b)
+            torch.cuda.synchronize()
+            what = f"matmul {lane} {c[0]} ({c[1]}, {c[2]}) @ ({c[2]}, {c[3]})"
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"{what}: {got.dtype} {tuple(got.shape)} vs plain "
+                     f"{want.dtype} {tuple(want.shape)}")
+            err = (got.double() - want.double()).abs().max().item()
+            if dtype == torch.int8:
+                if not torch.equal(got, want):
+                    fail(f"{what}: kernel != plain (max diff {err:.3g})")
+            elif dtype == torch.float32:
+                scale = want.abs().max().item()
+                if not torch.allclose(got, want, rtol=1e-4,
+                                      atol=1e-4 * scale):
+                    fail(f"{what}: max|kernel-plain| = {err:.3g} (max|plain| "
+                         f"{scale:.3g}; rtol 1e-4, atol 1e-4 of it)")
+            else:
+                ulps = _row_ulps(got, want)
+                worst[c] = ulps
+                if ulps > MATMUL_ROW_ULPS:
+                    fail(f"{what}: a row's max|kernel-plain| is {ulps:.3g} x "
+                         f"2^-7 of its max|plain| (limit {MATMUL_ROW_ULPS})")
+            n += 1
+            if c not in outs:
+                continue
+            _, M, K, N = c
+            r = reps if c[0] == "decode" else prefill_reps
+            lib = lib_issue = None
+            if dtype != torch.int8:
+                lib = cuda_ms(torch, lambda: torch.matmul(a, b), r)
+                if c[0] == "decode":
+                    lib_issue = issue_ms(torch, lambda: torch.matmul(a, b), r)
+            elif M > 16 and K % 8 == 0 and N % 8 == 0:
+                lib = cuda_ms(torch, lambda: torch._int_mm(a, b), r)
+            nbytes = (M * K + K * N) * a.element_size() \
+                + M * N * got.element_size()
+            rows.append({
+                "shape": c[0], "lane": lane, "mkn": (M, K, N),
+                "part": "decode" if c[0] == "decode" else "prefill",
+                "launches": launches["decode" if c[0] == "decode"
+                                     else "prefill"],
+                "max_abs_err": err, "row_ulps": worst.get(c),
+                "ms": cuda_ms(torch, lambda: mm.trim_matmul(a, b), r),
+                "plain_ms": cuda_ms(torch, lambda: mm.trim_matmul_plain(a, b),
+                                    r),
+                "library_ms": lib,
+                "issue_ms": (issue_ms(torch, lambda: mm.trim_matmul(a, b), r)
+                             if c[0] == "decode" else None),
+                "library_issue_ms": lib_issue,
+                **bound(M * K * N, nbytes, integer=dtype == torch.int8,
+                        peak=PEAK_BF16 if dtype == torch.bfloat16 else 0.0)})
+        del ins, outs
+        torch.cuda.empty_cache()
+    log(f"matmul: kernel matches plain at {n} shapes x lanes (int8 bit for "
+        f"bit, fp32 1e-4, bf16 per row {MATMUL_ROW_ULPS} x 2^-7 of "
+        f"max|plain|: the worst bf16 row at {max(worst.values()):.3g})")
+    for r in rows:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"matmul {r['lane']:4s} {r['shape']:8s} (M, K, N) {r['mkn']} "
+            f"launches {r['launches']} ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) err "
+            f"{r['max_abs_err']:.3g}" + ("" if r["issue_ms"] is None else
+                                         f" host issue ms {r['issue_ms']:.4f}")
+            + ("" if r["library_issue_ms"] is None else
+               f" (library {r['library_issue_ms']:.4f})"))
+    return rows
+
+
+def _ssd_macs(B, L, H, P, S, T) -> int:
+    """Multiply-adds of the SSD in chunks of T rows, only on and below the
+    diagonal of each (T, T) block: C.B^T and scores.x (T(T+1)/2 (S + P)
+    per chunk), then C.h^T and the state update (2 T P S).  The count
+    grows with T, so T = 1 (the recurrence: 2 P S + P + S per row) is the
+    least work that computes y, and what the bound counts."""
+    NC = -(-L // T)
+    return B * H * NC * (T * (T + 1) // 2 * (S + P) + 2 * T * P * S)
+
+
+def _ssd_inputs(torch, gen, dev, B, L, H, P, S, groups=None):
+    """fp32 inputs in ``tests/test_ssd_kernel.py``'s ranges: x, B, C, D ~
+    N(0, 1), dt ~ U(1e-3, 0.1), A ~ -U(0.3, 2); B/C of ``groups`` groups
+    expanded over H (stride 0) when given, else per head."""
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    nrm = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    Bm, Cm = nrm(B, L, groups or H, S), nrm(B, L, groups or H, S)
+    if groups:
+        Bm, Cm = Bm.expand(B, L, H, S), Cm.expand(B, L, H, S)
+    return (nrm(B, L, H, P), 1e-3 + u(B, L, H) * (0.1 - 1e-3),
+            -(0.3 + u(H) * 1.7), Bm, Cm, nrm(H))
+
+
+def _ssd_bf16(args):
+    """x, B and C rounded to bf16; an expanded B/C stays a stride-0 view
+    of its rounded group."""
+    def bf(t):
+        if t.dim() == 4 and t.shape[2] > 1 and t.stride(2) == 0:
+            return t[:, :, :1].bfloat16().expand(t.shape)
+        return t.bfloat16()
+    x, dt, A, Bm, Cm, D = args
+    return bf(x), dt, A, bf(Bm), bf(Cm), D
+
+
+def _mixer_ssd_inputs(torch, dev):
+    """The (x, dt, A, B, C, D, chunk) that full-width mamba2-130m's first
+    mixer passes to ``ssd_chunked`` in an fp32 prefill of a LM_BATCH x
+    LM_PROMPT prompt (seed-0 weights), B/C (one group) expanded over the
+    heads as views."""
+    import numpy as np
+
+    import repro_torch.nn.mamba as mamba
+    from repro_torch.configs import get_config
+    from repro_torch.nn.models import build_model
+
+    cfg = get_config(LM_ARCH).with_overrides(dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device=dev)
+    seen, plain = [], mamba.ssd_chunked
+
+    def grab(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return plain(*args, **kw)
+
+    mamba.ssd_chunked = grab
+    try:
+        with torch.inference_mode():
+            model.prefill(params, toks, model.init_cache(
+                LM_BATCH, LM_PROMPT, dtype=cfg.dtype, device=dev))
+    finally:
+        mamba.ssd_chunked = plain
+    (x, dt, A, Bm, Cm, D), kw = seen[0]
+    H = x.shape[2]
+    expand = lambda t: t.expand(*t.shape[:2], H, t.shape[3])
+    return x, dt, A, expand(Bm), expand(Cm), D, kw["chunk"]
+
+
+def phase_ssd(torch, reps: int):
+    """The SSD scan kernel through ``trim_ssd`` (the entry point) at
+    mamba2-130m's full-width prefill shape, x (4, 4096, 24, 64), B/C
+    (4, 4096, 1, 128) expanded over the 24 heads, chunk 256, in fp32 and
+    bf16 (x/B/C), its launches counted from 0 around each of those two calls;
+    then held against its plain version (TF32 off): at
+    ``tests/test_ssd_kernel.py``'s CASES fp32 within 2e-5, at full width
+    and on the first mixer's real inputs fp32 within SSD_FULL_TOL of
+    max|plain|, and bf16 within 5e-2 of the fp32 plain version.  Timed at
+    full width; no single PyTorch call computes the scan (no yardstick).
+    Returns one row per dtype at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import trim_ssd as ks
+    from repro_torch.nn.models import build_model
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dims = build_model(get_config(LM_ARCH)).spec.dims
+    B, L, H, P, S, CS = (LM_BATCH, LM_PROMPT, dims.n_heads, dims.headdim,
+                         dims.d_state, dims.chunk)
+    for case in ((2, 37, 3, 8, 16, 8), (1, 64, 2, 4, 8, 16),
+                 (2, 16, 1, 8, 8, 16), (1, 128, 2, 16, 32, 32)):
+        args = _ssd_inputs(torch, gen, dev, *case[:5])
+        got = ks.trim_ssd(*args, chunk=case[5])
+        want = ks.trim_ssd_plain(*args, chunk=case[5])
+        bf = _ssd_bf16(args)
+        got16 = ks.trim_ssd(*bf, chunk=case[5])
+        want16 = ks.trim_ssd_plain(*bf, chunk=case[5])
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+            fail(f"ssd {case} fp32: max|kernel-plain| "
+                 f"{(got - want).abs().max().item():.3g} (2e-5)")
+        for ref_y, what in ((want16, "bf16 plain"), (want, "fp32 plain")):
+            if not torch.allclose(got16.float(), ref_y.float(), rtol=5e-2,
+                                  atol=5e-2):
+                fail(f"ssd {case} bf16: max|kernel - {what}| "
+                     f"{(got16.float() - ref_y.float()).abs().max():.3g} "
+                     "(5e-2)")
+
+    f32 = _ssd_inputs(torch, gen, dev, B, L, H, P, S, groups=1)
+    full = {torch.float32: f32, torch.bfloat16: _ssd_bf16(f32)}
+    ys, launches = {}, {}
+    for dt in full:
+        ks.LAUNCHES = 0
+        ys[dt] = ks.trim_ssd(*full[dt], chunk=CS)
+        launches[dt] = ks.LAUNCHES
+        if launches[dt] != 1:
+            fail(f"ssd {dt}: {launches[dt]} launches for one entry-point "
+                 "call")
+    torch.cuda.synchronize()
+    want = {dt: ks.trim_ssd_plain(*full[dt], chunk=CS) for dt in full}
+    w32 = want[torch.float32]
+    scale = w32.abs().max().item()
+    rows = []
+    for dt, y in ys.items():
+        name = str(dt).replace("torch.", "")
+        err = (y.float() - want[dt].float()).abs().max().item()
+        if y.shape != w32.shape or y.dtype != dt \
+                or not bool(torch.isfinite(y).all()):
+            fail(f"ssd full width {name}: {y.dtype} {tuple(y.shape)}, or "
+                 "not finite")
+        if dt == torch.float32 and err > SSD_FULL_TOL * scale:
+            fail(f"ssd full width fp32: max|kernel-plain| {err:.3g} > "
+                 f"{SSD_FULL_TOL} x max|plain| {scale:.3g}")
+        if dt == torch.bfloat16:
+            err32 = (y.float() - w32).abs().max().item()
+            for ref_y, what in ((want[dt], "bf16 plain"), (w32, "fp32 plain")):
+                if not torch.allclose(y.float(), ref_y.float(), rtol=5e-2,
+                                      atol=5e-2):
+                    fail(f"ssd full width bf16: max|kernel - {what}| "
+                         f"{(y.float() - ref_y.float()).abs().max():.3g} "
+                         "(5e-2)")
+        args = full[dt]
+        esz = args[0].element_size()
+        nbytes = (2 * B * L * H * P + 2 * B * L * S) * esz + B * L * H * 4
+        rows.append({
+            "dtype": name, "shape": (B, L, H, P, S, CS),
+            "launches": launches[dt],
+            "max_abs_err": err, "rel_err": err / scale,
+            "ms": cuda_ms(torch, lambda: ks.trim_ssd(*args, chunk=CS), reps),
+            "plain_ms": cuda_ms(torch, lambda: ks.trim_ssd_plain(
+                *args, chunk=CS), max(2, reps // 10)),
+            "library_ms": None,
+            **bound(_ssd_macs(B, L, H, P, S, 1), nbytes, integer=False)})
+    del f32, full, ys, want
+    real = _mixer_ssd_inputs(torch, dev)
+    x, CSr = real[0], real[6]
+    got = ks.trim_ssd(*real[:6], chunk=CSr)
+    want = ks.trim_ssd_plain(*real[:6], chunk=CSr)
+    torch.cuda.synchronize()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if not bool(torch.isfinite(got).all()) or err > SSD_FULL_TOL * scale:
+        fail(f"ssd on the first mixer's inputs: max|kernel-plain| {err:.3g} "
+             f"> {SSD_FULL_TOL} x max|plain| {scale:.3g}")
+    log(f"ssd: kernel matches plain at 4 test cases (fp32 2e-5, bf16 5e-2); "
+        f"full width fp32 within {rows[0]['rel_err']:.3g} of max|plain| "
+        f"(limit {SSD_FULL_TOL}), bf16 {rows[1]['max_abs_err']:.3g} from "
+        f"the bf16 plain and {err32:.3g} from the fp32 plain; first "
+        f"mixer's real inputs (x {tuple(x.shape)} strides {x.stride()}, B/C stride over heads "
+        f"{real[3].stride(2)}) within {err / scale:.3g} of max|plain| "
+        f"{scale:.3g}; launches on the entry-point calls "
+        f"{[r['launches'] for r in rows]}")
+    own = 2.0 * _ssd_macs(B, L, H, P, S, ks.KERNEL_CHUNK)
+    log(f"ssd: the bound counts {2.0 * _ssd_macs(B, L, H, P, S, 1):.4g} "
+        f"flop (chunk 1, the least); the kernel's own chunk of "
+        f"{ks.KERNEL_CHUNK} does {own:.4g} ({own / PEAK_FP32 * 1e3:.4f} ms "
+        f"at the fp32 peak), the plain version's {CS} "
+        f"{2.0 * _ssd_macs(B, L, H, P, S, CS):.4g}")
+    for r in rows:
+        log(f"ssd {r['dtype']:8s} {r['shape']} ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms none bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) err "
+            f"{r['max_abs_err']:.3g}")
+    return rows
+
+
 def _lm_counters():
     """The launch counters of the LM path's kernels, by kernel name."""
     from repro_torch.kernels import flash_attention as fa
@@ -1209,10 +1575,11 @@ def phase_lm_checks(torch, arch: str):
 
 def kernel_entry(rows, name: str, launches: int, source: str = KERNEL_SOURCE,
                  replaces: str = REPLACES) -> dict:
-    """One kernel instantiation's line entry: the sums over the VGG-16
-    conv shapes among ``rows`` (one batch's conv stack)."""
-    vgg = [r for r in rows if r["arch"] == "vgg16"]
-    lib = [r["library_ms"] for r in vgg]
+    """One kernel instantiation's line entry: the sums over the shapes of
+    one run of its path among ``rows`` (of a conv kernel, the VGG-16
+    shapes: one batch's conv stack), the largest error over all rows."""
+    timed = [r for r in rows if r.get("arch", "vgg16") == "vgg16"]
+    lib = [r["library_ms"] for r in timed]
     return {
         "name": name,
         "route": "cuda",
@@ -1220,11 +1587,11 @@ def kernel_entry(rows, name: str, launches: int, source: str = KERNEL_SOURCE,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in vgg),
-        "plain_ms": sum(r["plain_ms"] for r in vgg),
-        "bound_ms": sum(r["bound_ms"] for r in vgg),
-        "bound_by": ("operations" if sum(r["ops_ms"] for r in vgg)
-                     >= sum(r["bytes_ms"] for r in vgg) else "bytes"),
+        "ms": sum(r["ms"] for r in timed),
+        "plain_ms": sum(r["plain_ms"] for r in timed),
+        "bound_ms": sum(r["bound_ms"] for r in timed),
+        "bound_by": ("operations" if sum(r["ops_ms"] for r in timed)
+                     >= sum(r["bytes_ms"] for r in timed) else "bytes"),
         "library_ms": None if None in lib else sum(lib),
     }
 
@@ -1247,6 +1614,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     import torch
 
+    t_start = time.perf_counter()
     card = phase_environment(torch)
     from repro_torch.engine.policy import fp32_ieee
 
@@ -1261,6 +1629,8 @@ def main() -> None:
     brows = phase_backward(torch, args.reps, (1, TRAIN_BATCH))
     crows = phase_conv1d(torch, args.reps)
     frows = phase_flash(torch, args.reps)
+    mrows = phase_matmul(torch, args.reps, max(3, args.reps // 10))
+    srows = phase_ssd(torch, args.reps)
     if args.kernels:
         log("stopping after the kernel phases (--kernels): no result line")
         return
@@ -1272,6 +1642,8 @@ def main() -> None:
     phase_lm_checks(torch, LM_ARCH)
     dense_launches = phase_lm_serve(torch, DENSE_ARCH)
     phase_lm_checks(torch, DENSE_ARCH)
+    log(f"every phase passed in {time.perf_counter() - t_start:.1f} s "
+        "(from the environment check, the build included)")
     c1 = next(r for r in crows if r["dtype"] == "bfloat16")
     flash = {r["shape"]: r for r in frows if r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": [
@@ -1295,7 +1667,18 @@ def main() -> None:
             **{k: flash[shape][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}}
-           for i, shape in enumerate(("prefill", "decode"))]}))
+           for i, shape in enumerate(("prefill", "decode"))]
+        + [kernel_entry(part_rows, f"trim_matmul_{lane}_{part}",
+                        part_rows[0]["launches"], source=MATMUL_SOURCE,
+                        replaces=MATMUL_REPLACES)
+           for lane in ("bf16", "f32", "s8") for part in ("prefill", "decode")
+           for part_rows in [[r for r in mrows if r["lane"] == lane
+                              and r["part"] == part]]]
+        + [{"name": f"trim_ssd_{r['dtype']}", "route": "cuda",
+            "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+            **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}}
+           for r in srows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

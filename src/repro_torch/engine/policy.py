@@ -6,7 +6,8 @@ only the device of the tensor being convolved — never the machine:
 
 - ``"auto"`` / ``"kernel"``: the CUDA kernel's wrapper
   (``kernels.trim_conv2d.trim_conv2d``, ``kernels.trim_conv1d.trim_conv1d``,
-  ``kernels.flash_attention.flash_attention``),
+  ``kernels.flash_attention.flash_attention``,
+  ``kernels.trim_matmul.trim_matmul``),
   which launches the kernel on a CUDA tensor and runs its plain version
   on a CPU tensor;
 - ``"oracle"``: the plain PyTorch version on every device.

@@ -4,9 +4,10 @@ Port of ``repro/kernels/ops.py``.  :func:`trim_conv2d` builds a
 single-layer :class:`~repro_torch.engine.plan.ConvLayerPlan` from the
 call's shapes and an :class:`~repro_torch.engine.policy.ExecutionPolicy`,
 then runs it through :func:`repro_torch.engine.execute.run_conv2d`, the
-one dispatch site.  :func:`trim_conv1d` (the Mamba short conv) and
-:func:`flash_attention` (the LM attention core) need no plan: the
-policy's substrate alone picks the kernel's wrapper or the plain version.
+one dispatch site.  :func:`trim_conv1d` (the Mamba short conv),
+:func:`flash_attention` (the LM attention core) and :func:`trim_matmul`
+(the K = 1 TrIM) need no plan: the policy's substrate alone picks the
+kernel's wrapper or the oracle.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.engine.policy import ExecutionPolicy, resolve_substrate
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import trim_conv1d as conv1d_kernel
+from repro_torch.kernels import trim_matmul as matmul_kernel
 
 
 def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -79,3 +81,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if resolve_substrate(pol.substrate, q.device) == "oracle":
         return flash_kernel.flash_attention_plain(q, k, v, **kw)
     return flash_kernel.flash_attention(q, k, v, **kw)
+
+
+def trim_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """Weight-stationary blocked matmul (the K = 1 TrIM case).
+    a (M,K) @ b (K,N) -> (M,N): int32 for int8 inputs, else ``a.dtype``
+    (fp32 accumulation).
+
+    The kernel's wrapper (``kernels.trim_matmul.trim_matmul``) unless the
+    policy resolves to the oracle (its plain version, with the same
+    refusals)."""
+    pol = policy or ExecutionPolicy()
+    if resolve_substrate(pol.substrate, a.device) == "oracle":
+        return matmul_kernel.trim_matmul_plain(a, b)
+    return matmul_kernel.trim_matmul(a, b)

@@ -1,5 +1,7 @@
 """The oracles the kernels and the model paths are held against: the NHWC
-conv (``conv2d``) and the causal depthwise conv1d (``conv1d_causal_ref``)."""
+conv (``conv2d``), the causal depthwise conv1d (``conv1d_causal_ref``),
+the matmul (``matmul_ref``) and the Mamba2 SSD scan with per-head B/C
+(``ssd_ref``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -50,3 +52,37 @@ def conv1d_causal_ref(x: torch.Tensor, w: torch.Tensor,
     for k in range(K):
         out = out + xp[:, k:k + L, :] * w[k].to(acc_dtype)
     return out.to(x.dtype) if x.is_floating_point() else out
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matmul oracle: (M, K) @ (K, N).
+
+    Float inputs are multiplied in fp32 (bf16 products are exact there)
+    and cast back to ``a.dtype`` once.  Integer inputs give int32,
+    computed exactly: in int64 on the CPU, in float64 on the card (every
+    partial sum is an integer with |psum| <= 128*128*K < 2**53), then
+    wrapped to int32 as an int32 accumulator wraps.  (No integer matmul
+    on the GPU is relied on.)
+    """
+    if not a.is_floating_point():
+        wide = torch.int64 if a.device.type == "cpu" else torch.float64
+        out = a.to(wide) @ b.to(wide)
+        return out.to(torch.int64).to(torch.int32)
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the fp32 oracle needs torch.backends.cuda.matmul.allow_tf32 = "
+            "False (repro_torch.engine.policy.fp32_ieee() sets it)")
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+            chunk: int = 256) -> torch.Tensor:
+    """SSD oracle: ``nn.mamba.ssd_chunked`` in fp32 with per-head B/C
+    (G == H).  x (B,L,H,P); dt (B,L,H); A, D (H,); Bm/Cm (B,L,H,S) ->
+    y (B,L,H,P) fp32 (no final state)."""
+    from repro_torch.nn.mamba import ssd_chunked
+
+    y, _ = ssd_chunked(x.float(), dt.float(), A.float(), Bm.float(),
+                       Cm.float(), D.float(), chunk=chunk)
+    return y

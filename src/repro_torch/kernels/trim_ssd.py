@@ -1,0 +1,153 @@
+"""TrIM-SSD on Hopper: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/trim_ssd.py`` (``_ssd_kernel`` at line 39, driven
+by ``trim_ssd_pallas`` at line 82): the Mamba2 chunked SSD scan, forward
+only, returning y and no final state.  The kernel itself is
+``repro_torch/csrc/trim_ssd.cu``; its header says what it keeps out of
+device memory and what bounds it.
+
+- :func:`trim_ssd` is the wrapper: a CUDA tensor launches the kernel (or
+  the wrapper raises), a CPU tensor takes :func:`trim_ssd_plain`.  Every
+  launch adds one to :data:`LAUNCHES`.
+- :func:`trim_ssd_plain` is the same function in plain PyTorch
+  (``ref.ssd_ref``, the port's ``nn.mamba.ssd_chunked`` with per-head
+  B/C, in fp32), cast to x's dtype.
+
+B/C are per head, (B, L, H, S), as the Pallas driver takes them; a
+stride-0 ``expand`` over H of one group's (B, L, 1, S) is read in place by
+the kernel.  Chunking is math-neutral: ``chunk`` is the plain version's,
+and the kernel computes the same y in chunks of its own
+(:data:`KERNEL_CHUNK`), up to rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: Launches of the CUDA kernel since the last reset (a plain counter:
+#: callers set it to 0 before a run and read it after).
+LAUNCHES = 0
+
+#: The largest head dim and state dim the kernel is compiled for, and its
+#: own chunk.
+MAX_P = 64
+MAX_S = 128
+KERNEL_CHUNK = 64
+
+_LIB_NAME = "trim_ssd"
+_SOURCES = ("trim_ssd.cu",)
+_BOUND: set = set()
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(x, dt, A, Bm, Cm, D, chunk: int) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, L, H, P), got {tuple(x.shape)}")
+    Bb, L, H, _ = x.shape
+    if tuple(dt.shape) != (Bb, L, H) or tuple(A.shape) != (H,) \
+            or tuple(D.shape) != (H,):
+        raise ValueError(f"dt must be (B, L, H) and A, D (H,): x "
+                         f"{tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, D {tuple(D.shape)}")
+    if Bm.dim() != 4 or tuple(Bm.shape[:3]) != (Bb, L, H) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"Bm and Cm must be (B, L, H, S) (per head; expand "
+                         f"one group over H): {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"x, Bm and Cm must share float32 or bfloat16, got "
+                         f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if not all(t.is_floating_point() for t in (dt, A, D)):
+        raise ValueError("dt, A and D must be floating point")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def trim_ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+                   chunk: int = 256) -> torch.Tensor:
+    """The kernel's function in plain PyTorch -> y (B, L, H, P) in x's
+    dtype."""
+    _check(x, dt, A, Bm, Cm, D, chunk)
+    return ref.ssd_ref(x, dt, A, Bm, Cm, D, chunk=chunk).to(x.dtype)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with its ctypes
+    signatures declared; returns it."""
+    lib = _build.load(_LIB_NAME, _SOURCES)
+    if lib not in _BOUND:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.trim_ssd.argtypes = [p] * 7 + [i, ll, ll, ll, i, i] + [ll] * 12 \
+            + [p]
+        lib.trim_ssd.restype = i
+        lib.trim_ssd_error_string.argtypes = [i]
+        lib.trim_ssd_error_string.restype = ctypes.c_char_p
+        for fn in ("trim_ssd_max_p", "trim_ssd_max_s", "trim_ssd_chunk"):
+            getattr(lib, fn).restype = i
+        if (lib.trim_ssd_max_p(), lib.trim_ssd_max_s(),
+                lib.trim_ssd_chunk()) != (MAX_P, MAX_S, KERNEL_CHUNK):
+            raise RuntimeError("trim_ssd library constants differ from the "
+                               "wrapper's")
+        _BOUND.add(lib)
+    return lib
+
+
+def trim_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 256) -> torch.Tensor:
+    """Chunked SSD scan. x (B, L, H, P); dt (B, L, H) (post-softplus);
+    A (H,) (negative); Bm/Cm (B, L, H, S); D (H,) -> y (B, L, H, P) in x's
+    dtype (fp32 math).
+
+    x, Bm and Cm share float32 or bfloat16; dt, A and D are cast to fp32
+    (a copy only where they are not).  x, dt, Bm and Cm may be strided
+    views, Bm/Cm with a stride of 0 over H; the last axis of x, Bm and Cm
+    must have stride 1.  A CPU ``x`` runs :func:`trim_ssd_plain`; a CUDA
+    ``x`` launches the kernel on the current stream, or raises.
+    """
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return trim_ssd_plain(x, dt, A, Bm, Cm, D, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"trim_ssd runs on cuda or cpu, not {x.device}")
+    _check(x, dt, A, Bm, Cm, D, chunk)
+    Bb, L, H, P = x.shape
+    S = int(Bm.shape[3])
+    if P > MAX_P or S > MAX_S:
+        raise ValueError(f"head dim {P} / state {S}: the kernel takes at "
+                         f"most {MAX_P} / {MAX_S}")
+    if any(t.device != x.device for t in (dt, A, Bm, Cm, D)):
+        raise ValueError(f"every input must be on {x.device}")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.shape[3] > 1 and t.stride(3) != 1:
+            raise ValueError(f"{name}'s last stride is {t.stride(3)}: the "
+                             "kernel reads it contiguously")
+    if min(min(t.stride()) for t in (x, dt, Bm, Cm)) < 0:
+        raise ValueError("negative strides are not handled")
+    if Bb > 65535:
+        raise ValueError(f"batch {Bb} exceeds the launch grid")
+    dt = dt.float()
+    A = A.float().contiguous()
+    D = D.float().contiguous()
+    y = torch.empty((Bb, L, H, P), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.trim_ssd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
+            int(x.dtype == torch.bfloat16), Bb, L, H, P, S,
+            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+            *Cm.stride()[:3], stream)
+    if rc != 0:
+        msg = lib.trim_ssd_error_string(rc).decode()
+        raise RuntimeError(f"trim_ssd launch failed: CUDA error {rc} "
+                           f"({msg})")
+    LAUNCHES += 1
+    return y

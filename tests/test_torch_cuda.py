@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on a card: the
 TrIM conv kernel, the weight-gradient kernel, the autograd Function that
-runs both, the causal conv1d kernel (bit for bit) and the flash-attention
-kernel (fp32 within 2e-5, bf16 within 2e-2).
+runs both, the causal conv1d kernel (bit for bit), the flash-attention
+kernel (fp32 within 2e-5, bf16 within 2e-2), the matmul kernel (int8 bit
+for bit, fp32 within 1e-4, bf16 within 2 ulps of each row's largest
+output) and the SSD scan kernel (fp32 within 2e-5, bf16 within 5e-2).
 
 ``CASES``/``make_inputs`` are shared with ``test_torch_conv2d.py``, which
 holds the same cases on the CPU against the JAX package.  On the card the
@@ -361,3 +363,219 @@ def test_flash_kernel_refuses_what_it_does_not_take_on_card():
     kt = torch.zeros((1, 4, 64, 2), device=dev).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous head dim"):
         fa.flash_attention(q, kt, kt, causal=True)
+
+
+# (M, K, N): M from 1 (decode-shaped), ragged M/K/N against the 128 x 128
+# tile and the K tile, rows that are not 16-byte aligned (element loads),
+# aligned shapes (cp.async), and a column slice read in place
+MATMUL_CASES = [
+    (1, 1, 1), (7, 13, 5), (64, 96, 48), (200, 120, 150), (33, 7, 129),
+    (129, 65, 257), (130, 1024, 144), (4, 2048, 1024), (300, 1000, 200),
+]
+
+
+def _row_ulps(got, want):
+    """max|got - want| over each row in units of 2^-7 x the row's
+    max|want| (2^-7 x is one to two bf16 ulps of the row's largest)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    unit = want.float().abs().amax(-1) * 2.0 ** -7
+    return float(torch.where(unit > 0, err / unit.clamp_min(1e-30),
+                             torch.where(err > 0, float("inf"), 0.0)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", MATMUL_CASES,
+                         ids=lambda c: "M{}-K{}-N{}".format(*c))
+def test_matmul_kernel_matches_plain_on_card(case, dtype):
+    """On a card: the matmul kernel against its plain version (TF32 off),
+    on contiguous operands and on column slices of wider tensors: int8
+    bit for bit (int32 out), fp32 within rtol 1e-4 / atol 1e-4 x
+    max|plain|, bf16 within 2 x 2^-7 of each row's max|plain|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    fp32_ieee()
+    M, K, N = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(zlib.crc32(f"{case}{dtype}".encode()))
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        if dt == torch.int8:
+            return torch.from_numpy(rng.integers(-128, 128, shape,
+                                                 dtype=np.int8)).to(dev)
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, dt)
+
+    wa, wb = rnd(M, K + 3), rnd(K, N + 5)
+    for a, b in ((wa[:, :K].contiguous(), wb[:, :N].contiguous()),
+                 (wa[:, 3:], wb[:, 5:])):
+        before = mm.LAUNCHES
+        got = mm.trim_matmul(a, b)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES == before + 1
+        want = mm.trim_matmul_plain(a, b)
+        assert got.shape == (M, N) and got.dtype == want.dtype
+        if dt == torch.int8:
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+        elif dt == torch.float32:
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * scale)
+        else:
+            assert _row_ulps(got, want) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", [("bfloat16", "float32"),
+                                  ("float32", "bfloat16")], ids="-".join)
+def test_matmul_kernel_out_dtype_on_card(pair):
+    """On a card: bf16 operands into fp32 outputs (the sums themselves)
+    and fp32 operands into bf16 outputs (one rounding), against the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    fp32_ieee()
+    dt, out = (getattr(torch, n) for n in pair)
+    rng = np.random.default_rng(zlib.crc32("-".join(pair).encode()))
+    dev = torch.device("cuda")
+    a, b = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(dev, dt)
+            for s in ((130, 300), (300, 72)))
+    got = mm.trim_matmul(a, b, out_dtype=out)
+    want = mm.trim_matmul_plain(a, b, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out == want.dtype
+    if out == torch.float32:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        assert _row_ulps(got, want) <= 2
+
+
+@pytest.mark.gpu
+def test_matmul_kernel_int8_largest_sum_on_card():
+    """On a card: all -128 operands at the largest K of the int8 lane;
+    the int32 sum 128 * 128 * K is exact (no wrap)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    dev = torch.device("cuda")
+    K = mm.MAX_K_INT8
+    a = torch.full((3, K), -128, dtype=torch.int8, device=dev)
+    b = torch.full((K, 5), -128, dtype=torch.int8, device=dev)
+    got = mm.trim_matmul(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert int(got.min()) == int(got.max()) == 128 * 128 * K
+    assert torch.equal(got, mm.trim_matmul_plain(a, b))
+
+
+@pytest.mark.gpu
+def test_matmul_kernel_refuses_what_it_does_not_take_on_card():
+    """On a card: mixed dtypes, a transposed operand, an int8 K whose sum
+    could wrap and an output dtype the lane does not give raise; nothing
+    falls back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    dev = torch.device("cuda")
+    a = torch.zeros((4, 8), device=dev)
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
+        mm.trim_matmul(a, torch.zeros((8, 4), device=dev).bfloat16())
+    with pytest.raises(ValueError, match="column stride"):
+        mm.trim_matmul(a, torch.zeros((4, 8), device=dev).t())
+    with pytest.raises(ValueError, match="could wrap"):
+        k = mm.MAX_K_INT8 + 1
+        mm.trim_matmul(torch.zeros((1, k), dtype=torch.int8, device=dev),
+                       torch.zeros((k, 1), dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError, match="give"):
+        mm.trim_matmul(a.to(torch.int8), a.t().to(torch.int8).contiguous(),
+                       out_dtype=torch.float32)
+
+
+# (B, L, H, P, S, chunk): tests/test_ssd_kernel.py CASES, then ragged L
+# against the kernel's chunk of 64 at mamba2-130m's P = 64, S = 128
+SSD_CASES = [
+    (2, 37, 3, 8, 16, 8), (1, 64, 2, 4, 8, 16), (2, 16, 1, 8, 8, 16),
+    (1, 128, 2, 16, 32, 32), (2, 65, 3, 64, 128, 64),
+    (1, 300, 2, 64, 128, 256),
+]
+
+
+def _ssd_inputs(case, dev, dtype=torch.float32):
+    """tests/test_ssd_kernel.py's ranges; B/C of one group expanded over
+    H (stride 0) and x a column slice of a wider tensor."""
+    B, L, H, P, S, _ = case
+    rng = np.random.default_rng(zlib.crc32(str(case).encode()))
+    f = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+    x = f(rng.normal(size=(B, L, H * P + 8)))[..., 8:].view(B, L, H, P)
+    dt = f(rng.uniform(1e-3, 0.1, (B, L, H)))
+    A = f(-rng.uniform(0.3, 2, (H,)))
+    Bm = f(rng.normal(size=(B, L, 1, S))).expand(B, L, H, S)
+    Cm = f(rng.normal(size=(B, L, 1, S))).expand(B, L, H, S)
+    D = f(rng.normal(size=(H,)))
+    return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_kernel_matches_plain_on_card(case):
+    """On a card: the SSD kernel against its plain version in fp32 (TF32
+    off), within 2e-5; the expanded B/C are read in place and give the
+    same bits as their repeated copies; bf16 x/B/C within 5e-2 of the
+    fp32 plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_ssd as ks
+
+    fp32_ieee()
+    dev = torch.device("cuda")
+    x, dt, A, Bm, Cm, D = _ssd_inputs(case, dev)
+    assert Bm.stride(2) == 0 or case[2] == 1
+    before = ks.LAUNCHES
+    got = ks.trim_ssd(x, dt, A, Bm, Cm, D, chunk=case[5])
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES == before + 1
+    want = ks.trim_ssd_plain(x, dt, A, Bm, Cm, D, chunk=case[5])
+    assert got.shape == x.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    rep = ks.trim_ssd(x.contiguous(), dt, A, Bm.contiguous(),
+                      Cm.contiguous(), D, chunk=case[5])
+    assert torch.equal(rep, got)
+    xb, _, _, Bb, Cb, _ = _ssd_inputs(case, dev, torch.bfloat16)
+    got16 = ks.trim_ssd(xb, dt, A, Bb, Cb, D, chunk=case[5])
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got16.float(), want, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_what_it_does_not_take_on_card():
+    """On a card: a head dim or state past the kernel's, mixed dtypes and
+    a strided last axis raise; nothing falls back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_ssd as ks
+
+    dev = torch.device("cuda")
+
+    def inputs(P, S):
+        z = lambda *s: torch.zeros(s, device=dev)
+        return z(1, 8, 2, P), z(1, 8, 2), z(2), z(1, 8, 2, S), \
+            z(1, 8, 2, S), z(2)
+
+    with pytest.raises(ValueError, match="at most"):
+        ks.trim_ssd(*inputs(65, 16))
+    with pytest.raises(ValueError, match="at most"):
+        ks.trim_ssd(*inputs(16, 129))
+    x, dt, A, Bm, Cm, D = inputs(16, 16)
+    with pytest.raises(ValueError, match="share"):
+        ks.trim_ssd(x, dt, A, Bm.bfloat16(), Cm, D)
+    xt = torch.zeros((1, 8, 16, 2), device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="last stride"):
+        ks.trim_ssd(xt, dt, A, Bm, Cm, D)
