@@ -29,7 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.nn.grad.conv2d_input`` (cuDNN), both within rtol 1e-3 / atol
    1e-3 * max|plain|.  Per shape: kernel ms, plain ms (dw),
    ``conv2d_weight`` / ``conv2d_input`` ms (yardsticks the port never
-   calls) and the bound;
+   calls), the bound and ms / bound, and for dw the host's issue time a
+   call (where it is not below the kernel's ms, that reading measures
+   the host); per batch, the sums of dw over the 13 VGG-16 convs; once,
+   the weight-gradient kernel's registers and spills from its
+   ``-Xptxas -v`` build log;
 3c. conv1d kernel: the causal depthwise conv1d kernel against its plain
    version on the card, bit for bit: at the full-width Mamba shape x
    (4, 4096, 1792), w (4, 1792) in bf16 and fp32 (as the column slice
@@ -470,6 +474,7 @@ def phase_backward(torch, reps: int, batches):
             **common, "kind": "dw", "max_abs_err": err_w,
             "f64_err": f64["dw"],
             "ms": cuda_ms(torch, dw, reps),
+            "issue_ms": issue_ms(torch, dw, reps),
             "plain_ms": cuda_ms(torch, lambda: dw(trim_conv2d_wgrad_plain),
                                 reps),
             "library_ms": cuda_ms(torch, dw_lib, reps)})
@@ -483,9 +488,45 @@ def phase_backward(torch, reps: int, batches):
         log(f"backward {r['arch']:7s} {r['layer']:4s} batch {r['batch']} "
             f"{r['kind']} ms {r['ms']:.4f} plain_ms {plain} library_ms "
             f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-            f"({r['bound_by']}) err {r['max_abs_err']:.3g}; vs float64 "
-            f"kernel {r['f64_err'][0]:.3g} cuDNN {r['f64_err'][1]:.3g}")
+            f"({r['bound_by']}) ms/bound {r['ms'] / r['bound_ms']:.2f} "
+            f"err {r['max_abs_err']:.3g}; vs float64 "
+            f"kernel {r['f64_err'][0]:.3g} cuDNN {r['f64_err'][1]:.3g}"
+            + (f"; host issue ms {r['issue_ms']:.4f}" if "issue_ms" in r
+               else ""))
+    for N in batches:
+        dws = [r for r in rows if r["kind"] == "dw" and r["batch"] == N
+               and r["arch"] == "vgg16"]
+        ms, bnd = sum(r["ms"] for r in dws), sum(r["bound_ms"] for r in dws)
+        log(f"backward vgg16 dw batch {N}, sum of {len(dws)} convs: ms "
+            f"{ms:.4f} bound_ms {bnd:.4f} (bound/ms {bnd / ms:.3f}) "
+            f"library_ms {sum(r['library_ms'] for r in dws):.4f}")
+    _log_wgrad_build()
     return rows
+
+
+def _log_wgrad_build() -> None:
+    """The weight-gradient kernel's registers and spills per thread from
+    its ``-Xptxas -v`` build log, beside the registers its split assumes
+    (``WGRAD_REGS``: above it, fewer blocks fit an SM than it plans for)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    paths = {"k3_kernel": vjp.PATH_K3, "kernelILb1E": vjp.PATH_VEC,
+             "kernelILb0E": vjp.PATH_SCALAR}
+    names = {vjp.PATH_K3: "K=3 taps", vjp.PATH_VEC: "16-byte rows",
+             vjp.PATH_SCALAR: "scalar rows"}
+    lines = (_build.build_log(vjp._LIB_NAME, vjp._SOURCES) or "").splitlines()
+    for i, line in enumerate(lines):
+        path = next((p for k, p in paths.items()
+                     if "Compiling entry function" in line and k in line),
+                    None)
+        if path is None:
+            continue
+        info = " ".join(x.split("ptxas info    :")[-1].strip()
+                        for x in lines[i + 1:i + 4]
+                        if "registers" in x or "spill" in x)
+        log(f"wgrad kernel, {names[path]} path: {info}; the split assumes "
+            f"{vjp.WGRAD_REGS[path]} registers")
 
 
 def _f64_err(got, want, to_want=lambda t: t) -> float:

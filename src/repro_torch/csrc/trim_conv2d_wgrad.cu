@@ -9,180 +9,523 @@
 // count as zero: the haloed window is zero-filled as it is loaded, so no
 // padded copy of x exists.
 //
-// The TrIM dataflow of the Pallas body, kept:
-// - A block owns one (Cb channels x Fb filters) tile of dw for all K*K
-//   taps; its (K,K,Cb,Fb) accumulator lives in registers (each thread
-//   holds NT taps x 4 filters of one channel) across the block's whole
-//   share of the (image, output tile) reduction.
-// - For each output tile, the haloed input window ((TH-1)*S+K) x
-//   ((TW-1)*S+K) x Cb is loaded into shared memory once, beside the
-//   resident cotangent tile (TH*TW x Fb), and read K*K times through
-//   stride-S shifted views (one per tap).
+// What bounds it: an implicit GEMM with M = K*K*C rows (tap, channel), F
+// columns and a reduction over the P = N*H_O*W_O output pixels.  Every
+// VGG-16 layer but CL1 does far more operations per byte than the
+// H100's fp32 ridge (about 20 FLOP/byte), so it is bound by fp32
+// operations; CL1 (C = 3) is bound by the bytes of g.  The design keeps
+// the FMA pipes fed from registers:
+//
+// - A block owns all K*K taps of a (Cb channels x Fb filters) tile of dw,
+//   and each thread a register tile of it: 8 (tap, channel) rows x 8
+//   filters (64 accumulators), or on the K = 3 path 9 taps x 8 filters
+//   (72).  Per output pixel a thread reads its rows' window values and
+//   its filters' cotangent values from shared memory and does 64 (72)
+//   FMAs.  Three paths:
+//   * K = 3 at stride 1 (every VGG-16 layer but CL1): 32 channels x 64
+//     filters in eight warps, a thread the nine taps of one channel.  It
+//     walks an output row left to right with the 3 x 3 window of its
+//     channel in registers, so a pixel reads one new window column (3
+//     scalar loads, each value then serves three taps) and two 16-byte
+//     cotangent loads for 72 FMAs.  Eight warps (not the nine of the
+//     next path at this tile) give each of the SM's four schedulers the
+//     same share of the FMAs.
+//   * Cb a multiple of 8 (C >= 8, other K or S): a thread's 8 rows are 8
+//     channels of one tap, so its operands come in four 16-byte loads
+//     (two of the window, two of the cotangent): 16 FMAs per LDS.128.
+//   * C < 8 (VGG-16 CL1, AlexNet CL1): the rows run over (tap, channel)
+//     and the window values come in 8 scalar loads.
+// - The TrIM dataflow: for each reduction item (one image, one TH x TW
+//   output tile) the haloed window ((TH-1)*S+K) x ((TW-1)*S+K) x Cb is
+//   loaded into shared memory once, channel innermost ([rows][cols][Cbp],
+//   each position padded to Cbp floats where a quarter warp would read
+//   two taps' channel quads in one bank), beside the cotangent tile
+//   [TH*TW][Fb].  All K*K taps read the window through stride-S shifted
+//   views; all the block's (tap, channel) rows read the cotangent tile.
+//   Lanes run over the filter groups fastest, so a quarter warp reads one
+//   window value or quad (a broadcast) and eight neighbouring cotangent
+//   quads.
+// - Asynchronous staging: the next item's window and cotangent tile are
+//   copied with cp.async into the second of two stages while the current
+//   one is consumed; 16-byte copies where C (or F) % 4 == 0, 4-byte ones
+//   otherwise; the halo and anything past C or F are zero-filled with a
+//   source size of 0.
 // - Output rows or columns past H_O/W_O are never visited, so input rows
 //   that no output reads (when (H+2p-K) % S > 0) contribute nothing.
+//
+// On the H100 it reaches about half the fp32 peak at VGG-16's shapes; the
+// 16-byte-row loop with its shared loads taken out was not much faster, so
+// what holds it is the FMA issue itself (register banks, scheduling), not
+// the loads.
 //
 // What the TPU did in order and Hopper cannot: the Pallas grid carries the
 // dw scratch across the sequential batch/spatial axes.  Here the
 // reduction over (image, output tile) items is cut into n_split ranges so
 // that the card has enough blocks when dw has only a few tiles (VGG-16
-// CL1 has one channel tile and two filter tiles).  Each range writes its
-// fp32 partial dw to a workspace slab exactly once, and a second kernel
-// sums the slabs in a fixed order: no atomics, so the result is the same
-// on every run.  With n_split == 1 the block writes dw itself.
-//
-// What bounds it: like the forward conv, every VGG-16 layer does far more
-// operations per byte than the H100's fp32 ridge (about 20 FLOP/byte), so
-// the work is bound by operations.  Per pixel a thread issues one 16-byte
-// shared load of the cotangent and NT scalar loads of the window for 4*NT
-// FMAs; wgmma and register tiling over pixels are later work.
+// CL1 has one).  Each range writes its fp32 partial dw to a workspace
+// slab exactly once, and a second kernel sums the slabs in a fixed order
+// (up to 32 thread rows a column of elements, each over every 32nd slab,
+// then the rows in order): no atomics, so the result is the same on every
+// run.  With n_split == 1 the block writes dw itself.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxTaps = 16;   // taps per thread (NT) compiled
-constexpr int kFiltTile = 32;  // Fb must not exceed this
+// Threads a block may have: nine warps (AlexNet CL1's 46 row groups x 6
+// filter groups need 276).  The 16-byte-row kernel asks for two such
+// blocks an SM: its registers then stay within 96 a thread (18 warps over
+// the SM's four register files of 16384); the scalar-row kernel, whose
+// eight row offsets would spill there, asks for one.
+constexpr int kMaxThreads = 288;
+constexpr int kMinBlocksVec = 2;
+constexpr int kMinBlocksScalar = 1;
+constexpr int kStages = 2;
+// The K = 3, stride-1 path: 32 channels x 64 filters in eight warps; two
+// blocks fit an SM (its 113 or so registers a thread, 112 KB of shared
+// memory), 16 warps: four on each of the SM's schedulers, where the nine
+// warps of the 16-byte-row path leave one scheduler a third more.  Its
+// launch bounds ask for one block: capped for two, ptxas scheduled the
+// same registers slower on the H100.
+constexpr int kK3Cb = 32, kK3Fb = 64, kK3Threads = 256, kK3MinBlocks = 1;
+
+// Kernel paths (the wrapper's WgradTile.path).
+enum Path { kScalarRows = 0, kVecRows = 1, kK3Taps = 2 };
 
 struct WgradArgs {
   const float* x;
   const float* g;
   float* out;  // dw (n_split == 1) or the workspace's n_split partial slabs
   int N, H, W, C, K, F, H_O, W_O, S, pad;
-  int TH, TW, n_th, n_tw, Cb, Fb, G, n_f, n_split;
+  int TH, TW, n_th, n_tw, Cb, Cbp, Fb, n_f, n_split;
+  int rows, cols;       // the haloed window of one item
+  int xs_floats;        // the window's floats in a stage (16-byte multiple)
+  int stage_floats;     // window + cotangent tile
+  int work;             // threads that hold a register tile
+  int vec_x, vec_g, vec_out;
 };
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !pred.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !pred.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+struct Item {
+  int n, oh0, ow0, vh, vw;
+};
+
+__device__ __forceinline__ Item item_of(const WgradArgs& a, int it) {
+  const int per_img = a.n_th * a.n_tw;
+  Item r;
+  r.n = it / per_img;
+  const int t = it - r.n * per_img;
+  const int th = t / a.n_tw;
+  r.oh0 = th * a.TH;
+  r.ow0 = (t - th * a.n_tw) * a.TW;
+  r.vh = min(a.TH, a.H_O - r.oh0);
+  r.vw = min(a.TW, a.W_O - r.ow0);
+  return r;
+}
+
+// Issue the cp.async copies of one item's window and cotangent tile into
+// ``stage`` (every thread of the block takes part).  Cb, Cbp and Fb are
+// the kernel's, compile-time constants where it is specialised.  A
+// thread's copies are blockDim.x apart; their (row, column, quad) is
+// stepped by carries, not divided out for every copy.
+__device__ __forceinline__ void load_item(const WgradArgs& a, float* stage,
+                                          int it, int c0, int f0, int Cb,
+                                          int Cbp, int Fb) {
+  const Item t = item_of(a, it);
+  const int ih0 = t.oh0 * a.S - a.pad, iw0 = t.ow0 * a.S - a.pad;
+  const float* x = a.x + static_cast<size_t>(t.n) * a.H * a.W * a.C;
+  const float* g = a.g + static_cast<size_t>(t.n) * a.H_O * a.W_O * a.F;
+  const int step = blockDim.x;
+  {
+    // Haloed input window, [rows][cols][Cbp]: zero outside the image and
+    // past C (the Cbp - Cb padding floats are never read).
+    const int xw = a.vec_x ? 4 : 1;
+    const int xq = Cb / xw;  // copies a window position
+    const int total = a.rows * a.cols * xq;
+    const int pos = threadIdx.x / xq, dpos = step / xq;
+    const int dc = step - dpos * xq, dr = dpos / a.cols;
+    const int dq = dpos - dr * a.cols;
+    int c = threadIdx.x - pos * xq, r = pos / a.cols, q = pos - r * a.cols;
+    for (int i = threadIdx.x; i < total; i += step) {
+      const int h = ih0 + r, w = iw0 + q, cc = c0 + c * xw;
+      const bool ok = static_cast<unsigned>(h) < static_cast<unsigned>(a.H) &&
+                      static_cast<unsigned>(w) < static_cast<unsigned>(a.W) &&
+                      cc < a.C;
+      const float* src = ok ? x + (h * a.W + w) * a.C + cc : a.x;
+      float* dst = stage + (r * a.cols + q) * Cbp + c * xw;
+      if (a.vec_x)
+        cp_async16(dst, src, ok);
+      else
+        cp_async4(dst, src, ok);
+      c += dc;
+      q += dq;
+      r += dr;
+      if (c >= xq) { c -= xq; ++q; }
+      if (q >= a.cols) { q -= a.cols; ++r; }
+    }
+  }
+  {
+    // Cotangent tile, [TH*TW][Fb]: zero past F and outside the valid
+    // vh x vw corner (those pixels are never read).
+    float* gs = stage + a.xs_floats;
+    const int gw = a.vec_g ? 4 : 1;
+    const int gq = Fb / gw;
+    const int total = a.TH * a.TW * gq;
+    const int pix = threadIdx.x / gq, dpix = step / gq;
+    const int df = step - dpix * gq, dh = dpix / a.TW;
+    const int dw = dpix - dh * a.TW;
+    int f = threadIdx.x - pix * gq, lh = pix / a.TW, lw = pix - lh * a.TW;
+    for (int i = threadIdx.x; i < total; i += step) {
+      const int ff = f0 + f * gw;
+      const bool ok = lh < t.vh && lw < t.vw && ff < a.F;
+      const float* src =
+          ok ? g + ((t.oh0 + lh) * a.W_O + t.ow0 + lw) * a.F + ff : a.g;
+      float* dst = gs + (lh * a.TW + lw) * Fb + f * gw;
+      if (a.vec_g)
+        cp_async16(dst, src, ok);
+      else
+        cp_async4(dst, src, ok);
+      f += df;
+      lw += dw;
+      lh += dh;
+      if (f >= gq) { f -= gq; ++lw; }
+      if (lw >= a.TW) { lw -= a.TW; ++lh; }
+    }
+  }
+}
+
+// kVecRows: Cb % 8 == 0, a thread's 8 rows are channels cg*4 + {0..3} and
+// Cb/2 + cg*4 + {0..3} of one tap (two 16-byte window loads a pixel).
+// Otherwise its rows are the flattened (tap, channel) rows rg*8 .. rg*8+7
+// of the block (eight scalar window loads a pixel).  Either way its
+// filters are fg*4 + {0..3} and Fb/2 + fg*4 + {0..3}.
+template <bool kVecRows>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  kVecRows ? kMinBlocksVec : kMinBlocksScalar)
 trim_conv2d_wgrad_kernel(const WgradArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const int K = a.K, S = a.S, KK = K * K, Cb = a.Cb, Fb = a.Fb;
-  const int rows = (a.TH - 1) * S + K;
-  const int cols = (a.TW - 1) * S + K;
-  const int win = rows * cols;
-  float* xs = smem;                               // [Cb][rows][cols]
-  float* gs = smem + ((Cb * win + 3) & ~3);       // [TH*TW][Fb], 16B-aligned
-
+  const int K = a.K, KK = K * K;
+  const int Cb = a.Cb, Cbp = a.Cbp, Fb = a.Fb;
+  const int FG = Fb / 8;
   const int c0 = (blockIdx.x / a.n_f) * Cb;
   const int f0 = (blockIdx.x % a.n_f) * Fb;
   const int split = blockIdx.y;
-  // Thread -> (tap group, channel, 4 filters).  L lanes cover Cb x Fb/4;
-  // G groups of L threads split the K*K taps: group grp owns taps
-  // grp, grp + G, ... (NT of them, the last ones possibly past K*K).
-  const int fq = Fb / 4;
-  const int L = Cb * fq;
-  const int grp = threadIdx.x / L;
-  const int lane = threadIdx.x % L;
-  const bool active = grp < a.G;
-  const int cl = lane / fq;
-  const int fl = (lane % fq) * 4;
+  const int tid = threadIdx.x;
+  const bool active = tid < a.work;
+  const int fg = tid % FG, rg = tid / FG;
+  const int half_c = Cb / 2, half_f = Fb / 2;
 
-  int toff[NT];
+  // Shared-memory offset of each row inside the window at pixel (0, 0).
+  int xoff[kVecRows ? 1 : 8];
+  int vtap = 0, vcg = 0;
+  if (kVecRows) {
+    const int cq = Cb / 8;
+    vtap = rg / cq;
+    vcg = rg - vtap * cq;
+    xoff[0] = active ? ((vtap / K) * a.cols + vtap % K) * Cbp + vcg * 4 : 0;
+  } else {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int tap = grp + j * a.G;
-    toff[j] = (active && tap < KK) ? (tap / K) * cols + tap % K : 0;
+    for (int j = 0; j < 8; ++j) {
+      const int r = rg * 8 + j;
+      const int tap = r / Cb, c = r - (r / Cb) * Cb;
+      xoff[j] = (active && r < KK * Cb)
+                    ? ((tap / K) * a.cols + tap % K) * Cbp + c
+                    : 0;
+    }
   }
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-  const long long per_img = static_cast<long long>(a.n_th) * a.n_tw;
-  const long long items = per_img * a.N;
-  const long long i0 = items * split / a.n_split;
-  const long long i1 = items * (split + 1) / a.n_split;
-  for (long long it = i0; it < i1; ++it) {
-    const int n = static_cast<int>(it / per_img);
-    const int t = static_cast<int>(it % per_img);
-    const int oh0 = (t / a.n_tw) * a.TH, ow0 = (t % a.n_tw) * a.TW;
-    const int vh = min(a.TH, a.H_O - oh0), vw = min(a.TW, a.W_O - ow0);
-    const int ih0 = oh0 * S - a.pad, iw0 = ow0 * S - a.pad;
-    const float* x = a.x + static_cast<size_t>(n) * a.H * a.W * a.C;
-    const float* g = a.g + static_cast<size_t>(n) * a.H_O * a.W_O * a.F;
-    __syncthreads();  // the previous item's reads are done
-    // Haloed input window, zero outside the image and past C.
-    for (int i = threadIdx.x; i < Cb * win; i += kThreads) {
-      const int c = i % Cb;
-      const int rq = i / Cb;
-      const int q = rq % cols, r = rq / cols;
-      const int h = ih0 + r, w = iw0 + q, cc = c0 + c;
-      float v = 0.f;
-      if (h >= 0 && h < a.H && w >= 0 && w < a.W && cc < a.C)
-        v = x[(static_cast<size_t>(h) * a.W + w) * a.C + cc];
-      xs[c * win + r * cols + q] = v;
-    }
-    // Cotangent tile, zero past F (pixels past H_O/W_O are never read).
-    for (int i = threadIdx.x; i < a.TH * a.TW * Fb; i += kThreads) {
-      const int f = i % Fb;
-      const int pix = i / Fb;
-      const int lh = pix / a.TW, lw = pix % a.TW, ff = f0 + f;
-      float v = 0.f;
-      if (lh < vh && lw < vw && ff < a.F)
-        v = g[(static_cast<size_t>(oh0 + lh) * a.W_O + ow0 + lw) * a.F + ff];
-      gs[pix * Fb + f] = v;
-    }
-    __syncthreads();
-    if (!active) continue;
-    const float* xc = xs + cl * win;
-    for (int lh = 0; lh < vh; ++lh) {
-      for (int lw = 0; lw < vw; ++lw) {
-        const float4 gv =
-            *reinterpret_cast<const float4*>(gs + (lh * a.TW + lw) * Fb + fl);
-        const float* xp = xc + lh * S * cols + lw * S;
+  float acc[8][8];
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float xv = xp[toff[j]];
-          acc[j][0] = fmaf(xv, gv.x, acc[j][0]);
-          acc[j][1] = fmaf(xv, gv.y, acc[j][1]);
-          acc[j][2] = fmaf(xv, gv.z, acc[j][2]);
-          acc[j][3] = fmaf(xv, gv.w, acc[j][3]);
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const long long items = static_cast<long long>(a.n_th) * a.n_tw * a.N;
+  const int i0 = static_cast<int>(items * split / a.n_split);
+  const int i1 = static_cast<int>(items * (split + 1) / a.n_split);
+  const int sx = a.S * Cbp;            // one output column in the window
+  const int sy = a.S * a.cols * Cbp;   // one output row in the window
+
+  if (i0 < i1) load_item(a, smem, i0, c0, f0, Cb, Cbp, Fb);
+  cp_async_commit();
+  for (int it = i0; it < i1; ++it) {
+    const int stage = (it - i0) & 1;
+    if (it + 1 < i1)
+      load_item(a, smem + (stage ^ 1) * a.stage_floats, it + 1, c0, f0, Cb,
+                Cbp, Fb);
+    cp_async_commit();
+    cp_async_wait_one();  // this item's group has landed
+    __syncthreads();
+    if (active) {
+      const Item t = item_of(a, it);
+      const float* xs = smem + stage * a.stage_floats;
+      const float* gs = xs + a.xs_floats + fg * 4;
+      for (int lh = 0; lh < t.vh; ++lh) {
+        const float* xp = xs + lh * sy;
+        const float* gp = gs + lh * a.TW * Fb;
+#pragma unroll 2
+        for (int lw = 0; lw < t.vw; ++lw) {
+          float av[8], bv[8];
+          if (kVecRows) {
+            const float4 a0 = *reinterpret_cast<const float4*>(xp + xoff[0]);
+            const float4 a1 =
+                *reinterpret_cast<const float4*>(xp + xoff[0] + half_c);
+            av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+            av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) av[j] = xp[xoff[kVecRows ? 0 : j]];
+          }
+          const float4 b0 = *reinterpret_cast<const float4*>(gp);
+          const float4 b1 = *reinterpret_cast<const float4*>(gp + half_f);
+          bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+          bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          xp += sx;
+          gp += Fb;
         }
       }
     }
+    __syncthreads();  // every read of this stage is done before its refill
   }
 
   // One write per element: this range's partial (or dw itself).
-  const int cc = c0 + cl;
-  if (!active || cc >= a.C) return;
+  if (!active) return;
   float* out = a.out + static_cast<size_t>(split) * KK * a.C * a.F;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int tap = grp + j * a.G;
-    if (tap >= KK) continue;
-    const size_t base = (static_cast<size_t>(tap) * a.C + cc) * a.F + f0 + fl;
+  for (int i = 0; i < 8; ++i) {
+    int tap, c;
+    if (kVecRows) {
+      tap = vtap;
+      c = (i < 4 ? 0 : half_c) + vcg * 4 + (i & 3);
+    } else {
+      const int r = rg * 8 + i;
+      if (r >= KK * Cb) continue;
+      tap = r / Cb;
+      c = r - tap * Cb;
+    }
+    const int cc = c0 + c;
+    if (cc >= a.C) continue;
+    float* row = out + (static_cast<size_t>(tap) * a.C + cc) * a.F + f0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (fl + i < Fb && f0 + fl + i < a.F) out[base + i] = acc[j][i];
+    for (int h = 0; h < 2; ++h) {
+      const int f = h * half_f + fg * 4;
+      if (a.vec_out) {
+        if (f0 + f < a.F)
+          *reinterpret_cast<float4*>(row + f) =
+              make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
+                          acc[i][h * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (f0 + f + k < a.F) row[f + k] = acc[i][h * 4 + k];
+      }
+    }
   }
 }
 
-// dw[i] = sum over the n_split slabs in slab order (fixed, no atomics).
-__global__ void trim_conv2d_wgrad_reduce(const float* __restrict__ ws,
-                                         float* __restrict__ dw, long long M,
-                                         int n_split) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < M; i += stride) {
+// One window column of the K = 3 path: rows lh .. lh + 2 at one channel.
+__device__ __forceinline__ void k3_column(float (&col)[3], const float* p,
+                                          int row) {
+  col[0] = p[0];
+  col[1] = p[row];
+  col[2] = p[2 * row];
+}
+
+// One pixel of the K = 3 path: tap (kh, kw) takes column kw's row kh
+// (a, b, c are the columns of kw = 0, 1, 2) against the pixel's 8
+// cotangent values at gp (filters fg*4 + {0..3}, 32 + fg*4 + {0..3}).
+__device__ __forceinline__ void k3_step(float (&acc)[9][8],
+                                        const float (&a)[3],
+                                        const float (&b)[3],
+                                        const float (&c)[3],
+                                        const float* gp) {
+  const float4 b0 = *reinterpret_cast<const float4*>(gp);
+  const float4 b1 = *reinterpret_cast<const float4*>(gp + kK3Fb / 2);
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[kh * 3][j] = fmaf(a[kh], bv[j], acc[kh * 3][j]);
+      acc[kh * 3 + 1][j] = fmaf(b[kh], bv[j], acc[kh * 3 + 1][j]);
+      acc[kh * 3 + 2][j] = fmaf(c[kh], bv[j], acc[kh * 3 + 2][j]);
+    }
+}
+
+// The K = 3, stride-1 path (every VGG-16 layer): a thread holds the nine
+// taps of one channel for 8 filters (72 accumulators) and walks each
+// output row left to right with the window's 3 x 3 neighbourhood of its
+// channel in registers, so each step reads one new window column (3
+// scalar loads, each value reused by three taps: the triangular input
+// movement of TrIM) and the pixel's 8 cotangent values (2 x LDS.128) for
+// 72 FMAs.  Lanes run over the 8 filter groups fastest, so a warp reads
+// 4 neighbouring channels (one wavefront) and 8 neighbouring cotangent
+// quads (one wavefront).
+__global__ void __launch_bounds__(kK3Threads, kK3MinBlocks)
+trim_conv2d_wgrad_k3_kernel(const WgradArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int Cb = kK3Cb, Fb = kK3Fb;
+  const int tid = threadIdx.x;
+  const int fg = tid % 8, c = tid / 8;
+  const int c0 = (blockIdx.x / a.n_f) * Cb;
+  const int f0 = (blockIdx.x % a.n_f) * Fb;
+  const int split = blockIdx.y;
+  const int row = a.cols * Cb;  // one window row
+
+  float acc[9][8];
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const long long items = static_cast<long long>(a.n_th) * a.n_tw * a.N;
+  const int i0 = static_cast<int>(items * split / a.n_split);
+  const int i1 = static_cast<int>(items * (split + 1) / a.n_split);
+
+  if (i0 < i1) load_item(a, smem, i0, c0, f0, Cb, Cb, Fb);
+  cp_async_commit();
+  for (int it = i0; it < i1; ++it) {
+    const int stage = (it - i0) & 1;
+    if (it + 1 < i1)
+      load_item(a, smem + (stage ^ 1) * a.stage_floats, it + 1, c0, f0, Cb,
+                Cb, Fb);
+    cp_async_commit();
+    cp_async_wait_one();  // this item's group has landed
+    __syncthreads();
+    const Item t = item_of(a, it);
+    const float* xs = smem + stage * a.stage_floats + c;
+    const float* gs = smem + stage * a.stage_floats + a.xs_floats + fg * 4;
+    for (int lh = 0; lh < t.vh; ++lh) {
+      // columns lw, lw + 1, lw + 2 of the window's rows lh .. lh + 2 at
+      // channel c; the three arrays take the three roles in turn
+      const float* xp = xs + lh * row;
+      float u[3], v[3], w[3];
+      k3_column(u, xp, row);
+      k3_column(v, xp + Cb, row);
+      xp += 2 * Cb;
+      const float* gp = gs + lh * a.TW * Fb;
+      for (int lw = 0; lw < t.vw; lw += 3) {
+        k3_column(w, xp, row);
+        k3_step(acc, u, v, w, gp);
+        if (lw + 1 == t.vw) break;
+        k3_column(u, xp + Cb, row);
+        k3_step(acc, v, w, u, gp + Fb);
+        if (lw + 2 == t.vw) break;
+        k3_column(v, xp + 2 * Cb, row);
+        k3_step(acc, w, u, v, gp + 2 * Fb);
+        xp += 3 * Cb;
+        gp += 3 * Fb;
+      }
+    }
+    __syncthreads();  // every read of this stage is done before its refill
+  }
+
+  // One write per element: this range's partial (or dw itself).
+  const int cc = c0 + c;
+  if (cc >= a.C) return;
+  float* out = a.out + static_cast<size_t>(split) * 9 * a.C * a.F;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    float* dst = out + (static_cast<size_t>(tap) * a.C + cc) * a.F + f0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = h * (Fb / 2) + fg * 4;
+      if (a.vec_out) {
+        if (f0 + f < a.F)
+          *reinterpret_cast<float4*>(dst + f) =
+              make_float4(acc[tap][h * 4], acc[tap][h * 4 + 1],
+                          acc[tap][h * 4 + 2], acc[tap][h * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (f0 + f + k < a.F) dst[f + k] = acc[tap][h * 4 + k];
+      }
+    }
+  }
+}
+
+// dw[i] = the sum of the n_split slabs' i-th elements in a fixed order,
+// no atomics.  A block of 256 threads takes L = 256 / G consecutive
+// elements; its G thread rows (G = n_split rounded down to a power of 2,
+// at most 32) sum the slabs k = row, row + G, ... in order, and row 0 then
+// adds the G row sums in row order.  The order depends on n_split alone,
+// so every run gives the same bits.
+__global__ void __launch_bounds__(256)
+trim_conv2d_wgrad_reduce(const float* __restrict__ ws, float* __restrict__ dw,
+                         long long M, int n_split, int G) {
+  __shared__ float part[256];
+  const int L = 256 / G;
+  const int lane = threadIdx.x % L, row = threadIdx.x / L;
+  for (long long base = static_cast<long long>(blockIdx.x) * L; base < M;
+       base += static_cast<long long>(gridDim.x) * L) {
+    const long long i = base + lane;
     float s = 0.f;
-    for (int k = 0; k < n_split; ++k) s += ws[k * M + i];
-    dw[i] = s;
+    if (i < M) {
+#pragma unroll 4
+      for (int k = row; k < n_split; k += G) s += ws[k * M + i];
+    }
+    part[threadIdx.x] = s;
+    __syncthreads();
+    if (row == 0 && i < M) {
+      float t = part[lane];
+      for (int r = 1; r < G; ++r) t += part[r * L + lane];
+      dw[i] = t;
+    }
+    __syncthreads();
   }
 }
 
-template <int NT>
-int launch(const WgradArgs& a, int n_c, int smem_bytes, cudaStream_t stream) {
-  auto* kern = trim_conv2d_wgrad_kernel<NT>;
-  if (smem_bytes > 48 * 1024) {
+// The dynamic shared memory a kernel may take, raised once to the most any
+// launch has asked for (the attribute call costs host time on every launch
+// otherwise), with the carveout at its most shared memory so that two
+// blocks fit.
+int launch(void (*kern)(WgradArgs), int& smem_set, const WgradArgs& a,
+           int n_c, int threads, int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = smem_bytes;
   }
   const dim3 grid(n_c * a.n_f, a.n_split);
-  kern<<<grid, kThreads, smem_bytes, stream>>>(a);
+  kern<<<grid, threads, smem_bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -191,9 +534,8 @@ int launch(const WgradArgs& a, int n_c, int smem_bytes, cudaStream_t stream) {
 extern "C" {
 
 // Limits the wrapper validates against.
-int trim_conv2d_wgrad_max_taps() { return kMaxTaps; }
-int trim_conv2d_wgrad_filt_tile() { return kFiltTile; }
-int trim_conv2d_wgrad_threads() { return kThreads; }
+int trim_conv2d_wgrad_max_threads() { return kMaxThreads; }
+int trim_conv2d_wgrad_stages() { return kStages; }
 
 const char* trim_conv2d_wgrad_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -202,15 +544,31 @@ const char* trim_conv2d_wgrad_error_string(int code) {
 // x (N,H,W,C) f32, g (N,H_O,W_O,F) f32 -> dw (K,K,C,F) f32.  With
 // n_split > 1, ws holds n_split * K*K*C*F floats of scratch.  The caller
 // (the Python wrapper) picks the geometry: TH x TW output tiles, Cb
-// channels and Fb filters per block, G tap groups of NT taps per thread.
-// Returns the first launch error's cudaError_t, or 0.
+// channels (Cbp floats a window position) and Fb filters per block, the
+// path (0: scalar rows, 1: 16-byte rows, Cb % 8 == 0; 2: K = 3 at stride
+// 1, 32 x 64), threads per block, n_split ranges, 16-byte copies of x / g
+// (vec_x, vec_g) and the shared memory of the two stages, which must
+// equal what the kernel computes.  Returns the first launch error's
+// cudaError_t, or 0.
 int trim_conv2d_wgrad_f32(const void* x, const void* g, void* dw, void* ws,
                           int N, int H, int W, int C, int K, int F, int H_O,
                           int W_O, int stride, int pad, int TH, int TW,
-                          int Cb, int Fb, int G, int NT, int n_split,
-                          int smem_bytes, void* stream) {
-  if (NT < 1 || NT > kMaxTaps || Fb > kFiltTile || Fb % 4 != 0 ||
-      Cb * (Fb / 4) * G > kThreads || n_split < 1)
+                          int Cb, int Cbp, int Fb, int path, int threads,
+                          int n_split, int vec_x, int vec_g, int smem_bytes,
+                          void* stream) {
+  const int KK = K * K;
+  const int rgs = path == kVecRows ? KK * Cb / 8 : (KK * Cb + 7) / 8;
+  const int work = path == kK3Taps ? Cb * (Fb / 8) : rgs * (Fb / 8);
+  if (path < kScalarRows || path > kK3Taps || Fb < 8 || Fb % 8 != 0 ||
+      Cb < 1 || Cbp < Cb || (path == kVecRows && Cb % 8 != 0) ||
+      (path == kK3Taps &&
+       (K != 3 || stride != 1 || Cb != kK3Cb || Cbp != Cb || Fb != kK3Fb ||
+        threads != kK3Threads)) ||
+      (vec_x && (Cb % 4 != 0 || C % 4 != 0)) ||
+      (Cbp % 4 != 0 && (vec_x || path == kVecRows)) ||
+      (vec_g && F % 4 != 0) || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || work > threads || n_split < 1 || TH < 1 ||
+      TW < 1 || stride < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   WgradArgs a;
   a.x = static_cast<const float*>(x);
@@ -221,34 +579,40 @@ int trim_conv2d_wgrad_f32(const void* x, const void* g, void* dw, void* ws,
   a.TH = TH; a.TW = TW;
   a.n_th = (H_O + TH - 1) / TH;
   a.n_tw = (W_O + TW - 1) / TW;
-  a.Cb = Cb; a.Fb = Fb; a.G = G;
+  // items, and offsets inside one image, index as int
+  if (static_cast<long long>(a.n_th) * a.n_tw * N > 0x7fffffffLL ||
+      static_cast<long long>(H) * W * C > 0x7fffffffLL ||
+      static_cast<long long>(H_O) * W_O * F > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.Cb = Cb; a.Cbp = Cbp; a.Fb = Fb;
   a.n_f = (F + Fb - 1) / Fb;
   a.n_split = n_split;
+  a.rows = (TH - 1) * stride + K;
+  a.cols = (TW - 1) * stride + K;
+  a.xs_floats = (a.rows * a.cols * Cbp + 3) / 4 * 4;
+  a.stage_floats = a.xs_floats + TH * TW * Fb;
+  a.work = work;
+  a.vec_x = vec_x; a.vec_g = vec_g;
+  a.vec_out = F % 4 == 0;
+  if (smem_bytes != kStages * a.stage_floats * 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_c = (C + Cb - 1) / Cb;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  switch (NT) {
-#define TRIM_WGRAD_CASE(n) \
-  case n:                  \
-    rc = launch<n>(a, n_c, smem_bytes, s); \
-    break;
-    TRIM_WGRAD_CASE(1) TRIM_WGRAD_CASE(2) TRIM_WGRAD_CASE(3)
-    TRIM_WGRAD_CASE(4) TRIM_WGRAD_CASE(5) TRIM_WGRAD_CASE(6)
-    TRIM_WGRAD_CASE(7) TRIM_WGRAD_CASE(8) TRIM_WGRAD_CASE(9)
-    TRIM_WGRAD_CASE(10) TRIM_WGRAD_CASE(11) TRIM_WGRAD_CASE(12)
-    TRIM_WGRAD_CASE(13) TRIM_WGRAD_CASE(14) TRIM_WGRAD_CASE(15)
-    TRIM_WGRAD_CASE(16)
-#undef TRIM_WGRAD_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  void (*kern)(WgradArgs) = path == kK3Taps ? &trim_conv2d_wgrad_k3_kernel
+                            : path == kVecRows
+                                ? &trim_conv2d_wgrad_kernel<true>
+                                : &trim_conv2d_wgrad_kernel<false>;
+  static int smem_set[3] = {0, 0, 0};  // per path: what launch() has set
+  const int rc = launch(kern, smem_set[path], a, n_c, threads, smem_bytes, s);
   if (rc != 0 || n_split == 1) return rc;
-  const long long M = static_cast<long long>(K) * K * C * F;
-  const int blocks = static_cast<int>(
-      (M + kThreads - 1) / kThreads < 4096 ? (M + kThreads - 1) / kThreads
-                                           : 4096);
-  trim_conv2d_wgrad_reduce<<<blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<float*>(dw), M, n_split);
+  const long long M = static_cast<long long>(KK) * C * F;
+  int G = 1;
+  while (G < 32 && 2 * G <= n_split) G *= 2;
+  const long long L = 256 / G;
+  const int blocks = static_cast<int>((M + L - 1) / L < 4224 ? (M + L - 1) / L
+                                                              : 4224);
+  trim_conv2d_wgrad_reduce<<<blocks, 256, 0, s>>>(
+      static_cast<const float*>(ws), static_cast<float*>(dw), M, n_split, G);
   return static_cast<int>(cudaGetLastError());
 }
 

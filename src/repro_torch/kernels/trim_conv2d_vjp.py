@@ -12,9 +12,12 @@ Port of ``repro/kernels/trim_conv2d_vjp.py``.
 - :func:`trim_conv2d_wgrad_plain` is the same function in plain PyTorch:
   a loop over the K*K taps, each an fp32 contraction of the shifted
   input view with the cotangent.
-- :func:`wgrad_tile` is the kernel's geometry: output tile, channel and
-  filter tile, how the taps spread over the threads, and into how many
-  ranges the (image, output tile) reduction is cut to fill the card.
+- :func:`wgrad_tile` is the kernel's geometry: its path, output tile,
+  channel and filter tile, which (tap, channel) rows and filters each
+  thread's register tile holds (8 x 8, or 9 taps x 8 on the K = 3 path:
+  :func:`wgrad_thread_outputs`), and into how many
+  ranges the (image, output tile) reduction is cut to fill the card
+  (:func:`wgrad_ranges`).
 - :func:`trim_conv2d_input_grad` is dL/dx as a forward TrIM conv at
   stride 1 (``kernels.trim_conv2d.trim_conv2d``, kernel 1) on the
   zero-stuffed, padded cotangent and the flipped, transposed weights.
@@ -24,6 +27,7 @@ Port of ``repro/kernels/trim_conv2d_vjp.py``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -37,16 +41,35 @@ from repro_torch.kernels.trim_conv2d import SMEM_MAX, trim_conv2d
 #: counter: callers set it to 0 before a run and read it after).
 WGRAD_LAUNCHES = 0
 
-#: Threads per block, taps one thread may hold (NT) and filters one block
-#: computes (Fb); all three are compiled into the kernel.
-WGRAD_THREADS = 256
-WGRAD_MAX_TAPS = 16
-WGRAD_FILT_TILE = 32
-#: Output tile of one reduction item (the forward kernel's default).
+#: The kernel's paths: scalar window rows (C < 8), 16-byte window rows
+#: (Cb % 8 == 0) and, at K = 3 and stride 1 with a 32 x 64 tile, the nine
+#: taps of one channel in registers (every VGG-16 layer but CL1).
+PATH_SCALAR, PATH_VEC, PATH_K3 = 0, 1, 2
+#: Threads a block may have and cp.async stages; both are compiled into
+#: the kernel.
+WGRAD_MAX_THREADS = 288
+WGRAD_STAGES = 2
+#: The K = 3 path's channel and filter tile and threads.
+K3_CB, K3_FB, K3_THREADS = 32, 64, 256
+#: Registers per thread of each path's kernel as ``nvcc -Xptxas -v``
+#: reports them on the H100 (157, 96, 113: the build log beside the
+#: library), rounded up to the allocation unit of 8: what the split and
+#: the output tile reckon the card's occupancy with.
+WGRAD_REGS = {PATH_SCALAR: 160, PATH_VEC: 96, PATH_K3: 120}
+#: Warps an SM should hold: below it, a block's output tile is halved
+#: (down to WGRAD_MIN_PIXELS) so that more blocks fit.
+WGRAD_MIN_WARPS = 8
+WGRAD_MIN_PIXELS = 32
+#: Largest channel and filter tile a block takes.
+WGRAD_MAX_CB, WGRAD_MAX_FB = 64, 64
+#: Output tile of one reduction item (the forward kernel's default),
+#: halved while the two stages do not fit the shared memory.
 WGRAD_TILE_H, WGRAD_TILE_W = 8, 16
-#: Blocks the reduction split aims for: two resident blocks on each of
-#: the H100's 132 SMs.
-WGRAD_TARGET_BLOCKS = 264
+#: The H100's SMs and the shared memory, registers and threads of one.
+WGRAD_SMS = 132
+SM_SMEM = 228 * 1024
+SM_REGS = 65536
+SM_THREADS = 2048
 #: Most scratch the split partials may take.
 WGRAD_WORKSPACE_MAX = 256 * 1024 * 1024
 
@@ -66,36 +89,72 @@ class WgradTile:
     TW: int           # output cols per reduction item
     n_th: int
     n_tw: int
+    path: int         # PATH_SCALAR, PATH_VEC or PATH_K3
     Cb: int           # channels per block
-    Fb: int           # filters per block (a multiple of 4)
+    Cbp: int          # floats per window position in shared memory (>= Cb)
+    Fb: int           # filters per block (a multiple of 8)
     n_c: int
     n_f: int
-    G: int            # tap groups: group j owns taps j, j+G, ...
-    NT: int           # taps per thread
+    work: int         # threads holding an 8 x 8 register tile
+    threads: int      # threads per block (work rounded up to a warp)
     n_split: int      # ranges the (image, output tile) reduction is cut into
-    smem_bytes: int
+    smem_bytes: int   # the two stages of window + cotangent tile
+    blocks_per_sm: int
 
 
-def _window_bytes(TH: int, TW: int, S: int, K: int, Cb: int, Fb: int) -> int:
+def _stage_floats(TH: int, TW: int, S: int, K: int, Cbp: int,
+                  Fb: int) -> int:
     rows, cols = (TH - 1) * S + K, (TW - 1) * S + K
-    return 4 * (-(-(Cb * rows * cols) // 4) * 4 + TH * TW * Fb)
+    return -(-(rows * cols * Cbp) // 4) * 4 + TH * TW * Fb
 
 
+def _row_groups(K: int, Cb: int) -> int:
+    return -(-K * K * Cb // 8)
+
+
+def _blocks_per_sm(threads: int, smem: int, path: int) -> int:
+    """Resident blocks per SM by threads, registers and shared memory
+    (1 KB reserved a block)."""
+    return max(1, min(SM_THREADS // threads,
+                      SM_REGS // (threads * WGRAD_REGS[path]),
+                      SM_SMEM // (smem + 1024), 32))
+
+
+def _split(items: int, tiles: int, slots: int, cap: int) -> int:
+    """The fewest ranges that minimise the makespan: waves of ``slots``
+    blocks times the items of the longest range (past two waves' worth of
+    ranges it only grows)."""
+    best = (None, 1)
+    top = min(items, cap, 2 * -(-slots // tiles) + 1)
+    for s in range(1, max(1, top) + 1):
+        span = -(-tiles * s // slots) * -(-items // s)
+        if best[0] is None or span < best[0]:
+            best = (span, s)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
 def wgrad_tile(x_shape: Tuple[int, int, int, int], k: int, f: int, *,
                stride: int, padding: Optional[int]) -> WgradTile:
     """Geometry for x (N,H,W,C) and dw (k,k,C,f).
 
-    The filter tile is ``min(32, f)`` rounded up to 4.  The channel tile
-    is the largest ``Cb <= min(C, 32)`` whose Cb x Fb/4 thread lanes fit
-    the block and leave enough lane groups that no thread holds more than
-    :data:`WGRAD_MAX_TAPS` taps (K=3 takes Cb 32, K=5 16, K=11 4), with
-    the window and cotangent tile inside the shared memory.  The
-    reduction is then cut into enough ranges for
-    :data:`WGRAD_TARGET_BLOCKS` blocks, never more ranges than items and never more scratch than
-    :data:`WGRAD_WORKSPACE_MAX`.
+    With C >= 8 the channel tile Cb is a multiple of 8 (the 16-byte row
+    loads), below that Cb = C (scalar row loads); the filter tile Fb is a
+    multiple of 8.  Of the (Cb, Fb) whose row groups x filter groups fit
+    :data:`WGRAD_MAX_THREADS`, the one with the least padded work (rows
+    and filters past C and F), then the largest tile, then the widest Fb
+    wins.  A window position takes Cb + 4 floats where fewer than four
+    filter groups put two taps in one quarter warp.  The output tile is
+    halved until the two stages fit the shared memory, an SM holds
+    :data:`WGRAD_MIN_WARPS` warps and the items x tiles give every SM a
+    block (or the tile is down to :data:`WGRAD_MIN_PIXELS` pixels: VGG-16
+    CL1's one-warp blocks, AlexNet CL1 at batch 1).  The reduction is
+    then cut into the fewest ranges that minimise waves x items per range
+    over the blocks the card holds at once, never more ranges than items
+    and never more scratch than :data:`WGRAD_WORKSPACE_MAX`.
     """
     N, H, W, C = (int(v) for v in x_shape)
-    S, K = int(stride), int(k)
+    S, K, F = int(stride), int(k), int(f)
     if S < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
     p = K // 2 if padding is None else int(padding)
@@ -103,31 +162,101 @@ def wgrad_tile(x_shape: Tuple[int, int, int, int], k: int, f: int, *,
     W_O = (W + 2 * p - K) // S + 1
     if H_O < 1 or W_O < 1:
         raise ValueError(f"empty conv output for input {(H, W)}, k={K}, p={p}")
+    vec = C >= 8 and K * K <= WGRAD_MAX_THREADS
+    cbs = (range(8, min(WGRAD_MAX_CB, -(-C // 8) * 8) + 1, 8) if vec
+           else range(min(C, 7), 0, -1))
+    best = None
+    for Cb in cbs:
+        rg = _row_groups(K, Cb)
+        for Fb in range(8, min(WGRAD_MAX_FB, -(-F // 8) * 8) + 1, 8):
+            work = rg * (Fb // 8)
+            if work > WGRAD_MAX_THREADS:
+                continue
+            padded = -(-C // Cb) * rg * 8 * -(-F // Fb) * Fb
+            key = (padded, -Cb * Fb, -Fb)
+            if best is None or key < best[0]:
+                best = (key, Cb, Fb, work)
+    if best is None:
+        raise ValueError(f"no weight-gradient tile fits K={K} in "
+                         f"{WGRAD_MAX_THREADS} threads")
+    _, Cb, Fb, work = best
+    path = PATH_VEC if vec else PATH_SCALAR
+    if vec and K == 3 and S == 1 and (Cb, Fb) == (K3_CB, K3_FB):
+        path, work = PATH_K3, K3_THREADS
+    Cbp = Cb + 4 if vec and Fb // 8 < 4 else Cb
+    threads = -(-work // 32) * 32
     TH, TW = min(WGRAD_TILE_H, H_O), min(WGRAD_TILE_W, W_O)
-    Fb = min(WGRAD_FILT_TILE, -(-int(f) // 4) * 4)
-    lanes_f = Fb // 4
-    for Cb in range(min(C, 32), 0, -1):
-        L = Cb * lanes_f
-        if L > WGRAD_THREADS:
-            continue
-        G = WGRAD_THREADS // L
-        NT = -(-K * K // G)
-        smem = _window_bytes(TH, TW, S, K, Cb, Fb)
-        if NT <= WGRAD_MAX_TAPS and smem <= SMEM_MAX:
+    while True:
+        smem = WGRAD_STAGES * 4 * _stage_floats(TH, TW, S, K, Cbp, Fb)
+        per_sm = _blocks_per_sm(threads, smem, path)
+        blocks = (N * -(-H_O // TH) * -(-W_O // TW) * -(-C // Cb)
+                  * -(-F // Fb))
+        if smem <= SMEM_MAX and (
+                TH * TW <= WGRAD_MIN_PIXELS
+                or (per_sm * threads >= 32 * WGRAD_MIN_WARPS
+                    and blocks >= WGRAD_SMS)):
             break
-    else:
-        raise ValueError(f"no weight-gradient tile fits K={K}, S={S}, "
-                         f"tile {TH}x{TW}")
+        if TH == TW == 1:
+            raise ValueError(f"no weight-gradient tile fits K={K}, S={S}, "
+                             f"Cb={Cb} in {SMEM_MAX} bytes")
+        if TW >= TH:
+            TW = -(-TW // 2)
+        else:
+            TH = -(-TH // 2)
     n_th, n_tw = -(-H_O // TH), -(-W_O // TW)
-    n_c, n_f = -(-C // Cb), -(-int(f) // Fb)
+    n_c, n_f = -(-C // Cb), -(-F // Fb)
     items = N * n_th * n_tw
-    slab = K * K * C * int(f) * 4
-    n_split = max(1, min(items, 65535,
-                         -(-WGRAD_TARGET_BLOCKS // (n_c * n_f)),
-                         WGRAD_WORKSPACE_MAX // slab))
+    slab = K * K * C * F * 4
+    n_split = _split(items, n_c * n_f, WGRAD_SMS * per_sm,
+                     min(65535, WGRAD_WORKSPACE_MAX // slab))
     return WgradTile(H_O=H_O, W_O=W_O, p=p, TH=TH, TW=TW, n_th=n_th,
-                     n_tw=n_tw, Cb=Cb, Fb=Fb, n_c=n_c, n_f=n_f, G=G, NT=NT,
-                     n_split=n_split, smem_bytes=smem)
+                     n_tw=n_tw, path=path, Cb=Cb, Cbp=Cbp, Fb=Fb,
+                     n_c=n_c, n_f=n_f, work=work, threads=threads,
+                     n_split=n_split, smem_bytes=smem, blocks_per_sm=per_sm)
+
+
+def wgrad_thread_outputs(t: WgradTile, K: int, tid: int):
+    """The (tap, channel, filter) of dw, within the block's tile, that
+    thread ``tid``'s accumulators hold (the kernel's own mapping: 8 rows x
+    8 filters, or on the K = 3 path 9 taps x 8 filters; rows past K*K*Cb
+    left out)."""
+    if tid >= t.work:
+        return []
+    FG = t.Fb // 8
+    fg, rg = tid % FG, tid // FG
+    filters = [h * (t.Fb // 2) + fg * 4 + j for h in (0, 1) for j in range(4)]
+    if t.path == PATH_K3:
+        rows = [(tap, rg) for tap in range(K * K)]
+    elif t.path == PATH_VEC:
+        tap, cg = divmod(rg, t.Cb // 8)
+        rows = [(tap, h * (t.Cb // 2) + cg * 4 + j)
+                for h in (0, 1) for j in range(4)]
+    else:
+        rows = [divmod(r, t.Cb) for r in range(rg * 8, rg * 8 + 8)
+                if r < K * K * t.Cb]
+    return [(tap, c, f) for tap, c in rows for f in filters]
+
+
+def wgrad_ranges(t: WgradTile, N: int):
+    """The kernel's split: ``(i0, i1)`` items of each of the n_split
+    ranges of the N * n_th * n_tw (image, output tile) items."""
+    items = N * t.n_th * t.n_tw
+    return [(items * s // t.n_split, items * (s + 1) // t.n_split)
+            for s in range(t.n_split)]
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int, S: int,
+                 padding: Optional[int], x_aligned: bool, g_aligned: bool):
+    """The geometry and the C function's integer arguments for one shape
+    (cached: the wrapper's host time bounds the small shapes)."""
+    N, H, W, C = x_shape
+    t = wgrad_tile(x_shape, K, F, stride=S, padding=padding)
+    vec_x = t.Cb % 4 == 0 and C % 4 == 0 and x_aligned
+    vec_g = F % 4 == 0 and g_aligned
+    return t, (N, H, W, C, K, F, t.H_O, t.W_O, S, t.p, t.TH, t.TW, t.Cb,
+               t.Cbp, t.Fb, t.path, t.threads, t.n_split, int(vec_x),
+               int(vec_g), t.smem_bytes)
 
 
 def load_library() -> ctypes.CDLL:
@@ -136,15 +265,14 @@ def load_library() -> ctypes.CDLL:
     lib = _build.load(_LIB_NAME, _SOURCES)
     if lib not in _BOUND:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.trim_conv2d_wgrad_f32.argtypes = [p] * 4 + [i] * 18 + [p]
+        lib.trim_conv2d_wgrad_f32.argtypes = [p] * 4 + [i] * 21 + [p]
         lib.trim_conv2d_wgrad_f32.restype = i
         lib.trim_conv2d_wgrad_error_string.argtypes = [i]
         lib.trim_conv2d_wgrad_error_string.restype = ctypes.c_char_p
-        for name in ("max_taps", "filt_tile", "threads"):
+        for name in ("max_threads", "stages"):
             getattr(lib, f"trim_conv2d_wgrad_{name}").restype = i
-        if (lib.trim_conv2d_wgrad_max_taps() != WGRAD_MAX_TAPS
-                or lib.trim_conv2d_wgrad_filt_tile() != WGRAD_FILT_TILE
-                or lib.trim_conv2d_wgrad_threads() != WGRAD_THREADS):
+        if (lib.trim_conv2d_wgrad_max_threads() != WGRAD_MAX_THREADS
+                or lib.trim_conv2d_wgrad_stages() != WGRAD_STAGES):
             raise RuntimeError("trim_conv2d_wgrad library constants differ "
                                "from the wrapper's")
         _BOUND.add(lib)
@@ -192,39 +320,38 @@ def trim_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, *, K: int,
     launches the kernel on the current stream, or raises.
     """
     global WGRAD_LAUNCHES
-    if x.device.type == "cpu":
+    dev = x.device  # one device object: each ``.device`` builds a new one
+    if dev.type == "cpu":
         return trim_conv2d_wgrad_plain(x, g, K=K, stride=stride,
                                        padding=padding)
-    if x.device.type != "cuda":
+    if dev.type != "cuda":
         raise ValueError(f"trim_conv2d_wgrad runs on cuda or cpu, not "
-                         f"{x.device}")
+                         f"{dev}")
     if x.dim() != 4 or g.dim() != 4 or g.shape[0] != x.shape[0]:
         raise ValueError(f"x must be NHWC and g (N,H_O,W_O,F): "
                          f"{tuple(x.shape)}, {tuple(g.shape)}")
     if x.dtype != torch.float32 or g.dtype != torch.float32:
         raise ValueError(f"the kernel takes float32 x and g, got {x.dtype}, "
                          f"{g.dtype}")
-    if g.device != x.device or not (x.is_contiguous() and g.is_contiguous()):
+    if g.device != dev or not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("trim_conv2d_wgrad needs contiguous operands on "
                          "one device")
-    N, H, W, C = x.shape
-    Fo = g.shape[-1]
-    t = wgrad_tile(x.shape, K, Fo, stride=stride, padding=padding)
+    xp, gp = x.data_ptr(), g.data_ptr()
+    t, args = _launch_args(tuple(x.shape), int(K), int(g.shape[-1]),
+                           int(stride), padding, xp % 16 == 0, gp % 16 == 0)
     if tuple(g.shape[1:3]) != (t.H_O, t.W_O):
         raise ValueError(f"cotangent {tuple(g.shape)} does not fit the conv "
                          f"output ({t.H_O}, {t.W_O})")
-    dw = torch.empty((K, K, C, Fo), dtype=torch.float32, device=x.device)
+    shape = (K, K, x.shape[3], g.shape[3])
+    dw = torch.empty(shape, dtype=torch.float32, device=dev)
     ws = (None if t.n_split == 1 else
-          torch.empty((t.n_split, K, K, C, Fo), dtype=torch.float32,
-                      device=x.device))
+          torch.empty((t.n_split, *shape), dtype=torch.float32, device=dev))
     lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    wsp = None if ws is None else ws.data_ptr()
+    with torch.cuda.device(dev):
         rc = lib.trim_conv2d_wgrad_f32(
-            x.data_ptr(), g.data_ptr(), dw.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            N, H, W, C, K, Fo, t.H_O, t.W_O, int(stride), t.p, t.TH, t.TW,
-            t.Cb, t.Fb, t.G, t.NT, t.n_split, t.smem_bytes, stream)
+            xp, gp, dw.data_ptr(), wsp, *args,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.trim_conv2d_wgrad_error_string(rc).decode()
         raise RuntimeError(f"trim_conv2d_wgrad launch failed: CUDA error "

@@ -109,7 +109,10 @@ def test_kernel_matches_plain_on_card(case):
 # -- VGG-like K=3, the remainder rows/cols of (H+2p-K) % S > 0, AlexNet
 # CL1's K=11 S=4 (few channels, many taps per thread), K=5 with more
 # channels than one tile, filters not a multiple of 4, and a reduction
-# split across blocks.
+# split across blocks; then VGG-16 CL4 at batch 2 (the 16-byte row path
+# at 32 channels x 64 filters), C = 3 with F = 64 (VGG-16 CL1's scalar
+# rows), C = 20 with F = 36 (neither a multiple of 8: zero-filled channel
+# and filter padding) and a split into 512 ranges of one item each.
 WGRAD_CASES = [
     (2, 12, 12, 4, 3, 8, 1, None),
     (2, 11, 12, 4, 3, 8, 2, 0),
@@ -118,6 +121,10 @@ WGRAD_CASES = [
     (2, 13, 13, 40, 5, 36, 1, 2),
     (2, 9, 10, 5, 3, 5, 2, 1),
     (4, 56, 56, 64, 3, 64, 1, 1),
+    (2, 112, 112, 128, 3, 128, 1, None),
+    (2, 40, 40, 3, 3, 64, 1, None),
+    (2, 17, 19, 20, 3, 36, 1, 1),
+    (16, 64, 64, 8, 3, 8, 1, 1),
 ]
 
 

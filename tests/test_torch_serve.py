@@ -6,7 +6,10 @@ float and int8 lanes.  Both packages get the same weights (JAX's
 request stream.  Checked: request conservation, every executable built
 once, bucketed results bit-equal to ``engine.infer`` at N=1, and served
 results equal to what the JAX ``Server`` serves: bit for bit on int8,
-within rtol = atol = 1e-4 on float (fp32 sums in another order).
+within rtol = atol = 1e-4 on float (fp32 sums in another order).  Both
+servers run the stream on a fake clock (as ``tests/test_serve.py`` does),
+so which batches flush depends on the arrival times alone, not on how
+long the host takes to serve them.
 """
 import jax
 import numpy as np
@@ -28,6 +31,28 @@ from repro_torch.weights import from_jax_params
 
 BUCKETS = (1, 4, 8)
 N_REQUESTS = 13  # one burst of each bucket size
+
+
+class FakeClock:
+    """Deterministic clock + sleep pair for driving the serve loop.
+
+    A sleep returns one nanosecond late, as a real one does: the inline
+    loop sleeps until ``t_submit + max_delay`` and then asks the batcher
+    whether ``now - t_submit >= max_delay``, which float rounding can
+    deny at exactly that time, and the loop would then spin without the
+    clock moving.
+    """
+
+    LATE_S = 1e-9
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def sleep(self, dt: float) -> None:
+        self.t += max(dt, 0.0) + self.LATE_S
 
 
 def _stream(cls, datapath):
@@ -53,13 +78,15 @@ def _served(datapath):
         jrq = jplan.calibrate_requant(jparams, sample)
         rq = plan.calibrate_requant(params, torch.from_numpy(sample))
     conf = dict(buckets=BUCKETS, max_delay_ms=5.0, datapath=datapath)
+    jclock = FakeClock()
     jsrv = JaxServer.from_plan(jplan, jparams, JaxServeConfig(**conf),
-                               requant=jrq)
+                               requant=jrq, clock=jclock, sleep=jclock.sleep)
     jmetrics = jsrv.run_stream(_stream(JaxStream, datapath))
     jsrv.close()
     want = {r.rid: r.result for r in jmetrics.requests}
+    clock = FakeClock()
     srv = Server.from_plan(plan, params, ServeConfig(**conf), requant=rq,
-                           device="cpu")
+                           clock=clock, sleep=clock.sleep, device="cpu")
     metrics = srv.run_stream(_stream(SyntheticRequestStream, datapath))
     srv.close()
     return srv, metrics, want

@@ -104,19 +104,59 @@ def test_backward_kernels_match_jax(case):
     assert torch.equal(dw, dw_plain)
 
 
+def _check_wgrad_tile(n, H, W, c, K, f, S, p):
+    """The kernel's geometry for x (n,H,W,c), dw (K,K,c,f): every (tap,
+    c, f) of a block's tile is held by exactly one thread's register tile
+    (8 x 8, or 9 taps x 8 on the K = 3 path), the block fits its thread
+    limit, the two stages fit the shared memory, and the split ranges
+    partition the items with none empty."""
+    t = vjp.wgrad_tile((n, H, W, c), K, f, stride=S, padding=p)
+    assert (t.H_O, t.W_O) == _out_hw(H, W, K, S, p)
+    assert t.Fb % 8 == 0 and t.n_f * t.Fb >= f and t.n_c * t.Cb >= c
+    assert (t.path != vjp.PATH_SCALAR) == (t.Cb % 8 == 0 and c >= 8)
+    assert t.work <= t.threads <= vjp.WGRAD_MAX_THREADS
+    assert t.threads % 32 == 0
+    held = np.zeros((K * K, t.Cb, t.Fb), np.int64)
+    for tid in range(t.threads):
+        out = vjp.wgrad_thread_outputs(t, K, tid)
+        assert len(out) <= (72 if t.path == vjp.PATH_K3 else 64)
+        for tap, ci, fi in out:
+            held[tap, ci, fi] += 1
+    assert (held == 1).all()
+    rows, cols = (t.TH - 1) * S + K, (t.TW - 1) * S + K
+    stage = -(-(rows * cols * t.Cbp) // 4) * 4 + t.TH * t.TW * t.Fb
+    assert t.smem_bytes == vjp.WGRAD_STAGES * 4 * stage <= vjp.SMEM_MAX
+    ranges = vjp.wgrad_ranges(t, n)
+    assert len(ranges) == t.n_split >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == n * t.n_th * t.n_tw
+    assert all(i1 > i0 for i0, i1 in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    return t
+
+
 @pytest.mark.parametrize("case", GRAD_CASES, ids=str)
 def test_wgrad_tile_covers_every_tap(case):
-    """The kernel's geometry: the tap groups cover K*K with at most
-    WGRAD_MAX_TAPS taps a thread, the lanes fit the block, and the split
-    never makes an empty range."""
+    """The kernel's geometry at the gradient cases, for four channel and
+    filter counts (C below 8 on the scalar-row path, F not a multiple
+    of 8, C and F above one tile)."""
     H, W, K, S, p = case
     for n, c, f in ((2, 4, 8), (8, 3, 64), (4, 64, 128), (1, 48, 128)):
-        t = vjp.wgrad_tile((n, H, W, c), K, f, stride=S, padding=p)
-        assert (t.H_O, t.W_O) == _out_hw(H, W, K, S, p)
-        assert t.G * t.NT >= K * K and t.NT <= vjp.WGRAD_MAX_TAPS
-        assert t.Cb * (t.Fb // 4) * t.G <= vjp.WGRAD_THREADS
-        assert t.Fb % 4 == 0 and t.Fb >= min(f, vjp.WGRAD_FILT_TILE)
-        assert 1 <= t.n_split <= n * t.n_th * t.n_tw
+        _check_wgrad_tile(n, H, W, c, K, f, S, p)
+
+
+@pytest.mark.parametrize("layer", ["CL2", "CL13"])
+def test_wgrad_tile_at_vgg16_batch8(layer):
+    """The geometry at VGG-16 CL2's and CL13's train-step shapes (batch
+    8): the K = 3 path, 32 channels x 64 filters in eight warps, two
+    blocks an SM, and enough blocks to fill the H100's 132 SMs."""
+    from repro_torch.core.model import VGG16_LAYERS
+
+    l = next(v for v in VGG16_LAYERS if v.name == layer)
+    t = _check_wgrad_tile(8, l.H_I, l.W_I, l.M, l.K, l.N, l.stride,
+                          l.padding)
+    assert t.path == vjp.PATH_K3 and (t.Cb, t.Fb, t.threads) == (32, 64, 256)
+    assert t.blocks_per_sm == 2
+    assert t.n_c * t.n_f * t.n_split >= vjp.WGRAD_SMS
 
 
 # ---------------------------------------------------------------------------
