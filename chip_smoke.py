@@ -51,9 +51,15 @@ Phases (any failure exits non-zero and prints no result line):
    kv_length with a row at 0; Sq < Sk with q_offset; D = 128; and
    granite-3-2b's full-width prefill, q (4, 4096, 8, 4, 64) causal, and
    decode, q (4, 1, 8, 4, 64) over a (4, 4128, 8, 64) cache with
-   kv_length 4097.  At the two full-width shapes, per dtype: kernel ms,
-   plain ms, ``F.scaled_dot_product_attention`` ms (KV heads repeated; a
-   yardstick the port never calls) and the bound;
+   kv_length 4097 (the bf16 lane's two paths: warpgroup MMA with TMA at
+   the prefill, the split decode in one launch at the decode).  At the two
+   full-width shapes, per dtype: kernel ms, plain ms,
+   ``F.scaled_dot_product_attention`` ms (KV heads repeated; a yardstick
+   the port never calls) and the bound; in bf16 also the kernel's and
+   SDPA's device time under ``torch.profiler``, SDPA with ``enable_gqa``
+   on the unrepeated k/v, the wrapper's host issue time per call, and at
+   the decode all of these with the k/v cache cold in L2 (calls rotating
+   over 4 caches of 33.8 MB);
 3e. matmul: ``ops.trim_matmul`` (the entry point) at granite-3-2b's
    full-width projections at a 4 x 4096 prefill, (16384, 2048) @ (2048,
    8192), (16384, 8192) @ (8192, 2048) and (16384, 2048) @ (2048, 2048),
@@ -267,6 +273,25 @@ def issue_ms(torch, fn, reps: int) -> float:
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return t / reps * 1e3
+
+
+def device_ms(torch, fn, calls: int):
+    """Device (kernel) time per call of ``fn`` over ``calls`` calls under
+    ``torch.profiler``, after one warm call: every kernel the calls
+    launched, summed; None (not measured) where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA"))
+    return total / 1e3 / calls if total > 0 else None
 
 
 def bound(macs: int, nbytes: int, integer: bool, peak: float = 0.0) -> dict:
@@ -1028,10 +1053,11 @@ def phase_flash(torch, reps: int):
     (TF32 off), fp32 within rtol = atol = 2e-5 and bf16 within 2e-2 and
     within BF16_ROW_ULPS per row (``_row_ulps``), with the keys past
     kv_length holding NaN for the kernel (zero for the plain version,
-    which would sum them).  At the full-width decode, the kernel run with
-    one 64-key tile dropped must fail the bf16 row check.  Timed at
-    granite-3-2b's full-width prefill and decode shapes.  Returns one row
-    per (shape, dtype)."""
+    which would sum them).  At the full-width decode (the split path),
+    the kernel run with one 64-key tile dropped must fail the bf16 row
+    check.  Timed at granite-3-2b's full-width prefill and decode shapes
+    (bf16: also ``_flash_readings``).  Returns one row per (shape,
+    dtype)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -1097,7 +1123,7 @@ def phase_flash(torch, reps: int):
             pairs = _visible_pairs(Sq, Sk, causal, off, kvl, B)
             esz = q.element_size()
             nbytes = (2 * q.numel() + 2 * B * keys * H * D) * esz
-            rows.append({
+            row = {
                 "shape": name, "dtype": str(dtype).replace("torch.", ""),
                 "q": tuple(q.shape), "kv": tuple(k.shape), "kv_length": kvl,
                 "max_abs_err": err, "row_ulps": ulps,
@@ -1109,7 +1135,11 @@ def phase_flash(torch, reps: int):
                     torch, lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal), reps),
                 **bound(2 * H * G * D * pairs, nbytes, integer=False,
-                        peak=PEAK_BF16 if dtype == torch.bfloat16 else 0.0)})
+                        peak=PEAK_BF16 if dtype == torch.bfloat16 else 0.0)}
+            if dtype == torch.bfloat16:
+                row.update(_flash_readings(torch, fa, q, k, v, kw, qt, kt,
+                                           vt, G, reps, cold=name == "decode"))
+            rows.append(row)
     log(f"flash: kernel matches plain at {n} cases x dtypes (fp32 2e-5, "
         f"bf16 2e-2 and per row {BF16_ROW_ULPS} x 2^-7 of max|plain|: the "
         f"worst bf16 row at {worst_ulps:.3g})")
@@ -1125,7 +1155,100 @@ def phase_flash(torch, reps: int):
             f"{r['max_abs_err']:.3g}"
             + (f" row_ulps {r['row_ulps']:.3g}" if r["row_ulps"] is not None
                else ""))
+        extra = {k: v for k, v in r.items() if k in FLASH_READINGS}
+        if extra:
+            log(f"flash {r['shape']:7s} {r['dtype']:8s} " + " ".join(
+                f"{k} {'none' if v is None else format(v, '.4f')}"
+                for k, v in extra.items()))
     return rows
+
+
+#: the bf16 flash rows' readings beyond ms / library_ms (events, warm):
+#: the kernel's and SDPA's device time under ``torch.profiler`` (warm),
+#: SDPA with ``enable_gqa`` on the unrepeated k/v, the wrapper's host
+#: issue time per call, and at decode the same with the k/v cache cold in
+#: L2 (calls rotating over FLASH_COLD_CACHES caches)
+FLASH_READINGS = ("device_ms", "library_device_ms", "library_gqa_ms",
+                  "library_gqa_device_ms", "issue_ms", "ms_cold",
+                  "device_ms_cold", "library_ms_cold",
+                  "library_device_ms_cold", "library_gqa_device_ms_cold")
+#: distinct k/v caches the cold decode readings rotate over: 4 x 33.8 MB
+#: at granite-3-2b's decode shape, past the H100's 50 MB L2
+FLASH_COLD_CACHES = 4
+
+
+def _flash_readings(torch, fa, q, k, v, kw, qt, kt, vt, G, reps, cold):
+    """The bf16 flash kernel's and SDPA's readings beyond the event times
+    (``FLASH_READINGS``).  With ``cold``, also over FLASH_COLD_CACHES
+    fresh k/v caches of k's shape (NaN past kv_length, like k), each call
+    taking the next, so each finds its cache out of L2."""
+    import torch.nn.functional as F
+
+    def sdpa(qq, kk, vv, **extra):
+        return F.scaled_dot_product_attention(qq, kk, vv,
+                                              is_causal=kw["causal"], **extra)
+
+    keys = kt.shape[2]
+    ku, vu = (t[:, :keys].transpose(1, 2) for t in (k, v))
+    try:
+        sdpa(qt, ku, vu, enable_gqa=True)
+        gqa = True
+    except TypeError:   # a torch without enable_gqa
+        gqa = False
+    calls = max(10, reps // 5)
+    out = {
+        "device_ms": device_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                                 **kw), calls),
+        "library_device_ms": device_ms(torch, lambda: sdpa(qt, kt, vt),
+                                       calls),
+        "library_gqa_ms": (cuda_ms(torch, lambda: sdpa(qt, ku, vu,
+                                                       enable_gqa=True), reps)
+                           if gqa else None),
+        "library_gqa_device_ms": (device_ms(torch, lambda: sdpa(
+            qt, ku, vu, enable_gqa=True), calls) if gqa else None),
+        "issue_ms": issue_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                             reps),
+    }
+    if not cold:
+        return out
+    caches = []
+    for _ in range(FLASH_COLD_CACHES):
+        kc, vc = torch.randn_like(k, dtype=torch.float32).to(k.dtype), \
+            torch.randn_like(v, dtype=torch.float32).to(v.dtype)
+        if kw["kv_length"] is not None:
+            stale = (torch.arange(k.shape[1], device=k.device)[None, :]
+                     >= kw["kv_length"][:, None])[..., None, None]
+            kc.masked_fill_(stale, float("nan"))
+            vc.masked_fill_(stale, float("nan"))
+        caches.append((kc, vc, kc[:, :keys].repeat_interleave(G, 2)
+                       .transpose(1, 2), vc[:, :keys].repeat_interleave(G, 2)
+                       .transpose(1, 2), kc[:, :keys].transpose(1, 2),
+                       vc[:, :keys].transpose(1, 2)))
+    turn = [0]
+
+    def nxt():
+        turn[0] = (turn[0] + 1) % len(caches)
+        return caches[turn[0]]
+
+    def kern():
+        kc, vc = nxt()[:2]
+        return fa.flash_attention(q, kc, vc, **kw)
+
+    def lib():
+        return sdpa(qt, *nxt()[2:4])
+
+    def lib_gqa():
+        return sdpa(qt, *nxt()[4:6], enable_gqa=True)
+
+    out.update({
+        "ms_cold": cuda_ms(torch, kern, reps),
+        "device_ms_cold": device_ms(torch, kern, calls),
+        "library_ms_cold": cuda_ms(torch, lib, reps),
+        "library_device_ms_cold": device_ms(torch, lib, calls),
+        "library_gqa_device_ms_cold": (device_ms(torch, lib_gqa, calls)
+                                       if gqa else None),
+    })
+    return out
 
 
 def _matmul_cases(cfg):
@@ -1707,7 +1830,7 @@ def main() -> None:
             "launches": dense_launches["flash_attention"][i],
             **{k: flash[shape][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}}
+                "library_ms") + FLASH_READINGS if k in flash[shape]}}
            for i, shape in enumerate(("prefill", "decode"))]
         + [kernel_entry(part_rows, f"trim_matmul_{lane}_{part}",
                         part_rows[0]["launches"], source=MATMUL_SOURCE,

@@ -11,16 +11,37 @@
 // gives 0. The softmax statistics (m, l) and the accumulator are fp32; the
 // output is rounded once to q's dtype.
 //
-// Two lanes:
-// - bf16: tensor cores through mma.sync m16n8k16 (bf16 x bf16 -> fp32).
-//   A block of 4 warps owns 64 flattened rows (16 per warp) of one (b, h):
-//   the G q heads of a KV head share every K/V tile. The warp's Q
-//   fragments stay in registers for the whole sweep; K/V tiles of 64 keys
-//   are staged in shared memory by cp.async, two stages deep, so the next
-//   tile's load overlaps this one's products. S = Q K^T stays in
-//   registers, is masked and exponentiated there, and P is rounded to bf16
-//   in registers as the A operand of P V (the C fragment of S is the A
-//   fragment of P): the one rounding this lane adds beyond the output's.
+// Three kernels, chosen by dtype and shape:
+// - bf16, more than kSplitRows flattened rows (prefill): warpgroup MMA.
+//   A block owns 192 rows (D = 64) or 128 rows (D = 128) of one (b, h): a
+//   producer warpgroup, cut to 24 registers by setmaxnreg, whose one
+//   thread brings 128-key K and V tiles in by TMA (one CUtensorMap each
+//   over (D, Sk, H, B) with the caller's strides, 128-byte swizzle) into a
+//   ring of 3 (2) stages with mbarrier full/empty pairs; and three (two)
+//   consumer warpgroups of 64 rows (16 positions x G = 4: the G q heads of
+//   a KV head share every tile), raised to 160 (240) registers, the most
+//   the 65536 of an SM allow. Each loads its Q once
+//   into shared memory (the same swizzle), then per tile S = Q K^T is
+//   wgmma m64n128k16 with both operands in shared memory, the softmax runs
+//   on S in registers (exp2 with scale * log2(e) folded into one FFMA; the
+//   mask only on tiles that cross the causal diagonal or n_valid), and
+//   O += P V is wgmma with P (rounded to bf16: the one rounding this lane
+//   adds beyond the output's) in registers and V read MN-major (the
+//   transpose bit). Blocks start with the longest (last) row tiles.
+// - bf16, at most kSplitRows rows (decode): split over the keys in one
+//   launch (flash-decoding). Blocks (split, h, b); a split is whole
+//   kSplitTile-key tiles, planned on the host from B, H, the rows and Sk
+//   alone (flash_attention.py:decode_splits). In a block each of 4 warps
+//   streams 32-key sub-tiles round robin through its own 2-stage cp.async
+//   ring (keys past the split or n_valid zero-filled, never read), with
+//   the mma.sync m16n8k16 inner loop on its 16-row fragment; the warps'
+//   (m, l, acc) merge in shared memory, the block writes its fp32 partial
+//   to the caller's scratch, and the block that arrives last at its
+//   (b, h)'s counter merges every split in split order (the log-sum-exp
+//   merge of src/repro/nn/decode_attn.py:128-132; the same bits every
+//   call) and resets the counter to 0. The counters are the wrapper's,
+//   one buffer per stream: two launches in flight at once must not share
+//   one.
 // - fp32: IEEE on the CUDA cores (no TF32). A block of 128 threads owns 32
 //   rows, 4 threads per row, each holding a quarter of the row's q and of
 //   its accumulator; a score is the quad's partial dots summed by two
@@ -32,19 +53,27 @@
 //   scratch across its sequential kv grid axis; a CUDA block loops).
 // - Tiles that causality or kv_length mask whole are never loaded: the key
 //   loop ends at min(Sk, kv_length[b], q_offset + last row's s + 1) (the
-//   Pallas kernel's pl.when skip). Keys of the last tile past
-//   min(Sk, kv_length[b]) are zero-filled, never read: a stale or
-//   uninitialised KV cache past the length never reaches the sum.
+//   Pallas kernel's pl.when skip). A stale or uninitialised KV cache past
+//   the length never reaches the sum: its scores are selected to -inf,
+//   and its V rows are zero-filled (cp.async) or, in the one TMA tile that
+//   holds n_valid, zeroed in shared memory before P V (0 x NaN is NaN).
 // - q, k, v are read in place through their strides (a view of the q
 //   projection, a KV cache of S_max rows): no transpose to (B, H, S, D), no
-//   repeat of the KV heads, no padding copy for ragged Sq or Sk.
+//   repeat of the KV heads, no padding copy for ragged Sq or Sk (TMA
+//   zero-fills rows past Sk).
 //
 // What bounds it: at the prefill shape (Sq = Sk = 4096, D = 64, G = 4)
 // 4 Sq Sk D H G / 2 operations (causal) against (|q| + |k| + |v| + |out|)
-// bytes: far above the ridge, so bound by bf16 tensor-core operations. At
-// decode (Sq = 1) 4 G D operations per key against 4 D bytes read per key:
-// bound by the bytes of the K/V cache read.
+// bytes: far above the ridge, so bound by bf16 tensor-core operations; at
+// D = 64 one exp2 per score costs the MUFU unit as much time as the
+// score's 256 tensor-core operations, which the consumer warpgroups
+// overlap with each other's products (a third warpgroup at D = 64 hides
+// more of each one's serial product-softmax-product chain). At decode
+// (Sq = 1) 4 G D operations per key against 4 D bytes read per key: bound
+// by the bytes of the K/V cache read, so the split puts enough blocks in
+// flight to fill the card.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,10 +82,19 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
-constexpr int kBM = 64;       // bf16 lane: flattened rows per block
-constexpr int kBN = 64;       // bf16 lane: keys per tile
 constexpr int kF32Rows = 32;  // fp32 lane: rows per block (4 threads each)
 constexpr int kF32Keys = 32;  // fp32 lane: keys per tile
+// bf16 prefill: keys per K/V tile; the least rows per block (two consumer
+// warpgroups of 64, at D = 128; PfSmem<D> gives each head dim's)
+constexpr int kPfKeys = 128;
+constexpr int kPfRows = 128;
+// bf16 split decode: rows (one mma.sync fragment), the split's unit in
+// keys, a warp's sub-tile in keys, warps, stages of a warp's ring
+constexpr int kSplitRows = 16;
+constexpr int kSplitTile = 64;
+constexpr int kSubKeys = 32;
+constexpr int kSplitWarps = kThreads / 32;
+constexpr int kSplitStages = 2;
 
 struct FlashArgs {
   const void* q;
@@ -70,6 +108,13 @@ struct FlashArgs {
   long long vsb, vss, vsh;
   float scale;
   int causal;
+};
+
+struct SplitArgs {
+  float* scratch;  // (B, H, n_split, M, D + 2): acc, m, l; null if n_split 1
+  int* counters;   // (B, H) arrivals, 0 between launches
+  int n_split;
+  int split_tiles;  // kSplitTile-key tiles per split
 };
 
 // Keys [0, n_valid) of batch row b exist and are within kv_length.
@@ -101,7 +146,7 @@ __device__ __forceinline__ bool visible(const FlashArgs& a, long long key,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 lane: mma.sync
+// PTX helpers
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -122,6 +167,10 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -155,66 +204,521 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&t);
 }
 
+// 2^x on the MUFU unit (-inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that never
+// ends (a lost arrival) traps, so a fault fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Box (64 of D, kPfKeys keys, 1, 1) at (d0, key0, h, b) into shared memory
+// at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int d0, int key0,
+                                            int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(key0), "r"(h), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving an accumulator across wgmma issue/wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units). K-major tiles are rows of 64
+// bf16 (128 bytes), 8-row atoms of 1024 bytes (the stride); an MN-major
+// tile steps 1024 bytes per 8 rows of K and `lbo` bytes per 64 of MN.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 128, fp32) = A (64 x 16) B (16 x 128) [+ d when scale_d], bf16 in:
+// A and B from shared memory, both K-major (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 in registers) B (16 x 64): B from
+// shared memory, MN-major (the transpose bit set; descriptor db).
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 in registers) B (16 x 128): B from
+// shared memory, MN-major (the transpose bit set; descriptor db).
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <uint32_t R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <uint32_t R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 prefill: wgmma, TMA, a producer warpgroup and two consumers
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of the prefill block, in bytes from a 1024-byte
+// aligned base: each consumer warpgroup's Q (64 rows), then the ring of
+// kStages (K tile, V tile) pairs, then the full and empty mbarriers. A
+// tile is D / 64 column blocks of 64 bf16 x rows, each row 128 bytes in
+// the 128-byte swizzle (what TMA writes and wgmma reads).
 template <int D>
-struct Bf16Smem {
-  static constexpr int kLd = D + 8;         // padded row: conflict-free ldmatrix
-  static constexpr int kTile = kBN * kLd;   // elements of one K or V tile
-  static constexpr int kBytes = 2 * 2 * kTile * 2;  // 2 stages x (K, V)
+struct PfSmem {
+  // consumer warpgroups of 64 rows, rows and threads per block (with the
+  // producer warpgroup), registers of a consumer thread after setmaxnreg
+  // (the producer keeps 24: 128 x 24 + 128 kWGs x kRegs <= 65536)
+  static constexpr int kWGs = D == 64 ? 3 : 2;
+  static constexpr int kRows = 64 * kWGs;
+  static constexpr int kThreads = 128 * (kWGs + 1);
+  static constexpr int kRegs = kWGs == 3 ? 160 : 240;
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQBlk = 64 * 128;        // a Q column block
+  static constexpr int kBlk = kPfKeys * 128;    // a K or V column block
+  static constexpr int kWgQ = (D / 64) * kQBlk;  // one warpgroup's Q
+  static constexpr int kTile = (D / 64) * kBlk;  // one K or V tile
+  static constexpr int kRing = kWGs * kWgQ;
+  static constexpr int kBar = kRing + kStages * 2 * kTile;
+  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;  // + alignment
 };
 
-// Keys [key0, key0 + kBN) of K and V into one stage; rows past n_valid are
-// zero-filled and never read from device memory.
 template <int D>
-__device__ __forceinline__ void load_tile_bf16(
-    __nv_bfloat16* ks, __nv_bfloat16* vs, const __nv_bfloat16* kb,
-    const __nv_bfloat16* vb, const FlashArgs& a, long long key0,
-    long long n_valid) {
-  constexpr int kLd = Bf16Smem<D>::kLd;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBN * kChunks; i += kThreads) {
+__global__ void __launch_bounds__(PfSmem<D>::kThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const FlashArgs a, const int B) {
+  using L = PfSmem<D>;
+  constexpr int kDB = D / 64;  // 64-column blocks of the head dim
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_addr(sm);
+  const uint32_t full0 = sbase + L::kBar;  // full[st] at full0 + 8 st
+  const uint32_t empty0 = full0 + 8 * L::kStages;
+
+  // Block -> (row tile, b, h), the last (longest, when causal) row tiles
+  // of every (b, h) first.
+  const long long M = a.Sq * a.G;
+  const long long BH = static_cast<long long>(B) * a.H;
+  const long long n_rt = (M + L::kRows - 1) / L::kRows;
+  const long long bid = blockIdx.x;
+  const long long r0 = (n_rt - 1 - bid / BH) * L::kRows;
+  const long long b = (bid % BH) / a.H;
+  const long long h = bid % a.H;
+  const int n_valid = static_cast<int>(valid_keys(a, b));
+  const int n_keys = static_cast<int>(loop_keys(a, n_valid, r0, L::kRows));
+  const int n_tiles = (n_keys + kPfKeys - 1) / kPfKeys;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 4 * L::kWGs);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: one thread keeps the ring full, kStages tiles ahead.
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % L::kStages;
+        mbar_wait(empty0 + 8 * st, ((j / L::kStages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * st;
+        mbar_arrive_expect_tx(full, 2 * L::kTile);
+        const uint32_t ks = sbase + L::kRing + st * 2 * L::kTile;
+#pragma unroll
+        for (int db = 0; db < kDB; ++db) {
+          tma_load_4d(ks + db * L::kBlk, &k_map, full, db * 64, j * kPfKeys,
+                      static_cast<int>(h), static_cast<int>(b));
+          tma_load_4d(ks + L::kTile + db * L::kBlk, &v_map, full, db * 64,
+                      j * kPfKeys, static_cast<int>(h), static_cast<int>(b));
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows [r0 + 64 wg, r0 + 64 wg + 64).
+  regs_inc<L::kRegs>();
+  const int ct = threadIdx.x - 128;
+  const int wg = ct / 128;
+  const int warp = (ct % 128) / 32;
+  const int lane = ct % 32;
+  const int g8 = lane >> 2;  // accumulator row within 8
+  const int t4 = lane & 3;   // accumulator column pair
+  const long long wr0 = r0 + wg * 64;
+  const uint32_t qs = sbase + wg * L::kWgQ;
+  {
+    // Q into shared memory once, in the tiles' swizzle; rows past M are 0.
+    constexpr int kChunks = D / 8;  // 16-byte chunks per row
+    const __nv_bfloat16* qb =
+        static_cast<const __nv_bfloat16*>(a.q) + b * a.qsb + h * a.qsh;
+    for (int i = ct % 128; i < 64 * kChunks; i += 128) {
+      const int r = i / kChunks;
+      const int c = i % kChunks;
+      const long long row = wr0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row < M)
+        val = *reinterpret_cast<const uint4*>(qb + (row / a.G) * a.qss +
+                                              (row % a.G) * a.qsg + c * 8);
+      *reinterpret_cast<uint4*>(sm + wg * L::kWgQ + (c / 8) * L::kQBlk +
+                                r * 128 + (((c % 8) ^ (r & 7)) << 4)) = val;
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
+
+  // This thread's two rows (g8, g8 + 8 of its warp's 16): the last key
+  // each sees when causal; the warpgroup's first row's, for the tiles that
+  // need no causal mask.
+  long long row[2];
+  int last[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = wr0 + warp * 16 + g8 + 8 * i;
+    last[i] = static_cast<int>(a.q_offset + row[i] / a.G);
+  }
+  const int first_last = static_cast<int>(a.q_offset + wr0 / a.G);
+  const int Sk = static_cast<int>(a.Sk);
+  const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
+
+  float o[D / 2];  // o[4 j + 2 i + c]: row i, column 8 j + 2 t4 + c
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // in units of log2
+  float l_run[2] = {0.0f, 0.0f};  // this thread's share; summed at the end
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % L::kStages;
+    mbar_wait(full0 + 8 * st, (j / L::kStages) & 1);
+    const uint32_t ks = sbase + L::kRing + st * 2 * L::kTile;
+    const uint32_t vs = ks + L::kTile;
+    const int key0 = j * kPfKeys;
+    if (key0 + kPfKeys > n_valid && n_valid < Sk) {
+      // The tile holding n_valid: TMA zero-fills only past Sk, and V rows
+      // in [n_valid, Sk) may hold anything (a cache past kv_length). The
+      // consumer warpgroups zero them together before any one's P V.
+      unsigned char* vg = sm + L::kRing + st * 2 * L::kTile + L::kTile;
+      for (int i = ct; i < kPfKeys * kDB * 8; i += 128 * L::kWGs) {
+        const int r = i / (kDB * 8);
+        const int c = i % (kDB * 8);
+        if (key0 + r >= n_valid)
+          *reinterpret_cast<uint4*>(vg + (c / 8) * L::kBlk + r * 128 +
+                                    (c % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_proxy_async();
+      named_barrier(1 + L::kWGs, 128 * L::kWGs);
+    }
+
+    // S = Q K^T (64 x 128, fp32): s[4 n + 2 i + c] is row i, key 8 n +
+    // 2 t4 + c of the tile.
+    float s[kPfKeys / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n128(
+          s, sw128_desc(qs + (kk / 4) * L::kQBlk + (kk % 4) * 32, 16),
+          sw128_desc(ks + (kk / 4) * L::kBlk + (kk % 4) * 32, 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+
+    // Mask only the tiles that cross n_valid or the causal diagonal.
+    if (key0 + kPfKeys > n_valid ||
+        (a.causal && key0 + kPfKeys - 1 > first_last)) {
+#pragma unroll
+      for (int n = 0; n < kPfKeys / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = key0 + n * 8 + t4 * 2 + (c & 1);
+          if (key >= n_valid || (a.causal && key > last[c >> 1]))
+            s[4 * n + c] = -INFINITY;
+        }
+    }
+
+    // Online softmax in units of log2: p = 2^(s sl2 - m).
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kPfKeys / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[4 * n + c]);
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i] * sl2);
+      mu[i] = m_new == -INFINITY ? 0.0f : m_new;  // a row with no key yet
+      alpha[i] = ex2(m_run[i] - mu[i]);
+      m_run[i] = m_new;
+    }
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < kPfKeys / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[4 * n + c] = ex2(fmaf(s[4 * n + c], sl2, -mu[c >> 1]));
+        rs[c >> 1] += s[4 * n + c];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+
+    // O += P V: P rounded to bf16 in registers (the accumulator layout of
+    // S is the A-fragment layout of P), 16 keys per wgmma.
+    uint32_t p[kPfKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kPfKeys / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    wgmma_fence();
+    pin(o);
+#pragma unroll
+    for (int kk = 0; kk < kPfKeys / 16; ++kk) {
+      const uint64_t dv = sw128_desc(vs + kk * 16 * 128, L::kBlk);
+      if constexpr (D == 64)
+        wgmma_rs_m64n64(o, p[kk], dv);
+      else
+        wgmma_rs_m64n128(o, p[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * st);  // the stage is free
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (row[i] >= M) continue;
+    const float den = fmaxf(l, 1e-20f);
+    __nv_bfloat16* dst =
+        out +
+        (((b * a.Sq + row[i] / a.G) * a.H + h) * a.G + row[i] % a.G) * D +
+        t4 * 2;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+      *reinterpret_cast<__nv_bfloat162*>(dst + jd * 8) = __floats2bfloat162_rn(
+          o[4 * jd + 2 * i] / den, o[4 * jd + 2 * i + 1] / den);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 decode: split over the keys, mma.sync, merged in the same launch
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct SplitSmem {
+  static constexpr int kLd = D + 8;  // padded row: conflict-free ldmatrix
+  static constexpr int kTile = kSubKeys * kLd;  // elements of a K or V sub-tile
+  static constexpr int kWarp = kSplitStages * 2 * kTile;  // a warp's ring
+  static constexpr int kRing = kSplitWarps * kWarp * 2;   // bytes
+  // after the loop: every warp's (m, l) and acc for the 16 rows, fp32
+  static constexpr int kMerge = kSplitWarps * kSplitRows * (D + 2) * 4;
+  static constexpr int kBytes = kRing > kMerge ? kRing : kMerge;
+};
+
+// Keys [key0, key0 + kSubKeys) of K and V into a warp's stage; keys at or
+// past `end` are zero-filled and never read from device memory.
+template <int D>
+__device__ __forceinline__ void load_sub(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                         const __nv_bfloat16* kb,
+                                         const __nv_bfloat16* vb,
+                                         const FlashArgs& a, int key0, int end,
+                                         int lane) {
+  constexpr int kLd = SplitSmem<D>::kLd;
+  constexpr int kChunks = D / 8;
+  for (int i = lane; i < kSubKeys * kChunks; i += 32) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
-    const long long key = key0 + r;
-    const bool ok = key < n_valid;
-    const long long kk = ok ? key : 0;
-    cp_async16(ks + r * kLd + c, kb + kk * a.kss + c, ok);
-    cp_async16(vs + r * kLd + c, vb + kk * a.vss + c, ok);
+    const bool ok = key0 + r < end;
+    const long long key = ok ? key0 + r : 0;
+    cp_async16(ks + r * kLd + c, kb + key * a.kss + c, ok);
+    cp_async16(vs + r * kLd + c, vb + key * a.vss + c, ok);
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_bf16_kernel(const FlashArgs a) {
-  constexpr int kLd = Bf16Smem<D>::kLd;
-  constexpr int kTile = Bf16Smem<D>::kTile;
+flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
+  constexpr int kLd = SplitSmem<D>::kLd;
+  constexpr int kTile = SplitSmem<D>::kTile;
   constexpr int kKc = D / 16;  // 16-wide slices of the head dim
   constexpr int kDn = D / 8;   // 8-wide output column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __shared__ int merging;
 
-  const long long b = blockIdx.z;
+  const int split = blockIdx.x;
   const long long h = blockIdx.y;
-  const long long M = a.Sq * a.G;
-  const long long r0 = static_cast<long long>(blockIdx.x) * kBM;
+  const long long b = blockIdx.z;
+  const int M = static_cast<int>(a.Sq * a.G);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g8 = lane >> 2;  // fragment row within 8
   const int t4 = lane & 3;   // fragment column pair
-  const bool warp_active = r0 + warp * 16 < M;
 
-  // This thread's two rows (A: g8, B: g8 + 8 of the warp's 16).
-  long long row[2], pos[2], grp[2], last[2];
+  // This thread's two rows (g8, g8 + 8): every warp holds all 16.
+  int last[2];
   bool row_ok[2];
+  long long pos[2], grp[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    row[i] = r0 + warp * 16 + g8 + 8 * i;
-    row_ok[i] = row[i] < M;
-    pos[i] = row_ok[i] ? row[i] / a.G : 0;
-    grp[i] = row_ok[i] ? row[i] % a.G : 0;
-    last[i] = a.q_offset + pos[i];
+    const int row = g8 + 8 * i;
+    row_ok[i] = row < M;
+    pos[i] = row_ok[i] ? row / a.G : 0;
+    grp[i] = row_ok[i] ? row % a.G : 0;
+    last[i] = static_cast<int>(a.q_offset + pos[i]);
   }
-
-  // The warp's Q fragments, resident for the whole sweep.
   const __nv_bfloat16* qb =
       static_cast<const __nv_bfloat16*>(a.q) + b * a.qsb + h * a.qsh;
   uint32_t qf[kKc][4];
@@ -230,135 +734,214 @@ flash_attention_bf16_kernel(const FlashArgs a) {
     }
   }
 
+  // The split's keys [lo, hi), cut at the loop's end; this warp's
+  // sub-tiles are warp, warp + kSplitWarps, ...
   const long long n_valid = valid_keys(a, b);
-  const long long n_keys = loop_keys(a, n_valid, r0, kBM);
-  const long long n_tiles = (n_keys + kBN - 1) / kBN;
+  const int n_keys = static_cast<int>(loop_keys(a, n_valid, 0, kSplitRows));
+  const int lo = split * sp.split_tiles * kSplitTile;
+  const int hi = min(lo + sp.split_tiles * kSplitTile, n_keys);
+  const int n_sub = hi > lo ? (hi - lo + kSubKeys - 1) / kSubKeys : 0;
+  const int mine =
+      n_sub > warp ? (n_sub - warp + kSplitWarps - 1) / kSplitWarps : 0;
   const __nv_bfloat16* kb =
       static_cast<const __nv_bfloat16*>(a.k) + b * a.ksb + h * a.ksh;
   const __nv_bfloat16* vb =
       static_cast<const __nv_bfloat16*>(a.v) + b * a.vsb + h * a.vsh;
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw) + warp * SplitSmem<D>::kWarp;
+  const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
 
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.0f, 0.0f};  // this thread's share; summed at the end
+  float m_run[2] = {-INFINITY, -INFINITY};  // in units of log2
+  float l_run[2] = {0.0f, 0.0f};  // this thread's share; summed below
   float o[kDn][4];
 #pragma unroll
   for (int dn = 0; dn < kDn; ++dn)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[dn][c] = 0.0f;
 
-  if (n_tiles > 0) load_tile_bf16<D>(smem, smem + kTile, kb, vb, a, 0, n_valid);
+  if (mine > 0)
+    load_sub<D>(ring, ring + kTile, kb, vb, a, lo + warp * kSubKeys, hi, lane);
   cp_async_commit();
   const int mi = lane >> 3;  // ldmatrix: the matrix this lane addresses
   const int rr = lane & 7;   // ... and its row
-  for (long long j = 0; j < n_tiles; ++j) {
-    const int st = static_cast<int>(j & 1);
-    if (j + 1 < n_tiles)
-      load_tile_bf16<D>(smem + (2 * (st ^ 1)) * kTile,
-                        smem + (2 * (st ^ 1) + 1) * kTile, kb, vb, a,
-                        (j + 1) * kBN, n_valid);
+  for (int it = 0; it < mine; ++it) {
+    const int st = it & 1;
+    if (it + 1 < mine) {
+      __nv_bfloat16* nx = ring + (st ^ 1) * 2 * kTile;
+      load_sub<D>(nx, nx + kTile, kb, vb, a,
+                  lo + (warp + (it + 1) * kSplitWarps) * kSubKeys, hi, lane);
+    }
     cp_async_commit();
-    cp_async_wait_one();  // tile j has landed (tile j + 1 may be in flight)
-    __syncthreads();
-    if (warp_active) {
-      const __nv_bfloat16* ks = smem + (2 * st) * kTile;
-      const __nv_bfloat16* vs = smem + (2 * st + 1) * kTile;
-      const long long key0 = j * kBN;
+    cp_async_wait_one();  // sub-tile it has landed
+    __syncwarp();
+    const __nv_bfloat16* ks = ring + st * 2 * kTile;
+    const __nv_bfloat16* vs = ks + kTile;
+    const int key0 = lo + (warp + it * kSplitWarps) * kSubKeys;
 
-      // S = Q K^T: 8 column tiles of 8 keys.
-      float s[kBN / 8][4];
+    // S = Q K^T: 4 column tiles of 8 keys.
+    float s[kSubKeys / 8][4];
 #pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
+    for (int nt = 0; nt < kSubKeys / 8; ++nt) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[nt][c] = 0.0f;
+      for (int c = 0; c < 4; ++c) s[nt][c] = 0.0f;
 #pragma unroll
-        for (int kc = 0; kc < kKc; kc += 2) {
-          uint32_t kf[4];
-          ldmatrix_x4(kf, ks + (nt * 8 + rr) * kLd + kc * 16 + mi * 8);
-          mma_bf16(s[nt], qf[kc], kf[0], kf[1]);
-          mma_bf16(s[nt], qf[kc + 1], kf[2], kf[3]);
-        }
-      }
-
-      // Mask, scale and the running max.
-      float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = c >> 1;
-          const long long key = key0 + nt * 8 + t4 * 2 + (c & 1);
-          s[nt][c] = visible(a, key, n_valid, last[i]) ? s[nt][c] * a.scale
-                                                       : kNegInf;
-          mx[i] = fmaxf(mx[i], s[nt][c]);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        alpha[i] = expf(m_run[i] - mx[i]);
-        m_run[i] = mx[i];
-      }
-
-      // P = exp(S - m), zero where masked; l and acc rescaled.
-      float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = c >> 1;
-          const long long key = key0 + nt * 8 + t4 * 2 + (c & 1);
-          s[nt][c] = visible(a, key, n_valid, last[i])
-                         ? expf(s[nt][c] - mx[i])
-                         : 0.0f;
-          rs[i] += s[nt][c];
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
-#pragma unroll
-      for (int dn = 0; dn < kDn; ++dn) {
-        o[dn][0] *= alpha[0];
-        o[dn][1] *= alpha[0];
-        o[dn][2] *= alpha[1];
-        o[dn][3] *= alpha[1];
-      }
-
-      // acc += P V: P (bf16) from registers, V^T fragments by ldmatrix.trans.
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dn = 0; dn < kDn; dn += 2) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(
-              vf, vs + (kk * 16 + (mi & 1) * 8 + rr) * kLd + dn * 8 +
-                      (mi >> 1) * 8);
-          mma_bf16(o[dn], pa, vf[0], vf[1]);
-          mma_bf16(o[dn + 1], pa, vf[2], vf[3]);
-        }
+      for (int kc = 0; kc < kKc; kc += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, ks + (nt * 8 + rr) * kLd + kc * 16 + mi * 8);
+        mma_bf16(s[nt], qf[kc], kf[0], kf[1]);
+        mma_bf16(s[nt], qf[kc + 1], kf[2], kf[3]);
       }
     }
-    __syncthreads();  // every warp is done with stage st before it refills
-  }
-
-  if (!warp_active) return;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+    // Mask only the sub-tiles that cross hi or the first row's diagonal.
+    if (key0 + kSubKeys > hi ||
+        (a.causal && key0 + kSubKeys - 1 > a.q_offset)) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    if (!row_ok[i]) continue;
-    const float den = fmaxf(l_run[i], 1e-20f);
-    __nv_bfloat16* dst =
-        out + (((b * a.Sq + pos[i]) * a.H + h) * a.G + grp[i]) * D + t4 * 2;
+      for (int nt = 0; nt < kSubKeys / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = key0 + nt * 8 + t4 * 2 + (c & 1);
+          if (key >= hi || (a.causal && key > last[c >> 1]))
+            s[nt][c] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kSubKeys / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[nt][c]);
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i] * sl2);
+      mu[i] = m_new == -INFINITY ? 0.0f : m_new;
+      alpha[i] = ex2(m_run[i] - mu[i]);
+      m_run[i] = m_new;
+    }
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < kSubKeys / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[nt][c] = ex2(fmaf(s[nt][c], sl2, -mu[c >> 1]));
+        rs[c >> 1] += s[nt][c];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
 #pragma unroll
     for (int dn = 0; dn < kDn; ++dn)
-      *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8) = __floats2bfloat162_rn(
-          o[dn][2 * i] / den, o[dn][2 * i + 1] / den);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[dn][c] *= alpha[c >> 1];
+
+    // acc += P V: P (bf16) from registers, V^T fragments by ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < kSubKeys / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < kDn; dn += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vs + (kk * 16 + (mi & 1) * 8 + rr) * kLd +
+                                  dn * 8 + (mi >> 1) * 8);
+        mma_bf16(o[dn], pa, vf[0], vf[1]);
+        mma_bf16(o[dn + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncwarp();  // the stage is read before the next load refills it
   }
+  cp_async_wait_all();
+
+  // The warps' partials into shared memory (over the rings: every warp is
+  // done with its own), m at -1e30 where a row saw no key.
+  __syncthreads();
+  float* wm = reinterpret_cast<float*>(smem_raw);
+  float* wl = wm + kSplitWarps * kSplitRows;
+  float* wo = wl + kSplitWarps * kSplitRows;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int wr = warp * kSplitRows + g8 + 8 * i;
+    if (t4 == 0) {
+      wm[wr] = m_run[i] == -INFINITY ? kNegInf : m_run[i];
+      wl[wr] = l;
+    }
+#pragma unroll
+    for (int dn = 0; dn < kDn; ++dn) {
+      wo[wr * D + dn * 8 + 2 * t4] = o[dn][2 * i];
+      wo[wr * D + dn * 8 + 2 * t4 + 1] = o[dn][2 * i + 1];
+    }
+  }
+  __syncthreads();
+
+  // The block's partial, warp by warp in order; with one split it is the
+  // output.
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  const long long bh = b * a.H + h;
+  const int rec = D + 2;  // a partial row: acc[D], m, l
+  float* part = sp.n_split == 1 ? nullptr
+                                : sp.scratch + (bh * sp.n_split + split) *
+                                                   static_cast<long long>(M) *
+                                                   rec;
+  for (int e = threadIdx.x; e < M * D; e += kThreads) {
+    const int r = e / D;
+    const int d = e % D;
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w)
+      mb = fmaxf(mb, wm[w * kSplitRows + r]);
+    float lb = 0.0f, ob = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float wt = ex2(wm[w * kSplitRows + r] - mb);
+      lb += wl[w * kSplitRows + r] * wt;
+      ob += wo[(w * kSplitRows + r) * D + d] * wt;
+    }
+    if (sp.n_split == 1) {
+      out[(((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D + d] =
+          __float2bfloat16_rn(ob / fmaxf(lb, 1e-20f));
+    } else {
+      part[r * rec + d] = ob;
+      if (d == 0) {
+        part[r * rec + D] = mb;
+        part[r * rec + D + 1] = lb;
+      }
+    }
+  }
+  if (sp.n_split == 1) return;
+
+  // The last block of (b, h) to arrive merges every split, in split order.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    merging = atomicAdd(sp.counters + bh, 1) == sp.n_split - 1;
+  __syncthreads();
+  if (!merging) return;
+  __threadfence();
+  const float* parts =
+      sp.scratch + bh * sp.n_split * static_cast<long long>(M) * rec;
+  for (int e = threadIdx.x; e < M * D; e += kThreads) {
+    const int r = e / D;
+    const int d = e % D;
+    float mg = kNegInf;
+    for (int q = 0; q < sp.n_split; ++q)
+      mg = fmaxf(mg, __ldcg(parts + (static_cast<long long>(q) * M + r) *
+                                        rec + D));
+    float lg = 0.0f, og = 0.0f;
+    for (int q = 0; q < sp.n_split; ++q) {
+      const float* pr = parts + (static_cast<long long>(q) * M + r) * rec;
+      const float wt = ex2(__ldcg(pr + D) - mg);
+      lg += __ldcg(pr + D + 1) * wt;
+      og += __ldcg(pr + d) * wt;
+    }
+    out[(((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D + d] =
+        __float2bfloat16_rn(og / fmaxf(lg, 1e-20f));
+  }
+  if (threadIdx.x == 0) sp.counters[bh] = 0;  // ready for the next launch
 }
 
 // ---------------------------------------------------------------------------
@@ -476,16 +1059,95 @@ flash_attention_f32_kernel(const FlashArgs a) {
                     acc[4 * i + 2] / den, acc[4 * i + 3] / den);
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded: no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a k or v (B, Sk, H, D) bf16 tensor with element strides
+// (sb, ss, sh, 1), as (D, Sk, H, B), boxes of 64 x kPfKeys in the 128-byte
+// swizzle; rows past Sk read as zeros. Returns a cudaError_t.
+int encode_kv(CUtensorMap* map, const void* base, int D, long long B,
+              long long Sk, long long H, long long sb, long long ss,
+              long long sh) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(Sk > 0 ? Sk : 1),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                           static_cast<cuuint64_t>(sh) * 2,
+                           static_cast<cuuint64_t>(sb) * 2};
+  for (int i = 0; i < 3; ++i)  // never stepped (extent 1): any legal value
+    if (strides[i] == 0)
+      strides[i] = i == 0 ? dims[0] * 2 : strides[i - 1] * dims[i];
+  const cuuint32_t box[4] = {64, kPfKeys, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+         dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int D>
-int launch_bf16(const FlashArgs& a, long long B, cudaStream_t stream) {
-  constexpr int kBytes = Bf16Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<D>,
+int launch_prefill(const FlashArgs& a, long long B, cudaStream_t stream) {
+  CUtensorMap k_map, v_map;
+  int rc = encode_kv(&k_map, a.k, D, B, a.Sk, a.H, a.ksb, a.kss, a.ksh);
+  if (rc != 0) return rc;
+  rc = encode_kv(&v_map, a.v, D, B, a.Sk, a.H, a.vsb, a.vss, a.vsh);
+  if (rc != 0) return rc;
+  constexpr int kBytes = PfSmem<D>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kRows = PfSmem<D>::kRows;
+  const long long blocks = (a.Sq * a.G + kRows - 1) / kRows * B * a.H;
+  flash_prefill_kernel<D><<<static_cast<unsigned>(blocks),
+                            PfSmem<D>::kThreads, kBytes,
+                            stream>>>(k_map, v_map, a, static_cast<int>(B));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_split(const FlashArgs& a, const SplitArgs& sp, long long B,
+                 cudaStream_t stream) {
+  constexpr int kBytes = SplitSmem<D>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_decode_split_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((a.Sq * a.G + kBM - 1) / kBM),
+  const dim3 grid(static_cast<unsigned>(sp.n_split),
                   static_cast<unsigned>(a.H), static_cast<unsigned>(B));
-  flash_attention_bf16_kernel<D><<<grid, kThreads, kBytes, stream>>>(a);
+  flash_decode_split_kernel<D><<<grid, kThreads, kBytes, stream>>>(a, sp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -498,13 +1160,17 @@ int launch_f32(const FlashArgs& a, long long B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
 }  // namespace
 
 extern "C" {
 
-// Tiles the wrapper validates against: rows per block of each lane.
-int flash_attention_bf16_tile() { return kBM; }
+// Tiles the wrapper validates against: rows per block of each lane, and
+// the split path's rows and key unit.
+int flash_attention_bf16_tile() { return kPfRows; }
 int flash_attention_f32_tile() { return kF32Rows; }
+int flash_attention_split_rows() { return kSplitRows; }
+int flash_attention_split_tile() { return kSplitTile; }
 
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -514,15 +1180,19 @@ const char* flash_attention_error_string(int code) {
 // (B, Sk, H, D) with strides (ksb, kss, ksh, 1) and (vsb, vss, vsh, 1);
 // out (B, Sq, H, G, D) contiguous in q's dtype; kv_length (B,) int32 or
 // null. bf16 != 0 selects bfloat16, else fp32; D is 64 or 128. Every base
-// and stride is 16-byte aligned (the wrapper checks). Returns the launch's
-// cudaError_t.
+// and stride is 16-byte aligned (the wrapper checks). In bf16, n_split > 0
+// takes the split path (Sq G <= kSplitRows) with n_split splits of
+// split_tiles kSplitTile-key tiles, fp32 scratch (B, H, n_split, Sq G,
+// D + 2) (null when n_split is 1) and (B, H) int32 counters at 0; else the
+// prefill path. Returns the launch's cudaError_t.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     const void* kv_length, int bf16, int causal, int D,
                     long long B, long long Sq, long long Sk, long long H,
                     long long G, long long q_offset, long long qsb,
                     long long qss, long long qsh, long long qsg, long long ksb,
                     long long kss, long long ksh, long long vsb, long long vss,
-                    long long vsh, float scale, void* stream) {
+                    long long vsh, void* scratch, void* counters, int n_split,
+                    int split_tiles, float scale, void* stream) {
   FlashArgs a;
   a.q = q;
   a.k = k;
@@ -547,9 +1217,20 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   a.scale = scale;
   a.causal = causal;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (D == 64) return launch_bf16<64>(a, B, s);
-    if (D == 128) return launch_bf16<128>(a, B, s);
+  if (bf16 && n_split > 0) {
+    if (Sq * G > kSplitRows || counters == nullptr ||
+        (n_split > 1 && scratch == nullptr) || split_tiles < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    SplitArgs sp;
+    sp.scratch = static_cast<float*>(scratch);
+    sp.counters = static_cast<int*>(counters);
+    sp.n_split = n_split;
+    sp.split_tiles = split_tiles;
+    if (D == 64) return launch_split<64>(a, sp, B, s);
+    if (D == 128) return launch_split<128>(a, sp, B, s);
+  } else if (bf16) {
+    if (D == 64) return launch_prefill<64>(a, B, s);
+    if (D == 128) return launch_prefill<128>(a, B, s);
   } else {
     if (D == 64) return launch_f32<64>(a, B, s);
     if (D == 128) return launch_f32<128>(a, B, s);

@@ -21,6 +21,14 @@ of device memory and what bounds it.
   module (``flash_attention.py:135``) on its (B, H, S, D) layout; its
   causal mask is aligned to the end (``k <= q + Sk - Sq``).
 
+- :func:`decode_splits` is the bf16 lane's plan for a call of at most
+  :data:`SPLIT_ROWS` flattened rows (decode): the keys cut into splits
+  of whole :data:`SPLIT_TILE`-key tiles, from B, H, the rows and Sk
+  alone (never ``kv_length``, which lies on the device).
+  :func:`flash_attention_split_plain` runs that plan in plain PyTorch:
+  :func:`split_partials` per split, then :func:`merge_partials`, the
+  log-sum-exp merge of ``repro/nn/decode_attn.py:128-132``.
+
 Layout: q (B, Sq, H, G, D) with H the KV heads and G the q heads that
 share each; k, v (B, Sk, H, D); the output is (B, Sq, H, G, D) in q's
 dtype.  Key ``c`` is visible to query row ``r`` iff ``c < kv_length[b]``
@@ -29,7 +37,7 @@ and, when causal, ``c <= q_offset + r``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,13 +50,26 @@ NEG_INF = -1e30
 LAUNCHES = 0
 
 #: Head dims the kernel is compiled for, and its tiles: flattened (query
-#: position, q head) rows and keys per tile, per dtype.
+#: position, q head) rows and keys per tile, per dtype (bf16: the
+#: warpgroup path's 128-key tiles and its least block, 128 rows at D = 128;
+#: 192 at D = 64).
 HEAD_DIMS = (64, 128)
-TILES = {torch.bfloat16: (64, 64), torch.float32: (32, 32)}
+TILES = {torch.bfloat16: (128, 128), torch.float32: (32, 32)}
+#: The bf16 lane splits the keys of a call of at most SPLIT_ROWS rows
+#: (one mma.sync row fragment: decode) into splits of whole SPLIT_TILE-key
+#: tiles, enough for SPLIT_BLOCKS blocks (two per SM of an H100's 132).
+SPLIT_ROWS = 16
+SPLIT_TILE = 64
+SPLIT_BLOCKS = 2 * 132
 
 _LIB_NAME = "flash_attention"
 _SOURCES = ("flash_attention.cu",)
 _BOUND: set = set()
+#: (device index, stream) -> the split path's int32 arrival counters, one
+#: per (b, h); zeroed once, and left at zero by every launch's merging
+#: block.  One buffer per stream: two calls in flight on two streams
+#: never share a counter.
+_COUNTERS: dict = {}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -153,6 +174,103 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def decode_splits(B: int, H: int, rows: int, Sk: int) -> Tuple[int, int]:
+    """The split path's plan: ``(n_split, split_tiles)``, the keys [0, Sk)
+    cut into ``n_split`` splits of ``split_tiles`` whole SPLIT_TILE-key
+    tiles (the last split ends at Sk), so that the grid of
+    B x H x row tiles x n_split blocks holds at least SPLIT_BLOCKS, or
+    one tile a split where there are fewer tiles; none is empty.  It
+    reads shapes only: ``kv_length`` lies on the device, and reading it
+    would wait for the device once per layer and step."""
+    n_tiles = -(-Sk // SPLIT_TILE)
+    if n_tiles == 0:
+        return 1, 1
+    row_tiles = max(1, -(-rows // SPLIT_ROWS))
+    want = min(n_tiles, max(1, -(-SPLIT_BLOCKS // (B * H * row_tiles))))
+    per = n_tiles // want
+    return -(-n_tiles // per), per
+
+
+def split_ranges(B: int, H: int, rows: int, Sk: int) -> List[Tuple[int, int]]:
+    """:func:`decode_splits` as key ranges ``[lo, hi)``, in split order."""
+    n_split, per = decode_splits(B, H, rows, Sk)
+    span = per * SPLIT_TILE
+    return [(i * span, min((i + 1) * span, Sk)) for i in range(n_split)]
+
+
+def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   lo: int, hi: int, *, causal: bool, q_offset: int = 0,
+                   kv_length: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One split's partial softmax over keys [lo, hi), in fp32: the
+    unnormalised output (B, Sq, H, G, D), the row max m and the row sum l
+    (B, Sq, H, G), as ``repro/nn/decode_attn.py:_local_flash_decode``
+    computes them (masked scores at NEG_INF, masked p at 0).  A split
+    with no visible key gives m = NEG_INF, l = 0 and a zero output."""
+    _check(q, k, v, kv_length)
+    B, Sq, H, G, D = q.shape
+    dev = q.device
+    kc, vc = k[:, lo:hi].float(), v[:, lo:hi].float()
+    cols = lo + torch.arange(kc.shape[1], device=dev)
+    if cols.numel() == 0:
+        return (torch.zeros(q.shape, dtype=torch.float32, device=dev),
+                torch.full((B, Sq, H, G), NEG_INF, device=dev),
+                torch.zeros((B, Sq, H, G), device=dev))
+    s = torch.einsum("bqhgd,bkhd->bqhgk", q.float(), kc) * D ** -0.5
+    mask = torch.ones((B, Sq, cols.numel()), dtype=torch.bool, device=dev)
+    if causal:
+        rows = q_offset + torch.arange(Sq, device=dev)
+        mask &= (cols[None, :] <= rows[:, None])[None]
+    if kv_length is not None:
+        mask &= (cols[None, :] < kv_length.to(dev)[:, None])[:, None]
+    mask = mask[:, :, None, None]                          # (B,Sq,1,1,ck)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    return torch.einsum("bqhgk,bkhd->bqhgd", p, vc), m, p.sum(dim=-1)
+
+
+def merge_partials(parts: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]]) -> torch.Tensor:
+    """The log-sum-exp merge of ``repro/nn/decode_attn.py:128-132`` over
+    ``(o, m, l)`` partials, in their order: fp32 (B, Sq, H, G, D)."""
+    m_g = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    l_g = torch.zeros_like(m_g)
+    o_g = torch.zeros_like(parts[0][0])
+    for o, m, l in parts:
+        w = torch.exp(m - m_g)
+        l_g = l_g + l * w
+        o_g = o_g + o * w[..., None]
+    return o_g / torch.clamp(l_g, min=1e-20)[..., None]
+
+
+def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool,
+                                q_offset: int = 0,
+                                kv_length: Optional[torch.Tensor] = None,
+                                ) -> torch.Tensor:
+    """The split path in plain PyTorch: :func:`split_partials` over each
+    range of :func:`split_ranges`, then :func:`merge_partials`; the
+    output in q's dtype."""
+    B, Sq, H, G, _ = q.shape
+    parts = [split_partials(q, k, v, lo, hi, causal=causal,
+                            q_offset=q_offset, kv_length=kv_length)
+             for lo, hi in split_ranges(B, H, Sq * G, k.shape[1])]
+    return merge_partials(parts).to(q.dtype)
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The split path's arrival counters for ``stream``: at least ``n``
+    int32 zeros, allocated once (and again only to grow)."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its ctypes
     signatures declared; returns it."""
@@ -163,14 +281,18 @@ def load_library() -> ctypes.CDLL:
             [p, p, p, p, p, i, i, i]          # q k v out kv_length bf16 causal D
             + [ll] * 6                        # B Sq Sk H G q_offset
             + [ll] * 4 + [ll] * 3 + [ll] * 3  # q, k, v strides (b, s, h[, g])
+            + [p, p, i, i]                    # scratch counters n_split tiles
             + [ctypes.c_float, p])            # scale, stream
         lib.flash_attention.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        for fn in ("flash_attention_bf16_tile", "flash_attention_f32_tile"):
+        consts = ("flash_attention_bf16_tile", "flash_attention_f32_tile",
+                  "flash_attention_split_rows", "flash_attention_split_tile")
+        for fn in consts:
             getattr(lib, fn).restype = i
-        if (lib.flash_attention_bf16_tile(), lib.flash_attention_f32_tile()) \
-                != (TILES[torch.bfloat16][0], TILES[torch.float32][0]):
+        if tuple(getattr(lib, fn)() for fn in consts) != (
+                TILES[torch.bfloat16][0], TILES[torch.float32][0],
+                SPLIT_ROWS, SPLIT_TILE):
             raise RuntimeError("flash_attention library constants differ "
                                "from the wrapper's")
         _BOUND.add(lib)
@@ -186,12 +308,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G, D) in q's dtype (fp32 or bf16 in; fp32 softmax and accumulator).
 
     A CPU ``q`` runs :func:`flash_attention_plain`.  A CUDA ``q`` launches
-    the kernel on the current stream, or raises: q, k and v in one dtype,
-    D in :data:`HEAD_DIMS`, the head dim contiguous, every other stride and
-    every base 16-byte aligned (strided views such as a slice of a KV cache
-    are read in place).  ``chunk_k`` and ``block_causal`` choose how the
-    plain version walks the keys; the kernel walks tiles of its own and
-    always skips the tiles that causality or ``kv_length`` mask whole.
+    the kernel on the current stream, once, or raises: q, k and v in one
+    dtype, D in :data:`HEAD_DIMS`, the head dim contiguous, every other
+    stride and every base 16-byte aligned (strided views such as a slice
+    of a KV cache are read in place; in bf16 no k/v stride is 0 over more
+    than one element, since their tiles come in by TMA).  In bf16, a call
+    of at most :data:`SPLIT_ROWS` rows (Sq x G: decode) splits the keys as
+    :func:`decode_splits` plans, its fp32 partials in a ``torch.empty``
+    scratch merged by the launch's last block; others take the
+    warpgroup path.  ``chunk_k`` and ``block_causal`` choose how the plain
+    version walks the keys; the kernel walks tiles of its own and always
+    skips the tiles that causality or ``kv_length`` mask whole.
     """
     global LAUNCHES
     if q.device.type == "cpu":
@@ -224,23 +351,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kv_length.device != q.device:
             raise ValueError(f"kv_length must be on {q.device}")
         kv_length = kv_length.to(torch.int32).contiguous()
+    bf16 = q.dtype == torch.bfloat16
     rows = TILES[q.dtype][0]
-    if H > 65535 or B > 65535 or -(-Sq * G // rows) > 2 ** 31 - 1:
+    if H > 65535 or B > 65535 \
+            or -(-Sq * G // rows) * (B * H if bf16 else 1) > 2 ** 31 - 1:
         raise ValueError(f"batch {B} / heads {H} / rows {Sq * G} exceed the "
                          "launch grid")
+    if bf16:
+        if Sk + TILES[q.dtype][1] >= 2 ** 31 \
+                or not -2 ** 30 < int(q_offset) < 2 ** 30 - Sq:
+            raise ValueError(f"Sk {Sk} / q_offset {q_offset}: the bf16 lane "
+                             "indexes keys in 32 bits")
+        for name, t in (("k", k), ("v", v)):
+            if any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape)):
+                raise ValueError(f"{name}'s strides {t.stride()}: the bf16 "
+                                 "lane loads k/v tiles by TMA, which needs "
+                                 "no zero stride")
     out = torch.empty((B, Sq, H, G, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        n_split, tiles, scratch, counters = 0, 0, None, None
+        if bf16 and Sq * G <= SPLIT_ROWS:
+            n_split, tiles = decode_splits(B, H, Sq * G, Sk)
+            counters = _counters(q.device, stream, B * H).data_ptr()
+            if n_split > 1:
+                scratch = torch.empty(B * H * n_split * Sq * G * (D + 2),
+                                      dtype=torch.float32, device=q.device)
         rc = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kv_length.data_ptr() if kv_length is not None else None,
-            int(q.dtype == torch.bfloat16), int(causal), D,
+            int(bf16), int(causal), D,
             B, Sq, Sk, H, G, int(q_offset),
             *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
-            D ** -0.5, stream)
+            None if scratch is None else scratch.data_ptr(), counters,
+            n_split, tiles, D ** -0.5, stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "

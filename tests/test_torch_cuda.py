@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on a card: the
 TrIM conv kernel, the weight-gradient kernel, the autograd Function that
 runs both, the causal conv1d kernel (bit for bit), the flash-attention
-kernel (fp32 within 2e-5, bf16 within 2e-2), the matmul kernel (int8 bit
+kernel (fp32 within 2e-5, bf16 within 2e-2 and per row within 4 x 2^-7 of
+the row's max|plain|, on both bf16 paths; its split decode bit-equal over
+two calls), the matmul kernel (int8 bit
 for bit, fp32 within 1e-4, bf16 within 2 ulps of each row's largest
 output) and the SSD scan kernel (fp32 within 2e-5, bf16 within 5e-2).
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.engine import ExecutionPolicy
 from repro_torch.engine.policy import fp32_ieee
+from repro_torch.kernels import flash_attention as fa_plan
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import trim_conv2d as port_conv
 from repro_torch.kernels.requant import scale_to_mult_shift
@@ -278,7 +281,13 @@ def test_conv1d_kernel_offsets_past_2_31_on_card():
 # (B, Sq, Sk, H, G, D, causal, q_offset, kv_length): the chip phase's cases
 # at small size: Sq == Sk causal and not, ragged Sq and Sk against the
 # tiles, GQA G = 4, Sq < Sk with q_offset, a per-row kv_length with a row
-# at 0, decode (Sq = 1) over a longer cache, and D = 128
+# at 0, decode (Sq = 1) over a longer cache, and D = 128.  Then the bf16
+# lane's two paths: warpgroup prefill (Sq G > 16 rows) with Sq G not a
+# multiple of its 128-row block and kv_length inside a 128-key tile (NaN
+# past it in the same tile, causal and not, D 64 and 128); split decode
+# (Sq G <= 16) over an Sk that is a multiple of no split, with rows at
+# kv_length 0 and 1, with every split past kv_length empty, with several
+# causal positions, and at D = 128
 FLASH_CASES = [
     (2, 64, 64, 3, 1, 64, True, 0, None),
     (1, 33, 33, 2, 1, 64, True, 0, None),
@@ -290,9 +299,32 @@ FLASH_CASES = [
     (3, 16, 16, 2, 4, 64, False, 0, (16, 0, 9)),
     (3, 1, 200, 2, 4, 64, False, 0, (129, 0, 200)),
     (2, 1, 300, 2, 4, 128, False, 0, (257, 3)),
+    (1, 300, 300, 2, 4, 64, True, 0, None),
+    (2, 200, 300, 2, 4, 64, False, 0, (250, 131)),
+    (2, 150, 300, 1, 4, 64, True, 100, (200, 260)),
+    (1, 160, 400, 2, 4, 128, False, 0, (333,)),
+    (2, 300, 300, 1, 4, 128, True, 0, (300, 77)),
+    (2, 1, 1000, 2, 4, 64, False, 0, (1000, 700)),
+    (2, 1, 300, 2, 4, 64, False, 0, (0, 1)),
+    (2, 1, 4128, 2, 4, 64, False, 0, (100, 65)),
+    (1, 4, 600, 2, 4, 64, True, 596, None),
+    (2, 16, 16, 2, 1, 64, True, 0, None),
+    (2, 1, 1000, 2, 4, 128, False, 0, (999, 64)),
 ]
 FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+#: the bf16 lane's row check (``chip_smoke.py``'s): max|kernel - plain|
+#: over a row within BF16_ROW_ULPS x 2^-7 x the row's max|plain|
+BF16_ROW_ULPS = 4
+
+
+def _row_ulps(got, want):
+    """max|got - want| over each row in units of 2^-7 x the row's
+    max|want| (2^-7 x is one to two bf16 ulps of the row's largest)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    unit = want.float().abs().amax(-1) * 2.0 ** -7
+    return float(torch.where(unit > 0, err / unit.clamp_min(1e-30),
+                             torch.where(err > 0, float("inf"), 0.0)).max())
 
 
 def _flash_id(c):
@@ -345,8 +377,43 @@ def test_flash_kernel_matches_plain_on_card(case, dtype):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(),
                                **FLASH_TOL[dtype])
+    if dtype == "bfloat16":
+        assert _row_ulps(got, want) <= BF16_ROW_ULPS
     if kvl is not None and 0 in kvl:
         assert float(got[list(kvl).index(0)].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", [c for c in FLASH_CASES if c[1] * c[4] <= fa_plan.SPLIT_ROWS
+             and fa_plan.decode_splits(c[0], c[3], c[1] * c[4], c[2])[0] > 1],
+    ids=_flash_id)
+def test_flash_split_decode_is_bit_equal_over_calls_on_card(case):
+    """On a card: the bf16 split decode run twice gives the same bits (the
+    merge walks the splits in order, whichever block arrives last), one
+    launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, Sk, H, G, D, causal, off, kvl = case
+    gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        _flash_id(case).encode()))
+    q = torch.randn((B, Sq, H, G, D), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    length = None if kvl is None else torch.tensor(kvl, dtype=torch.int32,
+                                                   device="cuda")
+    before = fa.LAUNCHES
+    first = fa.flash_attention(q, k, v, causal=causal, q_offset=off,
+                               kv_length=length)
+    second = fa.flash_attention(q, k, v, causal=causal, q_offset=off,
+                                kv_length=length)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 2
+    assert torch.equal(first, second)
+    assert torch.equal(first, fa.flash_attention(
+        q, k, v, causal=causal, q_offset=off, kv_length=length))
 
 
 @pytest.mark.gpu
@@ -370,6 +437,9 @@ def test_flash_kernel_refuses_what_it_does_not_take_on_card():
     kt = torch.zeros((1, 4, 64, 2), device=dev).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous head dim"):
         fa.flash_attention(q, kt, kt, causal=True)
+    kz = torch.zeros((1, 1, 2, 64), device=dev).bfloat16().expand(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="zero stride"):
+        fa.flash_attention(q.bfloat16(), kz, kz, causal=True)
 
 
 # (M, K, N): M from 1 (decode-shaped), ragged M/K/N against the 128 x 128
@@ -379,15 +449,6 @@ MATMUL_CASES = [
     (1, 1, 1), (7, 13, 5), (64, 96, 48), (200, 120, 150), (33, 7, 129),
     (129, 65, 257), (130, 1024, 144), (4, 2048, 1024), (300, 1000, 200),
 ]
-
-
-def _row_ulps(got, want):
-    """max|got - want| over each row in units of 2^-7 x the row's
-    max|want| (2^-7 x is one to two bf16 ulps of the row's largest)."""
-    err = (got.float() - want.float()).abs().amax(-1)
-    unit = want.float().abs().amax(-1) * 2.0 ** -7
-    return float(torch.where(unit > 0, err / unit.clamp_min(1e-30),
-                             torch.where(err > 0, float("inf"), 0.0)).max())
 
 
 @pytest.mark.gpu
