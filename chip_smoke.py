@@ -13,15 +13,22 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: compile the six CUDA kernel libraries (the TrIM conv, its
    weight gradient, the causal conv1d, flash attention, the matmul and
    the SSD scan) from the sources in the checkout (``repro_torch/csrc``),
-   one ``nvcc`` each, started together, and load them;
+   one ``nvcc`` each, started together, and load them; log every
+   kernel's registers and spills, and the conv kernel's per path (fp32
+   K=3 and K=5 slide, generic, split merge; u8s8);
 3. kernels: the TrIM conv kernel against its plain PyTorch version on the
-   card, at the 13 VGG-16 conv shapes (batch 1) on the float lane
-   (bias+ReLU) and the int8 lane (ReLU+requant; ReLU into raw int32 on
-   the last layer), plus AlexNet CL1 (K=11, S=4, p=0) and CL2 (K=5,
-   groups=2).  Float within rtol 1e-4 / atol 1e-4 * max|plain|, int8 bit
-   for bit.  Per shape: kernel ms, plain ms, ``F.conv2d`` ms (cuDNN,
-   TF32 off, float shapes only, a yardstick the port never calls) and the
-   bound max(operations / peak, bytes / 3.35 TB/s);
+   card, at the 13 VGG-16 conv shapes on the float lane (bias+ReLU) at
+   batch 1 and at the train phase's batch 8 (image 0 of the batch also
+   bit-equal to the image alone) and the int8 lane (ReLU+requant; ReLU
+   into raw int32 on the last layer) at batch 1, plus AlexNet CL1 (K=11,
+   S=4, p=0) and CL2 (K=5, groups=2).  Float within rtol 1e-4 / atol
+   1e-4 * max|plain|, int8 bit for bit.  Per shape: kernel ms, plain ms,
+   ``F.conv2d`` ms (cuDNN, TF32 off, float shapes only, a yardstick the
+   port never calls) and the bound max(operations / peak, bytes / 3.35
+   TB/s), on the float lane also the kernel's device time under
+   ``torch.profiler`` and the host's issue time a call (at batch 1 the
+   small shapes' event times read the host); per lane and batch, the
+   sums over the 13 VGG-16 convs;
 3b. backward kernels: at the same 15 shapes, at batch 1 and at the train
    phase's batch 8 (TF32 off), dw from the weight-gradient kernel against
    its plain per-tap version and dx from ``trim_conv2d_input_grad`` (the
@@ -31,7 +38,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``conv2d_weight`` / ``conv2d_input`` ms (yardsticks the port never
    calls), the bound and ms / bound, and for dw the host's issue time a
    call (where it is not below the kernel's ms, that reading measures
-   the host); per batch, the sums of dw over the 13 VGG-16 convs; once,
+   the host); per batch, the sums of dw over the 13 VGG-16 convs and of
+   dx over the 12 the train step computes (CL2-CL13); once,
    the weight-gradient kernel's registers and spills from its
    ``-Xptxas -v`` build log;
 3c. conv1d kernel: the causal depthwise conv1d kernel against its plain
@@ -98,7 +106,9 @@ Phases (any failure exits non-zero and prints no result line):
    loss within rtol 1e-4 of the oracle's, every grad_norm and later loss
    within rtol 1e-3.
    A free-running oracle run from the same init is logged beside it; ms
-   per step and images/s;
+   per step and images/s; one more step under ``torch.profiler``: device
+   busy time and idle share, split by op (conv forward, dx, dw, the rest
+   of the conv backward, pools, FC head, AdamW, other) and by our kernel;
 7. LM serve: full-width mamba2-130m (24 layers, d_model 768, vocab
    50280, bf16, seed-0 random weights) through the functions of
    ``repro_torch.launch.serve``: one prefill of 4 x 4096 tokens, then 31
@@ -244,6 +254,44 @@ def phase_build():
         for line in (_build.build_log(name, sources) or "").splitlines():
             if "registers" in line or "spill" in line.lower():
                 log(f"ptxas {name}: {line.strip()}")
+    _log_conv_build()
+
+
+def _ptxas_by_entry(log_text: str, entries: dict) -> dict:
+    """{label: "N registers ...; spills ..."} for each kernel entry of a
+    ``-Xptxas -v`` build log whose mangled name holds a key of
+    ``entries`` (key -> label)."""
+    lines = log_text.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        label = next((v for k, v in entries.items() if k in line), None)
+        if label is not None:
+            out[label] = " ".join(
+                x.split("ptxas info    :")[-1].strip()
+                for x in lines[i + 1:i + 4]
+                if "registers" in x or "spill" in x)
+    return out
+
+
+def _log_conv_build() -> None:
+    """The conv kernel's registers and spills per path from its
+    ``-Xptxas -v`` build log (the fp32 paths are built for two blocks an
+    SM: at most 128 registers a thread)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import trim_conv2d as kern
+
+    entries = {"trim_conv2d_f32_kernelILi3E": "fp32 K=3 slide",
+               "trim_conv2d_f32_kernelILi5E": "fp32 K=5 slide",
+               "trim_conv2d_f32_kernelILi0E": "fp32 generic",
+               "trim_conv2d_f32_merge": "fp32 split merge",
+               "trim_conv2d_kernelIhaiiE": "u8s8 int32 out",
+               "trim_conv2d_kernelIhaihE": "u8s8 uint8 out"}
+    found = _ptxas_by_entry(
+        _build.build_log(kern._LIB_NAME, kern._SOURCES) or "", entries)
+    for label in entries.values():
+        log(f"conv kernel, {label} path: {found.get(label, 'not in the log')}")
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -294,6 +342,10 @@ def device_ms(torch, fn, calls: int):
     return total / 1e3 / calls if total > 0 else None
 
 
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def bound(macs: int, nbytes: int, integer: bool, peak: float = 0.0) -> dict:
     """The least time for one call: operations over the peak rate (int8,
     fp32 or ``peak``) and bytes (each input read once, each output
@@ -307,8 +359,6 @@ def bound(macs: int, nbytes: int, integer: bool, peak: float = 0.0) -> dict:
 
 
 def phase_kernels(torch, reps: int):
-    import torch.nn.functional as F
-
     from repro_torch.core.model import VGG16_LAYERS
     from repro_torch.engine import ExecutionPolicy
     from repro_torch.kernels import ops, ref
@@ -326,36 +376,7 @@ def phase_kernels(torch, reps: int):
         H_O, W_O = l.H_O, l.W_O
         macs = H_O * W_O * Fo * K * K * Cg
         last = arch == "vgg16" and i == len(VGG16_LAYERS) - 1
-        # -- float lane: bias + ReLU -----------------------------------
-        x = torch.randn((1, l.H_I, l.W_I, C), generator=gen, device=dev)
-        w = torch.randn((K, K, Cg, Fo), generator=gen, device=dev) \
-            * (2.0 / (K * K * Cg)) ** 0.5
-        b = torch.randn((Fo,), generator=gen, device=dev) * 0.1
-
-        def run(pol, x=x, w=w, b=b):
-            return ops.trim_conv2d(x, w, b, stride=S, padding=p,
-                                   groups=groups, relu=True, policy=pol)
-
-        got, want = run(kernel_pol), run(oracle_pol)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        if got.shape != want.shape or not torch.allclose(
-                got, want, rtol=1e-4, atol=1e-4 * scale):
-            fail(f"{arch} {l.name} float: max|kernel-plain| = {err:.3g} "
-                 f"(max|plain| {scale:.3g})")
-        x_nchw = x.permute(0, 3, 1, 2)          # channels-last view
-        w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        nbytes = 4 * (x.numel() + w.numel() + b.numel() + got.numel())
-        rows.append({
-            "arch": arch, "layer": l.name, "lane": "f32",
-            "epilogue": "bias+relu", "launches": groups,
-            "ms": cuda_ms(torch, lambda: run(kernel_pol), reps),
-            "plain_ms": cuda_ms(torch, lambda: run(oracle_pol), reps),
-            "library_ms": cuda_ms(torch, lambda: F.conv2d(
-                x_nchw, w_oihw, b, stride=S, padding=p, groups=groups),
-                reps),
-            "max_abs_err": err, **bound(macs, nbytes, integer=False)})
+        rows.append(_f32_row(torch, gen, arch, l, groups, 1, reps))
         # -- int8 lane: ReLU + per-channel requant (raw int32 last) ------
         xq = torch.randint(0, 256, (1, l.H_I, l.W_I, C), generator=gen,
                            device=dev, dtype=torch.uint8)
@@ -382,7 +403,7 @@ def phase_kernels(torch, reps: int):
         nbytes = (xq.numel() + wq.numel() + got.numel() * got.element_size()
                   + (0 if rq is None else 8 * Fo))
         rows.append({
-            "arch": arch, "layer": l.name, "lane": "u8s8",
+            "arch": arch, "layer": l.name, "lane": "u8s8", "batch": 1,
             "epilogue": "relu" if last else "relu+requant",
             "launches": groups,
             "ms": cuda_ms(torch, lambda: runq(kernel_pol), reps),
@@ -390,13 +411,82 @@ def phase_kernels(torch, reps: int):
                                 max(1, reps // 4)),
             "library_ms": None, "max_abs_err": 0.0,
             **bound(macs, nbytes, integer=True)})
+    # the float lane at the train phase's batch (its forward convs)
+    for arch, i, l, groups in _conv_cases():
+        rows.append(_f32_row(torch, gen, arch, l, groups, TRAIN_BATCH, reps))
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"kernel {r['arch']:7s} {r['layer']:4s} {r['lane']:4s} "
-            f"{r['epilogue']:12s} ms {r['ms']:.4f} plain_ms "
+        dev_ms = ("" if "issue_ms" not in r else
+                  f"; device_ms {_fmt(r['device_ms'])} host issue ms "
+                  f"{r['issue_ms']:.4f}")
+        log(f"kernel {r['arch']:7s} {r['layer']:4s} {r['lane']:4s} batch "
+            f"{r['batch']} {r['epilogue']:12s} ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']}) err {r['max_abs_err']:.3g}")
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) err "
+            f"{r['max_abs_err']:.3g}{dev_ms}")
+    for lane, N in (("f32", 1), ("u8s8", 1), ("f32", TRAIN_BATCH)):
+        sel = [r for r in rows if r["lane"] == lane and r["batch"] == N
+               and r["arch"] == "vgg16"]
+        lib = ("null" if sel[0]["library_ms"] is None else
+               f"{sum(r['library_ms'] for r in sel):.4f}")
+        dev_ms = ("" if lane != "f32" or None in [r["device_ms"] for r in sel]
+                  else f" device_ms {sum(r['device_ms'] for r in sel):.4f}")
+        log(f"kernel vgg16 {lane} batch {N}, sum of {len(sel)} convs: ms "
+            f"{sum(r['ms'] for r in sel):.4f}{dev_ms} plain_ms "
+            f"{sum(r['plain_ms'] for r in sel):.4f} library_ms {lib} "
+            f"bound_ms {sum(r['bound_ms'] for r in sel):.4f}")
     return rows
+
+
+def _f32_row(torch, gen, arch, l, groups, N, reps) -> dict:
+    """The float lane (bias + ReLU) at one conv shape and batch ``N``:
+    the kernel against its plain version (rtol 1e-4 / atol 1e-4 *
+    max|plain|; at N > 1 also image 0 bit-equal to a call on it alone),
+    and its timings beside the plain version's, cuDNN's and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.engine import ExecutionPolicy
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    kernel_pol = ExecutionPolicy(substrate="kernel")
+    oracle_pol = ExecutionPolicy(substrate="oracle")
+    C, Cg = l.M * groups, l.M
+    K, Fo, S, p = l.K, l.N, l.stride, l.padding
+    macs = N * l.H_O * l.W_O * Fo * K * K * Cg
+    x = torch.randn((N, l.H_I, l.W_I, C), generator=gen, device=dev)
+    w = torch.randn((K, K, Cg, Fo), generator=gen, device=dev) \
+        * (2.0 / (K * K * Cg)) ** 0.5
+    b = torch.randn((Fo,), generator=gen, device=dev) * 0.1
+
+    def run(pol, x=x):
+        return ops.trim_conv2d(x, w, b, stride=S, padding=p, groups=groups,
+                               relu=True, policy=pol)
+
+    got, want = run(kernel_pol), run(oracle_pol)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if got.shape != want.shape or not torch.allclose(
+            got, want, rtol=1e-4, atol=1e-4 * scale):
+        fail(f"{arch} {l.name} float batch {N}: max|kernel-plain| = "
+             f"{err:.3g} (max|plain| {scale:.3g})")
+    if N > 1 and not torch.equal(got[:1], run(kernel_pol, x[:1])):
+        fail(f"{arch} {l.name} float: image 0 of a batch of {N} differs "
+             "from the same image alone")
+    x_nchw = x.permute(0, 3, 1, 2)          # channels-last view
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    nbytes = 4 * (x.numel() + w.numel() + b.numel() + got.numel())
+    return {
+        "arch": arch, "layer": l.name, "lane": "f32", "batch": N,
+        "epilogue": "bias+relu", "launches": groups,
+        "ms": cuda_ms(torch, lambda: run(kernel_pol), reps),
+        "device_ms": device_ms(torch, lambda: run(kernel_pol), 10),
+        "issue_ms": issue_ms(torch, lambda: run(kernel_pol), reps),
+        "plain_ms": cuda_ms(torch, lambda: run(oracle_pol), reps),
+        "library_ms": cuda_ms(torch, lambda: F.conv2d(
+            x_nchw, w_oihw, b, stride=S, padding=p, groups=groups), reps),
+        "max_abs_err": err, **bound(macs, nbytes, integer=False)}
 
 
 def _conv_cases():
@@ -525,6 +615,13 @@ def phase_backward(torch, reps: int, batches):
         log(f"backward vgg16 dw batch {N}, sum of {len(dws)} convs: ms "
             f"{ms:.4f} bound_ms {bnd:.4f} (bound/ms {bnd / ms:.3f}) "
             f"library_ms {sum(r['library_ms'] for r in dws):.4f}")
+        # the train step's dx: every VGG-16 conv but the first
+        dxs = [r for r in rows if r["kind"] == "dx" and r["batch"] == N
+               and r["arch"] == "vgg16" and r["layer"] != "CL1"]
+        log(f"backward vgg16 dx batch {N}, sum of {len(dxs)} convs (the "
+            f"train step's): ms {sum(r['ms'] for r in dxs):.4f} bound_ms "
+            f"{sum(r['bound_ms'] for r in dxs):.4f} library_ms "
+            f"{sum(r['library_ms'] for r in dxs):.4f}")
     _log_wgrad_build()
     return rows
 
@@ -540,16 +637,9 @@ def _log_wgrad_build() -> None:
              "kernelILb0E": vjp.PATH_SCALAR}
     names = {vjp.PATH_K3: "K=3 taps", vjp.PATH_VEC: "16-byte rows",
              vjp.PATH_SCALAR: "scalar rows"}
-    lines = (_build.build_log(vjp._LIB_NAME, vjp._SOURCES) or "").splitlines()
-    for i, line in enumerate(lines):
-        path = next((p for k, p in paths.items()
-                     if "Compiling entry function" in line and k in line),
-                    None)
-        if path is None:
-            continue
-        info = " ".join(x.split("ptxas info    :")[-1].strip()
-                        for x in lines[i + 1:i + 4]
-                        if "registers" in x or "spill" in x)
+    found = _ptxas_by_entry(
+        _build.build_log(vjp._LIB_NAME, vjp._SOURCES) or "", paths)
+    for path, info in found.items():
         log(f"wgrad kernel, {names[path]} path: {info}; the split assumes "
             f"{vjp.WGRAD_REGS[path]} registers")
 
@@ -704,6 +794,7 @@ def phase_train(torch, steps: int, batch: int, lr: float):
         f"{ms_o:.3f} ms, {batch * 1e3 / ms_o:.3f} images/s; steps 1-"
         f"{steps - 1}); {launches} conv-kernel and {wlaunches} "
         f"weight-gradient launches in {steps} steps")
+    _train_profile(torch, plan, scfg, last, batches[-1], ms)
     for h in got + shadow + free:
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
             fail(f"train: non-finite loss/grad_norm at step {h['step']}: {h}")
@@ -726,6 +817,109 @@ def phase_train(torch, steps: int, batch: int, lr: float):
                 fail(f"train: step {a['step']} {key} {a[key]!r} vs the "
                      f"oracle on the same state {b[key]!r} (rtol {rtol})")
     return launches, wlaunches
+
+
+#: The train profile's parts: (module path, function, label); each
+#: function runs inside a ``record_function`` range of its label while the
+#: step is profiled.
+TRAIN_PARTS = (("repro_torch.engine.execute", "_kernel_call", "conv forward"),
+               ("repro_torch.engine.execute", "max_pool2x2", "pool forward"),
+               ("repro_torch.engine.execute", "_head", "head forward"),
+               ("repro_torch.kernels.trim_conv2d_vjp",
+                "trim_conv2d_input_grad", "dx"),
+               ("repro_torch.kernels.trim_conv2d_vjp", "trim_conv2d_wgrad",
+                "dw"),
+               ("repro_torch.distributed.steps", "adamw_update", "AdamW"))
+
+
+def _train_profile(torch, plan, scfg, state, batch, wall_ms: float) -> None:
+    """Log where one train step's device time goes, by op, under
+    ``torch.profiler``: the conv forward, dx, dw, the rest of the conv
+    backward (ReLU mask, bias gradient, weight flip), the pools and the
+    FC head (forward ranges, and their backward nodes), AdamW, and the
+    rest (loss, casts); set against ``wall_ms``, the unprofiled step."""
+    import importlib
+    import re
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.distributed import make_train_step
+
+    def labelled(fn, name):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    saved = [(importlib.import_module(m), f) for m, f, _ in TRAIN_PARTS]
+    originals = [getattr(m, f) for m, f in saved]
+    step_fn = make_train_step(plan, scfg)
+    step_fn(state, batch)               # warm: nothing is built in the window
+    torch.cuda.synchronize()
+    try:
+        for (m, f), fn, (_, _, name) in zip(saved, originals, TRAIN_PARTS):
+            setattr(m, f, labelled(fn, name))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        for (m, f), fn in zip(saved, originals):
+            setattr(m, f, fn)
+    names = {name for _, _, name in TRAIN_PARTS}
+    node = "autograd::engine::evaluate_function: "
+    # kernels are matched to the range open on the launching thread when
+    # they were launched (the innermost): the profiler's own op tree gives
+    # the conv kernels launched from autograd's thread to its backward node
+    trace_path = ROOT / "build" / "train_profile_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    xs = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+          if e.get("ph") == "X"]
+    device = [e for e in xs
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        log("train profile: the profiler saw no device time (not measured)")
+        return
+    launch = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in xs
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"], e["name"]) for e in xs
+              if e.get("cat") in ("user_annotation", "cpu_op")
+              and (e["name"] in names or e["name"].startswith(node))]
+
+    def part(kernel) -> str:
+        tid, ts = launch.get(kernel.get("args", {}).get("correlation"),
+                             (None, None))
+        if ts is None:
+            return "other"
+        inside = ([r for r in ranges if r[0] == tid and r[1] <= ts <= r[2]]
+                  or [r for r in ranges if r[1] <= ts <= r[2]])
+        if not inside:
+            return "other"
+        name = max(inside, key=lambda r: r[1])[3]
+        if not name.startswith(node):
+            return name
+        if "TrimConv2dFn" in name:
+            return "conv backward rest"
+        return "pool backward" if "Amax" in name else "head and loss backward"
+
+    parts, ours = {}, {}
+    for e in device:
+        ms_ = e["dur"] / 1e3
+        k = part(e)
+        parts[k] = parts.get(k, 0.0) + ms_
+        m = re.search(r"trim_\w+", e["name"])
+        if m:
+            ours[m.group(0)] = ours.get(m.group(0), 0.0) + ms_
+    busy = sum(parts.values())
+    log(f"train profile batch {len(batch['labels'])}: device busy "
+        f"{busy:.3f} ms of {wall_ms:.3f} ms wall (idle share "
+        f"{max(0.0, 1 - busy / wall_ms):.3f}); {len(device)} kernels; by "
+        "op: " + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(
+            parts.items(), key=lambda kv: -kv[1]))
+        + "; our kernels: " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in sorted(ours.items())))
 
 
 def _branch_flips(torch, plan, params, images):
@@ -1811,8 +2005,12 @@ def main() -> None:
     c1 = next(r for r in crows if r["dtype"] == "bfloat16")
     flash = {r["shape"]: r for r in frows if r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": [
-        kernel_entry([r for r in rows if r["lane"] == "f32"],
+        kernel_entry([r for r in rows if r["lane"] == "f32"
+                      and r["batch"] == 1],
                      "trim_conv2d_f32", launches_f32 + train_f32),
+        kernel_entry([r for r in rows if r["lane"] == "f32"
+                      and r["batch"] == TRAIN_BATCH],
+                     f"trim_conv2d_f32_batch{TRAIN_BATCH}", train_f32),
         kernel_entry([r for r in rows if r["lane"] == "u8s8"],
                      "trim_conv2d_u8s8", launches_u8),
         kernel_entry([r for r in brows if r["kind"] == "dw"

@@ -19,8 +19,9 @@ Port of ``repro/kernels/trim_conv2d_vjp.py``.
   ranges the (image, output tile) reduction is cut to fill the card
   (:func:`wgrad_ranges`).
 - :func:`trim_conv2d_input_grad` is dL/dx as a forward TrIM conv at
-  stride 1 (``kernels.trim_conv2d.trim_conv2d``, kernel 1) on the
-  zero-stuffed, padded cotangent and the flipped, transposed weights.
+  stride 1 (``kernels.trim_conv2d.trim_conv2d``, kernel 1) with the
+  flipped, transposed weights: on the cotangent itself at padding K-1-p
+  where the forward stride is 1, else on the zero-stuffed, padded one.
 - :class:`TrimConv2dFn` is the fused conv + bias + ReLU with this
   backward (``make_trim_conv2d_vjp`` at line 223).
 """
@@ -35,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.trim_conv2d import SMEM_MAX, trim_conv2d
+from repro_torch.kernels.trim_conv2d import (SMEM_MAX, fewest_ranges,
+                                             trim_conv2d)
 
 #: Launches of the weight-gradient kernel since the last reset (a plain
 #: counter: callers set it to 0 before a run and read it after).
@@ -120,19 +122,6 @@ def _blocks_per_sm(threads: int, smem: int, path: int) -> int:
                       SM_SMEM // (smem + 1024), 32))
 
 
-def _split(items: int, tiles: int, slots: int, cap: int) -> int:
-    """The fewest ranges that minimise the makespan: waves of ``slots``
-    blocks times the items of the longest range (past two waves' worth of
-    ranges it only grows)."""
-    best = (None, 1)
-    top = min(items, cap, 2 * -(-slots // tiles) + 1)
-    for s in range(1, max(1, top) + 1):
-        span = -(-tiles * s // slots) * -(-items // s)
-        if best[0] is None or span < best[0]:
-            best = (span, s)
-    return best[1]
-
-
 @functools.lru_cache(maxsize=256)
 def wgrad_tile(x_shape: Tuple[int, int, int, int], k: int, f: int, *,
                stride: int, padding: Optional[int]) -> WgradTile:
@@ -207,8 +196,8 @@ def wgrad_tile(x_shape: Tuple[int, int, int, int], k: int, f: int, *,
     n_c, n_f = -(-C // Cb), -(-F // Fb)
     items = N * n_th * n_tw
     slab = K * K * C * F * 4
-    n_split = _split(items, n_c * n_f, WGRAD_SMS * per_sm,
-                     min(65535, WGRAD_WORKSPACE_MAX // slab))
+    n_split = fewest_ranges(items, n_c * n_f, WGRAD_SMS * per_sm,
+                            min(65535, WGRAD_WORKSPACE_MAX // slab))
     return WgradTile(H_O=H_O, W_O=W_O, p=p, TH=TH, TW=TW, n_th=n_th,
                      n_tw=n_tw, path=path, Cb=Cb, Cbp=Cbp, Fb=Fb,
                      n_c=n_c, n_f=n_f, work=work, threads=threads,
@@ -367,18 +356,26 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
                            block_f: int = 32) -> torch.Tensor:
     """dL/dx of the TrIM conv: g (N,H_O,W_O,F), w (K,K,C,F) -> (N,H,W,C).
 
-    The cotangent is zero-stuffed by the stride, padded with K-1-p rows
-    and columns in front and up to H+K-1 in all (cropped in front when
-    p > K-1), and pushed through the forward kernel at stride 1 with the
-    weights flipped and transposed to (K,K,F,C).  Input pixels that no
-    output reads get zero.  ``block_c``/``block_f`` are the forward conv's
-    and swap here.
+    The forward kernel at stride 1 with the weights flipped and transposed
+    to (K,K,F,C).  At stride 1 with p <= K-1 the kernel's own zero fill at
+    padding K-1-p gives exactly H x W outputs from the cotangent as it is.
+    Otherwise the cotangent is zero-stuffed by the stride, padded with
+    K-1-p rows and columns in front and up to H+K-1 in all (cropped in
+    front when p > K-1), and the result cropped to H x W; input pixels that
+    no output reads get zero.  ``block_c``/``block_f`` are the forward
+    conv's and swap here.
     """
     N, H_O, W_O, Fo = g.shape
     K = w.shape[0]
     H, W = int(x_hw[0]), int(x_hw[1])
     S = int(stride)
     p = K // 2 if padding is None else int(padding)
+    w_t = w.flip(0, 1).permute(0, 1, 3, 2).contiguous()      # (K, K, F, C)
+    if S == 1 and p <= K - 1 and (H_O, W_O) == (H + 2 * p - K + 1,
+                                                W + 2 * p - K + 1):
+        return trim_conv2d(g.contiguous(), w_t, stride=1, padding=K - 1 - p,
+                           tile_h=tile_h, tile_w=tile_w, block_c=block_f,
+                           block_f=block_c)
     if S > 1:
         Hd, Wd = (H_O - 1) * S + 1, (W_O - 1) * S + 1
         gd = g.new_zeros((N, Hd, Wd, Fo))
@@ -393,7 +390,6 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
     # (C, W, H) pads: H+K-1 rows in all, so the stride-1 sweep emits >= H
     gd = F.pad(gd, (0, 0, top, max(W + K - 1 - top - Wd, 0),
                     top, max(H + K - 1 - top - Hd, 0))).contiguous()
-    w_t = w.flip(0, 1).permute(0, 1, 3, 2).contiguous()      # (K, K, F, C)
     dx = trim_conv2d(gd, w_t, stride=1, padding=0, tile_h=tile_h,
                      tile_w=tile_w, block_c=block_f, block_f=block_c)
     return dx[:, :H, :W].contiguous()

@@ -93,7 +93,8 @@ def test_wrapper_rejects_bad_epilogues(bad):
 @pytest.mark.parametrize("arch", ["vgg16", "alexnet"])
 def test_tile_geometry_fits_the_card_at_full_width(arch):
     """Every full-width layer plan fits one block's shared memory, covers
-    its output and never tiles past the compiled thread layout."""
+    its output and never tiles past the compiled thread layout: the
+    integer lane's tile (the plan's) and the fp32 lane's own geometry."""
     for lp in plan_model(CNN_REGISTRY[arch], ExecutionPolicy()).layers:
         t = lp.tile
         assert t.TH * t.TW <= kern.PIX_SLOTS and t.Fb <= kern.FILT_TILE
@@ -102,3 +103,14 @@ def test_tile_geometry_fits_the_card_at_full_width(arch):
         assert 1 <= t.Cb <= lp.c_in // lp.groups
         assert t.smem_bytes <= kern.SMEM_BUDGET or t.Cb == 1
         assert t.smem_bytes <= kern.SMEM_MAX
+        f = kern.f32_tile(lp.x_hw, lp.c_in // lp.groups, lp.k,
+                          lp.c_out // lp.groups, stride=lp.stride,
+                          padding=lp.padding)
+        assert (f.H_O, f.W_O) == (t.H_O, t.W_O)
+        assert f.TW % kern.F32_RUN == 0
+        assert f.TH * f.TW // kern.F32_RUN * 8 == kern.F32_THREADS
+        assert f.n_th * f.TH >= f.H_O and f.n_tw * f.TW >= f.W_O
+        assert f.n_f * kern.F32_FB >= lp.c_out // lp.groups
+        assert 1 <= f.Cb <= min(kern.F32_MAX_CB, lp.c_in // lp.groups)
+        assert 1 <= f.n_split <= f.n_chunks
+        assert f.smem_bytes <= kern.SMEM_MAX

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on a card: the
-TrIM conv kernel, the weight-gradient kernel, the autograd Function that
-runs both, the causal conv1d kernel (bit for bit), the flash-attention
+TrIM conv kernel (and each path of its fp32 lane, split and not, the same
+bits over two calls and in a batch of 8 as alone; the input gradient
+through it against ``conv2d_input``), the weight-gradient kernel, the
+autograd Function that runs both, the causal conv1d kernel (bit for bit), the flash-attention
 kernel (fp32 within 2e-5, bf16 within 2e-2 and per row within 4 x 2^-7 of
 the row's max|plain|, on both bf16 paths; its split decode bit-equal over
 two calls), the matmul kernel (int8 bit
@@ -215,6 +217,154 @@ def test_trim_conv2d_fn_grads_on_card(case):
     want = grads("oracle")
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
+
+
+# (N, H, W, C, K, F, stride, padding, path, split): the fp32 lane's paths
+# (3 and 5: that K at stride 1, the window slid in registers; 0: generic)
+# with and without the channel split -- C = 3 with F = 10 (not a multiple
+# of 8) and a ragged W_O of 21; two chunks unsplit; a small split; VGG-16
+# CL11 (512 channels in 32 ranges); AlexNet CL2's group (K = 5); AlexNet
+# CL1's K = 11 at stride 4; K = 1 with F = 70 (scalar weight copies and
+# stores); K = 3 at stride 2.
+F32_CASES = [
+    (1, 20, 21, 3, 3, 10, 1, None, 3, False),
+    (1, 200, 200, 16, 3, 24, 1, 1, 3, False),
+    (2, 14, 14, 64, 3, 64, 1, None, 3, True),
+    (1, 14, 14, 512, 3, 512, 1, 1, 3, True),
+    (2, 27, 27, 48, 5, 128, 1, 2, 5, True),
+    (1, 63, 63, 3, 11, 96, 4, 0, 0, True),
+    (2, 9, 9, 20, 1, 70, 1, 0, 0, False),
+    (1, 30, 30, 64, 3, 32, 2, 1, 0, True),
+]
+
+
+def f32_id(case):
+    N, H, W, C, K, F, S, p, path, split = case
+    return f"N{N}-{H}x{W}x{C}-K{K}-F{F}-S{S}-p{p}"
+
+
+def _f32_inputs(rng, N, H, W, C, K, F, dev):
+    x = rng.standard_normal((N, H, W, C), np.float32)
+    w = rng.standard_normal((K, K, C, F), np.float32) / (K * K * C) ** 0.5
+    b = rng.standard_normal(F, np.float32)
+    return (torch.from_numpy(v).to(dev) for v in (x, w, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F32_CASES, ids=f32_id)
+def test_f32_kernel_paths_match_plain_on_card(case):
+    """On a card: each path of the fp32 lane, split and not, against the
+    plain version within rtol = atol = 1e-4 (outputs of order 1); one
+    launch counted a call; two calls give the same bits (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    fp32_ieee()
+    N, H, W, C, K, F, S, p, path, split = case
+    t = kern.f32_tile((H, W), C, K, F, stride=S, padding=p)
+    assert t.path == path and (t.n_split > 1) == split
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(zlib.crc32(f32_id(case).encode()))
+    x, w, b = _f32_inputs(rng, N, H, W, C, K, F, dev)
+    before = kern.LAUNCHES
+    got = kern.trim_conv2d(x, w, stride=S, padding=p, bias=b, relu=True)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES == before + 1
+    want = kern.trim_conv2d_plain(x, w, stride=S, padding=p, bias=b,
+                                  relu=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, kern.trim_conv2d(x, w, stride=S, padding=p,
+                                             bias=b, relu=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(14, 14, 256, 256), (200, 200, 8, 16)],
+                         ids=["split", "unsplit"])
+def test_f32_kernel_batch_of_8_equals_batch_of_1_on_card(shape):
+    """On a card: image i of a batch-8 call equals a batch-1 call of that
+    image bit for bit, at a split and an unsplit layer: the geometry, and
+    so every output's sum order, does not depend on the batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    H, W, C, F = shape
+    assert (kern.f32_tile((H, W), C, 3, F, stride=1, padding=None).n_split
+            > 1) == (H == 14)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(H * 1000 + C)
+    x, w, b = _f32_inputs(rng, 8, H, W, C, 3, F, dev)
+    batch = kern.trim_conv2d(x, w, bias=b, relu=True)
+    for i in range(8):
+        one = kern.trim_conv2d(x[i:i + 1].contiguous(), w, bias=b, relu=True)
+        assert torch.equal(batch[i:i + 1], one), f"image {i}"
+
+
+# (N, H, W, C, K, F, stride, padding): dx at stride 1 (the kernel's own
+# padding, no padded copy: VGG-like K = 3, p = 0, K = 5) and strided (the
+# stuffed, padded cotangent)
+DX_CASES = [
+    (2, 28, 28, 64, 3, 128, 1, None),
+    (2, 15, 17, 8, 3, 12, 1, 0),
+    (2, 27, 27, 48, 5, 128, 1, 2),
+    (2, 30, 31, 16, 3, 24, 2, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DX_CASES, ids=wgrad_id)
+def test_input_grad_matches_conv2d_input_on_card(case):
+    """On a card: ``trim_conv2d_input_grad`` (the conv kernel on the
+    flipped weights) against ``conv2d_input`` in float64, within rtol
+    1e-4 / atol 1e-4 * max|dx|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from torch.nn.grad import conv2d_input
+
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    fp32_ieee()
+    N, H, W, C, K, F, S, p = case
+    pp = K // 2 if p is None else p
+    H_O, W_O = (H + 2 * pp - K) // S + 1, (W + 2 * pp - K) // S + 1
+    rng = np.random.default_rng(zlib.crc32(wgrad_id(case).encode()))
+    dev = torch.device("cuda")
+    g = torch.from_numpy(rng.standard_normal((N, H_O, W_O, F),
+                                             np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((K, K, C, F),
+                                             np.float32)).to(dev)
+    got = vjp.trim_conv2d_input_grad(g, w, x_hw=(H, W), stride=S, padding=p)
+    want = conv2d_input((N, C, H, W), w.double().permute(3, 2, 0, 1),
+                        g.double().permute(0, 3, 1, 2), stride=S,
+                        padding=pp).permute(0, 2, 3, 1).float()
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+def test_u8s8_lane_bit_exact_at_vgg_width_on_card():
+    """On a card: the u8 x s8 lane at a VGG-16-width layer (28 x 28, 64
+    channels and filters, ReLU + per-channel requant) bit for bit against
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    rng = np.random.default_rng(28)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.integers(0, 256, (2, 28, 28, 64), np.uint8))
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 64, 64), np.int8))
+    psum = ref.conv2d(x, w).numpy()
+    amax = np.maximum(psum.max(axis=(0, 1, 2)), 1).astype(np.float64)
+    m, s = scale_to_mult_shift(255.0 / amax)
+    rq = (torch.as_tensor(m).to(dev), torch.as_tensor(s).to(dev))
+    x, w = x.to(dev), w.to(dev)
+    got = kern.trim_conv2d(x, w, relu=True, requant=rq)
+    want = kern.trim_conv2d_plain(x, w, relu=True, requant=rq)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.uint8 and torch.equal(got, want)
 
 
 # (B, L, D, K): the CPU cases of test_torch_conv1d.py (L < K-1, L == 1,
