@@ -15,20 +15,26 @@ Phases (any failure exits non-zero and prints no result line):
    the SSD scan) from the sources in the checkout (``repro_torch/csrc``),
    one ``nvcc`` each, started together, and load them; log every
    kernel's registers and spills, and the conv kernel's per path (fp32
-   K=3 and K=5 slide, generic, split merge; u8s8);
+   K=3 and K=5 slide, generic, split merge; u8s8 window and gather
+   paths, int32 and uint8 out, and their merges); the count of ``IMMA``
+   (tensor-core integer MMA) instructions in each u8s8 entry's SASS
+   (``cuobjdump -sass`` on the built library), which fails if an entry
+   is missing or has none where the library exports the tensor-core
+   lane's constant ``trim_conv2d_u8_pixels`` (a library without it
+   predates the lane: its count is only logged);
 3. kernels: the TrIM conv kernel against its plain PyTorch version on the
    card, at the 13 VGG-16 conv shapes on the float lane (bias+ReLU) at
    batch 1 and at the train phase's batch 8 (image 0 of the batch also
-   bit-equal to the image alone) and the int8 lane (ReLU+requant; ReLU
-   into raw int32 on the last layer) at batch 1, plus AlexNet CL1 (K=11,
-   S=4, p=0) and CL2 (K=5, groups=2).  Float within rtol 1e-4 / atol
-   1e-4 * max|plain|, int8 bit for bit.  Per shape: kernel ms, plain ms,
-   ``F.conv2d`` ms (cuDNN, TF32 off, float shapes only, a yardstick the
-   port never calls) and the bound max(operations / peak, bytes / 3.35
-   TB/s), on the float lane also the kernel's device time under
-   ``torch.profiler`` and the host's issue time a call (at batch 1 the
-   small shapes' event times read the host); per lane and batch, the
-   sums over the 13 VGG-16 convs;
+   bit-equal to the image alone), plus AlexNet CL1 (K=11, S=4, p=0) and
+   CL2 (K=5, groups=2); the int8 lane (ReLU+requant; ReLU into raw int32
+   on each network's last conv) at every VGG-16 and AlexNet conv at
+   batch 1 and 8.  Float within rtol 1e-4 / atol 1e-4 * max|plain|, int8
+   bit for bit.  Per shape: kernel ms, plain ms, ``F.conv2d`` ms (cuDNN,
+   TF32 off, float shapes only, a yardstick the port never calls) and the
+   bound max(operations / peak, bytes / 3.35 TB/s), the kernel's device
+   time under ``torch.profiler`` and the host's issue time a call (at
+   batch 1 the small shapes' event times read the host); per lane and
+   batch, the sums over the 13 VGG-16 convs;
 3b. backward kernels: at the same 15 shapes, at batch 1 and at the train
    phase's batch 8 (TF32 off), dw from the weight-gradient kernel against
    its plain per-tap version and dx from ``trim_conv2d_input_grad`` (the
@@ -93,7 +99,8 @@ Phases (any failure exits non-zero and prints no result line):
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
-   of every flush launched on the kernel, bucketed == unbatched bit for
+   of every flush launched on the kernel (the launches counted in the run
+   and, around each flush, per bucket), bucketed == unbatched bit for
    bit, logits close to the oracle substrate on the card;
 5. serve int8: the same on the calibrated int8 lane; features bit-equal
    to the oracle substrate on the card;
@@ -275,10 +282,24 @@ def _ptxas_by_entry(log_text: str, entries: dict) -> dict:
     return out
 
 
+#: The u8 x s8 lane's kernel entries: mangled-name fragment -> label.
+U8_ENTRIES = {
+    "trim_conv2d_u8s8_slide_kernelIiE": "u8s8 slide (K=3) int32 out",
+    "trim_conv2d_u8s8_slide_kernelIhE": "u8s8 slide (K=3) uint8 out",
+    "trim_conv2d_u8s8_kernelILi0EiE": "u8s8 window int32 out",
+    "trim_conv2d_u8s8_kernelILi0EhE": "u8s8 window uint8 out",
+    "trim_conv2d_u8s8_kernelILi1EiE": "u8s8 gather int32 out",
+    "trim_conv2d_u8s8_kernelILi1EhE": "u8s8 gather uint8 out"}
+
+
 def _log_conv_build() -> None:
     """The conv kernel's registers and spills per path from its
-    ``-Xptxas -v`` build log (the fp32 paths are built for two blocks an
-    SM: at most 128 registers a thread)."""
+    ``-Xptxas -v`` build log (both lanes are built for two blocks an SM:
+    at most 128 registers a thread), and the ``IMMA`` count of each u8s8
+    entry's SASS; fails where a u8s8 entry is missing or runs no
+    tensor-core MMA in a library that exports the tensor-core lane's
+    constant ``trim_conv2d_u8_pixels`` (an older library's count is only
+    logged)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import trim_conv2d as kern
 
@@ -286,12 +307,34 @@ def _log_conv_build() -> None:
                "trim_conv2d_f32_kernelILi5E": "fp32 K=5 slide",
                "trim_conv2d_f32_kernelILi0E": "fp32 generic",
                "trim_conv2d_f32_merge": "fp32 split merge",
-               "trim_conv2d_kernelIhaiiE": "u8s8 int32 out",
-               "trim_conv2d_kernelIhaihE": "u8s8 uint8 out"}
+               **U8_ENTRIES,
+               "trim_conv2d_u8s8_wprep": "u8s8 weight transposition",
+               "trim_conv2d_u8s8_mergeIiE": "u8s8 split merge int32 out",
+               "trim_conv2d_u8s8_mergeIhE": "u8s8 split merge uint8 out"}
     found = _ptxas_by_entry(
         _build.build_log(kern._LIB_NAME, kern._SOURCES) or "", entries)
     for label in entries.values():
         log(f"conv kernel, {label} path: {found.get(label, 'not in the log')}")
+    cuobjdump = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass",
+         str(_build.library_path(kern._LIB_NAME, kern._SOURCES))],
+        capture_output=True, text=True, timeout=300)
+    imma, name = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            name = next((v for k, v in U8_ENTRIES.items() if k in line), None)
+            if name is not None:
+                imma[name] = 0
+        elif name is not None and "IMMA" in line:
+            imma[name] += 1
+    for label in U8_ENTRIES.values():
+        n = imma.get(label)
+        log(f"conv kernel, {label}: "
+            + ("not in the SASS" if n is None else f"{n} IMMA instructions"))
+        if hasattr(kern.load_library(), "trim_conv2d_u8_pixels") and not n:
+            fail(f"conv kernel {label}: no IMMA in its SASS (cuobjdump rc "
+                 f"{sass.returncode}: {sass.stderr.strip()[:200]})")
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -359,58 +402,15 @@ def bound(macs: int, nbytes: int, integer: bool, peak: float = 0.0) -> dict:
 
 
 def phase_kernels(torch, reps: int):
-    from repro_torch.core.model import VGG16_LAYERS
-    from repro_torch.engine import ExecutionPolicy
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.requant import scale_to_mult_shift
-    from repro_torch.kernels.trim_conv2d import apply_epilogue
-
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernel_pol = ExecutionPolicy(substrate="kernel")
-    oracle_pol = ExecutionPolicy(substrate="oracle")
     rows = []
     for arch, i, l, groups in _conv_cases():
-        C, Cg = l.M * groups, l.M
-        K, Fo, S, p = l.K, l.N, l.stride, l.padding
-        H_O, W_O = l.H_O, l.W_O
-        macs = H_O * W_O * Fo * K * K * Cg
-        last = arch == "vgg16" and i == len(VGG16_LAYERS) - 1
         rows.append(_f32_row(torch, gen, arch, l, groups, 1, reps))
-        # -- int8 lane: ReLU + per-channel requant (raw int32 last) ------
-        xq = torch.randint(0, 256, (1, l.H_I, l.W_I, C), generator=gen,
-                           device=dev, dtype=torch.uint8)
-        wq = torch.randint(-127, 128, (K, K, Cg, Fo), generator=gen,
-                           device=dev, dtype=torch.int8)
-        psum = apply_epilogue(
-            ref.conv2d(xq, wq, stride=S, padding=p, groups=groups),
-            None, True, None)
-        rq = None
-        if not last:
-            amax = psum.amax(dim=(0, 1, 2)).cpu().numpy().astype("float64")
-            m, s = scale_to_mult_shift(255.0 / amax.clip(min=1.0))
-            rq = (torch.as_tensor(m, device=dev), torch.as_tensor(s, device=dev))
-
-        def runq(pol, xq=xq, wq=wq, rq=rq):
-            return ops.trim_conv2d(xq, wq, None, rq, stride=S, padding=p,
-                                   groups=groups, relu=True, policy=pol)
-
-        got, want = runq(kernel_pol), runq(oracle_pol)
-        torch.cuda.synchronize()
-        if got.dtype != want.dtype or not torch.equal(got, want):
-            diff = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
-            fail(f"{arch} {l.name} int8: kernel != plain (max diff {diff})")
-        nbytes = (xq.numel() + wq.numel() + got.numel() * got.element_size()
-                  + (0 if rq is None else 8 * Fo))
-        rows.append({
-            "arch": arch, "layer": l.name, "lane": "u8s8", "batch": 1,
-            "epilogue": "relu" if last else "relu+requant",
-            "launches": groups,
-            "ms": cuda_ms(torch, lambda: runq(kernel_pol), reps),
-            "plain_ms": cuda_ms(torch, lambda: runq(oracle_pol),
-                                max(1, reps // 4)),
-            "library_ms": None, "max_abs_err": 0.0,
-            **bound(macs, nbytes, integer=True)})
+    # the int8 lane at every VGG-16 and AlexNet conv, batch 1 and 8
+    for N in (1, TRAIN_BATCH):
+        for arch, i, l, groups, last in _u8_cases():
+            rows.append(_u8_row(torch, gen, arch, l, groups, last, N, reps))
     # the float lane at the train phase's batch (its forward convs)
     for arch, i, l, groups in _conv_cases():
         rows.append(_f32_row(torch, gen, arch, l, groups, TRAIN_BATCH, reps))
@@ -424,12 +424,13 @@ def phase_kernels(torch, reps: int):
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) err "
             f"{r['max_abs_err']:.3g}{dev_ms}")
-    for lane, N in (("f32", 1), ("u8s8", 1), ("f32", TRAIN_BATCH)):
+    for lane, N in (("f32", 1), ("u8s8", 1), ("f32", TRAIN_BATCH),
+                    ("u8s8", TRAIN_BATCH)):
         sel = [r for r in rows if r["lane"] == lane and r["batch"] == N
                and r["arch"] == "vgg16"]
         lib = ("null" if sel[0]["library_ms"] is None else
                f"{sum(r['library_ms'] for r in sel):.4f}")
-        dev_ms = ("" if lane != "f32" or None in [r["device_ms"] for r in sel]
+        dev_ms = ("" if None in [r["device_ms"] for r in sel]
                   else f" device_ms {sum(r['device_ms'] for r in sel):.4f}")
         log(f"kernel vgg16 {lane} batch {N}, sum of {len(sel)} convs: ms "
             f"{sum(r['ms'] for r in sel):.4f}{dev_ms} plain_ms "
@@ -495,6 +496,75 @@ def _conv_cases():
     cases = [("vgg16", i, l, 1) for i, l in enumerate(VGG16_LAYERS)]
     return cases + [("alexnet", 0, ALEXNET_LAYERS[0], 1),
                     ("alexnet", 1, ALEXNET_LAYERS[1], 2)]
+
+
+def _u8_cases():
+    """(arch, index, layer, groups, last) of every conv of both networks:
+    the int8 lane's shapes (each network's last conv writes raw int32)."""
+    from repro_torch.core.model import ALEXNET_LAYERS, VGG16_LAYERS
+
+    out = []
+    for arch, layers in (("vgg16", VGG16_LAYERS), ("alexnet", ALEXNET_LAYERS)):
+        c = 3
+        for i, l in enumerate(layers):
+            out.append((arch, i, l, c // l.M, i == len(layers) - 1))
+            c = l.N
+    return out
+
+
+def _u8_row(torch, gen, arch, l, groups, last, N, reps) -> dict:
+    """The int8 lane (ReLU + per-channel requant; ReLU into raw int32 on
+    a network's last conv) at one conv shape and batch ``N``: the kernel
+    bit for bit against its plain version, and its timings (events,
+    profiler device time, host issue time) beside the plain version's and
+    the bound.  No PyTorch call computes this function: no yardstick."""
+    from repro_torch.engine import ExecutionPolicy
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.requant import scale_to_mult_shift
+    from repro_torch.kernels.trim_conv2d import apply_epilogue
+
+    dev = torch.device("cuda", 0)
+    kernel_pol = ExecutionPolicy(substrate="kernel")
+    oracle_pol = ExecutionPolicy(substrate="oracle")
+    C, Cg = l.M * groups, l.M
+    K, Fo, S, p = l.K, l.N, l.stride, l.padding
+    macs = N * l.H_O * l.W_O * Fo * K * K * Cg
+    xq = torch.randint(0, 256, (N, l.H_I, l.W_I, C), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    wq = torch.randint(-127, 128, (K, K, Cg, Fo), generator=gen,
+                       device=dev, dtype=torch.int8)
+    rq = None
+    if not last:
+        psum = apply_epilogue(
+            ref.conv2d(xq, wq, stride=S, padding=p, groups=groups),
+            None, True, None)
+        amax = psum.amax(dim=(0, 1, 2)).cpu().numpy().astype("float64")
+        m, s = scale_to_mult_shift(255.0 / amax.clip(min=1.0))
+        rq = (torch.as_tensor(m, device=dev), torch.as_tensor(s, device=dev))
+
+    def runq(pol):
+        return ops.trim_conv2d(xq, wq, None, rq, stride=S, padding=p,
+                               groups=groups, relu=True, policy=pol)
+
+    got, want = runq(kernel_pol), runq(oracle_pol)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        diff = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
+        fail(f"{arch} {l.name} int8 batch {N}: kernel != plain (max diff "
+             f"{diff})")
+    nbytes = (xq.numel() + wq.numel() + got.numel() * got.element_size()
+              + (0 if rq is None else 8 * Fo))
+    return {
+        "arch": arch, "layer": l.name, "lane": "u8s8", "batch": N,
+        "epilogue": "relu" if last else "relu+requant",
+        "launches": groups,
+        "ms": cuda_ms(torch, lambda: runq(kernel_pol), reps),
+        "device_ms": device_ms(torch, lambda: runq(kernel_pol), 10),
+        "issue_ms": issue_ms(torch, lambda: runq(kernel_pol), reps),
+        "plain_ms": cuda_ms(torch, lambda: runq(oracle_pol),
+                            max(1, reps // 4)),
+        "library_ms": None, "max_abs_err": 0.0,
+        **bound(macs, nbytes, integer=True)}
 
 
 def _close(got, want, what: str) -> float:
@@ -1038,7 +1108,9 @@ def _served_inputs(server):
 
 def phase_serve(torch, datapath: str, n_requests: int):
     """Full-width VGG-16 through the port's Server on one lane; returns
-    the kernel launches counted while the stream was served."""
+    the kernel launches counted while the stream was served, split into
+    those of the flushes of the smaller buckets and those of the largest
+    bucket's flushes (each counted around its flush)."""
     import numpy as np
 
     from repro_torch.configs import CNN_REGISTRY
@@ -1073,19 +1145,42 @@ def phase_serve(torch, datapath: str, n_requests: int):
     # the images are made before serving starts: at full width making one
     # takes longer than the flush deadline, which would split every burst
     items = list(stream)
+    # the launches of each flush, counted around the engine's run of its
+    # bucket (the one call a flush makes into the kernels)
+    per_bucket = dict.fromkeys(buckets, 0)
+    run_bucket = server.engine.run_bucket
+
+    def counted(bucket, images):
+        before = kern.LAUNCHES
+        out = run_bucket(bucket, images)
+        per_bucket[int(bucket)] += kern.LAUNCHES - before
+        return out
+
+    server.engine.run_bucket = counted
     kern.LAUNCHES = 0
     t0 = time.perf_counter()
     metrics = server.run_stream(items)
     server.close()
     wall = time.perf_counter() - t0
     launches = kern.LAUNCHES
+    server.engine.run_bucket = run_bucket
     fails = check_run(server, metrics, n_requests, expect_all_buckets=True)
     if fails:
         fail(f"serve {datapath}: " + "; ".join(fails))
-    flushes = metrics.snapshot()["totals"]["flushes"]
+    snap = metrics.snapshot()
+    flushes = snap["totals"]["flushes"]
     if launches != flushes * len(cfg.layers):
         fail(f"serve {datapath}: {launches} kernel launches for {flushes} "
              f"flushes of {len(cfg.layers)} convs")
+    for b in buckets:
+        n = snap["per_bucket"].get(str(b), {}).get("flushes", 0)
+        if per_bucket[b] != n * len(cfg.layers):
+            fail(f"serve {datapath}: bucket {b}: {per_bucket[b]} kernel "
+                 f"launches counted in its {n} flushes of "
+                 f"{len(cfg.layers)} convs")
+    if sum(per_bucket.values()) != launches:
+        fail(f"serve {datapath}: {sum(per_bucket.values())} launches in "
+             f"the flushes, {launches} in the run")
     served = _served_inputs(server)
     last = plan.layers[-1]  # int8: the last conv's psums, before its pool
     shape = ((cfg.n_classes,) if datapath == "float"
@@ -1119,15 +1214,15 @@ def phase_serve(torch, datapath: str, n_requests: int):
         if not np.array_equal(got, want):
             fail("serve int8: features differ from the oracle substrate")
         log("serve int8: features bit-equal to the oracle substrate")
-    snap = metrics.snapshot()
     log(f"serve {datapath}: {snap['totals']['images']}/{n_requests} served "
         f"in {flushes} flushes ({wall:.2f} s wall, p99 "
         f"{snap['totals']['p99_ms']} ms), {launches} kernel launches, "
         f"builds {sorted(set(server.engine.compile_counts.values()))}")
     for b, rec in snap["per_bucket"].items():
         log(f"serve {datapath}: bucket {b}: {rec['flushes']} flushes, "
-            f"p50 {rec['p50_ms']} ms, p99 {rec['p99_ms']} ms")
-    return launches
+            f"{per_bucket[int(b)]} kernel launches, p50 {rec['p50_ms']} ms, "
+            f"p99 {rec['p99_ms']} ms")
+    return launches - per_bucket[buckets[-1]], per_bucket[buckets[-1]]
 
 
 def phase_conv1d(torch, reps: int):
@@ -1992,8 +2087,8 @@ def main() -> None:
     if args.kernels:
         log("stopping after the kernel phases (--kernels): no result line")
         return
-    launches_f32 = phase_serve(torch, "float", args.requests)
-    launches_u8 = phase_serve(torch, "int8", args.requests)
+    launches_f32 = sum(phase_serve(torch, "float", args.requests))
+    launches_u8, launches_u8_b8 = phase_serve(torch, "int8", args.requests)
     train_f32, train_wgrad = phase_train(torch, TRAIN_STEPS, TRAIN_BATCH,
                                          TRAIN_LR)
     lm_launches = phase_lm_serve(torch, LM_ARCH)
@@ -2011,8 +2106,13 @@ def main() -> None:
         kernel_entry([r for r in rows if r["lane"] == "f32"
                       and r["batch"] == TRAIN_BATCH],
                      f"trim_conv2d_f32_batch{TRAIN_BATCH}", train_f32),
-        kernel_entry([r for r in rows if r["lane"] == "u8s8"],
+        # the int8 serve's launches: buckets 1 and 4 here, bucket 8 below
+        kernel_entry([r for r in rows if r["lane"] == "u8s8"
+                      and r["batch"] == 1],
                      "trim_conv2d_u8s8", launches_u8),
+        kernel_entry([r for r in rows if r["lane"] == "u8s8"
+                      and r["batch"] == TRAIN_BATCH],
+                     f"trim_conv2d_u8s8_batch{TRAIN_BATCH}", launches_u8_b8),
         kernel_entry([r for r in brows if r["kind"] == "dw"
                       and r["batch"] == TRAIN_BATCH],
                      "trim_conv2d_wgrad_f32", train_wgrad,

@@ -57,14 +57,64 @@
 //     never on N, so an output's sum runs in the same order in every batch
 //     and every call: bucketed results equal unbatched ones bit for bit.
 //
-// * uint8 x int8 -> int32 (int32 or requantized uint8 out):
-//   `trim_conv2d_kernel`, the first port's body.  Each block owns TH x TW
-//   outputs x Fb filters; per chunk of Cb channels the haloed window and
-//   the weight chunk are copied into shared memory once and every tap
-//   reads the window through a stride-S shifted view; sums stay in
-//   registers (4 pixels x 4 filters per thread).  It issues one shared
-//   load per two multiply-adds and uses no tensor cores: its redesign is
-//   later work.
+// * uint8 x int8 -> int32 (int32 or requantized uint8 out): an implicit
+//   GEMM on the tensor cores, mma.sync m16n8k32 u8 x s8 -> s32 (exact
+//   int32 sums).  What bounds it: per byte it must move (x, w and the
+//   uint8 output once each) a VGG-16 conv does 745-1,683 operations at
+//   batch 1 on CL3-CL10 and 765-3,368 at batch 8 on CL3-CL13, above the
+//   H100's int8 ridge (1,979 TOP/s over 3.35 TB/s, about 590): there the
+//   tensor-core rate bounds it.  CL1 (52: C = 3), CL2 (about 575) and, at
+//   batch 1, CL11-CL13 (361: 2.4 MB of weights for 196 pixels) sit at or
+//   below the ridge, where the bytes, the launch and the fill of 132 SMs
+//   decide.  The design:
+//   - The block owns output pixels of one image x 64 filters, 8 warps of
+//     32 filters each; the depth runs in steps of 32 bytes, one mma
+//     k-step; sums stay in registers and each output is written once.
+//   - The weights w (K, K, C, F) are a (K*K*C) x F matrix whose k is not
+//     contiguous, and both mma operands want k contiguous
+//     (ldmatrix.trans moves 16-bit elements only), so a pre-pass,
+//     `trim_conv2d_u8s8_wprep`, writes them as rows of 32-byte k-steps:
+//     [tap][filter][channel] (window paths) or [filter][K*K*C] (gather
+//     path).  It runs once per weight tensor: the wrapper keeps the
+//     result for the tensor's later calls (serving weights are static),
+//     so a call launches it only when the weights are new or have
+//     changed.  The conv copies a step's 64 rows
+//     straight into its ring stage, swizzled so that every ldmatrix phase
+//     is free of bank conflicts.
+//   - The window path (any K and S, C > 8): 128 pixels a block (a TH x TW
+//     tile), each warp 32 pixels x 32 filters.  The depth runs over (32-
+//     channel chunk, kh, kw); a ring stage holds the chunk's haloed window
+//     as uint8 [rows][cols][32 channels] (channels innermost, as in x)
+//     and every tap reads the one window through a shifted, strided view:
+//     the A fragment's 16 row addresses for tap (kh, kw) are the window
+//     pixels (r*S + kh, c*S + kw) of its 16 output pixels.  No im2col
+//     copy exists.  The two 16-byte halves of a pixel swap places on every
+//     fourth pixel, so the 8 rows of an ldmatrix phase at S = 1 hit 8
+//     bank groups.
+//   - The slide path (K = 3, S = 1, where its tiles fill the card): the
+//     TrIM input movement in registers.  256 pixels a block (16 x 16);
+//     warp (wm, wn) owns output rows 4 wm .. 4 wm + 3 x 32 filters.
+//     Output row r at tap (kh, kw) reads window row r + kh, so per kw the
+//     warp loads its 6 window rows once each and multiplies each by up to
+//     3 taps' weights: 0.25 ldmatrix a mma where the window path needs
+//     0.5, which bounds it by shared-memory bandwidth.
+//   - The gather path (C <= 8: VGG-16 CL1, AlexNet CL1): a 32-channel
+//     chunk would be mostly zeros, so the block keeps its whole haloed
+//     window (all C channels) and gathers, per chunk of up to 4 steps, its
+//     pixels' im2col rows ((kh, kw, c) order, zero past K*K*C) from it;
+//     the depth is K*K*C rounded up to 32 bytes.  Built for 3 blocks an
+//     SM: VGG-16 CL1's 392 tiles at batch 1 then run in one wave.
+//   - A 2- or 3-stage cp.async ring over the chunks, one barrier a chunk
+//     (two on the gather path); the halo and anything past C are zero-
+//     filled by a source size of 0.
+//   - Integer sums are exact in any order, so where the window path's
+//     tiles cannot fill the card (batch 1, VGG-16 CL5-CL13) its chunks
+//     are cut into n_split ranges; each range's block writes int32
+//     partials once and `trim_conv2d_u8s8_merge` adds them and runs the
+//     epilogue.  Unsplit, the epilogue (bias -> ReLU -> requant) runs on
+//     the registers and a lane's two adjacent outputs go out in one
+//     store.  The bits equal the plain version's on every path, at any
+//     split and any batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,7 +151,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !pred.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
@@ -427,171 +477,578 @@ int raise_smem(const void* kern, int& smem_set, int bytes) {
 
 // ------------------------------------------------------------ integer lane
 
-constexpr int kThreads = 256;       // 8 filter groups x 32 pixel groups
-constexpr int kPixSlots = 128;      // TH * TW must not exceed this
-constexpr int kPixPerThread = 4;    // pixel slots ty, ty+32, ty+64, ty+96
-constexpr int kFiltPerThread = 4;   // filters tx*4 .. tx*4+3
-constexpr int kFiltTile = 32;       // Fb must not exceed this
+constexpr int kU8Threads = 256;  // 8 warps: 4 (pixels) x 2 (filters)
+constexpr int kU8M = 128;        // output pixels a block (slide path: 256)
+constexpr int kU8Fb = 64;        // filters a block
+constexpr int kU8Step = 32;      // depth bytes a step (m16n8k32)
+constexpr int kU8StepB = kU8Fb * kU8Step;  // one step's weights: 2048 B
+constexpr int kU8AStepB = kU8M * kU8Step;  // one step's gathered A: 4096 B
+constexpr int kU8MaxDepth = 65793;         // K*K*C: 255 * 128 * it < 2^31
+
+// Integer kernel paths (the wrapper's U8Tile.path).
+constexpr int kU8Window = 0;  // ldmatrix reads the window's shifted views
+constexpr int kU8Gather = 1;  // C <= 8: im2col rows gathered from it
+constexpr int kU8Slide = 2;   // K = 3, S = 1: window rows reused in registers
+constexpr int kU8SlideT = 16; // the slide path's output tile: 16 x 16
 
 enum RequantKind { kRqNone = 0, kRqShift = 1, kRqMultShift = 2 };
 
-struct ConvArgs {
-  const void* x;
-  const void* w;
-  const void* bias;      // (F,) in the accumulator type, or null
+struct U8Epilogue {
+  const int32_t* bias;   // (F,) or null
   const int32_t* mult;   // (F,) for kRqMultShift
   const int32_t* shift;  // (F,) for kRqMultShift
-  void* out;
-  int N, H, W, C, K, F, H_O, W_O, S, pad;
-  int TH, TW, Cb, Fb, n_tw;
   int relu, rq_kind, rq_shift;
 };
 
-template <typename TAcc, typename TOut>
-__device__ __forceinline__ TOut finish(TAcc r, const ConvArgs& a, int f) {
-  if (a.bias != nullptr) r += static_cast<const TAcc*>(a.bias)[f];
-  if (a.relu) r = r > TAcc(0) ? r : TAcc(0);
-  return static_cast<TOut>(r);
+struct U8Args {
+  const uint8_t* x;
+  const int8_t* w;   // (K, K, C, F)
+  const int8_t* wt;  // w transposed by trim_conv2d_u8s8_wprep: [G][Fp][L]
+  void* out;         // (N, H_O, W_O, F): int32 or uint8
+  int32_t* parts;    // n_split > 1: n_split x (N, H_O, W_O, F) int32
+  U8Epilogue e;
+  int N, H, W, C, K, F, H_O, W_O, S, pad;
+  int TH, TW, n_tw, n_f;
+  int rows, cols;    // the haloed window of one tile
+  int steps;         // k32 steps an item (window: taps of a group)
+  int n_tg;          // window path: tap groups a channel chunk
+  int n_items, n_split, stages;
+  int depth;         // K * K * C
+  int Fp, L;         // wt: filters padded to 64, bytes a row
+  int win_bytes;     // window: in every stage; gather: once, before the ring
+  int stage_bytes;   // one ring stage
+  int vec_x;         // 16-byte copies of x's channels
+};
+
+// bias -> ReLU, then (uint8 out) a power-of-two shift or the per-channel
+// multiplier+shift requant, both arithmetic, clipped to [0, 255].
+template <typename TOut>
+__device__ __forceinline__ TOut u8_finish(int32_t r, const U8Epilogue& e,
+                                          int f);
+
+template <>
+__device__ __forceinline__ int32_t u8_finish<int32_t>(int32_t r,
+                                                      const U8Epilogue& e,
+                                                      int f) {
+  if (e.bias != nullptr) r += e.bias[f];
+  if (e.relu) r = r > 0 ? r : 0;
+  return r;
 }
 
-// Integer lanes: the requantizing epilogues, both with arithmetic shifts.
 template <>
-__device__ __forceinline__ uint8_t finish<int32_t, uint8_t>(
-    int32_t r, const ConvArgs& a, int f) {
-  if (a.bias != nullptr) r += static_cast<const int32_t*>(a.bias)[f];
-  if (a.relu) r = r > 0 ? r : 0;
+__device__ __forceinline__ uint8_t u8_finish<uint8_t>(int32_t r,
+                                                      const U8Epilogue& e,
+                                                      int f) {
+  if (e.bias != nullptr) r += e.bias[f];
+  if (e.relu) r = r > 0 ? r : 0;
   long long q;
-  if (a.rq_kind == kRqShift) {
-    q = static_cast<long long>(r >> a.rq_shift);
+  if (e.rq_kind == kRqShift) {
+    q = static_cast<long long>(r >> e.rq_shift);
   } else {
-    const long long m = a.mult[f];
-    const int s = a.shift[f];
+    const long long m = e.mult[f];
+    const int s = e.shift[f];
     q = (static_cast<long long>(r) * m + (1LL << (s - 1))) >> s;
   }
   q = q < 0 ? 0 : (q > 255 ? 255 : q);
   return static_cast<uint8_t>(q);
 }
 
-template <typename TX, typename TW, typename TAcc, typename TOut>
-__global__ void __launch_bounds__(kThreads)
-trim_conv2d_kernel(const ConvArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int K = a.K, S = a.S, C = a.C, Cb = a.Cb;
-  const int rows = (a.TH - 1) * S + K;
-  const int cols = (a.TW - 1) * S + K;
-  const int win = rows * cols;
-  TAcc* xs = reinterpret_cast<TAcc*>(smem_raw);  // [Cb][rows][cols]
-  TAcc* ws = xs + Cb * win;                      // [Cb][K*K][kFiltTile]
+// Byte offset of 16-byte half h of row ``pix`` in a [rows][32 bytes]
+// array (the window's pixels, the gathered A rows): the halves swap on
+// every fourth row, so 8 consecutive rows land in 8 bank groups.
+__device__ __forceinline__ int u8_row_off(int pix, int h) {
+  return pix * 32 + ((h ^ ((pix >> 2) & 1)) << 4);
+}
 
-  const int th = blockIdx.x / a.n_tw;
-  const int tw = blockIdx.x % a.n_tw;
-  const int oh0 = th * a.TH, ow0 = tw * a.TW;
-  const int f0 = blockIdx.y * a.Fb;
-  const int n = blockIdx.z;
-  const int tx = threadIdx.x % 8;
-  const int ty = threadIdx.x / 8;
-  const int ih0 = oh0 * S - a.pad;
-  const int iw0 = ow0 * S - a.pad;
+// Byte offset of 16-byte half u of filter row f in one step's weights
+// [64 filters][32 bytes]: slot (2f + u) XOR h(f), h(f) the bits (f>>2)&1,
+// (f>>2)&1, (f>>3)&1.  Rows f and f + 4 then differ in the slot's bank
+// group, so an ldmatrix phase (8 rows, one half) is conflict-free.
+__device__ __forceinline__ int u8_wt_off(int f, int u) {
+  const int fb = f >> 2;
+  const int hsw = (fb & 1) * 3 | ((fb & 2) << 1);
+  return ((2 * f + u) ^ hsw) << 4;
+}
 
-  int poff[kPixPerThread];
-  bool pval[kPixPerThread];
-  int po[kPixPerThread];
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x32 u8, row) * b (32x8 s8, col), exact int32 sums.
+__device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// w (K, K, C, F) -> wt [G][Fp][L]: row (g, f) holds w's rows g * Cin ..
+// g * Cin + Cin - 1 at filter f, zero past Cin and F (window path: G =
+// K*K taps, Cin = C, L = C rounded up to 32; gather path: G = 1, Cin =
+// K*K*C, L its chunks' bytes).  One thread writes 16 bytes of a row;
+// neighbouring threads take neighbouring filters, so w's rows are read
+// 32 bytes a warp at a time.
+__global__ void __launch_bounds__(256)
+trim_conv2d_u8s8_wprep(const int8_t* __restrict__ w,
+                       int8_t* __restrict__ wt, int G, int Cin, int F,
+                       int Fp, int L) {
+  const int units = L / 16;
+  const long long total = static_cast<long long>(G) * Fp * units;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int f = static_cast<int>(i % Fp);
+    const long long rest = i / Fp;
+    const int u = static_cast<int>(rest % units);
+    const int g = static_cast<int>(rest / units);
+    const int l0 = u * 16;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (f < F) {
+      const int8_t* src = w + (static_cast<long long>(g) * Cin + l0) * F + f;
 #pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) {
-    const int pix = ty + 32 * j;
-    const int lh = pix / a.TW, lw = pix % a.TW;
-    const bool slot = pix < a.TH * a.TW;
-    pval[j] = slot && (oh0 + lh) < a.H_O && (ow0 + lw) < a.W_O;
-    poff[j] = slot ? (lh * S) * cols + lw * S : 0;
-    po[j] = pval[j] ? (oh0 + lh) * a.W_O + (ow0 + lw) : 0;
+      for (int b = 0; b < 16; ++b)
+        if (l0 + b < Cin)
+          v[b >> 2] |= static_cast<uint32_t>(
+                           static_cast<uint8_t>(src[b * F])) << (8 * (b & 3));
+    }
+    *reinterpret_cast<uint4*>(wt + (static_cast<long long>(g) * Fp + f) * L +
+                              l0) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Issue the copies of item ``it`` into ring stage ``st``: on the window
+// path the haloed window of its channel chunk and the weights of its tap
+// group, on the gather path the weights of its depth chunk.  Step j's
+// weights are the 32 bytes of wt's rows (g, f0 .. f0 + 63) from byte l0:
+// (tap0 + j, c0) on the window path, (0, (it * steps + j) * 32) on the
+// gather path, laid out [64 filters][32 bytes] by u8_wt_off.  A thread's
+// weight copies are two steps apart: filter (tid >> 1) & 63, half tid &
+// 1, steps (tid >> 7) + 2 t.
+template <int kPath>
+__device__ __forceinline__ void u8_load_item(const U8Args& a,
+                                             unsigned char* st,
+                                             const uint8_t* x, int ih0,
+                                             int iw0, int it, int f0) {
+  const int u = threadIdx.x & 1, fl = (threadIdx.x >> 1) & 63;
+  const int j0 = threadIdx.x >> 7;
+  unsigned char* dst = st + j0 * kU8StepB + u8_wt_off(fl, u);
+  const int8_t* src;
+  long long dsrc;  // source step between a thread's copies
+  int jmax = a.steps;
+  if (kPath == kU8Window) {
+    const int cc = it / a.n_tg, tg = it - cc * a.n_tg;
+    const int c0 = cc * kU8Step, tap0 = tg * a.steps;
+    jmax = min(a.steps, a.K * a.K - tap0);
+    src = a.wt + (static_cast<long long>(tap0 + j0) * a.Fp + f0 + fl) * a.L +
+          c0 + u * 16;
+    dsrc = 2LL * a.Fp * a.L;
+    // the window: [rows * cols pixels][32 channels]
+    const int total = a.rows * a.cols * 2;
+    for (int i = threadIdx.x; i < total; i += kU8Threads) {
+      const int pix = i >> 1, h = i & 1;
+      const int wr = pix / a.cols, q = pix - wr * a.cols;
+      const int gh = ih0 + wr, gw = iw0 + q, c = c0 + h * 16;
+      const bool in = static_cast<unsigned>(gh) < static_cast<unsigned>(a.H) &&
+                      static_cast<unsigned>(gw) < static_cast<unsigned>(a.W);
+      const size_t off = (static_cast<size_t>(gh) * a.W + gw) * a.C;
+      unsigned char* wd = st + u8_row_off(pix, h);
+      if (a.vec_x) {
+        const bool ok = in && c < a.C;
+        cp_async16(wd, ok ? x + off + c : a.x, ok);
+      } else {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int b = 0; b < 16; ++b)
+          if (in && c + b < a.C)
+            v[b >> 2] |= static_cast<uint32_t>(x[off + c + b]) << (8 * (b & 3));
+        *reinterpret_cast<uint4*>(wd) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    dst += a.win_bytes;
+  } else {
+    src = a.wt + static_cast<long long>(f0 + fl) * a.L +
+          (it * a.steps + j0) * kU8Step + u * 16;
+    dsrc = 2 * kU8Step;
+  }
+  for (int j = j0; j < jmax; j += 2) {
+    cp_async16(dst, src, true);
+    src += dsrc;
+    dst += 2 * kU8StepB;
+  }
+}
+
+// The gather path: the im2col rows of depth chunk ``it`` of the block's
+// 128 pixels, from the window [rows][cols * C] into [steps][128][32]
+// (rows of u8_row_off).  Depth d is (kh, kw, c) = (d / (K*C), (d / C) %
+// K, d % C); within a row kh the K*C values (kw, c) are contiguous in the
+// window, from column c*S of the pixel.
+__device__ __forceinline__ void u8_gather(const U8Args& a,
+                                          const unsigned char* win,
+                                          unsigned char* at, int it) {
+  const int KC = a.K * a.C, RB = a.cols * a.C;
+  const int npix = a.TH * a.TW;
+  for (int i = threadIdx.x; i < a.steps * kU8M * 2; i += kU8Threads) {
+    const int j = i >> 8, m = (i >> 1) & (kU8M - 1), h = i & 1;
+    const int mm = m < npix ? m : 0;
+    const int lh = mm / a.TW, lw = mm - lh * a.TW;
+    const unsigned char* base = win + lh * a.S * RB + lw * a.S * a.C;
+    int d = (it * a.steps + j) * kU8Step + h * 16;
+    int kh = d / KC, rem = d - kh * KC;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      if (d + b < a.depth)
+        v[b >> 2] |= static_cast<uint32_t>(base[kh * RB + rem]) << (8 * (b & 3));
+      if (++rem == KC) { rem = 0; ++kh; }
+    }
+    *reinterpret_cast<uint4*>(at + j * kU8AStepB + u8_row_off(m, h)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// One k32 step of a warp: A rows from ``a0``/``a1`` (the shared
+// addresses of its two m16 tiles' rows for this lane), B from the
+// transposed weights at ``b`` (+ the lane's two x4 offsets).
+__device__ __forceinline__ void u8_step(int (&acc)[2][4][4], uint32_t a0,
+                                        uint32_t a1, uint32_t b,
+                                        const int (&boff)[2]) {
+  uint32_t af[2][4], bf[2][4];
+  ldsm_x4(af[0], a0);
+  ldsm_x4(af[1], a1);
+  ldsm_x4(bf[0], b + boff[0]);
+  ldsm_x4(bf[1], b + boff[1]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma_u8s8(acc[mt][nt], af[mt], bf[nt >> 1][(nt & 1) * 2],
+               bf[nt >> 1][(nt & 1) * 2 + 1]);
+}
+
+// The lane's A row address for window pixel ``pix``, half ``hl``:
+// u8_row_off(pix, hl) from the stage's shared address.
+__device__ __forceinline__ uint32_t u8_a_addr(uint32_t base, int pix,
+                                              int hl) {
+  return base + ((pix << 5) ^ (hl << 4) ^ ((pix & 4) << 2));
+}
+
+// The pair of outputs (f, f + 1) of pixel ``pix`` (flat over N*H_O*W_O)
+// that a lane's accumulators v0, v1 hold: the results (epilogue on the
+// registers) or this range's int32 partials, in one store where both
+// filters exist and F is even (the pair then lies aligned).
+template <typename TOut>
+__device__ __forceinline__ void u8_put2(const U8Args& a, int split,
+                                        size_t pix, int f, int v0, int v1) {
+  if (f >= a.F) return;
+  const bool pair = f + 1 < a.F && (a.F & 1) == 0;
+  if (a.n_split == 1) {
+    TOut* o = static_cast<TOut*>(a.out) + pix * a.F + f;
+    const TOut r0 = u8_finish<TOut>(v0, a.e, f);
+    if (pair) {
+      const TOut r1 = u8_finish<TOut>(v1, a.e, f + 1);
+      if constexpr (sizeof(TOut) == 1)
+        *reinterpret_cast<uint16_t*>(o) =
+            static_cast<uint16_t>(r0 | (static_cast<uint16_t>(r1) << 8));
+      else
+        *reinterpret_cast<int2*>(o) = make_int2(r0, r1);
+    } else {
+      o[0] = r0;
+      if (f + 1 < a.F) o[1] = u8_finish<TOut>(v1, a.e, f + 1);
+    }
+  } else {
+    int32_t* o = a.parts +
+                 (static_cast<size_t>(split) * a.N * a.H_O * a.W_O + pix) *
+                     a.F + f;
+    if (pair) {
+      *reinterpret_cast<int2*>(o) = make_int2(v0, v1);
+    } else {
+      o[0] = v0;
+      if (f + 1 < a.F) o[1] = v1;
+    }
+  }
+}
+
+// The u8 x s8 conv on the window and gather paths.  Grid: (spatial
+// tiles, filter tiles x n_split, N).
+template <int kPath, typename TOut>
+__global__ void __launch_bounds__(kU8Threads, kPath == kU8Gather ? 3 : 2)
+trim_conv2d_u8s8_kernel(const U8Args a) {
+  extern __shared__ __align__(128) unsigned char smem_u8[];
+  const int tile = blockIdx.x;
+  const int th = tile / a.n_tw, tw = tile - th * a.n_tw;
+  const int ft = blockIdx.y % a.n_f, split = blockIdx.y / a.n_f;
+  const int n = blockIdx.z;
+  const int oh0 = th * a.TH, ow0 = tw * a.TW, f0 = ft * kU8Fb;
+  const int ih0 = oh0 * a.S - a.pad, iw0 = ow0 * a.S - a.pad;
+  const int k0 = static_cast<int>(
+      static_cast<long long>(a.n_items) * split / a.n_split);
+  const int k1 = static_cast<int>(
+      static_cast<long long>(a.n_items) * (split + 1) / a.n_split);
+  const int npix = a.TH * a.TW;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
+  const uint8_t* x = a.x + static_cast<size_t>(n) * a.H * a.W * a.C;
+
+  // shared memory: gather path [window][ring (weights a stage)][A rows];
+  // window path [ring (window + weights a stage)]
+  unsigned char* win = smem_u8;
+  unsigned char* ring = kPath == kU8Gather ? smem_u8 + a.win_bytes : smem_u8;
+  unsigned char* at = ring + a.stages * a.stage_bytes;
+  const int wstage = kPath == kU8Window ? a.win_bytes : 0;
+
+  // A rows: lane l feeds row l & 15 of each of the warp's two m16 tiles,
+  // half l >> 4.  Window path: the row's window pixel at tap (0, 0);
+  // gather path: the row itself.  Rows past the tile read pixel 0.
+  const int hl = lane >> 4;
+  int arow[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int m = wm + mt * 16 + (lane & 15);
+    if (kPath == kU8Window) {
+      const int mm = m < npix ? m : 0;
+      const int lh = mm / a.TW, lw = mm - lh * a.TW;
+      arow[mt] = lh * a.S * a.cols + lw * a.S;
+    } else {
+      arow[mt] = m;
+    }
+  }
+  // B rows: ldmatrix x4 p covers n8 tiles 2p, 2p + 1 of the warp's four,
+  // lane l feeding filter row l & 7 of tile 2p + (l >> 4), half (l >> 3) & 1
+  int boff[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    boff[p] = u8_wt_off(wn + (2 * p + (lane >> 4)) * 8 + (lane & 7),
+                        (lane >> 3) & 1);
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+
+  if (kPath == kU8Gather) {
+    // the whole haloed window, all C channels: [rows][cols * C]
+    const int RB = a.cols * a.C, total = a.rows * RB;
+    for (int i = threadIdx.x; i < total; i += kU8Threads) {
+      const int r = i / RB, q = i - r * RB;
+      const int pc = q / a.C, c = q - pc * a.C;
+      const int gh = ih0 + r, gw = iw0 + pc;
+      const bool ok = static_cast<unsigned>(gh) < static_cast<unsigned>(a.H) &&
+                      static_cast<unsigned>(gw) < static_cast<unsigned>(a.W);
+      win[i] = ok ? x[(static_cast<size_t>(gh) * a.W + gw) * a.C + c] : 0;
+    }
   }
 
-  TAcc acc[kPixPerThread][kFiltPerThread];
-#pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j)
-#pragma unroll
-    for (int i = 0; i < kFiltPerThread; ++i) acc[j][i] = TAcc(0);
+  const int nst = a.stages;
+  for (int s = 0; s < nst - 1; ++s) {
+    if (k0 + s < k1)
+      u8_load_item<kPath>(a, ring + s * a.stage_bytes, x, ih0, iw0, k0 + s,
+                          f0);
+    cp_async_commit();
+  }
+  for (int k = k0; k < k1; ++k) {
+    cp_async_wait_ring(nst);
+    __syncthreads();  // item k landed; item k - 1's reads are done
+    unsigned char* stg = ring + ((k - k0) % nst) * a.stage_bytes;
+    const uint32_t bs = smem_addr(stg + wstage);
+    if (kPath == kU8Gather) u8_gather(a, win, at, k);
+    const int nxt = k + nst - 1;
+    if (nxt < k1)
+      u8_load_item<kPath>(a, ring + ((nxt - k0) % nst) * a.stage_bytes, x,
+                          ih0, iw0, nxt, f0);
+    cp_async_commit();
 
-  const TX* x = static_cast<const TX*>(a.x) +
-                static_cast<size_t>(n) * a.H * a.W * C;
-  const TW* w = static_cast<const TW*>(a.w);
-  const int KK = K * K;
-
-  for (int c0 = 0; c0 < C; c0 += Cb) {
-    __syncthreads();  // the previous chunk's reads are done
-    // Haloed input window, zero outside the image and past C.
-    for (int i = threadIdx.x; i < Cb * win; i += kThreads) {
-      const int c = i % Cb;
-      const int rq = i / Cb;
-      const int q = rq % cols, r = rq / cols;
-      const int h = ih0 + r, ww = iw0 + q, cc = c0 + c;
-      TAcc v = TAcc(0);
-      if (h >= 0 && h < a.H && ww >= 0 && ww < a.W && cc < C)
-        v = static_cast<TAcc>(x[(static_cast<size_t>(h) * a.W + ww) * C + cc]);
-      xs[c * win + r * cols + q] = v;
+    if (kPath == kU8Gather) {
+      __syncthreads();  // the gathered A rows are visible
+      const uint32_t ab = smem_addr(at);
+#pragma unroll 1
+      for (int j = 0; j < a.steps; ++j)
+        u8_step(acc, u8_a_addr(ab + j * kU8AStepB, arow[0], hl),
+                u8_a_addr(ab + j * kU8AStepB, arow[1], hl),
+                bs + j * kU8StepB, boff);
+    } else {
+      const uint32_t ab = smem_addr(stg);
+      const int tap0 = (k % a.n_tg) * a.steps;
+      const int nsteps = min(a.steps, a.K * a.K - tap0);
+      int kh = tap0 / a.K, kw = tap0 - kh * a.K;
+#pragma unroll 1
+      for (int j = 0; j < nsteps; ++j) {
+        const int o = kh * a.cols + kw;
+        u8_step(acc, u8_a_addr(ab, arow[0] + o, hl),
+                u8_a_addr(ab, arow[1] + o, hl), bs + j * kU8StepB, boff);
+        if (++kw == a.K) { kw = 0; ++kh; }
+      }
     }
-    // Weight chunk, zero past C and past this block's filters.
-    for (int i = threadIdx.x; i < Cb * KK * kFiltTile; i += kThreads) {
-      const int fl = i % kFiltTile;
-      const int rest = i / kFiltTile;
-      const int c = rest % Cb, kk = rest / Cb;
-      const int cc = c0 + c, ff = f0 + fl;
-      TAcc v = TAcc(0);
-      if (cc < C && fl < a.Fb && ff < a.F)
-        v = static_cast<TAcc>(w[(static_cast<size_t>(kk) * C + cc) * a.F + ff]);
-      ws[(c * KK + kk) * kFiltTile + fl] = v;
-    }
-    __syncthreads();
+  }
 
-    const int cn = min(Cb, C - c0);
-    for (int c = 0; c < cn; ++c) {
-      const TAcc* xc = xs + c * win;
-      const TAcc* wc = ws + c * KK * kFiltTile + tx * kFiltPerThread;
-      for (int kh = 0; kh < K; ++kh) {
-        for (int kw = 0; kw < K; ++kw) {
-          const TAcc* wk = wc + (kh * K + kw) * kFiltTile;
-          TAcc wv[kFiltPerThread];
+  // One write per output: the result (epilogue on the registers) or this
+  // range's int32 partial.  Accumulator q of an m16n8 tile is row
+  // (lane >> 2) + 8 * (q >> 1), column (lane & 3) * 2 + (q & 1).
 #pragma unroll
-          for (int i = 0; i < kFiltPerThread; ++i) wv[i] = wk[i];
-          const int o = kh * cols + kw;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < kPixPerThread; ++j) {
-            const TAcc xv = xc[poff[j] + o];
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = wm + mt * 16 + (lane >> 2) + 8 * hr;
+      if (m >= npix) continue;
+      const int lh = m / a.TW, lw = m - lh * a.TW;
+      const int ho = oh0 + lh, wo = ow0 + lw;
+      if (ho >= a.H_O || wo >= a.W_O) continue;
+      const size_t pix =
+          (static_cast<size_t>(n) * a.H_O + ho) * a.W_O + wo;
 #pragma unroll
-            for (int i = 0; i < kFiltPerThread; ++i) acc[j][i] += xv * wv[i];
-          }
+      for (int nt = 0; nt < 4; ++nt)
+        u8_put2<TOut>(a, split, pix, f0 + wn + nt * 8 + (lane & 3) * 2,
+                      acc[mt][nt][hr * 2], acc[mt][nt][hr * 2 + 1]);
+    }
+}
+
+// The slide path (K = 3 at stride 1: every VGG-16 conv but the first):
+// a block owns 16 x 16 output pixels x 64 filters; warp (wm, wn) owns
+// output rows 4 wm .. 4 wm + 3 of the tile, one m16 tile of 16 pixels
+// each, x 32 filters (64 int32 accumulators a thread).  Output row r at
+// tap (kh, kw) reads window row r + kh from column kw, so per kw the
+// warp loads its 6 window rows 4 wm .. 4 wm + 5 once each and multiplies
+// each by the weights of up to 3 taps: the TrIM input movement across
+// the rows, in registers.  A chunk costs 18 A and 18 B ldmatrix for 144
+// mma (the window path's layout: 36 and 36).  The planner takes it only
+// where its tiles fill the card, so it never splits.  Grid: (spatial
+// tiles, filter tiles, N).
+template <typename TOut>
+__global__ void __launch_bounds__(kU8Threads, 2)
+trim_conv2d_u8s8_slide_kernel(const U8Args a) {
+  extern __shared__ __align__(128) unsigned char smem_u8[];
+  const int tile = blockIdx.x;
+  const int th = tile / a.n_tw, tw = tile - th * a.n_tw;
+  const int ft = blockIdx.y, n = blockIdx.z;
+  const int oh0 = th * kU8SlideT, ow0 = tw * kU8SlideT, f0 = ft * kU8Fb;
+  const int ih0 = oh0 - a.pad, iw0 = ow0 - a.pad;
+  const int k0 = 0, k1 = a.n_items;  // never split: its tiles fill the card
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp & 3, wn = (warp >> 2) * 32;
+  const uint8_t* x = a.x + static_cast<size_t>(n) * a.H * a.W * a.C;
+  const int hl = lane >> 4;
+  // lane l feeds row l & 15 (the pixel's column) of each A fragment
+  const int arow = 4 * wm * a.cols + (lane & 15);
+  int boff[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    boff[p] = u8_wt_off(wn + (2 * p + (lane >> 4)) * 8 + (lane & 7),
+                        (lane >> 3) & 1);
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+
+  const int nst = a.stages;
+  for (int s = 0; s < nst - 1; ++s) {
+    if (k0 + s < k1)
+      u8_load_item<kU8Window>(a, smem_u8 + s * a.stage_bytes, x, ih0, iw0,
+                              k0 + s, f0);
+    cp_async_commit();
+  }
+  for (int k = k0; k < k1; ++k) {
+    cp_async_wait_ring(nst);
+    __syncthreads();  // item k landed; item k - 1's reads are done
+    unsigned char* stg = smem_u8 + ((k - k0) % nst) * a.stage_bytes;
+    const uint32_t ab = smem_addr(stg), bs = smem_addr(stg + a.win_bytes);
+    const int nxt = k + nst - 1;
+    if (nxt < k1)
+      u8_load_item<kU8Window>(a, smem_u8 + ((nxt - k0) % nst) * a.stage_bytes,
+                              x, ih0, iw0, nxt, f0);
+    cp_async_commit();
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      uint32_t bf[3][2][4];
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          ldsm_x4(bf[kh][p], bs + (kh * 3 + kw) * kU8StepB + boff[p]);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        uint32_t af[4];
+        ldsm_x4(af, u8_a_addr(ab, arow + i * a.cols + kw, hl));
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh) {
+          const int mt = i - kh;
+          if (mt < 0 || mt > 3) continue;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_u8s8(acc[mt][nt], af, bf[kh][nt >> 1][(nt & 1) * 2],
+                     bf[kh][nt >> 1][(nt & 1) * 2 + 1]);
         }
       }
     }
   }
 
-  TOut* out = static_cast<TOut*>(a.out);
+  // Accumulator q of m16n8 tile (mt, nt) is output row 4 wm + mt, column
+  // (lane >> 2) + 8 (q >> 1), filter wn + nt * 8 + (lane & 3) * 2 + (q & 1).
 #pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) {
-    if (!pval[j]) continue;
-    const size_t base =
-        (static_cast<size_t>(n) * a.H_O * a.W_O + po[j]) * a.F;
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int i = 0; i < kFiltPerThread; ++i) {
-      const int fl = tx * kFiltPerThread + i;
-      const int ff = f0 + fl;
-      if (fl < a.Fb && ff < a.F)
-        out[base + ff] = finish<TAcc, TOut>(acc[j][i], a, ff);
+    for (int hr = 0; hr < 2; ++hr) {
+      const int ho = oh0 + 4 * wm + mt, wo = ow0 + (lane >> 2) + 8 * hr;
+      if (ho >= a.H_O || wo >= a.W_O) continue;
+      const size_t pix =
+          (static_cast<size_t>(n) * a.H_O + ho) * a.W_O + wo;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        u8_put2<TOut>(a, 0, pix, f0 + wn + nt * 8 + (lane & 3) * 2,
+                      acc[mt][nt][hr * 2], acc[mt][nt][hr * 2 + 1]);
     }
+}
+
+// out[i] = epilogue(p_0[i] + ... + p_{n_split-1}[i]) over M outputs of F
+// filters (the filter of output i is i % F).
+template <typename TOut>
+__global__ void __launch_bounds__(256)
+trim_conv2d_u8s8_merge(const int32_t* __restrict__ parts, U8Epilogue e,
+                       TOut* __restrict__ out, long long M, int F,
+                       int n_split) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < M; i += step) {
+    int32_t s = parts[i];
+    for (int k = 1; k < n_split; ++k) s += parts[k * M + i];
+    out[i] = u8_finish<TOut>(s, e, static_cast<int>(i % F));
   }
 }
 
-template <typename TX, typename TW, typename TAcc, typename TOut>
-int launch_int(const ConvArgs& a, int smem_bytes, cudaStream_t stream) {
-  auto* kern = trim_conv2d_kernel<TX, TW, TAcc, TOut>;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+template <int kPath, typename TOut>
+int launch_u8(const U8Args& a, int smem_bytes, cudaStream_t s) {
+  static int smem_set = 0;  // per instantiation: what has been raised
+  void (*kern)(U8Args);
+  if constexpr (kPath == kU8Slide)
+    kern = &trim_conv2d_u8s8_slide_kernel<TOut>;
+  else
+    kern = &trim_conv2d_u8s8_kernel<kPath, TOut>;
+  int rc = raise_smem(reinterpret_cast<const void*>(kern), smem_set,
+                      smem_bytes);
+  if (rc != 0) return rc;
   const int n_th = (a.H_O + a.TH - 1) / a.TH;
-  const dim3 grid(n_th * a.n_tw, (a.F + a.Fb - 1) / a.Fb, a.N);
-  kern<<<grid, kThreads, smem_bytes, stream>>>(a);
+  const dim3 grid(n_th * a.n_tw, a.n_f * a.n_split, a.N);
+  kern<<<grid, kU8Threads, smem_bytes, s>>>(a);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || a.n_split == 1) return rc;
+  const long long M = static_cast<long long>(a.N) * a.H_O * a.W_O * a.F;
+  const int blocks =
+      static_cast<int>((M + 255) / 256 < 4224 ? (M + 255) / 256 : 4224);
+  trim_conv2d_u8s8_merge<TOut><<<blocks, 256, 0, s>>>(
+      a.parts, a.e, static_cast<TOut*>(a.out), M, a.F, a.n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -599,11 +1056,12 @@ int launch_int(const ConvArgs& a, int smem_bytes, cudaStream_t stream) {
 
 extern "C" {
 
-// Tile limits the wrapper validates against.
-int trim_conv2d_pix_slots() { return kPixSlots; }
-int trim_conv2d_filt_tile() { return kFiltTile; }
+// Constants the wrapper validates against.
 int trim_conv2d_f32_threads() { return kF32Threads; }
 int trim_conv2d_f32_filters() { return kF32Fb; }
+int trim_conv2d_u8_pixels() { return kU8M; }
+int trim_conv2d_u8_filters() { return kU8Fb; }
+int trim_conv2d_u8_max_depth() { return kU8MaxDepth; }
 
 const char* trim_conv2d_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -679,31 +1137,106 @@ int trim_conv2d_f32(const void* x, const void* w, const void* bias, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// uint8 x int8 lane: bias (F,) int32 or null.  rq_kind 0 writes int32
-// psums; 1 (power-of-two shift rq_shift) and 2 (per-channel mult/shift
-// (F,) int32 arrays) write uint8.
+// uint8 x int8 lane: x (N,H,W,C) u8, w (K,K,C,F) s8, bias (F,) int32 or
+// null; rq_kind 0 writes int32 out, 1 (power-of-two shift rq_shift) and 2
+// (per-channel mult/shift, (F,) int32 each) write uint8.  ``wt`` holds
+// the transposed weights: K*K * Fp * Cp bytes on the window path, Fp *
+// n_items * steps * 32 on the gather path (Fp = F rounded up to 64, Cp =
+// C rounded up to 32), 16-byte aligned; with ``wt_ready`` 0 this call
+// writes them first (the caller keeps them for later calls on the same
+// weights and passes 1 then).  With n_split > 1, ``parts`` holds n_split
+// * N*H_O*W_O*F int32 of scratch.  One call launches the weights'
+// transposition (unless ready), the conv and, split, the merge.
+// The caller
+// (the Python wrapper's planner, u8_tile) picks the geometry: the path
+// (0 window, 1 gather), the TH x TW output tile (TH * TW <= 128), the
+// steps an item (window: taps of a group, 1 .. K*K; gather: depth steps
+// of a chunk), n_split ranges of items, 2 or 3 stages, and the shared
+// memory, which must equal what this function computes.  Returns the
+// first launch error's cudaError_t, or 0.
 int trim_conv2d_u8s8(const void* x, const void* w, const void* bias,
-                     const void* mult, const void* shift, void* out, int N,
-                     int H, int W, int C, int K, int F, int H_O, int W_O,
-                     int stride, int pad, int TH, int TW, int Cb, int Fb,
-                     int relu, int rq_kind, int rq_shift, int smem_bytes,
+                     const void* mult, const void* shift, void* out,
+                     void* wt, void* parts, int N, int H, int W, int C, int K, int F,
+                     int H_O, int W_O, int stride, int pad, int path, int TH,
+                     int TW, int steps, int n_split, int stages, int relu,
+                     int rq_kind, int rq_shift, int wt_ready, int smem_bytes,
                      void* stream) {
-  ConvArgs a;
-  a.x = x;
-  a.w = w;
-  a.bias = bias;
-  a.mult = static_cast<const int32_t*>(mult);
-  a.shift = static_cast<const int32_t*>(shift);
+  U8Args a;
+  a.rows = (TH - 1) * stride + K;
+  a.cols = (TW - 1) * stride + K;
+  a.depth = K * K * C;
+  const bool slide = path == kU8Slide;
+  const bool window = path == kU8Window || slide;  // the window's layout
+  if ((path != kU8Window && path != kU8Gather && !slide) || TH < 1 ||
+      TW < 1 || (!slide && TH * TW > kU8M) || steps < 1 ||
+      (window && steps > K * K) ||
+      (slide && (K != 3 || stride != 1 || TH != kU8SlideT ||
+                 TW != kU8SlideT || steps != 9 || n_split != 1)) ||
+      stages < 2 || stages > kMaxStages || stride < 1 || K < 1 || C < 1 ||
+      F < 1 || N < 1 || N > 65535 ||
+      static_cast<long long>(K) * K * C > kU8MaxDepth ||
+      (n_split > 1 && parts == nullptr) || rq_kind < kRqNone ||
+      rq_kind > kRqMultShift || rq_shift < 0 || rq_shift > 31 ||
+      (rq_kind == kRqMultShift && (mult == nullptr || shift == nullptr)) ||
+      static_cast<long long>(H) * W * C > 0x7fffffffLL ||
+      static_cast<long long>(H_O) * W_O * F > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.n_tg = window ? (K * K + steps - 1) / steps : 1;
+  a.n_items = window ? (C + kU8Step - 1) / kU8Step * a.n_tg
+                     : (a.depth + steps * kU8Step - 1) / (steps * kU8Step);
+  const int wbytes = window ? a.rows * a.cols * kU8Step : a.rows * a.cols * C;
+  a.win_bytes = (wbytes + 127) / 128 * 128;
+  a.stage_bytes = (window ? a.win_bytes : 0) + steps * kU8StepB;
+  const long long smem =
+      (window ? 0LL : a.win_bytes + static_cast<long long>(steps) *
+                                        kU8AStepB) +
+      static_cast<long long>(stages) * a.stage_bytes;
+  a.n_f = (F + kU8Fb - 1) / kU8Fb;
+  a.Fp = a.n_f * kU8Fb;
+  a.L = window ? (C + kU8Step - 1) / kU8Step * kU8Step
+               : a.n_items * steps * kU8Step;
+  const int G = window ? K * K : 1;
+  if (n_split < 1 || n_split > a.n_items || smem != smem_bytes ||
+      static_cast<long long>(a.n_f) * n_split > 65535 || wt == nullptr ||
+      reinterpret_cast<uintptr_t>(wt) % 16 != 0 ||
+      static_cast<long long>(G) * a.Fp * a.L > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const uint8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.wt = static_cast<const int8_t*>(wt);
   a.out = out;
+  a.parts = static_cast<int32_t*>(parts);
+  a.e.bias = static_cast<const int32_t*>(bias);
+  a.e.mult = static_cast<const int32_t*>(mult);
+  a.e.shift = static_cast<const int32_t*>(shift);
+  a.e.relu = relu;
+  a.e.rq_kind = rq_kind;
+  a.e.rq_shift = rq_shift;
   a.N = N; a.H = H; a.W = W; a.C = C; a.K = K; a.F = F;
   a.H_O = H_O; a.W_O = W_O; a.S = stride; a.pad = pad;
-  a.TH = TH; a.TW = TW; a.Cb = Cb; a.Fb = Fb;
+  a.TH = TH; a.TW = TW;
   a.n_tw = (W_O + TW - 1) / TW;
-  a.relu = relu; a.rq_kind = rq_kind; a.rq_shift = rq_shift;
+  a.steps = steps; a.n_split = n_split; a.stages = stages;
+  a.vec_x = C % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rq_kind == kRqNone)
-    return launch_int<uint8_t, int8_t, int32_t, int32_t>(a, smem_bytes, s);
-  return launch_int<uint8_t, int8_t, int32_t, uint8_t>(a, smem_bytes, s);
+  if (!wt_ready) {
+    const long long units = static_cast<long long>(G) * a.Fp * (a.L / 16);
+    const int blocks = static_cast<int>(
+        (units + 255) / 256 < 4224 ? (units + 255) / 256 : 4224);
+    trim_conv2d_u8s8_wprep<<<blocks, 256, 0, s>>>(
+        a.w, static_cast<int8_t*>(wt), G, window ? C : a.depth, F, a.Fp, a.L);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  const bool u8out = rq_kind != kRqNone;
+  if (path == kU8Slide)
+    return u8out ? launch_u8<kU8Slide, uint8_t>(a, smem_bytes, s)
+                 : launch_u8<kU8Slide, int32_t>(a, smem_bytes, s);
+  if (window)
+    return u8out ? launch_u8<kU8Window, uint8_t>(a, smem_bytes, s)
+                 : launch_u8<kU8Window, int32_t>(a, smem_bytes, s);
+  return u8out ? launch_u8<kU8Gather, uint8_t>(a, smem_bytes, s)
+               : launch_u8<kU8Gather, int32_t>(a, smem_bytes, s);
 }
 
 }  // extern "C"

@@ -2,8 +2,9 @@
 
 Port of ``repro/engine/plan.py``.  A :class:`ConvLayerPlan` is the static
 schedule of one conv layer — its shape, epilogue descriptor, substrate
-choice and GPU tile geometry (``kernels.trim_conv2d.conv_tile``, per conv
-group) — and :func:`plan_model` walks a ``CNNConfig`` into a
+choice and the integer lane's launch geometry (``kernels.trim_conv2d.
+u8_tile``, per conv group, at batch 1 in ``tile`` and at any batch from
+``launch``) — and :func:`plan_model` walks a ``CNNConfig`` into a
 :class:`ModelPlan` whose entry points run the whole network through
 ``repro_torch.engine.execute``.  Both are frozen dataclasses of plain
 values: hashable, comparable by value and cached.
@@ -20,16 +21,20 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 from repro_torch.engine.policy import ExecutionPolicy
-from repro_torch.kernels.trim_conv2d import ConvTile, conv_tile
+from repro_torch.kernels.trim_conv2d import U8Tile, u8_tile
 
 
 @dataclass(frozen=True)
 class ConvLayerPlan:
     """Static schedule for one TrIM conv layer.
 
-    ``c_in``/``c_out`` count all groups; ``block_c``/``block_f`` are the
-    policy's caps limited to one group's channels/filters, and ``tile`` is
-    one group's launch geometry.
+    ``c_in``/``c_out`` count all groups; ``tile_h``/``tile_w``/
+    ``block_c``/``block_f`` are the policy's knobs (the last two limited
+    to one group's channels/filters), kept as the JAX package's plan keeps
+    them and read by no CUDA launch.  ``tile`` is the geometry the integer
+    lane launches for one group at batch 1 (``u8_tile``); its path and
+    split follow the batch, so :meth:`launch` gives any batch's.  The fp32
+    lane plans its own (``f32_tile``).
     """
 
     x_hw: Tuple[int, int]
@@ -49,13 +54,30 @@ class ConvLayerPlan:
     block_c: int
     block_f: int
     epilogue: str
-    tile: ConvTile
+    tile: U8Tile
 
-    def describe(self) -> Dict[str, object]:
-        """Compact schedule record (serve artifacts)."""
+    def launch(self, batch: int = 1) -> U8Tile:
+        """The integer lane's launch geometry for one group at ``batch``."""
+        if batch == 1:
+            return self.tile
+        return u8_tile(self.x_hw, self.c_in // self.groups, self.k,
+                       self.c_out // self.groups, stride=self.stride,
+                       padding=self.padding, batch=batch)
+
+    def describe(self, batches: Tuple[int, ...] = (1,)) -> Dict[str, object]:
+        """Compact schedule record (serve artifacts): per batch of
+        ``batches``, the integer lane's launch: path, output tile, k32
+        steps an item, items, ranges and stages."""
+        def launch(b):
+            t = self.launch(b)
+            return {"batch": int(b),
+                    "path": ("window", "gather", "slide")[t.path],
+                    "tile": [t.TH, t.TW], "steps": t.steps,
+                    "items": t.n_items, "split": t.n_split,
+                    "stages": t.stages}
+
         return {"substrate": self.substrate, "epilogue": self.epilogue,
-                "tile": [self.tile.TH, self.tile.TW],
-                "block_c": self.tile.Cb, "block_f": self.tile.Fb}
+                "launches": [launch(b) for b in batches]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,9 +107,7 @@ def plan_conv_layer(
     cg, fg = c_in // groups, c_out // groups
     block_c = min(policy.block_c, cg)
     block_f = min(policy.block_f, fg)
-    tile = conv_tile(x_hw, cg, k, fg, stride=stride, padding=padding,
-                     tile_h=policy.tile_h, tile_w=policy.tile_w,
-                     block_c=block_c, block_f=block_f)
+    tile = u8_tile(tuple(x_hw), cg, k, fg, stride=stride, padding=padding)
     parts = []
     if has_bias:
         parts.append("bias")
@@ -175,8 +195,9 @@ class ModelPlan:
 
         return execute.executable_for(self, batch, datapath, device)
 
-    def describe(self) -> Tuple[Dict[str, object], ...]:
-        return tuple(lp.describe() for lp in self.layers)
+    def describe(self, batches: Tuple[int, ...] = (1,)
+                 ) -> Tuple[Dict[str, object], ...]:
+        return tuple(lp.describe(batches) for lp in self.layers)
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,6 +21,11 @@ import torch
 
 #: Substrate choices.
 SUBSTRATES = ("auto", "kernel", "oracle")
+#: The bounds :class:`ExecutionPolicy` holds its tile knobs to, as the JAX
+#: package's policy does (``tile_h * tile_w`` and ``block_f``).  No CUDA
+#: launch reads them: both conv lanes plan their own geometry.
+PIX_SLOTS = 128
+FILT_TILE = 32
 
 
 def resolve_substrate(substrate: str, device) -> str:
@@ -65,13 +70,14 @@ class ExecutionPolicy:
 
     ``substrate``
         "auto" (the default), "kernel" or "oracle" — see the module doc.
-    ``tile_h`` / ``tile_w``
-        Output tile of one CUDA block (``tile_h * tile_w <= 128``).
-    ``block_c`` / ``block_f``
-        Upper bounds on the channel chunk and the filter tile (at most
-        32); capped per layer and per conv group at plan time, and the
-        channel chunk also by the shared-memory budget
-        (``kernels.trim_conv2d.conv_tile``).
+    ``tile_h`` / ``tile_w`` / ``block_c`` / ``block_f``
+        The JAX package's tile knobs (``tile_h * tile_w <= 128``,
+        ``block_f <= 32``), kept and checked so that a policy means the
+        same in both packages.  They shape no CUDA launch: the conv
+        kernel's fp32 lane plans its geometry with
+        ``kernels.trim_conv2d.f32_tile`` and its integer lane with
+        ``kernels.trim_conv2d.u8_tile``; ``ConvLayerPlan.tile`` is the
+        latter's.
     """
 
     substrate: str = "auto"
@@ -84,8 +90,6 @@ class ExecutionPolicy:
         if self.substrate not in SUBSTRATES:
             raise ValueError(
                 f"substrate {self.substrate!r} not in {SUBSTRATES}")
-        from repro_torch.kernels.trim_conv2d import FILT_TILE, PIX_SLOTS
-
         if min(self.tile_h, self.tile_w, self.block_c, self.block_f) < 1:
             raise ValueError("tile and block sizes must be >= 1")
         if self.tile_h * self.tile_w > PIX_SLOTS:

@@ -16,15 +16,25 @@ device memory and what bounds it.
   and stages of the cp.async ring, and the fixed-order channel split of
   the layers whose tiles cannot fill the card (:func:`f32_ranges`).
   :func:`f32_output_map` lists the outputs each thread writes.
-- :func:`conv_tile` is the u8 x s8 lane's geometry (output tile, channel
-  chunk sized to a shared-memory budget, filter tile).  The TPU's VMEM
-  width-tile pick and its four-pass halo layout have no counterpart: both
-  lanes load the overlapping haloed window directly.
+- :func:`u8_tile` is the u8 x s8 lane's geometry (the tensor-core
+  implicit GEMM), from the shape and the batch: the path (the window's
+  shifted views; at K = 3 and stride 1 where its tiles fill the card,
+  window rows reused across taps in registers; or, where C <= 8, the
+  im2col rows gathered from the window), the output tile, the steps of
+  an item and the stages of the cp.async ring, and the channel split of
+  the layers whose tiles cannot fill the card (:func:`u8_ranges`).
+  :func:`u8_output_map` lists the outputs each warp writes.  The lane's
+  weights, transposed so that the depth is contiguous, are written once
+  per weight tensor and kept while it lives unchanged
+  (:func:`u8_weights`).  The TPU's VMEM width-tile pick and its four-pass halo
+  layout have no counterpart: both lanes load the overlapping haloed
+  window directly.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -37,14 +47,7 @@ from repro_torch.kernels.requant import requant_mult_shift
 #: callers set it to 0 before a run and read it after).
 LAUNCHES = 0
 
-#: The u8 x s8 lane: output pixels one block computes (tile_h * tile_w
-#: may not exceed it) and filters one block computes (block_f may not
-#: exceed it); both are compiled into the kernel.
-PIX_SLOTS = 128
-FILT_TILE = 32
-#: Shared memory the channel chunk is sized to (keeps several blocks
-#: resident per SM), and the most one block can have on an H100.
-SMEM_BUDGET = 48 * 1024
+#: The most shared memory one block can have on an H100.
 SMEM_MAX = 227 * 1024
 
 #: The fp32 lane, compiled into the kernel: threads a block, output
@@ -61,65 +64,42 @@ F32_TILES = ((32, 8), (16, 16), (8, 32), (4, 64))
 F32_MAX_CB = 8
 F32_STAGES = (3, 2)
 #: The H100's SMs and one SM's shared memory; a block that takes at most
-#: F32_SMEM_PAIR bytes leaves room for a second (1 KB reserved a block;
-#: the kernel is built for two blocks an SM: 128 registers a thread).
+#: SMEM_PAIR bytes leaves room for a second (1 KB reserved a block; both
+#: lanes are built for two blocks an SM: 128 registers a thread).
 SMS = 132
 SM_SMEM = 228 * 1024
-F32_SMEM_PAIR = SM_SMEM // 2 - 1024
+SMEM_PAIR = SM_SMEM // 2 - 1024
 #: A split range holds at least this many (channel, tap) rows.
 F32_MIN_RANGE_TAPS = 96
+
+#: The u8 x s8 lane, compiled into the kernel: threads a block (8 warps
+#: of 32 pixels x 32 filters), output pixels and filters a block, depth
+#: bytes a tensor-core step (mma m16n8k32), and the most K*K*C whose sum
+#: cannot leave int32 (255 * 128 * K*K*C < 2^31).
+U8_THREADS, U8_M, U8_FB, U8_STEP = 256, 128, 64, 32
+U8_MAX_DEPTH = 65793
+#: Paths: ldmatrix reads the window's shifted views (C > U8_GATHER_MAX_C);
+#: the im2col rows are gathered from the window (C <= 8: a 32-channel
+#: chunk would do 4x the work or more); or, at K = 3 and stride 1 (C > 8)
+#: where its tiles fill the card, the slide path: 16 x 16-pixel blocks
+#: whose warps own 4 output rows each and reuse every window row they
+#: load for up to 3 taps.
+U8_WINDOW, U8_GATHER, U8_SLIDE = 0, 1, 2
+U8_GATHER_MAX_C = 8
+U8_SLIDE_TILE = 16
+#: Gather path: most depth steps a chunk.  Stages of the ring, most
+#: preferred first.  A split range holds at least this many steps.
+U8_GATHER_STEPS = 4
+U8_STAGES = (3, 2)
+U8_MIN_RANGE_STEPS = 16
 
 _LIB_NAME = "trim_conv2d"
 _SOURCES = ("trim_conv2d.cu",)
 _BOUND: set = set()  # libraries whose ctypes signatures are declared
 
-
-@dataclass(frozen=True)
-class ConvTile:
-    """One conv's launch geometry on the GPU (per conv group)."""
-
-    H_O: int
-    W_O: int
-    p: int            # symmetric zero padding
-    TH: int           # output rows per block
-    TW: int           # output cols per block
-    n_th: int
-    n_tw: int
-    Cb: int           # channels per shared-memory chunk
-    Fb: int           # filters per block
-    n_f: int
-    smem_bytes: int
-
-
-def conv_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
-              padding: Optional[int], tile_h: int, tile_w: int,
-              block_c: int, block_f: int) -> ConvTile:
-    """Geometry for x (N,H,W,c), w (k,k,c,f).  ``block_c``/``block_f`` are
-    upper bounds: the channel chunk also shrinks until the haloed window
-    plus the weight chunk fit :data:`SMEM_BUDGET` (never below 1)."""
-    H, W = int(hw[0]), int(hw[1])
-    S = int(stride)
-    if S < 1:
-        raise ValueError(f"stride must be >= 1, got {stride}")
-    p = k // 2 if padding is None else int(padding)
-    H_O = (H + 2 * p - k) // S + 1
-    W_O = (W + 2 * p - k) // S + 1
-    if H_O < 1 or W_O < 1:
-        raise ValueError(f"empty conv output for input {hw}, k={k}, p={p}")
-    if tile_h * tile_w > PIX_SLOTS:
-        raise ValueError(f"tile_h*tile_w = {tile_h * tile_w} > {PIX_SLOTS}")
-    TH, TW = min(tile_h, H_O), min(tile_w, W_O)
-    rows, cols = (TH - 1) * S + k, (TW - 1) * S + k
-    per_c = 4 * (rows * cols + k * k * FILT_TILE)
-    Cb = max(1, min(block_c, c, SMEM_BUDGET // per_c))
-    smem = Cb * per_c
-    if smem > SMEM_MAX:
-        raise ValueError(f"conv tile needs {smem} B of shared memory "
-                         f"(> {SMEM_MAX}); lower tile_h/tile_w")
-    Fb = min(block_f, f, FILT_TILE)
-    return ConvTile(H_O=H_O, W_O=W_O, p=p, TH=TH, TW=TW,
-                    n_th=-(-H_O // TH), n_tw=-(-W_O // TW), Cb=Cb, Fb=Fb,
-                    n_f=-(-f // Fb), smem_bytes=smem)
+#: The integer lane's transposed weights, kept per weight tensor:
+#: id(w) -> (weak reference to w, {layout key: ((version, address), wt)}).
+_WT: dict = {}
 
 
 def fewest_ranges(items: int, tiles: int, slots: int, cap: int) -> int:
@@ -176,7 +156,7 @@ def f32_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
     The output tile is the one of :data:`F32_TILES` with the fewest padded
     pixels, then the smallest window.  The chunk is the most channels (up
     to :data:`F32_MAX_CB`) whose 3 stages, else 2, fit
-    :data:`F32_SMEM_PAIR` (two blocks an SM), else one channel in 2
+    :data:`SMEM_PAIR` (two blocks an SM), else one channel in 2
     stages up to :data:`SMEM_MAX`.  Where one image's tiles x filter tiles
     do not give every SM a block, the chunks are cut into the fewest
     contiguous ranges that minimise the makespan with one block an SM
@@ -212,7 +192,7 @@ def f32_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
     _, TH, TW, rows, cols, RS, plane, n_th, n_tw = best
     fit = next(((st, cb) for st in F32_STAGES
                 for cb in range(min(C, F32_MAX_CB), 0, -1)
-                if _f32_smem(st, cb, plane, K) <= F32_SMEM_PAIR), (2, 1))
+                if _f32_smem(st, cb, plane, K) <= SMEM_PAIR), (2, 1))
     stages, Cb = fit
     smem = _f32_smem(stages, Cb, plane, K)
     n_chunks, n_f = -(-C // Cb), -(-F // F32_FB)
@@ -256,6 +236,183 @@ def f32_output_map(t: F32Tile, f: int):
     fo = ft * F32_FB + (tid % 8) * 8 + j
     ho, wo, fo = torch.broadcast_tensors(ho, wo, fo)
     keep = (ho < t.H_O) & (wo < t.W_O) & (fo < f)
+    return ho[keep], wo[keep], fo[keep]
+
+
+def u8_block_pixels(path: int) -> int:
+    """Output pixels one block of ``path`` computes."""
+    return U8_SLIDE_TILE ** 2 if path == U8_SLIDE else U8_M
+
+
+@dataclass(frozen=True)
+class U8Tile:
+    """One u8 x s8 conv's launch geometry on the GPU (per conv group)."""
+
+    H_O: int
+    W_O: int
+    p: int            # symmetric zero padding
+    path: int         # U8_WINDOW, U8_GATHER or U8_SLIDE
+    TH: int           # output rows per block (TH * TW <= its pixels)
+    TW: int           # output cols per block
+    n_th: int
+    n_tw: int
+    n_f: int          # filter tiles of U8_FB
+    rows: int         # the haloed window of one tile
+    cols: int
+    steps: int        # k32 steps an item (window: taps of a group)
+    n_tg: int         # window path: tap groups a 32-channel chunk (else 1)
+    n_items: int      # window: chunks x tap groups; gather: depth chunks
+    n_split: int      # contiguous ranges of items the sum is cut into
+    stages: int       # cp.async ring stages (2 or 3)
+    win_bytes: int    # the window's bytes (rounded up to 128)
+    stage_bytes: int
+    smem_bytes: int
+    wt_bytes: int     # scratch for the transposed weights [G][Fp][L]
+
+
+def _u8_smem(path: int, win: int, steps: int, stages: int):
+    """(stage bytes, shared memory) of one block: window and slide paths,
+    ``stages`` x (window + the weights of ``steps`` taps); gather path,
+    the window + ``stages`` x the weights of ``steps`` depth steps + the
+    gathered A rows."""
+    wb = steps * U8_FB * U8_STEP
+    if path != U8_GATHER:
+        stage = win + wb
+        return stage, stages * stage
+    return wb, win + stages * wb + steps * U8_M * U8_STEP
+
+
+@functools.lru_cache(maxsize=512)
+def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
+            padding: Optional[int], batch: int = 1,
+            path: Optional[int] = None) -> U8Tile:
+    """The u8 x s8 lane's geometry for x (batch,H,W,c), w (k,k,c,f).  The
+    policy's ``tile_h``/``tile_w``/``block_c``/``block_f`` do not apply.
+
+    The path is the gather path where C <= :data:`U8_GATHER_MAX_C`, else
+    the slide path at K = 3 and stride 1 where its 16 x 16 output tiles
+    x filter tiles give every SM a block without a split (at batch 8 every
+    VGG-16 conv but CL1 and CL11-CL13; at batch 1 only CL2), else the
+    window path.  The window and gather paths' output tile is the TH x TW
+    <= :data:`U8_M` with the fewest tiles, then widths that are a
+    multiple of 8 (an ldmatrix phase on one window row), then the
+    smallest window, then the widest.  The window and slide paths take
+    every tap of a 32-channel chunk in one item (its window loaded once
+    for all K*K taps) with 3 stages, else 2, in half an SM (two blocks an
+    SM), else in :data:`SMEM_MAX`, else as many taps an item as fit; the
+    gather path takes up to :data:`U8_GATHER_STEPS` steps a chunk.  Where the batch's tiles x filter tiles do not fill every SM's
+    blocks, the items are cut into the fewest contiguous ranges that
+    minimise the makespan (:func:`fewest_ranges`), each range at least
+    :data:`U8_MIN_RANGE_STEPS` steps where the layer has them (never on
+    the slide path, which fills the card unsplit).  Integer sums are
+    exact in any order, so the path and the split may follow the batch.
+    ``path`` forces a path (the slide path needs K = 3 at stride 1).
+    """
+    H, W = int(hw[0]), int(hw[1])
+    S, K, C, F = int(stride), int(k), int(c), int(f)
+    if S < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    if K * K * C > U8_MAX_DEPTH:
+        raise ValueError(f"K*K*C = {K * K * C} > {U8_MAX_DEPTH}: the int32 "
+                         "sum could wrap")
+    p = K // 2 if padding is None else int(padding)
+    H_O = (H + 2 * p - K) // S + 1
+    W_O = (W + 2 * p - K) // S + 1
+    if H_O < 1 or W_O < 1:
+        raise ValueError(f"empty conv output for input {hw}, k={K}, p={p}")
+    n_f = -(-F // U8_FB)
+    T = U8_SLIDE_TILE
+    if path is None:
+        path = (U8_GATHER if C <= U8_GATHER_MAX_C
+                else U8_SLIDE if K == 3 and S == 1 and (
+                    -(-H_O // T) * -(-W_O // T) * n_f * int(batch) >= SMS)
+                else U8_WINDOW)
+    elif path not in (U8_WINDOW, U8_GATHER, U8_SLIDE) or (
+            path == U8_SLIDE and (K, S) != (3, 1)):
+        raise ValueError(f"path {path} does not take K={K}, S={S}")
+    best = None
+    tws = [U8_SLIDE_TILE] if path == U8_SLIDE else range(1, min(W_O, U8_M) + 1)
+    for TW in tws:
+        TH = U8_SLIDE_TILE if path == U8_SLIDE else min(U8_M // TW, H_O)
+        rows, cols = (TH - 1) * S + K, (TW - 1) * S + K
+        n_th, n_tw = -(-H_O // TH), -(-W_O // TW)
+        key = (n_th * n_tw, TW % 8 != 0, rows * cols, -TW)
+        if best is None or key < best[0]:
+            best = (key, TH, TW, rows, cols, n_th, n_tw)
+    _, TH, TW, rows, cols, n_th, n_tw = best
+    if path != U8_GATHER:
+        win = -(-(rows * cols * U8_STEP) // 128) * 128
+        fits = [(K * K, st, lim) for lim in (SMEM_PAIR, SMEM_MAX)
+                for st in U8_STAGES]
+        fits += [(g, 2, SMEM_MAX) for g in range(K * K - 1, 0, -1)]
+    else:
+        win = -(-(rows * cols * C) // 128) * 128
+        g = min(U8_GATHER_STEPS, -(-(K * K * C) // U8_STEP))
+        fits = [(g, st, lim) for lim in (SMEM_PAIR, SMEM_MAX)
+                for st in U8_STAGES]
+    steps, stages = next(((g, st) for g, st, lim in fits
+                          if _u8_smem(path, win, g, st)[1] <= lim),
+                         (None, None))
+    if steps is None:
+        raise ValueError(f"no u8 conv tile fits K={K}, S={S}, C={C} in "
+                         f"{SMEM_MAX} bytes of shared memory")
+    stage_bytes, smem = _u8_smem(path, win, steps, stages)
+    if path != U8_GATHER:
+        n_tg = -(-(K * K) // steps)
+        n_items = -(-C // U8_STEP) * n_tg
+    else:
+        n_tg = 1
+        n_items = -(-(K * K * C) // (steps * U8_STEP))
+    wt_bytes = (K * K * n_f * U8_FB * -(-C // U8_STEP) * U8_STEP
+                if path != U8_GATHER
+                else n_f * U8_FB * n_items * steps * U8_STEP)
+    tiles = n_th * n_tw * n_f * int(batch)
+    # blocks an SM: the gather path is built for 3, the others for 2
+    slots = SMS * min(3 if path == U8_GATHER else 2,
+                      SM_SMEM // (smem + 1024))
+    n_split = 1
+    if tiles < slots and path != U8_SLIDE:
+        # in steps of 128 pixels
+        m128 = steps * u8_block_pixels(path) // U8_M
+        cap = n_items // -(-U8_MIN_RANGE_STEPS // m128)
+        n_split = fewest_ranges(n_items, tiles, slots,
+                                min(max(1, cap), 65535 // n_f))
+    return U8Tile(H_O=H_O, W_O=W_O, p=p, path=path, TH=TH, TW=TW,
+                  n_th=n_th, n_tw=n_tw, n_f=n_f, rows=rows, cols=cols,
+                  steps=steps, n_tg=n_tg, n_items=n_items, n_split=n_split,
+                  stages=stages, win_bytes=win, stage_bytes=stage_bytes,
+                  smem_bytes=smem, wt_bytes=wt_bytes)
+
+
+def u8_ranges(t: U8Tile):
+    """The item ranges ``[(k0, k1), ...]`` of the n_split blocks of a
+    tile, in split order (the kernel's: items ``n_items * s // n_split``
+    up to ``n_items * (s + 1) // n_split``)."""
+    return [(t.n_items * s // t.n_split, t.n_items * (s + 1) // t.n_split)
+            for s in range(t.n_split)]
+
+
+def u8_output_map(t: U8Tile, f: int):
+    """Every output the kernel's threads write for one image and one split
+    range, as flat index tensors ``(ho, wo, filter)``: block (tile, filter
+    tile), warp (pixels (warp % 4) * M / 4 of the block's M, filters
+    (warp // 4) * 32), m16n8 tile (mt of M / 64, nt of 4), lane and
+    accumulator q (pixel mt * 16 + (lane >> 2) + 8 * (q >> 1), filter
+    (lane & 3) * 2 + (q & 1)), those inside TH * TW and H_O x W_O x f."""
+    M = u8_block_pixels(t.path)
+    tile = torch.arange(t.n_th * t.n_tw).view(-1, 1, 1, 1, 1, 1, 1)
+    ft = torch.arange(t.n_f).view(1, -1, 1, 1, 1, 1, 1)
+    warp = torch.arange(U8_THREADS // 32).view(1, 1, -1, 1, 1, 1, 1)
+    mt = torch.arange(M // 64).view(1, 1, 1, -1, 1, 1, 1)
+    nt = torch.arange(4).view(1, 1, 1, 1, -1, 1, 1)
+    lane = torch.arange(32).view(1, 1, 1, 1, 1, -1, 1)
+    q = torch.arange(4).view(1, 1, 1, 1, 1, 1, -1)
+    m = (warp % 4) * (M // 4) + mt * 16 + lane // 4 + 8 * (q // 2)
+    fo = ft * U8_FB + (warp // 4) * 32 + nt * 8 + (lane % 4) * 2 + q % 2
+    ho = (tile // t.n_tw) * t.TH + m // t.TW
+    wo = (tile % t.n_tw) * t.TW + m % t.TW
+    m, ho, wo, fo = torch.broadcast_tensors(m, ho, wo, fo)
+    keep = (m < t.TH * t.TW) & (ho < t.H_O) & (wo < t.W_O) & (fo < f)
     return ho[keep], wo[keep], fo[keep]
 
 
@@ -306,17 +463,18 @@ def load_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.trim_conv2d_f32.argtypes = [p] * 5 + [i] * 21 + [p]
         lib.trim_conv2d_f32.restype = i
-        lib.trim_conv2d_u8s8.argtypes = [p] * 6 + [i] * 18 + [p]
+        lib.trim_conv2d_u8s8.argtypes = [p] * 8 + [i] * 21 + [p]
         lib.trim_conv2d_u8s8.restype = i
         lib.trim_conv2d_error_string.argtypes = [i]
         lib.trim_conv2d_error_string.restype = ctypes.c_char_p
-        for name in ("pix_slots", "filt_tile", "f32_threads",
-                     "f32_filters"):
+        for name in ("f32_threads", "f32_filters", "u8_pixels",
+                     "u8_filters", "u8_max_depth"):
             getattr(lib, f"trim_conv2d_{name}").restype = i
-        if (lib.trim_conv2d_pix_slots() != PIX_SLOTS
-                or lib.trim_conv2d_filt_tile() != FILT_TILE
-                or lib.trim_conv2d_f32_threads() != F32_THREADS
-                or lib.trim_conv2d_f32_filters() != F32_FB):
+        if (lib.trim_conv2d_f32_threads() != F32_THREADS
+                or lib.trim_conv2d_f32_filters() != F32_FB
+                or lib.trim_conv2d_u8_pixels() != U8_M
+                or lib.trim_conv2d_u8_filters() != U8_FB
+                or lib.trim_conv2d_u8_max_depth() != U8_MAX_DEPTH):
             raise RuntimeError("trim_conv2d library tile constants differ "
                                "from the wrapper's")
         _BOUND.add(lib)
@@ -336,8 +494,65 @@ def f32_launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int,
                int(F % 4 == 0 and w_aligned))
 
 
+@functools.lru_cache(maxsize=512)
+def u8_launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int,
+                   S: int, padding: Optional[int]):
+    """The u8 x s8 geometry and the C function's integer arguments for one
+    call's shape (cached, as :func:`f32_launch_args`)."""
+    N, H, W, C = x_shape
+    t = u8_tile((H, W), C, K, F, stride=S, padding=padding, batch=N)
+    return t, (N, H, W, C, K, F, t.H_O, t.W_O, S, t.p, t.path, t.TH, t.TW,
+               t.steps, t.n_split, t.stages)
+
+
+def u8_weights(w: torch.Tensor, key, nbytes: int):
+    """The buffer for ``w``'s transposed weights under layout ``key`` (the
+    stream included), and whether it already holds them: ``(wt, ready)``.
+    A buffer is kept per weight tensor and key while ``w`` lives and its
+    version counter and address stand, so an in-place update of ``w``
+    makes the next call write it anew (an update that the counter does
+    not see, through ``.data`` or a raw pointer, needs a new tensor).  An
+    inference tensor has no version counter: every call writes its own
+    buffer.  :func:`u8_weights_keep` records a buffer once its writing
+    launch is queued."""
+    if not w.is_inference():
+        ent = _WT.get(id(w))
+        if ent is not None and ent[0]() is w:
+            hit = ent[1].get(key)
+            if hit is not None and hit[0] == (w._version, w.data_ptr()):
+                return hit[1], True
+    return torch.empty(nbytes, dtype=torch.int8, device=w.device), False
+
+
+def u8_weights_keep(w: torch.Tensor, key, wt: torch.Tensor) -> None:
+    """Keep ``wt``, just written from ``w`` under ``key``, for the later
+    calls of :func:`u8_weights`; dropped with ``w``."""
+    if w.is_inference():
+        return
+    k = id(w)
+    ent = _WT.get(k)
+    if ent is None or ent[0]() is not w:
+        def drop(ref, k=k):
+            if _WT.get(k, (None,))[0] is ref:
+                del _WT[k]
+        ent = (weakref.ref(w, drop), {})
+        _WT[k] = ent
+    ent[1][key] = ((w._version, w.data_ptr()), wt)
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _on_stream(x: torch.Tensor, launch):
+    """``launch(stream)`` on x's device and its current stream; the device
+    is switched only where x is not on the current one (the switch and
+    the stream lookup by device cost the host more than the launch)."""
+    idx = x.get_device()
+    if idx == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(idx):
+        return launch(torch.cuda.current_stream().cuda_stream)
 
 
 def _per_channel(v, F: int, device) -> torch.Tensor:
@@ -358,10 +573,14 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     (F,) is fp32 on the float lane and int32 on the integer lane.  A CPU
     ``x`` runs :func:`trim_conv2d_plain`; a CUDA ``x`` launches the
     kernel on the current stream, or raises.  ``tile_h``/``tile_w``/
-    ``block_c``/``block_f`` shape the integer lane only; the fp32 lane
-    plans its own geometry from the per-image shape (:func:`f32_tile`),
-    and where it splits the channel sum, one call launches the conv and
-    the kernel that merges its partials (one count in :data:`LAUNCHES`).
+    ``block_c``/``block_f`` mirror the JAX package's signature and shape
+    no launch: the fp32 lane plans its geometry from the per-image shape
+    (:func:`f32_tile`), the integer lane from the shape and the batch
+    (:func:`u8_tile`).  Where either splits its sum, one call launches the
+    conv and the kernel that merges its partials; the integer lane's
+    first call on a weight tensor (or after it changed) also launches the
+    weights' transposition (:func:`u8_weights`).  One count in
+    :data:`LAUNCHES` a call.
     """
     global LAUNCHES
     if x.device.type == "cpu":
@@ -419,31 +638,37 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         parts = (None if t.n_split == 1 else torch.empty(
             (t.n_split, N, t.H_O, t.W_O, F), dtype=torch.float32,
             device=x.device))
-        with torch.cuda.device(x.device):
-            rc = lib.trim_conv2d_f32(
-                _ptr(x), _ptr(w), _ptr(bias), _ptr(out), _ptr(parts), *args,
-                int(relu), t.smem_bytes,
-                torch.cuda.current_stream(x.device).cuda_stream)
+        rc = _on_stream(x, lambda stream: lib.trim_conv2d_f32(
+            _ptr(x), _ptr(w), _ptr(bias), _ptr(out), _ptr(parts), *args,
+            int(relu), t.smem_bytes, stream))
     else:
-        g = conv_tile((H, W), C, K, F, stride=stride, padding=padding,
-                      tile_h=tile_h, tile_w=tile_w, block_c=block_c,
-                      block_f=block_f)
-        if g.n_f > 65535:
-            raise ValueError(f"{F} filters need {g.n_f} filter tiles "
-                             "(> 65535)")
+        t, args = u8_launch_args((N, H, W, C), K, F, int(stride), padding)
+        if t.n_f * t.n_split > 65535:
+            raise ValueError(f"{F} filters need {t.n_f} filter tiles "
+                             f"(x {t.n_split} ranges > 65535)")
         out_dtype = (torch.uint8 if requant_shift is not None
                      or requant is not None else torch.int32)
-        out = torch.empty((N, g.H_O, g.W_O, F), dtype=out_dtype,
+        out = torch.empty((N, t.H_O, t.W_O, F), dtype=out_dtype,
                           device=x.device)
+        parts = (None if t.n_split == 1 else torch.empty(
+            (t.n_split, N, t.H_O, t.W_O, F), dtype=torch.int32,
+            device=x.device))
         rq_kind = (2 if requant is not None
                    else 1 if requant_shift is not None else 0)
-        with torch.cuda.device(x.device):
+
+        def launch(stream):
+            gather = t.path == U8_GATHER
+            key = (stream, gather, t.steps if gather else 0, t.wt_bytes)
+            wt, ready = u8_weights(w, key, -(-t.wt_bytes // 16) * 16)
             rc = lib.trim_conv2d_u8s8(
                 _ptr(x), _ptr(w), _ptr(bias), _ptr(mult), _ptr(shift),
-                _ptr(out), N, H, W, C, K, F, g.H_O, g.W_O, int(stride), g.p,
-                g.TH, g.TW, g.Cb, g.Fb, int(relu), rq_kind,
-                int(requant_shift or 0), g.smem_bytes,
-                torch.cuda.current_stream(x.device).cuda_stream)
+                _ptr(out), _ptr(wt), _ptr(parts), *args, int(relu), rq_kind,
+                int(requant_shift or 0), int(ready), t.smem_bytes, stream)
+            if rc == 0 and not ready:
+                u8_weights_keep(w, key, wt)
+            return rc
+
+        rc = _on_stream(x, launch)
     if rc != 0:
         msg = lib.trim_conv2d_error_string(rc).decode()
         raise RuntimeError(f"trim_conv2d launch failed: CUDA error {rc} "

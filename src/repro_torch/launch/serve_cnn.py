@@ -156,7 +156,7 @@ def main() -> None:
         "requests": args.requests,
         "max_delay_ms": args.max_delay_ms,
         "producers": args.producers,
-        "plan": list(server.engine.plan.describe()),
+        "plan": list(server.engine.plan.describe(serve_config.buckets)),
         "executables": dict(server.engine.compile_counts),
         "kernel_launches": launches,
     }

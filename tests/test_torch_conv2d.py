@@ -93,15 +93,18 @@ def test_wrapper_rejects_bad_epilogues(bad):
 @pytest.mark.parametrize("arch", ["vgg16", "alexnet"])
 def test_tile_geometry_fits_the_card_at_full_width(arch):
     """Every full-width layer plan fits one block's shared memory, covers
-    its output and never tiles past the compiled thread layout: the
-    integer lane's tile (the plan's) and the fp32 lane's own geometry."""
+    its output and never tiles past the compiled layout: the integer
+    lane's geometry (the plan's, ``u8_tile`` at batch 1) and the fp32
+    lane's own."""
     for lp in plan_model(CNN_REGISTRY[arch], ExecutionPolicy()).layers:
         t = lp.tile
-        assert t.TH * t.TW <= kern.PIX_SLOTS and t.Fb <= kern.FILT_TILE
+        assert t == kern.u8_tile(lp.x_hw, lp.c_in // lp.groups, lp.k,
+                                 lp.c_out // lp.groups, stride=lp.stride,
+                                 padding=lp.padding)
+        assert t.TH * t.TW <= kern.u8_block_pixels(t.path)
         assert t.n_th * t.TH >= t.H_O and t.n_tw * t.TW >= t.W_O
-        assert t.n_f * t.Fb >= lp.c_out // lp.groups
-        assert 1 <= t.Cb <= lp.c_in // lp.groups
-        assert t.smem_bytes <= kern.SMEM_BUDGET or t.Cb == 1
+        assert t.n_f * kern.U8_FB >= lp.c_out // lp.groups
+        assert 1 <= t.n_split <= t.n_items
         assert t.smem_bytes <= kern.SMEM_MAX
         f = kern.f32_tile(lp.x_hw, lp.c_in // lp.groups, lp.k,
                           lp.c_out // lp.groups, stride=lp.stride,

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on a card: the
 TrIM conv kernel (and each path of its fp32 lane, split and not, the same
 bits over two calls and in a batch of 8 as alone; the input gradient
-through it against ``conv2d_input``), the weight-gradient kernel, the
+through it against ``conv2d_input``; its u8 x s8 lane bit for bit at
+every VGG-16 and AlexNet conv, on each of its paths, split and not, at
+the largest sum and at batch 8 as 8 calls of batch 1), the weight-gradient kernel, the
 autograd Function that runs both, the causal conv1d kernel (bit for bit), the flash-attention
 kernel (fp32 within 2e-5, bf16 within 2e-2 and per row within 4 x 2^-7 of
 the row's max|plain|, on both bf16 paths; its split decode bit-equal over
@@ -45,6 +47,8 @@ CASES = [
     (1, 23, 23, 3, 11, 8, 4, 0, 1, "u8s8", "relu+requant"),
     (1, 9, 9, 8, 5, 8, 1, 2, 2, "u8s8", "relu+requant"),
     (1, 9, 9, 4, 1, 6, 1, 0, 1, "u8s8", "bias+relu"),
+    (1, 10, 10, 33, 3, 16, 1, 1, 1, "u8s8", "relu+requant"),
+    (1, 9, 9, 16, 3, 72, 1, 1, 1, "u8s8", "bias+relu"),
 ]
 
 
@@ -365,6 +369,206 @@ def test_u8s8_lane_bit_exact_at_vgg_width_on_card():
     want = kern.trim_conv2d_plain(x, w, relu=True, requant=rq)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == torch.uint8 and torch.equal(got, want)
+
+
+def _net_layers():
+    """(id, arch, layer spec, groups, last) of both networks."""
+    from repro_torch.core.model import ALEXNET_LAYERS, VGG16_LAYERS
+
+    out = []
+    for arch, layers, c0 in (("vgg16", VGG16_LAYERS, 3),
+                             ("alexnet", ALEXNET_LAYERS, 3)):
+        c = c0
+        for i, l in enumerate(layers):
+            out.append((f"{arch}-{l.name}", arch, l, c // l.M,
+                        i == len(layers) - 1))
+            c = l.N
+    return out
+
+
+def _u8_layer_inputs(l, groups, N, last, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, 256, (N, l.H_I, l.W_I, l.M * groups),
+                                      np.uint8)).to(dev)
+    w = torch.from_numpy(rng.integers(-128, 128, (l.K, l.K, l.M, l.N),
+                                      np.int8)).to(dev)
+    rq = None
+    if not last:
+        psum = ref.conv2d(x, w, stride=l.stride, padding=l.padding,
+                          groups=groups).clamp(min=0)
+        amax = psum.amax(dim=(0, 1, 2)).cpu().numpy().astype(np.float64)
+        m, s = scale_to_mult_shift(255.0 / np.maximum(amax, 1.0))
+        rq = (torch.as_tensor(m, device=dev), torch.as_tensor(s, device=dev))
+    return x, w, rq
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", _net_layers(), ids=lambda c: c[0])
+def test_u8s8_network_layers_bit_exact_on_card(layer):
+    """On a card: every VGG-16 and AlexNet conv at full width, batch 2,
+    ReLU + per-channel requant (raw ReLU'd int32 on each network's last
+    conv), through ``ops.trim_conv2d`` (groups split per call), bit for
+    bit against the plain version; one launch per group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    name, arch, l, groups, last = layer
+    dev = torch.device("cuda")
+    x, w, rq = _u8_layer_inputs(l, groups, 2, last, zlib.crc32(name.encode()),
+                                dev)
+    args = dict(stride=l.stride, padding=l.padding, groups=groups, relu=True)
+    before = kern.LAUNCHES
+    got = port_conv(x, w, None, rq, policy=ExecutionPolicy("kernel"), **args)
+    assert kern.LAUNCHES == before + groups
+    want = port_conv(x, w, None, rq, policy=ExecutionPolicy("oracle"), **args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == (torch.int32 if last else torch.uint8)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# (N, H, W, C, K, F, stride, padding, epilogue kwargs)
+U8_EDGE_CASES = [
+    # stride 2 with a ragged W_O (13), C a multiple of 16, F of 8
+    ("stride2-ragged", 2, 21, 26, 64, 3, 40, 2, 1, dict(relu=True)),
+    ("stride2-gather", 1, 25, 27, 3, 5, 24, 2, 2, dict(relu=True)),
+    ("shift0", 1, 12, 12, 32, 3, 64, 1, 1, dict(relu=True, requant_shift=0)),
+    ("shift31", 1, 12, 12, 32, 3, 64, 1, 1,
+     dict(relu=False, requant_shift=31)),
+    ("scalar-pair", 2, 14, 14, 64, 3, 64, 1, 1,
+     dict(relu=True, requant="scalar")),
+    ("k7-c64", 1, 16, 16, 64, 7, 64, 1, 3, dict(relu=True)),
+    # the slide path (its tiles fill the card) with ragged 16 x 16 tiles,
+    # C not a multiple of 32 and F not of 64
+    ("slide-ragged", 8, 60, 50, 48, 3, 136, 1, 1,
+     dict(relu=True, requant="scalar")),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", U8_EDGE_CASES, ids=lambda c: c[0])
+def test_u8s8_edge_cases_bit_exact_on_card(case):
+    """On a card: ragged strided outputs, both shifts' extremes, a scalar
+    requant pair, K = 7 (taps in groups) and the slide path on ragged
+    tiles, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    name, N, H, W, C, K, F, S, p, kw = case
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.integers(0, 256, (N, H, W, C), np.uint8)).to(dev)
+    w = torch.from_numpy(rng.integers(-128, 128, (K, K, C, F),
+                                      np.int8)).to(dev)
+    kw = dict(kw)
+    if kw.get("requant") == "scalar":
+        psum = ref.conv2d(x, w, stride=S, padding=p)
+        m, s = scale_to_mult_shift(255.0 / max(float(psum.max()), 1.0))
+        kw["requant"] = (int(m), int(s))
+    got = kern.trim_conv2d(x, w, stride=S, padding=p, **kw)
+    want = kern.trim_conv2d_plain(x, w, stride=S, padding=p, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", ["vgg16-CL12", "vgg16-CL8"])
+def test_u8s8_split_batch_of_8_equals_8_calls_on_card(layer):
+    """On a card: a layer that splits its channel sum at batch 1 (and
+    less at batch 8) gives, at batch 8, the 8 images' batch-1 results bit
+    for bit, and both equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    _, arch, l, groups, last = next(c for c in _net_layers()
+                                    if c[0] == layer)
+    t1 = kern.u8_tile((l.H_I, l.W_I), l.M, l.K, l.N, stride=l.stride,
+                      padding=l.padding, batch=1)
+    assert t1.n_split > 1
+    dev = torch.device("cuda")
+    x, w, rq = _u8_layer_inputs(l, groups, 8, False, 8, dev)
+    kw = dict(stride=l.stride, padding=l.padding, relu=True, requant=rq)
+    got = kern.trim_conv2d(x, w, **kw)
+    ones = torch.cat([kern.trim_conv2d(x[i:i + 1], w, **kw)
+                      for i in range(8)])
+    want = kern.trim_conv2d_plain(x, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ones) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wv", [-128, 127])
+def test_u8s8_largest_sum_on_card(wv):
+    """On a card: x all 255 and w all -128 (or 127) at C = 512, K = 3:
+    every output of the unpadded conv is 255 * wv * 4608 exactly, in
+    int32, whether the sum is split or not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    dev = torch.device("cuda")
+    for N in (1, 8):
+        x = torch.full((N, 16, 16, 512), 255, dtype=torch.uint8, device=dev)
+        w = torch.full((3, 3, 512, 64), wv, dtype=torch.int8, device=dev)
+        got = kern.trim_conv2d(x, w, padding=0)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (N, 14, 14, 64)
+        assert bool((got == 255 * wv * 4608).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(14, 14, 256, 3, 1, 72),
+                                   (227, 227, 3, 11, 4, 96)],
+                         ids=["window", "gather"])
+def test_u8s8_kept_weights_follow_updates_on_card(shape):
+    """On a card: repeated calls on one weight tensor (its transposition
+    kept from the first), a call after an in-place update of the weights
+    and a call on another stream each equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    H, W, C, K, S, F = shape
+    rng = np.random.default_rng(20)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.integers(0, 256, (2, H, W, C), dtype=np.uint8)
+                         ).to(dev)
+    w = torch.from_numpy(rng.integers(-128, 128, (K, K, C, F),
+                                      dtype=np.int8)).to(dev)
+    new = torch.from_numpy(rng.integers(-128, 128, (K, K, C, F),
+                                        dtype=np.int8)).to(dev)
+    kw = dict(stride=S, padding=0, relu=True, requant_shift=12)
+
+    def check():
+        got = kern.trim_conv2d(x, w, **kw)
+        want = kern.trim_conv2d_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+    check()
+    check()
+    w.copy_(new)
+    check()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        check()
+
+
+@pytest.mark.gpu
+def test_u8s8_refuses_a_sum_that_could_wrap_on_card():
+    """On a card: K*K*C past 65793 could wrap the int32 sum: refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    dev = torch.device("cuda")
+    x = torch.zeros((1, 3, 3, 8128), dtype=torch.uint8, device=dev)
+    w = torch.zeros((3, 3, 8128, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="could wrap"):
+        kern.trim_conv2d(x, w)
 
 
 # (B, L, D, K): the CPU cases of test_torch_conv1d.py (L < K-1, L == 1,
