@@ -29,7 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    CL2 (K=5, groups=2); the int8 lane (ReLU+requant; ReLU into raw int32
    on each network's last conv) at every VGG-16 and AlexNet conv at
    batch 1 and 8.  Float within rtol 1e-4 / atol 1e-4 * max|plain|, int8
-   bit for bit.  Per shape: kernel ms, plain ms, ``F.conv2d`` ms (cuDNN,
+   bit for bit; the int5 MSR lane (the u8 x s8 kernel on the operands
+   ``w5`` of random int8 weights, |w5| <= 31, with requant pairs
+   calibrated on ``psum5 << e`` and the exponent folded in) at every
+   VGG-16 conv at batch 1 and 8, bit for bit.  Per shape: kernel ms,
+   plain ms, ``F.conv2d`` ms (cuDNN,
    TF32 off, float shapes only, a yardstick the port never calls) and the
    bound max(operations / peak, bytes / 3.35 TB/s), the kernel's device
    time under ``torch.profiler`` and the host's issue time a call (at
@@ -104,6 +108,23 @@ Phases (any failure exits non-zero and prints no result line):
    bit, logits close to the oracle substrate on the card;
 5. serve int8: the same on the calibrated int8 lane; features bit-equal
    to the oracle substrate on the card;
+5b. serve int5: the same on the int5 MSR lane (``quantize_int5``,
+   ``calibrate_requant_int5``): 13 launches of the u8 x s8 kernel a
+   flush, features bit-equal to the oracle substrate's ``forward_int5``,
+   and ``forward_int5`` on the kernels bit-equal to ``forward_int8`` on
+   the decompressed weights ``w5 << e`` with the exponent on the shift;
+5c. f32exact and emulate_hw: at every VGG-16 conv and AlexNet's CL1,
+   CL2, CL4 and CL5, batch 1, ``w_bits`` 8 and 5, the f32exact
+   substrate bit-equal to the oracle at worst-case magnitudes (all-255
+   x, each filter at +-127 or +-31) and on random inputs, with one launch
+   of the conv kernel's fp32 lane a channel chunk (57 or 235 channels at
+   K = 3; counted) and ``F.conv2d`` refused (no cuDNN, no float64
+   oracle); its ms beside the u8 x s8 lane's; full-width VGG-16's
+   ``forward_int8`` and ``forward_int5`` on f32exact at batch 1 bit-equal
+   to the oracle substrate's, their fp32 launches counted from 0 (71 and
+   26 chunks); AlexNet CL1 (stride 4) under ``emulate_hw`` (the stride-1
+   sweep, decimated, unfused requant) bit-equal to the strided path on
+   the int8 lane, on the kernel and on f32exact, at batch 1 and 8;
 6. train: full-width VGG-16, batch 8, 4 AdamW steps from a seed-0 init
    on the ``SyntheticImageDataset`` stream through ``make_train_step`` on
    the default substrate, with the oracle substrate's step run on the
@@ -147,6 +168,7 @@ Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -411,6 +433,13 @@ def phase_kernels(torch, reps: int):
     for N in (1, TRAIN_BATCH):
         for arch, i, l, groups, last in _u8_cases():
             rows.append(_u8_row(torch, gen, arch, l, groups, last, N, reps))
+    # the int5 lane (the u8 x s8 kernel on MSR operands, folded pairs) at
+    # every VGG-16 conv, batch 1 and 8
+    for N in (1, TRAIN_BATCH):
+        for arch, i, l, groups, last in _u8_cases():
+            if arch == "vgg16":
+                rows.append(_u8_row(torch, gen, arch, l, groups, last, N,
+                                    reps, int5=True))
     # the float lane at the train phase's batch (its forward convs)
     for arch, i, l, groups in _conv_cases():
         rows.append(_f32_row(torch, gen, arch, l, groups, TRAIN_BATCH, reps))
@@ -424,8 +453,9 @@ def phase_kernels(torch, reps: int):
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) err "
             f"{r['max_abs_err']:.3g}{dev_ms}")
-    for lane, N in (("f32", 1), ("u8s8", 1), ("f32", TRAIN_BATCH),
-                    ("u8s8", TRAIN_BATCH)):
+    for lane, N in (("f32", 1), ("u8s8", 1), ("int5", 1),
+                    ("f32", TRAIN_BATCH), ("u8s8", TRAIN_BATCH),
+                    ("int5", TRAIN_BATCH)):
         sel = [r for r in rows if r["lane"] == lane and r["batch"] == N
                and r["arch"] == "vgg16"]
         lib = ("null" if sel[0]["library_ms"] is None else
@@ -512,12 +542,19 @@ def _u8_cases():
     return out
 
 
-def _u8_row(torch, gen, arch, l, groups, last, N, reps) -> dict:
+def _u8_row(torch, gen, arch, l, groups, last, N, reps, int5=False) -> dict:
     """The int8 lane (ReLU + per-channel requant; ReLU into raw int32 on
     a network's last conv) at one conv shape and batch ``N``: the kernel
     bit for bit against its plain version, and its timings (events,
     profiler device time, host issue time) beside the plain version's and
-    the bound.  No PyTorch call computes this function: no yardstick."""
+    the bound.  No PyTorch call computes this function: no yardstick.
+    ``int5``: the int5 MSR lane's call instead, the kernel on the MSR
+    operands ``w5`` (|w5| <= 31) of random int8 weights, with the
+    requant pairs calibrated on ``psum5 << e`` and ``e`` folded in."""
+    import numpy as np
+
+    from repro_torch.core.quant import (fold_shift_into_requant,
+                                        msr_compress, msr_operand)
     from repro_torch.engine import ExecutionPolicy
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.requant import scale_to_mult_shift
@@ -533,13 +570,20 @@ def _u8_row(torch, gen, arch, l, groups, last, N, reps) -> dict:
                        device=dev, dtype=torch.uint8)
     wq = torch.randint(-127, 128, (K, K, Cg, Fo), generator=gen,
                        device=dev, dtype=torch.int8)
+    e = np.zeros((Fo,), np.int32)
+    if int5:
+        w5, e = msr_operand(*msr_compress(wq.cpu().numpy()))
+        wq = torch.from_numpy(w5).to(dev)
     rq = None
     if not last:
         psum = apply_epilogue(
             ref.conv2d(xq, wq, stride=S, padding=p, groups=groups),
             None, True, None)
+        psum = torch.bitwise_left_shift(psum, torch.from_numpy(e).to(dev))
         amax = psum.amax(dim=(0, 1, 2)).cpu().numpy().astype("float64")
         m, s = scale_to_mult_shift(255.0 / amax.clip(min=1.0))
+        if int5:
+            m, s = fold_shift_into_requant(m, s, e)
         rq = (torch.as_tensor(m, device=dev), torch.as_tensor(s, device=dev))
 
     def runq(pol):
@@ -550,12 +594,13 @@ def _u8_row(torch, gen, arch, l, groups, last, N, reps) -> dict:
     torch.cuda.synchronize()
     if got.dtype != want.dtype or not torch.equal(got, want):
         diff = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
-        fail(f"{arch} {l.name} int8 batch {N}: kernel != plain (max diff "
-             f"{diff})")
+        fail(f"{arch} {l.name} {'int5' if int5 else 'int8'} batch {N}: "
+             f"kernel != plain (max diff {diff})")
     nbytes = (xq.numel() + wq.numel() + got.numel() * got.element_size()
               + (0 if rq is None else 8 * Fo))
     return {
-        "arch": arch, "layer": l.name, "lane": "u8s8", "batch": N,
+        "arch": arch, "layer": l.name, "lane": "int5" if int5 else "u8s8",
+        "batch": N,
         "epilogue": "relu" if last else "relu+requant",
         "launches": groups,
         "ms": cuda_ms(torch, lambda: runq(kernel_pol), reps),
@@ -1134,10 +1179,14 @@ def phase_serve(torch, datapath: str, n_requests: int):
     t0 = time.perf_counter()
     params = plan.init(0, dev)
     requant = None
+    if datapath != "float":
+        sample = torch.from_numpy(stream.sample_batch(4)).to(dev)
     if datapath == "int8":
         params, _ = plan.quantize(params)
-        sample = torch.from_numpy(stream.sample_batch(4)).to(dev)
         requant = plan.calibrate_requant(params, sample)
+    elif datapath == "int5":
+        params, _ = plan.quantize_int5(params)
+        requant = plan.calibrate_requant_int5(params, sample)
     server = Server.from_plan(plan, params, conf, requant=requant,
                               device=dev)
     log(f"serve {datapath}: params + warm build of buckets {buckets} in "
@@ -1209,11 +1258,30 @@ def phase_serve(torch, datapath: str, n_requests: int):
         log(f"serve float: logits vs oracle max|err| {err:.3g} "
             f"(max|logit| {scale:.3g}, tolerance rtol 1e-3, atol 1e-3*max)")
     else:
-        want = execute.forward_int8(oracle, params, imgs,
-                                    requant=requant).cpu().numpy()
+        fwd = (execute.forward_int5 if datapath == "int5"
+               else execute.forward_int8)
+        want = fwd(oracle, params, imgs, requant=requant).cpu().numpy()
         if not np.array_equal(got, want):
-            fail("serve int8: features differ from the oracle substrate")
-        log("serve int8: features bit-equal to the oracle substrate")
+            fail(f"serve {datapath}: features differ from the oracle "
+                 "substrate")
+        log(f"serve {datapath}: features bit-equal to the oracle substrate")
+    if datapath == "int5":
+        # tests/test_int5.py:181's contract on the card: the int5 lane
+        # equals the int8 lane on the decompressed weights w5 << e with
+        # the exponent left on the requant shift
+        q8 = {"conv": [{"kernel": torch.bitwise_left_shift(
+            p["kernel"].to(torch.int32), p["shift"]).to(torch.int8)}
+            for p in params["conv"]]}
+        pairs8 = [(m, s + params["conv"][i]["shift"])
+                  for i, (m, s) in enumerate(requant)]
+        with torch.inference_mode():
+            out5 = execute.forward_int5(plan, params, imgs, requant=requant)
+            out8 = execute.forward_int8(plan, q8, imgs, requant=pairs8)
+        if not torch.equal(out5, out8):
+            fail("serve int5: forward_int5 differs from forward_int8 on the "
+                 "decompressed weights")
+        log("serve int5: forward_int5 bit-equal to forward_int8 on the "
+            "decompressed weights (kernel substrate)")
     log(f"serve {datapath}: {snap['totals']['images']}/{n_requests} served "
         f"in {flushes} flushes ({wall:.2f} s wall, p99 "
         f"{snap['totals']['p99_ms']} ms), {launches} kernel launches, "
@@ -1223,6 +1291,211 @@ def phase_serve(torch, datapath: str, n_requests: int):
             f"{per_bucket[int(b)]} kernel launches, p50 {rec['p50_ms']} ms, "
             f"p99 {rec['p99_ms']} ms")
     return launches - per_bucket[buckets[-1]], per_bucket[buckets[-1]]
+
+
+def _f32exact_cases():
+    """(arch, index, layer, groups, last) of every VGG-16 conv and
+    AlexNet's strided (CL1) and grouped (CL2, CL4, CL5) convs."""
+    return [c for c in _u8_cases()
+            if c[0] == "vgg16" or c[1] in (0, 1, 3, 4)]
+
+
+@contextlib.contextmanager
+def _no_library_conv():
+    """A context in which any call of ``F.conv2d`` (cuDNN, and the float64
+    oracle through it) fails the phase."""
+    import torch.nn.functional as F
+
+    real = F.conv2d
+
+    def refused(*a, **k):
+        fail("f32exact: a library conv (cuDNN / the float64 oracle) ran on "
+             "the f32exact path")
+
+    F.conv2d = refused
+    try:
+        yield
+    finally:
+        F.conv2d = real
+
+
+def phase_f32exact(torch, reps: int, rows):
+    """The f32exact substrate and the emulate_hw replay on the card.
+
+    Per conv (every VGG-16 conv, AlexNet CL1/CL2/CL4/CL5), batch 1, with
+    ``w_bits`` 8 and 5: ``run_conv2d`` on an f32exact plan equals the
+    oracle bit for bit at worst-case magnitudes (all-255 x, every filter's
+    weights at +-127 or +-31) and on random inputs; its fp32-wrapper
+    launches, counted around the call with ``F.conv2d`` refused, equal the
+    chunk count; its time beside the u8 x s8 lane's from ``rows``.  Then
+    full-width VGG-16's ``forward_int8`` and ``forward_int5`` on the
+    f32exact substrate at batch 1 (launches counted from 0 around each
+    run) against the oracle substrate's, and AlexNet CL1 (stride 4) under
+    ``emulate_hw`` against the strided path on the int8 lane (kernel and
+    f32exact).  Returns (rows, launches of the model runs by w_bits)."""
+    import numpy as np
+
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.core.model import ALEXNET_LAYERS
+    from repro_torch.engine import ExecutionPolicy, execute, plan_model
+    from repro_torch.engine.plan import plan_conv_layer
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels.requant import scale_to_mult_shift
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    u8ms = {(r["arch"], r["layer"]): r["ms"] for r in rows
+            if r["lane"] == "u8s8" and r["batch"] == 1}
+    out = []
+    for w_bits in (8, 5):
+        hi = 127 if w_bits == 8 else 31
+        for arch, i, l, groups, last in _f32exact_cases():
+            C, Cg, K, Fo = l.M * groups, l.M, l.K, l.N
+            kw = dict(stride=l.stride, padding=l.padding, groups=groups,
+                      relu=True, w_bits=w_bits)
+            plan = plan_conv_layer((l.H_I, l.W_I), C, K, Fo,
+                                   policy=ExecutionPolicy("f32exact"), **kw)
+            oplan = plan_conv_layer((l.H_I, l.W_I), C, K, Fo,
+                                    policy=ExecutionPolicy("oracle"), **kw)
+            chunk = ref.exact_f32_chunk(torch.uint8, torch.int8, K,
+                                        31 if w_bits == 5 else None)
+            chunks = groups * -(-Cg // chunk)
+            worst_x = torch.full((1, l.H_I, l.W_I, C), 255, dtype=torch.uint8,
+                                 device=dev)
+            sign = torch.where(torch.arange(Fo, device=dev) % 2 == 0, -1, 1)
+            worst_w = (sign * hi).to(torch.int8).expand(K, K, Cg, Fo)
+            rand_x = torch.randint(0, 256, (1, l.H_I, l.W_I, C), generator=gen,
+                                   device=dev, dtype=torch.uint8)
+            rand_w = torch.randint(-hi - (w_bits == 8), hi + 1,
+                                   (K, K, Cg, Fo), generator=gen, device=dev,
+                                   dtype=torch.int8)
+            for what, x, w in (("worst-case", worst_x, worst_w.contiguous()),
+                               ("random", rand_x, rand_w)):
+                with _no_library_conv():
+                    before = kern.LAUNCHES
+                    got = execute.run_conv2d(plan, x, w)
+                    n = kern.LAUNCHES - before
+                want = execute.run_conv2d(oplan, x, w)
+                torch.cuda.synchronize()
+                if n != chunks:
+                    fail(f"f32exact {arch} {l.name} w{w_bits}: {n} fp32 "
+                         f"launches for {chunks} chunks")
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    diff = (got.double() - want.double()).abs().max()
+                    fail(f"f32exact {arch} {l.name} w{w_bits} {what}: != "
+                         f"oracle (max diff {diff})")
+            macs = l.H_O * l.W_O * Fo * K * K * Cg
+            nbytes = rand_x.numel() + rand_w.numel() + 4 * got.numel()
+
+            def run(plan=plan, x=rand_x, w=rand_w):
+                return execute.run_conv2d(plan, x, w)
+
+            r = {"arch": arch, "layer": l.name, "lane": "f32exact",
+                 "w_bits": w_bits, "batch": 1, "launches": chunks,
+                 "ms": cuda_ms(torch, run, max(1, reps // 5)),
+                 "device_ms": device_ms(torch, run, 5),
+                 "issue_ms": issue_ms(torch, run, max(1, reps // 5)),
+                 "plain_ms": cuda_ms(torch, lambda: execute.run_conv2d(
+                     oplan, rand_x, rand_w), max(1, reps // 10)),
+                 "library_ms": None, "max_abs_err": 0.0,
+                 **bound(macs, nbytes, integer=True)}
+            out.append(r)
+            log(f"f32exact {arch:7s} {l.name:4s} w{w_bits} batch 1: bit-equal "
+                f"to the oracle (worst-case and random), {chunks} fp32 "
+                f"launches ({groups} group(s) x {-(-Cg // chunk)} chunks of "
+                f"<= {chunk} channels); ms {r['ms']:.4f} device_ms "
+                f"{_fmt(r['device_ms'])} host issue ms {r['issue_ms']:.4f} "
+                f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f}; "
+                f"u8s8 lane ms {_fmt(u8ms.get((arch, l.name)))}")
+    for w_bits in (8, 5):
+        sel = [r for r in out if r["w_bits"] == w_bits
+               and r["arch"] == "vgg16"]
+        dev_ms = ("" if None in [r["device_ms"] for r in sel]
+                  else f" device_ms {sum(r['device_ms'] for r in sel):.4f}")
+        log(f"f32exact vgg16 w{w_bits} batch 1, sum of {len(sel)} convs: ms "
+            f"{sum(r['ms'] for r in sel):.4f}{dev_ms} issue_ms "
+            f"{sum(r['issue_ms'] for r in sel):.4f} plain_ms "
+            f"{sum(r['plain_ms'] for r in sel):.4f} bound_ms "
+            f"{sum(r['bound_ms'] for r in sel):.4f}, "
+            f"{sum(r['launches'] for r in sel)} fp32 launches")
+
+    # the model path: full-width VGG-16 on the f32exact substrate
+    cfg = CNN_REGISTRY["vgg16"]
+    fplan = plan_model(cfg, ExecutionPolicy("f32exact"))
+    oplan = plan_model(cfg, ExecutionPolicy("oracle"))
+    params = fplan.init(0, dev)
+    imgs = torch.randint(0, 256, (1, 224, 224, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    model_launches = {}
+    for w_bits in (8, 5):
+        if w_bits == 8:
+            qp, _ = fplan.quantize(params)
+            rq = oplan.calibrate_requant(qp, imgs)
+            fwd = execute.forward_int8
+        else:
+            qp, _ = fplan.quantize_int5(params)
+            rq = oplan.calibrate_requant_int5(qp, imgs)
+            fwd = execute.forward_int5
+        with torch.inference_mode(), _no_library_conv():
+            kern.LAUNCHES = 0
+            t0 = time.perf_counter()
+            got = fwd(fplan, qp, imgs, requant=rq)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            n = kern.LAUNCHES
+        with torch.inference_mode():
+            want = fwd(oplan, qp, imgs, requant=rq)
+        if not torch.equal(got, want):
+            fail(f"f32exact: VGG-16 int{w_bits} features differ from the "
+                 "oracle substrate's")
+        chunk = ref.exact_f32_chunk(torch.uint8, torch.int8, 3,
+                                    31 if w_bits == 5 else None)
+        expect = sum(-(-lp.c_in // chunk) for lp in fplan.layers)
+        if n != expect:
+            fail(f"f32exact: VGG-16 int{w_bits}: {n} fp32 launches, "
+                 f"{expect} chunks")
+        model_launches[w_bits] = n
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: fwd(fplan, qp, imgs, requant=rq), 5)
+            kplan = plan_model(cfg, ExecutionPolicy("kernel"))
+            kms = cuda_ms(torch, lambda: fwd(kplan, qp, imgs, requant=rq), 5)
+        log(f"f32exact: VGG-16 forward_int{w_bits} at batch 1 bit-equal to "
+            f"the oracle substrate; {n} fp32 launches (the chunks), "
+            f"{wall:.1f} ms wall (first call), {ms:.4f} ms a call after it "
+            f"(events; on the u8 x s8 kernel: {kms:.4f} ms)")
+
+    # emulate_hw: AlexNet CL1 (stride 4) decimated == strided, int8 lane
+    l = ALEXNET_LAYERS[0]
+    for N in (1, TRAIN_BATCH):
+        x = torch.randint(0, 256, (N, l.H_I, l.W_I, l.M), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        w = torch.randint(-127, 128, (l.K, l.K, l.M, l.N), generator=gen,
+                          device=dev, dtype=torch.int8)
+        psum = ref.conv2d(x, w, stride=l.stride, padding=l.padding)
+        amax = psum.clamp(min=0).amax(dim=(0, 1, 2)).cpu().numpy()
+        m, s = scale_to_mult_shift(255.0 / np.maximum(amax, 1.0))
+        rq = (torch.as_tensor(m, device=dev), torch.as_tensor(s, device=dev))
+        for sub in ("kernel", "f32exact"):
+            outs = {}
+            for emulate in (False, True):
+                plan = plan_conv_layer(
+                    (l.H_I, l.W_I), l.M, l.K, l.N, stride=l.stride,
+                    padding=l.padding, relu=True, requant_kind="mult_shift",
+                    policy=ExecutionPolicy(sub, emulate_hw=emulate))
+                before = kern.LAUNCHES
+                outs[emulate] = execute.run_conv2d(plan, x, w, None, rq)
+                launches = kern.LAUNCHES - before
+            if not plan.decimate or launches != 1:
+                fail(f"emulate_hw: AlexNet CL1 plan decimates "
+                     f"{plan.decimate}, {launches} launches")
+            if not torch.equal(outs[True], outs[False]):
+                fail(f"emulate_hw: AlexNet CL1 batch {N} on {sub}: the "
+                     "decimated int8 output differs from the strided one")
+            log(f"emulate_hw: AlexNet CL1 batch {N} on {sub}: decimated "
+                f"(stride-1 sweep {plan.tile.H_O}x{plan.tile.W_O}, 1 launch) "
+                f"bit-equal to the strided path {tuple(outs[False].shape)}")
+    return out, model_launches
 
 
 def phase_conv1d(torch, reps: int):
@@ -2089,6 +2362,8 @@ def main() -> None:
         return
     launches_f32 = sum(phase_serve(torch, "float", args.requests))
     launches_u8, launches_u8_b8 = phase_serve(torch, "int8", args.requests)
+    launches_i5, launches_i5_b8 = phase_serve(torch, "int5", args.requests)
+    xrows, xlaunches = phase_f32exact(torch, args.reps, rows)
     train_f32, train_wgrad = phase_train(torch, TRAIN_STEPS, TRAIN_BATCH,
                                          TRAIN_LR)
     lm_launches = phase_lm_serve(torch, LM_ARCH)
@@ -2113,6 +2388,20 @@ def main() -> None:
         kernel_entry([r for r in rows if r["lane"] == "u8s8"
                       and r["batch"] == TRAIN_BATCH],
                      f"trim_conv2d_u8s8_batch{TRAIN_BATCH}", launches_u8_b8),
+        # the int5 serve's launches, split as the int8 serve's
+        kernel_entry([r for r in rows if r["lane"] == "int5"
+                      and r["batch"] == 1],
+                     "trim_conv2d_u8s8_int5", launches_i5),
+        kernel_entry([r for r in rows if r["lane"] == "int5"
+                      and r["batch"] == TRAIN_BATCH],
+                     f"trim_conv2d_u8s8_int5_batch{TRAIN_BATCH}",
+                     launches_i5_b8),
+        # the fp32 lane on the f32exact substrate: VGG-16's integer convs
+        # in exact channel chunks, launches from its int8 / int5 runs
+        kernel_entry([r for r in xrows if r["w_bits"] == 8],
+                     "trim_conv2d_f32_f32exact", xlaunches[8]),
+        kernel_entry([r for r in xrows if r["w_bits"] == 5],
+                     "trim_conv2d_f32_f32exact_w5", xlaunches[5]),
         kernel_entry([r for r in brows if r["kind"] == "dw"
                       and r["batch"] == TRAIN_BATCH],
                      "trim_conv2d_wgrad_f32", train_wgrad,

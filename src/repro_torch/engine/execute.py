@@ -3,14 +3,22 @@
 Port of ``repro/engine/execute.py``.  :func:`run_conv2d` is the ONLY
 kernel dispatch site of the port: it takes a
 :class:`~repro_torch.engine.plan.ConvLayerPlan`, resolves its substrate
-against the input's device (``policy.resolve_substrate``) and runs either
-the CUDA kernel's wrapper — per conv group — or the plain oracle with the
-unfused epilogue.  On the float lane the kernel arm is
+against the input's device (``policy.resolve_substrate``) and runs the
+CUDA kernel's wrapper — per conv group —, the plain oracle with the
+unfused epilogue, or the f32exact arm: an integer conv cut into channel
+chunks that the fp32 wrapper computes exactly (``ref.conv2d_exact_f32``),
+then the unfused epilogue.  A plan that decimates (``emulate_hw`` on a
+strided layer) runs the stride-1 sweep on its substrate with no epilogue,
+keeps every stride-th output and applies the unfused epilogue.  On the
+float lane the kernel arm is
 :class:`~repro_torch.kernels.trim_conv2d_vjp.TrimConv2dFn`, so autograd
 runs the TrIM backward (dx through the forward kernel, dw through the
 weight-gradient kernel); the integer lanes call the wrapper directly.  The
 model-level entry points iterate a
-:class:`~repro_torch.engine.plan.ModelPlan`'s layers.
+:class:`~repro_torch.engine.plan.ModelPlan`'s layers, on the float, int8
+and int5 lanes (:func:`forward_int5`: the kernel multiplies by the MSR
+operand ``w5``, and the per-channel exponent ``e`` is folded into the
+requant pairs or shifted into the psums).
 
 Three places decide bit-exactness against the JAX package, and mirror it:
 
@@ -30,7 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.engine.plan import ConvLayerPlan, ModelPlan
+from repro_torch.core.quant import fold_shift_into_requant
+from repro_torch.engine.plan import DATAPATHS, ConvLayerPlan, ModelPlan
 from repro_torch.engine.policy import resolve_device, resolve_substrate
 from repro_torch.kernels import ref
 from repro_torch.kernels.requant import requant_mult_shift, scale_to_mult_shift
@@ -42,9 +51,11 @@ __all__ = [
     "EXECUTABLE_COMPILES",
     "apply_epilogue",
     "calibrate_requant",
+    "calibrate_requant_int5",
     "calibrate_requant_shifts",
     "executable_for",
     "forward",
+    "forward_int5",
     "forward_int8",
     "loss",
     "max_pool2x2",
@@ -74,6 +85,32 @@ def _kernel_call(plan: ConvLayerPlan, x, w, bias, requant, requant_shift):
         block_f=plan.block_f)
 
 
+def _sweep(plan: ConvLayerPlan, x, w, sub: str):
+    """The decimating plan's stride-1 sweep on substrate ``sub``, no
+    epilogue (forward only on the kernel, as in the JAX package)."""
+    kw = dict(padding=plan.padding, groups=plan.groups)
+    if sub == "oracle":
+        return ref.conv2d(x, w, stride=1, **kw)
+    if sub == "f32exact":
+        return ref.conv2d_exact_f32(x, w, stride=1, w_abs_max=_w_abs_max(plan),
+                                    conv=trim_conv2d, **kw)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "emulate_hw's decimated conv is forward-only on the kernel "
+            "substrate: it has no backward")
+    cg, fg = x.shape[-1] // plan.groups, w.shape[-1] // plan.groups
+    return torch.cat([
+        trim_conv2d(x[..., g * cg:(g + 1) * cg].contiguous(),
+                    w[..., g * fg:(g + 1) * fg].contiguous(), stride=1,
+                    padding=plan.padding)
+        for g in range(plan.groups)], dim=-1)
+
+
+def _w_abs_max(plan: ConvLayerPlan) -> Optional[int]:
+    """The f32exact bound's weight term of a sub-8-bit plan (31 at 5)."""
+    return (1 << plan.w_bits) - 1 if plan.w_bits < 8 else None
+
+
 def run_conv2d(plan: ConvLayerPlan, x: torch.Tensor, w: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                requant: Optional[Tuple] = None, *,
@@ -84,9 +121,22 @@ def run_conv2d(plan: ConvLayerPlan, x: torch.Tensor, w: torch.Tensor,
     ``requant_shift`` / ``requant=(mult, shift)`` are the runtime epilogue
     inputs (per-channel pairs are (F,) int32 tensors).
     """
-    if resolve_substrate(plan.substrate, x.device) == "oracle":
+    sub = resolve_substrate(plan.substrate, x.device)
+    if plan.decimate:
+        s = plan.stride
+        out = _sweep(plan, x, w, sub)[:, ::s, ::s, :].contiguous()
+        return apply_epilogue(out, bias, plan.relu, requant_shift, requant)
+    if sub == "oracle":
         out = ref.conv2d(x, w, stride=plan.stride, padding=plan.padding,
                          groups=plan.groups)
+        return apply_epilogue(out, bias, plan.relu, requant_shift, requant)
+    if sub == "f32exact":
+        # each chunk through the fp32 wrapper: the kernel's fp32 lane on a
+        # CUDA tensor, the plain fp32 conv on a CPU tensor; float inputs
+        # take the oracle inside conv2d_exact_f32
+        out = ref.conv2d_exact_f32(
+            x, w, stride=plan.stride, padding=plan.padding,
+            groups=plan.groups, w_abs_max=_w_abs_max(plan), conv=trim_conv2d)
         return apply_epilogue(out, bias, plan.relu, requant_shift, requant)
     if plan.groups == 1:
         return _kernel_call(plan, x, w, bias, requant, requant_shift)
@@ -161,14 +211,27 @@ def serve_forward(plan: ModelPlan, params,
                   images: torch.Tensor) -> torch.Tensor:
     """Batch-invariant :func:`forward` for serving.
 
-    The conv stack is batch-invariant (each image's kernel blocks see only
-    that image, with no split of the channel sum).  A batched GEMM is not:
-    its algorithm can change with the row count.  So the FC head runs on
-    (1, K) rows, one image at a time, giving every image the same bits at
-    every batch size.
+    The conv stack is batch-invariant: each image's kernel blocks see only
+    that image.  Where the fp32 lane splits a deep layer's channel sum,
+    the split and the order of its merge follow from the per-image shape
+    alone (``f32_tile``), never from the batch; the u8 x s8 lane's sums
+    are exact integers whatever their split.  A batched GEMM is not
+    batch-invariant: its algorithm can change with the row count.  So the
+    FC head runs on (1, K) rows, one image at a time, giving every image
+    the same bits at every batch size.
     """
     x = _conv_stack(plan, params, images)
     return torch.cat([_head(params, x[i:i + 1]) for i in range(x.shape[0])])
+
+
+def _pow2_requant(psum: torch.Tensor):
+    """The dynamic path's power-of-two requantize back to uint8, off the
+    whole batch's maximum: ``shift = max(ceil(log2(amax / 255)), 0)`` in
+    float32, as the JAX package takes it.  Returns (uint8 x, shift)."""
+    amax = psum.max().to(torch.float32).clamp_min(1.0)
+    shift = torch.ceil(torch.log2(amax / 255.0)).clamp_min(0)
+    shift = shift.to(torch.int32)
+    return (psum >> shift).clamp(0, 255).to(torch.uint8), shift
 
 
 def _int8_forward(
@@ -197,12 +260,8 @@ def _int8_forward(
             psum = run_conv2d(lp, x, w, None, None)
             if last:
                 return psum, shifts
-            # power-of-two requantize back to uint8 for the next layer
-            amax = psum.max().to(torch.float32).clamp_min(1.0)
-            shift = torch.ceil(torch.log2(amax / 255.0)).clamp_min(0)
-            shift = shift.to(torch.int32)
+            x, shift = _pow2_requant(psum)
             shifts.append(shift)
-            x = (psum >> shift).clamp(0, 255).to(torch.uint8)
         if lp.pool:
             x = max_pool2x2(x)
     return x, shifts
@@ -253,6 +312,85 @@ def calibrate_requant(plan: ModelPlan, qparams, sample_u8: torch.Tensor,
     return pairs
 
 
+def forward_int5(
+    plan: ModelPlan,
+    qparams,
+    images_u8: torch.Tensor,
+    requant: Optional[Sequence[Tuple]] = None,
+) -> torch.Tensor:
+    """uint8 NHWC images through the int5 MSR lane; returns the last
+    layer's full-scale int32 feature map (before its pool).
+
+    ``qparams["conv"][i]`` is ``{"kernel": w5, "shift": e}`` from
+    ``nn.conv.quantize_cnn_int5``: the int8 operand ``|w5| <= 31`` and the
+    per-output-channel exponent with ``w_hat == w5 << e``.  The kernel
+    multiplies by ``w5`` as it is (so its transposed copy is written once
+    per weight tensor), and ``e`` is applied losslessly after the sum:
+    folded into the calibrated pairs (:func:`calibrate_requant_int5`) on
+    the non-last layers, or shifted into the psums (``psum << e``) on the
+    dynamic path and on the last layer.  With calibrated pairs this
+    equals :func:`forward_int8` on ``w5 << e`` bit for bit.
+    """
+    x = images_u8
+    layers = plan.int5.layers
+    n = len(layers)
+    for i, lp in enumerate(layers):
+        p = qparams["conv"][i]
+        w5 = p["kernel"]
+        last = i == n - 1
+        if requant is not None and not last:
+            x = run_conv2d(lp, x, w5, None, tuple(requant[i]))
+        else:
+            psum = run_conv2d(lp, x, w5, None, None)
+            psum = torch.bitwise_left_shift(psum, _exponent(p, psum.device))
+            if last:
+                return psum
+            x, _ = _pow2_requant(psum)
+        if lp.pool:
+            x = max_pool2x2(x)
+    return x
+
+
+def _exponent(p, device) -> torch.Tensor:
+    """A layer's per-channel MSR exponent as int32 on ``device`` (it
+    broadcasts on the psums' last axis)."""
+    return torch.as_tensor(p["shift"], dtype=torch.int32, device=device)
+
+
+def calibrate_requant_int5(plan: ModelPlan, qparams,
+                           sample_u8: torch.Tensor,
+                           per_channel: bool = True) -> List[Tuple]:
+    """(mult, shift) pairs for the int5 lane, the exponent folded in.
+
+    :func:`calibrate_requant` on the full-scale psums ``psum5 << e``, then
+    each pair takes ``e`` back (``core.quant.fold_shift_into_requant``, in
+    int64 numpy, saturating in the kernel's domain), so the fused kernel
+    requantizes the raw ``w5`` psums: ``requant(psum5, m, s - e) ==
+    requant(psum5 << e, m, s)``.  Returns (F,) int32 tensors on the
+    sample's device."""
+    x = sample_u8
+    pairs: List[Tuple] = []
+    for i, lp in enumerate(plan.int5.layers[:-1]):
+        p = qparams["conv"][i]
+        w5 = p["kernel"]
+        e = _exponent(p, "cpu").numpy()
+        psum5 = run_conv2d(lp, x, w5, None, None)
+        full = torch.bitwise_left_shift(psum5, _exponent(p, psum5.device))
+        mx = full.amax(dim=(0, 1, 2)) if per_channel else full.max()
+        amax = np.maximum(mx.cpu().numpy().astype(np.float64), 1.0)
+        m, s = scale_to_mult_shift(255.0 / amax)
+        F = w5.shape[-1]
+        mf, sf = fold_shift_into_requant(np.broadcast_to(m, (F,)),
+                                         np.broadcast_to(s, (F,)), e)
+        mf = torch.as_tensor(mf, device=psum5.device)
+        sf = torch.as_tensor(sf, device=psum5.device)
+        pairs.append((mf, sf))
+        x = requant_mult_shift(psum5, mf, sf).to(torch.uint8)
+        if lp.pool:
+            x = max_pool2x2(x)
+    return pairs
+
+
 # ---------------------------------------------------------------------------
 # Serving executables: one callable per (plan, batch, datapath, device)
 # ---------------------------------------------------------------------------
@@ -268,7 +406,9 @@ class Executable:
     ``float``: ``ex(params, images_f32) -> logits`` (:func:`serve_forward`);
     ``int8``: ``ex(qparams, images_u8, requant) -> int32 features``, with
     the calibrated per-layer pairs required (the dynamic-shift path depends
-    on the whole batch and cannot serve padded buckets).
+    on the whole batch and cannot serve padded buckets); ``int5``: the
+    same, ``qparams`` from ``quantize_cnn_int5`` and ``requant`` from
+    :func:`calibrate_requant_int5` (:func:`forward_int5`).
     """
 
     def __init__(self, plan: ModelPlan, batch: int, datapath: str,
@@ -291,7 +431,10 @@ class Executable:
         if self.datapath == "float":
             return serve_forward(self.plan, params, images)
         if requant is None:
-            raise ValueError("the int8 executable needs calibrated requant")
+            raise ValueError(
+                f"the {self.datapath} executable needs calibrated requant")
+        if self.datapath == "int5":
+            return forward_int5(self.plan, params, images, requant=requant)
         return forward_int8(self.plan, params, images, requant=requant)
 
 
@@ -299,7 +442,7 @@ class Executable:
 def _executable(plan: ModelPlan, batch: int, datapath: str,
                 device: torch.device) -> Executable:
     if device.type == "cuda" and resolve_substrate(
-            plan.policy.substrate, device) == "kernel":
+            plan.policy.substrate, device) != "oracle":
         load_library()  # the build, paid before the first request
     ex = Executable(plan, batch, datapath, device)
     key = (plan, batch, datapath, str(device))
@@ -312,8 +455,8 @@ def executable_for(plan: ModelPlan, batch: int, datapath: str = "float",
     """The cached serving callable for ``plan`` at one static batch size.
     Building it loads (and if needed compiles) the kernel library; the
     caller makes the warm call with its params (``ServeEngine``)."""
-    if datapath not in ("float", "int8"):
-        raise ValueError(f"datapath {datapath!r} not in ('float', 'int8')")
+    if datapath not in DATAPATHS:
+        raise ValueError(f"datapath {datapath!r} not in {DATAPATHS}")
     batch = int(batch)
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")

@@ -10,9 +10,13 @@ u8_tile``, per conv group, at batch 1 in ``tile`` and at any batch from
 values: hashable, comparable by value and cached.
 
 The substrate stays unresolved in the plan ("auto" | "kernel" |
-"oracle"): the dispatch rule reads the device of the tensor at run time
-(``policy.resolve_substrate``).  Plan-time tuning and the
-``emulate_hw`` replay of the JAX package are not ported yet.
+"oracle" | "f32exact"): the dispatch rule reads the device of the tensor
+at run time (``policy.resolve_substrate``).  Under the policy's
+``emulate_hw`` a strided layer's plan replays the FPGA's schedule
+(:attr:`ConvLayerPlan.decimate`: a stride-1 sweep, planned as such, then
+decimation and the unfused epilogue).  The int5 lane's plans carry
+``w_bits=5``, which widens the f32exact substrate's exact channel chunks.
+Plan-time tuning is not ported yet (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -22,6 +26,10 @@ from typing import Dict, Optional, Tuple
 
 from repro_torch.engine.policy import ExecutionPolicy
 from repro_torch.kernels.trim_conv2d import U8Tile, u8_tile
+
+#: The model datapaths: the float lane, the int8 lane and the int5 MSR
+#: lane (int8 operands with ``|w| <= 31`` and a per-channel exponent).
+DATAPATHS = ("float", "int8", "int5")
 
 
 @dataclass(frozen=True)
@@ -34,7 +42,9 @@ class ConvLayerPlan:
     them and read by no CUDA launch.  ``tile`` is the geometry the integer
     lane launches for one group at batch 1 (``u8_tile``); its path and
     split follow the batch, so :meth:`launch` gives any batch's.  The fp32
-    lane plans its own (``f32_tile``).
+    lane plans its own (``f32_tile``).  Where :attr:`decimate` holds, both
+    are the stride-1 sweep's.  ``w_bits`` is the stored weight width: 8,
+    or 5 on the int5 MSR lane, whose operands keep ``|w| <= 31``.
     """
 
     x_hw: Tuple[int, int]
@@ -55,13 +65,22 @@ class ConvLayerPlan:
     block_f: int
     epilogue: str
     tile: U8Tile
+    emulate_hw: bool = False
+    w_bits: int = 8
+
+    @property
+    def decimate(self) -> bool:
+        """FPGA-faithful strided-layer replay: stride-1 sweep + decimation
+        + unfused epilogue (paper §V)."""
+        return self.emulate_hw and self.stride > 1
 
     def launch(self, batch: int = 1) -> U8Tile:
         """The integer lane's launch geometry for one group at ``batch``."""
         if batch == 1:
             return self.tile
         return u8_tile(self.x_hw, self.c_in // self.groups, self.k,
-                       self.c_out // self.groups, stride=self.stride,
+                       self.c_out // self.groups,
+                       stride=1 if self.decimate else self.stride,
                        padding=self.padding, batch=batch)
 
     def describe(self, batches: Tuple[int, ...] = (1,)) -> Dict[str, object]:
@@ -76,8 +95,11 @@ class ConvLayerPlan:
                     "items": t.n_items, "split": t.n_split,
                     "stages": t.stages}
 
-        return {"substrate": self.substrate, "epilogue": self.epilogue,
-                "launches": [launch(b) for b in batches]}
+        d = {"substrate": self.substrate, "epilogue": self.epilogue,
+             "launches": [launch(b) for b in batches]}
+        if self.w_bits != 8:
+            d["w_bits"] = self.w_bits
+        return d
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,12 +116,14 @@ def plan_conv_layer(
     pool: bool = False,
     has_bias: bool = False,
     requant_kind: Optional[str] = None,
+    w_bits: int = 8,
     policy: ExecutionPolicy = ExecutionPolicy(),
 ) -> ConvLayerPlan:
     """One layer's static schedule under ``policy`` (cached).
 
     ``requant_kind`` is None | "shift" | "mult_shift"; the multiplier and
-    shift values stay runtime arguments.
+    shift values stay runtime arguments.  ``w_bits`` is 8, or 5 for the
+    int5 lane's ``|w| <= 31`` operands.
     """
     if c_in % groups or c_out % groups:
         raise ValueError(f"groups={groups} does not divide c_in={c_in} "
@@ -107,7 +131,9 @@ def plan_conv_layer(
     cg, fg = c_in // groups, c_out // groups
     block_c = min(policy.block_c, cg)
     block_f = min(policy.block_f, fg)
-    tile = u8_tile(tuple(x_hw), cg, k, fg, stride=stride, padding=padding)
+    decimate = policy.emulate_hw and stride > 1
+    tile = u8_tile(tuple(x_hw), cg, k, fg, stride=1 if decimate else stride,
+                   padding=padding)
     parts = []
     if has_bias:
         parts.append("bias")
@@ -118,13 +144,16 @@ def plan_conv_layer(
     elif requant_kind == "mult_shift":
         parts.append("requant")
     epilogue = "+".join(parts) if parts else "linear"
+    if decimate:
+        epilogue = f"decimate->{epilogue}"
     return ConvLayerPlan(
         x_hw=tuple(x_hw), c_in=c_in, k=k, c_out=c_out, stride=stride,
         padding=padding, groups=groups, relu=relu, pool=pool,
         has_bias=has_bias, requant_kind=requant_kind,
         substrate=policy.substrate, tile_h=policy.tile_h,
         tile_w=policy.tile_w, block_c=block_c, block_f=block_f,
-        epilogue=epilogue, tile=tile)
+        epilogue=epilogue, tile=tile, emulate_hw=policy.emulate_hw,
+        w_bits=int(w_bits))
 
 
 @dataclass(frozen=True)
@@ -180,12 +209,36 @@ class ModelPlan:
         return execute.calibrate_requant(self, qparams, sample_u8,
                                          per_channel=per_channel)
 
+    def quantize_int5(self, params, compensate=True):
+        from repro_torch.nn.conv import quantize_cnn_int5
+
+        return quantize_cnn_int5(params, self.cfg, compensate=compensate)
+
+    def forward_int5(self, qparams, images_u8, requant=None):
+        from repro_torch.engine import execute
+
+        return execute.forward_int5(self, qparams, images_u8,
+                                    requant=requant)
+
+    def calibrate_requant_int5(self, qparams, sample_u8, per_channel=True):
+        from repro_torch.engine import execute
+
+        return execute.calibrate_requant_int5(self, qparams, sample_u8,
+                                              per_channel=per_channel)
+
     @property
     def int8(self) -> "ModelPlan":
         """The integer-datapath sibling plan (bias-free, fused requant on
         every non-last layer) — what ``forward_int8`` runs."""
         return plan_model(self.cfg, self.policy, c_in=self.layers[0].c_in,
                           datapath="int8")
+
+    @property
+    def int5(self) -> "ModelPlan":
+        """The int5 MSR lane's sibling plan: :attr:`int8` with ``w_bits=5``
+        on every layer — what ``forward_int5`` runs."""
+        return plan_model(self.cfg, self.policy, c_in=self.layers[0].c_in,
+                          datapath="int5")
 
     def executable_for(self, batch: int, datapath: str = "float",
                        device="cuda"):
@@ -209,14 +262,15 @@ def plan_model(
 ) -> ModelPlan:
     """Compile a ``CNNConfig`` into a :class:`ModelPlan` (cached).
 
-    ``datapath`` is "float" (biased convs, fused bias+ReLU) or "int8"
+    ``datapath`` is "float" (biased convs, fused bias+ReLU), "int8"
     (bias-free, fused ReLU + multiplier+shift requant on every non-last
-    layer; the last layer emits its ReLU'd int32 psums).  ``c_in``
-    overrides the first layer's input channel count.
+    layer; the last layer emits its ReLU'd int32 psums) or "int5" (the
+    int8 plans with ``w_bits=5``).  ``c_in`` overrides the first layer's
+    input channel count.
     """
-    if datapath not in ("float", "int8"):
-        raise ValueError(f"datapath {datapath!r} not in ('float', 'int8')")
-    int8 = datapath == "int8"
+    if datapath not in DATAPATHS:
+        raise ValueError(f"datapath {datapath!r} not in {DATAPATHS}")
+    int8 = datapath in ("int8", "int5")
     plans = []
     c = cfg.layers[0].M if c_in is None else int(c_in)
     last_i = len(cfg.layers) - 1
@@ -226,7 +280,7 @@ def plan_model(
             padding=l.padding, groups=c // l.M, relu=True,
             pool=i in cfg.pool_after, has_bias=not int8,
             requant_kind="mult_shift" if int8 and i != last_i else None,
-            policy=policy))
+            w_bits=5 if datapath == "int5" else 8, policy=policy))
         c = l.N
     return ModelPlan(cfg=cfg, policy=policy, layers=tuple(plans),
                      datapath=datapath)

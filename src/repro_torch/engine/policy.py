@@ -10,7 +10,17 @@ only the device of the tensor being convolved — never the machine:
   ``kernels.trim_matmul.trim_matmul``),
   which launches the kernel on a CUDA tensor and runs its plain version
   on a CPU tensor;
-- ``"oracle"``: the plain PyTorch version on every device.
+- ``"oracle"``: the plain PyTorch version on every device;
+- ``"f32exact"``: integer convs computed exactly on the fp32 conv path,
+  cut into channel chunks whose partial sums stay below 2**24
+  (``kernels.ref.conv2d_exact_f32``): each chunk runs through the TrIM
+  kernel's fp32 wrapper, which launches its fp32 lane on a CUDA tensor
+  (never cuDNN, whose Winograd and FFT algorithms are not exact) and runs
+  the plain fp32 conv on a CPU tensor.  Float convs take the oracle; the
+  other ops take their kernel's wrapper.
+
+``emulate_hw`` replays the FPGA's strided-layer schedule: a stride-1
+sweep, decimation and the unfused epilogue (``ConvLayerPlan.decimate``).
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ from dataclasses import dataclass
 import torch
 
 #: Substrate choices.
-SUBSTRATES = ("auto", "kernel", "oracle")
+SUBSTRATES = ("auto", "kernel", "oracle", "f32exact")
 #: The bounds :class:`ExecutionPolicy` holds its tile knobs to, as the JAX
 #: package's policy does (``tile_h * tile_w`` and ``block_f``).  No CUDA
 #: launch reads them: both conv lanes plan their own geometry.
@@ -32,9 +42,11 @@ def resolve_substrate(substrate: str, device) -> str:
     """THE dispatch rule — the only copy in the port: "oracle" runs the
     plain version anywhere; "auto" runs the kernel's wrapper on a CUDA
     tensor and the plain version on a CPU tensor; "kernel" always runs the
-    wrapper (which itself takes the plain version for a CPU tensor)."""
-    if substrate == "oracle":
-        return "oracle"
+    wrapper (which itself takes the plain version for a CPU tensor);
+    "f32exact" stays "f32exact" on every device (``execute.run_conv2d``
+    runs its chunks through the fp32 wrapper)."""
+    if substrate in ("oracle", "f32exact"):
+        return substrate
     if substrate == "auto" and torch.device(device).type != "cuda":
         return "oracle"
     return "kernel"
@@ -69,7 +81,12 @@ class ExecutionPolicy:
     """Frozen, hashable description of how to run the TrIM conv.
 
     ``substrate``
-        "auto" (the default), "kernel" or "oracle" — see the module doc.
+        "auto" (the default), "kernel", "oracle" or "f32exact" — see the
+        module doc.
+    ``emulate_hw``
+        Replay the FPGA's strided-layer schedule (stride-1 sweep +
+        decimation + unfused epilogue, paper §V) instead of the strided
+        fused conv.  Forward only on the kernel substrate.
     ``tile_h`` / ``tile_w`` / ``block_c`` / ``block_f``
         The JAX package's tile knobs (``tile_h * tile_w <= 128``,
         ``block_f <= 32``), kept and checked so that a policy means the
@@ -81,6 +98,7 @@ class ExecutionPolicy:
     """
 
     substrate: str = "auto"
+    emulate_hw: bool = False
     tile_h: int = 8
     tile_w: int = 16
     block_c: int = 32

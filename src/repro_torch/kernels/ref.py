@@ -1,7 +1,8 @@
 """The oracles the kernels and the model paths are held against: the NHWC
-conv (``conv2d``), the causal depthwise conv1d (``conv1d_causal_ref``),
-the matmul (``matmul_ref``) and the Mamba2 SSD scan with per-head B/C
-(``ssd_ref``)."""
+conv (``conv2d``) and its integer form on an fp32 conv path
+(``conv2d_exact_f32``, the f32exact substrate's arithmetic), the causal
+depthwise conv1d (``conv1d_causal_ref``), the matmul (``matmul_ref``) and
+the Mamba2 SSD scan with per-head B/C (``ssd_ref``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -33,6 +34,73 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     out = F.conv2d(xc, wc, stride=stride, padding=p, groups=groups)
     out = out.permute(0, 2, 3, 1).contiguous()
     return out.to(torch.int32) if integer else out
+
+
+def exact_f32_chunk(x_dtype: torch.dtype, w_dtype: torch.dtype, k: int,
+                    w_abs_max: Optional[int] = None) -> int:
+    """Channels per chunk of :func:`conv2d_exact_f32`: the most whose
+    worst-case partial sum, ``max|x| * max|w| * K * K * chunk``, stays
+    below 2**24 (57 for uint8 x int8 at K = 3; 235 with ``w_abs_max`` 31).
+    0 where no chunk is exact (or either dtype is not an integer)."""
+    if x_dtype.is_floating_point or w_dtype.is_floating_point:
+        return 0
+    xi, wi = torch.iinfo(x_dtype), torch.iinfo(w_dtype)
+    w_bound = max(abs(wi.min), wi.max)
+    if w_abs_max is not None:
+        w_bound = min(w_bound, int(w_abs_max))
+    bound = max(abs(xi.min), xi.max) * w_bound
+    return ((1 << 24) // bound) // (k * k) if bound else 0
+
+
+def conv2d_exact_f32(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     padding: Optional[int] = None, groups: int = 1,
+                     w_abs_max: Optional[int] = None,
+                     conv=None) -> torch.Tensor:
+    """Integer conv evaluated on an fp32 conv path, exactly (port of
+    ``repro/kernels/ref.py:45``): the channel sum is cut into chunks of
+    :func:`exact_f32_chunk` channels, so every partial sum of a chunk is
+    an integer below 2**24 that fp32 holds exactly, each chunk rounds
+    back to int32 losslessly, and the int32 chunk sums give the full
+    contraction.  Bit-identical to :func:`conv2d` for 8-bit integers.
+
+    ``conv(xc, wc, stride=, padding=)`` is the fp32 conv of one chunk
+    (NHWC fp32 x, HWIO fp32 w, contiguous).  Its sum must be direct or a GEMM:
+    "exact in any order" holds for sums of the products, not for Winograd
+    or FFT, which multiply by constants fp32 cannot hold.  The default is
+    the fp32 :func:`conv2d`, whose CPU algorithms are direct or GEMM; on a
+    CUDA tensor cuDNN may pick either transform, so there the caller must
+    pass ``conv`` (the engine passes the TrIM kernel's fp32 wrapper).
+
+    Float or mixed inputs, and shapes where no chunk is exact, delegate
+    to :func:`conv2d`.  ``w_abs_max`` tightens the weight term of the
+    bound below the dtype's (the int5 lane's ``|w5| <= 31``); the caller
+    owns it: weights past it would break exactness silently.
+    """
+    K = w.shape[0]
+    chunk = exact_f32_chunk(x.dtype, w.dtype, K, w_abs_max)
+    if chunk < 1:
+        return conv2d(x, w, stride=stride, padding=padding, groups=groups)
+    if groups > 1:
+        cg, fg = x.shape[-1] // groups, w.shape[-1] // groups
+        return torch.cat([
+            conv2d_exact_f32(x[..., g * cg:(g + 1) * cg],
+                             w[..., g * fg:(g + 1) * fg], stride=stride,
+                             padding=padding, w_abs_max=w_abs_max, conv=conv)
+            for g in range(groups)], dim=-1)
+    if conv is None:
+        if x.is_cuda:
+            raise ValueError(
+                "conv2d_exact_f32 on a CUDA tensor needs conv=: cuDNN's "
+                "fp32 algorithms include Winograd and FFT, which are not "
+                "exact on integers")
+        conv = conv2d
+    out = None
+    for c0 in range(0, x.shape[-1], chunk):
+        o = conv(x[..., c0:c0 + chunk].to(torch.float32).contiguous(),
+                 w[:, :, c0:c0 + chunk].to(torch.float32).contiguous(),
+                 stride=stride, padding=padding).to(torch.int32)
+        out = o if out is None else out + o
+    return out
 
 
 def conv1d_causal_ref(x: torch.Tensor, w: torch.Tensor,

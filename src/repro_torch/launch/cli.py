@@ -1,16 +1,63 @@
-"""Shared serving CLI of the port's launchers (``serve_cnn``, ``serve``).
+"""Shared CLI of the port's launchers (``serve_cnn``, ``train``, ``serve``).
 
-Port of ``serving_parent`` and ``serve_config_from_args`` of
-``repro/launch/cli.py:118-173``: one argparse parent with the serving
-flags, mapped onto a :class:`~repro_torch.serve.ServeConfig` in one
-place.  The JAX parent's ``--faults`` and ``--breaker-threshold`` wait for
-the port's fault plane (ROADMAP queue 0).
+Port of ``repro/launch/cli.py``: :func:`execution_parent` carries the
+execution flags of the CNN launchers (``--arch``, ``--substrate``,
+``--emulate-hw``, ``--int8``, ``--int5``), mapped onto an
+:class:`~repro_torch.engine.ExecutionPolicy` by :func:`policy_from_args`;
+:func:`serving_parent` carries the serving flags, mapped onto a
+:class:`~repro_torch.serve.ServeConfig` by :func:`serve_config_from_args`.
+The JAX parent's ``--tuning`` waits for the port's autotuner (ROADMAP
+queue 1 item 8), its ``--faults`` and ``--breaker-threshold`` for the
+port's fault plane (queue 1 item 3); ``--force-pallas`` has no meaning
+in the port.
 """
 from __future__ import annotations
 
 import argparse
+from typing import Optional, Sequence
 
+from repro_torch.engine import SUBSTRATES, ExecutionPolicy
 from repro_torch.serve.config import OVERLOAD_POLICIES, ServeConfig
+
+
+def execution_parent(arch_choices: Optional[Sequence[str]] = None,
+                     arch_default: Optional[str] = None,
+                     arch_required: bool = False
+                     ) -> argparse.ArgumentParser:
+    """Parent parser with the shared CNN execution flags."""
+    p = argparse.ArgumentParser(add_help=False)
+    if arch_required:
+        p.add_argument("--arch", required=True, help="architecture id")
+    else:
+        p.add_argument("--arch", default=arch_default,
+                       choices=sorted(arch_choices) if arch_choices else None,
+                       help="architecture id")
+    p.add_argument("--substrate", choices=list(SUBSTRATES), default="auto",
+                   help="auto/kernel: the CUDA kernels on the card (their "
+                        "plain versions on the CPU); oracle: the plain "
+                        "PyTorch version; f32exact: integer convs exactly "
+                        "in fp32 channel chunks through the conv kernel's "
+                        "fp32 lane.  (Plan tuning, the JAX launchers' "
+                        "--tuning, waits for the port's autotuner.)")
+    p.add_argument("--emulate-hw", action="store_true",
+                   help="FPGA-faithful strided layers: stride-1 sweep + "
+                        "decimation + unfused epilogue (paper §V) instead "
+                        "of the strided fused kernel; forward only")
+    p.add_argument("--int8", action="store_true",
+                   help="the int8 lane (fused per-channel requant)")
+    p.add_argument("--int5", action="store_true",
+                   help="the int5 MSR weight lane (sign + 4-bit "
+                        "most-significant-run codes with expect-value "
+                        "compensation; the exponent folded into the "
+                        "requant pairs); takes precedence over --int8")
+    return p
+
+
+def policy_from_args(args: argparse.Namespace) -> ExecutionPolicy:
+    """One place mapping parsed launcher args -> ExecutionPolicy."""
+    return ExecutionPolicy(
+        substrate=getattr(args, "substrate", None) or "auto",
+        emulate_hw=bool(getattr(args, "emulate_hw", False)))
 
 
 def serving_parent(buckets_default: str = "1,4,16,64",

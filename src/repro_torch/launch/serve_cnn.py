@@ -2,19 +2,24 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn --arch vgg16 \\
       --int8 --buckets 1,4,8 --requests 32 --device cuda --check
+  PYTHONPATH=src python -m repro_torch.launch.serve_cnn --arch vgg16 \\
+      --smoke --int5 --device cpu --check
 
 Port of ``repro/launch/serve_cnn.py:55-265``.  Builds one
 ``repro_torch.serve.Server`` from a ``ServeConfig``: seeded random params
-(``init_cnn``), on the int8 lane quantized and calibrated on a sample
-burst, one warmed executable per bucket, then serves a deterministic
+(``init_cnn``), on the integer lanes quantized (``--int8``; ``--int5``,
+the MSR weight lane) and calibrated on a sample burst, one warmed
+executable per bucket, then serves a deterministic
 synthetic request stream (``data.pipeline.SyntheticRequestStream``)
 through pad-and-bucket admission — inline (``--producers 0``,
 deterministic) or through producer threads feeding the flush worker.
 ``--device`` defaults to ``cuda``; without a card, pass ``--device cpu``
 to run the plain PyTorch path.  ``--check`` exits non-zero unless request
 conservation holds, every executable was built once and, inline, every
-bucket flushed.  The fault-injection flags and fallback lanes of the JAX
-launcher are not ported yet.
+bucket flushed.  ``--substrate`` and ``--emulate-hw`` select the
+execution policy (``launch.cli.execution_parent``).  The fault-injection
+flags and fallback lanes of the JAX launcher wait for the port's fault
+plane (ROADMAP queue 1 item 3).
 """
 
 import argparse
@@ -25,10 +30,11 @@ import torch
 
 from repro_torch.configs import CNN_REGISTRY, CNN_SMOKES
 from repro_torch.data.pipeline import SyntheticRequestStream
-from repro_torch.engine import SUBSTRATES, ExecutionPolicy, plan_model
+from repro_torch.engine import plan_model
 from repro_torch.engine.policy import fp32_ieee, resolve_device
 from repro_torch.kernels import trim_conv2d as kernel
-from repro_torch.launch.cli import serve_config_from_args, serving_parent
+from repro_torch.launch.cli import (execution_parent, policy_from_args,
+                                    serve_config_from_args, serving_parent)
 from repro_torch.serve import Server
 
 
@@ -46,14 +52,14 @@ def make_stream(cfg, args, buckets):
         process=args.arrival,
         burst_sizes=tuple(buckets),
         gap_s=4.0 * args.max_delay_ms / 1e3,
-        dtype="uint8" if args.int8 else "float32",
+        dtype="uint8" if (args.int8 or args.int5) else "float32",
     )
 
 
 def build_server(cfg, policy, serve_config, *, seed=0, calib_batch=8,
                  device="cuda"):
-    """ModelPlan -> seeded params (+ int8 quantization and per-channel
-    requant calibration on a sample burst) -> a warm Server on
+    """ModelPlan -> seeded params (+ int8 or int5 quantization and
+    per-channel requant calibration on a sample burst) -> a warm Server on
     ``device``.  ``device="cuda"`` without a card raises."""
     dev = resolve_device(device)
     plan = plan_model(cfg, policy)
@@ -63,9 +69,13 @@ def build_server(cfg, policy, serve_config, *, seed=0, calib_batch=8,
     sample = SyntheticRequestStream(
         hw=cfg.input_hw, channels=cfg.layers[0].M, n_classes=cfg.n_classes,
         seed=seed, dtype="uint8").sample_batch(calib_batch)
-    qparams, _ = plan.quantize(params)
-    requant = plan.calibrate_requant(qparams,
-                                     torch.from_numpy(sample).to(dev))
+    sample = torch.from_numpy(sample).to(dev)
+    if serve_config.datapath == "int5":
+        qparams, _ = plan.quantize_int5(params)
+        requant = plan.calibrate_requant_int5(qparams, sample)
+    else:
+        qparams, _ = plan.quantize(params)
+        requant = plan.calibrate_requant(qparams, sample)
     return Server.from_plan(plan, qparams, serve_config, requant=requant,
                             device=dev)
 
@@ -107,16 +117,12 @@ def check_run(server, metrics, n_requests, *, expect_all_buckets) -> list:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0],
-                                 parents=[serving_parent("1,4,8")])
-    ap.add_argument("--arch", choices=sorted(CNN_REGISTRY), default="vgg16")
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n")[0],
+        parents=[execution_parent(CNN_REGISTRY, "vgg16"),
+                 serving_parent("1,4,8")])
     ap.add_argument("--smoke", action="store_true",
                     help="tiny arch variant (CNN_SMOKES)")
-    ap.add_argument("--int8", action="store_true",
-                    help="serve the int8 lane (fused per-channel requant)")
-    ap.add_argument("--substrate", choices=list(SUBSTRATES), default="auto",
-                    help="auto/kernel: the CUDA kernel on the card; "
-                         "oracle: the plain PyTorch version")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--requests", type=int, default=64)
@@ -133,7 +139,7 @@ def main() -> None:
 
     fp32_ieee()
     dev = resolve_device(args.device)
-    policy = ExecutionPolicy(substrate=args.substrate)
+    policy = policy_from_args(args)
     serve_config = serve_config_from_args(args)
     cfg = (CNN_SMOKES if args.smoke else CNN_REGISTRY)[args.arch]
 

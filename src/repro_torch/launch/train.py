@@ -15,8 +15,12 @@ conv runs forward in the TrIM kernel and backward through
 kernel.  ``--device`` defaults to ``cuda``; without a card pass
 ``--device cpu`` to run the kernels' plain versions.  The launcher exits
 non-zero when any step's loss or grad_norm is not finite.  ``--int8``
-then quantizes the trained convs and runs the calibrated int8 lane once.
-LM archs, ``--ckpt-dir`` and meshes are not ported yet and are refused.
+then quantizes the trained convs and runs the calibrated int8 lane once,
+``--int5`` the int5 MSR lane (exponent-folded pairs); either fails on a
+non-finite feature map.  ``--substrate`` and ``--emulate-hw`` select the
+execution policy (``launch.cli.execution_parent``; the decimated replay
+has no backward on the kernel substrate).  LM archs, ``--ckpt-dir`` and
+meshes are not ported yet and are refused.
 """
 
 import argparse
@@ -30,33 +34,42 @@ from repro_torch.data.pipeline import SyntheticImageDataset
 from repro_torch.distributed import (StepConfig, TrainLoopConfig,
                                      make_train_state, make_train_step,
                                      train_loop)
-from repro_torch.engine import ExecutionPolicy, plan_model
+from repro_torch.engine import plan_model
 from repro_torch.engine.policy import fp32_ieee, resolve_device
 from repro_torch.kernels import trim_conv2d as kernel
 from repro_torch.kernels import trim_conv2d_vjp as vjp
+from repro_torch.launch.cli import execution_parent, policy_from_args
 
 
-def _int8_check(plan, params, images: np.ndarray, device) -> None:
-    """Quantize + calibrate + run the fused int8 datapath once."""
-    qp, _ = plan.quantize(params)
+def _int_check(plan, params, images: np.ndarray, device, lane: str) -> None:
+    """Quantize + calibrate + run one fused integer datapath once:
+    ``lane`` "int8" or "int5" (the MSR weights, exponent-folded pairs)."""
     lo, hi = float(images.min()), float(images.max())
     u8 = np.clip((images - lo) / max(hi - lo, 1e-6) * 255, 0,
                  255).astype(np.uint8)
     u8 = torch.from_numpy(u8).to(device)
     with torch.no_grad():
-        pairs = plan.calibrate_requant(qp, u8)
-        feat = plan.forward_int8(qp, u8, requant=pairs)
+        if lane == "int5":
+            qp, _ = plan.quantize_int5(params)
+            pairs = plan.calibrate_requant_int5(qp, u8)
+            feat = plan.forward_int5(qp, u8, requant=pairs)
+            how = "MSR weights, exponent-folded requant"
+        else:
+            qp, _ = plan.quantize(params)
+            pairs = plan.calibrate_requant(qp, u8)
+            feat = plan.forward_int8(qp, u8, requant=pairs)
+            how = "fused per-channel requant"
     finite = bool(torch.isfinite(feat.double()).all())
-    print(f"[train] int8 datapath: output {tuple(feat.shape)} dtype "
-          f"{feat.dtype} finite={finite} (fused per-channel requant)")
+    print(f"[train] {lane} datapath: output {tuple(feat.shape)} dtype "
+          f"{feat.dtype} finite={finite} ({how})")
     if not finite:
-        raise SystemExit("[train] FAIL: non-finite int8 feature map")
+        raise SystemExit(f"[train] FAIL: non-finite {lane} feature map")
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True,
-                    help="vgg16 or alexnet (the LM archs are not ported)")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0],
+                                 parents=[execution_parent(
+                                     arch_required=True)])
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
     ap.add_argument("--steps", type=int, default=100)
@@ -65,8 +78,6 @@ def main() -> None:
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--int8", action="store_true",
-                    help="after training, run the calibrated int8 lane once")
     ap.add_argument("--ckpt-dir", default=None,
                     help="not ported yet: refused")
     args = ap.parse_args()
@@ -82,7 +93,7 @@ def main() -> None:
     ds = SyntheticImageDataset(hw=cfg.input_hw, channels=cfg.layers[0].M,
                                n_classes=cfg.n_classes,
                                global_batch=args.batch, seed=args.seed)
-    plan = plan_model(cfg, ExecutionPolicy())
+    plan = plan_model(cfg, policy_from_args(args))
     scfg = StepConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                       total_steps=args.steps, accum=args.accum)
     state = make_train_state(plan, args.seed, dev)
@@ -105,9 +116,10 @@ def main() -> None:
         print(f"[train] FAIL: non-finite loss or grad_norm at steps {bad}",
               file=sys.stderr)
         sys.exit(1)
-    if args.int8:
-        _int8_check(plan, out["state"]["params"], ds.batch_at(0)["images"],
-                    dev)
+    for lane in ("int8", "int5"):
+        if getattr(args, lane):
+            _int_check(plan, out["state"]["params"],
+                       ds.batch_at(0)["images"], dev, lane)
 
 
 if __name__ == "__main__":

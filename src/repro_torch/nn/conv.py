@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.model import ALEXNET_LAYERS, VGG16_LAYERS, ConvLayerSpec
+from repro_torch.core.quant import msr_compress, msr_operand
 from repro_torch.engine.plan import plan_model
 from repro_torch.engine.policy import ExecutionPolicy, resolve_device
 
@@ -110,6 +111,29 @@ def quantize_cnn(params: Params, cfg: CNNConfig) -> Tuple[Params, List[float]]:
         qw = torch.round(w / s).clamp(-127, 127).to(torch.int8)
         qp["conv"].append({"kernel": qw})
         scales.append(float(s))
+    return qp, scales
+
+
+def quantize_cnn_int5(params: Params, cfg: CNNConfig, compensate: bool = True
+                      ) -> Tuple[Params, List[float]]:
+    """Float conv weights -> the int5 MSR lane's runtime params.
+
+    :func:`quantize_cnn`, then each int8 kernel is compressed to sign +
+    4-bit most-significant-run codes with one shift per output channel
+    (``core.quant.msr_compress``) and factored as ``w_hat == w5 << e``
+    (``core.quant.msr_operand``; ``compensate`` appends the expect-value
+    bit, ``False`` is plain truncation).  Each conv entry is ``{"kernel":
+    w5 (K,K,C,F) int8 with |w5| <= 31, "shift": e (F,) int32}`` on the
+    params' device.  The scales are the int8 lane's.
+    """
+    qp8, scales = quantize_cnn(params, cfg)
+    qp: Params = {"conv": []}
+    for entry in qp8["conv"]:
+        w8 = entry["kernel"]
+        codes, shifts = msr_compress(w8.cpu().numpy())
+        w5, e = msr_operand(codes, shifts, compensate=compensate)
+        qp["conv"].append({"kernel": torch.from_numpy(w5).to(w8.device),
+                           "shift": torch.from_numpy(e).to(w8.device)})
     return qp, scales
 
 

@@ -10,7 +10,7 @@ their serving state.
 
 ``ServeConfig.from_args`` maps the launcher's serving flags
 (``--buckets`` / ``--max-delay-ms`` / ``--queue-capacity`` /
-``--overload`` / ``--int8``) onto a config.
+``--overload`` / ``--int8`` / ``--int5``) onto a config.
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ import argparse
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
+# The datapaths the port serves are the planner's: float, int8 and the
+# int5 MSR lane (both integer lanes with calibrated requant pairs).
+from repro_torch.engine.plan import DATAPATHS
 from repro_torch.serve.faults import FaultPlan
 
 #: Overload policies for a full admission queue (``queue_capacity``):
@@ -34,8 +37,6 @@ from repro_torch.serve.faults import FaultPlan
 #:   largest bucket or age out the deadline).
 OVERLOAD_POLICIES: Tuple[str, ...] = ("block", "shed", "degrade")
 
-#: The datapaths the port serves (the int5 lane is not ported yet).
-DATAPATHS: Tuple[str, ...] = ("float", "int8")
 
 
 @dataclass(frozen=True)
@@ -121,7 +122,9 @@ class ServeConfig:
             max_delay_ms=float(args.max_delay_ms),
             queue_capacity=int(args.queue_capacity),
             overload=args.overload,
-            datapath="int8" if getattr(args, "int8", False) else "float",
+            datapath=("int5" if getattr(args, "int5", False)
+                      else "int8" if getattr(args, "int8", False)
+                      else "float"),
         )
         if getattr(args, "request_timeout_ms", None) is not None:
             kw["request_timeout_ms"] = float(args.request_timeout_ms)

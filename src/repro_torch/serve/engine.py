@@ -50,7 +50,8 @@ class ServeEngine:
         self._active: Dict[int, int] = {}  # bucket -> active lane index
         self.breaker = CircuitBreaker()
         self.injector: Optional[FaultInjector] = None
-        #: the int5 wire payload; the Server reads it (not ported yet).
+        #: the int5 wire payload; the Server reads it (ROADMAP queue 1
+        #: item 3: the fault plane).
         self.wire = None
         self.retry = RetryPolicy()
         self.on_retry: Optional[Callable[[], None]] = None
@@ -93,18 +94,19 @@ class ServeEngine:
     ) -> "ServeEngine":
         """A serving engine for one ModelPlan on ``device``.
 
-        ``params`` are the float params ("float") or the quantized int8
-        params ("int8"), already on ``device``.  The int8 lane requires
-        calibrated ``requant`` pairs: the dynamic-shift path requantizes
-        off the whole batch's maximum, so a padded bucket would change
-        per-image outputs.  ``warm=True`` builds and warms every bucket's
+        ``params`` are the float params ("float"), the quantized int8
+        params ("int8") or the int5 operand/exponent params ("int5"),
+        already on ``device``.  Both integer lanes require calibrated
+        ``requant`` pairs: the dynamic-shift path requantizes off the whole
+        batch's maximum, so a padded bucket would change per-image
+        outputs.  ``warm=True`` builds and warms every bucket's
         executable before the first request.
         """
         if datapath not in DATAPATHS:
             raise ValueError(f"datapath {datapath!r} not in {DATAPATHS}")
-        if datapath == "int8" and requant is None:
+        if datapath != "float" and requant is None:
             raise ValueError(
-                "int8 serving requires calibrated requant pairs: the "
+                f"{datapath} serving requires calibrated requant pairs: the "
                 "dynamic (uncalibrated) requant path depends on batch "
                 "composition and cannot serve padded buckets bit-faithfully")
         fp32_ieee()

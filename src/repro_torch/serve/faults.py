@@ -24,9 +24,9 @@ than hoped for:
   (int5 -> int8 -> float -> oracle substrate).
 
 (A copy of ``repro/serve/faults.py`` without ``PackedWire``, the
-checksummed int5 wire payload: it arrives with the port's int5 lane.
-Until then ``FaultInjector.wire`` stays ``None`` and bit-flips are
-no-ops.)
+checksummed int5 wire payload, which comes with the port's fault plane
+(ROADMAP queue 1 item 3) over the int5 codecs of ``core.quant``.  Until
+then ``FaultInjector.wire`` stays ``None`` and bit-flips are no-ops.)
 
 Everything here is driven by the injectable clock/sleep pair the serve
 loop already carries, so chaos tests replay bit-for-bit on a fake clock.

@@ -118,8 +118,8 @@ class Server:
         """A server for one :class:`~repro_torch.engine.ModelPlan` on
         ``device``: builds the compile-once engine (one executable per
         bucket, warmed before the first request) and wraps it in the
-        facade.  The int8 datapath requires calibrated ``requant`` pairs,
-        exactly as the engine does."""
+        facade.  The int8 and int5 datapaths require calibrated
+        ``requant`` pairs, exactly as the engine does."""
         from repro_torch.serve.engine import ServeEngine
 
         engine = ServeEngine.build_for_plan(

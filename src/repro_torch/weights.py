@@ -4,8 +4,9 @@ tensors, and back to numpy.
 ``from_jax_params(tree, device)`` maps a nested dict/list/tuple of arrays
 (anything ``numpy.asarray`` accepts: the JAX float param tree
 ``{"conv": [{"kernel", "bias"}], "fc": [...]}``, the whole train state
-``{"params", "opt": {"m", "v", "step"}}``, the int8 ``qparams`` and the
-list of requant ``(mult, shift)`` pairs) onto the same structure of torch
+``{"params", "opt": {"m", "v", "step"}}``, the int8 ``qparams``, the
+int5 ``qparams`` ``{"conv": [{"kernel": w5, "shift": e}]}`` and the list
+of requant ``(mult, shift)`` pairs) onto the same structure of torch
 tensors on ``device``, keeping every layout and dtype (0-dim leaves such
 as the optimizer's step stay 0-dim), and the LM param tree
 ``{"embed", "final_norm", "stack": {"slot0": {...}}}`` with its

@@ -2,9 +2,11 @@
 the full-width shapes it serves, and the input gradient's stride-1 route,
 on the CPU.
 
-At every VGG-16 and AlexNet forward conv (per conv group) and every dx
+At every VGG-16 and AlexNet forward conv (per conv group), every dx
 conv of the VGG-16 train step (stride 1 on the cotangent, C and F
-swapped), the geometry covers every output pixel x filter exactly once,
+swapped) and every channel chunk the f32exact substrate runs at a VGG-16
+conv (57 channels or fewer for int8 weights, 235 or fewer for int5: not
+multiples of 4), the geometry covers every output pixel x filter exactly once,
 cuts the channels into non-empty contiguous ranges in order, is the same
 for a batch of 1 and of 8 (so an output's fp32 sum runs in one order in
 every bucket) and fits the H100's shared memory.
@@ -16,13 +18,15 @@ from torch.nn.grad import conv2d_input
 
 from repro_torch.configs import CNN_REGISTRY
 from repro_torch.engine import ExecutionPolicy, plan_model
+from repro_torch.kernels import ref
 from repro_torch.kernels import trim_conv2d as kern
 from repro_torch.kernels import trim_conv2d_vjp as vjp
 
 
 def _shapes():
     """(name, (H, W), C, K, F, stride, padding) per conv group: the
-    forward convs of both networks, then VGG-16's dx convs."""
+    forward convs of both networks, VGG-16's dx convs, then the distinct
+    channel chunks of VGG-16's convs on the f32exact substrate."""
     out = []
     for arch in ("vgg16", "alexnet"):
         for i, lp in enumerate(plan_model(CNN_REGISTRY[arch],
@@ -39,7 +43,16 @@ def _shapes():
                           stride=lp.stride, padding=lp.padding)
         out.append((f"vgg16-CL{i + 1}-dx", (t.H_O, t.W_O), lp.c_out, lp.k,
                     lp.c_in, 1, lp.k - 1 - p))
-    return out
+    for i, lp in enumerate(plan_model(CNN_REGISTRY["vgg16"],
+                                      ExecutionPolicy()).layers):
+        for w_abs_max in (None, 31):
+            chunk = ref.exact_f32_chunk(torch.uint8, torch.int8, lp.k,
+                                        w_abs_max)
+            for c in sorted({min(chunk, lp.c_in - c0)
+                             for c0 in range(0, lp.c_in, chunk)}):
+                out.append((f"vgg16-CL{i + 1}-f32exact-c{c}", lp.x_hw, c,
+                            lp.k, lp.c_out, lp.stride, lp.padding))
+    return list({s[0]: s for s in out}.values())
 
 
 SHAPES = _shapes()

@@ -3,7 +3,9 @@ TrIM conv kernel (and each path of its fp32 lane, split and not, the same
 bits over two calls and in a batch of 8 as alone; the input gradient
 through it against ``conv2d_input``; its u8 x s8 lane bit for bit at
 every VGG-16 and AlexNet conv, on each of its paths, split and not, at
-the largest sum and at batch 8 as 8 calls of batch 1), the weight-gradient kernel, the
+the largest sum and at batch 8 as 8 calls of batch 1; the int5 lane's
+calls at every VGG-16 conv; the f32exact substrate's chunks on its fp32
+lane against the oracle), the weight-gradient kernel, the
 autograd Function that runs both, the causal conv1d kernel (bit for bit), the flash-attention
 kernel (fp32 within 2e-5, bf16 within 2e-2 and per row within 4 x 2^-7 of
 the row's max|plain|, on both bf16 paths; its split decode bit-equal over
@@ -516,6 +518,109 @@ def test_u8s8_largest_sum_on_card(wv):
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and got.shape == (N, 14, 14, 64)
         assert bool((got == 255 * wv * 4608).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", [c for c in _net_layers()
+                                   if c[1] == "vgg16"], ids=lambda c: c[0])
+def test_int5_lane_bit_exact_at_vgg_width_on_card(layer):
+    """On a card: the int5 lane's call at every full-width VGG-16 conv,
+    batch 2: the u8 x s8 kernel on the MSR operands ``w5`` of random int8
+    weights, ReLU + the requant pairs calibrated on ``psum5 << e`` with
+    ``e`` folded in (raw ReLU'd ``psum5`` on the last conv), bit for bit
+    against the plain version; one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.core.quant import (fold_shift_into_requant,
+                                        msr_compress, msr_operand)
+    from repro_torch.kernels import trim_conv2d as kern
+
+    name, arch, l, groups, last = layer
+    dev = torch.device("cuda")
+    x, w, _ = _u8_layer_inputs(l, groups, 2, True, zlib.crc32(name.encode()),
+                               dev)
+    w5, e = msr_operand(*msr_compress(w.clamp(min=-127).cpu().numpy()))
+    w5 = torch.from_numpy(w5).to(dev)
+    rq = None
+    if not last:
+        psum = ref.conv2d(x, w5, stride=l.stride, padding=l.padding,
+                          groups=groups).clamp(min=0)
+        full = torch.bitwise_left_shift(psum, torch.from_numpy(e).to(dev))
+        amax = full.amax(dim=(0, 1, 2)).cpu().numpy().astype(np.float64)
+        m, s = scale_to_mult_shift(255.0 / np.maximum(amax, 1.0))
+        m, s = fold_shift_into_requant(m, s, e)
+        rq = (torch.as_tensor(m, device=dev), torch.as_tensor(s, device=dev))
+    args = dict(stride=l.stride, padding=l.padding, groups=groups, relu=True)
+    before = kern.LAUNCHES
+    got = port_conv(x, w5, None, rq, policy=ExecutionPolicy("kernel"), **args)
+    assert kern.LAUNCHES == before + groups
+    want = port_conv(x, w5, None, rq, policy=ExecutionPolicy("oracle"), **args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == (torch.int32 if last else torch.uint8)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# (id, H, W, C, K, F, stride, padding, groups): a deep VGG-16-like conv
+# (several chunks at both bounds) and AlexNet's grouped CL2
+F32EXACT_CASES = [
+    ("vgg-28x28x256", 28, 28, 256, 3, 128, 1, 1, 1),
+    ("alexnet-CL2", 27, 27, 96, 5, 256, 1, 2, 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 8])
+@pytest.mark.parametrize("w_bits", [8, 5])
+@pytest.mark.parametrize("case", F32EXACT_CASES, ids=lambda c: c[0])
+def test_f32exact_bit_equal_to_oracle_on_card(case, w_bits, N, monkeypatch):
+    """On a card: the f32exact substrate through ``run_conv2d`` equals the
+    float64 oracle bit for bit at worst-case magnitudes (all-255 x, each
+    filter's weights all at -bound or +bound, 127 or 31) and on random
+    inputs, at batch 1 and 8, with one launch of the conv kernel's fp32
+    lane a chunk and no library conv (``F.conv2d`` refused)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import torch.nn.functional as F
+
+    from repro_torch.engine import execute
+    from repro_torch.engine.plan import plan_conv_layer
+    from repro_torch.kernels import trim_conv2d as kern
+
+    name, H, W, C, K, Fo, S, p, g = case
+    hi = 127 if w_bits == 8 else 31
+    dev = torch.device("cuda")
+    kw = dict(stride=S, padding=p, groups=g, relu=True, w_bits=w_bits)
+    plan = plan_conv_layer((H, W), C, K, Fo,
+                           policy=ExecutionPolicy("f32exact"), **kw)
+    oracle = plan_conv_layer((H, W), C, K, Fo,
+                             policy=ExecutionPolicy("oracle"), **kw)
+    chunk = ref.exact_f32_chunk(torch.uint8, torch.int8, K,
+                                31 if w_bits == 5 else None)
+    chunks = g * -(-(C // g) // chunk)
+    rng = np.random.default_rng(zlib.crc32(name.encode()) + w_bits + N)
+    sign = np.where(np.arange(Fo) % 2 == 0, -hi, hi)
+    cases = [
+        (np.full((N, H, W, C), 255, np.uint8),
+         np.broadcast_to(sign, (K, K, C // g, Fo)).astype(np.int8)),
+        (rng.integers(0, 256, (N, H, W, C)).astype(np.uint8),
+         rng.integers(-hi - (w_bits == 8), hi + 1,
+                      (K, K, C // g, Fo)).astype(np.int8)),
+    ]
+    for xn, wn in cases:
+        x, w = torch.from_numpy(xn).to(dev), torch.from_numpy(wn).to(dev)
+        want = execute.run_conv2d(oracle, x, w)
+
+        def refused(*a, **k):
+            raise AssertionError("a library conv ran on the f32exact path")
+
+        monkeypatch.setattr(F, "conv2d", refused)
+        before = kern.LAUNCHES
+        got = execute.run_conv2d(plan, x, w)
+        assert kern.LAUNCHES == before + chunks
+        monkeypatch.undo()
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == torch.int32
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

@@ -1,12 +1,13 @@
 """The port's ``Server`` on the CPU against the JAX package's ``Server``.
 
 VGG-16 smoke, buckets 1,4,8, the bursts stream served inline, on the
-float and int8 lanes.  Both packages get the same weights (JAX's
+float, int8 and int5 lanes.  Both packages get the same weights (JAX's
 ``init_cnn`` carried across by ``from_jax_params``) and the same seeded
 request stream.  Checked: request conservation, every executable built
 once, bucketed results bit-equal to ``engine.infer`` at N=1, and served
-results equal to what the JAX ``Server`` serves: bit for bit on int8,
-within rtol = atol = 1e-4 on float (fp32 sums in another order).  Both
+results equal to what the JAX ``Server`` serves: bit for bit on the
+integer lanes (and equal to the port's direct forward there), within
+rtol = atol = 1e-4 on float (fp32 sums in another order).  Both
 servers run the stream on a fake clock (as ``tests/test_serve.py`` does),
 so which batches flush depends on the arrival times alone, not on how
 long the host takes to serve them.
@@ -71,12 +72,18 @@ def _served(datapath):
     params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams),
                              device="cpu")
     jrq = rq = None
-    if datapath == "int8":
-        jparams, _ = jplan.quantize(jparams)
-        params, _ = plan.quantize(params)
-        sample = _stream(JaxStream, "int8").sample_batch(4)
-        jrq = jplan.calibrate_requant(jparams, sample)
-        rq = plan.calibrate_requant(params, torch.from_numpy(sample))
+    if datapath != "float":
+        sample = _stream(JaxStream, datapath).sample_batch(4)
+        if datapath == "int5":
+            jparams, _ = jplan.quantize_int5(jparams)
+            params, _ = plan.quantize_int5(params)
+            jrq = jplan.calibrate_requant_int5(jparams, sample)
+            rq = plan.calibrate_requant_int5(params, torch.from_numpy(sample))
+        else:
+            jparams, _ = jplan.quantize(jparams)
+            params, _ = plan.quantize(params)
+            jrq = jplan.calibrate_requant(jparams, sample)
+            rq = plan.calibrate_requant(params, torch.from_numpy(sample))
     conf = dict(buckets=BUCKETS, max_delay_ms=5.0, datapath=datapath)
     jclock = FakeClock()
     jsrv = JaxServer.from_plan(jplan, jparams, JaxServeConfig(**conf),
@@ -89,12 +96,18 @@ def _served(datapath):
                            clock=clock, sleep=clock.sleep, device="cpu")
     metrics = srv.run_stream(_stream(SyntheticRequestStream, datapath))
     srv.close()
-    return srv, metrics, want
+    direct = None
+    if datapath != "float":
+        fwd = plan.forward_int5 if datapath == "int5" else plan.forward_int8
+        direct = {r.rid: fwd(params, torch.from_numpy(r.payload[None]),
+                             requant=rq)[0].numpy()
+                  for r in metrics.requests}
+    return srv, metrics, want, direct
 
 
-@pytest.mark.parametrize("datapath", ["float", "int8"])
+@pytest.mark.parametrize("datapath", ["float", "int8", "int5"])
 def test_port_server_serves_what_the_jax_server_serves(datapath):
-    srv, metrics, want = _served(datapath)
+    srv, metrics, want, direct = _served(datapath)
     assert check_run(srv, metrics, N_REQUESTS, expect_all_buckets=True) == []
     assert set(srv.engine.compile_counts.values()) == {1}
     assert len(srv.engine.compile_counts) == len(BUCKETS)
@@ -104,9 +117,10 @@ def test_port_server_serves_what_the_jax_server_serves(datapath):
         # bucketed == unbatched, bit for bit
         np.testing.assert_array_equal(
             r.result, srv.engine.infer(r.payload[None])[0])
-        if datapath == "int8":
+        if datapath != "float":
             assert r.result.dtype == np.int32
             np.testing.assert_array_equal(r.result, want[r.rid])
+            np.testing.assert_array_equal(r.result, direct[r.rid])
         else:
             np.testing.assert_allclose(r.result, want[r.rid], rtol=1e-4,
                                        atol=1e-4)
