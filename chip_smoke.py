@@ -125,6 +125,35 @@ Phases (any failure exits non-zero and prints no result line):
    26 chunks); AlexNet CL1 (stride 4) under ``emulate_hw`` (the stride-1
    sweep, decimated, unfused requant) bit-equal to the strided path on
    the int8 lane, on the kernel and on f32exact, at batch 1 and 8;
+5d. chaos serve: full-width VGG-16 through ``serve_cnn.build_server``
+   with the fault plane armed (``CHAOS_RUNS``), buckets 1,4,8, the serve
+   phases' stream (bursts 1 s apart): the launcher's chaos spec
+   ``seed=3,worker=1,stage=2,bitflip=1,exec=2`` at breaker threshold 1
+   with 4 producer threads on the int5 lane (its ladder: the
+   checksummed ``PackedWire`` and an int8 fallback lane), a lone bit-flip
+   on the int5 lane (restored before serving), ``exec=2`` at threshold 1
+   on the int8 lane (fallback ``int8-f32exact``) and ``nonfinite=1`` on
+   the float lane: ``check_run`` passes; degradations, worker restarts,
+   restores and retries counted where the spec plants them; every
+   recorded failure injected; every degradation from the primary lane
+   and within the fired budgets; 13 kernel launches a bucket run on the
+   kernel lanes (the chunk count on ``int8-f32exact``), no ``F.conv2d``;
+   the u8 x s8 weight pre-pass once per (weight tensor, layout), only for
+   weights the wire re-materialized in the run; every served result
+   bit-equal to the fault-free answer of the lane that served it; flushes
+   and p50 per lane logged;
+5e. wire: one bit flipped in each of the 13 layers of full-width VGG-16's
+   ``PackedWire``: all 13 caught and restored by ``qparams()``, the
+   restored ``kernel``/``shift`` equal to ``plan.quantize_int5``'s and the
+   int5 features after the restore equal to those before the flip, bit
+   for bit;
+5f. emulator: the paper's Slice/Core/Engine emulator
+   (``core.engine.TrimEngine``, ``PAPER_ENGINE``, numpy on the host)
+   against kernel 1's u8 x s8 lane (int32 out, no epilogue) bit for bit
+   on one seeded image: VGG-16 CL1 and AlexNet CL1 at full size and
+   VGG-16 CL9 at 28x28 with its channels cut to 192 -> 224
+   (``EMULATOR_LAYERS``); the emulator's fetch counters logged beside
+   ``trim_memory_accesses``;
 6. train: full-width VGG-16, batch 8, 4 AdamW steps from a seed-0 init
    on the ``SyntheticImageDataset`` stream through ``make_train_step`` on
    the default substrate, with the oracle substrate's step run on the
@@ -1218,6 +1247,14 @@ def phase_serve(torch, datapath: str, n_requests: int):
         fail(f"serve {datapath}: " + "; ".join(fails))
     snap = metrics.snapshot()
     flushes = snap["totals"]["flushes"]
+    # fault-free: one lane, no armed plane, no resilience counter
+    if [ln.name for ln in server.engine.lanes] != [datapath] \
+            or server.engine.injector is not None \
+            or RESILIENCE_KEYS & set(snap["totals"]) \
+            or "degraded_lanes" in snap:
+        fail(f"serve {datapath}: the fault-free server carries lanes "
+             f"{[ln.name for ln in server.engine.lanes]} or resilience "
+             f"counters {sorted(RESILIENCE_KEYS & set(snap['totals']))}")
     if launches != flushes * len(cfg.layers):
         fail(f"serve {datapath}: {launches} kernel launches for {flushes} "
              f"flushes of {len(cfg.layers)} convs")
@@ -1293,6 +1330,417 @@ def phase_serve(torch, datapath: str, n_requests: int):
     return launches - per_bucket[buckets[-1]], per_bucket[buckets[-1]]
 
 
+#: the chaos serve phases: (label, datapath, fault spec, breaker
+#: threshold, producer threads).  The launcher's chaos spec runs threaded
+#: (a worker crash needs the flush worker); at threshold 1 its three
+#: batch failures degrade every bucket to int8.  "int5-flip" serves the
+#: int5 lane through a restore (the flip fires before the first flush), so
+#: its weight pre-pass count reads the wire's re-materialization.  int8
+#: and float run inline; threshold None keeps ServeConfig's 3.
+CHAOS_RUNS = (
+    ("int5", "int5", "seed=3,worker=1,stage=2,bitflip=1,exec=2", 1, 4),
+    ("int5-flip", "int5", "seed=8,bitflip=1", None, 0),
+    ("int8", "int8", "seed=3,exec=2", 1, 0),
+    ("float", "float", "seed=3,nonfinite=1", None, 0))
+#: the chaos streams' gap between bursts, the fault-free serve phases'
+CHAOS_GAP_S = 0.05
+#: the counters a fault-free snapshot must not carry
+RESILIENCE_KEYS = {"failed", "retried", "degraded", "worker_restarts",
+                   "integrity_restored"}
+
+
+def _p50(vals) -> float:
+    return float(sorted(vals)[len(vals) // 2] * 1e3) if vals else 0.0
+
+
+def phase_chaos(torch, label: str, datapath: str, spec: str, threshold,
+                producers: int, n_requests: int):
+    """Full-width VGG-16 through ``serve_cnn.build_server`` with the fault
+    plane armed (``spec``) and its ladder, on buckets 1, 4, 8, the stream
+    of the fault-free serve phases with :data:`CHAOS_GAP_S` between its
+    bursts.  Fails unless ``check_run`` passes;
+    each recorded failure is an injected one (``InjectedFault`` or the
+    injected ``NonFiniteOutput``); every degradation runs from the
+    primary lane to the next and follows from the fired budgets; every
+    run of a bucket launches 13 convs on a kernel lane (the chunk count on
+    ``int8-f32exact``) and no library conv; the u8 x s8 weight pre-pass
+    runs once per (weight tensor, layout), and only for weights the wire
+    materialized during the run; every served result equals, bit for
+    bit, the fault-free answer of the lane that served it.  Logs flushes
+    and p50 per lane and the resilience totals.  Returns the launches of
+    the run's bucket runs by lane."""
+    import numpy as np
+
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.data.pipeline import SyntheticRequestStream
+    from repro_torch.engine import ExecutionPolicy, execute, plan_model
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.launch.serve_cnn import build_server, check_run
+    from repro_torch.serve import (FaultPlan, InjectedFault, NonFiniteOutput,
+                                   ServeConfig)
+
+    what = f"chaos {label}"
+    dev = torch.device("cuda", 0)
+    cfg = CNN_REGISTRY["vgg16"]
+    buckets = (1, 4, 8)
+    kw = {} if threshold is None else {"breaker_threshold": threshold}
+    conf = ServeConfig(buckets=buckets, max_delay_ms=5.0, datapath=datapath,
+                       faults=FaultPlan.parse(spec), **kw)
+    stream = SyntheticRequestStream(
+        hw=cfg.input_hw, channels=3, n_classes=cfg.n_classes,
+        n_requests=n_requests, seed=0, process="bursts",
+        burst_sizes=buckets, gap_s=CHAOS_GAP_S,
+        dtype="float32" if datapath == "float" else "uint8")
+    t0 = time.perf_counter()
+    server = build_server(cfg, ExecutionPolicy(), conf, seed=0, device=dev)
+    eng = server.engine
+    names = [ln.name for ln in eng.lanes]
+    log(f"{what}: {spec}, breaker threshold {eng.breaker.threshold}, "
+        f"lanes {names}, {producers or 'no'} producer threads; params + "
+        f"warm build of {len(names)} lanes x buckets {buckets} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if any(ln.substrate == "oracle" for ln in eng.lanes):
+        fail(f"{what}: a lane on the library conv armed on the card: "
+             f"{names}")
+    items = list(stream)
+
+    # -- instruments: failures, lanes, launches, flush latency, pre-passes
+    errors, lane_of_rid, lane_of_batch = [], {}, {}
+    runs, prepass, wire_sets = [], [], []
+    lat, flushes = {n: [] for n in names}, dict.fromkeys(names, 0)
+    record_failure = server._record_batch_failure
+    record_death = server._record_worker_death
+    dispatch, finalize = server._dispatch, server._finalize
+    run_bucket, stage = eng.run_bucket, eng.stage
+    u8_weights = kern.u8_weights
+
+    def on_failure(bucket, err):
+        errors.append(err)
+        return record_failure(bucket, err)
+
+    def on_death(err):
+        errors.append(err)
+        return record_death(err)
+
+    def on_stage(images):
+        try:
+            return stage(images)
+        except Exception as err:
+            errors.append(err)
+            raise
+
+    def on_dispatch(bucket, reqs):
+        name = eng.lane_of(bucket).name
+        for r in reqs:
+            lane_of_rid[r.rid] = name
+        lane_of_batch[id(reqs)] = name
+        return dispatch(bucket, reqs)
+
+    def on_finalize(dispatched):
+        finalize(dispatched)
+        name = lane_of_batch[id(dispatched[1])]
+        now = time.monotonic()
+        flushes[name] += 1
+        lat[name] += [now - r.t_submit for r in dispatched[1]]
+
+    def on_run(bucket, images):
+        idx = eng.active_lane(bucket)
+        before = kern.LAUNCHES
+        out = run_bucket(bucket, images)
+        runs.append((eng.lanes[idx].name, kern.LAUNCHES - before))
+        if idx == 0 and eng.wire is not None \
+                and (not wire_sets or wire_sets[-1] is not eng._wire_params):
+            wire_sets.append(eng._wire_params)
+        return out
+
+    def on_weights(w, key, nbytes):
+        wt, ready = u8_weights(w, key, nbytes)
+        if not ready:
+            prepass.append((w, key))
+        return wt, ready
+
+    server._record_batch_failure, server._record_worker_death = \
+        on_failure, on_death
+    server._dispatch, server._finalize = on_dispatch, on_finalize
+    eng.run_bucket, eng.stage = on_run, on_stage
+    kern.u8_weights = on_weights
+    first_wire = eng._wire_params
+    library = []
+    kern.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        with _no_library_conv(library):
+            metrics = server.run_stream(items, producers=producers)
+        server.close()
+    finally:
+        kern.u8_weights = u8_weights
+    wall = time.perf_counter() - t0
+    launches = kern.LAUNCHES
+    snap = metrics.snapshot()
+    tot = snap["totals"]
+    fired = dict(eng.injector.fired)
+
+    # -- the run's contract
+    fails = check_run(server, metrics, n_requests,
+                      expect_all_buckets=producers == 0)
+    if fails:
+        fail(f"{what}: " + "; ".join(fails))
+    if library:
+        fail(f"{what}: {len(library)} library conv calls on the served path")
+    foreign = [f"{type(e).__name__}: {e}" for e in errors
+               if not isinstance(e, (InjectedFault, NonFiniteOutput))]
+    if foreign:
+        fail(f"{what}: failures that were not injected: {foreign}")
+    want = {"int5": ("degraded", "worker_restarts", "integrity_restored",
+                     "retried"),
+            "int5-flip": ("integrity_restored",),
+            "int8": ("degraded", "retried"),
+            "float": ("retried",)}[label]
+    low = [k for k in want if tot.get(k, 0) < 1]
+    if low:
+        fail(f"{what}: {low} not counted (totals {tot})")
+    degs = eng.degradations
+    if len(degs) != tot.get("degraded", 0) or any(
+            (d["from"], d["to"]) != tuple(names[:2]) for d in degs):
+        fail(f"{what}: degradations {degs} against totals {tot}")
+    budget = fired["exec"] + fired["worker"] + fired["nonfinite"]
+    if len(degs) > budget or (threshold is None and degs):
+        fail(f"{what}: {len(degs)} degradations from {budget} injected "
+             f"batch failures at threshold {eng.breaker.threshold}")
+    chunks = None
+    if "int8-f32exact" in names:
+        # the f32exact lane's launches a run: its chunk count, counted
+        # around one fault-free forward at batch 1
+        xplan = plan_model(cfg, ExecutionPolicy(substrate="f32exact"))
+        img = torch.from_numpy(items[0][1][None]).to(dev)
+        before = kern.LAUNCHES
+        with torch.inference_mode():
+            execute.forward_int8(xplan, eng.lanes[1].params, img,
+                                 requant=eng.lanes[1].requant)
+        chunks = kern.LAUNCHES - before
+    bad = [(n, k) for n, k in runs
+           if k != (chunks if n == "int8-f32exact" else len(cfg.layers))]
+    if bad:
+        fail(f"{what}: bucket runs with unexpected launches (lane, "
+             f"launches): {bad}")
+    if sum(k for _, k in runs) != launches:
+        fail(f"{what}: {launches} launches in the run, "
+             f"{sum(k for _, k in runs)} in its bucket runs")
+    keys = [(id(w), key) for w, key in prepass]
+    if len(set(keys)) != len(keys):
+        fail(f"{what}: a weight pre-pass ran twice for one weight tensor")
+    # tensors the wire decoded anew during the run: a restored layer's
+    first_ids = {id(t["kernel"]) for t in first_wire["conv"]} \
+        if first_wire is not None else set()
+    served_wire = {id(t["kernel"]) for ws in wire_sets
+                   if ws is not first_wire
+                   for t in ws["conv"]} - first_ids
+    stray = [w for w, _ in prepass if id(w) not in served_wire]
+    if stray:
+        fail(f"{what}: {len(stray)} weight pre-passes for weights that "
+             "were not re-decoded from the wire during the run")
+    if eng.wire is not None and eng.wire.verify():
+        fail(f"{what}: the wire still fails its checksums after the run")
+    remade = sum(ws is not first_wire for ws in wire_sets)
+    if label == "int5-flip" and not (
+            remade >= 1 and 0 < len(prepass)
+            <= eng.wire.restored * len(buckets)):
+        fail(f"{what}: {len(prepass)} weight pre-passes for "
+             f"{eng.wire.restored} restored layers over {remade} wire "
+             "materializations")
+
+    # -- every served result is the fault-free answer of its lane
+    served = [r for r in server.requests if r.status == "served"]
+    by_lane = {}
+    for r in served:
+        by_lane.setdefault(lane_of_rid[r.rid], []).append(r)
+    plan = eng.plan
+    master = eng.wire.master if eng.wire is not None else None
+
+    q5 = plan.quantize_int5(master)[0] if master is not None else None
+
+    def answer(name, imgs):
+        lane = eng.lanes[names.index(name)]
+        if name == "int5":
+            return execute.forward_int5(plan, q5, imgs, requant=lane.requant)
+        if lane.datapath == "int8":  # int8, and int8-f32exact's claim
+            return execute.forward_int8(plan, lane.params, imgs,
+                                        requant=lane.requant)
+        return execute.serve_forward(plan, lane.params, imgs)
+
+    for name, reqs in by_lane.items():
+        for i in range(0, len(reqs), 8):
+            part = reqs[i:i + 8]
+            imgs = torch.from_numpy(
+                np.stack([r.payload for r in part])).to(dev)
+            with torch.inference_mode():
+                ref_out = answer(name, imgs).cpu().numpy()
+            got = np.stack([r.result for r in part])
+            if not np.array_equal(got, ref_out):
+                fail(f"{what}: requests served on lane {name} differ from "
+                     "its fault-free answer")
+
+    res = {k: tot[k] for k in sorted(RESILIENCE_KEYS) if k in tot}
+    log(f"{what}: {tot['images']}/{n_requests} served, {tot.get('failed', 0)}"
+        f" failed, in {tot['flushes']} flushes ({wall:.2f} s wall); "
+        f"fired {fired}; totals {res}; degraded {snap.get('degraded_lanes')}")
+    log(f"{what}: {len(errors)} recorded failures, all injected "
+        f"({sorted({type(e).__name__ for e in errors})}); every served "
+        f"result bit-equal to its lane's fault-free answer")
+    for name in names:
+        log(f"{what}: lane {name}: {flushes[name]} flushes, "
+            f"{len(by_lane.get(name, []))} served, p50 "
+            f"{_p50(lat[name]):.3f} ms, "
+            f"{sum(k for n, k in runs if n == name)} kernel launches in "
+            f"{sum(1 for n, _ in runs if n == name)} bucket runs")
+    if eng.wire is not None:
+        log(f"{what}: {len(prepass)} weight pre-passes over "
+            f"{remade} wire "
+            f"materializations in the run (restored layers "
+            f"{eng.wire.restored}, each pre-passed anew alone), not one a "
+            "flush "
+            f"({sum(1 for n, _ in runs if n == 'int5')} int5 bucket runs)")
+    if chunks is not None:
+        log(f"{what}: int8-f32exact: {chunks} fp32 chunk launches a bucket "
+            "run, no library conv")
+    return {n: sum(k for m, k in runs if m == n) for n in names}
+
+
+def phase_wire(torch):
+    """Full-width VGG-16's ``PackedWire`` on the card: one bit flipped in
+    each of its 13 layers; the next materialization restores all 13 and
+    its ``kernel``/``shift`` tensors equal ``plan.quantize_int5``'s bit for
+    bit; the int5 features served after the restore equal those served
+    before the flip; then one flip in the largest layer restores and
+    decodes that layer alone."""
+    import numpy as np
+
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.data.pipeline import SyntheticRequestStream
+    from repro_torch.engine import ExecutionPolicy, plan_model
+    from repro_torch.serve import PackedWire, ServeEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = CNN_REGISTRY["vgg16"]
+    plan = plan_model(cfg, ExecutionPolicy())
+    params = plan.init(0, dev)
+    q5, _ = plan.quantize_int5(params)
+    stream = SyntheticRequestStream(hw=cfg.input_hw, channels=3,
+                                    n_classes=cfg.n_classes, seed=1,
+                                    dtype="uint8")
+    imgs = stream.sample_batch(4)
+    requant = plan.calibrate_requant_int5(q5, torch.from_numpy(imgs).to(dev))
+    t0 = time.perf_counter()
+    wire = PackedWire(cfg, params)
+    t_build = time.perf_counter() - t0
+    eng = ServeEngine.build_for_plan(plan, q5, buckets=(4,), datapath="int5",
+                                     requant=requant, wire=wire, device=dev)
+    before = eng.infer(imgs)
+    n = wire.n_layers
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        wire.flip_bit(i, int(rng.integers(0, wire._packed[i].size * 8)))
+    if wire.verify() != list(range(n)):
+        fail(f"wire: the checksums caught {wire.verify()} of {n} flips")
+    t0 = time.perf_counter()
+    got = wire.qparams()
+    t_restore = time.perf_counter() - t0
+    if wire.restored != n or len(got["conv"]) != n:
+        fail(f"wire: restored {wire.restored} of {n} flipped layers")
+    for i, (g, q) in enumerate(zip(got["conv"], q5["conv"])):
+        if not (g["kernel"].device == dev and torch.equal(g["kernel"],
+                                                          q["kernel"])
+                and torch.equal(g["shift"], q["shift"])):
+            fail(f"wire: layer {i}'s restored kernel/shift differ from "
+                 "plan.quantize_int5's")
+    after = eng.infer(imgs)
+    if not np.array_equal(before, after):
+        fail("wire: the int5 features after the restore differ from those "
+             "before the flip")
+    # one flip in the largest layer: that layer alone is restored and
+    # decoded anew, the others keep their tensors
+    big = max(range(n), key=lambda i: wire._packed[i].size)
+    wire.flip_bit(big, 8 * big + 5)
+    t0 = time.perf_counter()
+    one = wire.qparams()
+    t_one = time.perf_counter() - t0
+    kept = [a is b for a, b in zip(got["conv"], one["conv"])]
+    if wire.restored != n + 1 or kept != [i != big for i in range(n)]:
+        fail(f"wire: one flip in layer {big} restored "
+             f"{wire.restored - n} layers, kept tensors {kept}")
+    if not np.array_equal(before, eng.infer(imgs)):
+        fail("wire: the int5 features after a one-layer restore differ")
+    int8_bytes = sum(int(q["kernel"].numel()) for q in q5["conv"])
+    log(f"wire: VGG-16 PackedWire {wire.nbytes()} bytes for {int8_bytes} "
+        f"weights ({wire.nbytes() / int8_bytes:.4f} of int8), built in "
+        f"{t_build:.2f} s; one bit flipped in each of {n} layers, all "
+        f"caught and restored in {t_restore:.2f} s (host); restored "
+        "kernel/shift bit-equal to plan.quantize_int5, int5 features after "
+        "the restore bit-equal to those before the flip; one flip in the "
+        f"largest layer ({big}, {wire._packed[big].size} bytes) restored "
+        f"alone in {t_one:.3f} s (host)")
+
+
+#: the emulator phase's layers: (label, ConvLayerSpec arguments); the
+#: third is VGG-16's CL9 at its full 28x28 with its 512 -> 512 channels
+#: cut to 192 -> 224 (8 channel steps of P_M = 24 over 32 filter groups
+#: of P_N = 7), which keeps the numpy emulator near 5 s
+EMULATOR_LAYERS = (
+    ("VGG-16 CL1", ("CL1", 224, 224, 3, 3, 64)),
+    ("AlexNet CL1", ("CL1", 227, 227, 11, 3, 96, 4, 0)),
+    ("VGG-16 CL9 cut to 192->224 channels", ("CL9", 28, 28, 3, 192, 224)),
+)
+
+
+def phase_emulator(torch):
+    """The paper's bit-faithful engine emulator (``core.engine.TrimEngine``
+    on ``PAPER_ENGINE``) against kernel 1's u8 x s8 lane (no epilogue,
+    int32 out), bit for bit, on one seeded image per layer of
+    :data:`EMULATOR_LAYERS`; the layouts are transposed here, in neither
+    module.  Logs the emulator's fetch counters beside
+    ``trim_memory_accesses``."""
+    import numpy as np
+
+    from repro_torch.core.engine import TrimEngine
+    from repro_torch.core.model import (PAPER_ENGINE, ConvLayerSpec,
+                                        trim_memory_accesses)
+    from repro_torch.kernels import trim_conv2d as kern
+
+    dev = torch.device("cuda", 0)
+    for label, args in EMULATOR_LAYERS:
+        l = ConvLayerSpec(*args)
+        rng = np.random.default_rng(len(label))
+        x = rng.integers(0, 256, (l.M, l.H_I, l.W_I), dtype=np.uint8)
+        w = rng.integers(-128, 128, (l.N, l.M, l.K, l.K)).astype(np.int8)
+        t0 = time.perf_counter()
+        want, trace = TrimEngine(PAPER_ENGINE).run_layer(x, w, l)
+        t_emu = time.perf_counter() - t0
+        xd = torch.from_numpy(np.ascontiguousarray(
+            x.transpose(1, 2, 0))[None]).to(dev)
+        wd = torch.from_numpy(np.ascontiguousarray(
+            w.transpose(2, 3, 1, 0))).to(dev)
+        got = kern.trim_conv2d(xd, wd, stride=l.stride, padding=l.padding)
+        ms = cuda_ms(torch, lambda: kern.trim_conv2d(
+            xd, wd, stride=l.stride, padding=l.padding), 10)
+        got = got[0].permute(2, 0, 1).cpu().numpy()
+        if got.dtype != np.int32 or not np.array_equal(got, want):
+            fail(f"emulator: {label}: kernel 1's u8s8 output differs from "
+                 f"the TrimEngine emulator's (max diff "
+                 f"{np.abs(got.astype(np.int64) - want).max()})")
+        acc = trim_memory_accesses(l, PAPER_ENGINE)
+        log(f"emulator: {label} ({l.H_I}x{l.W_I}, K={l.K}, S={l.stride}, "
+            f"{l.M}->{l.N}): kernel 1 bit-equal to the emulator "
+            f"({want.shape[0]}x{want.shape[1]}x{want.shape[2]} int32); "
+            f"emulator {t_emu:.2f} s (host numpy), kernel {ms:.4f} ms; "
+            f"{trace.steps} engine steps, max|psum| {trace.max_abs_psum}; "
+            f"fetches: ifmap {trace.ifmap_fetches} (model "
+            f"{acc.ifmap_reads * 1e6:.0f}), weight {trace.weight_fetches} "
+            f"({acc.weight_reads * 1e6:.0f}), ofmap "
+            f"{trace.ofmap_writebacks} ({acc.ofmap_writes * 1e6:.0f}), "
+            f"psum buffer {trace.psum_buffer_accesses} "
+            f"({acc.onchip_raw * 1e6:.0f})")
+
+
 def _f32exact_cases():
     """(arch, index, layer, groups, last) of every VGG-16 conv and
     AlexNet's strided (CL1) and grouped (CL2, CL4, CL5) convs."""
@@ -1301,14 +1749,19 @@ def _f32exact_cases():
 
 
 @contextlib.contextmanager
-def _no_library_conv():
+def _no_library_conv(seen=None):
     """A context in which any call of ``F.conv2d`` (cuDNN, and the float64
-    oracle through it) fails the phase."""
+    oracle through it) fails the phase; with a list ``seen``, the call is
+    recorded there and raises instead (a serving thread cannot end the
+    process: the caller checks ``seen``)."""
     import torch.nn.functional as F
 
     real = F.conv2d
 
     def refused(*a, **k):
+        if seen is not None:
+            seen.append("F.conv2d")
+            raise RuntimeError("a library conv ran on a refused path")
         fail("f32exact: a library conv (cuDNN / the float64 oracle) ran on "
              "the f32exact path")
 
@@ -2363,6 +2816,10 @@ def main() -> None:
     launches_f32 = sum(phase_serve(torch, "float", args.requests))
     launches_u8, launches_u8_b8 = phase_serve(torch, "int8", args.requests)
     launches_i5, launches_i5_b8 = phase_serve(torch, "int5", args.requests)
+    chaos = {run[0]: phase_chaos(torch, *run, args.requests)
+             for run in CHAOS_RUNS}
+    phase_wire(torch)
+    phase_emulator(torch)
     xrows, xlaunches = phase_f32exact(torch, args.reps, rows)
     train_f32, train_wgrad = phase_train(torch, TRAIN_STEPS, TRAIN_BATCH,
                                          TRAIN_LR)
@@ -2396,12 +2853,31 @@ def main() -> None:
                       and r["batch"] == TRAIN_BATCH],
                      f"trim_conv2d_u8s8_int5_batch{TRAIN_BATCH}",
                      launches_i5_b8),
+        # the chaos serves' launches, each on its own lane's entry: the
+        # int5 lane's, then the int8 lane's (the int8 run's and the int5
+        # runs' int8 fallback), f32exact's chunks and float on fp32; the
+        # times are the batch-1 rows, the flushes span buckets 1, 4, 8
+        kernel_entry([r for r in rows if r["lane"] == "int5"
+                      and r["batch"] == 1],
+                     "trim_conv2d_u8s8_int5_chaos",
+                     chaos["int5"]["int5"] + chaos["int5-flip"]["int5"]),
+        kernel_entry([r for r in rows if r["lane"] == "u8s8"
+                      and r["batch"] == 1],
+                     "trim_conv2d_u8s8_chaos",
+                     chaos["int8"]["int8"] + chaos["int5"]["int8"]
+                     + chaos["int5-flip"]["int8"]),
+        kernel_entry([r for r in rows if r["lane"] == "f32"
+                      and r["batch"] == 1],
+                     "trim_conv2d_f32_chaos", sum(chaos["float"].values())),
         # the fp32 lane on the f32exact substrate: VGG-16's integer convs
         # in exact channel chunks, launches from its int8 / int5 runs
         kernel_entry([r for r in xrows if r["w_bits"] == 8],
                      "trim_conv2d_f32_f32exact", xlaunches[8]),
         kernel_entry([r for r in xrows if r["w_bits"] == 5],
                      "trim_conv2d_f32_f32exact_w5", xlaunches[5]),
+        kernel_entry([r for r in xrows if r["w_bits"] == 8],
+                     "trim_conv2d_f32_f32exact_chaos",
+                     chaos["int8"]["int8-f32exact"]),
         kernel_entry([r for r in brows if r["kind"] == "dw"
                       and r["batch"] == TRAIN_BATCH],
                      "trim_conv2d_wgrad_f32", train_wgrad,

@@ -1,3 +1,6 @@
-"""Architecture tables of the paper's CNNs (a copy of the layer specs of
-``repro.core.trim.model``; the port keeps its own so it imports nothing of
-the JAX package)."""
+"""The paper's own models and the codecs, copied from the JAX package so
+the port imports nothing of it: the layer tables and the cycle and
+memory-access models (``core.model``), the bit-faithful Slice/Core/Engine
+emulator (``core.engine``), the slice simulator (``core.slice_sim``), the
+design-space exploration (``core.explore``), the int8/int5 codecs
+(``core.quant``) and the tree helpers (``core.tree``)."""

@@ -237,7 +237,7 @@ def wire_checksum(packed: np.ndarray) -> int:
     The integrity word a deployment stores next to each layer's BRAM
     weight image: a soft-error bit-flip anywhere in the packed payload
     changes the checksum, so a consumer that verifies before decoding
-    (a ``PackedWire``, ROADMAP queue 1 item 3) can never materialize
+    (``serve.faults.PackedWire``) can never materialize
     flipped weights.
     """
     import zlib

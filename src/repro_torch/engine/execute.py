@@ -399,6 +399,14 @@ def calibrate_requant_int5(plan: ModelPlan, qparams,
 #: Cache hits never touch it, so serving can assert compile-once.
 EXECUTABLE_COMPILES: Dict[Tuple[ModelPlan, int, str, str], int] = {}
 
+#: Fault-injection seam of the serving chaos plane: when set, called as
+#: ``hook(plan, batch, datapath)`` at the top of :func:`executable_for`,
+#: before any work; raising there stands for a failed build.
+#: ``lru_cache`` caches no call that raised, so a bounded retry after a
+#: transient fault builds cleanly.  Set and cleared by
+#: ``ServeEngine.warmup`` only; ``None`` otherwise.
+COMPILE_FAULT_HOOK = None
+
 
 class Executable:
     """The serving callable for one static (batch, H, W, C) input.
@@ -455,6 +463,8 @@ def executable_for(plan: ModelPlan, batch: int, datapath: str = "float",
     """The cached serving callable for ``plan`` at one static batch size.
     Building it loads (and if needed compiles) the kernel library; the
     caller makes the warm call with its params (``ServeEngine``)."""
+    if COMPILE_FAULT_HOOK is not None:
+        COMPILE_FAULT_HOOK(plan, batch, datapath)
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath {datapath!r} not in {DATAPATHS}")
     batch = int(batch)

@@ -7,9 +7,7 @@ execution flags of the CNN launchers (``--arch``, ``--substrate``,
 :func:`serving_parent` carries the serving flags, mapped onto a
 :class:`~repro_torch.serve.ServeConfig` by :func:`serve_config_from_args`.
 The JAX parent's ``--tuning`` waits for the port's autotuner (ROADMAP
-queue 1 item 8), its ``--faults`` and ``--breaker-threshold`` for the
-port's fault plane (queue 1 item 3); ``--force-pallas`` has no meaning
-in the port.
+queue 1 item 8); ``--force-pallas`` has no meaning in the port.
 """
 from __future__ import annotations
 
@@ -79,6 +77,15 @@ def serving_parent(buckets_default: str = "1,4,16,64",
                    help="per-request deadline for queued work")
     p.add_argument("--producers", type=int, default=0,
                    help="producer threads (0 = inline open loop)")
+    p.add_argument("--faults", default=None, metavar="SPEC",
+                   help="arm the seeded fault-injection plane: "
+                        "comma-separated budgets, e.g. 'seed=7,stage=2,"
+                        "worker=1,bitflip=1,exec=2,nonfinite=1,latency=1,"
+                        "latency-ms=50'; omitted = the plane is off")
+    p.add_argument("--breaker-threshold", type=int, default=None,
+                   help="consecutive batch failures per (arch, lane, "
+                        "bucket) before the circuit breaker trips and "
+                        "serving degrades to the next lane")
     return p
 
 

@@ -4,6 +4,9 @@
       --int8 --buckets 1,4,8 --requests 32 --device cuda --check
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn --arch vgg16 \\
       --smoke --int5 --device cpu --check
+  PYTHONPATH=src python -m repro_torch.launch.serve_cnn --arch vgg16 \\
+      --int5 --producers 4 --check --breaker-threshold 1 \\
+      --faults seed=3,worker=1,stage=2,bitflip=1,exec=2
 
 Port of ``repro/launch/serve_cnn.py:55-265``.  Builds one
 ``repro_torch.serve.Server`` from a ``ServeConfig``: seeded random params
@@ -15,11 +18,21 @@ through pad-and-bucket admission — inline (``--producers 0``,
 deterministic) or through producer threads feeding the flush worker.
 ``--device`` defaults to ``cuda``; without a card, pass ``--device cpu``
 to run the plain PyTorch path.  ``--check`` exits non-zero unless request
-conservation holds, every executable was built once and, inline, every
-bucket flushed.  ``--substrate`` and ``--emulate-hw`` select the
-execution policy (``launch.cli.execution_parent``).  The fault-injection
-flags and fallback lanes of the JAX launcher wait for the port's fault
-plane (ROADMAP queue 1 item 3).
+conservation holds (served + shed + expired + failed == submitted),
+every executable was built once and, inline, every bucket flushed; on
+failure it dumps the admission ledger (every request's terminal state and
+what the fault plane fired) as JSON to stderr.  ``--substrate`` and
+``--emulate-hw`` select the execution policy
+(``launch.cli.execution_parent``).
+
+``--faults SPEC`` arms the seeded fault-injection plane and the
+degradation ladder behind it (``build_server``): injected stage / build /
+executable faults, worker crashes, int5 wire bit-flips, NaN batches and
+latency spikes, recovered by bounded retries, the watchdog, the
+checksummed weights' restore and the circuit breaker's lane degradation
+(``--breaker-threshold``).  The metrics JSON then carries ``faults``
+(the plan), ``fault_ledger`` (what fired) and ``lanes``; without
+``--faults`` it carries none of them.
 """
 
 import argparse
@@ -35,7 +48,7 @@ from repro_torch.engine.policy import fp32_ieee, resolve_device
 from repro_torch.kernels import trim_conv2d as kernel
 from repro_torch.launch.cli import (execution_parent, policy_from_args,
                                     serve_config_from_args, serving_parent)
-from repro_torch.serve import Server
+from repro_torch.serve import Lane, PackedWire, Server
 
 
 def make_stream(cfg, args, buckets):
@@ -60,12 +73,29 @@ def build_server(cfg, policy, serve_config, *, seed=0, calib_batch=8,
                  device="cuda"):
     """ModelPlan -> seeded params (+ int8 or int5 quantization and
     per-channel requant calibration on a sample burst) -> a warm Server on
-    ``device``.  ``device="cuda"`` without a card raises."""
+    ``device``.  ``device="cuda"`` without a card raises.
+
+    With ``serve_config.faults`` armed the server also carries its
+    degradation ladder: int5 serves off the checksummed ``PackedWire``
+    payload with an ``int8`` fallback lane calibrated on the same sample
+    from the same float master (its outputs are a native int8 server's);
+    int8 falls back to ``int8-f32exact`` (the same integer sums, exact in
+    fp32 channel chunks: bit-identical).  On the CPU float falls back to
+    ``float-oracle``, the substrate's own plain conv; on the card the
+    float ladder ends at the conv kernel's fp32 lane, since its plain
+    conv is the library's (cuDNN), and a breaker trip, which does not
+    tell an injected failure from a real one, must not hand the kernel's
+    traffic to it.  Without faults the engine has one lane."""
     dev = resolve_device(device)
     plan = plan_model(cfg, policy)
     params = plan.init(seed, dev)
+    armed = serve_config.faults is not None
     if serve_config.datapath == "float":
-        return Server.from_plan(plan, params, serve_config, device=dev)
+        fallbacks = [Lane("float-oracle", "float", params,
+                          substrate="oracle")] \
+            if armed and dev.type == "cpu" else None
+        return Server.from_plan(plan, params, serve_config,
+                                fallbacks=fallbacks, device=dev)
     sample = SyntheticRequestStream(
         hw=cfg.input_hw, channels=cfg.layers[0].M, n_classes=cfg.n_classes,
         seed=seed, dtype="uint8").sample_batch(calib_batch)
@@ -73,11 +103,21 @@ def build_server(cfg, policy, serve_config, *, seed=0, calib_batch=8,
     if serve_config.datapath == "int5":
         qparams, _ = plan.quantize_int5(params)
         requant = plan.calibrate_requant_int5(qparams, sample)
-    else:
-        qparams, _ = plan.quantize(params)
-        requant = plan.calibrate_requant(qparams, sample)
+        fallbacks = wire = None
+        if armed:
+            wire = PackedWire(cfg, params)
+            q8, _ = plan.quantize(params)
+            fallbacks = [Lane("int8", "int8", q8,
+                              plan.calibrate_requant(q8, sample))]
+        return Server.from_plan(plan, qparams, serve_config,
+                                requant=requant, fallbacks=fallbacks,
+                                wire=wire, device=dev)
+    qparams, _ = plan.quantize(params)
+    requant = plan.calibrate_requant(qparams, sample)
+    fallbacks = [Lane("int8-f32exact", "int8", qparams, requant,
+                      substrate="f32exact")] if armed else None
     return Server.from_plan(plan, qparams, serve_config, requant=requant,
-                            device=dev)
+                            fallbacks=fallbacks, device=dev)
 
 
 def check_run(server, metrics, n_requests, *, expect_all_buckets) -> list:
@@ -166,6 +206,13 @@ def main() -> None:
         "executables": dict(server.engine.compile_counts),
         "kernel_launches": launches,
     }
+    injector = server.engine.injector
+    if injector is not None:
+        # the chaos schedule and what fired, so a degraded run is visible
+        # in its artifact
+        extra["faults"] = injector.plan.describe()
+        extra["fault_ledger"] = dict(injector.fired)
+        extra["lanes"] = [ln.name for ln in server.engine.lanes]
     payload = metrics.write(args.out, extra=extra, device=dev)
 
     tot = snap["totals"]
@@ -188,6 +235,21 @@ def main() -> None:
         if fails:
             for f in fails:
                 print(f"[serve_cnn] CHECK FAILED: {f}", file=sys.stderr)
+            # the admission ledger: every request's terminal state (and
+            # what the fault plane fired), so a failure reads from the log
+            ledger = {
+                "fails": fails,
+                "totals": tot,
+                "requests": [
+                    dict({"rid": r.rid, "status": r.status},
+                         **({"error": r.error} if r.error else {}))
+                    for r in sorted(metrics.requests, key=lambda r: r.rid)
+                ],
+            }
+            if injector is not None:
+                ledger["fault_ledger"] = dict(injector.fired)
+            json.dump(ledger, sys.stderr, indent=1)
+            print(file=sys.stderr)
             sys.exit(1)
         print("[serve_cnn] check OK: request conservation holds, every "
               "executable built exactly once"

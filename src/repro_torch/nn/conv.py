@@ -98,19 +98,24 @@ def cnn_loss(params: Params, batch, cfg: CNNConfig,
     return plan.loss(params, batch)
 
 
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, float]:
+    """One float conv weight -> symmetric per-tensor int8 and its scale.
+    fp32 ``amax / 127`` and round-half-even, as the JAX package does, so
+    the same float weights give the same int8 bits."""
+    w = w.to(torch.float32)
+    s = w.abs().max().clamp_min(1e-8) / 127.0
+    return torch.round(w / s).clamp(-127, 127).to(torch.int8), float(s)
+
+
 def quantize_cnn(params: Params, cfg: CNNConfig) -> Tuple[Params, List[float]]:
-    """Float conv weights -> symmetric per-tensor int8; returns
-    (int params, scales).  fp32 ``amax / 127`` and round-half-even, as the
-    JAX package does, so the same float weights give the same int8 bits."""
+    """Float conv weights -> symmetric per-tensor int8 (`quantize_weight`
+    per layer); returns (int params, scales)."""
     qp: Params = {"conv": []}
     scales: List[float] = []
     for i in range(len(cfg.layers)):
-        w = params["conv"][i]["kernel"].to(torch.float32)
-        amax = w.abs().max().clamp_min(1e-8)
-        s = amax / 127.0
-        qw = torch.round(w / s).clamp(-127, 127).to(torch.int8)
+        qw, s = quantize_weight(params["conv"][i]["kernel"])
         qp["conv"].append({"kernel": qw})
-        scales.append(float(s))
+        scales.append(s)
     return qp, scales
 
 

@@ -12,6 +12,13 @@ Staging (:meth:`ServeEngine.stage`) copies each padded batch through
 pinned host memory with ``non_blocking=True``, so the Server's flush
 worker overlaps batch k+1's copy with batch k's kernels.  Outputs stay on
 the device until the Server's hand-off (``out.cpu()``).
+
+The resilience plane (``serve/faults.py``) is inert until the Server arms
+it: ``build_for_plan(fallbacks=, wire=)`` registers the degradation
+ladder (extra :class:`~repro_torch.serve.faults.Lane` entries the circuit
+breaker advances through) and the checksummed int5 payload
+(:class:`~repro_torch.serve.faults.PackedWire`) that the primary int5
+lane's weights are read from, re-read only when its version moves.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from repro_torch.engine.policy import fp32_ieee, resolve_device
 from repro_torch.serve.batching import pad_batch
 from repro_torch.serve.config import DATAPATHS
 from repro_torch.serve.faults import (CircuitBreaker, FaultInjector, Lane,
-                                      RetryPolicy, with_retries)
+                                      PackedWire, RetryPolicy, with_retries)
 
 
 class ServeEngine:
@@ -44,19 +51,21 @@ class ServeEngine:
         self.compile_counts: Dict[str, int] = {}
         self._plan = None
         self._datapath = "float"
-        #: degradation order: lanes[0] is the primary datapath (fallback
-        #: lanes arrive with the port's fault plane).
+        #: degradation order: lanes[0] is the primary datapath, later
+        #: entries are what the circuit breaker falls back to.
         self.lanes: List[Lane] = []
         self._active: Dict[int, int] = {}  # bucket -> active lane index
         self.breaker = CircuitBreaker()
         self.injector: Optional[FaultInjector] = None
-        #: the int5 wire payload; the Server reads it (ROADMAP queue 1
-        #: item 3: the fault plane).
-        self.wire = None
+        #: the checksummed int5 payload behind the primary int5 lane.
+        self.wire: Optional[PackedWire] = None
         self.retry = RetryPolicy()
         self.on_retry: Optional[Callable[[], None]] = None
         self._retry_sleep: Callable[[float], None] = time.sleep
+        #: degradation events, in order (stamped into serve JSON headers).
         self.degradations: List[dict] = []
+        self._wire_params = None
+        self._wire_version = -1
 
     # -- the executable cache -------------------------------------------
 
@@ -90,6 +99,8 @@ class ServeEngine:
         datapath: str = "float",
         requant: Optional[Sequence[Tuple[Any, Any]]] = None,
         warm: bool = True,
+        fallbacks: Optional[Sequence[Lane]] = None,
+        wire: Optional[PackedWire] = None,
         device="cuda",
     ) -> "ServeEngine":
         """A serving engine for one ModelPlan on ``device``.
@@ -101,6 +112,14 @@ class ServeEngine:
         batch's maximum, so a padded bucket would change per-image
         outputs.  ``warm=True`` builds and warms every bucket's
         executable before the first request.
+
+        ``fallbacks`` registers the degradation ladder: extra lanes, in
+        degradation order, that the circuit breaker advances through
+        after repeated batch failures; every lane is built and warmed with
+        the primary, so a degradation at serve time is a lookup.  ``wire``
+        arms the int5 integrity check: the primary lane's weights are
+        materialized from the checksummed 5-bit payload instead of
+        ``params`` (verified on every re-read).
         """
         if datapath not in DATAPATHS:
             raise ValueError(f"datapath {datapath!r} not in {DATAPATHS}")
@@ -116,6 +135,15 @@ class ServeEngine:
         eng._datapath = datapath
         rq = None if requant is None else [tuple(p) for p in requant]
         eng.lanes = [Lane(datapath, datapath, params, rq)]
+        for lane in (fallbacks or ()):
+            if lane.name in {x.name for x in eng.lanes}:
+                raise ValueError(f"duplicate lane name {lane.name!r}")
+            eng.lanes.append(lane)
+        if wire is not None:
+            if datapath != "int5":
+                raise ValueError(
+                    "a PackedWire payload only backs the int5 datapath")
+            eng.wire = wire
         if warm:
             eng.warmup()
         return eng
@@ -146,6 +174,9 @@ class ServeEngine:
         key = self.executable_key(plan.cfg.name, lane.name, f"n{bucket}")
 
         def build():
+            # bounded retry absorbs transiently rejected builds (the
+            # injected COMPILE_FAULT_HOOK fires inside executable_for,
+            # which caches no attempt that raised)
             ex = with_retries(
                 lambda: plan.executable_for(int(bucket), lane.datapath,
                                             self.device),
@@ -157,19 +188,35 @@ class ServeEngine:
         return self.executable(key, build)
 
     def _warm(self, ex, lane: Lane, bucket: int) -> None:
-        """One call on zero images with the lane's params, so the first
-        request meets a built library and allocator pools already sized."""
+        """One call on zero images with the lane's runtime params, so the
+        first request meets a built library, allocator pools already
+        sized and, on the integer lanes, the weights' transposition done."""
+        idx = next(i for i, x in enumerate(self.lanes) if x is lane)
+        params = self._lane_params(idx, lane)
         zeros = torch.zeros(ex.shape, dtype=ex.dtype, device=self.device)
         if lane.datapath == "float":
-            ex(lane.params, zeros)
+            ex(params, zeros)
         else:
-            ex(lane.params, zeros, lane.requant)
+            ex(params, zeros, lane.requant)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _count_retry(self, attempt: int, err: Exception) -> None:
         if self.on_retry is not None:
             self.on_retry()
+
+    def _lane_params(self, lane_idx: int, lane: Lane):
+        """The lane's runtime params; the primary int5 lane re-reads them
+        from the checksummed wire payload whenever its version moves (the
+        integrity gate a bit-flip cannot get past), and keeps the same
+        tensors while it stands."""
+        if lane_idx == 0 and self.wire is not None:
+            if self._wire_params is None \
+                    or self._wire_version != self.wire.version:
+                self._wire_params = self.wire.qparams()
+                self._wire_version = self.wire.version
+            return self._wire_params
+        return lane.params
 
     def breaker_key(self, bucket: int) -> str:
         """The circuit breaker's (arch, lane, bucket) coordinate."""
@@ -178,13 +225,17 @@ class ServeEngine:
         return f"{arch} {lane.name} n{int(bucket)}"
 
     def note_failure(self, bucket: int) -> Optional[dict]:
-        """Feed one batch failure to the breaker; on a trip, degrade the
-        bucket to the next lane.  Returns the degradation event, or None
-        when nothing degraded."""
+        """Feed one batch failure (executable exception, non-finite
+        output, worker crash mid-batch) to the breaker.  On a trip:
+        re-verify the wire payload (restoring it from the fp32 master if
+        it was flipped) and degrade the bucket to the next lane.  Returns
+        the degradation event, or None when nothing degraded."""
         bucket = int(bucket)
         key = self.breaker_key(bucket)
         if not self.breaker.failure(key):
             return None
+        if self.wire is not None:
+            self.wire.verify_or_restore()
         idx = self.active_lane(bucket)
         if idx + 1 >= len(self.lanes):
             return None  # tripped, but no lane left to degrade to
@@ -206,9 +257,13 @@ class ServeEngine:
         sleep: Optional[Callable[[float], None]] = None,
         on_retry: Optional[Callable[[], None]] = None,
     ) -> None:
-        """Arm the retry/breaker plane (called by ``Server.__init__``)."""
+        """Arm the fault/recovery plane (called by ``Server.__init__``
+        from its ServeConfig).  Binds the injector to the wire payload so
+        planned bit-flips land on the live bytes, and routes retry sleeps
+        through the server's (possibly fake) clock."""
         if injector is not None:
             self.injector = injector
+            injector.wire = self.wire
         if retry is not None:
             self.retry = retry
         if breaker_threshold is not None:
@@ -219,10 +274,22 @@ class ServeEngine:
             self.on_retry = on_retry
 
     def warmup(self) -> None:
-        """Build and warm every lane x bucket executable (idempotent)."""
-        for lane in self.lanes:
-            for b in self.buckets:
-                self._lane_exec(lane, b)
+        """Build and warm every lane x bucket executable (idempotent),
+        under the bounded-retry policy so a transiently rejected build
+        does not abort warmup; verify the wire payload's checksums if
+        armed."""
+        from repro_torch.engine import execute
+
+        if self.injector is not None:
+            execute.COMPILE_FAULT_HOOK = self.injector.fire_compile
+        try:
+            for lane in self.lanes:
+                for b in self.buckets:
+                    self._lane_exec(lane, b)
+        finally:
+            execute.COMPILE_FAULT_HOOK = None
+        if self.wire is not None:
+            self.wire.verify_or_restore()
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -251,11 +318,12 @@ class ServeEngine:
         if self.injector is not None:
             self.injector.fire_exec(lane_idx)
         ex = self._lane_exec(lane, bucket)
+        params = self._lane_params(lane_idx, lane)
         if isinstance(images, np.ndarray):
             images = self.stage(images)
         if lane.datapath == "float":
-            return ex(lane.params, images)
-        return ex(lane.params, images, lane.requant)
+            return ex(params, images)
+        return ex(params, images, lane.requant)
 
     def infer(self, images: np.ndarray) -> np.ndarray:
         """Pad ``n <= max(buckets)`` images into their bucket, run, slice

@@ -23,10 +23,16 @@ than hoped for:
   and the engine degrades to the next :class:`Lane`
   (int5 -> int8 -> float -> oracle substrate).
 
-(A copy of ``repro/serve/faults.py`` without ``PackedWire``, the
-checksummed int5 wire payload, which comes with the port's fault plane
-(ROADMAP queue 1 item 3) over the int5 codecs of ``core.quant``.  Until
-then ``FaultInjector.wire`` stays ``None`` and bit-flips are no-ops.)
+- :class:`PackedWire` — the int5 weight payload in its 5-bit wire form
+  (``core.quant.pack_int5``) with a CRC-32 checksum per layer and the
+  fp32 master copy: a flipped payload is *detected* at
+  re-materialization / warmup / breaker-trip and restored from the
+  master instead of ever being served.
+
+A copy of ``repro/serve/faults.py``; ``PackedWire`` is built over the
+port's own ``nn.conv.quantize_cnn`` and the codecs of ``core.quant``, so
+its packed bytes and checksums are the JAX package's byte for byte, and
+its master and materialized weights are tensors on the master's device.
 
 Everything here is driven by the injectable clock/sleep pair the serve
 loop already carries, so chaos tests replay bit-for-bit on a fake clock.
@@ -304,6 +310,161 @@ class Lane:
 
 
 # ---------------------------------------------------------------------------
+# PackedWire: the int5 payload in wire form + integrity machinery
+# ---------------------------------------------------------------------------
+
+
+class PackedWire:
+    """The int5 weight image as it would live in BRAM, plus its armor.
+
+    Holds, per conv layer, the MSR codes packed to 5 bits/weight
+    (``quant.pack_int5``, numpy bytes), the per-channel shifts, and a
+    CRC-32 over the packed bytes — alongside the fp32 master params
+    (tensors, left on their device) everything was quantized from.
+    ``qparams()`` is the ONLY way weights leave this object, and it
+    always verifies the checksums first: a flipped layer is re-quantized
+    from the master (``restored`` counts) and can never be served.
+    ``flip_bit`` is the fault-injection hook.
+    """
+
+    def __init__(self, cfg, master_params):
+        self.cfg = cfg
+        self.master = master_params
+        #: bumped on every mutation; consumers re-materialize on change.
+        self.version = 0
+        #: checksum-mismatch layers re-quantized from the master.
+        self.restored = 0
+        self.on_restore = None  # callback(n_layers) -> None
+        self._lock = threading.Lock()
+        self._cache: Optional[dict] = None
+        self._cache_version = -1
+        n = len(cfg.layers)
+        self._packed: List[Any] = [None] * n
+        self._shifts: List[Any] = [None] * n
+        self._shapes: List[Tuple[int, ...]] = [()] * n
+        self._crcs: List[int] = [0] * n
+        #: per layer: restores so far, and the count its decoded tensors
+        #: were made at (a layer re-decodes only after its own restore)
+        self._gen = [0] * n
+        self._decoded: List[Optional[dict]] = [None] * n
+        self._decoded_gen = [-1] * n
+        for i in range(n):
+            self._encode(i)
+
+    # -- construction / restore -----------------------------------------
+
+    def _encode(self, i: int) -> None:
+        """Layer ``i``'s wire form, quantized from its fp32 master:
+        int8, MSR codes and shifts, packed bytes and their CRC-32."""
+        from repro_torch.core.quant import msr_compress, pack_int5, \
+            wire_checksum
+        from repro_torch.nn.conv import quantize_weight
+
+        w8, _ = quantize_weight(self.master["conv"][i]["kernel"])
+        codes, sh = msr_compress(w8.cpu().numpy())
+        p = pack_int5(codes)
+        self._packed[i], self._shifts[i] = p, sh
+        self._shapes[i], self._crcs[i] = codes.shape, wire_checksum(p)
+
+    def _restore_locked(self) -> int:
+        """Re-encode every layer whose bytes fail their checksum (the
+        caller holds the lock); returns how many were restored."""
+        from repro_torch.core.quant import wire_checksum
+
+        bad = [i for i, (p, crc) in enumerate(zip(self._packed, self._crcs))
+               if wire_checksum(p) != crc]
+        for i in bad:
+            self._encode(i)
+            self._gen[i] += 1
+        if bad:
+            self.restored += len(bad)
+            self.version += 1
+            self._cache = None
+            self._cache_version = -1
+        return len(bad)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self._packed)
+
+    def nbytes(self) -> int:
+        return int(sum(p.nbytes for p in self._packed))
+
+    # -- fault-injection + verification ----------------------------------
+
+    def flip_bit(self, layer: int, bit: int) -> None:
+        """Flip one bit of one layer's packed payload (a BRAM soft
+        error).  Bumps ``version`` so the next materialization re-reads
+        — and therefore re-verifies — the wire bytes."""
+        with self._lock:
+            buf = self._packed[layer]
+            buf[(bit // 8) % buf.size] ^= 1 << (bit % 8)
+            self.version += 1
+
+    def verify(self) -> List[int]:
+        """Layers whose packed bytes no longer match their checksum."""
+        from repro_torch.core.quant import wire_checksum
+
+        with self._lock:
+            return [i for i, (p, crc) in
+                    enumerate(zip(self._packed, self._crcs))
+                    if wire_checksum(p) != crc]
+
+    def verify_or_restore(self) -> int:
+        """Checksum every layer; re-quantize the corrupt ones, and only
+        those, from the fp32 master.  Returns how many layers were
+        restored (0 = clean)."""
+        with self._lock:
+            n = self._restore_locked()
+        if n and self.on_restore is not None:
+            self.on_restore(n)
+        return n
+
+    # -- materialization --------------------------------------------------
+
+    def qparams(self) -> dict:
+        """The int5 runtime params (``{"kernel", "shift"}`` per layer),
+        materialized from the verified wire bytes onto the master's
+        device.
+
+        Checksums are verified BEFORE decoding on every re-read, under
+        the same lock hold as the decode (the wire is the source of truth
+        a soft error mutates), so flipped weights are structurally
+        unservable.  The result is cached until ``version`` moves, and a
+        layer's tensors are decoded anew only after that layer was
+        restored, so a consumer that keeps work per weight tensor (the
+        conv kernel's transposed weights) redoes it once per restored
+        layer, not once per call.
+        """
+        import numpy as np
+        import torch
+
+        from repro_torch.core.quant import msr_operand, unpack_int5
+
+        dev = self.master["conv"][0]["kernel"].device
+        with self._lock, torch.inference_mode(False):
+            if self._cache is not None and self._cache_version == self.version:
+                return self._cache
+            n = self._restore_locked()
+            for i in range(self.n_layers):
+                if self._decoded_gen[i] == self._gen[i]:
+                    continue
+                shape = self._shapes[i]
+                codes = unpack_int5(self._packed[i],
+                                    int(np.prod(shape))).reshape(shape)
+                w5, e = msr_operand(codes, self._shifts[i])
+                self._decoded[i] = {"kernel": torch.from_numpy(w5).to(dev),
+                                    "shift": torch.from_numpy(e).to(dev)}
+                self._decoded_gen[i] = self._gen[i]
+            self._cache = {"conv": list(self._decoded)}
+            self._cache_version = self.version
+            out = self._cache
+        if n and self.on_restore is not None:
+            self.on_restore(n)
+        return out
+
+
+# ---------------------------------------------------------------------------
 # FaultInjector: the armed runtime
 # ---------------------------------------------------------------------------
 
@@ -330,7 +491,7 @@ class FaultInjector:
             "latency": plan.latency_spikes,
         }
         self.fired: Dict[str, int] = {k: 0 for k in self._budget}
-        self.wire = None  # the int5 wire payload (not ported yet)
+        self.wire: Optional[PackedWire] = None
 
     def _take(self, site: str) -> bool:
         with self._lock:

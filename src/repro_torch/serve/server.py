@@ -113,19 +113,26 @@ class Server:
         warm: bool = True,
         clock: Callable[[], float] = time.monotonic,
         sleep: Callable[[float], None] = time.sleep,
+        fallbacks=None,
+        wire=None,
         device="cuda",
     ) -> "Server":
         """A server for one :class:`~repro_torch.engine.ModelPlan` on
         ``device``: builds the compile-once engine (one executable per
         bucket, warmed before the first request) and wraps it in the
         facade.  The int8 and int5 datapaths require calibrated
-        ``requant`` pairs, exactly as the engine does."""
+        ``requant`` pairs, exactly as the engine does.
+        ``fallbacks``/``wire`` pass through to
+        ``ServeEngine.build_for_plan`` (the degradation ladder and the
+        checksummed int5 payload); warmup runs *after* the facade arms
+        the fault plane, so injected build faults and the bounded-retry
+        policy cover warmup too."""
         from repro_torch.serve.engine import ServeEngine
 
         engine = ServeEngine.build_for_plan(
             plan, params, buckets=config.buckets,
             datapath=config.datapath, requant=requant, warm=False,
-            device=device)
+            fallbacks=fallbacks, wire=wire, device=device)
         srv = cls(engine, config, clock=clock, sleep=sleep)
         if warm:
             engine.warmup()

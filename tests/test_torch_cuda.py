@@ -1106,3 +1106,179 @@ def test_ssd_kernel_refuses_what_it_does_not_take_on_card():
     xt = torch.zeros((1, 8, 16, 2), device=dev).transpose(2, 3)
     with pytest.raises(ValueError, match="last stride"):
         ks.trim_ssd(xt, dt, A, Bm, Cm, D)
+
+
+# the emulator's cases (tests/test_trim_engine.py CASES):
+# (M, H, W, K, N, stride, pad)
+EMULATOR_CASES = [
+    (3, 16, 16, 3, 8, 1, None),
+    (24, 14, 14, 3, 7, 1, None),
+    (25, 9, 9, 3, 8, 1, None),
+    (4, 27, 27, 5, 6, 1, 2),
+    (3, 23, 23, 11, 2, 4, 0),
+    (2, 12, 12, 1, 3, 1, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EMULATOR_CASES,
+                         ids=lambda c: f"M{c[0]}-K{c[3]}-S{c[5]}")
+def test_emulator_equals_kernel_u8s8_on_card(case):
+    """On a card: the paper's bit-faithful engine emulator
+    (``core.engine.TrimEngine``, one (M, H, W) image, (N, M, K, K)
+    weights) and the conv kernel's u8 x s8 lane (NHWC, (K, K, C, F), no
+    epilogue, int32 out) give the same feature map bit for bit; the
+    layouts are transposed here, in neither module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.core.engine import TrimEngine
+    from repro_torch.core.model import ConvLayerSpec
+    from repro_torch.kernels import trim_conv2d as kern
+
+    M, H, W, K, N, S, p = case
+    rng = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    x = rng.integers(0, 256, (M, H, W), dtype=np.uint8)
+    w = rng.integers(-128, 128, (N, M, K, K)).astype(np.int8)
+    layer = ConvLayerSpec("t", H, W, K, M, N, stride=S, pad=p)
+    want, _ = TrimEngine().run_layer(x, w, layer)
+    dev = torch.device("cuda")
+    xd = torch.from_numpy(np.ascontiguousarray(x.transpose(1, 2, 0)))[None]
+    wd = torch.from_numpy(np.ascontiguousarray(w.transpose(2, 3, 1, 0)))
+    before = kern.LAUNCHES
+    got = kern.trim_conv2d(xd.to(dev), wd.to(dev), stride=S,
+                           padding=layer.padding)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES == before + 1
+    assert got.dtype == torch.int32
+    assert np.array_equal(got[0].cpu().numpy().transpose(2, 0, 1), want)
+
+
+def _chaos_server(datapath, spec, threshold, buckets=(1, 4)):
+    """``serve_cnn.build_server``'s engine for the VGG-16 smoke on the card
+    (its ladder armed under ``spec``), served inline by a Server on a
+    fake clock whose sleep returns 1 ns late."""
+    from repro_torch.configs import CNN_SMOKES
+    from repro_torch.launch import serve_cnn
+    from repro_torch.serve import FaultPlan, ServeConfig, Server
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+        def sleep(self, dt):
+            self.t += max(dt, 0.0) + 1e-9
+
+    conf = ServeConfig(buckets=buckets, datapath=datapath,
+                       faults=FaultPlan.parse(spec),
+                       breaker_threshold=threshold)
+    built = serve_cnn.build_server(CNN_SMOKES["vgg16"], ExecutionPolicy(),
+                                   conf, device="cuda")
+    built.close()
+    clk = Clock()
+    srv = Server(built.engine, conf, clock=clk, sleep=clk.sleep)
+    lanes, dispatch = {}, srv._dispatch
+
+    def recorded(bucket, reqs):
+        for r in reqs:
+            lanes[r.rid] = srv.engine.lane_of(bucket).name
+        return dispatch(bucket, reqs)
+
+    srv._dispatch = recorded
+    return srv, lanes
+
+
+def _chaos_stream(dtype, n=8):
+    from repro_torch.configs import CNN_SMOKES
+    from repro_torch.data.pipeline import SyntheticRequestStream
+
+    cfg = CNN_SMOKES["vgg16"]
+    return SyntheticRequestStream(
+        hw=cfg.input_hw, channels=cfg.layers[0].M, n_classes=cfg.n_classes,
+        n_requests=n, seed=0, process="bursts", burst_sizes=(1, 4, 1),
+        gap_s=0.05, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("datapath,spec,fallback", [
+    ("int5", "seed=4,exec=2,bitflip=1", "int8"),
+    ("int8", "seed=2,exec=2", "int8-f32exact"),
+    ("float", "seed=5,nonfinite=1", None),
+])
+def test_chaos_ladder_on_card(datapath, spec, fallback):
+    """On a card, the smoke VGG-16 through the armed ladder at breaker
+    threshold 1: the injected faults degrade buckets onto the fallback
+    lane and every request still serves; each served result equals, bit
+    for bit, a fault-free engine of the lane that served it (int5 -> int8
+    and int8 -> int8-f32exact: the same integer sums); a flipped int5
+    payload is restored before serving.  The float ladder has no rung
+    below the kernel's fp32 lane on the card: the NaN batch is retried
+    there, and nothing degrades onto a library conv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.engine import plan_model
+    from repro_torch.serve import ServeEngine
+
+    fp32_ieee()
+    srv, lanes = _chaos_server(datapath, spec, 1)
+    dtype = "float32" if datapath == "float" else "uint8"
+    metrics = srv.run_stream(_chaos_stream(dtype))
+    srv.close()
+    tot = metrics.snapshot()["totals"]
+    eng = srv.engine
+    assert tot["images"] == 8 and tot.get("failed", 0) == 0
+    assert [ln.name for ln in eng.lanes] == [datapath] + (
+        [fallback] if fallback else [])
+    if fallback:
+        assert tot["degraded"] >= 1
+        assert fallback in set(lanes.values())
+    else:
+        assert tot.get("degraded", 0) == 0 and tot["retried"] >= 1
+        assert all(s.substrate is None for s in eng.lanes)
+    assert all(v == 1 for v in eng.compile_counts.values())
+    if datapath == "int5":
+        assert tot["integrity_restored"] >= 1
+        assert eng.wire.verify() == []
+    plan = eng.plan
+    refs = {}
+    for i, lane in enumerate(eng.lanes):
+        p = plan if lane.substrate is None else plan_model(
+            plan.cfg, plan.policy.with_overrides(substrate=lane.substrate))
+        params = eng._lane_params(i, lane)
+        refs[lane.name] = ServeEngine.build_for_plan(
+            p, params, buckets=(1,), datapath=lane.datapath,
+            requant=lane.requant, device="cuda")
+    for r in metrics.requests:
+        assert r.status == "served"
+        want = refs[lanes[r.rid]].infer(r.payload[None])[0]
+        assert np.array_equal(r.result, want), (r.rid, lanes[r.rid])
+
+
+@pytest.mark.gpu
+def test_packed_wire_restore_on_card():
+    """On a card: one bit flipped in each layer of the smoke VGG-16's
+    PackedWire; ``qparams`` restores every layer onto the card, equal to
+    ``plan.quantize_int5`` bit for bit, as new tensors once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.configs import CNN_SMOKES
+    from repro_torch.engine import plan_model
+    from repro_torch.serve import PackedWire
+
+    cfg = CNN_SMOKES["vgg16"]
+    plan = plan_model(cfg, ExecutionPolicy())
+    params = plan.init(0, "cuda")
+    wire = PackedWire(cfg, params)
+    first = wire.qparams()
+    for i in range(wire.n_layers):
+        wire.flip_bit(i, 8 * i + 3)
+    assert wire.verify() == list(range(wire.n_layers))
+    got = wire.qparams()
+    assert wire.restored == wire.n_layers and got is not first
+    assert wire.qparams() is got
+    want, _ = plan.quantize_int5(params)
+    for g, q in zip(got["conv"], want["conv"]):
+        assert g["kernel"].is_cuda and not g["kernel"].is_inference()
+        assert torch.equal(g["kernel"], q["kernel"])
+        assert torch.equal(g["shift"], q["shift"])

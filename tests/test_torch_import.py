@@ -45,6 +45,8 @@ def test_no_source_file_imports_jax_or_repro():
     assert len(files) > 30
     assert PORT / "nn" / "mamba.py" in files
     assert PORT / "core" / "quant.py" in files
+    for name in ("model.py", "engine.py", "slice_sim.py", "explore.py"):
+        assert PORT / "core" / name in files
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
