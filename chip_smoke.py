@@ -81,14 +81,24 @@ Phases (any failure exits non-zero and prints no result line):
 3e. matmul: ``ops.trim_matmul`` (the entry point) at granite-3-2b's
    full-width projections at a 4 x 4096 prefill, (16384, 2048) @ (2048,
    8192), (16384, 8192) @ (8192, 2048) and (16384, 2048) @ (2048, 2048),
-   and the decode-shaped (4, 2048) @ (2048, 8192), in bf16, fp32 and
-   int8, its launches counted from 0 around those calls; then the kernel
-   against its plain version there and at ragged shapes: int8 bit for
-   bit (int32 out), fp32 within rtol 1e-4 / atol 1e-4 x max|plain|, bf16
-   within 2 x 2^-7 of each row's max|plain|.  At full width: kernel ms,
+   and the decode-shaped (4, 2048) @ (2048, 8192), then at 1 and 16
+   rows, in bf16, fp32 and int8, its launches counted from 0 around each
+   part, in total and per path: the projections on ``wgmma`` in bf16
+   (``fma`` in fp32, ``mma`` in int8), every decode-shaped call on
+   ``stream``, or the phase fails; the kernel's registers and spills per
+   entry; then the kernel against its plain version there and at ragged
+   shapes: int8 bit for bit (int32 out), fp32 within rtol 1e-4 / atol
+   1e-4 x max|plain|, bf16 within 2 x 2^-7 of each row's max|plain|;
+   the stream path bit-equal over two calls.  At full width: kernel ms,
    plain ms, ``torch.matmul`` (cuBLAS, TF32 off) / ``torch._int_mm`` ms
-   (yardsticks the port never calls; none for int8 at M = 4) and the
-   bound, and at the decode shape the host's issue time per call;
+   (yardsticks the port never calls; none for int8 at M <= 16), the
+   bound and the host's issue time per call (at q/o also on the ``mma``
+   path: the tensor maps' cost); at the decode shapes also with b cold in
+   L2 (calls rotating over copies of b past 150 MB: events and profiler
+   device time, kernel and ``torch.matmul``); a bf16 sweep at gate/up's
+   K and N over 1-256 rows, each path that takes the operands (stream up
+   to 16 rows) checked and timed beside ``torch.matmul``: where stream
+   and wgmma cross;
 3f. SSD scan: ``trim_ssd`` (the entry point) at mamba2-130m's full-width
    prefill, x (4, 4096, 24, 64), dt (4, 4096, 24), B/C (4, 4096, 1, 128)
    expanded over the 24 heads, chunk 256, in fp32 and bf16 (x/B/C), its
@@ -2266,36 +2276,196 @@ def _flash_readings(torch, fa, q, k, v, kw, qt, kt, vt, G, reps, cold):
     return out
 
 
+#: the matmul phase: the decode-shaped rows (granite-3-2b's gate/up at M
+#: rows: the batch of one decode step, one row and the stream path's
+#: most), the bf16 sweep's rows at gate/up's K and N, and the bytes the
+#: cold readings rotate over (three times the H100's 50 MB L2)
+MATMUL_DECODE_ROWS = (LM_BATCH, 1, 16)
+MATMUL_SWEEP_ROWS = (1, 4, 16, 32, 64, 128, 256)
+MATMUL_COLD_BYTES = 150e6
+#: each part's path on each lane (``select_path`` of the part's operands)
+MATMUL_PATHS = {"prefill": {"bf16": "wgmma", "f32": "fma", "s8": "mma"},
+                "decode": {"bf16": "stream", "f32": "stream",
+                           "s8": "stream"}}
+#: the decode rows' cold readings, also in the kernels line
+MATMUL_COLD = ("ms_cold", "device_ms_cold", "library_ms_cold",
+               "library_device_ms_cold")
+MATMUL_ENTRIES = {"trim_matmul_wgmma_kernel": "wgmma",
+                  "trim_matmul_stream_tc_kernel": "stream",
+                  "trim_matmul_stream_fma_kernel": "stream",
+                  "trim_matmul_stream_merge": "stream merge",
+                  "trim_matmul_tc_kernel": "mma",
+                  "trim_matmul_f32_kernel": "fma"}
+
+
+def _log_matmul_build() -> None:
+    """The matmul kernel's registers and spills per entry (demangled by
+    the toolkit's ``cu++filt`` where it has one) from its ``-Xptxas -v``
+    build log, and any ptxas note that it serialized wgmma."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import trim_matmul as mm
+
+    text = _build.build_log(mm._LIB_NAME, mm._SOURCES) or ""
+    lines = text.splitlines()
+    names = [line.split("'")[1] for line in lines
+             if "Compiling entry function" in line and "'" in line]
+    filt = pathlib.Path(_build.find_nvcc()).parent / "cu++filt"
+    shown = names
+    if filt.is_file() and names:
+        res = subprocess.run([str(filt), *names], capture_output=True,
+                             text=True, timeout=60)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(names):
+            # "void <unnamed>::name<args>(params)" -> "name<args>"
+            shown = [n.split("::", 1)[-1].rsplit(">(", 1)[0] + (
+                ">" if ">(" in n else "") for n in res.stdout.splitlines()]
+    found = _ptxas_by_entry(text, dict(zip(names, shown)))
+    for name, show in zip(names, shown):
+        path = next((v for k, v in MATMUL_ENTRIES.items() if k in name), "?")
+        log(f"matmul kernel, {path} path, {show}: "
+            f"{found.get(show, 'not in the log')}")
+    for line in lines:
+        if "wgmma" in line.lower() and "serializ" in line.lower():
+            log(f"matmul kernel, ptxas: {line.strip()}")
+
+
 def _matmul_cases(cfg):
     """(name, M, K, N): granite-3-2b's projections at a LM_BATCH x
     LM_PROMPT prefill (gate/up, down, q/o), its decode-shaped gate/up at
-    M = LM_BATCH, then ragged shapes (``tests/test_kernels.py:107-128``'s
-    ranges: M 1-200, K 1-120, N 1-150, and its int8 (64, 96, 48))."""
+    M = LM_BATCH, then at 1 and 16 rows, then ragged shapes
+    (``tests/test_kernels.py:107-128``'s ranges: M 1-200, K 1-120, N
+    1-150, and its int8 (64, 96, 48))."""
     M, d, ff = LM_BATCH * LM_PROMPT, cfg.d_model, cfg.d_ff
-    return [("gate/up", M, d, ff), ("down", M, ff, d), ("q/o", M, d, d),
-            ("decode", LM_BATCH, d, ff),
-            ("ragged", 1, 1, 1), ("ragged", 7, 13, 5), ("ragged", 64, 96, 48),
-            ("ragged", 200, 120, 150), ("ragged", 33, 7, 129),
-            ("ragged", 129, 65, 257)]
+    return ([("gate/up", M, d, ff), ("down", M, ff, d), ("q/o", M, d, d)]
+            + [("decode" if m == LM_BATCH else f"decode M={m}", m, d, ff)
+               for m in MATMUL_DECODE_ROWS]
+            + [("ragged", 1, 1, 1), ("ragged", 7, 13, 5),
+               ("ragged", 64, 96, 48), ("ragged", 200, 120, 150),
+               ("ragged", 33, 7, 129), ("ragged", 129, 65, 257)])
+
+
+def _matmul_part(name: str) -> str:
+    return ("prefill" if not name.startswith("decode") else
+            "decode" if name == "decode" else "decode rows")
+
+
+def _matmul_check(torch, got, want, dtype, what: str, worst: dict, key):
+    """Fail unless the kernel's ``got`` matches the plain ``want``: int8
+    bit for bit, fp32 within rtol 1e-4 / atol 1e-4 x max|plain|, bf16
+    within MATMUL_ROW_ULPS x 2^-7 of each row's max|plain|.  Returns
+    max|got - want|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {got.dtype} {tuple(got.shape)} vs plain "
+             f"{want.dtype} {tuple(want.shape)}")
+    err = (got.double() - want.double()).abs().max().item()
+    if dtype == torch.int8:
+        if not torch.equal(got, want):
+            fail(f"{what}: kernel != plain (max diff {err:.3g})")
+    elif dtype == torch.float32 and want.dtype == torch.float32:
+        scale = want.abs().max().item()
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
+            fail(f"{what}: max|kernel-plain| = {err:.3g} (max|plain| "
+                 f"{scale:.3g}; rtol 1e-4, atol 1e-4 of it)")
+    else:
+        ulps = _row_ulps(got, want)
+        worst[key] = max(ulps, worst.get(key, 0.0))
+        if ulps > MATMUL_ROW_ULPS:
+            fail(f"{what}: a row's max|kernel-plain| is {ulps:.3g} x 2^-7 "
+                 f"of its max|plain| (limit {MATMUL_ROW_ULPS})")
+    return err
+
+
+def _matmul_cold(torch, mm, a, b, lib):
+    """The decode readings with b cold in L2: calls rotating over enough
+    copies of b to pass MATMUL_COLD_BYTES, each call taking the next;
+    the kernel's (and ``lib``'s, where there is one) event and profiler
+    device times a call."""
+    n = max(2, -(-int(MATMUL_COLD_BYTES) // (b.numel() * b.element_size())))
+    bs = [b.clone() for _ in range(n)]
+    turn = [0]
+
+    def nxt():
+        turn[0] = (turn[0] + 1) % n
+        return bs[turn[0]]
+
+    calls = 4 * n
+    out = {"cold_copies": n,
+           "ms_cold": cuda_ms(torch, lambda: mm.trim_matmul(a, nxt()),
+                              calls),
+           "device_ms_cold": device_ms(torch, lambda: mm.trim_matmul(
+               a, nxt()), calls),
+           "library_ms_cold": None, "library_device_ms_cold": None}
+    if lib is not None:
+        out["library_ms_cold"] = cuda_ms(torch, lambda: lib(a, nxt()), calls)
+        out["library_device_ms_cold"] = device_ms(
+            torch, lambda: lib(a, nxt()), calls)
+    del bs
+    return out
+
+
+def _matmul_sweep(torch, mm, b, reps: int, gen, dev, worst: dict):
+    """bf16 at gate/up's K and N over MATMUL_SWEEP_ROWS rows: each path
+    that takes the operands (stream up to 16 rows; wgmma and mma at every
+    M), checked against the plain version and timed by its device time
+    under ``torch.profiler`` (at a few rows the event times read the
+    host), with ``torch.matmul`` beside it; logs where the paths cross."""
+    sweep = {}
+    calls = max(10, reps // 5)
+    for M in MATMUL_SWEEP_ROWS:
+        a = torch.randn((M, b.shape[0]), generator=gen, device=dev).to(
+            torch.bfloat16)
+        want = mm.trim_matmul_plain(a, b)
+        row = {"auto": mm.select_path(a, b),
+               "torch.matmul": device_ms(torch, lambda: torch.matmul(a, b),
+                                         calls)}
+        for path in ("stream", "wgmma", "mma"):
+            if path == "stream" and M > mm.STREAM_ROWS:
+                continue
+            got = mm._launch(a, b, None, path)
+            torch.cuda.synchronize()
+            _matmul_check(torch, got, want, torch.bfloat16,
+                          f"matmul sweep bf16 M={M} on {path}", worst,
+                          ("sweep", M, path))
+            row[path] = device_ms(torch, lambda: mm._launch(
+                a, b, None, path), calls)
+        sweep[M] = row
+        log(f"matmul sweep bf16 (M, 2048) @ (2048, 8192) M={M}: auto "
+            f"{row['auto']}; device ms " + ", ".join(
+                f"{k} {_fmt(row[k])}" for k in ("stream", "wgmma", "mma",
+                                                "torch.matmul") if k in row))
+
+    def below(x, y):
+        return [M for M in sweep if x in sweep[M] and None not in (
+            sweep[M][x], sweep[M][y]) and sweep[M][x] < sweep[M][y]]
+
+    log(f"matmul sweep: stream below wgmma at M in {below('stream', 'wgmma')}"
+        f" (stream takes M <= {mm.STREAM_ROWS}); wgmma below mma at M in "
+        f"{below('wgmma', 'mma')}")
 
 
 def phase_matmul(torch, reps: int, prefill_reps: int):
     """The matmul kernel through ``ops.trim_matmul`` (the entry point) at
     granite-3-2b's full-width projection shapes in bf16, fp32 and int8,
-    its launches counted from 0 around those calls (the prefill-shaped
-    three, then the decode-shaped one); then held against its plain
-    version (TF32 off) there and at ragged shapes: int8 bit for bit (int32
-    out), fp32 within rtol 1e-4 / atol 1e-4 x max|plain|, bf16 within
-    MATMUL_ROW_ULPS x 2^-7 of each row's max|plain|.  Timed at the
-    full-width shapes beside ``torch.matmul`` (cuBLAS) / ``torch._int_mm``
-    (yardsticks the port never calls): ``reps`` calls each at the
-    decode shape (tens of microseconds), ``prefill_reps`` at the prefill
-    projections (milliseconds).  Returns one row per (shape, lane) at full
-    width, each with the launches of its part of the path."""
+    its launches counted from 0 around each part, in total and per path
+    (the prefill-shaped three: wgmma in bf16, fma in fp32, mma in int8;
+    the decode-shaped gate/up at LM_BATCH rows, then at 1 and 16 rows:
+    the stream path on every lane); then held against its plain version
+    (TF32 off) there and at ragged shapes: int8 bit for bit (int32 out),
+    fp32 within rtol 1e-4 / atol 1e-4 x max|plain|, bf16 within
+    MATMUL_ROW_ULPS x 2^-7 of each row's max|plain|; the stream path's
+    two calls on the same inputs bit-equal.  Timed at the full-width
+    shapes beside ``torch.matmul`` (cuBLAS) / ``torch._int_mm``
+    (yardsticks the port never calls): ``reps`` calls each at the decode
+    shapes (tens of microseconds), ``prefill_reps`` at the prefill
+    projections (milliseconds); the host's issue time per call; at the
+    decode shapes also with b cold in L2 (events and profiler device
+    time, kernel and library); the bf16 sweep over MATMUL_SWEEP_ROWS
+    rows, every path that takes each.  Returns one row per
+    (shape, lane) at full width, each with the launches of its part."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels import trim_matmul as mm
 
+    _log_matmul_build()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4)
     cases = _matmul_cases(get_config(DENSE_ARCH))
@@ -2309,89 +2479,111 @@ def phase_matmul(torch, reps: int, prefill_reps: int):
                                      device=dev, dtype=torch.int8)
             return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-        ins = {c: (rnd(c[1], c[2]), rnd(c[2], c[3])) for c in cases}
+        # the decode-shaped rows share gate/up's b, as a decode step does
+        ins = {}
+        for c in cases:
+            b = (ins[full[0]][1] if c in full and c[0].startswith("decode")
+                 else rnd(c[2], c[3]))
+            ins[c] = (rnd(c[1], c[2]), b)
         outs, launches = {}, {}
-        for part in ("prefill", "decode"):
-            mm.LAUNCHES = 0
-            for c in full:
-                if (c[0] == "decode") == (part == "decode"):
-                    outs[c] = ops.trim_matmul(*ins[c])
+        for part in ("prefill", "decode", "decode rows"):
+            mine = [c for c in full if _matmul_part(c[0]) == part]
+            mm.reset_launches()
+            for c in mine:
+                outs[c] = ops.trim_matmul(*ins[c])
             launches[part] = mm.LAUNCHES
-            n_calls = sum((c[0] == "decode") == (part == "decode")
-                          for c in full)
-            if launches[part] != n_calls:
+            if launches[part] != len(mine):
                 fail(f"matmul {lane} {part}: {launches[part]} launches for "
-                     f"{n_calls} entry-point calls")
+                     f"{len(mine)} entry-point calls")
+            by = {k: v for k, v in mm.LAUNCHES_BY_PATH.items() if v}
+            want_path = MATMUL_PATHS["prefill" if part == "prefill"
+                                     else "decode"][lane]
+            log(f"matmul {lane} {part}: launches by path {by}")
+            if by != {want_path: len(mine)}:
+                fail(f"matmul {lane} {part}: launches by path {by}, "
+                     f"not {len(mine)} on {want_path}")
         torch.cuda.synchronize()
+        lib_fn = (torch.matmul if dtype != torch.int8 else torch._int_mm)
         for c in cases:
             a, b = ins[c]
             got = outs[c] if c in outs else mm.trim_matmul(a, b)
             want = mm.trim_matmul_plain(a, b)
             torch.cuda.synchronize()
             what = f"matmul {lane} {c[0]} ({c[1]}, {c[2]}) @ ({c[2]}, {c[3]})"
-            if got.shape != want.shape or got.dtype != want.dtype:
-                fail(f"{what}: {got.dtype} {tuple(got.shape)} vs plain "
-                     f"{want.dtype} {tuple(want.shape)}")
-            err = (got.double() - want.double()).abs().max().item()
-            if dtype == torch.int8:
-                if not torch.equal(got, want):
-                    fail(f"{what}: kernel != plain (max diff {err:.3g})")
-            elif dtype == torch.float32:
-                scale = want.abs().max().item()
-                if not torch.allclose(got, want, rtol=1e-4,
-                                      atol=1e-4 * scale):
-                    fail(f"{what}: max|kernel-plain| = {err:.3g} (max|plain| "
-                         f"{scale:.3g}; rtol 1e-4, atol 1e-4 of it)")
-            else:
-                ulps = _row_ulps(got, want)
-                worst[c] = ulps
-                if ulps > MATMUL_ROW_ULPS:
-                    fail(f"{what}: a row's max|kernel-plain| is {ulps:.3g} x "
-                         f"2^-7 of its max|plain| (limit {MATMUL_ROW_ULPS})")
+            err = _matmul_check(torch, got, want, dtype, what, worst, c)
             n += 1
+            if mm.select_path(a, b) == "stream":
+                again = mm.trim_matmul(a, b)
+                torch.cuda.synchronize()
+                if not torch.equal(again.view(torch.uint8),
+                                   got.view(torch.uint8)):
+                    fail(f"{what}: two calls on the stream path differ")
             if c not in outs:
                 continue
             _, M, K, N = c
-            r = reps if c[0] == "decode" else prefill_reps
-            lib = lib_issue = None
-            if dtype != torch.int8:
-                lib = cuda_ms(torch, lambda: torch.matmul(a, b), r)
-                if c[0] == "decode":
-                    lib_issue = issue_ms(torch, lambda: torch.matmul(a, b), r)
-            elif M > 16 and K % 8 == 0 and N % 8 == 0:
-                lib = cuda_ms(torch, lambda: torch._int_mm(a, b), r)
+            decode = c[0].startswith("decode")
+            r = reps if decode else prefill_reps
+            lib = None
+            if dtype != torch.int8 or (M > 16 and K % 8 == 0 and N % 8 == 0):
+                lib = cuda_ms(torch, lambda: lib_fn(a, b), r)
             nbytes = (M * K + K * N) * a.element_size() \
                 + M * N * got.element_size()
-            rows.append({
+            row = {
                 "shape": c[0], "lane": lane, "mkn": (M, K, N),
-                "part": "decode" if c[0] == "decode" else "prefill",
-                "launches": launches["decode" if c[0] == "decode"
-                                     else "prefill"],
+                "part": _matmul_part(c[0]),
+                "path": mm.select_path(a, b),
+                "launches": launches[_matmul_part(c[0])],
                 "max_abs_err": err, "row_ulps": worst.get(c),
                 "ms": cuda_ms(torch, lambda: mm.trim_matmul(a, b), r),
                 "plain_ms": cuda_ms(torch, lambda: mm.trim_matmul_plain(a, b),
                                     r),
                 "library_ms": lib,
-                "issue_ms": (issue_ms(torch, lambda: mm.trim_matmul(a, b), r)
-                             if c[0] == "decode" else None),
-                "library_issue_ms": lib_issue,
+                "issue_ms": issue_ms(torch, lambda: mm.trim_matmul(a, b), r),
+                "library_issue_ms": (issue_ms(torch, lambda: lib_fn(a, b), r)
+                                     if lib is not None and decode else None),
                 **bound(M * K * N, nbytes, integer=dtype == torch.int8,
-                        peak=PEAK_BF16 if dtype == torch.bfloat16 else 0.0)})
+                        peak=PEAK_BF16 if dtype == torch.bfloat16 else 0.0)}
+            if c[0] == "q/o" and lane == "bf16":
+                # the wgmma path's host cost beyond mma's: two tensor maps
+                row["issue_ms_mma"] = issue_ms(torch, lambda: mm._launch(
+                    a, b, None, "mma"), r)
+            if decode:
+                row.update(_matmul_cold(torch, mm, a, b, None if (
+                    dtype == torch.int8) else lib_fn))
+            rows.append(row)
+        if lane == "bf16":
+            _matmul_sweep(torch, mm, ins[full[0]][1], reps, gen, dev, worst)
         del ins, outs
         torch.cuda.empty_cache()
     log(f"matmul: kernel matches plain at {n} shapes x lanes (int8 bit for "
         f"bit, fp32 1e-4, bf16 per row {MATMUL_ROW_ULPS} x 2^-7 of "
-        f"max|plain|: the worst bf16 row at {max(worst.values()):.3g})")
+        f"max|plain|: the worst bf16 row at {max(worst.values()):.3g})"
+        + "; the stream path's two calls bit-equal")
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"matmul {r['lane']:4s} {r['shape']:8s} (M, K, N) {r['mkn']} "
-            f"launches {r['launches']} ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
+        cold = "" if "ms_cold" not in r else (
+            f"; b cold in L2 ({r['cold_copies']} copies): ms "
+            f"{r['ms_cold']:.4f} device_ms {_fmt(r['device_ms_cold'])}"
+            + ("" if r["library_ms_cold"] is None else
+               f", library ms {r['library_ms_cold']:.4f} device_ms "
+               f"{_fmt(r['library_device_ms_cold'])}"))
+        log(f"matmul {r['lane']:4s} {r['shape']:12s} (M, K, N) {r['mkn']} "
+            f"path {r['path']} launches {r['launches']} ms {r['ms']:.4f} "
+            f"plain_ms {r['plain_ms']:.4f} library_ms {lib} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) err "
-            f"{r['max_abs_err']:.3g}" + ("" if r["issue_ms"] is None else
-                                         f" host issue ms {r['issue_ms']:.4f}")
+            f"{r['max_abs_err']:.3g} host issue ms {r['issue_ms']:.4f}"
             + ("" if r["library_issue_ms"] is None else
-               f" (library {r['library_issue_ms']:.4f})"))
+               f" (library {r['library_issue_ms']:.4f})")
+            + ("" if "issue_ms_mma" not in r else
+               f" (on mma {r['issue_ms_mma']:.4f})") + cold)
+    for lane in ("bf16", "f32", "s8"):
+        sel = [r for r in rows if r["lane"] == lane
+               and r["part"] == "prefill"]
+        lib = [r["library_ms"] for r in sel]
+        log(f"matmul {lane} projections, sum of {len(sel)}: ms "
+            f"{sum(r['ms'] for r in sel):.4f} library_ms "
+            + ("null" if None in lib else f"{sum(lib):.4f}")
+            + f" bound_ms {sum(r['bound_ms'] for r in sel):.4f}")
     return rows
 
 
@@ -2895,9 +3087,11 @@ def main() -> None:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms") + FLASH_READINGS if k in flash[shape]}}
            for i, shape in enumerate(("prefill", "decode"))]
-        + [kernel_entry(part_rows, f"trim_matmul_{lane}_{part}",
-                        part_rows[0]["launches"], source=MATMUL_SOURCE,
-                        replaces=MATMUL_REPLACES)
+        + [{**kernel_entry(part_rows, f"trim_matmul_{lane}_{part}",
+                           part_rows[0]["launches"], source=MATMUL_SOURCE,
+                           replaces=MATMUL_REPLACES),
+            "path": part_rows[0]["path"],
+            **{k: part_rows[0][k] for k in MATMUL_COLD if part == "decode"}}
            for lane in ("bf16", "f32", "s8") for part in ("prefill", "decode")
            for part_rows in [[r for r in mrows if r["lane"] == lane
                               and r["part"] == part]]]

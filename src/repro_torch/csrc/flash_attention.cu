@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -211,51 +213,10 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. A wait that never
-// ends (a lost arrival) traps, so a fault fails the launch instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 24)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
 // Make this thread's generic-proxy writes to shared memory visible to the
 // async proxy (wgmma, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Box (64 of D, kPfKeys keys, 1, 1) at (d0, key0, h, b) into shared memory
@@ -270,35 +231,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(key0), "r"(h), "r"(b),
       "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving an accumulator across wgmma issue/wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units). K-major tiles are rows of 64
-// bf16 (128 bytes), 8-row atoms of 1024 bytes (the stride); an MN-major
-// tile steps 1024 bytes per 8 rows of K and `lbo` bytes per 64 of MN.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // d (64 x 128, fp32) = A (64 x 16) B (16 x 128) [+ d when scale_d], bf16 in:
@@ -384,16 +316,6 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <uint32_t R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <uint32_t R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // ---------------------------------------------------------------------------
@@ -564,7 +486,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
           s, sw128_desc(qs + (kk / 4) * L::kQBlk + (kk % 4) * 32, 16),
           sw128_desc(ks + (kk / 4) * L::kBlk + (kk % 4) * 32, 16), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     pin(s);
 
     // Mask only the tiles that cross n_valid or the causal diagonal.
@@ -628,7 +550,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
         wgmma_rs_m64n128(o, p[kk], dv);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     pin(o);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * st);  // the stage is free
@@ -1062,32 +984,6 @@ flash_attention_f32_kernel(const FlashArgs a) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime loaded: no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // The TMA map of a k or v (B, Sk, H, D) bf16 tensor with element strides
 // (sb, ss, sh, 1), as (D, Sk, H, B), boxes of 64 x kPfKeys in the 128-byte

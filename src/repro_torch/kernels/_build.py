@@ -6,8 +6,9 @@ The sources under ``repro_torch/csrc/`` are compiled at first use with
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <sources>
 
 into ``build/repro_torch/`` at the root of the checkout, keyed by a hash
-of the sources and flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  The compiler's output (``-Xptxas -v``: registers,
+of the sources, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is.  The compiler's output (``-Xptxas -v``: registers,
 shared memory, spills per kernel) is kept beside the library as
 ``<name>-<hash>.log``.  :func:`build_all` compiles several libraries at
 once, one ``nvcc`` process each.  Nothing here runs at import time.
@@ -57,8 +58,10 @@ def find_nvcc() -> str:
 
 
 def _digest(sources: Sequence[pathlib.Path]) -> str:
+    """A hash of the flags, the sources and every shared header
+    (``csrc/*.cuh``, which a source may include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

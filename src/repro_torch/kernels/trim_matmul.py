@@ -7,34 +7,60 @@ kernel itself is ``repro_torch/csrc/trim_matmul.cu``; its header says what
 it keeps out of device memory and what bounds it.
 
 - :func:`trim_matmul` is the wrapper: a CUDA tensor launches the kernel
-  (or the wrapper raises), a CPU tensor takes :func:`trim_matmul_plain`.
-  Every launch adds one to :data:`LAUNCHES`.
+  on the path :func:`select_path` names (or the wrapper raises), a CPU
+  tensor takes :func:`trim_matmul_plain`.  Every launch adds one to
+  :data:`LAUNCHES` and to its path's count in :data:`LAUNCHES_BY_PATH`.
 - :func:`trim_matmul_plain` is the same function in plain PyTorch
   (``ref.matmul_ref``): float inputs multiplied in fp32 and rounded once
   to the output type, int8 inputs exactly, to int32.
 
-Lanes: float32 (CUDA cores, IEEE, no TF32) and bfloat16 (tensor cores,
-fp32 accumulation) give ``out_dtype`` (float32 or bfloat16, default
+Paths (:data:`PATHS`), chosen from the dtype, M, the strides and the
+pointers' alignment alone: ``stream`` for every lane at M <= 16 (b read
+once, K split across blocks by :func:`stream_plan`, the splits summed in
+a fixed order); ``wgmma`` for bfloat16 with TMA-aligned operands
+(:func:`tma_aligned`); ``mma`` for the other bfloat16 and the int8
+operands (``mma.sync`` tiles); ``fma`` for float32 (CUDA-core tiles).
+
+Lanes: float32 (CUDA cores, IEEE, no TF32) and bfloat16 (fp32
+accumulation) give ``out_dtype`` (float32 or bfloat16, default
 ``a.dtype``); int8 gives int32.  The int32 sum cannot wrap: K is at most
 :data:`MAX_K_INT8`, so |sum| <= 128 * 128 * K < 2**31.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
 #: Launches of the CUDA kernel since the last reset (a plain counter:
-#: callers set it to 0 before a run and read it after).
+#: callers set it to 0, or call :func:`reset_launches`, before a run and
+#: read it after).
 LAUNCHES = 0
 
-#: One block's output tile (rows, columns); the grid's rows are at most
-#: 65535 tiles.
+#: The kernel's paths, and each one's code in the library.
+PATHS = ("wgmma", "stream", "mma", "fma")
+_PATH_CODES = {"mma": 0, "fma": 1, "wgmma": 2, "stream": 3}
+#: Launches per path since the last :func:`reset_launches`.
+LAUNCHES_BY_PATH: Dict[str, int] = dict.fromkeys(PATHS, 0)
+
+#: The mma and fma paths' output tile (rows, columns); their grid's rows
+#: are at most 65535 tiles.
 BLOCK_M = 128
 BLOCK_N = 128
+#: The wgmma path's output tile.
+WGMMA_BLOCK = (128, 256)
+#: The stream path: at most STREAM_ROWS rows of a; STREAM_COLS columns of
+#: b a block; K cut into tiles of STREAM_K_TILE rows (8 KB of b), whole
+#: tiles a split, at most STREAM_MAX_K rows a split; splits for about
+#: STREAM_BLOCKS blocks (one wave of four per SM of an H100's 132).
+STREAM_ROWS = 16
+STREAM_COLS = 128
+STREAM_K_TILE = {torch.float32: 16, torch.bfloat16: 32, torch.int8: 64}
+STREAM_MAX_K = 256
+STREAM_BLOCKS = 4 * 132
 #: The largest K of the int8 lane: 128 * 128 * K stays below 2**31, so the
 #: int32 accumulator never wraps and the exact plain version agrees.
 MAX_K_INT8 = (2 ** 31 - 1) // (128 * 128)
@@ -77,20 +103,80 @@ def trim_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return ref.matmul_ref(a.float(), b.float()).to(out)
 
 
+def reset_launches() -> None:
+    """Set :data:`LAUNCHES` and every path's count to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCHES_BY_PATH.update(dict.fromkeys(PATHS, 0))
+
+
+def tma_aligned(t: torch.Tensor) -> bool:
+    """Whether the TMA can read ``t`` (2-d) as it lies: a 16-byte aligned
+    base, a row stride of whole 16 bytes and at least one row's width
+    (any, for one row: a broadcast or overlapping view has neither) and a
+    unit column stride (any, for one column)."""
+    rows, cols = t.shape
+    return (t.data_ptr() % 16 == 0
+            and (rows <= 1 or (t.stride(0) * t.element_size() % 16 == 0
+                               and t.stride(0) >= cols))
+            and (cols <= 1 or t.stride(1) == 1))
+
+
+def select_path(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel's path for a (M, K) @ b (K, N), from the dtype, M, the
+    strides and the pointers' alignment alone: ``stream`` at M <=
+    STREAM_ROWS (every lane), else ``wgmma`` for bfloat16 operands the
+    TMA reads as they lie, ``mma`` for the other bfloat16 and for int8,
+    ``fma`` for float32."""
+    if a.shape[0] <= STREAM_ROWS:
+        return "stream"
+    if a.dtype == torch.float32:
+        return "fma"
+    if a.dtype == torch.bfloat16 and tma_aligned(a) and tma_aligned(b):
+        return "wgmma"
+    return "mma"
+
+
+def stream_plan(K: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """The stream path's plan: ``(n_split, split_tiles)``, K cut into
+    ``n_split`` splits of ``split_tiles`` whole STREAM_K_TILE-row tiles
+    (at most STREAM_MAX_K rows; the last split ends at K), so that the
+    grid of N / STREAM_COLS column blocks x n_split holds as many blocks
+    as one wave of STREAM_BLOCKS allows (more only where a split would
+    pass STREAM_MAX_K rows; one split where N alone fills the wave); none
+    is empty.  It reads shapes only, so two calls on the same shapes sum
+    in the same order."""
+    kt = STREAM_K_TILE[dtype]
+    tiles = -(-K // kt)
+    if tiles == 0:
+        return 1, 1
+    want = min(tiles, max(1, STREAM_BLOCKS // -(-N // STREAM_COLS)))
+    per = min(-(-tiles // want), STREAM_MAX_K // kt)
+    return -(-tiles // per), per
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its ctypes
     signatures declared; returns it."""
     lib = _build.load(_LIB_NAME, _SOURCES)
     if lib not in _BOUND:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.trim_matmul.argtypes = [p, p, p, i, i, ll, ll, ll, ll, ll, p]
+        lib.trim_matmul.argtypes = [p, p, p, i, i, i, ll, ll, ll, ll, ll,
+                                    p, i, i, p]
         lib.trim_matmul.restype = i
         lib.trim_matmul_error_string.argtypes = [i]
         lib.trim_matmul_error_string.restype = ctypes.c_char_p
-        for fn in ("trim_matmul_block_m", "trim_matmul_block_n"):
-            getattr(lib, fn).restype = i
-        if (lib.trim_matmul_block_m(), lib.trim_matmul_block_n()) != (
-                BLOCK_M, BLOCK_N):
+        consts = ("block_m", "block_n", "wgmma_block_m", "wgmma_block_n",
+                  "stream_rows", "stream_cols", "stream_max_k")
+        for fn in consts:
+            getattr(lib, f"trim_matmul_{fn}").restype = i
+        lib.trim_matmul_stream_k_tile.argtypes = [i]
+        lib.trim_matmul_stream_k_tile.restype = i
+        got = [getattr(lib, f"trim_matmul_{fn}")() for fn in consts] + [
+            lib.trim_matmul_stream_k_tile(_LANES[dt][0])
+            for dt in STREAM_K_TILE]
+        if got != [BLOCK_M, BLOCK_N, *WGMMA_BLOCK, STREAM_ROWS, STREAM_COLS,
+                   STREAM_MAX_K, *STREAM_K_TILE.values()]:
             raise RuntimeError("trim_matmul library constants differ from "
                                "the wrapper's")
         _BOUND.add(lib)
@@ -102,13 +188,25 @@ def trim_matmul(a: torch.Tensor, b: torch.Tensor,
     """a (M, K) @ b (K, N) -> (M, N): float32/bfloat16 in ``out_dtype``
     (default ``a.dtype``; fp32 accumulation), int8 in int32.
 
-    ``a`` and ``b`` may be views with any row stride; their column stride
-    must be 1.  A CPU ``a`` runs :func:`trim_matmul_plain`; a CUDA ``a``
-    launches the kernel on the current stream, or raises.
+    ``a`` and ``b`` may be views with any non-negative row stride; their
+    column stride must be 1.  A CPU ``a`` runs :func:`trim_matmul_plain`;
+    a CUDA ``a`` launches the kernel on the current stream on the path
+    :func:`select_path` names, or raises.
     """
-    global LAUNCHES
     if a.device.type == "cpu":
         return trim_matmul_plain(a, b, out_dtype)
+    _out_dtype(a, b, out_dtype)  # the shapes select_path reads
+    return _launch(a, b, out_dtype, select_path(a, b))
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor,
+            out_dtype: Optional[torch.dtype], path: str) -> torch.Tensor:
+    """:func:`trim_matmul` on CUDA operands, on the named ``path``: the
+    library refuses a path that cannot take the operands and this raises,
+    never swapping in another path."""
+    global LAUNCHES
+    if path not in _PATH_CODES:
+        raise ValueError(f"path must be one of {PATHS}, not {path!r}")
     if a.device.type != "cuda":
         raise ValueError(f"trim_matmul runs on cuda or cpu, not {a.device}")
     out_dt = _out_dtype(a, b, out_dtype)
@@ -121,22 +219,33 @@ def trim_matmul(a: torch.Tensor, b: torch.Tensor,
                              "kernel reads rows contiguously")
         if t.stride(0) < 0:
             raise ValueError(f"{name}'s negative row stride is not handled")
-    if -(-M // BLOCK_M) > 65535:
+    n_split, split_tiles, ws = 1, 1, None
+    if path == "stream":
+        n_split, split_tiles = stream_plan(K, N, a.dtype)
+        if n_split > 65535:
+            raise ValueError(f"K = {K} exceeds the stream path's grid")
+    elif path in ("mma", "fma") and -(-M // BLOCK_M) > 65535:
         raise ValueError(f"M = {M} exceeds the launch grid")
     out = torch.empty((M, N), dtype=out_dt, device=a.device)
     if out.numel() == 0:
         return out
     if K == 0:
         return out.zero_()
+    if n_split > 1:
+        ws = torch.empty((n_split, M, N), device=a.device, dtype=(
+            torch.int32 if a.dtype == torch.int8 else torch.float32))
     lib = load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.trim_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                             _LANES[a.dtype][0], _OUT_CODES[out_dt], M, N, K,
-                             a.stride(0), b.stride(0), stream)
+                             _LANES[a.dtype][0], _OUT_CODES[out_dt],
+                             _PATH_CODES[path], M, N, K, a.stride(0),
+                             b.stride(0), None if ws is None else
+                             ws.data_ptr(), n_split, split_tiles, stream)
     if rc != 0:
         msg = lib.trim_matmul_error_string(rc).decode()
-        raise RuntimeError(f"trim_matmul launch failed: CUDA error {rc} "
-                           f"({msg})")
+        raise RuntimeError(f"trim_matmul launch failed on the {path} path: "
+                           f"CUDA error {rc} ({msg})")
     LAUNCHES += 1
+    LAUNCHES_BY_PATH[path] += 1
     return out

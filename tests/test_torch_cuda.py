@@ -9,9 +9,10 @@ lane against the oracle), the weight-gradient kernel, the
 autograd Function that runs both, the causal conv1d kernel (bit for bit), the flash-attention
 kernel (fp32 within 2e-5, bf16 within 2e-2 and per row within 4 x 2^-7 of
 the row's max|plain|, on both bf16 paths; its split decode bit-equal over
-two calls), the matmul kernel (int8 bit
-for bit, fp32 within 1e-4, bf16 within 2 ulps of each row's largest
-output) and the SSD scan kernel (fp32 within 2e-5, bf16 within 5e-2).
+two calls), the matmul kernel on each of its paths (wgmma, stream,
+mma, fma: int8 bit for bit, fp32 within 1e-4, bf16 within 2 ulps of each
+row's largest output; the stream path bit-equal over two calls; a named
+path that cannot take the operands refused) and the SSD scan kernel (fp32 within 2e-5, bf16 within 5e-2).
 
 ``CASES``/``make_inputs`` are shared with ``test_torch_conv2d.py``, which
 holds the same cases on the CPU against the JAX package.  On the card the
@@ -903,10 +904,16 @@ def test_flash_kernel_refuses_what_it_does_not_take_on_card():
 
 # (M, K, N): M from 1 (decode-shaped), ragged M/K/N against the 128 x 128
 # tile and the K tile, rows that are not 16-byte aligned (element loads),
-# aligned shapes (cp.async), and a column slice read in place
+# aligned shapes (cp.async), and a column slice read in place; the wgmma
+# path's 128 x 256 tile and 64-deep K tiles ragged on every side with
+# TMA-aligned rows (333, 520, 776); the stream path at 1-16 rows with K up
+# to 8192 (its splits of at most 256 rows, ragged N against its 128
+# columns); 17 rows, the first past the stream path
 MATMUL_CASES = [
     (1, 1, 1), (7, 13, 5), (64, 96, 48), (200, 120, 150), (33, 7, 129),
     (129, 65, 257), (130, 1024, 144), (4, 2048, 1024), (300, 1000, 200),
+    (333, 520, 776), (1, 8192, 1000), (16, 8192, 776), (16, 300, 4100),
+    (17, 2048, 512),
 ]
 
 
@@ -916,9 +923,13 @@ MATMUL_CASES = [
                          ids=lambda c: "M{}-K{}-N{}".format(*c))
 def test_matmul_kernel_matches_plain_on_card(case, dtype):
     """On a card: the matmul kernel against its plain version (TF32 off),
-    on contiguous operands and on column slices of wider tensors: int8
-    bit for bit (int32 out), fp32 within rtol 1e-4 / atol 1e-4 x
-    max|plain|, bf16 within 2 x 2^-7 of each row's max|plain|."""
+    on contiguous operands and on column slices of wider tensors (3 and 5
+    elements in, whose rows are not 16-byte aligned, and 8 in, whose are
+    where K and N are whole 8s): int8 bit for bit (int32 out), fp32
+    within rtol 1e-4 / atol 1e-4 x max|plain|, bf16 within 2 x 2^-7 of
+    each row's max|plain|.  Each call launches once, on the path
+    ``select_path`` names: stream at M <= 16, else wgmma for bf16 with
+    aligned rows (the 8-element slice), mma for the 3-element slice."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import trim_matmul as mm
@@ -936,13 +947,23 @@ def test_matmul_kernel_matches_plain_on_card(case, dtype):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             dev, dt)
 
-    wa, wb = rnd(M, K + 3), rnd(K, N + 5)
-    for a, b in ((wa[:, :K].contiguous(), wb[:, :N].contiguous()),
-                 (wa[:, 3:], wb[:, 5:])):
-        before = mm.LAUNCHES
+    wa, wb = rnd(M, K + 8), rnd(K, N + 8)
+    views = ((wa[:, :K].contiguous(), wb[:, :N].contiguous()),
+             (wa[:, 3:3 + K], wb[:, 5:5 + N]), (wa[:, 8:8 + K],
+                                                wb[:, 8:8 + N]))
+    for i, (a, b) in enumerate(views):
+        path = mm.select_path(a, b)
+        if M <= 16:
+            assert path == "stream"
+        elif dt == torch.bfloat16 and i == 1:
+            assert path == "mma"
+        elif dt == torch.bfloat16 and i == 2 and K % 8 == N % 8 == 0:
+            assert path == "wgmma"
+        before, on_path = mm.LAUNCHES, mm.LAUNCHES_BY_PATH[path]
         got = mm.trim_matmul(a, b)
         torch.cuda.synchronize()
         assert mm.LAUNCHES == before + 1
+        assert mm.LAUNCHES_BY_PATH[path] == on_path + 1
         want = mm.trim_matmul_plain(a, b)
         assert got.shape == (M, N) and got.dtype == want.dtype
         if dt == torch.int8:
@@ -981,6 +1002,165 @@ def test_matmul_kernel_out_dtype_on_card(pair):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
     else:
         assert _row_ulps(got, want) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [328, 327])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_matmul_wgmma_out_dtype_on_card(out, N):
+    """On a card: bf16 operands on the wgmma path (a 16-byte aligned
+    column slice, ragged tiles; b a column slice of N of a wider tensor,
+    so at N = 327 no output row is 16-byte aligned and the last chunk of
+    each row is partial) into fp32 outputs (the fp32 sums themselves,
+    within rtol 1e-4 / atol 1e-4 x max|plain|) and bf16 outputs (2 x 2^-7
+    of each row's max|plain|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    fp32_ieee()
+    rng = np.random.default_rng(zlib.crc32(f"{out}{N}".encode()))
+    dev = torch.device("cuda")
+    wa = torch.from_numpy(rng.standard_normal((200, 272), np.float32)).to(
+        dev, torch.bfloat16)
+    wb = torch.from_numpy(rng.standard_normal((264, 336), np.float32)).to(
+        dev, torch.bfloat16)
+    a, b = wa[:, 8:], wb[:, :N]
+    assert mm.select_path(a, b) == "wgmma"
+    od = getattr(torch, out)
+    got = mm.trim_matmul(a, b, out_dtype=od)
+    want = mm.trim_matmul_plain(a, b, out_dtype=od)
+    torch.cuda.synchronize()
+    assert got.dtype == od == want.dtype and got.shape == (200, N)
+    if od == torch.float32:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        assert _row_ulps(got, want) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_matmul_stream_same_bits_twice_on_card(dtype):
+    """On a card: the stream path sums its K splits in a fixed order, so
+    two calls on the same inputs give the same bits (granite-3-2b's
+    decode-shaped gate/up at 16 rows, fp32 out for bf16 too), and each
+    call counts one launch on it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    fp32_ieee()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    if dt == torch.int8:
+        a, b = (torch.randint(-128, 128, s, generator=gen, device="cuda",
+                              dtype=torch.int8) for s in ((16, 2048),
+                                                          (2048, 8192)))
+    else:
+        a, b = (torch.randn(s, generator=gen, device="cuda").to(dt)
+                for s in ((16, 2048), (2048, 8192)))
+    outs = [None] if dt != torch.bfloat16 else [None, torch.float32]
+    for od in outs:
+        mm.reset_launches()
+        x, y = mm.trim_matmul(a, b, od), mm.trim_matmul(a, b, od)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES_BY_PATH == {**dict.fromkeys(mm.PATHS, 0),
+                                       "stream": 2}
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 16, 64])
+def test_matmul_every_path_matches_plain_on_card(M):
+    """On a card: bf16 (M, 2048) @ (2048, 776) named onto each path that
+    takes it (stream up to 16 rows, wgmma and mma at any M) against the
+    plain version, 2 x 2^-7 of each row's max|plain|; fp32 on stream
+    (M <= 16) and fma, int8 on stream and mma, as the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    fp32_ieee()
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    paths = {torch.bfloat16: ["wgmma", "mma"], torch.float32: ["fma"],
+             torch.int8: ["mma"]}
+    for dt, named in paths.items():
+        if dt == torch.int8:
+            a, b = (torch.randint(-128, 128, s, generator=gen, device="cuda",
+                                  dtype=torch.int8) for s in ((M, 2048),
+                                                              (2048, 776)))
+        else:
+            a, b = (torch.randn(s, generator=gen, device="cuda").to(dt)
+                    for s in ((M, 2048), (2048, 776)))
+        want = mm.trim_matmul_plain(a, b)
+        for path in named + (["stream"] if M <= 16 else []):
+            before = mm.LAUNCHES_BY_PATH[path]
+            got = mm._launch(a, b, None, path)
+            torch.cuda.synchronize()
+            assert mm.LAUNCHES_BY_PATH[path] == before + 1
+            if dt == torch.int8:
+                assert torch.equal(got, want), path
+            elif dt == torch.float32:
+                scale = float(want.abs().max())
+                torch.testing.assert_close(got, want, rtol=1e-4,
+                                           atol=1e-4 * scale)
+            else:
+                assert _row_ulps(got, want) <= 2, path
+
+
+@pytest.mark.gpu
+def test_matmul_refuses_a_path_that_cannot_take_the_operands_on_card():
+    """On a card: the library refuses a named path that cannot take the
+    operands -- wgmma on a slice 6 bytes off or on fp32, stream past 16
+    rows, fma on bf16, mma on fp32 -- and the wrapper raises, counting
+    no launch: nothing is swapped for another path or the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    dev = torch.device("cuda")
+    wa = torch.zeros((64, 136), device=dev, dtype=torch.bfloat16)
+    b = torch.zeros((128, 64), device=dev, dtype=torch.bfloat16)
+    bad = [(wa[:, 3:131], b, "wgmma"), (wa[:, :128].float(), b.float(),
+                                        "wgmma"),
+           (wa[:17, :128], b, "stream"), (wa[:, :128], b, "fma"),
+           (wa[:, :128].float(), b.float(), "mma")]
+    mm.reset_launches()
+    for a, bb, path in bad:
+        with pytest.raises(RuntimeError, match=f"on the {path} path"):
+            mm._launch(a, bb, None, path)
+    assert mm.LAUNCHES == 0 and set(mm.LAUNCHES_BY_PATH.values()) == {0}
+
+
+@pytest.mark.gpu
+def test_matmul_broadcast_and_overlapping_rows_on_card():
+    """On a card: bf16 operands whose rows are not whole rows apart -- a
+    (64, K) broadcast of one row (row stride 0, as ``x.expand``) and a b
+    whose rows overlap (16 bytes apart, 776 long) -- take the mma path
+    (the TMA map needs whole rows apart), match the plain version within
+    2 x 2^-7 of each row's max|plain|, and are refused on wgmma."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((1, 512), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((512, 776), generator=gen, device="cuda").bfloat16()
+    flat = torch.randn(512 * 8 + 776, generator=gen,
+                       device="cuda").bfloat16()
+    cases = [(x.expand(64, 512), w),
+             (x.expand(64, 512), flat.as_strided((512, 776), (8, 1)))]
+    for a, b in cases:
+        assert mm.select_path(a, b) == "mma"
+        mm.reset_launches()
+        got = mm.trim_matmul(a, b)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES_BY_PATH["mma"] == mm.LAUNCHES == 1
+        assert _row_ulps(got, mm.trim_matmul_plain(a, b)) <= 2
+        with pytest.raises(RuntimeError, match="on the wgmma path"):
+            mm._launch(a, b, None, "wgmma")
 
 
 @pytest.mark.gpu
