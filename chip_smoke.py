@@ -14,7 +14,8 @@ Phases (any failure exits non-zero and prints no result line):
    weight gradient, the causal conv1d, flash attention, the matmul and
    the SSD scan) from the sources in the checkout (``repro_torch/csrc``),
    one ``nvcc`` each, started together, and load them; log every
-   kernel's registers and spills, and the conv kernel's per path (fp32
+   kernel's registers and spills, the SSD kernel's per stage and lane (a
+   spill fails), and the conv kernel's per path (fp32
    K=3 and K=5 slide, generic, split merge; u8s8 window and gather
    paths, int32 and uint8 out, and their merges); the count of ``IMMA``
    (tensor-core integer MMA) instructions in each u8s8 entry's SASS
@@ -107,9 +108,12 @@ Phases (any failure exits non-zero and prints no result line):
    2e-5, full width and the first mixer's real inputs (a full-width fp32
    prefill's ``ssd_chunked`` arguments) in fp32 within 1e-4 x max|plain|,
    bf16 within 5e-2 of the plain version on the same inputs and of the
-   fp32 one.  At full width: kernel ms, plain ms and the bound, which
-   counts the least work that computes y (chunk 1; no PyTorch call
-   computes the scan: no yardstick);
+   fp32 one.  At full width: kernel ms, plain ms and two bounds: the
+   least work that computes y (chunk 1) at the fp32 FMA peak, and the
+   kernel's own MMA work (its chunk of 128, C.B^T once for the group,
+   every 3xTF32 or bf16 pass) at the tensor cores' peak (no PyTorch call
+   computes the scan: no yardstick); in the build phase each of its four
+   stages' registers and spills per lane (a spill fails);
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
@@ -210,6 +214,7 @@ import argparse
 import contextlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -236,8 +241,9 @@ MATMUL_SOURCE = "src/repro_torch/csrc/trim_matmul.cu"
 MATMUL_REPLACES = "src/repro/kernels/trim_matmul.py:27"
 SSD_SOURCE = "src/repro_torch/csrc/trim_ssd.cu"
 SSD_REPLACES = "src/repro/kernels/trim_ssd.py:39"
-#: H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet)
+#: H100 SXM bf16 and TF32 dense tensor-core peaks (NVIDIA data sheet)
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 #: The LM serve phases: mamba2-130m (ssm) and granite-3-2b (dense) at
 #: batch 4, a 4096-token prompt, 32 generated tokens; the fp32 checks at
 #: batch 2 and 512 tokens.
@@ -266,8 +272,8 @@ DROP_TILE = 1024
 MATMUL_ROW_ULPS = 2
 #: the SSD kernel at full width (mamba2-130m's shape, random and real
 #: inputs) against its plain version in fp32: max|kernel - plain| within
-#: SSD_FULL_TOL x max|plain| (the kernel's chunk of 64 against the plain
-#: version's 256 and sums in another order: rounding only)
+#: SSD_FULL_TOL x max|plain| (the kernel's chunk of 128 against the plain
+#: version's 256, sums in another order and 3xTF32 products: rounding only)
 SSD_FULL_TOL = 1e-4
 
 
@@ -323,6 +329,7 @@ def phase_build():
             if "registers" in line or "spill" in line.lower():
                 log(f"ptxas {name}: {line.strip()}")
     _log_conv_build()
+    _log_ssd_build()
 
 
 def _ptxas_by_entry(log_text: str, entries: dict) -> dict:
@@ -396,6 +403,29 @@ def _log_conv_build() -> None:
         if hasattr(kern.load_library(), "trim_conv2d_u8_pixels") and not n:
             fail(f"conv kernel {label}: no IMMA in its SASS (cuobjdump rc "
                  f"{sass.returncode}: {sass.stderr.strip()[:200]})")
+
+
+#: The SSD kernel's stages per lane: mangled-name fragment -> label.
+SSD_ENTRIES = {f"ssd_{stage}_kernelINS_{lane}": f"{stage} {name}"
+               for stage in ("cb", "state", "out")
+               for lane, name in (("7F32Lane", "fp32"), ("8Bf16Lane", "bf16"))}
+SSD_ENTRIES["ssd_pass_kernel"] = "pass"
+
+
+def _log_ssd_build() -> None:
+    """The SSD kernel's registers and spills per stage and lane from its
+    ``-Xptxas -v`` build log; fails where a stage is missing or spills."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import trim_ssd as ks
+
+    found = _ptxas_by_entry(
+        _build.build_log(ks._LIB_NAME, ks._SOURCES) or "", SSD_ENTRIES)
+    for label in SSD_ENTRIES.values():
+        info = found.get(label)
+        log(f"ssd kernel, {label} stage: {info or 'not in the log'}")
+        spills = re.findall(r"(\d+) bytes spill", info or "")
+        if info is None or any(int(v) for v in spills):
+            fail(f"ssd kernel {label} stage: not built, or spills ({info})")
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -2597,6 +2627,20 @@ def _ssd_macs(B, L, H, P, S, T) -> int:
     return B * H * NC * (T * (T + 1) // 2 * (S + P) + 2 * T * P * S)
 
 
+def _ssd_kernel_work(B, L, H, P, S, T, groups, tri, bf16) -> tuple:
+    """(multiply-adds, MMA-unit flop) of the staged SSD kernel in chunks of
+    T rows: C.B^T on and below the diagonal 16-row tiles (``tri``
+    elements a chunk) once per group, and per head the chunk's end state
+    (T P S), C.h^T (T P S) and the scores times x (tri P).  The MMA units
+    run each product three times in fp32 (3xTF32), in bf16 twice where
+    one operand is computed in fp32 (all but C.B^T, which is once)."""
+    NC = -(-L // T)
+    cb, per_head = groups * tri * S, H * (2 * T * P * S + tri * P)
+    macs = B * NC * (cb + per_head)
+    passes = B * NC * (cb + 2 * per_head) if bf16 else 3 * macs
+    return macs, 2.0 * passes
+
+
 def _ssd_inputs(torch, gen, dev, B, L, H, P, S, groups=None):
     """fp32 inputs in ``tests/test_ssd_kernel.py``'s ranges: x, B, C, D ~
     N(0, 1), dt ~ U(1e-3, 0.1), A ~ -U(0.3, 2); B/C of ``groups`` groups
@@ -2619,6 +2663,28 @@ def _ssd_bf16(args):
         return t.bfloat16()
     x, dt, A, Bm, Cm, D = args
     return bf(x), dt, A, bf(Bm), bf(Cm), D
+
+
+def _ssd_stage_ms(torch, fn, calls: int) -> dict:
+    """Device time per call of each of the SSD kernel's four stages under
+    ``torch.profiler`` (after one warm call), by stage; {} where the
+    profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        stage = next((st for st in ("cb", "state", "pass", "out")
+                      if f"ssd_{st}_kernel" in e.key), None)
+        t = getattr(e, "self_device_time_total", 0)
+        if stage and t > 0:
+            out[stage] = out.get(stage, 0.0) + t / 1e3 / calls
+    return out
 
 
 def _mixer_ssd_inputs(torch, dev):
@@ -2666,8 +2732,10 @@ def phase_ssd(torch, reps: int):
     ``tests/test_ssd_kernel.py``'s CASES fp32 within 2e-5, at full width
     and on the first mixer's real inputs fp32 within SSD_FULL_TOL of
     max|plain|, and bf16 within 5e-2 of the fp32 plain version.  Timed at
-    full width; no single PyTorch call computes the scan (no yardstick).
-    Returns one row per dtype at full width."""
+    full width beside its two bounds (``bound_ms``: the least work at the
+    fp32 FMA peak; ``tc_bound_ms``: the kernel's own MMA passes at the
+    tensor cores' peak); no single PyTorch call computes the scan (no
+    yardstick).  Returns one row per dtype at full width."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import trim_ssd as ks
     from repro_torch.nn.models import build_model
@@ -2741,6 +2809,12 @@ def phase_ssd(torch, reps: int):
                 *args, chunk=CS), max(2, reps // 10)),
             "library_ms": None,
             **bound(_ssd_macs(B, L, H, P, S, 1), nbytes, integer=False)})
+        own, mma_flop = _ssd_kernel_work(B, L, H, P, S, ks.KERNEL_CHUNK, 1,
+                                         ks.CB_FLOATS, dt == torch.bfloat16)
+        rows[-1].update(own_gflop=2.0 * own / 1e9, tc_bound_ms=max(
+            mma_flop / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_TF32)
+            * 1e3, rows[-1]["bytes_ms"]), stage_ms=_ssd_stage_ms(
+                torch, lambda: ks.trim_ssd(*args, chunk=CS), 10))
     del f32, full, ys, want
     real = _mixer_ssd_inputs(torch, dev)
     x, CSr = real[0], real[6]
@@ -2759,17 +2833,22 @@ def phase_ssd(torch, reps: int):
         f"{real[3].stride(2)}) within {err / scale:.3g} of max|plain| "
         f"{scale:.3g}; launches on the entry-point calls "
         f"{[r['launches'] for r in rows]}")
-    own = 2.0 * _ssd_macs(B, L, H, P, S, ks.KERNEL_CHUNK)
     log(f"ssd: the bound counts {2.0 * _ssd_macs(B, L, H, P, S, 1):.4g} "
-        f"flop (chunk 1, the least); the kernel's own chunk of "
-        f"{ks.KERNEL_CHUNK} does {own:.4g} ({own / PEAK_FP32 * 1e3:.4f} ms "
-        f"at the fp32 peak), the plain version's {CS} "
+        f"flop (chunk 1, the least) at the fp32 FMA peak; the kernel's own "
+        f"chunk of {ks.KERNEL_CHUNK} with C.B^T once per group does "
+        f"{rows[0]['own_gflop'] * 1e9:.4g} flop, its MMA bound counts "
+        "every pass (3xTF32 at the TF32 peak; bf16 at the bf16 peak, two "
+        "passes where an operand is computed in fp32); the plain "
+        f"version's chunk of {CS} does "
         f"{2.0 * _ssd_macs(B, L, H, P, S, CS):.4g}")
     for r in rows:
         log(f"ssd {r['dtype']:8s} {r['shape']} ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms none bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']}) err "
-            f"{r['max_abs_err']:.3g}")
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) tc_bound_ms "
+            f"{r['tc_bound_ms']:.4f} err {r['max_abs_err']:.3g}; stages "
+            "(profiler device ms a call): " + (", ".join(
+                f"{k} {v:.4f}" for k, v in r["stage_ms"].items())
+                or "not measured"))
     return rows
 
 
@@ -3098,7 +3177,8 @@ def main() -> None:
         + [{"name": f"trim_ssd_{r['dtype']}", "route": "cuda",
             "source": SSD_SOURCE, "replaces": SSD_REPLACES,
             **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")}}
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "tc_bound_ms")}}
            for r in srows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

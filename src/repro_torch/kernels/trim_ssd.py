@@ -3,21 +3,31 @@
 Port of ``repro/kernels/trim_ssd.py`` (``_ssd_kernel`` at line 39, driven
 by ``trim_ssd_pallas`` at line 82): the Mamba2 chunked SSD scan, forward
 only, returning y and no final state.  The kernel itself is
-``repro_torch/csrc/trim_ssd.cu``; its header says what it keeps out of
-device memory and what bounds it.
+``repro_torch/csrc/trim_ssd.cu``; its header says what bounds each of its
+stages and why its fp32 lane runs 3xTF32.
 
 - :func:`trim_ssd` is the wrapper: a CUDA tensor launches the kernel (or
   the wrapper raises), a CPU tensor takes :func:`trim_ssd_plain`.  Every
-  launch adds one to :data:`LAUNCHES`.
+  call that launches adds one to :data:`LAUNCHES`.
 - :func:`trim_ssd_plain` is the same function in plain PyTorch
   (``ref.ssd_ref``, the port's ``nn.mamba.ssd_chunked`` with per-head
   B/C, in fp32), cast to x's dtype.
 
+The kernel is Mamba2's SSD decomposition in chunks of
+:data:`KERNEL_CHUNK` rows, four launches on the current stream counted as
+one call: C.B^T of each chunk's lower triangle once per (batch, chunk,
+group), each chunk's own end state per (batch, chunk, head), the states
+passed in chunk order, and each chunk's y per (batch, chunk, head).  The
+wrapper allocates its scratch with ``torch.empty``: the states (B, NC, H,
+64, 128) fp32 (NC chunks; 100 MB at mamba2-130m's 4 x 4096 prefill), the
+packed C.B^T (B, NC, groups, :data:`CB_FLOATS`) fp32 and the chunks'
+decays (B, H, NC).
+
 B/C are per head, (B, L, H, S), as the Pallas driver takes them; a
-stride-0 ``expand`` over H of one group's (B, L, 1, S) is read in place by
-the kernel.  Chunking is math-neutral: ``chunk`` is the plain version's,
-and the kernel computes the same y in chunks of its own
-(:data:`KERNEL_CHUNK`), up to rounding.
+stride-0 ``expand`` over H of one group's (B, L, 1, S) is read in place,
+and its C.B^T computed once for every head.  Chunking is math-neutral:
+``chunk`` is the plain version's, and the kernel computes the same y in
+chunks of its own, up to rounding.
 """
 from __future__ import annotations
 
@@ -31,11 +41,13 @@ from repro_torch.kernels import _build, ref
 #: callers set it to 0 before a run and read it after).
 LAUNCHES = 0
 
-#: The largest head dim and state dim the kernel is compiled for, and its
-#: own chunk.
+#: The largest head dim and state dim the kernel is compiled for, its own
+#: chunk, and the floats of one chunk's packed C.B^T (its 16-row tiles on
+#: and below the diagonal).
 MAX_P = 64
 MAX_S = 128
-KERNEL_CHUNK = 64
+KERNEL_CHUNK = 128
+CB_FLOATS = 128 * (KERNEL_CHUNK // 16) * (KERNEL_CHUNK // 16 + 1)
 
 _LIB_NAME = "trim_ssd"
 _SOURCES = ("trim_ssd.cu",)
@@ -81,19 +93,30 @@ def load_library() -> ctypes.CDLL:
     lib = _build.load(_LIB_NAME, _SOURCES)
     if lib not in _BOUND:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.trim_ssd.argtypes = [p] * 7 + [i, ll, ll, ll, i, i] + [ll] * 12 \
-            + [p]
+        lib.trim_ssd.argtypes = [p] * 10 + [i, ll, ll, ll] + [i] * 5 \
+            + [ll] * 12 + [p]
         lib.trim_ssd.restype = i
         lib.trim_ssd_error_string.argtypes = [i]
         lib.trim_ssd_error_string.restype = ctypes.c_char_p
-        for fn in ("trim_ssd_max_p", "trim_ssd_max_s", "trim_ssd_chunk"):
+        consts = ("trim_ssd_max_p", "trim_ssd_max_s", "trim_ssd_chunk",
+                  "trim_ssd_cb_floats")
+        for fn in consts:
             getattr(lib, fn).restype = i
-        if (lib.trim_ssd_max_p(), lib.trim_ssd_max_s(),
-                lib.trim_ssd_chunk()) != (MAX_P, MAX_S, KERNEL_CHUNK):
+        if tuple(getattr(lib, fn)() for fn in consts) != (
+                MAX_P, MAX_S, KERNEL_CHUNK, CB_FLOATS):
             raise RuntimeError("trim_ssd library constants differ from the "
                                "wrapper's")
         _BOUND.add(lib)
     return lib
+
+
+def _rows_whole(t: torch.Tensor) -> bool:
+    """Whether every (b, l, h) row of ``t`` starts on 16 bytes and its last
+    axis is whole 16 bytes (the kernel then copies it with cp.async)."""
+    esz = t.element_size()
+    return t.data_ptr() % 16 == 0 and t.shape[3] * esz % 16 == 0 and all(
+        st * esz % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+        if n > 1)
 
 
 def trim_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -128,21 +151,30 @@ def trim_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                              "kernel reads it contiguously")
     if min(min(t.stride()) for t in (x, dt, Bm, Cm)) < 0:
         raise ValueError("negative strides are not handled")
-    if Bb > 65535:
-        raise ValueError(f"batch {Bb} exceeds the launch grid")
+    NC = -(-L // KERNEL_CHUNK)
+    if Bb > 65535 or NC > 65535:
+        raise ValueError(f"batch {Bb} or {NC} chunks exceed the launch grid")
     dt = dt.float()
     A = A.float().contiguous()
     D = D.float().contiguous()
     y = torch.empty((Bb, L, H, P), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    # one group expanded over the heads: C.B^T once for all of them
+    ng = 1 if H == 1 or (Bm.stride(2) == 0 and Cm.stride(2) == 0) else H
+    f32 = dict(dtype=torch.float32, device=x.device)
+    states = torch.empty((Bb, NC, H, MAX_P, MAX_S), **f32)
+    cb = torch.empty((Bb, NC, ng, CB_FLOATS), **f32)
+    decay = torch.empty((Bb, H, NC), **f32)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.trim_ssd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
-            int(x.dtype == torch.bfloat16), Bb, L, H, P, S,
+            Cm.data_ptr(), D.data_ptr(), y.data_ptr(), states.data_ptr(),
+            cb.data_ptr(), decay.data_ptr(),
+            int(x.dtype == torch.bfloat16), Bb, L, H, P, S, ng,
+            int(_rows_whole(x)), int(_rows_whole(Bm) and _rows_whole(Cm)),
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
             *Cm.stride()[:3], stream)
     if rc != 0:

@@ -12,7 +12,8 @@ the row's max|plain|, on both bf16 paths; its split decode bit-equal over
 two calls), the matmul kernel on each of its paths (wgmma, stream,
 mma, fma: int8 bit for bit, fp32 within 1e-4, bf16 within 2 ulps of each
 row's largest output; the stream path bit-equal over two calls; a named
-path that cannot take the operands refused) and the SSD scan kernel (fp32 within 2e-5, bf16 within 5e-2).
+path that cannot take the operands refused) and the SSD scan kernel (fp32
+within 2e-5, bf16 within 5e-2, the same bits on a repeat call).
 
 ``CASES``/``make_inputs`` are shared with ``test_torch_conv2d.py``, which
 holds the same cases on the CPU against the JAX package.  On the card the
@@ -1206,45 +1207,51 @@ def test_matmul_kernel_refuses_what_it_does_not_take_on_card():
                        out_dtype=torch.float32)
 
 
-# (B, L, H, P, S, chunk): tests/test_ssd_kernel.py CASES, then ragged L
-# against the kernel's chunk of 64 at mamba2-130m's P = 64, S = 128
+# (B, L, H, P, S, chunk): tests/test_ssd_kernel.py CASES, then at
+# mamba2-130m's P = 64, S = 128: L = 1, L shorter than the kernel's chunk
+# of 128, L ragged against it (65, 300), and L = 4096 at two heads (32
+# chunks through the state pass)
 SSD_CASES = [
     (2, 37, 3, 8, 16, 8), (1, 64, 2, 4, 8, 16), (2, 16, 1, 8, 8, 16),
-    (1, 128, 2, 16, 32, 32), (2, 65, 3, 64, 128, 64),
-    (1, 300, 2, 64, 128, 256),
+    (1, 128, 2, 16, 32, 32), (1, 1, 2, 64, 128, 8),
+    (2, 100, 3, 64, 128, 64), (2, 65, 3, 64, 128, 64),
+    (1, 300, 2, 64, 128, 256), (1, 4096, 2, 64, 128, 256),
 ]
 
 
-def _ssd_inputs(case, dev, dtype=torch.float32):
+def _ssd_inputs(case, dev, dtype=torch.float32, shared=True):
     """tests/test_ssd_kernel.py's ranges; B/C of one group expanded over
-    H (stride 0) and x a column slice of a wider tensor."""
+    H (stride 0), or per head, and x a column slice of a wider tensor."""
     B, L, H, P, S, _ = case
     rng = np.random.default_rng(zlib.crc32(str(case).encode()))
     f = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
     x = f(rng.normal(size=(B, L, H * P + 8)))[..., 8:].view(B, L, H, P)
     dt = f(rng.uniform(1e-3, 0.1, (B, L, H)))
     A = f(-rng.uniform(0.3, 2, (H,)))
-    Bm = f(rng.normal(size=(B, L, 1, S))).expand(B, L, H, S)
-    Cm = f(rng.normal(size=(B, L, 1, S))).expand(B, L, H, S)
+    G = 1 if shared else H
+    Bm = f(rng.normal(size=(B, L, G, S))).expand(B, L, H, S)
+    Cm = f(rng.normal(size=(B, L, G, S))).expand(B, L, H, S)
     D = f(rng.normal(size=(H,)))
     return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), D
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False], ids=["group", "per_head"])
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)
-def test_ssd_kernel_matches_plain_on_card(case):
+def test_ssd_kernel_matches_plain_on_card(case, shared):
     """On a card: the SSD kernel against its plain version in fp32 (TF32
-    off), within 2e-5; the expanded B/C are read in place and give the
-    same bits as their repeated copies; bf16 x/B/C within 5e-2 of the
-    fp32 plain version."""
+    off), within 2e-5; one launch a call; the same bits on a repeat call
+    (no atomics in the state pass) and from contiguous copies of the
+    inputs (expanded B/C are read in place, C.B^T once for the heads);
+    bf16 x/B/C within 5e-2 of the fp32 plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import trim_ssd as ks
 
     fp32_ieee()
     dev = torch.device("cuda")
-    x, dt, A, Bm, Cm, D = _ssd_inputs(case, dev)
-    assert Bm.stride(2) == 0 or case[2] == 1
+    x, dt, A, Bm, Cm, D = _ssd_inputs(case, dev, shared=shared)
+    assert (Bm.stride(2) == 0) == (shared and case[2] > 1)
     before = ks.LAUNCHES
     got = ks.trim_ssd(x, dt, A, Bm, Cm, D, chunk=case[5])
     torch.cuda.synchronize()
@@ -1252,13 +1259,47 @@ def test_ssd_kernel_matches_plain_on_card(case):
     want = ks.trim_ssd_plain(x, dt, A, Bm, Cm, D, chunk=case[5])
     assert got.shape == x.shape and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    again = ks.trim_ssd(x, dt, A, Bm, Cm, D, chunk=case[5])
+    assert torch.equal(again, got)
     rep = ks.trim_ssd(x.contiguous(), dt, A, Bm.contiguous(),
                       Cm.contiguous(), D, chunk=case[5])
     assert torch.equal(rep, got)
-    xb, _, _, Bb, Cb, _ = _ssd_inputs(case, dev, torch.bfloat16)
+    assert ks.LAUNCHES == before + 3
+    xb, _, _, Bb, Cb, _ = _ssd_inputs(case, dev, torch.bfloat16, shared)
     got16 = ks.trim_ssd(xb, dt, A, Bb, Cb, D, chunk=case[5])
     assert got16.dtype == torch.bfloat16
     torch.testing.assert_close(got16.float(), want, rtol=5e-2, atol=5e-2)
+    assert torch.equal(ks.trim_ssd(xb, dt, A, Bb, Cb, D, chunk=case[5]),
+                       got16)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_reads_unaligned_rows_on_card():
+    """On a card: rows that do not start on 16 bytes (an odd column offset
+    into a wider bf16 tensor) take the kernel's plain loads and give the
+    same bits as contiguous copies, which it copies with cp.async; within
+    5e-2 of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_ssd as ks
+
+    dev = torch.device("cuda")
+    B, L, H, P, S = 2, 150, 3, 8, 16
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nrm = lambda *s: torch.randn(s, generator=gen, device=dev)
+    x = nrm(B, L, H * P + 1).bfloat16()[..., 1:].view(B, L, H, P)
+    Bm = nrm(B, L, H, S + 1).bfloat16()[..., 1:]
+    Cm = nrm(B, L, H, S + 1).bfloat16()[..., 1:]
+    dt = 1e-3 + torch.rand((B, L, H), generator=gen, device=dev) * 0.1
+    A, D = -(0.3 + torch.rand((H,), device=dev)), nrm(H)
+    assert not ks._rows_whole(x) and not ks._rows_whole(Bm)
+    assert ks._rows_whole(x.contiguous()) and ks._rows_whole(Bm.contiguous())
+    got = ks.trim_ssd(x, dt, A, Bm, Cm, D)
+    rep = ks.trim_ssd(x.contiguous(), dt, A, Bm.contiguous(),
+                      Cm.contiguous(), D)
+    assert torch.equal(got, rep)
+    want = ks.trim_ssd_plain(x.float(), dt, A, Bm.float(), Cm.float(), D)
+    torch.testing.assert_close(got.float(), want, rtol=5e-2, atol=5e-2)
 
 
 @pytest.mark.gpu

@@ -6,7 +6,9 @@ held against the Pallas kernel ``trim_ssd_pallas`` in interpret mode and
 against JAX's ``ssd_ref``, on the same inputs made from a numpy seed in
 the ranges of ``tests/test_ssd_kernel.py``: fp32 within 2e-5 on its
 ``CASES``, 5e-5 across chunkings (chunking is math-neutral), bf16 x/B/C
-within 5e-2 of the fp32 oracle -- that file's tolerances.
+within 5e-2 of the fp32 oracle -- that file's tolerances.  A plain mirror
+of the CUDA kernel's stages (:func:`staged_ssd`) is held to the same two
+within 2e-5: the only check of the kernel's decomposition without a card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,8 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels.trim_ssd import ssd_ref as jax_ssd_ref
 from repro.kernels.trim_ssd import trim_ssd_pallas
 from repro_torch.kernels import ref
-from repro_torch.kernels.trim_ssd import trim_ssd, trim_ssd_plain
+from repro_torch.kernels.trim_ssd import (KERNEL_CHUNK, trim_ssd,
+                                         trim_ssd_plain)
 from repro_torch.nn.mamba import ssd_chunked
 
 # (B, L, H, P, S, chunk): tests/test_ssd_kernel.py CASES, then L = 1,
@@ -141,3 +144,110 @@ def test_ssd_rejects_what_the_kernel_does_not_take(bad):
         kw["chunk"] = 0
     with pytest.raises(ValueError):
         trim_ssd(x, dt, A, Bm, Cm, D, **kw)
+
+
+def staged_ssd(x, dt, A, Bm, Cm, D, *, kchunk=KERNEL_CHUNK, rows=16):
+    """Test-only mirror, in plain fp32 PyTorch, of the CUDA kernel's stages
+    (``csrc/trim_ssd.cu``) in chunks of ``kchunk`` rows, L zero-padded:
+
+    cb: C.B^T of each chunk, its ``rows``-row tiles on and below the
+        diagonal only, once per (b, chunk, group): once for every head when
+        B and C are one group expanded with stride 0 over H;
+    state: each chunk's own end state (x o exp(cum_last - cum) dt)^T B;
+    pass: the entering states, in chunk order;
+    out: y of each ``rows``-row tile from the columns up to its last row,
+        (C.B^T o exp(cum_i - cum_j) o dt_j) x + exp(cum) (C h^T) + D x.
+    """
+    Bb, L, H, P = x.shape
+    T = kchunk
+    NC = -(-L // T)
+    pad = NC * T - L
+    if Bm.stride(2) == 0 and Cm.stride(2) == 0:
+        Bm, Cm = Bm[:, :, :1], Cm[:, :, :1]  # the one group
+    G = Bm.shape[2]
+
+    def chunks(t):  # (B, L, ...) -> (B, NC, T, ...), zero past L
+        t = torch.cat([t, t.new_zeros((Bb, pad) + t.shape[2:])], dim=1)
+        return t.reshape((Bb, NC, T) + t.shape[2:])
+
+    xc, dtc, Bc, Cc = (chunks(t.float()) for t in (x, dt, Bm, Cm))
+    cum = torch.cumsum(dtc * A, dim=2)                     # (B, NC, T, H)
+    cb = torch.zeros(Bb, NC, G, T, T)
+    for r0 in range(0, T, rows):
+        r1 = r0 + rows
+        cb[..., r0:r1, :r1] = torch.einsum("bcigs,bcjgs->bcgij",
+                                           Cc[:, :, r0:r1], Bc[:, :, :r1])
+    head = lambda t, dim: t if G == H else t.expand(
+        *t.shape[:dim], H, *t.shape[dim + 1:])
+    w = torch.exp(cum[:, :, -1:] - cum) * dtc
+    dbx = torch.einsum("bcthp,bcths->bchps", xc * w[..., None],
+                       head(Bc, 3))
+    h = torch.zeros(Bb, H, P, Bm.shape[3])
+    entering = []
+    for c in range(NC):
+        entering.append(h)
+        h = torch.exp(cum[:, c, -1])[..., None, None] * h + dbx[:, c]
+    entering = torch.stack(entering, dim=1)                # (B, NC, H, P, S)
+    y = torch.empty_like(xc)
+    for r0 in range(0, T, rows):
+        r1 = r0 + rows
+        ci, cj = cum[:, :, r0:r1], cum[:, :, :r1]
+        decay = torch.exp(ci[:, :, :, None] - cj[:, :, None])  # b c i j h
+        mask = torch.arange(r0, r1)[:, None] >= torch.arange(r1)[None]
+        scores = head(cb[..., r0:r1, :r1].permute(0, 1, 3, 4, 2), 4) \
+            * torch.where(mask[..., None], decay, 0.0) \
+            * dtc[:, :, None, :r1]
+        y[:, :, r0:r1] = (
+            torch.einsum("bcijh,bcjhp->bcihp", scores, xc[:, :, :r1])
+            + torch.exp(ci)[..., None] * torch.einsum(
+                "bcihs,bchps->bcihp", head(Cc[:, :, r0:r1], 3), entering)
+            + D[:, None] * xc[:, :, r0:r1])
+    return y.reshape(Bb, NC * T, H, P)[:, :L]
+
+
+# (B, L, H, P, S, chunk): the CASES, then mamba2-130m's P = 64, S = 128 over
+# three kernel chunks with a ragged tail (300 = 2 x 128 + 44)
+STAGED_CASES = CASES + [(1, 300, 2, 64, 128, 64)]
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_head", "group"])
+@pytest.mark.parametrize("case", STAGED_CASES, ids=str)
+def test_ssd_kernel_stages_match_jax(case, shared):
+    """The kernel's stages, mirrored in plain PyTorch at its chunk of 128
+    and 16-row tiles, against the Pallas kernel (interpret mode) and JAX's
+    oracle on the same inputs, fp32 within 2e-5; B/C per head, or one
+    group expanded over the heads with stride 0 (C.B^T taken once)."""
+    B, L, H, P, S, CS = case
+    rng = np.random.default_rng(sum(case) + shared)
+    args = make_inputs(rng, B, L, H, P, S, groups=1 if shared else None)
+    x, dt, A, Bm, Cm, D = args
+    if shared:
+        Bm, Cm = (np.repeat(t, H, axis=2) for t in (Bm, Cm))
+    jargs = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm, D)]
+    targs = torch_args(args)
+    if shared:
+        targs[3], targs[4] = (t.expand(B, L, H, S) for t in targs[3:5])
+        assert targs[3].stride(2) == 0 or H == 1
+    got = staged_ssd(*targs).numpy()
+    for want in (trim_ssd_pallas(*jargs, chunk=CS, interpret=True),
+                 jax_ssd_ref(*jargs, chunk=CS)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("kchunk,rows", [(128, 64), (64, 16), (256, 64)])
+def test_ssd_kernel_stages_are_chunk_neutral(kchunk, rows):
+    """The staged mirror at other chunks and tile heights (64-row sub-tiles
+    of the (T, T) block among them) gives JAX's oracle at mamba2-130m's
+    widths, one group expanded over three heads, fp32 within 2e-5."""
+    B, L, H, P, S = 2, 300, 3, 64, 128
+    args = make_inputs(np.random.default_rng(kchunk + rows), B, L, H, P, S,
+                       groups=1)
+    x, dt, A, Bm, Cm, D = args
+    want = jax_ssd_ref(*[jnp.asarray(a) for a in (
+        x, dt, A, np.repeat(Bm, H, 2), np.repeat(Cm, H, 2), D)], chunk=64)
+    t = torch_args(args)
+    t[3], t[4] = t[3].expand(B, L, H, S), t[4].expand(B, L, H, S)
+    got = staged_ssd(*t, kchunk=kchunk, rows=rows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
