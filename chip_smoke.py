@@ -109,10 +109,11 @@ Phases (any failure exits non-zero and prints no result line):
    prefill's ``ssd_chunked`` arguments) in fp32 within 1e-4 x max|plain|,
    bf16 within 5e-2 of the plain version on the same inputs and of the
    fp32 one.  At full width: kernel ms, plain ms and two bounds: the
-   least work that computes y (chunk 1) at the fp32 FMA peak, and the
-   kernel's own MMA work (its chunk of 128, C.B^T once for the group,
-   every 3xTF32 or bf16 pass) at the tensor cores' peak (no PyTorch call
-   computes the scan: no yardstick); in the build phase each of its four
+   least work that computes y (chunk 1) at the fp32 FMA peak (in the
+   kernels line), and the same work as the tensor-core passes the lane
+   needs (3xTF32, or bf16 with a second pass for an fp32 operand) at the
+   tensor cores' peak (logged only); no PyTorch call computes the scan
+   (no yardstick); in the build phase each of its four
    stages' registers and spills per lane (a spill fails);
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
@@ -457,11 +458,12 @@ def issue_ms(torch, fn, reps: int) -> float:
     return t / reps * 1e3
 
 
-def device_ms(torch, fn, calls: int):
+def device_ms(torch, fn, calls: int, by=None):
     """Device (kernel) time per call of ``fn`` over ``calls`` calls under
     ``torch.profiler``, after one warm call: every kernel the calls
     launched, summed; None (not measured) where the profiler saw no
-    device time."""
+    device time.  With ``by`` (a kernel's name -> a group or None): a
+    dict of the time per call of each group, {} where none was seen."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -470,10 +472,13 @@ def device_ms(torch, fn, calls: int):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0)
-                for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA"))
-    return total / 1e3 / calls if total > 0 else None
+    groups = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0)
+        group = by(e.key) if by else "all"
+        if str(e.device_type).endswith("CUDA") and group and t > 0:
+            groups[group] = groups.get(group, 0.0) + t / 1e3 / calls
+    return groups if by else groups.get("all")
 
 
 def _fmt(ms) -> str:
@@ -2627,18 +2632,23 @@ def _ssd_macs(B, L, H, P, S, T) -> int:
     return B * H * NC * (T * (T + 1) // 2 * (S + P) + 2 * T * P * S)
 
 
-def _ssd_kernel_work(B, L, H, P, S, T, groups, tri, bf16) -> tuple:
-    """(multiply-adds, MMA-unit flop) of the staged SSD kernel in chunks of
-    T rows: C.B^T on and below the diagonal 16-row tiles (``tri``
-    elements a chunk) once per group, and per head the chunk's end state
-    (T P S), C.h^T (T P S) and the scores times x (tri P).  The MMA units
-    run each product three times in fp32 (3xTF32), in bf16 twice where
-    one operand is computed in fp32 (all but C.B^T, which is once)."""
+def _ssd_kernel_macs(B, L, H, P, S, T, groups, tri) -> int:
+    """Multiply-adds of the staged SSD kernel in chunks of T rows: C.B^T
+    on and below the diagonal 16-row tiles (``tri`` elements a chunk)
+    once per group, and per head the chunk's end state (T P S), C.h^T
+    (T P S) and the scores times x (tri P).  Logged beside the bounds,
+    never a bound: it grows with the kernel's own chunk."""
     NC = -(-L // T)
-    cb, per_head = groups * tri * S, H * (2 * T * P * S + tri * P)
-    macs = B * NC * (cb + per_head)
-    passes = B * NC * (cb + 2 * per_head) if bf16 else 3 * macs
-    return macs, 2.0 * passes
+    return B * NC * (groups * tri * S + H * (2 * T * P * S + tri * P))
+
+
+def _ssd_tc_macs(B, L, H, P, S, bf16: bool) -> int:
+    """Tensor-core multiply-adds that the least work (``_ssd_macs`` at
+    T = 1) needs in the lane's precision: every product three times in
+    fp32 (3xTF32); in bf16 C.B^T (S a row and head, both operands bf16)
+    once and the rest, where one operand is computed in fp32, twice."""
+    least = _ssd_macs(B, L, H, P, S, 1)
+    return 2 * least - B * L * H * S if bf16 else 3 * least
 
 
 def _ssd_inputs(torch, gen, dev, B, L, H, P, S, groups=None):
@@ -2665,26 +2675,11 @@ def _ssd_bf16(args):
     return bf(x), dt, A, bf(Bm), bf(Cm), D
 
 
-def _ssd_stage_ms(torch, fn, calls: int) -> dict:
-    """Device time per call of each of the SSD kernel's four stages under
-    ``torch.profiler`` (after one warm call), by stage; {} where the
-    profiler saw none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        stage = next((st for st in ("cb", "state", "pass", "out")
-                      if f"ssd_{st}_kernel" in e.key), None)
-        t = getattr(e, "self_device_time_total", 0)
-        if stage and t > 0:
-            out[stage] = out.get(stage, 0.0) + t / 1e3 / calls
-    return out
+def _ssd_stage(key: str):
+    """The SSD kernel's stage that a profiled kernel name belongs to, or
+    None."""
+    return next((st for st in ("cb", "state", "pass", "out")
+                 if f"ssd_{st}_kernel" in key), None)
 
 
 def _mixer_ssd_inputs(torch, dev):
@@ -2732,10 +2727,10 @@ def phase_ssd(torch, reps: int):
     ``tests/test_ssd_kernel.py``'s CASES fp32 within 2e-5, at full width
     and on the first mixer's real inputs fp32 within SSD_FULL_TOL of
     max|plain|, and bf16 within 5e-2 of the fp32 plain version.  Timed at
-    full width beside its two bounds (``bound_ms``: the least work at the
-    fp32 FMA peak; ``tc_bound_ms``: the kernel's own MMA passes at the
-    tensor cores' peak); no single PyTorch call computes the scan (no
-    yardstick).  Returns one row per dtype at full width."""
+    full width beside its two bounds, both on the least work (``bound_ms``
+    at the fp32 FMA peak; ``tc_bound_ms``, logged only, as the lane's
+    tensor-core passes at their peak); no single PyTorch call computes
+    the scan (no yardstick).  Returns one row per dtype at full width."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import trim_ssd as ks
     from repro_torch.nn.models import build_model
@@ -2809,12 +2804,15 @@ def phase_ssd(torch, reps: int):
                 *args, chunk=CS), max(2, reps // 10)),
             "library_ms": None,
             **bound(_ssd_macs(B, L, H, P, S, 1), nbytes, integer=False)})
-        own, mma_flop = _ssd_kernel_work(B, L, H, P, S, ks.KERNEL_CHUNK, 1,
-                                         ks.CB_FLOATS, dt == torch.bfloat16)
-        rows[-1].update(own_gflop=2.0 * own / 1e9, tc_bound_ms=max(
-            mma_flop / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_TF32)
-            * 1e3, rows[-1]["bytes_ms"]), stage_ms=_ssd_stage_ms(
-                torch, lambda: ks.trim_ssd(*args, chunk=CS), 10))
+        bf16 = dt == torch.bfloat16
+        tc = bound(_ssd_tc_macs(B, L, H, P, S, bf16), nbytes, integer=False,
+                   peak=PEAK_BF16 if bf16 else PEAK_TF32)
+        rows[-1].update(
+            own_gflop=2.0 * _ssd_kernel_macs(
+                B, L, H, P, S, ks.KERNEL_CHUNK, 1, ks.CB_FLOATS) / 1e9,
+            tc_bound_ms=tc["bound_ms"], tc_bound_by=tc["bound_by"],
+            stage_ms=device_ms(torch, lambda: ks.trim_ssd(*args, chunk=CS),
+                               10, by=_ssd_stage))
     del f32, full, ys, want
     real = _mixer_ssd_inputs(torch, dev)
     x, CSr = real[0], real[6]
@@ -2833,19 +2831,21 @@ def phase_ssd(torch, reps: int):
         f"{real[3].stride(2)}) within {err / scale:.3g} of max|plain| "
         f"{scale:.3g}; launches on the entry-point calls "
         f"{[r['launches'] for r in rows]}")
-    log(f"ssd: the bound counts {2.0 * _ssd_macs(B, L, H, P, S, 1):.4g} "
-        f"flop (chunk 1, the least) at the fp32 FMA peak; the kernel's own "
-        f"chunk of {ks.KERNEL_CHUNK} with C.B^T once per group does "
-        f"{rows[0]['own_gflop'] * 1e9:.4g} flop, its MMA bound counts "
-        "every pass (3xTF32 at the TF32 peak; bf16 at the bf16 peak, two "
-        "passes where an operand is computed in fp32); the plain "
-        f"version's chunk of {CS} does "
-        f"{2.0 * _ssd_macs(B, L, H, P, S, CS):.4g}")
+    log(f"ssd: both bounds count the least work, "
+        f"{2.0 * _ssd_macs(B, L, H, P, S, 1):.4g} flop (chunk 1): "
+        "bound_ms at the fp32 FMA peak, tc_bound_ms (logged here only) as "
+        "the tensor-core passes the lane needs (3xTF32: 3 at the TF32 "
+        "peak; bf16: 2 where an operand is computed in fp32, C.B^T once, "
+        "at the bf16 peak); the kernel's own chunk of "
+        f"{ks.KERNEL_CHUNK} with C.B^T once per group does "
+        f"{rows[0]['own_gflop'] * 1e9:.4g} flop, the plain version's chunk "
+        f"of {CS} {2.0 * _ssd_macs(B, L, H, P, S, CS):.4g}")
     for r in rows:
         log(f"ssd {r['dtype']:8s} {r['shape']} ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms none bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) tc_bound_ms "
-            f"{r['tc_bound_ms']:.4f} err {r['max_abs_err']:.3g}; stages "
+            f"{r['tc_bound_ms']:.4f} ({r['tc_bound_by']}) err "
+            f"{r['max_abs_err']:.3g}; stages "
             "(profiler device ms a call): " + (", ".join(
                 f"{k} {v:.4f}" for k, v in r["stage_ms"].items())
                 or "not measured"))
@@ -3177,8 +3177,7 @@ def main() -> None:
         + [{"name": f"trim_ssd_{r['dtype']}", "route": "cuda",
             "source": SSD_SOURCE, "replaces": SSD_REPLACES,
             **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms",
-                                 "tc_bound_ms")}}
+                                 "bound_ms", "bound_by", "library_ms")}}
            for r in srows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

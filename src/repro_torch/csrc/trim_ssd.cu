@@ -958,7 +958,7 @@ __global__ void __launch_bounds__(kOutThreads, 3)
 #pragma unroll
           for (int m = 0; m < 4; ++m)
             nv[i][rh][m] = jj[m] <= t ? nv[i][rh][m] *
-                                            __expf(ct[i][rh] - cj[m]) * dj[m]
+                                            expf(ct[i][rh] - cj[m]) * dj[m]
                                       : 0.0f;
         }
 #pragma unroll
