@@ -120,7 +120,13 @@ Phases (any failure exits non-zero and prints no result line):
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
    of every flush launched on the kernel (the launches counted in the run
    and, around each flush, per bucket), bucketed == unbatched bit for
-   bit, logits close to the oracle substrate on the card;
+   bit, logits close to the oracle substrate on the card; every bucket's
+   executable is a CUDA graph captured once (``capture_counts`` 1 a key),
+   and each bucket's replay equals its eager executable bit for bit on
+   served images, with its ms by events beside the eager call's and its
+   device time (``serve float: bucket 1: replay bit-equal ...`` lines);
+   on bucket 1 the launches its capture recorded are held against the
+   conv kernels ``torch.profiler`` sees in replays (no weight pre-pass);
 5. serve int8: the same on the calibrated int8 lane; features bit-equal
    to the oracle substrate on the card;
 5b. serve int5: the same on the int5 MSR lane (``quantize_int5``,
@@ -156,12 +162,18 @@ Phases (any failure exits non-zero and prints no result line):
    the u8 x s8 weight pre-pass once per (weight tensor, layout), only for
    weights the wire re-materialized in the run; every served result
    bit-equal to the fault-free answer of the lane that served it; flushes
-   and p50 per lane logged;
+   and p50 per lane logged; one capture per key at warmup, and during the
+   run captures only of the int5 lane's buckets after a wire restore (at
+   least one per new wire, at most one a bucket; their warm calls'
+   launches counted apart from the bucket runs'); then every lane x
+   bucket's replay against its eager executable, bit for bit and timed
+   (``int8-f32exact`` among them);
 5e. wire: one bit flipped in each of the 13 layers of full-width VGG-16's
    ``PackedWire``: all 13 caught and restored by ``qparams()``, the
    restored ``kernel``/``shift`` equal to ``plan.quantize_int5``'s and the
    int5 features after the restore equal to those before the flip, bit
-   for bit;
+   for bit; the bucket captured once and again after each of the two
+   restores, built once;
 5f. emulator: the paper's Slice/Core/Engine emulator
    (``core.engine.TrimEngine``, ``PAPER_ENGINE``, numpy on the host)
    against kernel 1's u8 x s8 lane (int32 out, no epilogue) bit for bit
@@ -184,10 +196,16 @@ Phases (any failure exits non-zero and prints no result line):
 7. LM serve: full-width mamba2-130m (24 layers, d_model 768, vocab
    50280, bf16, seed-0 random weights) through the functions of
    ``repro_torch.launch.serve``: one prefill of 4 x 4096 tokens, then 31
-   greedy decode steps (32 generated tokens): prefill ms, decode tok/s,
-   peak device memory, a ``torch.profiler`` split; conv1d launches
-   exactly 24 (one per layer) in the prefill and 0 in decode, flash
-   launches 0; every logit finite;
+   greedy decode steps (32 generated tokens), first with the eager decode
+   step, then through the decode step captured once as a CUDA graph, each
+   after its own prefill: prefill ms, decode ms per step and tok/s of
+   both, peak device memory of both and what the capture holds, a
+   ``torch.profiler`` split of the prefill, of 4 eager steps and of 4
+   replays (device busy time, idle share); conv1d launches exactly 24
+   (one per layer) in the prefill and 0 in decode, flash launches 0; the
+   graph's tokens equal the eager run's, and from a third prefill its
+   logits equal the eager step's at each of the 31 steps, bit for bit
+   (``... replayed decode steps bit-equal ...``); every logit finite;
 8. LM checks, full width in fp32 (TF32 off): at batch 2 and S = 512,
    prefill(t[:S-1]) + decode_step(t[S-1]) equal the last row of
    prefill(t) within rtol = atol = 3e-4 (the JAX package's own serve
@@ -197,7 +215,9 @@ Phases (any failure exits non-zero and prints no result line):
 9. dense LM serve: phase 7 for full-width granite-3-2b (40 layers,
    d_model 2048, 32 q / 8 kv heads of 64, vocab 49155, bf16, seed-0
    random weights); flash launches exactly 40 in the prefill and 40 per
-   decode step (1240 over 31 steps), conv1d launches 0;
+   decode step (1240 over 31 steps, counted per replay and held against
+   the flash kernels ``torch.profiler`` sees in replays), conv1d
+   launches 0;
 10. dense LM checks: phase 8 for granite-3-2b, the kernels' logits
    within 1e-4 of the largest |logit| of the plain attention's.
 
@@ -208,11 +228,14 @@ microbatches, logging each run's loss and grad_norm per step relative to
 the first oracle run, and each leaf's gradient error against a float64
 reference for the kernels and for the oracle.
 
-Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
-line, and last ``{"ok": true, "device": {...}}``.
+Then a line of the captures per key of every engine the script built
+(``captures per key (CUDA graphs; ...``), a ``{"kernels": [...]}`` JSON
+line, the ``nvidia-smi`` name/power line, and last ``{"ok": true,
+"device": {...}}``.
 """
 import argparse
 import contextlib
+import gc
 import json
 import pathlib
 import re
@@ -1221,6 +1244,40 @@ def phase_drift(torch, seeds, steps: int, batch: int, lrs):
                                      b)))
 
 
+def _replay_vs_eager(torch, what: str, eng, bucket: int, images,
+                     lane_idx: int = 0, reps: int = 20,
+                     hold: bool = False) -> dict:
+    """The bucket's captured graphs (on lane ``lane_idx``) against its
+    eager executable on one padded host batch ``images``: bit for bit.
+    Times a replay and an eager call by CUDA events over ``reps`` calls on
+    the same device-resident images, and a replay's device time under
+    ``torch.profiler``; with ``hold``, holds the launches its capture
+    recorded against the kernels the profiler sees in replays."""
+    g = eng.bucket_graphs(bucket, lane_idx)
+    lane = eng.lanes[lane_idx]
+    params = eng._lane_params(lane_idx, lane)
+    x = torch.from_numpy(images).to(eng.device)
+    got = g(x).clone()
+    want = g.ex.forward(params, x, lane.requant)
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        fail(f"{what}: bucket {bucket}: the replay differs from the eager "
+             "executable")
+    ms = cuda_ms(torch, lambda: g(x), reps)
+    eager = cuda_ms(torch, lambda: g.ex.forward(params, x, lane.requant),
+                    reps)
+    dev_ms = device_ms(torch, lambda: g(x), 4)
+    if hold:
+        prof = _profile(torch, f"{what} bucket {bucket} replay", ms,
+                        lambda: [g(x) for _ in range(4)], calls=4)
+        _hold_replay_launches(f"{what} bucket {bucket}", prof, 4, g.launches)
+    log(f"{what}: bucket {bucket}: replay bit-equal to the eager "
+        f"executable; {g.launches.get('trim_conv2d', 0)} conv launches a "
+        f"replay; {ms:.4f} ms a replay (device {_fmt(dev_ms)}), eager "
+        f"{eager:.4f} ms (CUDA events, {reps} calls)")
+    return {"bucket": bucket, "ms": ms, "eager_ms": eager,
+            "device_ms": dev_ms, "launches": g.launches}
+
+
 def _served_inputs(server):
     return [r for r in server.requests if r.status == "served"]
 
@@ -1326,6 +1383,16 @@ def phase_serve(torch, datapath: str, n_requests: int):
         single = server.engine.infer(r.payload[None])[0]
         if not np.array_equal(single, r.result):
             fail(f"serve {datapath}: request {r.rid} bucketed != unbatched")
+    # each bucket's replay against its eager executable, on served images
+    eng = server.engine
+    for b in buckets:
+        imgs = np.stack([r.payload for r in (served * b)[:b]])
+        _replay_vs_eager(torch, f"serve {datapath}", eng, b, imgs,
+                         hold=b == buckets[0])
+    if set(eng.capture_counts.values()) != {1} \
+            or set(eng.capture_counts) != set(eng.compile_counts):
+        fail(f"serve {datapath}: captures per key {eng.capture_counts}")
+    CAPTURES[f"serve {datapath}"] = dict(eng.capture_counts)
     # against the oracle substrate on the card
     first = served[:4]
     imgs = torch.from_numpy(np.stack([r.payload for r in first])).to(dev)
@@ -1367,7 +1434,8 @@ def phase_serve(torch, datapath: str, n_requests: int):
     log(f"serve {datapath}: {snap['totals']['images']}/{n_requests} served "
         f"in {flushes} flushes ({wall:.2f} s wall, p99 "
         f"{snap['totals']['p99_ms']} ms), {launches} kernel launches, "
-        f"builds {sorted(set(server.engine.compile_counts.values()))}")
+        f"builds {sorted(set(server.engine.compile_counts.values()))}, "
+        f"captures {sorted(set(server.engine.capture_counts.values()))}")
     for b, rec in snap["per_bucket"].items():
         log(f"serve {datapath}: bucket {b}: {rec['flushes']} flushes, "
             f"{per_bucket[int(b)]} kernel launches, p50 {rec['p50_ms']} ms, "
@@ -1489,10 +1557,13 @@ def phase_chaos(torch, label: str, datapath: str, spec: str, threshold,
         lat[name] += [now - r.t_submit for r in dispatched[1]]
 
     def on_run(bucket, images):
+        # a run that captures again (after a wire restore) also makes the
+        # capture's warm call: its launches are counted apart
         idx = eng.active_lane(bucket)
-        before = kern.LAUNCHES
+        before, warm = kern.LAUNCHES, eng.capture_launches
         out = run_bucket(bucket, images)
-        runs.append((eng.lanes[idx].name, kern.LAUNCHES - before))
+        runs.append((eng.lanes[idx].name, kern.LAUNCHES - before
+                     - (eng.capture_launches - warm)))
         if idx == 0 and eng.wire is not None \
                 and (not wire_sets or wire_sets[-1] is not eng._wire_params):
             wire_sets.append(eng._wire_params)
@@ -1511,6 +1582,8 @@ def phase_chaos(torch, label: str, datapath: str, spec: str, threshold,
     kern.u8_weights = on_weights
     first_wire = eng._wire_params
     library = []
+    captured = dict(eng.capture_counts)
+    warm0 = eng.capture_launches
     kern.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
@@ -1520,7 +1593,8 @@ def phase_chaos(torch, label: str, datapath: str, spec: str, threshold,
     finally:
         kern.u8_weights = u8_weights
     wall = time.perf_counter() - t0
-    launches = kern.LAUNCHES
+    recapture_launches = eng.capture_launches - warm0
+    launches = kern.LAUNCHES - recapture_launches
     snap = metrics.snapshot()
     tot = snap["totals"]
     fired = dict(eng.injector.fired)
@@ -1593,6 +1667,20 @@ def phase_chaos(torch, label: str, datapath: str, spec: str, threshold,
         fail(f"{what}: {len(prepass)} weight pre-passes for "
              f"{eng.wire.restored} restored layers over {remade} wire "
              "materializations")
+    # one capture per key at warmup; during the run the int5 lane's
+    # buckets again after a wire restore (each new set of params at most
+    # once a bucket, at least once), every other key never
+    if captured != {k: 1 for k in eng.compile_counts}:
+        fail(f"{what}: captures per key after warmup {captured}")
+    wire_keys = {k for k in eng.capture_counts if eng.wire is not None
+                 and f" {names[0]} " in k}
+    again = sum(eng.capture_counts[k] - 1 for k in wire_keys)
+    if any(eng.capture_counts[k] != 1 for k in eng.capture_counts
+           if k not in wire_keys) or not (
+            remade <= again <= remade * len(buckets)):
+        fail(f"{what}: captures per key {eng.capture_counts} for {remade} "
+             "wire materializations in the run")
+    CAPTURES[what] = dict(eng.capture_counts)
 
     # -- every served result is the fault-free answer of its lane
     served = [r for r in server.requests if r.status == "served"]
@@ -1625,6 +1713,14 @@ def phase_chaos(torch, label: str, datapath: str, spec: str, threshold,
                 fail(f"{what}: requests served on lane {name} differ from "
                      "its fault-free answer")
 
+    # every lane x bucket's replay against its eager executable, on
+    # served images (the int5 lane's graphs of the final wire)
+    for i, name in enumerate(names):
+        for b in buckets:
+            imgs = np.stack([r.payload for r in (served * b)[:b]])
+            _replay_vs_eager(torch, f"{what} lane {name}", eng, b, imgs,
+                             lane_idx=i)
+
     res = {k: tot[k] for k in sorted(RESILIENCE_KEYS) if k in tot}
     log(f"{what}: {tot['images']}/{n_requests} served, {tot.get('failed', 0)}"
         f" failed, in {tot['flushes']} flushes ({wall:.2f} s wall); "
@@ -1648,6 +1744,9 @@ def phase_chaos(torch, label: str, datapath: str, spec: str, threshold,
     if chunks is not None:
         log(f"{what}: int8-f32exact: {chunks} fp32 chunk launches a bucket "
             "run, no library conv")
+    log(f"{what}: captures per key after the run {CAPTURES[what]} "
+        f"({again} again after {remade} wire materializations, their warm "
+        f"calls {recapture_launches} launches)")
     return {n: sum(k for m, k in runs if m == n) for n in names}
 
 
@@ -1715,6 +1814,13 @@ def phase_wire(torch):
              f"{wire.restored - n} layers, kept tensors {kept}")
     if not np.array_equal(before, eng.infer(imgs)):
         fail("wire: the int5 features after a one-layer restore differ")
+    # the bucket captured once at warmup and again after each restore,
+    # the compile-once ledger untouched
+    if list(eng.capture_counts.values()) != [3] or \
+            list(eng.compile_counts.values()) != [1]:
+        fail(f"wire: captured {eng.capture_counts}, built "
+             f"{eng.compile_counts} over two restores")
+    CAPTURES["wire"] = dict(eng.capture_counts)
     int8_bytes = sum(int(q["kernel"].numel()) for q in q5["conv"])
     log(f"wire: VGG-16 PackedWire {wire.nbytes()} bytes for {int8_bytes} "
         f"weights ({wire.nbytes() / int8_bytes:.4f} of int8), built in "
@@ -1723,7 +1829,9 @@ def phase_wire(torch):
         "kernel/shift bit-equal to plan.quantize_int5, int5 features after "
         "the restore bit-equal to those before the flip; one flip in the "
         f"largest layer ({big}, {wire._packed[big].size} bytes) restored "
-        f"alone in {t_one:.3f} s (host)")
+        f"alone in {t_one:.3f} s (host); the bucket captured "
+        f"{list(eng.capture_counts.values())[0]} times (once, then after "
+        "each restore), built once")
 
 
 #: the emulator phase's layers: (label, ConvLayerSpec arguments); the
@@ -2862,21 +2970,34 @@ def _lm_counters():
 
 def phase_lm_serve(torch, arch: str):
     """Full-width ``arch`` served in bf16 through the launcher's functions:
-    one prefill, then greedy decode.  Every LM kernel's launches are
-    counted from 0 around the prefill and around the decode run; the
-    conv1d kernel must run once per layer in the prefill of the ssm family
-    and never in decode, the flash kernel once per layer in the prefill
-    and once per layer per decode step of the dense family.  Returns
-    {kernel: (prefill launches, decode launches)}."""
+    one prefill, then greedy decode, twice: once with the eager decode step
+    (the reading of the earlier slices) and once through the decode step
+    captured as a CUDA graph (``launch.serve.decode_executable``), each
+    after its own prefill into a fresh cache.  Every LM kernel's launches
+    are counted from 0 around the prefill and around the graph's decode
+    run; the conv1d kernel must run once per layer in the prefill of the
+    ssm family and never in decode, the flash kernel once per layer in
+    the prefill and once per layer per decode step of the dense family
+    (per replay: the launches the capture recorded, held once against the
+    flash kernels ``torch.profiler`` sees in replays).  The graph's
+    greedy tokens must equal the eager run's, and then, from a third
+    prefill, its logits the eager step's at every step, bit for bit.
+    Returns {kernel: (prefill launches, decode launches)}."""
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.distributed.steps import make_decode_step
     from repro_torch.launch.serve import (decode_executable,
                                           prefill_executable, run_decode,
                                           run_prefill)
     from repro_torch.nn.models import build_model
     from repro_torch.serve import ServeEngine
 
+    # the earlier phases' engines sit in reference cycles (engine and
+    # server) with their params until the collector runs: collect them,
+    # so the memory readings below are this phase's own
+    gc.collect()
     dev = torch.device("cuda", 0)
     cfg = get_config(arch)
     model = build_model(cfg)
@@ -2890,37 +3011,80 @@ def phase_lm_serve(torch, arch: str):
     prompts = np.random.default_rng(0).integers(0, cfg.vocab,
                                                 (LM_BATCH, LM_PROMPT))
     batch0 = {"tokens": torch.as_tensor(prompts, device=dev)}
-    cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN, dtype=cfg.dtype,
-                             device=dev)
+
+    def cache():
+        return model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN,
+                                dtype=cfg.dtype, device=dev)
+
     eng = ServeEngine(name=f"lm-{cfg.name}", buckets=(LM_BATCH,), device=dev)
-    prefill = prefill_executable(eng, model, params, batch0, cache)
+    prefill = prefill_executable(eng, model, params, batch0, cache())
     torch.cuda.synchronize()
     log(f"lm serve: {cfg.name} ({cfg.param_count_estimate()} params, "
         f"{cfg.dtype}) init + warm prefill in {time.perf_counter() - t0:.1f} s")
+
+    # -- eager decode: the earlier slices' reading, in this run
+    eager_step = torch.inference_mode()(make_decode_step(model))
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, c_e, _ = run_prefill(prefill, params, batch0, cache(), dev)
+    peak_pre = torch.cuda.max_memory_allocated(dev)
+    tok = logits.argmax(-1)
+    eager_step(params, tok, tree_map(torch.clone, c_e), LM_PROMPT)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks_e, c_e, eager_s, finite_e = run_decode(
+        eager_step, params, tok, c_e, LM_PROMPT, steps, dev)
+    peak_dec_e = torch.cuda.max_memory_allocated(dev)
+    eager_prof = _profile(torch, f"lm {arch} eager decode step",
+                          eager_s * 1e3 / steps,
+                          lambda: [eager_step(params, tok, c_e, LM_PROMPT)
+                                   for _ in range(4)], calls=4)
+    del c_e
+    torch.cuda.synchronize()
+
+    # -- the served path: prefill, then the captured decode step
     torch.cuda.reset_peak_memory_stats(dev)
     for m in counters.values():
         m.LAUNCHES = 0
-    logits, cache, prefill_s = run_prefill(prefill, params, batch0, cache, dev)
+    logits, c, prefill_s = run_prefill(prefill, params, batch0, cache(), dev)
     n_prefill = {k: m.LAUNCHES for k, m in counters.items()}
     if logits.shape != (LM_BATCH, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         fail(f"lm serve {arch}: prefill logits {tuple(logits.shape)} not "
              "finite or of the wrong shape")
     tok = logits.argmax(-1)
-    decode = decode_executable(eng, model, params, tok, cache, LM_PROMPT)
+    peak_pre_g = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    decode = decode_executable(eng, model, params, tok, c, LM_PROMPT)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool = torch.cuda.memory_reserved(dev) - reserved
     for m in counters.values():
         m.LAUNCHES = 0
-    toks, cache, decode_s, finite = run_decode(
-        decode, params, tok, cache, LM_PROMPT, steps, dev)
+    toks, c, decode_s, finite = run_decode(
+        decode, params, tok, c, LM_PROMPT, steps, dev)
     n_decode = {k: m.LAUNCHES for k, m in counters.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak_dec = torch.cuda.max_memory_allocated(dev)
+    peak, peak_e = max(peak_pre_g, peak_dec), max(peak_pre, peak_dec_e)
     log(f"lm serve {arch}: batch {LM_BATCH}, prompt {LM_PROMPT}: prefill "
-        f"{prefill_s * 1e3:.3f} ms; decode {LM_BATCH * steps / decode_s:.3f} "
-        f"tok/s ({decode_s * 1e3 / steps:.3f} ms per step, {steps} steps); "
-        f"peak device memory {peak / 2**30:.3f} GiB; launches in the "
-        f"prefill {n_prefill}, in decode {n_decode}; sample "
+        f"{prefill_s * 1e3:.3f} ms; decode (CUDA graph) "
+        f"{LM_BATCH * steps / decode_s:.3f} tok/s "
+        f"({decode_s * 1e3 / steps:.3f} ms per step, {steps} steps); eager "
+        f"decode {LM_BATCH * steps / eager_s:.3f} tok/s "
+        f"({eager_s * 1e3 / steps:.3f} ms per step); peak device memory "
+        f"{peak / 2**30:.3f} GiB with the graph (eager "
+        f"{peak_e / 2**30:.3f} GiB; the prefill's {peak_pre_g / 2**30:.3f} "
+        f"and {peak_pre / 2**30:.3f}, the capture and decode's "
+        f"{peak_dec / 2**30:.3f}, the eager decode's "
+        f"{peak_dec_e / 2**30:.3f}), the capture in {capture_s:.3f} s "
+        f"reserving {pool / 2**30:.3f} GiB more (its pool, and the warm "
+        "call's copy of the cache, freed to the cache); launches in the "
+        "prefill "
+        f"{n_prefill}, in decode {n_decode} (per replay "
+        f"{decode.launches}); sample "
         f"{torch.stack([tok] + toks, 1)[0, :8].tolist()}")
-    if not finite:
+    if not (finite and finite_e):
         fail(f"lm serve {arch}: non-finite decode logits")
     for k, (pre, dec) in per_layer.items():
         if (n_prefill[k], n_decode[k]) != (pre * cfg.n_layers,
@@ -2928,25 +3092,98 @@ def phase_lm_serve(torch, arch: str):
             fail(f"lm serve {arch}: {k} launched {n_prefill[k]} times in "
                  f"the prefill and {n_decode[k]} in {steps} decode steps "
                  f"(expected {pre * cfg.n_layers} and {dec * cfg.n_layers})")
-    if set(eng.compile_counts.values()) != {1}:
-        fail(f"lm serve {arch}: executables built more than once: "
-             f"{eng.compile_counts}")
+    if decode.launches.get("flash_attention", 0) * steps != \
+            n_decode["flash_attention"]:
+        fail(f"lm serve {arch}: {decode.launches} launches per replay "
+             f"against {n_decode} in {steps} replays")
+    if not torch.equal(torch.stack(toks), torch.stack(toks_e)):
+        fail(f"lm serve {arch}: the graph's greedy tokens differ from the "
+             "eager decode's")
+    if set(eng.compile_counts.values()) != {1} or \
+            set(eng.capture_counts.values()) != {1}:
+        fail(f"lm serve {arch}: executables built {eng.compile_counts}, "
+             f"captured {eng.capture_counts}")
+    CAPTURES[f"lm {arch}"] = dict(eng.capture_counts)
     # where the device time goes: one profiled prefill and 4 profiled
-    # decode steps, their kernel time set against the unprofiled wall
-    # times above (the profiler's own overhead stays out of the share)
-    _profile(torch, f"{arch} prefill", prefill_s * 1e3,
-             lambda: prefill(params, batch0, cache))
-    _profile(torch, f"{arch} decode step", decode_s * 1e3 / steps,
-             lambda: [decode(params, tok, cache, LM_PROMPT)
-                      for _ in range(4)], calls=4)
+    # replays, their kernel time set against the unprofiled wall times
+    # above (the profiler's own overhead stays out of the share)
+    _profile(torch, f"lm {arch} prefill", prefill_s * 1e3,
+             lambda: prefill(params, batch0, c))
+    prof = _profile(torch, f"lm {arch} decode step (replay)",
+                    decode_s * 1e3 / steps,
+                    lambda: [decode(params, tok, c, LM_PROMPT)
+                             for _ in range(4)], calls=4)
+    _hold_replay_launches(f"lm serve {arch}", prof, 4, decode.launches)
+    log(f"lm serve {arch}: decode step {decode_s * 1e3 / steps:.3f} ms with "
+        f"the graph, {eager_s * 1e3 / steps:.3f} ms eager; device busy "
+        f"{_fmt(prof and prof['busy'])} / "
+        f"{_fmt(eager_prof and eager_prof['busy'])} ms, idle share "
+        f"{_fmt(prof and prof['idle'])} / "
+        f"{_fmt(eager_prof and eager_prof['idle'])}")
+
+    # the graph's logits against the eager step's, bit for bit, from one
+    # more prefill: the graph's cache takes its state, the eager step a
+    # copy of it
+    _, fresh, _ = run_prefill(prefill, params, batch0, cache(), dev)
+    with torch.inference_mode():  # the prefill's caches are inference tensors
+        for dst, src in zip(tree_leaves(c), tree_leaves(fresh)):
+            dst.copy_(src)
+    tok_g = tok_e = tok
+    pos = torch.full((), LM_PROMPT, dtype=torch.long, device=dev)
+    for i in range(steps):
+        got, _ = decode(params, tok_g, c, pos)
+        want, fresh = eager_step(params, tok_e, fresh, LM_PROMPT + i)
+        if not torch.equal(got, want):
+            fail(f"lm serve {arch}: step {i}: the replay's logits differ "
+                 "from the eager step's (max|diff| "
+                 f"{(got - want).abs().max().item():.3g})")
+        tok_g, tok_e = got.argmax(-1), want.argmax(-1)
+        pos += 1
+    log(f"lm serve {arch}: {steps} replayed decode steps bit-equal to the "
+        "eager step's logits")
     return {k: (n_prefill[k], n_decode[k]) for k in counters}
 
 
-def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1) -> None:
+#: the kernels a wrapper launch is counted for, by counter, as the
+#: profiler names them (a split's merge and the u8 x s8 weight pre-pass
+#: are further kernels of one launch, not counted)
+COUNTED_KERNELS = {
+    "trim_conv2d": re.compile(r"trim_conv2d_(f32|u8s8|u8s8_slide)_kernel"),
+    "flash_attention": re.compile(r"flash_\w+_kernel"),
+}
+#: captures per key of every engine the script built, by phase
+CAPTURES: dict = {}
+
+
+def _hold_replay_launches(what: str, prof, calls: int, launches) -> None:
+    """Hold the launches a graph's capture recorded per replay against the
+    kernels ``torch.profiler`` saw in ``calls`` replays (``prof`` from
+    :func:`_profile`); a replay must run no u8 x s8 weight pre-pass.  The
+    replays add the recorded counts to the wrappers' counters, so a
+    profiler that sees no kernels leaves them unchecked: that fails."""
+    if prof is None:
+        fail(f"{what}: the profiler saw no kernels in the replays, so the "
+             "launches counted per replay cannot be held against them")
+    seen = {k: sum(n for name, n in prof["kernels"].items()
+                   if pat.search(name)) // calls
+            for k, pat in COUNTED_KERNELS.items()}
+    want = {k: launches.get(k, 0) for k in COUNTED_KERNELS}
+    prepass = sum(n for name, n in prof["kernels"].items()
+                  if "wprep" in name)
+    if seen != want or prepass:
+        fail(f"{what}: one replay ran {seen} kernels and {prepass} weight "
+             f"pre-passes; its capture recorded {want} launches")
+    log(f"{what}: one replay: {seen} kernels by the profiler, as the "
+        f"capture recorded; no weight pre-pass")
+
+
+def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1):
     """Log the device (kernel) time per call of ``fn`` under
     ``torch.profiler``, its share of ``wall_ms`` (the unprofiled time of
     one call; the rest is the device's idle share) and the kernels that
-    take the most of it."""
+    take the most of it.  Returns {"busy": ms a call, "idle": share,
+    "kernels": {kernel name: count over the calls}}, or None where the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2962,18 +3199,21 @@ def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1) -> None:
     ops = sorted((e for e in timed if e not in kernels),
                  key=lambda e: -e.self_device_time_total)
     if not kernels:
-        log(f"lm profile {what}: the profiler saw no device time "
+        log(f"profile {what}: the profiler saw no device time "
             "(device share not measured)")
-        return
+        return None
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
     ours = [e for e in kernels if "trim_" in e.key or "flash_" in e.key]
     top = "; ".join(
         f"{e.key[:40]} x{e.count // calls} "
         f"{e.self_device_time_total / 1e3 / calls:.3f} ms"
         for e in (ops[:8] + ours))
-    log(f"lm profile {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-        f"wall (idle share {max(0.0, 1 - busy / wall_ms):.3f}); "
+    idle = max(0.0, 1 - busy / wall_ms)
+    log(f"profile {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+        f"wall (idle share {idle:.3f}); "
         f"{sum(e.count for e in kernels) // calls} kernels; by op: {top}")
+    return {"busy": busy, "idle": idle,
+            "kernels": {e.key: e.count for e in kernels}}
 
 
 def phase_lm_checks(torch, arch: str):
@@ -3098,6 +3338,11 @@ def main() -> None:
     phase_lm_checks(torch, LM_ARCH)
     dense_launches = phase_lm_serve(torch, DENSE_ARCH)
     phase_lm_checks(torch, DENSE_ARCH)
+    log("captures per key (CUDA graphs; the int5 lane's again after each "
+        "wire restore): " + "; ".join(
+            f"{phase}: " + ", ".join(f"{k.split(' ', 1)[1]} {n}"
+                                     for k, n in counts.items())
+            for phase, counts in CAPTURES.items()))
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s "
         "(from the environment check, the build included)")
     c1 = next(r for r in crows if r["dtype"] == "bfloat16")

@@ -126,8 +126,11 @@ def make_prefill_step(model) -> Callable:
 
 def make_decode_step(model) -> Callable:
     """``decode_step(params, token, cache, pos, kv_length=None) ->
-    (logits, cache)``: ``pos`` is the position written (an int),
-    ``kv_length`` (B,) the keys each row attends to (default pos + 1)."""
+    (logits, cache)``: ``pos`` is the position written, a 0-d integer
+    tensor on the device (as the JAX step's traced ``jnp.int32``: a
+    captured step replays at whatever position it holds) or an int;
+    ``kv_length`` (B,) the keys each row attends to (default pos + 1).
+    The cache is written in place and returned."""
     def decode_step(params, token, cache, pos, kv_length=None):
         return model.decode_step(params, token, cache, pos,
                                  kv_length=kv_length)

@@ -392,11 +392,13 @@ def calibrate_requant_int5(plan: ModelPlan, qparams,
 
 
 # ---------------------------------------------------------------------------
-# Serving executables: one callable per (plan, batch, datapath, device)
+# Serving executables: one per (plan, batch, datapath, device)
 # ---------------------------------------------------------------------------
 
-#: Build ledger: (plan, batch, datapath, device) -> number of builds.
-#: Cache hits never touch it, so serving can assert compile-once.
+#: Build ledger: (plan, batch, datapath, device) -> number of builds, on
+#: either device.  Cache hits never touch it, and neither do the card's
+#: captures and replays (an engine counts its captures itself,
+#: ``ServeEngine.capture_counts``), so serving can assert compile-once.
 EXECUTABLE_COMPILES: Dict[Tuple[ModelPlan, int, str, str], int] = {}
 
 #: Fault-injection seam of the serving chaos plane: when set, called as
@@ -409,33 +411,49 @@ COMPILE_FAULT_HOOK = None
 
 
 class Executable:
-    """The serving callable for one static (batch, H, W, C) input.
+    """The serving program for one static (batch, H, W, C) input.
 
-    ``float``: ``ex(params, images_f32) -> logits`` (:func:`serve_forward`);
-    ``int8``: ``ex(qparams, images_u8, requant) -> int32 features``, with
-    the calibrated per-layer pairs required (the dynamic-shift path depends
-    on the whole batch and cannot serve padded buckets); ``int5``: the
-    same, ``qparams`` from ``quantize_cnn_int5`` and ``requant`` from
+    ``float``: ``forward(params, images_f32) -> logits``
+    (:func:`serve_forward`); ``int8``: ``forward(qparams, images_u8,
+    requant) -> int32 features``, with the calibrated per-layer pairs
+    required (the dynamic-shift path depends on the whole batch and cannot
+    serve padded buckets); ``int5``: the same, ``qparams`` from
+    ``quantize_cnn_int5`` and ``requant`` from
     :func:`calibrate_requant_int5` (:func:`forward_int5`).
+
+    On the CPU the executable is that callable, eager.  On the card it
+    runs only as the CUDA graph :meth:`capture` records for one set of
+    params (:class:`BucketGraphs`); calling it there raises, so nothing on
+    the card gives way to the eager path.  :meth:`forward` is the eager
+    program itself, which the capture records (and a caller may run as a
+    reference).
     """
 
     def __init__(self, plan: ModelPlan, batch: int, datapath: str,
                  device: torch.device):
         H, W = plan.cfg.input_hw
         self.plan = plan
+        self.batch = batch
         self.datapath = datapath
         self.device = device
         self.shape = (batch, H, W, plan.layers[0].c_in)
         self.dtype = torch.float32 if datapath == "float" else torch.uint8
 
-    @torch.inference_mode()
-    def __call__(self, params, images: torch.Tensor, requant=None):
+    def check(self, images: torch.Tensor, device=None) -> None:
+        """Raise unless ``images`` is this executable's static input (on
+        ``device``, by default the executable's)."""
+        device = self.device if device is None else device
         if tuple(images.shape) != self.shape or images.dtype != self.dtype \
-                or images.device != self.device:
+                or images.device != device:
             raise ValueError(
                 f"executable takes {self.shape} {self.dtype} on "
-                f"{self.device}, got {tuple(images.shape)} {images.dtype} "
+                f"{device}, got {tuple(images.shape)} {images.dtype} "
                 f"on {images.device}")
+
+    @torch.inference_mode()
+    def forward(self, params, images: torch.Tensor, requant=None):
+        """The eager program on ``images``."""
+        self.check(images)
         if self.datapath == "float":
             return serve_forward(self.plan, params, images)
         if requant is None:
@@ -444,6 +462,124 @@ class Executable:
         if self.datapath == "int5":
             return forward_int5(self.plan, params, images, requant=requant)
         return forward_int8(self.plan, params, images, requant=requant)
+
+    def __call__(self, params, images: torch.Tensor, requant=None):
+        if self.device.type == "cuda":
+            raise RuntimeError(
+                "on the card an executable runs as the CUDA graph "
+                "Executable.capture(params, requant, pool=) records")
+        return self.forward(params, images, requant)
+
+    def capture(self, params, requant=None, *, pool) -> "BucketGraphs":
+        """Capture this executable for ``params`` (and ``requant``) on
+        ``pool`` (a ``graphs.GraphPool``): two instances, each with its own
+        static images and output."""
+        return BucketGraphs(self, params, requant, pool)
+
+
+class _Instance:
+    """One captured copy of an executable: its static images, its graph,
+    the event of its last staging copy and the event after its last
+    replay."""
+
+    def __init__(self, images: torch.Tensor):
+        self.images = images
+        self.graph = None
+        self.staged: Optional[torch.cuda.Event] = None
+        self.done: Optional[torch.cuda.Event] = None
+
+
+class BucketGraphs:
+    """An :class:`Executable` captured on the card for one set of params.
+
+    Two instances, used in turn, so that a batch's staging copy overlaps
+    the replay before it: the server stages batch k+1 of a bucket while
+    batch k is still in flight (``Server._dispatch``).  :meth:`stage`
+    copies a pinned host batch into the next instance's static images on
+    the pool's copy stream, behind that instance's last replay, and
+    records an event; calling the graphs on those images replays that
+    instance once the event is reached (the counterpart of the JAX
+    executable's donated image buffer).  Other images are copied into the
+    next instance on the current stream.  The output returned is a copy
+    of the static output, made on the current stream right after the
+    replay: no later replay of this bucket or of any graph on the pool
+    (whose intermediates may share the static output's memory) overwrites
+    it, whatever order the server's retries replay in.
+
+    The int8 and int5 lanes' weights must not be inference tensors: the
+    u8 x s8 lane keeps no transposed copy of those, so the weight
+    pre-pass would be recorded into the graph and run on every replay.
+    """
+
+    def __init__(self, ex: Executable, params, requant, pool):
+        from repro_torch.engine import graphs
+
+        if ex.datapath != "float" and any(
+                p["kernel"].is_inference() for p in params["conv"]):
+            raise ValueError(
+                f"the {ex.datapath} params are inference tensors: make them "
+                "outside torch.inference_mode, so that their transposed "
+                "weights are written once before the capture")
+        self.ex, self.params, self.requant, self.pool = (
+            ex, params, requant, pool)
+        label = (f"{ex.plan.cfg.name} {ex.datapath} batch {ex.batch} "
+                 f"{ex.plan.policy.substrate}")
+        self._insts = []
+        for i in range(2):
+            inst = _Instance(torch.zeros(ex.shape, dtype=ex.dtype,
+                                         device=ex.device))
+            inst.graph = graphs.capture(
+                lambda x=inst.images: ex.forward(params, x, requant), pool,
+                label=f"{label} (instance {i})", warm=i == 0)
+            self._insts.append(inst)
+        self._next = 0
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        """The kernel launches of one replay, by kernel name."""
+        return dict(self._insts[0].graph.launches)
+
+    @property
+    def warm_launches(self) -> Dict[str, int]:
+        """The launches of the warm call the capture made."""
+        return dict(self._insts[0].graph.warm_launches)
+
+    def _take(self) -> _Instance:
+        inst = self._insts[self._next]
+        self._next ^= 1
+        return inst
+
+    def stage(self, host: torch.Tensor) -> torch.Tensor:
+        """Copy one pinned host batch into the next instance's static
+        images on the copy stream; returns those images."""
+        self.ex.check(host, device=host.device)
+        inst = self._take()
+        cs = self.pool.copy_stream
+        with torch.cuda.stream(cs):
+            if inst.done is not None:
+                cs.wait_event(inst.done)  # its last replay read them
+            inst.images.copy_(host, non_blocking=True)
+            inst.staged = torch.cuda.Event()
+            inst.staged.record(cs)
+        return inst.images
+
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        """Replay on ``images``: a batch :meth:`stage` returned, or any
+        device tensor of the executable's shape (copied in first)."""
+        cur = torch.cuda.current_stream(self.ex.device)
+        inst = next((i for i in self._insts if i.images is images), None)
+        if inst is None:
+            self.ex.check(images)
+            inst = self._take()
+        if inst.staged is not None:
+            cur.wait_event(inst.staged)
+            inst.staged = None
+        if images is not inst.images:
+            inst.images.copy_(images)
+        out = inst.graph.replay().clone()
+        inst.done = torch.cuda.Event()
+        inst.done.record(cur)
+        return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -460,9 +596,10 @@ def _executable(plan: ModelPlan, batch: int, datapath: str,
 
 def executable_for(plan: ModelPlan, batch: int, datapath: str = "float",
                    device="cuda") -> Executable:
-    """The cached serving callable for ``plan`` at one static batch size.
+    """The cached serving program for ``plan`` at one static batch size.
     Building it loads (and if needed compiles) the kernel library; the
-    caller makes the warm call with its params (``ServeEngine``)."""
+    caller makes the warm call with its params, on the card by capturing
+    it (``ServeEngine``)."""
     if COMPILE_FAULT_HOOK is not None:
         COMPILE_FAULT_HOOK(plan, batch, datapath)
     if datapath not in DATAPATHS:

@@ -6,13 +6,21 @@
 Port of ``repro/launch/serve.py``.  The prefill and decode steps
 (``distributed.steps.make_prefill_step`` / ``make_decode_step``) are built
 once each through the port's ``ServeEngine.executable`` cache, keyed by
-the device stamp and the workload (arch, step, shape), as eager callables
-under ``torch.inference_mode`` warmed by one call, so no kernel build
-lands inside a timer (CUDA graphs are later work).  On the ssm family
-(mamba2-130m) the prefill runs the TrIM conv1d kernel once per layer;
-decode never does.  On the dense family (granite-3-2b) every layer's
-attention core runs the flash-attention kernel, once per prefill and once
-per decode step; the KV cache is written in place.
+the device stamp and the workload (arch, step, shape), so no kernel build
+lands inside a timer.  On the card the decode step is the JAX package's
+compiled decode executable's counterpart: captured once per (arch,
+decode batch) as a CUDA graph (:class:`DecodeGraph`, ``engine/graphs.py``)
+on static token, position and cache buffers, and replayed every step;
+the position is a device tensor, as the JAX loop's traced
+``jnp.int32(pos0 + i)``, so nothing is recaptured as it moves.  The
+prefill stays an eager callable under ``torch.inference_mode`` warmed by
+one call: it is device-bound (idle share 0.020-0.031, ``PERF.md`` §5),
+and capturing it would hold the plain SSD's fp32 intermediates in the
+graph pool.  On the CPU both steps are those eager callables.  On the ssm
+family (mamba2-130m) the prefill runs the TrIM conv1d kernel once per
+layer; decode never does.  On the dense family (granite-3-2b) every
+layer's attention core runs the flash-attention kernel, once per prefill
+and once per decode step.  The caches are written in place.
 
 Prefill latency and decode tokens/s are reported separately.  The flags
 are the JAX launcher's plus ``--device`` (default ``cuda``: without a
@@ -32,7 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.distributed.steps import make_decode_step, make_prefill_step
+from repro_torch.engine import graphs
 from repro_torch.engine.policy import fp32_ieee, resolve_device
 from repro_torch.launch.cli import serve_config_from_args, serving_parent
 from repro_torch.nn.models import build_model
@@ -54,10 +64,69 @@ def _warmed(step: Callable, *args) -> Callable:
     return fn
 
 
+class DecodeGraph:
+    """The decode step captured once on the card: ``decode(params, token,
+    cache, pos) -> (logits, cache)`` writes ``token`` and ``pos`` (an int
+    or a 0-d device tensor) into its static buffers on the device and
+    replays.  ``params`` are the ones it was captured on.  The step writes
+    the cache it was captured on in place and returns it; a cache of the
+    same shapes from a new prefill is copied into it first, once, since
+    the steps after pass the returned cache back.  The logits are a static
+    tensor the next replay overwrites.  The warm call runs on a copy of
+    the cache, since the step advances the state it is given."""
+
+    def __init__(self, step: Callable, params, token: torch.Tensor, cache,
+                 pos, pool, label: str):
+        self.params, self.cache = params, cache
+        self.token = token.clone()
+        self.pos = torch.zeros((), dtype=torch.long, device=token.device)
+        self.pos.copy_(torch.as_tensor(pos))
+        fn = torch.inference_mode()(
+            lambda: step(params, self.token, cache, self.pos)[0])
+        warm = torch.inference_mode()(lambda: step(
+            params, self.token, tree_map(torch.clone, cache), self.pos))
+        self.graph = graphs.capture(fn, pool, label=label, warm=warm)
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        """The kernel launches of one replay, by kernel name."""
+        return self.graph.launches
+
+    @property
+    def warm_launches(self) -> Dict[str, int]:
+        return self.graph.warm_launches
+
+    @torch.inference_mode()
+    def _adopt(self, cache) -> None:
+        """Copy a new generation's cache into the static one."""
+        mine, theirs = tree_leaves(self.cache), tree_leaves(cache)
+        if [(t.shape, t.dtype) for t in mine] != \
+                [(t.shape, t.dtype) for t in theirs]:
+            raise ValueError("a decode graph replays on caches of the shapes "
+                             "and dtypes it was captured on")
+        for a, b in zip(mine, theirs):
+            a.copy_(b)
+
+    def __call__(self, params, token: torch.Tensor, cache, pos):
+        if params is not self.params:
+            raise ValueError("a decode graph replays on the params it was "
+                             "captured on")
+        if cache is not self.cache:
+            self._adopt(cache)
+        if token is not self.token:
+            self.token.copy_(token)
+        if pos is not self.pos:
+            if isinstance(pos, torch.Tensor):
+                self.pos.copy_(pos)
+            else:
+                self.pos.fill_(int(pos))
+        return self.graph.replay(), self.cache
+
+
 def prefill_executable(eng: ServeEngine, model, params, batch: Dict,
                        cache) -> Callable:
     """The prefill step for ``batch``'s shape, built and warmed once per
-    engine."""
+    engine (eager on both devices)."""
     B, S = batch["tokens"].shape
     key = eng.executable_key(model.cfg.name, "prefill", f"b{B} p{S}")
     return eng.executable(key, lambda: _warmed(
@@ -65,12 +134,24 @@ def prefill_executable(eng: ServeEngine, model, params, batch: Dict,
 
 
 def decode_executable(eng: ServeEngine, model, params, token: torch.Tensor,
-                      cache, pos: int) -> Callable:
-    """The one-token decode step for ``token``'s batch, built and warmed
-    once per engine."""
+                      cache, pos) -> Callable:
+    """The one-token decode step for ``token``'s batch, built once per
+    engine: on the card a :class:`DecodeGraph` captured on ``cache`` (a
+    later generation's cache of the same shapes is copied into it), on the
+    CPU the eager step warmed on a copy of ``cache``."""
     key = eng.executable_key(model.cfg.name, "decode", f"b{token.shape[0]}")
-    return eng.executable(key, lambda: _warmed(
-        make_decode_step(model), params, token, cache, pos))
+    step = make_decode_step(model)
+
+    def build():
+        if eng.device.type != "cuda":
+            return _warmed(step, params, token,
+                           tree_map(torch.clone, cache), pos)
+        g = DecodeGraph(step, params, token, cache, pos, eng.graph_pool(),
+                        key)
+        eng.record_capture(key, g)
+        return g
+
+    return eng.executable(key, build)
 
 
 def run_prefill(prefill: Callable, params, batch: Dict, cache,
@@ -88,16 +169,20 @@ def run_decode(decode: Callable, params, token: torch.Tensor, cache,
                ) -> Tuple[List[torch.Tensor], object, float, bool]:
     """Greedy decode of ``steps`` tokens after ``token`` (written at
     ``pos0``): (the tokens, the cache, seconds, whether every logit was
-    finite)."""
+    finite).  The position lives on the device and the argmax token stays
+    there: each step writes both into the step's buffers and runs it (on
+    the card, a replay), with no sync until the end."""
     tokens = []
     finite = torch.ones((), dtype=torch.bool, device=device)
+    pos = torch.full((), pos0, dtype=torch.long, device=device)
     _sync(device)
     t0 = time.perf_counter()
-    for i in range(steps):
-        logits, cache = decode(params, token, cache, pos0 + i)
+    for _ in range(steps):
+        logits, cache = decode(params, token, cache, pos)
         finite &= torch.isfinite(logits).all()
         token = logits.argmax(-1)
         tokens.append(token)
+        pos += 1
     _sync(device)
     return tokens, cache, time.perf_counter() - t0, bool(finite)
 

@@ -19,7 +19,10 @@ deterministic) or through producer threads feeding the flush worker.
 ``--device`` defaults to ``cuda``; without a card, pass ``--device cpu``
 to run the plain PyTorch path.  ``--check`` exits non-zero unless request
 conservation holds (served + shed + expired + failed == submitted),
-every executable was built once and, inline, every bucket flushed; on
+every executable was built once and, inline, every bucket flushed (on
+the card each executable is a CUDA graph captured once per key, and again
+after each restore of the int5 wire; the captures per key are printed and
+written as ``captures``); on
 failure it dumps the admission ledger (every request's terminal state and
 what the fault plane fired) as JSON to stderr.  ``--substrate`` and
 ``--emulate-hw`` select the execution policy
@@ -204,6 +207,7 @@ def main() -> None:
         "producers": args.producers,
         "plan": list(server.engine.plan.describe(serve_config.buckets)),
         "executables": dict(server.engine.compile_counts),
+        "captures": dict(server.engine.capture_counts),
         "kernel_launches": launches,
     }
     injector = server.engine.injector
@@ -227,6 +231,11 @@ def main() -> None:
     for b, rec in snap["per_bucket"].items():
         print(f"[serve_cnn]   bucket {b:>3}: {rec['flushes']} flushes, "
               f"p99 {rec['p99_ms']:.2f} ms")
+    eng = server.engine
+    for key, n in eng.compile_counts.items():
+        print(f"[serve_cnn]   {key}: built {n}, captured "
+              f"{eng.capture_counts.get(key, 0)} (CUDA graphs: the card "
+              "only; again after each wire restore)")
     print(f"[serve_cnn] wrote {args.out} ({len(json.dumps(payload))} bytes)")
 
     if args.check:

@@ -133,10 +133,13 @@ def attention(params: Params, x: torch.Tensor, lay: AttnLayout, *,
     mode: "train" (no cache), "prefill" (writes the cache's rows [0, S) in
     place), "decode" (S == 1: writes row ``cache_pos`` in place, then
     attends over the whole cache under ``kv_length``, by default
-    ``cache_pos + 1`` for every row).  ``rope``, where given, is
-    ``rope_angles(positions, head_dim, rope_theta)`` computed by the caller
-    once for every layer.  ``policy`` picks the flash kernel or its plain
-    version.  Returns (out (B, S, d_model), the cache or None).
+    ``cache_pos + 1`` for every row; ``cache_pos`` a 0-d integer tensor
+    on the device, or an int made one, places the write with
+    ``index_copy_`` and the default ``kv_length`` on the device).
+    ``rope``, where given, is ``rope_angles(positions, head_dim,
+    rope_theta)`` computed by the caller once for every layer.  ``policy``
+    picks the flash kernel or its plain version.  Returns (out (B, S,
+    d_model), the cache or None).
     """
     if cross_kv is not None:
         raise NotImplementedError("cross-attention (cross_kv, the encdec "
@@ -161,13 +164,16 @@ def attention(params: Params, x: torch.Tensor, lay: AttnLayout, *,
     if mode == "decode":
         if cache is None or cache_pos is None:
             raise ValueError("decode needs a cache and cache_pos")
-        pos = int(cache_pos)
-        cache.k[:, pos:pos + S] = k.to(cache.k.dtype)
-        cache.v[:, pos:pos + S] = v.to(cache.v.dtype)
+        # the write lands where the position tensor says, on the device:
+        # a captured step replays it at each new position
+        pos = torch.as_tensor(cache_pos, device=x.device).to(torch.long)
+        rows = pos + torch.arange(S, device=x.device)
+        cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, rows, v.to(cache.v.dtype))
         new_cache = cache
-        length = (kv_length if kv_length is not None
-                  else torch.full((B,), pos + 1, dtype=torch.int32,
-                                  device=x.device))
+        length = kv_length
+        if length is None:
+            length = (pos + 1).to(torch.int32).expand(B)
         o = flash_attention(_layout_q(q, lay), cache.k, cache.v,
                             causal=False, kv_length=length, chunk_k=chunk_k,
                             policy=policy)

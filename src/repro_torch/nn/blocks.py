@@ -7,7 +7,8 @@ is period 1, (mamba, none).  As in the JAX package, each slot's params and
 caches are stacked over periods on a leading axis, so the JAX trees carry
 across as they are; where JAX runs the stack with ``lax.scan``, the port
 loops over periods in Python.  KV caches are written in place (see
-``nn/attention.py``); Mamba caches are stacked anew.  MoE slots and
+``nn/attention.py``), and so are Mamba caches in decode; the prefill's
+Mamba caches are stacked anew.  MoE slots and
 cross-attention are not ported yet (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
@@ -179,7 +180,9 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
     mode: "train" (no cache), "prefill", "decode".  ``positions`` (B, S)
     default to ``arange(S)`` in every row; their RoPE angles are computed
     once for all layers.  The KV caches of the cache
-    given are written in place and returned as they are; the Mamba caches
+    given are written in place and returned as they are; in decode so are
+    the Mamba caches, and the cache given is returned itself (a captured
+    decode step replays on the same buffers); the prefill's Mamba caches
     are stacked anew, leaving the given ones untouched.
     """
     if positions is None:
@@ -201,6 +204,8 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
         new_caches.append(nc)
     if cache is None:
         return x, None
+    if mode == "decode":  # every cache was written in place
+        return x, cache
     return x, {slot: {key: (val if key == "kv" else tree_map(
         lambda *cs: torch.stack(cs), *[nc[slot][key] for nc in new_caches]))
         for key, val in c.items()} for slot, c in cache.items()}

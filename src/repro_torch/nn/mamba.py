@@ -228,7 +228,9 @@ def mamba_mixer(params: Params, u: torch.Tensor, dims: MambaDims, *,
     under ``policy`` (on ``xBC``, a strided column view of in_proj's
     output), then the chunked SSD; prefill also returns the terminal
     cache.  mode "decode": L == 1, the conv as an fp32 sum over the cached
-    window (no kernel, as in the JAX package) and one recurrent step.
+    window (no kernel, as in the JAX package) and one recurrent step; the
+    new window and state are written into ``cache``'s tensors in place
+    (the JAX step returns new ones) and ``cache`` itself is returned.
     """
     Bb, L, _ = u.shape
     d_in, gs = dims.d_inner, dims.n_groups * dims.d_state
@@ -248,7 +250,6 @@ def mamba_mixer(params: Params, u: torch.Tensor, dims: MambaDims, *,
         # round to the compute dtype BEFORE the activation, as the
         # train path does (trim_conv1d returns x.dtype, then silu)
         xBC_c = F.silu(conv_out.to(xBC.dtype))[:, None]
-        new_conv = window[:, 1:]
         x = xBC_c[..., :d_in].reshape(Bb, dims.n_heads, dims.headdim)
         Bm = xBC_c[..., d_in:d_in + gs].reshape(Bb, dims.n_groups,
                                                 dims.d_state)
@@ -257,7 +258,11 @@ def mamba_mixer(params: Params, u: torch.Tensor, dims: MambaDims, *,
             cache.ssm, x.float(), dt[:, 0], A, Bm.float(), Cm.float(),
             params["D"])
         y = y.reshape(Bb, 1, d_in).to(u.dtype)
-        new_cache = MambaCache(new_conv, h_new)
+        # into the cache's own tensors: a captured step replays on the
+        # same buffers every step
+        cache.conv.copy_(window[:, 1:])
+        cache.ssm.copy_(h_new)
+        new_cache = cache
     elif mode in ("train", "prefill"):
         xBC_c = F.silu(trim_conv1d(xBC, params["conv1d"]["w"].to(xBC.dtype),
                                    policy=policy))

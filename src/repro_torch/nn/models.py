@@ -4,7 +4,8 @@ serves them).
 
 Functional, as in the JAX package: a model object holds only static
 structure (the config, the derived StackSpec); params and caches are
-explicit trees (the KV caches are written in place, ``nn/attention.py``).
+explicit trees (the KV caches are written in place, ``nn/attention.py``,
+and in decode the Mamba caches too, ``nn/mamba.py``).
 The loss, ``EncDecLM`` and the other families are ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
@@ -145,16 +146,19 @@ class CausalLM:
     def decode_step(self, params: Params, token: torch.Tensor, cache: Params,
                     pos, kv_length: Optional[torch.Tensor] = None,
                     ) -> Tuple[torch.Tensor, Params]:
-        """token (B,) int; ``pos`` (an int: the position being written,
-        the rope position of every row); ``kv_length`` (B,) the keys each
-        row attends to (default ``pos + 1``).  Returns (logits (B, vocab),
-        the cache)."""
+        """token (B,) int; ``pos`` the position being written, the rope
+        position of every row: a 0-d integer tensor on the device (as the
+        JAX step takes a traced ``jnp.int32``), from which the positions
+        and the default ``kv_length`` are computed on the device, so a
+        captured step replays at whatever position the tensor holds; an int
+        is made such a tensor first.  ``kv_length`` (B,) the keys each row
+        attends to (default ``pos + 1``).  Returns (logits (B, vocab), the
+        cache, written in place)."""
         x = self._embed(params, token[:, None])
-        positions = torch.full(x.shape[:2], int(pos), dtype=torch.long,
-                               device=x.device)
+        pos = torch.as_tensor(pos, device=x.device).to(torch.long)
+        positions = pos.expand(x.shape[:2])
         if kv_length is None and self.cfg.n_q:
-            kv_length = torch.full(x.shape[:1], int(pos) + 1,
-                                   dtype=torch.int32, device=x.device)
+            kv_length = (pos + 1).to(torch.int32).expand(x.shape[:1])
         x, cache = run_stack(params["stack"], x, self.spec, mode="decode",
                              cache=cache, positions=positions, cache_pos=pos,
                              kv_length=kv_length)

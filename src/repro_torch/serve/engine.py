@@ -2,16 +2,25 @@
 
 Port of ``repro/serve/engine.py:39-373``.  :class:`ServeEngine` owns an
 executable cache keyed by ``{backend}-{device_kind}`` plus the workload
-coordinates (arch, lane, bucket).  For CNN serving it holds one callable
+coordinates (arch, lane, bucket).  For CNN serving it holds one executable
 per (ModelPlan, batch bucket) from ``ModelPlan.executable_for``; building
-it loads the kernel library, and the engine makes one warm call on zero
-images with the real params, so the first request pays for no build.
-``compile_counts`` is the compile-once ledger.
+it loads the kernel library, and the warm call (:meth:`ServeEngine._warm`)
+makes it ready with the real params, so the first request pays for no
+build.  On the CPU the warm call runs it once on zero images, and every
+request runs it eagerly.  On the card the warm call captures it as CUDA
+graphs (``Executable.capture``: two instances, on the engine's one
+``graphs.GraphPool``), and every request replays one.  ``compile_counts``
+is the compile-once ledger (1 per key); ``capture_counts`` counts the
+captures per key: the first, and one more each time the int5 lane's
+params are re-read from the wire (a graph holds its params' addresses).
 
 Staging (:meth:`ServeEngine.stage`) copies each padded batch through
-pinned host memory with ``non_blocking=True``, so the Server's flush
-worker overlaps batch k+1's copy with batch k's kernels.  Outputs stay on
-the device until the Server's hand-off (``out.cpu()``).
+pinned host memory with ``non_blocking=True``: on the card into the next
+instance's static images, on the pool's copy stream, so the Server's
+flush worker overlaps batch k+1's copy with batch k's kernels.  Outputs
+stay on the device until the Server's hand-off (``out.cpu()``); on the
+card each is a copy of its replay's static output, so no later replay
+overwrites a batch the Server has not read yet.
 
 The resilience plane (``serve/faults.py``) is inert until the Server arms
 it: ``build_for_plan(fallbacks=, wire=)`` registers the degradation
@@ -66,6 +75,13 @@ class ServeEngine:
         self.degradations: List[dict] = []
         self._wire_params = None
         self._wire_version = -1
+        #: key -> captures of its CUDA graphs (the card only): 1, plus one
+        #: per re-read of the wire's params.
+        self.capture_counts: Dict[str, int] = {}
+        #: kernel launches of the warm calls the captures made.
+        self.capture_launches = 0
+        self._pool = None
+        self._graphs: Dict[str, Any] = {}  # key -> BucketGraphs
 
     # -- the executable cache -------------------------------------------
 
@@ -86,6 +102,21 @@ class ServeEngine:
             self._execs[key] = build()
             self.compile_counts[key] = self.compile_counts.get(key, 0) + 1
         return self._execs[key]
+
+    def graph_pool(self):
+        """The engine's ``graphs.GraphPool`` (made on first use); raises
+        on a CPU engine."""
+        if self._pool is None:
+            from repro_torch.engine.graphs import GraphPool
+
+            self._pool = GraphPool(self.device)
+        return self._pool
+
+    def record_capture(self, key: str, graph) -> None:
+        """Count one capture of ``key`` and its warm call's launches
+        (``graph``: a ``graphs.CapturedGraph`` or ``BucketGraphs``)."""
+        self.capture_counts[key] = self.capture_counts.get(key, 0) + 1
+        self.capture_launches += sum(graph.warm_launches.values())
 
     # -- CNN bucket serving ---------------------------------------------
 
@@ -162,7 +193,8 @@ class ServeEngine:
     def lane_of(self, bucket: int) -> Lane:
         return self.lanes[self.active_lane(bucket)]
 
-    def _lane_exec(self, lane: Lane, bucket: int):
+    def _lane_key(self, lane: Lane, bucket: int):
+        """(the lane's plan, the executable's cache key)."""
         plan = self._plan
         if lane.substrate is not None:
             from repro_torch.engine import plan_model
@@ -171,7 +203,11 @@ class ServeEngine:
                               plan.policy.with_overrides(
                                   substrate=lane.substrate),
                               c_in=plan.layers[0].c_in)
-        key = self.executable_key(plan.cfg.name, lane.name, f"n{bucket}")
+        return plan, self.executable_key(plan.cfg.name, lane.name,
+                                         f"n{bucket}")
+
+    def _lane_exec(self, lane: Lane, bucket: int):
+        plan, key = self._lane_key(lane, bucket)
 
         def build():
             # bounded retry absorbs transiently rejected builds (the
@@ -182,24 +218,52 @@ class ServeEngine:
                                             self.device),
                 self.retry, sleep=self._retry_sleep, salt=key,
                 on_retry=self._count_retry)
-            self._warm(ex, lane, bucket)
+            self._warm(ex, lane, bucket, key)
             return ex
 
         return self.executable(key, build)
 
-    def _warm(self, ex, lane: Lane, bucket: int) -> None:
-        """One call on zero images with the lane's runtime params, so the
+    def _warm(self, ex, lane: Lane, bucket: int, key: str) -> None:
+        """Make the executable ready with the lane's runtime params, so the
         first request meets a built library, allocator pools already
-        sized and, on the integer lanes, the weights' transposition done."""
+        sized and, on the integer lanes, the weights' transposition done.
+        On the card this is the capture (:meth:`_capture`); on the CPU one
+        call on zero images."""
         idx = next(i for i, x in enumerate(self.lanes) if x is lane)
         params = self._lane_params(idx, lane)
+        if self.device.type == "cuda":
+            self._capture(ex, lane, params, key)
+            return
         zeros = torch.zeros(ex.shape, dtype=ex.dtype, device=self.device)
         if lane.datapath == "float":
             ex(params, zeros)
         else:
             ex(params, zeros, lane.requant)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+
+    def _capture(self, ex, lane: Lane, params, key: str):
+        """Capture ``ex`` for ``params`` on the engine's pool, replacing
+        any earlier graphs of ``key`` (the capture synchronises the device
+        first, so their replays have ended; an output of theirs still
+        held stays valid)."""
+        g = ex.capture(params, lane.requant, pool=self.graph_pool())
+        self._graphs[key] = g
+        self.record_capture(key, g)
+        return g
+
+    def bucket_graphs(self, bucket: int, lane_idx: Optional[int] = None):
+        """The card's captured graphs of ``bucket`` on a lane (by default
+        its active one) for the lane's current params: captured again when
+        the int5 lane's wire version has moved (the re-read gives new
+        tensors, and a graph holds its params' addresses)."""
+        lane_idx = self.active_lane(bucket) if lane_idx is None else lane_idx
+        lane = self.lanes[lane_idx]
+        ex = self._lane_exec(lane, bucket)
+        params = self._lane_params(lane_idx, lane)
+        key = self._lane_key(lane, bucket)[1]
+        g = self._graphs[key]
+        if g.params is not params:
+            g = self._capture(ex, lane, params, key)
+        return g
 
     def _count_retry(self, attempt: int, err: Exception) -> None:
         if self.on_retry is not None:
@@ -298,25 +362,48 @@ class ServeEngine:
         raise ValueError(
             f"batch {n} exceeds the largest bucket {self.buckets[-1]}")
 
+    def _staging_graphs(self, bucket: int):
+        """The captured graphs a batch of ``bucket`` will replay, or None
+        where they are not captured yet or the wire's version has moved
+        (``run_bucket`` captures them again, and copies the batch in)."""
+        if bucket not in self.buckets:
+            return None
+        lane_idx = self.active_lane(bucket)
+        key = self._lane_key(self.lanes[lane_idx], bucket)[1]
+        if lane_idx == 0 and self.wire is not None \
+                and self._wire_version != self.wire.version:
+            return None
+        return self._graphs.get(key)
+
     def stage(self, images: np.ndarray) -> torch.Tensor:
         """Host->device staging for one padded batch: a pinned host copy,
-        then an asynchronous copy on the current stream, so a caller that
+        then an asynchronous copy (on the card into the next instance of
+        the bucket's graphs, on the pool's copy stream), so a caller that
         stages batch k+1 while batch k's kernels run overlaps the two."""
         if self.injector is not None:
             self.injector.fire_stage()
         host = torch.from_numpy(np.ascontiguousarray(images))
         if self.device.type != "cuda":
             return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+        host = host.pin_memory()
+        g = self._staging_graphs(int(host.shape[0]))
+        if g is None:
+            return host.to(self.device, non_blocking=True)
+        return g.stage(host)
 
     def run_bucket(self, bucket: int, images) -> torch.Tensor:
         """Run one already-padded (bucket, H, W, C) batch (a host array or
         a ``stage``-d tensor) on the bucket's active lane; returns the
-        device output without waiting for it."""
+        device output without waiting for it (on the card a replay's)."""
         lane_idx = self.active_lane(bucket)
         lane = self.lanes[lane_idx]
         if self.injector is not None:
             self.injector.fire_exec(lane_idx)
+        if self.device.type == "cuda":
+            g = self.bucket_graphs(bucket, lane_idx)
+            if isinstance(images, np.ndarray):
+                images = self.stage(images)
+            return g(images)
         ex = self._lane_exec(lane, bucket)
         params = self._lane_params(lane_idx, lane)
         if isinstance(images, np.ndarray):

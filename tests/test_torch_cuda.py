@@ -1503,3 +1503,298 @@ def test_packed_wire_restore_on_card():
         assert g["kernel"].is_cuda and not g["kernel"].is_inference()
         assert torch.equal(g["kernel"], q["kernel"])
         assert torch.equal(g["shift"], q["shift"])
+
+
+# -- compile-once executables: CUDA graphs ------------------------------------
+# Every CNN lane x bucket at smoke size and 8 decode steps of both smoke
+# LMs: a replay equals the eager call bit for bit, one capture per key, the
+# launches of one replay counted into the wrappers' counters; two batches
+# of one bucket in flight each get their own answer; an int5 wire restore
+# captures again; a step that synchronises fails to capture.
+
+GRAPH_LANES = [("float", None), ("int8", None), ("int5", None),
+               ("int8", "f32exact")]
+
+
+def _graph_engine(datapath, substrate, buckets=(1, 4), faults=None):
+    from repro_torch.configs import CNN_SMOKES
+    from repro_torch.launch import serve_cnn
+    from repro_torch.serve import FaultPlan, ServeConfig
+
+    fp32_ieee()
+    policy = ExecutionPolicy(substrate=substrate or "kernel")
+    conf = ServeConfig(buckets=buckets, datapath=datapath,
+                       faults=FaultPlan.parse(faults) if faults else None)
+    srv = serve_cnn.build_server(CNN_SMOKES["vgg16"], policy, conf,
+                                 device="cuda")
+    srv.close()
+    return srv.engine
+
+
+def _graph_images(eng, bucket, seed):
+    ex = eng.plan.executable_for(bucket, eng.lanes[0].datapath, "cuda")
+    rng = np.random.default_rng(seed)
+    if ex.dtype == torch.float32:
+        return rng.standard_normal(ex.shape).astype(np.float32)
+    return rng.integers(0, 256, ex.shape).astype(np.uint8)
+
+
+def _eager(eng, bucket, images, lane_idx=0):
+    lane = eng.lanes[lane_idx]
+    ex = eng.bucket_graphs(bucket, lane_idx).ex
+    x = torch.from_numpy(images).cuda()
+    return ex.forward(eng._lane_params(lane_idx, lane), x, lane.requant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("datapath,substrate", GRAPH_LANES,
+                         ids=[f"{d}-{s or 'kernel'}" for d, s in GRAPH_LANES])
+def test_bucket_replay_equals_eager_on_card(datapath, substrate):
+    """Each lane x bucket of the smoke VGG-16: the replayed graph's output
+    equals the eager executable's bit for bit, every key is captured once,
+    and one replay counts the launches its capture recorded (one conv
+    kernel call a layer, a chunk's on f32exact)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    eng = _graph_engine(datapath, substrate)
+    assert set(eng.compile_counts.values()) == {1}
+    assert eng.capture_counts == eng.compile_counts
+    for b in eng.buckets:
+        g = eng.bucket_graphs(b)
+        per = g.launches.get("trim_conv2d", 0)
+        before = kern.LAUNCHES
+        _eager(eng, b, _graph_images(eng, b, 9))  # one a layer or chunk
+        assert per == kern.LAUNCHES - before >= len(eng.plan.layers)
+        for seed in range(3):
+            images = _graph_images(eng, b, seed)
+            before = kern.LAUNCHES
+            got = eng.run_bucket(b, images)
+            assert kern.LAUNCHES - before == per
+            want = _eager(eng, b, images)
+            assert got.dtype == want.dtype and torch.equal(got, want), (
+                b, seed)
+    assert eng.capture_counts == eng.compile_counts
+
+
+@pytest.mark.gpu
+def test_two_in_flight_batches_of_a_bucket_on_card():
+    """Two batches of one bucket staged and launched before either is
+    read (the server's dispatch of batch k+1 while k is in flight) land on
+    the two instances and each gets its own answer, which no later replay
+    overwrites: not a third batch on the first instance, nor a retry
+    staged after a dispatch that failed once its batch was staged (the
+    recovery driver's order), which lands on an unread batch's instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    eng = _graph_engine("int8", None, buckets=(4,))
+    imgs = [_graph_images(eng, 4, s) for s in range(5)]
+    staged = [eng.stage(x) for x in imgs[:2]]
+    assert staged[0] is not staged[1]
+    outs = [eng.run_bucket(4, x) for x in staged]
+    assert outs[0].data_ptr() != outs[1].data_ptr()
+    outs.append(eng.run_bucket(4, eng.stage(imgs[2])))  # instance 0 again
+    eng.stage(imgs[3])  # staged on instance 1, its run never comes
+    outs.append(eng.run_bucket(4, eng.stage(imgs[3])))  # instance 0 again
+    outs.append(eng.run_bucket(4, imgs[4]))  # a host batch: instance 1
+    for x, out in zip(imgs, outs):
+        assert torch.equal(out, _eager(eng, 4, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("datapath,spec", [("int8", "seed=1,exec=1"),
+                                           ("float", "seed=1,nonfinite=2")])
+def test_threaded_retry_on_one_bucket_on_card(datapath, spec):
+    """A threaded Server on one bucket of the smoke VGG-16 at the default
+    breaker threshold (3): a failed dispatch or a NaN batch is retried on
+    the same lane, so the retry replays the bucket's graphs while another
+    batch of it may be in flight.  Every served result equals a fault-free
+    engine's answer bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.configs import CNN_SMOKES
+    from repro_torch.data.pipeline import SyntheticRequestStream
+    from repro_torch.launch import serve_cnn
+    from repro_torch.serve import FaultPlan, ServeConfig, ServeEngine
+
+    fp32_ieee()
+    cfg = CNN_SMOKES["vgg16"]
+    conf = ServeConfig(buckets=(4,), datapath=datapath, max_delay_ms=2.0,
+                       faults=FaultPlan.parse(spec))
+    srv = serve_cnn.build_server(cfg, ExecutionPolicy(), conf, device="cuda")
+    stream = SyntheticRequestStream(
+        hw=cfg.input_hw, channels=cfg.layers[0].M, n_classes=cfg.n_classes,
+        n_requests=32, seed=0, process="bursts", burst_sizes=(4,),
+        gap_s=0.0, dtype="float32" if datapath == "float" else "uint8")
+    metrics = srv.run_stream(stream, producers=2)
+    srv.close()
+    tot = metrics.snapshot()["totals"]
+    eng = srv.engine
+    assert tot["images"] == 32 and tot.get("failed", 0) == 0
+    assert tot["retried"] >= 1 and tot.get("degraded", 0) == 0
+    assert eng.active_lane(4) == 0
+    assert set(eng.capture_counts.values()) == {1}
+    lane = eng.lanes[0]
+    ref = ServeEngine.build_for_plan(
+        eng.plan, eng._lane_params(0, lane), buckets=(1,),
+        datapath=datapath, requant=lane.requant, device="cuda")
+    for r in metrics.requests:
+        assert r.status == "served"
+        assert np.array_equal(r.result, ref.infer(r.payload[None])[0]), r.rid
+
+
+@pytest.mark.gpu
+def test_int5_wire_restore_captures_again_on_card():
+    """A bit flipped in the int5 wire and restored: the re-read params are
+    new tensors, so the bucket is captured again (counted apart from the
+    compile-once ledger, which stays at 1), and its output equals the
+    fault-free answer bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    eng = _graph_engine("int5", None, buckets=(1,), faults="seed=0")
+    images = _graph_images(eng, 1, 7)
+    want = eng.run_bucket(1, images).clone()
+    key = next(iter(eng.compile_counts))
+    assert eng.capture_counts[key] == 1
+    eng.wire.flip_bit(0, 5)
+    got = eng.run_bucket(1, images)
+    assert eng.wire.restored == 1 and eng.wire.verify() == []
+    assert eng.capture_counts[key] == 2 and eng.compile_counts[key] == 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, _eager(eng, 1, images))
+    eng.run_bucket(1, images)
+    assert eng.capture_counts[key] == 2
+
+
+@pytest.mark.gpu
+def test_a_step_that_syncs_fails_to_capture_on_card():
+    """``.item()`` inside a step cannot be recorded: the capture raises
+    ``CaptureError`` naming the line, and returns no result; an executable
+    called eagerly on the card raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.configs import CNN_SMOKES
+    from repro_torch.engine import graphs, plan_model
+
+    pool = graphs.GraphPool("cuda")
+    x = torch.ones(8, device="cuda")
+    ran = []
+
+    def step():
+        y = x * 2
+        ran.append(1)
+        return y * float(y.sum().item())
+
+    with pytest.raises(graphs.CaptureError, match=r"\.item\(\)"):
+        graphs.capture(step, pool, label="a syncing step")
+    assert pool.captures == 0 and len(ran) == 2  # the warm call + capture
+    with pytest.raises(graphs.CaptureError, match="earlier capture"):
+        graphs.capture(lambda: x * 3, pool, label="a plain step")
+    plan = plan_model(CNN_SMOKES["vgg16"], ExecutionPolicy())
+    ex = plan.executable_for(1, "float", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        ex(plan.init(0, "cuda"), torch.zeros(ex.shape, device="cuda"))
+    fresh = graphs.GraphPool("cuda")
+    g = graphs.capture(lambda: x * 3, fresh, label="a plain step")
+    assert torch.equal(g.replay(), x * 3) and fresh.captures == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b"])
+def test_decode_replay_equals_eager_on_card(arch):
+    """8 greedy decode steps of the smoke LM through the launcher's
+    decode graph equal 8 eager steps from a copy of the same cache, logits
+    bit for bit; one capture; the flash kernel counted once per layer per
+    replay on the dense family, never on the ssm family."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import decode_executable
+    from repro_torch.nn.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    fp32_ieee()
+    cfg = get_smoke(arch)
+    if cfg.n_q:  # the flash kernel takes head dims 64 and 128
+        cfg = cfg.with_overrides(head_dim=64)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    B, S = 2, 9
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (B, S)), device="cuda")
+    with torch.inference_mode():
+        logits, cache = model.prefill(
+            params, toks, model.init_cache(B, S + 9, torch.float32, "cuda"))
+    eager_cache = tree_map(torch.clone, cache)
+    eng = ServeEngine(name="lm", buckets=(B,), device="cuda")
+    tok = logits.argmax(-1)
+    decode = decode_executable(eng, model, params, tok, cache, S)
+    assert list(eng.capture_counts.values()) == [1]
+    assert decode.launches.get("flash_attention", 0) == (
+        model.cfg.n_layers if model.cfg.n_q else 0)
+    etok = tok
+    pos = torch.tensor(S, device="cuda")
+    for i in range(8):
+        got, _ = decode(params, tok, cache, pos)
+        with torch.inference_mode():
+            want, eager_cache = model.decode_step(params, etok, eager_cache,
+                                                  S + i)
+        assert torch.equal(got, want), i
+        tok, etok = got.argmax(-1), want.argmax(-1)
+        pos += 1
+    assert list(eng.capture_counts.values()) == [1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b"])
+def test_two_generations_on_one_decode_graph_on_card(arch):
+    """The launcher's decode executable is built once per (arch, batch):
+    a second generation, from a new prompt's prefill into a new cache,
+    replays the same graph (its cache copied into the captured one) and
+    equals the same generation run alone on a fresh engine: its tokens,
+    and its cache bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.serve import (decode_executable,
+                                          prefill_executable, run_decode,
+                                          run_prefill)
+    from repro_torch.nn.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    fp32_ieee()
+    cfg = get_smoke(arch)
+    if cfg.n_q:  # the flash kernel takes head dims 64 and 128
+        cfg = cfg.with_overrides(head_dim=64)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, S, gen = 2, 9, 6
+    rng = np.random.default_rng(0)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                               device=dev) for _ in range(2)]
+
+    def generate(eng, prompt):
+        cache = model.init_cache(B, S + gen, torch.float32, dev)
+        batch = {"tokens": prompt}
+        prefill = prefill_executable(eng, model, params, batch, cache)
+        logits, cache, _ = run_prefill(prefill, params, batch, cache, dev)
+        tok = logits.argmax(-1)
+        decode = decode_executable(eng, model, params, tok, cache, S)
+        toks, cache, _, finite = run_decode(decode, params, tok, cache, S,
+                                            gen, dev)
+        assert finite
+        return decode, torch.stack(toks, 1), [t.clone() for t in
+                                              tree_leaves(cache)]
+
+    eng = ServeEngine(name="lm", buckets=(B,), device=dev)
+    first, _, _ = generate(eng, prompts[0])
+    again, toks, leaves = generate(eng, prompts[1])
+    assert again is first and list(eng.capture_counts.values()) == [1]
+    alone = ServeEngine(name="lm-alone", buckets=(B,), device=dev)
+    _, want_toks, want_leaves = generate(alone, prompts[1])
+    assert torch.equal(toks, want_toks)
+    assert all(torch.equal(a, b) for a, b in zip(leaves, want_leaves))
