@@ -27,13 +27,14 @@ Phases (any failure exits non-zero and prints no result line):
    card, at the 13 VGG-16 conv shapes on the float lane (bias+ReLU) at
    batch 1 and at the train phase's batch 8 (image 0 of the batch also
    bit-equal to the image alone), plus AlexNet CL1 (K=11, S=4, p=0) and
-   CL2 (K=5, groups=2); the int8 lane (ReLU+requant; ReLU into raw int32
+   CL2 (K=5, groups=2), and CL3-CL5 at batch 1; the int8 lane (ReLU+requant; ReLU into raw int32
    on each network's last conv) at every VGG-16 and AlexNet conv at
    batch 1 and 8.  Float within rtol 1e-4 / atol 1e-4 * max|plain|, int8
    bit for bit; the int5 MSR lane (the u8 x s8 kernel on the operands
    ``w5`` of random int8 weights, |w5| <= 31, with requant pairs
    calibrated on ``psum5 << e`` and the exponent folded in) at every
-   VGG-16 conv at batch 1 and 8, bit for bit.  Per shape: kernel ms,
+   VGG-16 conv at batch 1 and 8 and every AlexNet conv at batch 1, bit
+   for bit.  Per shape: kernel ms,
    plain ms, ``F.conv2d`` ms (cuDNN,
    TF32 off, float shapes only, a yardstick the port never calls) and the
    bound max(operations / peak, bytes / 3.35 TB/s), the kernel's device
@@ -115,6 +116,12 @@ Phases (any failure exits non-zero and prints no result line):
    tensor cores' peak (logged only); no PyTorch call computes the scan
    (no yardstick); in the build phase each of its four
    stages' registers and spills per lane (a spill fails);
+3g. flash at G = 12: the flash kernel in bf16 at starcoder2-3b's
+   full-width serving shapes, the prefill q (4, 4096, 2, 12, 128) causal
+   (warpgroup path) and the decode q (4, 1, 2, 12, 128) over a (4, 4128,
+   2, 128) cache with kv_length 4097 (split path), against its plain
+   version (2e-2 and 4 x 2^-7 per row) and timed beside it, SDPA and the
+   bound;
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
@@ -134,6 +141,16 @@ Phases (any failure exits non-zero and prints no result line):
    flush, features bit-equal to the oracle substrate's ``forward_int5``,
    and ``forward_int5`` on the kernels bit-equal to ``forward_int8`` on
    the decompressed weights ``w5 << e`` with the exponent on the shift;
+5g. AlexNet serve: full-width AlexNet (227x227x3, 5 convs, CL2, CL4
+   and CL5 in 2 groups, seed-0 weights) built by
+   ``serve_cnn.build_server`` on the float, int8 and int5 lanes with
+   buckets 1, 4 and 8: one capture per key; no u8 x s8 weight pre-pass
+   and no cut of a grouped layer's weights (``execute.group_parts``)
+   recorded into any capture (``graphs.capture`` refuses either), so 0
+   of either per replay; 8 kernel
+   launches a replay (one per conv group); each bucket's replay bit-equal
+   to its eager executable, timed, and held against the kernels
+   ``torch.profiler`` sees in replays (no weight pre-pass kernel);
 5c. f32exact and emulate_hw: at every VGG-16 conv and AlexNet's CL1,
    CL2, CL4 and CL5, batch 1, ``w_bits`` 8 and 5, the f32exact
    substrate bit-equal to the oracle at worst-case magnitudes (all-255
@@ -219,6 +236,30 @@ Phases (any failure exits non-zero and prints no result line):
    the flash kernels ``torch.profiler`` sees in replays), conv1d
    launches 0;
 10. dense LM checks: phase 8 for granite-3-2b, the kernels' logits
+   within 1e-4 of the largest |logit| of the plain attention's;
+11. LM train, mamba2-130m at full width in bf16 (fp32 AdamW moments),
+   batch 4 x 1024 tokens of the ``SyntheticLMDataset`` stream, 4 steps
+   of ``make_train_step`` at the launcher's lr: the conv1d kernel
+   launched exactly 24 times in each step (the forward; the backward is
+   the plain version's VJP), every loss and grad_norm finite; ms per
+   step, peak device memory, one more step's device busy time and idle
+   share under ``torch.profiler``; the kernel timed at the training
+   shape.  Checkpointed resume: the state after 2 steps (about 1.3 GB)
+   saved through ``CheckpointManager`` (bytes, host copy and write
+   seconds logged), restored by ``restore_latest`` into a seed-1 state
+   (bit-equal, timed), and steps 2-3 taken from it give the
+   uninterrupted run's losses bit for bit.  Then a first step in fp32 (TF32 off):
+   each leaf's gradient through the kernels within 1e-4 (relative norm)
+   of the oracle substrate's;
+12. LM train, granite-3-2b at full width in bf16, batch 1 x 1024, 2
+   steps: flash launched exactly 40 times in each step; ms per step,
+   peak device memory (no profiled step: cut for the run's time); flash
+   timed at the training shape;
+13. code LM serve: phase 7 for full-width starcoder2-3b (30 layers,
+   d_model 3072, 24 q / 2 kv heads of 128: G = 12, layernorm, tanh-gelu
+   MLP, vocab 49152, bf16, seed-0 weights): flash launches exactly 30 in
+   the prefill and per decode step, the replay bit-equal to eager;
+14. code LM checks: phase 8 for starcoder2-3b, the kernels' logits
    within 1e-4 of the largest |logit| of the plain attention's.
 
 ``--drift SEEDS`` runs only phases 1-2 and then, at the train phase's
@@ -243,6 +284,8 @@ import subprocess
 import sys
 import time
 
+#: when the script started: each log line carries the seconds since
+T_START = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -272,14 +315,17 @@ PEAK_TF32 = 495e12
 #: batch 4, a 4096-token prompt, 32 generated tokens; the fp32 checks at
 #: batch 2 and 512 tokens.
 LM_ARCH, DENSE_ARCH = "mamba2-130m", "granite-3-2b"
+#: the dense arch served at G = n_q / n_kv = 12 and head dim 128
+CODE_ARCH = "starcoder2-3b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
 LM_CHECK_BATCH, LM_CHECK_LEN = 2, 512
 #: max|kernel - plain| of the fp32 check's prefill logits, as a share of
 #: max|logit|: the conv1d kernel is bit-equal to its plain version (1e-6
 #: leaves room for nothing but reordered matmuls); the flash kernel sums
 #: each score and output in another order than the plain einsums, through
-#: 40 layers (1e-4, about 800 fp32 ulps of the largest logit)
-LM_KERNEL_TOL = {LM_ARCH: 1e-6, DENSE_ARCH: 1e-4}
+#: 40 (granite) or 30 (starcoder2) layers (1e-4, about 800 fp32 ulps of
+#: the largest logit)
+LM_KERNEL_TOL = {LM_ARCH: 1e-6, DENSE_ARCH: 1e-4, CODE_ARCH: 1e-4}
 #: the bf16 flash lane's row check: max|kernel - plain| over a row of D
 #: outputs within BF16_ROW_ULPS x 2^-7 x the row's max|plain| (2^-7 x is
 #: one to two bf16 ulps).  The kernel rounds P to bf16 for P.V and its
@@ -307,7 +353,9 @@ def fail(msg: str) -> None:
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """Print ``msg`` with the seconds since the script started."""
+    print(f"[chip_smoke {time.perf_counter() - T_START:7.1f} s] {msg}",
+          flush=True)
 
 
 def phase_environment(torch):
@@ -531,12 +579,18 @@ def phase_kernels(torch, reps: int):
         for arch, i, l, groups, last in _u8_cases():
             rows.append(_u8_row(torch, gen, arch, l, groups, last, N, reps))
     # the int5 lane (the u8 x s8 kernel on MSR operands, folded pairs) at
-    # every VGG-16 conv, batch 1 and 8
+    # every VGG-16 conv, batch 1 and 8, and every AlexNet conv at batch 1
     for N in (1, TRAIN_BATCH):
         for arch, i, l, groups, last in _u8_cases():
-            if arch == "vgg16":
+            if arch == "vgg16" or N == 1:
                 rows.append(_u8_row(torch, gen, arch, l, groups, last, N,
                                     reps, int5=True))
+    # the float lane at AlexNet's CL3-CL5 (CL1 and CL2 are in
+    # _conv_cases), batch 1: with them the AlexNet serve phase's replays
+    # have a row for every conv on each lane
+    for arch, i, l, groups, last in _u8_cases():
+        if arch == "alexnet" and i >= 2:
+            rows.append(_f32_row(torch, gen, arch, l, groups, 1, reps))
     # the float lane at the train phase's batch (its forward convs)
     for arch, i, l, groups in _conv_cases():
         rows.append(_f32_row(torch, gen, arch, l, groups, TRAIN_BATCH, reps))
@@ -1268,7 +1322,7 @@ def _replay_vs_eager(torch, what: str, eng, bucket: int, images,
     dev_ms = device_ms(torch, lambda: g(x), 4)
     if hold:
         prof = _profile(torch, f"{what} bucket {bucket} replay", ms,
-                        lambda: [g(x) for _ in range(4)], calls=4)
+                        lambda: [g(x) for _ in range(4)], calls=4, tries=3)
         _hold_replay_launches(f"{what} bucket {bucket}", prof, 4, g.launches)
     log(f"{what}: bucket {bucket}: replay bit-equal to the eager "
         f"executable; {g.launches.get('trim_conv2d', 0)} conv launches a "
@@ -2104,12 +2158,33 @@ def phase_f32exact(torch, reps: int, rows):
     return out, model_launches
 
 
+def _conv1d_row(torch, x, w, reps) -> dict:
+    """The conv1d kernel's times on x (B, L, D) (the path's view) and w
+    (K, D) beside its plain version's, cuDNN's (``F.conv1d``, groups = D,
+    on an input already (B, D, L)) and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.trim_conv1d import (trim_conv1d,
+                                                 trim_conv1d_plain)
+
+    (B, L, D), K = x.shape, w.shape[0]
+    x_t = x.permute(0, 2, 1).contiguous()                  # (B, D, L)
+    w_t = w.t().contiguous()[:, None, :]                   # (D, 1, K)
+    return {
+        "dtype": str(x.dtype).replace("torch.", ""), "shape": (B, L, D, K),
+        "launches": 1, "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: trim_conv1d(x, w), reps),
+        "plain_ms": cuda_ms(torch, lambda: trim_conv1d_plain(x, w), reps),
+        "library_ms": cuda_ms(torch, lambda: F.conv1d(
+            x_t, w_t, groups=D, padding=K - 1)[..., :L], reps),
+        **bound(K * B * L * D, (2 * B * L * D + K * D) * x.element_size(),
+                integer=False)}
+
+
 def phase_conv1d(torch, reps: int):
     """The conv1d kernel against its plain version on the card, bit for
     bit, at the path's shapes and edge shapes; timed at full width.
     Returns one row per dtype at full width."""
-    import torch.nn.functional as F
-
     from repro_torch.configs import get_config
     from repro_torch.kernels.trim_conv1d import (trim_conv1d,
                                                  trim_conv1d_plain)
@@ -2147,18 +2222,7 @@ def phase_conv1d(torch, reps: int):
             for k in (1, 4, 6):
                 check(rnd(2, L, D), rnd(k, D), f"{name} L={L} K={k}")
                 n += 1
-        x_t = x.permute(0, 2, 1).contiguous()                  # (B, D, L)
-        w_t = w.t().contiguous()[:, None, :]                   # (D, 1, K)
-        B, L = LM_BATCH, LM_PROMPT
-        nbytes = (2 * B * L * D + K * D) * x.element_size()
-        rows.append({
-            "dtype": name, "shape": (B, L, D, K), "launches": 1,
-            "max_abs_err": 0.0,
-            "ms": cuda_ms(torch, lambda: trim_conv1d(x, w), reps),
-            "plain_ms": cuda_ms(torch, lambda: trim_conv1d_plain(x, w), reps),
-            "library_ms": cuda_ms(torch, lambda: F.conv1d(
-                x_t, w_t, groups=D, padding=K - 1)[..., :L], reps),
-            **bound(K * B * L * D, nbytes, integer=False)})
+        rows.append(_conv1d_row(torch, x, w, reps))
     log(f"conv1d: kernel bit-equal to plain at {n} shapes x inputs")
     for r in rows:
         log(f"conv1d {r['dtype']:8s} {r['shape']} ms {r['ms']:.4f} plain_ms "
@@ -2216,6 +2280,36 @@ def _row_ulps(got, want) -> float:
     return ratio.max().item()
 
 
+def _flash_times(torch, q, k, v, kw, kvl, reps, kp=None, vp=None):
+    """The flash kernel's times on q, k, v under ``kw`` beside its plain
+    version's (on ``kp``/``vp`` where given: the keys past ``kvl`` zeroed)
+    and SDPA's (KV heads repeated), and the bound; ``kvl`` the per-row
+    kv_length tuple or None.  Returns (those readings, SDPA's operands)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, H, G, D = q.shape
+    Sk = k.shape[1]
+    causal = kw["causal"]
+    keys = Sk if kvl is None else kvl[0]
+    kt = k[:, :keys].repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v[:, :keys].repeat_interleave(G, dim=2).transpose(1, 2)
+    qt = q.reshape(B, Sq, H * G, D).transpose(1, 2)
+    pairs = _visible_pairs(Sq, Sk, causal, kw.get("q_offset", 0), kvl, B)
+    nbytes = (2 * q.numel() + 2 * B * keys * H * D) * q.element_size()
+    kp, vp = (k, v) if kp is None else (kp, vp)
+    return {
+        "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), reps),
+        "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, kp, vp, **kw), max(2, reps // 10)),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps),
+        **bound(2 * H * G * D * pairs, nbytes, integer=False,
+                peak=PEAK_BF16 if q.dtype == torch.bfloat16 else 0.0)}, \
+        (qt, kt, vt)
+
+
 def phase_flash(torch, reps: int):
     """The flash-attention kernel against its plain version on the card
     (TF32 off), fp32 within rtol = atol = 2e-5 and bf16 within 2e-2 and
@@ -2226,8 +2320,6 @@ def phase_flash(torch, reps: int):
     check.  Timed at granite-3-2b's full-width prefill and decode shapes
     (bf16: also ``_flash_readings``).  Returns one row per (shape,
     dtype)."""
-    import torch.nn.functional as F
-
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
 
@@ -2284,29 +2376,14 @@ def phase_flash(torch, reps: int):
                     fail(f"flash decode bf16: a kernel without keys "
                          f"[{DROP_TILE}, {DROP_TILE + 64}) passes the row "
                          f"check ({fault[1]:.3g} x 2^-7)")
-            keys = Sk if kvl is None else kvl[0]
-            kt = k[:, :keys].repeat_interleave(G, dim=2).transpose(1, 2)
-            vt = v[:, :keys].repeat_interleave(G, dim=2).transpose(1, 2)
-            qt = q.reshape(B, Sq, H * G, D).transpose(1, 2)
-            pairs = _visible_pairs(Sq, Sk, causal, off, kvl, B)
-            esz = q.element_size()
-            nbytes = (2 * q.numel() + 2 * B * keys * H * D) * esz
+            times, sdpa = _flash_times(torch, q, k, v, kw, kvl, reps, kp, vp)
             row = {
                 "shape": name, "dtype": str(dtype).replace("torch.", ""),
                 "q": tuple(q.shape), "kv": tuple(k.shape), "kv_length": kvl,
-                "max_abs_err": err, "row_ulps": ulps,
-                "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
-                              reps),
-                "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
-                    q, kp, vp, **kw), max(2, reps // 10)),
-                "library_ms": cuda_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal), reps),
-                **bound(2 * H * G * D * pairs, nbytes, integer=False,
-                        peak=PEAK_BF16 if dtype == torch.bfloat16 else 0.0)}
+                "max_abs_err": err, "row_ulps": ulps, **times}
             if dtype == torch.bfloat16:
-                row.update(_flash_readings(torch, fa, q, k, v, kw, qt, kt,
-                                           vt, G, reps, cold=name == "decode"))
+                row.update(_flash_readings(torch, fa, q, k, v, kw, *sdpa, G,
+                                           reps, cold=name == "decode"))
             rows.append(row)
     log(f"flash: kernel matches plain at {n} cases x dtypes (fp32 2e-5, "
         f"bf16 2e-2 and per row {BF16_ROW_ULPS} x 2^-7 of max|plain|: the "
@@ -3112,7 +3189,7 @@ def phase_lm_serve(torch, arch: str):
     prof = _profile(torch, f"lm {arch} decode step (replay)",
                     decode_s * 1e3 / steps,
                     lambda: [decode(params, tok, c, LM_PROMPT)
-                             for _ in range(4)], calls=4)
+                             for _ in range(4)], calls=4, tries=3)
     _hold_replay_launches(f"lm serve {arch}", prof, 4, decode.launches)
     log(f"lm serve {arch}: decode step {decode_s * 1e3 / steps:.3f} ms with "
         f"the graph, {eager_s * 1e3 / steps:.3f} ms eager; device busy "
@@ -3177,25 +3254,34 @@ def _hold_replay_launches(what: str, prof, calls: int, launches) -> None:
         f"capture recorded; no weight pre-pass")
 
 
-def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1):
+def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1,
+             tries: int = 1):
     """Log the device (kernel) time per call of ``fn`` under
     ``torch.profiler``, its share of ``wall_ms`` (the unprofiled time of
     one call; the rest is the device's idle share) and the kernels that
     take the most of it.  Returns {"busy": ms a call, "idle": share,
     "kernels": {kernel name: count over the calls}}, or None where the
-    profiler saw no device time."""
+    profiler saw no device time in any of ``tries`` sessions (CUPTI now
+    and then hands a short session of graph replays no kernel record at
+    all, so a caller whose ``fn`` may run again asks for more than one)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-    timed = [e for e in prof.key_averages()
-             if getattr(e, "self_device_time_total", 0) > 0]
-    # kernels (device events) give the busy time; the host-side ops that
-    # launched them (aten::mul, our wrappers' kernels by name) the split
-    kernels = [e for e in timed if str(e.device_type).endswith("CUDA")]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        timed = [e for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0) > 0]
+        # kernels (device events) give the busy time; the host-side ops
+        # that launched them (aten::mul, our wrappers' kernels by name)
+        # the split
+        kernels = [e for e in timed if str(e.device_type).endswith("CUDA")]
+        if kernels:
+            break
+        log(f"profile {what}: session {attempt} of {tries}: the profiler "
+            "saw no device time")
     ops = sorted((e for e in timed if e not in kernels),
                  key=lambda e: -e.self_device_time_total)
     if not kernels:
@@ -3263,12 +3349,368 @@ def phase_lm_checks(torch, arch: str):
         f"{bool(torch.equal(full, full_o))})")
 
 
+#: AlexNet's serve phase: the buckets captured on each lane
+ALEX_BUCKETS = (1, 4, 8)
+
+
+def phase_alexnet_serve(torch):
+    """Full-width AlexNet's bucket executables (seed-0 weights, buckets
+    1, 4 and 8) on the float, int8 and int5 lanes, built and captured by
+    ``serve_cnn.build_server``: one capture per key; no u8 x s8 weight
+    pre-pass and no cut of a grouped layer's weights recorded into any
+    capture (``graphs.capture`` refuses a recording that makes either,
+    which would run again on every replay); the launches of one
+    replay per bucket counted (a grouped layer launches once per group);
+    each bucket's replay bit-equal to its eager executable on seeded
+    images, timed, and held against ``torch.profiler``'s kernels (no
+    weight pre-pass kernel in replays).  Returns {lane: launches of the
+    counted replays}."""
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.data.pipeline import SyntheticRequestStream
+    from repro_torch.engine import ExecutionPolicy, execute
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.launch.serve_cnn import build_server
+    from repro_torch.serve import ServeConfig
+
+    gc.collect()
+    cfg = CNN_REGISTRY["alexnet"]
+    out = {}
+    for datapath in ("float", "int8", "int5"):
+        what = f"alexnet {datapath}"
+        t0 = time.perf_counter()
+        srv = build_server(cfg, ExecutionPolicy(),
+                           ServeConfig(buckets=ALEX_BUCKETS,
+                                       datapath=datapath),
+                           device="cuda")
+        srv.close()
+        eng = srv.engine
+        build_s = time.perf_counter() - t0
+        if set(eng.capture_counts.values()) != {1} \
+                or set(eng.capture_counts) != set(eng.compile_counts):
+            fail(f"{what}: captures per key {eng.capture_counts}")
+        CAPTURES[what] = dict(eng.capture_counts)
+        stream = SyntheticRequestStream(
+            hw=cfg.input_hw, channels=cfg.layers[0].M,
+            n_classes=cfg.n_classes, seed=1,
+            dtype="float32" if datapath == "float" else "uint8")
+        images = stream.sample_batch(max(ALEX_BUCKETS))
+        kern.LAUNCHES = 0
+        per = {}
+        for b in ALEX_BUCKETS:
+            before = kern.LAUNCHES
+            eng.run_bucket(b, images[:b])
+            per[b] = kern.LAUNCHES - before
+        out[datapath] = kern.LAUNCHES
+        torch.cuda.synchronize()
+        want = sum(lp.groups for lp in eng.plan.layers)
+        if set(per.values()) != {want}:
+            fail(f"{what}: kernel launches a replay {per}, expected {want} "
+                 f"(one per conv group)")
+        for b in ALEX_BUCKETS:
+            _replay_vs_eager(torch, what, eng, b, images[:b], hold=True)
+        log(f"{what}: buckets {ALEX_BUCKETS} built and captured in "
+            f"{build_s:.1f} s, one capture per key; {want} kernel launches "
+            f"a replay ({len(eng.plan.layers)} convs, grouped layers once "
+            "per group); weight pre-passes recorded into the captures 0, "
+            "weight cuts recorded 0, so 0 of either per replay")
+    return out
+
+
+#: The LM train phases: (batch, tokens a row, steps) at full width and in
+#: bf16; the cut from the JAX package's train_4k cell (4096 tokens, global
+#: batch 256) is in batch and length only
+LM_TRAIN = {LM_ARCH: (4, 1024, 4), DENSE_ARCH: (1, 1024, 2)}
+#: mamba2-130m's fp32 check: each leaf's gradient through the kernels
+#: within this relative norm error of the oracle substrate's (the conv1d
+#: kernel is bit-equal to its plain version forward, and its backward is
+#: that version's VJP: only the order of atomics may differ)
+LM_GRAD_TOL = 1e-4
+#: the resume check: save after this many steps of the mamba2-130m run
+RESUME_AT = 2
+
+
+def _conv1d_train_row(torch, B, L, reps) -> dict:
+    """The conv1d kernel in bf16 at mamba2-130m's xBC view of a (B, L)
+    batch: bit-equal to its plain version, and timed (``_conv1d_row``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.trim_conv1d import (trim_conv1d,
+                                                 trim_conv1d_plain)
+    from repro_torch.nn.models import build_model
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dims = build_model(get_config(LM_ARCH)).spec.dims
+    d_in, D, K = dims.d_inner, dims.conv_channels, dims.d_conv
+    proj = torch.randn((B, L, dims.in_proj_out), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    x = proj[..., d_in:d_in + D]
+    w = (torch.randn((K, D), generator=gen, device=dev)
+         * K ** -0.5).to(torch.bfloat16)
+    if not torch.equal(trim_conv1d(x, w), trim_conv1d_plain(x, w)):
+        fail(f"conv1d at ({B}, {L}, {D}): kernel != plain")
+    return _conv1d_row(torch, x, w, reps)
+
+
+def _flash_row(torch, what, B, Sq, Sk, H, G, D, causal, kvl, reps) -> dict:
+    """The flash kernel in bf16 at one shape (``kvl`` one kv_length for
+    every row, or None) against its plain version (2e-2, and per row
+    BF16_ROW_ULPS x 2^-7 of the row's max|plain|), and its times
+    (``_flash_times``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v = rnd(B, Sq, H, G, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+    kvl = None if kvl is None else (kvl,) * B
+    kw = dict(causal=causal, kv_length=None if kvl is None else
+              torch.tensor(kvl, dtype=torch.int32, device=dev))
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ulps = _row_ulps(got, want)
+    if not torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2) \
+            or ulps > BF16_ROW_ULPS:
+        fail(f"flash {what}: max|kernel-plain| {err:.3g}, worst row "
+             f"{ulps:.3g} x 2^-7 (limits 2e-2, {BF16_ROW_ULPS})")
+    row = {"shape": what, "q": tuple(q.shape), "kv": tuple(k.shape),
+           "max_abs_err": err, "row_ulps": ulps,
+           **_flash_times(torch, q, k, v, kw, kvl, reps)[0]}
+    log(f"flash {what}: q {row['q']} kv {row['kv']} bf16 err {err:.3g} row "
+        f"{ulps:.3g} x 2^-7; ms {row['ms']:.4f} plain_ms "
+        f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
+        f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
+
+
+def phase_flash_code(torch, reps: int):
+    """The flash kernel at starcoder2-3b's G = 12, the first G that is not
+    a power of two, at its full-width serving shapes (bf16): the prefill
+    q (4, 4096, 2, 12, 128) causal on the warpgroup path, the decode q
+    (4, 1, 2, 12, 128) over a (4, 4128, 2, 128) cache with kv_length
+    4097 on the split path.  Returns {shape: row}."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(CODE_ARCH)
+    H, G, D = cfg.n_kv, cfg.n_q // cfg.n_kv, cfg.head_dim
+    return {
+        "prefill": _flash_row(torch, f"{CODE_ARCH} prefill", LM_BATCH,
+                              LM_PROMPT, LM_PROMPT, H, G, D, True, None,
+                              reps),
+        "decode": _flash_row(torch, f"{CODE_ARCH} decode", LM_BATCH, 1,
+                             LM_PROMPT + LM_GEN, H, G, D, False,
+                             LM_PROMPT + 1, reps)}
+
+
+def _leaf_grad_errors(torch, model, oracle, params, batch, counter):
+    """Each leaf's gradient of ``model.loss`` (the kernels) against
+    ``oracle.loss`` (the plain versions) on ``params`` and ``batch``:
+    (the worst relative norm error and its leaf, the kernels' launches in
+    the kernel step)."""
+    from repro_torch.core.tree import tree_leaves_with_path, tree_unflatten
+
+    def grads(m):
+        live = [p.detach().requires_grad_(True)
+                for _, p in tree_leaves_with_path(params)]
+        loss, _ = m.loss(tree_unflatten(params, live), batch)
+        return torch.autograd.grad(loss, live)
+
+    counter.LAUNCHES = 0
+    got = grads(model)
+    launches = counter.LAUNCHES
+    want = grads(oracle)
+    worst = (0.0, "")
+    for (path, _), a, b in zip(tree_leaves_with_path(params), got, want):
+        rel = ((a.double() - b.double()).norm()
+               / b.double().norm().clamp_min(1e-30)).item()
+        worst = max(worst, (rel, path))
+    return worst, launches
+
+
+def phase_lm_train(torch, arch: str, reps: int):
+    """Full-width ``arch`` trained in bf16 (seed-0 params, fp32 AdamW
+    moments) on the ``SyntheticLMDataset`` stream through
+    ``make_train_step`` at the launcher's lr, ``LM_TRAIN[arch]`` (batch,
+    tokens a row, steps): each step's forward launches the path's kernel
+    once per layer (the conv1d of the ssm family, flash of the dense
+    family; the backward is the plain version's VJP and launches none),
+    every loss and grad_norm finite, no step skipped; ms per step, peak
+    device memory and, for mamba2-130m under ``torch.profiler``, one more
+    step's device busy time and idle share.  The kernel's forward is timed at the
+    training shape (``_conv1d_train_row`` / ``_flash_row``).  For mamba2-130m
+    also: a first step in fp32 (TF32 off) whose every leaf's gradient
+    through the kernels is within LM_GRAD_TOL (relative norm) of the
+    oracle substrate's, and the checkpoint of the run after RESUME_AT
+    steps, saved and resumed (``_resume``).  Returns {"launches", "row"}."""
+    import math
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.distributed import (StepConfig, make_train_state,
+                                         make_train_step)
+    from repro_torch.engine import ExecutionPolicy
+    from repro_torch.nn.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    B, S, steps = LM_TRAIN[arch]
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    counters = _lm_counters()
+    kname = "trim_conv1d" if cfg.family == "ssm" else "flash_attention"
+    counter = counters[kname]
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=S + 1, global_batch=B)
+    batches = [ds.batch_at(i) for i in range(steps)]       # data set-up
+    scfg = StepConfig(peak_lr=TRAIN_LR, warmup_steps=max(steps // 20, 5),
+                      total_steps=steps)
+    step = make_train_step(model, scfg)
+    t0 = time.perf_counter()
+    state = make_train_state(model, 0, dev)
+    torch.cuda.synchronize()
+    log(f"lm train {arch}: {cfg.param_count_estimate()} params in "
+        f"{cfg.dtype}, fp32 moments, batch {B} x {S} tokens (the train_4k "
+        f"cell's 256 x 4096 cut in batch and length only), {steps} steps; "
+        f"init in {time.perf_counter() - t0:.1f} s")
+    saved = None
+    if arch == LM_ARCH:
+        import tempfile
+        ckpt_dir = tempfile.mkdtemp(prefix="lm-ckpt-")
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist, launches = [], 0
+    for i, batch in enumerate(batches):
+        if arch == LM_ARCH and i == RESUME_AT:
+            saved = _save(torch, CheckpointManager(ckpt_dir), state, i)
+        for m in counters.values():
+            m.LAUNCHES = 0
+        t0 = time.perf_counter()
+        state, mets = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = {k: m.LAUNCHES for k, m in counters.items()}
+        launches += n[kname]
+        h = {"step": i, "ms": ms, "loss": float(mets["loss"]),
+             "grad_norm": float(mets["grad_norm"]),
+             "skipped": float(mets["skipped"])}
+        hist.append(h)
+        log(f"lm train {arch} step {i}: loss {h['loss']!r} grad_norm "
+            f"{h['grad_norm']!r} ({ms:.3f} ms); launches {n}")
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])) \
+                or h["skipped"]:
+            fail(f"lm train {arch}: step {i} non-finite or skipped: {h}")
+        want = {k: cfg.n_layers if k == kname else 0 for k in counters}
+        if n != want:
+            fail(f"lm train {arch}: step {i} launched {n}, expected {want} "
+                 "(the forward's kernel once per layer)")
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = hist[1:] or hist
+    ms = sum(h["ms"] for h in steady) / len(steady)
+    busy = ""
+    if arch == LM_ARCH:
+        prof = _profile(torch, f"lm train {arch} step", ms,
+                        lambda: step(state, batches[-1]))
+        busy = (f"; device busy {_fmt(prof and prof['busy'])} ms a step, "
+                f"idle share {_fmt(prof and prof['idle'])}")
+    log(f"lm train {arch}: {ms:.3f} ms per step (steps 1-{steps - 1}), "
+        f"{B * S * 1e3 / ms:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB{busy}; {launches} {kname} launches in "
+        f"{steps} steps")
+    row = (_conv1d_train_row(torch, B, S, reps) if cfg.family == "ssm" else
+           _flash_row(torch, f"{arch} train", B, S, S, cfg.n_kv,
+                      cfg.n_q // cfg.n_kv, cfg.head_dim, True, None, reps))
+    if arch == LM_ARCH:
+        del state
+        _resume(torch, model, step, ds, ckpt_dir, saved, hist)
+        cfg32 = cfg.with_overrides(dtype=torch.float32)
+        k32 = build_model(cfg32)
+        params = k32.init(0, dev)
+        batch0 = {"tokens": torch.as_tensor(batches[0]["tokens"],
+                                            device=dev)}
+        (rel, leaf), n = _leaf_grad_errors(
+            torch, k32, build_model(cfg32, policy=ExecutionPolicy("oracle")),
+            params, batch0, counter)
+        if n != cfg.n_layers:
+            fail(f"lm train {arch} fp32: {n} {kname} launches in the "
+                 f"kernel step's gradient, expected {cfg.n_layers}")
+        if rel > LM_GRAD_TOL:
+            fail(f"lm train {arch} fp32: leaf {leaf}'s gradient through the "
+                 f"kernels is {rel:.3g} (relative norm) from the oracle's "
+                 f"(limit {LM_GRAD_TOL})")
+        log(f"lm train {arch} fp32 (TF32 off), step 0: every leaf's gradient "
+            f"through the kernels within {rel:.3g} (relative norm; worst "
+            f"{leaf}) of the oracle substrate's (limit {LM_GRAD_TOL}); "
+            f"{n} {kname} launches")
+    return {"launches": launches, "row": row}
+
+
+def _save(torch, mgr, state, step: int) -> dict:
+    """Save ``state`` as ``step`` through ``mgr``: the host copy, then the
+    background write, each timed; the bytes on disk."""
+    import os
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state, step)
+    copy_s = time.perf_counter() - t0
+    mgr.wait()
+    write_s = time.perf_counter() - t0 - copy_s
+    d = os.path.join(mgr.base_dir, f"step_{step}")
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"checkpoint: step {step} saved, {nbytes} bytes in "
+        f"{len(os.listdir(d)) - 2} leaf files; host copy {copy_s:.3f} s, "
+        f"write {write_s:.3f} s")
+    return {"dir": d, "state": state, "bytes": nbytes}
+
+
+def _resume(torch, model, step, ds, ckpt_dir, saved, hist) -> None:
+    """The latest committed checkpoint under ``ckpt_dir`` restored into a
+    state from another seed (``CheckpointManager.restore_latest``, as
+    ``train_loop`` resumes; timed, equal to the saved state bit for bit),
+    then the steps after RESUME_AT taken from it: they must give the
+    uninterrupted run's losses bit for bit."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import make_train_state
+
+    dev = torch.device("cuda", 0)
+    other = make_train_state(model, 1, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at, state = CheckpointManager(ckpt_dir).restore_latest(other)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del other
+    if at != RESUME_AT or not all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+                tree_leaves(state), tree_leaves(saved["state"]))):
+        fail(f"checkpoint: the state restored from step {at} differs from "
+             f"the one saved at step {RESUME_AT}")
+    tail = []
+    for i in range(RESUME_AT, len(hist)):
+        state, mets = step(state, ds.batch_at(i))
+        tail.append((i, float(mets["loss"])))
+    want = [(h["step"], h["loss"]) for h in hist[RESUME_AT:]]
+    if tail != want:
+        fail(f"checkpoint: resumed losses {tail} against the uninterrupted "
+             f"run's {want}")
+    log(f"checkpoint: restored {saved['bytes']} bytes from step {at} into a "
+        f"seed-1 state in {restore_s:.3f} s, bit-equal to the saved state; "
+        f"steps {RESUME_AT}-{len(hist) - 1} from it gave the uninterrupted "
+        f"run's losses bit for bit ({[loss for _, loss in tail]})")
+
+
 def kernel_entry(rows, name: str, launches: int, source: str = KERNEL_SOURCE,
-                 replaces: str = REPLACES) -> dict:
+                 replaces: str = REPLACES, arch: str = "vgg16") -> dict:
     """One kernel instantiation's line entry: the sums over the shapes of
-    one run of its path among ``rows`` (of a conv kernel, the VGG-16
-    shapes: one batch's conv stack), the largest error over all rows."""
-    timed = [r for r in rows if r.get("arch", "vgg16") == "vgg16"]
+    one run of its path among ``rows`` (of a conv kernel, the shapes of
+    ``arch``: one batch's conv stack), the largest error over all rows."""
+    timed = [r for r in rows if r.get("arch", arch) == arch]
     lib = [r["library_ms"] for r in timed]
     return {
         "name": name,
@@ -3319,6 +3761,7 @@ def main() -> None:
     brows = phase_backward(torch, args.reps, (1, TRAIN_BATCH))
     crows = phase_conv1d(torch, args.reps)
     frows = phase_flash(torch, args.reps)
+    code_rows = phase_flash_code(torch, args.reps)
     mrows = phase_matmul(torch, args.reps, max(3, args.reps // 10))
     srows = phase_ssd(torch, args.reps)
     if args.kernels:
@@ -3327,6 +3770,7 @@ def main() -> None:
     launches_f32 = sum(phase_serve(torch, "float", args.requests))
     launches_u8, launches_u8_b8 = phase_serve(torch, "int8", args.requests)
     launches_i5, launches_i5_b8 = phase_serve(torch, "int5", args.requests)
+    alex = phase_alexnet_serve(torch)
     chaos = {run[0]: phase_chaos(torch, *run, args.requests)
              for run in CHAOS_RUNS}
     phase_wire(torch)
@@ -3338,6 +3782,10 @@ def main() -> None:
     phase_lm_checks(torch, LM_ARCH)
     dense_launches = phase_lm_serve(torch, DENSE_ARCH)
     phase_lm_checks(torch, DENSE_ARCH)
+    lm_train = {arch: phase_lm_train(torch, arch, args.reps)
+                for arch in (LM_ARCH, DENSE_ARCH)}
+    code_launches = phase_lm_serve(torch, CODE_ARCH)
+    phase_lm_checks(torch, CODE_ARCH)
     log("captures per key (CUDA graphs; the int5 lane's again after each "
         "wire restore): " + "; ".join(
             f"{phase}: " + ", ".join(f"{k.split(' ', 1)[1]} {n}"
@@ -3397,13 +3845,40 @@ def main() -> None:
         kernel_entry([r for r in brows if r["kind"] == "dw"
                       and r["batch"] == TRAIN_BATCH],
                      "trim_conv2d_wgrad_f32", train_wgrad,
-                     source=WGRAD_SOURCE, replaces=WGRAD_REPLACES),
-        {"name": "trim_conv1d_bf16", "route": "cuda",
-         "source": CONV1D_SOURCE, "replaces": CONV1D_REPLACES,
-         "launches": lm_launches["trim_conv1d"][0],
-         "max_abs_err": max(r["max_abs_err"] for r in crows),
-         **{k: c1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")}}]
+                     source=WGRAD_SOURCE, replaces=WGRAD_REPLACES)]
+        # AlexNet's replays on each lane, timed by its batch-1 rows (the
+        # replays span buckets 1, 4 and 8)
+        + [kernel_entry([r for r in rows if r["lane"] == lane
+                         and r["batch"] == 1 and r["arch"] == "alexnet"],
+                        f"trim_conv2d_{name}_alexnet", alex[datapath],
+                        arch="alexnet")
+           for lane, name, datapath in (("f32", "f32", "float"),
+                                        ("u8s8", "u8s8", "int8"),
+                                        ("int5", "u8s8_int5", "int5"))]
+        + [{"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": lm_train[arch]["launches"],
+            **{k: lm_train[arch]["row"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+           for name, arch, source, replaces in (
+               ("trim_conv1d_bf16_train", LM_ARCH, CONV1D_SOURCE,
+                CONV1D_REPLACES),
+               ("flash_attention_bf16_train", DENSE_ARCH, FLASH_SOURCE,
+                FLASH_REPLACES))]
+        + [{"name": f"flash_attention_bf16_{CODE_ARCH}_{shape}",
+            "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES,
+            "launches": code_launches["flash_attention"][i],
+            **{k: code_rows[shape][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+           for i, shape in enumerate(("prefill", "decode"))]
+        + [{"name": "trim_conv1d_bf16", "route": "cuda",
+            "source": CONV1D_SOURCE, "replaces": CONV1D_REPLACES,
+            "launches": lm_launches["trim_conv1d"][0],
+            "max_abs_err": max(r["max_abs_err"] for r in crows),
+            **{k: c1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}}]
         + [{"name": f"flash_attention_bf16_{shape}", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "launches": dense_launches["flash_attention"][i],

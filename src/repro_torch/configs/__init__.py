@@ -1,13 +1,13 @@
 """The configs the port runs: the paper's CNNs (``CNN_REGISTRY``,
 ``CNN_SMOKES``) and the LM architectures (``get_config`` / ``get_smoke``
-by architecture id: mamba2-130m of the ssm family and granite-3-2b of the
-dense family so far).
+by architecture id: mamba2-130m of the ssm family, granite-3-2b and
+starcoder2-3b of the dense family so far).
 
 Mirrors ``repro/configs/__init__.py``.
 """
 import torch
 
-from repro_torch.configs import granite_3_2b, mamba2_130m
+from repro_torch.configs import granite_3_2b, mamba2_130m, starcoder2_3b
 from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K, LONG_500K,
                                       PREFILL_32K, REGISTRY, TRAIN_4K,
                                       ModelConfig, ShapeCell, get_config,
@@ -15,7 +15,8 @@ from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K, LONG_500K,
 from repro_torch.configs.cnn import (ALEXNET_SMOKE, CNN_REGISTRY, CNN_SMOKES,
                                      VGG16_SMOKE)
 
-_SMOKES = {m.CONFIG.name: m.SMOKE for m in (mamba2_130m, granite_3_2b)}
+_SMOKES = {m.CONFIG.name: m.SMOKE
+           for m in (mamba2_130m, granite_3_2b, starcoder2_3b)}
 
 ARCH_IDS = tuple(sorted(REGISTRY))
 

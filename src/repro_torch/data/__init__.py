@@ -1,5 +1,8 @@
 """Seeded synthetic data for the port (``data.pipeline``)."""
 
-from repro_torch.data.pipeline import SyntheticImageDataset, SyntheticRequestStream
+from repro_torch.data.pipeline import (FileTokenDataset, SyntheticImageDataset,
+                                       SyntheticLMDataset,
+                                       SyntheticRequestStream)
 
-__all__ = ["SyntheticImageDataset", "SyntheticRequestStream"]
+__all__ = ["FileTokenDataset", "SyntheticImageDataset", "SyntheticLMDataset",
+           "SyntheticRequestStream"]

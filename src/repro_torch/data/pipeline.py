@@ -1,15 +1,18 @@
-"""Deterministic request data for the CNN serving path.
+"""Deterministic data: LM token streams, CNN images and serving requests.
 
-A verbatim numpy copy of ``_philox``, ``SyntheticImageDataset`` and
-``SyntheticRequestStream`` from ``repro/data/pipeline.py``, so both
-packages draw the same images and arrival times from the same seed.
-Every image is a pure function of (seed, request index).
+A verbatim numpy copy of ``_philox``, ``SyntheticLMDataset``,
+``SyntheticImageDataset``, ``SyntheticRequestStream`` and
+``FileTokenDataset`` from ``repro/data/pipeline.py``, so both packages
+draw the same tokens, images and arrival times from the same seed.  Every
+batch is a pure function of (seed, step) and every image of (seed,
+request index), which is what makes a resumed training run replay the
+batches the uninterrupted run saw.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -24,6 +27,54 @@ def _philox(seed: int, counters: np.ndarray) -> np.ndarray:
     x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
     x = x ^ (x >> np.uint64(31))
     return (x & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+@dataclass(frozen=True)
+class SyntheticLMDataset:
+    """Deterministic synthetic token stream with learnable structure.
+
+    Each sequence repeats a per-row random block of ``period`` tokens
+    (tokens[t] = tokens[t - period] for t >= period), with a small amount
+    of substitution noise.  Predicting position t >= period is a copy
+    task: small LMs drive the loss far below ln(vocab) within tens of
+    steps.  Generation is a pure function of (seed, step, row).
+    """
+
+    vocab: int
+    seq_len: int  # tokens per example INCLUDING the label shift
+    global_batch: int
+    seed: int = 0
+    n_hosts: int = 1
+    host_id: int = 0
+    period: int = 4
+    noise: float = 0.02
+
+    @property
+    def per_host_batch(self) -> int:
+        assert self.global_batch % self.n_hosts == 0
+        return self.global_batch // self.n_hosts
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        B = self.per_host_batch
+        rows = (np.arange(B) + self.host_id * B + step * self.global_batch).astype(
+            np.uint64
+        )
+        toks = np.zeros((B, self.seq_len), np.int64)
+        for t in range(self.seq_len):
+            if t < self.period:
+                toks[:, t] = _philox(self.seed + 3 + t, rows) % self.vocab
+            else:
+                u = _philox(self.seed + 101 + t, rows) % 10_000
+                flip = u < self.noise * 10_000
+                rand = _philox(self.seed + 211 + t, rows) % self.vocab
+                toks[:, t] = np.where(flip, rand, toks[:, t - self.period])
+        return {"tokens": toks.astype(np.int32)}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclass(frozen=True)
@@ -158,3 +209,35 @@ class SyntheticRequestStream:
         for i in range(self.n_requests):
             img, label = self.image_at(i)
             yield float(ts[i]), img, label
+
+
+@dataclass(frozen=True)
+class FileTokenDataset:
+    """A memory-mapped flat token file (``.npy``, int32 or uint16) that
+    the caller makes.  Examples are fixed-length windows; window k of
+    batch step s starts at row (s * global_batch + k) * stride, modulo
+    the windows the file holds."""
+
+    path: str
+    seq_len: int
+    global_batch: int
+    stride: Optional[int] = None
+    n_hosts: int = 1
+    host_id: int = 0
+
+    def __post_init__(self):
+        arr = np.load(self.path, mmap_mode="r")
+        object.__setattr__(self, "_arr", arr)
+
+    @property
+    def per_host_batch(self) -> int:
+        return self.global_batch // self.n_hosts
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        arr = self._arr
+        stride = self.stride or self.seq_len
+        n_windows = max(1, (len(arr) - self.seq_len) // stride)
+        B = self.per_host_batch
+        idx = (np.arange(B) + self.host_id * B + step * self.global_batch) % n_windows
+        toks = np.stack([arr[i * stride : i * stride + self.seq_len] for i in idx])
+        return {"tokens": toks.astype(np.int32)}

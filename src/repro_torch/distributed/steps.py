@@ -103,10 +103,12 @@ def make_train_step(model, scfg: StepConfig = StepConfig(),
                                                      scfg.adamw)
         if scfg.skip_nonfinite:
             ok = torch.isfinite(loss) & torch.isfinite(opt_mets["grad_norm"])
-            new_params = tree_map(lambda a, b: torch.where(ok, a, b),
-                                  new_params, params)
-            new_opt = tree_map(lambda a, b: torch.where(ok, a, b), new_opt,
-                               opt)
+            # the new trees' leaves are this step's own tensors: on a bad
+            # step each takes its old value in place, one leaf at a time,
+            # so no second copy of the state is ever held
+            for a, b in zip(tree_leaves((new_params, new_opt)),
+                            tree_leaves((params, opt))):
+                a.copy_(torch.where(ok, a, b))
             opt_mets["skipped"] = (~ok).to(torch.float32)
         metrics = {"loss": loss, "lr": lr, **mets, **opt_mets}
         return {"params": new_params, "opt": new_opt}, metrics

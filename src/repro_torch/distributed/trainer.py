@@ -1,11 +1,16 @@
-"""The training loop on one device, with straggler detection.
+"""The training loop on one device: checkpoints, exact resume and
+straggler detection.
 
 Port of ``repro/distributed/trainer.py``: deterministic data (the
 dataset is a pure function of (seed, step)), per-step wall time with an
 EWMA + z-score straggler monitor, and a history row of every step's
 scalar metrics.  Each step's time ends in ``torch.cuda.synchronize()``
-where the JAX loop blocked on the loss.  Checkpointing (``ckpt_dir``)
-raises until ``repro/checkpoint/manager.py`` is ported.
+where the JAX loop blocked on the loss.  With ``ckpt_dir`` the state is
+saved every ``ckpt_every`` steps and at the end (``checkpoint.manager``:
+copied to the host at once, written in the background, committed last),
+and a run resumes from the latest committed step; since the data is a
+function of the step and the AdamW moments and count are restored, the
+resumed run takes the steps the uninterrupted run took.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+
+from repro_torch.checkpoint import CheckpointManager
 
 
 @dataclass
@@ -46,8 +53,11 @@ class StragglerMonitor:
 @dataclass
 class TrainLoopConfig:
     total_steps: int = 100
-    ckpt_dir: Optional[str] = None    # refused until checkpointing is ported
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    keep_last: int = 3
     log_every: int = 10
+    resume: bool = True
 
 
 def _wait(value) -> None:
@@ -57,14 +67,22 @@ def _wait(value) -> None:
 
 def train_loop(step_fn: Callable, state, dataset, loop_cfg: TrainLoopConfig,
                log_fn: Callable = print) -> Dict[str, Any]:
-    """Run the loop; returns {state, history, stragglers, resumed_from}."""
-    if loop_cfg.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (repro/checkpoint/manager.py "
-            "is tied to JAX); run without ckpt_dir")
+    """Run the loop; returns {state, history, stragglers, resumed_from}.
+    A restored state takes the devices and dtypes of ``state``'s leaves."""
+    mgr = (CheckpointManager(loop_cfg.ckpt_dir, loop_cfg.keep_last)
+           if loop_cfg.ckpt_dir else None)
+    start = 0
+    resumed_from = None
+    if mgr is not None and loop_cfg.resume:
+        step, restored = mgr.restore_latest(state)
+        if step is not None:
+            state, start, resumed_from = restored, step, step
+            log_fn(f"[trainer] resumed from step {step}")
+
     monitor = StragglerMonitor()
     history: List[Dict[str, float]] = []
-    for step in range(loop_cfg.total_steps):
+    saved = None
+    for step in range(start, loop_cfg.total_steps):
         batch = dataset.batch_at(step)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
@@ -81,5 +99,12 @@ def train_loop(step_fn: Callable, state, dataset, loop_cfg: TrainLoopConfig,
         if step % loop_cfg.log_every == 0 or step == loop_cfg.total_steps - 1:
             log_fn(f"[trainer] step {step} loss "
                    f"{row.get('loss', float('nan')):.4f} ({dt * 1e3:.0f} ms)")
+        if mgr is not None and (step + 1) % loop_cfg.ckpt_every == 0:
+            mgr.save(state, step + 1)
+            saved = step + 1
+    if mgr is not None:
+        if saved != loop_cfg.total_steps:   # the last step's, once
+            mgr.save(state, loop_cfg.total_steps)
+        mgr.wait()
     return {"state": state, "history": history,
-            "stragglers": monitor.flagged, "resumed_from": None}
+            "stragglers": monitor.flagged, "resumed_from": resumed_from}

@@ -33,6 +33,7 @@ Three places decide bit-exactness against the JAX package, and mirror it:
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +43,7 @@ from repro_torch.core.quant import fold_shift_into_requant
 from repro_torch.engine.plan import DATAPATHS, ConvLayerPlan, ModelPlan
 from repro_torch.engine.policy import resolve_device, resolve_substrate
 from repro_torch.kernels import ref
+from repro_torch.kernels._autograd import needs_grad
 from repro_torch.kernels.requant import requant_mult_shift, scale_to_mult_shift
 from repro_torch.kernels.trim_conv2d import (apply_epilogue, load_library,
                                              trim_conv2d)
@@ -111,6 +113,56 @@ def _w_abs_max(plan: ConvLayerPlan) -> Optional[int]:
     return (1 << plan.w_bits) - 1 if plan.w_bits < 8 else None
 
 
+#: id(tensor) -> (a weak reference to it, {(groups, F): ((version,
+#: address), its per-group pieces)}): :func:`group_parts`' kept slices
+_PARTS: dict = {}
+#: Tensors :func:`group_parts` has cut into pieces since the last reset (a
+#: plain counter: a call that finds kept pieces cuts nothing)
+GROUP_CUTS = 0
+
+
+def group_parts(t: torch.Tensor, groups: int, F: int
+                ) -> Tuple[torch.Tensor, ...]:
+    """``t``'s last axis (``F`` wide; a 0-dim ``t`` broadcast to F) cut
+    into ``groups`` contiguous pieces.
+
+    The pieces are kept per tensor, as ``u8_weights`` keeps the u8 x s8
+    transposed weights: while ``t`` lives and its version counter and
+    address stand, later calls get the same pieces, so a grouped conv of
+    fixed weights (AlexNet's) slices its weights, bias and requant pairs
+    once, and a captured bucket replays no slice copy and no weight
+    pre-pass of a new slice.  A tensor that autograd records (the float
+    lane in training) or an inference tensor (no version counter) is cut
+    anew on every call."""
+    def cut():
+        global GROUP_CUTS
+        GROUP_CUTS += 1
+        full = t.expand(F) if t.dim() == 0 else t
+        n = F // groups
+        # normal tensors even under inference mode (the serving
+        # executables'), so the u8 x s8 lane keeps their transposed copy
+        with torch.inference_mode(False):
+            return tuple(full[..., g * n:(g + 1) * n].contiguous()
+                         for g in range(groups))
+
+    if t.is_inference() or needs_grad(t):
+        return cut()
+    key, stamp = (groups, F), (t._version, t.data_ptr())
+    ent = _PARTS.get(id(t))
+    if ent is None or ent[0]() is not t:
+        k = id(t)
+
+        def drop(ref, k=k):
+            if _PARTS.get(k, (None,))[0] is ref:
+                del _PARTS[k]
+        ent = (weakref.ref(t, drop), {})
+        _PARTS[k] = ent
+    hit = ent[1].get(key)
+    if hit is None or hit[0] != stamp:
+        hit = ent[1][key] = (stamp, cut())
+    return hit[1]
+
+
 def run_conv2d(plan: ConvLayerPlan, x: torch.Tensor, w: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                requant: Optional[Tuple] = None, *,
@@ -140,25 +192,19 @@ def run_conv2d(plan: ConvLayerPlan, x: torch.Tensor, w: torch.Tensor,
         return apply_epilogue(out, bias, plan.relu, requant_shift, requant)
     if plan.groups == 1:
         return _kernel_call(plan, x, w, bias, requant, requant_shift)
-    cg = x.shape[-1] // plan.groups
-    F = w.shape[-1]
-    fg = F // plan.groups
-    if requant is not None:
-        # per-group slices of per-channel or broadcast per-tensor pairs
-        requant = tuple(
-            torch.as_tensor(v, dtype=torch.int32, device=x.device).expand(F)
-            for v in requant)
-    outs = []
-    for g in range(plan.groups):
-        fs = slice(g * fg, (g + 1) * fg)
-        outs.append(_kernel_call(
-            plan, x[..., g * cg:(g + 1) * cg].contiguous(),
-            w[..., fs].contiguous(),
-            None if bias is None else bias[fs].contiguous(),
-            None if requant is None
-            else (requant[0][fs].contiguous(), requant[1][fs].contiguous()),
-            requant_shift))
-    return torch.cat(outs, dim=-1)
+    G, F = plan.groups, w.shape[-1]
+    # the activations are cut per call (data); the weights, bias and the
+    # per-channel or broadcast per-tensor requant pairs once per tensor
+    cg = x.shape[-1] // G
+    xs = [x[..., g * cg:(g + 1) * cg].contiguous() for g in range(G)]
+    ws = group_parts(w, G, F)
+    bs = (None,) * G if bias is None else group_parts(bias, G, F)
+    rqs = ((None,) * G if requant is None else tuple(zip(*(
+        group_parts(torch.as_tensor(v, dtype=torch.int32, device=x.device),
+                    G, F) for v in requant))))
+    return torch.cat([_kernel_call(plan, xs[g], ws[g], bs[g], rqs[g],
+                                   requant_shift)
+                      for g in range(G)], dim=-1)
 
 
 def run_conv_layer(plan: ConvLayerPlan, p, x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,10 @@ This module is the one place that captures.
   are Python ints that a replay does not touch: the counts one call added
   while it was recorded are taken back (the capture launched nothing) and
   :meth:`CapturedGraph.replay` adds them once per replay.
+- A capture that records a u8 x s8 weight pre-pass or a cut of a grouped
+  conv's weights (``execute.group_parts``) raises :class:`CaptureError`:
+  each would run again on every replay.  The warm call does that work
+  once, outside the graph.
 - A capture that fails raises :class:`CaptureError` with the source line
   of the op that broke it (an ``.item()``, a ``.cpu()``, anything that
   synchronises): nothing falls back to the eager step.  A CPU device
@@ -39,7 +43,7 @@ from __future__ import annotations
 import gc
 import os
 import traceback
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Tuple, Union
 
 import torch
 
@@ -158,6 +162,25 @@ def _origin(err: BaseException) -> str:
             f"({type(first).__name__}: {first})")
 
 
+def _weight_work() -> Tuple[int, int]:
+    """(grouped weight cuts, u8 x s8 weight pre-passes) made so far."""
+    from repro_torch.engine import execute
+    from repro_torch.kernels import trim_conv2d
+
+    return execute.GROUP_CUTS, trim_conv2d.PREPASSES
+
+
+def _refuse_weight_work(label: str, before: Tuple[int, int]) -> None:
+    """Raise :class:`CaptureError` if weights were cut or pre-passed since
+    ``before`` (:func:`_weight_work`), while ``label`` was recorded."""
+    cuts, prepasses = (n - b for n, b in zip(_weight_work(), before))
+    if cuts or prepasses:
+        raise CaptureError(
+            f"capture of {label} recorded {prepasses} weight pre-passes and "
+            f"{cuts} grouped weight cuts, which every replay would run "
+            "again: warm the step on the capture's stream first")
+
+
 def capture(fn: Callable[[], object], pool: GraphPool, *, label: str,
             warm: Union[bool, Callable[[], object]] = True) -> CapturedGraph:
     """Record ``fn()`` into a CUDA graph on ``pool``.
@@ -166,8 +189,9 @@ def capture(fn: Callable[[], object], pool: GraphPool, *, label: str,
     callable runs that instead (a step that writes state in place warms
     on a copy of it), False runs nothing (a second capture of the same
     step on the same pool).  Raises :class:`CaptureError` naming the op
-    that broke the capture, and on a pool where a capture failed; a CPU
-    pool cannot exist (:class:`GraphPool`).
+    that broke the capture, on a recording that cut or pre-passed weights,
+    and on a pool where a capture failed; a CPU pool cannot exist
+    (:class:`GraphPool`).
     """
     if pool.failed is not None:
         raise CaptureError(f"capture of {label}: an earlier capture on its "
@@ -180,7 +204,7 @@ def capture(fn: Callable[[], object], pool: GraphPool, *, label: str,
             (fn if warm is True else warm)()
         torch.cuda.current_stream(dev).wait_stream(pool.stream)
     warm_launches = _since(before)
-    mark = launch_counts()
+    mark, work = launch_counts(), _weight_work()
     graph = torch.cuda.CUDAGraph()
     # ``torch.cuda.graph`` without its ``empty_cache``: a capture again
     # after a wire restore lands between a server's flushes.  The cyclic
@@ -207,6 +231,7 @@ def capture(fn: Callable[[], object], pool: GraphPool, *, label: str,
             gc.enable()
     launches = _since(mark)
     _add_launches(launches, -1)  # recorded, not run: the replays count
+    _refuse_weight_work(label, work)
     pool.captures += 1
     return CapturedGraph(graph, output, label, launches, warm_launches)
 

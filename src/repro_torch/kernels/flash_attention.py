@@ -11,7 +11,9 @@ of device memory and what bounds it.
 - :func:`flash_attention` is the wrapper: a CUDA tensor launches the
   kernel (or the wrapper raises), a CPU tensor takes
   :func:`flash_attention_plain`.  Every launch adds one to
-  :data:`LAUNCHES`.
+  :data:`LAUNCHES`.  Where autograd records the call (q, k or v needs a
+  gradient, under grad mode), it runs through :class:`FlashAttentionFn`:
+  the same forward, and the plain version's VJP as the backward.
 - :func:`flash_attention_plain` is ``nn/attention.py:flash_attention``
   line for line: a streaming softmax over ``chunk_k`` keys at a time, with
   the same ``NEG_INF`` masking, the zeroed masked ``p``, the division by
@@ -42,6 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import needs_grad, plain_vjp
 
 NEG_INF = -1e30
 
@@ -299,6 +302,37 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention under autograd (the dense LM in training).
+
+    Forward: the wrapper's call (the kernel on a CUDA q, counted in
+    :data:`LAUNCHES`; the plain version on a CPU one).  Backward: the VJP
+    of :func:`flash_attention_plain` with the same options, recomputed
+    under autograd from the saved q, k and v.  This is no fallback: the
+    Pallas kernel (``repro/kernels/flash_attention.py:38``) is forward
+    only, and the JAX package trains attention through its pure-JAX
+    ``nn/attention.py:75 flash_attention``, whose gradient this VJP is, so
+    there is no backward kernel to port.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_length, opts):
+        ctx.save_for_backward(q, k, v, kv_length)
+        ctx.opts = opts
+        return _flash(q, k, v, kv_length=kv_length, **opts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, kv_length = ctx.saved_tensors
+        opts = ctx.opts
+
+        def plain(q, k, v):
+            return flash_attention_plain(q, k, v, kv_length=kv_length, **opts)
+
+        return (*plain_vjp(plain, (q, k, v), ctx.needs_input_grad[:3], grad),
+                None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: int = 0,
                     kv_length: Optional[torch.Tensor] = None,
@@ -318,8 +352,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scratch merged by the launch's last block; others take the
     warpgroup path.  ``chunk_k`` and ``block_causal`` choose how the plain
     version walks the keys; the kernel walks tiles of its own and always
-    skips the tiles that causality or ``kv_length`` mask whole.
+    skips the tiles that causality or ``kv_length`` mask whole.  A call
+    that autograd records goes through :class:`FlashAttentionFn`.
     """
+    opts = dict(causal=causal, q_offset=q_offset, chunk_k=chunk_k,
+                block_causal=block_causal)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, kv_length, opts)
+    return _flash(q, k, v, kv_length=kv_length, **opts)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, q_offset: int = 0,
+           kv_length: Optional[torch.Tensor] = None,
+           chunk_k: int = 1024, block_causal: bool = False) -> torch.Tensor:
+    """The wrapper's forward: the plain version on a CPU ``q``, the
+    kernel on a CUDA one."""
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,

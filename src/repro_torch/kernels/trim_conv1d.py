@@ -8,7 +8,10 @@ device memory and what bounds it.
 
 - :func:`trim_conv1d` is the wrapper: a CUDA tensor launches the kernel
   (or the wrapper raises), a CPU tensor takes :func:`trim_conv1d_plain`.
-  Every launch adds one to :data:`LAUNCHES`.
+  Every launch adds one to :data:`LAUNCHES`.  Where autograd records the
+  call (an input that needs a gradient, under grad mode), it runs through
+  :class:`TrimConv1dFn`: the same forward, and the plain version's VJP
+  as the backward.
 - :func:`trim_conv1d_plain` is the same function in plain PyTorch
   (``ref.conv1d_causal_ref``): the taps summed in fp32 in order from zero,
   each product and sum rounded on its own, one cast to ``x.dtype``, which
@@ -21,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._autograd import needs_grad, plain_vjp
 
 #: Launches of the CUDA kernel since the last reset (a plain counter:
 #: callers set it to 0 before a run and read it after).
@@ -76,6 +80,29 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+class TrimConv1dFn(torch.autograd.Function):
+    """The conv1d under autograd (the Mamba mixer in training).
+
+    Forward: the wrapper's call (the kernel on a CUDA tensor, counted in
+    :data:`LAUNCHES`; the plain version on a CPU one).  Backward: the VJP
+    of :func:`trim_conv1d_plain`, recomputed under autograd from the saved
+    x and w.  This is no fallback: the Pallas kernel
+    (``repro/kernels/trim_conv1d.py:24``) has no backward kernel, and the
+    JAX package takes this conv's gradient through its oracle, so there
+    is no backward kernel to port.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return _conv1d(x, w)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return plain_vjp(trim_conv1d_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad)
+
+
 def trim_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv. x (B, L, D), w (K, D) -> (B, L, D) in x's
     dtype (fp32 or bf16; fp32 accumulation).
@@ -83,8 +110,17 @@ def trim_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``x`` may be a strided view whose channel stride is 1 (a column slice
     of a wider tensor is read in place); ``w`` must be contiguous.  A CPU
     ``x`` runs :func:`trim_conv1d_plain`; a CUDA ``x`` launches the kernel
-    on the current stream, or raises.
+    on the current stream, or raises.  A call that autograd records goes
+    through :class:`TrimConv1dFn`.
     """
+    if needs_grad(x, w):
+        return TrimConv1dFn.apply(x, w)
+    return _conv1d(x, w)
+
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The wrapper's forward: the plain version on a CPU ``x``, the
+    kernel on a CUDA one."""
     global LAUNCHES
     if x.device.type == "cpu":
         return trim_conv1d_plain(x, w)

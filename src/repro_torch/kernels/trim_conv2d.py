@@ -46,6 +46,9 @@ from repro_torch.kernels.requant import requant_mult_shift
 #: Launches of the CUDA kernel since the last reset (a plain counter:
 #: callers set it to 0 before a run and read it after).
 LAUNCHES = 0
+#: u8 x s8 launches that also wrote their transposed weights (the weight
+#: pre-pass; :func:`u8_weights` had no kept buffer), since the last reset
+PREPASSES = 0
 
 #: The most shared memory one block can have on an H100.
 SMEM_MAX = 227 * 1024
@@ -657,6 +660,7 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                    else 1 if requant_shift is not None else 0)
 
         def launch(stream):
+            global PREPASSES
             gather = t.path == U8_GATHER
             key = (stream, gather, t.steps if gather else 0, t.wt_bytes)
             wt, ready = u8_weights(w, key, -(-t.wt_bytes // 16) * 16)
@@ -666,6 +670,7 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                 int(requant_shift or 0), int(ready), t.smem_bytes, stream)
             if rc == 0 and not ready:
                 u8_weights_keep(w, key, wt)
+                PREPASSES += 1
             return rc
 
         rc = _on_stream(x, launch)

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._autograd import refuse_grad
 
 #: Launches of the CUDA kernel since the last reset (a plain counter:
 #: callers set it to 0, or call :func:`reset_launches`, before a run and
@@ -191,9 +192,11 @@ def trim_matmul(a: torch.Tensor, b: torch.Tensor,
     ``a`` and ``b`` may be views with any non-negative row stride; their
     column stride must be 1.  A CPU ``a`` runs :func:`trim_matmul_plain`;
     a CUDA ``a`` launches the kernel on the current stream on the path
-    :func:`select_path` names, or raises.
+    :func:`select_path` names, or raises.  The kernel has no backward: an
+    operand that needs a gradient under grad mode raises on either device.
     """
     if a.device.type == "cpu":
+        refuse_grad("trim_matmul", a, b)
         return trim_matmul_plain(a, b, out_dtype)
     _out_dtype(a, b, out_dtype)  # the shapes select_path reads
     return _launch(a, b, out_dtype, select_path(a, b))
@@ -205,6 +208,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor,
     library refuses a path that cannot take the operands and this raises,
     never swapping in another path."""
     global LAUNCHES
+    refuse_grad("trim_matmul", a, b)
     if path not in _PATH_CODES:
         raise ValueError(f"path must be one of {PATHS}, not {path!r}")
     if a.device.type != "cuda":

@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._autograd import refuse_grad
 
 #: Launches of the CUDA kernel since the last reset (a plain counter:
 #: callers set it to 0 before a run and read it after).
@@ -130,9 +131,12 @@ def trim_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (a copy only where they are not).  x, dt, Bm and Cm may be strided
     views, Bm/Cm with a stride of 0 over H; the last axis of x, Bm and Cm
     must have stride 1.  A CPU ``x`` runs :func:`trim_ssd_plain`; a CUDA
-    ``x`` launches the kernel on the current stream, or raises.
+    ``x`` launches the kernel on the current stream, or raises.  The
+    kernel has no backward: an input that needs a gradient under grad
+    mode raises on either device.
     """
     global LAUNCHES
+    refuse_grad("trim_ssd", x, dt, A, Bm, Cm, D)
     if x.device.type == "cpu":
         return trim_ssd_plain(x, dt, A, Bm, Cm, D, chunk=chunk)
     if x.device.type != "cuda":

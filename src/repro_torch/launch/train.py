@@ -1,26 +1,37 @@
 """Train the paper's CNNs through the port's TrIM conv, in both
-directions.
+directions, and the LM architectures the port has.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch vgg16 \\
       --steps 4 --batch 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch vgg16 --smoke \\
       --steps 3 --batch 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+      --smoke --steps 20 --batch 8 --seq 64 --device cpu --ckpt-dir ckpt
 
-Port of the CNN arm of ``repro/launch/train.py``.  Seeded params
-(``init_cnn``), the deterministic ``SyntheticImageDataset`` stream, the
-one-device ``make_train_step`` (AdamW, warmup-cosine, non-finite step
-skip, ``--accum`` microbatches) and ``train_loop``.  On the card every
-conv runs forward in the TrIM kernel and backward through
+Port of ``repro/launch/train.py``.  The CNN arm: seeded params
+(``init_cnn``), the deterministic ``SyntheticImageDataset`` stream; on
+the card every conv runs forward in the TrIM kernel and backward through
 ``TrimConv2dFn``: dx in the same kernel, dw in the weight-gradient
-kernel.  ``--device`` defaults to ``cuda``; without a card pass
-``--device cpu`` to run the kernels' plain versions.  The launcher exits
-non-zero when any step's loss or grad_norm is not finite.  ``--int8``
-then quantizes the trained convs and runs the calibrated int8 lane once,
-``--int5`` the int5 MSR lane (exponent-folded pairs); either fails on a
-non-finite feature map.  ``--substrate`` and ``--emulate-hw`` select the
-execution policy (``launch.cli.execution_parent``; the decimated replay
-has no backward on the kernel substrate).  LM archs, ``--ckpt-dir`` and
-meshes are not ported yet and are refused.
+kernel.  ``--int8`` then quantizes the trained convs and runs the
+calibrated int8 lane once, ``--int5`` the int5 MSR lane
+(exponent-folded pairs); either fails on a non-finite feature map.  The
+LM arm (``--arch`` an LM id, ``--smoke`` for its reduced fp32 config):
+``CausalLM.loss`` on the ``SyntheticLMDataset`` stream of ``--seq`` + 1
+tokens a row; on the card the Mamba mixer's conv1d and the attention
+core run their kernels forward, under ``autograd.Function``s whose
+backward is the plain version's VJP.  Both arms: the one-device
+``make_train_step`` (AdamW, warmup-cosine, non-finite step skip,
+``--accum`` microbatches) and ``train_loop``, which with ``--ckpt-dir``
+saves every ``--ckpt-every`` steps and at the end and resumes from the
+latest committed step (the JAX package's checkpoint format).
+``--device`` defaults to ``cuda``; without a card pass ``--device cpu``
+to run the kernels' plain versions.  The launcher exits non-zero when
+any step's loss or grad_norm is not finite.  ``--substrate`` and
+``--emulate-hw`` select the execution policy
+(``launch.cli.execution_parent``; the decimated replay has no backward on
+the kernel substrate).  ``--tp`` other than 1 and ``--compress-grads``
+belong to the distributed slice (ROADMAP queue 1, item 10) and are
+refused.
 """
 
 import argparse
@@ -29,16 +40,20 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.configs import CNN_REGISTRY, CNN_SMOKES
-from repro_torch.data.pipeline import SyntheticImageDataset
+from repro_torch.configs import (CNN_REGISTRY, CNN_SMOKES, get_config,
+                                 get_smoke)
+from repro_torch.data.pipeline import SyntheticImageDataset, SyntheticLMDataset
 from repro_torch.distributed import (StepConfig, TrainLoopConfig,
                                      make_train_state, make_train_step,
                                      train_loop)
 from repro_torch.engine import plan_model
 from repro_torch.engine.policy import fp32_ieee, resolve_device
+from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import trim_conv1d as conv1d
 from repro_torch.kernels import trim_conv2d as kernel
 from repro_torch.kernels import trim_conv2d_vjp as vjp
 from repro_torch.launch.cli import execution_parent, policy_from_args
+from repro_torch.nn.models import build_model
 
 
 def _int_check(plan, params, images: np.ndarray, device, lane: str) -> None:
@@ -66,6 +81,31 @@ def _int_check(plan, params, images: np.ndarray, device, lane: str) -> None:
         raise SystemExit(f"[train] FAIL: non-finite {lane} feature map")
 
 
+def _cnn(args):
+    """(model, dataset, the launches line) of the CNN arm."""
+    cfg = (CNN_SMOKES if args.smoke else CNN_REGISTRY)[args.arch]
+    ds = SyntheticImageDataset(hw=cfg.input_hw, channels=cfg.layers[0].M,
+                               n_classes=cfg.n_classes,
+                               global_batch=args.batch, seed=args.seed)
+    kernel.LAUNCHES = vjp.WGRAD_LAUNCHES = 0
+    return (cfg, plan_model(cfg, policy_from_args(args)), ds,
+            lambda: f"conv {kernel.LAUNCHES}, wgrad {vjp.WGRAD_LAUNCHES}")
+
+
+def _lm(args, ap):
+    """(model, dataset, the launches line) of the LM arm."""
+    try:
+        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+        model = build_model(cfg, policy=policy_from_args(args))
+    except (KeyError, NotImplementedError) as e:
+        ap.error(f"--arch {args.arch!r}: {e.args[0]}")
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq + 1,
+                            global_batch=args.batch, seed=args.seed)
+    conv1d.LAUNCHES = flash.LAUNCHES = 0
+    return (cfg, model, ds,
+            lambda: f"conv1d {conv1d.LAUNCHES}, flash {flash.LAUNCHES}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0],
                                  parents=[execution_parent(
@@ -74,39 +114,48 @@ def main() -> None:
                     help="use the reduced smoke config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="LM: tokens a row (the dataset draws one more)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
+                    help="save checkpoints here and resume from the latest")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compress-grads", action="store_true",
                     help="not ported yet: refused")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-axis size; only 1 is ported")
     args = ap.parse_args()
 
-    if args.arch not in CNN_REGISTRY:
-        ap.error(f"--arch {args.arch!r}: the port trains only "
-                 f"{sorted(CNN_REGISTRY)}; the LM family is not ported yet")
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir: checkpointing is not ported yet")
+    if args.tp != 1 or args.compress_grads:
+        ap.error("--tp other than 1 and --compress-grads are not ported "
+                 "yet: the distributed slice is ROADMAP queue 1, item 10")
+    is_cnn = args.arch in CNN_REGISTRY
     dev = resolve_device(args.device)
     fp32_ieee()
-    cfg = (CNN_SMOKES if args.smoke else CNN_REGISTRY)[args.arch]
-    ds = SyntheticImageDataset(hw=cfg.input_hw, channels=cfg.layers[0].M,
-                               n_classes=cfg.n_classes,
-                               global_batch=args.batch, seed=args.seed)
-    plan = plan_model(cfg, policy_from_args(args))
+    cfg, model, ds, launches = _cnn(args) if is_cnn else _lm(args, ap)
     scfg = StepConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                       total_steps=args.steps, accum=args.accum)
-    state = make_train_state(plan, args.seed, dev)
-    kernel.LAUNCHES = vjp.WGRAD_LAUNCHES = 0
-    out = train_loop(make_train_step(plan, scfg), state, ds,
-                     TrainLoopConfig(total_steps=args.steps))
+    state = make_train_state(model, args.seed, dev)
+    out = train_loop(make_train_step(model, scfg), state, ds,
+                     TrainLoopConfig(total_steps=args.steps,
+                                     ckpt_every=args.ckpt_every,
+                                     ckpt_dir=args.ckpt_dir))
     hist = out["history"]
+    if out["resumed_from"] is not None:
+        print(f"[train] resumed from step {out['resumed_from']}")
+    if not hist:
+        print(f"[train] {cfg.name}: nothing to run past step "
+              f"{out['resumed_from']}")
+        return
     losses = [h["loss"] for h in hist]
     grad_norm = hist[-1].get("grad_norm", float("nan"))
-    print(f"[train] {cfg.name} on {dev}: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; grad_norm {grad_norm:.4f}; "
-          f"{len(out['stragglers'])} straggler steps; kernel launches: "
-          f"conv {kernel.LAUNCHES}, wgrad {vjp.WGRAD_LAUNCHES}")
+    print(f"[train] {cfg.name} on {dev}: steps {hist[0]['step']}-"
+          f"{hist[-1]['step']}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"grad_norm {grad_norm:.4f}; {len(out['stragglers'])} straggler "
+          f"steps; kernel launches: {launches()}")
     # Every step is checked: skip_nonfinite keeps the state sane on a bad
     # step, which would hide a batch-dependent NaN from a last-step check.
     bad = [h["step"] for h in hist
@@ -117,9 +166,14 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(1)
     for lane in ("int8", "int5"):
-        if getattr(args, lane):
-            _int_check(plan, out["state"]["params"],
-                       ds.batch_at(0)["images"], dev, lane)
+        if not getattr(args, lane):
+            continue
+        if not is_cnn:
+            print(f"[train] --{lane} ignored: LM arch has no {lane} conv "
+                  "path")
+            continue
+        _int_check(model, out["state"]["params"], ds.batch_at(0)["images"],
+                   dev, lane)
 
 
 if __name__ == "__main__":

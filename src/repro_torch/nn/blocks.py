@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.engine.policy import ExecutionPolicy
 from repro_torch.nn.attention import (AttnLayout, KVCache, attention,
                                       init_attention, init_kv_cache)
@@ -190,9 +190,13 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
             x.shape[:2])
     rope = (rope_angles(positions, spec.layout.head_dim, spec.rope_theta)
             if spec.layout is not None else None)
+    # each stacked leaf unbound once: in training its gradient is then one
+    # stack of the periods' gradients, where a slice per period would
+    # add a zero-filled leaf-sized gradient per period
+    per_period = list(zip(*(leaf.unbind(0) for leaf in tree_leaves(params))))
     new_caches = []
     for i in range(spec.n_periods):
-        p_i = tree_map(lambda p: p[i], params)
+        p_i = tree_unflatten(params, per_period[i])
         c_i = tree_map(lambda c: c[i], cache) if cache is not None else None
         nc = {}
         for j, slot in enumerate(spec.slots):

@@ -5,13 +5,14 @@ serves them).
 Functional, as in the JAX package: a model object holds only static
 structure (the config, the derived StackSpec); params and caches are
 explicit trees (the KV caches are written in place, ``nn/attention.py``,
-and in decode the Mamba caches too, ``nn/mamba.py``).
-The loss, ``EncDecLM`` and the other families are ROADMAP queue 1, item 9.
+and in decode the Mamba caches too, ``nn/mamba.py``).  ``CausalLM.loss``
+is the next-token CE that ``distributed.steps.make_train_step`` trains.
+``EncDecLM`` and the other families are ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -22,6 +23,7 @@ from repro_torch.nn.blocks import (SlotSpec, StackSpec, _norm_fns,
                                    init_stack, init_stack_cache, run_stack)
 from repro_torch.nn.layers import (Params, embed_logits, embed_lookup,
                                    init_embedding)
+from repro_torch.nn.losses import chunked_softmax_xent, softmax_xent
 from repro_torch.nn.mamba import mamba_dims
 
 #: the families ``build_model`` takes
@@ -114,12 +116,43 @@ class CausalLM:
         return embed_logits(params["embed"], x, self.cfg.vocab,
                             keep_pad=keep_pad)
 
-    # -- forward -------------------------------------------------------------
+    # -- train -------------------------------------------------------------
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, vocab), fp32."""
+        """tokens (B, S) -> logits (B, S, vocab), fp32 (the JAX forward's
+        logits; its ``moe_aux`` is 0 with no MoE slot)."""
         x = self._embed(params, tokens)
         x, _ = run_stack(params["stack"], x, self.spec, mode="train")
         return self._logits(params, x)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             aux_weight: float = 0.01
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Next-token CE of ``tokens[:, :-1]`` against ``tokens[:, 1:]``
+        (batch: ``tokens`` (B, S)).  ``ce_impl`` "padded" takes the CE on
+        the padded-vocab logits (pad entries at -1e30), "chunked" over
+        vocab chunks of the tied table (``nn/losses.py``).  Returns
+        (ce + aux_weight * moe_aux, {"ce", "moe_aux", "ppl"}); ``moe_aux``
+        is 0 (no MoE slot is ported) and ``ppl`` is exp(min(ce, 20))."""
+        if "extra_embeds" in batch:
+            raise NotImplementedError(
+                "extra_embeds (the vlm family) is not ported yet: ROADMAP "
+                "queue 1, item 9")
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens[:, :-1])
+        x, _ = run_stack(params["stack"], x, self.spec, mode="train")
+        targets = tokens[:, 1:]
+        if self.cfg.ce_impl == "chunked":
+            _, norm = _norm_fns(self.cfg.norm)
+            ce = chunked_softmax_xent(norm(params["final_norm"], x),
+                                      params["embed"]["table"], targets,
+                                      self.cfg.vocab)
+        else:
+            ce = softmax_xent(self._logits(params, x, keep_pad=True),
+                              targets)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux_weight * aux, {
+            "ce": ce, "moe_aux": aux,
+            "ppl": torch.exp(torch.clamp(ce, max=20.0))}
 
     # -- serve --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,

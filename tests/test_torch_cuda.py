@@ -13,7 +13,14 @@ two calls), the matmul kernel on each of its paths (wgmma, stream,
 mma, fma: int8 bit for bit, fp32 within 1e-4, bf16 within 2 ulps of each
 row's largest output; the stream path bit-equal over two calls; a named
 path that cannot take the operands refused) and the SSD scan kernel (fp32
-within 2e-5, bf16 within 5e-2, the same bits on a repeat call).
+within 2e-5, bf16 within 5e-2, the same bits on a repeat call).  Also the
+CUDA graphs (every lane x bucket of the smoke VGG-16 and of AlexNet's
+smoke shapes with grouped layers, which must record no weight pre-pass
+and no weight cut; the decode steps), and the LM kernels under autograd:
+the conv1d and flash ``autograd.Function``s' gradients equal plain
+autograd's bit for bit (one kernel launch counted), a smoke LM's train
+step on the kernels against the oracle's, and the SSD and matmul
+wrappers refusing inputs that need a gradient.
 
 ``CASES``/``make_inputs`` are shared with ``test_torch_conv2d.py``, which
 holds the same cases on the CPU against the JAX package.  On the card the
@@ -35,6 +42,21 @@ from repro_torch.kernels import flash_attention as fa_plan
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import trim_conv2d as port_conv
 from repro_torch.kernels.requant import scale_to_mult_shift
+
+#: AlexNet's smoke shapes with its grouped layers: CL2 and CL3 in 2 groups
+#: (the smoke AlexNet of both packages has none), for the grouped convs'
+#: kept weight slices (``engine.execute.group_parts``)
+def alexnet_grouped_smoke():
+    from repro_torch.core.model import ConvLayerSpec
+    from repro_torch.nn.conv import CNNConfig
+
+    return CNNConfig(
+        "alexnet-grouped-smoke",
+        layers=(ConvLayerSpec("CL1", 23, 23, 11, 3, 8, stride=4, pad=0),
+                ConvLayerSpec("CL2", 4, 4, 5, 4, 16, pad=2),
+                ConvLayerSpec("CL3", 4, 4, 3, 8, 16, pad=1)),
+        pool_after=(), classifier=(32,), n_classes=10, input_hw=(23, 23))
+
 
 # (N, H, W, C, K, F, stride, padding, groups, lane, epilogue)
 CASES = [
@@ -1516,7 +1538,8 @@ GRAPH_LANES = [("float", None), ("int8", None), ("int5", None),
                ("int8", "f32exact")]
 
 
-def _graph_engine(datapath, substrate, buckets=(1, 4), faults=None):
+def _graph_engine(datapath, substrate, buckets=(1, 4), faults=None,
+                  cfg=None):
     from repro_torch.configs import CNN_SMOKES
     from repro_torch.launch import serve_cnn
     from repro_torch.serve import FaultPlan, ServeConfig
@@ -1525,7 +1548,7 @@ def _graph_engine(datapath, substrate, buckets=(1, 4), faults=None):
     policy = ExecutionPolicy(substrate=substrate or "kernel")
     conf = ServeConfig(buckets=buckets, datapath=datapath,
                        faults=FaultPlan.parse(faults) if faults else None)
-    srv = serve_cnn.build_server(CNN_SMOKES["vgg16"], policy, conf,
+    srv = serve_cnn.build_server(cfg or CNN_SMOKES["vgg16"], policy, conf,
                                  device="cuda")
     srv.close()
     return srv.engine
@@ -1572,6 +1595,41 @@ def test_bucket_replay_equals_eager_on_card(datapath, substrate):
             before = kern.LAUNCHES
             got = eng.run_bucket(b, images)
             assert kern.LAUNCHES - before == per
+            want = _eager(eng, b, images)
+            assert got.dtype == want.dtype and torch.equal(got, want), (
+                b, seed)
+    assert eng.capture_counts == eng.compile_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("datapath", ["float", "int8", "int5"])
+def test_alexnet_bucket_replay_equals_eager_on_card(datapath):
+    """AlexNet's smoke shapes with grouped convs on each lane, buckets 1,
+    4 and 8:
+    the captures record no u8 x s8 weight pre-pass and no cut of a
+    grouped layer's weights (``graphs.capture`` raises on either, each of
+    which would rerun on every replay); one replay counts a launch per
+    conv group and no pre-pass; each replay equals the eager executable
+    bit for bit; one capture per key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.engine import execute
+    from repro_torch.kernels import trim_conv2d as kern
+
+    eng = _graph_engine(datapath, None, buckets=(1, 4, 8),
+                        cfg=alexnet_grouped_smoke())
+    assert set(eng.capture_counts.values()) == {1}
+    assert eng.capture_counts == eng.compile_counts
+    per_group = sum(lp.groups for lp in eng.plan.layers)
+    assert per_group > len(eng.plan.layers)          # grouped layers
+    for b in eng.buckets:
+        assert eng.bucket_graphs(b).launches["trim_conv2d"] == per_group
+        for seed in range(2):
+            images = _graph_images(eng, b, seed)
+            before = (kern.LAUNCHES, execute.GROUP_CUTS, kern.PREPASSES)
+            got = eng.run_bucket(b, images)
+            assert (kern.LAUNCHES, execute.GROUP_CUTS, kern.PREPASSES) == (
+                before[0] + per_group, *before[1:])
             want = _eager(eng, b, images)
             assert got.dtype == want.dtype and torch.equal(got, want), (
                 b, seed)
@@ -1798,3 +1856,141 @@ def test_two_generations_on_one_decode_graph_on_card(arch):
     _, want_toks, want_leaves = generate(alone, prompts[1])
     assert torch.equal(toks, want_toks)
     assert all(torch.equal(a, b) for a, b in zip(leaves, want_leaves))
+
+
+# -- the LM kernels under autograd ---------------------------------------------
+# The conv1d and flash kernels train through their autograd Functions: the
+# forward is the kernel (one launch counted), the backward the plain
+# version's VJP, so the gradients equal plain autograd's on the same
+# inputs bit for bit.  The SSD and matmul kernels have no backward and
+# refuse inputs that need a gradient.
+
+
+def _autograd_pair(fn, plain, inputs, seed):
+    live = [t.detach().clone().requires_grad_(True) for t in inputs]
+    ref_live = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out, want = fn(*live), plain(*ref_live)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cot = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    return (out, want, torch.autograd.grad(out, live, cot),
+            torch.autograd.grad(want, ref_live, cot))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_conv1d_function_gradients_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the conv1d kernel runs on the card")
+    from repro_torch.kernels import trim_conv1d as k1d
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    proj = torch.randn((2, 300, 96), generator=gen, device="cuda").to(dtype)
+    x = proj[..., 16:80]               # a column view, as the mixer's xBC
+    w = torch.randn((4, 64), generator=gen, device="cuda").to(dtype)
+    before = k1d.LAUNCHES
+    out, want, got_g, want_g = _autograd_pair(
+        k1d.trim_conv1d, k1d.trim_conv1d_plain, (x, w), 1)
+    assert k1d.LAUNCHES - before == 1
+    assert out.grad_fn.name() == "TrimConv1dFnBackward"
+    assert torch.equal(out, want)
+    for a, b in zip(got_g, want_g):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("G,D", [(4, 64), (12, 128)], ids=["G4", "G12"])
+def test_flash_function_gradients_on_card(dtype, G, D):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernel runs on the card")
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, S, H = 2, 200, 2
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in ((B, S, H, G, D), (B, S, H, D), (B, S, H, D)))
+    kw = dict(causal=True, chunk_k=64)
+    before = fa.LAUNCHES
+    out, want, got_g, want_g = _autograd_pair(
+        lambda *t: fa.flash_attention(*t, **kw),
+        lambda *t: fa.flash_attention_plain(*t, **kw), (q, k, v), 3)
+    assert fa.LAUNCHES - before == 1
+    assert out.grad_fn.name() == "FlashAttentionFnBackward"
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    for a, b in zip(got_g, want_g):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b"])
+def test_lm_train_step_on_card(arch):
+    """One train step of the smoke LM (fp32; flash at head dim 64) on the
+    kernels against the same step on the oracle substrate: the path's
+    kernel launched once per layer (the forward), loss and grad_norm
+    within 1e-5, every new param within rtol = atol = 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the LM kernels run on the card")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed import (StepConfig, make_train_state,
+                                         make_train_step)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as k1d
+    from repro_torch.nn.models import build_model
+
+    fp32_ieee()
+    cfg = get_smoke(arch)
+    if cfg.n_q:  # the flash kernel takes head dims 64 and 128
+        cfg = cfg.with_overrides(head_dim=64)
+    model = build_model(cfg, policy=ExecutionPolicy("kernel"))
+    oracle = build_model(cfg, policy=ExecutionPolicy("oracle"))
+    state = make_train_state(model, 0, "cuda")
+    batch = SyntheticLMDataset(vocab=cfg.vocab, seq_len=33,
+                               global_batch=4).batch_at(0)
+    counter = k1d if cfg.family == "ssm" else fa
+    before = counter.LAUNCHES
+    new, mets = make_train_step(model, StepConfig())(state, batch)
+    assert counter.LAUNCHES - before == cfg.n_layers
+    new_o, mets_o = make_train_step(oracle, StepConfig())(state, batch)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(mets[k], mets_o[k], rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(new), tree_leaves(new_o)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_and_matmul_refuse_a_gradient_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels run on the card")
+    from repro_torch.kernels import trim_matmul as mm
+    from repro_torch.kernels import trim_ssd as ssd
+
+    dev = "cuda"
+    a = torch.randn(32, 64, device=dev, requires_grad=True)
+    b = torch.randn(64, 16, device=dev)
+    before = mm.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        mm.trim_matmul(a, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mm._launch(a, b, None, "fma")
+    assert mm.LAUNCHES == before
+    with torch.no_grad():
+        torch.testing.assert_close(mm.trim_matmul(a, b),
+                                   mm.trim_matmul_plain(a.detach(), b),
+                                   rtol=1e-4, atol=1e-4)
+    Bb, L, H, P, S = 1, 64, 2, 16, 16
+    x = torch.randn(Bb, L, H, P, device=dev, requires_grad=True)
+    dt = torch.rand(Bb, L, H, device=dev)
+    A = -torch.rand(H, device=dev)
+    Bm, Cm = (torch.randn(Bb, L, H, S, device=dev) for _ in range(2))
+    D = torch.randn(H, device=dev)
+    before = ssd.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd.trim_ssd(x, dt, A, Bm, Cm, D, chunk=32)
+    assert ssd.LAUNCHES == before
+    assert ssd.trim_ssd(x.detach(), dt, A, Bm, Cm, D, chunk=32).shape == \
+        x.shape

@@ -263,6 +263,26 @@ def test_capture_error_names_the_line_that_broke():
     assert "NameError" in where
 
 
+@pytest.mark.parametrize("work", ["cut", "pre-pass"])
+def test_capture_refuses_a_recorded_weight_cut_or_pre_pass(work):
+    """A recording that cut a grouped layer's weights or wrote u8 x s8
+    transposed weights raises: each would run again on every replay."""
+    from repro_torch.engine import execute
+
+    before = graphs._weight_work()
+    graphs._refuse_weight_work("fake", before)       # nothing moved
+    mod, attr = ((execute, "GROUP_CUTS") if work == "cut"
+                 else (trim_conv2d, "PREPASSES"))
+    setattr(mod, attr, getattr(mod, attr) + 1)
+    try:
+        with pytest.raises(graphs.CaptureError,
+                           match="grouped weight cuts, which every replay"):
+            graphs._refuse_weight_work("fake", before)
+    finally:
+        setattr(mod, attr, getattr(mod, attr) - 1)
+    assert graphs._weight_work() == before
+
+
 def test_executable_on_the_cpu_is_its_eager_forward():
     cfg = CNN_SMOKES["vgg16"]
     plan = plan_model(cfg, ExecutionPolicy())
@@ -273,3 +293,55 @@ def test_executable_on_the_cpu_is_its_eager_forward():
     assert torch.equal(ex(params, imgs), ex.forward(params, imgs))
     with pytest.raises(ValueError, match="executable takes"):
         ex(params, imgs[:1])
+
+
+def test_grouped_weights_are_cut_once_per_tensor():
+    """AlexNet's grouped convs (the smoke shapes with CL2 and CL3 in 2
+    groups) on the int8 lane: the first call cuts each grouped layer's
+    weights and requant pairs into per-group pieces and keeps them, a
+    second call cuts nothing (so a captured bucket records no slice copy
+    and no weight pre-pass), an in-place update of a weight cuts that
+    tensor again, and the features stay bit-equal to the oracle
+    substrate's.  Tensors that autograd records, and inference tensors,
+    are cut on every call."""
+    from repro_torch.engine import execute
+    from test_torch_cuda import alexnet_grouped_smoke
+
+    cfg = alexnet_grouped_smoke()
+    plan = plan_model(cfg, ExecutionPolicy("kernel"))
+    oracle = plan_model(cfg, ExecutionPolicy("oracle"))
+    assert [lp.groups for lp in plan.layers] == [1, 2, 2]
+    qp, _ = plan.quantize(plan.init(0, "cpu"))
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 23, 23, 3)).astype(np.uint8))
+    requant = plan.calibrate_requant(qp, images)
+    want = oracle.forward_int8(qp, images, requant=requant)
+    ex = plan.executable_for(4, "int8", "cpu")
+    counts = []
+    for _ in range(2):
+        before = execute.GROUP_CUTS
+        assert torch.equal(ex(qp, images, requant), want)
+        counts.append(execute.GROUP_CUTS - before)
+    # the first call cuts what calibration did not (CL2's requant pairs
+    # at least); the second finds every piece kept
+    assert counts[0] >= 2 and counts[1] == 0
+    w = qp["conv"][1]["kernel"]
+    pieces = execute.group_parts(w, 2, w.shape[-1])
+    assert all(not p.is_inference() for p in pieces)
+    with torch.no_grad():
+        w.add_(0)                                   # a new version
+    assert execute.group_parts(w, 2, w.shape[-1])[0] is not pieces[0]
+    before = execute.GROUP_CUTS
+    assert torch.equal(ex(qp, images, requant), want)
+    assert execute.GROUP_CUTS - before == 0       # cut by the call above
+    f = torch.randn(3, 3, 4, 8, requires_grad=True)
+    parts = execute.group_parts(f, 2, 8)
+    assert parts[0].requires_grad
+    assert execute.group_parts(f, 2, 8)[0] is not parts[0]
+    with torch.inference_mode():
+        t = torch.randn(3, 3, 4, 8)
+    assert execute.group_parts(t, 2, 8)[0] is not \
+        execute.group_parts(t, 2, 8)[0]
+    with torch.no_grad():
+        kept = execute.group_parts(f, 2, 8)
+        assert execute.group_parts(f, 2, 8)[0] is kept[0]

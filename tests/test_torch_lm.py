@@ -1,6 +1,7 @@
 """The port's LM serving path against the JAX package's, on the CPU, for
-each architecture it serves: mamba2-130m (the ssm family) and granite-3-2b
-(the dense family).  Every test but the refusals of unported families and
+each architecture it serves: mamba2-130m (the ssm family), granite-3-2b
+and starcoder2-3b (the dense family; layernorm, the tanh-gelu MLP, G = 4
+on its smoke config and 12 at full width).  Every test but the refusals of unported families and
 features runs once per architecture.
 
 - The full config's fields equal JAX's, and the full-width parameter
@@ -42,7 +43,7 @@ from repro_torch.nn.models import CausalLM, build_model
 from repro_torch.weights import from_jax_params, to_numpy
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-ARCHS = ["mamba2-130m", "granite-3-2b"]
+ARCHS = ["mamba2-130m", "granite-3-2b", "starcoder2-3b"]
 #: the full-width parameter count: embedding (padded vocab) + layers + the
 #: final norm
 FULL_PARAMS = {
@@ -51,6 +52,10 @@ FULL_PARAMS = {
     "granite-3-2b": 49280 * 2048 + 40 * (2048 * 48 * 64 + 32 * 64 * 2048
                                          + 3 * 2048 * 8192 + 2 * 2048)
     + 2048,
+    # layernorm: a scale and a bias per norm; the gelu MLP: two matrices
+    "starcoder2-3b": 49152 * 3072 + 30 * (3072 * 28 * 128 + 24 * 128 * 3072
+                                          + 2 * 3072 * 12288 + 4 * 3072)
+    + 2 * 3072,
 }
 TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_TOL = dict(rtol=3e-4, atol=3e-4)

@@ -7,7 +7,9 @@ per step and params after the last step within rtol = atol = 1e-4.  On
 the port's kernel substrate every conv gradient runs through
 ``TrimConv2dFn`` (the kernels' plain versions on the CPU); the oracle
 substrate runs plain autograd.  Also: gradient accumulation, the
-non-finite step skip, the loop, and the launcher.
+non-finite step skip, the loop and its resume from a checkpoint, and the
+launcher (both arms, ``--ckpt-dir`` resume on the CPU, the refusals of
+the distributed flags).
 """
 import os
 import pathlib
@@ -176,8 +178,30 @@ def test_unported_options_raise():
         make_train_step(plan, StepConfig(compress_grads=True))
     with pytest.raises(NotImplementedError):
         make_train_step(plan, StepConfig(), mesh=object())
-    with pytest.raises(NotImplementedError):
-        train_loop(None, None, None, TrainLoopConfig(ckpt_dir="ckpt"))
+
+
+def test_loop_resumes_from_its_checkpoint(tmp_path):
+    """vgg16-smoke: a run saves at step 2; a run from another init
+    resumes there and takes the uninterrupted run's steps 2 and 3 (losses
+    within rtol 1e-6, the JAX package's resume tolerance)."""
+    plan = plan_model(CFG, ExecutionPolicy("kernel"))
+    step = make_train_step(plan, _scfg(StepConfig))
+    ds = _dataset(SyntheticImageDataset)
+    quiet = dict(log_fn=lambda _: None)
+    full = train_loop(step, make_train_state(plan, 0, "cpu"), ds,
+                      TrainLoopConfig(total_steps=4), **quiet)
+    d = str(tmp_path / "ckpt")
+    first = train_loop(step, make_train_state(plan, 0, "cpu"), ds,
+                       TrainLoopConfig(total_steps=2, ckpt_every=2,
+                                       ckpt_dir=d), **quiet)
+    assert first["resumed_from"] is None
+    resumed = train_loop(step, make_train_state(plan, 1, "cpu"), ds,
+                         TrainLoopConfig(total_steps=4, ckpt_dir=d), **quiet)
+    assert resumed["resumed_from"] == 2
+    assert [h["step"] for h in resumed["history"]] == [2, 3]
+    np.testing.assert_allclose([h["loss"] for h in resumed["history"]],
+                               [h["loss"] for h in full["history"][2:]],
+                               rtol=1e-6)
 
 
 def _launch(*args):
@@ -187,14 +211,33 @@ def _launch(*args):
         capture_output=True, text=True, timeout=300, cwd=REPO)
 
 
-def test_launcher_trains_on_cpu_and_refuses_a_missing_card():
+def test_launcher_trains_on_cpu_and_refuses_a_missing_card(tmp_path):
     smoke = ("--arch", "vgg16", "--smoke", "--steps", "3", "--batch", "4")
     proc = _launch(*smoke, "--device", "cpu", "--int8")
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "[train] vgg16-smoke on cpu" in proc.stdout
     assert "int8 datapath" in proc.stdout
-    for bad in (("--arch", "granite-3-2b", "--device", "cpu"),
-                smoke + ("--device", "cpu", "--ckpt-dir", "ckpt")):
+    # the LM arm, and --ckpt-dir resume on both arms
+    lm = ("--arch", "granite-3-2b", "--smoke", "--batch", "4", "--seq", "16",
+          "--device", "cpu")
+    proc = _launch(*lm, "--steps", "3", "--int8")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "[train] granite-3-2b-smoke on cpu: steps 0-2" in proc.stdout
+    assert "--int8 ignored: LM arch" in proc.stdout
+    for args in (lm, smoke[:-4] + ("--batch", "4", "--device", "cpu")):
+        ckpt = ("--ckpt-dir", str(tmp_path / args[1]), "--ckpt-every", "2")
+        proc = _launch(*args, "--steps", "2", *ckpt)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert sorted(os.listdir(tmp_path / args[1])) == ["step_2"]
+        proc = _launch(*args, "--steps", "3", *ckpt)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert "[train] resumed from step 2" in proc.stdout
+        assert "on cpu: steps 2-2" in proc.stdout
+        assert sorted(os.listdir(tmp_path / args[1])) == ["step_2", "step_3"]
+    for bad in (smoke + ("--device", "cpu", "--tp", "2"),
+                smoke + ("--device", "cpu", "--compress-grads"),
+                lm + ("--tp", "2"),
+                ("--arch", "gemma-7b", "--device", "cpu")):
         proc = _launch(*bad)
         assert proc.returncode == 2 and "not ported" in proc.stderr
     if torch.cuda.is_available():
