@@ -22,7 +22,10 @@ Phases (any failure exits non-zero and prints no result line):
    (``cuobjdump -sass`` on the built library), which fails if an entry
    is missing or has none where the library exports the tensor-core
    lane's constant ``trim_conv2d_u8_pixels`` (a library without it
-   predates the lane: its count is only logged);
+   predates the lane: its count is only logged); the flash kernel's
+   registers and spills per path (bf16 prefill, bf16 split decode, fp32)
+   and head dim (8, 16, 32, 64, 128, 256), failing where an entry is
+   missing;
 3. kernels: the TrIM conv kernel against its plain PyTorch version on the
    card, at the 13 VGG-16 conv shapes on the float lane (bias+ReLU) at
    batch 1 and at the train phase's batch 8 (image 0 of the batch also
@@ -122,6 +125,14 @@ Phases (any failure exits non-zero and prints no result line):
    2, 128) cache with kv_length 4097 (split path), against its plain
    version (2e-2 and 4 x 2^-7 per row) and timed beside it, SDPA and the
    bound;
+3h. flash at the head dims this slice added: gemma-7b's full-width
+   serving shapes at D = 256, G = 1, the prefill q (4, 4096, 16, 1, 256)
+   causal and the decode q (4, 1, 16, 1, 256) over a (4, 4128, 16, 256)
+   cache with kv_length 4097 (NaN past it for the kernel), in bf16 (2e-2
+   and 4 x 2^-7 per row) and fp32 (2e-5), each timed beside the plain
+   version, SDPA (TF32 off) and the bound; llama4-maverick's (G = 5, D =
+   128) in bf16; and D = 8, 16 and 32 at small prefill and decode shapes
+   on both dtypes against the plain version;
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
@@ -260,7 +271,24 @@ Phases (any failure exits non-zero and prints no result line):
    MLP, vocab 49152, bf16, seed-0 weights): flash launches exactly 30 in
    the prefill and per decode step, the replay bit-equal to eager;
 14. code LM checks: phase 8 for starcoder2-3b, the kernels' logits
-   within 1e-4 of the largest |logit| of the plain attention's.
+   within 1e-4 of the largest |logit| of the plain attention's;
+15. gemma-7b serve: phase 7 for full-width gemma-7b (28 layers, d_model
+   3072, 16 heads of 256, geglu, vocab 256000, the embedding scaled by
+   sqrt(d_model) rounded to bf16, bf16, seed-0 weights): flash launches
+   exactly 28 in the prefill and per decode step (868 over 31 steps), the
+   replay bit-equal to eager;
+16. gemma-7b checks: phase 8 for gemma-7b (fp32, TF32 off, batch 2, S =
+   512), the kernels' logits within 1e-4 of the largest |logit| of the
+   plain attention's;
+17. MoE serve: phase 7 for llama4-maverick-400b-a17b at full width with
+   its depth cut to one period of its schedule, 2 layers (a dense layer,
+   then a 128-expert top-1 MoE layer with the shared expert; untied
+   lm_head, vocab 202048, bf16, about 18.5 B parameters; the cut logged):
+   flash launches exactly 2 in the prefill and per decode step; a second
+   eager run from its own prefill gives the first's prefill logits and
+   greedy tokens bit for bit, and the (token, choice) slots the MoE layer
+   drops past capacity in a prefill and a decode step are logged; the
+   replay bit-equal to eager.
 
 ``--drift SEEDS`` runs only phases 1-2 and then, at the train phase's
 size and at peak lr 1e-3 and 1e-4, for each seed: the kernels' run
@@ -317,6 +345,12 @@ PEAK_TF32 = 495e12
 LM_ARCH, DENSE_ARCH = "mamba2-130m", "granite-3-2b"
 #: the dense arch served at G = n_q / n_kv = 12 and head dim 128
 CODE_ARCH = "starcoder2-3b"
+#: the dense arch served at head dim 256 (MHA, G = 1, geglu, the scaled
+#: embedding), and the MoE arch served at full width with its depth cut to
+#: one period of its schedule (a dense layer, then a 128-expert top-1 MoE
+#: layer with the shared expert)
+GEMMA_ARCH = "gemma-7b"
+MOE_ARCH, MOE_LAYERS = "llama4-maverick-400b-a17b", 2
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
 LM_CHECK_BATCH, LM_CHECK_LEN = 2, 512
 #: max|kernel - plain| of the fp32 check's prefill logits, as a share of
@@ -325,7 +359,8 @@ LM_CHECK_BATCH, LM_CHECK_LEN = 2, 512
 #: each score and output in another order than the plain einsums, through
 #: 40 (granite) or 30 (starcoder2) layers (1e-4, about 800 fp32 ulps of
 #: the largest logit)
-LM_KERNEL_TOL = {LM_ARCH: 1e-6, DENSE_ARCH: 1e-4, CODE_ARCH: 1e-4}
+LM_KERNEL_TOL = {LM_ARCH: 1e-6, DENSE_ARCH: 1e-4, CODE_ARCH: 1e-4,
+                 GEMMA_ARCH: 1e-4}
 #: the bf16 flash lane's row check: max|kernel - plain| over a row of D
 #: outputs within BF16_ROW_ULPS x 2^-7 x the row's max|plain| (2^-7 x is
 #: one to two bf16 ulps).  The kernel rounds P to bf16 for P.V and its
@@ -402,6 +437,7 @@ def phase_build():
                 log(f"ptxas {name}: {line.strip()}")
     _log_conv_build()
     _log_ssd_build()
+    _log_flash_build()
 
 
 def _ptxas_by_entry(log_text: str, entries: dict) -> dict:
@@ -475,6 +511,33 @@ def _log_conv_build() -> None:
         if hasattr(kern.load_library(), "trim_conv2d_u8_pixels") and not n:
             fail(f"conv kernel {label}: no IMMA in its SASS (cuobjdump rc "
                  f"{sass.returncode}: {sass.stderr.strip()[:200]})")
+
+
+#: The flash kernel's entries, one per path and head dim: mangled-name
+#: fragment -> label.
+FLASH_ENTRIES = {f"{entry}ILi{D}EE": f"{path} D={D}"
+                 for entry, path in (("flash_prefill_kernel", "bf16 prefill"),
+                                     ("flash_decode_split_kernel",
+                                      "bf16 split decode"),
+                                     ("flash_attention_f32_kernel", "fp32"))
+                 for D in (8, 16, 32, 64, 128, 256)}
+
+
+def _log_flash_build() -> None:
+    """The flash kernel's registers and spills per path and head dim from
+    its ``-Xptxas -v`` build log; fails where an entry is missing (spills
+    are logged: the bf16 prefill's consumers run at most 168 registers by
+    ptxas's count, whatever setmaxnreg raises them to at run time)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    found = _ptxas_by_entry(
+        _build.build_log(fa._LIB_NAME, fa._SOURCES) or "", FLASH_ENTRIES)
+    for label in FLASH_ENTRIES.values():
+        info = found.get(label)
+        log(f"flash kernel, {label}: {info or 'not in the log'}")
+        if info is None:
+            fail(f"flash kernel {label}: not in the build log")
 
 
 #: The SSD kernel's stages per lane: mangled-name fragment -> label.
@@ -3045,8 +3108,9 @@ def _lm_counters():
     return {"trim_conv1d": k1d, "flash_attention": fa}
 
 
-def phase_lm_serve(torch, arch: str):
-    """Full-width ``arch`` served in bf16 through the launcher's functions:
+def phase_lm_serve(torch, arch: str, n_layers: int = 0):
+    """Full-width ``arch`` served in bf16 through the launcher's functions
+    (its depth cut to ``n_layers`` where given, logged as a cut):
     one prefill, then greedy decode, twice: once with the eager decode step
     (the reading of the earlier slices) and once through the decode step
     captured as a CUDA graph (``launch.serve.decode_executable``), each
@@ -3058,8 +3122,12 @@ def phase_lm_serve(torch, arch: str):
     (per replay: the launches the capture recorded, held once against the
     flash kernels ``torch.profiler`` sees in replays).  The graph's
     greedy tokens must equal the eager run's, and then, from a third
-    prefill, its logits the eager step's at every step, bit for bit.
-    Returns {kernel: (prefill launches, decode launches)}."""
+    prefill, its logits the eager step's at every step, bit for bit.  An
+    arch with MoE layers is also served eagerly a second time from its own
+    prefill, whose logits and tokens must equal the first run's bit for
+    bit, and logs the (token, choice) slots its MoE layers drop past
+    capacity in one prefill and one decode step.  Returns {kernel:
+    (prefill launches, decode launches)}."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -3077,6 +3145,10 @@ def phase_lm_serve(torch, arch: str):
     gc.collect()
     dev = torch.device("cuda", 0)
     cfg = get_config(arch)
+    if n_layers:
+        log(f"lm serve {arch}: depth cut from {cfg.n_layers} to {n_layers} "
+            "layers (one period of its schedule), every width as published")
+        cfg = cfg.with_overrides(n_layers=n_layers)
     model = build_model(cfg)
     steps = LM_GEN - 1
     per_layer = ({"trim_conv1d": (1, 0), "flash_attention": (0, 0)}
@@ -3097,7 +3169,9 @@ def phase_lm_serve(torch, arch: str):
     prefill = prefill_executable(eng, model, params, batch0, cache())
     torch.cuda.synchronize()
     log(f"lm serve: {cfg.name} ({cfg.param_count_estimate()} params, "
-        f"{cfg.dtype}) init + warm prefill in {time.perf_counter() - t0:.1f} s")
+        f"{cfg.active_param_count_estimate()} active a token, {cfg.dtype}) "
+        f"init + warm prefill in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated")
 
     # -- eager decode: the earlier slices' reading, in this run
     eager_step = torch.inference_mode()(make_decode_step(model))
@@ -3117,6 +3191,9 @@ def phase_lm_serve(torch, arch: str):
                                    for _ in range(4)], calls=4)
     del c_e
     torch.cuda.synchronize()
+    if cfg.n_experts:
+        _moe_twice(torch, arch, prefill, eager_step, params, batch0, cache,
+                   logits, toks_e, steps, dev)
 
     # -- the served path: prefill, then the captured decode step
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3221,6 +3298,38 @@ def phase_lm_serve(torch, arch: str):
     return {k: (n_prefill[k], n_decode[k]) for k in counters}
 
 
+def _moe_twice(torch, arch, prefill, eager_step, params, batch0, cache,
+               logits0, toks0, steps, dev) -> None:
+    """An MoE arch served eagerly again from its own prefill: the prefill's
+    logits and the greedy tokens equal the first run's bit for bit (no
+    atomic float sum decides a bit: the dispatch's counts are integers and
+    the combine sums the rounds in order); the slots dropped past capacity
+    in this prefill and its first decode step, per MoE layer call."""
+    from repro_torch.launch.serve import run_decode, run_prefill
+    from repro_torch.nn import moe
+
+    moe.DROPPED = []
+    try:
+        logits, c, _ = run_prefill(prefill, params, batch0, cache(), dev)
+        pre = [int(t) for t in moe.DROPPED]
+        moe.DROPPED = []
+        first, c, _, _ = run_decode(eager_step, params, logits.argmax(-1),
+                                    c, LM_PROMPT, 1, dev)
+        dec = [int(t) for t in moe.DROPPED]
+    finally:
+        moe.DROPPED = None
+    rest, _, _, _ = run_decode(eager_step, params, first[0], c,
+                               LM_PROMPT + 1, steps - 1, dev)
+    if not torch.equal(logits, logits0) or not torch.equal(
+            torch.stack(first + rest), torch.stack(toks0)):
+        fail(f"lm serve {arch}: a second eager run's logits or tokens "
+             "differ from the first's")
+    log(f"lm serve {arch}: a second eager run gave the first's prefill "
+        f"logits and {steps} greedy tokens bit for bit; slots dropped past "
+        f"capacity per MoE layer call: prefill {pre} of "
+        f"{LM_BATCH * LM_PROMPT} a call (x top_k), first decode step {dec}")
+
+
 #: the kernels a wrapper launch is counted for, by counter, as the
 #: profiler names them (a split's merge and the u8 x s8 weight pre-pass
 #: are further kernels of one launch, not counted)
@@ -3311,6 +3420,8 @@ def phase_lm_checks(torch, arch: str):
     from repro_torch.engine import ExecutionPolicy
     from repro_torch.nn.models import build_model
 
+    gc.collect()  # the serve phase's engine and graph hold its params
+    torch.cuda.empty_cache()
     dev = torch.device("cuda", 0)
     cfg = get_config(arch).with_overrides(dtype=torch.float32)
     model = build_model(cfg)
@@ -3451,37 +3562,56 @@ def _conv1d_train_row(torch, B, L, reps) -> dict:
     return _conv1d_row(torch, x, w, reps)
 
 
-def _flash_row(torch, what, B, Sq, Sk, H, G, D, causal, kvl, reps) -> dict:
-    """The flash kernel in bf16 at one shape (``kvl`` one kv_length for
-    every row, or None) against its plain version (2e-2, and per row
-    BF16_ROW_ULPS x 2^-7 of the row's max|plain|), and its times
-    (``_flash_times``)."""
+def _flash_row(torch, what, B, Sq, Sk, H, G, D, causal, kvl, reps,
+               dtype=None, timed=True) -> dict:
+    """The flash kernel at one shape (``kvl`` one kv_length for every row,
+    or None; the keys past it NaN for the kernel, zero for the plain
+    version) against its plain version (bf16 2e-2, and per row
+    BF16_ROW_ULPS x 2^-7 of the row's max|plain|; fp32 2e-5), and, where
+    ``timed``, its times (``_flash_times``).  ``dtype`` defaults to
+    bf16."""
     from repro_torch.kernels import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(6)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(
-        torch.bfloat16)
+        dtype)
     q, k, v = rnd(B, Sq, H, G, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
     kvl = None if kvl is None else (kvl,) * B
     kw = dict(causal=causal, kv_length=None if kvl is None else
               torch.tensor(kvl, dtype=torch.int32, device=dev))
+    kp, vp = k, v
+    if kvl is not None:
+        stale = (torch.arange(Sk, device=dev)[None, :]
+                 >= kw["kv_length"][:, None])[..., None, None]
+        kp, vp = k.masked_fill(stale, 0.0), v.masked_fill(stale, 0.0)
+        k.masked_fill_(stale, float("nan"))
+        v.masked_fill_(stale, float("nan"))
     got = fa.flash_attention(q, k, v, **kw)
-    want = fa.flash_attention_plain(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, kp, vp, **kw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    ulps = _row_ulps(got, want)
-    if not torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2) \
-            or ulps > BF16_ROW_ULPS:
-        fail(f"flash {what}: max|kernel-plain| {err:.3g}, worst row "
-             f"{ulps:.3g} x 2^-7 (limits 2e-2, {BF16_ROW_ULPS})")
-    row = {"shape": what, "q": tuple(q.shape), "kv": tuple(k.shape),
-           "max_abs_err": err, "row_ulps": ulps,
-           **_flash_times(torch, q, k, v, kw, kvl, reps)[0]}
-    log(f"flash {what}: q {row['q']} kv {row['kv']} bf16 err {err:.3g} row "
-        f"{ulps:.3g} x 2^-7; ms {row['ms']:.4f} plain_ms "
-        f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
-        f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    bf16 = dtype == torch.bfloat16
+    ulps = _row_ulps(got, want) if bf16 else None
+    tol = 2e-2 if bf16 else 2e-5
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+            or not torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol) \
+            or (bf16 and ulps > BF16_ROW_ULPS):
+        fail(f"flash {what} {dtype}: max|kernel-plain| {err:.3g}, worst row "
+             f"{ulps} x 2^-7 (limits {tol}, {BF16_ROW_ULPS})")
+    row = {"shape": what, "dtype": str(dtype).replace("torch.", ""),
+           "q": tuple(q.shape), "kv": tuple(k.shape), "max_abs_err": err,
+           "row_ulps": ulps}
+    if not timed:
+        return row
+    row.update(_flash_times(torch, q, k, v, kw, kvl, reps, kp, vp)[0])
+    log(f"flash {what}: q {row['q']} kv {row['kv']} {row['dtype']} err "
+        f"{err:.3g}" + (f" row {ulps:.3g} x 2^-7" if bf16 else "")
+        + f"; ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+        f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+        f"({row['bound_by']})")
     return row
 
 
@@ -3502,6 +3632,53 @@ def phase_flash_code(torch, reps: int):
         "decode": _flash_row(torch, f"{CODE_ARCH} decode", LM_BATCH, 1,
                              LM_PROMPT + LM_GEN, H, G, D, False,
                              LM_PROMPT + 1, reps)}
+
+
+#: the head dims below the kernel's 64-column unit, each at a small
+#: prefill (warpgroup path in bf16, kv_length inside a tile) and decode
+#: (split path), both dtypes, against the plain version
+FLASH_SMALL_DIMS = (8, 16, 32)
+
+
+def phase_flash_dims(torch, reps: int):
+    """The flash kernel at the head dims this slice added.  gemma-7b's
+    full-width serving shapes at D = 256, G = 1: the prefill q (4, 4096,
+    16, 1, 256) causal and the decode q (4, 1, 16, 1, 256) over a (4,
+    4128, 16, 256) cache with kv_length 4097, in bf16 and fp32, each
+    against the plain version, timed beside it, SDPA (TF32 off) and the
+    bound; llama4-maverick's (G = 5, D = 128), the MoE serve phase's
+    shapes, in bf16; then D = 8, 16 and 32 at small shapes against the
+    plain version.  Returns {(arch, shape, dtype): row}."""
+    from repro_torch.configs import get_config
+
+    rows = {}
+    for arch, dtypes in ((GEMMA_ARCH, (torch.bfloat16, torch.float32)),
+                         (MOE_ARCH, (torch.bfloat16,))):
+        cfg = get_config(arch)
+        H, G, D = cfg.n_kv, cfg.n_q // cfg.n_kv, cfg.head_dim
+        for dtype in dtypes:
+            n = reps if dtype == torch.bfloat16 else max(3, reps // 10)
+            name = str(dtype).replace("torch.", "")
+            rows[(arch, "prefill", name)] = _flash_row(
+                torch, f"{arch} prefill", LM_BATCH, LM_PROMPT, LM_PROMPT, H,
+                G, D, True, None, n, dtype=dtype)
+            rows[(arch, "decode", name)] = _flash_row(
+                torch, f"{arch} decode", LM_BATCH, 1, LM_PROMPT + LM_GEN, H,
+                G, D, False, LM_PROMPT + 1, n, dtype=dtype)
+    worst = {}
+    for D in FLASH_SMALL_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for what, args in (("prefill", (2, 300, 300, 2, 4, D, True, 277)),
+                               ("decode", (2, 1, 1000, 2, 4, D, False, 777))):
+                r = _flash_row(torch, f"D={D} {what}", *args, reps,
+                               dtype=dtype, timed=False)
+                key = f"D={D} {r['dtype']}"
+                worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
+    log("flash at D = 8, 16, 32 (prefill q (2, 300, 2, 4, D) causal with "
+        "kv_length 277, decode q (2, 1, 2, 4, D) over 1000 keys with "
+        "kv_length 777): kernel matches plain, max|err| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+    return rows
 
 
 def _leaf_grad_errors(torch, model, oracle, params, batch, counter):
@@ -3762,6 +3939,7 @@ def main() -> None:
     crows = phase_conv1d(torch, args.reps)
     frows = phase_flash(torch, args.reps)
     code_rows = phase_flash_code(torch, args.reps)
+    dim_rows = phase_flash_dims(torch, args.reps)
     mrows = phase_matmul(torch, args.reps, max(3, args.reps // 10))
     srows = phase_ssd(torch, args.reps)
     if args.kernels:
@@ -3786,6 +3964,9 @@ def main() -> None:
                 for arch in (LM_ARCH, DENSE_ARCH)}
     code_launches = phase_lm_serve(torch, CODE_ARCH)
     phase_lm_checks(torch, CODE_ARCH)
+    gemma_launches = phase_lm_serve(torch, GEMMA_ARCH)
+    phase_lm_checks(torch, GEMMA_ARCH)
+    moe_launches = phase_lm_serve(torch, MOE_ARCH, n_layers=MOE_LAYERS)
     log("captures per key (CUDA graphs; the int5 lane's again after each "
         "wire restore): " + "; ".join(
             f"{phase}: " + ", ".join(f"{k.split(' ', 1)[1]} {n}"
@@ -3872,6 +4053,17 @@ def main() -> None:
             **{k: code_rows[shape][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}}
+           for i, shape in enumerate(("prefill", "decode"))]
+        # head dim 256 (gemma-7b) and the MoE serve's attention (G = 5)
+        + [{"name": f"flash_attention_bf16_{arch}_{shape}",
+            "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES,
+            "launches": launches["flash_attention"][i],
+            **{k: dim_rows[(arch, shape, "bfloat16")][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+           for arch, launches in ((GEMMA_ARCH, gemma_launches),
+                                  (MOE_ARCH, moe_launches))
            for i, shape in enumerate(("prefill", "decode"))]
         + [{"name": "trim_conv1d_bf16", "route": "cuda",
             "source": CONV1D_SOURCE, "replaces": CONV1D_REPLACES,

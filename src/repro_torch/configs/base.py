@@ -2,9 +2,9 @@
 ``repro/configs/base.py``; the port keeps its own so it imports nothing of
 the JAX package).  The one change: ``dtype`` is a ``torch.dtype``.
 
-The ``ssm`` (mamba2-130m) and ``dense`` (granite-3-2b) families are
-registered so far; the other LM families arrive with their modules
-(ROADMAP queue 1, item 9).
+The ``ssm``, ``dense``, ``moe`` and ``hybrid`` families are registered;
+the ``vlm`` (llava-next-34b) and ``encdec`` (seamless-m4t-large-v2)
+families arrive with their modules (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -95,29 +95,69 @@ class ModelConfig:
         return self.family == "ssm"
 
     def param_count_estimate(self) -> int:
-        """Closed-form parameter count of the ``ssm`` and ``dense``
-        families, as ``repro/configs/base.py`` counts it: the embedding
-        (twice if untied) plus, per layer, the Mamba mixer (in_proj, conv,
-        A_log/dt_bias/D, the gated norm's scale and out_proj) or the
-        attention projections and the MLP; norms are not counted."""
-        if self.family not in ("ssm", "dense"):
-            raise NotImplementedError(
-                f"{self.family!r}: only the ssm and dense families are "
-                "ported (ROADMAP queue 1, item 9)")
+        """Closed-form parameter count, as ``repro/configs/base.py``
+        counts it: the embedding (twice if untied) plus, per layer, the
+        Mamba mixer (in_proj, conv, A_log/dt_bias/D, the gated norm's
+        scale and out_proj) or the attention projections, and the MLP, or
+        every expert (with the shared expert and the dense residual where
+        the config has them); norms and routers are not counted."""
         d, v = self.d_model, self.vocab
         emb = v * d * (1 if self.tie_embeddings else 2)
-        if self.family == "dense":
-            attn = (d * (self.n_q + 2 * self.n_kv) * self.head_dim
-                    + self.n_q * self.head_dim * d)
-            mlp = (3 if self.mlp_kind in ("swiglu", "geglu") else 2) \
-                * d * self.d_ff
-            return emb + self.n_layers * (attn + mlp)
-        d_in = self.ssm_expand * d
-        gs = self.ssm_n_groups * self.ssm_d_state
-        h = d_in // self.ssm_headdim
-        mamba = (d * (2 * d_in + 2 * gs + h) + self.ssm_d_conv * (d_in + 2 * gs)
-                 + d_in * d + 3 * h + d_in)
-        return emb + self.n_layers * mamba
+
+        def attn_params() -> int:
+            return d * (self.n_q + 2 * self.n_kv) * self.head_dim \
+                + self.n_q * self.head_dim * d
+
+        def mlp_params(ff: int) -> int:
+            return (3 if self.mlp_kind in ("swiglu", "geglu") else 2) * d * ff
+
+        def mamba_params() -> int:
+            d_in = self.ssm_expand * d
+            gs = self.ssm_n_groups * self.ssm_d_state
+            h = d_in // self.ssm_headdim
+            in_proj = d * (2 * d_in + 2 * gs + h)
+            conv = self.ssm_d_conv * (d_in + 2 * gs)
+            return in_proj + conv + d_in * d + 3 * h + d_in
+
+        total = emb
+        for i in range(self.n_layers):
+            if self.family == "ssm":
+                total += mamba_params()
+                continue
+            is_moe = self.n_experts and i % self.moe_every == self.moe_offset
+            if self.family == "hybrid":
+                is_attn = (self.attn_every and
+                           i % self.attn_every == self.attn_offset)
+                total += attn_params() if is_attn else mamba_params()
+                total += (self.n_experts * mlp_params(self.d_ff) if is_moe
+                          else mlp_params(self.dense_ff or self.d_ff))
+                continue
+            total += attn_params()
+            if is_moe:
+                total += self.n_experts * mlp_params(self.d_ff)
+                if self.shared_expert:
+                    total += mlp_params(self.d_ff)
+                if self.dense_residual:
+                    total += mlp_params(self.dense_ff or self.d_ff)
+            else:
+                total += mlp_params(self.dense_ff or self.d_ff)
+        for _ in range(self.n_enc_layers):
+            total += attn_params() + mlp_params(self.d_ff)
+            if self.family == "encdec":      # decoder cross-attention
+                total += attn_params()
+        return total
+
+    def active_param_count_estimate(self) -> int:
+        """Parameters a token runs through (MoE: top_k experts of each MoE
+        layer instead of all)."""
+        if not self.n_experts:
+            return self.param_count_estimate()
+        n_moe = sum(1 for i in range(self.n_layers)
+                    if i % self.moe_every == self.moe_offset)
+        width = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+        per_expert = width * self.d_model * self.d_ff
+        return (self.param_count_estimate()
+                - n_moe * (self.n_experts - self.top_k) * per_expert)
 
 
 #: registry of the LM configs the port runs (one entry per architecture id)
@@ -134,6 +174,6 @@ def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(
             f"arch {name!r} is not ported: the port serves "
-            f"{sorted(REGISTRY)}; the other dense archs and the MoE, hybrid, "
-            "vlm and encdec families are ROADMAP queue 1, item 9")
+            f"{sorted(REGISTRY)}; the vlm and encdec families are ROADMAP "
+            "queue 1, item 9")
     return REGISTRY[name]

@@ -13,14 +13,18 @@
 //
 // Three kernels, chosen by dtype and shape:
 // - bf16, more than kSplitRows flattened rows (prefill): warpgroup MMA.
-//   A block owns 192 rows (D = 64) or 128 rows (D = 128) of one (b, h): a
-//   producer warpgroup, cut to 24 registers by setmaxnreg, whose one
-//   thread brings 128-key K and V tiles in by TMA (one CUtensorMap each
-//   over (D, Sk, H, B) with the caller's strides, 128-byte swizzle) into a
-//   ring of 3 (2) stages with mbarrier full/empty pairs; and three (two)
-//   consumer warpgroups of 64 rows (16 positions x G = 4: the G q heads of
-//   a KV head share every tile), raised to 160 (240) registers, the most
-//   the 65536 of an SM allow. Each loads its Q once
+//   A block owns 192 rows (D <= 64) or 128 rows (D = 128, 256) of one
+//   (b, h): a producer warpgroup, cut to 24 registers by setmaxnreg, whose
+//   one thread brings 128-key (64-key at D = 256) K and V tiles in by TMA
+//   (one CUtensorMap each over (D, Sk, H, B) with the caller's strides,
+//   128-byte swizzle) into a ring of 3 (2) stages with mbarrier full/empty
+//   pairs; and three (two) consumer warpgroups of 64 rows (16 positions x
+//   G = 4: the G q heads of a KV head share every tile), raised to 160
+//   (240) registers, the most the 65536 of an SM allow. At D = 256 the
+//   64-key tile keeps two stages of K and V (128 KB) and two warpgroups'
+//   Q (64 KB) within the 227 KB of a block, and S (64 x 64) beside the
+//   64 x 256 fp32 O (128 registers a thread) within 240 registers; O += P V
+//   is two m64n128 products per 16 keys. Each loads its Q once
 //   into shared memory (the same swizzle), then per tile S = Q K^T is
 //   wgmma m64n128k16 with both operands in shared memory, the softmax runs
 //   on S in registers (exp2 with scale * log2(e) folded into one FFMA; the
@@ -34,7 +38,8 @@
 //   alone (flash_attention.py:decode_splits). In a block each of 4 warps
 //   streams 32-key sub-tiles round robin through its own 2-stage cp.async
 //   ring (keys past the split or n_valid zero-filled, never read), with
-//   the mma.sync m16n8k16 inner loop on its 16-row fragment; the warps'
+//   the mma.sync m16n8k16 inner loop on its 16-row fragment (16-key
+//   sub-tiles at D = 256, so that the 4 rings fit in 132 KB); the warps'
 //   (m, l, acc) merge in shared memory, the block writes its fp32 partial
 //   to the caller's scratch, and the block that arrives last at its
 //   (b, h)'s counter merges every split in split order (the log-sum-exp
@@ -45,7 +50,17 @@
 // - fp32: IEEE on the CUDA cores (no TF32). A block of 128 threads owns 32
 //   rows, 4 threads per row, each holding a quarter of the row's q and of
 //   its accumulator; a score is the quad's partial dots summed by two
-//   shuffles. K/V tiles of 32 keys in shared memory.
+//   shuffles. K/V tiles of 32 keys (16 at D = 256: 32 KB of static shared
+//   memory either way) in shared memory.
+//
+// Head dims: 8, 16, 32, 64, 128 and 256, the ones the Pallas kernel is
+// driven at (it blocks only the sequence). Below a lane's unit of the
+// head dim (64 on the prefill, 32 on the split decode, 16 on the fp32
+// lane) a kernel works on the dim padded with zeros to that unit: it
+// reads the D real columns of q, k and v (TMA fills the box's columns
+// past D with zeros, cp.async zero-fills, the fp32 loads select 0),
+// writes the D real columns of the output, and scales by D^-0.5 of the
+// true D. Nothing is padded in device memory.
 //
 // What the TPU kernel keeps out of device memory, and how this one does:
 // - The (Sq, Sk) scores never reach device memory: (m, l, acc) live in
@@ -78,6 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -86,15 +103,14 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kF32Rows = 32;  // fp32 lane: rows per block (4 threads each)
 constexpr int kF32Keys = 32;  // fp32 lane: keys per tile
-// bf16 prefill: keys per K/V tile; the least rows per block (two consumer
-// warpgroups of 64, at D = 128; PfSmem<D> gives each head dim's)
-constexpr int kPfKeys = 128;
+// bf16 prefill: the least rows per block (two consumer warpgroups of 64,
+// at D = 128 and 256; PfSmem<D> gives each head dim's rows and keys)
 constexpr int kPfRows = 128;
 // bf16 split decode: rows (one mma.sync fragment), the split's unit in
-// keys, a warp's sub-tile in keys, warps, stages of a warp's ring
+// keys, warps, stages of a warp's ring (SplitSmem<D> gives a warp's
+// sub-tile in keys)
 constexpr int kSplitRows = 16;
 constexpr int kSplitTile = 64;
-constexpr int kSubKeys = 32;
 constexpr int kSplitWarps = kThreads / 32;
 constexpr int kSplitStages = 2;
 
@@ -219,7 +235,7 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Box (64 of D, kPfKeys keys, 1, 1) at (d0, key0, h, b) into shared memory
+// Box (64 of D, PfSmem<D>::kKeys keys, 1, 1) at (d0, key0, h, b) into shared memory
 // at `dst`, completing on `bar`.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
@@ -261,6 +277,27 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) = A (64 x 16) B (16 x 64) [+ d when scale_d], bf16 in:
+// A and B from shared memory, both K-major (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -325,25 +362,31 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
 // Dynamic shared memory of the prefill block, in bytes from a 1024-byte
 // aligned base: each consumer warpgroup's Q (64 rows), then the ring of
 // kStages (K tile, V tile) pairs, then the full and empty mbarriers. A
-// tile is D / 64 column blocks of 64 bf16 x rows, each row 128 bytes in
-// the 128-byte swizzle (what TMA writes and wgmma reads).
+// tile is kDP / 64 column blocks of 64 bf16 x rows, each row 128 bytes in
+// the 128-byte swizzle (what TMA writes and wgmma reads). Below D = 64 the
+// head dim is one column block whose columns past D hold zeros.
 template <int D>
 struct PfSmem {
+  static constexpr int kDP = D < 64 ? 64 : D;  // the head dim, padded
   // consumer warpgroups of 64 rows, rows and threads per block (with the
   // producer warpgroup), registers of a consumer thread after setmaxnreg
-  // (the producer keeps 24: 128 x 24 + 128 kWGs x kRegs <= 65536)
-  static constexpr int kWGs = D == 64 ? 3 : 2;
+  // (the producer keeps 24: 128 x 24 + 128 kWGs x kRegs <= 65536), keys
+  // per K/V tile
+  static constexpr int kWGs = D <= 64 ? 3 : 2;
   static constexpr int kRows = 64 * kWGs;
   static constexpr int kThreads = 128 * (kWGs + 1);
   static constexpr int kRegs = kWGs == 3 ? 160 : 240;
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kQBlk = 64 * 128;        // a Q column block
-  static constexpr int kBlk = kPfKeys * 128;    // a K or V column block
-  static constexpr int kWgQ = (D / 64) * kQBlk;  // one warpgroup's Q
-  static constexpr int kTile = (D / 64) * kBlk;  // one K or V tile
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr int kKeys = D == 256 ? 64 : 128;
+  static constexpr int kDB = kDP / 64;           // 64-column blocks
+  static constexpr int kQBlk = 64 * 128;         // a Q column block
+  static constexpr int kBlk = kKeys * 128;       // a K or V column block
+  static constexpr int kWgQ = kDB * kQBlk;       // one warpgroup's Q
+  static constexpr int kTile = kDB * kBlk;       // one K or V tile
   static constexpr int kRing = kWGs * kWgQ;
   static constexpr int kBar = kRing + kStages * 2 * kTile;
   static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;  // + alignment
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
 };
 
 template <int D>
@@ -352,7 +395,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      const FlashArgs a, const int B) {
   using L = PfSmem<D>;
-  constexpr int kDB = D / 64;  // 64-column blocks of the head dim
+  constexpr int kDP = L::kDP;
+  constexpr int kDB = L::kDB;
+  constexpr int kKeys = L::kKeys;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
@@ -371,7 +416,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
   const long long h = bid % a.H;
   const int n_valid = static_cast<int>(valid_keys(a, b));
   const int n_keys = static_cast<int>(loop_keys(a, n_valid, r0, L::kRows));
-  const int n_tiles = (n_keys + kPfKeys - 1) / kPfKeys;
+  const int n_tiles = (n_keys + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < L::kStages; ++st) {
@@ -383,7 +428,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // Producer: one thread keeps the ring full, kStages tiles ahead.
+    // Producer: one thread keeps the ring full, kStages tiles ahead. A box
+    // is 64 columns wide, so the bytes of a tile are the same below
+    // D = 64 (its columns past D come in as zeros).
     regs_dec<24>();
     if (threadIdx.x == 0) {
       for (int j = 0; j < n_tiles; ++j) {
@@ -394,10 +441,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
         const uint32_t ks = sbase + L::kRing + st * 2 * L::kTile;
 #pragma unroll
         for (int db = 0; db < kDB; ++db) {
-          tma_load_4d(ks + db * L::kBlk, &k_map, full, db * 64, j * kPfKeys,
+          tma_load_4d(ks + db * L::kBlk, &k_map, full, db * 64, j * kKeys,
                       static_cast<int>(h), static_cast<int>(b));
           tma_load_4d(ks + L::kTile + db * L::kBlk, &v_map, full, db * 64,
-                      j * kPfKeys, static_cast<int>(h), static_cast<int>(b));
+                      j * kKeys, static_cast<int>(h), static_cast<int>(b));
         }
       }
     }
@@ -415,8 +462,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
   const long long wr0 = r0 + wg * 64;
   const uint32_t qs = sbase + wg * L::kWgQ;
   {
-    // Q into shared memory once, in the tiles' swizzle; rows past M are 0.
-    constexpr int kChunks = D / 8;  // 16-byte chunks per row
+    // Q into shared memory once, in the tiles' swizzle; rows past M and
+    // columns past D are 0.
+    constexpr int kChunks = kDP / 8;  // 16-byte chunks per row
     const __nv_bfloat16* qb =
         static_cast<const __nv_bfloat16*>(a.q) + b * a.qsb + h * a.qsh;
     for (int i = ct % 128; i < 64 * kChunks; i += 128) {
@@ -424,7 +472,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
       const int c = i % kChunks;
       const long long row = wr0 + r;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M)
+      if (row < M && c < D / 8)
         val = *reinterpret_cast<const uint4*>(qb + (row / a.G) * a.qss +
                                               (row % a.G) * a.qsg + c * 8);
       *reinterpret_cast<uint4*>(sm + wg * L::kWgQ + (c / 8) * L::kQBlk +
@@ -448,9 +496,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
   const int Sk = static_cast<int>(a.Sk);
   const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
 
-  float o[D / 2];  // o[4 j + 2 i + c]: row i, column 8 j + 2 t4 + c
+  float o[kDP / 2];  // o[4 j + 2 i + c]: row i, column 8 j + 2 t4 + c
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+  for (int e = 0; e < kDP / 2; ++e) o[e] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY};  // in units of log2
   float l_run[2] = {0.0f, 0.0f};  // this thread's share; summed at the end
 
@@ -459,13 +507,13 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
     mbar_wait(full0 + 8 * st, (j / L::kStages) & 1);
     const uint32_t ks = sbase + L::kRing + st * 2 * L::kTile;
     const uint32_t vs = ks + L::kTile;
-    const int key0 = j * kPfKeys;
-    if (key0 + kPfKeys > n_valid && n_valid < Sk) {
+    const int key0 = j * kKeys;
+    if (key0 + kKeys > n_valid && n_valid < Sk) {
       // The tile holding n_valid: TMA zero-fills only past Sk, and V rows
       // in [n_valid, Sk) may hold anything (a cache past kv_length). The
       // consumer warpgroups zero them together before any one's P V.
       unsigned char* vg = sm + L::kRing + st * 2 * L::kTile + L::kTile;
-      for (int i = ct; i < kPfKeys * kDB * 8; i += 128 * L::kWGs) {
+      for (int i = ct; i < kKeys * kDB * 8; i += 128 * L::kWGs) {
         const int r = i / (kDB * 8);
         const int c = i % (kDB * 8);
         if (key0 + r >= n_valid)
@@ -476,24 +524,31 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
       named_barrier(1 + L::kWGs, 128 * L::kWGs);
     }
 
-    // S = Q K^T (64 x 128, fp32): s[4 n + 2 i + c] is row i, key 8 n +
-    // 2 t4 + c of the tile.
-    float s[kPfKeys / 2];
+    // S = Q K^T (64 x kKeys, fp32): s[4 n + 2 i + c] is row i, key 8 n +
+    // 2 t4 + c of the tile; the 16-column slices of the head dim past D
+    // are all zeros and skipped.
+    float s[kKeys / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n128(
-          s, sw128_desc(qs + (kk / 4) * L::kQBlk + (kk % 4) * 32, 16),
-          sw128_desc(ks + (kk / 4) * L::kBlk + (kk % 4) * 32, 16), kk > 0);
+    for (int kk = 0; kk < (D + 15) / 16; ++kk) {
+      const uint64_t dq = sw128_desc(qs + (kk / 4) * L::kQBlk + (kk % 4) * 32,
+                                     16);
+      const uint64_t dk = sw128_desc(ks + (kk / 4) * L::kBlk + (kk % 4) * 32,
+                                     16);
+      if constexpr (kKeys == 128)
+        wgmma_ss_m64n128(s, dq, dk, kk > 0);
+      else
+        wgmma_ss_m64n64(s, dq, dk, kk > 0);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     pin(s);
 
     // Mask only the tiles that cross n_valid or the causal diagonal.
-    if (key0 + kPfKeys > n_valid ||
-        (a.causal && key0 + kPfKeys - 1 > first_last)) {
+    if (key0 + kKeys > n_valid ||
+        (a.causal && key0 + kKeys - 1 > first_last)) {
 #pragma unroll
-      for (int n = 0; n < kPfKeys / 8; ++n)
+      for (int n = 0; n < kKeys / 8; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int key = key0 + n * 8 + t4 * 2 + (c & 1);
@@ -505,7 +560,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
     // Online softmax in units of log2: p = 2^(s sl2 - m).
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < kPfKeys / 8; ++n)
+    for (int n = 0; n < kKeys / 8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[4 * n + c]);
     float mu[2], alpha[2];
@@ -520,7 +575,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
     }
     float rs[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int n = 0; n < kPfKeys / 8; ++n)
+    for (int n = 0; n < kKeys / 8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         s[4 * n + c] = ex2(fmaf(s[4 * n + c], sl2, -mu[c >> 1]));
@@ -529,25 +584,31 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    for (int e = 0; e < kDP / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 
     // O += P V: P rounded to bf16 in registers (the accumulator layout of
-    // S is the A-fragment layout of P), 16 keys per wgmma.
-    uint32_t p[kPfKeys / 16][4];
+    // S is the A-fragment layout of P), 16 keys per wgmma; at D = 256 the
+    // output's two 128-column halves take one wgmma each.
+    uint32_t p[kKeys / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kPfKeys / 16; ++kk)
+    for (int kk = 0; kk < kKeys / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
     wgmma_fence();
     pin(o);
 #pragma unroll
-    for (int kk = 0; kk < kPfKeys / 16; ++kk) {
-      const uint64_t dv = sw128_desc(vs + kk * 16 * 128, L::kBlk);
-      if constexpr (D == 64)
-        wgmma_rs_m64n64(o, p[kk], dv);
-      else
-        wgmma_rs_m64n128(o, p[kk], dv);
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      if constexpr (kDP == 64) {
+        wgmma_rs_m64n64(o, p[kk], sw128_desc(vs + kk * 16 * 128, L::kBlk));
+      } else {
+#pragma unroll
+        for (int hh = 0; hh < kDP / 128; ++hh)
+          wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(o + 64 * hh),
+                           p[kk],
+                           sw128_desc(vs + hh * 2 * L::kBlk + kk * 16 * 128,
+                                      L::kBlk));
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -579,19 +640,27 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
 // bf16 decode: split over the keys, mma.sync, merged in the same launch
 // ---------------------------------------------------------------------------
 
+// The head dim padded to 32 (two 16-wide mma.sync slices, four 8-wide
+// output tiles: the fragment loops step by two), a warp's sub-tile in
+// keys (16 at D = 256: 4 warps x 2 stages x (K + V) of 32 keys would take
+// 264 KB), and the dynamic shared memory.
 template <int D>
 struct SplitSmem {
-  static constexpr int kLd = D + 8;  // padded row: conflict-free ldmatrix
-  static constexpr int kTile = kSubKeys * kLd;  // elements of a K or V sub-tile
+  static constexpr int kDP = D < 32 ? 32 : D;
+  static constexpr int kSub = D == 256 ? 16 : 32;
+  static constexpr int kLd = kDP + 8;  // padded row: conflict-free ldmatrix
+  static constexpr int kTile = kSub * kLd;  // elements of a K or V sub-tile
   static constexpr int kWarp = kSplitStages * 2 * kTile;  // a warp's ring
   static constexpr int kRing = kSplitWarps * kWarp * 2;   // bytes
   // after the loop: every warp's (m, l) and acc for the 16 rows, fp32
-  static constexpr int kMerge = kSplitWarps * kSplitRows * (D + 2) * 4;
+  static constexpr int kMerge = kSplitWarps * kSplitRows * (kDP + 2) * 4;
   static constexpr int kBytes = kRing > kMerge ? kRing : kMerge;
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
 };
 
-// Keys [key0, key0 + kSubKeys) of K and V into a warp's stage; keys at or
-// past `end` are zero-filled and never read from device memory.
+// Keys [key0, key0 + kSub) of K and V into a warp's stage; keys at or
+// past `end`, and columns past D, are zero-filled and never read from
+// device memory.
 template <int D>
 __device__ __forceinline__ void load_sub(__nv_bfloat16* ks, __nv_bfloat16* vs,
                                          const __nv_bfloat16* kb,
@@ -599,24 +668,26 @@ __device__ __forceinline__ void load_sub(__nv_bfloat16* ks, __nv_bfloat16* vs,
                                          const FlashArgs& a, int key0, int end,
                                          int lane) {
   constexpr int kLd = SplitSmem<D>::kLd;
-  constexpr int kChunks = D / 8;
-  for (int i = lane; i < kSubKeys * kChunks; i += 32) {
+  constexpr int kChunks = SplitSmem<D>::kDP / 8;
+  for (int i = lane; i < SplitSmem<D>::kSub * kChunks; i += 32) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
-    const bool ok = key0 + r < end;
+    const bool ok = key0 + r < end && c < D;
     const long long key = ok ? key0 + r : 0;
-    cp_async16(ks + r * kLd + c, kb + key * a.kss + c, ok);
-    cp_async16(vs + r * kLd + c, vb + key * a.vss + c, ok);
+    cp_async16(ks + r * kLd + c, kb + key * a.kss + (ok ? c : 0), ok);
+    cp_async16(vs + r * kLd + c, vb + key * a.vss + (ok ? c : 0), ok);
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
+  constexpr int kDP = SplitSmem<D>::kDP;
+  constexpr int kSub = SplitSmem<D>::kSub;
   constexpr int kLd = SplitSmem<D>::kLd;
   constexpr int kTile = SplitSmem<D>::kTile;
-  constexpr int kKc = D / 16;  // 16-wide slices of the head dim
-  constexpr int kDn = D / 8;   // 8-wide output column tiles
+  constexpr int kKc = kDP / 16;  // 16-wide slices of the (padded) head dim
+  constexpr int kDn = kDP / 8;   // 8-wide output column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int merging;
 
@@ -650,9 +721,10 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     for (int j = 0; j < 4; ++j) {
       const int i = j & 1;  // a0, a2: row A; a1, a3: row B
       const int col = kc * 16 + (j >> 1) * 8 + t4 * 2;
-      qf[kc][j] = row_ok[i] ? *reinterpret_cast<const uint32_t*>(
-                                  qb + pos[i] * a.qss + grp[i] * a.qsg + col)
-                            : 0u;
+      qf[kc][j] = row_ok[i] && col < D
+                      ? *reinterpret_cast<const uint32_t*>(
+                            qb + pos[i] * a.qss + grp[i] * a.qsg + col)
+                      : 0u;
     }
   }
 
@@ -662,7 +734,7 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
   const int n_keys = static_cast<int>(loop_keys(a, n_valid, 0, kSplitRows));
   const int lo = split * sp.split_tiles * kSplitTile;
   const int hi = min(lo + sp.split_tiles * kSplitTile, n_keys);
-  const int n_sub = hi > lo ? (hi - lo + kSubKeys - 1) / kSubKeys : 0;
+  const int n_sub = hi > lo ? (hi - lo + kSub - 1) / kSub : 0;
   const int mine =
       n_sub > warp ? (n_sub - warp + kSplitWarps - 1) / kSplitWarps : 0;
   const __nv_bfloat16* kb =
@@ -682,7 +754,7 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     for (int c = 0; c < 4; ++c) o[dn][c] = 0.0f;
 
   if (mine > 0)
-    load_sub<D>(ring, ring + kTile, kb, vb, a, lo + warp * kSubKeys, hi, lane);
+    load_sub<D>(ring, ring + kTile, kb, vb, a, lo + warp * kSub, hi, lane);
   cp_async_commit();
   const int mi = lane >> 3;  // ldmatrix: the matrix this lane addresses
   const int rr = lane & 7;   // ... and its row
@@ -691,19 +763,19 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     if (it + 1 < mine) {
       __nv_bfloat16* nx = ring + (st ^ 1) * 2 * kTile;
       load_sub<D>(nx, nx + kTile, kb, vb, a,
-                  lo + (warp + (it + 1) * kSplitWarps) * kSubKeys, hi, lane);
+                  lo + (warp + (it + 1) * kSplitWarps) * kSub, hi, lane);
     }
     cp_async_commit();
     cp_async_wait_one();  // sub-tile it has landed
     __syncwarp();
     const __nv_bfloat16* ks = ring + st * 2 * kTile;
     const __nv_bfloat16* vs = ks + kTile;
-    const int key0 = lo + (warp + it * kSplitWarps) * kSubKeys;
+    const int key0 = lo + (warp + it * kSplitWarps) * kSub;
 
     // S = Q K^T: 4 column tiles of 8 keys.
-    float s[kSubKeys / 8][4];
+    float s[kSub / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kSubKeys / 8; ++nt) {
+    for (int nt = 0; nt < kSub / 8; ++nt) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[nt][c] = 0.0f;
 #pragma unroll
@@ -715,10 +787,10 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
       }
     }
     // Mask only the sub-tiles that cross hi or the first row's diagonal.
-    if (key0 + kSubKeys > hi ||
-        (a.causal && key0 + kSubKeys - 1 > a.q_offset)) {
+    if (key0 + kSub > hi ||
+        (a.causal && key0 + kSub - 1 > a.q_offset)) {
 #pragma unroll
-      for (int nt = 0; nt < kSubKeys / 8; ++nt)
+      for (int nt = 0; nt < kSub / 8; ++nt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int key = key0 + nt * 8 + t4 * 2 + (c & 1);
@@ -728,7 +800,7 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < kSubKeys / 8; ++nt)
+    for (int nt = 0; nt < kSub / 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[nt][c]);
     float mu[2], alpha[2];
@@ -743,7 +815,7 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     }
     float rs[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int nt = 0; nt < kSubKeys / 8; ++nt)
+    for (int nt = 0; nt < kSub / 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         s[nt][c] = ex2(fmaf(s[nt][c], sl2, -mu[c >> 1]));
@@ -758,7 +830,7 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
 
     // acc += P V: P (bf16) from registers, V^T fragments by ldmatrix.trans.
 #pragma unroll
-    for (int kk = 0; kk < kSubKeys / 16; ++kk) {
+    for (int kk = 0; kk < kSub / 16; ++kk) {
       const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -794,8 +866,8 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     }
 #pragma unroll
     for (int dn = 0; dn < kDn; ++dn) {
-      wo[wr * D + dn * 8 + 2 * t4] = o[dn][2 * i];
-      wo[wr * D + dn * 8 + 2 * t4 + 1] = o[dn][2 * i + 1];
+      wo[wr * kDP + dn * 8 + 2 * t4] = o[dn][2 * i];
+      wo[wr * kDP + dn * 8 + 2 * t4 + 1] = o[dn][2 * i + 1];
     }
   }
   __syncthreads();
@@ -821,7 +893,7 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     for (int w = 0; w < kSplitWarps; ++w) {
       const float wt = ex2(wm[w * kSplitRows + r] - mb);
       lb += wl[w * kSplitRows + r] * wt;
-      ob += wo[(w * kSplitRows + r) * D + d] * wt;
+      ob += wo[(w * kSplitRows + r) * kDP + d] * wt;
     }
     if (sp.n_split == 1) {
       out[(((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D + d] =
@@ -870,12 +942,23 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
 // fp32 lane: CUDA cores, IEEE
 // ---------------------------------------------------------------------------
 
+// The head dim padded to 16 (a float4 for each of a row's 4 threads) and
+// keys per tile (2 x 16 x 256 x 4 bytes at D = 256: 32 KB, within the
+// 48 KB of static shared memory).
+template <int D>
+struct F32Tile {
+  static constexpr int kDP = D < 16 ? 16 : D;
+  static constexpr int kKeys = D == 256 ? kF32Keys / 2 : kF32Keys;
+};
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const FlashArgs a) {
-  constexpr int kVec = D / 16;  // float4s per thread per row
-  __shared__ __align__(16) float ks[kF32Keys * D];
-  __shared__ __align__(16) float vs[kF32Keys * D];
+  constexpr int kDP = F32Tile<D>::kDP;
+  constexpr int kKeys = F32Tile<D>::kKeys;
+  constexpr int kVec = kDP / 16;  // float4s per thread per row
+  __shared__ __align__(16) float ks[kKeys * kDP];
+  __shared__ __align__(16) float vs[kKeys * kDP];
 
   const long long b = blockIdx.z;
   const long long h = blockIdx.y;
@@ -888,14 +971,15 @@ flash_attention_f32_kernel(const FlashArgs a) {
   const long long grp = row_ok ? row % a.G : 0;
   const long long last = a.q_offset + pos;
 
-  // Elements d = 16 i + 4 part + e (e < 4) of q and of the accumulator.
+  // Elements d = 16 i + 4 part + e (e < 4) of q and of the accumulator;
+  // those past D are 0.
   float qv[4 * kVec];
   float acc[4 * kVec];
   const float* qrow = static_cast<const float*>(a.q) + b * a.qsb +
                       pos * a.qss + h * a.qsh + grp * a.qsg;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    const float4 t = row_ok
+    const float4 t = row_ok && 16 * i + 4 * part < D
                          ? *reinterpret_cast<const float4*>(qrow + 16 * i +
                                                             4 * part)
                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -912,29 +996,29 @@ flash_attention_f32_kernel(const FlashArgs a) {
   const float* vb = static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh;
   float m_run = kNegInf;
   float l_run = 0.0f;
-  for (long long key0 = 0; key0 < n_keys; key0 += kF32Keys) {
+  for (long long key0 = 0; key0 < n_keys; key0 += kKeys) {
     __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kF32Keys * (D / 4); i += kThreads) {
-      const int r = i / (D / 4);
-      const int c = (i % (D / 4)) * 4;
+    for (int i = threadIdx.x; i < kKeys * (kDP / 4); i += kThreads) {
+      const int r = i / (kDP / 4);
+      const int c = (i % (kDP / 4)) * 4;
       const long long key = key0 + r;
       const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      const bool ok = key < n_valid;
-      *reinterpret_cast<float4*>(&ks[r * D + c]) =
+      const bool ok = key < n_valid && c < D;
+      *reinterpret_cast<float4*>(&ks[r * kDP + c]) =
           ok ? *reinterpret_cast<const float4*>(kb + key * a.kss + c) : zero;
-      *reinterpret_cast<float4*>(&vs[r * D + c]) =
+      *reinterpret_cast<float4*>(&vs[r * kDP + c]) =
           ok ? *reinterpret_cast<const float4*>(vb + key * a.vss + c) : zero;
     }
     __syncthreads();
 
-    float s[kF32Keys];
+    float s[kKeys];
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
+    for (int j = 0; j < kKeys; ++j) {
       float dot = 0.0f;
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         const float4 t =
-            *reinterpret_cast<const float4*>(&ks[j * D + 16 * i + 4 * part]);
+            *reinterpret_cast<const float4*>(&ks[j * kDP + 16 * i + 4 * part]);
         dot += qv[4 * i] * t.x + qv[4 * i + 1] * t.y + qv[4 * i + 2] * t.z +
                qv[4 * i + 3] * t.w;
       }
@@ -944,12 +1028,12 @@ flash_attention_f32_kernel(const FlashArgs a) {
     }
     float mx = m_run;
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) mx = fmaxf(mx, s[j]);
+    for (int j = 0; j < kKeys; ++j) mx = fmaxf(mx, s[j]);
     const float alpha = expf(m_run - mx);
     m_run = mx;
     float rs = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
+    for (int j = 0; j < kKeys; ++j) {
       s[j] = visible(a, key0 + j, n_valid, last) ? expf(s[j] - mx) : 0.0f;
       rs += s[j];
     }
@@ -957,11 +1041,11 @@ flash_attention_f32_kernel(const FlashArgs a) {
 #pragma unroll
     for (int e = 0; e < 4 * kVec; ++e) acc[e] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
+    for (int j = 0; j < kKeys; ++j) {
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         const float4 t =
-            *reinterpret_cast<const float4*>(&vs[j * D + 16 * i + 4 * part]);
+            *reinterpret_cast<const float4*>(&vs[j * kDP + 16 * i + 4 * part]);
         acc[4 * i] += s[j] * t.x;
         acc[4 * i + 1] += s[j] * t.y;
         acc[4 * i + 2] += s[j] * t.z;
@@ -976,9 +1060,10 @@ flash_attention_f32_kernel(const FlashArgs a) {
                (((b * a.Sq + pos) * a.H + h) * a.G + grp) * D;
 #pragma unroll
   for (int i = 0; i < kVec; ++i)
-    *reinterpret_cast<float4*>(dst + 16 * i + 4 * part) =
-        make_float4(acc[4 * i] / den, acc[4 * i + 1] / den,
-                    acc[4 * i + 2] / den, acc[4 * i + 3] / den);
+    if (16 * i + 4 * part < D)
+      *reinterpret_cast<float4*>(dst + 16 * i + 4 * part) =
+          make_float4(acc[4 * i] / den, acc[4 * i + 1] / den,
+                      acc[4 * i + 2] / den, acc[4 * i + 3] / den);
 }
 
 // ---------------------------------------------------------------------------
@@ -986,11 +1071,12 @@ flash_attention_f32_kernel(const FlashArgs a) {
 // ---------------------------------------------------------------------------
 
 // The TMA map of a k or v (B, Sk, H, D) bf16 tensor with element strides
-// (sb, ss, sh, 1), as (D, Sk, H, B), boxes of 64 x kPfKeys in the 128-byte
-// swizzle; rows past Sk read as zeros. Returns a cudaError_t.
-int encode_kv(CUtensorMap* map, const void* base, int D, long long B,
-              long long Sk, long long H, long long sb, long long ss,
-              long long sh) {
+// (sb, ss, sh, 1), as (D, Sk, H, B), boxes of 64 x `keys` in the 128-byte
+// swizzle; rows past Sk, and below D = 64 the box's columns past D, read
+// as zeros. Returns a cudaError_t.
+int encode_kv(CUtensorMap* map, const void* base, int D, int keys,
+              long long B, long long Sk, long long H, long long sb,
+              long long ss, long long sh) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -1003,7 +1089,7 @@ int encode_kv(CUtensorMap* map, const void* base, int D, long long B,
   for (int i = 0; i < 3; ++i)  // never stepped (extent 1): any legal value
     if (strides[i] == 0)
       strides[i] = i == 0 ? dims[0] * 2 : strides[i - 1] * dims[i];
-  const cuuint32_t box[4] = {64, kPfKeys, 1, 1};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(keys), 1, 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
@@ -1016,9 +1102,11 @@ int encode_kv(CUtensorMap* map, const void* base, int D, long long B,
 template <int D>
 int launch_prefill(const FlashArgs& a, long long B, cudaStream_t stream) {
   CUtensorMap k_map, v_map;
-  int rc = encode_kv(&k_map, a.k, D, B, a.Sk, a.H, a.ksb, a.kss, a.ksh);
+  constexpr int kKeys = PfSmem<D>::kKeys;
+  int rc = encode_kv(&k_map, a.k, D, kKeys, B, a.Sk, a.H, a.ksb, a.kss,
+                     a.ksh);
   if (rc != 0) return rc;
-  rc = encode_kv(&v_map, a.v, D, B, a.Sk, a.H, a.vsb, a.vss, a.vsh);
+  rc = encode_kv(&v_map, a.v, D, kKeys, B, a.Sk, a.H, a.vsb, a.vss, a.vsh);
   if (rc != 0) return rc;
   constexpr int kBytes = PfSmem<D>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -1056,6 +1144,21 @@ int launch_f32(const FlashArgs& a, long long B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// fn(std::integral_constant<int, D>) for the head dims the kernels are
+// built for; another D is refused.
+template <typename Fn>
+int by_head_dim(int D, Fn fn) {
+  switch (D) {
+    case 8: return fn(std::integral_constant<int, 8>());
+    case 16: return fn(std::integral_constant<int, 16>());
+    case 32: return fn(std::integral_constant<int, 32>());
+    case 64: return fn(std::integral_constant<int, 64>());
+    case 128: return fn(std::integral_constant<int, 128>());
+    case 256: return fn(std::integral_constant<int, 256>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 
 }  // namespace
 
@@ -1075,7 +1178,8 @@ const char* flash_attention_error_string(int code) {
 // q (B, Sq, H, G, D) with element strides (qsb, qss, qsh, qsg, 1); k, v
 // (B, Sk, H, D) with strides (ksb, kss, ksh, 1) and (vsb, vss, vsh, 1);
 // out (B, Sq, H, G, D) contiguous in q's dtype; kv_length (B,) int32 or
-// null. bf16 != 0 selects bfloat16, else fp32; D is 64 or 128. Every base
+// null. bf16 != 0 selects bfloat16, else fp32; D is 8, 16, 32, 64, 128 or
+// 256. Every base
 // and stride is 16-byte aligned (the wrapper checks). In bf16, n_split > 0
 // takes the split path (Sq G <= kSplitRows) with n_split splits of
 // split_tiles kSplitTile-key tiles, fp32 scratch (B, H, n_split, Sq G,
@@ -1122,16 +1226,15 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     sp.counters = static_cast<int*>(counters);
     sp.n_split = n_split;
     sp.split_tiles = split_tiles;
-    if (D == 64) return launch_split<64>(a, sp, B, s);
-    if (D == 128) return launch_split<128>(a, sp, B, s);
-  } else if (bf16) {
-    if (D == 64) return launch_prefill<64>(a, B, s);
-    if (D == 128) return launch_prefill<128>(a, B, s);
-  } else {
-    if (D == 64) return launch_f32<64>(a, B, s);
-    if (D == 128) return launch_f32<128>(a, B, s);
+    return by_head_dim(D, [&](auto d) {
+      return launch_split<decltype(d)::value>(a, sp, B, s);
+    });
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return by_head_dim(
+        D, [&](auto d) { return launch_prefill<decltype(d)::value>(a, B, s); });
+  return by_head_dim(
+      D, [&](auto d) { return launch_f32<decltype(d)::value>(a, B, s); });
 }
 
 }  // extern "C"

@@ -52,11 +52,13 @@ NEG_INF = -1e30
 #: callers set it to 0 before a run and read it after).
 LAUNCHES = 0
 
-#: Head dims the kernel is compiled for, and its tiles: flattened (query
-#: position, q head) rows and keys per tile, per dtype (bf16: the
-#: warpgroup path's 128-key tiles and its least block, 128 rows at D = 128;
-#: 192 at D = 64).
-HEAD_DIMS = (64, 128)
+#: Head dims the kernel is compiled for (the Pallas kernel blocks only the
+#: sequence and takes any; these are the LM configs' and their smoke
+#: configs'), and its tiles: flattened (query position, q head) rows and
+#: keys per tile, per dtype (bf16: the warpgroup path's least block, 128
+#: rows at D = 128 and 256, 192 at D <= 64, and its 128-key tiles, 64 keys
+#: at D = 256).
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 TILES = {torch.bfloat16: (128, 128), torch.float32: (32, 32)}
 #: The bf16 lane splits the keys of a call of at most SPLIT_ROWS rows
 #: (one mma.sync row fragment: decode) into splits of whole SPLIT_TILE-key

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --batch 4 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \\
+      --batch 4 --prompt-len 4096 --gen 32
 
 Port of ``repro/launch/serve.py``.  The prefill and decode steps
 (``distributed.steps.make_prefill_step`` / ``make_decode_step``) are built
@@ -18,9 +20,14 @@ one call: it is device-bound (idle share 0.020-0.031, ``PERF.md`` §5),
 and capturing it would hold the plain SSD's fp32 intermediates in the
 graph pool.  On the CPU both steps are those eager callables.  On the ssm
 family (mamba2-130m) the prefill runs the TrIM conv1d kernel once per
-layer; decode never does.  On the dense family (granite-3-2b) every
-layer's attention core runs the flash-attention kernel, once per prefill
-and once per decode step.  The caches are written in place.
+layer; decode never does.  On the dense and moe families (granite-3-2b,
+starcoder2-3b, gemma-7b at head dim 256, mistral-large-123b, arctic-480b,
+llama4-maverick-400b-a17b) every layer's attention core runs the
+flash-attention kernel, once per prefill and once per decode step; the
+hybrid jamba-1.5-large-398b runs both kernels on its slots of each kind.
+The MoE layers' decode replays in the graph like the rest (their
+dispatch reads nothing back to the host).  The caches are written in
+place.
 
 Prefill latency and decode tokens/s are reported separately.  The flags
 are the JAX launcher's plus ``--device`` (default ``cuda``: without a

@@ -17,9 +17,12 @@ calibrated int8 lane once, ``--int5`` the int5 MSR lane
 (exponent-folded pairs); either fails on a non-finite feature map.  The
 LM arm (``--arch`` an LM id, ``--smoke`` for its reduced fp32 config):
 ``CausalLM.loss`` on the ``SyntheticLMDataset`` stream of ``--seq`` + 1
-tokens a row; on the card the Mamba mixer's conv1d and the attention
+tokens a row (plus 0.01 times the MoE layers' aux loss on the moe and
+hybrid archs); on the card the Mamba mixer's conv1d and the attention
 core run their kernels forward, under ``autograd.Function``s whose
-backward is the plain version's VJP.  Both arms: the one-device
+backward is the plain version's VJP.  The archs that do not fit one card
+at full width (gemma-7b's AdamW state, and the four larger ones) train on
+their ``--smoke`` configs.  Both arms: the one-device
 ``make_train_step`` (AdamW, warmup-cosine, non-finite step skip,
 ``--accum`` microbatches) and ``train_loop``, which with ``--ckpt-dir``
 saves every ``--ckpt-every`` steps and at the end and resumes from the

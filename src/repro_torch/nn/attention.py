@@ -18,9 +18,17 @@ GB for granite-3-2b at batch 4 x 4128) on every decode step would cost
 more HBM traffic than the step's attention reads.  A caller that needs
 the old cache clones it first.
 
-Cross-attention (``cross_kv``, the encdec family) and the sequence-
-sharded decode (``kv_seqshard``, ``nn/decode_attn.py``) are not ported
-(ROADMAP queue 1, item 9).
+The sequence-sharded decode (``kv_seqshard``, ``repro/nn/decode_attn.py:
+seqshard_flash_decode``) keeps the cache unrepeated, (B, S, n_kv, D), and
+on one device runs "the same math single-device": write the new K and V
+at ``pos``, then attend over the cache under ``kv_length`` (default
+``pos + 1``).  At ``tp == 1`` the port's cache is already (B, S, n_kv, D),
+so that is its decode path, kernel 5's split decode on the card; the
+caller keys the cache ``kv_seq`` (``kv_seq2``), as JAX does.  Across
+ranks (a process group of more than one) it raises: the multi-rank arm,
+a partial flash per sequence shard merged by log-sum-exp, is ROADMAP
+queue 1, item 10.  Cross-attention (``cross_kv``, the encdec family) is
+not ported (item 9).
 """
 from __future__ import annotations
 
@@ -48,6 +56,14 @@ class AttnLayout(NamedTuple):
     @property
     def g_eff(self) -> int:
         return self.g_pad // self.kv_repeat
+
+
+def _world_size() -> int:
+    """The ranks of the default process group (1 where there is none)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 def attn_layout(n_q: int, n_kv: int, head_dim: int, tp: int = 1
@@ -136,6 +152,8 @@ def attention(params: Params, x: torch.Tensor, lay: AttnLayout, *,
     ``cache_pos + 1`` for every row; ``cache_pos`` a 0-d integer tensor
     on the device, or an int made one, places the write with
     ``index_copy_`` and the default ``kv_length`` on the device).
+    ``kv_seqshard`` ("model", "2d" or True) is the sequence-sharded
+    decode: on one device the same path over the same unrepeated cache.
     ``rope``, where given, is ``rope_angles(positions, head_dim,
     rope_theta)`` computed by the caller once for every layer.  ``policy``
     picks the flash kernel or its plain version.  Returns (out (B, S,
@@ -145,10 +163,11 @@ def attention(params: Params, x: torch.Tensor, lay: AttnLayout, *,
         raise NotImplementedError("cross-attention (cross_kv, the encdec "
                                   "family) is not ported yet: ROADMAP queue "
                                   "1, item 9")
-    if kv_seqshard:
-        raise NotImplementedError("the sequence-sharded decode "
-                                  "(kv_seqshard, nn/decode_attn.py) is not "
-                                  "ported yet: ROADMAP queue 1, item 9")
+    if kv_seqshard and mode == "decode" and _world_size() > 1:
+        raise NotImplementedError(
+            f"the sequence-sharded decode across {_world_size()} ranks "
+            "(kv_seqshard under a mesh, nn/decode_attn.py's shard_map arm) "
+            "is not ported yet: ROADMAP queue 1, item 10")
     B, S, _ = x.shape
     D = lay.head_dim
     q = _split_heads(dense(params["q_proj"], x), lay.n_q, D)

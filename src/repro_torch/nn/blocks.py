@@ -1,15 +1,20 @@
-"""Layer stacks: periodic layer schedules run period by period (the part of
-``repro/nn/blocks.py`` the ssm and dense families use).
+"""Layer stacks: periodic layer schedules run period by period (port of
+the LM part of ``repro/nn/blocks.py``).
 
 An architecture is a *periodic* schedule of slots (mixer, ffn) repeated
 ``n_periods`` times: a dense transformer is period 1, (attn, mlp); mamba2
-is period 1, (mamba, none).  As in the JAX package, each slot's params and
-caches are stacked over periods on a leading axis, so the JAX trees carry
-across as they are; where JAX runs the stack with ``lax.scan``, the port
-loops over periods in Python.  KV caches are written in place (see
-``nn/attention.py``), and so are Mamba caches in decode; the prefill's
-Mamba caches are stacked anew.  MoE slots and
-cross-attention are not ported yet (ROADMAP queue 1, item 9).
+period 1, (mamba, none); llama4 period 2, (attn, mlp), (attn, moe);
+arctic period 1, (attn, moe) with a dense residual; jamba period 8, attn
+at slot 4 and mamba elsewhere, moe on the odd slots.  As in the JAX
+package, each slot's params and caches are stacked over periods on a
+leading axis, so the JAX trees carry across as they are; where JAX runs
+the stack with ``lax.scan``, the port loops over periods in Python.  Each
+slot's cache is its mixer's kind, under JAX's key: ``kv`` (``kv_seq``,
+``kv_seq2`` where the decode KV cache is sequence-sharded) or ``mamba``.
+KV caches are written in place (see ``nn/attention.py``), and so are
+Mamba caches in decode; the prefill's Mamba caches are stacked anew.
+Every MoE slot's aux loss is summed over the stack.  Cross-attention
+(the encdec family) is not ported yet (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -27,9 +32,7 @@ from repro_torch.nn.layers import (Params, init_layernorm, init_mlp,
                                    rope_angles)
 from repro_torch.nn.mamba import (MambaCache, MambaDims, init_mamba,
                                   init_mamba_cache, mamba_mixer)
-
-_NOT_PORTED = ("{what} is not ported yet: the MoE module and cross-"
-               "attention are ROADMAP queue 1, item 9")
+from repro_torch.nn.moe import init_moe, moe
 
 
 @dataclass(frozen=True)
@@ -49,9 +52,17 @@ class StackSpec:
     norm: str = "rmsnorm"
     layout: Optional[AttnLayout] = None
     rope_theta: float = 1e4
-    dims: Optional[MambaDims] = None          # mamba dims (ssm)
+    dims: Optional[MambaDims] = None          # mamba dims (ssm, hybrid)
+    n_experts: int = 0
+    top_k: int = 0
+    shared_expert: bool = False
+    dense_residual: bool = False
+    dense_ff: Optional[int] = None
+    capacity_factor: float = 1.25
+    moe_impl: str = "einsum"                  # einsum | gather
     chunk_k: int = 1024
     block_causal: bool = False
+    kv_seqshard: str = ""                     # "" | "model" | "2d"
     ssd_bf16: bool = False                    # bf16 SSD quadratic term
     #: how the kernels run (the conv1d's and the attention core's substrate)
     policy: ExecutionPolicy = field(default_factory=ExecutionPolicy)
@@ -60,15 +71,19 @@ class StackSpec:
         for slot in self.slots:
             if slot.mixer not in ("attn", "mamba", "none"):
                 raise ValueError(f"mixer {slot.mixer!r}")
-            if slot.ffn == "moe":
-                raise NotImplementedError(_NOT_PORTED.format(what="the moe "
-                                                             "slot"))
-            if slot.ffn not in ("mlp", "none"):
+            if slot.ffn not in ("mlp", "moe", "none"):
                 raise ValueError(f"ffn {slot.ffn!r}")
             if slot.cross_attn:
-                raise NotImplementedError(_NOT_PORTED.format(
-                    what="cross-attention"))
+                raise NotImplementedError(
+                    "cross-attention is not ported yet: the encdec family "
+                    "is ROADMAP queue 1, item 9")
         _norm_fns(self.norm)
+
+    @property
+    def kv_key(self) -> str:
+        """The attention slots' cache key, as the JAX package names it."""
+        return {"": "kv", "model": "kv_seq", "2d": "kv_seq2"}[
+            self.kv_seqshard]
 
     @property
     def n_layers(self) -> int:
@@ -98,6 +113,14 @@ def _init_slot(gen, spec: StackSpec, slot: SlotSpec, dtype, device) -> Params:
         p["norm_ffn"] = init_norm(spec.d_model, dtype, device)
         p["mlp"] = init_mlp(gen, spec.d_model, spec.d_ff, spec.mlp_kind,
                             dtype, device)
+    elif slot.ffn == "moe":
+        p["norm_ffn"] = init_norm(spec.d_model, dtype, device)
+        p["moe"] = init_moe(gen, spec.d_model, spec.d_ff, spec.n_experts,
+                            mlp_kind=spec.mlp_kind,
+                            shared_expert=spec.shared_expert,
+                            dense_residual=spec.dense_residual,
+                            dense_ff=spec.dense_ff, dtype=dtype,
+                            device=device)
     return p
 
 
@@ -115,13 +138,15 @@ def init_stack(gen: torch.Generator, spec: StackSpec, dtype=torch.float32,
 def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cpu") -> Params:
     """Decode caches, stacked over periods per slot: a KV cache of
-    ``max_len`` positions per attention slot, a Mamba cache per mamba
-    slot; slots without state get empty dicts."""
+    ``max_len`` positions per attention slot (under ``spec.kv_key``; one
+    device holds the sequence-sharded cache whole, unrepeated, which at
+    ``tp == 1`` is the plain cache), a Mamba cache per mamba slot; slots
+    without state get empty dicts."""
     cache: Params = {}
     for i, slot in enumerate(spec.slots):
         if slot.mixer == "attn":
             kv = init_kv_cache(batch, max_len, spec.layout, dtype, device)
-            cache[f"slot{i}"] = {"kv": KVCache(*(
+            cache[f"slot{i}"] = {spec.kv_key: KVCache(*(
                 t[None].expand((spec.n_periods,) + t.shape).clone()
                 for t in kv))}
         elif slot.mixer == "mamba":
@@ -137,23 +162,28 @@ def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
 def _run_slot(p: Params, x: torch.Tensor, spec: StackSpec, slot: SlotSpec, *,
               mode: str, positions, rope, cache_pos, kv_length,
               cache: Optional[Dict[str, Any]],
-              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+              ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
+    """One slot: (x, its new cache, its aux loss: a 0-d tensor on a MoE
+    slot, else the float 0.0, so that a stack without MoE adds no op)."""
     _, norm = _norm_fns(spec.norm)
     new_cache: Dict[str, Any] = {}
+    aux = 0.0
     if slot.mixer == "attn":
-        kv = cache.get("kv") if cache else None
+        key = spec.kv_key
+        kv = cache.get(key) if cache else None
         h, nkv = attention(p["attn"], norm(p["norm_mixer"], x), spec.layout,
                            positions=positions, rope_theta=spec.rope_theta,
                            mode=mode, cache=kv,
                            cache_pos=cache_pos, kv_length=kv_length,
                            chunk_k=spec.chunk_k,
-                           block_causal=spec.block_causal, rope=rope,
+                           block_causal=spec.block_causal,
+                           kv_seqshard=spec.kv_seqshard, rope=rope,
                            policy=spec.policy)
         x = x + h
         if nkv is not None:
-            new_cache["kv"] = nkv
-        elif cache and "kv" in cache:
-            new_cache["kv"] = cache["kv"]
+            new_cache[key] = nkv
+        elif cache and key in cache:
+            new_cache[key] = cache[key]
     elif slot.mixer == "mamba":
         mc = cache.get("mamba") if cache else None
         h, nmc = mamba_mixer(
@@ -167,15 +197,22 @@ def _run_slot(p: Params, x: torch.Tensor, spec: StackSpec, slot: SlotSpec, *,
             new_cache["mamba"] = cache["mamba"]
     if slot.ffn == "mlp":
         x = x + mlp(p["mlp"], norm(p["norm_ffn"], x), spec.mlp_kind)
-    return x, new_cache
+    elif slot.ffn == "moe":
+        h, a = moe(p["moe"], norm(p["norm_ffn"], x), top_k=spec.top_k,
+                   mlp_kind=spec.mlp_kind,
+                   capacity_factor=spec.capacity_factor, impl=spec.moe_impl)
+        x = x + h
+        aux = aux + a
+    return x, new_cache, aux
 
 
 def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
               mode: str = "train", positions: Optional[torch.Tensor] = None,
               cache: Optional[Params] = None, cache_pos=None,
               kv_length: Optional[torch.Tensor] = None,
-              ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Run the full stack. Returns (x, new cache or None).
+              ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Run the full stack. Returns (x, new cache or None, the sum of every
+    MoE slot's aux loss: a 0-d fp32 tensor, 0 without MoE slots).
 
     mode: "train" (no cache), "prefill", "decode".  ``positions`` (B, S)
     default to ``arange(S)`` in every row; their RoPE angles are computed
@@ -195,21 +232,27 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
     # add a zero-filled leaf-sized gradient per period
     per_period = list(zip(*(leaf.unbind(0) for leaf in tree_leaves(params))))
     new_caches = []
+    aux = 0.0
     for i in range(spec.n_periods):
         p_i = tree_unflatten(params, per_period[i])
         c_i = tree_map(lambda c: c[i], cache) if cache is not None else None
         nc = {}
+        aux_i = 0.0
         for j, slot in enumerate(spec.slots):
-            x, nc[f"slot{j}"] = _run_slot(
+            x, nc[f"slot{j}"], a = _run_slot(
                 p_i[f"slot{j}"], x, spec, slot, mode=mode,
                 positions=positions, rope=rope, cache_pos=cache_pos,
                 kv_length=kv_length,
                 cache=c_i[f"slot{j}"] if c_i is not None else None)
+            aux_i = aux_i + a
+        aux = aux + aux_i  # per period, then over periods, as JAX's scan
         new_caches.append(nc)
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is None:
-        return x, None
+        return x, None, aux
     if mode == "decode":  # every cache was written in place
-        return x, cache
-    return x, {slot: {key: (val if key == "kv" else tree_map(
+        return x, cache, aux
+    return x, {slot: {key: (val if key == spec.kv_key else tree_map(
         lambda *cs: torch.stack(cs), *[nc[slot][key] for nc in new_caches]))
-        for key, val in c.items()} for slot, c in cache.items()}
+        for key, val in c.items()} for slot, c in cache.items()}, aux

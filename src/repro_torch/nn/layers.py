@@ -1,6 +1,6 @@
 """Base LM layers: embedding, RMSNorm and LayerNorm, dense projections,
-the MLPs (swiglu, geglu, gelu), rotary embeddings and the tied readout
-(port of ``repro/nn/layers.py``; an untied ``lm_head`` is not ported yet).
+the MLPs (swiglu, geglu, gelu), rotary embeddings, the tied readout and
+the untied ``lm_head`` (port of ``repro/nn/layers.py``).
 
 Conventions as in the JAX package: params are nested dicts with its leaf
 names; the compute dtype is the input's (bf16 in production), while
@@ -48,6 +48,24 @@ def embed_logits(params: Params, x: torch.Tensor, vocab: int,
     entries masked to -1e30).  The product is taken in fp32: a bf16 x
     bf16 product is exact there, as JAX's ``preferred_element_type``."""
     logits = x.float() @ params["table"].float().T
+    if keep_pad:
+        return mask_pad_logits(logits, vocab)
+    return logits[..., :vocab]
+
+
+def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
+                 pad_to: int = 1, dtype=torch.float32, device="cpu") -> Params:
+    """The untied readout (d, vocab padded up to a multiple of ``pad_to``);
+    as in the JAX package its padded columns are not zeroed: the logits
+    mask them."""
+    vpad = -(-vocab // pad_to) * pad_to
+    return {"kernel": _normal(gen, (d, vpad), d ** -0.5, dtype, device)}
+
+
+def lm_head_logits(params: Params, x: torch.Tensor, vocab: int,
+                   keep_pad: bool = False) -> torch.Tensor:
+    """Untied-readout logits in fp32, as :func:`embed_logits`."""
+    logits = x.float() @ params["kernel"].float()
     if keep_pad:
         return mask_pad_logits(logits, vocab)
     return logits[..., :vocab]

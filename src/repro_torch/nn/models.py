@@ -1,16 +1,18 @@
-"""Model compositions: the decoder-only ``CausalLM`` for the ``ssm`` and
-``dense`` families (port of the part of ``repro/nn/models.py`` that
-serves them).
+"""Model compositions: the decoder-only ``CausalLM`` for the ``ssm``,
+``dense``, ``moe`` and ``hybrid`` families (port of the part of
+``repro/nn/models.py`` that serves them).
 
 Functional, as in the JAX package: a model object holds only static
 structure (the config, the derived StackSpec); params and caches are
 explicit trees (the KV caches are written in place, ``nn/attention.py``,
 and in decode the Mamba caches too, ``nn/mamba.py``).  ``CausalLM.loss``
-is the next-token CE that ``distributed.steps.make_train_step`` trains.
-``EncDecLM`` and the other families are ROADMAP queue 1, item 9.
+is the next-token CE plus ``aux_weight`` times the MoE slots' aux loss
+that ``distributed.steps.make_train_step`` trains.  The ``vlm`` family
+(``extra_embeds``) and ``EncDecLM`` are ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -22,12 +24,13 @@ from repro_torch.nn.attention import attn_layout
 from repro_torch.nn.blocks import (SlotSpec, StackSpec, _norm_fns,
                                    init_stack, init_stack_cache, run_stack)
 from repro_torch.nn.layers import (Params, embed_logits, embed_lookup,
-                                   init_embedding)
+                                   init_embedding, init_lm_head,
+                                   lm_head_logits)
 from repro_torch.nn.losses import chunked_softmax_xent, softmax_xent
 from repro_torch.nn.mamba import mamba_dims
 
 #: the families ``build_model`` takes
-FAMILIES = ("ssm", "dense")
+FAMILIES = ("ssm", "dense", "moe", "hybrid")
 
 
 def decoder_schedule(cfg: ModelConfig) -> Tuple[Tuple[SlotSpec, ...], int]:
@@ -65,15 +68,21 @@ def _stack_spec(cfg: ModelConfig, slots, n_periods, *, tp: int,
     return StackSpec(
         slots=slots, n_periods=n_periods, d_model=cfg.d_model, d_ff=cfg.d_ff,
         mlp_kind=cfg.mlp_kind, norm=cfg.norm, layout=lay,
-        rope_theta=cfg.rope_theta, dims=dims, chunk_k=cfg.chunk_k,
-        block_causal=cfg.block_causal, ssd_bf16=cfg.ssd_bf16, policy=policy)
+        rope_theta=cfg.rope_theta, dims=dims, n_experts=cfg.n_experts,
+        top_k=cfg.top_k, shared_expert=cfg.shared_expert,
+        dense_residual=cfg.dense_residual, dense_ff=cfg.dense_ff,
+        capacity_factor=cfg.capacity_factor, moe_impl=cfg.moe_impl,
+        chunk_k=cfg.chunk_k, block_causal=cfg.block_causal,
+        kv_seqshard=("model" if cfg.decode_kv_seqshard is True
+                     else cfg.decode_kv_seqshard or ""),
+        ssd_bf16=cfg.ssd_bf16, policy=policy)
 
 
 @dataclass(frozen=True)
 class CausalLM:
-    """Decoder-only LM (the ``ssm`` and ``dense`` families so far).
-    ``policy`` decides how the kernels run (the conv1d and flash-attention
-    kernels, or their plain versions)."""
+    """Decoder-only LM (the ``ssm``, ``dense``, ``moe`` and ``hybrid``
+    families).  ``policy`` decides how the kernels run (the conv1d and
+    flash-attention kernels, or their plain versions)."""
 
     cfg: ModelConfig
     tp: int = 1
@@ -96,7 +105,7 @@ class CausalLM:
         if isinstance(seed, int):
             gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
             gen.manual_seed(seed)
-        return {
+        p = {
             "embed": init_embedding(gen, cfg.vocab, cfg.d_model,
                                     pad_to=cfg.vocab_pad_to, dtype=cfg.dtype,
                                     device=dev),
@@ -104,25 +113,42 @@ class CausalLM:
             "final_norm": _norm_fns(cfg.norm)[0](cfg.d_model, cfg.dtype,
                                                  dev),
         }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = init_lm_head(gen, cfg.d_model, cfg.vocab,
+                                        pad_to=cfg.vocab_pad_to,
+                                        dtype=cfg.dtype, device=dev)
+        return p
 
     # -- shared pieces -------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_lookup(params["embed"], tokens)
+        x = embed_lookup(params["embed"], tokens)
+        if self.cfg.scale_embed:
+            # gemma: the JAX package multiplies by
+            # jnp.asarray(sqrt(d_model), x.dtype), so the constant is
+            # rounded to x's dtype first (bf16: sqrt(3072) = 55.43 -> 55.5)
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model),
+                                 dtype=x.dtype).item()
+        return x
 
     def _logits(self, params: Params, x: torch.Tensor,
                 keep_pad: bool = False) -> torch.Tensor:
         _, norm = _norm_fns(self.cfg.norm)
         x = norm(params["final_norm"], x)
-        return embed_logits(params["embed"], x, self.cfg.vocab,
-                            keep_pad=keep_pad)
+        if self.cfg.tie_embeddings:
+            return embed_logits(params["embed"], x, self.cfg.vocab,
+                                keep_pad=keep_pad)
+        return lm_head_logits(params["lm_head"], x, self.cfg.vocab,
+                              keep_pad=keep_pad)
 
     # -- train -------------------------------------------------------------
-    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, vocab), fp32 (the JAX forward's
-        logits; its ``moe_aux`` is 0 with no MoE slot)."""
+    def forward(self, params: Params, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) -> (logits (B, S, vocab) fp32, moe_aux): the JAX
+        forward's pair; ``moe_aux`` is the MoE slots' summed aux loss, a
+        0-d fp32 tensor (0 without MoE slots)."""
         x = self._embed(params, tokens)
-        x, _ = run_stack(params["stack"], x, self.spec, mode="train")
-        return self._logits(params, x)
+        x, _, aux = run_stack(params["stack"], x, self.spec, mode="train")
+        return self._logits(params, x), aux
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              aux_weight: float = 0.01
@@ -130,26 +156,30 @@ class CausalLM:
         """Next-token CE of ``tokens[:, :-1]`` against ``tokens[:, 1:]``
         (batch: ``tokens`` (B, S)).  ``ce_impl`` "padded" takes the CE on
         the padded-vocab logits (pad entries at -1e30), "chunked" over
-        vocab chunks of the tied table (``nn/losses.py``).  Returns
-        (ce + aux_weight * moe_aux, {"ce", "moe_aux", "ppl"}); ``moe_aux``
-        is 0 (no MoE slot is ported) and ``ppl`` is exp(min(ce, 20))."""
+        vocab chunks of the readout (the tied table, or the untied
+        ``lm_head`` transposed; ``nn/losses.py``).  Returns (ce +
+        aux_weight * moe_aux, {"ce", "moe_aux", "ppl"}); ``moe_aux`` is
+        the MoE slots' summed aux loss (0 without MoE slots) and ``ppl``
+        is exp(min(ce, 20))."""
         if "extra_embeds" in batch:
             raise NotImplementedError(
                 "extra_embeds (the vlm family) is not ported yet: ROADMAP "
                 "queue 1, item 9")
         tokens = batch["tokens"]
         x = self._embed(params, tokens[:, :-1])
-        x, _ = run_stack(params["stack"], x, self.spec, mode="train")
+        x, _, aux = run_stack(params["stack"], x, self.spec, mode="train")
         targets = tokens[:, 1:]
         if self.cfg.ce_impl == "chunked":
             _, norm = _norm_fns(self.cfg.norm)
-            ce = chunked_softmax_xent(norm(params["final_norm"], x),
-                                      params["embed"]["table"], targets,
-                                      self.cfg.vocab)
+            tied = self.cfg.tie_embeddings
+            ce = chunked_softmax_xent(
+                norm(params["final_norm"], x),
+                params["embed"]["table"] if tied
+                else params["lm_head"]["kernel"], targets, self.cfg.vocab,
+                transpose_readout=not tied)
         else:
             ce = softmax_xent(self._logits(params, x, keep_pad=True),
                               targets)
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux_weight * aux, {
             "ce": ce, "moe_aux": aux,
             "ppl": torch.exp(torch.clamp(ce, max=20.0))}
@@ -167,8 +197,8 @@ class CausalLM:
         ``lengths`` (B,), the logits at position ``lengths - 1`` of each
         row."""
         x = self._embed(params, tokens)
-        x, cache = run_stack(params["stack"], x, self.spec, mode="prefill",
-                             cache=cache)
+        x, cache, _ = run_stack(params["stack"], x, self.spec,
+                                mode="prefill", cache=cache)
         if lengths is None:
             last = x[:, -1:]
         else:
@@ -192,38 +222,22 @@ class CausalLM:
         positions = pos.expand(x.shape[:2])
         if kv_length is None and self.cfg.n_q:
             kv_length = (pos + 1).to(torch.int32).expand(x.shape[:1])
-        x, cache = run_stack(params["stack"], x, self.spec, mode="decode",
-                             cache=cache, positions=positions, cache_pos=pos,
-                             kv_length=kv_length)
+        x, cache, _ = run_stack(params["stack"], x, self.spec, mode="decode",
+                                cache=cache, positions=positions,
+                                cache_pos=pos, kv_length=kv_length)
         return self._logits(params, x)[:, 0], cache
-
-
-#: what ``build_model`` refuses: config features the port has not yet held
-#: against the JAX package
-_UNPORTED = (
-    ("tie_embeddings", lambda c: not c.tie_embeddings, "an untied lm_head"),
-    ("n_experts", lambda c: c.n_experts, "the MoE ffn"),
-    ("scale_embed", lambda c: c.scale_embed,
-     "gemma's embedding scale by sqrt(d_model)"),
-    ("decode_kv_seqshard", lambda c: c.decode_kv_seqshard,
-     "the sequence-sharded decode (nn/decode_attn.py)"),
-)
 
 
 def build_model(cfg: ModelConfig, tp: int = 1,
                 policy: Optional[ExecutionPolicy] = None) -> CausalLM:
-    """The model for an LM config: ``CausalLM`` for the ``ssm`` and
-    ``dense`` families on one device (``tp == 1``).  A config that needs a
-    feature the port does not have yet raises NotImplementedError."""
+    """The model for an LM config: ``CausalLM`` for the ``ssm``,
+    ``dense``, ``moe`` and ``hybrid`` families on one device (``tp ==
+    1``).  The ``vlm`` and ``encdec`` families raise NotImplementedError
+    (ROADMAP queue 1, item 9), and so does ``tp != 1`` (item 10)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name!r}) is not ported yet: the "
-            "MoE, hybrid, vlm and encdec families are ROADMAP queue 1, item 9")
-    for name, needs, what in _UNPORTED:
-        if needs(cfg):
-            raise NotImplementedError(
-                f"{cfg.name!r} sets {name}={getattr(cfg, name)!r}: {what} is "
-                "not ported yet (ROADMAP queue 1, item 9)")
+            "vlm and encdec families are ROADMAP queue 1, item 9")
     if tp != 1:
         raise NotImplementedError(f"tp={tp}: the port runs on one device "
                                   "(tensor parallelism is ROADMAP queue 1, "

@@ -13,9 +13,13 @@
   ``tests/test_kernels.py``'s ``FLASH_CASES`` and its scalar
   ``kv_length`` case, at Sq == Sk only: the Pallas kernel aligns its
   causal mask to the start and the oracle to the end, so they agree only
-  there.
+  there; and at every head dim the kernel is built for below 64 and above
+  128 (8, 16, 32, 256), which the Pallas kernel takes as it takes any.
 - ``attention(...)`` in train, prefill and decode modes against JAX's,
-  with JAX's params carried by ``from_jax_params``: outputs and caches.
+  with JAX's params carried by ``from_jax_params``: outputs and caches;
+  the sequence-sharded decode (``kv_seqshard``) on one device against
+  JAX's ``seqshard_flash_decode`` without a mesh; cross-attention and
+  the sequence-sharded decode across ranks refused.
 - ``rope_angles`` / ``apply_rope``, the three MLP kinds and
   ``layernorm`` against JAX's.
 """
@@ -172,6 +176,34 @@ def test_flash_plain_matches_pallas_interpret(case):
         **TOL[np.float32])
 
 
+# (B, H, S, D, bq, bk, causal): the head dims the kernel takes besides 64
+# and 128 (the smoke configs' 8 and 16, 32, and gemma-7b's 256)
+HEAD_DIM_CASES = [
+    (2, 2, 40, 8, 16, 16, True),
+    (1, 3, 33, 16, 16, 8, True),
+    (2, 2, 24, 32, 8, 8, False),
+    (1, 2, 40, 256, 16, 16, True),
+    (2, 1, 24, 256, 8, 8, False),
+]
+
+
+@pytest.mark.parametrize("case", HEAD_DIM_CASES, ids=str)
+def test_flash_plain_matches_pallas_interpret_at_every_head_dim(case):
+    B, H, S, D, bq, bk, causal = case
+    q, k, v = _pallas_inputs((B, H, S, D), sum(case))
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=bq, block_k=bk, interpret=True))
+    got = _plain_on_pallas_layout(q, k, v, causal, chunk_k=bk)
+    np.testing.assert_allclose(got, want, **TOL[np.float32])
+    kvl = S - 5
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+        kv_length=kvl, block_q=bq, block_k=bk, interpret=True))
+    got = _plain_on_pallas_layout(q, k, v, False, kv_length=kvl, chunk_k=bk)
+    np.testing.assert_allclose(got, want, **TOL[np.float32])
+
+
 def test_flash_plain_kv_length_matches_pallas_interpret():
     q, k, v = _pallas_inputs((1, 2, 16, 8), 9)
     want = np.asarray(flash_attention_pallas(
@@ -281,15 +313,59 @@ def test_attention_prefill_then_decode_matches_jax(layer):
             chunk_k=ck)
 
 
-def test_attention_unported_options_raise(layer):
-    _, _, params, lay, _, _ = layer
-    x = torch.zeros((1, 2, D_MODEL))
-    pos = torch.arange(2)[None]
+def test_attention_unported_options_raise(layer, monkeypatch):
+    """Cross-attention still raises.  The sequence-sharded decode runs on
+    one device: prefill writes the unrepeated cache, and 3 decode steps
+    (the last with a per-row kv_length) equal JAX's
+    ``seqshard_flash_decode`` without a mesh, outputs and caches; across
+    ranks (a process group of 2) it raises."""
+    params_j, lay_j, params, lay, ck, _ = layer
+    x0 = torch.zeros((1, 2, D_MODEL))
+    pos0 = torch.arange(2)[None]
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tattn.attention(params, x, lay, positions=pos,
-                        cross_kv=(x, x))
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tattn.attention(params, x, lay, positions=pos, kv_seqshard="model")
+        tattn.attention(params, x0, lay, positions=pos0,
+                        cross_kv=(x0, x0))
+    B, S, S_max = 2, 9, 13
+    x = _x(B, S + 3, 4)
+    cache_j = jattn.init_kv_cache(B, S_max, lay_j, dtype=jnp.float32,
+                                  seqshard=True)
+    cache = tattn.init_kv_cache(B, S_max, lay, dtype=torch.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    want, cache_j = jattn.attention(
+        params_j, jnp.asarray(x[:, :S]), lay_j, positions=jnp.asarray(pos),
+        mode="prefill", cache=cache_j, chunk_k=ck, kv_seqshard="model")
+    got, cache = tattn.attention(
+        params, torch.from_numpy(x[:, :S].copy()), lay,
+        positions=torch.from_numpy(pos.copy()), mode="prefill", cache=cache,
+        chunk_k=ck, kv_seqshard="model")
+    for i in range(4):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **LAYER_TOL)
+        for a, b in zip(cache, cache_j):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **LAYER_TOL)
+        if i == 3:
+            break
+        p = S + i
+        kvl = np.array([p + 1, p - 2], np.int32) if i == 2 else None
+        xt = x[:, p:p + 1]
+        want, cache_j = jattn.attention(
+            params_j, jnp.asarray(xt), lay_j,
+            positions=jnp.full((B, 1), p, jnp.int32), mode="decode",
+            cache=cache_j, cache_pos=jnp.int32(p),
+            kv_length=None if kvl is None else jnp.asarray(kvl),
+            chunk_k=ck, kv_seqshard="model")
+        got, cache = tattn.attention(
+            params, torch.from_numpy(xt.copy()), lay,
+            positions=torch.full((B, 1), p), mode="decode", cache=cache,
+            cache_pos=p,
+            kv_length=None if kvl is None else torch.from_numpy(kvl),
+            chunk_k=ck, kv_seqshard="model")
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        tattn.attention(params, torch.from_numpy(x[:, :1].copy()), lay,
+                        positions=torch.full((B, 1), S), mode="decode",
+                        cache=cache, cache_pos=S, kv_seqshard="model")
 
 
 # -- layers -----------------------------------------------------------------

@@ -8,15 +8,18 @@ calls at every VGG-16 conv; the f32exact substrate's chunks on its fp32
 lane against the oracle), the weight-gradient kernel, the
 autograd Function that runs both, the causal conv1d kernel (bit for bit), the flash-attention
 kernel (fp32 within 2e-5, bf16 within 2e-2 and per row within 4 x 2^-7 of
-the row's max|plain|, on both bf16 paths; its split decode bit-equal over
-two calls), the matmul kernel on each of its paths (wgmma, stream,
+the row's max|plain|, on both bf16 paths, at head dims 8, 16, 32, 64, 128
+and 256; its split decode bit-equal over two calls), the matmul kernel on each of its paths (wgmma, stream,
 mma, fma: int8 bit for bit, fp32 within 1e-4, bf16 within 2 ulps of each
 row's largest output; the stream path bit-equal over two calls; a named
 path that cannot take the operands refused) and the SSD scan kernel (fp32
 within 2e-5, bf16 within 5e-2, the same bits on a repeat call).  Also the
 CUDA graphs (every lane x bucket of the smoke VGG-16 and of AlexNet's
 smoke shapes with grouped layers, which must record no weight pre-pass
-and no weight cut; the decode steps), and the LM kernels under autograd:
+and no weight cut; the decode steps of a smoke LM of every family, and
+the MoE's gather dispatch at top-1 and top-2 replayed bit-equal to
+eager), each new smoke LM served through the kernels against the plain
+attention, and the LM kernels under autograd:
 the conv1d and flash ``autograd.Function``s' gradients equal plain
 autograd's bit for bit (one kernel launch counted), a smoke LM's train
 step on the kernels against the oracle's, and the SSD and matmul
@@ -770,7 +773,11 @@ def test_conv1d_kernel_offsets_past_2_31_on_card():
 # past it in the same tile, causal and not, D 64 and 128); split decode
 # (Sq G <= 16) over an Sk that is a multiple of no split, with rows at
 # kv_length 0 and 1, with every split past kv_length empty, with several
-# causal positions, and at D = 128
+# causal positions, and at D = 128.  Then the head dims below a lane's unit
+# (8, 16, 32: read as one zero-padded block) and D = 256 (64-key prefill
+# tiles, 16-key split sub-tiles, 16-key fp32 tiles) on both paths, with
+# kv_length inside a tile, G = 1 (gemma-7b's), and gemma-7b's decode cache
+# length
 FLASH_CASES = [
     (2, 64, 64, 3, 1, 64, True, 0, None),
     (1, 33, 33, 2, 1, 64, True, 0, None),
@@ -793,6 +800,24 @@ FLASH_CASES = [
     (1, 4, 600, 2, 4, 64, True, 596, None),
     (2, 16, 16, 2, 1, 64, True, 0, None),
     (2, 1, 1000, 2, 4, 128, False, 0, (999, 64)),
+    (2, 77, 77, 2, 4, 8, True, 0, None),
+    (1, 5, 21, 2, 4, 16, True, 16, None),
+    (2, 50, 130, 1, 4, 32, True, 80, None),
+    (2, 300, 300, 1, 4, 8, True, 0, (300, 77)),
+    (2, 200, 300, 2, 1, 16, False, 0, (250, 131)),
+    (1, 160, 400, 2, 4, 32, False, 0, (333,)),
+    (3, 1, 200, 2, 4, 8, False, 0, (129, 0, 200)),
+    (2, 1, 300, 2, 4, 16, False, 0, (257, 3)),
+    (2, 1, 1000, 2, 4, 32, False, 0, (1000, 700)),
+    (1, 4, 600, 2, 4, 8, True, 596, None),
+    (2, 50, 130, 1, 4, 256, True, 80, None),
+    (1, 300, 300, 2, 1, 256, True, 0, None),
+    (2, 300, 300, 1, 4, 256, True, 0, (300, 77)),
+    (2, 200, 300, 2, 1, 256, False, 0, (250, 131)),
+    (2, 1, 1000, 2, 4, 256, False, 0, (999, 64)),
+    (2, 1, 4128, 4, 1, 256, False, 0, (4097, 100)),
+    (2, 1, 300, 2, 1, 256, False, 0, (0, 1)),
+    (1, 4, 600, 2, 4, 256, True, 596, None),
 ]
 FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -901,18 +926,21 @@ def test_flash_split_decode_is_bit_equal_over_calls_on_card(case):
 
 @pytest.mark.gpu
 def test_flash_kernel_refuses_what_it_does_not_take_on_card():
-    """On a card: a head dim the kernel is not built for, mixed dtypes and
-    a non-contiguous head dim raise; nothing falls back to the plain
-    version."""
+    """On a card: a head dim the kernel is not built for (48, 512),
+    mixed dtypes and a non-contiguous head dim raise; nothing falls back
+    to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
-    q = torch.zeros((1, 4, 2, 1, 32), device=dev)
-    k = torch.zeros((1, 4, 2, 32), device=dev)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q, k, k, causal=True)
+    for D in (48, 512):
+        q = torch.zeros((1, 4, 2, 1, D), device=dev)
+        k = torch.zeros((1, 4, 2, D), device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="head dim"):
+                fa.flash_attention(q.to(dt), k.to(dt), k.to(dt),
+                                   causal=True)
     q, k = torch.zeros((1, 4, 2, 1, 64), device=dev), torch.zeros(
         (1, 4, 2, 64), device=dev)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -1758,13 +1786,29 @@ def test_a_step_that_syncs_fails_to_capture_on_card():
     assert torch.equal(g.replay(), x * 3) and fresh.captures == 1
 
 
+#: the smoke LMs of every family the port serves: ssm, dense (G = 4;
+#: gemma's head dim 16 and scaled embedding; mistral's untied lm_head and
+#: sequence-sharded cache), moe (arctic top-2 with a dense residual,
+#: llama4 top-1 with a shared expert) and hybrid (jamba: one attention
+#: slot of 8, MoE top-2 on the odd slots)
+LM_SMOKES = ["mamba2-130m", "granite-3-2b", "gemma-7b", "mistral-large-123b",
+             "arctic-480b", "llama4-maverick-400b-a17b",
+             "jamba-1.5-large-398b"]
+
+
+def _attn_layers(model) -> int:
+    return sum(s.mixer == "attn" for s in model.spec.slots) \
+        * model.spec.n_periods
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b"])
+@pytest.mark.parametrize("arch", LM_SMOKES)
 def test_decode_replay_equals_eager_on_card(arch):
     """8 greedy decode steps of the smoke LM through the launcher's
     decode graph equal 8 eager steps from a copy of the same cache, logits
-    bit for bit; one capture; the flash kernel counted once per layer per
-    replay on the dense family, never on the ssm family."""
+    bit for bit (the MoE archs' gather dispatch at top-1 and top-2
+    among them); one capture; the flash kernel counted once per attention
+    layer per replay, never on the ssm family."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
     from repro_torch.configs import get_smoke
@@ -1774,10 +1818,7 @@ def test_decode_replay_equals_eager_on_card(arch):
     from repro_torch.serve import ServeEngine
 
     fp32_ieee()
-    cfg = get_smoke(arch)
-    if cfg.n_q:  # the flash kernel takes head dims 64 and 128
-        cfg = cfg.with_overrides(head_dim=64)
-    model = build_model(cfg)
+    model = build_model(get_smoke(arch))
     params = model.init(0, "cuda")
     B, S = 2, 9
     toks = torch.as_tensor(np.random.default_rng(0).integers(
@@ -1790,8 +1831,7 @@ def test_decode_replay_equals_eager_on_card(arch):
     tok = logits.argmax(-1)
     decode = decode_executable(eng, model, params, tok, cache, S)
     assert list(eng.capture_counts.values()) == [1]
-    assert decode.launches.get("flash_attention", 0) == (
-        model.cfg.n_layers if model.cfg.n_q else 0)
+    assert decode.launches.get("flash_attention", 0) == _attn_layers(model)
     etok = tok
     pos = torch.tensor(S, device="cuda")
     for i in range(8):
@@ -1806,7 +1846,8 @@ def test_decode_replay_equals_eager_on_card(arch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b",
+                                  "llama4-maverick-400b-a17b"])
 def test_two_generations_on_one_decode_graph_on_card(arch):
     """The launcher's decode executable is built once per (arch, batch):
     a second generation, from a new prompt's prefill into a new cache,
@@ -1825,8 +1866,6 @@ def test_two_generations_on_one_decode_graph_on_card(arch):
 
     fp32_ieee()
     cfg = get_smoke(arch)
-    if cfg.n_q:  # the flash kernel takes head dims 64 and 128
-        cfg = cfg.with_overrides(head_dim=64)
     model = build_model(cfg)
     params = model.init(0, "cuda")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1856,6 +1895,82 @@ def test_two_generations_on_one_decode_graph_on_card(arch):
     _, want_toks, want_leaves = generate(alone, prompts[1])
     assert torch.equal(toks, want_toks)
     assert all(torch.equal(a, b) for a, b in zip(leaves, want_leaves))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_SMOKES[2:])
+def test_smoke_arch_served_on_kernels_matches_plain_on_card(arch):
+    """Each smoke LM this slice added, served in fp32 (TF32 off) through
+    the kernels: the prefill's and 4 greedy decode steps' logits within
+    1e-4 of the largest |logit| of the same steps on the plain attention
+    (the oracle substrate), fed the same tokens; the flash kernel launched
+    once per attention layer in the prefill and per step, the plain run
+    never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernel runs on the card")
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.nn.models import build_model
+
+    fp32_ieee()
+    cfg = get_smoke(arch)
+    model = build_model(cfg, policy=ExecutionPolicy("kernel"))
+    oracle = build_model(cfg, policy=ExecutionPolicy("oracle"))
+    params = model.init(0, "cuda")
+    B, S = 2, 21
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S)), device="cuda")
+    runs = {}
+    with torch.inference_mode():
+        for name, m in (("kernel", model), ("plain", oracle)):
+            before = fa.LAUNCHES
+            cache = m.init_cache(B, S + 4, torch.float32, "cuda")
+            logits, cache = m.prefill(params, toks, cache)
+            out = [logits]
+            for i in range(4):
+                tok = runs["kernel"][0][i].argmax(-1) if name == "plain" \
+                    else logits.argmax(-1)
+                logits, cache = m.decode_step(params, tok, cache, S + i)
+                out.append(logits)
+            torch.cuda.synchronize()
+            runs[name] = (out, fa.LAUNCHES - before)
+    assert runs["kernel"][1] == 5 * _attn_layers(model)
+    assert runs["plain"][1] == 0
+    scale = max(float(t.abs().max()) for t in runs["plain"][0])
+    for got, want in zip(runs["kernel"][0], runs["plain"][0]):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_moe_decode_replay_equals_eager_on_card(k):
+    """The gather-dispatch MoE at a decode step's shape (one token a row,
+    every expert's queue at capacity 1) recorded into a CUDA graph: no op
+    reads the device back (the queue counts and the aux loss are
+    ``scatter_add_`` into fixed buffers), and each replay on new inputs
+    equals the eager call bit for bit, at top-1 and top-2; so does a
+    prefill-shaped call run twice (the combine takes no atomic sum)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.engine import graphs
+    from repro_torch.nn import moe as tmoe
+
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    p = tmoe.init_moe(gen, 64, 96, 8, shared_expert=True, device="cuda")
+    x = torch.randn((4, 1, 64), generator=gen, device="cuda")
+    step = torch.inference_mode()(
+        lambda: tmoe.moe(p, x, top_k=k, impl="gather")[0])
+    g = graphs.capture(step, graphs.GraphPool("cuda"), label=f"moe top-{k}")
+    for i in range(3):
+        x.copy_(torch.randn((4, 1, 64), generator=gen, device="cuda"))
+        got = g.replay().clone()
+        want, _ = tmoe.moe(p, x, top_k=k, impl="gather")
+        assert torch.equal(got, want), i
+    xs = torch.randn((2, 300, 64), generator=gen, device="cuda")
+    a, aux_a = tmoe.moe(p, xs, top_k=k, impl="gather")
+    b, aux_b = tmoe.moe(p, xs, top_k=k, impl="gather")
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
 
 
 # -- the LM kernels under autograd ---------------------------------------------
@@ -1925,9 +2040,10 @@ def test_flash_function_gradients_on_card(dtype, G, D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b",
+                                  "arctic-480b"])
 def test_lm_train_step_on_card(arch):
-    """One train step of the smoke LM (fp32; flash at head dim 64) on the
+    """One train step of the smoke LM (fp32; flash at its head dim 8) on the
     kernels against the same step on the oracle substrate: the path's
     kernel launched once per layer (the forward), loss and grad_norm
     within 1e-5, every new param within rtol = atol = 1e-4."""
@@ -1944,8 +2060,6 @@ def test_lm_train_step_on_card(arch):
 
     fp32_ieee()
     cfg = get_smoke(arch)
-    if cfg.n_q:  # the flash kernel takes head dims 64 and 128
-        cfg = cfg.with_overrides(head_dim=64)
     model = build_model(cfg, policy=ExecutionPolicy("kernel"))
     oracle = build_model(cfg, policy=ExecutionPolicy("oracle"))
     state = make_train_state(model, 0, "cuda")
@@ -1955,6 +2069,7 @@ def test_lm_train_step_on_card(arch):
     before = counter.LAUNCHES
     new, mets = make_train_step(model, StepConfig())(state, batch)
     assert counter.LAUNCHES - before == cfg.n_layers
+    assert bool(mets["moe_aux"] > 0) == bool(cfg.n_experts)
     new_o, mets_o = make_train_step(oracle, StepConfig())(state, batch)
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(mets[k], mets_o[k], rtol=1e-5, atol=0)

@@ -1,25 +1,36 @@
 """The port's LM serving path against the JAX package's, on the CPU, for
-each architecture it serves: mamba2-130m (the ssm family), granite-3-2b
-and starcoder2-3b (the dense family; layernorm, the tanh-gelu MLP, G = 4
-on its smoke config and 12 at full width).  Every test but the refusals of unported families and
-features runs once per architecture.
+each architecture it serves: mamba2-130m (the ssm family), granite-3-2b,
+starcoder2-3b (layernorm, the tanh-gelu MLP, G = 4 on its smoke config
+and 12 at full width), gemma-7b (geglu, head dim 256 at full width, the
+embedding scaled by sqrt(d_model)) and mistral-large-123b (an untied
+``lm_head``, the sequence-sharded decode cache) of the dense family,
+arctic-480b (MoE top-2 with a dense residual) and
+llama4-maverick-400b-a17b (dense and MoE top-1 layers interleaved, a
+shared expert) of the moe family, and jamba-1.5-large-398b (Mamba and
+attention slots, MoE on the odd layers) of the hybrid family.  Every test
+but the family and feature checks runs once per architecture.
 
-- The full config's fields equal JAX's, and the full-width parameter
-  tree (init on the ``meta`` device) has JAX's paths, shapes and dtypes
-  (``jax.eval_shape``).
+- The full config's fields, parameter count and active parameter count
+  equal JAX's, and the full-width parameter tree (init on the ``meta``
+  device, never materialized: arctic-480b is 480 B) has JAX's paths,
+  shapes and dtypes (``jax.eval_shape``) and the count of
+  ``FULL_PARAMS``.
 - On the smoke config in fp32, with JAX's weights carried by
   ``from_jax_params``: forward logits within rtol = atol = 1e-4; prefill
   logits and cache, then 8 teacher-forced decode steps fed JAX's tokens,
   within 3e-4 (the JAX package's own serve-consistency tolerance,
   ``tests/test_arch_smokes.py``); the port's own prefill + decode equal
-  its forward within 3e-4.
+  its forward within 3e-4 (at ``capacity_factor`` 16, as JAX's test: an
+  S-token and a 1-token call drop different tokens).
 - bfloat16 weights cross bit for bit, both ways.
 - The launcher runs on the CPU when asked to and refuses without a card.
-- ``build_model`` refuses a config by the features the port lacks, and
-  builds a ported one whatever its name.
+- ``build_model`` builds every family but vlm and encdec and every
+  feature the JAX package has on one device, each held against JAX's
+  forward; it refuses vlm, encdec and ``tp != 1``; and builds a config
+  whatever its name.
 
-granite-3-2b's KV caches are written in place (``nn/attention.py``): its
-prefill + decode test checks that the cache returned is the one given.
+The KV caches are written in place (``nn/attention.py``): the prefill +
+decode test checks that the cache returned is the one given.
 """
 import dataclasses
 import os
@@ -37,13 +48,28 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke as jax_get_smoke
 from repro.nn.models import build_model as jax_build_model
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.core.tree import tree_leaves_with_path
+from repro_torch.core.tree import tree_leaves, tree_leaves_with_path
 from repro_torch.distributed import make_decode_step, make_prefill_step
 from repro_torch.nn.models import CausalLM, build_model
 from repro_torch.weights import from_jax_params, to_numpy
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-ARCHS = ["mamba2-130m", "granite-3-2b", "starcoder2-3b"]
+ARCHS = ["mamba2-130m", "granite-3-2b", "starcoder2-3b", "gemma-7b",
+         "mistral-large-123b", "arctic-480b", "llama4-maverick-400b-a17b",
+         "jamba-1.5-large-398b"]
+
+
+def _attn(d, n_q, n_kv, hd):
+    return d * (n_q + 2 * n_kv) * hd + n_q * hd * d
+
+
+def _mamba(d, d_in, gs, h, K):
+    """in_proj, conv1d, A_log / dt_bias / D, the gated norm, out_proj."""
+    return d * (2 * d_in + 2 * gs + h) + K * (d_in + 2 * gs) + 3 * h + d_in \
+        + d_in * d
+
+
+
 #: the full-width parameter count: embedding (padded vocab) + layers + the
 #: final norm
 FULL_PARAMS = {
@@ -56,6 +82,28 @@ FULL_PARAMS = {
     "starcoder2-3b": 49152 * 3072 + 30 * (3072 * 28 * 128 + 24 * 128 * 3072
                                           + 2 * 3072 * 12288 + 4 * 3072)
     + 2 * 3072,
+    # q/kv width 16 x 256 = 4096, not d_model
+    "gemma-7b": 256000 * 3072 + 28 * (_attn(3072, 16, 16, 256)
+                                      + 3 * 3072 * 24576 + 2 * 3072) + 3072,
+    # the untied lm_head: a second vocab x d_model
+    "mistral-large-123b": 2 * 32768 * 12288 + 88 * (
+        _attn(12288, 96, 8, 128) + 3 * 12288 * 28672 + 2 * 12288) + 12288,
+    # each layer: the router, 128 experts and the dense residual
+    "arctic-480b": 2 * 32000 * 7168 + 35 * (
+        _attn(7168, 56, 8, 128) + 7168 * 128 + 129 * 3 * 7168 * 4864
+        + 2 * 7168) + 7168,
+    # vocab 202048 padded to 202112; 24 dense layers, 24 MoE layers with
+    # the router, 128 experts and the shared expert
+    "llama4-maverick-400b-a17b": 2 * 202112 * 5120 + 48 * (
+        _attn(5120, 40, 8, 128) + 2 * 5120) + 24 * 3 * 5120 * 8192
+    + 24 * (5120 * 128 + 129 * 3 * 5120 * 8192) + 5120,
+    # 9 periods of 8: attention at slot 4, Mamba-2 (d_inner 16384, 8
+    # groups of state 128, 128 heads) elsewhere; MoE (16 experts) on the
+    # odd slots
+    "jamba-1.5-large-398b": 2 * 65536 * 8192 + 9 * (
+        _attn(8192, 64, 8, 128) + 7 * _mamba(8192, 16384, 1024, 128, 4)
+        + 4 * 3 * 8192 * 24576 + 4 * (8192 * 16 + 16 * 3 * 8192 * 24576)
+        + 16 * 8192) + 8192,
 }
 TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_TOL = dict(rtol=3e-4, atol=3e-4)
@@ -69,6 +117,8 @@ def test_full_config_matches_jax(arch):
     assert jnp.dtype(b.pop("dtype")).name == "bfloat16"
     assert a == b
     assert port.param_count_estimate() == ref.param_count_estimate()
+    assert port.active_param_count_estimate() == \
+        ref.active_param_count_estimate()
     assert get_smoke(arch).dtype == torch.float32
     smoke, smoke_j = (dataclasses.asdict(c) for c in (get_smoke(arch),
                                                       jax_get_smoke(arch)))
@@ -78,12 +128,21 @@ def test_full_config_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "seamless-m4t-large-v2",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "llava-next-34b"])
 def test_unported_families_raise(arch):
-    with pytest.raises(KeyError, match="queue 1, item 9"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        build_model(jax_smoke_as_port(arch))
+    """The families this slice ports (gemma-7b's dense features, jamba's
+    hybrid schedule) build from JAX's smoke config and match JAX's
+    forward; the vlm and encdec families still raise, by config and by
+    family."""
+    cfg = jax_smoke_as_port(arch)
+    if cfg.family in ("vlm", "encdec"):
+        with pytest.raises(KeyError, match="queue 1, item 9"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+            build_model(cfg)
+        return
+    assert get_config(arch).name == arch
+    _assert_forward_matches_jax(cfg, jax_get_smoke(arch))
 
 
 @pytest.mark.parametrize("override", [
@@ -91,12 +150,33 @@ def test_unported_families_raise(arch):
     dict(scale_embed=True), dict(decode_kv_seqshard="model")],
     ids=lambda o: next(iter(o)))
 def test_build_model_refuses_unported_features(override):
-    """build_model refuses by what a config needs, not by its name."""
+    """Each feature this slice ports builds by what a config needs, not by
+    its name, and matches JAX with that override on granite's smoke config
+    (``n_experts=4`` with ``top_k`` 2: every layer MoE); ``tp != 1``
+    still raises."""
+    if "n_experts" in override:
+        override = dict(override, top_k=2)
     cfg = get_smoke("granite-3-2b").with_overrides(**override)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        build_model(cfg)
+    _assert_forward_matches_jax(
+        cfg, jax_get_smoke("granite-3-2b").with_overrides(**override))
     with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        build_model(get_smoke("granite-3-2b"), tp=2)
+        build_model(cfg, tp=2)
+
+
+def _assert_forward_matches_jax(cfg, cfg_j):
+    """The port's model for ``cfg`` on JAX's params for ``cfg_j``: the
+    same tree, forward logits and moe_aux within TOL."""
+    model_j = jax_build_model(cfg_j)
+    params_j = model_j.init(jax.random.PRNGKey(0))
+    model = build_model(cfg)
+    params = from_jax_params(params_j, "cpu")
+    assert [p for p, _ in tree_leaves_with_path(model.init(0, "meta"))] \
+        == [p for p, _ in tree_leaves_with_path(params)]
+    toks = _tokens(2, 9, cfg.vocab, 6)
+    want, aux_j = model_j.forward(params_j, jnp.asarray(toks))
+    got, aux = model.forward(params, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(aux_j), **TOL)
 
 
 def test_build_model_takes_a_renamed_config():
@@ -104,8 +184,8 @@ def test_build_model_takes_a_renamed_config():
     model = build_model(cfg.with_overrides(name="granite-copy"))
     params = build_model(cfg).init(0, "cpu")
     toks = torch.from_numpy(_tokens(2, 9, cfg.vocab, 2)).long()
-    assert torch.equal(model.forward(params, toks),
-                       build_model(cfg).forward(params, toks))
+    assert torch.equal(model.forward(params, toks)[0],
+                       build_model(cfg).forward(params, toks)[0])
 
 
 def jax_smoke_as_port(arch):
@@ -145,11 +225,13 @@ def _tokens(B, S, vocab, seed):
 def test_smoke_forward_matches_jax(smoke):
     model_j, params_j, model, params = smoke
     toks = _tokens(2, 40, model.cfg.vocab, 1)
-    want, _ = model_j.forward(params_j, jnp.asarray(toks))
-    got = model.forward(params, torch.from_numpy(toks).long())
+    want, aux_j = model_j.forward(params_j, jnp.asarray(toks))
+    got, aux = model.forward(params, torch.from_numpy(toks).long())
     assert got.dtype == torch.float32 and got.shape == (2, 40,
                                                         model.cfg.vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(float(aux), float(aux_j), **TOL)
 
 
 def test_smoke_prefill_and_decode_match_jax(smoke):
@@ -196,26 +278,32 @@ def test_smoke_prefill_with_lengths_matches_jax(smoke):
 
 def test_smoke_prefill_then_decode_equals_forward(smoke):
     """prefill(t[:S-1]) + decode(t[S-1]) == forward(t) at the last two
-    positions, on the port alone.  A Mamba cache given is never written; a
-    KV cache is written in place and returned."""
+    positions, on the port alone (MoE at capacity_factor 16, so that no
+    token is dropped in either).  A Mamba cache given is never written; a
+    KV cache is written in place and returned, under JAX's key (``kv``,
+    or ``kv_seq`` where the decode cache is sequence-sharded)."""
     _, _, model, params = smoke
+    model = build_model(model.cfg.with_overrides(capacity_factor=16.0))
     B, S = 2, 12
     toks = torch.from_numpy(_tokens(B, S, model.cfg.vocab, 4)).long()
-    full = model.forward(params, toks)
+    full, _ = model.forward(params, toks)
     cache = model.init_cache(B, S + 4, dtype=torch.float32, device="cpu")
     pre, cache2 = model.prefill(params, toks[:, :S - 1], cache)
     torch.testing.assert_close(pre, full[:, S - 2], **SERVE_TOL)
     dec, cache3 = model.decode_step(params, toks[:, S - 1], cache2, S - 1)
     torch.testing.assert_close(dec, full[:, S - 1], **SERVE_TOL)
-    if model.cfg.family == "ssm":
-        assert all(float(t.abs().max()) == 0 for _, t in
-                   tree_leaves_with_path(cache))
-    else:
-        assert cache3["slot0"]["kv"] is cache2["slot0"]["kv"] \
-            is cache["slot0"]["kv"]
-        k = cache["slot0"]["kv"].k
-        assert float(k[:, :, S - 1].abs().max()) > 0
-        assert float(k[:, :, S:].abs().max()) == 0
+    key = "kv_seq" if model.cfg.decode_kv_seqshard else "kv"
+    kv_slots = [s for s, c in cache.items() if "kv" in c or "kv_seq" in c]
+    assert all(set(cache[s]) == {key} for s in kv_slots)
+    for slot, c in cache.items():
+        if slot in kv_slots:
+            assert cache3[slot][key] is cache2[slot][key] is c[key]
+            k = c[key].k
+            assert float(k[:, :, S - 1].abs().max()) > 0
+            assert float(k[:, :, S:].abs().max()) == 0
+        else:
+            assert all(float(t.abs().max()) == 0 for t in tree_leaves(c))
+    assert bool(kv_slots) == bool(model.cfg.n_q)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -236,8 +324,30 @@ def test_bf16_weights_cross_bit_for_bit(arch):
         np.testing.assert_array_equal(got, b, err_msg=p)
     model = CausalLM(get_smoke(arch, dtype=torch.bfloat16))
     toks = torch.from_numpy(_tokens(1, 9, model.cfg.vocab, 5)).long()
-    logits = model.forward(params, toks)
+    logits, aux = model.forward(params, toks)
     assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(aux))
+
+
+@pytest.mark.parametrize("d_model", [64, 3072])
+def test_scale_embed_rounds_as_jax(d_model):
+    """gemma's embedding scale in bf16: JAX multiplies by
+    ``jnp.asarray(sqrt(d_model), bf16)`` (sqrt(3072) = 55.43 rounds to
+    55.5); the port's scaled embedding equals JAX's bit for bit."""
+    cfg_j = jax_get_smoke("gemma-7b", dtype=jnp.bfloat16).with_overrides(
+        d_model=d_model)
+    rng = np.random.default_rng(d_model)
+    table = jnp.asarray(rng.standard_normal((cfg_j.vocab, d_model)),
+                        jnp.bfloat16)
+    toks = _tokens(2, 7, cfg_j.vocab, 8)
+    want = jax_build_model(cfg_j)._embed({"embed": {"table": table}},
+                                         jnp.asarray(toks), None)
+    got = CausalLM(get_smoke("gemma-7b", dtype=torch.bfloat16).with_overrides(
+        d_model=d_model))._embed(from_jax_params(
+            {"embed": {"table": table}}, "cpu"), torch.from_numpy(toks).long())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(to_numpy(got), np.asarray(want).view(
+        np.uint16))
 
 
 def _run_serve(arch, *flags):

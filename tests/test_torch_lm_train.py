@@ -1,7 +1,10 @@
 """The port's LM training path against the JAX package's, on the CPU.
 
-On the smoke configs of mamba2-130m, granite-3-2b and starcoder2-3b in
-fp32, with the JAX weights and train state carried across by
+On the smoke configs of mamba2-130m, granite-3-2b, starcoder2-3b,
+gemma-7b, mistral-large-123b (an untied ``lm_head``: the chunked arm
+reads it transposed), arctic-480b and llama4-maverick-400b-a17b (the
+MoE aux loss in the loss, weight 0.01) and jamba-1.5-large-398b in fp32,
+with the JAX weights and train state carried across by
 ``from_jax_params``:
 
 - both CE arms (``nn/losses.py``) against ``repro.nn.losses``, value and
@@ -52,7 +55,9 @@ from repro_torch.nn import losses
 from repro_torch.nn.models import build_model
 from repro_torch.weights import from_jax_params, to_numpy
 
-ARCHS = ["mamba2-130m", "granite-3-2b", "starcoder2-3b"]
+ARCHS = ["mamba2-130m", "granite-3-2b", "starcoder2-3b", "gemma-7b",
+         "mistral-large-123b", "arctic-480b", "llama4-maverick-400b-a17b",
+         "jamba-1.5-large-398b"]
 XENT_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-5
 REL_GRAD = 1e-4
