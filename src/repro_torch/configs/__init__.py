@@ -3,17 +3,18 @@
 by architecture id): mamba2-130m of the ssm family; granite-3-2b,
 starcoder2-3b, gemma-7b and mistral-large-123b of the dense family;
 arctic-480b and llama4-maverick-400b-a17b of the moe family; and
-jamba-1.5-large-398b of the hybrid family.  llava-next-34b (vlm) and
-seamless-m4t-large-v2 (encdec) are not registered yet.
+jamba-1.5-large-398b of the hybrid family; llava-next-34b of the vlm
+family; and seamless-m4t-large-v2 of the encdec family.
 
 Mirrors ``repro/configs/__init__.py``.
 """
 import torch
 
 from repro_torch.configs import (arctic_480b, gemma_7b, granite_3_2b,
-                                 jamba_1_5_large_398b,
+                                 jamba_1_5_large_398b, llava_next_34b,
                                  llama4_maverick_400b_a17b, mamba2_130m,
-                                 mistral_large_123b, starcoder2_3b)
+                                 mistral_large_123b, seamless_m4t_large_v2,
+                                 starcoder2_3b)
 from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K, LONG_500K,
                                       PREFILL_32K, REGISTRY, TRAIN_4K,
                                       ModelConfig, ShapeCell, get_config,
@@ -24,7 +25,8 @@ from repro_torch.configs.cnn import (ALEXNET_SMOKE, CNN_REGISTRY, CNN_SMOKES,
 _SMOKES = {m.CONFIG.name: m.SMOKE
            for m in (mamba2_130m, granite_3_2b, starcoder2_3b, gemma_7b,
                      mistral_large_123b, arctic_480b,
-                     llama4_maverick_400b_a17b, jamba_1_5_large_398b)}
+                     llama4_maverick_400b_a17b, jamba_1_5_large_398b,
+                     llava_next_34b, seamless_m4t_large_v2)}
 
 ARCH_IDS = tuple(sorted(REGISTRY))
 

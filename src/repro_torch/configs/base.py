@@ -2,9 +2,9 @@
 ``repro/configs/base.py``; the port keeps its own so it imports nothing of
 the JAX package).  The one change: ``dtype`` is a ``torch.dtype``.
 
-The ``ssm``, ``dense``, ``moe`` and ``hybrid`` families are registered;
-the ``vlm`` (llava-next-34b) and ``encdec`` (seamless-m4t-large-v2)
-families arrive with their modules (ROADMAP queue 1, item 9).
+Every family of the JAX package is registered: ``ssm``, ``dense``,
+``moe``, ``hybrid``, ``vlm`` (llava-next-34b) and ``encdec``
+(seamless-m4t-large-v2).
 """
 from __future__ import annotations
 
@@ -172,8 +172,5 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (registers the configs)
     if name not in REGISTRY:
-        raise KeyError(
-            f"arch {name!r} is not ported: the port serves "
-            f"{sorted(REGISTRY)}; the vlm and encdec families are ROADMAP "
-            "queue 1, item 9")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[name]

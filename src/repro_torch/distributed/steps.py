@@ -118,10 +118,16 @@ def make_train_step(model, scfg: StepConfig = StepConfig(),
 
 def make_prefill_step(model) -> Callable:
     """``prefill_step(params, batch, cache) -> (last logits, cache)`` for
-    an LM: ``batch`` holds ``tokens`` (B, S) and optionally ``lengths``
-    (B,)."""
+    an LM, routed as ``repro/distributed/steps.py:195-203``: with
+    ``src_embeds`` (B, S_src, d) in ``batch`` the encdec prefill of the
+    target ``tokens`` (B, S); else the ``tokens`` after ``extra_embeds``
+    (B, S_img, d) where given, and optionally ``lengths`` (B,)."""
     def prefill_step(params, batch, cache):
+        if "src_embeds" in batch:
+            return model.prefill(params, batch["src_embeds"],
+                                 batch["tokens"], cache)
         return model.prefill(params, batch["tokens"], cache,
+                             extra_embeds=batch.get("extra_embeds"),
                              lengths=batch.get("lengths"))
     return prefill_step
 

@@ -4,6 +4,8 @@
       --batch 4 --prompt-len 4096 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \\
       --batch 4 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-large-v2 --batch 4 --prompt-len 4096 --gen 32
 
 Port of ``repro/launch/serve.py``.  The prefill and decode steps
 (``distributed.steps.make_prefill_step`` / ``make_decode_step``) are built
@@ -27,7 +29,15 @@ flash-attention kernel, once per prefill and once per decode step; the
 hybrid jamba-1.5-large-398b runs both kernels on its slots of each kind.
 The MoE layers' decode replays in the graph like the rest (their
 dispatch reads nothing back to the host).  The caches are written in
-place.
+place.  The vlm family (llava-next-34b) is served text-only, as the JAX
+launcher serves it.  The encdec family (seamless-m4t-large-v2) takes the
+JAX launcher's encdec arm: a seeded source of ``--prompt-len`` frames
+(B, prompt_len, d_model) in the config's dtype, a bos of zeros as the
+target prompt, a cross-KV of ``prompt_len`` source positions, and decode
+from position 1; its prefill runs the flash kernel in the encoder's,
+the decoder's and the cross-attention layers, and each decode step in
+the decoder's self- and cross-attention, over the cross-KV the prefill
+wrote into the cache (the graph replays on it).
 
 Prefill latency and decode tokens/s are reported separately.  The flags
 are the JAX launcher's plus ``--device`` (default ``cuda``: without a
@@ -130,12 +140,24 @@ class DecodeGraph:
         return self.graph.replay(), self.cache
 
 
+def _prefill_tag(batch: Dict) -> str:
+    """The shape key of a prefill batch: the tokens' (B, S), and the
+    source's or the prepended embeddings' length where the batch has
+    them."""
+    B, S = batch["tokens"].shape
+    tag = f"b{B} p{S}"
+    if "src_embeds" in batch:
+        tag += f" src{batch['src_embeds'].shape[1]}"
+    if "extra_embeds" in batch:
+        tag += f" img{batch['extra_embeds'].shape[1]}"
+    return tag
+
+
 def prefill_executable(eng: ServeEngine, model, params, batch: Dict,
                        cache) -> Callable:
-    """The prefill step for ``batch``'s shape, built and warmed once per
+    """The prefill step for ``batch``'s shapes, built and warmed once per
     engine (eager on both devices)."""
-    B, S = batch["tokens"].shape
-    key = eng.executable_key(model.cfg.name, "prefill", f"b{B} p{S}")
+    key = eng.executable_key(model.cfg.name, "prefill", _prefill_tag(batch))
     return eng.executable(key, lambda: _warmed(
         make_prefill_step(model), params, batch, cache))
 
@@ -153,6 +175,10 @@ def decode_executable(eng: ServeEngine, model, params, token: torch.Tensor,
         if eng.device.type != "cuda":
             return _warmed(step, params, token,
                            tree_map(torch.clone, cache), pos)
+        # the prefill's freed transients stay cached in the main pool,
+        # which the capture's private pool cannot draw on: hand them back
+        # first (a large model's readout cast can need GiBs there)
+        torch.cuda.empty_cache()
         g = DecodeGraph(step, params, token, cache, pos, eng.graph_pool(),
                         key)
         eng.record_capture(key, g)
@@ -224,8 +250,21 @@ def main() -> None:
     eng = ServeEngine(name=f"lm-{cfg.name}", buckets=serve_config.buckets,
                       device=dev)
     params = model.init(0, dev)
-    cache = model.init_cache(args.batch, max_len, dtype=cfg.dtype, device=dev)
-    batch0 = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if cfg.family == "encdec":
+        src = rng.normal(size=(args.batch, args.prompt_len, cfg.d_model))
+        cache = model.init_cache(args.batch, max_len,
+                                 cross_len=args.prompt_len, dtype=cfg.dtype,
+                                 device=dev)
+        batch0 = {"src_embeds": torch.as_tensor(src, dtype=cfg.dtype,
+                                                device=dev),
+                  "tokens": torch.zeros((args.batch, 1), dtype=torch.long,
+                                        device=dev)}
+        pos0 = 1
+    else:
+        cache = model.init_cache(args.batch, max_len, dtype=cfg.dtype,
+                                 device=dev)
+        batch0 = {"tokens": torch.as_tensor(prompts, device=dev)}
+        pos0 = args.prompt_len
     prefill = prefill_executable(eng, model, params, batch0, cache)
     logits, cache, prefill_s = run_prefill(prefill, params, batch0, cache, dev)
     finite = bool(torch.isfinite(logits).all())
@@ -233,10 +272,9 @@ def main() -> None:
     out_tokens = [tok]
     decode_s = 0.0
     if args.gen > 1:
-        decode = decode_executable(eng, model, params, tok, cache,
-                                   args.prompt_len)
+        decode = decode_executable(eng, model, params, tok, cache, pos0)
         toks, cache, decode_s, dec_finite = run_decode(
-            decode, params, tok, cache, args.prompt_len, args.gen - 1, dev)
+            decode, params, tok, cache, pos0, args.gen - 1, dev)
         out_tokens += toks
         finite = finite and dec_finite
     gen = torch.stack(out_tokens, 1).cpu().numpy()

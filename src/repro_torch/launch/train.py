@@ -20,8 +20,12 @@ LM arm (``--arch`` an LM id, ``--smoke`` for its reduced fp32 config):
 tokens a row (plus 0.01 times the MoE layers' aux loss on the moe and
 hybrid archs); on the card the Mamba mixer's conv1d and the attention
 core run their kernels forward, under ``autograd.Function``s whose
-backward is the plain version's VJP.  The archs that do not fit one card
-at full width (gemma-7b's AdamW state, and the four larger ones) train on
+backward is the plain version's VJP.  The vlm arch trains on text
+tokens alone (its batches carry no patch embeddings); the encdec arch is
+refused, since its loss takes source frames the token stream does not
+hold (``make_train_step`` trains it on a batch with ``src_embeds``; the
+JAX launcher's LM arm feeds tokens only too).  The archs that do not fit one card
+at full width (gemma-7b's AdamW state, and the larger ones) train on
 their ``--smoke`` configs.  Both arms: the one-device
 ``make_train_step`` (AdamW, warmup-cosine, non-finite step skip,
 ``--accum`` microbatches) and ``train_loop``, which with ``--ckpt-dir``
@@ -102,6 +106,10 @@ def _lm(args, ap):
         model = build_model(cfg, policy=policy_from_args(args))
     except (KeyError, NotImplementedError) as e:
         ap.error(f"--arch {args.arch!r}: {e.args[0]}")
+    if cfg.family == "encdec":
+        ap.error(f"--arch {args.arch!r}: training the encdec family from "
+                 "the launcher is not ported: its loss takes source frames, "
+                 "and the LM arm feeds token batches only")
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq + 1,
                             global_batch=args.batch, seed=args.seed)
     conv1d.LAUNCHES = flash.LAUNCHES = 0

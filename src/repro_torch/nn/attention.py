@@ -1,6 +1,7 @@
-"""Attention: GQA/MQA/MHA self-attention with RoPE, a streaming-softmax
-core for train and prefill, and KV-cached decode (port of
-``repro/nn/attention.py`` for one device, ``tp == 1``).
+"""Attention: GQA/MQA/MHA self-attention with RoPE, cross-attention into
+an encoder's output, a streaming-softmax core for train and prefill, and
+KV-cached decode (port of ``repro/nn/attention.py`` for one device,
+``tp == 1``).
 
 The core is ``kernels.ops.flash_attention``: the hand-written flash
 kernel on a CUDA tensor, its plain version (``nn/attention.py:
@@ -27,8 +28,13 @@ so that is its decode path, kernel 5's split decode on the card; the
 caller keys the cache ``kv_seq`` (``kv_seq2``), as JAX does.  Across
 ranks (a process group of more than one) it raises: the multi-rank arm,
 a partial flash per sequence shard merged by log-sum-exp, is ROADMAP
-queue 1, item 10.  Cross-attention (``cross_kv``, the encdec family) is
-not ported (item 9).
+queue 1, item 10.
+
+Cross-attention (the encdec decoder): ``cross_kv`` is the (k, v) pair
+:func:`make_cross_kv` lays out from the encoder's output, (B, S_src,
+kv_eff, D) each.  The layer then projects only q, applies no RoPE, writes
+no cache and attends over every source key, never causally and under no
+``kv_length``, in every mode, as ``repro/nn/attention.py:223-233, 279``.
 """
 from __future__ import annotations
 
@@ -144,25 +150,29 @@ def attention(params: Params, x: torch.Tensor, lay: AttnLayout, *,
               rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               policy: Optional[ExecutionPolicy] = None,
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Self-attention over x (B, S, d_model).
+    """Self- or cross-attention over x (B, S, d_model).
 
-    mode: "train" (no cache), "prefill" (writes the cache's rows [0, S) in
-    place), "decode" (S == 1: writes row ``cache_pos`` in place, then
-    attends over the whole cache under ``kv_length``, by default
-    ``cache_pos + 1`` for every row; ``cache_pos`` a 0-d integer tensor
-    on the device, or an int made one, places the write with
+    mode: "train" or "encoder" (no cache), "prefill" (writes the cache's
+    rows [0, S) in place), "decode" (S == 1: writes row ``cache_pos`` in
+    place, then attends over the whole cache under ``kv_length``, by
+    default ``cache_pos + 1`` for every row; ``cache_pos`` a 0-d integer
+    tensor on the device, or an int made one, places the write with
     ``index_copy_`` and the default ``kv_length`` on the device).
     ``kv_seqshard`` ("model", "2d" or True) is the sequence-sharded
     decode: on one device the same path over the same unrepeated cache.
     ``rope``, where given, is ``rope_angles(positions, head_dim,
-    rope_theta)`` computed by the caller once for every layer.  ``policy``
-    picks the flash kernel or its plain version.  Returns (out (B, S,
-    d_model), the cache or None).
+    rope_theta)`` computed by the caller once for every layer.
+    ``cross_kv`` (k, v), each (B, S_src, kv_eff, D), makes it
+    cross-attention: no k/v projection, no RoPE, no cache and no mask,
+    whatever the mode.  ``policy`` picks the flash kernel or its plain
+    version.  Returns (out (B, S, d_model), the cache or None).
     """
     if cross_kv is not None:
-        raise NotImplementedError("cross-attention (cross_kv, the encdec "
-                                  "family) is not ported yet: ROADMAP queue "
-                                  "1, item 9")
+        q = _split_heads(dense(params["q_proj"], x), lay.n_q, lay.head_dim)
+        k, v = cross_kv
+        o = flash_attention(_layout_q(q, lay), k, v, causal=False,
+                            chunk_k=chunk_k, policy=policy)
+        return dense(params["o_proj"], _unlayout_o(o, lay)), None
     if kv_seqshard and mode == "decode" and _world_size() > 1:
         raise NotImplementedError(
             f"the sequence-sharded decode across {_world_size()} ranks "
@@ -208,3 +218,13 @@ def attention(params: Params, x: torch.Tensor, lay: AttnLayout, *,
                             block_causal=block_causal, policy=policy)
     out = dense(params["o_proj"], _unlayout_o(o, lay))
     return out, new_cache
+
+
+def make_cross_kv(params: Params, enc_out: torch.Tensor, lay: AttnLayout,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's K and V for the decoder's cross-attention,
+    laid out as :func:`attention` takes them: (B, S_src, kv_eff, D)."""
+    D = lay.head_dim
+    k = _split_heads(dense(params["k_proj"], enc_out), lay.n_kv, D)
+    v = _split_heads(dense(params["v_proj"], enc_out), lay.n_kv, D)
+    return _repeat_kv(k, lay.kv_repeat), _repeat_kv(v, lay.kv_repeat)

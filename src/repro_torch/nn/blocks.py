@@ -5,16 +5,19 @@ An architecture is a *periodic* schedule of slots (mixer, ffn) repeated
 ``n_periods`` times: a dense transformer is period 1, (attn, mlp); mamba2
 period 1, (mamba, none); llama4 period 2, (attn, mlp), (attn, moe);
 arctic period 1, (attn, moe) with a dense residual; jamba period 8, attn
-at slot 4 and mamba elsewhere, moe on the odd slots.  As in the JAX
+at slot 4 and mamba elsewhere, moe on the odd slots; the seamless encoder
+period 1, (attn, mlp) non-causal (``StackSpec.causal``), and its decoder
+period 1, (attn + cross-attn, mlp).  As in the JAX
 package, each slot's params and caches are stacked over periods on a
 leading axis, so the JAX trees carry across as they are; where JAX runs
 the stack with ``lax.scan``, the port loops over periods in Python.  Each
 slot's cache is its mixer's kind, under JAX's key: ``kv`` (``kv_seq``,
-``kv_seq2`` where the decode KV cache is sequence-sharded) or ``mamba``.
-KV caches are written in place (see ``nn/attention.py``), and so are
-Mamba caches in decode; the prefill's Mamba caches are stacked anew.
-Every MoE slot's aux loss is summed over the stack.  Cross-attention
-(the encdec family) is not ported yet (ROADMAP queue 1, item 9).
+``kv_seq2`` where the decode KV cache is sequence-sharded) or ``mamba``,
+and a cross-attention slot's ``cross_kv`` beside its ``kv``.  KV caches
+are written in place (see ``nn/attention.py``), and so is the cross-KV,
+by the prefill; the decode reads it and never recomputes it.  Mamba
+caches are written in place in decode; the prefill's Mamba caches are
+stacked anew.  Every MoE slot's aux loss is summed over the stack.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import torch
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.engine.policy import ExecutionPolicy
 from repro_torch.nn.attention import (AttnLayout, KVCache, attention,
-                                      init_attention, init_kv_cache)
+                                      init_attention, init_kv_cache,
+                                      make_cross_kv)
 from repro_torch.nn.layers import (Params, init_layernorm, init_mlp,
                                    init_rmsnorm, layernorm, mlp, rmsnorm,
                                    rope_angles)
@@ -52,6 +56,7 @@ class StackSpec:
     norm: str = "rmsnorm"
     layout: Optional[AttnLayout] = None
     rope_theta: float = 1e4
+    causal: bool = True                       # False: the encdec encoder
     dims: Optional[MambaDims] = None          # mamba dims (ssm, hybrid)
     n_experts: int = 0
     top_k: int = 0
@@ -73,10 +78,6 @@ class StackSpec:
                 raise ValueError(f"mixer {slot.mixer!r}")
             if slot.ffn not in ("mlp", "moe", "none"):
                 raise ValueError(f"ffn {slot.ffn!r}")
-            if slot.cross_attn:
-                raise NotImplementedError(
-                    "cross-attention is not ported yet: the encdec family "
-                    "is ROADMAP queue 1, item 9")
         _norm_fns(self.norm)
 
     @property
@@ -106,6 +107,11 @@ def _init_slot(gen, spec: StackSpec, slot: SlotSpec, dtype, device) -> Params:
         p["norm_mixer"] = init_norm(spec.d_model, dtype, device)
         p["attn"] = init_attention(gen, spec.d_model, lay.n_q, lay.n_kv,
                                    lay.head_dim, dtype, device)
+        if slot.cross_attn:
+            p["norm_cross"] = init_norm(spec.d_model, dtype, device)
+            p["cross"] = init_attention(gen, spec.d_model, lay.n_q,
+                                        lay.n_kv, lay.head_dim, dtype,
+                                        device)
     elif slot.mixer == "mamba":
         p["norm_mixer"] = init_norm(spec.d_model, dtype, device)
         p["mamba"] = init_mamba(gen, spec.dims, dtype, device)
@@ -126,21 +132,37 @@ def _init_slot(gen, spec: StackSpec, slot: SlotSpec, dtype, device) -> Params:
 
 def init_stack(gen: torch.Generator, spec: StackSpec, dtype=torch.float32,
                device="cpu") -> Params:
-    """Stacked params: {"slot<i>": tree with a leading n_periods axis}."""
+    """Stacked params: {"slot<i>": tree with a leading n_periods axis}.
+
+    Each stacked leaf is allocated once and filled period by period, the
+    generator drawn period-major and in leaf order within a period, so the
+    params are held once (plus one period's) and not twice, as a stack of
+    per-period trees would hold them."""
     out: Params = {}
     for i, slot in enumerate(spec.slots):
-        per = [_init_slot(gen, spec, slot, dtype, device)
-               for _ in range(spec.n_periods)]
-        out[f"slot{i}"] = tree_map(lambda *xs: torch.stack(xs), *per)
+        stacked = None
+        for n in range(spec.n_periods):
+            per = _init_slot(gen, spec, slot, dtype, device)
+            if stacked is None:
+                stacked = tree_map(lambda t: torch.empty(
+                    (spec.n_periods,) + t.shape, dtype=t.dtype,
+                    device=t.device), per)
+            for dst, src in zip(tree_leaves(stacked), tree_leaves(per)):
+                dst[n].copy_(src)
+            del per
+        out[f"slot{i}"] = stacked
     return out
 
 
 def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
-                     dtype=torch.bfloat16, device="cpu") -> Params:
+                     dtype=torch.bfloat16, device="cpu",
+                     cross_len: int = 0) -> Params:
     """Decode caches, stacked over periods per slot: a KV cache of
     ``max_len`` positions per attention slot (under ``spec.kv_key``; one
     device holds the sequence-sharded cache whole, unrepeated, which at
-    ``tp == 1`` is the plain cache), a Mamba cache per mamba slot; slots
+    ``tp == 1`` is the plain cache), beside it on a cross-attention slot
+    ``cross_kv``, a (k, v) tuple of (n_periods, batch, cross_len, kv_eff,
+    D) that the prefill fills; a Mamba cache per mamba slot; slots
     without state get empty dicts."""
     cache: Params = {}
     for i, slot in enumerate(spec.slots):
@@ -149,6 +171,13 @@ def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
             cache[f"slot{i}"] = {spec.kv_key: KVCache(*(
                 t[None].expand((spec.n_periods,) + t.shape).clone()
                 for t in kv))}
+            if slot.cross_attn:
+                lay = spec.layout
+                shape = (spec.n_periods, batch, cross_len, lay.kv_eff,
+                         lay.head_dim)
+                cache[f"slot{i}"]["cross_kv"] = tuple(
+                    torch.zeros(shape, dtype=dtype, device=device)
+                    for _ in range(2))
         elif slot.mixer == "mamba":
             mc = init_mamba_cache(batch, spec.dims, dtype, device)
             cache[f"slot{i}"] = {"mamba": MambaCache(*(
@@ -162,9 +191,16 @@ def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
 def _run_slot(p: Params, x: torch.Tensor, spec: StackSpec, slot: SlotSpec, *,
               mode: str, positions, rope, cache_pos, kv_length,
               cache: Optional[Dict[str, Any]],
+              enc_out: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
     """One slot: (x, its new cache, its aux loss: a 0-d tensor on a MoE
-    slot, else the float 0.0, so that a stack without MoE adds no op)."""
+    slot, else the float 0.0, so that a stack without MoE adds no op).
+
+    A cross-attention slot takes the cached cross-KV where the cache has
+    one and no ``enc_out`` is given (decode), else lays it out from
+    ``enc_out``, and then, with a cache, writes it into the cache's
+    ``cross_kv`` in place (prefill).  The cross call gets neither the
+    self-attention's RoPE nor its ``kv_length``."""
     _, norm = _norm_fns(spec.norm)
     new_cache: Dict[str, Any] = {}
     aux = 0.0
@@ -173,7 +209,7 @@ def _run_slot(p: Params, x: torch.Tensor, spec: StackSpec, slot: SlotSpec, *,
         kv = cache.get(key) if cache else None
         h, nkv = attention(p["attn"], norm(p["norm_mixer"], x), spec.layout,
                            positions=positions, rope_theta=spec.rope_theta,
-                           mode=mode, cache=kv,
+                           causal=spec.causal, mode=mode, cache=kv,
                            cache_pos=cache_pos, kv_length=kv_length,
                            chunk_k=spec.chunk_k,
                            block_causal=spec.block_causal,
@@ -184,6 +220,22 @@ def _run_slot(p: Params, x: torch.Tensor, spec: StackSpec, slot: SlotSpec, *,
             new_cache[key] = nkv
         elif cache and key in cache:
             new_cache[key] = cache[key]
+        if slot.cross_attn:
+            cached = cache.get("cross_kv") if cache else None
+            if cached is not None and enc_out is None:
+                ckv = cached
+            else:
+                ckv = make_cross_kv(p["cross"], enc_out, spec.layout)
+                if cached is not None:
+                    for dst, src in zip(cached, ckv):
+                        dst.copy_(src)
+            h, _ = attention(p["cross"], norm(p["norm_cross"], x),
+                             spec.layout, positions=positions, mode="train",
+                             causal=False, cross_kv=ckv,
+                             chunk_k=spec.chunk_k, policy=spec.policy)
+            x = x + h
+            if cached is not None:
+                new_cache["cross_kv"] = cached
     elif slot.mixer == "mamba":
         mc = cache.get("mamba") if cache else None
         h, nmc = mamba_mixer(
@@ -210,17 +262,21 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
               mode: str = "train", positions: Optional[torch.Tensor] = None,
               cache: Optional[Params] = None, cache_pos=None,
               kv_length: Optional[torch.Tensor] = None,
+              enc_out: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Run the full stack. Returns (x, new cache or None, the sum of every
     MoE slot's aux loss: a 0-d fp32 tensor, 0 without MoE slots).
 
-    mode: "train" (no cache), "prefill", "decode".  ``positions`` (B, S)
+    mode: "train" or "encoder" (no cache), "prefill", "decode".
+    ``enc_out`` (B, S_src, d_model), the encoder's output, feeds the
+    cross-attention slots where given (train, prefill).  ``positions`` (B, S)
     default to ``arange(S)`` in every row; their RoPE angles are computed
     once for all layers.  The KV caches of the cache
     given are written in place and returned as they are; in decode so are
     the Mamba caches, and the cache given is returned itself (a captured
     decode step replays on the same buffers); the prefill's Mamba caches
-    are stacked anew, leaving the given ones untouched.
+    are stacked anew, leaving the given ones untouched, and its cross-KV
+    is written into the given ``cross_kv`` and returned as it is.
     """
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
@@ -243,7 +299,8 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
                 p_i[f"slot{j}"], x, spec, slot, mode=mode,
                 positions=positions, rope=rope, cache_pos=cache_pos,
                 kv_length=kv_length,
-                cache=c_i[f"slot{j}"] if c_i is not None else None)
+                cache=c_i[f"slot{j}"] if c_i is not None else None,
+                enc_out=enc_out)
             aux_i = aux_i + a
         aux = aux + aux_i  # per period, then over periods, as JAX's scan
         new_caches.append(nc)
@@ -253,6 +310,7 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
         return x, None, aux
     if mode == "decode":  # every cache was written in place
         return x, cache, aux
-    return x, {slot: {key: (val if key == spec.kv_key else tree_map(
+    in_place = (spec.kv_key, "cross_kv")
+    return x, {slot: {key: (val if key in in_place else tree_map(
         lambda *cs: torch.stack(cs), *[nc[slot][key] for nc in new_caches]))
         for key, val in c.items()} for slot, c in cache.items()}, aux

@@ -18,8 +18,9 @@
 - ``attention(...)`` in train, prefill and decode modes against JAX's,
   with JAX's params carried by ``from_jax_params``: outputs and caches;
   the sequence-sharded decode (``kv_seqshard``) on one device against
-  JAX's ``seqshard_flash_decode`` without a mesh; cross-attention and
-  the sequence-sharded decode across ranks refused.
+  JAX's ``seqshard_flash_decode`` without a mesh; cross-attention
+  (``make_cross_kv`` and the layer over it) against JAX's; the
+  sequence-sharded decode across ranks refused.
 - ``rope_angles`` / ``apply_rope``, the three MLP kinds and
   ``layernorm`` against JAX's.
 """
@@ -314,17 +315,32 @@ def test_attention_prefill_then_decode_matches_jax(layer):
 
 
 def test_attention_unported_options_raise(layer, monkeypatch):
-    """Cross-attention still raises.  The sequence-sharded decode runs on
-    one device: prefill writes the unrepeated cache, and 3 decode steps
-    (the last with a per-row kv_length) equal JAX's
-    ``seqshard_flash_decode`` without a mesh, outputs and caches; across
-    ranks (a process group of 2) it raises."""
+    """Cross-attention builds and matches JAX: ``make_cross_kv`` of an
+    11-frame encoder output, then the layer over it in each mode the
+    decoder calls it in, outputs within LAYER_TOL, no cache returned.  The
+    sequence-sharded decode runs on one device: prefill writes the
+    unrepeated cache, and 3 decode steps (the last with a per-row
+    kv_length) equal JAX's ``seqshard_flash_decode`` without a mesh,
+    outputs and caches; across ranks (a process group of 2) it raises."""
     params_j, lay_j, params, lay, ck, _ = layer
-    x0 = torch.zeros((1, 2, D_MODEL))
-    pos0 = torch.arange(2)[None]
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tattn.attention(params, x0, lay, positions=pos0,
-                        cross_kv=(x0, x0))
+    enc, xq = _x(2, 11, 7), _x(2, 5, 8)
+    ckv_j = jattn.make_cross_kv(params_j, jnp.asarray(enc), lay_j)
+    ckv = tattn.make_cross_kv(params, torch.from_numpy(enc), lay)
+    for a, b in zip(ckv, ckv_j):
+        assert a.shape == (2, 11, lay.kv_eff, lay.head_dim)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **LAYER_TOL)
+    pos_q = np.broadcast_to(np.arange(5), (2, 5))
+    want, _ = jattn.attention(params_j, jnp.asarray(xq), lay_j,
+                              positions=jnp.asarray(pos_q), mode="train",
+                              causal=False, cross_kv=ckv_j, chunk_k=ck)
+    for mode in ("train", "encoder"):
+        got, none = tattn.attention(
+            params, torch.from_numpy(xq), lay,
+            positions=torch.from_numpy(pos_q.copy()), mode=mode,
+            causal=False, cross_kv=ckv, chunk_k=ck)
+        assert none is None
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **LAYER_TOL)
     B, S, S_max = 2, 9, 13
     x = _x(B, S + 3, 4)
     cache_j = jattn.init_kv_cache(B, S_max, lay_j, dtype=jnp.float32,

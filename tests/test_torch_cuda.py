@@ -18,8 +18,10 @@ CUDA graphs (every lane x bucket of the smoke VGG-16 and of AlexNet's
 smoke shapes with grouped layers, which must record no weight pre-pass
 and no weight cut; the decode steps of a smoke LM of every family, and
 the MoE's gather dispatch at top-1 and top-2 replayed bit-equal to
-eager), each new smoke LM served through the kernels against the plain
-attention, and the LM kernels under autograd:
+eager; the encdec decode with its cross-KV adopted from a second
+prefill), each new smoke LM served through the kernels against the plain
+attention (the encdec LM's encoder, decoder and cross-attention too), and
+the LM kernels under autograd:
 the conv1d and flash ``autograd.Function``s' gradients equal plain
 autograd's bit for bit (one kernel launch counted), a smoke LM's train
 step on the kernels against the oracle's, and the SSD and matmul
@@ -818,6 +820,17 @@ FLASH_CASES = [
     (2, 1, 4128, 4, 1, 256, False, 0, (4097, 100)),
     (2, 1, 300, 2, 1, 256, False, 0, (0, 1)),
     (1, 4, 600, 2, 4, 256, True, 596, None),
+    # non-causal, Sq != Sk, no kv_length: the encdec decoder's
+    # cross-attention (a decode row, a short target prompt over a source)
+    # and its encoder's non-causal prefill
+    (2, 1, 300, 2, 1, 16, False, 0, None),
+    (2, 1, 300, 2, 1, 64, False, 0, None),
+    (2, 1, 300, 2, 4, 64, False, 0, None),
+    (2, 40, 77, 2, 1, 16, False, 0, None),
+    (2, 40, 77, 2, 1, 64, False, 0, None),
+    (2, 40, 77, 2, 4, 16, False, 0, None),
+    (2, 1, 4096, 4, 1, 64, False, 0, None),
+    (1, 300, 300, 2, 1, 64, False, 0, None),
 ]
 FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -1793,7 +1806,7 @@ def test_a_step_that_syncs_fails_to_capture_on_card():
 #: slot of 8, MoE top-2 on the odd slots)
 LM_SMOKES = ["mamba2-130m", "granite-3-2b", "gemma-7b", "mistral-large-123b",
              "arctic-480b", "llama4-maverick-400b-a17b",
-             "jamba-1.5-large-398b"]
+             "jamba-1.5-large-398b", "llava-next-34b"]
 
 
 def _attn_layers(model) -> int:
@@ -1935,6 +1948,125 @@ def test_smoke_arch_served_on_kernels_matches_plain_on_card(arch):
             torch.cuda.synchronize()
             runs[name] = (out, fa.LAUNCHES - before)
     assert runs["kernel"][1] == 5 * _attn_layers(model)
+    assert runs["plain"][1] == 0
+    scale = max(float(t.abs().max()) for t in runs["plain"][0])
+    for got, want in zip(runs["kernel"][0], runs["plain"][0]):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def _encdec_or_vlm_batch(model, B, S, dev, seed):
+    """A smoke encdec or vlm prefill batch on ``dev``: a 10-frame source
+    and S target tokens, or the config's patch embeddings and S text
+    tokens; with the cache it fills and the first decode position."""
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    if cfg.family == "encdec":
+        src = torch.as_tensor(rng.normal(size=(B, 10, cfg.d_model)),
+                              dtype=torch.float32, device=dev)
+        return ({"src_embeds": src, "tokens": toks},
+                model.init_cache(B, S + 9, cross_len=10,
+                                 dtype=torch.float32, device=dev), S)
+    n = cfg.frontend_tokens
+    extra = torch.as_tensor(rng.normal(size=(B, n, cfg.d_model)),
+                            dtype=torch.float32, device=dev)
+    return ({"tokens": toks, "extra_embeds": extra},
+            model.init_cache(B, n + S + 9, torch.float32, dev), n + S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
+def test_encdec_and_vlm_decode_replay_equals_eager_on_card(arch):
+    """The launcher's decode graph for the smoke encdec LM (its static
+    cache holding the cross-KV) and the smoke vlm LM (after a prefill with
+    patch embeddings): 6 greedy steps equal 6 eager steps from a copy of
+    the cache, logits bit for bit; then a second prefill, from another
+    source or other patches, is adopted into the captured cache (the
+    cross-KV with it) and its 6 replayed steps equal 6 eager steps from a
+    copy of it.  One capture; the flash kernel once per self- and per
+    cross-attention layer per replay; the replays never write the
+    cross-KV."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.tree import tree_map
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.launch.serve import decode_executable
+    from repro_torch.nn.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    fp32_ieee()
+    model = build_model(get_smoke(arch))
+    params = model.init(0, "cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    encdec = model.cfg.family == "encdec"
+    per_step = model.cfg.n_layers * (2 if encdec else 1)
+    eng = ServeEngine(name="lm", buckets=(2,), device=dev)
+    prefill = torch.inference_mode()(make_prefill_step(model))
+    decode = None
+    for seed in (0, 1):
+        batch, cache, pos0 = _encdec_or_vlm_batch(model, 2, 5, dev, seed)
+        logits, cache = prefill(params, batch, cache)
+        eager_cache = tree_map(torch.clone, cache)
+        tok = logits.argmax(-1)
+        if decode is None:
+            decode = decode_executable(eng, model, params, tok, cache, pos0)
+        assert list(eng.capture_counts.values()) == [1]
+        assert decode.launches.get("flash_attention", 0) == per_step
+        etok, pos = tok, torch.tensor(pos0, device=dev)
+        for i in range(6):
+            got, static = decode(params, tok, cache, pos)
+            with torch.inference_mode():
+                want, eager_cache = model.decode_step(params, etok,
+                                                      eager_cache, pos0 + i)
+            assert torch.equal(got, want), (seed, i)
+            tok, etok = got.argmax(-1), want.argmax(-1)
+            cache = static
+            pos += 1
+        if encdec:
+            for a, b in zip(static["slot0"]["cross_kv"],
+                            eager_cache["slot0"]["cross_kv"]):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_encdec_served_on_kernels_matches_plain_on_card():
+    """The smoke encdec LM in fp32 (TF32 off) through the kernels: the
+    prefill's and 4 greedy decode steps' logits within 1e-4 of the
+    largest |logit| of the same steps on the plain attention, fed the same
+    tokens; the flash kernel launched once per encoder layer, per decoder
+    layer and per cross-attention in the prefill, twice per decoder layer
+    per step; the plain run never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernel runs on the card")
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.nn.models import build_model
+
+    fp32_ieee()
+    cfg = get_smoke("seamless-m4t-large-v2")
+    model = build_model(cfg, policy=ExecutionPolicy("kernel"))
+    oracle = build_model(cfg, policy=ExecutionPolicy("oracle"))
+    params = model.init(0, "cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    runs = {}
+    with torch.inference_mode():
+        for name, m in (("kernel", model), ("plain", oracle)):
+            batch, cache, pos0 = _encdec_or_vlm_batch(m, 2, 7, dev, 2)
+            before = fa.LAUNCHES
+            logits, cache = m.prefill(params, batch["src_embeds"],
+                                      batch["tokens"], cache)
+            out = [logits]
+            for i in range(4):
+                tok = runs["kernel"][0][i].argmax(-1) if name == "plain" \
+                    else logits.argmax(-1)
+                logits, cache = m.decode_step(params, tok, cache, pos0 + i)
+                out.append(logits)
+            torch.cuda.synchronize()
+            runs[name] = (out, fa.LAUNCHES - before)
+    assert runs["kernel"][1] == cfg.n_enc_layers + 2 * cfg.n_layers \
+        + 4 * 2 * cfg.n_layers
     assert runs["plain"][1] == 0
     scale = max(float(t.abs().max()) for t in runs["plain"][0])
     for got, want in zip(runs["kernel"][0], runs["plain"][0]):

@@ -6,9 +6,13 @@ embedding scaled by sqrt(d_model)) and mistral-large-123b (an untied
 ``lm_head``, the sequence-sharded decode cache) of the dense family,
 arctic-480b (MoE top-2 with a dense residual) and
 llama4-maverick-400b-a17b (dense and MoE top-1 layers interleaved, a
-shared expert) of the moe family, and jamba-1.5-large-398b (Mamba and
-attention slots, MoE on the odd layers) of the hybrid family.  Every test
-but the family and feature checks runs once per architecture.
+shared expert) of the moe family, jamba-1.5-large-398b (Mamba and
+attention slots, MoE on the odd layers) of the hybrid family, and
+llava-next-34b of the vlm family (here text-only: ``extra_embeds`` are
+held in ``tests/test_torch_vlm.py``).  Every test but the family and
+feature checks runs once per architecture; the config, the full-width
+tree and the launcher tests also for seamless-m4t-large-v2, the encdec
+family (the rest of it in ``tests/test_torch_encdec.py``).
 
 - The full config's fields, parameter count and active parameter count
   equal JAX's, and the full-width parameter tree (init on the ``meta``
@@ -23,11 +27,12 @@ but the family and feature checks runs once per architecture.
   its forward within 3e-4 (at ``capacity_factor`` 16, as JAX's test: an
   S-token and a 1-token call drop different tokens).
 - bfloat16 weights cross bit for bit, both ways.
+- ``init_stack`` (each stacked leaf allocated once, filled period by
+  period) gives the old stack-of-periods init's params bit for bit.
 - The launcher runs on the CPU when asked to and refuses without a card.
-- ``build_model`` builds every family but vlm and encdec and every
-  feature the JAX package has on one device, each held against JAX's
-  forward; it refuses vlm, encdec and ``tp != 1``; and builds a config
-  whatever its name.
+- ``build_model`` builds every family and every feature the JAX package
+  has on one device, each held against JAX's forward; it refuses ``tp !=
+  1``; and builds a config whatever its name.
 
 The KV caches are written in place (``nn/attention.py``): the prefill +
 decode test checks that the cache returned is the one given.
@@ -48,15 +53,20 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke as jax_get_smoke
 from repro.nn.models import build_model as jax_build_model
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.core.tree import tree_leaves, tree_leaves_with_path
+from repro_torch.core.tree import (tree_leaves, tree_leaves_with_path,
+                                   tree_map)
 from repro_torch.distributed import make_decode_step, make_prefill_step
-from repro_torch.nn.models import CausalLM, build_model
+from repro_torch.nn.blocks import _init_slot, init_stack
+from repro_torch.nn.models import CausalLM, EncDecLM, build_model
 from repro_torch.weights import from_jax_params, to_numpy
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ARCHS = ["mamba2-130m", "granite-3-2b", "starcoder2-3b", "gemma-7b",
          "mistral-large-123b", "arctic-480b", "llama4-maverick-400b-a17b",
-         "jamba-1.5-large-398b"]
+         "jamba-1.5-large-398b", "llava-next-34b"]
+#: the encdec arch: an EncDecLM, whose forward and serving take a source
+ENCDEC = "seamless-m4t-large-v2"
+ALL_ARCHS = ARCHS + [ENCDEC]
 
 
 def _attn(d, n_q, n_kv, hd):
@@ -104,12 +114,23 @@ FULL_PARAMS = {
         _attn(8192, 64, 8, 128) + 7 * _mamba(8192, 16384, 1024, 128, 4)
         + 4 * 3 * 8192 * 24576 + 4 * (8192 * 16 + 16 * 3 * 8192 * 24576)
         + 16 * 8192) + 8192,
+    # the untied lm_head; vocab 64000 is a multiple of 128
+    "llava-next-34b": 2 * 64000 * 7168 + 60 * (
+        _attn(7168, 56, 8, 128) + 3 * 7168 * 20480 + 2 * 7168) + 7168,
+    # vocab 256206 padded to 256256, tied; layernorm (scale and bias) and
+    # the gelu MLP (two matrices); the encoder's 24 layers and its norm,
+    # the decoder's 24 with the cross-attention and its norm, the final
+    # norm
+    "seamless-m4t-large-v2": 256256 * 1024 + 24 * (
+        _attn(1024, 16, 16, 64) + 2 * 1024 * 8192 + 4 * 1024) + 2 * 1024
+    + 24 * (2 * _attn(1024, 16, 16, 64) + 2 * 1024 * 8192 + 6 * 1024)
+    + 2 * 1024,
 }
 TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_TOL = dict(rtol=3e-4, atol=3e-4)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_full_config_matches_jax(arch):
     port, ref = get_config(arch), jax_get_config(arch)
     a, b = dataclasses.asdict(port), dataclasses.asdict(ref)
@@ -130,18 +151,14 @@ def test_full_config_matches_jax(arch):
 @pytest.mark.parametrize("arch", ["gemma-7b", "seamless-m4t-large-v2",
                                   "jamba-1.5-large-398b", "llava-next-34b"])
 def test_unported_families_raise(arch):
-    """The families this slice ports (gemma-7b's dense features, jamba's
-    hybrid schedule) build from JAX's smoke config and match JAX's
-    forward; the vlm and encdec families still raise, by config and by
-    family."""
+    """Every family builds from JAX's smoke config and matches JAX's
+    forward (gemma-7b's dense features, jamba's hybrid schedule, the vlm
+    family with 8 prepended patch embeddings, the encdec family from a
+    7-frame source); ``build_model`` gives the encdec family an
+    ``EncDecLM``."""
     cfg = jax_smoke_as_port(arch)
-    if cfg.family in ("vlm", "encdec"):
-        with pytest.raises(KeyError, match="queue 1, item 9"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            build_model(cfg)
-        return
     assert get_config(arch).name == arch
+    assert isinstance(build_model(cfg), EncDecLM) == (cfg.family == "encdec")
     _assert_forward_matches_jax(cfg, jax_get_smoke(arch))
 
 
@@ -173,8 +190,24 @@ def _assert_forward_matches_jax(cfg, cfg_j):
     assert [p for p, _ in tree_leaves_with_path(model.init(0, "meta"))] \
         == [p for p, _ in tree_leaves_with_path(params)]
     toks = _tokens(2, 9, cfg.vocab, 6)
-    want, aux_j = model_j.forward(params_j, jnp.asarray(toks))
-    got, aux = model.forward(params, torch.from_numpy(toks).long())
+    rng = np.random.default_rng(7)
+    if cfg.family == "encdec":
+        src = rng.normal(size=(2, 7, cfg.d_model)).astype(np.float32)
+        want = model_j.forward(params_j, jnp.asarray(src), jnp.asarray(toks))
+        got = model.forward(params, torch.from_numpy(src),
+                            torch.from_numpy(toks).long())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        return
+    extra = (rng.normal(size=(2, cfg.frontend_tokens, cfg.d_model)).astype(
+        np.float32) if cfg.family == "vlm" else None)
+    want, aux_j = model_j.forward(
+        params_j, jnp.asarray(toks),
+        None if extra is None else jnp.asarray(extra))
+    got, aux = model.forward(params, torch.from_numpy(toks).long(),
+                             None if extra is None else
+                             torch.from_numpy(extra))
+    assert got.shape == (2, 9 + (0 if extra is None else extra.shape[1]),
+                         cfg.vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(float(aux), float(aux_j), **TOL)
 
@@ -195,7 +228,7 @@ def jax_smoke_as_port(arch):
     return get_smoke("mamba2-130m").with_overrides(**fields)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_full_width_param_tree_matches_jax(arch):
     params = build_model(get_config(arch)).init(0, "meta")
     shapes = jax.eval_shape(jax_build_model(jax_get_config(arch)).init,
@@ -206,6 +239,37 @@ def test_full_width_param_tree_matches_jax(arch):
             for p, s in tree_leaves_with_path(shapes)]
     assert got == want
     assert sum(int(np.prod(s)) for _, s, _ in got) == FULL_PARAMS[arch]
+
+
+def _stack_of_periods(gen, spec, dtype, device):
+    """``init_stack`` as it was: every period's tree, then stacked."""
+    return {f"slot{i}": tree_map(lambda *xs: torch.stack(xs), *[
+        _init_slot(gen, spec, slot, dtype, device)
+        for _ in range(spec.n_periods)])
+        for i, slot in enumerate(spec.slots)}
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_init_stack_is_the_stack_of_periods_bit_for_bit(arch):
+    """``init_stack`` fills each stacked leaf period by period and so
+    holds the params once; from one seed it gives the old
+    stack-of-periods init's params bit for bit, every stack of the model
+    (the encdec encoder's and decoder's), in fp32 and bf16, and leaves the
+    generator where the old init left it."""
+    model = build_model(get_smoke(arch))
+    specs = ([model.enc_spec, model.dec_spec]
+             if isinstance(model, EncDecLM) else [model.spec])
+    for dtype in (torch.float32, torch.bfloat16):
+        g_new, g_old = (torch.Generator().manual_seed(5) for _ in range(2))
+        for spec in specs:
+            new = init_stack(g_new, spec, dtype, "cpu")
+            old = _stack_of_periods(g_old, spec, dtype, "cpu")
+            got, want = (tree_leaves_with_path(t) for t in (new, old))
+            assert [p for p, _ in got] == [p for p, _ in want]
+            for (p, a), (_, b) in zip(got, want):
+                assert a.dtype == b.dtype, p
+                assert torch.equal(a, b), p
+        assert torch.equal(g_new.get_state(), g_old.get_state())
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -358,7 +422,7 @@ def _run_serve(arch, *flags):
         timeout=300, cwd=REPO)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_serve_launcher_on_the_cpu(arch):
     proc = _run_serve(arch, "--device", "cpu", "--batch", "2", "--prompt-len",
                       "16", "--gen", "4")
@@ -367,7 +431,7 @@ def test_serve_launcher_on_the_cpu(arch):
     assert "decode" in proc.stdout and "tok/s" in proc.stdout
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_serve_launcher_refuses_without_a_card(arch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

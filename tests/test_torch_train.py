@@ -237,7 +237,8 @@ def test_launcher_trains_on_cpu_and_refuses_a_missing_card(tmp_path):
     for bad in (smoke + ("--device", "cpu", "--tp", "2"),
                 smoke + ("--device", "cpu", "--compress-grads"),
                 lm + ("--tp", "2"),
-                ("--arch", "llava-next-34b", "--device", "cpu")):
+                ("--arch", "seamless-m4t-large-v2", "--smoke", "--device",
+                 "cpu")):
         proc = _launch(*bad)
         assert proc.returncode == 2 and "not ported" in proc.stderr
     if torch.cuda.is_available():
