@@ -327,6 +327,46 @@ Phases (any failure exits non-zero and prints no result line):
    cut to 8 layers (fp32 at full depth is 128 GiB; the cut logged), 576
    patch embeddings + 512 text tokens, prefill + decode within 3e-4.
 
+22. the mesh arm at world 1: NCCL, a (1, 1) ("data", "model")
+   ``DeviceMesh`` on cuda, the state as DTensors placed by
+   ``state_pspec``: full-width VGG-16 at batch 8, 4 steps through kernels
+   1 and 2 on one device, on the mesh and on the mesh with int8 gradients
+   (error feedback on): launches 25 conv + 13 wgrad a step on each; the
+   mesh's losses and grad_norms equal the one-device step's bit for bit,
+   the compressed step's first loss equal and its first grad_norm within
+   2%; ms per step of each.  Then full-width mamba2-130m in bf16, batch 4
+   x 1024, 4 steps with int8 gradients and error feedback: conv1d 24
+   launches a step, every loss finite; ms per step, peak device memory,
+   the EF tree's bytes and norm, the collectives' bytes a step beside a
+   plain fp32 all-reduce's;
+23. the sequence-sharded decode across 2 ranks on the one card: two
+   spawned processes over gloo (NCCL refuses two ranks on one device),
+   each holding half of one llava-next-34b attention layer's unrepeated
+   decode cache (q 56 heads, 8 KV heads of 128, batch 4, 4128 positions
+   as 2 x 2064, a kv_length per row), each launching kernel 5's partial
+   entry once on its half (the split decode writing each row's max and
+   sum) and merging over gloo: bf16 within 2e-2 and 4 x 2^-7 of each
+   row's max of the one-device split decode, fp32 within 2e-5 of the
+   plain oracle, the cache halves bit-equal to the reference's; the
+   entry timed on a half against its plain version and its bound; a
+   collective gloo refuses fails the phase by name;
+24. the launcher: ``torchrun --nproc-per-node 1 -m
+   repro_torch.launch.train --arch mamba2-130m --compress-grads --steps
+   4`` run from the script ends with finite losses (exit 0).
+
+Phases 22-24 each log their time.
+
+``--distributed`` runs only phases 1-2 and then phases 22-24 (no result
+line).  ``--cards N`` runs only phases 1-2 and then the mesh arm across N
+cards of one host, one process a card over NCCL (no result line): the
+smoke configs' (N/2, 2) train steps (granite-3-2b at tp=2, mamba2-130m,
+VGG-16; the kernels under ``local_map``) within JAX's bounds (loss
+1e-4, params 5e-3) of one card's step; full-width VGG-16 at batch 8 and
+mamba2-130m at 4 x 1024 (plain and int8 gradients) on (N, 1), ms per
+step and wire bytes; llava-next-34b's decode layer with its cache cut N
+ways, within the bf16 row limit of the one-card split decode and timed
+against it.
+
 ``--probe-families N`` runs only phases 1-2 and then phases 3i and 3e,
 N times over, each row logged as it ends (to place an intermittent
 launch fault; no result line).
@@ -4366,6 +4406,985 @@ def _resume(torch, model, step, ds, ckpt_dir, saved, hist) -> None:
         f"run's losses bit for bit ({[loss for _, loss in tail]})")
 
 
+#: Phase 22 (the mesh arm at world 1): VGG-16's steps and batch (phase 6's)
+#: and mamba2-130m's (phase 11's), and the int8 bound of the compressed
+#: step's first gradient norm against the uncompressed one's
+MESH_VGG_STEPS, MESH_LM_STEPS = 4, 4
+INT8_REL = 0.02
+#: Phase 23 (the sequence-sharded decode across 2 ranks): one attention
+#: layer of llava-next-34b in decode at full width: batch, q heads, KV
+#: heads, head dim, the unrepeated cache's positions, the position written
+#: and each row's kv_length (one row past the written token, one inside
+#: each rank's half, one inside rank 0's only)
+SEQ_B, SEQ_NQ, SEQ_NKV, SEQ_D, SEQ_S = 4, 56, 8, 128, 4128
+SEQ_POS = 4100
+SEQ_KVL = (4101, 3000, 2065, 100)
+SEQ_RANKS = 2
+#: the fp32 lane of phase 23 against the plain oracle
+SEQ_F32_TOL = 2e-5
+#: the partial entry's row max and sum against its plain version (relative,
+#: rows with a visible key), as the card test of the entry holds them
+PARTIAL_STAT_REL = 1e-5
+#: Phase 24: the launcher under torchrun (its own time limit)
+LAUNCHER_ARGS = ("--arch", "mamba2-130m", "--compress-grads", "--steps",
+                 "4")
+LAUNCHER_TIMEOUT = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_run(torch, step, state, batches, counters):
+    """``step`` over ``batches`` from ``state``: [(ms, metrics as floats,
+    launches by counter)], the last state."""
+    hist = []
+    for b in batches:
+        for m in counters.values():
+            for k in m[1]:
+                setattr(m[0], k, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mets = step(state, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        hist.append((ms, {k: float(v) for k, v in mets.items()},
+                     {name: getattr(m[0], m[1][0])
+                      for name, m in counters.items()}))
+    return hist, state
+
+
+def phase_mesh_world1(torch) -> dict:
+    """Phase 22: the mesh arm of the train step at world 1, NCCL, a (1, 1)
+    ("data", "model") ``DeviceMesh`` on cuda, DTensor state.  Full-width
+    VGG-16 at batch 8 trains MESH_VGG_STEPS steps through kernels 1 and 2
+    from one init: on one device, on the mesh, and on the mesh with
+    ``compress_grads`` (error feedback on): every loss and grad_norm
+    finite, the launches the one-device step's (13 forward + 12 dx conv,
+    13 wgrad a step); the mesh's losses and grad_norms equal the
+    one-device step's bit for bit; the compressed step's first loss equal
+    and its first grad_norm within INT8_REL.  Then full-width
+    mamba2-130m in bf16, batch 4 x 1024, MESH_LM_STEPS steps with
+    ``compress_grads`` and error feedback: the conv1d kernel launched
+    once per layer a step, every loss finite; ms per step, peak device
+    memory, the EF tree's bytes and the collectives' bytes a step.
+    Returns the launches {"conv2d", "wgrad", "conv1d"} of the mesh
+    runs."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import CNN_REGISTRY, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import (SyntheticImageDataset,
+                                           SyntheticLMDataset)
+    from repro_torch.distributed import (StepConfig, activate_mesh, add_ef,
+                                         make_train_state, make_train_step,
+                                         place_state, state_pspec)
+    from repro_torch.distributed import compression
+    from repro_torch.engine import ExecutionPolicy, plan_model
+    from repro_torch.kernels import trim_conv1d as k1d
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn.models import build_model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(model=1, device="cuda")
+        cfg = CNN_REGISTRY["vgg16"]
+        n_conv = len(cfg.layers)
+        plan = plan_model(cfg, ExecutionPolicy())
+        ds = SyntheticImageDataset(hw=cfg.input_hw, channels=cfg.layers[0].M,
+                                   n_classes=cfg.n_classes,
+                                   global_batch=TRAIN_BATCH, seed=0)
+        batches = [ds.batch_at(i) for i in range(MESH_VGG_STEPS)]
+        state0 = make_train_state(plan, 0, dev)
+        with activate_mesh(mesh) as ctx:
+            specs = state_pspec(state0, ctx)
+        counters = {"conv2d": (kern, ("LAUNCHES",)),
+                    "wgrad": (vjp, ("WGRAD_LAUNCHES",))}
+        runs = {}
+        for name, compress in (("one device", None), ("mesh", False),
+                               ("mesh, int8 gradients", True)):
+            scfg = StepConfig(peak_lr=TRAIN_LR, warmup_steps=5,
+                              total_steps=MESH_VGG_STEPS,
+                              compress_grads=bool(compress))
+            if compress is None:
+                state, m = state0, None
+            else:
+                state, m = place_state(state0, specs, mesh), mesh
+                if compress:
+                    state = add_ef(state, mesh)
+            runs[name], _ = _mesh_run(torch, make_train_step(plan, scfg, m),
+                                      state, batches, counters)
+            del state
+        for name, hist in runs.items():
+            for i, (ms, mets, n) in enumerate(hist):
+                log(f"mesh world 1, vgg16 batch {TRAIN_BATCH} ({name}) step "
+                    f"{i}: loss {mets['loss']!r} grad_norm "
+                    f"{mets['grad_norm']!r} ({ms:.3f} ms); launches {n}")
+                if not (math.isfinite(mets["loss"])
+                        and math.isfinite(mets["grad_norm"])) \
+                        or mets["skipped"]:
+                    fail(f"mesh world 1 ({name}): step {i} non-finite or "
+                         f"skipped: {mets}")
+                if n != {"conv2d": 2 * n_conv - 1, "wgrad": n_conv}:
+                    fail(f"mesh world 1 ({name}): step {i} launched {n}, "
+                         f"expected {2 * n_conv - 1} conv and {n_conv} "
+                         "wgrad launches")
+        one, mesh_u, mesh_c = (runs[k] for k in runs)
+        for (_, a, _), (_, b, _) in zip(one, mesh_u):
+            if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
+                fail(f"mesh world 1: the mesh step's loss/grad_norm "
+                     f"{b['loss']!r}/{b['grad_norm']!r} differ from the "
+                     f"one-device step's {a['loss']!r}/{a['grad_norm']!r}")
+        a, c = one[0][1], mesh_c[0][1]
+        rel = abs(c["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
+        if c["loss"] != a["loss"] or rel > INT8_REL:
+            fail(f"mesh world 1: the compressed step's first loss "
+                 f"{c['loss']!r} (one device {a['loss']!r}) or grad_norm "
+                 f"rel {rel:.3g} (limit {INT8_REL})")
+        ms = {k: sum(h[0] for h in v[1:]) / len(v[1:])
+              for k, v in runs.items()}
+        log(f"mesh world 1, vgg16 batch {TRAIN_BATCH}: ms per step (steps "
+            f"1-{MESH_VGG_STEPS - 1}): one device {ms['one device']:.3f}, "
+            f"mesh {ms['mesh']:.3f}, mesh with int8 gradients "
+            f"{ms['mesh, int8 gradients']:.3f}; the mesh's losses and "
+            f"grad_norms equal the one-device step's bit for bit; the "
+            f"compressed step's first grad_norm within {rel:.3g} of it")
+        launches = {"conv2d": sum(h[2]["conv2d"] for k in list(runs)[1:]
+                                  for h in runs[k]),
+                    "wgrad": sum(h[2]["wgrad"] for k in list(runs)[1:]
+                                 for h in runs[k])}
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # mamba2-130m, int8 gradients with error feedback
+        lcfg = get_config(LM_ARCH)
+        model = build_model(lcfg)
+        B, S, _ = LM_TRAIN[LM_ARCH]
+        lds = SyntheticLMDataset(vocab=lcfg.vocab, seq_len=S + 1,
+                                 global_batch=B)
+        lbatches = [lds.batch_at(i) for i in range(MESH_LM_STEPS)]
+        scfg = StepConfig(peak_lr=TRAIN_LR, warmup_steps=5,
+                          total_steps=MESH_LM_STEPS, compress_grads=True)
+        state = make_train_state(model, 0, dev)
+        with activate_mesh(mesh) as ctx:
+            state = add_ef(place_state(state, state_pspec(state, ctx), mesh),
+                           mesh)
+        ef_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(state["ef"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step = make_train_step(model, scfg, mesh)
+        hist, wire = [], []
+        conv1d = 0
+        for i, b in enumerate(lbatches):
+            compression.reset_counters()
+            k1d.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, mets = step(state, b)
+            torch.cuda.synchronize()
+            ms_i = (time.perf_counter() - t0) * 1e3
+            wire.append((compression.WIRE_BYTES, compression.PLAIN_BYTES,
+                         compression.PLAIN_LEAVES))
+            conv1d += k1d.LAUNCHES
+            hist.append(ms_i)
+            log(f"mesh world 1, {LM_ARCH} bf16 batch {B} x {S} (int8 "
+                f"gradients, error feedback) step {i}: loss "
+                f"{float(mets['loss'])!r} grad_norm "
+                f"{float(mets['grad_norm'])!r} ({ms_i:.3f} ms); conv1d "
+                f"launches {k1d.LAUNCHES}; wire {wire[-1][0]} B (a plain "
+                f"fp32 all-reduce: {wire[-1][1]} B; {wire[-1][2]} leaves on "
+                "the plain all-reduce)")
+            if not math.isfinite(float(mets["loss"])) or float(
+                    mets["skipped"]):
+                fail(f"mesh world 1 {LM_ARCH}: step {i} non-finite or "
+                     "skipped")
+            if k1d.LAUNCHES != lcfg.n_layers:
+                fail(f"mesh world 1 {LM_ARCH}: step {i} launched conv1d "
+                     f"{k1d.LAUNCHES} times, expected {lcfg.n_layers}")
+        ef_norm = math.sqrt(sum(float((t.float() ** 2).sum())
+                                for t in tree_leaves(state["ef"])))
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms_lm = sum(hist[1:]) / len(hist[1:])
+        log(f"mesh world 1, {LM_ARCH}: {ms_lm:.3f} ms per step (steps 1-"
+            f"{MESH_LM_STEPS - 1}); peak device memory {peak / 2**30:.3f} "
+            f"GiB; the EF tree {ef_bytes} B fp32 (norm {ef_norm:.6g} after "
+            f"{MESH_LM_STEPS} steps); {wire[-1][0]} wire bytes a step "
+            f"({wire[-1][1]} for a plain fp32 all-reduce's payload)")
+        if not ef_norm > 0:
+            fail(f"mesh world 1 {LM_ARCH}: the error feedback is zero")
+        launches["conv1d"] = conv1d
+        del state
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _seqshard_rank(rank: int, d: str) -> None:
+    """One of phase 23's ranks (a spawned process): gloo, the card shared;
+    writes what it measured, or the failure, under ``d`` (a fatal signal
+    prints the rank's Python stack)."""
+    import faulthandler
+    import json as _json
+    import os
+    import traceback
+
+    faulthandler.enable()
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method="file://" + os.path.join(
+            d, "store"), rank=rank, world_size=SEQ_RANKS)
+        out = _seqshard_work(torch, dist, rank)
+    except Exception:                                # noqa: BLE001
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+            _json.dump(out, f)
+
+
+def _seq_layer(torch, dev, mesh, dtype, tp_params: bool):
+    """One llava-next-34b attention layer in decode at full width (q 56
+    heads, 8 KV heads of 128, d_model 7168, batch 4), random from seed 23,
+    and its unrepeated decode cache of SEQ_S positions, plain on ``dev``
+    and placed on ``mesh`` as serving places them: the cache (stacked as
+    the model stacks it, one period) by ``cache_pspec``, x by the batch
+    rule, the params by ``param_pspec`` where ``tp_params``, else whole on
+    every rank.  Returns (lay, params, {x, k, v, q: an extra q for the
+    entry's own check}, the params, x and per-layer cache on the mesh,
+    the layer's decode keywords)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.distributed import activate_mesh, cache_pspec, \
+        place_state
+    from repro_torch.distributed.sharding import P, logical_to_spec, \
+        param_pspec
+    from repro_torch.nn.attention import KVCache, attn_layout, \
+        init_attention
+
+    cfg = get_config(VLM_ARCH)
+    if (cfg.n_q, cfg.n_kv, cfg.head_dim) != (SEQ_NQ, SEQ_NKV, SEQ_D):
+        raise RuntimeError(f"{VLM_ARCH}'s heads are not phase 23's")
+    params = {k: {"kernel": w["kernel"].to(dtype)} for k, w in init_attention(
+        torch.Generator(device=dev).manual_seed(23), cfg.d_model, SEQ_NQ,
+        SEQ_NKV, SEQ_D, device=dev).items()}
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    t = {k: torch.randn(shape, generator=gen).to(dev, dtype) for k, shape in (
+        ("x", (SEQ_B, 1, cfg.d_model)),
+        ("k", (SEQ_B, SEQ_S, SEQ_NKV, SEQ_D)),
+        ("v", (SEQ_B, SEQ_S, SEQ_NKV, SEQ_D)),
+        ("q", (SEQ_B, 1, SEQ_NKV, SEQ_NQ // SEQ_NKV, SEQ_D)))}
+    with activate_mesh(mesh) as ctx:
+        pspec = (param_pspec(params, ctx) if tp_params
+                 else tree_map(lambda _: P(), params))
+        p_d = place_state(params, pspec, mesh)
+        stacked = {"kv_seq": KVCache(t["k"][None].clone(),
+                                     t["v"][None].clone())}
+        c_d = place_state(stacked, cache_pspec(stacked, ctx), mesh)
+        x_d = place_state({"x": t["x"]}, {"x": logical_to_spec(
+            ["batch", None, None], t["x"].shape, ctx)}, mesh)["x"]
+    kw = dict(positions=torch.full((SEQ_B, 1), SEQ_POS, device=dev),
+              mode="decode", cache_pos=SEQ_POS,
+              kv_length=torch.tensor(SEQ_KVL, dtype=torch.int32, device=dev),
+              kv_seqshard="model")
+    return (attn_layout(SEQ_NQ, SEQ_NKV, SEQ_D), params, t, p_d, x_d,
+            KVCache(c_d["kv_seq"].k[0], c_d["kv_seq"].v[0]), kw)
+
+
+def _seqshard_work(torch, dist, rank: int) -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import activate_mesh
+    from repro_torch.engine.policy import ExecutionPolicy, fp32_ieee
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.nn.attention import KVCache, attention
+
+    fp32_ieee()
+    dev = torch.device("cuda", 0)
+    S_loc = SEQ_S // SEQ_RANKS
+    lo = rank * S_loc
+    mesh = init_device_mesh("cuda", (1, SEQ_RANKS),
+                            mesh_dim_names=("data", "model"))
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        # the weights whole on each rank: with them cut (param_pspec),
+        # o_proj's partial sums would be reduced by DTensor's functional
+        # all_reduce, which faults over gloo on CUDA tensors (torch 2.11);
+        # the --cards run places them by param_pspec over NCCL
+        lay, params, t, p_d, x_d, cache, kw = _seq_layer(
+            torch, dev, mesh, dtype, tp_params=False)
+        kvl = kw["kv_length"]
+        fa.PARTIAL_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with activate_mesh(mesh), torch.no_grad():
+                out, cache = attention(p_d, x_d, lay, cache=cache, **kw)
+                out = out.full_tensor()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"the layer's collectives on {dtype} CUDA tensors over gloo "
+                f"(all_gather_into_tensor of q, all_reduce MAX and SUM of "
+                f"the merge) failed: {e}") from e
+        torch.cuda.synchronize()
+        arm_ms = (time.perf_counter() - t0) * 1e3
+        launches = fa.PARTIAL_LAUNCHES
+        k_loc, v_loc = cache.k.to_local(), cache.v.to_local()
+        # the one-device layer over the whole cache: kernel 5's split
+        # decode in bf16, the plain oracle in fp32
+        ref = KVCache(t["k"].clone(), t["v"].clone())
+        pol = (None if dtype == torch.bfloat16
+               else ExecutionPolicy(substrate="oracle"))
+        with torch.no_grad():
+            want, ref = attention(params, t["x"], lay, cache=ref,
+                                  policy=pol, **kw)
+        got, want = out.float(), want.float()
+        diff = (got - want).abs()
+        row_max = want.abs().amax(dim=-1, keepdim=True)
+        # the half as it was but at the token's row, if this rank owns
+        # it: there the reference's new K and V, up to the projections'
+        # rounding
+        own = lo <= SEQ_POS < lo + S_loc
+        rest = torch.ones(S_loc, dtype=torch.bool, device=dev)
+        if own:
+            rest[SEQ_POS - lo] = False
+        cache_ok, token_rel = True, 0.0
+        for got_c, was, want_c in ((k_loc, t["k"], ref.k),
+                                   (v_loc, t["v"], ref.v)):
+            cache_ok &= bool(torch.equal(got_c[:, rest],
+                                         was[:, lo:lo + S_loc][:, rest]))
+            if own:
+                row = want_c[:, SEQ_POS].float()
+                token_rel = max(token_rel, float(
+                    (got_c[:, SEQ_POS - lo].float() - row).abs().max()
+                    / row.abs().max()))
+        # the entry against its plain version on this rank's half
+        loc_len = torch.clamp(kvl - lo, 0, S_loc)
+        qg = t["q"]
+        kp = fa.flash_attention_partial(qg, k_loc, v_loc, loc_len)
+        pp = fa.flash_partial_plain(qg, k_loc, v_loc, loc_len)
+        vis = pp[2] > 0
+        o_diff = (kp[0].float() - pp[0].float()).abs()
+        o_row = pp[0].float().abs().amax(dim=-1, keepdim=True)
+        r = {"launches": launches, "arm_ms": arm_ms,
+             "max_abs_err": float(diff.max()),
+             "row_ulps": float((diff / (row_max * 2.0 ** -7)
+                                ).nan_to_num(0.0).max()),
+             "cache_ok": cache_ok, "token_rel": token_rel,
+             "entry_o_err": float(o_diff.max()),
+             "entry_o_row_ulps": float(((o_diff - 1e-6).clamp(min=0)
+                                        / (o_row * 2.0 ** -7)
+                                        ).nan_to_num(0.0).max()),
+             "entry_m_rel": float(((kp[1] - pp[1]).abs() * vis).max())
+             / max(float(pp[1][vis].abs().max()), 1e-30),
+             "entry_l_rel": float(((kp[2] - pp[2]).abs()
+                                   / pp[2].clamp(min=1e-20) * vis).max())}
+        if rank == 0:
+            reps = 50
+            r["ms"] = cuda_ms(torch, lambda: fa.flash_attention_partial(
+                qg, k_loc, v_loc, loc_len), reps)
+            r["plain_ms"] = cuda_ms(torch, lambda: fa.flash_partial_plain(
+                qg, k_loc, v_loc, loc_len), max(3, reps // 10))
+            r.update(_partial_library(torch, qg, k_loc, v_loc, loc_len, kp,
+                                      reps))
+            # each input read once and each output written once: the keys
+            # and values this run's kv_length leaves visible on the half
+            # (the kernel skips the rest), q, the output and its two
+            # statistics; the two products over the visible keys
+            keys = int(loc_len.sum())
+            nbytes = (2 * keys * SEQ_NKV * SEQ_D + 2 * qg.numel()
+                      ) * k_loc.element_size() + 2 * qg.numel() // SEQ_D * 4
+            macs = 2 * keys * SEQ_NQ * SEQ_D
+            r.update(bound(macs, nbytes, integer=False,
+                           peak=PEAK_BF16 if dtype == torch.bfloat16
+                           else PEAK_FP32))
+        res[name] = r
+    return res
+
+
+def _partial_library(torch, qg, k, v, length, kp, reps: int) -> dict:
+    """One PyTorch call that computes the partial entry's function on the
+    same half: SDPA's memory-efficient attention with its log-sum-exp
+    (lse = m + log l, all the cross-rank merge needs), the KV heads
+    repeated and kv_length as an additive mask.  Its ms, and how far its
+    output and lse lie from the entry's (logged, not gated: it is used
+    nowhere in the port)."""
+    B, _, H, G, D = qg.shape
+    S = k.shape[1]
+    qt = qg.reshape(B, 1, H * G, D).transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    keep = torch.arange(S, device=k.device)[None] < length[:, None]
+    bias = torch.zeros((B, S), dtype=qg.dtype, device=k.device).masked_fill(
+        ~keep, float("-inf"))[:, None, None].expand(B, H * G, 1, S)
+    bias = bias.contiguous()
+
+    def lib():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True)
+    o, lse = lib()[:2]
+    o = o.transpose(1, 2).reshape(kp[0].shape).float()
+    lse = lse[..., :1].reshape(kp[1].shape)
+    vis = kp[2] > 0
+    want = kp[1] + torch.log(kp[2].clamp(min=1e-30))
+    return {"library_ms": cuda_ms(torch, lib, reps),
+            "library_o_diff": float((o - kp[0].float()).abs().max()),
+            "library_lse_diff": float(((lse - want).abs() * vis).max())}
+
+
+def phase_seqshard_ranks(torch) -> dict:
+    """Phase 23: the sequence-sharded decode across SEQ_RANKS ranks on the
+    one card, through the entry point serving calls: ``torch.
+    multiprocessing`` spawns the ranks, which join a gloo group (NCCL
+    refuses two ranks on one device) and a ("data", "model") = (1, 2)
+    ``DeviceMesh`` on cuda.  Each places one llava-next-34b attention
+    layer at full width (q 56 heads, 8 KV heads of 128, d_model 7168) by
+    ``param_pspec``, its unrepeated decode cache (batch 4, 4128
+    positions, 2 x 2064) by ``cache_pspec``, and calls ``attention(...,
+    mode="decode", kv_seqshard="model")`` under ``activate_mesh`` with a
+    kv_length per row: the token is written where a rank owns its
+    position, each rank launches kernel 5's partial entry once on its
+    half, and the partials merge over gloo.  Checked: bf16, the layer's
+    output against the one-device layer over the whole cache (kernel 5's
+    split decode) within 2e-2 and BF16_ROW_ULPS x 2^-7 of each row's
+    max|reference|; fp32 (the entry's fp32 lane) against the one-device
+    layer on the plain oracle within SEQ_F32_TOL; each rank's cache half
+    unchanged but at the token's row, where the owner wrote the
+    reference's new K and V (within BF16_ROW_ULPS x 2^-7 of the row's
+    max in bf16, PARTIAL_STAT_REL in fp32); the entry against
+    its plain version on each half at this shape (the output within
+    BF16_ROW_ULPS x 2^-7 of each row's max in bf16, SEQ_F32_TOL in fp32;
+    m and l within PARTIAL_STAT_REL, relative, on rows with a visible
+    key).  A collective gloo refuses fails the phase by name.  Returns
+    {dtype: the kernels-line numbers}."""
+    import json as _json
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="seqshard-")
+    mp.spawn(_seqshard_rank, args=(d,), nprocs=SEQ_RANKS)
+    ranks = []
+    for r in range(SEQ_RANKS):
+        with open(f"{d}/rank{r}.json") as f:
+            ranks.append(_json.load(f))
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            fail(f"seqshard across ranks: rank {r} failed:\n{res['error']}")
+    out = {}
+    for name in ("bfloat16", "float32"):
+        rows = [res[name] for res in ranks]
+        r0 = rows[0]
+        worst = max(r["max_abs_err"] for r in rows)
+        ulps = max(r["row_ulps"] for r in rows)
+        launches = sum(r["launches"] for r in rows)
+        entry = {k: max(r[k] for r in rows) for k in (
+            "entry_o_err", "entry_o_row_ulps", "entry_m_rel", "entry_l_rel")}
+        log(f"seqshard across {SEQ_RANKS} ranks ({name}): the layer's "
+            f"output max|diff| {worst:.3g} ({ulps:.3g} x 2^-7 of a row's "
+            f"max) against the one-device layer "
+            f"({'split decode' if name == 'bfloat16' else 'plain oracle'}); "
+            f"caches {'kept' if all(r['cache_ok'] for r in rows) else 'CHANGED'} "
+            f"but the token's row, written within "
+            f"{max(r['token_rel'] for r in rows):.3g} of its max; "
+            f"the entry against its plain version on each half: o "
+            f"{entry['entry_o_err']:.3g} ({entry['entry_o_row_ulps']:.3g} "
+            f"x 2^-7 of a row's max), m {entry['entry_m_rel']:.3g} and l "
+            f"{entry['entry_l_rel']:.3g} relative; {launches} partial "
+            f"launches; the layer took {r0['arm_ms']:.3f} ms on rank 0 "
+            f"(first call, gloo included); the entry {r0['ms']:.4f} ms on "
+            f"a half, plain {r0['plain_ms']:.4f} ms, SDPA with lse "
+            f"{r0['library_ms']:.4f} ms (its o {r0['library_o_diff']:.3g}, "
+            f"lse {r0['library_lse_diff']:.3g} from the entry's), bound "
+            f"{r0['bound_ms']:.4f} ms ({r0['bound_by']})")
+        token_tol = (BF16_ROW_ULPS * 2.0 ** -7 if name == "bfloat16"
+                     else PARTIAL_STAT_REL)
+        if not all(r["cache_ok"] for r in rows) or max(
+                r["token_rel"] for r in rows) > token_tol:
+            fail(f"seqshard across ranks ({name}): a rank's cache half "
+                 "changed but at the token's row, or the token's K/V lie "
+                 f"more than {token_tol:.3g} of the row's max from the "
+                 "reference's")
+        if launches != SEQ_RANKS:
+            fail(f"seqshard across ranks ({name}): {launches} partial "
+                 f"launches, expected one a rank ({SEQ_RANKS})")
+        if name == "bfloat16":
+            if worst > 2e-2 or ulps > BF16_ROW_ULPS:
+                fail(f"seqshard across ranks: bf16 layer {worst:.3g} / "
+                     f"{ulps:.3g} row ulps (limits 2e-2, {BF16_ROW_ULPS})")
+            if entry["entry_o_row_ulps"] > BF16_ROW_ULPS:
+                fail(f"seqshard across ranks: the bf16 entry's output "
+                     f"{entry['entry_o_row_ulps']:.3g} row ulps from its "
+                     f"plain version (limit {BF16_ROW_ULPS})")
+        else:
+            if worst > SEQ_F32_TOL:
+                fail(f"seqshard across ranks: fp32 layer {worst:.3g} "
+                     f"(limit {SEQ_F32_TOL})")
+            if entry["entry_o_err"] > SEQ_F32_TOL:
+                fail(f"seqshard across ranks: the fp32 entry's output "
+                     f"{entry['entry_o_err']:.3g} from its plain version "
+                     f"(limit {SEQ_F32_TOL})")
+        if max(entry["entry_m_rel"], entry["entry_l_rel"]) > PARTIAL_STAT_REL:
+            fail(f"seqshard across ranks ({name}): the entry's m "
+                 f"{entry['entry_m_rel']:.3g} / l {entry['entry_l_rel']:.3g} "
+                 f"from its plain version (limit {PARTIAL_STAT_REL})")
+        out[name] = {"launches": launches,
+                     "max_abs_err": entry["entry_o_err"],
+                     **{k: r0[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}}
+    log(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_launcher(torch) -> None:
+    """Phase 24: ``torchrun --nproc-per-node 1 -m repro_torch.launch.train
+    --arch mamba2-130m --compress-grads --steps 4`` from this script (the
+    full-width model, NCCL at world 1): it exits 0, which it does only
+    when every step's loss and grad_norm are finite."""
+    import os
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           *LAUNCHER_ARGS]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              cwd=str(ROOT), timeout=LAUNCHER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"launcher: {' '.join(cmd[1:])} ran past {LAUNCHER_TIMEOUT} s")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[tr")]
+    for ln in lines:
+        log(f"launcher: {ln}")
+    if proc.returncode != 0 or not any(
+            ln.startswith("[train] mamba2-130m on cuda") for ln in lines):
+        fail(f"launcher: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    log(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
+
+
+#: ``--cards N``: the mesh arm across N cards of one host (NCCL, one
+#: process a card): the smoke configs' (2, 2) steps held to one card's
+#: step (JAX's bounds: loss 1e-4, params 5e-3), and the full-width
+#: readings: VGG-16 at batch 8 and mamba2-130m at 4 x 1024 on (N, 1),
+#: llava's decode layer with its cache cut N ways
+CARDS_STEPS = 3
+
+
+def _cards_rank(rank: int, n: int, d: str, work: str = "cards") -> None:
+    """One rank of ``--cards`` (``work`` "cards") or ``--trace-mesh``
+    ("trace"): writes what it measured, or the failure."""
+    import json as _json
+    import os
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        torch.cuda.set_device(rank)
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            d, "store"), rank=rank, world_size=n,
+            device_id=torch.device("cuda", rank))
+        out = {"cards": _cards_work, "trace": _trace_work}[work](
+            torch, dist, rank, n)
+    except Exception:                                # noqa: BLE001
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+            _json.dump(out, f)
+
+
+def _cards_work(torch, dist, rank: int, n: int) -> dict:
+    import math
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import CNN_REGISTRY, CNN_SMOKES, get_config, \
+        get_smoke
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import (SyntheticImageDataset,
+                                           SyntheticLMDataset)
+    from repro_torch.distributed import (StepConfig, activate_mesh, add_ef,
+                                         gather_state, make_train_state,
+                                         make_train_step, place_state,
+                                         state_pspec)
+    from repro_torch.distributed import compression
+    from repro_torch.engine import ExecutionPolicy, plan_model
+    from repro_torch.engine.policy import fp32_ieee
+    from repro_torch.nn.attention import KVCache, attention
+    from repro_torch.nn.models import build_model
+
+    fp32_ieee()
+    dev = torch.device("cuda", rank)
+    res = {}
+    square = init_device_mesh("cuda", (n // 2, 2),
+                              mesh_dim_names=("data", "model"))
+    flat = init_device_mesh("cuda", (n, 1), mesh_dim_names=("data", "model"))
+
+    def place(state, mesh):
+        with activate_mesh(mesh) as ctx:
+            return place_state(state, state_pspec(state, ctx), mesh)
+
+    # the smoke configs (fp32, the kernels) on (n/2, 2) against one card
+    scfg = StepConfig(warmup_steps=1, total_steps=10)
+    for arch in ("granite-3-2b", "mamba2-130m", "vgg16"):
+        if arch == "vgg16":
+            m1 = m2 = plan_model(CNN_SMOKES["vgg16"], ExecutionPolicy())
+            g = torch.Generator().manual_seed(0)
+            batch = {"images": torch.randn(4, 16, 16, 3, generator=g),
+                     "labels": torch.randint(0, 10, (4,), generator=g)}
+        else:
+            cfg = get_smoke(arch)
+            m1, m2 = build_model(cfg), build_model(cfg, tp=2)
+            batch = SyntheticLMDataset(vocab=cfg.vocab, seq_len=17,
+                                       global_batch=4).batch_at(0)
+        state = make_train_state(m1, 0, dev)
+        s1, k1 = make_train_step(m1, scfg)(state, batch)
+        s2, k2 = make_train_step(m2, scfg, square)(place(state, square),
+                                                   batch)
+        full = gather_state(s2)
+        res[f"smoke {arch}"] = {
+            "loss": abs(float(k1["loss"]) - float(k2["loss"])),
+            "params": max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(tree_leaves(s1["params"]),
+                                          tree_leaves(full["params"])))}
+
+    # full width: VGG-16 at batch 8 and mamba2-130m at 4 x 1024 on (n, 1)
+    def timed(step, state, batches):
+        ms, hist = [], []
+        for b in batches:
+            compression.reset_counters()
+            torch.cuda.synchronize(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, mets = step(state, b)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append(float(mets["loss"]))
+        return state, ms, hist, compression.WIRE_BYTES
+
+    cfg = CNN_REGISTRY["vgg16"]
+    plan = plan_model(cfg, ExecutionPolicy())
+    ds = SyntheticImageDataset(hw=cfg.input_hw, channels=cfg.layers[0].M,
+                               n_classes=cfg.n_classes,
+                               global_batch=TRAIN_BATCH, seed=0)
+    batches = [ds.batch_at(i) for i in range(CARDS_STEPS)]
+    vscfg = StepConfig(peak_lr=TRAIN_LR, warmup_steps=5,
+                       total_steps=CARDS_STEPS)
+    state0 = make_train_state(plan, 0, dev)
+    _, one_ms, one_loss, _ = timed(make_train_step(plan, vscfg), state0,
+                                   batches)
+    _, dp_ms, dp_loss, _ = timed(make_train_step(plan, vscfg, flat),
+                                 place(state0, flat), batches)
+    res["vgg16"] = {"one_ms": one_ms, "dp_ms": dp_ms,
+                    "loss0": [one_loss[0], dp_loss[0]]}
+    del state0
+    lcfg = get_config(LM_ARCH)
+    model = build_model(lcfg)
+    B, S, _ = LM_TRAIN[LM_ARCH]
+    lds = SyntheticLMDataset(vocab=lcfg.vocab, seq_len=S + 1, global_batch=B)
+    lbatches = [lds.batch_at(i) for i in range(CARDS_STEPS)]
+    lstate = make_train_state(model, 0, dev)
+    for compress in (False, True):
+        lscfg = StepConfig(peak_lr=TRAIN_LR, warmup_steps=5,
+                           total_steps=CARDS_STEPS, compress_grads=compress)
+        st = place(lstate, flat)
+        if compress:
+            st = add_ef(st, flat)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, ms, hist, wire = timed(make_train_step(model, lscfg, flat), st,
+                                  lbatches)
+        res[f"{LM_ARCH} {'int8' if compress else 'plain'}"] = {
+            "ms": ms, "loss": hist, "wire": wire,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        del st
+    del lstate
+
+    # llava's decode layer through attention() on a (1, n) mesh over NCCL:
+    # its params by param_pspec, its cache cut n ways by cache_pspec
+    seq_mesh = init_device_mesh("cuda", (1, n),
+                                mesh_dim_names=("data", "model"))
+    lay, params, t, p_d, x_d, cache, kw = _seq_layer(
+        torch, dev, seq_mesh, torch.bfloat16, tp_params=True)
+    with activate_mesh(seq_mesh), torch.no_grad():
+        def arm():
+            return attention(p_d, x_d, lay, cache=cache, **kw)[0]
+        o = arm().full_tensor()
+        arm_ms = cuda_ms(torch, arm, 20)
+    ref = KVCache(t["k"].clone(), t["v"].clone())
+    with torch.no_grad():
+        def one():
+            return attention(params, t["x"], lay, cache=ref, **kw)[0]
+        want = one().float()
+        one_ms = cuda_ms(torch, one, 20)
+    diff = (o.float() - want).abs()
+    res["seqshard"] = {
+        "max_abs": float(diff.max()),
+        "row_ulps": float((diff / (want.abs().amax(-1, keepdim=True)
+                                   * 2.0 ** -7)).nan_to_num(0.0).max()),
+        "arm_ms": arm_ms, "one_card_ms": one_ms}
+    if not all(math.isfinite(v) for v in res[f"{LM_ARCH} int8"]["loss"]):
+        raise RuntimeError(f"{LM_ARCH} int8: a non-finite loss")
+    return res
+
+
+def phase_cards(torch, n: int) -> None:
+    """``--cards N``: the mesh arm across N cards (one process a card,
+    NCCL): the smoke configs' (N/2, 2) steps (granite at tp=2, mamba2,
+    VGG-16; the kernels under ``local_map``) within JAX's bounds of one
+    card's step; full-width VGG-16 at batch 8 and mamba2-130m at 4 x 1024
+    (plain and int8 gradients) on (N, 1), ms per step; llava's decode
+    layer through ``attention()`` on a (1, N) mesh, its params by
+    ``param_pspec`` and its cache cut N ways by ``cache_pspec``, within
+    the bf16 row limit of the one-card layer (kernel 5's split decode),
+    timed against it."""
+    import json as _json
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < n:
+        fail(f"--cards {n}: {torch.cuda.device_count()} cards visible")
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="cards-")
+    mp.spawn(_cards_rank, args=(n, d, "cards"), nprocs=n)
+    ranks = []
+    for r in range(n):
+        with open(f"{d}/rank{r}.json") as f:
+            ranks.append(_json.load(f))
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            fail(f"cards: rank {r} failed:\n{res['error']}")
+    r0 = ranks[0]
+    for k, v in r0.items():
+        log(f"cards {n}, {k}: {v}")
+    for arch in ("granite-3-2b", "mamba2-130m", "vgg16"):
+        e = r0[f"smoke {arch}"]
+        if e["loss"] > 1e-4 or e["params"] > 5e-3:
+            fail(f"cards: {arch} smoke on ({n // 2}, 2) against one card: "
+                 f"{e} (limits 1e-4, 5e-3)")
+    sq = r0["seqshard"]
+    if sq["max_abs"] > 2e-2 or sq["row_ulps"] > BF16_ROW_ULPS:
+        fail(f"cards: the decode merged across {n} cards: {sq}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    log(f"cards {n}: " + "; ".join(smi[:n]))
+    log(f"cards {n} took {time.perf_counter() - t_phase:.1f} s")
+
+
+#: ``--trace-mesh N``: VGG-16's train step at batch TRAIN_BATCH on one
+#: card and on an (N, 1) mesh, plain and with int8 gradients: warm-up
+#: steps, then TRACE_STEPS steps timed, then TRACE_STEPS under
+#: ``torch.profiler``
+TRACE_WARMUP, TRACE_STEPS = 2, 3
+#: the host ops that are collectives (by name prefix in the trace)
+TRACE_COLLECTIVES = ("c10d::", "_c10d_functional::", "nccl:", "gloo:",
+                     "record_param_comms")
+
+
+def _trace_split(events, steps: int) -> dict:
+    """From a chrome trace's events (one process), per step: the device's
+    busy ms (the union of its kernels', copies' and sets' intervals); the
+    host ms in collectives (the outermost collective ops, every thread)
+    and their count; and the host ms of DTensor's own work: the outermost
+    ``PythonSubclass`` (DTensor's dispatch of an op) and ``Redistribute``
+    spans, less the local op each dispatch runs (its child of the op's
+    own name) and the collectives under them, and their count."""
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and "dur" in e)
+    busy, end = 0.0, None
+    for a, b in dev:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+
+    def coll(e):
+        return e["name"].startswith(TRACE_COLLECTIVES)
+
+    def dt(e):
+        return e["name"] in ("PythonSubclass", "Redistribute")
+
+    def local_call(e):   # the local op a DTensor dispatch runs
+        p = e["_parent"]
+        return (p is not None and p["name"] == "PythonSubclass"
+                and p["_parent"] is not None
+                and e["name"] == p["_parent"]["name"])
+    by_tid: dict = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and "dur" in e:
+            by_tid.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    coll_us = dt_us = 0.0
+    n_coll = n_dt = 0
+    for evs in by_tid.values():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack: list = []
+        for e in evs:
+            while stack and e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"]:
+                stack.pop()
+            p = stack[-1] if stack else None
+            e["_parent"] = p
+            e["_in_coll"] = p is not None and (p["_in_coll"] or coll(p))
+            e["_in_dt"] = p is not None and (p["_in_dt"] or dt(p))
+            e["_in_local"] = p is not None and (p["_in_local"]
+                                                or local_call(p))
+            stack.append(e)
+            if coll(e) and not e["_in_coll"]:
+                coll_us += e["dur"]
+                n_coll += 1
+            if dt(e) and not e["_in_dt"]:
+                dt_us += e["dur"]
+                n_dt += 1
+            elif e["_in_dt"] and not e["_in_local"] and (
+                    local_call(e) or (coll(e) and not e["_in_coll"])):
+                dt_us -= e["dur"]
+    return {"device_busy_ms": busy / 1e3 / steps,
+            "collective_ms": coll_us / 1e3 / steps,
+            "collectives": n_coll / steps,
+            "dtensor_ms": dt_us / 1e3 / steps,
+            "dtensor_spans": n_dt / steps}
+
+
+def _trace_work(torch, dist, rank: int, n: int) -> dict:
+    import json as _json
+    import os
+    import tempfile
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.data.pipeline import SyntheticImageDataset
+    from repro_torch.distributed import (StepConfig, activate_mesh, add_ef,
+                                         make_train_state, make_train_step,
+                                         place_state, state_pspec)
+    from repro_torch.engine import ExecutionPolicy, plan_model
+    from repro_torch.engine.policy import fp32_ieee
+
+    fp32_ieee()
+    dev = torch.device("cuda", rank)
+    mesh = init_device_mesh("cuda", (n, 1), mesh_dim_names=("data", "model"))
+    cfg = CNN_REGISTRY["vgg16"]
+    plan = plan_model(cfg, ExecutionPolicy())
+    ds = SyntheticImageDataset(hw=cfg.input_hw, channels=cfg.layers[0].M,
+                               n_classes=cfg.n_classes,
+                               global_batch=TRAIN_BATCH, seed=0)
+    total = TRACE_WARMUP + 2 * TRACE_STEPS
+    batches = [ds.batch_at(i) for i in range(total)]
+    state0 = make_train_state(plan, 0, dev)
+    with activate_mesh(mesh) as ctx:
+        specs = state_pspec(state0, ctx)
+    res = {}
+    for name, compress in (("one card", None), ("mesh", False),
+                           ("mesh, int8 gradients", True)):
+        scfg = StepConfig(peak_lr=TRAIN_LR, warmup_steps=5,
+                          total_steps=total, compress_grads=bool(compress))
+        if compress is None:
+            state, m = state0, None
+        else:
+            state, m = place_state(state0, specs, mesh), mesh
+            if compress:
+                state = add_ef(state, mesh)
+        step = make_train_step(plan, scfg, m)
+        for b in batches[:TRACE_WARMUP]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for b in batches[TRACE_WARMUP:TRACE_WARMUP + TRACE_STEPS]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches[TRACE_WARMUP + TRACE_STEPS:]:
+                state, _ = step(state, b)
+            torch.cuda.synchronize(dev)
+            traced = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
+        path = os.path.join(tempfile.mkdtemp(prefix="trace-"), "t.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = _json.load(f)["traceEvents"]
+        os.remove(path)
+        split = _trace_split(events, TRACE_STEPS)
+        res[name] = {"ms": wall, "traced_ms": traced, **split,
+                     "idle_share": 1.0 - split["device_busy_ms"] / wall,
+                     "idle_share_traced": 1.0 - split["device_busy_ms"]
+                     / traced}
+        del state, step
+    return res
+
+
+def phase_trace_mesh(torch, n: int) -> None:
+    """``--trace-mesh N``: where the mesh step's time goes.  VGG-16's
+    train step at batch TRAIN_BATCH (full width, kernels 1 and 2) on one
+    card, on an (N, 1) ``DeviceMesh`` (NCCL, one process a card), and on
+    it with int8 gradients and error feedback: ms per step untraced, then
+    one ``torch.profiler`` trace of TRACE_STEPS steps: the device's busy
+    ms and idle share, and the host ms in collectives and in DTensor-level
+    ops (``_trace_split``), per step, on each rank."""
+    import json as _json
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < n:
+        fail(f"--trace-mesh {n}: {torch.cuda.device_count()} cards visible")
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="trace-mesh-")
+    mp.spawn(_cards_rank, args=(n, d, "trace"), nprocs=n)
+    for r in range(n):
+        with open(f"{d}/rank{r}.json") as f:
+            res = _json.load(f)
+        if "error" in res:
+            fail(f"trace-mesh: rank {r} failed:\n{res['error']}")
+        for name, v in res.items():
+            log(f"trace-mesh ({n}, 1) rank {r}, vgg16 batch {TRAIN_BATCH} "
+                f"({name}): " + ", ".join(
+                    f"{k} {x:.4f}" if isinstance(x, float) else f"{k} {x}"
+                    for k, x in v.items()))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    log(f"trace-mesh {n}: " + "; ".join(smi[:n]))
+    log(f"trace-mesh {n} took {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_entry(rows, name: str, launches: int, source: str = KERNEL_SOURCE,
                  replaces: str = REPLACES, arch: str = "vgg16") -> dict:
     """One kernel instantiation's line entry: the sums over the shapes of
@@ -4400,6 +5419,17 @@ def main() -> None:
     ap.add_argument("--drift", metavar="SEEDS",
                     help="only measure how far free-running train runs "
                     "part (comma-separated seeds); no result line")
+    ap.add_argument("--distributed", action="store_true",
+                    help="only run phases 22-24 (the mesh arm, the "
+                    "sequence-sharded decode across ranks, the launcher); "
+                    "no result line")
+    ap.add_argument("--cards", type=int, metavar="N",
+                    help="only run the mesh arm across N cards of one host "
+                    "(one process a card, NCCL); no result line")
+    ap.add_argument("--trace-mesh", type=int, metavar="N",
+                    help="only trace VGG-16's step on one card and on an "
+                    "(N, 1) mesh (torch.profiler): device idle share, host "
+                    "ms in collectives and DTensor ops; no result line")
     ap.add_argument("--probe-families", type=int, metavar="N",
                     help="only run phases 3i and 3e, N times over, each "
                     "row logged as it ends; no result line")
@@ -4420,6 +5450,21 @@ def main() -> None:
         phase_drift(torch, [int(v) for v in args.drift.split(",")],
                     TRAIN_STEPS, TRAIN_BATCH, (TRAIN_LR, TRAIN_LR / 10))
         log("stopping after the drift measurement (--drift): no result line")
+        return
+    if args.cards:
+        phase_cards(torch, args.cards)
+        log(f"stopping after the {args.cards}-card run (--cards): no result "
+            "line")
+        return
+    if args.trace_mesh:
+        phase_trace_mesh(torch, args.trace_mesh)
+        log("stopping after the trace (--trace-mesh): no result line")
+        return
+    if args.distributed:
+        phase_mesh_world1(torch)
+        phase_seqshard_ranks(torch)
+        phase_launcher(torch)
+        log("stopping after phases 22-24 (--distributed): no result line")
         return
     if args.probe_families:
         phase_probe_families(torch, args.probe_families, args.reps)
@@ -4464,6 +5509,9 @@ def main() -> None:
     vlm_launches = phase_lm_serve(torch, VLM_ARCH)
     f32_launches[VLM_ARCH] = phase_lm_checks_extra(
         torch, VLM_ARCH, n_layers=VLM_CHECK_LAYERS)
+    phase_mesh_world1(torch)
+    seq_rows = phase_seqshard_ranks(torch)
+    phase_launcher(torch)
     # the launches of each timed kind of call in the served runs, each
     # counted: the encoder's and the cross-attention's by role (the cross
     # rows: the prefill's and each replay's), llava's prefill's and
@@ -4620,7 +5668,14 @@ def main() -> None:
             "source": SSD_SOURCE, "replaces": SSD_REPLACES,
             **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}}
-           for r in srows]}))
+           for r in srows]
+        # the partial entry, launched across phase 23's ranks
+        + [{"name": f"flash_attention_partial_{name}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+            "launches_in": "phase 23 (2 ranks, one call each)",
+            **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}}
+           for name, r in seq_rows.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

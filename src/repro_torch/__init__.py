@@ -9,9 +9,11 @@ conv's autograd Function, requant and the oracles), ``engine``
 loss), ``configs`` (the paper's CNNs and the LM configs), ``nn`` (the
 CNNs, and the LM layers, attention, Mamba2 mixer, stacks and
 ``CausalLM``), ``optim`` (AdamW, schedules), ``distributed`` (the
-one-device train step and loop, the LM prefill and decode steps),
-``data`` (the seeded image and request streams), ``serve`` (the bucketed
-server) and ``launch`` (the serving and training CLIs).
+train step and loop on one device or a ``DeviceMesh``, the logical
+sharding rules, int8-compressed gradients, the pipeline, the LM prefill
+and decode steps), ``data`` (the seeded image and request streams),
+``serve`` (the bucketed server) and ``launch`` (the serving and training
+CLIs, the meshes).
 
 Public functions keep the JAX package's layouts: NHWC activations,
 (K, K, C, F) conv weights, (in, out) dense weights, (B, L, D) sequences,

@@ -19,6 +19,13 @@ bit-viewed (``Tensor.view(torch.int16)``), never converted, so neither
 package needs ``ml_dtypes`` to write or read them.  Restore puts each leaf
 on its template leaf's device and dtype.  :func:`latest_step` skips a
 checkpoint without ``COMMITTED`` (torn by a crash mid-write).
+
+Under a mesh the format stays mesh-agnostic: every DTensor leaf is
+gathered whole (``full_tensor()``, on every rank) and rank 0 writes it;
+plain tensor leaves beside DTensors are per-rank (the compressed
+gradients' error feedback) and are not saved.  Restore is elastic: a
+DTensor template leaf takes the restored tensor onto its own mesh and
+placements, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -82,14 +89,37 @@ def _write(host, directory: str) -> None:
         f.write("ok")
 
 
+def _is_dtensor(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def _snapshot(tree):
-    return [(ps, _to_host(leaf)) for ps, leaf in tree_leaves_with_path(tree)]
+    """[(path, host array)]: DTensors gathered whole; beside them, plain
+    leaves (per rank) left out."""
+    leaves = tree_leaves_with_path(tree)
+    meshed = any(_is_dtensor(t) for _, t in leaves)
+    return [(ps, _to_host(leaf.full_tensor() if _is_dtensor(leaf) else leaf))
+            for ps, leaf in leaves if not meshed or _is_dtensor(leaf)]
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of an initialized group, or
+    the only process."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def save_pytree(tree, directory: str) -> None:
     """Write every tensor leaf of ``tree`` under ``directory``, then the
-    manifest, then ``COMMITTED``."""
-    _write(_snapshot(tree), directory)
+    manifest, then ``COMMITTED`` (under a mesh: every rank gathers, rank 0
+    writes)."""
+    host = _snapshot(tree)
+    if _writer():
+        _write(host, directory)
 
 
 def restore_pytree(template, directory: str):
@@ -99,7 +129,11 @@ def restore_pytree(template, directory: str):
     with open(os.path.join(directory, "manifest.json")) as f:
         by_path = {e["path"]: e for e in json.load(f)["leaves"]}
 
+    meshed = any(_is_dtensor(t) for _, t in tree_leaves_with_path(template))
+
     def one(ps, leaf):
+        if meshed and not _is_dtensor(leaf):
+            return leaf          # per rank: not in the checkpoint
         if ps not in by_path:
             raise KeyError(f"checkpoint missing leaf {ps!r}")
         entry = by_path[ps]
@@ -108,6 +142,11 @@ def restore_pytree(template, directory: str):
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{ps}: checkpoint shape {tuple(t.shape)} != "
                              f"template {tuple(leaf.shape)}")
+        if _is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            t = t.to(device=leaf.to_local().device, dtype=leaf.dtype)
+            return distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                     src_data_rank=None)
         return t.to(device=leaf.device, dtype=leaf.dtype)
 
     return tree_map_with_path(one, template)
@@ -161,6 +200,8 @@ class CheckpointManager:
         background (:meth:`wait` for the write to finish)."""
         self.wait()
         host = _snapshot(tree)
+        if not _writer():
+            return
 
         def work():
             _write(host, self._dir(step))
@@ -169,10 +210,18 @@ class CheckpointManager:
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
-    def restore_latest(self, template) -> Tuple[Optional[int], Any]:
+    def restore_latest(self, template, shardings=None
+                       ) -> Tuple[Optional[int], Any]:
         """(the latest committed step, the tree restored from it), or
-        (None, ``template``)."""
+        (None, ``template``).  ``shardings`` (spec tree, mesh), where
+        given, places the restored tree on that mesh (the elastic
+        restore of a plain template)."""
         step = latest_step(self.base_dir)
         if step is None:
             return None, template
-        return step, restore_pytree(template, self._dir(step))
+        tree = restore_pytree(template, self._dir(step))
+        if shardings is not None:
+            from repro_torch.distributed.steps import place_state
+            specs, mesh = shardings
+            tree = place_state(tree, specs, mesh)
+        return step, tree

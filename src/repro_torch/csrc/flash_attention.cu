@@ -126,6 +126,10 @@ struct FlashArgs {
   long long vsb, vss, vsh;
   float scale;
   int causal;
+  // (B, Sq, H, G) each, or null: the partial entry's row max (in
+  // natural-log units) and row sum, written beside the normalised output
+  float* m_out;
+  float* l_out;
 };
 
 struct SplitArgs {
@@ -134,6 +138,17 @@ struct SplitArgs {
   int n_split;
   int split_tiles;  // kSplitTile-key tiles per split
 };
+
+// The partial entry's statistics of row r of (b, h) on the split path: m
+// from units of log2 to natural-log units (a row with no visible key keeps
+// kNegInf's order).
+__device__ __forceinline__ void write_stats(const FlashArgs& a, long long b,
+                                            long long h, int r, float m,
+                                            float l) {
+  const long long i = ((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G;
+  a.m_out[i] = m * 0.6931471805599453f;
+  a.l_out[i] = l;
+}
 
 // Keys [0, n_valid) of batch row b exist and are within kv_length.
 __device__ __forceinline__ long long valid_keys(const FlashArgs& a,
@@ -898,6 +913,7 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     if (sp.n_split == 1) {
       out[(((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D + d] =
           __float2bfloat16_rn(ob / fmaxf(lb, 1e-20f));
+      if (d == 0 && a.m_out != nullptr) write_stats(a, b, h, r, mb, lb);
     } else {
       part[r * rec + d] = ob;
       if (d == 0) {
@@ -934,6 +950,7 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     }
     out[(((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D + d] =
         __float2bfloat16_rn(og / fmaxf(lg, 1e-20f));
+    if (d == 0 && a.m_out != nullptr) write_stats(a, b, h, r, mg, lg);
   }
   if (threadIdx.x == 0) sp.counters[bh] = 0;  // ready for the next launch
 }
@@ -1055,6 +1072,11 @@ flash_attention_f32_kernel(const FlashArgs a) {
   }
 
   if (!row_ok) return;
+  if (a.m_out != nullptr && part == 0) {
+    const long long i = ((b * a.Sq + pos) * a.H + h) * a.G + grp;
+    a.m_out[i] = m_run;
+    a.l_out[i] = l_run;
+  }
   const float den = fmaxf(l_run, 1e-20f);
   float* dst = static_cast<float*>(a.out) +
                (((b * a.Sq + pos) * a.H + h) * a.G + grp) * D;
@@ -1184,15 +1206,21 @@ const char* flash_attention_error_string(int code) {
 // takes the split path (Sq G <= kSplitRows) with n_split splits of
 // split_tiles kSplitTile-key tiles, fp32 scratch (B, H, n_split, Sq G,
 // D + 2) (null when n_split is 1) and (B, H) int32 counters at 0; else the
-// prefill path. Returns the launch's cudaError_t.
-int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    const void* kv_length, int bf16, int causal, int D,
-                    long long B, long long Sq, long long Sk, long long H,
-                    long long G, long long q_offset, long long qsb,
-                    long long qss, long long qsh, long long qsg, long long ksb,
-                    long long kss, long long ksh, long long vsb, long long vss,
-                    long long vsh, void* scratch, void* counters, int n_split,
-                    int split_tiles, float scale, void* stream) {
+// prefill path. m_out and l_out, (B, Sq, H, G) fp32 each, are null but on
+// the bf16 split path and the fp32 lane, which then also write each row's
+// (merged) max, in natural-log units, and sum there: the partials that a
+// sequence-sharded decode merges across ranks. Returns the launch's
+// cudaError_t.
+int flash_attention_ml(const void* q, const void* k, const void* v,
+                       void* out, const void* kv_length, int bf16, int causal,
+                       int D, long long B, long long Sq, long long Sk,
+                       long long H, long long G, long long q_offset,
+                       long long qsb, long long qss, long long qsh,
+                       long long qsg, long long ksb, long long kss,
+                       long long ksh, long long vsb, long long vss,
+                       long long vsh, void* scratch, void* counters,
+                       int n_split, int split_tiles, float scale, void* stream,
+                       void* m_out, void* l_out) {
   FlashArgs a;
   a.q = q;
   a.k = k;
@@ -1216,6 +1244,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   a.vsh = vsh;
   a.scale = scale;
   a.causal = causal;
+  a.m_out = static_cast<float*>(m_out);
+  a.l_out = static_cast<float*>(l_out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16 && n_split > 0) {
     if (Sq * G > kSplitRows || counters == nullptr ||
@@ -1230,11 +1260,28 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
       return launch_split<decltype(d)::value>(a, sp, B, s);
     });
   }
+  if (bf16 && m_out != nullptr)  // the prefill path writes no statistics
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     return by_head_dim(
         D, [&](auto d) { return launch_prefill<decltype(d)::value>(a, B, s); });
   return by_head_dim(
       D, [&](auto d) { return launch_f32<decltype(d)::value>(a, B, s); });
+}
+
+// The attention entry: flash_attention_ml without the statistics.
+int flash_attention(const void* q, const void* k, const void* v, void* out,
+                    const void* kv_length, int bf16, int causal, int D,
+                    long long B, long long Sq, long long Sk, long long H,
+                    long long G, long long q_offset, long long qsb,
+                    long long qss, long long qsh, long long qsg, long long ksb,
+                    long long kss, long long ksh, long long vsb, long long vss,
+                    long long vsh, void* scratch, void* counters, int n_split,
+                    int split_tiles, float scale, void* stream) {
+  return flash_attention_ml(q, k, v, out, kv_length, bf16, causal, D, B, Sq,
+                            Sk, H, G, q_offset, qsb, qss, qsh, qsg, ksb, kss,
+                            ksh, vsb, vss, vsh, scratch, counters, n_split,
+                            split_tiles, scale, stream, nullptr, nullptr);
 }
 
 }  // extern "C"

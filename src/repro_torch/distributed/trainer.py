@@ -1,5 +1,4 @@
-"""The training loop on one device: checkpoints, exact resume and
-straggler detection.
+"""The training loop: checkpoints, exact resume and straggler detection.
 
 Port of ``repro/distributed/trainer.py``: deterministic data (the
 dataset is a pure function of (seed, step)), per-step wall time with an
@@ -10,7 +9,11 @@ saved every ``ckpt_every`` steps and at the end (``checkpoint.manager``:
 copied to the host at once, written in the background, committed last),
 and a run resumes from the latest committed step; since the data is a
 function of the step and the AdamW moments and count are restored, the
-resumed run takes the steps the uninterrupted run took.
+resumed run takes the steps the uninterrupted run took.  On a mesh the
+state's leaves are DTensors: the checkpoint gathers them whole and rank 0
+writes (the format is mesh-agnostic), and a restore places each leaf on
+the current placements (the template's, or ``state_shardings``), so a
+run saved on one mesh resumes on another.
 """
 from __future__ import annotations
 
@@ -66,15 +69,18 @@ def _wait(value) -> None:
 
 
 def train_loop(step_fn: Callable, state, dataset, loop_cfg: TrainLoopConfig,
-               log_fn: Callable = print) -> Dict[str, Any]:
+               state_shardings=None, log_fn: Callable = print
+               ) -> Dict[str, Any]:
     """Run the loop; returns {state, history, stragglers, resumed_from}.
-    A restored state takes the devices and dtypes of ``state``'s leaves."""
+    A restored state takes the devices, dtypes and placements of
+    ``state``'s leaves, or ``state_shardings`` (spec tree, mesh) where
+    given."""
     mgr = (CheckpointManager(loop_cfg.ckpt_dir, loop_cfg.keep_last)
            if loop_cfg.ckpt_dir else None)
     start = 0
     resumed_from = None
     if mgr is not None and loop_cfg.resume:
-        step, restored = mgr.restore_latest(state)
+        step, restored = mgr.restore_latest(state, state_shardings)
         if step is not None:
             state, start, resumed_from = restored, step, step
             log_fn(f"[trainer] resumed from step {step}")

@@ -40,6 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.quant import fold_shift_into_requant
+from repro_torch.distributed.sharding import (axis_rank, is_dtensor,
+                                              replicated_call, row_placements,
+                                              shard)
 from repro_torch.engine.plan import DATAPATHS, ConvLayerPlan, ModelPlan
 from repro_torch.engine.policy import resolve_device, resolve_substrate
 from repro_torch.kernels import ref
@@ -211,8 +214,11 @@ def run_conv_layer(plan: ConvLayerPlan, p, x: torch.Tensor) -> torch.Tensor:
     """One model conv block: planned conv -> optional 2x2 pool.
 
     ``p``: {"kernel": (K,K,C/groups,F) [, "bias": (F,), "requant":
-    ((F,), (F,))]}.
+    ((F,), (F,))]}.  On DTensors (:func:`_conv_layer_on_mesh`) each rank
+    runs its local filters.
     """
+    if is_dtensor(x):
+        return _conv_layer_on_mesh(plan, p, x)
     w = p["kernel"]
     if x.is_floating_point():
         w = w.to(x.dtype)
@@ -220,6 +226,40 @@ def run_conv_layer(plan: ConvLayerPlan, p, x: torch.Tensor) -> torch.Tensor:
     if plan.pool:
         x = max_pool2x2(x)
     return x
+
+
+def _conv_layer_on_mesh(plan: ConvLayerPlan, p, x) -> torch.Tensor:
+    """One float-lane conv block on DTensors: the input gathered over
+    "model", the kernel (its ``cout`` sharded over "model", as
+    ``param_pspec`` has it) run through ``local_map`` on each rank's local
+    filters, bias sliced to them; the output sharded on its channels
+    (``shard(x, "batch", "img_h", "img_w", "cout")``, the JAX package's
+    ``nn/blocks.py:345``), then pooled."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    names = tuple(x.device_mesh.mesh_dim_names)
+    w, bias = p["kernel"], p.get("bias")
+    F_out = w.shape[-1]
+    mi, m = axis_rank(x.device_mesh, "model")
+    split = plan.groups == 1 and F_out % m == 0
+    w_pl = [Shard(3) if (n == "model" and split) else Replicate()
+            for n in names]
+    rep = [Replicate()] * len(names)
+    f_lo, f_n = (mi * F_out // m, F_out // m) if split else (0, F_out)
+
+    def conv_fn(xl, wl, bl):
+        if bl is not None:
+            bl = bl[f_lo:f_lo + f_n].to(xl.dtype)
+        return run_conv2d(plan, xl, wl.to(xl.dtype), bl)
+    y = local_map(conv_fn,
+                  out_placements=row_placements(x, 3 if split else None),
+                  in_placements=(row_placements(x), w_pl,
+                                 None if bias is None else rep),
+                  redistribute_inputs=True)(x, w, bias)
+    y = shard(y, "batch", "img_h", "img_w", "cout")
+    if plan.pool:
+        y = max_pool2x2(y)
+    return y
 
 
 def _head(params, x: torch.Tensor) -> torch.Tensor:
@@ -234,7 +274,10 @@ def _conv_stack(plan: ModelPlan, params, images: torch.Tensor):
     x = images
     for i, lp in enumerate(plan.layers):
         x = run_conv_layer(lp, params["conv"][i], x)
-    return x.reshape(x.shape[0], -1)
+    # on a mesh the channels are cut over "model": DTensor does not
+    # flatten a cut dim that is not the first, so they are gathered first
+    return replicated_call("cnn_flatten", lambda t: t.reshape(t.shape[0], -1),
+                           x)
 
 
 def forward(plan: ModelPlan, params, images: torch.Tensor) -> torch.Tensor:
@@ -246,11 +289,19 @@ def loss(plan: ModelPlan, params, batch) -> Tuple[torch.Tensor, Dict]:
     """Mean cross-entropy of the logits against ``batch["labels"]``;
     returns (ce, {"ce", "acc"}).  ``batch["images"]`` (B,H,W,C) float."""
     logits = forward(plan, params, batch["images"])
-    labels = batch["labels"].long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ce = -logp.gather(-1, labels[:, None])[:, 0].mean()
-    acc = (logits.argmax(-1) == labels).float().mean()
+    nll, hit = replicated_call("cnn_xent", _xent_rows, logits,
+                               batch["labels"])
+    ce = nll.mean()
+    acc = hit.mean()
     return ce, {"ce": ce, "acc": acc}
+
+
+def _xent_rows(logits: torch.Tensor, labels: torch.Tensor):
+    """Each row's CE and whether its argmax is its label (fp32)."""
+    labels = labels.long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return (-logp.gather(-1, labels[:, None])[:, 0],
+            (logits.argmax(-1) == labels).float())
 
 
 def serve_forward(plan: ModelPlan, params,

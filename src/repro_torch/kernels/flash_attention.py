@@ -51,6 +51,9 @@ NEG_INF = -1e30
 #: Launches of the CUDA kernel since the last reset (a plain counter:
 #: callers set it to 0 before a run and read it after).
 LAUNCHES = 0
+#: Launches of the partial entry (:func:`flash_attention_partial`), counted
+#: apart from :data:`LAUNCHES`.
+PARTIAL_LAUNCHES = 0
 
 #: Head dims the kernel is compiled for (the Pallas kernel blocks only the
 #: sequence and takes any; these are the LM configs' and their smoke
@@ -289,6 +292,9 @@ def load_library() -> ctypes.CDLL:
             + [p, p, i, i]                    # scratch counters n_split tiles
             + [ctypes.c_float, p])            # scale, stream
         lib.flash_attention.restype = i
+        lib.flash_attention_ml.argtypes = (lib.flash_attention.argtypes
+                                           + [p, p])  # m_out l_out
+        lib.flash_attention_ml.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         consts = ("flash_attention_bf16_tile", "flash_attention_f32_tile",
@@ -376,6 +382,58 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_offset=q_offset, kv_length=kv_length,
                                      chunk_k=chunk_k,
                                      block_causal=block_causal)
+    out = _launch(q, k, v, causal=causal, q_offset=q_offset,
+                  kv_length=kv_length)[0]
+    LAUNCHES += 1
+    return out
+
+
+def flash_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_length: Optional[torch.Tensor] = None,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_partial` in plain PyTorch: one
+    :func:`split_partials` over every key, the output normalised by its
+    row sum and cast to q's dtype, with the fp32 row max and sum."""
+    o, m, l = split_partials(q, k, v, 0, k.shape[1], causal=False,
+                             kv_length=kv_length)
+    return (o / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype), m, l
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            kv_length: Optional[torch.Tensor] = None,
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Decode attention over a slice of the keys, with the statistics that
+    merge it with other slices: (o (B, Sq, H, G, D) normalised, in q's
+    dtype; m, l (B, Sq, H, G) fp32: each row's max score, in natural-log
+    units, and its sum of exp(score - m)).  A row with no visible key has
+    o = 0, l = 0 and m at -1e30 or below.  Not causal.
+
+    A CPU ``q`` runs :func:`flash_partial_plain`.  A CUDA ``q`` launches
+    the kernel once, which writes m and l beside the output, or raises:
+    in bf16 the split decode (at most :data:`SPLIT_ROWS` rows, Sq x G),
+    in fp32 the fp32 lane, with :func:`flash_attention`'s other terms.
+    Counted in :data:`PARTIAL_LAUNCHES`."""
+    global PARTIAL_LAUNCHES
+    if q.device.type == "cpu":
+        return flash_partial_plain(q, k, v, kv_length)
+    B, Sq, H, G, _ = q.shape
+    if q.dtype == torch.bfloat16 and Sq * G > SPLIT_ROWS:
+        raise ValueError(f"the partial entry's bf16 lane is the split "
+                         f"decode: q {tuple(q.shape)} has more than "
+                         f"{SPLIT_ROWS} rows")
+    out = _launch(q, k, v, causal=False, q_offset=0, kv_length=kv_length,
+                  stats=True)
+    PARTIAL_LAUNCHES += 1
+    return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, q_offset: int,
+            kv_length: Optional[torch.Tensor], stats: bool = False):
+    """One launch of the kernel on CUDA tensors: (out,), or (out, m, l)
+    with ``stats`` (the split path's merged row statistics)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -418,8 +476,10 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  "lane loads k/v tiles by TMA, which needs "
                                  "no zero stride")
     out = torch.empty((B, Sq, H, G, D), dtype=q.dtype, device=q.device)
+    ml = [torch.empty((B, Sq, H, G), dtype=torch.float32, device=q.device)
+          for _ in range(2 if stats else 0)]
     if out.numel() == 0:
-        return out
+        return (out, *ml)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -430,17 +490,17 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if n_split > 1:
                 scratch = torch.empty(B * H * n_split * Sq * G * (D + 2),
                                       dtype=torch.float32, device=q.device)
-        rc = lib.flash_attention(
+        rc = lib.flash_attention_ml(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kv_length.data_ptr() if kv_length is not None else None,
             int(bf16), int(causal), D,
             B, Sq, Sk, H, G, int(q_offset),
             *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
             None if scratch is None else scratch.data_ptr(), counters,
-            n_split, tiles, D ** -0.5, stream)
+            n_split, tiles, D ** -0.5, stream,
+            *(t.data_ptr() for t in ml) if stats else (None, None))
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
                            f"({msg})")
-    LAUNCHES += 1
-    return out
+    return (out, *ml)

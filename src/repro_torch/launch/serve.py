@@ -39,6 +39,20 @@ the decoder's and the cross-attention layers, and each decode step in
 the decoder's self- and cross-attention, over the cross-KV the prefill
 wrote into the cache (the graph replays on it).
 
+``--tp`` sets the attention head layout of a ``--tp``-way model axis
+(KV heads repeated, q groups padded; the params do not change).  Under
+``torchrun --nproc-per-node N`` the launcher joins the process group
+(NCCL on the card, gloo with ``--device cpu``), builds a ("data",
+"model") host mesh with ``--tp`` ranks on "model", places the params by
+``param_pspec``, the cache by ``cache_pspec`` and the prompts by
+``batch_pspec`` (``distributed.steps.serve_shardings``), and runs the
+prefill and each decode step eagerly on the DTensors (no graph); rank 0
+prints.  On a mesh the ssm and hybrid families serve only where "model"
+has one rank (ROADMAP queue 1, item 10).
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch granite-3-2b --smoke --tp 2 --device cpu
+
 Prefill latency and decode tokens/s are reported separately.  The flags
 are the JAX launcher's plus ``--device`` (default ``cuda``: without a
 card it raises, it never falls back to the CPU; pass ``--device cpu`` for
@@ -49,6 +63,7 @@ configs are fp32).  ``--arch`` takes the architectures the port registers
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import Callable, Dict, List, Tuple
@@ -62,6 +77,7 @@ from repro_torch.distributed.steps import make_decode_step, make_prefill_step
 from repro_torch.engine import graphs
 from repro_torch.engine.policy import fp32_ieee, resolve_device
 from repro_torch.launch.cli import serve_config_from_args, serving_parent
+from repro_torch.launch.mesh import join_process_group, make_host_mesh
 from repro_torch.nn.models import build_model
 from repro_torch.serve import ServeEngine
 
@@ -220,6 +236,44 @@ def run_decode(decode: Callable, params, token: torch.Tensor, cache,
     return tokens, cache, time.perf_counter() - t0, bool(finite)
 
 
+class MeshStep:
+    """A prefill or decode step on a mesh: its batch inputs placed by
+    ``batch_pspec``, run eagerly under ``activate_mesh`` and
+    ``torch.no_grad``; the logits come back whole on every rank."""
+
+    def __init__(self, step: Callable, mesh):
+        self.step, self.mesh = step, mesh
+
+    def _place(self, t):
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.distributed import activate_mesh, batch_pspec
+        from repro_torch.distributed.sharding import to_placements
+        if not isinstance(t, torch.Tensor) or t.dim() == 0:
+            return t
+        with activate_mesh(self.mesh) as ctx:
+            spec = batch_pspec({"t": t}, ctx)["t"]
+        return distribute_tensor(t, self.mesh, to_placements(spec, self.mesh),
+                                 src_data_rank=None)
+
+    def __call__(self, params, inputs, cache, *rest):
+        from repro_torch.distributed import activate_mesh
+        if isinstance(inputs, dict):
+            inputs = {k: self._place(v) for k, v in inputs.items()}
+        else:
+            inputs = self._place(inputs)
+        with activate_mesh(self.mesh), torch.no_grad():
+            logits, cache = self.step(params, inputs, cache, *rest)
+        return logits.full_tensor(), cache
+
+
+def _place_on_mesh(model, params, cache, mesh):
+    """(params, cache) as DTensors on ``mesh`` by ``serve_shardings``."""
+    from repro_torch.distributed import place_state, serve_shardings
+    pspec, cspec = serve_shardings(model, cache, mesh)
+    return place_state(params, pspec, mesh), place_state(cache, cspec, mesh)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0],
                                  parents=[serving_parent()])
@@ -235,6 +289,16 @@ def main() -> None:
     args = ap.parse_args()
 
     dev = resolve_device(args.device)
+    mesh, log = None, print
+    if "WORLD_SIZE" in os.environ:
+        join_process_group(dev)
+        try:
+            mesh = make_host_mesh(model=args.tp, device=dev.type)
+        except ValueError as e:
+            torch.distributed.destroy_process_group()
+            ap.error(f"--tp {args.tp}: {e}")
+        if torch.distributed.get_rank() != 0:
+            log = lambda *a, **k: None    # noqa: E731  (rank 0 prints)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.dtype:
         cfg = cfg.with_overrides(dtype=DTYPES[args.dtype])
@@ -265,29 +329,39 @@ def main() -> None:
                                  device=dev)
         batch0 = {"tokens": torch.as_tensor(prompts, device=dev)}
         pos0 = args.prompt_len
-    prefill = prefill_executable(eng, model, params, batch0, cache)
+    if mesh is None:
+        prefill = prefill_executable(eng, model, params, batch0, cache)
+    else:
+        params, cache = _place_on_mesh(model, params, cache, mesh)
+        prefill = MeshStep(make_prefill_step(model), mesh)
     logits, cache, prefill_s = run_prefill(prefill, params, batch0, cache, dev)
     finite = bool(torch.isfinite(logits).all())
     tok = logits.argmax(-1)
     out_tokens = [tok]
     decode_s = 0.0
     if args.gen > 1:
-        decode = decode_executable(eng, model, params, tok, cache, pos0)
+        decode = (decode_executable(eng, model, params, tok, cache, pos0)
+                  if mesh is None else MeshStep(make_decode_step(model),
+                                                mesh))
         toks, cache, decode_s, dec_finite = run_decode(
             decode, params, tok, cache, pos0, args.gen - 1, dev)
         out_tokens += toks
         finite = finite and dec_finite
     gen = torch.stack(out_tokens, 1).cpu().numpy()
     decode_tps = args.batch * (args.gen - 1) / max(decode_s, 1e-9)
-    print(f"[serve] {cfg.name} ({str(cfg.dtype).replace('torch.', '')}) on "
-          f"{dev}: generated {gen.shape} tokens; prefill "
-          f"{prefill_s * 1e3:.1f} ms (batch {args.batch}, prompt "
-          f"{args.prompt_len}); decode {decode_tps:.1f} tok/s over "
-          f"{args.gen - 1} steps (batch {args.batch})")
-    print("[serve] sample:", gen[0][:16].tolist())
+    where = "" if mesh is None else (
+        f" (mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))})")
+    log(f"[serve] {cfg.name} ({str(cfg.dtype).replace('torch.', '')}) on "
+        f"{dev}{where}: generated {gen.shape} tokens; prefill "
+        f"{prefill_s * 1e3:.1f} ms (batch {args.batch}, prompt "
+        f"{args.prompt_len}); decode {decode_tps:.1f} tok/s over "
+        f"{args.gen - 1} steps (batch {args.batch})")
+    log("[serve] sample:", gen[0][:16].tolist())
     if not finite:
         print("[serve] FAILED: non-finite logits", file=sys.stderr)
         sys.exit(1)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

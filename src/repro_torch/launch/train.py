@@ -36,12 +36,23 @@ to run the kernels' plain versions.  The launcher exits non-zero when
 any step's loss or grad_norm is not finite.  ``--substrate`` and
 ``--emulate-hw`` select the execution policy
 (``launch.cli.execution_parent``; the decimated replay has no backward on
-the kernel substrate).  ``--tp`` other than 1 and ``--compress-grads``
-belong to the distributed slice (ROADMAP queue 1, item 10) and are
-refused.
+the kernel substrate).
+
+The mesh arm: under ``torchrun --nproc-per-node N`` (or alone, at world
+1, with ``--tp`` or ``--compress-grads``) the launcher joins the process
+group (NCCL on the card, gloo with ``--device cpu``), builds a
+("data", "model") host mesh with ``--tp`` ranks on "model", places the
+state by ``state_pspec`` and trains with the mesh step: DP over "data",
+TP over "model", ZeRO-1 moments, and with ``--compress-grads`` the int8
+gradient reduction with error feedback.  Rank 0 prints.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch granite-3-2b --smoke --tp 2 --compress-grads --steps 4 \
+      --batch 8 --seq 16 --device cpu
 """
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -50,9 +61,10 @@ import torch
 from repro_torch.configs import (CNN_REGISTRY, CNN_SMOKES, get_config,
                                  get_smoke)
 from repro_torch.data.pipeline import SyntheticImageDataset, SyntheticLMDataset
-from repro_torch.distributed import (StepConfig, TrainLoopConfig,
-                                     make_train_state, make_train_step,
-                                     train_loop)
+from repro_torch.distributed import (StepConfig, TrainLoopConfig, add_ef,
+                                     activate_mesh, make_train_state,
+                                     make_train_step, place_state,
+                                     state_pspec, train_loop)
 from repro_torch.engine import plan_model
 from repro_torch.engine.policy import fp32_ieee, resolve_device
 from repro_torch.kernels import flash_attention as flash
@@ -60,6 +72,7 @@ from repro_torch.kernels import trim_conv1d as conv1d
 from repro_torch.kernels import trim_conv2d as kernel
 from repro_torch.kernels import trim_conv2d_vjp as vjp
 from repro_torch.launch.cli import execution_parent, policy_from_args
+from repro_torch.launch.mesh import join_process_group, make_host_mesh
 from repro_torch.nn.models import build_model
 
 
@@ -103,7 +116,7 @@ def _lm(args, ap):
     """(model, dataset, the launches line) of the LM arm."""
     try:
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-        model = build_model(cfg, policy=policy_from_args(args))
+        model = build_model(cfg, tp=args.tp, policy=policy_from_args(args))
     except (KeyError, NotImplementedError) as e:
         ap.error(f"--arch {args.arch!r}: {e.args[0]}")
     if cfg.family == "encdec":
@@ -135,25 +148,60 @@ def main() -> None:
                     help="save checkpoints here and resume from the latest")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--compress-grads", action="store_true",
-                    help="not ported yet: refused")
+                    help="int8 data-parallel gradient reduction with error "
+                         "feedback (the mesh arm)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="model-axis size; only 1 is ported")
+                    help="model-axis size of the host mesh (the mesh arm)")
     args = ap.parse_args()
 
-    if args.tp != 1 or args.compress_grads:
-        ap.error("--tp other than 1 and --compress-grads are not ported "
-                 "yet: the distributed slice is ROADMAP queue 1, item 10")
     is_cnn = args.arch in CNN_REGISTRY
     dev = resolve_device(args.device)
     fp32_ieee()
+    meshed = ("WORLD_SIZE" in os.environ or args.tp != 1
+              or args.compress_grads)
+    mesh, log = None, print
+    if meshed:
+        import torch.distributed as dist
+        join_process_group(dev)
+        try:
+            mesh = make_host_mesh(model=args.tp, device=dev.type)
+        except ValueError as e:
+            torch.distributed.destroy_process_group()
+            ap.error(f"--tp {args.tp}: {e}")
+        if dist.get_rank() != 0:
+            log = lambda *a, **k: None    # noqa: E731  (rank 0 prints)
     cfg, model, ds, launches = _cnn(args) if is_cnn else _lm(args, ap)
     scfg = StepConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 20, 5),
-                      total_steps=args.steps, accum=args.accum)
+                      total_steps=args.steps, accum=args.accum,
+                      compress_grads=args.compress_grads)
     state = make_train_state(model, args.seed, dev)
-    out = train_loop(make_train_step(model, scfg), state, ds,
+    shardings = None
+    if mesh is not None:
+        with activate_mesh(mesh) as ctx:
+            specs = state_pspec(state, ctx)
+        state = place_state(state, specs, mesh)
+        if args.compress_grads:
+            state = add_ef(state, mesh)
+        shardings = (specs, mesh)
+    out = train_loop(make_train_step(model, scfg, mesh), state, ds,
                      TrainLoopConfig(total_steps=args.steps,
                                      ckpt_every=args.ckpt_every,
-                                     ckpt_dir=args.ckpt_dir))
+                                     ckpt_dir=args.ckpt_dir),
+                     state_shardings=shardings, log_fn=log)
+    if mesh is not None:
+        from repro_torch.distributed import compression
+        log(f"[train] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+            f"{', int8 gradients' if args.compress_grads else ''}: wire "
+            f"{compression.WIRE_BYTES} B on this rank (plain fp32 "
+            f"{compression.PLAIN_BYTES} B)")
+    _report(args, cfg, model, ds, out, dev, launches, is_cnn, log)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+
+
+def _report(args, cfg, model, ds, out, dev, launches, is_cnn, log) -> None:
+    """The summary line; exit 1 on a non-finite step; the integer lanes."""
+    print = log   # noqa: A001  (rank 0 prints)
     hist = out["history"]
     if out["resumed_from"] is not None:
         print(f"[train] resumed from step {out['resumed_from']}")
@@ -183,8 +231,9 @@ def main() -> None:
             print(f"[train] --{lane} ignored: LM arch has no {lane} conv "
                   "path")
             continue
-        _int_check(model, out["state"]["params"], ds.batch_at(0)["images"],
-                   dev, lane)
+        from repro_torch.distributed import gather_state
+        _int_check(model, gather_state(out["state"]["params"]),
+                   ds.batch_at(0)["images"], dev, lane)
 
 
 if __name__ == "__main__":

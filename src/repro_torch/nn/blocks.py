@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.engine.policy import ExecutionPolicy
 from repro_torch.nn.attention import (AttnLayout, KVCache, attention,
                                       init_attention, init_kv_cache,
@@ -158,8 +159,8 @@ def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cpu",
                      cross_len: int = 0) -> Params:
     """Decode caches, stacked over periods per slot: a KV cache of
-    ``max_len`` positions per attention slot (under ``spec.kv_key``; one
-    device holds the sequence-sharded cache whole, unrepeated, which at
+    ``max_len`` positions per attention slot (under ``spec.kv_key``; the
+    sequence-sharded cache holds the n_kv heads unrepeated, which at
     ``tp == 1`` is the plain cache), beside it on a cross-attention slot
     ``cross_kv``, a (k, v) tuple of (n_periods, batch, cross_len, kv_eff,
     D) that the prefill fills; a Mamba cache per mamba slot; slots
@@ -167,7 +168,8 @@ def init_stack_cache(spec: StackSpec, batch: int, max_len: int,
     cache: Params = {}
     for i, slot in enumerate(spec.slots):
         if slot.mixer == "attn":
-            kv = init_kv_cache(batch, max_len, spec.layout, dtype, device)
+            kv = init_kv_cache(batch, max_len, spec.layout, dtype, device,
+                               seqshard=bool(spec.kv_seqshard))
             cache[f"slot{i}"] = {spec.kv_key: KVCache(*(
                 t[None].expand((spec.n_periods,) + t.shape).clone()
                 for t in kv))}
@@ -278,9 +280,11 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
     are stacked anew, leaving the given ones untouched, and its cross-KV
     is written into the given ``cross_kv`` and returned as it is.
     """
+    on_mesh = is_dtensor(x)
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)[None].expand(
-            x.shape[:2])
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        if not on_mesh:   # on a mesh the one row broadcasts
+            positions = positions.expand(x.shape[:2])
     rope = (rope_angles(positions, spec.layout.head_dim, spec.rope_theta)
             if spec.layout is not None else None)
     # each stacked leaf unbound once: in training its gradient is then one
@@ -306,6 +310,11 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
         new_caches.append(nc)
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if on_mesh:
+            from torch.distributed.tensor import DTensor, Replicate
+            aux = DTensor.from_local(
+                aux, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                run_check=False)
     if cache is None:
         return x, None, aux
     if mode == "decode":  # every cache was written in place

@@ -49,10 +49,12 @@ def init_cnn(generator: Union[torch.Generator, int], cfg: CNNConfig,
              device="cuda", dtype=torch.float32) -> Params:
     """He-normal conv kernels, 1/sqrt(fan_in) FC kernels, zero biases,
     drawn from ``generator`` (a ``torch.Generator`` on ``device``, or an
-    int seed for one)."""
+    int seed for one; on the CPU for the ``meta`` device, which gives
+    shapes and dtypes only)."""
     dev = resolve_device(device)
     if isinstance(generator, int):
-        generator = torch.Generator(device=dev).manual_seed(generator)
+        generator = torch.Generator(
+            device="cpu" if dev.type == "meta" else dev).manual_seed(generator)
 
     def normal(shape, std):
         t = torch.randn(shape, generator=generator, device=dev,

@@ -15,6 +15,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (is_dtensor, replicated_call,
+                                              shard)
+
 Params = Dict[str, Any]
 
 
@@ -39,7 +42,44 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, *,
 
 
 def embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    return params["table"][ids]
+    table = params["table"]
+    if is_dtensor(table):
+        return shard(_embed_on_mesh(table, ids), "batch", "seq", "embed")
+    return table[ids]
+
+
+def _embed_on_mesh(table, ids):
+    """The lookup on DTensors, through ``local_map``: each rank looks up
+    the ids its rows of the table hold (zeros for the others), and the
+    partial rows sum over the axes that cut the vocab."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    ids_pl = [Shard(0) if p.is_shard(0) else Replicate()
+              for p in ids.placements] if is_dtensor(ids) else None
+    cut = [p.is_shard(0) for p in table.placements]
+    vpad = table.shape[0]
+    starts = []
+    for i, c in enumerate(cut):
+        starts.append((mesh.get_local_rank(i), mesh.size(i)) if c else None)
+
+    def look(tab, idl):
+        lo, rows = 0, vpad
+        for s in starts:         # the vocab rows this rank holds
+            if s is not None:
+                rows //= s[1]
+                lo = lo * s[1] + s[0]
+        lo *= rows
+        local = idl - lo
+        hit = (local >= 0) & (local < rows)
+        out = tab[torch.where(hit, local, torch.zeros_like(local))]
+        return out * hit[..., None].to(out.dtype)
+    out_pl = [Partial() if c else (i_pl if ids_pl is not None else
+                                   Replicate())
+              for c, i_pl in zip(cut, ids_pl or [Replicate()] * len(cut))]
+    return local_map(look, out_placements=out_pl,
+                     in_placements=(table.placements, ids_pl),
+                     redistribute_inputs=True)(table, ids)
 
 
 def embed_logits(params: Params, x: torch.Tensor, vocab: int,
@@ -50,7 +90,7 @@ def embed_logits(params: Params, x: torch.Tensor, vocab: int,
     logits = x.float() @ params["table"].float().T
     if keep_pad:
         return mask_pad_logits(logits, vocab)
-    return logits[..., :vocab]
+    return _drop_pad(logits, vocab)
 
 
 def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
@@ -68,13 +108,23 @@ def lm_head_logits(params: Params, x: torch.Tensor, vocab: int,
     logits = x.float() @ params["kernel"].float()
     if keep_pad:
         return mask_pad_logits(logits, vocab)
-    return logits[..., :vocab]
+    return _drop_pad(logits, vocab)
+
+
+def _drop_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    if logits.shape[-1] == vocab:
+        return logits
+    return replicated_call("drop_pad_logits", lambda t: t[..., :vocab],
+                           logits)
 
 
 def mask_pad_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     vpad = logits.shape[-1]
     if vpad == vocab:
         return logits
+    if is_dtensor(logits):
+        return replicated_call("mask_pad_logits",
+                               lambda t: mask_pad_logits(t, vocab), logits)
     mask = torch.arange(vpad, device=logits.device) < vocab
     return torch.where(mask, logits, torch.full((), -1e30, dtype=logits.dtype,
                                                 device=logits.device))
@@ -144,12 +194,15 @@ def mlp(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
         g = dense(params["w_gate"], x)
         u = dense(params["w_up"], x)
+        g = shard(g, "batch", "seq", "ff")
         act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
-        return dense(params["w_down"], act * u)
-    if kind == "gelu":
-        h = dense(params["w_in"], x)
-        return dense(params["w_out"], F.gelu(h, approximate="tanh"))
-    raise ValueError(kind)
+        out = dense(params["w_down"], act * u)
+    elif kind == "gelu":
+        h = shard(dense(params["w_in"], x), "batch", "seq", "ff")
+        out = dense(params["w_out"], F.gelu(h, approximate="tanh"))
+    else:
+        raise ValueError(kind)
+    return shard(out, "batch", "seq", "embed")
 
 
 # -- rotary ------------------------------------------------------------------

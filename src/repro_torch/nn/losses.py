@@ -17,14 +17,23 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import replicated_call
+
 NEG = -1e30
 
 
-def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """logits (B, S, V) any float; targets (B, S) int.  Mean CE, fp32."""
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.take_along_dim(logp, targets.long()[..., None], dim=-1)
-    return -ll[..., 0].mean()
+    return -torch.take_along_dim(logp, targets.long()[..., None],
+                                 dim=-1)[..., 0]
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logits (B, S, V) any float; targets (B, S) int.  Mean CE, fp32.
+    On DTensors the per-token CE runs on each rank's batch rows, the
+    vocab gathered (``REPLICATED_OPS["softmax_xent"]``)."""
+    return replicated_call("softmax_xent", _token_nll, logits,
+                           targets).mean()
 
 
 def _chunk_step(x: torch.Tensor, tab: torch.Tensor, targets: torch.Tensor,

@@ -15,12 +15,16 @@ headdim P, state S per head, G B/C groups (G divides H).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (REPLICATED_OPS, axis_rank,
+                                              is_dtensor, row_placements,
+                                              shard)
 from repro_torch.engine.policy import ExecutionPolicy
 from repro_torch.kernels.ops import trim_conv1d
 from repro_torch.nn.layers import Params, _normal, dense, init_dense
@@ -231,19 +235,35 @@ def mamba_mixer(params: Params, u: torch.Tensor, dims: MambaDims, *,
     window (no kernel, as in the JAX package) and one recurrent step; the
     new window and state are written into ``cache``'s tensors in place
     (the JAX step returns new ones) and ``cache`` itself is returned.
+
+    Training on a mesh (``u`` a DTensor) runs this same body: in_proj and
+    out_proj are DTensor products, ``shard()`` constrains the activations
+    at the JAX package's points (``nn/mamba.py:260, 280, 282``; no-ops on
+    one device), and the conv (:func:`_conv_block`) and the SSD
+    (:func:`_ssd_block`) run on every channel and head here and on each
+    rank's block through ``local_map`` there.  Prefill and decode on a
+    mesh: :func:`_mamba_serve_on_mesh`.
     """
+    on_mesh = is_dtensor(u)
+    if on_mesh and mode != "train":
+        return _mamba_serve_on_mesh(params, u, dims, mode=mode, cache=cache,
+                                    score_dtype=score_dtype, policy=policy)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r} not in train/prefill/decode")
     Bb, L, _ = u.shape
     d_in, gs = dims.d_inner, dims.n_groups * dims.d_state
     proj = dense(params["in_proj"], u)
+    if on_mesh:
+        proj = _gather_proj(proj)
     z, xBC, dt_raw = _split_proj(proj, dims)
     A = -torch.exp(params["A_log"].float())
-    dt = torch.logaddexp(dt_raw.float() + params["dt_bias"].float(),
-                         torch.zeros((), device=u.device))   # softplus
 
     new_cache = None
     if mode == "decode":
         if cache is None or L != 1:
             raise ValueError("decode takes one token and a cache")
+        dt = torch.logaddexp(dt_raw.float() + params["dt_bias"].float(),
+                             torch.zeros((), device=u.device))   # softplus
         window = torch.cat([cache.conv.to(xBC.dtype), xBC], dim=1)  # (B,K,CC)
         conv_out = torch.einsum("bkc,kc->bc", window.float(),
                                 params["conv1d"]["w"].float())
@@ -263,29 +283,172 @@ def mamba_mixer(params: Params, u: torch.Tensor, dims: MambaDims, *,
         cache.conv.copy_(window[:, 1:])
         cache.ssm.copy_(h_new)
         new_cache = cache
-    elif mode in ("train", "prefill"):
-        xBC_c = F.silu(trim_conv1d(xBC, params["conv1d"]["w"].to(xBC.dtype),
-                                   policy=policy))
-        x = xBC_c[..., :d_in].reshape(Bb, L, dims.n_heads, dims.headdim)
-        Bm = xBC_c[..., d_in:d_in + gs].reshape(Bb, L, dims.n_groups,
-                                                dims.d_state)
-        Cm = xBC_c[..., d_in + gs:].reshape(Bb, L, dims.n_groups,
-                                            dims.d_state)
-        y, h_last = ssd_chunked(x.float(), dt, A, Bm.float(), Cm.float(),
-                                params["D"], chunk=dims.chunk,
-                                score_dtype=score_dtype)
-        y = y.reshape(Bb, L, d_in).to(u.dtype)
+    else:
+        if mode == "prefill" and cache is None:
+            raise ValueError("prefill needs a cache to fill")
+        w = params["conv1d"]["w"]
+        args = (params["dt_bias"], A, params["D"])
+        if on_mesh:
+            xBC_c = _conv_on_mesh(xBC, w, policy)
+            xBC_c = shard(xBC_c, "batch", "seq", "d_inner")
+            y = _ssd_on_mesh(xBC_c, dt_raw, *args, dims=dims,
+                             score_dtype=score_dtype, dtype=u.dtype)
+        else:
+            xBC_c = _conv_block(xBC, w, lo=0, n=xBC.shape[-1], policy=policy)
+            y, h_last = _ssd_block(xBC_c, dt_raw, *args, dims=dims, h_lo=0,
+                                   h_n=dims.n_heads, g_lo=0,
+                                   g_n=dims.n_groups,
+                                   score_dtype=score_dtype, dtype=u.dtype)
         if mode == "prefill":
-            if cache is None:
-                raise ValueError("prefill needs a cache to fill")
             # trailing conv window of the raw (pre-activation) stream,
             # left-padded with zeros when L < d_conv - 1
             keep = dims.d_conv - 1
             tail = xBC[:, max(L - keep, 0):]
             tail = F.pad(tail, (0, 0, keep - tail.shape[1], 0))
             new_cache = MambaCache(tail.to(cache.conv.dtype), h_last)
-    else:
-        raise ValueError(f"mode {mode!r} not in train/prefill/decode")
 
     y = _gated_rmsnorm(params["ssm_norm"], y, z)
-    return dense(params["out_proj"], y), new_cache
+    y = shard(y, "batch", "seq", "d_inner")
+    out = dense(params["out_proj"], y)
+    return shard(out, "batch", "seq", "embed"), new_cache
+
+
+def _conv_block(xBC: torch.Tensor, w: torch.Tensor, *, lo: int, n: int,
+                policy) -> torch.Tensor:
+    """silu(the short conv) on conv channels [lo, lo + n) (every channel
+    on one device); ``w`` all the channels' taps or the block's."""
+    x = xBC[..., lo:lo + n]
+    if w.shape[-1] != n:
+        w = w[:, lo:lo + n]
+    return F.silu(trim_conv1d(x, w.to(x.dtype), policy=policy))
+
+
+def _ssd_block(xBC_c: torch.Tensor, dt_raw: torch.Tensor,
+               dt_bias: torch.Tensor, A: torch.Tensor, D: torch.Tensor, *,
+               dims: MambaDims, h_lo: int, h_n: int, g_lo: int, g_n: int,
+               score_dtype, dtype):
+    """The chunked SSD on heads [h_lo, h_lo + h_n) with the B/C groups
+    [g_lo, g_lo + g_n) they read (every head on one device), from the
+    activated conv output of every channel: (y (B, L, h_n P) in
+    ``dtype``, the terminal state)."""
+    Bb, L = xBC_c.shape[:2]
+    d_in, gs = dims.d_inner, dims.n_groups * dims.d_state
+    H, G, P = dims.n_heads, dims.n_groups, dims.headdim
+    heads = slice(h_lo, h_lo + h_n)
+    x = xBC_c[..., :d_in].reshape(Bb, L, H, P)[:, :, heads]
+    Bm = xBC_c[..., d_in:d_in + gs].reshape(Bb, L, G, dims.d_state)
+    Cm = xBC_c[..., d_in + gs:].reshape(Bb, L, G, dims.d_state)
+    Bm, Cm = Bm[:, :, g_lo:g_lo + g_n], Cm[:, :, g_lo:g_lo + g_n]
+    dt = torch.logaddexp(dt_raw[..., heads].float() + dt_bias[heads].float(),
+                         torch.zeros((), device=xBC_c.device))   # softplus
+    y, h_last = ssd_chunked(x.float(), dt, A[heads], Bm.float(), Cm.float(),
+                            D[heads], chunk=dims.chunk,
+                            score_dtype=score_dtype)
+    return y.reshape(Bb, L, h_n * P).to(dtype), h_last
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh
+# ---------------------------------------------------------------------------
+
+
+def _gather_proj(proj):
+    """in_proj's fused [z | xBC | dt] output gathered over "model" before
+    the split: its column shards do not follow the three parts
+    (``REPLICATED_OPS["mamba_in_proj_split"]``)."""
+    names = tuple(proj.device_mesh.mesh_dim_names)
+    if any(p.is_shard() for n, p in zip(names, proj.placements)
+           if n == "model"):
+        REPLICATED_OPS["mamba_in_proj_split"] += 1
+    return proj.redistribute(proj.device_mesh, row_placements(proj))
+
+
+def _replicated(mesh) -> list:
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * mesh.ndim
+
+
+def _conv_on_mesh(xBC, w, policy):
+    """:func:`_conv_block` through ``local_map`` on each rank's channels
+    (conv1d/w sharded on its channels, ``d_inner``, or sliced to them);
+    every channel on every rank where they do not divide the model axis
+    (``REPLICATED_OPS["mamba_conv1d"]``)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xBC.device_mesh
+    mi, m = axis_rank(mesh, "model")
+    cc = xBC.shape[-1]
+    split = cc % m == 0
+    if not split:
+        REPLICATED_OPS["mamba_conv1d"] += 1
+    rep = _replicated(mesh)
+    w_pl = rep
+    if split and tuple(w.placements) != tuple(rep):
+        w_pl = [Shard(1) if n == "model" else p for n, p in zip(
+            mesh.mesh_dim_names, rep)]
+    lo, n = (mi * cc // m, cc // m) if split else (0, cc)
+    fn = functools.partial(_conv_block, lo=lo, n=n, policy=policy)
+    return local_map(fn, out_placements=row_placements(
+        xBC, 2 if split else None),
+        in_placements=(row_placements(xBC), w_pl),
+        redistribute_inputs=True)(xBC, w)
+
+
+def _ssd_on_mesh(xBC_c, dt_raw, dt_bias, A, D, *, dims: MambaDims,
+                 score_dtype, dtype):
+    """:func:`_ssd_block` through ``local_map`` on each rank's heads, with
+    the B/C group those heads read; the output sharded on its heads.
+    Every head on every rank where heads or groups do not divide the
+    model axis (``REPLICATED_OPS["mamba_ssd_heads"]``)."""
+    from torch.distributed.tensor.experimental import local_map
+    mi, m = axis_rank(xBC_c.device_mesh, "model")
+    H, G = dims.n_heads, dims.n_groups
+    split = H % m == 0 and (G % m == 0 or m % G == 0)
+    if not split:
+        REPLICATED_OPS["mamba_ssd_heads"] += 1
+    h_n = H // m if split else H
+    h_lo = mi * h_n if split else 0
+    g_lo, g_n = (h_lo * G // H, max(G // m, 1)) if split else (0, G)
+
+    def fn(*args):
+        return _ssd_block(*args, dims=dims, h_lo=h_lo, h_n=h_n, g_lo=g_lo,
+                          g_n=g_n, score_dtype=score_dtype, dtype=dtype)[0]
+    rows, rep = row_placements(xBC_c), _replicated(xBC_c.device_mesh)
+    return local_map(fn, out_placements=row_placements(
+        xBC_c, 2 if split else None),
+        in_placements=(rows, rows, rep, rep, rep),
+        redistribute_inputs=True)(xBC_c, dt_raw, dt_bias, A, D)
+
+
+def _mamba_serve_on_mesh(params: Params, u, dims: MambaDims, *, mode: str,
+                         cache, score_dtype, policy):
+    """Prefill and decode on a mesh whose "model" axis has one rank: each
+    rank runs the one-device mixer on its batch rows (its local cache
+    written in place in decode), the params gathered whole.  A "model"
+    axis of more ranks would cut the cache's heads, which the one-device
+    mixer cannot write in place: refused (ROADMAP queue 1, item 10)."""
+    from torch.distributed.tensor import DTensor
+    _, model_ranks = axis_rank(u.device_mesh, "model")
+    if model_ranks > 1:
+        raise NotImplementedError(
+            f"the Mamba mixer's {mode} on a mesh with {model_ranks} ranks "
+            "on 'model' is not ported: ROADMAP queue 1, item 10")
+    if torch.is_grad_enabled():
+        raise RuntimeError(f"the Mamba mixer's {mode} on a mesh serves "
+                           "under torch.no_grad()")
+    from repro_torch.core.tree import tree_map
+    local = tree_map(lambda t: t.full_tensor() if is_dtensor(t) else t,
+                     params)
+    lc = None if cache is None else MambaCache(
+        *(t.to_local() if is_dtensor(t) else t for t in cache))
+    out, new = mamba_mixer(local, u.to_local(), dims, mode=mode, cache=lc,
+                           score_dtype=score_dtype, policy=policy)
+
+    def wrap(t, like):
+        return DTensor.from_local(t, like.device_mesh, like.placements,
+                                  run_check=False)
+    new_cache = None
+    if new is not None:
+        new_cache = cache if mode == "decode" else MambaCache(
+            *(wrap(t, c) for t, c in zip(new, cache)))
+    return wrap(out, u), new_cache

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.engine.policy import ExecutionPolicy, resolve_device
 from repro_torch.nn.attention import attn_layout
 from repro_torch.nn.blocks import (SlotSpec, StackSpec, _norm_fns,
@@ -156,10 +157,12 @@ class CausalLM:
         _, norm = _norm_fns(self.cfg.norm)
         x = norm(params["final_norm"], x)
         if self.cfg.tie_embeddings:
-            return embed_logits(params["embed"], x, self.cfg.vocab,
-                                keep_pad=keep_pad)
-        return lm_head_logits(params["lm_head"], x, self.cfg.vocab,
-                              keep_pad=keep_pad)
+            logits = embed_logits(params["embed"], x, self.cfg.vocab,
+                                  keep_pad=keep_pad)
+        else:
+            logits = lm_head_logits(params["lm_head"], x, self.cfg.vocab,
+                                    keep_pad=keep_pad)
+        return shard(logits, "batch", "seq", "vocab")
 
     # -- train -------------------------------------------------------------
     def forward(self, params: Params, tokens: torch.Tensor,
@@ -380,16 +383,16 @@ class EncDecLM:
 
 def build_model(cfg: ModelConfig, tp: int = 1,
                 policy: Optional[ExecutionPolicy] = None):
-    """The model for an LM config on one device (``tp == 1``):
-    ``EncDecLM`` for the ``encdec`` family, ``CausalLM`` for the others.
-    ``tp != 1`` raises NotImplementedError (ROADMAP queue 1, item 10)."""
+    """The model for an LM config: ``EncDecLM`` for the ``encdec``
+    family, ``CausalLM`` for the others.  ``tp`` is the model axis' size,
+    which sets the attention head layout (``nn/attention.py:attn_layout``:
+    KV heads repeated, q groups padded); the params do not depend on it.
+    """
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} ({cfg.name!r}): the LM "
                          f"families are {FAMILIES}")
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp}: the port runs on one device "
-                                  "(tensor parallelism is ROADMAP queue 1, "
-                                  "item 10)")
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
     if cfg.family == "encdec":
         return EncDecLM(cfg, tp, policy or ExecutionPolicy())
     return CausalLM(cfg, tp, policy or ExecutionPolicy())

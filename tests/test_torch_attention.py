@@ -20,10 +20,13 @@
   the sequence-sharded decode (``kv_seqshard``) on one device against
   JAX's ``seqshard_flash_decode`` without a mesh; cross-attention
   (``make_cross_kv`` and the layer over it) against JAX's; the
-  sequence-sharded decode across ranks refused.
+  sequence-sharded decode across a 2-rank gloo group (``nn/decode_attn.py``'s
+  multi-rank arm, each rank holding half the cache) against the same.
 - ``rope_angles`` / ``apply_rope``, the three MLP kinds and
   ``layernorm`` against JAX's.
 """
+import os
+import tempfile
 import zlib
 
 import jax
@@ -314,14 +317,16 @@ def test_attention_prefill_then_decode_matches_jax(layer):
             chunk_k=ck)
 
 
-def test_attention_unported_options_raise(layer, monkeypatch):
+def test_attention_unported_options_raise(layer):
     """Cross-attention builds and matches JAX: ``make_cross_kv`` of an
     11-frame encoder output, then the layer over it in each mode the
     decoder calls it in, outputs within LAYER_TOL, no cache returned.  The
     sequence-sharded decode runs on one device: prefill writes the
     unrepeated cache, and 3 decode steps (the last with a per-row
     kv_length) equal JAX's ``seqshard_flash_decode`` without a mesh,
-    outputs and caches; across ranks (a process group of 2) it raises."""
+    outputs and caches; and across ranks, a gloo group of 2 with each
+    rank's half of a 14-row cache, the same prefill and decode steps equal
+    JAX's, outputs and the caches put back together."""
     params_j, lay_j, params, lay, ck, _ = layer
     enc, xq = _x(2, 11, 7), _x(2, 5, 8)
     ckv_j = jattn.make_cross_kv(params_j, jnp.asarray(enc), lay_j)
@@ -376,12 +381,84 @@ def test_attention_unported_options_raise(layer, monkeypatch):
             cache_pos=p,
             kv_length=None if kvl is None else torch.from_numpy(kvl),
             chunk_k=ck, kv_seqshard="model")
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        tattn.attention(params, torch.from_numpy(x[:, :1].copy()), lay,
-                        positions=torch.full((B, 1), S), mode="decode",
-                        cache=cache, cache_pos=S, kv_seqshard="model")
+    # across two ranks: a 14-row cache, 7 rows a rank
+    S_max = 14
+    cache_j = jattn.init_kv_cache(B, S_max, lay_j, dtype=jnp.float32,
+                                  seqshard=True)
+    want, cache_j = jattn.attention(
+        params_j, jnp.asarray(x[:, :S]), lay_j, positions=jnp.asarray(pos),
+        mode="prefill", cache=cache_j, chunk_k=ck, kv_seqshard="model")
+    wants = [np.asarray(want)]
+    for i in range(3):
+        p = S + i
+        kvl = np.array([p + 1, p - 2], np.int32) if i == 2 else None
+        want, cache_j = jattn.attention(
+            params_j, jnp.asarray(x[:, p:p + 1]), lay_j,
+            positions=jnp.full((B, 1), p, jnp.int32), mode="decode",
+            cache=cache_j, cache_pos=jnp.int32(p),
+            kv_length=None if kvl is None else jnp.asarray(kvl),
+            chunk_k=ck, kv_seqshard="model")
+        wants.append(np.asarray(want))
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(os.path.join(d, "in.npz"), x=x, S=S, S_max=S_max, ck=ck,
+                 lay=np.array(tuple(lay)),
+                 **{f"{k}": np.asarray(v["kernel"])
+                    for k, v in params_j.items()})
+        torch.multiprocessing.spawn(_two_rank_seqshard, args=(d,), nprocs=2)
+        outs = [np.load(os.path.join(d, f"out{r}.npz")) for r in range(2)]
+    for i, want in enumerate(wants):
+        for o in outs:
+            np.testing.assert_allclose(o[f"o{i}"], want, **LAYER_TOL)
+    for j, c in enumerate(cache_j):
+        got = np.concatenate([o[f"c{j}"] for o in outs], axis=1)
+        np.testing.assert_allclose(got, np.asarray(c), **LAYER_TOL)
+
+
+def _two_rank_seqshard(rank: int, d: str) -> None:
+    """One rank of the two-rank sequence-sharded decode: a ("data",
+    "model") = (1, 2) gloo mesh, this rank's half of the cache, the
+    attention layer's prefill and 3 decode steps (the last with a per-row
+    kv_length); its outputs and cache half saved for the parent."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.sharding import activate_mesh
+    torch.set_num_threads(1)     # the two ranks share the CPU
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        d, "store"), rank=rank, world_size=2)
+    try:
+        z = np.load(os.path.join(d, "in.npz"))
+        x, S, S_max, ck = z["x"], int(z["S"]), int(z["S_max"]), int(z["ck"])
+        lay = tattn.AttnLayout(*(int(v) for v in z["lay"]))
+        params = {k: {"kernel": torch.from_numpy(z[k])}
+                  for k in ("q_proj", "k_proj", "v_proj", "o_proj")}
+        B = x.shape[0]
+        half = S_max // 2
+        cache = tattn.KVCache(*(torch.zeros(B, half, lay.n_kv, lay.head_dim)
+                                for _ in range(2)))
+        mesh = init_device_mesh("cpu", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        res = {}
+        with activate_mesh(mesh), torch.no_grad():
+            pos = np.broadcast_to(np.arange(S), (B, S))
+            out, cache = tattn.attention(
+                params, torch.from_numpy(x[:, :S].copy()), lay,
+                positions=torch.from_numpy(pos.copy()), mode="prefill",
+                cache=cache, chunk_k=ck, kv_seqshard="model")
+            res["o0"] = out.numpy()
+            for i in range(3):
+                p = S + i
+                kvl = np.array([p + 1, p - 2], np.int32) if i == 2 else None
+                out, cache = tattn.attention(
+                    params, torch.from_numpy(x[:, p:p + 1].copy()), lay,
+                    positions=torch.full((B, 1), p), mode="decode",
+                    cache=cache, cache_pos=p,
+                    kv_length=None if kvl is None else torch.from_numpy(kvl),
+                    chunk_k=ck, kv_seqshard="model")
+                res[f"o{i + 1}"] = out.numpy()
+        np.savez(os.path.join(d, f"out{rank}.npz"), c0=cache.k.numpy(),
+                 c1=cache.v.numpy(), **res)
+    finally:
+        dist.destroy_process_group()
 
 
 # -- layers -----------------------------------------------------------------

@@ -25,7 +25,11 @@ the LM kernels under autograd:
 the conv1d and flash ``autograd.Function``s' gradients equal plain
 autograd's bit for bit (one kernel launch counted), a smoke LM's train
 step on the kernels against the oracle's, and the SSD and matmul
-wrappers refusing inputs that need a gradient.
+wrappers refusing inputs that need a gradient.  And the distributed
+layer: kernel 5's partial entry against ``split_partials`` (bf16 over one
+and several splits, fp32), the sequence-sharded decode's merge across two
+spawned gloo ranks on the card, and the world-1 NCCL mesh step equal to
+the one-device step.
 
 ``CASES``/``make_inputs`` are shared with ``test_torch_conv2d.py``, which
 holds the same cases on the CPU against the JAX package.  On the card the
@@ -2241,3 +2245,243 @@ def test_ssd_and_matmul_refuse_a_gradient_on_card():
     assert ssd.LAUNCHES == before
     assert ssd.trim_ssd(x.detach(), dt, A, Bm, Cm, D, chunk=32).shape == \
         x.shape
+
+
+# -- the distributed layer on the card ----------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("Sk", [40, 2064, 5000])
+def test_flash_partial_entry_on_card(dtype, Sk):
+    """Kernel 5's partial entry (the split decode in bf16 over one, then
+    several splits; the fp32 lane) against ``split_partials`` over all
+    keys: the output within bf16's 4 x 2^-7 of each row's max (fp32:
+    2e-5), the row max and sum within 1e-5 (relative, rows with a visible
+    key); a row with none has l = 0 and o = 0; one launch counted apart
+    from the attention entry's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel runs on the card")
+    B, H, G, D = 4, 2, 7, 128
+    gen = torch.Generator(device="cpu").manual_seed(Sk)
+    q, k, v = (torch.randn(s, generator=gen).to("cuda", dtype) for s in (
+        (B, 1, H, G, D), (B, Sk, H, D), (B, Sk, H, D)))
+    kvl = torch.tensor([Sk, Sk // 2, 0, 7], dtype=torch.int32,
+                       device="cuda")
+    n0, p0 = fa_plan.LAUNCHES, fa_plan.PARTIAL_LAUNCHES
+    o, m, l = fa_plan.flash_attention_partial(q, k, v, kvl)
+    assert (fa_plan.LAUNCHES, fa_plan.PARTIAL_LAUNCHES) == (n0, p0 + 1)
+    if dtype == torch.bfloat16:   # one split at 40 keys, several above
+        assert (fa_plan.decode_splits(B, H, G, Sk)[0] == 1) == (Sk == 40)
+    uo, um, ul = fa_plan.split_partials(q, k, v, 0, Sk, causal=False,
+                                        kv_length=kvl)
+    want = uo / torch.clamp(ul, min=1e-20)[..., None]
+    vis = ul > 0
+    diff = (o.float() - want).abs()
+    if dtype == torch.bfloat16:
+        row = want.abs().amax(-1, keepdim=True)
+        assert bool((diff <= 4 * 2.0 ** -7 * row + 1e-6).all())
+    else:
+        assert float(diff.max()) <= 2e-5
+    assert float(((m - um).abs() * vis).max()) <= 1e-5 * float(
+        um[vis].abs().max())
+    assert float(((l - ul).abs() / ul.clamp(min=1e-20) * vis).max()) <= 1e-5
+    assert bool((l[~vis] == 0).all()) and bool((o[~vis] == 0).all())
+    if dtype == torch.bfloat16:   # more rows than one split-decode block
+        with pytest.raises(ValueError, match="split decode"):
+            fa_plan.flash_attention_partial(
+                q.expand(B, 3, H, G, D).contiguous(), k, v, kvl)
+
+
+def _seqshard_two_ranks(rank: int, d: str) -> None:
+    """One rank of the two-rank merge on the card (gloo, the card shared):
+    a ("data", "model") = (1, 2) mesh, its half of a bf16 and an fp32
+    cache, one decode step, the merged output and its cache half saved."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.nn.decode_attn import seqshard_flash_decode
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        d, "store"), rank=rank, world_size=2)
+    try:
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        z = np.load(os.path.join(d, "in.npz"))
+        out = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            t = {k: torch.from_numpy(z[k]).to("cuda", dtype)
+                 for k in ("q", "k", "v", "nk", "nv")}
+            half = t["k"].shape[1] // 2
+            lo = rank * half
+            kc = t["k"][:, lo:lo + half].clone()
+            vc = t["v"][:, lo:lo + half].clone()
+            before = fa_plan.PARTIAL_LAUNCHES
+            with activate_mesh(mesh):
+                o, kc, vc = seqshard_flash_decode(
+                    t["q"], kc, vc, t["nk"], t["nv"], int(z["pos"]),
+                    kv_length=torch.from_numpy(z["kvl"]).cuda())
+            name = str(dtype).replace("torch.", "")
+            out[f"{name}/o"] = o.float().cpu().numpy()
+            out[f"{name}/k"] = kc.float().cpu().numpy()
+            out[f"{name}/launches"] = fa_plan.PARTIAL_LAUNCHES - before
+        np.savez(os.path.join(d, f"out{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_seqshard_merge_across_two_ranks_on_card(tmp_path):
+    """Phase 23 at a small size: two spawned ranks over gloo on the one
+    card, each holding half of an unrepeated cache (B 3, 4 KV heads x G 2,
+    D 64, 2 x 160 positions; the token written at 200, owned by rank 1;
+    a kv_length per row), each launching the partial entry once: the
+    merged bf16 output within 2e-2 and 4 x 2^-7 of each row's max of the
+    one-device split decode, fp32 within 2e-5 of the plain oracle, the
+    cache halves equal to the reference's with the token written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel runs on the card")
+    rng = np.random.default_rng(23)
+    B, S, H, G, D, pos = 3, 320, 4, 2, 64, 200
+    ins = {"q": rng.standard_normal((B, 1, H * G, D)),
+           "k": rng.standard_normal((B, S, H, D)),
+           "v": rng.standard_normal((B, S, H, D)),
+           "nk": rng.standard_normal((B, 1, H, D)),
+           "nv": rng.standard_normal((B, 1, H, D))}
+    ins = {k: v.astype(np.float32) for k, v in ins.items()}
+    kvl = np.array([201, 150, 30], np.int32)
+    np.savez(tmp_path / "in.npz", pos=pos, kvl=kvl, **ins)
+    torch.multiprocessing.spawn(_seqshard_two_ranks, args=(str(tmp_path),),
+                                nprocs=2)
+    outs = [np.load(tmp_path / f"out{r}.npz") for r in range(2)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        t = {k: torch.from_numpy(v).to("cuda", dtype) for k, v in ins.items()}
+        t["k"][:, pos], t["v"][:, pos] = t["nk"][:, 0], t["nv"][:, 0]
+        qg = t["q"].reshape(B, 1, H, G, D)
+        kv = torch.from_numpy(kvl).cuda()
+        if dtype == torch.bfloat16:
+            want = fa_plan.flash_attention(qg, t["k"], t["v"], causal=False,
+                                           kv_length=kv)
+        else:
+            want = fa_plan.flash_attention_plain(qg, t["k"], t["v"],
+                                                 causal=False, kv_length=kv)
+        want = want.float().reshape(B, 1, H * G, D).cpu().numpy()
+        for r, o in enumerate(outs):
+            assert int(o[f"{name}/launches"]) == 1
+            diff = np.abs(o[f"{name}/o"] - want)
+            if dtype == torch.bfloat16:
+                row = np.abs(want).max(-1, keepdims=True)
+                assert diff.max() <= 2e-2
+                assert (diff <= 4 * 2.0 ** -7 * row).all()
+            else:
+                assert diff.max() <= 2e-5
+            ref_k = t["k"].float().cpu().numpy()[:, r * S // 2:
+                                                 (r + 1) * S // 2]
+            np.testing.assert_array_equal(o[f"{name}/k"], ref_k)
+
+
+def _world_one_step(rank: int, d: str) -> None:
+    """The world-1 NCCL mesh step against the one-device step on the card
+    (VGG-16's smoke shapes): losses and every new leaf saved."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import CNN_SMOKES
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import (StepConfig, activate_mesh,
+                                         gather_state, make_train_state,
+                                         make_train_step, place_state,
+                                         state_pspec)
+    from repro_torch.engine import plan_model
+    from repro_torch.launch.mesh import make_host_mesh
+
+    fp32_ieee()
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        d, "store"), rank=0, world_size=1)
+    try:
+        plan = plan_model(CNN_SMOKES["vgg16"], ExecutionPolicy("kernel"))
+        state = make_train_state(plan, 0, "cuda")
+        rng = np.random.default_rng(0)
+        batch = {"images": rng.normal(size=(4, 16, 16, 3)).astype(
+            np.float32), "labels": rng.integers(0, 10, (4,))}
+        scfg = StepConfig(warmup_steps=1, total_steps=10)
+        s1, m1 = make_train_step(plan, scfg)(state, batch)
+        mesh = make_host_mesh(model=1, device="cuda")
+        with activate_mesh(mesh) as ctx:
+            placed = place_state(state, state_pspec(state, ctx), mesh)
+        s2, m2 = make_train_step(plan, scfg, mesh)(placed, batch)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(s1), tree_leaves(gather_state(s2))))
+        np.savez(os.path.join(d, "out.npz"), same=same,
+                 losses=np.array([float(m1["loss"]), float(m2["loss"])]))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_world_one_nccl_step_equals_one_device_on_card(tmp_path):
+    """The mesh arm at world 1 on NCCL (a spawned process, so no process
+    group outlives the test): the same loss and every new leaf bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL and the kernels run on the "
+                    "card")
+    torch.multiprocessing.spawn(_world_one_step, args=(str(tmp_path),),
+                                nprocs=1)
+    r = np.load(tmp_path / "out.npz")
+    assert r["losses"][0] == r["losses"][1] and bool(r["same"])
+
+
+@pytest.mark.gpu
+def test_flash_takes_every_tp_layout_on_card():
+    """The TP head layout is another (H, G) for kernel 5: every g_eff of
+    every registered arch's full config at tp in {2, 4, 8, 16}, at every
+    head dim the kernel is built for, at a small batch and length, on
+    both bf16 paths (a 4-query causal prefill on the warpgroup path where
+    G x 4 > 16 rows, else the split decode; a one-token decode on the
+    split path) and the fp32 lane, against the plain version: bf16 within
+    4 x 2^-7 of each row's max, fp32 within 2e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel runs on the card")
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.nn.attention import attn_layout
+
+    fp32_ieee()
+    seen = set()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if not cfg.n_q:
+            continue
+        for tp in (2, 4, 8, 16):
+            seen.add(attn_layout(cfg.n_q, cfg.n_kv, cfg.head_dim,
+                                 tp).g_eff)
+    assert len(seen) >= 8
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    H = 2                           # a few KV heads suffice per (G, D)
+    for G, D in ((g, d) for g in sorted(seen) for d in fa_plan.HEAD_DIMS):
+        for dtype in (torch.bfloat16, torch.float32):
+            for Sq, causal in ((4, True), (1, False)):
+                q, k, v = (torch.randn(s, generator=gen).to("cuda", dtype)
+                           for s in ((2, Sq, H, G, D), (2, 80, H, D),
+                                     (2, 80, H, D)))
+                kvl = torch.tensor([80, 33], dtype=torch.int32,
+                                   device="cuda")
+                off = 80 - Sq
+                got = fa_plan.flash_attention(q, k, v, causal=causal,
+                                              q_offset=off, kv_length=kvl)
+                want = fa_plan.flash_attention_plain(
+                    q.float(), k.float(), v.float(), causal=causal,
+                    q_offset=off, kv_length=kvl)
+                diff = (got.float() - want).abs()
+                if dtype == torch.bfloat16:
+                    row = want.abs().amax(-1, keepdim=True)
+                    assert bool((diff <= 4 * 2.0 ** -7 * row + 1e-6).all()), \
+                        (H, G, D, Sq)
+                else:
+                    assert float(diff.max()) <= 2e-5, (H, G, D, Sq)

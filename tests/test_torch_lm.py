@@ -169,15 +169,20 @@ def test_unported_families_raise(arch):
 def test_build_model_refuses_unported_features(override):
     """Each feature this slice ports builds by what a config needs, not by
     its name, and matches JAX with that override on granite's smoke config
-    (``n_experts=4`` with ``top_k`` 2: every layer MoE); ``tp != 1``
-    still raises."""
+    (``n_experts=4`` with ``top_k`` 2: every layer MoE); ``tp=2`` builds
+    too (the TP head layout: KV heads repeated, q groups padded) and its
+    logits match ``tp=1``'s on the same params within TOL."""
     if "n_experts" in override:
         override = dict(override, top_k=2)
     cfg = get_smoke("granite-3-2b").with_overrides(**override)
     _assert_forward_matches_jax(
         cfg, jax_get_smoke("granite-3-2b").with_overrides(**override))
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        build_model(cfg, tp=2)
+    params = build_model(cfg).init(0, "cpu")
+    toks = torch.from_numpy(_tokens(2, 9, cfg.vocab, 6))
+    with torch.no_grad():
+        want = build_model(cfg).forward(params, toks)[0]
+        got = build_model(cfg, tp=2).forward(params, toks)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def _assert_forward_matches_jax(cfg, cfg_j):

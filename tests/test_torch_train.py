@@ -11,6 +11,7 @@ non-finite step skip, the loop and its resume from a checkpoint, and the
 launcher (both arms, ``--ckpt-dir`` resume on the CPU, the refusals of
 the distributed flags).
 """
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -29,6 +30,7 @@ from repro.distributed import make_train_step as jax_make_train_step
 from repro.distributed.trainer import StragglerMonitor as JaxMonitor
 from repro.engine import plan_model as jax_plan_model
 from repro_torch.configs import CNN_SMOKES
+from repro_torch.core.tree import tree_leaves
 from repro_torch.data.pipeline import SyntheticImageDataset
 from repro_torch.distributed import (StepConfig, StragglerMonitor,
                                      TrainLoopConfig, make_train_state,
@@ -173,10 +175,20 @@ def test_loop_and_straggler_monitor():
 
 
 def test_unported_options_raise():
+    """``compress_grads`` without a mesh is the plain step, as in the JAX
+    package (the int8 reduction is a mesh's): the same state and metrics
+    bit for bit; a mesh that is not a ``DeviceMesh`` is refused (the mesh
+    arm itself: ``tests/test_torch_distributed.py``)."""
     plan = plan_model(CFG, ExecutionPolicy())
-    with pytest.raises(NotImplementedError):
-        make_train_step(plan, StepConfig(compress_grads=True))
-    with pytest.raises(NotImplementedError):
+    state = make_train_state(plan, 0, "cpu")
+    batch = _dataset(SyntheticImageDataset).batch_at(0)
+    s1, m1 = make_train_step(plan, _scfg(StepConfig))(state, batch)
+    s2, m2 = make_train_step(plan, dataclasses.replace(
+        _scfg(StepConfig), compress_grads=True))(state, batch)
+    assert float(m1["loss"]) == float(m2["loss"])
+    for a, b in zip(tree_leaves(s1), tree_leaves(s2)):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(plan, StepConfig(), mesh=object())
 
 
@@ -234,13 +246,19 @@ def test_launcher_trains_on_cpu_and_refuses_a_missing_card(tmp_path):
         assert "[train] resumed from step 2" in proc.stdout
         assert "on cpu: steps 2-2" in proc.stdout
         assert sorted(os.listdir(tmp_path / args[1])) == ["step_2", "step_3"]
-    for bad in (smoke + ("--device", "cpu", "--tp", "2"),
-                smoke + ("--device", "cpu", "--compress-grads"),
-                lm + ("--tp", "2"),
-                ("--arch", "seamless-m4t-large-v2", "--smoke", "--device",
-                 "cpu")):
+    # the mesh arm alone, at world 1: --compress-grads trains on a (1, 1)
+    # gloo mesh; --tp 2 needs a world of 2 or more (torchrun's: the
+    # distributed tests) and is refused, as is the encdec arm
+    proc = _launch(*smoke, "--device", "cpu", "--compress-grads")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "int8 gradients" in proc.stdout
+    for bad, why in ((smoke + ("--device", "cpu", "--tp", "2"),
+                      "does not divide the world size 1"),
+                     (lm + ("--tp", "2"), "does not divide the world size 1"),
+                     (("--arch", "seamless-m4t-large-v2", "--smoke",
+                       "--device", "cpu"), "not ported")):
         proc = _launch(*bad)
-        assert proc.returncode == 2 and "not ported" in proc.stderr
+        assert proc.returncode == 2 and why in proc.stderr
     if torch.cuda.is_available():
         return                      # a card is present: cuda is usable
     proc = _launch(*smoke)
