@@ -352,9 +352,31 @@ Phases (any failure exits non-zero and prints no result line):
    collective gloo refuses fails the phase by name;
 24. the launcher: ``torchrun --nproc-per-node 1 -m
    repro_torch.launch.train --arch mamba2-130m --compress-grads --steps
-   4`` run from the script ends with finite losses (exit 0).
+   4`` run from the script ends with finite losses (exit 0);
+25. the encdec and moe mesh arms at world 1 (NCCL, a (1, 1) mesh, the
+   params and caches as DTensors by ``serve_shardings``, through the
+   serve launcher's ``MeshStep``): full-width seamless-m4t-large-v2 (4 x
+   4096 source frames + bos, the dry-run cell's cache) and
+   llama4-maverick's one period (18.5 B params; one device's logits
+   copied to the host first, the same params then placed), a prefill and
+   3 decode steps each, every logit bit-equal to one device's; flash
+   launched 72 times a prefill and 48 a step (seamless), once a layer
+   (llama4);
+26. the Mamba slot with its heads cut, across 2 ranks on the one card
+   over gloo, a (1, 2) mesh: full-width mamba2-130m (4 x 4096, 3 decode
+   steps) with the cache's heads and conv channels cut by
+   ``cache_pspec``, the weights whole on each rank, every collective a
+   c10d call; kernel 3 launched 24 times a prefill on each rank's
+   channels and none in decode; logits (in units of 2^-7 x each row's
+   max) no farther from the one-device bf16 serve than it lies from the
+   fp32 serve of the same params; kernel 3 timed at a rank's shape;
+27. the dry-run held against the card: ``run_cell`` for
+   seamless-m4t-large-v2 at a 4 x 4096 prefill cell on a fake world of 1
+   (fake CPU tensors): its argument bytes within 1% of the device memory
+   phase 25's params, cache and batch took; its flops over the measured
+   prefill as a share of the bf16 peak, logged.
 
-Phases 22-24 each log their time.
+Phases 22-27 each log their time.
 
 ``--distributed`` runs only phases 1-2 and then phases 22-24 (no result
 line).  ``--cards N`` runs only phases 1-2 and then the mesh arm across N
@@ -366,6 +388,15 @@ mamba2-130m at 4 x 1024 (plain and int8 gradients) on (N, 1), ms per
 step and wire bytes; llava-next-34b's decode layer with its cache cut N
 ways, within the bf16 row limit of the one-card split decode and timed
 against it.
+
+``--family-mesh`` runs only phases 1-2 and then phases 25-27 (no result
+line).  ``--cards N`` also serves llama4-maverick's one period with its
+128 experts cut over the "model" axis of the (N/2, 2) mesh (every param
+by ``param_pspec``), a prefill and 3 decode steps fed rank 0's one-card
+tokens: each row whose last position takes one card's top-1 expert
+within BF16_ROW_ULPS x 2^-7 of its max in rank 0's one-card logits, a
+row routed elsewhere only where one card's router had its top two
+experts within MOE_FLIP_MARGIN.
 
 ``--probe-families N`` runs only phases 1-2 and then phases 3i and 3e,
 N times over, each row logged as it ends (to place an intermittent
@@ -4987,12 +5018,456 @@ def phase_launcher(torch) -> None:
     log(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
 
 
+#: Phases 25-27 (the mesh arms of the moe, hybrid, vlm and encdec
+#: families, and the dry-run held against the card): decode steps after
+#: each prefill; the dry-run's seamless cell (name, kind, S, batch: 4 x
+#: 4096 source frames, as phase 18 serves them) and how far its argument
+#: bytes may lie from the card's allocation (the allocator's rounding)
+FAMILY_STEPS = 3
+DRYRUN_CELL = ("prefill_4k", "prefill", LM_PROMPT, LM_BATCH)
+DRYRUN_ARG_REL = 0.01
+#: phase 26: the ranks sharing the card over gloo on a (1, 2) mesh
+SPLIT_RANKS = 2
+
+
+def _family_run(torch, model, params, batch, cache, pos0, tokens=None,
+                mesh=None, counter="flash_attention", warm=True):
+    """A prefill and FAMILY_STEPS decode steps, one device or (``mesh``)
+    through the serve launcher's ``MeshStep``: each step's logits (copied
+    to the host after its timing), the greedy tokens fed (``tokens``, else
+    each step's argmax), the kernel's launches in the prefill and in each
+    step (``counter`` of :func:`_lm_counters`), ms of the prefill and of
+    each step (host clock around work ending in ``synchronize``).  With
+    ``warm``, an untimed prefill and step run first on the same cache (a
+    prefill rewrites every row a later step reads)."""
+    from repro_torch.distributed import make_decode_step, make_prefill_step
+    from repro_torch.launch.serve import MeshStep
+
+    kern = _lm_counters()[counter]
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    if mesh is not None:
+        prefill, decode = MeshStep(prefill, mesh), MeshStep(decode, mesh)
+    if warm:  # a first prefill and step, untimed, on the same cache
+        with torch.no_grad():
+            logits, cache = prefill(params, batch, cache)
+            decode(params, logits.argmax(-1), cache, pos0)
+        del logits
+    out = {"logits": [], "tokens": [], "launches": [], "ms": []}
+    for i in range(FAMILY_STEPS + 1):
+        kern.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if i == 0:
+                logits, cache = prefill(params, batch, cache)
+            else:
+                logits, cache = decode(params, tok, cache, pos0 + i - 1)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(kern.LAUNCHES)
+        out["logits"].append(logits.float().cpu())
+        tok = (tokens[i] if tokens is not None else logits.argmax(-1))
+        out["tokens"].append(tok)
+        del logits
+    return out, cache
+
+
+def _bit_equal(torch, one: dict, two: dict) -> tuple:
+    """(every step's logits equal, the largest |difference|)."""
+    pairs = list(zip(one["logits"], two["logits"]))
+    return (all(torch.equal(a, b) for a, b in pairs),
+            max(float((a - b).abs().max()) for a, b in pairs))
+
+
+def phase_family_world1(torch) -> dict:
+    """Phase 25: the encdec and moe mesh arms at world 1, NCCL, a (1, 1)
+    ("data", "model") ``DeviceMesh`` on cuda, the params and caches as
+    DTensors placed by ``serve_shardings`` (at world 1 every placement is
+    ``Replicate()``, sharing the tensors' storage).
+
+    - seamless-m4t-large-v2 at full width (bf16, seed-0 weights): the
+      launcher's encdec inputs (LM_BATCH x LM_PROMPT seeded source frames,
+      a bos) and the dry-run cell's cache (a self-KV of
+      ``specs.ENCDEC_PREFILL_TGT_BUF`` rows, a cross-KV of LM_PROMPT): a
+      prefill and FAMILY_STEPS decode steps on one device, then the same
+      (the same tokens fed) through ``MeshStep``: every logit equal bit
+      for bit; flash launched 72 times in each prefill (24 encoder, 24
+      self, 24 cross) and 48 in each step.  The device memory the params,
+      cache and batch took is returned for phase 27.
+    - llama4-maverick-400b-a17b's one period at full width (MOE_LAYERS
+      layers, 18.5 B params, the 128-expert MoE slot through the MoE mesh
+      arm) on the served batch (LM_BATCH x LM_PROMPT): one device's logits
+      copied to the host, the cache made anew, the same params placed (not
+      copied: two 37 GB copies do not fit beside the caches), then the
+      mesh run: every logit equal bit for bit; flash launched once a
+      layer.
+
+    Returns {"placed_bytes", "prefill_ms", "launches": {(arch, part):
+    n}}."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import _place_on_mesh
+    from repro_torch.launch.specs import ENCDEC_PREFILL_TGT_BUF
+    from repro_torch.nn.models import build_model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    res = {"launches": {}}
+    try:
+        mesh = make_host_mesh(model=1, device="cuda")
+        cfg = get_config(ENCDEC_ARCH)
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        params = model.init(0, dev)
+        batch, _, pos0 = _lm_inputs(torch, model, dev)
+        cache = model.init_cache(LM_BATCH, ENCDEC_PREFILL_TGT_BUF,
+                                 cross_len=LM_PROMPT, dtype=torch.bfloat16,
+                                 device=dev)
+        torch.cuda.synchronize()
+        res["placed_bytes"] = torch.cuda.memory_allocated(dev) - base
+        one, cache = _family_run(torch, model, params, batch, cache, pos0)
+        for t in tree_leaves(cache):
+            t.zero_()
+        before = torch.cuda.memory_allocated(dev)
+        p2, c2 = _place_on_mesh(model, params, cache, mesh)
+        grew = torch.cuda.memory_allocated(dev) - before
+        two, _ = _family_run(torch, model, p2, batch, c2, pos0,
+                             tokens=one["tokens"], mesh=mesh)
+        same, worst = _bit_equal(torch, one, two)
+        want = [cfg.n_enc_layers + 2 * cfg.n_layers] + \
+            [2 * cfg.n_layers] * FAMILY_STEPS
+        log(f"mesh world 1, {ENCDEC_ARCH} (encdec arm): prefill of "
+            f"{LM_BATCH} x {LM_PROMPT} source frames + bos and "
+            f"{FAMILY_STEPS} decode steps; logits "
+            f"{'bit-equal' if same else 'DIFFERENT'} to one device's "
+            f"(max |diff| {worst!r}); flash launches {two['launches']} "
+            f"(one device {one['launches']}); prefill {two['ms'][0]:.3f} ms "
+            f"on the mesh, {one['ms'][0]:.3f} ms on one device; decode "
+            f"steps {[round(v, 3) for v in two['ms'][1:]]} ms on the mesh, "
+            f"{[round(v, 3) for v in one['ms'][1:]]} on one device; the "
+            f"params, cache and batch took {res['placed_bytes']} B of "
+            f"device memory, placing them on the mesh {grew} B more")
+        if not same:
+            fail(f"mesh world 1 {ENCDEC_ARCH}: logits differ from one "
+                 f"device's by up to {worst!r}")
+        if two["launches"] != want or one["launches"] != want:
+            fail(f"mesh world 1 {ENCDEC_ARCH}: flash launches "
+                 f"{two['launches']} / {one['launches']}, expected {want}")
+        res["prefill_ms"] = (two["ms"][0], one["ms"][0])
+        res["launches"][(ENCDEC_ARCH, "prefill")] = two["launches"][0]
+        res["launches"][(ENCDEC_ARCH, "decode")] = sum(two["launches"][1:])
+        del params, cache, p2, c2, one, two
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # llama4-maverick's one period: the MoE mesh arm
+        mcfg = get_config(MOE_ARCH).with_overrides(n_layers=MOE_LAYERS)
+        model = build_model(mcfg)
+        t0 = time.perf_counter()
+        params = model.init(0, dev)
+        init_s = time.perf_counter() - t0
+        batch, make_cache, pos0 = _lm_inputs(torch, model, dev)
+        one, cache = _family_run(torch, model, params, batch, make_cache(),
+                                 pos0)
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        p2, c2 = _place_on_mesh(model, params, make_cache(), mesh)
+        grew = torch.cuda.memory_allocated(dev) - before
+        torch.cuda.reset_peak_memory_stats(dev)
+        two, _ = _family_run(torch, model, p2, batch, c2, pos0,
+                             tokens=one["tokens"], mesh=mesh)
+        peak = torch.cuda.max_memory_allocated(dev)
+        same, worst = _bit_equal(torch, one, two)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        log(f"mesh world 1, {MOE_ARCH} (moe arm; depth cut to one period, "
+            f"{MOE_LAYERS} layers, {n_params} params, init {init_s:.1f} s): "
+            f"prefill of {LM_BATCH} x {LM_PROMPT} and {FAMILY_STEPS} decode "
+            f"steps; logits {'bit-equal' if same else 'DIFFERENT'} to one "
+            f"device's, copied to the host first (max |diff| {worst!r}); "
+            f"flash launches {two['launches']}; prefill {two['ms'][0]:.3f} "
+            f"ms on the mesh, {one['ms'][0]:.3f} ms on one device; decode "
+            f"steps {[round(v, 3) for v in two['ms'][1:]]} ms on the mesh; "
+            f"placing on the mesh took {grew} B more (the params shared); "
+            f"peak {peak / 2**30:.3f} GiB in the mesh run")
+        if not same:
+            fail(f"mesh world 1 {MOE_ARCH}: logits differ from one device's "
+                 f"by up to {worst!r}")
+        want = [MOE_LAYERS] * (FAMILY_STEPS + 1)
+        if two["launches"] != want:
+            fail(f"mesh world 1 {MOE_ARCH}: flash launches "
+                 f"{two['launches']}, expected {want}")
+        res["launches"][(MOE_ARCH, "prefill")] = two["launches"][0]
+        res["launches"][(MOE_ARCH, "decode")] = sum(two["launches"][1:])
+        del params, p2, c2, one, two
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def _split_rank(rank: int, d: str) -> None:
+    """One of phase 26's ranks (a spawned process): gloo, the card shared;
+    writes what it measured, or the failure, under ``d``."""
+    import faulthandler
+    import json as _json
+    import os
+    import traceback
+
+    faulthandler.enable()
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method="file://" + os.path.join(
+            d, "store"), rank=rank, world_size=SPLIT_RANKS)
+        out = _split_work(torch, rank)
+    except Exception:                                # noqa: BLE001
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+            _json.dump(out, f)
+
+
+def _split_work(torch, rank: int) -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.distributed import activate_mesh, cache_pspec, \
+        place_state
+    from repro_torch.distributed.sharding import P, REPLICATED_OPS
+    from repro_torch.engine.policy import fp32_ieee
+    from repro_torch.nn.models import build_model
+
+    fp32_ieee()     # as the script's own process: bf16 GEMMs sum in fp32
+    dev = torch.device("cuda", 0)
+    mesh = init_device_mesh("cuda", (1, SPLIT_RANKS),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg, tp=SPLIT_RANKS)
+    params = model.init(0, dev)
+    batch, make_cache, pos0 = _lm_inputs(torch, model, dev)
+    one, _ = _family_run(torch, model, params, batch, make_cache(), pos0,
+                         counter="trim_conv1d")
+    cache = make_cache()
+    with activate_mesh(mesh) as ctx:
+        # the weights whole on each rank (no DTensor collective runs over
+        # gloo on the card); the cache cut by cache_pspec
+        p2 = place_state(params, tree_map(lambda _: P(), params), mesh)
+        c2 = place_state(cache, cache_pspec(cache, ctx), mesh)
+    del cache
+    local = {k: list(t.to_local().shape) for k, t in (
+        ("ssm", c2["slot0"]["mamba"].ssm), ("conv", c2["slot0"]["mamba"].conv))}
+    REPLICATED_OPS.clear()
+    two, c2 = _family_run(torch, model, p2, batch, c2, pos0,
+                          tokens=one["tokens"], mesh=mesh,
+                          counter="trim_conv1d")
+    rows = [_row_ulps(b, a) for a, b in zip(one["logits"], two["logits"])]
+    res = {"row_ulps": rows,
+           "max_abs": max(float((a - b).abs().max()) for a, b in zip(
+               one["logits"], two["logits"])),
+           "launches": two["launches"], "one_launches": one["launches"],
+           "ms": two["ms"], "one_ms": one["ms"], "cache_local": local,
+           "cache_global": {"ssm": list(c2["slot0"]["mamba"].ssm.shape),
+                            "conv": list(c2["slot0"]["mamba"].conv.shape)},
+           "replicated": sorted(REPLICATED_OPS)}
+    if rank == 0:
+        # the yardstick: the one-device bf16 serve against the fp32 serve
+        # of the same params and tokens
+        m32 = build_model(cfg.with_overrides(dtype=torch.float32),
+                          tp=SPLIT_RANKS)
+        b32, make32, _ = _lm_inputs(torch, m32, dev)
+        f32, _ = _family_run(torch, m32, tree_map(lambda t: t.float(),
+                                                  params), b32, make32(),
+                             pos0, tokens=one["tokens"],
+                             counter="trim_conv1d", warm=False)
+        res["bf16_row_ulps"] = [_row_ulps(a, b) for a, b in zip(
+            one["logits"], f32["logits"])]
+        res["mesh_f32_row_ulps"] = [_row_ulps(a, b) for a, b in zip(
+            two["logits"], f32["logits"])]
+        del f32
+        # kernel 3 at each rank's shape: half the conv channels
+        dims = model.spec.dims
+        CC = dims.conv_channels
+        gen = torch.Generator(device=dev).manual_seed(26)
+        x = torch.randn(LM_BATCH, LM_PROMPT, CC // SPLIT_RANKS,
+                        generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(dims.d_conv, CC // SPLIT_RANKS, generator=gen,
+                         device=dev) * dims.d_conv ** -0.5).to(torch.bfloat16)
+        from repro_torch.kernels.trim_conv1d import (trim_conv1d,
+                                                     trim_conv1d_plain)
+        got, want = trim_conv1d(x, w), trim_conv1d_plain(x, w)
+        row = _conv1d_row(torch, x, w, 20)
+        row["max_abs_err"] = float((got.float() - want.float()).abs().max())
+        row["shape"] = list(row["shape"])
+        res["conv_row"] = row
+    return res
+
+
+def phase_split_ranks(torch) -> dict:
+    """Phase 26: the Mamba slot's prefill and decode with the heads cut,
+    across SPLIT_RANKS ranks on the one card: ``torch.multiprocessing``
+    spawns them into a gloo group (NCCL refuses two ranks on one device)
+    and a ("data", "model") = (1, 2) ``DeviceMesh`` on cuda.  Each serves
+    full-width mamba2-130m (bf16, seed-0 weights, LM_BATCH x LM_PROMPT
+    tokens, FAMILY_STEPS decode steps fed the one-device run's tokens)
+    through ``MeshStep``, the weights whole on each rank and the cache cut
+    by ``cache_pspec`` (12 of the 24 SSD heads, 896 of the 1792 conv
+    channels a rank): each rank launches kernel 3 once a layer in the
+    prefill on its channels, gathers them with c10d, runs the SSD on its
+    heads, writes its cache shards in place and sums the row-parallel
+    out_proj over gloo.  Checked: kernel 3's launches (24 a prefill on
+    each rank, none in decode), the cache's local shards half the global,
+    and each step's logits no farther from the one-device bf16 serve (in
+    units of 2^-7 x each row's max|logit|) than that serve lies from the
+    fp32 serve of the same params and tokens: the partial sums are added
+    in another order, and at full width that reordering moves the
+    logits as far as bf16's own rounding does.  Kernel 3 is timed on rank 0 at a rank's shape
+    against its plain version and bound.  Returns rank 0's kernel row
+    with the launches of both ranks."""
+    import json as _json
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="split-")
+    mp.spawn(_split_rank, args=(d,), nprocs=SPLIT_RANKS)
+    ranks = []
+    for r in range(SPLIT_RANKS):
+        with open(f"{d}/rank{r}.json") as f:
+            ranks.append(_json.load(f))
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            fail(f"split ranks: rank {r} failed:\n{res['error']}")
+    r0 = ranks[0]
+    ulps = max(max(r["row_ulps"]) for r in ranks)
+    limit = max(r0["bf16_row_ulps"])
+    log(f"{LM_ARCH} across {SPLIT_RANKS} ranks (1, {SPLIT_RANKS}) on the "
+        f"card over gloo, the heads cut: logits within {ulps:.4g} x 2^-7 of "
+        f"each row's max (per step {[round(v, 4) for v in r0['row_ulps']]};"
+        f" max |diff| {r0['max_abs']!r}) of the one-device bf16 serve; the "
+        f"one-device bf16 serve itself within "
+        f"{[round(v, 4) for v in r0['bf16_row_ulps']]} of its fp32 serve, "
+        f"the mesh within {[round(v, 4) for v in r0['mesh_f32_row_ulps']]};"
+        f" conv1d "
+        f"launches {[r['launches'] for r in ranks]} by rank (one device "
+        f"{r0['one_launches']}); local cache shards {r0['cache_local']} of "
+        f"{r0['cache_global']}; gathered ops {r0['replicated']}; prefill "
+        f"{r0['ms'][0]:.3f} ms on rank 0 (gloo included), one device "
+        f"{r0['one_ms'][0]:.3f} ms; decode steps "
+        f"{[round(v, 3) for v in r0['ms'][1:]]} ms")
+    row = r0["conv_row"]
+    log(f"conv1d at a rank's shape {row['shape']}: ms {row['ms']:.4f} plain "
+        f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']}); max |kernel - plain| "
+        f"{row['max_abs_err']!r}")
+    from repro_torch.configs import get_config
+
+    L = get_config(LM_ARCH).n_layers
+    for r, res in enumerate(ranks):
+        if res["launches"] != [L] + [0] * FAMILY_STEPS:
+            fail(f"split ranks: rank {r} launched conv1d {res['launches']}, "
+                 f"expected {L} in the prefill and none in decode")
+    if ulps > limit:
+        fail(f"split ranks: logits {ulps:.4g} x 2^-7 of a row's max from "
+             f"the one-device bf16 serve, farther than that serve from its "
+             f"fp32 serve ({limit:.4g})")
+    g, loc = r0["cache_global"], r0["cache_local"]
+    # (periods, B, H, P, S) and (periods, B, K - 1, channels)
+    if loc["ssm"][2] * SPLIT_RANKS != g["ssm"][2] \
+            or loc["conv"][3] * SPLIT_RANKS != g["conv"][3]:
+        fail(f"split ranks: cache shards {loc} not half of {g}")
+    if row["max_abs_err"] != 0.0:
+        fail(f"split ranks: kernel 3 at a rank's shape differs from its "
+             f"plain version by {row['max_abs_err']!r}")
+    log(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return {**row, "launches": sum(r["launches"][0] for r in ranks)}
+
+
+def _row_ulps(got, want) -> float:
+    """max |got - want| over each row, in units of 2^-7 x the row's
+    max |want| (about one to two bf16 ulps of the row's largest value)."""
+    return float(((got - want).abs() / (want.abs().amax(-1, keepdim=True)
+                                        * 2.0 ** -7)).max())
+
+
+def phase_dryrun_card(torch, placed_bytes: int, prefill_ms) -> None:
+    """Phase 27: the dry-run held against the card.  ``run_cell`` on a
+    fake world of 1 (a one-process ``fake`` process group, a (1, 1) mesh
+    on fake CPU tensors; nothing on the card) for seamless-m4t-large-v2 at
+    DRYRUN_CELL: its ``argument_size_in_bytes`` (params, cache and batch,
+    from the placements) within DRYRUN_ARG_REL of the device memory phase
+    25's real params, cache and batch took; its calibrated flops over
+    phase 25's measured prefills (``prefill_ms``: the mesh's, one
+    device's), as a share of the bf16 peak, logged (not gated)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    dryrun._fake_world(1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rec = dryrun.run_cell(ENCDEC_ARCH, ShapeCell(*DRYRUN_CELL), False,
+                              mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    args_b = rec["memory"]["argument_size_in_bytes"]
+    rel = abs(args_b - placed_bytes) / placed_bytes
+    flops = rec["cost_calibrated"]["flops"]
+    share = [flops / (ms / 1e3) / PEAK_BF16 for ms in prefill_ms]
+    r = rec["roofline"]
+    log(f"dry-run {ENCDEC_ARCH} {DRYRUN_CELL[0]} on a fake world of 1: "
+        f"argument bytes {args_b!r} against {placed_bytes} B placed on the "
+        f"card (rel {rel:.3g}, limit {DRYRUN_ARG_REL}); peak "
+        f"{rec['memory']['peak_memory_in_bytes']!r} B modelled; flops "
+        f"{flops!r} (useful ratio {r['useful_flops_ratio']:.4f}, "
+        f"sharding propagation excluded: {rec['sharding_prop_excluded']}) "
+        f"over the measured prefill on the mesh {prefill_ms[0]:.3f} ms = "
+        f"{share[0]:.4f}, on one device {prefill_ms[1]:.3f} ms = "
+        f"{share[1]:.4f} of {PEAK_BF16:.3g} FLOP/s; the model's bound "
+        f"{r['step_time_bound_s'] * 1e3:.3f} ms ({r['dominant']}; its bytes "
+        f"are unfused, an upper bound); run "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if rel > DRYRUN_ARG_REL:
+        fail(f"dry-run: argument bytes {args_b!r} vs the card's "
+             f"{placed_bytes} (rel {rel:.3g} > {DRYRUN_ARG_REL})")
+    log(f"phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
 #: ``--cards N``: the mesh arm across N cards of one host (NCCL, one
 #: process a card): the smoke configs' (2, 2) steps held to one card's
 #: step (JAX's bounds: loss 1e-4, params 5e-3), and the full-width
 #: readings: VGG-16 at batch 8 and mamba2-130m at 4 x 1024 on (N, 1),
 #: llava's decode layer with its cache cut N ways
 CARDS_STEPS = 3
+#: ``--cards``' MoE check: the cut model adds its partial sums in another
+#: order, so a token whose router's top-1 and top-2 probabilities (of 128
+#: experts) lie within this of each other on one card may take the other
+#: expert; a token routed elsewhere at a wider margin fails
+MOE_FLIP_MARGIN = 1e-2
 
 
 def _cards_rank(rank: int, n: int, d: str, work: str = "cards") -> None:
@@ -5154,7 +5629,98 @@ def _cards_work(torch, dist, rank: int, n: int) -> dict:
         "arm_ms": arm_ms, "one_card_ms": one_ms}
     if not all(math.isfinite(v) for v in res[f"{LM_ARCH} int8"]["loss"]):
         raise RuntimeError(f"{LM_ARCH} int8: a non-finite loss")
+    del lay, params, t, p_d, x_d, cache, ref
+    res["moe"] = _cards_moe(torch, dist, rank, square)
     return res
+
+
+def _cards_moe(torch, dist, rank: int, mesh) -> dict:
+    """llama4-maverick's one period at full width with its 128 experts cut
+    over the "model" axis of ``mesh`` (the MoE mesh arm over NCCL, every
+    param placed by ``param_pspec``): a prefill and FAMILY_STEPS decode
+    steps fed rank 0's one-card tokens, against rank 0's one-card logits
+    (made first, the card's copy of the params then placed)."""
+    import gc as _gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _place_on_mesh
+    from repro_torch.nn.models import build_model
+
+    dev = torch.device("cuda", rank)
+    cfg = get_config(MOE_ARCH).with_overrides(n_layers=MOE_LAYERS)
+    model = build_model(cfg, tp=mesh.size(1))
+    params = model.init(0, dev)
+    batch, make_cache, pos0 = _lm_inputs(torch, model, dev)
+    toks = torch.zeros((FAMILY_STEPS + 1, LM_BATCH), dtype=torch.long,
+                       device=dev)
+    one = None
+    routes = {"one": [], "mesh": []}
+    if rank == 0:
+        with _route_spy(torch, routes["one"]):
+            one, _ = _family_run(torch, model, params, batch, make_cache(),
+                                 pos0)
+        toks.copy_(torch.stack(one["tokens"]))
+    dist.broadcast(toks, src=0)
+    _gc.collect()
+    torch.cuda.empty_cache()
+    p2, c2 = _place_on_mesh(model, params, make_cache(), mesh)
+    del params
+    _gc.collect()
+    torch.cuda.empty_cache()
+    w = p2["stack"]["slot1"]["moe"]["experts"]["w_gate"]
+    dist.barrier()
+    with _route_spy(torch, routes["mesh"]):
+        two, _ = _family_run(torch, model, p2, batch, c2, pos0,
+                             tokens=list(toks), mesh=mesh)
+    out = {"experts_local": list(w.to_local().shape),
+           "experts_global": list(w.shape), "ms": two["ms"],
+           "launches": two["launches"],
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    if one is not None:
+        # per step and row (this rank's rows: the first of the batch): the
+        # row ulps, whether the last position's top-1 expert is the
+        # one-card run's, and the one-card router's top-1 margin there
+        steps = FAMILY_STEPS + 1
+
+        def last(calls):     # each timed step's last MoE call
+            k = len(calls) // (steps + 2)     # + the warm prefill and step
+            return calls[-steps * k:][k - 1::k]
+        out["rows"] = []
+        for i, (a, b) in enumerate(zip(one["logits"], two["logits"])):
+            (e1, m1), (e2, _) = last(routes["one"])[i], \
+                last(routes["mesh"])[i]
+            for r in range(e2.shape[0]):
+                out["rows"].append({
+                    "step": i, "row": r,
+                    "ulps": _row_ulps(b[r:r + 1], a[r:r + 1]),
+                    "same_expert": bool(e1[r] == e2[r]),
+                    "margin": float(m1[r])})
+        out["one_ms"] = one["ms"]
+    return out
+
+
+@contextlib.contextmanager
+def _route_spy(torch, calls: list):
+    """Record, for each MoE call, the last position's top-1 expert of each
+    (local) batch row and its router's top-1 minus top-2 probability."""
+    from repro_torch.nn import moe as moe_mod
+
+    route = moe_mod._route
+
+    def spy(impl):
+        fn = route(impl)
+
+        def wrapped(x, probs, **kw):
+            top = torch.topk(probs[:, -1].float(), 2, dim=-1)
+            calls.append((top.indices[:, 0].cpu(),
+                          (top.values[:, 0] - top.values[:, 1]).cpu()))
+            return fn(x, probs, **kw)
+        return wrapped
+    moe_mod._route = spy
+    try:
+        yield
+    finally:
+        moe_mod._route = route
 
 
 def phase_cards(torch, n: int) -> None:
@@ -5185,6 +5751,10 @@ def phase_cards(torch, n: int) -> None:
         if "error" in res:
             fail(f"cards: rank {r} failed:\n{res['error']}")
     r0 = ranks[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    log(f"cards {n}: " + "; ".join(smi[:n]))
     for k, v in r0.items():
         log(f"cards {n}, {k}: {v}")
     for arch in ("granite-3-2b", "mamba2-130m", "vgg16"):
@@ -5195,10 +5765,22 @@ def phase_cards(torch, n: int) -> None:
     sq = r0["seqshard"]
     if sq["max_abs"] > 2e-2 or sq["row_ulps"] > BF16_ROW_ULPS:
         fail(f"cards: the decode merged across {n} cards: {sq}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    log(f"cards {n}: " + "; ".join(smi[:n]))
+    moe = r0["moe"]
+    flips = [r for r in moe["rows"] if not r["same_expert"]]
+    kept = [r for r in moe["rows"] if r["same_expert"]]
+    log(f"cards {n}, {MOE_ARCH}'s experts over 2 cards: rows whose last "
+        f"top-1 expert is one card's within "
+        f"{max(r['ulps'] for r in kept):.4g} x 2^-7 of the row's max; "
+        f"{len(flips)} of {len(moe['rows'])} rows routed elsewhere "
+        f"(one card's top-1 margin {[round(r['margin'], 6) for r in flips]}"
+        f", their logits {[round(r['ulps'], 2) for r in flips]} x 2^-7)")
+    if max(r["ulps"] for r in kept) > BF16_ROW_ULPS \
+            or any(r["margin"] > MOE_FLIP_MARGIN for r in flips) \
+            or moe["experts_local"][1] * 2 != moe["experts_global"][1]:
+        fail(f"cards: {MOE_ARCH}'s experts over 2 cards: {moe} (limits "
+             f"{BF16_ROW_ULPS} x 2^-7 of a row's max where the top-1 expert "
+             f"is one card's; a different expert only at a margin under "
+             f"{MOE_FLIP_MARGIN})")
     log(f"cards {n} took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -5430,6 +6012,10 @@ def main() -> None:
                     help="only trace VGG-16's step on one card and on an "
                     "(N, 1) mesh (torch.profiler): device idle share, host "
                     "ms in collectives and DTensor ops; no result line")
+    ap.add_argument("--family-mesh", action="store_true",
+                    help="only run phases 25-27 (the family mesh arms at "
+                    "world 1 and across 2 ranks, the dry-run against the "
+                    "card); no result line")
     ap.add_argument("--probe-families", type=int, metavar="N",
                     help="only run phases 3i and 3e, N times over, each "
                     "row logged as it ends; no result line")
@@ -5469,6 +6055,13 @@ def main() -> None:
     if args.probe_families:
         phase_probe_families(torch, args.probe_families, args.reps)
         log("stopping after the probe (--probe-families): no result line")
+        return
+    if args.family_mesh:
+        fam = phase_family_world1(torch)
+        phase_split_ranks(torch)
+        phase_dryrun_card(torch, fam["placed_bytes"], fam["prefill_ms"])
+        log(f"card: {card}")
+        log("stopping after phases 25-27 (--family-mesh): no result line")
         return
     rows = phase_kernels(torch, args.reps)
     brows = phase_backward(torch, args.reps, (1, TRAIN_BATCH))
@@ -5512,6 +6105,9 @@ def main() -> None:
     phase_mesh_world1(torch)
     seq_rows = phase_seqshard_ranks(torch)
     phase_launcher(torch)
+    fam_mesh = phase_family_world1(torch)
+    split_row = phase_split_ranks(torch)
+    phase_dryrun_card(torch, fam_mesh["placed_bytes"], fam_mesh["prefill_ms"])
     # the launches of each timed kind of call in the served runs, each
     # counted: the encoder's and the cross-attention's by role (the cross
     # rows: the prefill's and each replay's), llava's prefill's and
@@ -5675,7 +6271,32 @@ def main() -> None:
             "launches_in": "phase 23 (2 ranks, one call each)",
             **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}}
-           for name, r in seq_rows.items()]}))
+           for name, r in seq_rows.items()]
+        # the family mesh arms: kernel 5 in phase 25's mesh runs (timed by
+        # phase 3i's and 3h's rows at the same shapes), kernel 3 on each
+        # rank's channels in phase 26 (timed there at that shape)
+        + [{"name": f"flash_attention_bf16_{arch}_mesh_{part}",
+            "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES,
+            "launches": fam_mesh["launches"][(arch, part)],
+            "launches_in": f"phase 25 ({part}, the (1, 1) mesh)",
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}}
+           for arch, part, row in (
+               (ENCDEC_ARCH, "prefill",
+                fam_rows[(ENCDEC_ARCH, "encoder", "bfloat16")]),
+               (ENCDEC_ARCH, "decode",
+                fam_rows[(ENCDEC_ARCH, "cross", "bfloat16")]),
+               (MOE_ARCH, "prefill",
+                dim_rows[(MOE_ARCH, "prefill", "bfloat16")]),
+               (MOE_ARCH, "decode",
+                dim_rows[(MOE_ARCH, "decode", "bfloat16")]))]
+        + [{"name": "trim_conv1d_bf16_split_channels", "route": "cuda",
+            "source": CONV1D_SOURCE, "replaces": CONV1D_REPLACES,
+            "launches_in": f"phase 26 ({SPLIT_RANKS} ranks' prefills)",
+            **{k: split_row[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,6 +31,13 @@ _SMOKES = {m.CONFIG.name: m.SMOKE
 ARCH_IDS = tuple(sorted(REGISTRY))
 
 
+def shape_cells(cfg: ModelConfig):
+    """The ShapeCell list this architecture runs (long_500k gated on
+    subquadratic), as ``repro.configs.shape_cells``."""
+    by_name = {c.name: c for c in ALL_SHAPES}
+    return tuple(by_name[s] for s in cfg.shapes)
+
+
 def get_smoke(name: str, dtype=None) -> ModelConfig:
     """Reduced config of the same family, in fp32 unless ``dtype`` says
     otherwise (as ``repro.configs.get_smoke``)."""
@@ -42,5 +49,5 @@ __all__ = [
     "ALEXNET_SMOKE", "ALL_SHAPES", "ARCH_IDS", "CNN_REGISTRY", "CNN_SMOKES",
     "DECODE_32K", "LONG_500K", "ModelConfig", "PREFILL_32K", "REGISTRY",
     "ShapeCell", "TRAIN_4K", "VGG16_SMOKE", "get_config", "get_smoke",
-    "register",
+    "register", "shape_cells",
 ]

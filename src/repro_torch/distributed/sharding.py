@@ -84,6 +84,9 @@ REPLICATED_OP_NAMES = {
                    "before the FC head's flatten",
     "mask_pad_logits": "nn/layers.py: the padded vocab masked, gathered",
     "drop_pad_logits": "nn/layers.py: the padded vocab sliced, gathered",
+    "attention_split_heads": "nn/attention.py: a projection's output "
+                             "gathered where its heads do not divide the "
+                             "ranks that cut it",
     "attention_q_gather": "nn/attention.py: q gathered where its groups "
                           "are padded",
     "attention_kv_gather": "nn/attention.py: k/v gathered where KV heads "
@@ -100,6 +103,8 @@ REPLICATED_OP_NAMES = {
                     "channels do not divide the model axis",
     "mamba_ssd_heads": "nn/mamba.py: the SSD on every head where heads or "
                        "groups do not divide the model axis",
+    "moe_experts": "nn/moe.py: every expert on every rank where the "
+                   "experts do not divide the model axis",
 }
 
 

@@ -330,16 +330,18 @@ def _make_mesh_train_step(model, scfg: StepConfig, mesh) -> Callable:
         return out, new_ef
 
     def place_batch(batch, ctx):
+        """Each leaf cut over the DP axes (a DTensor passes as placed)."""
         spec = batch_pspec(batch, ctx)
-        return {k: distribute_tensor(v, mesh, to_placements(spec[k], mesh),
-                                     src_data_rank=None)
-                for k, v in batch.items()}
+        return {k: v if is_dtensor(v) else distribute_tensor(
+            v, mesh, to_placements(spec[k], mesh), src_data_rank=None)
+            for k, v in batch.items()}
 
     def train_step(state, batch):
         params, opt = state["params"], state["opt"]
         ef = state.get("ef")
         dev = tree_leaves(params)[0].to_local().device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = {k: v if is_dtensor(v) else torch.as_tensor(v, device=dev)
+                 for k, v in batch.items()}
         with activate_mesh(mesh) as ctx:
             if scfg.accum > 1:
                 n = scfg.accum

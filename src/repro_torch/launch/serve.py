@@ -239,7 +239,9 @@ def run_decode(decode: Callable, params, token: torch.Tensor, cache,
 class MeshStep:
     """A prefill or decode step on a mesh: its batch inputs placed by
     ``batch_pspec``, run eagerly under ``activate_mesh`` and
-    ``torch.no_grad``; the logits come back whole on every rank."""
+    ``torch.no_grad``; the logits come back whole on every rank, gathered
+    by c10d calls (``sharding.gather_local``), which also run between
+    ranks sharing a card over gloo."""
 
     def __init__(self, step: Callable, mesh):
         self.step, self.mesh = step, mesh
@@ -262,9 +264,11 @@ class MeshStep:
             inputs = {k: self._place(v) for k, v in inputs.items()}
         else:
             inputs = self._place(inputs)
+        from repro_torch.distributed.sharding import (gather_local,
+                                                      mesh_axis_names)
         with activate_mesh(self.mesh), torch.no_grad():
             logits, cache = self.step(params, inputs, cache, *rest)
-        return logits.full_tensor(), cache
+        return gather_local(logits, mesh_axis_names(self.mesh)), cache
 
 
 def _place_on_mesh(model, params, cache, mesh):

@@ -112,6 +112,19 @@ def init_attention(gen: torch.Generator, d_model: int, n_q: int, n_kv: int,
 # -- head layout --------------------------------------------------------------
 
 def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n d) -> (..., n, d).  On a mesh, a last dim cut over more
+    ranks than divide the n heads is gathered on those mesh dims first
+    (``REPLICATED_OPS["attention_split_heads"]``): DTensor cuts a head
+    dim only evenly."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        from repro_torch.distributed.sharding import REPLICATED_OPS
+        mesh, last = x.device_mesh, x.dim() - 1
+        pl = [Replicate() if p.is_shard(last) and n % mesh.size(i) else p
+              for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            REPLICATED_OPS["attention_split_heads"] += 1
+            x = x.redistribute(mesh, pl)
     return x.reshape(x.shape[:-1] + (n, d))
 
 
@@ -209,8 +222,11 @@ def attention(params: Params, x: torch.Tensor, lay: AttnLayout, *,
     if cross:
         k_raw, v_raw = cross_kv
     else:
-        k_raw = _split_heads(dense(params["k_proj"], x), lay.n_kv, D)
-        v_raw = _split_heads(dense(params["v_proj"], x), lay.n_kv, D)
+        # cut as q is (under FSDP the projection's rows may come out whole)
+        k_raw = shard(_split_heads(dense(params["k_proj"], x), lay.n_kv, D),
+                      "batch", "seq", "kv_heads", None)
+        v_raw = shard(_split_heads(dense(params["v_proj"], x), lay.n_kv, D),
+                      "batch", "seq", "kv_heads", None)
         cos, sin = rope if rope is not None else rope_angles(
             positions.to_local() if is_dtensor(positions) else positions, D,
             rope_theta)
@@ -313,16 +329,18 @@ def _batch_local(t, like):
 
 def _rope(q, k, cos, sin, like):
     """RoPE on q and k; under a mesh through ``local_map``, on each rank's
-    rows and heads (their batch and head shards kept, any other
-    gathered)."""
+    rows and heads: both cut over the batch as q is (k's projection may
+    come out with its rows whole, as from a weight cut over the data
+    axes under FSDP), their head shards kept, anything else gathered."""
     if not is_dtensor(q):
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     def rows_heads(t):
-        return [p if (p.is_shard(0) or p.is_shard(2)) else Replicate()
-                for p in t.placements]
+        return [Shard(0) if pq.is_shard(0) else
+                (p if p.is_shard(2) else Replicate())
+                for p, pq in zip(t.placements, q.placements)]
 
     def fn(ql, kl, c, s):
         return apply_rope(ql, c, s), apply_rope(kl, c, s)

@@ -17,7 +17,8 @@ and a cross-attention slot's ``cross_kv`` beside its ``kv``.  KV caches
 are written in place (see ``nn/attention.py``), and so is the cross-KV,
 by the prefill; the decode reads it and never recomputes it.  Mamba
 caches are written in place in decode; the prefill's Mamba caches are
-stacked anew.  Every MoE slot's aux loss is summed over the stack.
+stacked anew on one device and written in place on a mesh.  Every MoE
+slot's aux loss is summed over the stack.
 """
 from __future__ import annotations
 
@@ -277,8 +278,9 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
     given are written in place and returned as they are; in decode so are
     the Mamba caches, and the cache given is returned itself (a captured
     decode step replays on the same buffers); the prefill's Mamba caches
-    are stacked anew, leaving the given ones untouched, and its cross-KV
-    is written into the given ``cross_kv`` and returned as it is.
+    are stacked anew on one device, leaving the given ones untouched (on
+    a mesh written into them), and its cross-KV is written into the
+    given ``cross_kv`` and returned as it is.
     """
     on_mesh = is_dtensor(x)
     if positions is None:
@@ -319,7 +321,8 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
         return x, None, aux
     if mode == "decode":  # every cache was written in place
         return x, cache, aux
-    in_place = (spec.kv_key, "cross_kv")
+    # on a mesh the Mamba prefill writes the given caches' shards too
+    in_place = (spec.kv_key, "cross_kv") + (("mamba",) if on_mesh else ())
     return x, {slot: {key: (val if key in in_place else tree_map(
         lambda *cs: torch.stack(cs), *[nc[slot][key] for nc in new_caches]))
         for key, val in c.items()} for slot, c in cache.items()}, aux

@@ -51,13 +51,17 @@ def embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
 def _embed_on_mesh(table, ids):
     """The lookup on DTensors, through ``local_map``: each rank looks up
     the ids its rows of the table hold (zeros for the others), and the
-    partial rows sum over the axes that cut the vocab."""
+    partial rows sum over the axes that cut the vocab (every id on each
+    of their ranks).  A table cut on its embed dim (FSDP) is gathered on
+    it first."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = table.device_mesh
-    ids_pl = [Shard(0) if p.is_shard(0) else Replicate()
-              for p in ids.placements] if is_dtensor(ids) else None
-    cut = [p.is_shard(0) for p in table.placements]
+    tab_pl = [p if p.is_shard(0) else Replicate() for p in table.placements]
+    cut = [p.is_shard(0) for p in tab_pl]
+    ids_pl = [Shard(0) if p.is_shard(0) and not c else Replicate()
+              for p, c in zip(ids.placements, cut)] \
+        if is_dtensor(ids) else None
     vpad = table.shape[0]
     starts = []
     for i, c in enumerate(cut):
@@ -78,7 +82,7 @@ def _embed_on_mesh(table, ids):
                                    Replicate())
               for c, i_pl in zip(cut, ids_pl or [Replicate()] * len(cut))]
     return local_map(look, out_placements=out_pl,
-                     in_placements=(table.placements, ids_pl),
+                     in_placements=(tab_pl, ids_pl),
                      redistribute_inputs=True)(table, ids)
 
 

@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (REPLICATED_OPS, axis_rank,
-                                              is_dtensor, row_placements,
-                                              shard)
+                                              gather_local, is_dtensor,
+                                              mesh_axis_names,
+                                              row_placements, shard)
 from repro_torch.engine.policy import ExecutionPolicy
 from repro_torch.kernels.ops import trim_conv1d
 from repro_torch.nn.layers import Params, _normal, dense, init_dense
@@ -242,7 +243,8 @@ def mamba_mixer(params: Params, u: torch.Tensor, dims: MambaDims, *,
     one device), and the conv (:func:`_conv_block`) and the SSD
     (:func:`_ssd_block`) run on every channel and head here and on each
     rank's block through ``local_map`` there.  Prefill and decode on a
-    mesh: :func:`_mamba_serve_on_mesh`.
+    mesh: :func:`_mamba_serve_on_mesh` (each rank's channels and heads
+    where the "model" axis has more than one rank).
     """
     on_mesh = is_dtensor(u)
     if on_mesh and mode != "train":
@@ -319,7 +321,7 @@ def _conv_block(xBC: torch.Tensor, w: torch.Tensor, *, lo: int, n: int,
     on one device); ``w`` all the channels' taps or the block's."""
     x = xBC[..., lo:lo + n]
     if w.shape[-1] != n:
-        w = w[:, lo:lo + n]
+        w = w[:, lo:lo + n].contiguous()    # the kernel takes a dense w
     return F.silu(trim_conv1d(x, w.to(x.dtype), policy=policy))
 
 
@@ -422,33 +424,151 @@ def _ssd_on_mesh(xBC_c, dt_raw, dt_bias, A, D, *, dims: MambaDims,
 
 def _mamba_serve_on_mesh(params: Params, u, dims: MambaDims, *, mode: str,
                          cache, score_dtype, policy):
-    """Prefill and decode on a mesh whose "model" axis has one rank: each
-    rank runs the one-device mixer on its batch rows (its local cache
-    written in place in decode), the params gathered whole.  A "model"
-    axis of more ranks would cut the cache's heads, which the one-device
-    mixer cannot write in place: refused (ROADMAP queue 1, item 10)."""
-    from torch.distributed.tensor import DTensor
-    _, model_ranks = axis_rank(u.device_mesh, "model")
-    if model_ranks > 1:
-        raise NotImplementedError(
-            f"the Mamba mixer's {mode} on a mesh with {model_ranks} ranks "
-            "on 'model' is not ported: ROADMAP queue 1, item 10")
+    """Prefill and decode on a mesh, each rank on its batch rows, the cache
+    given written in place (its DTensors' local shards) and returned.
+
+    Where the "model" axis has one rank, each rank runs the one-device
+    mixer on its rows (the params gathered whole): bit for bit the one
+    device's.  Otherwise :func:`_serve_cut` runs each rank's channels and
+    heads."""
     if torch.is_grad_enabled():
         raise RuntimeError(f"the Mamba mixer's {mode} on a mesh serves "
                            "under torch.no_grad()")
-    from repro_torch.core.tree import tree_map
-    local = tree_map(lambda t: t.full_tensor() if is_dtensor(t) else t,
-                     params)
-    lc = None if cache is None else MambaCache(
-        *(t.to_local() if is_dtensor(t) else t for t in cache))
-    out, new = mamba_mixer(local, u.to_local(), dims, mode=mode, cache=lc,
-                           score_dtype=score_dtype, policy=policy)
+    if mode not in ("prefill", "decode") or cache is None:
+        raise ValueError(f"serving on a mesh takes prefill or decode and a "
+                         f"cache, not {mode!r}")
+    from torch.distributed.tensor import DTensor
+    _, model_ranks = axis_rank(u.device_mesh, "model")
+    lc = MambaCache(*(t.to_local() if is_dtensor(t) else t for t in cache))
+    if model_ranks > 1:
+        out = _serve_cut(params, u, dims, mode=mode, cache=lc,
+                         score_dtype=score_dtype, policy=policy)
+    else:
+        from repro_torch.core.tree import tree_map
+        local = tree_map(lambda t: t.full_tensor() if is_dtensor(t) else t,
+                         params)
+        out, new = mamba_mixer(local, u.to_local(), dims, mode=mode,
+                               cache=lc, score_dtype=score_dtype,
+                               policy=policy)
+        if mode == "prefill":
+            lc.conv.copy_(new.conv)
+            lc.ssm.copy_(new.ssm)
+    return DTensor.from_local(out, u.device_mesh, row_placements(u),
+                              run_check=False), cache
 
-    def wrap(t, like):
-        return DTensor.from_local(t, like.device_mesh, like.placements,
-                                  run_check=False)
-    new_cache = None
-    if new is not None:
-        new_cache = cache if mode == "decode" else MambaCache(
-            *(wrap(t, c) for t, c in zip(new, cache)))
-    return wrap(out, u), new_cache
+
+def _model_gather(t: torch.Tensor, dim: int, like) -> torch.Tensor:
+    """This rank's block ``t`` of a dim cut over "model", joined with the
+    other ranks' blocks (``gather_local``: c10d), the rows kept as
+    ``like``'s."""
+    from torch.distributed.tensor import DTensor
+    return gather_local(DTensor.from_local(
+        t, like.device_mesh, row_placements(like, dim), run_check=False))
+
+
+def _serve_cut(params: Params, u, dims: MambaDims, *, mode: str,
+               cache: MambaCache, score_dtype, policy) -> torch.Tensor:
+    """A Mamba prefill or decode step with the "model" axis' m ranks each
+    on its block of conv channels and of heads, as ``cache_pspec`` cuts the
+    cache (``cache``: this rank's local shards, written in place).  Every
+    collective is a c10d call on the "model" group (two ranks sharing a
+    card over gloo cannot take DTensor's functional ones).
+
+    - in_proj is the DTensor product; its fused [z | xBC | dt] output is
+      gathered whole before the split (``mamba_in_proj_split``).
+    - The conv (kernel 3 in prefill; the fp32 window sum in decode) runs
+      on the rank's channels, which its conv cache holds, and writes that
+      window; the activated channels are gathered over "model".
+    - The SSD runs on the rank's heads with the B/C groups they read,
+      from (decode) and into its state cache's heads.
+    - The gated norm and the row-parallel out_proj: each rank's y and z
+      heads, the squares' sum and the fp32 partial products summed over
+      "model", so the output differs from one device's by the order of
+      those sums.
+
+    Where channels or heads do not divide the axis every rank runs them
+    all (``mamba_conv1d``, ``mamba_ssd_heads``), the cache's slice written
+    from them, the states gathered first in decode."""
+    import torch.distributed as dist
+    mesh = u.device_mesh
+    names = mesh_axis_names(mesh)
+    md = names.index("model")
+    grp, mi, m = mesh.get_group(md), mesh.get_local_rank(md), mesh.size(md)
+    whole = functools.partial(gather_local, gather=names)
+    # rows cut as u's (an in_proj cut over the data axes, FSDP, may give
+    # them whole)
+    proj = shard(dense(params["in_proj"], u), "batch", "seq", "d_inner")
+    if proj.placements[md].is_shard():
+        REPLICATED_OPS["mamba_in_proj_split"] += 1
+    # this rank's rows, every column, channels dense (kernel 3 reads them
+    # so; the gather leaves them strided)
+    proj = gather_local(proj).contiguous()
+    Bb, L, _ = proj.shape
+    z, xBC, dt_raw = _split_proj(proj, dims)
+    d_in, gs = dims.d_inner, dims.n_groups * dims.d_state
+    H, G, P = dims.n_heads, dims.n_groups, dims.headdim
+    CC = dims.conv_channels
+    w = whole(params["conv1d"]["w"])
+    A = -torch.exp(whole(params["A_log"]).float())
+    dt_bias, Dp = whole(params["dt_bias"]), whole(params["D"])
+    # the cache's blocks: a cut dim holds 1/m of its channels or heads
+    c_n, h_n = cache.conv.shape[-1], cache.ssm.shape[1]
+    c_lo = mi * c_n if c_n < CC else 0
+    h_lo = mi * h_n if h_n < H else 0
+    conv_cut = c_n < CC
+    if not conv_cut:
+        REPLICATED_OPS["mamba_conv1d"] += 1
+    ssd_cut = h_n < H and (G % m == 0 or m % G == 0)
+    if not ssd_cut:
+        REPLICATED_OPS["mamba_ssd_heads"] += 1
+    blk = slice(c_lo, c_lo + c_n)
+    if mode == "decode":
+        window = torch.cat([cache.conv.to(xBC.dtype), xBC[..., blk]], dim=1)
+        conv_out = torch.einsum("bkc,kc->bc", window.float(),
+                                w[:, blk].float())
+        xc = F.silu(conv_out.to(xBC.dtype))[:, None]
+        cache.conv.copy_(window[:, 1:])
+    else:
+        xc = _conv_block(xBC, w, lo=c_lo, n=c_n, policy=policy)
+        keep = dims.d_conv - 1
+        tail = xBC[:, max(L - keep, 0):, blk]
+        cache.conv.copy_(F.pad(tail, (0, 0, keep - tail.shape[1], 0)))
+    if conv_cut:
+        xc = _model_gather(xc, 2, u)                  # every channel
+    # the SSD on the rank's heads (or every head), its state written
+    s_lo, s_n = (h_lo, h_n) if ssd_cut else (0, H)
+    g_lo, g_n = (s_lo * G // H, max(G * s_n // H, 1)) if ssd_cut else (0, G)
+    heads = slice(s_lo, s_lo + s_n)
+    if mode == "decode":
+        dt = torch.logaddexp(dt_raw[:, 0, heads].float()
+                             + dt_bias[heads].float(),
+                             torch.zeros((), device=xc.device))
+        x = xc[:, 0, :d_in].reshape(Bb, H, P)[:, heads]
+        Bm = xc[:, 0, d_in:d_in + gs].reshape(Bb, G, dims.d_state)
+        Cm = xc[:, 0, d_in + gs:].reshape(Bb, G, dims.d_state)
+        h0 = cache.ssm if ssd_cut or h_n == H else _model_gather(
+            cache.ssm, 1, u)
+        y, h_new = ssd_decode_step(
+            h0, x.float(), dt, A[heads], Bm[:, g_lo:g_lo + g_n].float(),
+            Cm[:, g_lo:g_lo + g_n].float(), Dp[heads])
+        y = y.reshape(Bb, 1, s_n * P).to(u.dtype)
+    else:
+        y, h_new = _ssd_block(xc, dt_raw, dt_bias, A, Dp, dims=dims,
+                              h_lo=s_lo, h_n=s_n, g_lo=g_lo, g_n=g_n,
+                              score_dtype=score_dtype, dtype=u.dtype)
+    cache.ssm.copy_(h_new if ssd_cut or h_n == H
+                    else h_new[:, h_lo:h_lo + h_n])
+    # the gated norm over d_inner and the row-parallel out_proj
+    cols = slice(s_lo * P, (s_lo + s_n) * P)
+    yf = y.float() * F.silu(z[..., cols].float())
+    ss = (yf * yf).sum(dim=-1, keepdim=True)
+    if ssd_cut:
+        dist.all_reduce(ss, group=grp)
+    scale = whole(params["ssm_norm"]["scale"])[cols]
+    yn = (yf * torch.rsqrt(ss / d_in + 1e-5) * scale.float()).to(u.dtype)
+    w_out = whole(params["out_proj"]["kernel"])[cols]
+    if not ssd_cut:
+        return dense({"kernel": w_out}, yn)
+    part = yn.float() @ w_out.float()
+    dist.all_reduce(part, group=grp)
+    return part.to(u.dtype)

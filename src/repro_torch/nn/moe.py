@@ -40,6 +40,9 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (REPLICATED_OPS, axis_rank,
+                                              is_dtensor, mesh_axis_names,
+                                              row_placements, shard)
 from repro_torch.nn.layers import Params, _normal, init_mlp, mlp
 
 #: None, or a list each call appends its dropped slots to (a device tensor)
@@ -124,15 +127,16 @@ def _topk_dispatch(gates: torch.Tensor, k: int, capacity: int
     return dispatch, combine
 
 
-def _gather_dispatch_moe(params: Params, x: torch.Tensor, probs: torch.Tensor,
-                         *, top_k: int, capacity: int, mlp_kind: str,
-                         renorm: bool) -> torch.Tensor:
-    """Sort/gather dispatch (no (B, S, E, C) one-hot tensor): each row's
-    S * top_k (token, choice) slots, rounds-major (j = round * S + s, so
-    round-0 choices claim capacity first, in token order), stably sorted
-    by expert; a slot's rank in its expert's queue decides whether it is
-    kept; x's rows are gathered into the (E, B, cap, d) queues, and the
-    expert outputs gathered back and weighted by their gates."""
+def _gather_route(x: torch.Tensor, probs: torch.Tensor, *, top_k: int,
+                  capacity: int, renorm: bool):
+    """The sort/gather dispatch (no (B, S, E, C) one-hot tensor): each
+    row's S * top_k (token, choice) slots, rounds-major (j = round * S + s,
+    so round-0 choices claim capacity first, in token order), stably
+    sorted by expert; a slot's rank in its expert's queue decides whether
+    it is kept, and x's rows are gathered into the (E, B, cap, d) queues.
+    Returns (xin, (slot, order, wts): where each slot's output is read
+    from, the permutation back to (round, token) order, and each slot's
+    gate (0 where dropped)), the dropped slots (a 0-d tensor))."""
     B, S, d = x.shape
     E = probs.shape[-1]
     dev = x.device
@@ -154,8 +158,6 @@ def _gather_dispatch_moe(params: Params, x: torch.Tensor, probs: torch.Tensor,
             - torch.take_along_dim(starts, sorted_exp, dim=1))
     keep = rank < capacity
     slot = torch.where(keep, sorted_exp * capacity + rank, E * capacity)
-    if DROPPED is not None:
-        DROPPED.append((~keep).sum())
     # slot -> token map, then a gather of x's rows; the extra slot E * cap
     # takes every dropped slot's write and is sliced off
     slot_tok = torch.full((B, E * capacity + 1), S, dtype=torch.long,
@@ -163,20 +165,71 @@ def _gather_dispatch_moe(params: Params, x: torch.Tensor, probs: torch.Tensor,
     x_pad = F.pad(x, (0, 0, 0, 1))                        # zero row at S
     xin = torch.take_along_dim(x_pad, slot_tok[..., None], dim=1)
     xin = xin.reshape(B, E, capacity, d).transpose(0, 1)   # (E, B, cap, d)
-    eout = _experts(params["experts"], xin, mlp_kind)
+    gs = torch.take_along_dim(gates_flat, order, dim=1)
+    wts = torch.where(keep, gs, 0.0)
+    return xin, (slot, order, wts), (~keep).sum()
+
+
+def _gather_combine(eout: torch.Tensor, slot: torch.Tensor,
+                    order: torch.Tensor, wts: torch.Tensor, *, top_k: int,
+                    dtype) -> torch.Tensor:
+    """The expert outputs (E, B, cap, d) gathered back to their slots,
+    weighted by their gates; every slot put back at its (round, token)
+    place, which is a permutation (no two writes collide), then the rounds
+    summed in order."""
+    E, B, capacity, d = eout.shape
+    S = slot.shape[1] // top_k
     eout = eout.transpose(0, 1).reshape(B, E * capacity, d)
     eout = F.pad(eout, (0, 0, 0, 1))                       # the drop slot
     ys = torch.take_along_dim(eout, slot[..., None], dim=1)        # (B, Tk, d)
-    gs = torch.take_along_dim(gates_flat, order, dim=1)
-    ys = ys * torch.where(keep, gs, 0.0)[..., None].to(x.dtype)
-    # combine: every slot back at its (round, token) place, which is a
-    # permutation (no two writes collide), then the rounds summed in order
+    ys = ys * wts[..., None].to(dtype)
     y = torch.empty_like(ys).scatter(1, order[..., None].expand_as(ys), ys)
     y = y.reshape(B, top_k, S, d)
     out = y[:, 0]
     for r in range(1, top_k):
         out = out + y[:, r]
     return out
+
+
+def _einsum_route(x: torch.Tensor, probs: torch.Tensor, *, top_k: int,
+                  capacity: int, renorm: bool):
+    """The GShard one-hot dispatch: (xin (E, B, C, d), (combine (B, S, E,
+    C),), the dropped slots, dispatch.sum(3) (B, S, E) for the aux)."""
+    B, S, _ = x.shape
+    probs_d = probs
+    if renorm:
+        # renormalised by the top-k mass before capacity drops (t5x)
+        mass = torch.topk(probs, top_k, dim=-1)[0].sum(-1, keepdim=True)
+        probs_d = probs / torch.clamp(mass, min=1e-9)
+    dispatch, combine = _topk_dispatch(probs_d, top_k, capacity)
+    dispatch = dispatch.to(x.dtype)
+    combine = combine.to(x.dtype)
+    dropped = B * S * top_k - dispatch.sum().to(torch.long)
+    xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)
+    return xin, (combine,), dropped, dispatch.sum(dim=3)
+
+
+def _route(impl: str):
+    if impl not in ("einsum", "gather"):
+        raise ValueError(f"moe impl {impl!r}: einsum or gather")
+    return _gather_route if impl == "gather" else _einsum_route
+
+
+def _combine(impl: str, eout, route, *, top_k: int, dtype):
+    if impl == "gather":
+        return _gather_combine(eout, *route, top_k=top_k, dtype=dtype)
+    return torch.einsum("bsec,ebcd->bsd", route[0], eout)
+
+
+def _top1_share(probs: torch.Tensor, n: int) -> torch.Tensor:
+    """(E,) fp32: the top-1 choices of ``probs``' rows, each adding 1 / n
+    (every addend equal, so the atomics' order cannot change the sum)."""
+    E = probs.shape[-1]
+    top1 = probs.argmax(-1).reshape(-1)
+    return torch.zeros((E,), dtype=torch.float32,
+                       device=probs.device).scatter_add_(
+        0, top1, torch.full(top1.shape, 1.0 / n, dtype=torch.float32,
+                            device=probs.device))
 
 
 def moe(params: Params, x: torch.Tensor, *, top_k: int,
@@ -186,48 +239,125 @@ def moe(params: Params, x: torch.Tensor, *, top_k: int,
     """x (B, S, d) -> (out (B, S, d), the load-balancing aux loss, a 0-d
     fp32 tensor).  ``impl`` "einsum" (the GShard one-hot dispatch) or
     "gather" (the sort/gather dispatch; equal to "einsum" while every
-    expert's queue is within capacity).  The router runs in fp32."""
+    expert's queue is within capacity).  The router runs in fp32.
+    On a mesh (``x`` a DTensor): :func:`_moe_on_mesh`."""
+    if is_dtensor(x):
+        return _moe_on_mesh(params, x, top_k=top_k, mlp_kind=mlp_kind,
+                            capacity_factor=capacity_factor,
+                            router_softmax_topk=router_softmax_topk,
+                            impl=impl)
     B, S, d = x.shape
     E = params["router"]["kernel"].shape[-1]
     capacity = max(1, int(S * top_k * capacity_factor / E))
     logits = x.float() @ params["router"]["kernel"].float()
     probs = torch.softmax(logits, dim=-1)
-
-    if impl == "gather":
-        out = _gather_dispatch_moe(params, x, probs, top_k=top_k,
-                                   capacity=capacity, mlp_kind=mlp_kind,
-                                   renorm=router_softmax_topk)
-        # aux from the router's statistics: the fraction routed by top-1
-        me = probs.mean(dim=(0, 1))
-        top1 = probs.argmax(-1).reshape(-1)
-        ce = torch.zeros((E,), dtype=torch.float32,
-                         device=x.device).scatter_add_(
-            0, top1, torch.full(top1.shape, 1.0 / top1.numel(),
-                                dtype=torch.float32, device=x.device))
-        aux = E * torch.sum(me * ce)
-    elif impl == "einsum":
-        probs_d = probs
-        if router_softmax_topk:
-            # renormalised by the top-k mass before capacity drops (t5x)
-            mass = torch.topk(probs, top_k, dim=-1)[0].sum(-1, keepdim=True)
-            probs_d = probs / torch.clamp(mass, min=1e-9)
-        dispatch, combine = _topk_dispatch(probs_d, top_k, capacity)
-        dispatch = dispatch.to(x.dtype)
-        combine = combine.to(x.dtype)
-        if DROPPED is not None:
-            DROPPED.append(B * S * top_k - dispatch.sum().to(torch.long))
-        # load-balancing aux loss (Switch): E * sum_e f_e * p_e
-        me = probs.mean(dim=(0, 1))
-        ce = dispatch.sum(dim=3).mean(dim=(0, 1))
-        aux = E * torch.sum(me * ce)
-        xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)
-        eout = _experts(params["experts"], xin, mlp_kind)
-        out = torch.einsum("bsec,ebcd->bsd", combine, eout)
-    else:
-        raise ValueError(f"moe impl {impl!r}: einsum or gather")
-
+    routed = _route(impl)(x, probs, top_k=top_k, capacity=capacity,
+                          renorm=router_softmax_topk)
+    xin, route, dropped = routed[:3]
+    if DROPPED is not None:
+        DROPPED.append(dropped)
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e; the gather
+    # arm's f_e is the fraction routed by top-1
+    me = probs.mean(dim=(0, 1))
+    ce = (_top1_share(probs, B * S) if impl == "gather"
+          else routed[3].mean(dim=(0, 1)))
+    aux = E * torch.sum(me * ce)
+    eout = _experts(params["experts"], xin, mlp_kind)
+    out = _combine(impl, eout, route, top_k=top_k, dtype=x.dtype)
     if "shared_expert" in params:
         out = out + mlp(params["shared_expert"], x, mlp_kind)
     if "dense_mlp" in params:
         out = out + mlp(params["dense_mlp"], x, mlp_kind)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh
+# ---------------------------------------------------------------------------
+
+
+def _moe_on_mesh(params: Params, x, *, top_k: int, mlp_kind: str,
+                 capacity_factor: float, router_softmax_topk: bool,
+                 impl: str):
+    """The MoE layer on DTensors, cut as the JAX package cuts it
+    (``repro/nn/moe.py:119-128, 193-205``: the queues and the expert
+    products over "experts" on "model", the rows over the batch axes), in
+    three ``local_map``s:
+
+    1. the route, on each rank's batch rows (every rank of the "model"
+       axis routes the same rows alike): the router in fp32, the
+       dispatch into (E, B, cap, d) queues, the aux loss's two (E,) means
+       as partial sums over the axes that cut the rows;
+    2. the expert products on each rank's E / m experts (the queues cut
+       over "model" by slicing, no collective; the expert weights placed
+       as their specs cut them, or gathered);
+    3. the combine on each rank's rows, over every expert's output
+       (gathered over "model" at its entry), the same deterministic
+       combine as on one device: no atomics, the rounds summed in order.
+
+    Where the experts do not divide the "model" axis every rank runs every
+    expert (``REPLICATED_OPS["moe_experts"]``).  The shared expert and the
+    dense residual are the MLP's DTensor path.  :data:`DROPPED` gets each
+    rank's own rows' count."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E = params["router"]["kernel"].shape[-1]
+    capacity = max(1, int(S * top_k * capacity_factor / E))
+    _, m = axis_rank(mesh, "model")
+    split = E % m == 0
+    if not split:
+        REPLICATED_OPS["moe_experts"] += 1
+    rows = row_placements(x)
+    names = mesh_axis_names(mesh)
+    rep = [Replicate()] * mesh.ndim
+    # the aux's (E,) means: partial sums over the axes that cut the rows
+    part = [Partial() if p.is_shard(0) else Replicate() for p in rows]
+    q_rows = [Shard(1) if p.is_shard(0) else Replicate() for p in rows]
+    q_cut = [Shard(0) if n == "model" and split and mesh.size(i) > 1
+             else p for i, (n, p) in enumerate(zip(names, q_rows))]
+    n_tok = B * S
+    routing = _route(impl)
+    n_route = 3 if impl == "gather" else 1
+    dropped = []
+
+    def route(xl, router):
+        probs = torch.softmax(xl.float() @ router.float(), dim=-1)
+        r = routing(xl, probs, top_k=top_k, capacity=capacity,
+                    renorm=router_softmax_topk)
+        dropped.append(r[2])
+        me = probs.sum(dim=(0, 1)) / n_tok
+        ce = (_top1_share(probs, n_tok) if impl == "gather"
+              else r[3].sum(dim=(0, 1)) / n_tok)
+        return (r[0], *r[1], me, ce)
+
+    outs = local_map(
+        route, out_placements=(q_rows,) + (rows,) * n_route + (part, part),
+        in_placements=(rows, rep), redistribute_inputs=True)(
+            x, params["router"]["kernel"])
+    xin, rt, me, ce = outs[0], outs[1:1 + n_route], outs[-2], outs[-1]
+    if DROPPED is not None:
+        DROPPED.append(dropped[0])
+    aux = E * torch.sum(me * ce)
+    w = params["experts"]
+    w_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in q_cut]
+
+    def experts(xl, wg, wu, wd):
+        return _experts({"w_gate": wg, "w_up": wu, "w_down": wd}, xl,
+                        mlp_kind)
+    eout = local_map(experts, out_placements=q_cut,
+                     in_placements=(q_cut, w_pl, w_pl, w_pl),
+                     redistribute_inputs=True)(
+        xin, w["w_gate"], w["w_up"], w["w_down"])
+
+    def combine(el, *r):
+        return _combine(impl, el, r, top_k=top_k, dtype=x.dtype)
+    out = local_map(combine, out_placements=rows,
+                    in_placements=(q_rows,) + (rows,) * n_route,
+                    redistribute_inputs=True)(eout, *rt)
+    if "shared_expert" in params:
+        out = out + mlp(params["shared_expert"], x, mlp_kind)
+    if "dense_mlp" in params:
+        out = out + mlp(params["dense_mlp"], x, mlp_kind)
+    return shard(out, "batch", "seq", "embed"), aux

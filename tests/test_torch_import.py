@@ -47,6 +47,8 @@ def test_no_source_file_imports_jax_or_repro():
     assert PORT / "core" / "quant.py" in files
     for name in ("model.py", "engine.py", "slice_sim.py", "explore.py"):
         assert PORT / "core" / name in files
+    for name in ("specs.py", "hlo_stats.py", "dryrun.py", "dryrun_cnn.py"):
+        assert PORT / "launch" / name in files
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
