@@ -229,6 +229,16 @@ Phases (any failure exits non-zero and prints no result line):
    per step and images/s; one more step under ``torch.profiler``: device
    busy time and idle share, split by op (conv forward, dx, dw, the rest
    of the conv backward, pools, FC head, AdamW, other) and by our kernel;
+6b. autotune: full-width VGG-16 on the int8 and float lanes at buckets 1
+   and 8, every layer planned under ``tuning="auto"`` into a temporary
+   cache directory (``engine/autotune.py``: the launch schedules of the
+   conv kernel searched one knob at a time, f32exact and oracle on the
+   int8 lane, each candidate bit-equal to the default's or dropped, a
+   winner only past MIN_GAIN on a paired re-measure); per layer and
+   bucket the default's geometry, the winner and both paired times
+   (``autotune int8 bucket 8 CL5: ...``); then ``tuning="cached"`` plans
+   the same model with no measurement, and each bucket's captured graph
+   of the tuned plan replays bit-equal to the default plan's;
 7. LM serve: full-width mamba2-130m (24 layers, d_model 768, vocab
    50280, bf16, seed-0 random weights) through the functions of
    ``repro_torch.launch.serve``: one prefill of 4 x 4096 tokens, then 31
@@ -258,9 +268,10 @@ Phases (any failure exits non-zero and prints no result line):
    within 1e-4 of the largest |logit| of the plain attention's;
 11. LM train, mamba2-130m at full width in bf16 (fp32 AdamW moments),
    batch 4 x 1024 tokens of the ``SyntheticLMDataset`` stream, 4 steps
-   of ``make_train_step`` at the launcher's lr: the conv1d kernel
-   launched exactly 24 times in each step (the forward; the backward is
-   the plain version's VJP), every loss and grad_norm finite; ms per
+   of ``make_train_step`` at the launcher's lr under its config's
+   ``remat="dots"``: the conv1d kernel launched exactly 48 times in each
+   step (the forward and the backward's recompute; the backward is the
+   plain version's VJP), every loss and grad_norm finite; ms per
    step, peak device memory, one more step's device busy time and idle
    share under ``torch.profiler``; the kernel timed at the training
    shape.  Checkpointed resume: the state after 2 steps (about 1.3 GB)
@@ -271,9 +282,20 @@ Phases (any failure exits non-zero and prints no result line):
    each leaf's gradient through the kernels within 1e-4 (relative norm)
    of the oracle substrate's;
 12. LM train, granite-3-2b at full width in bf16, batch 1 x 1024, 2
-   steps: flash launched exactly 40 times in each step; ms per step,
-   peak device memory (no profiled step: cut for the run's time); flash
-   timed at the training shape;
+   steps, under its config's ``remat="dots"`` (each period's projections
+   saved, the rest recomputed in the backward): flash launched exactly
+   80 times in each step (40 forward, 40 in the recompute); then the
+   same 2 steps from the same init at ``remat="none"`` (40 a step), and
+   the losses bit-equal to the "dots" run's, or no further from them
+   than a second "none" run is from the first; ms per step and peak
+   device memory of each; then one loss and gradient without the
+   optimizer at "dots", "none" and "full", twice in turns: launches 80 /
+   40 / 80, losses bit-equal, the bytes the backward keeps at "dots"
+   below "none"'s, the pass's peak (at this size the gradients' own, and
+   the step's peak is AdamW's functional update: no remat moves either)
+   and ms each (no profiled step: cut for the run's time); flash
+   timed at the training shape (phase 11 does the same for mamba2-130m,
+   whose full config is "dots" too: conv1d 48 a step);
 13. code LM serve: phase 7 for full-width starcoder2-3b (30 layers,
    d_model 3072, 24 q / 2 kv heads of 128: G = 12, layernorm, tanh-gelu
    MLP, vocab 49152, bf16, seed-0 weights): flash launches exactly 30 in
@@ -335,8 +357,9 @@ Phases (any failure exits non-zero and prints no result line):
    mesh's losses and grad_norms equal the one-device step's bit for bit,
    the compressed step's first loss equal and its first grad_norm within
    2%; ms per step of each.  Then full-width mamba2-130m in bf16, batch 4
-   x 1024, 4 steps with int8 gradients and error feedback: conv1d 24
-   launches a step, every loss finite; ms per step, peak device memory,
+   x 1024, 4 steps with int8 gradients and error feedback, under its
+   config's ``remat="dots"`` (DTensor state in the checkpointed
+   periods): conv1d 48 launches a step, every loss finite; ms per step, peak device memory,
    the EF tree's bytes and norm, the collectives' bytes a step beside a
    plain fp32 all-reduce's;
 23. the sequence-sharded decode across 2 ranks on the one card: two
@@ -4034,6 +4057,170 @@ def phase_alexnet_serve(torch):
     return out
 
 
+#: The autotune phase: VGG-16's buckets tuned, the timed calls a
+#: candidate (after one warm call) and the lanes
+AUTOTUNE_BUCKETS = (1, 8)
+AUTOTUNE_REPS = 5
+AUTOTUNE_LANES = ("int8", "float")
+
+
+def _schedule_text(sched) -> str:
+    """A persisted schedule in a log line: its substrate where it is not
+    the default's, and its overrides; "default" where it has neither."""
+    parts = [f"{k}={v}" for k, v in sched.items()
+             if v is not None and k != "substrate"]
+    if sched["substrate"] != "auto":
+        parts.insert(0, sched["substrate"])
+    return " ".join(parts) or "default"
+
+
+def _default_geometry(lp, batch: int) -> str:
+    """The launch the default plan of one layer makes at ``batch``."""
+    from repro_torch.kernels.trim_conv2d import U8_PATH_NAMES
+
+    if lp.in_sz == 1:
+        t = lp.launch(batch)
+        return (f"{U8_PATH_NAMES[t.path]} {t.TH}x{t.TW} split {t.n_split} "
+                f"stages {t.stages}")
+    t = lp.f32()
+    return (f"fp32 {t.TH}x{t.TW} Cb {t.Cb} split {t.n_split} stages "
+            f"{t.stages}")
+
+
+def phase_autotune(torch) -> None:
+    """Full-width VGG-16 planned under ``tuning="auto"`` on the int8 and
+    float lanes at buckets 1 and 8 into a temporary cache directory: each
+    layer's candidates measured on the card (``engine/autotune.py``), the
+    winners persisted; per layer and bucket, the default's launch, the
+    winner and both times (paired where a winner differs); then
+    ``tuning="cached"`` plans the same model with no measurement, and for
+    each lane and bucket the tuned plan's captured graph replays
+    bit-equal to the default plan's on the same images."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.data.pipeline import SyntheticRequestStream
+    from repro_torch.engine import ExecutionPolicy, autotune, plan_model
+    from repro_torch.launch.serve_cnn import build_server
+    from repro_torch.serve import ServeConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = CNN_REGISTRY["vgg16"]
+    tmp = tempfile.mkdtemp(prefix="tuned-plans-")
+    prior = os.environ.get("REPRO_TUNED_PLANS_DIR")
+    os.environ["REPRO_TUNED_PLANS_DIR"] = tmp
+    measured = []
+    real = autotune._measure_plan
+
+    def counted(plan, **kw):
+        measured.append(plan)
+        return real(plan, **kw)
+
+    autotune._measure_plan = counted
+    try:
+        autotune.reset_cache()
+        pol = ExecutionPolicy(tuning="auto")
+        t0 = time.perf_counter()
+        tuned = {}
+        for b in AUTOTUNE_BUCKETS:
+            for lane in AUTOTUNE_LANES:
+                res = autotune.tune_model(cfg, pol, datapath=lane, batch=b,
+                                          reps=AUTOTUNE_REPS)
+                tuned[(lane, b)] = res
+        tune_s = time.perf_counter() - t0
+        n_measured = len(measured)
+        entries = autotune._load_plans(autotune.cache_path("cuda"))
+        for (lane, b), res in tuned.items():
+            base = plan_model(cfg, ExecutionPolicy(), batch=b)
+            layers = (base.int8 if lane == "int8" else base).layers
+            moved = []
+            for (label, r), lp in zip(res, layers):
+                name = label.split("/")[1].split(".")[0]
+                e = entries[r.key]
+                win = _schedule_text(r.schedule)
+                if win != "default":
+                    moved.append(f"{name} {win} x{e['speedup']}")
+                kept = (f"{len(r.candidates)} of {e['candidates']} "
+                        "candidates bit-equal to the default"
+                        if not r.cached else
+                        "an earlier layer's key: its tuning, cached")
+                paired = ("" if e.get("ratio") is None else
+                          f" (paired re-measure, median ratio "
+                          f"{e['ratio']}"
+                          + (")" if win != "default" else
+                             ": inside MIN_GAIN, the default ships)"))
+                log(f"autotune {lane} bucket {b} {name}: default "
+                    f"{_default_geometry(lp, b)} {r.us_default:.1f} us; "
+                    f"winner {win} {r.us:.1f} us{paired}; {kept}")
+            log(f"autotune {lane} bucket {b}: {len(moved)} of "
+                f"{len(layers)} layers take another schedule than the "
+                f"default" + (": " + ", ".join(moved) if moved else ""))
+        log(f"autotune: {n_measured} measurements of {len(entries)} layer "
+            f"keys (VGG-16, lanes {AUTOTUNE_LANES}, buckets "
+            f"{AUTOTUNE_BUCKETS}) in {tune_s:.1f} s")
+        # a fresh process's plans from the file: no measurement at all
+        autotune.reset_cache()
+        cached = ExecutionPolicy(tuning="cached")
+        for b in AUTOTUNE_BUCKETS:
+            for lane in AUTOTUNE_LANES:
+                mp = plan_model(cfg, cached, batch=b)
+                mp = mp.int8 if lane == "int8" else mp
+                if not all(lp.tuned for lp in mp.layers):
+                    fail(f"autotune: the cached {lane} plan at bucket {b} "
+                         "misses a layer's winner")
+        if len(measured) != n_measured:
+            fail(f"autotune: tuning='cached' measured "
+                 f"{len(measured) - n_measured} times, expected none")
+        log("autotune: tuning='cached' planned every layer of both lanes "
+            "at both buckets from the file with no measurement")
+        # the tuned plans' graphs against the default plans'
+        for lane in AUTOTUNE_LANES:
+            conf = ServeConfig(buckets=AUTOTUNE_BUCKETS, datapath=lane)
+            srv = {}
+            for name, p in (("default", ExecutionPolicy()),
+                            ("tuned", cached)):
+                srv[name] = build_server(cfg, p, conf, device="cuda")
+                srv[name].close()
+            stream = SyntheticRequestStream(
+                hw=cfg.input_hw, channels=3, n_classes=cfg.n_classes,
+                seed=2, dtype="float32" if lane == "float" else "uint8")
+            images = stream.sample_batch(max(AUTOTUNE_BUCKETS))
+            for b in AUTOTUNE_BUCKETS:
+                x = torch.from_numpy(images[:b]).cuda()
+                outs = {}
+                for name, s in srv.items():
+                    g = s.engine.bucket_graphs(b)
+                    outs[name] = g(x).clone()
+                    outs[f"{name}_ms"] = cuda_ms(torch, lambda: g(x), 10)
+                tplan = srv["tuned"].engine._lane_key(
+                    srv["tuned"].engine.lanes[0], b)[0]
+                if not all(lp.tuned for lp in (
+                        tplan.int8 if lane == "int8" else tplan).layers):
+                    fail(f"autotune {lane} bucket {b}: the served plan is "
+                         "not the tuned one")
+                if not torch.equal(outs["default"], outs["tuned"]):
+                    fail(f"autotune {lane} bucket {b}: the tuned plan's "
+                         "replay differs from the default plan's")
+                log(f"autotune {lane} bucket {b}: the tuned plan's replay "
+                    f"bit-equal to the default plan's; {outs['tuned_ms']:.4f}"
+                    f" ms a replay, default {outs['default_ms']:.4f} ms "
+                    "(CUDA events, 10 calls)")
+            CAPTURES[f"autotune {lane}"] = dict(
+                srv["tuned"].engine.capture_counts)
+            del srv
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        autotune._measure_plan = real
+        if prior is None:
+            os.environ.pop("REPRO_TUNED_PLANS_DIR", None)
+        else:
+            os.environ["REPRO_TUNED_PLANS_DIR"] = prior
+        autotune.reset_cache()
+
+
 #: The LM train phases: (batch, tokens a row, steps) at full width and in
 #: bf16; the cut from the JAX package's train_4k cell (4096 tokens, global
 #: batch 256) is in batch and length only
@@ -4261,6 +4448,148 @@ def _leaf_grad_errors(torch, model, oracle, params, batch, counter):
     return worst, launches
 
 
+def _lm_train_steps(torch, model, batches, scfg, counters, kname: str,
+                    per_step: int, what: str) -> dict:
+    """``batches`` through ``make_train_step`` from a seed-0 state of
+    ``model`` on the card, each step launching ``kname`` ``per_step``
+    times (or the phase fails), every loss finite: {"losses", "ms" (per
+    steady step), "peak" (bytes)}; the state is freed before it
+    returns."""
+    import math
+
+    from repro_torch.distributed import make_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    step = make_train_step(model, scfg)
+    state = make_train_state(model, 0, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for i, batch in enumerate(batches):
+        for m in counters.values():
+            m.LAUNCHES = 0
+        t0 = time.perf_counter()
+        state, mets = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        n = {k: m.LAUNCHES for k, m in counters.items()}
+        losses.append(float(mets["loss"]))
+        want = {k: per_step if k == kname else 0 for k in counters}
+        if n != want:
+            fail(f"{what}: step {i} launched {n}, expected {want}")
+        if not math.isfinite(losses[-1]) or float(mets["skipped"]):
+            fail(f"{what}: step {i} non-finite or skipped: {losses[-1]!r}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady = times[1:] or times
+    return {"losses": losses, "ms": sum(steady) / len(steady), "peak": peak}
+
+
+def _grad_pass(torch, model, batch, counters, kname: str) -> dict:
+    """One loss and gradient of a seed-0 ``model`` on ``batch``, no
+    optimizer state: {"saved" (bytes above the params once the loss is
+    computed: what the backward keeps), "peak" (bytes above the params),
+    "ms", "launches" of ``kname``, "loss"}."""
+    from repro_torch.core.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    params = model.init(0, dev)
+    live = [p.requires_grad_(True) for p in tree_leaves(params)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for m in counters.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    loss, _ = model.loss(params, batch)
+    saved = torch.cuda.memory_allocated(dev) - base
+    grads = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "saved": saved,
+           "peak": torch.cuda.max_memory_allocated(dev) - base,
+           "launches": counters[kname].LAUNCHES,
+           "loss": float(loss.detach())}
+    del grads, loss, live, params
+    return out
+
+
+def _remat_against_none(torch, cfg, batches, scfg, counters, kname: str,
+                        dots: dict) -> None:
+    """The "dots" run (``dots``: its losses, ms and peak) against the same
+    steps at ``remat="none"``: losses bit-equal, or no further from the
+    "dots" run's than a second "none" run is from the first.  Then one
+    loss and gradient without the optimizer at each remat, twice in
+    turns (``_grad_pass``): the recompute's launches, the bytes the
+    backward keeps once the loss is computed, "dots" below "none", the
+    pass's peak above the params (the gradients' own bytes may set it, and
+    the step's peak may be AdamW's: no remat moves either), and its ms."""
+    from repro_torch.nn.models import build_model
+
+    arch = cfg.name
+    none = cfg.with_overrides(remat="none")
+    runs = [_lm_train_steps(torch, build_model(none), batches, scfg,
+                            counters, kname, cfg.n_layers,
+                            f"lm train {arch} remat none")]
+    gap = max(abs(a - b) for a, b in zip(dots["losses"],
+                                         runs[0]["losses"]))
+    if gap:
+        runs.append(_lm_train_steps(torch, build_model(none), batches, scfg,
+                                    counters, kname, cfg.n_layers,
+                                    f"lm train {arch} remat none (again)"))
+        spread = max(abs(a - b) for a, b in zip(runs[0]["losses"],
+                                                runs[1]["losses"]))
+        if gap > spread:
+            fail(f"lm train {arch}: the dots run's losses {dots['losses']} "
+                 f"are {gap!r} from the none run's {runs[0]['losses']}, "
+                 f"two none runs {spread!r} apart")
+    held = ("bit-equal" if not gap else
+            f"within {gap!r} (two none runs {spread!r} apart)")
+    log(f"lm train {arch} remat: dots {dots['ms']:.3f} ms per step, peak "
+        f"{dots['peak'] / 2**30:.3f} GiB, {2 * cfg.n_layers} {kname} "
+        f"launches a step; none {runs[0]['ms']:.3f} ms per step, peak "
+        f"{runs[0]['peak'] / 2**30:.3f} GiB, {cfg.n_layers} a step; losses "
+        f"{held}: {dots['losses']} (dots), {runs[0]['losses']} (none)")
+    batch0 = {"tokens": torch.as_tensor(batches[0]["tokens"],
+                                        device="cuda")}
+    models = {r: build_model(cfg.with_overrides(remat=r))
+              for r in ("dots", "none", "full")}
+    passes = {r: [] for r in models}
+    for _ in range(2):
+        for r, m in models.items():
+            passes[r].append(_grad_pass(torch, m, batch0, counters, kname))
+    for r, got in passes.items():
+        want = cfg.n_layers * (1 if r == "none" else 2)
+        if any(g["launches"] != want for g in got):
+            fail(f"lm train {arch} remat {r}: the gradient pass launched "
+                 f"{[g['launches'] for g in got]} {kname}, expected {want}")
+        if any(g["loss"] != passes["none"][0]["loss"] for g in got):
+            fail(f"lm train {arch} remat {r}: the gradient pass's loss "
+                 f"{[g['loss'] for g in got]} differs from none's "
+                 f"{passes['none'][0]['loss']!r}")
+    peak = {r: max(g["peak"] for g in got) for r, got in passes.items()}
+    saved = {r: max(g["saved"] for g in got) for r, got in passes.items()}
+    if saved["dots"] >= saved["none"]:
+        fail(f"lm train {arch}: at remat dots the backward keeps "
+             f"{saved['dots']} bytes, not fewer than none's "
+             f"{saved['none']}")
+    log(f"lm train {arch} remat, one loss and gradient without the "
+        "optimizer (twice in turns): kept for the backward " + ", ".join(
+            f"{r} {saved[r] / 2**30:.3f} GiB" for r in passes)
+        + "; peak above the params " + ", ".join(
+            f"{r} {peak[r] / 2**30:.3f} GiB" for r in passes)
+        + "; ms " + ", ".join(
+            f"{r} " + " / ".join(f"{g['ms']:.3f}" for g in got)
+            for r, got in passes.items())
+        + f"; {kname} launches dots {2 * cfg.n_layers}, none "
+        f"{cfg.n_layers}, full {2 * cfg.n_layers}; losses bit-equal")
+
+
 def phase_lm_train(torch, arch: str, reps: int):
     """Full-width ``arch`` trained in bf16 (seed-0 params, fp32 AdamW
     moments) on the ``SyntheticLMDataset`` stream through
@@ -4268,7 +4597,10 @@ def phase_lm_train(torch, arch: str, reps: int):
     tokens a row, steps): each step's forward launches the path's kernel
     once per layer (the conv1d of the ssm family, flash of the dense
     family; the backward is the plain version's VJP and launches none),
-    every loss and grad_norm finite, no step skipped; ms per step, peak
+    and under the config's remat ("dots" or "full") once more per layer
+    in the backward's recompute; every loss and grad_norm finite, no step
+    skipped; where the config's remat is not "none", the same steps at
+    "none" (``_remat_against_none``); ms per step, peak
     device memory and, for mamba2-130m under ``torch.profiler``, one more
     step's device busy time and idle share.  The kernel's forward is timed at the
     training shape (``_conv1d_train_row`` / ``_flash_row``).  For mamba2-130m
@@ -4303,10 +4635,12 @@ def phase_lm_train(torch, arch: str, reps: int):
     t0 = time.perf_counter()
     state = make_train_state(model, 0, dev)
     torch.cuda.synchronize()
+    # the recompute of a remat'd period launches its kernel again
+    per_step = cfg.n_layers * (1 if cfg.remat == "none" else 2)
     log(f"lm train {arch}: {cfg.param_count_estimate()} params in "
         f"{cfg.dtype}, fp32 moments, batch {B} x {S} tokens (the train_4k "
-        f"cell's 256 x 4096 cut in batch and length only), {steps} steps; "
-        f"init in {time.perf_counter() - t0:.1f} s")
+        f"cell's 256 x 4096 cut in batch and length only), {steps} steps, "
+        f"remat {cfg.remat!r}; init in {time.perf_counter() - t0:.1f} s")
     saved = None
     if arch == LM_ARCH:
         import tempfile
@@ -4333,10 +4667,11 @@ def phase_lm_train(torch, arch: str, reps: int):
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])) \
                 or h["skipped"]:
             fail(f"lm train {arch}: step {i} non-finite or skipped: {h}")
-        want = {k: cfg.n_layers if k == kname else 0 for k in counters}
+        want = {k: per_step if k == kname else 0 for k in counters}
         if n != want:
             fail(f"lm train {arch}: step {i} launched {n}, expected {want} "
-                 "(the forward's kernel once per layer)")
+                 "(the forward's kernel once per layer, and once more in "
+                 f"the recompute under remat {cfg.remat!r})")
     peak = torch.cuda.max_memory_allocated(dev)
     steady = hist[1:] or hist
     ms = sum(h["ms"] for h in steady) / len(steady)
@@ -4350,6 +4685,10 @@ def phase_lm_train(torch, arch: str, reps: int):
         f"{B * S * 1e3 / ms:.1f} tokens/s; peak device memory "
         f"{peak / 2**30:.3f} GiB{busy}; {launches} {kname} launches in "
         f"{steps} steps")
+    if cfg.remat != "none":
+        state = None              # its memory back before the other runs
+        _remat_against_none(torch, cfg, batches, scfg, counters, kname, {
+            "losses": [h["loss"] for h in hist], "ms": ms, "peak": peak})
     row = (_conv1d_train_row(torch, B, S, reps) if cfg.family == "ssm" else
            _flash_row(torch, f"{arch} train", B, S, S, cfg.n_kv,
                       cfg.n_q // cfg.n_kv, cfg.head_dim, True, None, reps))
@@ -4364,9 +4703,9 @@ def phase_lm_train(torch, arch: str, reps: int):
         (rel, leaf), n = _leaf_grad_errors(
             torch, k32, build_model(cfg32, policy=ExecutionPolicy("oracle")),
             params, batch0, counter)
-        if n != cfg.n_layers:
+        if n != per_step:
             fail(f"lm train {arch} fp32: {n} {kname} launches in the "
-                 f"kernel step's gradient, expected {cfg.n_layers}")
+                 f"kernel step's gradient, expected {per_step}")
         if rel > LM_GRAD_TOL:
             fail(f"lm train {arch} fp32: leaf {leaf}'s gradient through the "
                  f"kernels is {rel:.3g} (relative norm) from the oracle's "
@@ -4644,9 +4983,12 @@ def phase_mesh_world1(torch) -> dict:
                     mets["skipped"]):
                 fail(f"mesh world 1 {LM_ARCH}: step {i} non-finite or "
                      "skipped")
-            if k1d.LAUNCHES != lcfg.n_layers:
+            # once per layer, and once more in the recompute under remat
+            want = lcfg.n_layers * (1 if lcfg.remat == "none" else 2)
+            if k1d.LAUNCHES != want:
                 fail(f"mesh world 1 {LM_ARCH}: step {i} launched conv1d "
-                     f"{k1d.LAUNCHES} times, expected {lcfg.n_layers}")
+                     f"{k1d.LAUNCHES} times, expected {want} (remat "
+                     f"{lcfg.remat!r})")
         ef_norm = math.sqrt(sum(float((t.float() ** 2).sum())
                                 for t in tree_leaves(state["ef"])))
         peak = torch.cuda.max_memory_allocated(dev)
@@ -6086,6 +6428,7 @@ def main() -> None:
     xrows, xlaunches = phase_f32exact(torch, args.reps, rows)
     train_f32, train_wgrad = phase_train(torch, TRAIN_STEPS, TRAIN_BATCH,
                                          TRAIN_LR)
+    phase_autotune(torch)
     lm_launches = phase_lm_serve(torch, LM_ARCH)
     phase_lm_checks(torch, LM_ARCH)
     dense_launches = phase_lm_serve(torch, DENSE_ARCH)

@@ -86,8 +86,7 @@ def _kernel_call(plan: ConvLayerPlan, x, w, bias, requant, requant_shift):
     return trim_conv2d(
         x, w, stride=plan.stride, padding=plan.padding, bias=bias,
         relu=plan.relu, requant_shift=requant_shift, requant=requant,
-        tile_h=plan.tile_h, tile_w=plan.tile_w, block_c=plan.block_c,
-        block_f=plan.block_f)
+        schedule=plan.schedule)
 
 
 def _sweep(plan: ConvLayerPlan, x, w, sub: str):
@@ -107,7 +106,7 @@ def _sweep(plan: ConvLayerPlan, x, w, sub: str):
     return torch.cat([
         trim_conv2d(x[..., g * cg:(g + 1) * cg].contiguous(),
                     w[..., g * fg:(g + 1) * fg].contiguous(), stride=1,
-                    padding=plan.padding)
+                    padding=plan.padding, schedule=plan.schedule)
         for g in range(plan.groups)], dim=-1)
 
 

@@ -21,21 +21,28 @@ only the device of the tensor being convolved — never the machine:
 
 ``emulate_hw`` replays the FPGA's strided-layer schedule: a stride-1
 sweep, decimation and the unfused epilogue (``ConvLayerPlan.decimate``).
+
+The schedule knobs (``tile_h``, ``tile_w``, ``block_c``, ``n_split``,
+``stages``, ``path``) override the conv kernel's launch geometry
+(``kernels.trim_conv2d.Schedule``); ``tuning`` applies the plan
+autotuner's persisted winners per layer (``engine/autotune.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
+from repro_torch.kernels.trim_conv2d import Schedule
+
 #: Substrate choices.
 SUBSTRATES = ("auto", "kernel", "oracle", "f32exact")
-#: The bounds :class:`ExecutionPolicy` holds its tile knobs to, as the JAX
-#: package's policy does (``tile_h * tile_w`` and ``block_f``).  No CUDA
-#: launch reads them: both conv lanes plan their own geometry.
-PIX_SLOTS = 128
-FILT_TILE = 32
+#: Plan-tuning modes: "off" plans from the policy, "cached" applies the
+#: persisted autotuner winners (a miss plans from the policy), "auto"
+#: tunes on a miss and persists the winner (``engine/autotune.py``).
+TUNING_MODES = ("off", "cached", "auto")
 
 
 def resolve_substrate(substrate: str, device) -> str:
@@ -87,35 +94,63 @@ class ExecutionPolicy:
         Replay the FPGA's strided-layer schedule (stride-1 sweep +
         decimation + unfused epilogue, paper §V) instead of the strided
         fused conv.  Forward only on the kernel substrate.
-    ``tile_h`` / ``tile_w`` / ``block_c`` / ``block_f``
-        The JAX package's tile knobs (``tile_h * tile_w <= 128``,
-        ``block_f <= 32``), kept and checked so that a policy means the
-        same in both packages.  They shape no CUDA launch: the conv
-        kernel's fp32 lane plans its geometry with
-        ``kernels.trim_conv2d.f32_tile`` and its integer lane with
-        ``kernels.trim_conv2d.u8_tile``; ``ConvLayerPlan.tile`` is the
-        latter's.
+    ``tile_h`` / ``tile_w`` / ``block_c`` / ``n_split`` / ``stages`` /
+    ``path``
+        Overrides of the conv kernel's launch geometry, None (the default)
+        leaving each to the lane's planner (``kernels.trim_conv2d.
+        f32_tile`` / ``u8_tile``); every layer planned under the policy
+        takes them, and one its lane cannot take raises at plan time.
+        ``tile_h`` x ``tile_w`` is a block's output tile (both or
+        neither), as in the JAX package (fp32: one of ``F32_TILES``;
+        u8: at most 128 pixels, 16 x 16 on the slide path); ``block_c``
+        the fp32 lane's channels a chunk (JAX's ``block_c``, a channel
+        block); ``n_split`` the contiguous ranges the channel sum is cut
+        into; ``stages`` the u8 lane's cp.async stages; ``path`` the u8
+        lane's path ("window", "gather", "slide").  JAX's ``block_f`` has
+        no counterpart (both lanes' filter tile, 64, is compiled in), nor
+        its ``vmem_budget``.
+    ``tuning``
+        "off", "cached" or "auto" (:data:`TUNING_MODES`, the launchers'
+        ``--tuning``): under "cached" and "auto" each layer planned with
+        ``substrate="auto"`` takes the autotuner's persisted winner for its
+        key, "auto" measuring one on a miss.  A pinned substrate plans as
+        if tuning were off.
+    ``tune_device``
+        Where the autotuner measures, and whose cache file it reads:
+        "cuda" (the current card; without one tuning raises) or "cpu".
     """
 
     substrate: str = "auto"
     emulate_hw: bool = False
-    tile_h: int = 8
-    tile_w: int = 16
-    block_c: int = 32
-    block_f: int = 32
+    tile_h: Optional[int] = None
+    tile_w: Optional[int] = None
+    block_c: Optional[int] = None
+    n_split: Optional[int] = None
+    stages: Optional[int] = None
+    path: Optional[str] = None
+    tuning: str = "off"
+    tune_device: str = "cuda"
 
     def __post_init__(self) -> None:
         if self.substrate not in SUBSTRATES:
             raise ValueError(
                 f"substrate {self.substrate!r} not in {SUBSTRATES}")
-        if min(self.tile_h, self.tile_w, self.block_c, self.block_f) < 1:
-            raise ValueError("tile and block sizes must be >= 1")
-        if self.tile_h * self.tile_w > PIX_SLOTS:
-            raise ValueError(
-                f"tile_h * tile_w must be <= {PIX_SLOTS}, got "
-                f"{self.tile_h * self.tile_w}")
-        if self.block_f > FILT_TILE:
-            raise ValueError(f"block_f must be <= {FILT_TILE}")
+        if self.tuning not in TUNING_MODES:
+            raise ValueError(f"tuning {self.tuning!r} not in {TUNING_MODES}")
+        if (self.tile_h is None) != (self.tile_w is None):
+            raise ValueError("tile_h and tile_w go together")
+        if torch.device(self.tune_device).type not in ("cuda", "cpu"):
+            raise ValueError(f"tune_device must be cuda or cpu, got "
+                             f"{self.tune_device!r}")
+        self.schedule                       # checks the knobs
+
+    @property
+    def schedule(self) -> Schedule:
+        """The kernel launch overrides the policy's knobs make."""
+        return Schedule(
+            tile=None if self.tile_h is None else (self.tile_h, self.tile_w),
+            block_c=self.block_c, n_split=self.n_split, stages=self.stages,
+            path=self.path)
 
     def with_overrides(self, **kw) -> "ExecutionPolicy":
         return dataclasses.replace(self, **kw)

@@ -48,7 +48,9 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
         (int(x.shape[1]), int(x.shape[2])), int(x.shape[3]),
         int(w.shape[0]), int(w.shape[3]), stride=stride, padding=padding,
         groups=groups, relu=relu, has_bias=bias is not None,
-        requant_kind=rq_kind, policy=policy or ExecutionPolicy())
+        requant_kind=rq_kind, in_sz=x.element_size(),
+        w_sz=w.element_size(), out_sz=1 if rq_kind else 4,
+        policy=policy or ExecutionPolicy())
     return run_conv2d(plan, x, w, bias, requant, requant_shift=requant_shift)
 
 

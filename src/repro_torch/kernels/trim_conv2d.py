@@ -29,6 +29,10 @@ device memory and what bounds it.
   (:func:`u8_weights`).  The TPU's VMEM width-tile pick and its four-pass halo
   layout have no counterpart: both lanes load the overlapping haloed
   window directly.
+- :class:`Schedule` overrides what the planners choose (the output tile,
+  the fp32 chunk, the split, the u8 stages and path); each override is
+  checked against the shape and raises where the kernel cannot take it.
+  The plan autotuner (``engine/autotune.py``) searches these.
 """
 from __future__ import annotations
 
@@ -147,14 +151,82 @@ def _f32_smem(stages: int, Cb: int, plane: int, K: int) -> int:
     return 4 * stages * Cb * (plane + K * K * F32_FB)
 
 
+#: The integer lane's path names, by their number.
+U8_PATH_NAMES = ("window", "gather", "slide")
+
+
+@dataclass(frozen=True)
+class Schedule:
+    """Overrides of one conv's launch geometry; None leaves a knob to its
+    planner (:func:`f32_tile`, :func:`u8_tile`).
+
+    ``tile`` (TH, TW), the output tile of a block (fp32: one of
+    :data:`F32_TILES`; u8: TH * TW <= :data:`U8_M`, 16 x 16 on the slide
+    path); ``block_c``, the fp32 lane's channels a chunk; ``n_split``, the
+    contiguous ranges the channel sum is cut into (both lanes); ``stages``,
+    the u8 lane's cp.async ring stages (:data:`U8_STAGES`); ``path``, the
+    u8 lane's path (:data:`U8_PATH_NAMES`).  A knob the lane does not have
+    (``block_c`` on u8, ``stages``/``path`` on fp32) is ignored there.
+    """
+
+    tile: Optional[Tuple[int, int]] = None
+    block_c: Optional[int] = None
+    n_split: Optional[int] = None
+    stages: Optional[int] = None
+    path: Optional[str] = None
+
+    def __post_init__(self):
+        if self.tile is not None:
+            object.__setattr__(self, "tile", tuple(int(v)
+                                                   for v in self.tile))
+            if len(self.tile) != 2 or min(self.tile) < 1:
+                raise ValueError(f"tile must be (TH, TW) >= 1, got "
+                                 f"{self.tile}")
+        for name in ("block_c", "n_split", "stages"):
+            v = getattr(self, name)
+            if v is not None and (not isinstance(v, int) or v < 1):
+                raise ValueError(f"{name} must be an int >= 1, got {v!r}")
+        if self.path is not None and self.path not in U8_PATH_NAMES:
+            raise ValueError(f"path {self.path!r} not in {U8_PATH_NAMES}")
+
+    @property
+    def default(self) -> bool:
+        return self == Schedule()
+
+    def f32(self) -> dict:
+        """:func:`f32_tile`'s keyword overrides."""
+        return dict(tile=self.tile, block_c=self.block_c,
+                    n_split=self.n_split)
+
+    def u8(self) -> dict:
+        """:func:`u8_tile`'s keyword overrides."""
+        return dict(path=(None if self.path is None
+                          else U8_PATH_NAMES.index(self.path)),
+                    tile=self.tile, n_split=self.n_split,
+                    stages=self.stages)
+
+
+def _check_split(n_split: int, n_items: int, n_f: int, what: str) -> None:
+    if not 1 <= n_split <= n_items:
+        raise ValueError(f"n_split {n_split} not in [1, {n_items}] "
+                         f"({what})")
+    if n_f * n_split > 65535:
+        raise ValueError(f"n_split {n_split} x {n_f} filter tiles > 65535 "
+                         "grid rows")
+
+
 @functools.lru_cache(maxsize=256)
 def f32_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
-             padding: Optional[int]) -> F32Tile:
+             padding: Optional[int], tile: Optional[Tuple[int, int]] = None,
+             block_c: Optional[int] = None,
+             n_split: Optional[int] = None) -> F32Tile:
     """The fp32 lane's geometry for x (·,H,W,c), w (k,k,c,f), from the
     per-image shape alone: the batch never enters, so every output's sum
     runs in one order in every batch (bucketed == unbatched, bit for bit).
-    The policy's ``tile_h``/``tile_w``/``block_c``/``block_f`` do not
-    apply to this lane.
+    ``tile`` (one of :data:`F32_TILES`), ``block_c`` (the chunk) and
+    ``n_split`` override the choices below; each is checked (the tile's
+    window and the chunk's ring in :data:`SMEM_MAX`, the split within the
+    chunks and the grid) and raises where it does not fit.
 
     The output tile is the one of :data:`F32_TILES` with the fewest padded
     pixels, then the smallest window.  The chunk is the most channels (up
@@ -179,8 +251,10 @@ def f32_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
     if H_O < 1 or W_O < 1:
         raise ValueError(f"empty conv output for input {hw}, k={K}, p={p}")
     path = K if S == 1 and K in F32_SLIDE_KS else F32_GENERIC
+    if tile is not None and tuple(tile) not in F32_TILES:
+        raise ValueError(f"fp32 tile {tuple(tile)} not in {F32_TILES}")
     best = None
-    for TH, TW in F32_TILES:
+    for TH, TW in ((tuple(tile),) if tile is not None else F32_TILES):
         rows, cols = (TH - 1) * S + K, (TW - 1) * S + K
         RS = -(-cols // 4) * 4
         plane = rows * RS + (4 - rows * RS) % 32
@@ -190,22 +264,36 @@ def f32_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
                 best is None or key < best[0]):
             best = (key, TH, TW, rows, cols, RS, plane, n_th, n_tw)
     if best is None:
-        raise ValueError(f"no fp32 conv tile fits K={K}, S={S} in "
-                         f"{SMEM_MAX} bytes of shared memory")
+        raise ValueError(f"no fp32 conv tile {'' if tile is None else tile} "
+                         f"fits K={K}, S={S} in {SMEM_MAX} bytes of shared "
+                         "memory")
     _, TH, TW, rows, cols, RS, plane, n_th, n_tw = best
-    fit = next(((st, cb) for st in F32_STAGES
-                for cb in range(min(C, F32_MAX_CB), 0, -1)
-                if _f32_smem(st, cb, plane, K) <= SMEM_PAIR), (2, 1))
+    if block_c is None:
+        fit = next(((st, cb) for st in F32_STAGES
+                    for cb in range(min(C, F32_MAX_CB), 0, -1)
+                    if _f32_smem(st, cb, plane, K) <= SMEM_PAIR), (2, 1))
+    else:
+        if not 1 <= block_c <= C:
+            raise ValueError(f"block_c {block_c} not in [1, {C}]")
+        fit = next(((st, block_c) for lim in (SMEM_PAIR, SMEM_MAX)
+                    for st in F32_STAGES
+                    if _f32_smem(st, block_c, plane, K) <= lim), None)
+        if fit is None:
+            raise ValueError(f"block_c {block_c} does not fit {SMEM_MAX} "
+                             "bytes of shared memory in 2 stages")
     stages, Cb = fit
     smem = _f32_smem(stages, Cb, plane, K)
     n_chunks, n_f = -(-C // Cb), -(-F // F32_FB)
     tiles = n_th * n_tw * n_f
-    n_split = 1
-    if tiles < SMS:
-        cap = n_chunks // -(-F32_MIN_RANGE_TAPS // (Cb * K * K))
-        n_split = fewest_ranges(n_chunks, tiles, SMS,
-                                min(max(1, cap), -(-SMS // tiles),
-                                    65535 // n_f))
+    if n_split is not None:
+        _check_split(n_split, n_chunks, n_f, f"{n_chunks} chunks")
+    else:
+        n_split = 1
+        if tiles < SMS:
+            cap = n_chunks // -(-F32_MIN_RANGE_TAPS // (Cb * K * K))
+            n_split = fewest_ranges(n_chunks, tiles, SMS,
+                                    min(max(1, cap), -(-SMS // tiles),
+                                        65535 // n_f))
     return F32Tile(H_O=H_O, W_O=W_O, p=p, path=path, TH=TH, TW=TW,
                    n_th=n_th, n_tw=n_tw, n_f=n_f, rows=rows, cols=cols,
                    RS=RS, plane=plane, Cb=Cb, n_chunks=n_chunks,
@@ -288,9 +376,15 @@ def _u8_smem(path: int, win: int, steps: int, stages: int):
 @functools.lru_cache(maxsize=512)
 def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
             padding: Optional[int], batch: int = 1,
-            path: Optional[int] = None) -> U8Tile:
-    """The u8 x s8 lane's geometry for x (batch,H,W,c), w (k,k,c,f).  The
-    policy's ``tile_h``/``tile_w``/``block_c``/``block_f`` do not apply.
+            path: Optional[int] = None,
+            tile: Optional[Tuple[int, int]] = None,
+            n_split: Optional[int] = None,
+            stages: Optional[int] = None) -> U8Tile:
+    """The u8 x s8 lane's geometry for x (batch,H,W,c), w (k,k,c,f).
+    ``path``, ``tile`` (TH, TW), ``n_split`` and ``stages`` override the
+    choices below; each is checked (the path against K and S, the tile
+    against the path's pixels, the ring in :data:`SMEM_MAX`, the split
+    within the items and the grid) and raises where it does not fit.
 
     The path is the gather path where C <= :data:`U8_GATHER_MAX_C`, else
     the slide path at K = 3 and stride 1 where its 16 x 16 output tiles
@@ -333,26 +427,43 @@ def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
     elif path not in (U8_WINDOW, U8_GATHER, U8_SLIDE) or (
             path == U8_SLIDE and (K, S) != (3, 1)):
         raise ValueError(f"path {path} does not take K={K}, S={S}")
+    if tile is not None:
+        TH, TW = (int(v) for v in tile)
+        if path == U8_SLIDE and (TH, TW) != (U8_SLIDE_TILE,) * 2:
+            raise ValueError(f"the slide path's tile is {U8_SLIDE_TILE} x "
+                             f"{U8_SLIDE_TILE}, not {TH} x {TW}")
+        if min(TH, TW) < 1 or TH * TW > U8_M:
+            raise ValueError(f"u8 tile {TH} x {TW} not within {U8_M} "
+                             "pixels")
+        cands = [(TH, TW)]
+    elif path == U8_SLIDE:
+        cands = [(U8_SLIDE_TILE, U8_SLIDE_TILE)]
+    else:
+        cands = [(min(U8_M // TW, H_O), TW)
+                 for TW in range(1, min(W_O, U8_M) + 1)]
     best = None
-    tws = [U8_SLIDE_TILE] if path == U8_SLIDE else range(1, min(W_O, U8_M) + 1)
-    for TW in tws:
-        TH = U8_SLIDE_TILE if path == U8_SLIDE else min(U8_M // TW, H_O)
+    for TH, TW in cands:
         rows, cols = (TH - 1) * S + K, (TW - 1) * S + K
         n_th, n_tw = -(-H_O // TH), -(-W_O // TW)
         key = (n_th * n_tw, TW % 8 != 0, rows * cols, -TW)
         if best is None or key < best[0]:
             best = (key, TH, TW, rows, cols, n_th, n_tw)
     _, TH, TW, rows, cols, n_th, n_tw = best
+    if stages is not None and stages not in U8_STAGES:
+        raise ValueError(f"stages {stages} not in {U8_STAGES}")
+    sts = U8_STAGES if stages is None else (stages,)
     if path != U8_GATHER:
         win = -(-(rows * cols * U8_STEP) // 128) * 128
         fits = [(K * K, st, lim) for lim in (SMEM_PAIR, SMEM_MAX)
-                for st in U8_STAGES]
-        fits += [(g, 2, SMEM_MAX) for g in range(K * K - 1, 0, -1)]
+                for st in sts]
+        if path != U8_SLIDE:    # the slide path takes every tap an item
+            fits += [(g, min(sts), SMEM_MAX)
+                     for g in range(K * K - 1, 0, -1)]
     else:
         win = -(-(rows * cols * C) // 128) * 128
         g = min(U8_GATHER_STEPS, -(-(K * K * C) // U8_STEP))
         fits = [(g, st, lim) for lim in (SMEM_PAIR, SMEM_MAX)
-                for st in U8_STAGES]
+                for st in sts]
     steps, stages = next(((g, st) for g, st, lim in fits
                           if _u8_smem(path, win, g, st)[1] <= lim),
                          (None, None))
@@ -373,13 +484,18 @@ def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
     # blocks an SM: the gather path is built for 3, the others for 2
     slots = SMS * min(3 if path == U8_GATHER else 2,
                       SM_SMEM // (smem + 1024))
-    n_split = 1
-    if tiles < slots and path != U8_SLIDE:
-        # in steps of 128 pixels
-        m128 = steps * u8_block_pixels(path) // U8_M
-        cap = n_items // -(-U8_MIN_RANGE_STEPS // m128)
-        n_split = fewest_ranges(n_items, tiles, slots,
-                                min(max(1, cap), 65535 // n_f))
+    if n_split is not None:
+        if path == U8_SLIDE and n_split != 1:
+            raise ValueError("the slide path does not split its sum")
+        _check_split(n_split, n_items, n_f, f"{n_items} items")
+    else:
+        n_split = 1
+        if tiles < slots and path != U8_SLIDE:
+            # in steps of 128 pixels
+            m128 = steps * u8_block_pixels(path) // U8_M
+            cap = n_items // -(-U8_MIN_RANGE_STEPS // m128)
+            n_split = fewest_ranges(n_items, tiles, slots,
+                                    min(max(1, cap), 65535 // n_f))
     return U8Tile(H_O=H_O, W_O=W_O, p=p, path=path, TH=TH, TW=TW,
                   n_th=n_th, n_tw=n_tw, n_f=n_f, rows=rows, cols=cols,
                   steps=steps, n_tg=n_tg, n_items=n_items, n_split=n_split,
@@ -486,12 +602,15 @@ def load_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=256)
 def f32_launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int,
-                    S: int, padding: Optional[int], w_aligned: bool):
+                    S: int, padding: Optional[int], w_aligned: bool,
+                    schedule: Optional[Schedule] = None):
     """The fp32 geometry and the C function's integer arguments for one
-    call's shape (cached: the wrapper's host time bounds the small
-    shapes).  The geometry does not depend on the batch ``x_shape[0]``."""
+    call's shape and ``schedule`` (cached: the wrapper's host time bounds
+    the small shapes).  The geometry does not depend on the batch
+    ``x_shape[0]``."""
     N, H, W, C = x_shape
-    t = f32_tile((H, W), C, K, F, stride=S, padding=padding)
+    t = f32_tile((H, W), C, K, F, stride=S, padding=padding,
+                 **(schedule or Schedule()).f32())
     return t, (N, H, W, C, K, F, t.H_O, t.W_O, S, t.p, t.path, t.TH, t.TW,
                t.Cb, t.n_split, t.stages, t.RS, t.plane,
                int(F % 4 == 0 and w_aligned))
@@ -499,11 +618,13 @@ def f32_launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int,
 
 @functools.lru_cache(maxsize=512)
 def u8_launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int,
-                   S: int, padding: Optional[int]):
+                   S: int, padding: Optional[int],
+                   schedule: Optional[Schedule] = None):
     """The u8 x s8 geometry and the C function's integer arguments for one
-    call's shape (cached, as :func:`f32_launch_args`)."""
+    call's shape and ``schedule`` (cached, as :func:`f32_launch_args`)."""
     N, H, W, C = x_shape
-    t = u8_tile((H, W), C, K, F, stride=S, padding=padding, batch=N)
+    t = u8_tile((H, W), C, K, F, stride=S, padding=padding, batch=N,
+                **(schedule or Schedule()).u8())
     return t, (N, H, W, C, K, F, t.H_O, t.W_O, S, t.p, t.path, t.TH, t.TW,
                t.steps, t.n_split, t.stages)
 
@@ -543,6 +664,20 @@ def u8_weights_keep(w: torch.Tensor, key, wt: torch.Tensor) -> None:
     ent[1][key] = ((w._version, w.data_ptr()), wt)
 
 
+def check_schedule(schedule: Schedule, x_shape, w_shape, stride: int,
+                   padding: Optional[int], floating: bool):
+    """The geometry ``schedule`` gives a call of x ``x_shape`` (N,H,W,C)
+    and w ``w_shape`` (K,K,C,F) on its lane: an :class:`F32Tile` or a
+    :class:`U8Tile`; raises where the kernel cannot take an override."""
+    N, H, W, C = (int(v) for v in x_shape)
+    K, F = int(w_shape[0]), int(w_shape[-1])
+    if floating:
+        return f32_tile((H, W), C, K, F, stride=int(stride),
+                        padding=padding, **schedule.f32())
+    return u8_tile((H, W), C, K, F, stride=int(stride), padding=padding,
+                   batch=N, **schedule.u8())
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -567,26 +702,30 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                 padding: Optional[int] = None,
                 bias: Optional[torch.Tensor] = None, relu: bool = False,
                 requant_shift: Optional[int] = None, requant=None,
-                tile_h: int = 8, tile_w: int = 16, block_c: int = 32,
-                block_f: int = 32) -> torch.Tensor:
+                schedule: Optional[Schedule] = None) -> torch.Tensor:
     """TrIM conv. x (N,H,W,C), w (K,K,C,F) -> (N,H_O,W_O,F).
 
     fp32 x fp32 -> fp32, or uint8 x int8 -> int32 (uint8 with
     ``requant_shift`` or per-channel ``requant=(mult, shift)``).  ``bias``
     (F,) is fp32 on the float lane and int32 on the integer lane.  A CPU
-    ``x`` runs :func:`trim_conv2d_plain`; a CUDA ``x`` launches the
-    kernel on the current stream, or raises.  ``tile_h``/``tile_w``/
-    ``block_c``/``block_f`` mirror the JAX package's signature and shape
-    no launch: the fp32 lane plans its geometry from the per-image shape
-    (:func:`f32_tile`), the integer lane from the shape and the batch
-    (:func:`u8_tile`).  Where either splits its sum, one call launches the
+    ``x`` runs :func:`trim_conv2d_plain` (``schedule`` checked, the same
+    function whatever it says); a CUDA ``x`` launches the kernel on the
+    current stream, or raises.  The fp32 lane plans its geometry from the
+    per-image shape (:func:`f32_tile`), the integer lane from the shape and
+    the batch (:func:`u8_tile`), each with ``schedule``'s overrides (an
+    illegal one raises).  Where either splits its sum, one call launches the
     conv and the kernel that merges its partials; the integer lane's
     first call on a weight tensor (or after it changed) also launches the
     weights' transposition (:func:`u8_weights`).  One count in
     :data:`LAUNCHES` a call.
     """
     global LAUNCHES
+    if schedule is not None and not isinstance(schedule, Schedule):
+        raise TypeError(f"schedule must be a Schedule, got {schedule!r}")
     if x.device.type == "cpu":
+        if schedule is not None and not schedule.default:
+            check_schedule(schedule, x.shape, w.shape, stride, padding,
+                           x.is_floating_point())
         return trim_conv2d_plain(x, w, stride=stride, padding=padding,
                                  bias=bias, relu=relu,
                                  requant_shift=requant_shift, requant=requant)
@@ -632,7 +771,7 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     lib = load_library()
     if floating:
         t, args = f32_launch_args((N, H, W, C), K, F, int(stride), padding,
-                                  w.data_ptr() % 16 == 0)
+                                  w.data_ptr() % 16 == 0, schedule)
         if t.n_f * t.n_split > 65535:
             raise ValueError(f"{F} filters need {t.n_f} filter tiles "
                              f"(x {t.n_split} ranges > 65535)")
@@ -645,7 +784,8 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             _ptr(x), _ptr(w), _ptr(bias), _ptr(out), _ptr(parts), *args,
             int(relu), t.smem_bytes, stream))
     else:
-        t, args = u8_launch_args((N, H, W, C), K, F, int(stride), padding)
+        t, args = u8_launch_args((N, H, W, C), K, F, int(stride), padding,
+                                 schedule)
         if t.n_f * t.n_split > 65535:
             raise ValueError(f"{F} filters need {t.n_f} filter tiles "
                              f"(x {t.n_split} ranges > 65535)")

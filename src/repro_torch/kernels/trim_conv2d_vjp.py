@@ -36,8 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.trim_conv2d import (SMEM_MAX, fewest_ranges,
-                                             trim_conv2d)
+from repro_torch.kernels.trim_conv2d import (SMEM_MAX, Schedule,
+                                             fewest_ranges, trim_conv2d)
 
 #: Launches of the weight-gradient kernel since the last reset (a plain
 #: counter: callers set it to 0 before a run and read it after).
@@ -351,9 +351,9 @@ def trim_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, *, K: int,
 
 def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
                            x_hw: Tuple[int, int], stride: int = 1,
-                           padding: Optional[int] = None, tile_h: int = 8,
-                           tile_w: int = 16, block_c: int = 32,
-                           block_f: int = 32) -> torch.Tensor:
+                           padding: Optional[int] = None,
+                           schedule: Optional[Schedule] = None
+                           ) -> torch.Tensor:
     """dL/dx of the TrIM conv: g (N,H_O,W_O,F), w (K,K,C,F) -> (N,H,W,C).
 
     The forward kernel at stride 1 with the weights flipped and transposed
@@ -362,8 +362,9 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
     Otherwise the cotangent is zero-stuffed by the stride, padded with
     K-1-p rows and columns in front and up to H+K-1 in all (cropped in
     front when p > K-1), and the result cropped to H x W; input pixels that
-    no output reads get zero.  ``block_c``/``block_f`` are the forward
-    conv's and swap here.
+    no output reads get zero.  ``schedule`` overrides the geometry of
+    that stride-1 conv (over F channels into C filters), checked as the
+    forward's; None plans it from its own shape.
     """
     N, H_O, W_O, Fo = g.shape
     K = w.shape[0]
@@ -374,8 +375,7 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
     if S == 1 and p <= K - 1 and (H_O, W_O) == (H + 2 * p - K + 1,
                                                 W + 2 * p - K + 1):
         return trim_conv2d(g.contiguous(), w_t, stride=1, padding=K - 1 - p,
-                           tile_h=tile_h, tile_w=tile_w, block_c=block_f,
-                           block_f=block_c)
+                           schedule=schedule)
     if S > 1:
         Hd, Wd = (H_O - 1) * S + 1, (W_O - 1) * S + 1
         gd = g.new_zeros((N, Hd, Wd, Fo))
@@ -390,8 +390,7 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
     # (C, W, H) pads: H+K-1 rows in all, so the stride-1 sweep emits >= H
     gd = F.pad(gd, (0, 0, top, max(W + K - 1 - top - Wd, 0),
                     top, max(H + K - 1 - top - Hd, 0))).contiguous()
-    dx = trim_conv2d(gd, w_t, stride=1, padding=0, tile_h=tile_h,
-                     tile_w=tile_w, block_c=block_f, block_f=block_c)
+    dx = trim_conv2d(gd, w_t, stride=1, padding=0, schedule=schedule)
     return dx[:, :H, :W].contiguous()
 
 
@@ -399,9 +398,11 @@ class TrimConv2dFn(torch.autograd.Function):
     """The fused TrIM conv (+ bias, + ReLU) with the TrIM backward.
 
     ``TrimConv2dFn.apply(x, w, bias, plan)``: ``plan`` carries the static
-    schedule (``stride``, ``padding``, ``relu``, ``tile_h``, ``tile_w``,
-    ``block_c``, ``block_f`` — a ``ConvLayerPlan``).  The forward is
-    kernel 1 with its fused epilogue and saves x, w and the output.  The
+    schedule (``stride``, ``padding``, ``relu`` and the launch overrides
+    ``schedule`` — a ``ConvLayerPlan``).  The forward is kernel 1 with its
+    fused epilogue and saves x, w and the output; the dx conv, of another
+    shape, is planned from its own (a forward schedule is measured at the
+    forward's shape).  The
     backward rebuilds the ReLU mask from the saved output (out > 0, so
     the gradient at exactly 0 is 0), then computes dx through kernel 1
     only when x needs it (never for a network's input), dw through the
@@ -413,9 +414,7 @@ class TrimConv2dFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, plan):
         out = trim_conv2d(x, w, stride=plan.stride, padding=plan.padding,
-                          bias=bias, relu=plan.relu, tile_h=plan.tile_h,
-                          tile_w=plan.tile_w, block_c=plan.block_c,
-                          block_f=plan.block_f)
+                          bias=bias, relu=plan.relu, schedule=plan.schedule)
         ctx.save_for_backward(x, w, out)
         ctx.plan = plan
         ctx.bias_dtype = None if bias is None else bias.dtype
@@ -431,8 +430,7 @@ class TrimConv2dFn(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = trim_conv2d_input_grad(
                 gm, w.float(), x_hw=x.shape[1:3], stride=plan.stride,
-                padding=plan.padding, tile_h=plan.tile_h, tile_w=plan.tile_w,
-                block_c=plan.block_c, block_f=plan.block_f).to(x.dtype)
+                padding=plan.padding).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = trim_conv2d_wgrad(x.float().contiguous(), gm, K=w.shape[0],
                                    stride=plan.stride,

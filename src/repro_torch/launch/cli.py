@@ -6,15 +6,16 @@ execution flags of the CNN launchers (``--arch``, ``--substrate``,
 :class:`~repro_torch.engine.ExecutionPolicy` by :func:`policy_from_args`;
 :func:`serving_parent` carries the serving flags, mapped onto a
 :class:`~repro_torch.serve.ServeConfig` by :func:`serve_config_from_args`.
-The JAX parent's ``--tuning`` waits for the port's autotuner (ROADMAP
-queue 1 item 8); ``--force-pallas`` has no meaning in the port.
+``--tuning {off,cached,auto}`` applies the plan autotuner's per-layer
+winners (``engine/autotune.py``), measured on the launcher's ``--device``;
+``--force-pallas`` has no meaning in the port.
 """
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
 
-from repro_torch.engine import SUBSTRATES, ExecutionPolicy
+from repro_torch.engine import SUBSTRATES, TUNING_MODES, ExecutionPolicy
 from repro_torch.serve.config import OVERLOAD_POLICIES, ServeConfig
 
 
@@ -35,8 +36,14 @@ def execution_parent(arch_choices: Optional[Sequence[str]] = None,
                         "plain versions on the CPU); oracle: the plain "
                         "PyTorch version; f32exact: integer convs exactly "
                         "in fp32 channel chunks through the conv kernel's "
-                        "fp32 lane.  (Plan tuning, the JAX launchers' "
-                        "--tuning, waits for the port's autotuner.)")
+                        "fp32 lane")
+    p.add_argument("--tuning", choices=list(TUNING_MODES), default="off",
+                   help="per-layer plan tuning: off (the planners' "
+                        "schedules), cached (the persisted winners under "
+                        "tuned_plans/, or REPRO_TUNED_PLANS_DIR; a miss "
+                        "plans by default), auto (a miss is measured on "
+                        "the launcher's device and persisted); with "
+                        "--substrate auto only")
     p.add_argument("--emulate-hw", action="store_true",
                    help="FPGA-faithful strided layers: stride-1 sweep + "
                         "decimation + unfused epilogue (paper §V) instead "
@@ -52,10 +59,14 @@ def execution_parent(arch_choices: Optional[Sequence[str]] = None,
 
 
 def policy_from_args(args: argparse.Namespace) -> ExecutionPolicy:
-    """One place mapping parsed launcher args -> ExecutionPolicy."""
+    """One place mapping parsed launcher args -> ExecutionPolicy: the
+    substrate, emulate_hw, the tuning mode and the device the tuner
+    measures on (``--device``; "cuda" where the launcher has none)."""
     return ExecutionPolicy(
         substrate=getattr(args, "substrate", None) or "auto",
-        emulate_hw=bool(getattr(args, "emulate_hw", False)))
+        emulate_hw=bool(getattr(args, "emulate_hw", False)),
+        tuning=getattr(args, "tuning", None) or "off",
+        tune_device=getattr(args, "device", None) or "cuda")
 
 
 def serving_parent(buckets_default: str = "1,4,16,64",

@@ -71,6 +71,7 @@ from repro_torch.launch.hlo_stats import (StepRecorder, collective_stats,
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, NVLINK_BW,
                                      PEAK_FLOPS_BF16)
 from repro_torch.launch.specs import input_specs, model_flops
+from repro_torch.nn.blocks import REMAT_MODES
 from repro_torch.nn.models import build_model, decoder_schedule
 
 #: what the step ran on in the dry-run
@@ -353,6 +354,9 @@ def run_cell(arch: str, cell: ShapeCell, multi_pod: bool, fsdp: bool = False,
     }
     record["fsdp"] = fsdp
     record["accum"] = accum
+    # what the train step's backward keeps of each period (its peak and
+    # its recomputed flops follow it); prefill and decode build no graph
+    record["remat"] = cfg.remat
     if cfg_overrides:
         record["cfg_overrides"] = {k: str(v) for k, v in
                                    cfg_overrides.items()}
@@ -436,7 +440,11 @@ def main() -> None:
                     help="record directory")
     ap.add_argument("--fsdp", action="store_true",
                     help="FSDP/ZeRO-3 parameter sharding over the DP axes")
+    ap.add_argument("--remat", choices=REMAT_MODES, default=None,
+                    help="what the train step's backward keeps of each "
+                         "period (default: the config's remat)")
     args = ap.parse_args()
+    over = {"remat": args.remat} if args.remat else None
     # DTensor's note on two sequential all-reduces, and the fake tensors'
     # trace of an operator that refuses: the failure itself is reported
     for name in ("torch.distributed.tensor._redistribute",
@@ -454,10 +462,12 @@ def main() -> None:
                  if args.shape is None or c.name == args.shape]
         for cell in cells:
             for mp in meshes:
-                tag = f"{arch}__{cell.name}__{'multi' if mp else 'single'}"
+                tag = (f"{arch}__{cell.name}__{'multi' if mp else 'single'}"
+                       + (f"__remat-{args.remat}" if args.remat else ""))
                 print(f"[dryrun] {tag} ...", flush=True)
                 try:
-                    rec = run_cell(arch, cell, mp, fsdp=args.fsdp)
+                    rec = run_cell(arch, cell, mp, fsdp=args.fsdp,
+                                   cfg_overrides=over)
                 except Exception as e:
                     print(f"[dryrun] FAIL {tag}: {e}")
                     traceback.print_exc()

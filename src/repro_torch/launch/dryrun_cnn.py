@@ -22,8 +22,12 @@ map onto one ``ExecutionPolicy``; the per-layer plan
 integer inference forward with placeholder requant pairs (16384, 20) in
 every non-last layer, ``--int5`` the MSR weight lane's: each rank runs
 it on its rows of the batch (the integer lanes have no mesh arm; a
-data-parallel forward issues no collective).  There is no ``--tuning``:
-plan tuning waits for the port's autotuner (ROADMAP queue 1 item 8).
+data-parallel forward issues no collective).  ``--tuning cached`` plans
+each layer with the autotuner's persisted CPU winners and ``auto``
+measures a miss on the CPU first (the dry-run runs no card; the records'
+``plan`` shows ``"tuned": true`` where a winner applied).  Plans are made
+before the fake mode is entered: a measurement on fake tensors measures
+nothing.
 """
 import argparse
 import json
@@ -85,6 +89,7 @@ def _int_record(cfg, args, mesh, dp, policy, datapath="int8"):
     H, W = cfg.input_hw
     int5 = datapath == "int5"
     mplan = plan_model(cfg, policy)
+    lane = mplan.int5 if int5 else mplan.int8     # planned (tuned) here
     rows = args.batch // _local_rows(mesh, dp)
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True):
@@ -115,7 +120,8 @@ def _int_record(cfg, args, mesh, dp, policy, datapath="int8"):
         "kind": f"{datapath}_infer", "chips": mesh.size(),
         "multi_pod": args.multi_pod,
         "mesh": {ax: int(n) for ax, n in mesh_shape(mesh).items()},
-        "plan": list((mplan.int5 if int5 else mplan.int8).describe()),
+        "tuning": policy.tuning,
+        "plan": list(lane.describe()),
         "counted_on": COUNTED_ON + ", each rank's rows",
         "compile_s": round(time.time() - t0, 1),
         "memory": mem,
@@ -159,6 +165,7 @@ def train_record(cfg, args, mesh, policy) -> dict:
         "arch": args.arch, "shape": f"train_{H}x{W}_b{args.batch}",
         "kind": "train", "chips": chips, "emulate_hw": args.emulate_hw,
         "mesh": {ax: int(n) for ax, n in mesh_shape(mesh).items()},
+        "tuning": policy.tuning,
         "plan": list(plan.describe()),
         "counted_on": COUNTED_ON,
         "compile_s": round(time.time() - t0, 1),
@@ -182,7 +189,8 @@ def main() -> None:
                  "torch._subclasses.fake_tensor"):
         logging.getLogger(name).setLevel(logging.CRITICAL)
 
-    policy = policy_from_args(args)
+    # no card in a dry-run: the tuner's cache and measurements are the CPU's
+    policy = policy_from_args(args).with_overrides(tune_device="cpu")
     cfg = CNN_REGISTRY[args.arch]
     mesh = scaled_mesh(args.multi_pod)
     rec = train_record(cfg, args, mesh, policy)

@@ -29,6 +29,9 @@ tensors, and reads instead:
   no collective at all).
 - ``flops``: matmul, conv and attention flops (``torch.utils.
   flop_counter``'s formulas, 2 per multiply-add) on the local shapes.
+  Under a period's remat (``nn/blocks.py:remat_period``) the backward's
+  recompute runs inside the recorder and counts again, as XLA counts a
+  rematerialized forward; a product "dots" saved is not run again.
   ``FlopCounterMode`` entered around DTensor code counts the GLOBAL
   shapes; XLA's ``cost_analysis`` of a partitioned module is per device,
   and so are these.

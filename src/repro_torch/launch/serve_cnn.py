@@ -24,9 +24,12 @@ the card each executable is a CUDA graph captured once per key, and again
 after each restore of the int5 wire; the captures per key are printed and
 written as ``captures``); on
 failure it dumps the admission ledger (every request's terminal state and
-what the fault plane fired) as JSON to stderr.  ``--substrate`` and
-``--emulate-hw`` select the execution policy
-(``launch.cli.execution_parent``).
+what the fault plane fired) as JSON to stderr.  ``--substrate``,
+``--emulate-hw`` and ``--tuning`` select the execution policy
+(``launch.cli.execution_parent``); under ``--tuning`` each bucket plans
+at its own batch with the autotuner's winners (measured on ``--device``
+under ``auto``), and the metrics JSON gets each bucket's plan
+(``bucket_plans``).
 
 ``--faults SPEC`` arms the seeded fault-injection plane and the
 degradation ladder behind it (``build_server``): injected stage / build /
@@ -210,6 +213,15 @@ def main() -> None:
         "captures": dict(server.engine.capture_counts),
         "kernel_launches": launches,
     }
+    if policy.tuning != "off":
+        # each bucket's plan of the served lane, with its tuned schedules
+        eng = server.engine
+        lane = serve_config.datapath
+        extra["bucket_plans"] = {
+            str(b): [lp.describe((b,)) for lp in (
+                getattr(eng.bucket_plan(b), lane) if lane != "float"
+                else eng.bucket_plan(b)).layers]
+            for b in serve_config.buckets}
     injector = server.engine.injector
     if injector is not None:
         # the chaos schedule and what fired, so a degraded run is visible

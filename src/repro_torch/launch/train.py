@@ -33,10 +33,12 @@ saves every ``--ckpt-every`` steps and at the end and resumes from the
 latest committed step (the JAX package's checkpoint format).
 ``--device`` defaults to ``cuda``; without a card pass ``--device cpu``
 to run the kernels' plain versions.  The launcher exits non-zero when
-any step's loss or grad_norm is not finite.  ``--substrate`` and
-``--emulate-hw`` select the execution policy
+any step's loss or grad_norm is not finite.  ``--substrate``,
+``--emulate-hw`` and ``--tuning`` select the CNN arm's execution policy
 (``launch.cli.execution_parent``; the decimated replay has no backward on
-the kernel substrate).
+the kernel substrate; the tuned winners are the forward's, measured on
+``--device``).  The LM arm applies its config's ``remat`` to the layer
+stack.
 
 The mesh arm: under ``torchrun --nproc-per-node N`` (or alone, at world
 1, with ``--tp`` or ``--compress-grads``) the launcher joins the process

@@ -19,13 +19,25 @@ by the prefill; the decode reads it and never recomputes it.  Mamba
 caches are written in place in decode; the prefill's Mamba caches are
 stacked anew on one device and written in place on a mesh.  Every MoE
 slot's aux loss is summed over the stack.
+
+``StackSpec.remat`` is JAX's ``jax.checkpoint`` of each period
+(:func:`remat_period`): "full" saves nothing of a period and recomputes it
+in the backward; "dots" saves the outputs of the products that have no
+batch dims (the projections: ``aten.mm`` / ``aten.addmm``, as JAX's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest, the
+batched products and the kernels' Functions included.  Values and
+gradients are those of "none", bit for bit; only what the backward keeps
+changes.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.distributed.sharding import is_dtensor
@@ -48,6 +60,36 @@ class SlotSpec:
     cross_attn: bool = False   # decoder slot with encoder cross-attention
 
 
+#: What the backward keeps of a period: all of it, the outputs of the
+#: products without batch dims, or nothing (JAX's ``StackSpec.remat``).
+REMAT_MODES = ("none", "dots", "full")
+#: The products "dots" saves: the 2-D products the projections lower to
+#: (``x @ w`` of ``nn/layers.py:dense`` is view -> mm -> view; F.linear
+#: with a bias is addmm).  Batched products (bmm, the attention and MoE
+#: einsums) have batch dims and are recomputed, as JAX's policy does.
+SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_period(fn, remat: str):
+    """``fn`` wrapped in the checkpoint ``remat`` asks for ("dots",
+    "full"), or ``fn`` itself ("none").  No period draws random numbers,
+    so the RNG state is not saved (``preserve_rng_state=False``: reading
+    it would also break a CUDA-graph capture)."""
+    if remat == "none":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, **kw)
+
+
 @dataclass(frozen=True)
 class StackSpec:
     slots: Tuple[SlotSpec, ...]
@@ -67,6 +109,7 @@ class StackSpec:
     dense_ff: Optional[int] = None
     capacity_factor: float = 1.25
     moe_impl: str = "einsum"                  # einsum | gather
+    remat: str = "none"                       # none | dots | full
     chunk_k: int = 1024
     block_causal: bool = False
     kv_seqshard: str = ""                     # "" | "model" | "2d"
@@ -80,6 +123,8 @@ class StackSpec:
                 raise ValueError(f"mixer {slot.mixer!r}")
             if slot.ffn not in ("mlp", "moe", "none"):
                 raise ValueError(f"ffn {slot.ffn!r}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat {self.remat!r} not in {REMAT_MODES}")
         _norm_fns(self.norm)
 
     @property
@@ -293,11 +338,8 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
     # stack of the periods' gradients, where a slice per period would
     # add a zero-filled leaf-sized gradient per period
     per_period = list(zip(*(leaf.unbind(0) for leaf in tree_leaves(params))))
-    new_caches = []
-    aux = 0.0
-    for i in range(spec.n_periods):
-        p_i = tree_unflatten(params, per_period[i])
-        c_i = tree_map(lambda c: c[i], cache) if cache is not None else None
+
+    def period(x, p_i, c_i):
         nc = {}
         aux_i = 0.0
         for j, slot in enumerate(spec.slots):
@@ -308,6 +350,20 @@ def run_stack(params: Params, x: torch.Tensor, spec: StackSpec, *,
                 cache=c_i[f"slot{j}"] if c_i is not None else None,
                 enc_out=enc_out)
             aux_i = aux_i + a
+        return x, nc, aux_i
+
+    # remat only where the backward would keep the period's activations:
+    # a graph is built, and no cache is written in place (a recompute
+    # would write it again); decode and no-grad runs are untouched
+    if (cache is None and torch.is_grad_enabled()
+            and not torch.is_inference_mode_enabled()):
+        period = remat_period(period, spec.remat)
+    new_caches = []
+    aux = 0.0
+    for i in range(spec.n_periods):
+        p_i = tree_unflatten(params, per_period[i])
+        c_i = tree_map(lambda c: c[i], cache) if cache is not None else None
+        x, nc, aux_i = period(x, p_i, c_i)
         aux = aux + aux_i  # per period, then over periods, as JAX's scan
         new_caches.append(nc)
     if not torch.is_tensor(aux):

@@ -81,7 +81,7 @@ def _stack_spec(cfg: ModelConfig, slots, n_periods, *, tp: int,
         n_experts=cfg.n_experts, top_k=cfg.top_k,
         shared_expert=cfg.shared_expert, dense_residual=cfg.dense_residual,
         dense_ff=cfg.dense_ff, capacity_factor=cfg.capacity_factor,
-        moe_impl=cfg.moe_impl, chunk_k=cfg.chunk_k,
+        moe_impl=cfg.moe_impl, remat=cfg.remat, chunk_k=cfg.chunk_k,
         block_causal=cfg.block_causal,
         kv_seqshard=("model" if cfg.decode_kv_seqshard is True
                      else cfg.decode_kv_seqshard or ""),

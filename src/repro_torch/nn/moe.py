@@ -31,7 +31,9 @@ step) and give the same bits every run:
   same sum JAX takes (0 + a + b).
 
 :data:`DROPPED`, when set to a list, collects one 0-d device tensor per
-call: the (token, choice) slots dropped past capacity (no sync).
+call: the (token, choice) slots dropped past capacity (no sync).  Under a
+period's remat (``StackSpec.remat``) the backward's recompute calls again
+and appends again.
 """
 from __future__ import annotations
 

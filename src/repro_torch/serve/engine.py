@@ -181,8 +181,22 @@ class ServeEngine:
 
     @property
     def plan(self):
-        """The ModelPlan this engine serves."""
+        """The base (batch 1) ModelPlan this engine serves."""
         return self._plan
+
+    def bucket_plan(self, bucket: int, substrate: Optional[str] = None):
+        """The ModelPlan of one bucket: the same config and policy (its
+        substrate replaced by ``substrate`` where given: a lane's),
+        planned at the bucket's batch, so the autotuner's batch-specific
+        winners apply (its cache keys carry the batch)."""
+        from repro_torch.engine import plan_model
+
+        p = self._plan
+        policy = p.policy
+        if substrate is not None:
+            policy = policy.with_overrides(substrate=substrate)
+        return plan_model(p.cfg, policy, c_in=p.layers[0].c_in,
+                          batch=int(bucket))
 
     # -- lanes + the circuit breaker ------------------------------------
 
@@ -194,15 +208,9 @@ class ServeEngine:
         return self.lanes[self.active_lane(bucket)]
 
     def _lane_key(self, lane: Lane, bucket: int):
-        """(the lane's plan, the executable's cache key)."""
-        plan = self._plan
-        if lane.substrate is not None:
-            from repro_torch.engine import plan_model
-
-            plan = plan_model(plan.cfg,
-                              plan.policy.with_overrides(
-                                  substrate=lane.substrate),
-                              c_in=plan.layers[0].c_in)
+        """(the lane's plan at the bucket's batch, the executable's cache
+        key): each bucket's graphs are captured from its own plan."""
+        plan = self.bucket_plan(bucket, lane.substrate)
         return plan, self.executable_key(plan.cfg.name, lane.name,
                                          f"n{bucket}")
 

@@ -554,6 +554,62 @@ def test_u8s8_largest_sum_on_card(wv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("layer", [c for c in _net_layers()
+                                   if c[1] == "vgg16"], ids=lambda c: c[0])
+def test_u8s8_forced_schedules_equal_the_default_on_card(layer, batch):
+    """On a card: every launch schedule the autotuner searches on the
+    integer lane at a full-width VGG-16 conv (another path, output tile,
+    split or stage count, ``autotune.candidate_policies``) gives the
+    default schedule's output bit for bit, and the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.engine import autotune
+    from repro_torch.kernels import trim_conv2d as kern
+
+    _, _, l, groups, last = layer
+    dev = torch.device("cuda")
+    x, w, rq = _u8_layer_inputs(l, groups, batch, last, 5, dev)
+    kw = dict(stride=l.stride, padding=l.padding, relu=True, requant=rq)
+    want = kern.trim_conv2d(x, w, **kw)
+    pols = autotune.candidate_policies(
+        (l.H_I, l.W_I), l.M, l.K, l.N, stride=l.stride, padding=l.padding,
+        in_sz=1, policy=ExecutionPolicy(), batch=batch, include_kernel=True)
+    scheds = [p.schedule for p in pols[1:] if p.substrate == "auto"]
+    assert scheds
+    for sched in scheds:
+        got = kern.trim_conv2d(x, w, schedule=sched, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), sched
+    assert torch.equal(want, kern.trim_conv2d_plain(x, w, **kw))
+
+
+@pytest.mark.gpu
+def test_illegal_schedule_raises_on_card():
+    """On a card: an override the kernel cannot take raises before any
+    launch, on both lanes; it is never replaced by the default."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    dev = torch.device("cuda")
+    x = torch.zeros((2, 56, 56, 256), dtype=torch.uint8, device=dev)
+    w = torch.zeros((3, 3, 256, 256), dtype=torch.int8, device=dev)
+    before = kern.LAUNCHES
+    for bad in (kern.Schedule(tile=(16, 16), path="window"),
+                kern.Schedule(path="slide", n_split=2),
+                kern.Schedule(stages=4), kern.Schedule(n_split=10 ** 4)):
+        with pytest.raises(ValueError):
+            kern.trim_conv2d(x, w, schedule=bad)
+    for bad in (kern.Schedule(tile=(4, 4)), kern.Schedule(block_c=10 ** 4),
+                kern.Schedule(n_split=10 ** 4)):
+        with pytest.raises(ValueError):
+            kern.trim_conv2d(x.float(), w.float(), schedule=bad)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("layer", [c for c in _net_layers()
                                    if c[1] == "vgg16"], ids=lambda c: c[0])
 def test_int5_lane_bit_exact_at_vgg_width_on_card(layer):
