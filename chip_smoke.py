@@ -141,6 +141,21 @@ Phases (any failure exits non-zero and prints no result line):
    llava-next-34b's (G = 7, D = 128) prefill q (4, 4096, 8, 7, 128)
    causal and decode q (4, 1, 8, 7, 128) over a (4, 4128, 8, 128) cache
    with kv_length 4097;
+3j. the bf16 lanes: kernel 1 in bf16 (bias + ReLU in fp32, one rounding)
+   at VGG-16's 13 convs at batch 1 and 8 and AlexNet's 5 at batch 1, as
+   dx at VGG-16's CL2-CL13 at batch 1 and 8, and kernel 2 in bf16 at
+   VGG-16's 13 convs at batch 1 and 8.  Kernel 1 against its plain
+   version within one bf16 ulp of the larger magnitude plus
+   BF16_SUM_SLACK x n x 2^-24 x sum|terms| (the share of outputs past one
+   ulp logged), at batch 8 every image bit-equal to a call of it alone;
+   kernel 2 against its fp32 lane on the upcast operands (rtol 1e-3 /
+   atol 1e-3 x max) and bit-equal over two calls.  Per shape: kernel ms,
+   plain ms, cuDNN in bf16 (``F.conv2d``, ``conv2d_input``,
+   ``conv2d_weight``: yardsticks the port never calls) and the bound at
+   the bf16 peak; per part and batch the sums and the profiler's device
+   time of the 13 (12) calls; the build phase logs each bf16 entry's
+   registers and spills and its ``HMMA`` count (a spill, a missing entry
+   or no HMMA fails);
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
@@ -239,6 +254,24 @@ Phases (any failure exits non-zero and prints no result line):
    (``autotune int8 bucket 8 CL5: ...``); then ``tuning="cached"`` plans
    the same model with no measurement, and each bucket's captured graph
    of the tuned plan replays bit-equal to the default plan's;
+6c. bf16 forward: full-width VGG-16 at batch 1 and 8 and AlexNet at
+   batch 1 through ``cnn_forward`` with bf16 params
+   (``init_cnn(dtype=torch.bfloat16)``) and bf16 images: kernel 1's
+   launches by lane counted from 0 around each forward (13, 13 and 8, all
+   on bf16), bf16 logits, finite; the batch-1 logits against the same
+   forward on CPU copies (the plain versions) within BF16_LOGIT_TOL x
+   max|logit| (the fp32 kernels' logits on the same values logged beside
+   it); VGG-16's conv stack at batch 8 bit-equal image by image to
+   batch-1 calls;
+6d. bf16 train: full-width VGG-16, batch 8, 4 AdamW steps (fp32 moments)
+   from bf16 params on bf16 images: losses and grad norms finite, no step
+   skipped, 100 launches on kernel 1's bf16 lane and 52 on kernel 2's and
+   none on fp32, ms a step, peak device memory, one step profiled by op;
+   each leaf's gradient against float64 on GRAD_CHECK_BATCH images
+   through the bf16 kernels, the same bf16 function on CPU copies (the
+   plain versions) and the fp32 kernels: per leaf max|diff| / max|leaf|,
+   and the whole gradient's relative L2 error through the bf16 kernels
+   within BF16_GRAD_RATIO x the plain versions';
 7. LM serve: full-width mamba2-130m (24 layers, d_model 768, vocab
    50280, bf16, seed-0 random weights) through the functions of
    ``repro_torch.launch.serve``: one prefill of 4 x 4096 tokens, then 31
@@ -474,6 +507,22 @@ SSD_REPLACES = "src/repro/kernels/trim_ssd.py:39"
 #: H100 SXM bf16 and TF32 dense tensor-core peaks (NVIDIA data sheet)
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
+#: the bf16 conv lanes against their plain versions: one bf16 ulp of the
+#: larger magnitude plus BF16_SUM_SLACK x n x 2^-24 x sum|terms| (two fp32
+#: sums of n exact products, in other orders, part by at most about 2 n
+#: 2^-24 sum|terms| each where they cancel)
+BF16_SUM_SLACK = 4
+#: the bf16 forward's logits against the same forward on the plain
+#: versions: within BF16_LOGIT_TOL x max|logit| (the reference's bf16
+#: conv tolerance, tests/test_kernels.py:64)
+BF16_LOGIT_TOL = 2e-2
+#: the bf16 train step's gradients against float64, on GRAD_CHECK_BATCH
+#: images: the whole gradient's relative L2 error through the bf16
+#: kernels within BF16_GRAD_RATIO x that of the same bf16 function on the
+#: plain versions (two bf16 computations that differ in their fp32 sums'
+#: order part by about sqrt(2) x the error of each where they are right)
+BF16_GRAD_RATIO = 2.0
+GRAD_CHECK_BATCH = 2
 #: The LM serve phases: mamba2-130m (ssm) and granite-3-2b (dense) at
 #: batch 4, a 4096-token prompt, 32 generated tokens; the fp32 checks at
 #: batch 2 and 512 tokens.
@@ -620,6 +669,11 @@ U8_ENTRIES = {
     "trim_conv2d_u8s8_kernelILi1EhE": "u8s8 gather uint8 out"}
 
 
+#: The bf16 lane's kernel entries: mangled-name fragment -> label.
+BF16_ENTRIES = {"trim_conv2d_bf16_kernelILi0EE": "bf16 window",
+                "trim_conv2d_bf16_kernelILi1EE": "bf16 gather"}
+
+
 def _log_conv_build() -> None:
     """The conv kernel's registers and spills per path from its
     ``-Xptxas -v`` build log (both lanes are built for two blocks an SM:
@@ -638,30 +692,39 @@ def _log_conv_build() -> None:
                **U8_ENTRIES,
                "trim_conv2d_u8s8_wprep": "u8s8 weight transposition",
                "trim_conv2d_u8s8_mergeIiE": "u8s8 split merge int32 out",
-               "trim_conv2d_u8s8_mergeIhE": "u8s8 split merge uint8 out"}
+               "trim_conv2d_u8s8_mergeIhE": "u8s8 split merge uint8 out",
+               **BF16_ENTRIES,
+               "trim_conv2d_bf16_merge": "bf16 split merge"}
     found = _ptxas_by_entry(
         _build.build_log(kern._LIB_NAME, kern._SOURCES) or "", entries)
     for label in entries.values():
         log(f"conv kernel, {label} path: {found.get(label, 'not in the log')}")
+    for label in BF16_ENTRIES.values():
+        info = found.get(label)
+        if info is None or any(int(v) for v in re.findall(
+                r"(\d+) bytes spill", info)):
+            fail(f"conv kernel {label}: not built, or spills ({info})")
     cuobjdump = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run(
         [str(cuobjdump), "-sass",
          str(_build.library_path(kern._LIB_NAME, kern._SOURCES))],
         capture_output=True, text=True, timeout=300)
-    imma, name = {}, None
+    mma, name = {}, None
+    tc = {**{k: (v, "IMMA") for k, v in U8_ENTRIES.items()},
+          **{k: (v, "HMMA") for k, v in BF16_ENTRIES.items()}}
     for line in sass.stdout.splitlines():
         if "Function :" in line:
-            name = next((v for k, v in U8_ENTRIES.items() if k in line), None)
+            name = next((v for k, v in tc.items() if k in line), None)
             if name is not None:
-                imma[name] = 0
-        elif name is not None and "IMMA" in line:
-            imma[name] += 1
-    for label in U8_ENTRIES.values():
-        n = imma.get(label)
+                mma[name[0]] = 0
+        elif name is not None and name[1] in line:
+            mma[name[0]] += 1
+    for label, op in tc.values():
+        n = mma.get(label)
         log(f"conv kernel, {label}: "
-            + ("not in the SASS" if n is None else f"{n} IMMA instructions"))
+            + ("not in the SASS" if n is None else f"{n} {op} instructions"))
         if hasattr(kern.load_library(), "trim_conv2d_u8_pixels") and not n:
-            fail(f"conv kernel {label}: no IMMA in its SASS (cuobjdump rc "
+            fail(f"conv kernel {label}: no {op} in its SASS (cuobjdump rc "
                  f"{sass.returncode}: {sass.stderr.strip()[:200]})")
 
 
@@ -1118,11 +1181,399 @@ def _log_wgrad_build() -> None:
              "kernelILb0E": vjp.PATH_SCALAR}
     names = {vjp.PATH_K3: "K=3 taps", vjp.PATH_VEC: "16-byte rows",
              vjp.PATH_SCALAR: "scalar rows"}
-    found = _ptxas_by_entry(
-        _build.build_log(vjp._LIB_NAME, vjp._SOURCES) or "", paths)
+    text = _build.build_log(vjp._LIB_NAME, vjp._SOURCES) or ""
+    found = _ptxas_by_entry(text, paths)
     for path, info in found.items():
         log(f"wgrad kernel, {names[path]} path: {info}; the split assumes "
             f"{vjp.WGRAD_REGS[path]} registers")
+    bf = _ptxas_by_entry(text, {"wgrad_bf16_kernel": "bf16"}).get("bf16")
+    log(f"wgrad kernel, bf16 lane: {bf or 'not in the log'}")
+    if bf is None or any(int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                   bf)):
+        fail(f"wgrad kernel bf16 lane: not built, or spills ({bf})")
+
+
+def _bf16_gate(torch, got, want, slack, what: str):
+    """Fail unless every output of the bf16 ``got`` is within one bf16 ulp
+    of the larger magnitude of it and the plain ``want``, plus ``slack``
+    (BF16_SUM_SLACK x n x 2^-24 x sum|terms| of the output's fp32 sum:
+    the two sums, in other orders, part by at most that where they
+    cancel).  Returns (max|got - want|, the share of outputs more than one
+    ulp apart)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{what}: {got.dtype} {tuple(got.shape)} vs plain "
+             f"{want.dtype} {tuple(want.shape)}")
+    g, e = got.float(), want.float()
+    mag = torch.maximum(g.abs(), e.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (g - e).abs()
+    if not bool((diff <= ulp + slack).all()):
+        fail(f"{what}: max|kernel - plain| - (ulp + slack) = "
+             f"{float((diff - ulp - slack).max()):.3g}")
+    return float(diff.max()), float((diff > ulp).float().mean())
+
+
+def _abs_slack(torch, a, b, n: int, **kw):
+    """BF16_SUM_SLACK x n x 2^-24 x the fp32 conv of |a| with |b|."""
+    from repro_torch.kernels import ref
+
+    return BF16_SUM_SLACK * n * 2.0 ** -24 * ref.conv2d(
+        a.float().abs(), b.float().abs(), **kw)
+
+
+def _bf16_cases():
+    """(arch, layer, groups) of the bf16 rows: VGG-16's 13 convs, then
+    AlexNet's 5 (per group: CL2, CL4 and CL5 in two)."""
+    return [(a, l, g) for a, i, l, g, _ in _u8_cases()]
+
+
+def phase_bf16_kernels(torch, reps: int):
+    """3j. The bf16 lanes: kernel 1 forward (bias+ReLU) at VGG-16's 13
+    convs at batch 1 and 8 and AlexNet's 5 at batch 1, kernel 1 as dx at
+    VGG-16's CL2-CL13 at batch 1 and 8, kernel 2 at VGG-16's 13 convs at
+    batch 1 and 8; each against its plain version, timed beside it, cuDNN
+    in bf16 and the bound at the bf16 peak; per (part, batch) the sums and
+    the device time of the 13 (12) calls under ``torch.profiler``."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    rows, calls = [], {}
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    for N in (1, TRAIN_BATCH):
+        for arch, l, groups in _bf16_cases():
+            if arch == "alexnet" and N > 1:
+                continue
+            C, Cg, Fo = l.M * groups, l.M, l.N
+            Fg, K, S, p = Fo // groups, l.K, l.stride, l.padding
+            pp = K // 2 if p is None else p
+            name = f"{arch} {l.name} batch {N}"
+            macs = N * l.H_O * l.W_O * Fo * K * K * Cg
+            x = randn((N, l.H_I, l.W_I, C))
+            w = randn((K, K, Cg, Fo), (2.0 / (K * K * Cg)) ** 0.5)
+            b = randn((Fo,), 0.1)
+            cut = [(x[..., j * Cg:(j + 1) * Cg].contiguous(),
+                    w[..., j * Fg:(j + 1) * Fg].contiguous(),
+                    b[j * Fg:(j + 1) * Fg].contiguous())
+                   for j in range(groups)]
+
+            def fwd(fn=kern.trim_conv2d, cut=cut, S=S, p=p):
+                return [fn(a, c, stride=S, padding=p, bias=d, relu=True)
+                        for a, c, d in cut]
+
+            got, want = fwd(), fwd(kern.trim_conv2d_plain)
+            gates = [_bf16_gate(torch, a, e, _abs_slack(
+                torch, c[0], c[1], K * K * Cg, stride=S, padding=p),
+                f"{name} bf16 forward") for a, e, c in zip(got, want, cut)]
+            if N > 1:       # the batch of N equals N calls of one image
+                for j, (a, c, d) in enumerate(cut):
+                    for i in range(N):
+                        one = kern.trim_conv2d(a[i:i + 1].contiguous(), c,
+                                               stride=S, padding=p, bias=d,
+                                               relu=True)
+                        if not torch.equal(got[j][i:i + 1], one):
+                            fail(f"{name} bf16 forward: image {i} of the "
+                                 f"batch differs from the image alone")
+            x_nchw = x.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            nbytes = 2 * (x.numel() + w.numel() + b.numel()
+                          + N * l.H_O * l.W_O * Fo)
+            calls[("fwd", arch, N)] = calls.get(("fwd", arch, N), []) + [fwd]
+            rows.append({
+                "arch": arch, "layer": l.name, "batch": N, "kind": "fwd",
+                "launches": groups, "max_abs_err": max(g[0] for g in gates),
+                "past_ulp": max(g[1] for g in gates),
+                "ms": cuda_ms(torch, fwd, reps),
+                "plain_ms": cuda_ms(torch, lambda: fwd(kern.trim_conv2d_plain),
+                                    max(1, reps // 5)),
+                "library_ms": cuda_ms(torch, lambda: F.conv2d(
+                    x_nchw, w_oihw, b, stride=S, padding=pp, groups=groups),
+                    reps),
+                **bound(macs, nbytes, False, PEAK_BF16)})
+            if arch != "vgg16":
+                continue
+            # dw (every conv) and dx (CL2-CL13: the train step's)
+            g = randn((N, l.H_O, l.W_O, Fo))
+            xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+
+            def dw(x=x, g=g, K=K, S=S, p=p):
+                return vjp.trim_conv2d_wgrad(x, g, K=K, stride=S, padding=p)
+
+            got_w = dw()
+            want_w = vjp.trim_conv2d_wgrad(x.float(), g.float(), K=K,
+                                           stride=S, padding=p)
+            err_w = _close(got_w, want_w, f"{name} bf16 dw against the fp32 "
+                           "lane")
+            if not torch.equal(got_w, dw()):
+                fail(f"{name} bf16 dw: two calls differ")
+            nb = 2 * (x.numel() + g.numel()) + 4 * w.numel()
+            nb_dx = 2 * (g.numel() + w.numel() + x.numel())
+            calls[("dw", arch, N)] = calls.get(("dw", arch, N), []) + [dw]
+            rows.append({
+                "arch": arch, "layer": l.name, "batch": N, "kind": "dw",
+                "launches": 1, "max_abs_err": err_w,
+                "ms": cuda_ms(torch, dw, reps),
+                "plain_ms": cuda_ms(torch, lambda: vjp.trim_conv2d_wgrad_plain(
+                    x, g, K=K, stride=S, padding=p), max(1, reps // 5)),
+                "library_ms": cuda_ms(torch, lambda: conv2d_weight(
+                    xn, w_oihw.shape, gn, stride=S, padding=pp), reps),
+                **bound(macs, nb, False, PEAK_BF16)})
+            if l.name == "CL1":
+                continue
+
+            def dx(g=g, w=w, l=l, S=S, p=p):
+                return vjp.trim_conv2d_input_grad(g, w, x_hw=(l.H_I, l.W_I),
+                                                  stride=S, padding=p)
+
+            def dx_plain(g=g, w=w, K=K, pp=pp):
+                w_t = w.flip(0, 1).permute(0, 1, 3, 2).contiguous()
+                return kern.trim_conv2d_plain(g, w_t, stride=1,
+                                              padding=K - 1 - pp)
+
+            w_t = w.flip(0, 1).permute(0, 1, 3, 2).contiguous()
+            err_x, past_x = _bf16_gate(
+                torch, dx(), dx_plain(), _abs_slack(
+                    torch, g, w_t, K * K * Fo, stride=1, padding=K - 1 - pp),
+                f"{name} bf16 dx")
+            calls[("dx", arch, N)] = calls.get(("dx", arch, N), []) + [dx]
+            rows.append({
+                "arch": arch, "layer": l.name, "batch": N, "kind": "dx",
+                "launches": 1, "max_abs_err": err_x, "past_ulp": past_x,
+                "ms": cuda_ms(torch, dx, reps),
+                "plain_ms": cuda_ms(torch, dx_plain, max(1, reps // 5)),
+                "library_ms": cuda_ms(torch, lambda: conv2d_input(
+                    xn.shape, w_oihw, gn, stride=S, padding=pp), reps),
+                **bound(macs, nb_dx, False, PEAK_BF16)})
+    for r in rows:
+        past = (f"; past one ulp {r['past_ulp']:.2e}" if "past_ulp" in r
+                else "")
+        log(f"bf16 {r['kind']} {r['arch']:7s} {r['layer']:4s} batch "
+            f"{r['batch']} ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}) err {r['max_abs_err']:.3g}{past}")
+    for (kind, arch, N), fns in calls.items():
+        sel = [r for r in rows if (r["kind"], r["arch"], r["batch"])
+               == (kind, arch, N)]
+        dms = device_ms(torch, lambda: [f() for f in fns], 5)
+        ms, bnd = sum(r["ms"] for r in sel), sum(r["bound_ms"] for r in sel)
+        log(f"bf16 {kind} {arch} batch {N}, sum of {len(sel)} convs: ms "
+            f"{ms:.4f} device_ms {_fmt(dms)} plain_ms "
+            f"{sum(r['plain_ms'] for r in sel):.4f} library_ms "
+            f"{sum(r['library_ms'] for r in sel):.4f} bound_ms {bnd:.4f} "
+            f"(bound/ms {bnd / ms:.3f})")
+        for r in sel:
+            r["sum_device_ms"] = dms
+    return rows
+
+
+def _cpu_tree(torch, tree):
+    from repro_torch.core.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def phase_bf16_forward(torch) -> dict:
+    """6c. Full-width VGG-16 (batch 1 and 8) and AlexNet (batch 1)
+    forward in bf16 (bf16 params from ``init_cnn(dtype=torch.bfloat16)``,
+    bf16 images) through ``cnn_forward``: kernel 1's bf16 launches
+    counted around each (13, 13, 8), bf16 logits, finite; the batch-1
+    logits against the same forward on CPU copies (the plain versions)
+    within BF16_LOGIT_TOL x max|logit|; VGG-16's conv stack at batch 8
+    bit-equal image by image to batch-1 calls.  Returns the launches."""
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.engine import ExecutionPolicy, execute, plan_model
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.nn.conv import cnn_forward, init_cnn
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for arch, batches in (("vgg16", (1, TRAIN_BATCH)), ("alexnet", (1,))):
+        cfg = CNN_REGISTRY[arch]
+        params = init_cnn(0, cfg, dev, dtype=torch.bfloat16)
+        images = torch.randn((max(batches),) + cfg.input_hw
+                             + (cfg.layers[0].M,), generator=gen,
+                             device=dev).to(torch.bfloat16)
+        for N in batches:
+            x = images[:N].contiguous()
+            cnn_forward(params, x, cfg)                 # warm
+            torch.cuda.synchronize()
+            kern.LAUNCHES_BY_LANE.update(dict.fromkeys(kern.LAUNCHES_BY_LANE,
+                                                       0))
+            t0 = time.perf_counter()
+            logits = cnn_forward(params, x, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            lanes = dict(kern.LAUNCHES_BY_LANE)
+            want = {"vgg16": 13, "alexnet": 8}[arch]
+            if lanes != {"f32": 0, "bf16": want, "u8": 0}:
+                fail(f"bf16 forward {arch} batch {N}: launches by lane "
+                     f"{lanes}, expected {want} on bf16")
+            if logits.dtype != torch.bfloat16 or logits.shape != (
+                    N, cfg.n_classes) or not bool(
+                    torch.isfinite(logits).all()):
+                fail(f"bf16 forward {arch} batch {N}: {logits.dtype} "
+                     f"{tuple(logits.shape)}, finite "
+                     f"{bool(torch.isfinite(logits).all())}")
+            out[(arch, N)] = lanes["bf16"]
+            msg = (f"bf16 forward {arch} batch {N}: {ms:.3f} ms (host "
+                   f"clock), {lanes['bf16']} launches on kernel 1's bf16 "
+                   "lane")
+            if N == 1:
+                ref = cnn_forward(_cpu_tree(torch, params), x.cpu(), cfg,
+                                  policy=ExecutionPolicy("kernel"))
+                f32 = cnn_forward({k: [{n: t.float() for n, t in e.items()}
+                                       for e in v] for k, v in
+                                   params.items()}, x.float(), cfg)
+                scale = float(ref.float().abs().max())
+                err = float((logits.cpu().float() - ref.float()).abs().max())
+                err32 = float((logits.float() - f32).abs().max())
+                msg += (f"; logits against the plain versions' (CPU) "
+                        f"{err:.4g} of max|logit| {scale:.4g} (limit "
+                        f"{BF16_LOGIT_TOL} x), against the fp32 kernels' "
+                        f"{err32:.4g}")
+                if not err <= BF16_LOGIT_TOL * scale:
+                    fail(f"bf16 forward {arch}: logits {err:.4g} from the "
+                         f"plain versions' (limit {BF16_LOGIT_TOL} x "
+                         f"{scale:.4g})")
+            log(msg)
+        if arch == "vgg16":
+            plan = plan_model(cfg, ExecutionPolicy())
+            feats = execute._conv_stack(plan, params, images)
+            for i in range(images.shape[0]):
+                one = execute._conv_stack(plan, params,
+                                          images[i:i + 1].contiguous())
+                if not torch.equal(feats[i:i + 1], one):
+                    fail(f"bf16 forward vgg16: image {i}'s conv features in "
+                         "the batch differ from the image alone")
+            log(f"bf16 forward vgg16: the conv stack at batch "
+                f"{images.shape[0]} bit-equal to {images.shape[0]} calls of "
+                "one image")
+    return out
+
+
+def phase_train_bf16(torch, steps: int, batch: int, lr: float) -> dict:
+    """6d. Full-width VGG-16 trained in bf16: bf16 params
+    (``init_cnn(dtype=torch.bfloat16)``), bf16 images, fp32 AdamW moments,
+    ``steps`` steps at ``batch`` through ``make_train_step``: losses and
+    grad norms finite, no step skipped, launches by lane (25 a step on
+    kernel 1's bf16 lane, 13 on kernel 2's, none on fp32), ms a step,
+    peak device memory, a profiled step by op; each leaf's gradient on
+    the first step's params and GRAD_CHECK_BATCH images against float64:
+    through the bf16 kernels, the same bf16 function on CPU copies (the
+    plain versions) and the fp32 kernels; the bf16 kernels' relative L2
+    error within BF16_GRAD_RATIO x the plain versions'.  Returns the
+    launches."""
+    import math
+
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.data.pipeline import SyntheticImageDataset
+    from repro_torch.distributed import StepConfig, make_train_step
+    from repro_torch.engine import ExecutionPolicy, plan_model
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+    from repro_torch.nn.conv import init_cnn
+    from repro_torch.optim import adamw_init
+
+    dev = torch.device("cuda", 0)
+    cfg = CNN_REGISTRY["vgg16"]
+    n_conv = len(cfg.layers)
+    plan = plan_model(cfg, ExecutionPolicy())
+    ds = SyntheticImageDataset(hw=cfg.input_hw, channels=cfg.layers[0].M,
+                               n_classes=cfg.n_classes, global_batch=batch,
+                               seed=0)
+    raw = [ds.batch_at(i) for i in range(steps)]
+    batches = [{"images": torch.as_tensor(b["images"], device=dev).to(
+                    torch.bfloat16),
+                "labels": torch.as_tensor(b["labels"], device=dev)}
+               for b in raw]                             # data set-up
+    params = init_cnn(0, cfg, dev, dtype=torch.bfloat16)
+    state = state0 = {"params": params, "opt": adamw_init(params)}
+    scfg = StepConfig(peak_lr=lr, warmup_steps=5, total_steps=steps)
+    step_fn = make_train_step(plan, scfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    kern.LAUNCHES_BY_LANE.update(dict.fromkeys(kern.LAUNCHES_BY_LANE, 0))
+    vjp.WGRAD_LAUNCHES_BY_LANE.update(
+        dict.fromkeys(vjp.WGRAD_LAUNCHES_BY_LANE, 0))
+    hist = []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        hist.append(_row(i, (time.perf_counter() - t0) * 1e3, m))
+    lanes, wlanes = (dict(kern.LAUNCHES_BY_LANE),
+                     dict(vjp.WGRAD_LAUNCHES_BY_LANE))
+    peak = torch.cuda.max_memory_allocated(dev)
+    for h in hist:
+        log(f"train bf16 step {h['step']}: loss {h['loss']!r} grad_norm "
+            f"{h['grad_norm']!r} ({h['ms']:.3f} ms)")
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"train bf16: non-finite loss/grad_norm at step "
+                 f"{h['step']}: {h}")
+        if h["skipped"]:
+            fail(f"train bf16: step {h['step']} was skipped")
+    steady = hist[1:] or hist
+    ms = sum(h["ms"] for h in steady) / len(steady)
+    log(f"train bf16 vgg16 batch {batch}: {ms:.3f} ms per step, "
+        f"{batch * 1e3 / ms:.3f} images/s (steps 1-{steps - 1}); peak "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} above the "
+        f"state); launches by lane: conv {lanes}, weight gradient {wlanes}")
+    want = {"f32": 0, "bf16": steps * (2 * n_conv - 1), "u8": 0}
+    if lanes != want:
+        fail(f"train bf16: conv launches {lanes}, expected {want} ({steps} "
+             f"x ({n_conv} forward + {n_conv - 1} dx) on bf16)")
+    if wlanes != {"f32": 0, "bf16": steps * n_conv}:
+        fail(f"train bf16: weight-gradient launches {wlanes}, expected "
+             f"{steps} x {n_conv} on bf16")
+    _train_profile(torch, plan, scfg, state, batches[-1], ms,
+                   label="train bf16 profile")
+    # each leaf's gradient against float64 on the first step's params:
+    # the bf16 kernels, the bf16 plain versions (CPU), the fp32 kernels
+    sub = {k: v[:GRAD_CHECK_BATCH] for k, v in raw[0].items()}
+    want64 = _leaf_grads(torch, lambda p, b: _loss_f64(torch, plan, p, b),
+                         state0["params"], sub, torch.float64)
+    cpu_plan = plan_model(cfg, ExecutionPolicy("kernel"))
+    grads = {
+        "bf16 kernels": _leaf_grads(torch, lambda p, b: plan.loss(p, b)[0],
+                                    state0["params"], sub, torch.bfloat16),
+        "bf16 plain": [g.to(dev) for g in _leaf_grads(
+            torch, lambda p, b: cpu_plan.loss(p, b)[0],
+            _cpu_tree(torch, state0["params"]), sub, torch.bfloat16)],
+        "fp32 kernels": _leaf_grads(torch, lambda p, b: plan.loss(p, b)[0],
+                                    state0["params"], sub, torch.float32)}
+    norm64 = sum(float((d * d).sum()) for d in want64) ** 0.5
+    rel = {k: sum(float(((a - d) ** 2).sum()) for a, d in zip(v, want64))
+           ** 0.5 / norm64 for k, v in grads.items()}
+    paths = [p for p, _ in tree_leaves_with_path(state0["params"])]
+    log(f"train bf16 gradients against float64 on {GRAD_CHECK_BATCH} "
+        "images, relative L2 over every leaf: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in rel.items()))
+
+    def leaf_err(g, d):
+        return (g - d).abs().max().item() / max(d.abs().max().item(), 1e-30)
+
+    log("train bf16 gradients against float64, max|diff| / max|leaf| ("
+        + ", ".join(grads) + "): " + "; ".join(
+            f"{p} " + ", ".join(f"{leaf_err(v[i], d):.3g}"
+                                for v in grads.values())
+            for i, (p, d) in enumerate(zip(paths, want64))))
+    if not rel["bf16 kernels"] <= BF16_GRAD_RATIO * rel["bf16 plain"]:
+        fail(f"train bf16: the kernels' gradient is {rel['bf16 kernels']:.4g}"
+             f" from float64, past {BF16_GRAD_RATIO} x the plain versions' "
+             f"{rel['bf16 plain']:.4g}")
+    return {"conv": lanes["bf16"], "wgrad": wlanes["bf16"], "ms": ms,
+            "peak_gib": peak / 2**30}
 
 
 def _f64_err(got, want, to_want=lambda t: t) -> float:
@@ -1313,7 +1764,8 @@ TRAIN_PARTS = (("repro_torch.engine.execute", "_kernel_call", "conv forward"),
                ("repro_torch.distributed.steps", "adamw_update", "AdamW"))
 
 
-def _train_profile(torch, plan, scfg, state, batch, wall_ms: float) -> None:
+def _train_profile(torch, plan, scfg, state, batch, wall_ms: float,
+                   label: str = "train profile") -> None:
     """Log where one train step's device time goes, by op, under
     ``torch.profiler``: the conv forward, dx, dw, the rest of the conv
     backward (ReLU mask, bias gradient, weight flip), the pools and the
@@ -1360,7 +1812,7 @@ def _train_profile(torch, plan, scfg, state, batch, wall_ms: float) -> None:
     device = [e for e in xs
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not device:
-        log("train profile: the profiler saw no device time (not measured)")
+        log(f"{label}: the profiler saw no device time (not measured)")
         return
     launch = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in xs
               if e.get("cat") in ("cuda_runtime", "cuda_driver")
@@ -1394,7 +1846,7 @@ def _train_profile(torch, plan, scfg, state, batch, wall_ms: float) -> None:
         if m:
             ours[m.group(0)] = ours.get(m.group(0), 0.0) + ms_
     busy = sum(parts.values())
-    log(f"train profile batch {len(batch['labels'])}: device busy "
+    log(f"{label} batch {len(batch['labels'])}: device busy "
         f"{busy:.3f} ms of {wall_ms:.3f} ms wall (idle share "
         f"{max(0.0, 1 - busy / wall_ms):.3f}); {len(device)} kernels; by "
         "op: " + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(
@@ -6407,6 +6859,7 @@ def main() -> None:
         return
     rows = phase_kernels(torch, args.reps)
     brows = phase_backward(torch, args.reps, (1, TRAIN_BATCH))
+    bf_rows = phase_bf16_kernels(torch, args.reps)
     crows = phase_conv1d(torch, args.reps)
     frows = phase_flash(torch, args.reps)
     code_rows = phase_flash_code(torch, args.reps)
@@ -6428,6 +6881,8 @@ def main() -> None:
     xrows, xlaunches = phase_f32exact(torch, args.reps, rows)
     train_f32, train_wgrad = phase_train(torch, TRAIN_STEPS, TRAIN_BATCH,
                                          TRAIN_LR)
+    bf_fwd = phase_bf16_forward(torch)
+    bf_train = phase_train_bf16(torch, TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR)
     phase_autotune(torch)
     lm_launches = phase_lm_serve(torch, LM_ARCH)
     phase_lm_checks(torch, LM_ARCH)
@@ -6530,6 +6985,24 @@ def main() -> None:
                       and r["batch"] == TRAIN_BATCH],
                      "trim_conv2d_wgrad_f32", train_wgrad,
                      source=WGRAD_SOURCE, replaces=WGRAD_REPLACES)]
+        # the bf16 lanes (phase 3j's rows): VGG-16's forward at batch 1
+        # and 8 (phase 6c's launches), the train step's forward + dx and
+        # dw at batch 8 (phase 6d's), AlexNet's forward at batch 1
+        + [kernel_entry([r for r in bf_rows if r["kind"] in kinds
+                         and r["arch"] == arch and r["batch"] == N],
+                        name, launches, arch=arch, **where)
+           for name, kinds, arch, N, launches, where in (
+               ("trim_conv2d_bf16", ("fwd",), "vgg16", 1,
+                bf_fwd[("vgg16", 1)], {}),
+               (f"trim_conv2d_bf16_batch{TRAIN_BATCH}", ("fwd",), "vgg16",
+                TRAIN_BATCH, bf_fwd[("vgg16", TRAIN_BATCH)], {}),
+               (f"trim_conv2d_bf16_train_batch{TRAIN_BATCH}", ("fwd", "dx"),
+                "vgg16", TRAIN_BATCH, bf_train["conv"], {}),
+               ("trim_conv2d_bf16_alexnet", ("fwd",), "alexnet", 1,
+                bf_fwd[("alexnet", 1)], {}),
+               (f"trim_conv2d_wgrad_bf16_train_batch{TRAIN_BATCH}", ("dw",),
+                "vgg16", TRAIN_BATCH, bf_train["wgrad"],
+                dict(source=WGRAD_SOURCE, replaces=WGRAD_REPLACES)))]
         # AlexNet's replays on each lane, timed by its batch-1 rows (the
         # replays span buckets 1, 4 and 8)
         + [kernel_entry([r for r in rows if r["lane"] == lane

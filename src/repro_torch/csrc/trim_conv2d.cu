@@ -11,7 +11,7 @@
 // outside the image count as zero: the haloed window is zero-filled as it
 // is loaded, so no padded copy of x exists.
 //
-// Two type lanes, two bodies:
+// Three type lanes:
 //
 // * fp32 x fp32 -> fp32 (IEEE fp32 FMAs on the CUDA cores, no TF32):
 //   `trim_conv2d_f32_kernel`.  What bounds it: every VGG-16 layer does
@@ -115,7 +115,25 @@
 //     the registers and a lane's two adjacent outputs go out in one
 //     store.  The bits equal the plain version's on every path, at any
 //     split and any batch.
+//
+// * bfloat16 x bfloat16 -> bfloat16 (fp32 accumulation, the epilogue in
+//   fp32, one rounding to bf16 at the end: what `trim_conv2d_pallas`
+//   returns for bf16 operands): `trim_conv2d_bf16_kernel`, the integer
+//   lane's implicit GEMM on mma.sync m16n8k16 bf16 -> fp32.  What bounds
+//   it: at half the int8 rate (989 TFLOP/s dense) the ridge is about 295
+//   FLOP/byte, which every VGG-16 conv but CL1 passes at batch 8, so the
+//   tensor-core rate.  A 32-byte k-step is 16 channels, and the A and B
+//   fragments have the integer lane's byte layout, so the window path
+//   (the window's shifted views), the gather path (C <= 8) and the ring
+//   carry over.  The weights need no pre-pass: ldmatrix.trans moves
+//   16-bit elements, so each step copies 16 rows of w as they lie.  fp32
+//   sums are not exact in every order, so the geometry (path, tile,
+//   split) comes from the per-image shape alone, as on the fp32 lane, and
+//   a split's fp32 partials are merged in split order
+//   (`trim_conv2d_bf16_merge`): a batch of 8 equals 8 calls of one image
+//   bit for bit.  No slide path yet.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -683,27 +701,31 @@ __device__ __forceinline__ void u8_load_item(const U8Args& a,
 }
 
 // The gather path: the im2col rows of depth chunk ``it`` of the block's
-// 128 pixels, from the window [rows][cols * C] into [steps][128][32]
-// (rows of u8_row_off).  Depth d is (kh, kw, c) = (d / (K*C), (d / C) %
-// K, d % C); within a row kh the K*C values (kw, c) are contiguous in the
-// window, from column c*S of the pixel.
-__device__ __forceinline__ void u8_gather(const U8Args& a,
-                                          const unsigned char* win,
+// 128 pixels, from the window [rows][cols * C] of T (uint8 or bf16 bits)
+// into [steps][128][32 bytes] (rows of u8_row_off).  A 16-byte half holds
+// 16 / sizeof(T) depth values, a step twice that.  Depth d is (kh, kw, c)
+// = (d / (K*C), (d / C) % K, d % C); within a row kh the K*C values (kw,
+// c) are contiguous in the window, from column c*S of the pixel; zero past
+// K*K*C.
+template <typename T, typename A>
+__device__ __forceinline__ void tc_gather(const A& a, const T* win,
                                           unsigned char* at, int it) {
+  constexpr int kE = 16 / sizeof(T), kPer = 4 / sizeof(T);
   const int KC = a.K * a.C, RB = a.cols * a.C;
   const int npix = a.TH * a.TW;
   for (int i = threadIdx.x; i < a.steps * kU8M * 2; i += kU8Threads) {
     const int j = i >> 8, m = (i >> 1) & (kU8M - 1), h = i & 1;
     const int mm = m < npix ? m : 0;
     const int lh = mm / a.TW, lw = mm - lh * a.TW;
-    const unsigned char* base = win + lh * a.S * RB + lw * a.S * a.C;
-    int d = (it * a.steps + j) * kU8Step + h * 16;
+    const T* base = win + lh * a.S * RB + lw * a.S * a.C;
+    int d = (it * a.steps + j) * 2 * kE + h * kE;
     int kh = d / KC, rem = d - kh * KC;
     uint32_t v[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int b = 0; b < 16; ++b) {
+    for (int b = 0; b < kE; ++b) {
       if (d + b < a.depth)
-        v[b >> 2] |= static_cast<uint32_t>(base[kh * RB + rem]) << (8 * (b & 3));
+        v[b / kPer] |= static_cast<uint32_t>(base[kh * RB + rem])
+                       << (8 * sizeof(T) * (b % kPer));
       if (++rem == KC) { rem = 0; ++kh; }
     }
     *reinterpret_cast<uint4*>(at + j * kU8AStepB + u8_row_off(m, h)) =
@@ -773,11 +795,13 @@ __device__ __forceinline__ void u8_put2(const U8Args& a, int split,
   }
 }
 
-// The u8 x s8 conv on the window and gather paths.  Grid: (spatial
-// tiles, filter tiles x n_split, N).
-template <int kPath, typename TOut>
-__global__ void __launch_bounds__(kU8Threads, kPath == kU8Gather ? 3 : 2)
-trim_conv2d_u8s8_kernel(const U8Args a) {
+// The tensor-core lanes' conv on the window and gather paths, the body of
+// trim_conv2d_u8s8_kernel and trim_conv2d_bf16_kernel.  ``L`` is the lane
+// (U8Lane, Bf16Lane): its arguments, element and accumulator types, its
+// copies of an item, its B offsets, its k-step and its stores.  Grid:
+// (spatial tiles, filter tiles x n_split, N).
+template <class L, int kPath>
+__device__ __forceinline__ void tc_conv(const typename L::Args& a) {
   extern __shared__ __align__(128) unsigned char smem_u8[];
   const int tile = blockIdx.x;
   const int th = tile / a.n_tw, tw = tile - th * a.n_tw;
@@ -793,7 +817,7 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
-  const uint8_t* x = a.x + static_cast<size_t>(n) * a.H * a.W * a.C;
+  const auto* x = a.x + static_cast<size_t>(n) * a.H * a.W * a.C;
 
   // shared memory: gather path [window][ring (weights a stage)][A rows];
   // window path [ring (window + weights a stage)]
@@ -818,15 +842,12 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
       arow[mt] = m;
     }
   }
-  // B rows: ldmatrix x4 p covers n8 tiles 2p, 2p + 1 of the warp's four,
-  // lane l feeding filter row l & 7 of tile 2p + (l >> 4), half (l >> 3) & 1
+  // B: the lane's offsets of its two ldmatrix x4 loads a k-step
   int boff[2];
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
-    boff[p] = u8_wt_off(wn + (2 * p + (lane >> 4)) * 8 + (lane & 7),
-                        (lane >> 3) & 1);
+  for (int p = 0; p < 2; ++p) boff[p] = L::boff(wn, lane, p);
 
-  int acc[2][4][4];
+  typename L::Acc acc[2][4][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -836,6 +857,9 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
 
   if (kPath == kU8Gather) {
     // the whole haloed window, all C channels: [rows][cols * C]
+    using R = typename L::Raw;
+    R* wr = reinterpret_cast<R*>(win);
+    const R* xr = reinterpret_cast<const R*>(x);
     const int RB = a.cols * a.C, total = a.rows * RB;
     for (int i = threadIdx.x; i < total; i += kU8Threads) {
       const int r = i / RB, q = i - r * RB;
@@ -843,15 +867,15 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
       const int gh = ih0 + r, gw = iw0 + pc;
       const bool ok = static_cast<unsigned>(gh) < static_cast<unsigned>(a.H) &&
                       static_cast<unsigned>(gw) < static_cast<unsigned>(a.W);
-      win[i] = ok ? x[(static_cast<size_t>(gh) * a.W + gw) * a.C + c] : 0;
+      wr[i] = ok ? xr[(static_cast<size_t>(gh) * a.W + gw) * a.C + c] : R(0);
     }
   }
 
   const int nst = a.stages;
   for (int s = 0; s < nst - 1; ++s) {
     if (k0 + s < k1)
-      u8_load_item<kPath>(a, ring + s * a.stage_bytes, x, ih0, iw0, k0 + s,
-                          f0);
+      L::template load<kPath>(a, ring + s * a.stage_bytes, x, ih0, iw0,
+                              k0 + s, f0);
     cp_async_commit();
   }
   for (int k = k0; k < k1; ++k) {
@@ -859,11 +883,12 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
     __syncthreads();  // item k landed; item k - 1's reads are done
     unsigned char* stg = ring + ((k - k0) % nst) * a.stage_bytes;
     const uint32_t bs = smem_addr(stg + wstage);
-    if (kPath == kU8Gather) u8_gather(a, win, at, k);
+    if (kPath == kU8Gather)
+      tc_gather(a, reinterpret_cast<const typename L::Raw*>(win), at, k);
     const int nxt = k + nst - 1;
     if (nxt < k1)
-      u8_load_item<kPath>(a, ring + ((nxt - k0) % nst) * a.stage_bytes, x,
-                          ih0, iw0, nxt, f0);
+      L::template load<kPath>(a, ring + ((nxt - k0) % nst) * a.stage_bytes,
+                              x, ih0, iw0, nxt, f0);
     cp_async_commit();
 
     if (kPath == kU8Gather) {
@@ -871,7 +896,7 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
       const uint32_t ab = smem_addr(at);
 #pragma unroll 1
       for (int j = 0; j < a.steps; ++j)
-        u8_step(acc, u8_a_addr(ab + j * kU8AStepB, arow[0], hl),
+        L::step(acc, u8_a_addr(ab + j * kU8AStepB, arow[0], hl),
                 u8_a_addr(ab + j * kU8AStepB, arow[1], hl),
                 bs + j * kU8StepB, boff);
     } else {
@@ -882,7 +907,7 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
 #pragma unroll 1
       for (int j = 0; j < nsteps; ++j) {
         const int o = kh * a.cols + kw;
-        u8_step(acc, u8_a_addr(ab, arow[0] + o, hl),
+        L::step(acc, u8_a_addr(ab, arow[0] + o, hl),
                 u8_a_addr(ab, arow[1] + o, hl), bs + j * kU8StepB, boff);
         if (++kw == a.K) { kw = 0; ++kh; }
       }
@@ -890,7 +915,7 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
   }
 
   // One write per output: the result (epilogue on the registers) or this
-  // range's int32 partial.  Accumulator q of an m16n8 tile is row
+  // range's partial.  Accumulator q of an m16n8 tile is row
   // (lane >> 2) + 8 * (q >> 1), column (lane & 3) * 2 + (q & 1).
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -905,9 +930,48 @@ trim_conv2d_u8s8_kernel(const U8Args a) {
           (static_cast<size_t>(n) * a.H_O + ho) * a.W_O + wo;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
-        u8_put2<TOut>(a, split, pix, f0 + wn + nt * 8 + (lane & 3) * 2,
-                      acc[mt][nt][hr * 2], acc[mt][nt][hr * 2 + 1]);
+        L::put2(a, split, pix, f0 + wn + nt * 8 + (lane & 3) * 2,
+                acc[mt][nt][hr * 2], acc[mt][nt][hr * 2 + 1]);
     }
+}
+
+// The u8 x s8 lane's parts of tc_conv (TOut: int32 or requantized uint8
+// out).
+template <typename TOut>
+struct U8Lane {
+  using Args = U8Args;
+  using Raw = uint8_t;  // a window value's bits
+  using Acc = int;
+  template <int kPath>
+  static __device__ __forceinline__ void load(const Args& a, unsigned char* st,
+                                              const uint8_t* x, int ih0,
+                                              int iw0, int it, int f0) {
+    u8_load_item<kPath>(a, st, x, ih0, iw0, it, f0);
+  }
+  // ldmatrix x4 p covers n8 tiles 2p, 2p + 1 of the warp's four, lane l
+  // feeding filter row l & 7 of tile 2p + (l >> 4), half (l >> 3) & 1
+  static __device__ __forceinline__ int boff(int wn, int lane, int p) {
+    return u8_wt_off(wn + (2 * p + (lane >> 4)) * 8 + (lane & 7),
+                     (lane >> 3) & 1);
+  }
+  static __device__ __forceinline__ void step(int (&acc)[2][4][4],
+                                              uint32_t a0, uint32_t a1,
+                                              uint32_t b,
+                                              const int (&boff)[2]) {
+    u8_step(acc, a0, a1, b, boff);
+  }
+  static __device__ __forceinline__ void put2(const Args& a, int split,
+                                              size_t pix, int f, int v0,
+                                              int v1) {
+    u8_put2<TOut>(a, split, pix, f, v0, v1);
+  }
+};
+
+// The u8 x s8 conv on the window and gather paths.
+template <int kPath, typename TOut>
+__global__ void __launch_bounds__(kU8Threads, kPath == kU8Gather ? 3 : 2)
+trim_conv2d_u8s8_kernel(const U8Args a) {
+  tc_conv<U8Lane<TOut>, kPath>(a);
 }
 
 // The slide path (K = 3 at stride 1: every VGG-16 conv but the first):
@@ -1049,6 +1113,271 @@ int launch_u8(const U8Args& a, int smem_bytes, cudaStream_t s) {
       static_cast<int>((M + 255) / 256 < 4224 ? (M + 255) / 256 : 4224);
   trim_conv2d_u8s8_merge<TOut><<<blocks, 256, 0, s>>>(
       a.parts, a.e, static_cast<TOut*>(a.out), M, a.F, a.n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --------------------------------------------------------------- bf16 lane
+//
+// The u8 x s8 lane's implicit GEMM with m16n8k16 bf16 x bf16 -> fp32: a
+// k-step is still 32 bytes (16 channels), so an A row, the window's pixel
+// layout (u8_row_off), the ldmatrix phases and the ring carry over as they
+// are.  The weights need no pre-pass: ldmatrix.trans moves 16-bit
+// elements, so a step's B tile is 16 rows of w (K, K, C, F) as they lie
+// ([k][64 filters], 128 bytes a row, the 16-byte units swizzled by the
+// row), read transposed.
+
+constexpr int kBfStepC = 16;  // channels (depth values) a k-step
+
+struct BfArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;  // (K, K, C, F): depth row d = (kh*K + kw)*C + c
+  const void* bias;        // (F,) fp32 or bf16, or null
+  __nv_bfloat16* out;      // (N, H_O, W_O, F)
+  float* parts;            // n_split > 1: n_split x (N, H_O, W_O, F) fp32
+  int bias_bf16, relu;
+  int N, H, W, C, K, F, H_O, W_O, S, pad;
+  int TH, TW, n_tw, n_f;
+  int rows, cols;
+  int steps, n_tg, n_items, n_split, stages;
+  int depth;
+  int win_bytes, stage_bytes;
+  int vec_x, vec_w;
+};
+
+// Byte offset of 16-byte unit u (filters 8u .. 8u + 7) of k-row r in one
+// step's weights [16 rows][64 filters]: an ldmatrix.trans phase reads 8
+// consecutive rows at one unit, which the XOR puts in 8 bank groups.
+__device__ __forceinline__ int bf_wt_off(int r, int u) {
+  return (r << 7) + ((u ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Eight bf16 values from ``src`` where ``ok(b)``, else zero, as 16 bytes.
+template <typename Ok>
+__device__ __forceinline__ uint4 bf_pack8(const __nv_bfloat16* src, Ok ok) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    if (ok(b)) v[b >> 1] |= static_cast<uint32_t>(s[b]) << (16 * (b & 1));
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// Issue the copies of item ``it`` into ring stage ``st``: on the window
+// path the haloed window of its 16-channel chunk ([pixels][16 channels],
+// u8_row_off) and the weights of its tap group, on the gather path the
+// weights of its depth chunk.  Step j's weights are w's depth rows d0 ..
+// d0 + 15 at filters f0 .. f0 + 63: d0 = (tap0 + j) * C + c0 (window) or
+// (it * steps + j) * 16 (gather); rows past C (window) or K*K*C (gather)
+// and filters past F are zero.  A thread copies unit tid & 7 of row
+// (tid >> 3) & 15 of steps (tid >> 7) + 2 t.
+template <int kPath>
+__device__ __forceinline__ void bf_load_item(const BfArgs& a,
+                                             unsigned char* st,
+                                             const __nv_bfloat16* x, int ih0,
+                                             int iw0, int it, int f0) {
+  const int u = threadIdx.x & 7, r = (threadIdx.x >> 3) & 15;
+  const int j0 = threadIdx.x >> 7;
+  unsigned char* dst = st + j0 * kU8StepB + bf_wt_off(r, u);
+  long long row, drow;  // the depth row of step j0, rows between steps
+  bool row_ok;
+  int jmax = a.steps;
+  if (kPath == kU8Window) {
+    const int cc = it / a.n_tg, tg = it - cc * a.n_tg;
+    const int c0 = cc * kBfStepC, tap0 = tg * a.steps;
+    jmax = min(a.steps, a.K * a.K - tap0);
+    row_ok = c0 + r < a.C;
+    row = static_cast<long long>(tap0 + j0) * a.C + c0 + r;
+    drow = 2LL * a.C;
+    const int total = a.rows * a.cols * 2;
+    for (int i = threadIdx.x; i < total; i += kU8Threads) {
+      const int pix = i >> 1, h = i & 1;
+      const int wr = pix / a.cols, q = pix - wr * a.cols;
+      const int gh = ih0 + wr, gw = iw0 + q, c = c0 + h * 8;
+      const bool in = static_cast<unsigned>(gh) < static_cast<unsigned>(a.H) &&
+                      static_cast<unsigned>(gw) < static_cast<unsigned>(a.W);
+      const __nv_bfloat16* src =
+          x + (static_cast<size_t>(gh) * a.W + gw) * a.C + c;
+      unsigned char* wd = st + u8_row_off(pix, h);
+      if (a.vec_x) {
+        const bool ok = in && c < a.C;
+        cp_async16(wd, ok ? src : a.x, ok);
+      } else {
+        const int C = a.C;
+        *reinterpret_cast<uint4*>(wd) =
+            bf_pack8(src, [&](int b) { return in && c + b < C; });
+      }
+    }
+    dst += a.win_bytes;
+  } else {
+    row = static_cast<long long>(it * a.steps + j0) * kBfStepC + r;
+    drow = 2 * kBfStepC;
+    row_ok = true;
+  }
+  const int f = f0 + u * 8;
+  for (int j = j0; j < jmax; j += 2) {
+    const bool ok = row_ok && row < a.depth && f < a.F;
+    const __nv_bfloat16* src = a.w + row * a.F + f;
+    if (a.vec_w) {
+      cp_async16(dst, ok ? src : a.w, ok);
+    } else {
+      const int F = a.F;
+      *reinterpret_cast<uint4*>(dst) =
+          bf_pack8(src, [&](int b) { return ok && f + b < F; });
+    }
+    row += drow;
+    dst += 2 * kU8StepB;
+  }
+}
+
+// One k16 step of a warp: A rows from ``a0``/``a1`` as on the u8 lane, B
+// by ldmatrix.trans from the step's [16][64] tile at ``b`` (+ the lane's
+// two x4 offsets: n8 tiles 2p and 2p + 1, k rows 0-7 and 8-15 each).
+__device__ __forceinline__ void bf_step(float (&acc)[2][4][4], uint32_t a0,
+                                        uint32_t a1, uint32_t b,
+                                        const int (&boff)[2]) {
+  uint32_t af[2][4], bf[2][4];
+  ldsm_x4(af[0], a0);
+  ldsm_x4(af[1], a1);
+  ldsm_x4_t(bf[0], b + boff[0]);
+  ldsm_x4_t(bf[1], b + boff[1]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma_bf16(acc[mt][nt], af[mt], bf[nt >> 1][(nt & 1) * 2],
+               bf[nt >> 1][(nt & 1) * 2 + 1]);
+}
+
+__device__ __forceinline__ float bf_finish(const BfArgs& a, float v, int f) {
+  if (a.bias != nullptr)
+    v += a.bias_bf16
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[f])
+             : static_cast<const float*>(a.bias)[f];
+  return a.relu ? (v > 0.f ? v : 0.f) : v;
+}
+
+// The pair of outputs (f, f + 1) of pixel ``pix`` that a lane's
+// accumulators hold: bias -> ReLU in fp32, then one rounding to bf16 (in
+// one store where both filters exist and F is even), or this range's
+// fp32 partials.
+__device__ __forceinline__ void bf_put2(const BfArgs& a, int split,
+                                        size_t pix, int f, float v0,
+                                        float v1) {
+  if (f >= a.F) return;
+  const bool pair = f + 1 < a.F && (a.F & 1) == 0;
+  if (a.n_split == 1) {
+    __nv_bfloat16* o = a.out + pix * a.F + f;
+    v0 = bf_finish(a, v0, f);
+    if (pair) {
+      *reinterpret_cast<__nv_bfloat162*>(o) =
+          __floats2bfloat162_rn(v0, bf_finish(a, v1, f + 1));
+    } else {
+      o[0] = __float2bfloat16_rn(v0);
+      if (f + 1 < a.F) o[1] = __float2bfloat16_rn(bf_finish(a, v1, f + 1));
+    }
+  } else {
+    float* o = a.parts +
+               (static_cast<size_t>(split) * a.N * a.H_O * a.W_O + pix) *
+                   a.F + f;
+    if (pair) {
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    } else {
+      o[0] = v0;
+      if (f + 1 < a.F) o[1] = v1;
+    }
+  }
+}
+
+// The bf16 lane's parts of tc_conv.
+struct Bf16Lane {
+  using Args = BfArgs;
+  using Raw = unsigned short;  // a window value's bits
+  using Acc = float;
+  template <int kPath>
+  static __device__ __forceinline__ void load(const Args& a, unsigned char* st,
+                                              const __nv_bfloat16* x, int ih0,
+                                              int iw0, int it, int f0) {
+    bf_load_item<kPath>(a, st, x, ih0, iw0, it, f0);
+  }
+  // ldmatrix.trans x4 p reads matrices (n8 tile 2p + (l >> 4), k rows
+  // 8 ((l >> 3) & 1) ..) at lane l's row l & 7
+  static __device__ __forceinline__ int boff(int wn, int lane, int p) {
+    return bf_wt_off(((lane >> 3) & 1) * 8 + (lane & 7),
+                     (wn >> 3) + 2 * p + (lane >> 4));
+  }
+  static __device__ __forceinline__ void step(float (&acc)[2][4][4],
+                                              uint32_t a0, uint32_t a1,
+                                              uint32_t b,
+                                              const int (&boff)[2]) {
+    bf_step(acc, a0, a1, b, boff);
+  }
+  static __device__ __forceinline__ void put2(const Args& a, int split,
+                                              size_t pix, int f, float v0,
+                                              float v1) {
+    bf_put2(a, split, pix, f, v0, v1);
+  }
+};
+
+// The bf16 conv on the window and gather paths: the u8 x s8 lane's
+// blocks, warps and ring with fp32 accumulators.  The geometry comes from
+// the per-image shape alone (the wrapper's bf16_tile), so an output's sum
+// runs in one order at every batch.
+template <int kPath>
+__global__ void __launch_bounds__(kU8Threads, kPath == kU8Gather ? 3 : 2)
+trim_conv2d_bf16_kernel(const BfArgs a) {
+  tc_conv<Bf16Lane, kPath>(a);
+}
+
+// out[i] = bf16(epilogue(p_0[i] + ... + p_{n_split-1}[i])), summed in
+// split order over M outputs of F filters.
+__global__ void __launch_bounds__(256)
+trim_conv2d_bf16_merge(const float* __restrict__ parts, const BfArgs a,
+                       long long M) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < M; i += step) {
+    float s = parts[i];
+    for (int k = 1; k < a.n_split; ++k) s += parts[k * M + i];
+    a.out[i] = __float2bfloat16_rn(bf_finish(a, s, static_cast<int>(i % a.F)));
+  }
+}
+
+template <int kPath>
+int launch_bf16(const BfArgs& a, int smem_bytes, cudaStream_t s) {
+  static int smem_set = 0;  // per instantiation: what has been raised
+  void (*kern)(BfArgs) = &trim_conv2d_bf16_kernel<kPath>;
+  int rc = raise_smem(reinterpret_cast<const void*>(kern), smem_set,
+                      smem_bytes);
+  if (rc != 0) return rc;
+  const int n_th = (a.H_O + a.TH - 1) / a.TH;
+  const dim3 grid(n_th * a.n_tw, a.n_f * a.n_split, a.N);
+  kern<<<grid, kU8Threads, smem_bytes, s>>>(a);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || a.n_split == 1) return rc;
+  const long long M = static_cast<long long>(a.N) * a.H_O * a.W_O * a.F;
+  const int blocks =
+      static_cast<int>((M + 255) / 256 < 4224 ? (M + 255) / 256 : 4224);
+  trim_conv2d_bf16_merge<<<blocks, 256, 0, s>>>(a.parts, a, M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1237,6 +1566,73 @@ int trim_conv2d_u8s8(const void* x, const void* w, const void* bias,
                  : launch_u8<kU8Window, int32_t>(a, smem_bytes, s);
   return u8out ? launch_u8<kU8Gather, uint8_t>(a, smem_bytes, s)
                : launch_u8<kU8Gather, int32_t>(a, smem_bytes, s);
+}
+
+// bf16 lane: x (N,H,W,C) bf16, w (K,K,C,F) bf16, bias (F,) fp32
+// (bias_bf16 0) or bf16 (1) or null, out (N,H_O,W_O,F) bf16; with n_split
+// > 1, ``parts`` holds n_split * N*H_O*W_O*F floats of scratch.  The
+// caller (the wrapper's bf16_tile, from the per-image shape) picks the
+// path (0 window, 1 gather), the TH x TW output tile (TH * TW <= 128), the
+// k16 steps an item (window: taps of a group, 1 .. K*K; gather: depth
+// steps of a chunk), n_split ranges of items, 2 or 3 stages and the
+// shared memory, which must equal what this function computes.  One call
+// launches the conv and, split, the merge.  Returns the first launch
+// error's cudaError_t, or 0.
+int trim_conv2d_bf16(const void* x, const void* w, const void* bias,
+                     void* out, void* parts, int N, int H, int W, int C,
+                     int K, int F, int H_O, int W_O, int stride, int pad,
+                     int path, int TH, int TW, int steps, int n_split,
+                     int stages, int bias_bf16, int relu, int smem_bytes,
+                     void* stream) {
+  BfArgs a;
+  a.rows = (TH - 1) * stride + K;
+  a.cols = (TW - 1) * stride + K;
+  a.depth = K * K * C;
+  const bool window = path == kU8Window;
+  if ((path != kU8Window && path != kU8Gather) || TH < 1 || TW < 1 ||
+      TH * TW > kU8M || steps < 1 || (window && steps > K * K) ||
+      stages < 2 || stages > kMaxStages || stride < 1 || K < 1 || C < 1 ||
+      F < 1 || N < 1 || N > 65535 || (n_split > 1 && parts == nullptr) ||
+      pad < 0 || static_cast<long long>(H) * W * C > 0x7fffffffLL ||
+      static_cast<long long>(H_O) * W_O * F > 0x7fffffffLL ||
+      static_cast<long long>(K) * K * C * F > 0x7fffffffLL ||
+      H_O != (H + 2 * pad - K) / stride + 1 ||
+      W_O != (W + 2 * pad - K) / stride + 1 || H_O < 1 || W_O < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.n_tg = window ? (K * K + steps - 1) / steps : 1;
+  a.n_items = window ? (C + kBfStepC - 1) / kBfStepC * a.n_tg
+                     : (a.depth + steps * kBfStepC - 1) / (steps * kBfStepC);
+  const long long wbytes = window ? static_cast<long long>(a.rows) * a.cols *
+                                        kU8Step
+                                  : static_cast<long long>(a.rows) * a.cols *
+                                        C * 2;
+  a.win_bytes = static_cast<int>((wbytes + 127) / 128 * 128);
+  a.stage_bytes = (window ? a.win_bytes : 0) + steps * kU8StepB;
+  const long long smem =
+      (window ? 0LL : a.win_bytes + static_cast<long long>(steps) *
+                                        kU8AStepB) +
+      static_cast<long long>(stages) * a.stage_bytes;
+  a.n_f = (F + kU8Fb - 1) / kU8Fb;
+  if (n_split < 1 || n_split > a.n_items || smem != smem_bytes ||
+      static_cast<long long>(a.n_f) * n_split > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bias = bias;
+  a.bias_bf16 = bias_bf16;
+  a.relu = relu;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.parts = static_cast<float*>(parts);
+  a.N = N; a.H = H; a.W = W; a.C = C; a.K = K; a.F = F;
+  a.H_O = H_O; a.W_O = W_O; a.S = stride; a.pad = pad;
+  a.TH = TH; a.TW = TW;
+  a.n_tw = (W_O + TW - 1) / TW;
+  a.steps = steps; a.n_split = n_split; a.stages = stages;
+  a.vec_x = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.vec_w = F % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return window ? launch_bf16<kU8Window>(a, smem_bytes, s)
+                : launch_bf16<kU8Gather>(a, smem_bytes, s);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // TrIM conv2d weight gradient for Hopper (sm_90a): the port of the Pallas
 // kernel `_trim_conv2d_wgrad_kernel` (src/repro/kernels/trim_conv2d_vjp.py:92).
 //
-// What it computes, in fp32 on the CUDA cores (IEEE, no TF32):
+// Two lanes: fp32 on the CUDA cores (below) and bf16 on the tensor cores
+// (fp32 sums; `trim_conv2d_wgrad_bf16_kernel`, its own section further
+// down).  What the fp32 lane computes (IEEE, no TF32):
 //   dw[kh, kw, c, f] = sum_{n, ho, wo} x[n, ho*S - p + kh, wo*S - p + kw, c]
 //                                      * g[n, ho, wo, f]
 // over NHWC activations x (N,H,W,C) and the output cotangent g
@@ -68,6 +70,7 @@
 // then the rows in order): no atomics, so the result is the same on every
 // run.  With n_split == 1 the block writes dw itself.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,7 +114,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !pred.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
@@ -529,6 +532,217 @@ int launch(void (*kern)(WgradArgs), int& smem_set, const WgradArgs& a,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- bf16 lane
+//
+// dw as one GEMM on the tensor cores, mma.sync m16n8k16 bf16 -> fp32: M =
+// K*K*C depth rows (tap, channel) in w's own (K, K, C, F) order, N = F,
+// and the reduction over the P = N*H_O*W_O output pixels as the k of the
+// product.  A block owns 64 depth rows x 64 filters (four warps of 32 x
+// 32) and walks its range of 64-pixel chunks through a 3-stage cp.async
+// ring.  A chunk's stage holds the im2col rows of x ([64 pixels][64 depth
+// values]: pixel q's input at (ho*S - p + kh, wo*S - p + kw), zero outside
+// the image) and g's rows ([64 pixels][64 filters]) as they lie; both have
+// the pixels as rows, so ldmatrix.trans reads A and B with the pixels as
+// k.  Each 128-byte row's 16-byte units are swizzled by the row, so every
+// ldmatrix phase (8 consecutive pixels, one unit) hits 8 bank groups.
+// The pixel chunks are cut into n_split contiguous ranges (the wrapper's
+// wgrad_bf16_tile, from the shape); each range writes its fp32 partial
+// once and trim_conv2d_wgrad_reduce sums them in a fixed order, so every
+// call gives the same bits.  What bounds it: the same operations as the
+// forward conv at bf16's 989 TFLOP/s; CL1's 27 depth rows fill 27 of 64.
+
+constexpr int kBwThreads = 128, kBwM = 64, kBwN = 64, kBwP = 64;
+constexpr int kBwStages = 3;
+constexpr int kBwTile = kBwP * 128;          // one operand's bytes a stage
+constexpr int kBwSmem = kBwStages * 2 * kBwTile;
+
+struct WgradBf16Args {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* g;
+  float* out;  // dw (n_split == 1) or the n_split partial slabs
+  int N, H, W, C, K, F, H_O, W_O, S, pad;
+  int depth, n_m, n_chunks, n_split, P;
+  int vec_x, vec_g;
+};
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte unit u of pixel row r in a [64][128 bytes] tile.
+__device__ __forceinline__ int bw_off(int r, int u) {
+  return (r << 7) + ((u ^ (r & 7)) << 4);
+}
+
+// Issue chunk ``ch``'s copies into stage ``st`` (A tile, then B tile).
+// Thread t copies unit t & 7 of pixel rows (t >> 3) + 16 i: depth values
+// d0 .. d0 + 7 (d0 = m0 + 8 (t & 7)) of x and filters f0 + 8 (t & 7) .. of
+// g; pixels past P, depth past K*K*C and filters past F are zero.
+__device__ __forceinline__ void bw_load(const WgradBf16Args& a,
+                                        unsigned char* st, int ch, int m0,
+                                        int f0) {
+  const int u = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const int d0 = m0 + u * 8, f = f0 + u * 8;
+  const int KC = a.K * a.C;
+  const int kh = d0 / KC, kw = (d0 - kh * KC) / a.C;
+  const int c = d0 - kh * KC - kw * a.C;
+  const unsigned short* x16 = reinterpret_cast<const unsigned short*>(a.x);
+  const unsigned short* g16 = reinterpret_cast<const unsigned short*>(a.g);
+#pragma unroll
+  for (int i = 0; i < kBwP / 16; ++i) {
+    const int r = r0 + 16 * i;
+    const int q = ch * kBwP + r;
+    const bool okq = q < a.P;
+    const int wo = q % a.W_O, t = q / a.W_O;
+    const int ho = t % a.H_O, n = t / a.H_O;
+    const int ih = ho * a.S - a.pad, iw = wo * a.S - a.pad;
+    unsigned char* da = st + bw_off(r, u);
+    unsigned char* db = da + kBwTile;
+    if (a.vec_x) {
+      const int h = ih + kh, w = iw + kw;
+      const bool ok = okq && d0 < a.depth &&
+                      static_cast<unsigned>(h) < static_cast<unsigned>(a.H) &&
+                      static_cast<unsigned>(w) < static_cast<unsigned>(a.W);
+      cp_async16(da,
+                  ok ? a.x + ((static_cast<size_t>(n) * a.H + h) * a.W + w) *
+                                 a.C + c
+                     : a.x,
+                  ok);
+    } else {
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      int dh = kh, dw = kw, dc = c;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int h = ih + dh, w = iw + dw;
+        if (okq && d0 + b < a.depth &&
+            static_cast<unsigned>(h) < static_cast<unsigned>(a.H) &&
+            static_cast<unsigned>(w) < static_cast<unsigned>(a.W))
+          v[b >> 1] |= static_cast<uint32_t>(
+                           x16[((static_cast<size_t>(n) * a.H + h) * a.W + w) *
+                                   a.C + dc])
+                       << (16 * (b & 1));
+        if (++dc == a.C) {
+          dc = 0;
+          if (++dw == a.K) { dw = 0; ++dh; }
+        }
+      }
+      *reinterpret_cast<uint4*>(da) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    const size_t grow = static_cast<size_t>(q) * a.F + f;
+    if (a.vec_g) {
+      const bool ok = okq && f < a.F;
+      cp_async16(db, ok ? a.g + grow : a.g, ok);
+    } else {
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (okq && f + b < a.F)
+          v[b >> 1] |= static_cast<uint32_t>(g16[grow + b]) << (16 * (b & 1));
+      *reinterpret_cast<uint4*>(db) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// Grid: (depth tiles x filter tiles, n_split).
+__global__ void __launch_bounds__(kBwThreads, 4)
+trim_conv2d_wgrad_bf16_kernel(const WgradBf16Args a) {
+  extern __shared__ __align__(128) unsigned char smem_bw[];
+  const int mt0 = blockIdx.x % a.n_m, ft = blockIdx.x / a.n_m;
+  const int split = blockIdx.y;
+  const int m0 = mt0 * kBwM, f0 = ft * kBwN;
+  const int k0 = static_cast<int>(
+      static_cast<long long>(a.n_chunks) * split / a.n_split);
+  const int k1 = static_cast<int>(
+      static_cast<long long>(a.n_chunks) * (split + 1) / a.n_split);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  const int mi = lane >> 3, lr = lane & 7;
+  // A (depth x pixels) from [pixel][depth]: matrix mi is depth half mi & 1
+  // of the m16 tile, pixel half mi >> 1; B (pixels x filters) from
+  // [pixel][filter]: matrix mi is pixel half mi & 1, n8 tile 2p + (mi >> 1)
+  int aoff[2][4], boff[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      aoff[p][ks] = bw_off(16 * ks + 8 * (mi >> 1) + lr,
+                           (wm >> 3) + 2 * p + (mi & 1));
+      boff[p][ks] = kBwTile + bw_off(16 * ks + 8 * (mi & 1) + lr,
+                                     (wn >> 3) + 2 * p + (mi >> 1));
+    }
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  for (int s = 0; s < kBwStages - 1; ++s) {
+    if (k0 + s < k1) bw_load(a, smem_bw + s * 2 * kBwTile, k0 + s, m0, f0);
+    cp_async_commit();
+  }
+  for (int k = k0; k < k1; ++k) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kBwStages - 2));
+    __syncthreads();  // chunk k landed; chunk k - 1's reads are done
+    const int nxt = k + kBwStages - 1;
+    if (nxt < k1)
+      bw_load(a, smem_bw + ((nxt - k0) % kBwStages) * 2 * kBwTile, nxt, m0,
+              f0);
+    cp_async_commit();
+    const uint32_t base =
+        smem_addr(smem_bw + ((k - k0) % kBwStages) * 2 * kBwTile);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t af[2][4], bf[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        ldsm_x4_t(af[p], base + aoff[p][ks]);
+        ldsm_x4_t(bf[p], base + boff[p][ks]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[i][nt], af[i], bf[nt >> 1][(nt & 1) * 2],
+                   bf[nt >> 1][(nt & 1) * 2 + 1]);
+    }
+  }
+
+  // Accumulator q of tile (i, nt): depth row m0 + wm + 16 i + (lane >> 2)
+  // + 8 (q >> 1), filter f0 + wn + 8 nt + (lane & 3) * 2 + (q & 1).
+  float* out = a.out + static_cast<size_t>(split) * a.depth * a.F;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + wm + 16 * i + (lane >> 2) + 8 * hr;
+      if (m >= a.depth) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int f = f0 + wn + 8 * nt + (lane & 3) * 2;
+        float* o = out + static_cast<size_t>(m) * a.F + f;
+        if (f < a.F) o[0] = acc[i][nt][hr * 2];
+        if (f + 1 < a.F) o[1] = acc[i][nt][hr * 2 + 1];
+      }
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -606,6 +820,67 @@ int trim_conv2d_wgrad_f32(const void* x, const void* g, void* dw, void* ws,
   const int rc = launch(kern, smem_set[path], a, n_c, threads, smem_bytes, s);
   if (rc != 0 || n_split == 1) return rc;
   const long long M = static_cast<long long>(KK) * C * F;
+  int G = 1;
+  while (G < 32 && 2 * G <= n_split) G *= 2;
+  const long long L = 256 / G;
+  const int blocks = static_cast<int>((M + L - 1) / L < 4224 ? (M + L - 1) / L
+                                                              : 4224);
+  trim_conv2d_wgrad_reduce<<<blocks, 256, 0, s>>>(
+      static_cast<const float*>(ws), static_cast<float*>(dw), M, n_split, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 lane's tile: depth rows, filters and pixels a block's chunk.
+int trim_conv2d_wgrad_bf16_tile(int which) {
+  return which == 0 ? kBwM : which == 1 ? kBwN : kBwP;
+}
+
+// x (N,H,W,C) bf16, g (N,H_O,W_O,F) bf16 -> dw (K,K,C,F) fp32.  The
+// caller (the wrapper's wgrad_bf16_tile) picks n_split, the contiguous
+// ranges the 64-pixel chunks are cut into; with n_split > 1, ws holds
+// n_split * K*K*C*F floats of scratch.  One call launches the GEMM and,
+// split, the fixed-order sum of the ranges.  Returns the first launch
+// error's cudaError_t, or 0.
+int trim_conv2d_wgrad_bf16(const void* x, const void* g, void* dw, void* ws,
+                           int N, int H, int W, int C, int K, int F, int H_O,
+                           int W_O, int stride, int pad, int n_split,
+                           void* stream) {
+  WgradBf16Args a;
+  const long long P = static_cast<long long>(N) * H_O * W_O;
+  const long long depth = static_cast<long long>(K) * K * C;
+  if (N < 1 || H < 1 || W < 1 || C < 1 || K < 1 || F < 1 || stride < 1 ||
+      pad < 0 || H_O != (H + 2 * pad - K) / stride + 1 ||
+      W_O != (W + 2 * pad - K) / stride + 1 || H_O < 1 || W_O < 1 ||
+      P > 0x7fffffffLL - kBwP || depth * F > 0x7fffffffLL || n_split < 1 || n_split > 65535 || (n_split > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.g = static_cast<const __nv_bfloat16*>(g);
+  a.out = static_cast<float*>(n_split > 1 ? ws : dw);
+  a.N = N; a.H = H; a.W = W; a.C = C; a.K = K; a.F = F;
+  a.H_O = H_O; a.W_O = W_O; a.S = stride; a.pad = pad;
+  a.depth = static_cast<int>(depth);
+  a.n_m = static_cast<int>((depth + kBwM - 1) / kBwM);
+  a.P = static_cast<int>(P);
+  a.n_chunks = static_cast<int>((P + kBwP - 1) / kBwP);
+  a.n_split = n_split;
+  if (n_split > a.n_chunks) return static_cast<int>(cudaErrorInvalidValue);
+  a.vec_x = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.vec_g = F % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const int n_f = (F + kBwN - 1) / kBwN;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        trim_conv2d_wgrad_bf16_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const dim3 grid(a.n_m * n_f, n_split);
+  trim_conv2d_wgrad_bf16_kernel<<<grid, kBwThreads, kBwSmem, s>>>(a);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || n_split == 1) return rc;
+  const long long M = depth * F;
   int G = 1;
   while (G < 32 && 2 * G <= n_split) G *= 2;
   const long long L = 256 / G;

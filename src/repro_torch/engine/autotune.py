@@ -35,6 +35,7 @@ miss tunes, then persists).  Tuning measures on ``policy.tune_device``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -52,7 +53,8 @@ from repro_torch.engine.policy import (SUBSTRATES, ExecutionPolicy,
                                        resolve_device)
 from repro_torch.kernels.trim_conv2d import (F32_MAX_CB, F32_TILES, U8_M,
                                              U8_PATH_NAMES, U8_SLIDE,
-                                             U8_STAGES, f32_tile, u8_tile)
+                                             U8_STAGES, bf16_tile, f32_tile,
+                                             u8_tile)
 
 #: Bump when plan semantics change: cache files of another version are
 #: ignored with a warning, so stale winners never misconfigure a kernel.
@@ -233,7 +235,9 @@ def _knob_moves(x_hw, c_in, k, c_out, *, stride, padding, groups, in_sz,
                 batch, decimate) -> List[Dict[str, object]]:
     """One-factor-at-a-time overrides of the lane's planner at ``batch``,
     each one the lane's planner takes and each different from its own
-    choice."""
+    choice: the fp32 lane's (``in_sz`` 4) tile, chunk and split; the u8 x
+    s8 (1) and bf16 (2) lanes' path, tile, split and stages (the bf16
+    lane's planner refuses the slide path and ignores the batch)."""
     cg, fg = c_in // groups, c_out // groups
     shape = ((tuple(x_hw), cg, k, fg),
              dict(stride=1 if decimate else stride, padding=padding))
@@ -246,7 +250,7 @@ def _knob_moves(x_hw, c_in, k, c_out, *, stride, padding, groups, in_sz,
             return False
         return True
 
-    if in_sz != 1:
+    if in_sz not in (1, 2):
         t = f32_tile(*shape[0], **shape[1])
         moves += [{"tile_h": th, "tile_w": tw} for th, tw in F32_TILES
                   if (th, tw) != (t.TH, t.TW)
@@ -257,26 +261,27 @@ def _knob_moves(x_hw, c_in, k, c_out, *, stride, padding, groups, in_sz,
         moves += [{"n_split": n} for n in sorted(splits)
                   if n != t.n_split and legal(f32_tile, n_split=n)]
         return moves
-    t = u8_tile(*shape[0], **shape[1], batch=batch)
+    plan_fn = (functools.partial(u8_tile, batch=batch) if in_sz == 1
+               else bf16_tile)
+    t = plan_fn(*shape[0], **shape[1])
     name = U8_PATH_NAMES[t.path]
     for p, pname in enumerate(U8_PATH_NAMES):
         # the gather path only where it is built for: C <= 8
         if p != t.path and (pname != "gather" or cg <= 8) and legal(
-                u8_tile, batch=batch, path=p):
+                plan_fn, path=p):
             moves.append({"path": pname})
     if t.path != U8_SLIDE:
         for tw in U8_TW_CANDIDATES:
             th = max(1, min(U8_M // tw, t.H_O))
             if (th, tw) != (t.TH, t.TW) and legal(
-                    u8_tile, batch=batch, path=t.path, tile=(th, tw)):
+                    plan_fn, path=t.path, tile=(th, tw)):
                 moves.append({"path": name, "tile_h": th, "tile_w": tw})
         splits = {1, max(1, t.n_split // 2), t.n_split * 2}
         moves += [{"path": name, "n_split": n} for n in sorted(splits)
-                  if n != t.n_split and legal(u8_tile, batch=batch,
-                                              path=t.path, n_split=n)]
+                  if n != t.n_split and legal(plan_fn, path=t.path,
+                                              n_split=n)]
     moves += [{"path": name, "stages": st} for st in U8_STAGES
-              if st != t.stages and legal(u8_tile, batch=batch, path=t.path,
-                                          stages=st)]
+              if st != t.stages and legal(plan_fn, path=t.path, stages=st)]
     return moves
 
 
@@ -328,8 +333,10 @@ def candidate_policies(
 
 def _operands(plan, in_sz: int, batch: int, device):
     """Synthetic operands for ``plan`` from a seeded generator (uint8 x /
-    int8 w with representative requant pairs on the integer lane, fp32
-    otherwise): (x, w, bias, requant, requant_shift)."""
+    int8 w with representative requant pairs on the integer lane, bf16
+    x, w and bias where ``in_sz`` is 2, fp32 otherwise, as the JAX
+    package's ``_measure_plan`` builds them): (x, w, bias, requant,
+    requant_shift)."""
     gen = torch.Generator().manual_seed(0)
     x_shape = (int(batch), plan.x_hw[0], plan.x_hw[1], plan.c_in)
     w_shape = (plan.k, plan.k, plan.c_in // plan.groups, plan.c_out)
@@ -350,10 +357,11 @@ def _operands(plan, in_sz: int, batch: int, device):
         if plan.has_bias:
             bias = torch.zeros((F,), dtype=torch.int32, device=device)
     else:
-        x = torch.randn(x_shape, generator=gen)
-        w = torch.randn(w_shape, generator=gen)
+        dt = torch.bfloat16 if in_sz == 2 else torch.float32
+        x = torch.randn(x_shape, generator=gen).to(dt)
+        w = torch.randn(w_shape, generator=gen).to(dt)
         if plan.has_bias:
-            bias = torch.randn((F,), generator=gen).to(device)
+            bias = torch.randn((F,), generator=gen).to(device, dt)
     return x.to(device), w.to(device), bias, requant, requant_shift
 
 

@@ -29,8 +29,8 @@ from typing import Dict, Optional, Tuple
 
 from repro_torch.engine.policy import ExecutionPolicy
 from repro_torch.kernels.trim_conv2d import (U8_PATH_NAMES, F32Tile,
-                                             Schedule, U8Tile, f32_tile,
-                                             u8_tile)
+                                             Schedule, U8Tile, bf16_tile,
+                                             f32_tile, u8_tile)
 
 #: The model datapaths: the float lane, the int8 lane and the int5 MSR
 #: lane (int8 operands with ``|w| <= 31`` and a per-channel exponent).
@@ -44,7 +44,7 @@ class ConvLayerPlan:
     ``c_in``/``c_out`` count all groups.  ``schedule`` holds the launch
     overrides of the layer's lane (the policy's knobs, or the tuned
     winner's), checked at plan time; ``in_sz`` names the lane (1: u8 x s8,
-    4: fp32).  ``tile`` is the geometry the integer lane launches for one
+    2: bf16, 4: fp32).  ``tile`` is the geometry the integer lane launches for one
     group at batch 1 (``u8_tile``, with ``schedule`` on an integer plan);
     its path and split follow the batch, so :meth:`launch` gives any
     batch's.  :meth:`f32` is the fp32 lane's (``f32_tile``, the same at
@@ -192,6 +192,9 @@ def plan_conv_layer(
     sched = pol.schedule
     if in_sz == 1:
         tile = u8_tile(tuple(x_hw), cg, k, fg, **shape, **sched.u8())
+    elif in_sz == 2:
+        bf16_tile(tuple(x_hw), cg, k, fg, **shape, **sched.bf16())
+        tile = u8_tile(tuple(x_hw), cg, k, fg, **shape)
     else:
         f32_tile(tuple(x_hw), cg, k, fg, **shape, **sched.f32())
         tile = u8_tile(tuple(x_hw), cg, k, fg, **shape)

@@ -7,9 +7,12 @@ device memory and what bounds it.
 
 - :func:`trim_conv2d` is the wrapper: a CUDA tensor launches the kernel
   (or the wrapper raises), a CPU tensor takes :func:`trim_conv2d_plain`.
-  Every launch adds one to :data:`LAUNCHES`.
+  Every launch adds one to :data:`LAUNCHES` and to its lane's count in
+  :data:`LAUNCHES_BY_LANE`.  Lanes: fp32, bf16 (fp32 sums, rounded once)
+  and u8 x s8.
 - :func:`trim_conv2d_plain` is the same function in plain PyTorch: the
-  ``ref.conv2d`` oracle followed by the unfused :func:`apply_epilogue`.
+  ``ref.conv2d`` oracle followed by the unfused :func:`apply_epilogue`,
+  a float result rounded once to x's dtype.
 - :func:`f32_tile` is the fp32 lane's geometry, from the per-image shape
   alone (never the batch): the path (the window slid in registers at K =
   3 or 5 and stride 1, else generic), the output tile, the channel chunk
@@ -23,7 +26,10 @@ device memory and what bounds it.
   im2col rows gathered from the window), the output tile, the steps of
   an item and the stages of the cp.async ring, and the channel split of
   the layers whose tiles cannot fill the card (:func:`u8_ranges`).
-  :func:`u8_output_map` lists the outputs each warp writes.  The lane's
+  :func:`u8_output_map` lists the outputs each warp writes.
+  :func:`bf16_tile` is the bf16 lane's: the same planner on 2-byte
+  elements (16 channels a k-step), from the per-image shape alone, no
+  slide path, no weight pre-pass.  The u8 lane's
   weights, transposed so that the depth is contiguous, are written once
   per weight tensor and kept while it lives unchanged
   (:func:`u8_weights`).  The TPU's VMEM width-tile pick and its four-pass halo
@@ -50,6 +56,8 @@ from repro_torch.kernels.requant import requant_mult_shift
 #: Launches of the CUDA kernel since the last reset (a plain counter:
 #: callers set it to 0 before a run and read it after).
 LAUNCHES = 0
+#: The same launches by lane ("f32", "bf16", "u8"), reset alike
+LAUNCHES_BY_LANE = {"f32": 0, "bf16": 0, "u8": 0}
 #: u8 x s8 launches that also wrote their transposed weights (the weight
 #: pre-pass; :func:`u8_weights` had no kept buffer), since the last reset
 PREPASSES = 0
@@ -164,9 +172,11 @@ class Schedule:
     :data:`F32_TILES`; u8: TH * TW <= :data:`U8_M`, 16 x 16 on the slide
     path); ``block_c``, the fp32 lane's channels a chunk; ``n_split``, the
     contiguous ranges the channel sum is cut into (both lanes); ``stages``,
-    the u8 lane's cp.async ring stages (:data:`U8_STAGES`); ``path``, the
-    u8 lane's path (:data:`U8_PATH_NAMES`).  A knob the lane does not have
-    (``block_c`` on u8, ``stages``/``path`` on fp32) is ignored there.
+    the u8 and bf16 lanes' cp.async ring stages (:data:`U8_STAGES`);
+    ``path``, the u8 and bf16 lanes' path (:data:`U8_PATH_NAMES`; bf16 has
+    no slide path).  A knob the lane does not have is ignored on the u8
+    (``block_c``) and fp32 (``stages``/``path``) lanes and raises on the
+    bf16 lane (``block_c``).
     """
 
     tile: Optional[Tuple[int, int]] = None
@@ -204,6 +214,14 @@ class Schedule:
                           else U8_PATH_NAMES.index(self.path)),
                     tile=self.tile, n_split=self.n_split,
                     stages=self.stages)
+
+    def bf16(self) -> dict:
+        """:func:`bf16_tile`'s keyword overrides; ``block_c``, a knob the
+        bf16 lane does not have, raises."""
+        if self.block_c is not None:
+            raise ValueError("the bf16 lane has no block_c (its k-step is "
+                             "16 channels)")
+        return self.u8()
 
 
 def _check_split(n_split: int, n_items: int, n_f: int, what: str) -> None:
@@ -405,13 +423,46 @@ def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
     exact in any order, so the path and the split may follow the batch.
     ``path`` forces a path (the slide path needs K = 3 at stride 1).
     """
+    if int(k) ** 2 * int(c) > U8_MAX_DEPTH:
+        raise ValueError(f"K*K*C = {int(k) ** 2 * int(c)} > {U8_MAX_DEPTH}: "
+                         "the int32 sum could wrap")
+    return _mma_tile(hw, c, k, f, stride=stride, padding=padding,
+                     batch=batch, path=path, tile=tile, n_split=n_split,
+                     stages=stages, elem=1)
+
+
+@functools.lru_cache(maxsize=512)
+def bf16_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
+              padding: Optional[int], path: Optional[int] = None,
+              tile: Optional[Tuple[int, int]] = None,
+              n_split: Optional[int] = None,
+              stages: Optional[int] = None) -> U8Tile:
+    """The bf16 lane's geometry for x (·,H,W,c), w (k,k,c,f): the u8 x s8
+    lane's planner (:func:`u8_tile`) on 2-byte elements, a 32-byte k-step
+    being 16 channels, from the per-image shape alone (``batch`` 1): fp32
+    sums are not exact in every order, so the path, the tile and the split
+    never follow the batch, and a batch of N equals N calls of one image
+    bit for bit.  The path is the gather path where C <=
+    :data:`U8_GATHER_MAX_C`, else the window path; the lane has no slide
+    path (``path`` :data:`U8_SLIDE` raises) and no pre-pass
+    (``wt_bytes`` 0).  Overrides are checked as :func:`u8_tile` checks
+    them."""
+    if path == U8_SLIDE:
+        raise ValueError("the bf16 lane has no slide path")
+    return _mma_tile(hw, c, k, f, stride=stride, padding=padding, batch=1,
+                     path=path, tile=tile, n_split=n_split, stages=stages,
+                     elem=2)
+
+
+def _mma_tile(hw, c, k, f, *, stride, padding, batch, path, tile, n_split,
+              stages, elem) -> U8Tile:
+    """The tensor-core lanes' planner (:func:`u8_tile`, :func:`bf16_tile`)
+    for ``elem``-byte elements (1: u8 x s8, 2: bf16)."""
     H, W = int(hw[0]), int(hw[1])
     S, K, C, F = int(stride), int(k), int(c), int(f)
+    sc = U8_STEP // elem            # channels (depth values) a k-step
     if S < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
-    if K * K * C > U8_MAX_DEPTH:
-        raise ValueError(f"K*K*C = {K * K * C} > {U8_MAX_DEPTH}: the int32 "
-                         "sum could wrap")
     p = K // 2 if padding is None else int(padding)
     H_O = (H + 2 * p - K) // S + 1
     W_O = (W + 2 * p - K) // S + 1
@@ -421,7 +472,7 @@ def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
     T = U8_SLIDE_TILE
     if path is None:
         path = (U8_GATHER if C <= U8_GATHER_MAX_C
-                else U8_SLIDE if K == 3 and S == 1 and (
+                else U8_SLIDE if elem == 1 and K == 3 and S == 1 and (
                     -(-H_O // T) * -(-W_O // T) * n_f * int(batch) >= SMS)
                 else U8_WINDOW)
     elif path not in (U8_WINDOW, U8_GATHER, U8_SLIDE) or (
@@ -433,8 +484,8 @@ def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
             raise ValueError(f"the slide path's tile is {U8_SLIDE_TILE} x "
                              f"{U8_SLIDE_TILE}, not {TH} x {TW}")
         if min(TH, TW) < 1 or TH * TW > U8_M:
-            raise ValueError(f"u8 tile {TH} x {TW} not within {U8_M} "
-                             "pixels")
+            raise ValueError(f"{'u8' if elem == 1 else 'bf16'} tile {TH} x "
+                             f"{TW} not within {U8_M} pixels")
         cands = [(TH, TW)]
     elif path == U8_SLIDE:
         cands = [(U8_SLIDE_TILE, U8_SLIDE_TILE)]
@@ -460,24 +511,26 @@ def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
             fits += [(g, min(sts), SMEM_MAX)
                      for g in range(K * K - 1, 0, -1)]
     else:
-        win = -(-(rows * cols * C) // 128) * 128
-        g = min(U8_GATHER_STEPS, -(-(K * K * C) // U8_STEP))
+        win = -(-(rows * cols * C * elem) // 128) * 128
+        g = min(U8_GATHER_STEPS, -(-(K * K * C) // sc))
         fits = [(g, st, lim) for lim in (SMEM_PAIR, SMEM_MAX)
                 for st in sts]
     steps, stages = next(((g, st) for g, st, lim in fits
                           if _u8_smem(path, win, g, st)[1] <= lim),
                          (None, None))
     if steps is None:
-        raise ValueError(f"no u8 conv tile fits K={K}, S={S}, C={C} in "
-                         f"{SMEM_MAX} bytes of shared memory")
+        raise ValueError(f"no {'u8' if elem == 1 else 'bf16'} conv tile "
+                         f"fits K={K}, S={S}, C={C} in {SMEM_MAX} bytes of "
+                         "shared memory")
     stage_bytes, smem = _u8_smem(path, win, steps, stages)
     if path != U8_GATHER:
         n_tg = -(-(K * K) // steps)
-        n_items = -(-C // U8_STEP) * n_tg
+        n_items = -(-C // sc) * n_tg
     else:
         n_tg = 1
-        n_items = -(-(K * K * C) // (steps * U8_STEP))
-    wt_bytes = (K * K * n_f * U8_FB * -(-C // U8_STEP) * U8_STEP
+        n_items = -(-(K * K * C) // (steps * sc))
+    wt_bytes = (0 if elem != 1
+                else K * K * n_f * U8_FB * -(-C // U8_STEP) * U8_STEP
                 if path != U8_GATHER
                 else n_f * U8_FB * n_items * steps * U8_STEP)
     tiles = n_th * n_tw * n_f * int(batch)
@@ -559,10 +612,14 @@ def trim_conv2d_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                       bias: Optional[torch.Tensor] = None, relu: bool = False,
                       requant_shift: Optional[int] = None,
                       requant=None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: oracle conv + epilogue."""
+    """The kernel's function in plain PyTorch: oracle conv + epilogue.  A
+    float ``x`` gets the Pallas kernel's float lane: fp32 sums, the bias
+    (fp32 or bf16) added in fp32, ReLU in fp32, one rounding to x's
+    dtype at the end."""
     _check_epilogue(x, requant_shift, requant)
     out = ref.conv2d(x, w, stride=stride, padding=padding)
-    return apply_epilogue(out, bias, relu, requant_shift, requant)
+    out = apply_epilogue(out, bias, relu, requant_shift, requant)
+    return out.to(x.dtype) if x.is_floating_point() else out
 
 
 def _check_epilogue(x, requant_shift, requant) -> None:
@@ -584,6 +641,8 @@ def load_library() -> ctypes.CDLL:
         lib.trim_conv2d_f32.restype = i
         lib.trim_conv2d_u8s8.argtypes = [p] * 8 + [i] * 21 + [p]
         lib.trim_conv2d_u8s8.restype = i
+        lib.trim_conv2d_bf16.argtypes = [p] * 5 + [i] * 19 + [p]
+        lib.trim_conv2d_bf16.restype = i
         lib.trim_conv2d_error_string.argtypes = [i]
         lib.trim_conv2d_error_string.restype = ctypes.c_char_p
         for name in ("f32_threads", "f32_filters", "u8_pixels",
@@ -629,6 +688,28 @@ def u8_launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int,
                t.steps, t.n_split, t.stages)
 
 
+@functools.lru_cache(maxsize=512)
+def bf16_launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int,
+                     S: int, padding: Optional[int],
+                     schedule: Optional[Schedule] = None):
+    """The bf16 geometry and the C function's integer arguments for one
+    call's shape and ``schedule`` (cached, as :func:`f32_launch_args`).
+    The geometry does not depend on the batch ``x_shape[0]``."""
+    N, H, W, C = x_shape
+    t = bf16_tile((H, W), C, K, F, stride=S, padding=padding,
+                  **(schedule or Schedule()).bf16())
+    return t, (N, H, W, C, K, F, t.H_O, t.W_O, S, t.p, t.path, t.TH, t.TW,
+               t.steps, t.n_split, t.stages)
+
+
+def lane_of(x_dtype: torch.dtype, w_dtype: torch.dtype) -> Optional[str]:
+    """The kernel's lane for x and w of these dtypes: "f32", "bf16",
+    "u8", or None where the kernel takes no such pair."""
+    return {(torch.float32, torch.float32): "f32",
+            (torch.bfloat16, torch.bfloat16): "bf16",
+            (torch.uint8, torch.int8): "u8"}.get((x_dtype, w_dtype))
+
+
 def u8_weights(w: torch.Tensor, key, nbytes: int):
     """The buffer for ``w``'s transposed weights under layout ``key`` (the
     stream included), and whether it already holds them: ``(wt, ready)``.
@@ -665,17 +746,19 @@ def u8_weights_keep(w: torch.Tensor, key, wt: torch.Tensor) -> None:
 
 
 def check_schedule(schedule: Schedule, x_shape, w_shape, stride: int,
-                   padding: Optional[int], floating: bool):
+                   padding: Optional[int], lane: str):
     """The geometry ``schedule`` gives a call of x ``x_shape`` (N,H,W,C)
-    and w ``w_shape`` (K,K,C,F) on its lane: an :class:`F32Tile` or a
-    :class:`U8Tile`; raises where the kernel cannot take an override."""
+    and w ``w_shape`` (K,K,C,F) on ``lane`` ("f32", "bf16" or "u8"): an
+    :class:`F32Tile` or a :class:`U8Tile`; raises where the kernel cannot
+    take an override."""
     N, H, W, C = (int(v) for v in x_shape)
     K, F = int(w_shape[0]), int(w_shape[-1])
-    if floating:
-        return f32_tile((H, W), C, K, F, stride=int(stride),
-                        padding=padding, **schedule.f32())
-    return u8_tile((H, W), C, K, F, stride=int(stride), padding=padding,
-                   batch=N, **schedule.u8())
+    kw = dict(stride=int(stride), padding=padding)
+    if lane == "f32":
+        return f32_tile((H, W), C, K, F, **kw, **schedule.f32())
+    if lane == "bf16":
+        return bf16_tile((H, W), C, K, F, **kw, **schedule.bf16())
+    return u8_tile((H, W), C, K, F, **kw, batch=N, **schedule.u8())
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -705,27 +788,31 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                 schedule: Optional[Schedule] = None) -> torch.Tensor:
     """TrIM conv. x (N,H,W,C), w (K,K,C,F) -> (N,H_O,W_O,F).
 
-    fp32 x fp32 -> fp32, or uint8 x int8 -> int32 (uint8 with
-    ``requant_shift`` or per-channel ``requant=(mult, shift)``).  ``bias``
-    (F,) is fp32 on the float lane and int32 on the integer lane.  A CPU
-    ``x`` runs :func:`trim_conv2d_plain` (``schedule`` checked, the same
-    function whatever it says); a CUDA ``x`` launches the kernel on the
-    current stream, or raises.  The fp32 lane plans its geometry from the
-    per-image shape (:func:`f32_tile`), the integer lane from the shape and
-    the batch (:func:`u8_tile`), each with ``schedule``'s overrides (an
-    illegal one raises).  Where either splits its sum, one call launches the
-    conv and the kernel that merges its partials; the integer lane's
-    first call on a weight tensor (or after it changed) also launches the
-    weights' transposition (:func:`u8_weights`).  One count in
-    :data:`LAUNCHES` a call.
+    fp32 x fp32 -> fp32, bf16 x bf16 -> bf16 (fp32 sums and epilogue,
+    rounded once), or uint8 x int8 -> int32 (uint8 with ``requant_shift``
+    or per-channel ``requant=(mult, shift)``).  ``bias`` (F,) is fp32 on
+    the fp32 lane, fp32 or bf16 on the bf16 lane and int32 on the integer
+    lane.  A CPU ``x`` runs :func:`trim_conv2d_plain` (``schedule``
+    checked, the same function whatever it says); a CUDA ``x`` launches
+    the kernel on the current stream, or raises.  The fp32 and bf16 lanes
+    plan their geometry from the per-image shape (:func:`f32_tile`,
+    :func:`bf16_tile`), the integer lane from the shape and the batch
+    (:func:`u8_tile`), each with ``schedule``'s overrides (an illegal one
+    raises).  Where a lane splits its sum, one call launches the conv and
+    the kernel that merges its partials; the integer lane's first call on
+    a weight tensor (or after it changed) also launches the weights'
+    transposition (:func:`u8_weights`).  One count in :data:`LAUNCHES` a
+    call, and one in its lane's :data:`LAUNCHES_BY_LANE`.
     """
     global LAUNCHES
     if schedule is not None and not isinstance(schedule, Schedule):
         raise TypeError(f"schedule must be a Schedule, got {schedule!r}")
+    lane = lane_of(x.dtype, w.dtype)
     if x.device.type == "cpu":
         if schedule is not None and not schedule.default:
             check_schedule(schedule, x.shape, w.shape, stride, padding,
-                           x.is_floating_point())
+                           lane or ("f32" if x.is_floating_point()
+                                    else "u8"))
         return trim_conv2d_plain(x, w, stride=stride, padding=padding,
                                  bias=bias, relu=relu,
                                  requant_shift=requant_shift, requant=requant)
@@ -741,17 +828,17 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                          f"{tuple(x.shape)}")
     if N < 1 or F < 1 or N > 65535:
         raise ValueError(f"batch {N} / filters {F} out of range")
-    floating = x.dtype == torch.float32 and w.dtype == torch.float32
-    integer = x.dtype == torch.uint8 and w.dtype == torch.int8
-    if not (floating or integer):
+    if lane is None:
         raise ValueError(f"unsupported dtypes x={x.dtype}, w={w.dtype}: the "
-                         "kernel takes float32 x float32 or uint8 x int8")
+                         "kernel takes float32 x float32, bfloat16 x "
+                         "bfloat16 or uint8 x int8")
     tensors = [x, w]
     if bias is not None:
-        want = torch.float32 if floating else torch.int32
-        if bias.shape != (F,) or bias.dtype != want:
-            raise ValueError(f"bias must be ({F},) {want}, got "
-                             f"{tuple(bias.shape)} {bias.dtype}")
+        want = {"f32": (torch.float32,), "u8": (torch.int32,),
+                "bf16": (torch.float32, torch.bfloat16)}[lane]
+        if bias.shape != (F,) or bias.dtype not in want:
+            raise ValueError(f"bias must be ({F},) {' or '.join(map(str, want))}"
+                             f", got {tuple(bias.shape)} {bias.dtype}")
         tensors.append(bias)
     mult = shift = None
     if requant is not None:
@@ -769,33 +856,37 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         raise ValueError(f"requant_shift {requant_shift} not in [0, 31]")
 
     lib = load_library()
-    if floating:
-        t, args = f32_launch_args((N, H, W, C), K, F, int(stride), padding,
+    shape = (N, H, W, C)
+    if lane == "bf16":
+        t, args = bf16_launch_args(shape, K, F, int(stride), padding,
+                                   schedule)
+    elif lane == "f32":
+        t, args = f32_launch_args(shape, K, F, int(stride), padding,
                                   w.data_ptr() % 16 == 0, schedule)
-        if t.n_f * t.n_split > 65535:
-            raise ValueError(f"{F} filters need {t.n_f} filter tiles "
-                             f"(x {t.n_split} ranges > 65535)")
-        out = torch.empty((N, t.H_O, t.W_O, F), dtype=torch.float32,
-                          device=x.device)
-        parts = (None if t.n_split == 1 else torch.empty(
-            (t.n_split, N, t.H_O, t.W_O, F), dtype=torch.float32,
-            device=x.device))
+    else:
+        t, args = u8_launch_args(shape, K, F, int(stride), padding,
+                                 schedule)
+    if t.n_f * t.n_split > 65535:
+        raise ValueError(f"{F} filters need {t.n_f} filter tiles "
+                         f"(x {t.n_split} ranges > 65535)")
+    out_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}.get(
+        lane, torch.uint8 if requant_shift is not None
+        or requant is not None else torch.int32)
+    out = torch.empty((N, t.H_O, t.W_O, F), dtype=out_dtype,
+                      device=x.device)
+    parts = (None if t.n_split == 1 else torch.empty(
+        (t.n_split, N, t.H_O, t.W_O, F), device=x.device,
+        dtype=torch.int32 if lane == "u8" else torch.float32))
+    if lane == "bf16":
+        bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
+        rc = _on_stream(x, lambda stream: lib.trim_conv2d_bf16(
+            _ptr(x), _ptr(w), _ptr(bias), _ptr(out), _ptr(parts), *args,
+            bias_bf16, int(relu), t.smem_bytes, stream))
+    elif lane == "f32":
         rc = _on_stream(x, lambda stream: lib.trim_conv2d_f32(
             _ptr(x), _ptr(w), _ptr(bias), _ptr(out), _ptr(parts), *args,
             int(relu), t.smem_bytes, stream))
     else:
-        t, args = u8_launch_args((N, H, W, C), K, F, int(stride), padding,
-                                 schedule)
-        if t.n_f * t.n_split > 65535:
-            raise ValueError(f"{F} filters need {t.n_f} filter tiles "
-                             f"(x {t.n_split} ranges > 65535)")
-        out_dtype = (torch.uint8 if requant_shift is not None
-                     or requant is not None else torch.int32)
-        out = torch.empty((N, t.H_O, t.W_O, F), dtype=out_dtype,
-                          device=x.device)
-        parts = (None if t.n_split == 1 else torch.empty(
-            (t.n_split, N, t.H_O, t.W_O, F), dtype=torch.int32,
-            device=x.device))
         rq_kind = (2 if requant is not None
                    else 1 if requant_shift is not None else 0)
 
@@ -819,4 +910,5 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         raise RuntimeError(f"trim_conv2d launch failed: CUDA error {rc} "
                            f"({msg})")
     LAUNCHES += 1
+    LAUNCHES_BY_LANE[lane] += 1
     return out

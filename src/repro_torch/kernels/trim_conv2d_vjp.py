@@ -12,6 +12,11 @@ Port of ``repro/kernels/trim_conv2d_vjp.py``.
 - :func:`trim_conv2d_wgrad_plain` is the same function in plain PyTorch:
   a loop over the K*K taps, each an fp32 contraction of the shifted
   input view with the cotangent.
+- :func:`wgrad_bf16_tile` is the bf16 lane's geometry: dw as one GEMM on
+  the tensor cores (64 depth rows x 64 filters a block, the output
+  pixels as the reduction in chunks of 64), and into how many contiguous
+  ranges the chunks are cut to fill the card (:func:`wgrad_bf16_ranges`),
+  from the shape alone.
 - :func:`wgrad_tile` is the kernel's geometry: its path, output tile,
   channel and filter tile, which (tap, channel) rows and filters each
   thread's register tile holds (8 x 8, or 9 taps x 8 on the K = 3 path:
@@ -42,6 +47,8 @@ from repro_torch.kernels.trim_conv2d import (SMEM_MAX, Schedule,
 #: Launches of the weight-gradient kernel since the last reset (a plain
 #: counter: callers set it to 0 before a run and read it after).
 WGRAD_LAUNCHES = 0
+#: The same launches by lane ("f32", "bf16"), reset alike
+WGRAD_LAUNCHES_BY_LANE = {"f32": 0, "bf16": 0}
 
 #: The kernel's paths: scalar window rows (C < 8), 16-byte window rows
 #: (Cb % 8 == 0) and, at K = 3 and stride 1 with a 32 x 64 tile, the nine
@@ -74,6 +81,11 @@ SM_REGS = 65536
 SM_THREADS = 2048
 #: Most scratch the split partials may take.
 WGRAD_WORKSPACE_MAX = 256 * 1024 * 1024
+#: The bf16 lane, compiled into the kernel: depth rows (tap, channel) and
+#: filters a block, output pixels a chunk; blocks an SM (128 threads, 48
+#: KB of shared memory each).
+BF16_M, BF16_N, BF16_P = 64, 64, 64
+BF16_BLOCKS_PER_SM = 4
 
 _LIB_NAME = "trim_conv2d_wgrad"
 _SOURCES = ("trim_conv2d_wgrad.cu",)
@@ -226,6 +238,53 @@ def wgrad_thread_outputs(t: WgradTile, K: int, tid: int):
     return [(tap, c, f) for tap, c in rows for f in filters]
 
 
+@dataclass(frozen=True)
+class WgradBf16Tile:
+    """One bf16 weight-gradient call's launch geometry on the GPU."""
+
+    H_O: int
+    W_O: int
+    p: int            # symmetric zero padding
+    depth: int        # K*K*C: dw's rows
+    n_m: int          # depth tiles of BF16_M
+    n_f: int          # filter tiles of BF16_N
+    n_chunks: int     # chunks of BF16_P output pixels over the batch
+    n_split: int      # contiguous ranges of chunks
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_bf16_tile(x_shape: Tuple[int, int, int, int], k: int, f: int, *,
+                    stride: int, padding: Optional[int]) -> WgradBf16Tile:
+    """The bf16 lane's geometry for x (N,H,W,C) and dw (k,k,C,f): dw's
+    (K*K*C) x f tiles, the N*H_O*W_O output pixels in chunks of
+    :data:`BF16_P`, and the fewest contiguous ranges of chunks that
+    minimise the makespan over the blocks the card holds at once
+    (:func:`fewest_ranges`), within :data:`WGRAD_WORKSPACE_MAX` of
+    scratch."""
+    N, H, W, C = (int(v) for v in x_shape)
+    S, K, F = int(stride), int(k), int(f)
+    if S < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    p = K // 2 if padding is None else int(padding)
+    H_O, W_O = _out_hw(H, W, K, S, p)
+    if H_O < 1 or W_O < 1:
+        raise ValueError(f"empty conv output for input {(H, W)}, k={K}, p={p}")
+    depth = K * K * C
+    n_m, n_f = -(-depth // BF16_M), -(-F // BF16_N)
+    n_chunks = -(-(N * H_O * W_O) // BF16_P)
+    n_split = fewest_ranges(n_chunks, n_m * n_f,
+                            WGRAD_SMS * BF16_BLOCKS_PER_SM,
+                            min(65535, WGRAD_WORKSPACE_MAX // (depth * F * 4)))
+    return WgradBf16Tile(H_O=H_O, W_O=W_O, p=p, depth=depth, n_m=n_m,
+                         n_f=n_f, n_chunks=n_chunks, n_split=n_split)
+
+
+def wgrad_bf16_ranges(t: WgradBf16Tile):
+    """The bf16 kernel's split: ``(k0, k1)`` chunks of each range."""
+    return [(t.n_chunks * s // t.n_split, t.n_chunks * (s + 1) // t.n_split)
+            for s in range(t.n_split)]
+
+
 def wgrad_ranges(t: WgradTile, N: int):
     """The kernel's split: ``(i0, i1)`` items of each of the n_split
     ranges of the N * n_th * n_tw (image, output tile) items."""
@@ -256,12 +315,18 @@ def load_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.trim_conv2d_wgrad_f32.argtypes = [p] * 4 + [i] * 21 + [p]
         lib.trim_conv2d_wgrad_f32.restype = i
+        lib.trim_conv2d_wgrad_bf16.argtypes = [p] * 4 + [i] * 11 + [p]
+        lib.trim_conv2d_wgrad_bf16.restype = i
+        lib.trim_conv2d_wgrad_bf16_tile.argtypes = [i]
+        lib.trim_conv2d_wgrad_bf16_tile.restype = i
         lib.trim_conv2d_wgrad_error_string.argtypes = [i]
         lib.trim_conv2d_wgrad_error_string.restype = ctypes.c_char_p
         for name in ("max_threads", "stages"):
             getattr(lib, f"trim_conv2d_wgrad_{name}").restype = i
         if (lib.trim_conv2d_wgrad_max_threads() != WGRAD_MAX_THREADS
-                or lib.trim_conv2d_wgrad_stages() != WGRAD_STAGES):
+                or lib.trim_conv2d_wgrad_stages() != WGRAD_STAGES
+                or [lib.trim_conv2d_wgrad_bf16_tile(j) for j in range(3)]
+                != [BF16_M, BF16_N, BF16_P]):
             raise RuntimeError("trim_conv2d_wgrad library constants differ "
                                "from the wrapper's")
         _BOUND.add(lib)
@@ -306,7 +371,11 @@ def trim_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, *, K: int,
     fp32.
 
     A CPU ``x`` runs :func:`trim_conv2d_wgrad_plain`; a CUDA ``x``
-    launches the kernel on the current stream, or raises.
+    launches the kernel on the current stream, or raises: fp32 x and g on
+    the fp32 lane (:func:`wgrad_tile`), bf16 x and g on the bf16 lane
+    (:func:`wgrad_bf16_tile`, fp32 sums).  One count in
+    :data:`WGRAD_LAUNCHES` a call, and one in its lane's
+    :data:`WGRAD_LAUNCHES_BY_LANE`.
     """
     global WGRAD_LAUNCHES
     dev = x.device  # one device object: each ``.device`` builds a new one
@@ -319,12 +388,14 @@ def trim_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, *, K: int,
     if x.dim() != 4 or g.dim() != 4 or g.shape[0] != x.shape[0]:
         raise ValueError(f"x must be NHWC and g (N,H_O,W_O,F): "
                          f"{tuple(x.shape)}, {tuple(g.shape)}")
-    if x.dtype != torch.float32 or g.dtype != torch.float32:
-        raise ValueError(f"the kernel takes float32 x and g, got {x.dtype}, "
-                         f"{g.dtype}")
+    if x.dtype != g.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the kernel takes float32 or bfloat16 x and g of "
+                         f"one dtype, got {x.dtype}, {g.dtype}")
     if g.device != dev or not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("trim_conv2d_wgrad needs contiguous operands on "
                          "one device")
+    if x.dtype == torch.bfloat16:
+        return _wgrad_bf16(x, g, int(K), int(stride), padding)
     xp, gp = x.data_ptr(), g.data_ptr()
     t, args = _launch_args(tuple(x.shape), int(K), int(g.shape[-1]),
                            int(stride), padding, xp % 16 == 0, gp % 16 == 0)
@@ -346,6 +417,38 @@ def trim_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, *, K: int,
         raise RuntimeError(f"trim_conv2d_wgrad launch failed: CUDA error "
                            f"{rc} ({msg})")
     WGRAD_LAUNCHES += 1
+    WGRAD_LAUNCHES_BY_LANE["f32"] += 1
+    return dw
+
+
+def _wgrad_bf16(x: torch.Tensor, g: torch.Tensor, K: int, S: int,
+                padding: Optional[int]) -> torch.Tensor:
+    """:func:`trim_conv2d_wgrad`'s bf16 lane on checked CUDA operands."""
+    global WGRAD_LAUNCHES
+    dev = x.device
+    t = wgrad_bf16_tile(tuple(x.shape), K, int(g.shape[-1]), stride=S,
+                        padding=padding)
+    if tuple(g.shape[1:3]) != (t.H_O, t.W_O):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not fit the conv "
+                         f"output ({t.H_O}, {t.W_O})")
+    N, H, W, C = x.shape
+    shape = (K, K, C, g.shape[3])
+    dw = torch.empty(shape, dtype=torch.float32, device=dev)
+    ws = (None if t.n_split == 1 else
+          torch.empty((t.n_split, *shape), dtype=torch.float32, device=dev))
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.trim_conv2d_wgrad_bf16(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+            None if ws is None else ws.data_ptr(), N, H, W, C, K,
+            shape[3], t.H_O, t.W_O, S, t.p, t.n_split,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.trim_conv2d_wgrad_error_string(rc).decode()
+        raise RuntimeError(f"trim_conv2d_wgrad launch failed: CUDA error "
+                           f"{rc} ({msg})")
+    WGRAD_LAUNCHES += 1
+    WGRAD_LAUNCHES_BY_LANE["bf16"] += 1
     return dw
 
 
@@ -407,8 +510,11 @@ class TrimConv2dFn(torch.autograd.Function):
     the gradient at exactly 0 is 0), then computes dx through kernel 1
     only when x needs it (never for a network's input), dw through the
     weight-gradient kernel and the bias gradient as the masked
-    cotangent's fp32 sum.  Cotangent dtypes follow the primals.  On CPU
-    tensors both kernels' plain versions run.
+    cotangent's fp32 sum.  Cotangent dtypes follow the primals.  bf16
+    primals stay bf16: dx runs kernel 1's bf16 lane on the bf16 cotangent
+    and weights, dw kernel 2's bf16 lane (fp32 sums, rounded once to
+    w's dtype), as the JAX package's VJP does.  On CPU tensors both
+    kernels' plain versions run.
     """
 
     @staticmethod
@@ -425,16 +531,18 @@ class TrimConv2dFn(torch.autograd.Function):
         x, w, out = ctx.saved_tensors
         plan = ctx.plan
         gm = g * (out > 0).to(g.dtype) if plan.relu else g
-        gm = gm.float().contiguous()
+        # one dtype for both kernels: the primals' where they share one
+        dt = x.dtype if x.dtype == w.dtype else torch.float32
+        gm = gm.to(dt).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             dx = trim_conv2d_input_grad(
-                gm, w.float(), x_hw=x.shape[1:3], stride=plan.stride,
+                gm, w.to(dt), x_hw=x.shape[1:3], stride=plan.stride,
                 padding=plan.padding).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = trim_conv2d_wgrad(x.float().contiguous(), gm, K=w.shape[0],
+            dw = trim_conv2d_wgrad(x.to(dt).contiguous(), gm, K=w.shape[0],
                                    stride=plan.stride,
                                    padding=plan.padding).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = gm.sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
+            db = gm.float().sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
         return dx, dw, db, None

@@ -9,7 +9,9 @@ it keeps out of device memory and what bounds it.
 - :func:`trim_matmul` is the wrapper: a CUDA tensor launches the kernel
   on the path :func:`select_path` names (or the wrapper raises), a CPU
   tensor takes :func:`trim_matmul_plain`.  Every launch adds one to
-  :data:`LAUNCHES` and to its path's count in :data:`LAUNCHES_BY_PATH`.
+  :data:`LAUNCHES` and to its path's count in :data:`LAUNCHES_BY_PATH`;
+  :func:`check_launch` holds its arguments against the kernel's bounds
+  first.
 - :func:`trim_matmul_plain` is the same function in plain PyTorch
   (``ref.matmul_ref``): float inputs multiplied in fp32 and rounded once
   to the output type, int8 inputs exactly, to int32.
@@ -156,6 +158,65 @@ def stream_plan(K: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
     return -(-tiles // per), per
 
 
+def _reach(t: torch.Tensor) -> int:
+    """One past the last element of ``t``'s storage that its rows reach."""
+    rows, cols = t.shape
+    return (t.storage_offset() + (rows - 1) * t.stride(0)
+            + (cols - 1) * t.stride(1) + 1)
+
+
+def check_launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                 path: str, n_split: int = 1, split_tiles: int = 1,
+                 ws: Optional[torch.Tensor] = None) -> None:
+    """Hold one launch's arguments against the kernel's bounds before it
+    is made; raise ``ValueError`` where one falls outside them.  Checked:
+    every element the rows of a, b and out reach lies inside its storage;
+    out is contiguous (M, N); the path takes the lane (fma fp32, wgmma
+    bf16, mma bf16 and int8, stream all three); the grid: at most 65535
+    row tiles of BLOCK_M on mma and fma, tiles and extents below 2^31 on
+    wgmma with TMA-aligned operands (:func:`tma_aligned`); on stream at
+    most STREAM_ROWS rows, 1-65535 splits of ``split_tiles`` >= 1 whole K
+    tiles of at most STREAM_MAX_K rows that cover K and leave no split
+    empty, and with more than one split a workspace (n_split, M, N) of
+    the lane's accumulator type."""
+    (M, K), N = a.shape, int(b.shape[1])
+    big = 2 ** 31
+    for name, t in (("a", a), ("b", b), ("out", out)):
+        if t.numel() and _reach(t) > t.untyped_storage().nbytes() \
+                // t.element_size():
+            raise ValueError(f"{name}'s rows reach past its storage")
+    if not out.is_contiguous() or tuple(out.shape) != (M, N):
+        raise ValueError(f"out must be a contiguous ({M}, {N})")
+    lanes = {"fma": (torch.float32,), "wgmma": (torch.bfloat16,),
+             "mma": (torch.bfloat16, torch.int8),
+             "stream": (torch.float32, torch.bfloat16, torch.int8)}
+    if a.dtype not in lanes[path]:
+        raise ValueError(f"the {path} path does not take {a.dtype}")
+    if path in ("mma", "fma"):
+        if -(-M // BLOCK_M) > 65535 or -(-N // BLOCK_N) >= big:
+            raise ValueError(f"({M}, {N}) exceeds the {path} path's grid")
+    elif path == "wgmma":
+        tiles = -(-M // WGMMA_BLOCK[0]) * -(-N // WGMMA_BLOCK[1])
+        if not (tma_aligned(a) and tma_aligned(b)) or max(M, N, K) >= big \
+                or tiles >= big:
+            raise ValueError("the wgmma path needs TMA-aligned operands "
+                             "and extents below 2^31")
+    else:
+        span = split_tiles * STREAM_K_TILE[a.dtype]
+        acc = torch.int32 if a.dtype == torch.int8 else torch.float32
+        if (M > STREAM_ROWS or not 1 <= n_split <= 65535 or split_tiles < 1
+                or span > STREAM_MAX_K or n_split * span < K
+                or (n_split - 1) * span >= K
+                or -(-N // STREAM_COLS) >= big):
+            raise ValueError(f"stream plan ({n_split} x {split_tiles} "
+                             f"tiles) does not fit M = {M}, K = {K}")
+        if n_split > 1 and (ws is None or tuple(ws.shape) != (n_split, M, N)
+                            or ws.dtype != acc or not ws.is_contiguous()):
+            raise ValueError(f"the stream path's {n_split} splits need a "
+                             f"contiguous ({n_split}, {M}, {N}) {acc} "
+                             "workspace")
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its ctypes
     signatures declared; returns it."""
@@ -238,6 +299,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor,
     if n_split > 1:
         ws = torch.empty((n_split, M, N), device=a.device, dtype=(
             torch.int32 if a.dtype == torch.int8 else torch.float32))
+    check_launch(a, b, out, path, n_split, split_tiles, ws)
     lib = load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -82,13 +82,23 @@ NVLINK_DOMAIN = 8
 
 def _fake_world(n: int) -> None:
     """A one-process fake process group of world size ``n`` (rank 0),
-    replacing one of another size."""
+    replacing one of another size.  A new world's meshes equal an earlier
+    world's by value, so DTensor's sharding-propagation caches (Python's
+    and the dispatch fast path's) are cleared: they would hand back
+    output specs on the earlier meshes, whose process groups are gone."""
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         if dist.get_world_size() == n and dist.get_backend() == "fake":
             return
         dist.destroy_process_group()
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding \
+        .cache_clear()
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                     None)          # the dispatch fast path's (newer torch)
+    if native is not None:
+        native()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 

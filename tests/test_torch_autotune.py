@@ -96,7 +96,7 @@ def test_candidate_policies_int8_cpu():
     assert [c.substrate for c in pinned] == ["oracle", "f32exact"]
 
 
-@pytest.mark.parametrize("in_sz", [1, 4])
+@pytest.mark.parametrize("in_sz", [1, 2, 4])
 def test_candidate_policies_kernel_sweep(in_sz):
     """With the kernel in the search each launch knob moves one at a time,
     every candidate plans (its lane's planner takes it) and differs from
@@ -119,6 +119,51 @@ def test_candidate_policies_kernel_sweep(in_sz):
 
 
 # -- the plan cache: persist, hit, key sensitivity, degradation -----------------
+
+def test_bf16_lane_knobs_operands_and_key_match_jax(monkeypatch):
+    """The bf16 lane (``in_sz`` 2): its moves are the bf16 planner's own
+    (no ``block_c``, no slide path, the gather path only at C <= 8), its
+    synthetic operands are bf16 x, w and bias as the JAX package's
+    ``_measure_plan`` builds them, and its cache key is JAX's
+    (``sz2.2.2``)."""
+    for hw, c in (((56, 56), 128), ((24, 24), 3)):
+        moves = autotune._knob_moves(hw, c, 3, 64, stride=1, padding=None,
+                                     groups=1, in_sz=2, batch=8,
+                                     decimate=False)
+        assert moves and all("block_c" not in m for m in moves)
+        assert all(m.get("path") in ("window", "gather") for m in moves)
+        # the gather path only at C <= 8, where it is the default
+        assert any(m.get("path") == "gather" for m in moves) == (c <= 8)
+        for m in moves:
+            plan_conv_layer(hw, c, 3, 64, in_sz=2,
+                            policy=CPU.with_overrides(**m))
+    with pytest.raises(ValueError):
+        plan_conv_layer((56, 56), 128, 3, 64, in_sz=2,
+                        policy=CPU.with_overrides(path="slide"))
+
+    from repro.engine.plan import plan_conv_layer as jax_plan_conv_layer
+
+    seen = {}
+
+    def spy(plan, x, w, bias=None, requant=None, **kw):
+        seen.update(x=x.dtype, w=w.dtype, bias=bias.dtype)
+        return x[..., :1]
+
+    monkeypatch.setattr(jax_autotune.execute, "run_conv2d", spy)
+    jplan = jax_plan_conv_layer((8, 8), 4, 3, 8, relu=True, has_bias=True)
+    jax_autotune._measure_plan(jplan, in_sz=2, warmup=0, reps=1)
+    plan = plan_conv_layer((8, 8), 4, 3, 8, relu=True, has_bias=True,
+                           in_sz=2, policy=CPU)
+    x, w, bias, requant, shift = autotune._operands(plan, 2, 1, "cpu")
+    assert {str(seen[k]) for k in ("x", "w", "bias")} == {"bfloat16"}
+    assert x.dtype == w.dtype == bias.dtype == torch.bfloat16
+    assert requant is None and shift is None
+    kw = dict(stride=1, padding=None, groups=1, relu=True, has_bias=True,
+              requant_kind=None, in_sz=2, w_sz=2, out_sz=2, emulate_hw=False)
+    key = autotune.layer_key((8, 8), 4, 3, 8, **kw)
+    assert key == jax_autotune.layer_key((8, 8), 4, 3, 8, **kw)
+    assert " sz2.2.2 " in key
+
 
 def test_tune_on_miss_persists_and_applies(plan_cache, monkeypatch):
     calls = []

@@ -5,8 +5,10 @@ through it against ``conv2d_input``; its u8 x s8 lane bit for bit at
 every VGG-16 and AlexNet conv, on each of its paths, split and not, at
 the largest sum and at batch 8 as 8 calls of batch 1; the int5 lane's
 calls at every VGG-16 conv; the f32exact substrate's chunks on its fp32
-lane against the oracle), the weight-gradient kernel, the
-autograd Function that runs both, the causal conv1d kernel (bit for bit), the flash-attention
+lane against the oracle; its bf16 lane within one bf16 ulp of its plain
+version, a batch of 8 bit-equal to 8 calls, dx on it against
+``conv2d_input``), the weight-gradient kernel (its bf16 lane against the
+fp32 lane), the autograd Function that runs both (on bf16 primals too), the causal conv1d kernel (bit for bit), the flash-attention
 kernel (fp32 within 2e-5, bf16 within 2e-2 and per row within 4 x 2^-7 of
 the row's max|plain|, on both bf16 paths, at head dims 8, 16, 32, 64, 128
 and 256; its split decode bit-equal over two calls), the matmul kernel on each of its paths (wgmma, stream,
@@ -607,6 +609,253 @@ def test_illegal_schedule_raises_on_card():
             kern.trim_conv2d(x.float(), w.float(), schedule=bad)
     torch.cuda.synchronize()
     assert kern.LAUNCHES == before
+
+
+# (N, H, W, C, K, F, stride, padding, bias dtype): the bf16 lane's paths --
+# the gather path (C <= 8: VGG-16 CL1's C = 3, AlexNet CL1's K = 11 at
+# stride 4), the window path unsplit and split (VGG-16 CL11's 14 x 14 x
+# 512), K = 5 at stride 2, C = 12 and F = 20 (neither a multiple of 8:
+# element copies of x and of w), a bf16 bias and none.
+BF16_CASES = [
+    (2, 40, 40, 3, 3, 64, 1, None, "float32"),
+    (1, 63, 63, 3, 11, 96, 4, 0, "bfloat16"),
+    (2, 56, 56, 64, 3, 128, 1, None, "float32"),
+    (1, 14, 14, 512, 3, 512, 1, 1, "bfloat16"),
+    (2, 27, 27, 48, 5, 128, 2, 2, None),
+    (2, 17, 19, 12, 3, 20, 1, 1, "float32"),
+]
+
+
+def bf16_id(case):
+    N, H, W, C, K, F, S, p, bdt = case
+    return f"N{N}-{H}x{W}x{C}-K{K}-F{F}-S{S}-p{p}-bias_{bdt}"
+
+
+def bf16_close(got, want, slack):
+    """Hold a bf16 result against its plain version: every output within
+    one bf16 ulp of the larger magnitude plus ``slack`` (both round an fp32
+    sum once; the sums differ by at most 4 n 2^-24 sum|terms|, n terms
+    each, which matters only where the sum cancels).  Returns the share of
+    outputs more than one ulp apart."""
+    g, e = got.float(), want.float()
+    assert got.dtype == want.dtype and g.shape == e.shape
+    mag = torch.maximum(g.abs(), e.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (g - e).abs()
+    assert bool((diff <= ulp + slack).all()), float((diff - ulp).max())
+    return float((diff > ulp).float().mean())
+
+
+def bf16_slack(x, w, stride, padding, n):
+    """4 n 2^-24 x the conv of |x| with |w| (fp32): the bound on how far
+    two fp32 sums of the n exact products can part."""
+    return 4 * n * 2.0 ** -24 * ref.conv2d(x.float().abs(), w.float().abs(),
+                                           stride=stride, padding=padding)
+
+
+def _bf16_inputs(case, dev):
+    N, H, W, C, K, F, S, p, bdt = case
+    gen = torch.Generator().manual_seed(zlib.crc32(bf16_id(case).encode()))
+    x = torch.randn((N, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((K, K, C, F), generator=gen) / (K * K * C) ** 0.5).to(
+        dev, torch.bfloat16)
+    b = (None if bdt is None else
+         torch.randn(F, generator=gen).to(dev, getattr(torch, bdt)))
+    return x, w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BF16_CASES, ids=bf16_id)
+def test_bf16_kernel_matches_plain_on_card(case):
+    """On a card: the bf16 lane (bias -> ReLU in fp32, one rounding) on
+    each of its paths, split and not, against its plain version within one
+    bf16 ulp (plus the fp32 sums' bound where they cancel); one launch
+    counted a call; two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    fp32_ieee()
+    N, H, W, C, K, F, S, p, bdt = case
+    x, w, b = _bf16_inputs(case, torch.device("cuda"))
+    before = kern.LAUNCHES
+    got = kern.trim_conv2d(x, w, stride=S, padding=p, bias=b, relu=True)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    want = kern.trim_conv2d_plain(x, w, stride=S, padding=p, bias=b,
+                                  relu=True)
+    bf16_close(got, want, bf16_slack(x, w, S, p, K * K * C))
+    assert torch.equal(got, kern.trim_conv2d(x, w, stride=S, padding=p,
+                                             bias=b, relu=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(14, 14, 256, 256), (160, 160, 32, 64),
+                                   (40, 40, 3, 64)],
+                         ids=["split", "unsplit", "gather"])
+def test_bf16_kernel_batch_of_8_equals_8_calls_on_card(shape):
+    """On a card: image i of a batch-8 bf16 call equals a batch-1 call of
+    that image bit for bit: the geometry comes from the image's shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    H, W, C, F = shape
+    t = kern.bf16_tile((H, W), C, 3, F, stride=1, padding=None)
+    assert (t.n_split > 1) == (H == 14)
+    assert (t.path == kern.U8_GATHER) == (C <= 8)
+    x, w, b = _bf16_inputs((8, H, W, C, 3, F, 1, None, "float32"),
+                           torch.device("cuda"))
+    batch = kern.trim_conv2d(x, w, bias=b, relu=True)
+    for i in range(8):
+        one = kern.trim_conv2d(x[i:i + 1].contiguous(), w, bias=b, relu=True)
+        assert torch.equal(batch[i:i + 1], one), f"image {i}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DX_CASES, ids=wgrad_id)
+def test_bf16_input_grad_matches_conv2d_input_on_card(case):
+    """On a card: dx on bf16 (the conv kernel's bf16 lane on the flipped
+    bf16 weights) against ``conv2d_input`` in float64 on the same values,
+    rounded once to bf16: within one bf16 ulp plus the fp32 sums' bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from torch.nn.grad import conv2d_input
+
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    N, H, W, C, K, F, S, p = case
+    pp = K // 2 if p is None else p
+    H_O, W_O = (H + 2 * pp - K) // S + 1, (W + 2 * pp - K) // S + 1
+    gen = torch.Generator().manual_seed(zlib.crc32(wgrad_id(case).encode()))
+    dev = torch.device("cuda")
+    g = torch.randn((N, H_O, W_O, F), generator=gen).to(dev, torch.bfloat16)
+    w = torch.randn((K, K, C, F), generator=gen).to(dev, torch.bfloat16)
+    before = kern.LAUNCHES
+    got = vjp.trim_conv2d_input_grad(g, w, x_hw=(H, W), stride=S, padding=p)
+    assert kern.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+
+    def dx(gg, ww):
+        return conv2d_input((N, C, H, W), ww.double().permute(3, 2, 0, 1),
+                            gg.double().permute(0, 3, 1, 2), stride=S,
+                            padding=pp).permute(0, 2, 3, 1)
+
+    want = dx(g, w).to(torch.bfloat16)
+    slack = 4 * K * K * F * 2.0 ** -24 * dx(g.abs(), w.abs())
+    bf16_close(got, want, slack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGRAD_CASES, ids=wgrad_id)
+def test_bf16_wgrad_matches_fp32_lane_on_card(case):
+    """On a card: the weight gradient's bf16 lane (tensor cores, fp32
+    sums) against the fp32 lane on the same values upcast, within the
+    fp32 lane's own tolerance against its plain version (rtol 1e-4 / atol
+    1e-4 * max|dw|: both sum exact products in fp32, in another order);
+    one launch counted a call; the same bits on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    fp32_ieee()
+    N, H, W, C, K, F, S, p = case
+    pp = K // 2 if p is None else p
+    H_O, W_O = (H + 2 * pp - K) // S + 1, (W + 2 * pp - K) // S + 1
+    gen = torch.Generator().manual_seed(zlib.crc32(wgrad_id(case).encode()))
+    dev = torch.device("cuda")
+    x = torch.randn((N, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((N, H_O, W_O, F), generator=gen).to(dev, torch.bfloat16)
+    before = vjp.WGRAD_LAUNCHES
+    got = vjp.trim_conv2d_wgrad(x, g, K=K, stride=S, padding=p)
+    torch.cuda.synchronize()
+    assert vjp.WGRAD_LAUNCHES == before + 1
+    assert got.dtype == torch.float32 and got.shape == (K, K, C, F)
+    want = vjp.trim_conv2d_wgrad(x.float(), g.float(), K=K, stride=S,
+                                 padding=p)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(got, vjp.trim_conv2d_wgrad(x, g, K=K, stride=S,
+                                                  padding=p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FN_CASES, ids=str)
+def test_trim_conv2d_fn_bf16_step_on_card(case):
+    """On a card: autograd through ``TrimConv2dFn`` on bf16 primals (the
+    forward and dx on kernel 1's bf16 lane, dw on kernel 2's) against the
+    same Function on CPU copies (the plain versions): bf16 cotangents for
+    x and w, the bias's dtype for the bias, each within one bf16 ulp plus
+    the fp32 sums' bound (at most 4096 terms of order 1); 2 conv and 1
+    weight-gradient launches a group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    fp32_ieee()
+    H, W, K, S, p, groups = case
+    C, F = 16, 24
+    gen = torch.Generator().manual_seed(zlib.crc32(str(case).encode()))
+    x = torch.randn((2, H, W, C), generator=gen).bfloat16()
+    w = torch.randn((K, K, C // groups, F), generator=gen).bfloat16()
+    b = torch.randn(F, generator=gen)
+
+    def run(dev):
+        xs, ws, bs = (t.to(dev).requires_grad_(True) for t in (x, w, b))
+        out = port_conv(xs, ws, bs, stride=S, padding=p, groups=groups,
+                        relu=True, policy=ExecutionPolicy("kernel"))
+        cot = torch.linspace(-1, 1, out.numel(), device=dev).reshape(
+            out.shape).to(out.dtype)
+        return [out] + list(torch.autograd.grad(out, (xs, ws, bs), cot))
+
+    k0, w0 = kern.LAUNCHES, vjp.WGRAD_LAUNCHES
+    got = run(torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES - k0 == 2 * groups
+    assert vjp.WGRAD_LAUNCHES - w0 == groups
+    want = run(torch.device("cpu"))
+    assert [t.dtype for t in got] == [torch.bfloat16] * 3 + [torch.float32]
+    for a, e in zip(got, want):
+        a = a.cpu()
+        assert a.dtype == e.dtype and a.shape == e.shape
+        slack = 4 * 4096 * 2.0 ** -24 * float(e.detach().float().abs().max())
+        if a.dtype == torch.bfloat16:
+            bf16_close(a, e, slack)
+        else:
+            assert float((a - e).abs().max()) <= slack
+
+
+@pytest.mark.gpu
+def test_bf16_lane_refuses_what_it_does_not_take_on_card():
+    """On a card: dtypes no lane takes (fp16, bf16 x fp32, fp32 x bf16), a
+    bias of another dtype, a slide path, a block_c, more stages and a
+    split past the items raise before any launch; the weight gradient
+    refuses mixed and fp16 operands.  Nothing is upcast or falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    dev = torch.device("cuda")
+    x = torch.zeros((1, 16, 16, 32), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((3, 3, 32, 16), dtype=torch.bfloat16, device=dev)
+    before, wbefore = kern.LAUNCHES, vjp.WGRAD_LAUNCHES
+    for xx, ww in ((x.half(), w.half()), (x, w.float()), (x.float(), w)):
+        with pytest.raises(ValueError, match="unsupported dtypes"):
+            kern.trim_conv2d(xx, ww)
+    with pytest.raises(ValueError, match="bias"):
+        kern.trim_conv2d(x, w, bias=torch.zeros(16, device=dev).half())
+    for bad in (kern.Schedule(path="slide"), kern.Schedule(block_c=8),
+                kern.Schedule(n_split=10 ** 4), kern.Schedule(stages=4)):
+        with pytest.raises(ValueError):
+            kern.trim_conv2d(x, w, schedule=bad)
+    g = torch.zeros((1, 16, 16, 16), dtype=torch.bfloat16, device=dev)
+    for xx, gg in ((x, g.float()), (x.half(), g.half())):
+        with pytest.raises(ValueError, match="one dtype"):
+            vjp.trim_conv2d_wgrad(xx, gg, K=3)
+    torch.cuda.synchronize()
+    assert (kern.LAUNCHES, vjp.WGRAD_LAUNCHES) == (before, wbefore)
 
 
 @pytest.mark.gpu

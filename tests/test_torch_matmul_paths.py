@@ -215,3 +215,77 @@ def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
     assert _build.library_path("k", ["k.cu"]) == key
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _build.library_path("k", ["k.cu"]) != key
+
+
+#: ``chip_smoke.py`` phase 3e's ragged shapes and granite-3-2b's decode
+#: rows (its gate/up at M = 4, 1 and 16): (M, K, N)
+PHASE_3E = [(1, 1, 1), (7, 13, 5), (64, 96, 48), (200, 120, 150),
+            (33, 7, 129), (129, 65, 257), (4, 2048, 8192), (1, 2048, 8192),
+            (16, 2048, 8192)]
+
+
+def _launch_args(a, b):
+    """The arguments ``trim_matmul._launch`` builds for a (M, K) @ b (K,
+    N) on the path ``select_path`` picks: (out, path, n_split,
+    split_tiles, workspace)."""
+    (M, K), N = a.shape, b.shape[1]
+    path = mm.select_path(a, b)
+    n_split, tiles = (mm.stream_plan(K, N, a.dtype) if path == "stream"
+                      else (1, 1))
+    acc = torch.int32 if a.dtype == torch.int8 else torch.float32
+    ws = torch.empty((n_split, M, N), dtype=acc) if n_split > 1 else None
+    out = torch.empty((M, N), dtype=acc if a.dtype == torch.int8
+                      else a.dtype)
+    return out, path, n_split, tiles, ws
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", PHASE_3E, ids=str)
+def test_launch_arguments_within_the_kernel_bounds(shape, dtype):
+    """Every launch phase 3e makes passes the host-side check of its
+    arguments against the kernel's tile and grid bounds (and the column
+    slice a layer's projection passes, read in place); the check raises
+    before a launch where one is outside them."""
+    M, K, N = shape
+    dt = DTYPES[dtype]
+    a, b = _zeros((M, K), dt), _zeros((K, N), dt)
+    out, path, n_split, tiles, ws = _launch_args(a, b)
+    mm.check_launch(a, b, out, path, n_split, tiles, ws)
+    wide = _zeros((M, K + 8), dt)[:, 8:]
+    mm.check_launch(wide, b, *_launch_args(wide, b))
+    bad = []
+    if path == "stream":
+        bad += [(a, b, out, path, n_split + 1, tiles, ws),
+                (a, b, out, path, max(1, n_split - 1), tiles, ws)
+                if n_split > 1 else (a, b, out, path, 1, 0, None)]
+        if n_split > 1:
+            bad.append((a, b, out, path, n_split, tiles, ws.to(torch.int16)))
+    else:
+        big = _zeros((mm.STREAM_ROWS + 1, K), dt)
+        bad.append((big, b, torch.empty((big.shape[0], N), dtype=out.dtype),
+                    "stream", 1, 1, None))
+    other = {torch.float32: "wgmma", torch.bfloat16: "fma",
+             torch.int8: "fma"}[dt]
+    bad.append((a, b, out, other, 1, 1, None))
+    bad.append((a, b, out.t() if M > 1 and N > 1 else out[:, :0], path,
+                n_split, tiles, ws))
+    for args in bad:
+        with pytest.raises(ValueError):
+            mm.check_launch(*args)
+
+
+def test_launch_check_refuses_unaligned_wgmma_and_big_grids():
+    """The wgmma path refuses operands the TMA cannot read as they lie;
+    mma and fma refuse more than 65535 row tiles."""
+    a, b = _zeros((64, 128), torch.bfloat16), _zeros((128, 256),
+                                                      torch.bfloat16)
+    out = torch.empty((64, 256), dtype=torch.bfloat16)
+    mm.check_launch(a, b, out, "wgmma")
+    with pytest.raises(ValueError, match="TMA"):
+        mm.check_launch(_zeros((64, 131), torch.bfloat16)[:, 3:], b, out,
+                        "wgmma")
+    rows = mm.BLOCK_M * 65535 + 1
+    tall = torch.zeros((1, 1)).expand(rows, 1)
+    one = torch.zeros((1, 1))
+    with pytest.raises(ValueError, match="grid"):
+        mm.check_launch(tall, one, torch.empty((rows, 1)), "fma")
