@@ -5,6 +5,9 @@
     python3 chip_smoke.py --kernels  # environment, build and kernel phases
     python3 chip_smoke.py --drift 0,1,2  # environment, build and the drift
                                          # measurement only
+    python3 chip_smoke.py --parent DIR   # every phase; phase 3j also times
+                                         # the bf16 kernels of the checkout
+                                         # at DIR (the parent commit's)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -17,12 +20,14 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's registers and spills, the SSD kernel's per stage and lane (a
    spill fails), and the conv kernel's per path (fp32
    K=3 and K=5 slide, generic, split merge; u8s8 window and gather
-   paths, int32 and uint8 out, and their merges); the count of ``IMMA``
-   (tensor-core integer MMA) instructions in each u8s8 entry's SASS
-   (``cuobjdump -sass`` on the built library), which fails if an entry
-   is missing or has none where the library exports the tensor-core
-   lane's constant ``trim_conv2d_u8_pixels`` (a library without it
-   predates the lane: its count is only logged); the flash kernel's
+   paths, int32 and uint8 out, and their merges; the bf16 wgmma window
+   path at 64 and 128 filters a block and the gather path); the count of
+   ``IMMA`` (tensor-core integer MMA) instructions in each u8s8 entry's
+   SASS, of ``HGMMA`` (wgmma) in each bf16 window entry's and the weight
+   gradient's bf16 window entry's, of ``HMMA`` (mma.sync) in the bf16
+   gather entry's and the weight gradient's bf16 GEMM entry's
+   (``cuobjdump -sass`` on the built library), which fails if an entry is
+   missing, spills (the bf16 entries) or has none; the flash kernel's
    registers and spills per path (bf16 prefill, bf16 split decode, fp32)
    and head dim (8, 16, 32, 64, 128, 256), failing where an entry is
    missing;
@@ -153,9 +158,13 @@ Phases (any failure exits non-zero and prints no result line):
    plain ms, cuDNN in bf16 (``F.conv2d``, ``conv2d_input``,
    ``conv2d_weight``: yardsticks the port never calls) and the bound at
    the bf16 peak; per part and batch the sums and the profiler's device
-   time of the 13 (12) calls; the build phase logs each bf16 entry's
-   registers and spills and its ``HMMA`` count (a spill, a missing entry
-   or no HMMA fails);
+   time of the 13 (12) calls (not measured where the profiler saw fewer
+   of the port's kernels run than the calls launched); with ``--parent
+   DIR``, each VGG-16 row at batch 8 and each batch-8 sum also carries
+   the parent checkout's time from the same run
+   (``tools/bf16_conv_times.py`` on DIR); the build phase logs each bf16
+   entry's registers and spills and its ``HGMMA`` (window) or ``HMMA``
+   (gather, GEMM) count (a spill, a missing entry or none fails);
 4. serve float: full-width VGG-16 (224x224x3, 13 convs, 4096-4096-1000
    head, seeded random weights) through ``repro_torch.serve.Server`` with
    buckets 1,4,8 on a bursts stream: conservation, build-once, every conv
@@ -669,22 +678,50 @@ U8_ENTRIES = {
     "trim_conv2d_u8s8_kernelILi1EhE": "u8s8 gather uint8 out"}
 
 
-#: The bf16 lane's kernel entries: mangled-name fragment -> label.
-BF16_ENTRIES = {"trim_conv2d_bf16_kernelILi0EE": "bf16 window",
-                "trim_conv2d_bf16_kernelILi1EE": "bf16 gather"}
+#: The bf16 lane's kernel entries: mangled-name fragment -> (label, the
+#: tensor-core instruction its SASS must hold): the wgmma window path at 64
+#: and 128 filters a block (HGMMA), the gather path (mma.sync: HMMA).
+BF16_ENTRIES = {
+    "trim_conv2d_bf16_wgmma_kernelILi64EE": ("bf16 wgmma window fb=64",
+                                             "HGMMA"),
+    "trim_conv2d_bf16_wgmma_kernelILi128EE": ("bf16 wgmma window fb=128",
+                                              "HGMMA"),
+    "trim_conv2d_bf16_kernelILi1EE": ("bf16 gather", "HMMA")}
+
+
+def _sass_counts(lib_path, entries: dict) -> tuple:
+    """({label: the count of its instruction in the entry's SASS} for each
+    entry of ``entries`` (mangled-name fragment -> (label, instruction))
+    found in the library's ``cuobjdump -sass``, the process)."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300)
+    counts, cur = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            cur = next((v for k, v in entries.items() if k in line), None)
+            if cur is not None:
+                counts[cur[0]] = 0
+        elif cur is not None and re.search(rf"\b{cur[1]}\b", line):
+            counts[cur[0]] += 1
+    return counts, sass
 
 
 def _log_conv_build() -> None:
     """The conv kernel's registers and spills per path from its
-    ``-Xptxas -v`` build log (both lanes are built for two blocks an SM:
-    at most 128 registers a thread), and the ``IMMA`` count of each u8s8
-    entry's SASS; fails where a u8s8 entry is missing or runs no
-    tensor-core MMA in a library that exports the tensor-core lane's
-    constant ``trim_conv2d_u8_pixels`` (an older library's count is only
-    logged)."""
+    ``-Xptxas -v`` build log (the fp32 and u8 x s8 lanes are built for two
+    blocks an SM: at most 128 registers a thread; the bf16 wgmma window
+    path for two blocks of 288 threads: at most 112), and the tensor-core
+    instruction count of each u8s8 (``IMMA``) and bf16 entry's SASS (the
+    wgmma window path's ``HGMMA``, the gather path's ``HMMA``); fails
+    where a bf16 entry is missing, spills or runs none of its instruction,
+    or a u8s8 entry runs no ``IMMA``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import trim_conv2d as kern
 
+    bf16 = {k: v[0] for k, v in BF16_ENTRIES.items()}
     entries = {"trim_conv2d_f32_kernelILi3E": "fp32 K=3 slide",
                "trim_conv2d_f32_kernelILi5E": "fp32 K=5 slide",
                "trim_conv2d_f32_kernelILi0E": "fp32 generic",
@@ -693,37 +730,25 @@ def _log_conv_build() -> None:
                "trim_conv2d_u8s8_wprep": "u8s8 weight transposition",
                "trim_conv2d_u8s8_mergeIiE": "u8s8 split merge int32 out",
                "trim_conv2d_u8s8_mergeIhE": "u8s8 split merge uint8 out",
-               **BF16_ENTRIES,
-               "trim_conv2d_bf16_merge": "bf16 split merge"}
+               **bf16,
+               "trim_conv2d_bf16_merge": "bf16 gather split merge"}
     found = _ptxas_by_entry(
         _build.build_log(kern._LIB_NAME, kern._SOURCES) or "", entries)
     for label in entries.values():
         log(f"conv kernel, {label} path: {found.get(label, 'not in the log')}")
-    for label in BF16_ENTRIES.values():
+    for label in bf16.values():
         info = found.get(label)
         if info is None or any(int(v) for v in re.findall(
                 r"(\d+) bytes spill", info)):
             fail(f"conv kernel {label}: not built, or spills ({info})")
-    cuobjdump = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass",
-         str(_build.library_path(kern._LIB_NAME, kern._SOURCES))],
-        capture_output=True, text=True, timeout=300)
-    mma, name = {}, None
-    tc = {**{k: (v, "IMMA") for k, v in U8_ENTRIES.items()},
-          **{k: (v, "HMMA") for k, v in BF16_ENTRIES.items()}}
-    for line in sass.stdout.splitlines():
-        if "Function :" in line:
-            name = next((v for k, v in tc.items() if k in line), None)
-            if name is not None:
-                mma[name[0]] = 0
-        elif name is not None and name[1] in line:
-            mma[name[0]] += 1
+    tc = {**{k: (v, "IMMA") for k, v in U8_ENTRIES.items()}, **BF16_ENTRIES}
+    mma, sass = _sass_counts(
+        _build.library_path(kern._LIB_NAME, kern._SOURCES), tc)
     for label, op in tc.values():
         n = mma.get(label)
         log(f"conv kernel, {label}: "
             + ("not in the SASS" if n is None else f"{n} {op} instructions"))
-        if hasattr(kern.load_library(), "trim_conv2d_u8_pixels") and not n:
+        if not n:
             fail(f"conv kernel {label}: no {op} in its SASS (cuobjdump rc "
                  f"{sass.returncode}: {sass.stderr.strip()[:200]})")
 
@@ -807,26 +832,45 @@ def issue_ms(torch, fn, reps: int) -> float:
     return t / reps * 1e3
 
 
-def device_ms(torch, fn, calls: int, by=None):
+def device_ms(torch, fn, calls: int, by=None, kernels=None):
     """Device (kernel) time per call of ``fn`` over ``calls`` calls under
-    ``torch.profiler``, after one warm call: every kernel the calls
-    launched, summed; None (not measured) where the profiler saw no
+    ``torch.profiler``, after one warm call and one profiled warm-up round
+    of the calls: every kernel the calls launched, summed; None (not measured) where the profiler saw no
     device time.  With ``by`` (a kernel's name -> a group or None): a
-    dict of the time per call of each group, {} where none was seen."""
-    from torch.profiler import ProfilerActivity, profile
+    dict of the time per call of each group, {} where none was seen.
+    With ``kernels`` (a name fragment, the kernels of that name one call
+    launches): None (not measured) unless the profiler saw exactly
+    ``calls`` times as many such kernels run -- a sum over fewer kernels
+    than ran is no time of the calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    groups = {}
+    # one profiled round of the calls as warm-up, then the one that is
+    # read: CUPTI dropped the first kernels of a window (3 of 65 in 3j)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    groups, seen = {}, 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0)
         group = by(e.key) if by else "all"
-        if str(e.device_type).endswith("CUDA") and group and t > 0:
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        if kernels is not None and kernels[0] in e.key:
+            seen += e.count
+        if group and t > 0:
             groups[group] = groups.get(group, 0.0) + t / 1e3 / calls
+    if kernels is not None and seen != kernels[1] * calls:
+        log(f"profiler: {seen} kernels named {kernels[0]!r} ran in "
+            f"{calls} calls, not the {kernels[1] * calls} launched: the "
+            "sum is not measured")
+        return {} if by else None
     return groups if by else groups.get("all")
 
 
@@ -1170,10 +1214,21 @@ def phase_backward(torch, reps: int, batches):
     return rows
 
 
+#: The weight-gradient kernel's bf16 entries: mangled-name fragment ->
+#: (label, the tensor-core instruction its SASS must hold).
+WGRAD_BF16_ENTRIES = {
+    "wgrad_bf16_window_kernel": ("bf16 window (wgmma)", "HGMMA"),
+    "wgrad_bf16_kernel": ("bf16 GEMM (C % 8 != 0)", "HMMA")}
+
+
 def _log_wgrad_build() -> None:
     """The weight-gradient kernel's registers and spills per thread from
-    its ``-Xptxas -v`` build log, beside the registers its split assumes
-    (``WGRAD_REGS``: above it, fewer blocks fit an SM than it plans for)."""
+    its ``-Xptxas -v`` build log, beside the registers its fp32 split
+    assumes (``WGRAD_REGS``: above it, fewer blocks fit an SM than it
+    plans for), and each bf16 entry's tensor-core instruction count in its
+    SASS (the window path's ``HGMMA``, the GEMM path's ``HMMA``); fails
+    where a bf16 entry is missing, spills or runs none of its
+    instruction."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import trim_conv2d_vjp as vjp
 
@@ -1186,11 +1241,19 @@ def _log_wgrad_build() -> None:
     for path, info in found.items():
         log(f"wgrad kernel, {names[path]} path: {info}; the split assumes "
             f"{vjp.WGRAD_REGS[path]} registers")
-    bf = _ptxas_by_entry(text, {"wgrad_bf16_kernel": "bf16"}).get("bf16")
-    log(f"wgrad kernel, bf16 lane: {bf or 'not in the log'}")
-    if bf is None or any(int(v) for v in re.findall(r"(\d+) bytes spill",
-                                                   bf)):
-        fail(f"wgrad kernel bf16 lane: not built, or spills ({bf})")
+    bf = _ptxas_by_entry(text, {k: v[0] for k, v in
+                                WGRAD_BF16_ENTRIES.items()})
+    mma, sass = _sass_counts(
+        _build.library_path(vjp._LIB_NAME, vjp._SOURCES), WGRAD_BF16_ENTRIES)
+    for label, op in WGRAD_BF16_ENTRIES.values():
+        info = bf.get(label)
+        n = mma.get(label)
+        log(f"wgrad kernel, {label}: {info or 'not in the log'}; "
+            + ("not in the SASS" if n is None else f"{n} {op} instructions"))
+        if info is None or any(int(v) for v in re.findall(
+                r"(\d+) bytes spill", info)) or not n:
+            fail(f"wgrad kernel {label}: not built, spills or no {op} "
+                 f"({info}; cuobjdump rc {sass.returncode})")
 
 
 def _bf16_gate(torch, got, want, slack, what: str):
@@ -1227,13 +1290,46 @@ def _bf16_cases():
     return [(a, l, g) for a, i, l, g, _ in _u8_cases()]
 
 
-def phase_bf16_kernels(torch, reps: int):
+def _conv_kernels(kern, x_hw, C, K, F, S, p) -> int:
+    """Kernels one bf16 kernel-1 call launches: one on the wgmma window
+    path, and the merge of a split gather path."""
+    t = kern.bf16_tile(tuple(x_hw), C, K, F, stride=S, padding=p)
+    return 1 if t.path == kern.U8_WINDOW else 1 + (t.n_split > 1)
+
+
+def _parent_times(parent, reps: int):
+    """``tools/bf16_conv_times.py`` on the checkout at ``parent`` (its
+    kernels built there), batch TRAIN_BATCH: {"<kind> <layer>": ms}, or
+    None without ``--parent``."""
+    if parent is None:
+        return None
+    src = pathlib.Path(parent).resolve() / "src"
+    if not (src / "repro_torch" / "kernels" / "trim_conv2d.py").is_file():
+        fail(f"--parent {parent}: no checkout of the port there")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "bf16_conv_times.py"),
+         "--src", str(src), "--batch", str(TRAIN_BATCH), "--reps",
+         str(reps)], capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"the parent's bf16 times failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"parent checkout {parent}: timed in "
+        f"{time.perf_counter() - t0:.1f} s (its build included) on "
+        f"{out['card']}")
+    return out["rows"]
+
+
+def phase_bf16_kernels(torch, reps: int, parent=None):
     """3j. The bf16 lanes: kernel 1 forward (bias+ReLU) at VGG-16's 13
     convs at batch 1 and 8 and AlexNet's 5 at batch 1, kernel 1 as dx at
     VGG-16's CL2-CL13 at batch 1 and 8, kernel 2 at VGG-16's 13 convs at
     batch 1 and 8; each against its plain version, timed beside it, cuDNN
     in bf16 and the bound at the bf16 peak; per (part, batch) the sums and
-    the device time of the 13 (12) calls under ``torch.profiler``."""
+    the device time of the 13 (12) calls under ``torch.profiler`` (not
+    measured where it saw fewer of the port's kernels run than the calls
+    launched); with ``parent`` (a checkout of the parent commit), the
+    parent's kernels timed at batch 8 in the same run beside each row."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
 
@@ -1289,6 +1385,8 @@ def phase_bf16_kernels(torch, reps: int):
             calls[("fwd", arch, N)] = calls.get(("fwd", arch, N), []) + [fwd]
             rows.append({
                 "arch": arch, "layer": l.name, "batch": N, "kind": "fwd",
+                "kernels": groups * _conv_kernels(
+                    kern, (l.H_I, l.W_I), Cg, K, Fg, S, p),
                 "launches": groups, "max_abs_err": max(g[0] for g in gates),
                 "past_ulp": max(g[1] for g in gates),
                 "ms": cuda_ms(torch, fwd, reps),
@@ -1317,8 +1415,11 @@ def phase_bf16_kernels(torch, reps: int):
             nb = 2 * (x.numel() + g.numel()) + 4 * w.numel()
             nb_dx = 2 * (g.numel() + w.numel() + x.numel())
             calls[("dw", arch, N)] = calls.get(("dw", arch, N), []) + [dw]
+            tw = vjp.wgrad_bf16_tile(tuple(x.shape), K, Fo, stride=S,
+                                     padding=p)
             rows.append({
                 "arch": arch, "layer": l.name, "batch": N, "kind": "dw",
+                "kernels": 1 + (tw.n_part > 1),
                 "launches": 1, "max_abs_err": err_w,
                 "ms": cuda_ms(torch, dw, reps),
                 "plain_ms": cuda_ms(torch, lambda: vjp.trim_conv2d_wgrad_plain(
@@ -1346,29 +1447,47 @@ def phase_bf16_kernels(torch, reps: int):
             calls[("dx", arch, N)] = calls.get(("dx", arch, N), []) + [dx]
             rows.append({
                 "arch": arch, "layer": l.name, "batch": N, "kind": "dx",
+                "kernels": _conv_kernels(kern, (l.H_O, l.W_O), Fo, K, C, 1,
+                                         K - 1 - pp),
                 "launches": 1, "max_abs_err": err_x, "past_ulp": past_x,
                 "ms": cuda_ms(torch, dx, reps),
                 "plain_ms": cuda_ms(torch, dx_plain, max(1, reps // 5)),
                 "library_ms": cuda_ms(torch, lambda: conv2d_input(
                     xn.shape, w_oihw, gn, stride=S, padding=pp), reps),
                 **bound(macs, nb_dx, False, PEAK_BF16)})
+    before = _parent_times(parent, reps)
     for r in rows:
         past = (f"; past one ulp {r['past_ulp']:.2e}" if "past_ulp" in r
                 else "")
+        if r["arch"] == "vgg16" and r["batch"] == TRAIN_BATCH:
+            r["parent_ms"] = (None if before is None
+                              else before[f"{r['kind']} {r['layer']}"])
+        old = ("" if "parent_ms" not in r else
+               f" parent_ms {_fmt(r['parent_ms'])}")
         log(f"bf16 {r['kind']} {r['arch']:7s} {r['layer']:4s} batch "
-            f"{r['batch']} ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-            f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-            f"({r['bound_by']}) err {r['max_abs_err']:.3g}{past}")
+            f"{r['batch']} ms {r['ms']:.4f}{old} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) err "
+            f"{r['max_abs_err']:.3g}{past}")
+    if before is None:
+        log(f"bf16 rows at batch {TRAIN_BATCH}: the parent's times not "
+            "measured (run with --parent DIR, a checkout of the parent "
+            "commit)")
     for (kind, arch, N), fns in calls.items():
         sel = [r for r in rows if (r["kind"], r["arch"], r["batch"])
                == (kind, arch, N)]
-        dms = device_ms(torch, lambda: [f() for f in fns], 5)
+        dms = device_ms(torch, lambda: [f() for f in fns], 5,
+                        kernels=("trim_conv2d",
+                                 sum(r["kernels"] for r in sel)))
         ms, bnd = sum(r["ms"] for r in sel), sum(r["bound_ms"] for r in sel)
+        old = ("" if before is None or "parent_ms" not in sel[0] else
+               f" parent_ms {sum(r['parent_ms'] for r in sel):.4f}")
         log(f"bf16 {kind} {arch} batch {N}, sum of {len(sel)} convs: ms "
-            f"{ms:.4f} device_ms {_fmt(dms)} plain_ms "
+            f"{ms:.4f}{old} device_ms {_fmt(dms)} plain_ms "
             f"{sum(r['plain_ms'] for r in sel):.4f} library_ms "
             f"{sum(r['library_ms'] for r in sel):.4f} bound_ms {bnd:.4f} "
-            f"(bound/ms {bnd / ms:.3f})")
+            f"(bound/ms {bnd / ms:.3f}, bound/library "
+            f"{bnd / sum(r['library_ms'] for r in sel):.3f})")
         for r in sel:
             r["sum_device_ms"] = dms
     return rows
@@ -6810,6 +6929,9 @@ def main() -> None:
                     help="only run phases 25-27 (the family mesh arms at "
                     "world 1 and across 2 ranks, the dry-run against the "
                     "card); no result line")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit: phase 3j times "
+                    "its bf16 kernels at batch 8 beside this one's")
     ap.add_argument("--probe-families", type=int, metavar="N",
                     help="only run phases 3i and 3e, N times over, each "
                     "row logged as it ends; no result line")
@@ -6859,7 +6981,7 @@ def main() -> None:
         return
     rows = phase_kernels(torch, args.reps)
     brows = phase_backward(torch, args.reps, (1, TRAIN_BATCH))
-    bf_rows = phase_bf16_kernels(torch, args.reps)
+    bf_rows = phase_bf16_kernels(torch, args.reps, args.parent)
     crows = phase_conv1d(torch, args.reps)
     frows = phase_flash(torch, args.reps)
     code_rows = phase_flash_code(torch, args.reps)

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) helpers shared by the warpgroup-MMA kernels
-// (flash_attention.cu, trim_matmul.cu): mbarriers, wgmma issue and wait,
-// the 128-byte-swizzle shared-memory descriptor, setmaxnreg, and the
-// driver's tensor-map encoder. Each kernel library is one translation
+// (flash_attention.cu, trim_matmul.cu, trim_conv2d.cu,
+// trim_conv2d_wgrad.cu): mbarriers, wgmma issue and wait (A in shared
+// memory or in registers), the 128-byte-swizzle shared-memory descriptor,
+// setmaxnreg, TMA tile loads, the cluster's barrier and distributed
+// shared memory, and the driver's tensor-map encoder. Each kernel library is one translation
 // unit, so the helpers live in an unnamed namespace of their own there.
 // The build hashes every csrc/*.cuh with each library's sources: an
 // edit here rebuilds every library.
@@ -119,6 +121,180 @@ EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// The TMA map of a bf16 tensor of `rank` dims (innermost first, `dims`
+// elements each, `strides` bytes between the steps of dims 1 ..), boxes
+// of `box` elements in the 128-byte swizzle (box[0] 64: one 128-byte row),
+// zeros read outside.  Returns a cudaError_t.
+inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
+                             const cuuint64_t* dims, const cuuint64_t* strides,
+                             const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+         dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The map of a bf16 NHWC tensor (n, h, w, c): boxes of 64 channels x
+// box_w x box_h of one image.
+inline int encode_nhwc(CUtensorMap* map, const void* base, int n, int h,
+                       int w, int c, int box_w, int box_h) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(c) * 2, static_cast<cuuint64_t>(w) * c * 2,
+      static_cast<cuuint64_t>(h) * w * c * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
+  return encode_bf16_sw128(map, base, 4, dims, strides, box);
+}
+
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The box of a 4-d tensor map at coordinates (d0, key0, h, b), innermost
+// first (flash: 64 of D x kKeys keys of one (head, batch); the conv
+// kernels: 64 channels x a window of one image), into shared memory at
+// `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int d0, int key0,
+                                            int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(key0), "r"(h), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 in registers) B (16 x 64): B from
+// shared memory, MN-major (the transpose bit set; descriptor db).
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 in registers) B (16 x 128): B from
+// shared memory, MN-major (the transpose bit set; descriptor db).
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The box of a 3-d tensor map at coordinates (c0, c1, c2), innermost
+// first, into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// This block's rank in its thread-block cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes before it are visible to the cluster's reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes at shared-memory address `addr` of this block, read from the
+// shared memory of cluster block `rank` (distributed shared memory).
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// The sum over ranks 0 .. n - 1 (n <= 8) of the 16 bytes at `addr` in each
+// cluster block's shared memory, added in rank order; the n loads are all
+// issued before the first add (one after another, each remote load's
+// latency would add up).
+__device__ __forceinline__ float4 cluster_sum(uint32_t addr, int n) {
+  float4 t[8];
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    if (b < n) t[b] = ld_cluster_f4(addr, b);
+  float4 v = t[0];
+#pragma unroll
+  for (int b = 1; b < 8; ++b)
+    if (b < n) {
+      v.x += t[b].x; v.y += t[b].y; v.z += t[b].z; v.w += t[b].w;
+    }
+  return v;
 }
 
 }  // namespace

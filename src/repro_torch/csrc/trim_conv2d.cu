@@ -118,24 +118,40 @@
 //
 // * bfloat16 x bfloat16 -> bfloat16 (fp32 accumulation, the epilogue in
 //   fp32, one rounding to bf16 at the end: what `trim_conv2d_pallas`
-//   returns for bf16 operands): `trim_conv2d_bf16_kernel`, the integer
-//   lane's implicit GEMM on mma.sync m16n8k16 bf16 -> fp32.  What bounds
-//   it: at half the int8 rate (989 TFLOP/s dense) the ridge is about 295
-//   FLOP/byte, which every VGG-16 conv but CL1 passes at batch 8, so the
-//   tensor-core rate.  A 32-byte k-step is 16 channels, and the A and B
-//   fragments have the integer lane's byte layout, so the window path
-//   (the window's shifted views), the gather path (C <= 8) and the ring
-//   carry over.  The weights need no pre-pass: ldmatrix.trans moves
-//   16-bit elements, so each step copies 16 rows of w as they lie.  fp32
-//   sums are not exact in every order, so the geometry (path, tile,
-//   split) comes from the per-image shape alone, as on the fp32 lane, and
-//   a split's fp32 partials are merged in split order
-//   (`trim_conv2d_bf16_merge`): a batch of 8 equals 8 calls of one image
-//   bit for bit.  No slide path yet.
+//   returns for bf16 operands).  What bounds it: at half the int8 rate
+//   (989 TFLOP/s dense) the ridge is about 295 FLOP/byte, which every
+//   VGG-16 conv but CL1 passes at batch 8, so the tensor-core rate.  Two
+//   paths:
+//   - The window path on Hopper's wgmma and TMA (C > 8 and C, F
+//     multiples of 8, the tensor maps' 16-byte strides):
+//     `trim_conv2d_bf16_wgmma_kernel`, its own section further down.  A
+//     block owns up to 128 output pixels of one image (two consumer
+//     warpgroups of 64) x 64 or 128 filters and a producer warp; per
+//     64-channel chunk one TMA copy brings the haloed window (the zero
+//     fill outside the image is the padding), read by all K*K taps
+//     through shifted views: ldmatrix puts each tap's A fragments in
+//     registers and wgmma reads the tap's weights, streamed by TMA
+//     through a ring of their own, from shared memory.  Where one image's
+//     tiles cannot fill the card (VGG-16 CL5-CL13 at batch 1), the chunks
+//     are cut over a cluster of up to 8 blocks that sum their fp32 sums
+//     in rank order through distributed shared memory: no partial slab,
+//     no merge launch.
+//   - The gather path (C <= 8, or C or F not a multiple of 8: VGG-16
+//     CL1, AlexNet CL1): the integer lane's `tc_conv` on mma.sync
+//     m16n8k16 bf16 -> fp32 (`trim_conv2d_bf16_kernel`), its im2col rows
+//     gathered from the whole window; the weights need no pre-pass
+//     (ldmatrix.trans reads w's rows as they lie).  A split's fp32
+//     partials are merged in split order (`trim_conv2d_bf16_merge`).
+//   fp32 sums are not exact in every order, so the geometry (path, tile,
+//   filters a block, split) comes from the per-image shape alone, as on
+//   the fp32 lane: a batch of 8 equals 8 calls of one image bit for bit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -796,7 +812,7 @@ __device__ __forceinline__ void u8_put2(const U8Args& a, int split,
 }
 
 // The tensor-core lanes' conv on the window and gather paths, the body of
-// trim_conv2d_u8s8_kernel and trim_conv2d_bf16_kernel.  ``L`` is the lane
+// trim_conv2d_u8s8_kernel and (gather path) trim_conv2d_bf16_kernel.  ``L`` is the lane
 // (U8Lane, Bf16Lane): its arguments, element and accumulator types, its
 // copies of an item, its B offsets, its k-step and its stores.  Grid:
 // (spatial tiles, filter tiles x n_split, N).
@@ -1116,15 +1132,15 @@ int launch_u8(const U8Args& a, int smem_bytes, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// --------------------------------------------------------------- bf16 lane
+// ------------------------------------------------ bf16 lane, gather path
 //
-// The u8 x s8 lane's implicit GEMM with m16n8k16 bf16 x bf16 -> fp32: a
-// k-step is still 32 bytes (16 channels), so an A row, the window's pixel
-// layout (u8_row_off), the ldmatrix phases and the ring carry over as they
-// are.  The weights need no pre-pass: ldmatrix.trans moves 16-bit
-// elements, so a step's B tile is 16 rows of w (K, K, C, F) as they lie
-// ([k][64 filters], 128 bytes a row, the 16-byte units swizzled by the
-// row), read transposed.
+// The u8 x s8 lane's gather path with m16n8k16 bf16 x bf16 -> fp32 (C <=
+// 8, or C or F not a multiple of 8: no tensor map describes those rows): a
+// k-step is still 32 bytes (16 channels), so the gathered A rows, the
+// ldmatrix phases and the ring carry over as they are.  The weights need
+// no pre-pass: ldmatrix.trans moves 16-bit elements, so a step's B tile
+// is 16 rows of w (K, K, C, F) as they lie ([k][64 filters], 128 bytes a
+// row, the 16-byte units swizzled by the row), read transposed.
 
 constexpr int kBfStepC = 16;  // channels (depth values) a k-step
 
@@ -1141,7 +1157,7 @@ struct BfArgs {
   int steps, n_tg, n_items, n_split, stages;
   int depth;
   int win_bytes, stage_bytes;
-  int vec_x, vec_w;
+  int vec_w;
 };
 
 // Byte offset of 16-byte unit u (filters 8u .. 8u + 7) of k-row r in one
@@ -1181,60 +1197,25 @@ __device__ __forceinline__ uint4 bf_pack8(const __nv_bfloat16* src, Ok ok) {
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// Issue the copies of item ``it`` into ring stage ``st``: on the window
-// path the haloed window of its 16-channel chunk ([pixels][16 channels],
-// u8_row_off) and the weights of its tap group, on the gather path the
-// weights of its depth chunk.  Step j's weights are w's depth rows d0 ..
-// d0 + 15 at filters f0 .. f0 + 63: d0 = (tap0 + j) * C + c0 (window) or
-// (it * steps + j) * 16 (gather); rows past C (window) or K*K*C (gather)
+// Issue the copies of gather item ``it`` into ring stage ``st``: the
+// weights of its depth chunk.  Step j's weights are w's depth rows
+// (it * steps + j) * 16 .. + 15 at filters f0 .. f0 + 63; rows past K*K*C
 // and filters past F are zero.  A thread copies unit tid & 7 of row
 // (tid >> 3) & 15 of steps (tid >> 7) + 2 t.
 template <int kPath>
 __device__ __forceinline__ void bf_load_item(const BfArgs& a,
                                              unsigned char* st,
-                                             const __nv_bfloat16* x, int ih0,
-                                             int iw0, int it, int f0) {
+                                             const __nv_bfloat16*, int, int,
+                                             int it, int f0) {
+  static_assert(kPath == kU8Gather, "the bf16 lane's window path is wgmma");
   const int u = threadIdx.x & 7, r = (threadIdx.x >> 3) & 15;
   const int j0 = threadIdx.x >> 7;
   unsigned char* dst = st + j0 * kU8StepB + bf_wt_off(r, u);
-  long long row, drow;  // the depth row of step j0, rows between steps
-  bool row_ok;
-  int jmax = a.steps;
-  if (kPath == kU8Window) {
-    const int cc = it / a.n_tg, tg = it - cc * a.n_tg;
-    const int c0 = cc * kBfStepC, tap0 = tg * a.steps;
-    jmax = min(a.steps, a.K * a.K - tap0);
-    row_ok = c0 + r < a.C;
-    row = static_cast<long long>(tap0 + j0) * a.C + c0 + r;
-    drow = 2LL * a.C;
-    const int total = a.rows * a.cols * 2;
-    for (int i = threadIdx.x; i < total; i += kU8Threads) {
-      const int pix = i >> 1, h = i & 1;
-      const int wr = pix / a.cols, q = pix - wr * a.cols;
-      const int gh = ih0 + wr, gw = iw0 + q, c = c0 + h * 8;
-      const bool in = static_cast<unsigned>(gh) < static_cast<unsigned>(a.H) &&
-                      static_cast<unsigned>(gw) < static_cast<unsigned>(a.W);
-      const __nv_bfloat16* src =
-          x + (static_cast<size_t>(gh) * a.W + gw) * a.C + c;
-      unsigned char* wd = st + u8_row_off(pix, h);
-      if (a.vec_x) {
-        const bool ok = in && c < a.C;
-        cp_async16(wd, ok ? src : a.x, ok);
-      } else {
-        const int C = a.C;
-        *reinterpret_cast<uint4*>(wd) =
-            bf_pack8(src, [&](int b) { return in && c + b < C; });
-      }
-    }
-    dst += a.win_bytes;
-  } else {
-    row = static_cast<long long>(it * a.steps + j0) * kBfStepC + r;
-    drow = 2 * kBfStepC;
-    row_ok = true;
-  }
+  long long row = static_cast<long long>(it * a.steps + j0) * kBfStepC + r;
+  const long long drow = 2 * kBfStepC;
   const int f = f0 + u * 8;
-  for (int j = j0; j < jmax; j += 2) {
-    const bool ok = row_ok && row < a.depth && f < a.F;
+  for (int j = j0; j < a.steps; j += 2) {
+    const bool ok = row < a.depth && f < a.F;
     const __nv_bfloat16* src = a.w + row * a.F + f;
     if (a.vec_w) {
       cp_async16(dst, ok ? src : a.w, ok);
@@ -1337,10 +1318,11 @@ struct Bf16Lane {
   }
 };
 
-// The bf16 conv on the window and gather paths: the u8 x s8 lane's
-// blocks, warps and ring with fp32 accumulators.  The geometry comes from
-// the per-image shape alone (the wrapper's bf16_tile), so an output's sum
-// runs in one order at every batch.
+// The bf16 conv on the gather path (its only instance; the window path is
+// trim_conv2d_bf16_wgmma_kernel): the u8 x s8 lane's blocks, warps and
+// ring with fp32 accumulators.  The geometry comes from the per-image
+// shape alone (the wrapper's bf16_tile), so an output's sum runs in one
+// order at every batch.
 template <int kPath>
 __global__ void __launch_bounds__(kU8Threads, kPath == kU8Gather ? 3 : 2)
 trim_conv2d_bf16_kernel(const BfArgs a) {
@@ -1362,10 +1344,10 @@ trim_conv2d_bf16_merge(const float* __restrict__ parts, const BfArgs a,
   }
 }
 
-template <int kPath>
-int launch_bf16(const BfArgs& a, int smem_bytes, cudaStream_t s) {
-  static int smem_set = 0;  // per instantiation: what has been raised
-  void (*kern)(BfArgs) = &trim_conv2d_bf16_kernel<kPath>;
+// The gather path's launch: the conv and, split, the merge.
+int launch_bf16_gather(const BfArgs& a, int smem_bytes, cudaStream_t s) {
+  static int smem_set = 0;
+  void (*kern)(BfArgs) = &trim_conv2d_bf16_kernel<kU8Gather>;
   int rc = raise_smem(reinterpret_cast<const void*>(kern), smem_set,
                       smem_bytes);
   if (rc != 0) return rc;
@@ -1381,6 +1363,348 @@ int launch_bf16(const BfArgs& a, int smem_bytes, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- bf16 lane, wgmma window path
+//
+// A block owns TH x TW (<= 128) output pixels of one image x kFb filters
+// (64 or 128): two consumer warpgroups of 64 pixels, each holding its 64 x
+// kFb fp32 sums in registers, and a producer warp.  Two blocks an SM (at
+// most 112 registers a thread, 113 KB of shared memory each): one block's
+// loads, barrier waits and epilogue overlap the other's products.  256
+// filters' 128 sums and the double-buffered A fragments would pass even
+// one block's 168 registers.  The depth runs
+// over 64-channel chunks and, within one, over the K*K taps: per chunk the
+// producer brings the haloed window (64 channels x rows x cols of x (N,
+// H, W, C), one TMA copy through a 4-d map whose zero fill outside the
+// image and past C is the padding) into a 2-stage window ring, and per
+// (chunk, tap) the tap's weights (w's rows (tap, c0 .. c0 + 63) x kFb
+// filters, TMA through a 3-d map over w (K*K, C, F) as it lies, zero past
+// C and F) into a ring of its own.  Every tap reads the one window through
+// a shifted view: for tap (kh, kw) a consumer warp's A fragments (16
+// pixels x 16 channels, four k16 steps a tap) come by ldmatrix from the
+// window pixels (lh S + kh, lw S + kw) of its pixels, the row addresses
+// XORed as TMA's 128-byte swizzle laid them; then wgmma with A in
+// registers and B the weight stage read MN-major (filters contiguous).
+// The A registers are double-buffered across taps: a tap's products run
+// while the next tap's fragments load, and its weight stage (and, after
+// a chunk's last tap, its window) is released when they are done.
+// Epilogue: bias, then ReLU, in fp32, one rounding to bf16, staged in
+// shared memory, written as 16-byte rows.  Where one image's tiles cannot
+// fill the card, the chunks are cut into n_split contiguous ranges whose
+// blocks form one thread-block cluster (n_split <= 8, the portable
+// size): each block stages its fp32 sums in its shared memory, and block
+// r sums pixels [128 r / n_split, 128 (r + 1) / n_split) over the
+// cluster's blocks in rank order through distributed shared memory, then
+// runs the epilogue: the order depends on the per-image shape alone, no
+// atomics, no partial slab and no second launch.
+//
+// What bounds it on the H100: a block's 128 pixels share each weight row,
+// so the weights stream from L2 at 2 bytes for 128 products a value; with
+// the window, the barriers and the loop that is most of the time at
+// VGG-16's batch-8 shapes (tools/bf16_conv_breakdown.py), the products the
+// rest.  Two blocks an SM overlap one's loads with the other's products.
+
+constexpr int kBwcThreads = 256 + 32;  // two consumer warpgroups + producer
+constexpr int kBwcPix = 128;           // output pixels a block
+constexpr int kBwcMaxStages = 4;       // weight ring
+constexpr int kBwcMaxSplit = 8;        // portable cluster size
+
+struct BwcArgs {
+  const void* bias;        // (F,) fp32 or bf16, or null
+  __nv_bfloat16* out;      // (N, H_O, W_O, F)
+  int bias_bf16, relu;
+  int C, K, F, H_O, W_O, S, pad;
+  int TH, TW, n_tw, rows, cols, n_cc, n_split, stages;
+  int win_bytes, w_bytes, bar;  // window stage, weight stage, barriers' offset
+};
+
+template <int kFb>
+__device__ __forceinline__ void bwc_mma(float (&acc)[kFb / 2],
+                                        const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (kFb == 64)
+    wgmma_rs_m64n64(acc, a, db);
+  else
+    wgmma_rs_m64n128(acc, a, db);
+}
+
+// A consumer warp's position in its range's (chunk, tap) items, stepped
+// without a division: items done, the tap in its chunk, the tap's window
+// offset (kh cols + kw) and kw, the chunk, the weight ring's stage and the
+// phase parity of its use.
+struct BwcPos {
+  int it, t, toff, kw, wi, st;
+  uint32_t par;
+};
+
+// One (chunk, tap) item of a consumer warp: wait for its window (at the
+// chunk's first tap) and its weight stage, load its four k16 A fragments
+// from the window's shifted view (``wpix`` the lane's window pixel at tap
+// (0, 0), ``uhi`` its half of a k16 step's 32 bytes), issue the four
+// products, then wait for the item before, release that item's stages and
+// step to the next item.
+template <int kFb>
+__device__ __forceinline__ void bwc_item(float (&acc)[kFb / 2],
+                                         uint32_t (&af)[4][4],
+                                         const BwcArgs& a, BwcPos& q,
+                                         int wpix, int uhi, uint32_t sbase,
+                                         uint32_t bars, int lane) {
+  const uint32_t win_full = bars, win_empty = bars + 16;
+  const uint32_t w_full = bars + 32, w_empty = w_full + 8 * a.stages;
+  if (q.t == 0) mbar_wait(win_full + 8 * (q.wi & 1), (q.wi >> 1) & 1);
+  mbar_wait(w_full + 8 * q.st, q.par);
+  const int wp = wpix + q.toff;
+  const uint32_t row = sbase + (q.wi & 1) * a.win_bytes + (wp << 7);
+  const int sw = wp & 7;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) ldsm_x4(af[k], row + (((2 * k + uhi) ^ sw) << 4));
+  const uint32_t bb = sbase + 2 * a.win_bytes + q.st * a.w_bytes;
+  const uint64_t db = sw128_desc(bb, 64 * 128);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) bwc_mma<kFb>(acc, af[k], db + (k * 16 * 128 >> 4));
+  wgmma_commit();
+  wgmma_wait<1>();
+  if (q.it > 0) {
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(w_empty + 8 * (q.st == 0 ? a.stages - 1 : q.st - 1));
+      if (q.t == 0) mbar_arrive(win_empty + 8 * ((q.wi - 1) & 1));
+    }
+  }
+  ++q.it;
+  if (++q.st == a.stages) {
+    q.st = 0;
+    q.par ^= 1;
+  }
+  ++q.toff;
+  if (++q.kw == a.K) {
+    q.kw = 0;
+    q.toff += a.cols - a.K;
+  }
+  if (++q.t == a.K * a.K) {
+    q.t = 0;
+    q.toff = 0;
+    ++q.wi;
+  }
+}
+
+__device__ __forceinline__ float bwc_bias(const BwcArgs& a, int f) {
+  if (a.bias == nullptr) return 0.f;
+  return a.bias_bf16
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[f])
+             : static_cast<const float*>(a.bias)[f];
+}
+
+// Grid: (spatial tiles x n_split, filter tiles, N); split, clusters of
+// n_split along x.
+template <int kFb>
+__global__ void __launch_bounds__(kBwcThreads, 2)
+trim_conv2d_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                              const __grid_constant__ CUtensorMap w_map,
+                              const BwcArgs a) {
+  extern __shared__ unsigned char smem_bwc[];
+  unsigned char* sm =
+      smem_bwc + ((1024u - (smem_addr(smem_bwc) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_addr(sm);
+  const uint32_t bars = sbase + a.bar;
+  const uint32_t win_full = bars, win_empty = bars + 16;
+  const uint32_t w_full = bars + 32, w_empty = w_full + 8 * a.stages;
+  const int rank = a.n_split > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int tile = blockIdx.x / a.n_split;
+  const int th = tile / a.n_tw, tw = tile - th * a.n_tw;
+  const int f0 = blockIdx.y * kFb, n = blockIdx.z;
+  const int oh0 = th * a.TH, ow0 = tw * a.TW;
+  const int npix = a.TH * a.TW;
+  const int KK = a.K * a.K;
+  const int c_lo = a.n_cc * rank / a.n_split;
+  const int n_items = (a.n_cc * (rank + 1) / a.n_split - c_lo) * KK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(win_full + 8 * i, 1);
+      mbar_init(win_empty + 8 * i, 8);  // one per consumer warp
+    }
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(w_full + 8 * i, 1);
+      mbar_init(w_empty + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[kFb / 2];
+#pragma unroll
+  for (int e = 0; e < kFb / 2; ++e) acc[e] = 0.0f;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= 256) {
+    // Producer: one thread keeps both rings full.
+    if (lane == 0) {
+      const uint32_t wtx = static_cast<uint32_t>(a.rows * a.cols * 128);
+      const uint32_t btx = static_cast<uint32_t>(64 * kFb * 2);
+      for (int it = 0; it < n_items; ++it) {
+        const int wi = it / KK, t = it - wi * KK;
+        if (t == 0) {
+          const int ws = wi & 1;
+          mbar_wait(win_empty + 8 * ws, ((wi >> 1) & 1) ^ 1);
+          mbar_arrive_expect_tx(win_full + 8 * ws, wtx);
+          tma_load_4d(sbase + ws * a.win_bytes, &x_map, win_full + 8 * ws,
+                      (c_lo + wi) * 64, ow0 * a.S - a.pad, oh0 * a.S - a.pad,
+                      n);
+        }
+        const int st = it % a.stages;
+        mbar_wait(w_empty + 8 * st, ((it / a.stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(w_full + 8 * st, btx);
+        const uint32_t dst = sbase + 2 * a.win_bytes + st * a.w_bytes;
+#pragma unroll
+        for (int q = 0; q < kFb / 64; ++q)
+          tma_load_3d(dst + q * 64 * 128, &w_map, w_full + 8 * st,
+                      f0 + 64 * q, (c_lo + wi) * 64, t);
+      }
+    }
+    __syncwarp();
+  } else {
+    // Consumers: warpgroup wg owns pixels 64 wg .. 64 wg + 63 of the tile.
+    // ldmatrix x4: lane l gives the row address of matrix l >> 3, row
+    // l & 7: pixel 16 warp + (l & 7) + 8 ((l >> 3) & 1), the k16 step's
+    // 16-byte half (l >> 3) >> 1: a0..a3 of the A fragment in order.
+    // A pixel past the tile reads pixel 0 (its output is not written).
+    const int mi = lane >> 3;
+    int m = (threadIdx.x / 32) * 16 + (lane & 7) + 8 * (mi & 1);
+    m = m < npix ? m : 0;
+    const int lh = m / a.TW, lw = m - lh * a.TW;
+    const int wpix = lh * a.S * a.cols + lw * a.S;
+    uint32_t a0[4][4], a1[4][4];
+    BwcPos q = {0, 0, 0, 0, 0, 0, 0u};
+    for (int it = 0; it < n_items; it += 2) {
+      bwc_item<kFb>(acc, a0, a, q, wpix, mi >> 1, sbase, bars, lane);
+      if (it + 1 < n_items)
+        bwc_item<kFb>(acc, a1, a, q, wpix, mi >> 1, sbase, bars, lane);
+    }
+    wgmma_wait<0>();
+    pin(acc);
+  }
+  __syncthreads();  // every product is done: the rings are free
+
+  // acc[4 j + 2 i + c]: pixel 16 warp + (lane >> 2) + 8 i, filter
+  // 8 j + 2 (lane & 3) + c of the block's.
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int warp = threadIdx.x / 32;
+  if (a.n_split == 1) {
+    constexpr int kPitch = kFb * 2 + 16;
+    if (threadIdx.x < 256) {
+#pragma unroll
+      for (int j = 0; j < kFb / 8; ++j) {
+        const int f = f0 + 8 * j + 2 * t4;
+        const float b0 = f < a.F ? bwc_bias(a, f) : 0.f;
+        const float b1 = f + 1 < a.F ? bwc_bias(a, f + 1) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float v0 = acc[4 * j + 2 * i] + b0, v1 = acc[4 * j + 2 * i + 1] + b1;
+          if (a.relu) {
+            v0 = v0 > 0.f ? v0 : 0.f;
+            v1 = v1 > 0.f ? v1 : 0.f;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(
+              sm + (warp * 16 + g8 + 8 * i) * kPitch + (8 * j + 2 * t4) * 2) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+    __syncthreads();
+    constexpr int kUnits = kFb / 8;  // 16-byte units a row
+    for (int e = threadIdx.x; e < kBwcPix * kUnits; e += kBwcThreads) {
+      const int mm = e / kUnits, u = e - mm * kUnits;
+      const int f = f0 + 8 * u;
+      if (mm >= npix || f >= a.F) continue;
+      const int ho = oh0 + mm / a.TW, wo = ow0 + mm % a.TW;
+      if (ho >= a.H_O || wo >= a.W_O) continue;
+      *reinterpret_cast<uint4*>(
+          a.out + ((static_cast<size_t>(n) * a.H_O + ho) * a.W_O + wo) * a.F +
+          f) = *reinterpret_cast<const uint4*>(sm + mm * kPitch + u * 16);
+    }
+    return;
+  }
+  // Split: this block's fp32 sums into its shared memory, then block r
+  // sums its rows over the cluster in rank order.
+  constexpr int kPitch = kFb * 4 + 16;
+  if (threadIdx.x < 256) {
+#pragma unroll
+    for (int j = 0; j < kFb / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(sm + (warp * 16 + g8 + 8 * i) * kPitch +
+                                   (8 * j + 2 * t4) * 4) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+  cluster_sync();
+  const int m0 = kBwcPix * rank / a.n_split;
+  const int m1 = kBwcPix * (rank + 1) / a.n_split;
+  constexpr int kQuads = kFb / 4;
+  for (int e = threadIdx.x; e < (m1 - m0) * kQuads; e += kBwcThreads) {
+    const int mm = m0 + e / kQuads, q = e % kQuads;
+    const int f = f0 + 4 * q;
+    if (mm >= npix || f >= a.F) continue;
+    const int ho = oh0 + mm / a.TW, wo = ow0 + mm % a.TW;
+    if (ho >= a.H_O || wo >= a.W_O) continue;
+    const float4 v = cluster_sum(sbase + mm * kPitch + q * 16, a.n_split);
+    float o[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      o[k] += bwc_bias(a, f + k);
+      if (a.relu) o[k] = o[k] > 0.f ? o[k] : 0.f;
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
+    uint2 pk;
+    pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+    pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(
+        a.out + ((static_cast<size_t>(n) * a.H_O + ho) * a.W_O + wo) * a.F +
+        f) = pk;
+  }
+  cluster_sync();  // the cluster's reads of this block's sums are done
+}
+
+// Shared memory of the wgmma window path: the 2-stage window ring and the
+// weight ring, or the epilogue's staging where larger, the barriers, and
+// 1024 bytes to align the base.  Writes the offsets into ``a``.
+long long bwc_smem(BwcArgs& a, int fb) {
+  a.win_bytes = (a.rows * a.cols * 128 + 1023) / 1024 * 1024;
+  a.w_bytes = 64 * fb * 2;
+  const long long ring =
+      2LL * a.win_bytes + static_cast<long long>(a.stages) * a.w_bytes;
+  const long long stage = static_cast<long long>(kBwcPix) *
+                          (a.n_split > 1 ? fb * 4 + 16 : fb * 2 + 16);
+  a.bar = static_cast<int>(ring > stage ? ring : stage);
+  return a.bar + 8LL * (4 + 2 * a.stages) + 1024;
+}
+
+template <int kFb>
+int launch_bwc(const CUtensorMap& x_map, const CUtensorMap& w_map,
+               const BwcArgs& a, int N, int n_tiles, int smem_bytes,
+               cudaStream_t s) {
+  static int smem_set = 0;
+  void (*kern)(CUtensorMap, CUtensorMap, BwcArgs) =
+      &trim_conv2d_bf16_wgmma_kernel<kFb>;
+  const int rc = raise_smem(reinterpret_cast<const void*>(kern), smem_set,
+                            smem_bytes);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * a.n_split, (a.F + kFb - 1) / kFb, N);
+  cfg.blockDim = dim3(kBwcThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, x_map, w_map, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1391,6 +1715,11 @@ int trim_conv2d_f32_filters() { return kF32Fb; }
 int trim_conv2d_u8_pixels() { return kU8M; }
 int trim_conv2d_u8_filters() { return kU8Fb; }
 int trim_conv2d_u8_max_depth() { return kU8MaxDepth; }
+// the bf16 wgmma window path: output pixels a block, most cluster blocks
+// (the split), most weight-ring stages
+int trim_conv2d_bf16_pixels() { return kBwcPix; }
+int trim_conv2d_bf16_max_split() { return kBwcMaxSplit; }
+int trim_conv2d_bf16_max_stages() { return kBwcMaxStages; }
 
 const char* trim_conv2d_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -1569,51 +1898,96 @@ int trim_conv2d_u8s8(const void* x, const void* w, const void* bias,
 }
 
 // bf16 lane: x (N,H,W,C) bf16, w (K,K,C,F) bf16, bias (F,) fp32
-// (bias_bf16 0) or bf16 (1) or null, out (N,H_O,W_O,F) bf16; with n_split
-// > 1, ``parts`` holds n_split * N*H_O*W_O*F floats of scratch.  The
-// caller (the wrapper's bf16_tile, from the per-image shape) picks the
-// path (0 window, 1 gather), the TH x TW output tile (TH * TW <= 128), the
-// k16 steps an item (window: taps of a group, 1 .. K*K; gather: depth
-// steps of a chunk), n_split ranges of items, 2 or 3 stages and the
-// shared memory, which must equal what this function computes.  One call
-// launches the conv and, split, the merge.  Returns the first launch
-// error's cudaError_t, or 0.
+// (bias_bf16 0) or bf16 (1) or null, out (N,H_O,W_O,F) bf16.  The caller
+// (the wrapper's bf16_tile, from the per-image shape) picks the path and
+// its geometry:
+// - 0, the wgmma window path (C and F multiples of 8; x, w and out
+//   16-byte aligned): the TH x TW output tile (TH * TW <= 128), ``steps``
+//   the filters a block (64 or 128), n_split the cluster's blocks
+//   (<= 8, at most the 64-channel chunks), ``stages`` the weight ring's
+//   (2-4);
+// - 1, the gather path (mma.sync): the TH x TW tile (TH * TW <= 128), the
+//   k16 steps of a depth chunk, n_split ranges of chunks (with n_split >
+//   1, ``parts`` holds n_split * N*H_O*W_O*F floats of scratch), 2 or 3
+//   stages;
+// and the shared memory, which must equal what this function computes.
+// One call launches the conv and, on a split gather path, the merge.
+// Returns the first launch error's cudaError_t, or 0.
 int trim_conv2d_bf16(const void* x, const void* w, const void* bias,
                      void* out, void* parts, int N, int H, int W, int C,
                      int K, int F, int H_O, int W_O, int stride, int pad,
                      int path, int TH, int TW, int steps, int n_split,
                      int stages, int bias_bf16, int relu, int smem_bytes,
                      void* stream) {
-  BfArgs a;
-  a.rows = (TH - 1) * stride + K;
-  a.cols = (TW - 1) * stride + K;
-  a.depth = K * K * C;
-  const bool window = path == kU8Window;
+  const int rows = (TH - 1) * stride + K;
+  const int cols = (TW - 1) * stride + K;
   if ((path != kU8Window && path != kU8Gather) || TH < 1 || TW < 1 ||
-      TH * TW > kU8M || steps < 1 || (window && steps > K * K) ||
-      stages < 2 || stages > kMaxStages || stride < 1 || K < 1 || C < 1 ||
-      F < 1 || N < 1 || N > 65535 || (n_split > 1 && parts == nullptr) ||
-      pad < 0 || static_cast<long long>(H) * W * C > 0x7fffffffLL ||
+      TH * TW > kU8M || steps < 1 || stride < 1 || K < 1 || C < 1 ||
+      F < 1 || N < 1 || N > 65535 || n_split < 1 || pad < 0 ||
+      static_cast<long long>(H) * W * C > 0x7fffffffLL ||
       static_cast<long long>(H_O) * W_O * F > 0x7fffffffLL ||
       static_cast<long long>(K) * K * C * F > 0x7fffffffLL ||
       H_O != (H + 2 * pad - K) / stride + 1 ||
       W_O != (W + 2 * pad - K) / stride + 1 || H_O < 1 || W_O < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  a.n_tg = window ? (K * K + steps - 1) / steps : 1;
-  a.n_items = window ? (C + kBfStepC - 1) / kBfStepC * a.n_tg
-                     : (a.depth + steps * kBfStepC - 1) / (steps * kBfStepC);
-  const long long wbytes = window ? static_cast<long long>(a.rows) * a.cols *
-                                        kU8Step
-                                  : static_cast<long long>(a.rows) * a.cols *
-                                        C * 2;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == kU8Window) {
+    BwcArgs a;
+    a.bias = bias;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.bias_bf16 = bias_bf16;
+    a.relu = relu;
+    a.C = C; a.K = K; a.F = F; a.H_O = H_O; a.W_O = W_O; a.S = stride;
+    a.pad = pad; a.TH = TH; a.TW = TW;
+    a.n_tw = (W_O + TW - 1) / TW;
+    a.rows = rows; a.cols = cols;
+    a.n_cc = (C + 63) / 64;
+    a.n_split = n_split;
+    a.stages = stages;
+    const long long smem = bwc_smem(a, steps);
+    const int n_tiles = (H_O + TH - 1) / TH * a.n_tw;
+    if (C % 8 != 0 || F % 8 != 0 || (steps != 64 && steps != 128) ||
+        n_split > kBwcMaxSplit || n_split > a.n_cc || stages < 2 ||
+        stages > kBwcMaxStages || rows > 256 || cols > 256 ||
+        smem != smem_bytes || smem > 232448 ||
+        static_cast<long long>(n_tiles) * n_split > 0x7fffffffLL ||
+        (F + steps - 1) / steps > 65535 ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap x_map, w_map;
+    int rc = encode_nhwc(&x_map, x, N, H, W, C, cols, rows);
+    if (rc != 0) return rc;
+    const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(F),
+                                 static_cast<cuuint64_t>(C),
+                                 static_cast<cuuint64_t>(K) * K};
+    const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(F) * 2,
+                                    static_cast<cuuint64_t>(C) * F * 2};
+    const cuuint32_t wbox[3] = {64, 64, 1};
+    rc = encode_bf16_sw128(&w_map, w, 3, wdims, wstrides, wbox);
+    if (rc != 0) return rc;
+    return steps == 64 ? launch_bwc<64>(x_map, w_map, a, N, n_tiles,
+                                        smem_bytes, s)
+                       : launch_bwc<128>(x_map, w_map, a, N, n_tiles,
+                                         smem_bytes, s);
+  }
+  BfArgs a;
+  a.rows = rows;
+  a.cols = cols;
+  a.depth = K * K * C;
+  if (stages < 2 || stages > kMaxStages || (n_split > 1 && parts == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.n_tg = 1;
+  a.n_items = (a.depth + steps * kBfStepC - 1) / (steps * kBfStepC);
+  const long long wbytes = static_cast<long long>(a.rows) * a.cols * C * 2;
   a.win_bytes = static_cast<int>((wbytes + 127) / 128 * 128);
-  a.stage_bytes = (window ? a.win_bytes : 0) + steps * kU8StepB;
-  const long long smem =
-      (window ? 0LL : a.win_bytes + static_cast<long long>(steps) *
-                                        kU8AStepB) +
-      static_cast<long long>(stages) * a.stage_bytes;
+  a.stage_bytes = steps * kU8StepB;
+  const long long smem = a.win_bytes +
+                         static_cast<long long>(steps) * kU8AStepB +
+                         static_cast<long long>(stages) * a.stage_bytes;
   a.n_f = (F + kU8Fb - 1) / kU8Fb;
-  if (n_split < 1 || n_split > a.n_items || smem != smem_bytes ||
+  if (n_split > a.n_items || smem != smem_bytes ||
       static_cast<long long>(a.n_f) * n_split > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -1628,11 +2002,8 @@ int trim_conv2d_bf16(const void* x, const void* w, const void* bias,
   a.TH = TH; a.TW = TW;
   a.n_tw = (W_O + TW - 1) / TW;
   a.steps = steps; a.n_split = n_split; a.stages = stages;
-  a.vec_x = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.vec_w = F % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return window ? launch_bf16<kU8Window>(a, smem_bytes, s)
-                : launch_bf16<kU8Gather>(a, smem_bytes, s);
+  return launch_bf16_gather(a, smem_bytes, s);
 }
 
 }  // extern "C"

@@ -2,8 +2,13 @@
 // kernel `_trim_conv2d_wgrad_kernel` (src/repro/kernels/trim_conv2d_vjp.py:92).
 //
 // Two lanes: fp32 on the CUDA cores (below) and bf16 on the tensor cores
-// (fp32 sums; `trim_conv2d_wgrad_bf16_kernel`, its own section further
-// down).  What the fp32 lane computes (IEEE, no TF32):
+// (fp32 sums), in their own sections further down: the window path on
+// wgmma and TMA (`trim_conv2d_wgrad_bf16_window_kernel`, C and F
+// multiples of 8: every VGG-16 and AlexNet layer but CL1, each operand
+// read once a block for all K*K taps) and a 64 x 64 GEMM over im2col rows
+// on mma.sync (`trim_conv2d_wgrad_bf16_kernel`: the rest, VGG-16 CL1's C =
+// 3, whose 6-byte rows no tensor map can describe).  What the fp32 lane
+// computes (IEEE, no TF32):
 //   dw[kh, kw, c, f] = sum_{n, ho, wo} x[n, ho*S - p + kh, wo*S - p + kw, c]
 //                                      * g[n, ho, wo, f]
 // over NHWC activations x (N,H,W,C) and the output cotangent g
@@ -70,9 +75,12 @@
 // then the rows in order): no atomics, so the result is the same on every
 // run.  With n_split == 1 the block writes dw itself.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -532,9 +540,11 @@ int launch(void (*kern)(WgradArgs), int& smem_set, const WgradArgs& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------------- bf16 lane
+// ---------------------------------------------------- bf16 lane, GEMM path
 //
-// dw as one GEMM on the tensor cores, mma.sync m16n8k16 bf16 -> fp32: M =
+// Where C or F is not a multiple of 8 (VGG-16 CL1: C = 3; its window path
+// is below): dw as one GEMM on the tensor cores, mma.sync m16n8k16 bf16 ->
+// fp32: M =
 // K*K*C depth rows (tap, channel) in w's own (K, K, C, F) order, N = F,
 // and the reduction over the P = N*H_O*W_O output pixels as the k of the
 // product.  A block owns 64 depth rows x 64 filters (four warps of 32 x
@@ -743,6 +753,345 @@ trim_conv2d_wgrad_bf16_kernel(const WgradBf16Args a) {
     }
 }
 
+
+// ------------------------------------------------ bf16 lane, window path
+//
+// dw per tap as a warpgroup MMA with the output pixels as its k: for tap
+// (kh, kw), dw[kh, kw] (channels x filters) += A (channels x 16 pixels)
+// B (16 pixels x filters), A the input window's shifted view, B the
+// cotangent.  A block owns a tap group (all K*K taps at K = 3; 9 a group
+// above) of a 64-channel x 64-filter tile of dw and walks its range of
+// output chunks (TH x TW output pixels of one image); per chunk it
+// brings in, by TMA through the wrapper's tensor maps, the
+// haloed input window (64 channels x rows x cols of x (N, H, W, C), the
+// out-of-bounds zero fill giving the padding and the channels past C) and
+// the cotangent tile (64 filters x TW x TH of g (N, H_O, W_O, F), zero
+// past H_O / W_O / F), both in the 128-byte swizzle, into a ring of
+// stages guarded by full/empty mbarriers (thread 0 issues the copies,
+// each stage's again once every warp has released it).  Every value of
+// either is read
+// from device memory once per block: the window serves all the block's
+// taps through shifted views, the cotangent tile all its taps as B.
+// Three consumer warpgroups own one row kh of taps each (3 taps x 64
+// channels x 64 filters, 96 fp32 accumulators a thread: 9 taps at 64
+// filters would be 288, more than a thread has), so a k16 step of a
+// warpgroup is 3 ldmatrix.trans (A from the window at the tap's shifted
+// pixels: the row addresses follow the swizzle TMA wrote) and 3 wgmma
+// m64n64k16 with B read MN-major from the cotangent tile, its A
+// registers double-buffered across steps.  A chunk is always eight k16
+// steps (128 pixel rows), unrolled, each lane's window offsets for them
+// computed once: the cotangent tile's rows past TH * TW are zeroed once,
+// so the padded pixels add nothing, and no step divides.  The split: the
+// chunks are cut into ranges to fill the card (dw has few 64 x 64 tiles:
+// VGG-16 CL2 one), and up to 8 ranges form a cluster that sums its
+// blocks' fp32 sums in rank order through distributed shared memory
+// (staged in the idle ring); one partial a cluster reaches device memory,
+// and where there are several, trim_conv2d_wgrad_reduce sums them in a
+// fixed order.  No atomics: every call gives the same bits.
+//
+// What bounds it on the H100: per chunk a block moves the window and the
+// cotangent tile (about 37 KB) for 8 x 9 products of 64 x 64 x 16; the
+// ring, its barriers and those loads alone take about half its time at
+// VGG-16's batch-8 shapes (tools/bf16_conv_breakdown.py), the products
+// and the A loads the rest.
+
+constexpr int kWpC = 64;        // channels a block: one 128-byte TMA row
+constexpr int kWpF = 64;        // filters a block
+constexpr int kWpWGs = 3;       // consumer warpgroups
+constexpr int kWpTaps = 3;      // taps a warpgroup
+constexpr int kWpGroup = kWpWGs * kWpTaps;       // taps a block
+// No producer warp: a 13th warp would put four warps on one of the SM's
+// four register files and cap every thread at 128 registers (the sums and
+// A fragments then spill); with 12, ptxas allows 168.
+constexpr int kWpThreads = 128 * kWpWGs;
+constexpr int kWpMaxStages = 4;
+
+constexpr int kWpSteps = 8;                     // k16 steps a chunk
+constexpr int kWpPix = 16 * kWpSteps;            // pixel rows a chunk
+
+// The split's cluster: its blocks' fp32 sums staged in shared memory as
+// [taps][64 channels][16 quads of filters], quad q of row r at q ^ (r & 7)
+// (the accumulator layout's stores then meet at most two to a bank), read
+// by every block of the cluster.
+constexpr int kWpStage = kWpGroup * kWpC * kWpF * 4;
+constexpr int kWpMaxCluster = 8;  // the portable cluster size
+
+struct WgradWinArgs {
+  float* out;  // dw (one slab), or the n_split / cluster partial slabs
+  int C, K, F, H_O, W_O, S, pad;
+  int TH, TW, n_th, n_tw, rows, cols;
+  int n_chunks, n_split, cluster, n_c, n_f, n_tg, stages;
+  int win_bytes, stage_bytes;  // each a multiple of 1024
+};
+
+// A window-path block's ring: its tensor maps, the shared-memory base and
+// mbarriers, its chunk range and tile origin.
+struct WpRing {
+  const CUtensorMap* x_map;
+  const CUtensorMap* g_map;
+  uint32_t sbase, full0, empty0, tx;
+  int k0, k1, c0, f0, per_img;
+};
+
+// Chunk j into ring stage (j - k0) % stages by TMA (thread 0).
+__device__ __forceinline__ void wp_load(const WgradWinArgs& a,
+                                        const WpRing& r, int j) {
+  const int it = j - r.k0, st = it % a.stages;
+  const uint32_t full = r.full0 + 8 * st;
+  mbar_arrive_expect_tx(full, r.tx);
+  const int n = j / r.per_img, t = j - n * r.per_img;
+  const int th = t / a.n_tw, tw = t - th * a.n_tw;
+  const uint32_t dst = r.sbase + st * a.stage_bytes;
+  tma_load_4d(dst, r.x_map, full, r.c0, tw * a.TW * a.S - a.pad,
+              th * a.TH * a.S - a.pad, n);
+  tma_load_4d(dst + a.win_bytes, r.g_map, full, r.f0, tw * a.TW, th * a.TH,
+              n);
+}
+
+// One k16 step s (a compile-time constant) of a consumer warpgroup: the A
+// fragments of its three taps from the window at ``wb`` (``base`` the
+// lane's window pixel at step s and tap (0, 0), ``toff`` each tap's
+// offset), B the cotangent rows 16 s .. 16 s + 15 (``db`` the descriptor
+// of row 0); then wait for the step before, whose A registers (the other
+// buffer) are then free.  All three taps are issued whether they exist or
+// not (a tap past K*K reads tap K*K - 1 and is not written): a wgmma under
+// a branch makes ptxas fence every one.
+template <int s>
+__device__ __forceinline__ void wp_step(float (&acc)[kWpTaps][32],
+                                        uint32_t (&af)[kWpTaps][4],
+                                        int base, int unit,
+                                        const int (&toff)[kWpTaps],
+                                        uint32_t wb, uint64_t db) {
+#pragma unroll
+  for (int j = 0; j < kWpTaps; ++j) {
+    const int wp = base + toff[j];
+    ldsm_x4_t(af[j], wb + (wp << 7) + (((unit ^ wp) & 7) << 4));
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kWpTaps; ++j)
+    wgmma_rs_m64n64(acc[j], af[j], db + (s * 16 * 128 >> 4));
+  wgmma_commit();
+  wgmma_wait<1>();
+}
+
+// Grid: (channel tiles x filter tiles x tap groups, n_split).
+__global__ void __launch_bounds__(kWpThreads, 1)
+trim_conv2d_wgrad_bf16_window_kernel(const __grid_constant__ CUtensorMap x_map,
+                                     const __grid_constant__ CUtensorMap g_map,
+                                     const WgradWinArgs a) {
+  extern __shared__ unsigned char smem_wp[];
+  unsigned char* sm =
+      smem_wp + ((1024u - (smem_addr(smem_wp) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_addr(sm);
+  const uint32_t full0 = sbase + a.stages * a.stage_bytes;
+  const uint32_t empty0 = full0 + 8 * a.stages;
+  const int ct = blockIdx.x % a.n_c;
+  const int ft = (blockIdx.x / a.n_c) % a.n_f;
+  const int tg = blockIdx.x / (a.n_c * a.n_f);
+  const int split = blockIdx.y;
+  const int c0 = ct * kWpC, f0 = ft * kWpF;
+  const int k0 = static_cast<int>(
+      static_cast<long long>(a.n_chunks) * split / a.n_split);
+  const int k1 = static_cast<int>(
+      static_cast<long long>(a.n_chunks) * (split + 1) / a.n_split);
+  const int npix = a.TH * a.TW;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < a.stages; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 4 * kWpWGs);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the cotangent rows past the chunk's pixels, zero in every stage (TMA
+  // writes only the TH * TW rows of its box)
+  const int pad_units = (kWpPix - npix) * 8;
+  for (int i = threadIdx.x; i < a.stages * pad_units; i += blockDim.x) {
+    const int st = i / pad_units, u = i - st * pad_units;
+    *reinterpret_cast<uint4*>(sm + st * a.stage_bytes + a.win_bytes +
+                              npix * 128 + u * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // Thread 0 brings chunk j into stage (j - k0) % stages by TMA: the
+  // first stages up front, then each chunk as its stage frees.
+  WpRing ring;
+  ring.x_map = &x_map;
+  ring.g_map = &g_map;
+  ring.sbase = sbase;
+  ring.full0 = full0;
+  ring.empty0 = empty0;
+  ring.tx = static_cast<uint32_t>(a.rows * a.cols * 128 + npix * 128);
+  ring.k0 = k0;
+  ring.k1 = k1;
+  ring.c0 = c0;
+  ring.f0 = f0;
+  ring.per_img = a.n_th * a.n_tw;
+  if (threadIdx.x == 0)
+    for (int j = k0; j < min(k1, k0 + a.stages); ++j) wp_load(a, ring, j);
+
+  // Consumers: warpgroup wg owns taps tg * 9 + 3 wg + j (j < 3) that
+  // exist; warp wq of it channels c0 + 16 wq .. + 15 (the wgmma's rows).
+  const int wg = threadIdx.x / 128;
+  const int wq = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int KK = a.K * a.K;
+  const int tap0 = tg * kWpGroup + wg * kWpTaps;
+  const int ntap = max(0, min(kWpTaps, KK - tap0));  // taps written
+  int toff[kWpTaps];  // the tap's window-pixel offset
+#pragma unroll
+  for (int j = 0; j < kWpTaps; ++j) {
+    const int t = min(tap0 + j, KK - 1);
+    toff[j] = (t / a.K) * a.cols + t % a.K;
+  }
+  // ldmatrix.trans x4: lane l gives the row address of matrix l >> 3, row
+  // l & 7: pixel (l & 7) + 8 ((l >> 3) >> 1) of the step, 16-byte unit
+  // (channels) 2 wq + ((l >> 3) & 1): a0..a3 of the A fragment (channels
+  // x pixels) come out in order.  The lane's window pixel at tap (0, 0)
+  // for each step is the same in every chunk; a pixel past the chunk
+  // reads pixel 0 (its cotangent row is zero).
+  const int unit = 2 * wq + ((lane >> 3) & 1);
+  int base[kWpSteps];
+#pragma unroll
+  for (int s = 0; s < kWpSteps; ++s) {
+    int p = 16 * s + (lane & 7) + 8 * (lane >> 4);
+    p = p < npix ? p : 0;
+    const int lh = p / a.TW, lw = p - lh * a.TW;
+    base[s] = lh * a.S * a.cols + lw * a.S;
+  }
+
+  float acc[kWpTaps][32];
+#pragma unroll
+  for (int j = 0; j < kWpTaps; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[j][e] = 0.0f;
+
+  // Per chunk its eight k16 steps, unrolled (the A buffers alternate with
+  // the step); a chunk's stage is released once the first step of the
+  // next has waited for its last, so the products never drain between
+  // chunks.
+  uint32_t a0[kWpTaps][4], a1[kWpTaps][4];
+  int st = 0;
+  uint32_t par = 0;
+  for (int j = k0; j < k1; ++j) {
+    mbar_wait(full0 + 8 * st, par);
+    const uint32_t wb = sbase + st * a.stage_bytes;
+    const uint64_t db = sw128_desc(wb + a.win_bytes, kWpPix * 128);
+    wp_step<0>(acc, a0, base[0], unit, toff, wb, db);
+    if (j > k0) {
+      // the step before, chunk j - 1's last, is done
+      const int sp = st == 0 ? a.stages - 1 : st - 1;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * sp);
+      if (threadIdx.x == 0 && j - 1 + a.stages < k1) {
+        mbar_wait(empty0 + 8 * sp, (sp == a.stages - 1) ? par ^ 1 : par);
+        wp_load(a, ring, j - 1 + a.stages);
+      }
+    }
+    wp_step<1>(acc, a1, base[1], unit, toff, wb, db);
+    wp_step<2>(acc, a0, base[2], unit, toff, wb, db);
+    wp_step<3>(acc, a1, base[3], unit, toff, wb, db);
+    wp_step<4>(acc, a0, base[4], unit, toff, wb, db);
+    wp_step<5>(acc, a1, base[5], unit, toff, wb, db);
+    wp_step<6>(acc, a0, base[6], unit, toff, wb, db);
+    wp_step<7>(acc, a1, base[7], unit, toff, wb, db);
+    if (++st == a.stages) {
+      st = 0;
+      par ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < kWpTaps; ++t) pin(acc[t]);
+
+  // acc[j][4 jj + 2 i + c]: channel c0 + 16 wq + (lane >> 2) + 8 i, filter
+  // f0 + 8 jj + 2 (lane & 3) + c of tap tap0 + j.
+  const size_t slab = static_cast<size_t>(KK) * a.C * a.F;
+  if (a.cluster == 1) {
+    // this block's sums: dw itself, or its range's slab
+    float* out = a.out + split * slab;
+    const bool pair = (a.F & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < kWpTaps; ++j) {
+      if (j >= ntap) break;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = c0 + 16 * wq + (lane >> 2) + 8 * i;
+        if (c >= a.C) continue;
+        float* row = out + (static_cast<size_t>(tap0 + j) * a.C + c) * a.F;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int f = f0 + 8 * jj + 2 * (lane & 3);
+          const float v0 = acc[j][4 * jj + 2 * i];
+          const float v1 = acc[j][4 * jj + 2 * i + 1];
+          if (pair && f + 1 < a.F) {
+            *reinterpret_cast<float2*>(row + f) = make_float2(v0, v1);
+          } else {
+            if (f < a.F) row[f] = v0;
+            if (f + 1 < a.F) row[f + 1] = v1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  // The cluster's blocks (consecutive ranges of chunks) sum their sums in
+  // rank order through distributed shared memory: each stages its own in
+  // the idle ring, then block r adds up rows [576 r / cluster, 576 (r +
+  // 1) / cluster) of the (tap, channel) rows over the cluster and writes
+  // them to dw (one cluster) or to the cluster's slab.
+  __syncthreads();  // every block's products are done: the ring is free
+#pragma unroll
+  for (int j = 0; j < kWpTaps; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = (wg * kWpTaps + j) * kWpC + 16 * wq + (lane >> 2) + 8 * i;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int q = (2 * jj + ((lane & 3) >> 1)) ^ (r & 7);
+        *reinterpret_cast<float2*>(sm + (r * kWpF + 4 * q +
+                                         2 * (lane & 1)) * 4) =
+            make_float2(acc[j][4 * jj + 2 * i], acc[j][4 * jj + 2 * i + 1]);
+      }
+    }
+  cluster_sync();
+  const int rank = static_cast<int>(cluster_rank());
+  float* out = a.out + static_cast<size_t>(split / a.cluster) * slab;
+  constexpr int kRows = kWpGroup * kWpC;
+  const int r0 = kRows * rank / a.cluster, r1 = kRows * (rank + 1) / a.cluster;
+  for (int e = threadIdx.x; e < (r1 - r0) * (kWpF / 4); e += kWpThreads) {
+    const int r = r0 + e / (kWpF / 4), q = e % (kWpF / 4);
+    const int tap = tg * kWpGroup + r / kWpC, c = c0 + r % kWpC;
+    const int f = f0 + 4 * q;
+    if (tap >= KK || c >= a.C || f >= a.F) continue;
+    const uint32_t addr = sbase + (r * kWpF + 4 * (q ^ (r & 7))) * 4;
+    const float4 v = cluster_sum(addr, a.cluster);
+    float* dst = out + (static_cast<size_t>(tap) * a.C + c) * a.F + f;
+    if (a.F % 4 == 0) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float o[4] = {v.x, v.y, v.z, v.w};
+      for (int k = 0; k < 4 && f + k < a.F; ++k) dst[k] = o[k];
+    }
+  }
+  cluster_sync();  // the cluster's reads of this block's sums are done
+}
+
+// The fixed-order sum of n_split slabs of M floats into dw.
+int launch_reduce(const float* ws, float* dw, long long M, int n_split,
+                  cudaStream_t s) {
+  int G = 1;
+  while (G < 32 && 2 * G <= n_split) G *= 2;
+  const long long L = 256 / G;
+  const int blocks = static_cast<int>((M + L - 1) / L < 4224 ? (M + L - 1) / L
+                                                              : 4224);
+  trim_conv2d_wgrad_reduce<<<blocks, 256, 0, s>>>(ws, dw, M, n_split, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -819,76 +1168,140 @@ int trim_conv2d_wgrad_f32(const void* x, const void* g, void* dw, void* ws,
   static int smem_set[3] = {0, 0, 0};  // per path: what launch() has set
   const int rc = launch(kern, smem_set[path], a, n_c, threads, smem_bytes, s);
   if (rc != 0 || n_split == 1) return rc;
-  const long long M = static_cast<long long>(KK) * C * F;
-  int G = 1;
-  while (G < 32 && 2 * G <= n_split) G *= 2;
-  const long long L = 256 / G;
-  const int blocks = static_cast<int>((M + L - 1) / L < 4224 ? (M + L - 1) / L
-                                                              : 4224);
-  trim_conv2d_wgrad_reduce<<<blocks, 256, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<float*>(dw), M, n_split, G);
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dw),
+                       static_cast<long long>(KK) * C * F, n_split, s);
 }
 
-// The bf16 lane's tile: depth rows, filters and pixels a block's chunk.
+// The bf16 lane's tiles: 0-2 the GEMM path's depth rows, filters and
+// pixels a chunk; 3-9 the window path's channels, filters, taps a block,
+// most stages, pixel rows a chunk, most cluster blocks and the bytes of a
+// block's staged sums.
 int trim_conv2d_wgrad_bf16_tile(int which) {
-  return which == 0 ? kBwM : which == 1 ? kBwN : kBwP;
+  const int v[10] = {kBwM, kBwN, kBwP, kWpC, kWpF, kWpGroup, kWpMaxStages,
+                     kWpPix, kWpMaxCluster, kWpStage};
+  return which >= 0 && which < 10 ? v[which] : -1;
 }
 
 // x (N,H,W,C) bf16, g (N,H_O,W_O,F) bf16 -> dw (K,K,C,F) fp32.  The
-// caller (the wrapper's wgrad_bf16_tile) picks n_split, the contiguous
-// ranges the 64-pixel chunks are cut into; with n_split > 1, ws holds
-// n_split * K*K*C*F floats of scratch.  One call launches the GEMM and,
-// split, the fixed-order sum of the ranges.  Returns the first launch
-// error's cudaError_t, or 0.
+// caller (the wrapper's wgrad_bf16_tile) picks the path (0: the 64 x 64
+// GEMM over im2col rows, any C and F; 1: the window path, C and F
+// multiples of 8, x and g 16-byte aligned), on the window path the TH x
+// TW output chunk (TH * TW <= 128), the ring's stages and the cluster
+// (1-8 blocks, n_split a multiple of it; the GEMM path 1), n_split, the
+// contiguous ranges the chunks are cut into, and the shared memory, which
+// must equal what this function computes.  The n_split / cluster
+// partials (the ranges', or the clusters' sums of theirs) go to dw where
+// there is one, else to ws (that many * K*K*C*F floats), summed into dw
+// in a fixed order by a second launch.  Returns the first launch error's
+// cudaError_t, or 0.
 int trim_conv2d_wgrad_bf16(const void* x, const void* g, void* dw, void* ws,
                            int N, int H, int W, int C, int K, int F, int H_O,
-                           int W_O, int stride, int pad, int n_split,
-                           void* stream) {
-  WgradBf16Args a;
+                           int W_O, int stride, int pad, int path, int TH,
+                           int TW, int stages, int n_split, int cluster,
+                           int smem_bytes, void* stream) {
   const long long P = static_cast<long long>(N) * H_O * W_O;
   const long long depth = static_cast<long long>(K) * K * C;
   if (N < 1 || H < 1 || W < 1 || C < 1 || K < 1 || F < 1 || stride < 1 ||
       pad < 0 || H_O != (H + 2 * pad - K) / stride + 1 ||
       W_O != (W + 2 * pad - K) / stride + 1 || H_O < 1 || W_O < 1 ||
-      P > 0x7fffffffLL - kBwP || depth * F > 0x7fffffffLL || n_split < 1 || n_split > 65535 || (n_split > 1 && ws == nullptr))
+      P > 0x7fffffffLL - kBwP || depth * F > 0x7fffffffLL || n_split < 1 ||
+      n_split > 65535 || cluster < 1 || cluster > kWpMaxCluster ||
+      n_split % cluster != 0 || (path == 0 && cluster != 1) ||
+      (n_split > cluster && ws == nullptr) || (path != 0 && path != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.g = static_cast<const __nv_bfloat16*>(g);
-  a.out = static_cast<float*>(n_split > 1 ? ws : dw);
-  a.N = N; a.H = H; a.W = W; a.C = C; a.K = K; a.F = F;
-  a.H_O = H_O; a.W_O = W_O; a.S = stride; a.pad = pad;
-  a.depth = static_cast<int>(depth);
-  a.n_m = static_cast<int>((depth + kBwM - 1) / kBwM);
-  a.P = static_cast<int>(P);
-  a.n_chunks = static_cast<int>((P + kBwP - 1) / kBwP);
-  a.n_split = n_split;
-  if (n_split > a.n_chunks) return static_cast<int>(cudaErrorInvalidValue);
-  a.vec_x = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  a.vec_g = F % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  const int n_f = (F + kBwN - 1) / kBwN;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        trim_conv2d_wgrad_bf16_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem);
+  const int n_part = n_split / cluster;  // the partials summed at the end
+  float* out = static_cast<float*>(n_part > 1 ? ws : dw);
+  if (path == 1) {
+    WgradWinArgs a;
+    a.out = out;
+    a.C = C; a.K = K; a.F = F; a.H_O = H_O; a.W_O = W_O; a.S = stride;
+    a.pad = pad; a.TH = TH; a.TW = TW;
+    a.n_th = (H_O + TH - 1) / TH;
+    a.n_tw = (W_O + TW - 1) / TW;
+    a.rows = (TH - 1) * stride + K;
+    a.cols = (TW - 1) * stride + K;
+    a.n_c = (C + kWpC - 1) / kWpC;
+    a.n_f = (F + kWpF - 1) / kWpF;
+    a.n_tg = (K * K + kWpGroup - 1) / kWpGroup;
+    a.n_split = n_split;
+    a.cluster = cluster;
+    a.stages = stages;
+    a.win_bytes = (a.rows * a.cols * 128 + 1023) / 1024 * 1024;
+    a.stage_bytes = a.win_bytes + kWpPix * 128;
+    const long long chunks = static_cast<long long>(N) * a.n_th * a.n_tw;
+    const long long smem =
+        static_cast<long long>(stages) * (a.stage_bytes + 16) + 1024;
+    if (C % 8 != 0 || F % 8 != 0 || TH < 1 || TW < 1 ||
+        TH * TW > kWpPix || a.rows > 256 || a.cols > 256 || stages < 2 ||
+        stages > kWpMaxStages || smem != smem_bytes || smem > 232448 ||
+        (cluster > 1 && stages * a.stage_bytes < kWpStage) ||
+        chunks > 0x7fffffffLL || n_split > chunks ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+        static_cast<long long>(a.n_c) * a.n_f * a.n_tg > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.n_chunks = static_cast<int>(chunks);
+    CUtensorMap x_map, g_map;
+    int rc = encode_nhwc(&x_map, x, N, H, W, C, a.cols, a.rows);
+    if (rc != 0) return rc;
+    rc = encode_nhwc(&g_map, g, N, H_O, W_O, F, TW, TH);
+    if (rc != 0) return rc;
+    static int smem_set = 0;
+    if (smem_bytes > smem_set) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          trim_conv2d_wgrad_bf16_window_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      smem_set = smem_bytes;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.n_c * a.n_f * a.n_tg, n_split);
+    cfg.blockDim = dim3(kWpThreads);
+    cfg.dynamicSmemBytes = smem_bytes;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = cluster;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, trim_conv2d_wgrad_bf16_window_kernel, x_map, g_map, a);
     if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
+  } else {
+    WgradBf16Args a;
+    a.x = static_cast<const __nv_bfloat16*>(x);
+    a.g = static_cast<const __nv_bfloat16*>(g);
+    a.out = out;
+    a.N = N; a.H = H; a.W = W; a.C = C; a.K = K; a.F = F;
+    a.H_O = H_O; a.W_O = W_O; a.S = stride; a.pad = pad;
+    a.depth = static_cast<int>(depth);
+    a.n_m = static_cast<int>((depth + kBwM - 1) / kBwM);
+    a.P = static_cast<int>(P);
+    a.n_chunks = static_cast<int>((P + kBwP - 1) / kBwP);
+    a.n_split = n_split;
+    if (n_split > a.n_chunks || smem_bytes != kBwSmem)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.vec_x = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    a.vec_g = F % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+    const int n_f = (F + kBwN - 1) / kBwN;
+    static bool smem_set = false;
+    if (!smem_set) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          trim_conv2d_wgrad_bf16_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      smem_set = true;
+    }
+    const dim3 grid(a.n_m * n_f, n_split);
+    trim_conv2d_wgrad_bf16_kernel<<<grid, kBwThreads, kBwSmem, s>>>(a);
   }
-  const dim3 grid(a.n_m * n_f, n_split);
-  trim_conv2d_wgrad_bf16_kernel<<<grid, kBwThreads, kBwSmem, s>>>(a);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0 || n_split == 1) return rc;
-  const long long M = depth * F;
-  int G = 1;
-  while (G < 32 && 2 * G <= n_split) G *= 2;
-  const long long L = 256 / G;
-  const int blocks = static_cast<int>((M + L - 1) / L < 4224 ? (M + L - 1) / L
-                                                              : 4224);
-  trim_conv2d_wgrad_reduce<<<blocks, 256, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<float*>(dw), M, n_split, G);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || n_part == 1) return rc;
+  return launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dw),
+                       depth * F, n_part, s);
 }
 
 }  // extern "C"

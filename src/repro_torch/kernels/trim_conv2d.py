@@ -108,6 +108,24 @@ U8_GATHER_STEPS = 4
 U8_STAGES = (3, 2)
 U8_MIN_RANGE_STEPS = 16
 
+#: The bf16 lane's wgmma window path, compiled into the kernel: output
+#: pixels a block (two consumer warpgroups of 64), the filters a block may
+#: take (its template instances), channels a chunk (one 128-byte TMA row),
+#: the most cluster blocks a split may have (the portable cluster size) and
+#: the weight ring's stages, most preferred first; a TMA box's most
+#: elements a dimension.
+BF16_PIX = 128
+BF16_FB = (128, 64)
+BF16_CHUNK = 64
+BF16_MAX_SPLIT = 8
+BF16_STAGES = (4, 3, 2)
+#: The planner's own cap on the split's cluster: on the H100 clusters of
+#: 4 and 8 ran VGG-16's batch-8 convs slower than clusters of 2 (fewer
+#: large clusters are resident at once; ``tools/bf16_conv_times.py
+#: --caps``); a ``Schedule`` may still ask for up to BF16_MAX_SPLIT.
+BF16_SPLIT_CAP = 2
+TMA_BOX_MAX = 256
+
 _LIB_NAME = "trim_conv2d"
 _SOURCES = ("trim_conv2d.cu",)
 _BOUND: set = set()  # libraries whose ctypes signatures are declared
@@ -431,27 +449,175 @@ def u8_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
                      stages=stages, elem=1)
 
 
+@dataclass(frozen=True)
+class Bf16Tile:
+    """One bf16 conv's launch geometry on the wgmma window path."""
+
+    H_O: int
+    W_O: int
+    p: int            # symmetric zero padding
+    path: int         # U8_WINDOW
+    TH: int           # output rows per block (TH * TW <= BF16_PIX)
+    TW: int           # output cols per block
+    n_th: int
+    n_tw: int
+    fb: int           # filters a block (one of BF16_FB)
+    n_f: int          # filter tiles of fb
+    rows: int         # the haloed window of one tile
+    cols: int
+    n_cc: int         # 64-channel chunks
+    n_split: int      # cluster blocks the chunks are cut into (1: none)
+    stages: int       # weight-ring stages
+    win_bytes: int    # one window stage (rounded up to 1024)
+    smem_bytes: int
+    wt_bytes: int = 0  # no weight pre-pass
+
+
+def _bwc_smem(rows: int, cols: int, fb: int, stages: int,
+              n_split: int) -> Tuple[int, int]:
+    """(window stage bytes, shared memory) of a wgmma window block: the
+    2-stage window ring and the weight ring, or the epilogue's staging
+    (bf16 rows, fp32 ones when split) where larger, the mbarriers, and
+    1024 bytes to align the base (the kernel's ``bwc_smem``)."""
+    win = -(-(rows * cols * 128) // 1024) * 1024
+    ring = 2 * win + stages * 64 * fb * 2
+    stage = BF16_PIX * (fb * 4 + 16 if n_split > 1 else fb * 2 + 16)
+    return win, max(ring, stage) + 8 * (4 + 2 * stages) + 1024
+
+
 @functools.lru_cache(maxsize=512)
 def bf16_tile(hw: Tuple[int, int], c: int, k: int, f: int, *, stride: int,
               padding: Optional[int], path: Optional[int] = None,
               tile: Optional[Tuple[int, int]] = None,
               n_split: Optional[int] = None,
-              stages: Optional[int] = None) -> U8Tile:
-    """The bf16 lane's geometry for x (·,H,W,c), w (k,k,c,f): the u8 x s8
-    lane's planner (:func:`u8_tile`) on 2-byte elements, a 32-byte k-step
-    being 16 channels, from the per-image shape alone (``batch`` 1): fp32
-    sums are not exact in every order, so the path, the tile and the split
-    never follow the batch, and a batch of N equals N calls of one image
-    bit for bit.  The path is the gather path where C <=
-    :data:`U8_GATHER_MAX_C`, else the window path; the lane has no slide
-    path (``path`` :data:`U8_SLIDE` raises) and no pre-pass
-    (``wt_bytes`` 0).  Overrides are checked as :func:`u8_tile` checks
-    them."""
+              stages: Optional[int] = None):
+    """The bf16 lane's geometry for x (·,H,W,c), w (k,k,c,f), from the
+    per-image shape alone: fp32 sums are not exact in every order, so the
+    path, the tile, the filters a block and the split never follow the
+    batch, and a batch of N equals N calls of one image bit for bit.
+
+    The path is the wgmma window path (a :class:`Bf16Tile`) where c > 8
+    and c and f are multiples of 8 (its TMA maps' row strides must be
+    16-byte multiples), else the gather path (a :class:`U8Tile` of the
+    u8 x s8 lane's planner on 2-byte elements, :func:`u8_tile`); there is
+    no slide path (``path`` :data:`U8_SLIDE` raises).  Window path: the
+    output tile TH x TW <= :data:`BF16_PIX` with the fewest tiles, then
+    the smallest haloed window (rows and cols <= :data:`TMA_BOX_MAX`),
+    then the widest; 128 filters a block where f > 64, else 64 (the
+    m64n128 products ran 8-22% faster than twice as many m64n64 ones at
+    VGG-16's CL6-CL13 on the H100, split or not); and the split, the
+    fewest clusters of blocks, each block a contiguous range of the
+    64-channel chunks, that minimise the makespan over one image's blocks
+    with one block an SM (:func:`fewest_ranges`, at most
+    :data:`BF16_SPLIT_CAP` and the chunks; ``n_split`` up to
+    :data:`BF16_MAX_SPLIT`, the portable cluster); the weight ring takes the
+    most of :data:`BF16_STAGES` that let two blocks share an SM (the
+    kernel's launch bounds), else that fit :data:`SMEM_MAX`.  ``path``, ``tile``, ``n_split`` and
+    ``stages`` override these choices; each is checked and raises where
+    the kernel cannot take it."""
     if path == U8_SLIDE:
         raise ValueError("the bf16 lane has no slide path")
-    return _mma_tile(hw, c, k, f, stride=stride, padding=padding, batch=1,
-                     path=path, tile=tile, n_split=n_split, stages=stages,
-                     elem=2)
+    C, F = int(c), int(f)
+    window = C > U8_GATHER_MAX_C and C % 8 == 0 and F % 8 == 0
+    if path is None:
+        path = U8_WINDOW if window else U8_GATHER
+    if path == U8_GATHER:
+        return _mma_tile(hw, c, k, f, stride=stride, padding=padding,
+                         batch=1, path=path, tile=tile, n_split=n_split,
+                         stages=stages, elem=2)
+    if path != U8_WINDOW:
+        raise ValueError(f"path {path} not in {U8_PATH_NAMES[:2]}")
+    if C % 8 or F % 8:
+        raise ValueError(f"the bf16 window path needs C and F multiples of "
+                         f"8 (its TMA maps' 16-byte strides), got C={C}, "
+                         f"F={F}")
+    H, W = int(hw[0]), int(hw[1])
+    S, K = int(stride), int(k)
+    if S < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    p = K // 2 if padding is None else int(padding)
+    H_O, W_O = (H + 2 * p - K) // S + 1, (W + 2 * p - K) // S + 1
+    if H_O < 1 or W_O < 1:
+        raise ValueError(f"empty conv output for input {hw}, k={K}, p={p}")
+    if tile is not None:
+        TH, TW = (int(v) for v in tile)
+        if min(TH, TW) < 1 or TH * TW > BF16_PIX:
+            raise ValueError(f"bf16 tile {TH} x {TW} not within {BF16_PIX} "
+                             "pixels")
+        cands = [(TH, TW)]
+    else:
+        cands = [(TH, TW) for TW in range(1, min(W_O, BF16_PIX) + 1)
+                 for TH in range(1, min(BF16_PIX // TW, H_O) + 1)]
+    best = None
+    for TH, TW in cands:
+        rows, cols = (TH - 1) * S + K, (TW - 1) * S + K
+        if rows > TMA_BOX_MAX or cols > TMA_BOX_MAX:
+            continue
+        key = (-(-H_O // TH) * -(-W_O // TW), rows * cols, -TW)
+        if best is None or key < best[0]:
+            best = (key, TH, TW, rows, cols)
+    if best is None:
+        raise ValueError(f"no bf16 tile {'' if tile is None else tile} keeps "
+                         f"its window within {TMA_BOX_MAX} x {TMA_BOX_MAX} "
+                         f"(K={K}, S={S})")
+    _, TH, TW, rows, cols = best
+    n_th, n_tw = -(-H_O // TH), -(-W_O // TW)
+    n_cc = -(-C // BF16_CHUNK)
+    cap = min(n_cc, BF16_MAX_SPLIT)
+    if n_split is not None and not 1 <= n_split <= cap:
+        raise ValueError(f"n_split {n_split} not in [1, {cap}] (the "
+                         f"{n_cc} 64-channel chunks, clusters of at most "
+                         f"{BF16_MAX_SPLIT})")
+    cap = min(cap, BF16_SPLIT_CAP)
+    if stages is not None and stages not in BF16_STAGES:
+        raise ValueError(f"stages {stages} not in {BF16_STAGES}")
+    fb = BF16_FB[0] if F > BF16_FB[1] else BF16_FB[1]
+    n_f = -(-F // fb)
+    blocks = n_th * n_tw * n_f
+    ns = n_split if n_split is not None else (
+        fewest_ranges(n_cc, blocks, SMS, cap) if blocks < SMS else 1)
+    fit = [st for lim in (SM_SMEM // 2 - 1024, SMEM_MAX)
+           for st in (BF16_STAGES if stages is None else (stages,))
+           if _bwc_smem(rows, cols, fb, st, ns)[1] <= lim]
+    if not fit:
+        raise ValueError(f"no bf16 window ring fits K={K}, S={S}, tile "
+                         f"{TH} x {TW} in {SMEM_MAX} bytes of shared memory")
+    win, smem = _bwc_smem(rows, cols, fb, fit[0], ns)
+    return Bf16Tile(H_O=H_O, W_O=W_O, p=p, path=U8_WINDOW, TH=TH, TW=TW,
+                    n_th=n_th, n_tw=n_tw, fb=fb, n_f=n_f, rows=rows,
+                    cols=cols, n_cc=n_cc, n_split=ns, stages=fit[0],
+                    win_bytes=win, smem_bytes=smem)
+
+
+def bf16_ranges(t: Bf16Tile):
+    """The window path's channel-chunk ranges ``[(c0, c1), ...]`` of the
+    n_split blocks of a cluster, in rank order (the kernel's: chunks
+    ``n_cc * r // n_split`` up to ``n_cc * (r + 1) // n_split``)."""
+    return [(t.n_cc * r // t.n_split, t.n_cc * (r + 1) // t.n_split)
+            for r in range(t.n_split)]
+
+
+def bf16_output_map(t: Bf16Tile, f: int):
+    """Every output the window path's blocks write for one image, as flat
+    index tensors ``(ho, wo, filter)``: block (tile, filter tile, cluster
+    rank r), pixel m of the tile's BF16_PIX and filter of its fb -- unsplit
+    the block writes its whole tile, split rank r the pixels [BF16_PIX r /
+    n_split, BF16_PIX (r + 1) / n_split) summed over the cluster -- those
+    inside TH * TW and H_O x W_O x f."""
+    tile = torch.arange(t.n_th * t.n_tw).view(-1, 1, 1, 1, 1)
+    ft = torch.arange(t.n_f).view(1, -1, 1, 1, 1)
+    r = torch.arange(t.n_split).view(1, 1, -1, 1, 1)
+    m = torch.arange(BF16_PIX).view(1, 1, 1, -1, 1)
+    j = torch.arange(t.fb).view(1, 1, 1, 1, -1)
+    mine = ((m >= BF16_PIX * r // t.n_split)
+            & (m < BF16_PIX * (r + 1) // t.n_split))
+    ho = (tile // t.n_tw) * t.TH + m // t.TW
+    wo = (tile % t.n_tw) * t.TW + m % t.TW
+    fo = ft * t.fb + j
+    mine, m, ho, wo, fo = torch.broadcast_tensors(mine, m, ho, wo, fo)
+    keep = (mine & (m < t.TH * t.TW) & (ho < t.H_O) & (wo < t.W_O)
+            & (fo < f))
+    return ho[keep], wo[keep], fo[keep]
 
 
 def _mma_tile(hw, c, k, f, *, stride, padding, batch, path, tile, n_split,
@@ -646,13 +812,17 @@ def load_library() -> ctypes.CDLL:
         lib.trim_conv2d_error_string.argtypes = [i]
         lib.trim_conv2d_error_string.restype = ctypes.c_char_p
         for name in ("f32_threads", "f32_filters", "u8_pixels",
-                     "u8_filters", "u8_max_depth"):
+                     "u8_filters", "u8_max_depth", "bf16_pixels",
+                     "bf16_max_split", "bf16_max_stages"):
             getattr(lib, f"trim_conv2d_{name}").restype = i
         if (lib.trim_conv2d_f32_threads() != F32_THREADS
                 or lib.trim_conv2d_f32_filters() != F32_FB
                 or lib.trim_conv2d_u8_pixels() != U8_M
                 or lib.trim_conv2d_u8_filters() != U8_FB
-                or lib.trim_conv2d_u8_max_depth() != U8_MAX_DEPTH):
+                or lib.trim_conv2d_u8_max_depth() != U8_MAX_DEPTH
+                or lib.trim_conv2d_bf16_pixels() != BF16_PIX
+                or lib.trim_conv2d_bf16_max_split() != BF16_MAX_SPLIT
+                or lib.trim_conv2d_bf16_max_stages() != max(BF16_STAGES)):
             raise RuntimeError("trim_conv2d library tile constants differ "
                                "from the wrapper's")
         _BOUND.add(lib)
@@ -699,7 +869,8 @@ def bf16_launch_args(x_shape: Tuple[int, int, int, int], K: int, F: int,
     t = bf16_tile((H, W), C, K, F, stride=S, padding=padding,
                   **(schedule or Schedule()).bf16())
     return t, (N, H, W, C, K, F, t.H_O, t.W_O, S, t.p, t.path, t.TH, t.TW,
-               t.steps, t.n_split, t.stages)
+               t.fb if t.path == U8_WINDOW else t.steps, t.n_split,
+               t.stages)
 
 
 def lane_of(x_dtype: torch.dtype, w_dtype: torch.dtype) -> Optional[str]:
@@ -874,7 +1045,11 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         or requant is not None else torch.int32)
     out = torch.empty((N, t.H_O, t.W_O, F), dtype=out_dtype,
                       device=x.device)
-    parts = (None if t.n_split == 1 else torch.empty(
+    window = lane == "bf16" and t.path == U8_WINDOW
+    if window and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("the bf16 window path's tensor maps need x and w "
+                         "16-byte aligned")
+    parts = (None if t.n_split == 1 or window else torch.empty(
         (t.n_split, N, t.H_O, t.W_O, F), device=x.device,
         dtype=torch.int32 if lane == "u8" else torch.float32))
     if lane == "bf16":

@@ -12,11 +12,15 @@ Port of ``repro/kernels/trim_conv2d_vjp.py``.
 - :func:`trim_conv2d_wgrad_plain` is the same function in plain PyTorch:
   a loop over the K*K taps, each an fp32 contraction of the shifted
   input view with the cotangent.
-- :func:`wgrad_bf16_tile` is the bf16 lane's geometry: dw as one GEMM on
-  the tensor cores (64 depth rows x 64 filters a block, the output
-  pixels as the reduction in chunks of 64), and into how many contiguous
-  ranges the chunks are cut to fill the card (:func:`wgrad_bf16_ranges`),
-  from the shape alone.
+- :func:`wgrad_bf16_tile` is the bf16 lane's geometry: the window path
+  (C and F multiples of 8: a block owns all the taps of a 64-channel x
+  64-filter tile of dw on wgmma, its input window and cotangent tile
+  brought in once a chunk by TMA, the output pixels as the reduction in
+  TH x TW chunks) or the GEMM path (64 depth rows x 64 filters a block,
+  the pixels in chunks of 64), and into how many contiguous ranges the
+  chunks are cut to fill the card (:func:`wgrad_bf16_ranges`), from the
+  shape alone; :func:`wgrad_bf16_output_map` lists the dw elements the
+  threads write.
 - :func:`wgrad_tile` is the kernel's geometry: its path, output tile,
   channel and filter tile, which (tap, channel) rows and filters each
   thread's register tile holds (8 x 8, or 9 taps x 8 on the K = 3 path:
@@ -41,8 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.trim_conv2d import (SMEM_MAX, Schedule,
-                                             fewest_ranges, trim_conv2d)
+from repro_torch.kernels.trim_conv2d import (SMEM_MAX, TMA_BOX_MAX,
+                                             Schedule, fewest_ranges,
+                                             trim_conv2d)
 
 #: Launches of the weight-gradient kernel since the last reset (a plain
 #: counter: callers set it to 0 before a run and read it after).
@@ -81,11 +86,33 @@ SM_REGS = 65536
 SM_THREADS = 2048
 #: Most scratch the split partials may take.
 WGRAD_WORKSPACE_MAX = 256 * 1024 * 1024
-#: The bf16 lane, compiled into the kernel: depth rows (tap, channel) and
+#: The bf16 lane's paths: the 64 x 64 GEMM over im2col rows (any C and
+#: F: VGG-16 CL1, C = 3) and the window path on wgmma and TMA (C and F
+#: multiples of 8, the tensor maps' 16-byte strides).
+BF16_GEMM, BF16_WINDOW = 0, 1
+BF16_PATH_NAMES = ("gemm", "window")
+#: The GEMM path, compiled into the kernel: depth rows (tap, channel) and
 #: filters a block, output pixels a chunk; blocks an SM (128 threads, 48
 #: KB of shared memory each).
 BF16_M, BF16_N, BF16_P = 64, 64, 64
 BF16_BLOCKS_PER_SM = 4
+BF16_GEMM_SMEM = 3 * 2 * BF16_P * 128
+#: The window path, compiled into the kernel: channels (one 128-byte TMA
+#: row) and filters a block, taps a block (three consumer warpgroups of
+#: three taps), most ring stages, the pixel rows of a chunk (eight k16
+#: steps; TH * TW of them are output pixels).  One block an SM (384
+#: threads at up to 168 registers).
+WIN_C, WIN_F, WIN_TAPS, WIN_MAX_STAGES = 64, 64, 9, 4
+WIN_PIXELS = 128
+#: The window path's split clusters: at most the portable 8 blocks, each
+#: staging its fp32 sums ([taps][channels][filters]) in its idle ring,
+#: which must hold them.
+WIN_MAX_CLUSTER = 8
+WIN_STAGE = WIN_TAPS * WIN_C * WIN_F * 4
+#: The planner's cap on a cluster: on the H100 clusters of 4 and 8 ran
+#: VGG-16's batch-8 weight gradients slower than clusters of 2 or no
+#: cluster at all (``tools/bf16_conv_times.py --caps``).
+WIN_CLUSTER_CAP = 2
 
 _LIB_NAME = "trim_conv2d_wgrad"
 _SOURCES = ("trim_conv2d_wgrad.cu",)
@@ -245,22 +272,57 @@ class WgradBf16Tile:
     H_O: int
     W_O: int
     p: int            # symmetric zero padding
+    path: int         # BF16_GEMM or BF16_WINDOW
     depth: int        # K*K*C: dw's rows
-    n_m: int          # depth tiles of BF16_M
-    n_f: int          # filter tiles of BF16_N
-    n_chunks: int     # chunks of BF16_P output pixels over the batch
+    n_m: int          # GEMM: depth tiles of BF16_M; window: channel tiles
+    n_f: int          # filter tiles (BF16_N or WIN_F)
+    n_tg: int         # window: tap groups of WIN_TAPS (GEMM: 1)
+    TH: int           # window: output rows a chunk (GEMM: 0)
+    TW: int           # window: output cols a chunk (GEMM: 0)
+    rows: int         # window: the chunk's haloed input window
+    cols: int
+    stages: int       # window: TMA ring stages (GEMM: its 3 cp.async)
+    n_chunks: int     # chunks over the batch (GEMM: of BF16_P pixels)
     n_split: int      # contiguous ranges of chunks
+    cluster: int      # window: ranges a cluster sums in shared memory
+    smem_bytes: int
+
+    @property
+    def n_part(self) -> int:
+        """The partials summed into dw by the second launch (1: none)."""
+        return self.n_split // self.cluster
+
+
+def _win_smem(rows: int, cols: int, stages: int) -> int:
+    """The window path's shared memory: ``stages`` x (the window, rounded
+    up to 1024 bytes, the cotangent tile of WIN_PIXELS rows and two
+    mbarriers), and 1024 bytes to align the base."""
+    win = -(-(rows * cols * 128) // 1024) * 1024
+    return stages * (win + WIN_PIXELS * 128 + 16) + 1024
 
 
 @functools.lru_cache(maxsize=256)
 def wgrad_bf16_tile(x_shape: Tuple[int, int, int, int], k: int, f: int, *,
                     stride: int, padding: Optional[int]) -> WgradBf16Tile:
-    """The bf16 lane's geometry for x (N,H,W,C) and dw (k,k,C,f): dw's
-    (K*K*C) x f tiles, the N*H_O*W_O output pixels in chunks of
-    :data:`BF16_P`, and the fewest contiguous ranges of chunks that
+    """The bf16 lane's geometry for x (N,H,W,C) and dw (k,k,C,f).
+
+    The window path where C and f are multiples of 8 (the tensor maps'
+    row strides must be 16-byte multiples), else the GEMM path.  Window
+    path: a block owns WIN_C channels x WIN_F filters x up to WIN_TAPS
+    taps of dw; its chunk is the TH x TW output tile (TH * TW <=
+    WIN_PIXELS, the haloed window's rows and cols <= TMA_BOX_MAX) with the
+    fewest chunks over the image, then the least window per pixel, then
+    the widest; the ring takes the most stages (<= WIN_MAX_STAGES)
+    that fit :data:`SMEM_MAX`.  GEMM path: 64 depth rows x 64 filters a
+    block, the N*H_O*W_O output pixels in chunks of :data:`BF16_P`.
+    Either way the chunks are cut into the fewest contiguous ranges that
     minimise the makespan over the blocks the card holds at once
     (:func:`fewest_ranges`), within :data:`WGRAD_WORKSPACE_MAX` of
-    scratch."""
+    scratch.  On the window path, where the ring holds a block's staged
+    sums, the ranges form clusters of :data:`WIN_CLUSTER_CAP` blocks that
+    sum theirs in shared memory (the ranges rounded down to a multiple of
+    the cluster; the kernel takes up to :data:`WIN_MAX_CLUSTER`), so only
+    one partial a cluster reaches device memory.  Raises where no chunk fits."""
     N, H, W, C = (int(v) for v in x_shape)
     S, K, F = int(stride), int(k), int(f)
     if S < 1:
@@ -270,19 +332,111 @@ def wgrad_bf16_tile(x_shape: Tuple[int, int, int, int], k: int, f: int, *,
     if H_O < 1 or W_O < 1:
         raise ValueError(f"empty conv output for input {(H, W)}, k={K}, p={p}")
     depth = K * K * C
-    n_m, n_f = -(-depth // BF16_M), -(-F // BF16_N)
-    n_chunks = -(-(N * H_O * W_O) // BF16_P)
-    n_split = fewest_ranges(n_chunks, n_m * n_f,
-                            WGRAD_SMS * BF16_BLOCKS_PER_SM,
-                            min(65535, WGRAD_WORKSPACE_MAX // (depth * F * 4)))
-    return WgradBf16Tile(H_O=H_O, W_O=W_O, p=p, depth=depth, n_m=n_m,
-                         n_f=n_f, n_chunks=n_chunks, n_split=n_split)
+    cap = min(65535, WGRAD_WORKSPACE_MAX // (depth * F * 4))
+    if C % 8 or F % 8:
+        n_m, n_f = -(-depth // BF16_M), -(-F // BF16_N)
+        n_chunks = -(-(N * H_O * W_O) // BF16_P)
+        n_split = fewest_ranges(n_chunks, n_m * n_f,
+                                WGRAD_SMS * BF16_BLOCKS_PER_SM, cap)
+        return WgradBf16Tile(
+            H_O=H_O, W_O=W_O, p=p, path=BF16_GEMM, depth=depth, n_m=n_m,
+            n_f=n_f, n_tg=1, TH=0, TW=0, rows=0, cols=0, stages=3,
+            n_chunks=n_chunks, n_split=n_split, cluster=1,
+            smem_bytes=BF16_GEMM_SMEM)
+    best = None
+    for TW in range(1, min(W_O, WIN_PIXELS) + 1):
+        for TH in range(1, min(H_O, WIN_PIXELS // TW) + 1):
+            rows, cols = (TH - 1) * S + K, (TW - 1) * S + K
+            if rows > TMA_BOX_MAX or cols > TMA_BOX_MAX:
+                continue
+            if _win_smem(rows, cols, 2) > SMEM_MAX:
+                continue
+            key = (-(-H_O // TH) * -(-W_O // TW), rows * cols / (TH * TW),
+                   -TW)
+            if best is None or key < best[0]:
+                best = (key, TH, TW, rows, cols)
+    if best is None:
+        raise ValueError(f"no bf16 weight-gradient chunk fits K={K}, S={S} "
+                         f"in {SMEM_MAX} bytes of shared memory")
+    _, TH, TW, rows, cols = best
+    stages = max(st for st in range(2, WIN_MAX_STAGES + 1)
+                 if _win_smem(rows, cols, st) <= SMEM_MAX)
+    n_c, n_f = -(-C // WIN_C), -(-F // WIN_F)
+    n_tg = -(-(K * K) // WIN_TAPS)
+    n_chunks = N * -(-H_O // TH) * -(-W_O // TW)
+    n_split = fewest_ranges(n_chunks, n_c * n_f * n_tg, WGRAD_SMS, cap)
+    ring = stages * (_win_smem(rows, cols, 1) - 1040)
+    cluster = 1
+    if n_split > 1 and ring >= WIN_STAGE:
+        cluster = min(n_split, WIN_CLUSTER_CAP)
+        n_split -= n_split % cluster
+    return WgradBf16Tile(
+        H_O=H_O, W_O=W_O, p=p, path=BF16_WINDOW, depth=depth, n_m=n_c,
+        n_f=n_f, n_tg=n_tg, TH=TH, TW=TW, rows=rows, cols=cols,
+        stages=stages, n_chunks=n_chunks, n_split=n_split, cluster=cluster,
+        smem_bytes=_win_smem(rows, cols, stages))
 
 
 def wgrad_bf16_ranges(t: WgradBf16Tile):
     """The bf16 kernel's split: ``(k0, k1)`` chunks of each range."""
     return [(t.n_chunks * s // t.n_split, t.n_chunks * (s + 1) // t.n_split)
             for s in range(t.n_split)]
+
+
+def wgrad_bf16_output_map(t: WgradBf16Tile, K: int, C: int, F: int):
+    """Every dw element the bf16 kernel's threads write for one partial
+    (a split range, or a cluster's sum of its ranges), as flat index
+    tensors ``(row, filter)`` (row = tap * C + channel, dw's (K*K*C) x F
+    rows).  Window path in clusters: block (channel tile, filter tile, tap
+    group), the (tap, channel) row of the staged sums and its filter.
+    Window path: block
+    (channel tile,
+    filter tile, tap group), consumer warpgroup wg (taps 3 wg .. 3 wg + 2
+    of the group), warp wq, lane, accumulator (tap j, column group jj,
+    half i, c): channel 16 wq + (lane >> 2) + 8 i, filter 8 jj + 2 (lane
+    & 3) + c.  GEMM path: block (depth tile, filter tile), warp (32 x 32
+    of the 64 x 64), m16n8 tile (i, nt), lane, accumulator q.  Those
+    inside K*K taps, C channels and F filters."""
+    if t.path == BF16_WINDOW and t.cluster > 1:
+        ct = torch.arange(t.n_m).view(-1, 1, 1, 1, 1)
+        ft = torch.arange(t.n_f).view(1, -1, 1, 1, 1)
+        tg = torch.arange(t.n_tg).view(1, 1, -1, 1, 1)
+        r = torch.arange(WIN_TAPS * WIN_C).view(1, 1, 1, -1, 1)
+        f = torch.arange(WIN_F).view(1, 1, 1, 1, -1)
+        # rank b sums rows [576 b / cluster, 576 (b + 1) / cluster): the
+        # ranks' shares tile the rows, each row once
+        tap = tg * WIN_TAPS + r // WIN_C
+        ch = ct * WIN_C + r % WIN_C
+        fo = ft * WIN_F + f
+    elif t.path == BF16_WINDOW:
+        sh = (-1,) + (1,) * 8
+        ct = torch.arange(t.n_m).view(sh)
+        ft = torch.arange(t.n_f).view(1, -1, *(1,) * 7)
+        tg = torch.arange(t.n_tg).view(1, 1, -1, *(1,) * 6)
+        wg = torch.arange(3).view(*(1,) * 3, -1, *(1,) * 5)
+        wq = torch.arange(4).view(*(1,) * 4, -1, *(1,) * 4)
+        lane = torch.arange(32).view(*(1,) * 5, -1, 1, 1, 1)
+        j = torch.arange(3).view(*(1,) * 6, -1, 1, 1)
+        jj = torch.arange(8).view(*(1,) * 7, -1, 1)
+        ic = torch.arange(4).view(*(1,) * 8, -1)
+        tap = tg * WIN_TAPS + wg * 3 + j
+        ch = ct * WIN_C + 16 * wq + lane // 4 + 8 * (ic // 2)
+        fo = ft * WIN_F + 8 * jj + 2 * (lane % 4) + ic % 2
+    else:
+        mt = torch.arange(t.n_m).view(-1, 1, 1, 1, 1, 1, 1)
+        ft = torch.arange(t.n_f).view(1, -1, 1, 1, 1, 1, 1)
+        warp = torch.arange(4).view(1, 1, -1, 1, 1, 1, 1)
+        i = torch.arange(2).view(1, 1, 1, -1, 1, 1, 1)
+        nt = torch.arange(4).view(1, 1, 1, 1, -1, 1, 1)
+        lane = torch.arange(32).view(1, 1, 1, 1, 1, -1, 1)
+        q = torch.arange(4).view(1, 1, 1, 1, 1, 1, -1)
+        m = (mt * BF16_M + (warp % 2) * 32 + 16 * i + lane // 4
+             + 8 * (q // 2))
+        fo = ft * BF16_N + (warp // 2) * 32 + 8 * nt + (lane % 4) * 2 + q % 2
+        tap, ch = m // C, m % C
+    tap, ch, fo = torch.broadcast_tensors(tap, ch, fo)
+    keep = (tap < K * K) & (ch < C) & (fo < F)
+    return (tap * C + ch)[keep], fo[keep]
 
 
 def wgrad_ranges(t: WgradTile, N: int):
@@ -315,7 +469,7 @@ def load_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.trim_conv2d_wgrad_f32.argtypes = [p] * 4 + [i] * 21 + [p]
         lib.trim_conv2d_wgrad_f32.restype = i
-        lib.trim_conv2d_wgrad_bf16.argtypes = [p] * 4 + [i] * 11 + [p]
+        lib.trim_conv2d_wgrad_bf16.argtypes = [p] * 4 + [i] * 17 + [p]
         lib.trim_conv2d_wgrad_bf16.restype = i
         lib.trim_conv2d_wgrad_bf16_tile.argtypes = [i]
         lib.trim_conv2d_wgrad_bf16_tile.restype = i
@@ -325,8 +479,10 @@ def load_library() -> ctypes.CDLL:
             getattr(lib, f"trim_conv2d_wgrad_{name}").restype = i
         if (lib.trim_conv2d_wgrad_max_threads() != WGRAD_MAX_THREADS
                 or lib.trim_conv2d_wgrad_stages() != WGRAD_STAGES
-                or [lib.trim_conv2d_wgrad_bf16_tile(j) for j in range(3)]
-                != [BF16_M, BF16_N, BF16_P]):
+                or [lib.trim_conv2d_wgrad_bf16_tile(j) for j in range(10)]
+                != [BF16_M, BF16_N, BF16_P, WIN_C, WIN_F, WIN_TAPS,
+                    WIN_MAX_STAGES, WIN_PIXELS, WIN_MAX_CLUSTER,
+                    WIN_STAGE]):
             raise RuntimeError("trim_conv2d_wgrad library constants differ "
                                "from the wrapper's")
         _BOUND.add(lib)
@@ -432,16 +588,20 @@ def _wgrad_bf16(x: torch.Tensor, g: torch.Tensor, K: int, S: int,
         raise ValueError(f"cotangent {tuple(g.shape)} does not fit the conv "
                          f"output ({t.H_O}, {t.W_O})")
     N, H, W, C = x.shape
+    if t.path == BF16_WINDOW and (x.data_ptr() % 16 or g.data_ptr() % 16):
+        raise ValueError("the bf16 window path's tensor maps need x and g "
+                         "16-byte aligned")
     shape = (K, K, C, g.shape[3])
     dw = torch.empty(shape, dtype=torch.float32, device=dev)
-    ws = (None if t.n_split == 1 else
-          torch.empty((t.n_split, *shape), dtype=torch.float32, device=dev))
+    ws = (None if t.n_part == 1 else
+          torch.empty((t.n_part, *shape), dtype=torch.float32, device=dev))
     lib = load_library()
     with torch.cuda.device(dev):
         rc = lib.trim_conv2d_wgrad_bf16(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(),
             None if ws is None else ws.data_ptr(), N, H, W, C, K,
-            shape[3], t.H_O, t.W_O, S, t.p, t.n_split,
+            shape[3], t.H_O, t.W_O, S, t.p, t.path, t.TH, t.TW, t.stages,
+            t.n_split, t.cluster, t.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.trim_conv2d_wgrad_error_string(rc).decode()

@@ -27,9 +27,11 @@ once to w's dtype.
   magnitude plus 2e-2 of the steps' summed learning rate (an AdamW step
   moves a param by about its lr; near-zero biases have tiny ulps).
 - The planner of the card's bf16 lanes (``bf16_tile``, ``wgrad_bf16_tile``)
-  at every VGG-16 and AlexNet forward, dx and dw shape: independent of
-  the batch, its items and ranges covering the depth, shared memory and
-  grid within the card's limits.
+  at every VGG-16 and AlexNet forward, dx and dw shape: the wgmma window
+  path where the widths allow its tensor maps, independent of the batch,
+  its chunks and ranges covering the depth, shared memory and grid within
+  the card's limits (``tests/test_torch_conv2d_bf16_tma.py`` holds the
+  window paths' TMA, cluster and output-map limits).
 
 Inputs are made with numpy from a seed.
 """
@@ -354,18 +356,22 @@ def _model_convs():
 def test_bf16_tile_fits_and_is_batch_free(conv):
     _, H, W, C, K, F, S, p = conv
     t = kern.bf16_tile((H, W), C, K, F, stride=S, padding=p)
-    assert t.path == (kern.U8_GATHER if C <= kern.U8_GATHER_MAX_C
-                      else kern.U8_WINDOW)
+    window = C > kern.U8_GATHER_MAX_C and C % 8 == 0 and F % 8 == 0
+    assert t.path == (kern.U8_WINDOW if window else kern.U8_GATHER)
     assert t.smem_bytes <= kern.SMEM_MAX and t.wt_bytes == 0
     assert t.n_f * t.n_split <= 65535 and t.TH * t.TW <= kern.U8_M
-    # the depth: 16 channels (32 bytes) a k-step
     if t.path == kern.U8_WINDOW:
-        assert t.n_items == -(-C // 16) * t.n_tg
-        assert t.n_tg * t.steps >= K * K > (t.n_tg - 1) * t.steps
+        # the wgmma window path: 64-channel chunks cut over a cluster
+        assert t.n_cc == -(-C // 64) and t.n_f * t.fb >= F
+        assert 1 <= t.n_split <= min(t.n_cc, kern.BF16_MAX_SPLIT)
+        ranges = kern.bf16_ranges(t)
+        last = t.n_cc
     else:
+        # the gather path: 16 channels (32 bytes) a k-step
         assert t.n_items * t.steps * 16 >= K * K * C
-    ranges = kern.u8_ranges(t)
-    assert ranges[0][0] == 0 and ranges[-1][1] == t.n_items
+        ranges = kern.u8_ranges(t)
+        last = t.n_items
+    assert ranges[0][0] == 0 and ranges[-1][1] == last
     assert all(a < b for a, b in ranges)
     assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
     # the same launch at every batch: the C entry's integer arguments
@@ -382,9 +388,17 @@ def test_bf16_tile_fits_and_is_batch_free(conv):
 def test_wgrad_bf16_tile_covers_the_pixels(conv, batch):
     _, H, W, C, K, F, S, p = conv
     t = vjp.wgrad_bf16_tile((batch, H, W, C), K, F, stride=S, padding=p)
-    assert t.depth == K * K * C and t.n_m * vjp.BF16_M >= t.depth
-    assert t.n_f * vjp.BF16_N >= F
-    assert t.n_chunks * vjp.BF16_P >= batch * t.H_O * t.W_O
+    assert t.depth == K * K * C
+    assert t.path == (vjp.BF16_WINDOW if C % 8 == 0 and F % 8 == 0
+                      else vjp.BF16_GEMM)
+    if t.path == vjp.BF16_WINDOW:
+        assert t.n_m * vjp.WIN_C >= C and t.n_f * vjp.WIN_F >= F
+        assert t.n_tg * vjp.WIN_TAPS >= K * K
+        assert t.TH * t.TW <= vjp.WIN_PIXELS
+        assert t.n_chunks == batch * -(-t.H_O // t.TH) * -(-t.W_O // t.TW)
+    else:
+        assert t.n_m * vjp.BF16_M >= t.depth and t.n_f * vjp.BF16_N >= F
+        assert t.n_chunks * vjp.BF16_P >= batch * t.H_O * t.W_O
     assert 1 <= t.n_split <= min(t.n_chunks, 65535)
     assert t.n_split * t.depth * F * 4 <= vjp.WGRAD_WORKSPACE_MAX
     r = vjp.wgrad_bf16_ranges(t)

@@ -712,6 +712,102 @@ def test_bf16_kernel_batch_of_8_equals_8_calls_on_card(shape):
         assert torch.equal(batch[i:i + 1], one), f"image {i}"
 
 
+# (N, H, W, C, K, F, stride, padding, bias dtype): the bf16 conv's wgmma
+# window path off the networks' shapes -- H_O and W_O not multiples of
+# the tile, AlexNet's group width C = 48 and C = 24, F = 96 and 192, a
+# cluster split at batch 1 (14 x 14 x 512 and AlexNet CL3's 13 x 13 x
+# 256), stride 2.
+BF16_WIN_RAGGED = [
+    (2, 30, 37, 24, 3, 96, 1, 1, "float32"),
+    (2, 27, 27, 48, 5, 192, 1, 2, "bfloat16"),
+    (1, 14, 14, 512, 3, 512, 1, 1, "float32"),
+    (1, 13, 13, 256, 3, 384, 1, 1, None),
+    (3, 19, 23, 48, 3, 96, 1, 1, "float32"),
+    (2, 31, 30, 16, 3, 24, 2, 1, "float32"),
+]
+
+
+def _bf16_conv_check(x, w, b, S, p, batch_free=True):
+    """The bf16 conv (bias -> ReLU) on its planned path: one launch,
+    within one bf16 ulp plus the fp32 sums' bound of the plain version,
+    the same bits on a second call and, for a batch, image i equal to a
+    call of it alone."""
+    from repro_torch.kernels import trim_conv2d as kern
+
+    K, C = w.shape[0], w.shape[2]
+    before = kern.LAUNCHES_BY_LANE["bf16"]
+    got = kern.trim_conv2d(x, w, stride=S, padding=p, bias=b, relu=True)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES_BY_LANE["bf16"] == before + 1
+    want = kern.trim_conv2d_plain(x, w, stride=S, padding=p, bias=b,
+                                  relu=True)
+    bf16_close(got, want, bf16_slack(x, w, S, p, K * K * C))
+    assert torch.equal(got, kern.trim_conv2d(x, w, stride=S, padding=p,
+                                             bias=b, relu=True))
+    if batch_free and x.shape[0] > 1:
+        for i in range(x.shape[0]):
+            one = kern.trim_conv2d(x[i:i + 1].contiguous(), w, stride=S,
+                                   padding=p, bias=b, relu=True)
+            assert torch.equal(got[i:i + 1], one), f"image {i}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("layer", _net_layers(), ids=lambda c: c[0])
+def test_bf16_conv_at_network_shapes_on_card(layer, batch):
+    """On a card: the bf16 conv at every VGG-16 and AlexNet conv (one
+    group) and its dx conv (stride 1 on the cotangent, the flipped
+    weights at padding K - 1 - p; on the zero-stuffed one where strided),
+    batch 1 and 8: the wgmma window path exactly where C % 8 == 0 and C >
+    8 (else the gather path), within one bf16 ulp plus the sums' bound of
+    the plain version, the same bits over two calls, a batch of 8 equal
+    to 8 calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    fp32_ieee()
+    name, arch, l, groups, last = layer
+    Fg = l.N // groups
+    S, p = l.stride, l.padding
+    pp = l.K // 2 if p is None else p
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(zlib.crc32(f"{name}{batch}".encode()))
+    Hd = (l.H_O - 1) * S + 1 + 2 * (l.K - 1 - pp)
+    for (H, C, F, s, q) in ((l.H_I, l.M, Fg, S, p), (Hd, Fg, l.M, 1, 0)):
+        t = kern.bf16_tile((H, H), C, l.K, F, stride=s, padding=q)
+        assert (t.path == kern.U8_WINDOW) == (C % 8 == 0 and C > 8
+                                              and F % 8 == 0)
+        x = torch.randn((batch, H, H, C), generator=gen).to(dev,
+                                                              torch.bfloat16)
+        w = (torch.randn((l.K, l.K, C, F), generator=gen)
+             / (l.K * l.K * C) ** 0.5).to(dev, torch.bfloat16)
+        b = torch.randn(F, generator=gen).to(dev)
+        _bf16_conv_check(x, w, b, s, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BF16_WIN_RAGGED, ids=bf16_id)
+def test_bf16_conv_window_ragged_on_card(case):
+    """On a card: the bf16 conv's wgmma window path at shapes off the
+    networks' (ragged tiles, C = 24 and 48, F = 96 and 192, cluster
+    splits at batch 1, stride 2) within one bf16 ulp plus the sums' bound
+    of the plain version, the same bits over two calls, a batch equal to
+    its single images."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d as kern
+
+    fp32_ieee()
+    N, H, W, C, K, F, S, p, bdt = case
+    t = kern.bf16_tile((H, W), C, K, F, stride=S, padding=p)
+    assert t.path == kern.U8_WINDOW
+    if N == 1:
+        assert t.n_split > 1
+    x, w, b = _bf16_inputs(case, torch.device("cuda"))
+    _bf16_conv_check(x, w, b, S, p)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", DX_CASES, ids=wgrad_id)
 def test_bf16_input_grad_matches_conv2d_input_on_card(case):
@@ -779,6 +875,95 @@ def test_bf16_wgrad_matches_fp32_lane_on_card(case):
                                                   padding=p))
 
 
+# (N, H, W, C, K, F, stride, padding): the bf16 weight gradient's window
+# path off the networks' shapes -- H_O and W_O not multiples of the chunk,
+# AlexNet's group width C = 48 and C = 24, F = 96 and 192, a split at
+# batch 1 (VGG-16 CL11), K = 5 (three tap groups), stride 2, and C = 8.
+WGRAD_BF16_RAGGED = [
+    (2, 30, 37, 24, 3, 96, 1, 1),
+    (2, 27, 27, 48, 5, 192, 1, 2),
+    (1, 14, 14, 512, 3, 512, 1, 1),
+    (3, 19, 23, 48, 3, 96, 1, 1),
+    (2, 30, 31, 16, 3, 24, 2, 1),
+    (2, 21, 17, 8, 3, 16, 1, 0),
+]
+
+
+def _bf16_wgrad_check(x, g, K, S, p, path):
+    """dw on bf16 x, g: the planned path, one launch, within rtol / atol
+    1e-3 (x max|dw|) of the fp32 lane on the same values upcast, the same
+    bits on a second call."""
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    t = vjp.wgrad_bf16_tile(tuple(x.shape), K, g.shape[-1], stride=S,
+                            padding=p)
+    assert t.path == path
+    before = vjp.WGRAD_LAUNCHES_BY_LANE["bf16"]
+    got = vjp.trim_conv2d_wgrad(x, g, K=K, stride=S, padding=p)
+    torch.cuda.synchronize()
+    assert vjp.WGRAD_LAUNCHES_BY_LANE["bf16"] == before + 1
+    want = vjp.trim_conv2d_wgrad(x.float(), g.float(), K=K, stride=S,
+                                 padding=p)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * scale)
+    assert torch.equal(got, vjp.trim_conv2d_wgrad(x, g, K=K, stride=S,
+                                                  padding=p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("layer", _net_layers(), ids=lambda c: c[0])
+def test_bf16_wgrad_at_network_shapes_on_card(layer, batch):
+    """On a card: the bf16 weight gradient at every VGG-16 and AlexNet
+    conv (one group), batch 1 and 8: the window path where C % 8 == 0
+    (else the GEMM path), against the fp32 lane within 1e-3, the same
+    bits over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    fp32_ieee()
+    name, arch, l, groups, last = layer
+    Fg = l.N // groups
+    S, p = l.stride, l.padding
+    pp = l.K // 2 if p is None else p
+    H_O = (l.H_I + 2 * pp - l.K) // S + 1
+    W_O = (l.W_I + 2 * pp - l.K) // S + 1
+    gen = torch.Generator().manual_seed(zlib.crc32(f"{name}{batch}".encode()))
+    dev = torch.device("cuda")
+    x = torch.randn((batch, l.H_I, l.W_I, l.M), generator=gen).to(
+        dev, torch.bfloat16)
+    g = torch.randn((batch, H_O, W_O, Fg), generator=gen).to(
+        dev, torch.bfloat16)
+    _bf16_wgrad_check(x, g, l.K, S, p, vjp.BF16_WINDOW if l.M % 8 == 0
+                      else vjp.BF16_GEMM)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGRAD_BF16_RAGGED, ids=wgrad_id)
+def test_bf16_wgrad_window_ragged_on_card(case):
+    """On a card: the bf16 weight gradient's window path at shapes off the
+    networks' (ragged chunks, C = 24 and 48, F = 96 and 192, a split at
+    batch 1, K = 5, stride 2, C = 8) against the fp32 lane within 1e-3,
+    the same bits over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv2d_vjp as vjp
+
+    fp32_ieee()
+    N, H, W, C, K, F, S, p = case
+    pp = K // 2 if p is None else p
+    H_O, W_O = (H + 2 * pp - K) // S + 1, (W + 2 * pp - K) // S + 1
+    gen = torch.Generator().manual_seed(zlib.crc32(wgrad_id(case).encode()))
+    dev = torch.device("cuda")
+    x = torch.randn((N, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((N, H_O, W_O, F), generator=gen).to(dev, torch.bfloat16)
+    t = vjp.wgrad_bf16_tile((N, H, W, C), K, F, stride=S, padding=p)
+    if (N, H, C) == (1, 14, 512):
+        assert t.n_split > 1
+    _bf16_wgrad_check(x, g, K, S, p, vjp.BF16_WINDOW)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FN_CASES, ids=str)
 def test_trim_conv2d_fn_bf16_step_on_card(case):
@@ -829,8 +1014,8 @@ def test_trim_conv2d_fn_bf16_step_on_card(case):
 @pytest.mark.gpu
 def test_bf16_lane_refuses_what_it_does_not_take_on_card():
     """On a card: dtypes no lane takes (fp16, bf16 x fp32, fp32 x bf16), a
-    bias of another dtype, a slide path, a block_c, more stages and a
-    split past the items raise before any launch; the weight gradient
+    bias of another dtype, a slide path, a block_c, more stages than the
+    weight ring has and a split past the chunks raise before any launch; the weight gradient
     refuses mixed and fp16 operands.  Nothing is upcast or falls back."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -847,7 +1032,7 @@ def test_bf16_lane_refuses_what_it_does_not_take_on_card():
     with pytest.raises(ValueError, match="bias"):
         kern.trim_conv2d(x, w, bias=torch.zeros(16, device=dev).half())
     for bad in (kern.Schedule(path="slide"), kern.Schedule(block_c=8),
-                kern.Schedule(n_split=10 ** 4), kern.Schedule(stages=4)):
+                kern.Schedule(n_split=10 ** 4), kern.Schedule(stages=5)):
         with pytest.raises(ValueError):
             kern.trim_conv2d(x, w, schedule=bad)
     g = torch.zeros((1, 16, 16, 16), dtype=torch.bfloat16, device=dev)
