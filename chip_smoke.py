@@ -5,9 +5,11 @@
     python3 chip_smoke.py --kernels  # environment, build and kernel phases
     python3 chip_smoke.py --drift 0,1,2  # environment, build and the drift
                                          # measurement only
-    python3 chip_smoke.py --parent DIR   # every phase; phase 3j also times
-                                         # the bf16 kernels of the checkout
-                                         # at DIR (the parent commit's)
+    python3 chip_smoke.py --parent DIR   # every phase; phases 3j and 3f
+                                         # also time the bf16 conv kernels
+                                         # and the SSD kernel of the
+                                         # checkout at DIR (the parent
+                                         # commit's)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -111,15 +113,23 @@ Phases (any failure exits non-zero and prints no result line):
    and wgmma cross;
 3f. SSD scan: ``trim_ssd`` (the entry point) at mamba2-130m's full-width
    prefill, x (4, 4096, 24, 64), dt (4, 4096, 24), B/C (4, 4096, 1, 128)
-   expanded over the 24 heads, chunk 256, in fp32 and bf16 (x/B/C), its
+   expanded over the 24 heads, and at jamba-1.5-large's, x (4, 4096, 128,
+   128), B/C (4, 4096, 128, 128) repeated from 8 groups (two P tiles,
+   C.B^T once a head), chunk 256, in fp32 and bf16 (x/B/C), its
    launches counted from 0 around each call; then the kernel against
-   its plain version: ``tests/test_ssd_kernel.py``'s CASES in fp32 within
-   2e-5, full width and the first mixer's real inputs (a full-width fp32
+   its plain version: ``SSD_SMOKE_CASES`` (the JAX tests' CASES, P up to
+   200 and S up to 256, jamba's smoke dims) on four seeds, B/C per head
+   and one group expanded, in fp32 within 2e-5, full width and the first mixer's real inputs (a full-width fp32
    prefill's ``ssd_chunked`` arguments) in fp32 within 1e-4 x max|plain|,
-   bf16 within 5e-2 of the plain version on the same inputs and of the
-   fp32 one.  At full width: kernel ms, plain ms and two bounds: the
-   least work that computes y (chunk 1) at the fp32 FMA peak (in the
-   kernels line), and the same work as the tensor-core passes the lane
+   bf16 within 5e-2 of the plain version on the same inputs and (but at
+   jamba's width, where the bf16 plain's own distance from the fp32 one
+   is logged beside the kernel's) of the fp32 one; with ``--parent DIR``
+   the mamba2-130m shape timed in the parent checkout and here in turns
+   (parent, this, this, parent; ``tools/ssd_times.py`` on each).  At
+   full width: kernel ms, plain ms and two bounds: the
+   least work that computes y (chunk 1) at the inputs' peak (the fp32
+   FMA's, the bf16 tensor cores') or the bytes, whichever is longer (in
+   the kernels line), and the same work as the tensor-core passes the lane
    needs (3xTF32, or bf16 with a second pass for an fp32 operand) at the
    tensor cores' peak (logged only); no PyTorch call computes the scan
    (no yardstick); in the build phase each of its four
@@ -439,9 +449,16 @@ Phases (any failure exits non-zero and prints no result line):
    seamless-m4t-large-v2 at a 4 x 4096 prefill cell on a fake world of 1
    (fake CPU tensors): its argument bytes within 1% of the device memory
    phase 25's params, cache and batch took; its flops over the measured
-   prefill as a share of the bf16 peak, logged.
+   prefill as a share of the bf16 peak, logged;
+28. the port's examples: ``examples/torch/{quickstart,serve_lm,
+   train_cnn,train_lm}.py`` each run on the card as a subprocess at its
+   defaults (``train_lm`` into a fresh checkpoint directory): exit 0,
+   their key lines printed and matched, and the kernel launches each
+   prints as its path gives them (kernels 1 and 2 in train_cnn, kernel 3
+   in serve_lm's prefill and train_lm's steps, kernels 1 and 5 in
+   quickstart).
 
-Phases 22-27 each log their time.
+Phases 22-28 each log their time.
 
 ``--distributed`` runs only phases 1-2 and then phases 22-24 (no result
 line).  ``--cards N`` runs only phases 1-2 and then the mesh arm across N
@@ -482,7 +499,9 @@ line, the ``nvidia-smi`` name/power line, and last ``{"ok": true,
 import argparse
 import contextlib
 import gc
+import itertools
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -586,10 +605,22 @@ DROP_TILE = 1024
 #: products in fp32, in another order, and round once to bf16)
 MATMUL_ROW_ULPS = 2
 #: the SSD kernel at full width (mamba2-130m's shape, random and real
-#: inputs) against its plain version in fp32: max|kernel - plain| within
-#: SSD_FULL_TOL x max|plain| (the kernel's chunk of 128 against the plain
-#: version's 256, sums in another order and 3xTF32 products: rounding only)
+#: inputs, and jamba-1.5-large's) against its plain version in fp32:
+#: max|kernel - plain| within SSD_FULL_TOL x max|plain| (the kernel's chunk
+#: of 128 against the plain version's 256, sums in another order and
+#: 3xTF32 products: rounding only)
 SSD_FULL_TOL = 1e-4
+#: phase 3f's small SSD cases (B, L, H, P, S, chunk), each on every seed:
+#: ``tests/test_ssd_kernel.py``'s CASES, then past one P tile (64) or S
+#: tile (128), whole and ragged, and jamba-1.5-large's smoke dims
+SSD_SMOKE_CASES = ((2, 37, 3, 8, 16, 8), (1, 64, 2, 4, 8, 16),
+                   (2, 16, 1, 8, 8, 16), (1, 128, 2, 16, 32, 32),
+                   (1, 300, 2, 128, 128, 256), (1, 130, 3, 96, 192, 64),
+                   (2, 65, 2, 200, 256, 64), (2, 100, 4, 16, 16, 32))
+SSD_SMOKE_SEEDS = (6, 16, 26, 36)
+#: the hybrid arch whose Mamba2 mixer phase 3f runs at full width: 128
+#: heads of P = 128, S = 128, B/C of 8 groups repeated over the heads
+HYBRID_ARCH = "jamba-1.5-large-398b"
 
 
 def fail(msg: str) -> None:
@@ -1297,27 +1328,32 @@ def _conv_kernels(kern, x_hw, C, K, F, S, p) -> int:
     return 1 if t.path == kern.U8_WINDOW else 1 + (t.n_split > 1)
 
 
-def _parent_times(parent, reps: int):
-    """``tools/bf16_conv_times.py`` on the checkout at ``parent`` (its
-    kernels built there), batch TRAIN_BATCH: {"<kind> <layer>": ms}, or
-    None without ``--parent``."""
-    if parent is None:
-        return None
-    src = pathlib.Path(parent).resolve() / "src"
-    if not (src / "repro_torch" / "kernels" / "trim_conv2d.py").is_file():
-        fail(f"--parent {parent}: no checkout of the port there")
+def _timing_tool(tool: str, checkout, *args) -> dict:
+    """``tools/<tool> --src <checkout>/src ARGS``, one of the timing tools
+    (each imports the port from ``--src`` and builds its kernels in that
+    checkout): the ``rows`` of the JSON object it prints."""
+    src = pathlib.Path(checkout).resolve() / "src"
+    if not (src / "repro_torch" / "kernels").is_dir():
+        fail(f"{checkout}: no checkout of the port there")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, str(ROOT / "tools" / "bf16_conv_times.py"),
-         "--src", str(src), "--batch", str(TRAIN_BATCH), "--reps",
-         str(reps)], capture_output=True, text=True, timeout=900)
+        [sys.executable, str(ROOT / "tools" / tool), "--src", str(src),
+         *map(str, args)], capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
-        fail(f"the parent's bf16 times failed: {proc.stderr[-2000:]}")
+        fail(f"tools/{tool} on {checkout} failed: {proc.stderr[-2000:]}")
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"parent checkout {parent}: timed in "
-        f"{time.perf_counter() - t0:.1f} s (its build included) on "
-        f"{out['card']}")
+    log(f"tools/{tool} on {checkout}: {time.perf_counter() - t0:.1f} s "
+        f"(its build included) on {out['card']}")
     return out["rows"]
+
+
+def _parent_times(parent, reps: int):
+    """``tools/bf16_conv_times.py`` on the checkout at ``parent``, batch
+    TRAIN_BATCH: {"<kind> <layer>": ms}, or None without ``--parent``."""
+    if parent is None:
+        return None
+    return _timing_tool("bf16_conv_times.py", parent, "--batch",
+                        TRAIN_BATCH, "--reps", reps)
 
 
 def phase_bf16_kernels(torch, reps: int, parent=None):
@@ -3622,17 +3658,33 @@ def _ssd_tc_macs(B, L, H, P, S, bf16: bool) -> int:
     return 2 * least - B * L * H * S if bf16 else 3 * least
 
 
-def _ssd_inputs(torch, gen, dev, B, L, H, P, S, groups=None):
+def _ssd_inputs(torch, gen, dev, B, L, H, P, S, groups=None,
+                repeat=False):
     """fp32 inputs in ``tests/test_ssd_kernel.py``'s ranges: x, B, C, D ~
     N(0, 1), dt ~ U(1e-3, 0.1), A ~ -U(0.3, 2); B/C of ``groups`` groups
-    expanded over H (stride 0) when given, else per head."""
+    expanded over H (stride 0) when given, else per head; with ``repeat``,
+    the ``groups`` groups repeated over H // groups heads each as one
+    tensor (B, L, H, S), per head (head h reads group h // (H // groups),
+    as the mixer's ``ssd_chunked`` groups them)."""
     u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
     nrm = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     Bm, Cm = nrm(B, L, groups or H, S), nrm(B, L, groups or H, S)
-    if groups:
+    if groups and repeat:
+        Bm, Cm = (t.repeat_interleave(H // groups, dim=2) for t in (Bm, Cm))
+    elif groups:
         Bm, Cm = Bm.expand(B, L, H, S), Cm.expand(B, L, H, S)
     return (nrm(B, L, H, P), 1e-3 + u(B, L, H) * (0.1 - 1e-3),
             -(0.3 + u(H) * 1.7), Bm, Cm, nrm(H))
+
+
+def _ssd_bytes(args) -> int:
+    """Bytes one call must move: x, B, C (one group's where expanded with
+    stride 0 over the heads) and dt read once, y written once."""
+    x, dt, A, Bm, Cm, D = args
+    B, L, H, P = x.shape
+    heads = lambda t: 1 if H > 1 and t.stride(2) == 0 else H
+    bc = sum(B * L * heads(t) * t.shape[3] for t in (Bm, Cm))
+    return (2 * B * L * H * P + bc) * x.element_size() + B * L * H * 4
 
 
 def _ssd_bf16(args):
@@ -3689,48 +3741,19 @@ def _mixer_ssd_inputs(torch, dev):
     return x, dt, A, expand(Bm), expand(Cm), D, kw["chunk"]
 
 
-def phase_ssd(torch, reps: int):
-    """The SSD scan kernel through ``trim_ssd`` (the entry point) at
-    mamba2-130m's full-width prefill shape, x (4, 4096, 24, 64), B/C
-    (4, 4096, 1, 128) expanded over the 24 heads, chunk 256, in fp32 and
-    bf16 (x/B/C), its launches counted from 0 around each of those two calls;
-    then held against its plain version (TF32 off): at
-    ``tests/test_ssd_kernel.py``'s CASES fp32 within 2e-5, at full width
-    and on the first mixer's real inputs fp32 within SSD_FULL_TOL of
-    max|plain|, and bf16 within 5e-2 of the fp32 plain version.  Timed at
-    full width beside its two bounds, both on the least work (``bound_ms``
-    at the fp32 FMA peak; ``tc_bound_ms``, logged only, as the lane's
-    tensor-core passes at their peak); no single PyTorch call computes
-    the scan (no yardstick).  Returns one row per dtype at full width."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import trim_ssd as ks
-    from repro_torch.nn.models import build_model
-
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(6)
-    dims = build_model(get_config(LM_ARCH)).spec.dims
-    B, L, H, P, S, CS = (LM_BATCH, LM_PROMPT, dims.n_heads, dims.headdim,
-                         dims.d_state, dims.chunk)
-    for case in ((2, 37, 3, 8, 16, 8), (1, 64, 2, 4, 8, 16),
-                 (2, 16, 1, 8, 8, 16), (1, 128, 2, 16, 32, 32)):
-        args = _ssd_inputs(torch, gen, dev, *case[:5])
-        got = ks.trim_ssd(*args, chunk=case[5])
-        want = ks.trim_ssd_plain(*args, chunk=case[5])
-        bf = _ssd_bf16(args)
-        got16 = ks.trim_ssd(*bf, chunk=case[5])
-        want16 = ks.trim_ssd_plain(*bf, chunk=case[5])
-        torch.cuda.synchronize()
-        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
-            fail(f"ssd {case} fp32: max|kernel-plain| "
-                 f"{(got - want).abs().max().item():.3g} (2e-5)")
-        for ref_y, what in ((want16, "bf16 plain"), (want, "fp32 plain")):
-            if not torch.allclose(got16.float(), ref_y.float(), rtol=5e-2,
-                                  atol=5e-2):
-                fail(f"ssd {case} bf16: max|kernel - {what}| "
-                     f"{(got16.float() - ref_y.float()).abs().max():.3g} "
-                     "(5e-2)")
-
-    f32 = _ssd_inputs(torch, gen, dev, B, L, H, P, S, groups=1)
+def _ssd_full_rows(torch, ks, f32, CS, reps, label, groups, vs32=True):
+    """The entry point at one full-width shape in fp32 and bf16 (x/B/C
+    rounded): launches counted from 0 around each call (one each, or the
+    phase fails), then held against the plain version (fp32 within
+    SSD_FULL_TOL x max|plain|; bf16 within 5e-2 of the bf16 plain version
+    and, with ``vs32``, of the fp32 one), timed beside the plain version
+    and both bounds, with a device-time split per stage.  The bf16 plain
+    version's own distance from the fp32 one (the inputs' rounding) is
+    kept beside the kernel's.  ``groups``: the C.B^T groups the kernel
+    computes (1 expanded, else H).  One row per dtype."""
+    x = f32[0]
+    B, L, H, P = x.shape
+    S = f32[3].shape[3]
     full = {torch.float32: f32, torch.bfloat16: _ssd_bf16(f32)}
     ys, launches = {}, {}
     for dt in full:
@@ -3738,53 +3761,147 @@ def phase_ssd(torch, reps: int):
         ys[dt] = ks.trim_ssd(*full[dt], chunk=CS)
         launches[dt] = ks.LAUNCHES
         if launches[dt] != 1:
-            fail(f"ssd {dt}: {launches[dt]} launches for one entry-point "
-                 "call")
+            fail(f"ssd {label} {dt}: {launches[dt]} launches for one "
+                 "entry-point call")
     torch.cuda.synchronize()
-    want = {dt: ks.trim_ssd_plain(*full[dt], chunk=CS) for dt in full}
-    w32 = want[torch.float32]
+    w32 = ks.trim_ssd_plain(*f32, chunk=CS)
     scale = w32.abs().max().item()
     rows = []
     for dt, y in ys.items():
         name = str(dt).replace("torch.", "")
-        err = (y.float() - want[dt].float()).abs().max().item()
+        want = w32 if dt == torch.float32 else ks.trim_ssd_plain(
+            *full[dt], chunk=CS)
+        err = (y.float() - want.float()).abs().max().item()
         if y.shape != w32.shape or y.dtype != dt \
                 or not bool(torch.isfinite(y).all()):
-            fail(f"ssd full width {name}: {y.dtype} {tuple(y.shape)}, or "
-                 "not finite")
+            fail(f"ssd {label} {name}: {y.dtype} {tuple(y.shape)}, or not "
+                 "finite")
         if dt == torch.float32 and err > SSD_FULL_TOL * scale:
-            fail(f"ssd full width fp32: max|kernel-plain| {err:.3g} > "
+            fail(f"ssd {label} fp32: max|kernel-plain| {err:.3g} > "
                  f"{SSD_FULL_TOL} x max|plain| {scale:.3g}")
+        err32 = (y.float() - w32).abs().max().item()
+        plain32 = (want.float() - w32).abs().max().item()
         if dt == torch.bfloat16:
-            err32 = (y.float() - w32).abs().max().item()
-            for ref_y, what in ((want[dt], "bf16 plain"), (w32, "fp32 plain")):
+            for ref_y, what in ((want, "bf16 plain"),
+                                (w32, "fp32 plain"))[:1 + vs32]:
                 if not torch.allclose(y.float(), ref_y.float(), rtol=5e-2,
                                       atol=5e-2):
-                    fail(f"ssd full width bf16: max|kernel - {what}| "
+                    fail(f"ssd {label} bf16: max|kernel - {what}| "
                          f"{(y.float() - ref_y.float()).abs().max():.3g} "
                          "(5e-2)")
+        del want
         args = full[dt]
-        esz = args[0].element_size()
-        nbytes = (2 * B * L * H * P + 2 * B * L * S) * esz + B * L * H * 4
+        nbytes = _ssd_bytes(args)
         rows.append({
-            "dtype": name, "shape": (B, L, H, P, S, CS),
-            "launches": launches[dt],
-            "max_abs_err": err, "rel_err": err / scale,
+            "dtype": name, "label": label, "shape": (B, L, H, P, S, CS),
+            "launches": launches[dt], "max_abs_err": err, "err32": err32,
+            "plain32": plain32,
+            "rel_err": err / scale,
             "ms": cuda_ms(torch, lambda: ks.trim_ssd(*args, chunk=CS), reps),
             "plain_ms": cuda_ms(torch, lambda: ks.trim_ssd_plain(
                 *args, chunk=CS), max(2, reps // 10)),
             "library_ms": None,
-            **bound(_ssd_macs(B, L, H, P, S, 1), nbytes, integer=False)})
+            **bound(_ssd_macs(B, L, H, P, S, 1), nbytes, integer=False,
+                    peak=PEAK_BF16 if dt == torch.bfloat16 else 0.0)})
         bf16 = dt == torch.bfloat16
         tc = bound(_ssd_tc_macs(B, L, H, P, S, bf16), nbytes, integer=False,
                    peak=PEAK_BF16 if bf16 else PEAK_TF32)
         rows[-1].update(
             own_gflop=2.0 * _ssd_kernel_macs(
-                B, L, H, P, S, ks.KERNEL_CHUNK, 1, ks.CB_FLOATS) / 1e9,
+                B, L, H, P, S, ks.KERNEL_CHUNK, groups, ks.CB_FLOATS) / 1e9,
             tc_bound_ms=tc["bound_ms"], tc_bound_by=tc["bound_by"],
             stage_ms=device_ms(torch, lambda: ks.trim_ssd(*args, chunk=CS),
                                10, by=_ssd_stage))
-    del f32, full, ys, want
+    return rows
+
+
+def _log_ssd_rows(rows) -> None:
+    for r in rows:
+        old = ("" if "parent_ms" not in r else
+               f" parent_ms {r['parent_ms']:.4f} (this checkout "
+               f"{r['cmp_ms']:.4f}, {r['cmp_ms'] / r['parent_ms']:.4f}x the "
+               "parent's, same run, same inputs)")
+        log(f"ssd {r['label']} {r['dtype']:8s} {r['shape']} ms "
+            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms none "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) tc_bound_ms "
+            f"{r['tc_bound_ms']:.4f} ({r['tc_bound_by']}) err "
+            f"{r['max_abs_err']:.3g} (rel {r['rel_err']:.3g}); stages "
+            "(profiler device ms a call): " + (", ".join(
+                f"{k} {v:.4f}" for k, v in r["stage_ms"].items())
+                or "not measured") + old)
+
+
+def phase_ssd(torch, reps: int, parent=None):
+    """The SSD scan kernel through ``trim_ssd`` (the entry point) at
+    mamba2-130m's full-width prefill shape, x (4, 4096, 24, 64), B/C
+    (4, 4096, 1, 128) expanded over the 24 heads, and at
+    jamba-1.5-large's, x (4, 4096, 128, 128), B/C (4, 4096, 128, 128)
+    repeated from 8 groups (per head: C.B^T once a head), chunk 256, in
+    fp32 and bf16 (x/B/C), its launches counted from 0 around each of
+    those calls; then held against its plain version (TF32 off): at
+    SSD_SMOKE_CASES on every SSD_SMOKE_SEED fp32 within 2e-5, at full width
+    and on the first mixer's real inputs fp32 within SSD_FULL_TOL of
+    max|plain|, and bf16 within 5e-2 of the bf16 plain version and, at
+    mamba2-130m's width and the small cases, of the fp32 one.  Timed at
+    full width beside its two bounds, both on the least work
+    (``bound_ms`` at the peak for the inputs' type, the fp32 FMA's or
+    the bf16 tensor cores', or the bytes; ``tc_bound_ms``, logged only,
+    as the lane's tensor-core passes at their peak); no single PyTorch
+    call computes the scan (no yardstick).
+    With ``parent`` (a checkout of the parent commit), the mamba2-130m
+    shape timed there and here in turns (parent, this, this, parent) on
+    the same inputs.  Returns one row per shape and dtype at full
+    width."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import trim_ssd as ks
+    from repro_torch.nn.models import build_model
+
+    dev = torch.device("cuda", 0)
+    worst = 0.0
+    for case, seed, groups in itertools.product(
+            SSD_SMOKE_CASES, SSD_SMOKE_SEEDS, (None, 1)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        args = _ssd_inputs(torch, gen, dev, *case[:5], groups=groups)
+        got = ks.trim_ssd(*args, chunk=case[5])
+        want = ks.trim_ssd_plain(*args, chunk=case[5])
+        bf = _ssd_bf16(args)
+        got16 = ks.trim_ssd(*bf, chunk=case[5])
+        want16 = ks.trim_ssd_plain(*bf, chunk=case[5])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+            fail(f"ssd {case} seed {seed} groups {groups or case[2]} fp32: "
+                 f"max|kernel-plain| {err:.3g} (2e-5)")
+        for ref_y, what in ((want16, "bf16 plain"), (want, "fp32 plain")):
+            if not torch.allclose(got16.float(), ref_y.float(), rtol=5e-2,
+                                  atol=5e-2):
+                fail(f"ssd {case} seed {seed} bf16: max|kernel - {what}| "
+                     f"{(got16.float() - ref_y.float()).abs().max():.3g} "
+                     "(5e-2)")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    dims = build_model(get_config(LM_ARCH)).spec.dims
+    B, L, H, P, S, CS = (LM_BATCH, LM_PROMPT, dims.n_heads, dims.headdim,
+                         dims.d_state, dims.chunk)
+    rows = _ssd_full_rows(
+        torch, ks, _ssd_inputs(torch, gen, dev, B, L, H, P, S, groups=1),
+        CS, reps, LM_ARCH, 1)
+    if parent is not None:
+        # the same tool on each checkout, in turns
+        before, *mine, after = (_timing_tool("ssd_times.py", c)
+                                for c in (parent, ROOT, ROOT, parent))
+        for r in rows:
+            r["parent_ms"] = (before[r["dtype"]] + after[r["dtype"]]) / 2
+            r["cmp_ms"] = sum(m[r["dtype"]] for m in mine) / 2
+            log(f"ssd {LM_ARCH} {r['dtype']} in turns: parent "
+                f"{before[r['dtype']]:.4f}, this {mine[0][r['dtype']]:.4f}, "
+                f"this {mine[1][r['dtype']]:.4f}, parent "
+                f"{after[r['dtype']]:.4f} ms; within 5% of the parent's: "
+                f"{r['cmp_ms'] <= 1.05 * r['parent_ms']}")
+    else:
+        log(f"ssd {LM_ARCH}: the parent's times not measured (run with "
+            "--parent DIR, a checkout of the parent commit)")
     real = _mixer_ssd_inputs(torch, dev)
     x, CSr = real[0], real[6]
     got = ks.trim_ssd(*real[:6], chunk=CSr)
@@ -3794,32 +3911,60 @@ def phase_ssd(torch, reps: int):
     if not bool(torch.isfinite(got).all()) or err > SSD_FULL_TOL * scale:
         fail(f"ssd on the first mixer's inputs: max|kernel-plain| {err:.3g} "
              f"> {SSD_FULL_TOL} x max|plain| {scale:.3g}")
-    log(f"ssd: kernel matches plain at 4 test cases (fp32 2e-5, bf16 5e-2); "
-        f"full width fp32 within {rows[0]['rel_err']:.3g} of max|plain| "
-        f"(limit {SSD_FULL_TOL}), bf16 {rows[1]['max_abs_err']:.3g} from "
-        f"the bf16 plain and {err32:.3g} from the fp32 plain; first "
-        f"mixer's real inputs (x {tuple(x.shape)} strides {x.stride()}, B/C stride over heads "
-        f"{real[3].stride(2)}) within {err / scale:.3g} of max|plain| "
-        f"{scale:.3g}; launches on the entry-point calls "
+    log(f"ssd: kernel matches plain at {len(SSD_SMOKE_CASES)} cases x "
+        f"seeds {SSD_SMOKE_SEEDS} x B/C per head and one group expanded "
+        f"(fp32 2e-5, worst max|kernel-plain| {worst:.3g}; bf16 5e-2; P "
+        f"up to 200, S up to 256); "
+        f"{LM_ARCH} full width "
+        f"fp32 within {rows[0]['rel_err']:.3g} of max|plain| (limit "
+        f"{SSD_FULL_TOL}), bf16 {rows[1]['max_abs_err']:.3g} from the bf16 "
+        f"plain and {rows[1]['err32']:.3g} from the fp32 plain (the bf16 "
+        f"plain {rows[1]['plain32']:.3g} from the fp32 plain); first "
+        f"mixer's real inputs (x {tuple(x.shape)} strides {x.stride()}, B/C "
+        f"stride over heads {real[3].stride(2)}) within {err / scale:.3g} "
+        f"of max|plain| {scale:.3g}; launches on the entry-point calls "
         f"{[r['launches'] for r in rows]}")
     log(f"ssd: both bounds count the least work, "
-        f"{2.0 * _ssd_macs(B, L, H, P, S, 1):.4g} flop (chunk 1): "
-        "bound_ms at the fp32 FMA peak, tc_bound_ms (logged here only) as "
-        "the tensor-core passes the lane needs (3xTF32: 3 at the TF32 "
-        "peak; bf16: 2 where an operand is computed in fp32, C.B^T once, "
-        "at the bf16 peak); the kernel's own chunk of "
+        f"{2.0 * _ssd_macs(B, L, H, P, S, 1):.4g} flop (chunk 1) at "
+        f"{LM_ARCH}'s width: bound_ms at the inputs' peak (fp32: the FMA "
+        "peak; bf16: the tensor cores'), or the bytes, tc_bound_ms "
+        "(logged here only) as the tensor-core passes the lane needs "
+        "(3xTF32: 3 at the TF32 peak; bf16: 2 where an operand is computed "
+        "in fp32, C.B^T once, at the bf16 peak); the kernel's own chunk of "
         f"{ks.KERNEL_CHUNK} with C.B^T once per group does "
         f"{rows[0]['own_gflop'] * 1e9:.4g} flop, the plain version's chunk "
         f"of {CS} {2.0 * _ssd_macs(B, L, H, P, S, CS):.4g}")
-    for r in rows:
-        log(f"ssd {r['dtype']:8s} {r['shape']} ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms none bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']}) tc_bound_ms "
-            f"{r['tc_bound_ms']:.4f} ({r['tc_bound_by']}) err "
-            f"{r['max_abs_err']:.3g}; stages "
-            "(profiler device ms a call): " + (", ".join(
-                f"{k} {v:.4f}" for k, v in r["stage_ms"].items())
-                or "not measured"))
+    del real, got, want
+
+    # jamba-1.5-large's mixer: 128 heads of P = 128, S = 128, B/C of 8
+    # groups repeated over the heads, per head as `trim_ssd_pallas` takes
+    hd = build_model(get_config(HYBRID_ARCH)).spec.dims
+    Hj, Pj, Sj, Gj = hd.n_heads, hd.headdim, hd.d_state, hd.n_groups
+    p = ks.plan(B, L, Hj, Pj, Sj)
+    jrows = _ssd_full_rows(
+        torch, ks, _ssd_inputs(torch, gen, dev, B, L, Hj, Pj, Sj,
+                               groups=Gj, repeat=True),
+        hd.chunk, reps, HYBRID_ARCH, Hj, vs32=False)
+    NC, tri = -(-L // ks.KERNEL_CHUNK), ks.CB_FLOATS
+    cb_head = 2.0 * B * NC * Hj * tri * Sj
+    log(f"ssd {HYBRID_ARCH}: x ({B}, {L}, {Hj}, {Pj}), B/C ({B}, {L}, {Hj}, "
+        f"{Sj}) repeated from {Gj} groups; {p.p_tiles} P tiles x "
+        f"{p.s_tiles} S tile, states {p.states} fp32 "
+        f"({4 * B * NC * Hj * p.states[3] * p.states[4] / 1e9:.3f} GB), "
+        f"grids (cb, state, pass, out) {p.grids}; fp32 within "
+        f"{jrows[0]['rel_err']:.3g} of max|plain| (limit {SSD_FULL_TOL}), "
+        f"bf16 {jrows[1]['max_abs_err']:.3g} from the bf16 plain (limit "
+        f"5e-2) and {jrows[1]['err32']:.3g} from the fp32 plain, where the "
+        f"bf16 plain lies {jrows[1]['plain32']:.3g} from it (the inputs' "
+        f"rounding to bf16); the per-head C.B^T "
+        f"costs {cb_head:.4g} flop, {Hj // Gj}x a grouped one's "
+        f"{cb_head * Gj / Hj:.4g} (the kernel's own work "
+        f"{jrows[0]['own_gflop'] * 1e9:.4g} flop; least work "
+        f"{2.0 * _ssd_macs(B, L, Hj, Pj, Sj, 1):.4g}); cb stage "
+        + ", ".join(f"{r['dtype']} {r['stage_ms'].get('cb', float('nan')):.4f} ms"
+                    for r in jrows))
+    rows += jrows
+    _log_ssd_rows(rows)
     return rows
 
 
@@ -6323,6 +6468,89 @@ def _row_ulps(got, want) -> float:
                                         * 2.0 ** -7)).max())
 
 
+#: the port's examples (``examples/torch/``), each run at its defaults:
+#: (script, arguments, a pattern each of whose lines must be printed)
+EXAMPLES = (
+    ("quickstart", (), (
+        r"fifo_ok=True", r"bit-exact=True",
+        r"max err vs the plain conv: (?P<conv_err>\S+); kernel launches: "
+        r"(?P<conv>\d+)",
+        r"\(flash-attention kernel launches: (?P<flash>\d+)\)",
+        r"greedy decode: \[", r"\(int5, exactly 5/8\)")),
+    ("serve_lm", (), (
+        r"\[serve\] mamba2-130m on cuda\S*: prefill 4x32",
+        r"kernel launches in the prefill: conv1d (?P<conv1d>\d+), flash "
+        r"(?P<flash>\d+)", r"\[serve\] continuation\[0\]: \[")),
+    ("train_cnn", (), (
+        r"step  59  loss (?P<loss>\S+)",
+        r"kernel launches in training: conv (?P<conv>\d+) \(forward and "
+        r"dx\), wgrad (?P<wgrad>\d+)",
+        r"int8 TrIM datapath: output", r"float/int8 agreement: cosine "
+        r"(?P<cos>\S+)")),
+    ("train_lm", (), (
+        r"\[train_lm\] mamba2-15m-demo: .* on cuda",
+        r"loss (?P<first>\S+) -> (?P<last>\S+) over 50 steps; conv1d "
+        r"kernel launches (?P<conv1d>\d+)")),
+)
+
+
+def phase_examples() -> dict:
+    """28. The port's four examples (``examples/torch/``) on the card, each
+    a subprocess of its own at its defaults (``train_lm`` checkpointing into
+    a fresh temporary directory): exit 0, every key line printed, and each
+    one's kernels launched: kernel 1 in quickstart's conv, and 2 L - 1
+    times a step in train_cnn's VGG-16 smoke (L forward convs, L - 1 dx)
+    with kernel 2 L times; kernel 5 in quickstart's train step (granite's
+    smoke); kernel 3 once a layer in serve_lm's prefill (24, mamba2-130m)
+    and a step in train_lm's (8 layers, 50 steps).  Returns the launches
+    each printed, by example."""
+    import tempfile
+
+    from repro_torch.configs import CNN_SMOKES
+
+    t0 = time.perf_counter()
+    seen = {}
+    L = len(CNN_SMOKES["vgg16"].layers)
+    want = {("serve_lm", "conv1d"): 24,
+            ("serve_lm", "flash"): 0, ("train_cnn", "conv"): 60 * (2 * L - 1),
+            ("train_cnn", "wgrad"): 60 * L, ("train_lm", "conv1d"): 50 * 8}
+    for name, args, patterns in EXAMPLES:
+        with tempfile.TemporaryDirectory() as tmp:
+            extra = ("--ckpt-dir", tmp) if name == "train_lm" else ()
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / "torch" /
+                                     f"{name}.py"), *args, *extra],
+                env={**os.environ, "PYTHONPATH": str(SRC)},
+                capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if proc.returncode != 0:
+            fail(f"example {name}: exit {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        got = {}
+        for pat in patterns:
+            m = re.search(pat, proc.stdout)
+            if m is None:
+                fail(f"example {name}: no line matching {pat!r} in "
+                     f"{proc.stdout[-2000:]}")
+            else:
+                got.update(m.groupdict())
+        seen[name] = got
+        for (ex, key), n in want.items():
+            if ex == name and int(got[key]) != n:
+                fail(f"example {name}: {key} launched {got[key]} times, "
+                     f"not {n}")
+        if name == "quickstart" and min(int(got["conv"]),
+                                        int(got["flash"])) < 1:
+            fail(f"example quickstart: no conv or no flash kernel "
+                 f"launched: {got}")
+        last = [ln for ln in proc.stdout.splitlines() if ln.strip()][-2:]
+        log(f"example {name}: exit 0 in {time.perf_counter() - t1:.1f} s; "
+            f"{got}; last lines: {' | '.join(last)}")
+    log(f"examples: the four ran on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return seen
+
+
 def phase_dryrun_card(torch, placed_bytes: int, prefill_ms) -> None:
     """Phase 27: the dry-run held against the card.  ``run_cell`` on a
     fake world of 1 (a one-process ``fake`` process group, a (1, 1) mesh
@@ -6931,12 +7159,12 @@ def main() -> None:
                     "card); no result line")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: phase 3j times "
-                    "its bf16 kernels at batch 8 beside this one's")
+                    "its bf16 kernels at batch 8 beside this one's, phase "
+                    "3f its SSD kernel at mamba2-130m's shape")
     ap.add_argument("--probe-families", type=int, metavar="N",
                     help="only run phases 3i and 3e, N times over, each "
                     "row logged as it ends; no result line")
     args = ap.parse_args()
-
     if not (SRC / "repro_torch" / "csrc" / "trim_conv2d.cu").is_file():
         fail(f"the port's sources are not in {SRC}: run from a checkout")
     sys.path.insert(0, str(SRC))
@@ -6988,7 +7216,7 @@ def main() -> None:
     dim_rows = phase_flash_dims(torch, args.reps)
     fam_rows = phase_flash_families(torch, args.reps)
     mrows = phase_matmul(torch, args.reps, max(3, args.reps // 10))
-    srows = phase_ssd(torch, args.reps)
+    srows = phase_ssd(torch, args.reps, args.parent)
     if args.kernels:
         log("stopping after the kernel phases (--kernels): no result line")
         return
@@ -7028,6 +7256,7 @@ def main() -> None:
     fam_mesh = phase_family_world1(torch)
     split_row = phase_split_ranks(torch)
     phase_dryrun_card(torch, fam_mesh["placed_bytes"], fam_mesh["prefill_ms"])
+    phase_examples()
     # the launches of each timed kind of call in the served runs, each
     # counted: the encoder's and the cross-attention's by role (the cross
     # rows: the prefill's and each replay's), llava's prefill's and
@@ -7198,7 +7427,9 @@ def main() -> None:
            for lane in ("bf16", "f32", "s8") for part in ("prefill", "decode")
            for part_rows in [[r for r in mrows if r["lane"] == lane
                               and r["part"] == part]]]
-        + [{"name": f"trim_ssd_{r['dtype']}", "route": "cuda",
+        + [{"name": f"trim_ssd_{r['dtype']}" + (
+                "" if r["label"] == LM_ARCH else f"_{r['label']}"),
+            "route": "cuda",
             "source": SSD_SOURCE, "replaces": SSD_REPLACES,
             **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}}

@@ -7,26 +7,37 @@
 // at 0, the recurrence
 //   h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T,   y_t = C_t h_t + D x_t.
 // Only y is returned (in x's dtype), as the Pallas kernel does. x, Bm, Cm
-// are fp32 or bf16; dt, A, D fp32; all sums are fp32.
+// are fp32 or bf16; dt, A, D fp32; all sums are fp32. Any head dim P >= 1
+// and state dim S >= 1, as the Pallas kernel (whole P and S a block).
 //
 // The design: Mamba2's own SSD decomposition in chunks of kT = 128 rows,
 // with cum = cumsum(dt A) inside a chunk (a warp scan), as four launches on
 // the caller's stream (one call of the entry point):
 //   cb     for each (b, chunk, group): C B^T, only its lower triangle in
-//          16-row tiles, into a scratch tensor. When Bm and Cm are one group
-//          expanded over the heads (stride 0 over H) it is computed once per
-//          (b, chunk) and every head reads it, else once per head.
-//   state  for each (b, chunk, h): the chunk's own end state
-//          dBx = (x o exp(cum_last - cum) dt)^T B  (P x S, fp32 scratch)
-//          and the chunk's decay exp(cum_last).
-//   pass   for each (b, h) and element of P x S, in chunk order:
+//          16-row tiles, into a scratch tensor, summed over S in 64-column
+//          pieces in order. When Bm and Cm are one group expanded over the
+//          heads (stride 0 over H) it is computed once per (b, chunk) and
+//          every head reads it, else once per head.
+//   state  for each (b, chunk, h, P tile, S tile): that tile of the chunk's
+//          own end state dBx = (x o exp(cum_last - cum) dt)^T B (fp32
+//          scratch; the tiles are independent outputs), and the chunk's
+//          decay exp(cum_last).
+//   pass   for each (b, h) and element of the state, in chunk order:
 //          h_c = exp(cum_last,c) h_{c-1} + dBx_c, written in place as each
-//          chunk's entering state (blocks split P x S; no atomics).
-//   out    for each (b, chunk, h):
+//          chunk's entering state (blocks split the state; no atomics).
+//   out    for each (b, chunk, h, P tile):
 //          y = (C B^T o tril(exp(cum_i - cum_j)) o dt_j) x
-//              + exp(cum) o (C h_{c-1}^T) + D x.
-// `state` and `out` have B x NC x H blocks (NC chunks): 3072 at mamba2-130m's
-// full width, where one block per (b, h) walked every chunk before.
+//              + exp(cum) o (C h_{c-1}^T) + D x,
+//          C h^T summed over S tile by tile in order.
+// P is tiled by kP = 64 and S by kS = 128: row p of h and column p of y
+// depend only on column p of x, so a P tile is one more grid dimension of
+// state, pass and out, and C B^T (independent of P) is shared by every P
+// tile. The states are (B, NC, H, P', S') with P' and S' padded to whole
+// tiles (zero rows and columns: x and B are zero-filled past P and S), so
+// mamba2-130m's P = 64, S = 128 and jamba-1.5-large's P = S = 128 run
+// whole tiles without a mask.
+// `state` and `out` have B x NC x H x tiles blocks (NC chunks): 3072 at
+// mamba2-130m's full width (one P and one S tile), 32768 at jamba's.
 //
 // Every product runs on the tensor cores through mma.sync:
 // - fp32 lane: 3xTF32 on m16n8k8. Each fp32 operand is split into a TF32
@@ -34,35 +45,44 @@
 //   hi*hi + hi*lo + lo*hi with fp32 sums, which keeps about 21 of fp32's
 //   24 bits. One TF32 pass keeps about 11 and cannot meet the fp32 lane's
 //   tolerances (2e-5 on the test cases, 1e-4 x max|plain| at full width).
+//   The MMA truncates its sums, so the cb and state stages sum each
+//   k-step's passes apart and add them with rounded fp32 adds
+//   (mma_split_at); the out stage, at its register limit, accumulates in
+//   place.
 // - bf16 lane: bf16 m16n8k16. A product of two bf16 values is exact in
 //   fp32: C B^T is one pass; an operand computed in fp32 (the decayed
 //   scores, x o w, the state) is split into two bf16 parts, two passes.
 //
 // What bounds each launch, at mamba2-130m's x (4, 4096, 24, 64), S = 128
 // (PERF.md has each stage's time on the H100):
-// - cb: 128 blocks (one group) of 1.2 M multiply-adds; small.
+// - cb: 128 blocks (one group) of 1.2 M multiply-adds; small. Per head
+//   (B/C not expanded with stride 0, as jamba's 8 groups repeated over 128
+//   heads) it is H times that.
 // - state: x and B stream through a ring of two 32-row slots (52 KB in
 //   fp32, three blocks an SM), each piece landing under the products of the
 //   one before; writes the states (100 MB).
 // - pass: memory: the states read and written once.
 // - out: h_{c-1} (cp.async, under C's first loads) and x (under C h^T) in
 //   shared memory; C and the C B^T rows from L2 into registers a 16-k block
-//   ahead, 16 bytes a lane; reads the states once.
+//   ahead, 16 bytes a lane; reads the states once. Past one S tile, the
+//   next tile of h_{c-1} replaces the last in shared memory.
 // In state and out the work around the MMAs (operand loads, the splits,
 // address arithmetic) takes most of the time, more than the MMAs: the
 // splits are integer adds and masks (split_tf32), the global A operands
 // 16-byte loads, and each B fragment feeds two row tiles in out.
-// The chunk of 128 keeps the states (B, NC, H, P, S) at 100 MB; a chunk of
-// 64 would double them (four passes over them cost more than the whole
-// bound); one of 256 would halve them but double the triangle's work
-// (C B^T and the scores times x grow with the chunk).
+// The chunk of 128 keeps the states (B, NC, H, P', S') at 100 MB at
+// mamba2-130m's width; a chunk of 64 would double them (four passes over
+// them cost more than the whole bound); one of 256 would halve them but
+// double the triangle's work (C B^T and the scores times x grow with the
+// chunk).
 //
 // Chunking is math-neutral: the kernel's chunk is its own kT, whatever
 // chunk the caller names (the plain version's); the two differ by rounding.
-// Rows past L are zero-filled (dt = 0 leaves the state unchanged), and x,
-// dt, Bm, Cm are read in place through their strides, a stride-0 view over
-// H without a copy; cp.async takes rows whose starts and widths are whole
-// 16 bytes, plain loads the rest. The wrapper allocates the scratch
+// Every sum runs in a fixed order (no atomics), so two calls give the same
+// bits. Rows past L are zero-filled (dt = 0 leaves the state unchanged), and
+// x, dt, Bm, Cm are read in place through their strides, a stride-0 view
+// over H without a copy; cp.async takes rows whose starts and widths are
+// whole 16 bytes, plain loads the rest. The wrapper allocates the scratch
 // (states, C B^T, decays); the kernels allocate nothing.
 
 #include <cuda_bf16.h>
@@ -73,14 +93,13 @@ namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kT = 128;        // the kernel's chunk
-constexpr int kP = 64;         // largest head dim
-constexpr int kS = 128;        // largest state dim
+constexpr int kP = 64;         // head-dim tile
+constexpr int kS = 128;        // state-dim tile
 constexpr int kTiles = kT / 16;  // 16-row tiles of a chunk, one a warp
 // C B^T of one chunk, packed: row tile w holds 16 rows of 16 (w + 1)
 // columns (on and below the diagonal tile), 128 w (w + 1) floats in; each
 // 16 columns of a row in the lane's permuted order (Lane::perm16).
 constexpr int kCbFloats = 128 * kTiles * (kTiles + 1);
-constexpr int kStateFloats = kP * kS;
 
 struct SsdArgs {
   const void* x;
@@ -90,11 +109,14 @@ struct SsdArgs {
   const void* C;
   const float* D;
   void* y;
-  float* states;  // (B, NC, H, kP, kS)
+  float* states;  // (B, NC, H, kP np, kS ns)
   float* cb;      // (B, NC, ng, kCbFloats)
   float* decay;   // (B, H, NC)
   long long L, H, NC;
   int P, S, ng;
+  int np, ns;     // P and S tiles
+  long long sp;   // a state row: kS ns floats (below 2^30)
+  long long state_floats;  // one (b, chunk, h) state: kP np x kS ns
   int vec_x, vec_bc;  // rows may be copied in 16-byte pieces
   long long sxb, sxl, sxh;
   long long sdb, sdl, sdh;
@@ -193,6 +215,9 @@ struct F32Lane {
   // fp32 data is never exact in TF32
   static constexpr bool kDataExact = false;
   static constexpr int kPer = 1;  // elements of one A register
+  // n tiles whose k-step passes sum apart before they join the cb and
+  // state stages' accumulators (mma_split_at)
+  static constexpr int kPromote = 2;
 
   // element e of A register r: its row and column in the fragment
   __device__ __forceinline__ static int a_row(int r) {
@@ -278,6 +303,7 @@ struct Bf16Lane {
   // bf16 data is exact in the MMA's bf16 operands
   static constexpr bool kDataExact = true;
   static constexpr int kPer = 2;
+  static constexpr int kPromote = 0;  // accumulate in place
 
   __device__ __forceinline__ static int a_row(int r) {
     return ((threadIdx.x & 31) >> 2) + 8 * (r & 1);
@@ -370,20 +396,56 @@ struct Bf16Lane {
   }
 };
 
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+}
+
 // acc[n0 + n] += a b[n] for n < NB over the passes the operands need, the
 // small terms first; pass-major, so that consecutive MMAs are independent.
-template <class Lane, bool EA, bool EB, int NT, int NB>
+// An MMA drops its products' bits below its accumulator's last place (it
+// truncates where a CUDA-core add rounds to nearest: the probe of
+// tools/ssd_precision.py), so a chain of MMAs into one accumulator drifts
+// one way at the accumulator's scale. With G > 0 the passes of one k-step
+// sum, G n tiles at a time, into a zeroed accumulator that fp32 adds join
+// to acc: the truncations stay at the scale of one k-step's products.
+// G = 0 accumulates in place.
+template <class Lane, bool EA, bool EB, int G, int NT, int NB>
 __device__ __forceinline__ void mma_split_at(float (&acc)[NT][4], int n0,
                                              const FragA& a,
                                              const FragB (&b)[NB]) {
-  if (!EA)
+  if constexpr (G > 0) {
+    static_assert(NB % G == 0, "n tiles in whole groups");
 #pragma unroll
-    for (int n = 0; n < NB; ++n) Lane::mma(acc[n0 + n], a.lo, b[n].hi);
-  if (!EB)
+    for (int n1 = 0; n1 < NB; n1 += G) {
+      float t[G][4];
+      zero(t);
+      if (!EA)
 #pragma unroll
-    for (int n = 0; n < NB; ++n) Lane::mma(acc[n0 + n], a.hi, b[n].lo);
+        for (int n = 0; n < G; ++n) Lane::mma(t[n], a.lo, b[n1 + n].hi);
+      if (!EB)
 #pragma unroll
-  for (int n = 0; n < NB; ++n) Lane::mma(acc[n0 + n], a.hi, b[n].hi);
+        for (int n = 0; n < G; ++n) Lane::mma(t[n], a.hi, b[n1 + n].lo);
+#pragma unroll
+      for (int n = 0; n < G; ++n) Lane::mma(t[n], a.hi, b[n1 + n].hi);
+#pragma unroll
+      for (int n = 0; n < G; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n0 + n1 + n][i] += t[n][i];
+    }
+  } else {
+    if (!EA)
+#pragma unroll
+      for (int n = 0; n < NB; ++n) Lane::mma(acc[n0 + n], a.lo, b[n].hi);
+    if (!EB)
+#pragma unroll
+      for (int n = 0; n < NB; ++n) Lane::mma(acc[n0 + n], a.hi, b[n].lo);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) Lane::mma(acc[n0 + n], a.hi, b[n].hi);
+  }
 }
 
 // 4 adjacent floats from global memory (16 bytes, aligned).
@@ -410,7 +472,8 @@ __device__ __forceinline__ void gather_a(F f, float (&v)[4][2]) {
 // A_m (16 x [k0, k1)) B ([k0, k1) x 8 NT). af(m, k, frag) and bf(k, n,
 // frag) build the fragments at k (B's columns from n); EA / EB: the operand
 // is exact in the lane's MMA type (no remainder pass).
-template <class Lane, bool EA, bool EB, int MT, int NT, class AF, class BF>
+template <class Lane, bool EA, bool EB, int G, int MT, int NT, class AF,
+          class BF>
 __device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], int k0,
                                           int k1, AF af, BF bf) {
 #pragma unroll 2
@@ -423,16 +486,8 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], int k0,
     for (int n = 0; n < NT; ++n) bf(k, 8 * n, b[n]);
 #pragma unroll
     for (int m = 0; m < MT; ++m)
-      mma_split_at<Lane, EA, EB>(acc[m], 0, a[m], b);
+      mma_split_at<Lane, EA, EB, G>(acc[m], 0, a[m], b);
   }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -546,15 +601,20 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_cb_kernel(const SsdArgs a) {
                 c * kT * a.scl;
   const E* bb = static_cast<const E*>(a.B) + b * a.sbb + g * a.sbh +
                 c * kT * a.sbl;
-  // two groups of 64 state columns: the second lands under the first's
-  // products
-  for (int half = 0; half < 2; ++half) {
-    load_tile(cs, Sm::kLd, cb, a.scl, 0, kT, 64 * half, 64 * half + 64, n,
-              a.S, a.vec_bc);
-    load_tile(bs, Sm::kLd, bb, a.sbl, 0, kT, 64 * half, 64 * half + 64, n,
-              a.S, a.vec_bc);
+  // the state's columns in pieces of 64 through a ring of two slots (the
+  // tile's two column halves): each piece lands under the products of the
+  // one before, and the pieces are summed in order
+  const int pieces = (a.S + 63) / 64;
+  const auto load_piece = [&](int i) {
+    const int slot = 64 * (i & 1);
+    load_tile(cs + slot, Sm::kLd, cb + 64 * i, a.scl, 0, kT, 0, 64, n,
+              a.S - 64 * i, a.vec_bc);
+    load_tile(bs + slot, Sm::kLd, bb + 64 * i, a.sbl, 0, kT, 0, 64, n,
+              a.S - 64 * i, a.vec_bc);
     cp_async_commit();
-  }
+  };
+  load_piece(0);
+  if (pieces > 1) load_piece(1);
 
   const int w = threadIdx.x >> 5;
   const int g4 = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
@@ -565,17 +625,19 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_cb_kernel(const SsdArgs a) {
   float acc[2][1][8][4];  // column pieces of 64 (the second for w >= 4)
   zero(acc[0][0]);
   zero(acc[1][0]);
-  for (int half = 0; half < 2; ++half) {
-    if (half == 0)
+#pragma unroll 1
+  for (int i = 0; i < pieces; ++i) {
+    if (i + 1 < pieces)
       cp_async_wait<1>();
     else
       cp_async_wait<0>();
     __syncthreads();
+    const int slot = 64 * (i & 1);
 #pragma unroll
     for (int piece = 0; piece < 2; ++piece) {
       if (64 * piece >= width) continue;
-      warp_gemm<Lane, kE, kE>(
-          acc[piece], 64 * half, 64 * half + 64,
+      warp_gemm<Lane, kE, kE, Lane::kPromote>(
+          acc[piece], slot, slot + 64,
           [&](int, int k, FragA& f) {
             Lane::template a_frag_contig<kE>(cs + 16 * w * Sm::kLd + k,
                                              Sm::kLd, f);
@@ -584,6 +646,10 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_cb_kernel(const SsdArgs a) {
             Lane::template b_frag_contig<kE>(
                 bs + (64 * piece + j) * Sm::kLd + k, Sm::kLd, f);
           });
+    }
+    if (i + 2 < pieces) {
+      __syncthreads();  // every warp is done with slot i % 2
+      load_piece(i + 2);
     }
   }
   // each 16 columns in the order the out stage's lanes read them
@@ -602,7 +668,8 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_cb_kernel(const SsdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// state: a chunk's own end state and decay, per (b, chunk, h)
+// state: a chunk's own end state and decay, per (b, chunk, h, P tile,
+// S tile)
 // ---------------------------------------------------------------------------
 
 // The chunk's rows stream through a ring of two slots of kPiece rows (52 KB
@@ -639,19 +706,24 @@ __global__ void __launch_bounds__(kStateThreads, 4)
   };
   const auto bs = [&](int i) { return xs(i) + kPiece * Sm::kLdx; };
 
-  const long long h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  // blockIdx.x: (h, P tile, S tile), the S tile fastest
+  const int st = static_cast<int>(blockIdx.x % a.ns);
+  const int pt = static_cast<int>(blockIdx.x / a.ns % a.np);
+  const long long h = blockIdx.x / a.ns / a.np, c = blockIdx.y,
+                  b = blockIdx.z;
   const int n = static_cast<int>(a.L - c * kT < kT ? a.L - c * kT : kT);
   const E* xb = static_cast<const E*>(a.x) + b * a.sxb + h * a.sxh +
-                c * kT * a.sxl;
+                c * kT * a.sxl + kP * pt;
   const E* bb = static_cast<const E*>(a.B) + b * a.sbb + h * a.sbh +
-                c * kT * a.sbl;
-  // piece i: rows kPiece i .. kPiece (i + 1) of x and B, into slot i % 2
+                c * kT * a.sbl + kS * st;
+  // piece i: rows kPiece i .. kPiece (i + 1) of the tile's x and B
+  // columns, into slot i % 2
   const auto load_piece = [&](int i) {
     const int r0 = kPiece * i;
     load_tile(xs(i), Sm::kLdx, xb + r0 * a.sxl, a.sxl, 0, kPiece, 0, kP,
-              n - r0, a.P, a.vec_x);
+              n - r0, a.P - kP * pt, a.vec_x);
     load_tile(bs(i), Sm::kLdb, bb + r0 * a.sbl, a.sbl, 0, kPiece, 0, kS,
-              n - r0, a.S, a.vec_bc);
+              n - r0, a.S - kS * st, a.vec_bc);
     cp_async_commit();
   };
   load_piece(0);
@@ -661,7 +733,7 @@ __global__ void __launch_bounds__(kStateThreads, 4)
   const float cum_last = cum[kT - 1];
   if (threadIdx.x < kT)
     ws[threadIdx.x] = expf(cum_last - cum[threadIdx.x]) * dts[threadIdx.x];
-  if (threadIdx.x == 0)
+  if (threadIdx.x == 0 && pt == 0 && st == 0)
     a.decay[(b * a.H + h) * a.NC + c] = expf(cum_last);
 
   // dBx[p][s] = sum_t (x[t][p] w[t]) B[t][s]. This warp: rows p0 + 0..31
@@ -683,7 +755,7 @@ __global__ void __launch_bounds__(kStateThreads, 4)
     const E* xp = xs(i);
     const E* bp = bs(i);
     const float* wp = ws + kPiece * i;
-    warp_gemm<Lane, false, kE>(
+    warp_gemm<Lane, false, kE, Lane::kPromote>(
         acc, 0, kPiece,
         [&](int m, int k, FragA& f) {
           float v[4][2];
@@ -705,32 +777,36 @@ __global__ void __launch_bounds__(kStateThreads, 4)
     }
   }
   const int g4 = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
-  float* out = a.states + ((b * a.NC + c) * a.H + h) * kStateFloats;
+  float* out = a.states + ((b * a.NC + c) * a.H + h) * a.state_floats +
+               kP * pt * a.sp + kS * st;
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr)
-        *reinterpret_cast<float2*>(out + (p0 + 16 * m + g4 + 8 * hr) * kS +
+        *reinterpret_cast<float2*>(out + (p0 + 16 * m + g4 + 8 * hr) * a.sp +
                                    s0 + 8 * nt + 2 * t4) =
             make_float2(acc[m][nt][2 * hr], acc[m][nt][2 * hr + 1]);
 }
 
 // ---------------------------------------------------------------------------
-// pass: entering states, in chunk order, per (b, h) and element of P x S
+// pass: entering states, in chunk order, per (b, h) and element of the
+// state
 // ---------------------------------------------------------------------------
 
 constexpr int kPassThreads = 256;
-constexpr int kPassBlocks = kStateFloats / 4 / kPassThreads;  // per (b, h)
+// blocks per (b, h) and whole P x S tile: one float4 a thread
+constexpr int kPassBlocksPerTile = kP * kS / 4 / kPassThreads;
 
 __global__ void __launch_bounds__(kPassThreads)
     ssd_pass_kernel(const SsdArgs a) {
   const long long h = blockIdx.y, b = blockIdx.z;
-  const long long step = a.H * (kStateFloats / 4);  // one chunk on
+  const long long step = a.H * (a.state_floats / 4);  // one chunk on
   float4* st = reinterpret_cast<float4*>(a.states) +
-               (b * a.NC * a.H + h) * (kStateFloats / 4) +
-               blockIdx.x * kPassThreads + threadIdx.x;
+               (b * a.NC * a.H + h) * (a.state_floats / 4) +
+               static_cast<long long>(blockIdx.x) * kPassThreads +
+               threadIdx.x;
   const float* dec = a.decay + (b * a.H + h) * a.NC;
   float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   constexpr int kAhead = 8;  // loads in flight ahead of the recurrence
@@ -772,6 +848,10 @@ struct OutSmem {
   static constexpr int kBytes = kCum + kT * 4;
 };
 
+// The out stage's MMAs accumulate in place (mma_split_at with G = 0): at
+// 168 registers, three blocks an SM, it has none for a k-step's own
+// accumulator; with two blocks an SM it would cost more than the cb and
+// state stages' sums apart, and gain less precision (PERF.md section 6).
 // Warp w takes row tiles w and kTiles - 1 - w: the triangle's work is the
 // same for every warp, and each B fragment (h, x) feeds both tiles. Only h
 // and x are staged (72 KB in fp32, three blocks an SM); C and the C B^T
@@ -792,19 +872,25 @@ __global__ void __launch_bounds__(kOutThreads, 3)
   float* dts = reinterpret_cast<float*>(smem + Sm::kDts);
   float* cum = reinterpret_cast<float*>(smem + Sm::kCum);
 
-  const long long h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  // blockIdx.x: (h, P tile), the P tile fastest (both read the same C)
+  const int pt = static_cast<int>(blockIdx.x % a.np);
+  const long long h = blockIdx.x / a.np, c = blockIdx.y, b = blockIdx.z;
   const int n = static_cast<int>(a.L - c * kT < kT ? a.L - c * kT : kT);
   const E* cb = static_cast<const E*>(a.C) + b * a.scb + h * a.sch +
                 c * kT * a.scl;
   const E* xb = static_cast<const E*>(a.x) + b * a.sxb + h * a.sxh +
-                c * kT * a.sxl;
-  const float* hb = a.states + ((b * a.NC + c) * a.H + h) * kStateFloats;
+                c * kT * a.sxl + kP * pt;
+  // rows kP pt .. kP (pt + 1) of h_{c-1}, a row of a.sp floats
+  const float* hb = a.states + ((b * a.NC + c) * a.H + h) * a.state_floats +
+                    kP * pt * a.sp;
   const float* cbg = a.cb + ((b * a.NC + c) * a.ng + (a.ng == 1 ? 0 : h)) *
                                 kCbFloats;
-  // group 0: h_{c-1}, under C's first loads; group 1: x, under C h^T
-  load_tile(hs, Sm::kLdh, hb, kS, 0, kP, 0, kS, kP, kS, true);
+  // group 0: h_{c-1}'s first S tile, under C's first loads; group 1: x,
+  // under C h^T
+  load_tile(hs, Sm::kLdh, hb, a.sp, 0, kP, 0, kS, kP, kS, true);
   cp_async_commit();
-  load_tile(xs, Sm::kLdx, xb, a.sxl, 0, kT, 0, kP, n, a.P, a.vec_x);
+  load_tile(xs, Sm::kLdx, xb, a.sxl, 0, kT, 0, kP, n, a.P - kP * pt,
+            a.vec_x);
   cp_async_commit();
   chunk_cum(a, b, h, c, n, dts, cum);
 
@@ -817,10 +903,12 @@ __global__ void __launch_bounds__(kOutThreads, 3)
   cp_async_wait<1>();
   __syncthreads();  // h and cum
 
-  // C h^T over the state. Rows past L read row n - 1 (their y is not
-  // stored); with S < kS or rows off 16 bytes, element loads with checks.
+  // C h^T over the state, S tile by S tile in order. Rows past L read row
+  // n - 1 (their y is not stored); with S not whole tiles or rows off 16
+  // bytes, element loads with checks.
   {
-    const bool fast = a.vec_bc && a.S == kS;
+    const int sp = static_cast<int>(a.sp);
+    const bool fast = a.vec_bc && a.S == sp;
     const E* crow[2][2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -862,7 +950,15 @@ __global__ void __launch_bounds__(kOutThreads, 3)
     };
     load_c(0);
 #pragma unroll 1
-    for (int kb = 0; kb < kS; kb += 16) {
+    for (int k = 0; k < sp; k += 16) {
+      const int kb = k % kS;  // the column in the staged S tile
+      if (kb == 0 && k > 0) {
+        __syncthreads();  // every warp is done with the last S tile of h
+        load_tile(hs, Sm::kLdh, hb + k, sp, 0, kP, 0, kS, kP, kS, true);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
       FragA fa[2][kSteps];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -876,7 +972,7 @@ __global__ void __launch_bounds__(kOutThreads, 3)
             Lane::template a_from_block<kE>(nv[i], st, fa[i][st]);
           }
         }
-      if (kb + 16 < kS) load_c(kb + 16);
+      if (k + 16 < sp) load_c(k + 16);
 #pragma unroll
       for (int nh = 0; nh < 2; ++nh) {
         float bv[4][4];
@@ -897,7 +993,8 @@ __global__ void __launch_bounds__(kOutThreads, 3)
             Lane::template b_from_block<false>(bv[q], st, fb[q]);
 #pragma unroll
           for (int i = 0; i < 2; ++i)
-            mma_split_at<Lane, kE, false>(acc[i], 4 * nh, fa[i][st], fb);
+            mma_split_at<Lane, kE, false, 0>(acc[i], 4 * nh, fa[i][st],
+                                             fb);
         }
       }
     }
@@ -978,15 +1075,17 @@ __global__ void __launch_bounds__(kOutThreads, 3)
         for (int nt = 0; nt < 8; ++nt)
           Lane::template b_frag_major<kE>(
               xs + (kb + st * Lane::kK) * Sm::kLdx + 8 * nt, Sm::kLdx, fb[nt]);
-        if (both) mma_split_at<Lane, false, kE>(acc[0], 0, fa[0][st], fb);
-        mma_split_at<Lane, false, kE>(acc[1], 0, fa[1][st], fb);
+        if (both) mma_split_at<Lane, false, kE, 0>(acc[0], 0, fa[0][st], fb);
+        mma_split_at<Lane, false, kE, 0>(acc[1], 0, fa[1][st], fb);
       }
     }
   }
   // + D x, stored in x's dtype
   const float Dh = a.D[h];
-  E* yb = static_cast<E*>(a.y) + ((b * a.L + c * kT) * a.H + h) * a.P;
+  E* yb = static_cast<E*>(a.y) + ((b * a.L + c * kT) * a.H + h) * a.P +
+          kP * pt;
   const long long y_row = a.H * a.P;
+  const int pn = a.P - kP * pt;  // this tile's columns of y
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -995,7 +1094,7 @@ __global__ void __launch_bounds__(kOutThreads, 3)
       for (int e = 0; e < 4; ++e) {
         const int t = 16 * tl[i] + g4 + 8 * (e >> 1);
         const int p = 8 * nt + 2 * t4 + (e & 1);
-        if (t < n && p < a.P)
+        if (t < n && p < pn)
           yb[t * y_row + p] =
               from_f32<E>(acc[i][nt][e] + to_f32(xs[t * Sm::kLdx + p]) * Dh);
       }
@@ -1022,15 +1121,17 @@ int launch(const SsdArgs& a, long long B, cudaStream_t stream) {
   const unsigned nc = static_cast<unsigned>(a.NC);
   const unsigned h = static_cast<unsigned>(a.H);
   const unsigned bb = static_cast<unsigned>(B);
+  const unsigned tiles = static_cast<unsigned>(a.np * a.ns);
   ssd_cb_kernel<Lane><<<dim3(a.ng, nc, bb), kThreads, CbSmem<Lane>::kBytes,
                         stream>>>(a);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
-  ssd_state_kernel<Lane><<<dim3(h, nc, bb), kStateThreads,
+  ssd_state_kernel<Lane><<<dim3(h * tiles, nc, bb), kStateThreads,
                            StateSmem<Lane>::kBytes, stream>>>(a);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
-  ssd_pass_kernel<<<dim3(kPassBlocks, h, bb), kPassThreads, 0, stream>>>(a);
+  ssd_pass_kernel<<<dim3(kPassBlocksPerTile * tiles, h, bb), kPassThreads, 0,
+                    stream>>>(a);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
-  ssd_out_kernel<Lane><<<dim3(h, nc, bb), kOutThreads,
+  ssd_out_kernel<Lane><<<dim3(h * a.np, nc, bb), kOutThreads,
                          OutSmem<Lane>::kBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1039,11 +1140,12 @@ int launch(const SsdArgs& a, long long B, cudaStream_t stream) {
 
 extern "C" {
 
-// Limits and scratch sizes the wrapper validates against and allocates.
-int trim_ssd_max_p() { return kP; }
-int trim_ssd_max_s() { return kS; }
+// Tiles, chunk and scratch sizes the wrapper plans and allocates with.
+int trim_ssd_tile_p() { return kP; }
+int trim_ssd_tile_s() { return kS; }
 int trim_ssd_chunk() { return kT; }
 int trim_ssd_cb_floats() { return kCbFloats; }
+int trim_ssd_pass_blocks_per_tile() { return kPassBlocksPerTile; }
 
 const char* trim_ssd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -1053,13 +1155,17 @@ const char* trim_ssd_error_string(int code) {
 // fp32 with strides (sdb, sdl, sdh); A, D (H,) fp32 contiguous; Bm, Cm
 // (B, L, H, S) in x's dtype with strides (s*b, s*l, s*h, 1), s*h may be 0;
 // y (B, L, H, P) contiguous in x's dtype. bf16 != 0 selects bfloat16 for
-// x, Bm, Cm and y, else fp32. P <= 64, S <= 128. Scratch, fp32 and
-// contiguous, NC = ceil(L / trim_ssd_chunk()): states (B, NC, H, 64, 128),
+// x, Bm, Cm and y, else fp32. Any P, S >= 1. Scratch, fp32 and contiguous,
+// NC = ceil(L / trim_ssd_chunk()), P' and S' P and S rounded up to whole
+// tiles (trim_ssd_tile_p(), trim_ssd_tile_s()): states (B, NC, H, P', S'),
 // cb (B, NC, ng, trim_ssd_cb_floats()), decay (B, H, NC); ng is 1 when Bm
 // and Cm both have stride 0 over H (one group, C B^T shared by the heads),
 // else H. vec_x / vec_bc: every row of x / of Bm and Cm starts on 16 bytes
-// and its P / S elements are whole 16 bytes. Returns the first launch's
-// cudaError_t that is not cudaSuccess, or cudaSuccess.
+// and its P / S elements are whole 16 bytes. Returns cudaErrorInvalidValue
+// for arguments out of range, among them a call the launch grid cannot
+// hold (B, NC or H past 65535, H x tiles past 2^31 - 1, S' from 2^30),
+// else the first launch's cudaError_t that is not cudaSuccess, or
+// cudaSuccess.
 int trim_ssd(const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* D, void* y, void* states, void* cb,
              void* decay, int bf16, long long B, long long L, long long H,
@@ -1067,7 +1173,12 @@ int trim_ssd(const void* x, const void* dt, const void* A, const void* Bm,
              long long sxl, long long sxh, long long sdb, long long sdl,
              long long sdh, long long sbb, long long sbl, long long sbh,
              long long scb, long long scl, long long sch, void* stream) {
-  if (P < 1 || P > kP || S < 1 || S > kS || L < 1 || H < 1 || B < 1 ||
+  const long long np = (P + kP - 1) / kP, ns = (S + kS - 1) / kS;
+  const long long NC = (L + kT - 1) / kT;
+  if (P < 1 || S < 1 || L < 1 || H < 1 || B < 1 || B > 65535 ||
+      NC > 65535 || H > 65535 || H * np * ns > 0x7fffffffLL ||
+      kS * ns >= (1LL << 30) ||
+      kPassBlocksPerTile * np * ns > 0x7fffffffLL ||
       !(ng == 1 || ng == H) || (ng == 1 && H > 1 && (sbh != 0 || sch != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   SsdArgs a;
@@ -1083,10 +1194,14 @@ int trim_ssd(const void* x, const void* dt, const void* A, const void* Bm,
   a.decay = static_cast<float*>(decay);
   a.L = L;
   a.H = H;
-  a.NC = (L + kT - 1) / kT;
+  a.NC = NC;
   a.P = P;
   a.S = S;
   a.ng = ng;
+  a.np = static_cast<int>(np);
+  a.ns = static_cast<int>(ns);
+  a.sp = kS * ns;
+  a.state_floats = kP * np * kS * ns;
   a.vec_x = vec_x;
   a.vec_bc = vec_bc;
   a.sxb = sxb;

@@ -16,22 +16,30 @@ stages and why its fp32 lane runs 3xTF32.
 The kernel is Mamba2's SSD decomposition in chunks of
 :data:`KERNEL_CHUNK` rows, four launches on the current stream counted as
 one call: C.B^T of each chunk's lower triangle once per (batch, chunk,
-group), each chunk's own end state per (batch, chunk, head), the states
-passed in chunk order, and each chunk's y per (batch, chunk, head).  The
-wrapper allocates its scratch with ``torch.empty``: the states (B, NC, H,
-64, 128) fp32 (NC chunks; 100 MB at mamba2-130m's 4 x 4096 prefill), the
-packed C.B^T (B, NC, groups, :data:`CB_FLOATS`) fp32 and the chunks'
-decays (B, H, NC).
+group), each chunk's own end state per (batch, chunk, head, P tile, S
+tile), the states passed in chunk order, and each chunk's y per (batch,
+chunk, head, P tile).  It takes any head dim P and state dim S, as the
+Pallas kernel does: P in tiles of :data:`TILE_P`, S in tiles of
+:data:`TILE_S` (C.B^T and C.h^T sum over S tile by tile in a fixed
+order, so two calls give the same bits).  :func:`plan` says what a call
+launches and allocates; :func:`check_launch` refuses, before the launch,
+only a call the launch grid cannot hold.  The wrapper allocates the
+scratch with ``torch.empty``: the states (B, NC, H, P', S') fp32, P and S
+rounded up to whole tiles (NC chunks; 100 MB at mamba2-130m's 4 x 4096
+prefill, 1.07 GB at jamba-1.5-large's), the packed C.B^T (B, NC, groups,
+:data:`CB_FLOATS`) fp32 and the chunks' decays (B, H, NC).
 
-B/C are per head, (B, L, H, S), as the Pallas driver takes them; a
+B/C are per head, (B, L, H, S), as ``trim_ssd_pallas`` takes them; a
 stride-0 ``expand`` over H of one group's (B, L, 1, S) is read in place,
-and its C.B^T computed once for every head.  Chunking is math-neutral:
-``chunk`` is the plain version's, and the kernel computes the same y in
-chunks of its own, up to rounding.
+and its C.B^T computed once for every head.  Several groups repeated over
+the heads (jamba's 8 over 128) are per head here: C.B^T once per head.
+Chunking is math-neutral: ``chunk`` is the plain version's, and the kernel
+computes the same y in chunks of its own, up to rounding.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -42,13 +50,18 @@ from repro_torch.kernels._autograd import refuse_grad
 #: callers set it to 0 before a run and read it after).
 LAUNCHES = 0
 
-#: The largest head dim and state dim the kernel is compiled for, its own
-#: chunk, and the floats of one chunk's packed C.B^T (its 16-row tiles on
-#: and below the diagonal).
-MAX_P = 64
-MAX_S = 128
+#: The kernel's tiles of the head dim and of the state dim, its own chunk,
+#: the floats of one chunk's packed C.B^T (its 16-row tiles on and below
+#: the diagonal) and the pass stage's blocks per (batch, head) and tile.
+TILE_P = 64
+TILE_S = 128
 KERNEL_CHUNK = 128
 CB_FLOATS = 128 * (KERNEL_CHUNK // 16) * (KERNEL_CHUNK // 16 + 1)
+PASS_BLOCKS_PER_TILE = TILE_P * TILE_S // 4 // 256
+
+#: CUDA's grid limits: blocks along x, and along y or z.
+_GRID_X = 2 ** 31 - 1
+_GRID_YZ = 65535
 
 _LIB_NAME = "trim_ssd"
 _SOURCES = ("trim_ssd.cu",)
@@ -99,16 +112,60 @@ def load_library() -> ctypes.CDLL:
         lib.trim_ssd.restype = i
         lib.trim_ssd_error_string.argtypes = [i]
         lib.trim_ssd_error_string.restype = ctypes.c_char_p
-        consts = ("trim_ssd_max_p", "trim_ssd_max_s", "trim_ssd_chunk",
-                  "trim_ssd_cb_floats")
+        consts = ("trim_ssd_tile_p", "trim_ssd_tile_s", "trim_ssd_chunk",
+                  "trim_ssd_cb_floats", "trim_ssd_pass_blocks_per_tile")
         for fn in consts:
             getattr(lib, fn).restype = i
         if tuple(getattr(lib, fn)() for fn in consts) != (
-                MAX_P, MAX_S, KERNEL_CHUNK, CB_FLOATS):
+                TILE_P, TILE_S, KERNEL_CHUNK, CB_FLOATS,
+                PASS_BLOCKS_PER_TILE):
             raise RuntimeError("trim_ssd library constants differ from the "
                                "wrapper's")
         _BOUND.add(lib)
     return lib
+
+
+class SsdPlan(NamedTuple):
+    """What one call launches and allocates, from the shapes alone."""
+    chunks: int                 # NC, chunks of KERNEL_CHUNK rows
+    p_tiles: int                # tiles of TILE_P head-dim columns
+    s_tiles: int                # tiles of TILE_S state columns
+    groups: int                 # C.B^T per (batch, chunk): 1 or H
+    states: Tuple[int, ...]     # (B, NC, H, P', S'), fp32
+    cb: Tuple[int, ...]         # (B, NC, groups, CB_FLOATS), fp32
+    grids: Tuple[Tuple[int, int, int], ...]  # cb, state, pass, out
+
+
+def plan(B: int, L: int, H: int, P: int, S: int,
+         shared: bool = False) -> SsdPlan:
+    """The kernel's launch plan for x (B, L, H, P) and B/C (B, L, H, S):
+    ``shared`` when B/C are one group expanded over the heads (C.B^T once
+    for all of them).  The grids are (x, y, z) of the cb, state, pass and
+    out stages."""
+    nc = -(-L // KERNEL_CHUNK)
+    npt, nst = -(-P // TILE_P), -(-S // TILE_S)
+    ng = 1 if shared or H == 1 else H
+    return SsdPlan(
+        chunks=nc, p_tiles=npt, s_tiles=nst, groups=ng,
+        states=(B, nc, H, npt * TILE_P, nst * TILE_S),
+        cb=(B, nc, ng, CB_FLOATS),
+        grids=((ng, nc, B), (H * npt * nst, nc, B),
+               (PASS_BLOCKS_PER_TILE * npt * nst, H, B), (H * npt, nc, B)))
+
+
+def check_launch(p: SsdPlan) -> None:
+    """Hold one call's plan against the launch grid before anything is
+    allocated; raise ``ValueError`` where the grid cannot hold the call (at
+    most 2^31 - 1 blocks along x and 65535 along y and z, a state row S'
+    below 2^30 floats)."""
+    for name, grid in zip(("cb", "state", "pass", "out"), p.grids):
+        if grid[0] > _GRID_X or max(grid[1:]) > _GRID_YZ:
+            raise ValueError(f"the launch grid cannot hold this call: the "
+                             f"{name} stage needs {grid} blocks (at most "
+                             f"{_GRID_X} along x, {_GRID_YZ} along y and z)")
+    if p.states[4] >= 2 ** 30:
+        raise ValueError(f"the launch grid cannot hold this call: a state "
+                         f"row of {p.states[4]} floats (below 2^30)")
 
 
 def _rows_whole(t: torch.Tensor) -> bool:
@@ -144,9 +201,6 @@ def trim_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, Bm, Cm, D, chunk)
     Bb, L, H, P = x.shape
     S = int(Bm.shape[3])
-    if P > MAX_P or S > MAX_S:
-        raise ValueError(f"head dim {P} / state {S}: the kernel takes at "
-                         f"most {MAX_P} / {MAX_S}")
     if any(t.device != x.device for t in (dt, A, Bm, Cm, D)):
         raise ValueError(f"every input must be on {x.device}")
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
@@ -155,21 +209,20 @@ def trim_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                              "kernel reads it contiguously")
     if min(min(t.stride()) for t in (x, dt, Bm, Cm)) < 0:
         raise ValueError("negative strides are not handled")
-    NC = -(-L // KERNEL_CHUNK)
-    if Bb > 65535 or NC > 65535:
-        raise ValueError(f"batch {Bb} or {NC} chunks exceed the launch grid")
+    # one group expanded over the heads: C.B^T once for all of them
+    p = plan(Bb, L, H, P, S,
+             shared=Bm.stride(2) == 0 and Cm.stride(2) == 0)
+    check_launch(p)
     dt = dt.float()
     A = A.float().contiguous()
     D = D.float().contiguous()
     y = torch.empty((Bb, L, H, P), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    # one group expanded over the heads: C.B^T once for all of them
-    ng = 1 if H == 1 or (Bm.stride(2) == 0 and Cm.stride(2) == 0) else H
     f32 = dict(dtype=torch.float32, device=x.device)
-    states = torch.empty((Bb, NC, H, MAX_P, MAX_S), **f32)
-    cb = torch.empty((Bb, NC, ng, CB_FLOATS), **f32)
-    decay = torch.empty((Bb, H, NC), **f32)
+    states = torch.empty(p.states, **f32)
+    cb = torch.empty(p.cb, **f32)
+    decay = torch.empty((Bb, H, p.chunks), **f32)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -177,7 +230,7 @@ def trim_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), D.data_ptr(), y.data_ptr(), states.data_ptr(),
             cb.data_ptr(), decay.data_ptr(),
-            int(x.dtype == torch.bfloat16), Bb, L, H, P, S, ng,
+            int(x.dtype == torch.bfloat16), Bb, L, H, P, S, p.groups,
             int(_rows_whole(x)), int(_rows_whole(Bm) and _rows_whole(Cm)),
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
             *Cm.stride()[:3], stream)

@@ -1773,14 +1773,19 @@ SSD_CASES = [
     (1, 128, 2, 16, 32, 32), (1, 1, 2, 64, 128, 8),
     (2, 100, 3, 64, 128, 64), (2, 65, 3, 64, 128, 64),
     (1, 300, 2, 64, 128, 256), (1, 4096, 2, 64, 128, 256),
+    # past one P tile (64) or S tile (128), whole and ragged; jamba's smoke
+    (1, 300, 2, 128, 128, 256), (1, 130, 3, 96, 192, 64),
+    (2, 65, 2, 200, 256, 64), (2, 100, 4, 16, 16, 32),
 ]
 
 
-def _ssd_inputs(case, dev, dtype=torch.float32, shared=True):
+def _ssd_inputs(case, dev, dtype=torch.float32, shared=True, seed=None):
     """tests/test_ssd_kernel.py's ranges; B/C of one group expanded over
-    H (stride 0), or per head, and x a column slice of a wider tensor."""
+    H (stride 0), or per head, and x a column slice of a wider tensor;
+    from ``seed``, by default the case's own (crc32 of it)."""
     B, L, H, P, S, _ = case
-    rng = np.random.default_rng(zlib.crc32(str(case).encode()))
+    rng = np.random.default_rng(zlib.crc32(str(case).encode())
+                                if seed is None else seed)
     f = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
     x = f(rng.normal(size=(B, L, H * P + 8)))[..., 8:].view(B, L, H, P)
     dt = f(rng.uniform(1e-3, 0.1, (B, L, H)))
@@ -1793,21 +1798,25 @@ def _ssd_inputs(case, dev, dtype=torch.float32, shared=True):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", [None, 0, 1, 2, 3],
+                         ids=["own", "s0", "s1", "s2", "s3"])
 @pytest.mark.parametrize("shared", [True, False], ids=["group", "per_head"])
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)
-def test_ssd_kernel_matches_plain_on_card(case, shared):
+def test_ssd_kernel_matches_plain_on_card(case, shared, seed):
     """On a card: the SSD kernel against its plain version in fp32 (TF32
-    off), within 2e-5; one launch a call; the same bits on a repeat call
-    (no atomics in the state pass) and from contiguous copies of the
-    inputs (expanded B/C are read in place, C.B^T once for the heads);
-    bf16 x/B/C within 5e-2 of the fp32 plain version."""
+    off), within 2e-5, on the case's own seed and four others (the fp32
+    sums' error grows with S and the rows of a chunk); one launch a call;
+    the same bits on a repeat call (no atomics in the state pass) and
+    from contiguous copies of the inputs (expanded B/C are read in place,
+    C.B^T once for the heads); bf16 x/B/C within 5e-2 of the fp32 plain
+    version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import trim_ssd as ks
 
     fp32_ieee()
     dev = torch.device("cuda")
-    x, dt, A, Bm, Cm, D = _ssd_inputs(case, dev, shared=shared)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(case, dev, shared=shared, seed=seed)
     assert (Bm.stride(2) == 0) == (shared and case[2] > 1)
     before = ks.LAUNCHES
     got = ks.trim_ssd(x, dt, A, Bm, Cm, D, chunk=case[5])
@@ -1822,7 +1831,8 @@ def test_ssd_kernel_matches_plain_on_card(case, shared):
                       Cm.contiguous(), D, chunk=case[5])
     assert torch.equal(rep, got)
     assert ks.LAUNCHES == before + 3
-    xb, _, _, Bb, Cb, _ = _ssd_inputs(case, dev, torch.bfloat16, shared)
+    xb, _, _, Bb, Cb, _ = _ssd_inputs(case, dev, torch.bfloat16, shared,
+                                      seed)
     got16 = ks.trim_ssd(xb, dt, A, Bb, Cb, D, chunk=case[5])
     assert got16.dtype == torch.bfloat16
     torch.testing.assert_close(got16.float(), want, rtol=5e-2, atol=5e-2)
@@ -1861,23 +1871,34 @@ def test_ssd_kernel_reads_unaligned_rows_on_card():
 
 @pytest.mark.gpu
 def test_ssd_kernel_refuses_what_it_does_not_take_on_card():
-    """On a card: a head dim or state past the kernel's, mixed dtypes and
-    a strided last axis raise; nothing falls back to the plain version."""
+    """On a card: a head dim or state one past a tile (65, 129) computes
+    (the kernel takes every P and S); more heads than the launch grid holds,
+    mixed dtypes and a strided last axis raise; nothing falls back to the
+    plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import trim_ssd as ks
 
+    fp32_ieee()
     dev = torch.device("cuda")
 
-    def inputs(P, S):
+    def inputs(P, S, H=2):
         z = lambda *s: torch.zeros(s, device=dev)
-        return z(1, 8, 2, P), z(1, 8, 2), z(2), z(1, 8, 2, S), \
-            z(1, 8, 2, S), z(2)
+        return z(1, 8, H, P), z(1, 8, H), z(H), z(1, 8, H, S), \
+            z(1, 8, H, S), z(H)
 
-    with pytest.raises(ValueError, match="at most"):
-        ks.trim_ssd(*inputs(65, 16))
-    with pytest.raises(ValueError, match="at most"):
-        ks.trim_ssd(*inputs(16, 129))
+    for case in ((1, 40, 2, 65, 16, 16), (1, 40, 2, 16, 129, 16)):
+        args = _ssd_inputs(case, dev, shared=False)
+        before = ks.LAUNCHES
+        got = ks.trim_ssd(*args, chunk=case[5])
+        assert ks.LAUNCHES == before + 1
+        torch.testing.assert_close(
+            got, ks.trim_ssd_plain(*args, chunk=case[5]), rtol=2e-5,
+            atol=2e-5)
+    before = ks.LAUNCHES
+    with pytest.raises(ValueError, match="launch grid cannot hold"):
+        ks.trim_ssd(*inputs(1, 1, H=65536))
+    assert ks.LAUNCHES == before
     x, dt, A, Bm, Cm, D = inputs(16, 16)
     with pytest.raises(ValueError, match="share"):
         ks.trim_ssd(x, dt, A, Bm.bfloat16(), Cm, D)

@@ -1,5 +1,6 @@
-"""The port imports neither jax nor the JAX package, and its entry points
-refuse to run on a missing card instead of falling back to the CPU."""
+"""The port and its examples (``examples/torch/``) import neither jax nor
+the JAX package, and its entry points refuse to run on a missing card
+instead of falling back to the CPU."""
 import ast
 import os
 import pathlib
@@ -11,12 +12,16 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
+EXAMPLES = REPO / "examples" / "torch"
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pathlib, pkgutil, sys
 import repro_torch, repro_torch.launch.serve_cnn, repro_torch.launch.serve
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
+for f in sorted(pathlib.Path(sys.argv[1]).glob("*.py")):
+    spec = importlib.util.spec_from_file_location("example_" + f.stem, f)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(bad)
@@ -26,7 +31,8 @@ sys.exit(1 if bad else 0)
 
 def test_import_loads_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+    proc = subprocess.run([sys.executable, "-c", _PROBE, str(EXAMPLES)],
+                          env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -49,7 +55,10 @@ def test_no_source_file_imports_jax_or_repro():
         assert PORT / "core" / name in files
     for name in ("specs.py", "hlo_stats.py", "dryrun.py", "dryrun_cnn.py"):
         assert PORT / "launch" / name in files
-    bad = [(str(f.relative_to(REPO)), m) for f in files
+    examples = sorted(EXAMPLES.glob("*.py"))
+    assert [f.name for f in examples] == [
+        "quickstart.py", "serve_lm.py", "train_cnn.py", "train_lm.py"]
+    bad = [(str(f.relative_to(REPO)), m) for f in files + examples
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
