@@ -5,11 +5,12 @@
     python3 chip_smoke.py --kernels  # environment, build and kernel phases
     python3 chip_smoke.py --drift 0,1,2  # environment, build and the drift
                                          # measurement only
-    python3 chip_smoke.py --parent DIR   # every phase; phases 3j and 3f
-                                         # also time the bf16 conv kernels
-                                         # and the SSD kernel of the
-                                         # checkout at DIR (the parent
-                                         # commit's)
+    python3 chip_smoke.py --parent DIR   # every phase; phases 3j, 3f and
+                                         # 3k also time the bf16 conv
+                                         # kernels, the SSD kernel, the
+                                         # flash prefill and gemma-7b's
+                                         # served prefill of the checkout
+                                         # at DIR (the parent commit's)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -32,7 +33,10 @@ Phases (any failure exits non-zero and prints no result line):
    missing, spills (the bf16 entries) or has none; the flash kernel's
    registers and spills per path (bf16 prefill, bf16 split decode, fp32)
    and head dim (8, 16, 32, 64, 128, 256), failing where an entry is
-   missing;
+   missing, and the ``HGMMA`` count of each bf16 prefill entry
+   (``flash_prefill_wg_kernel`` at D = 64, ``flash_prefill_kernel`` at
+   the others), failing where one spills, has its wgmma serialized by
+   ptxas or runs none;
 3. kernels: the TrIM conv kernel against its plain PyTorch version on the
    card, at the 13 VGG-16 conv shapes on the float lane (bias+ReLU) at
    batch 1 and at the train phase's batch 8 (image 0 of the batch also
@@ -156,6 +160,15 @@ Phases (any failure exits non-zero and prints no result line):
    llava-next-34b's (G = 7, D = 128) prefill q (4, 4096, 8, 7, 128)
    causal and decode q (4, 1, 8, 7, 128) over a (4, 4128, 8, 128) cache
    with kv_length 4097;
+3k. with ``--parent DIR``: the flash kernel's bf16 prefill at the rows
+   of phases 3d, 3g, 3h and 3i (gemma-7b, llava-next-34b, starcoder2-3b,
+   llama4-maverick, granite-3-2b, seamless's encoder) and gemma-7b's
+   decode, timed by ``tools/flash_times.py`` in DIR's checkout and in
+   this one in turns (parent, this, this, parent): gemma-7b's prefill
+   must be faster than the parent's, every other row within
+   FLASH_TURNS_SLACK of it; then gemma-7b's served prefill (phase 15's)
+   in turns, its wall and the flash kernel's device time in it
+   (``tools/serve_prefill_times.py``);
 3j. the bf16 lanes: kernel 1 in bf16 (bias + ReLU in fp32, one rounding)
    at VGG-16's 13 convs at batch 1 and 8 and AlexNet's 5 at batch 1, as
    dx at VGG-16's CL2-CL13 at batch 1 and 8, and kernel 2 in bf16 at
@@ -298,8 +311,9 @@ Phases (any failure exits non-zero and prints no result line):
    step, then through the decode step captured once as a CUDA graph, each
    after its own prefill: prefill ms, decode ms per step and tok/s of
    both, peak device memory of both and what the capture holds, a
-   ``torch.profiler`` split of the prefill, of 4 eager steps and of 4
-   replays (device busy time, idle share); conv1d launches exactly 24
+   ``torch.profiler`` split of the prefill (with the flash kernels' device
+   time in it beside the prefill's wall time, in every LM serve phase), of
+   4 eager steps and of 4 replays (device busy time, idle share); conv1d launches exactly 24
    (one per layer) in the prefill and 0 in decode, flash launches 0; the
    graph's tokens equal the eager run's, and from a third prefill its
    logits equal the eager step's at each of the 31 steps, bit for bit
@@ -785,30 +799,53 @@ def _log_conv_build() -> None:
 
 
 #: The flash kernel's entries, one per path and head dim: mangled-name
-#: fragment -> label.
-FLASH_ENTRIES = {f"{entry}ILi{D}EE": f"{path} D={D}"
-                 for entry, path in (("flash_prefill_kernel", "bf16 prefill"),
-                                     ("flash_decode_split_kernel",
-                                      "bf16 split decode"),
-                                     ("flash_attention_f32_kernel", "fp32"))
-                 for D in (8, 16, 32, 64, 128, 256)}
+#: fragment -> label; the bf16 prefill's is ``flash_prefill_wg_kernel`` at
+#: D <= 64, ``flash_prefill_kernel`` at D = 128 and 256.
+FLASH_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+FLASH_PREFILL_ENTRIES = {
+    f"flash_prefill_{'wg_' if D <= 64 else ''}kernelILi{D}EE":
+        f"bf16 prefill D={D}" for D in FLASH_HEAD_DIMS}
+FLASH_ENTRIES = {**FLASH_PREFILL_ENTRIES,
+                 **{f"{entry}ILi{D}EE": f"{path} D={D}"
+                    for entry, path in (("flash_decode_split_kernel",
+                                         "bf16 split decode"),
+                                        ("flash_attention_f32_kernel", "fp32"))
+                    for D in FLASH_HEAD_DIMS}}
 
 
 def _log_flash_build() -> None:
     """The flash kernel's registers and spills per path and head dim from
-    its ``-Xptxas -v`` build log; fails where an entry is missing (spills
-    are logged: the bf16 prefill's consumers run at most 168 registers by
-    ptxas's count, whatever setmaxnreg raises them to at run time)."""
+    its ``-Xptxas -v`` build log, and the ``HGMMA`` (wgmma) count of each
+    bf16 prefill entry's SASS; fails where an entry is missing, where a
+    prefill entry spills, has its wgmma serialized by ptxas ("Potential
+    Performance Loss" in the log) or runs no ``HGMMA``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
-    found = _ptxas_by_entry(
-        _build.build_log(fa._LIB_NAME, fa._SOURCES) or "", FLASH_ENTRIES)
+    text = _build.build_log(fa._LIB_NAME, fa._SOURCES) or ""
+    found = _ptxas_by_entry(text, FLASH_ENTRIES)
     for label in FLASH_ENTRIES.values():
         info = found.get(label)
         log(f"flash kernel, {label}: {info or 'not in the log'}")
         if info is None:
             fail(f"flash kernel {label}: not in the build log")
+    for key, label in FLASH_PREFILL_ENTRIES.items():
+        serial = [line for line in text.splitlines()
+                  if "serialized" in line and key in line]
+        if any(int(v) for v in re.findall(r"(\d+) bytes spill",
+                                          found[label])) or serial:
+            fail(f"flash kernel {label}: spills or serialized wgmma "
+                 f"({found[label]}; {serial[:1]})")
+    hg, sass = _sass_counts(
+        _build.library_path(fa._LIB_NAME, fa._SOURCES),
+        {k: (v, "HGMMA") for k, v in FLASH_PREFILL_ENTRIES.items()})
+    for label in FLASH_PREFILL_ENTRIES.values():
+        n = hg.get(label)
+        log(f"flash kernel, {label}: "
+            + ("not in the SASS" if n is None else f"{n} HGMMA instructions"))
+        if not n:
+            fail(f"flash kernel {label}: no HGMMA in its SASS (cuobjdump rc "
+                 f"{sass.returncode}: {sass.stderr.strip()[:200]})")
 
 
 #: The SSD kernel's stages per lane: mangled-name fragment -> label.
@@ -4250,6 +4287,14 @@ def phase_lm_serve(torch, arch: str, n_layers: int = 0):
     # above (the profiler's own overhead stays out of the share)
     pre_prof = _profile(torch, f"lm {arch} prefill", prefill_s * 1e3,
                         lambda: prefill(params, batch0, c))
+    if pre_prof is not None:
+        flash = {k: v for k, v in pre_prof["kernel_ms"].items()
+                 if "flash_" in k}
+        log(f"lm serve {arch}: prefill wall {prefill_s * 1e3:.3f} ms; flash "
+            f"device time {sum(flash.values()):.3f} ms in the profiled "
+            f"prefill over "
+            f"{sum(pre_prof['kernels'][k] for k in flash)} launches "
+            f"({', '.join(sorted(set(re.findall(r'flash_[a-z_0-9]+', ' '.join(flash)))))})")
     if cfg.family == "encdec":
         _encoder_split(torch, arch, model, params, batch0, prefill_s,
                        pre_prof)
@@ -4540,7 +4585,9 @@ def _profile(torch, what: str, wall_ms: float, fn, calls: int = 1,
         f"wall (idle share {idle:.3f}); "
         f"{sum(e.count for e in kernels) // calls} kernels; by op: {top}")
     return {"busy": busy, "idle": idle,
-            "kernels": {e.key: e.count for e in kernels}}
+            "kernels": {e.key: e.count for e in kernels},
+            "kernel_ms": {e.key: e.self_device_time_total / 1e3 / calls
+                          for e in kernels}}
 
 
 def phase_lm_checks(torch, arch: str):
@@ -5121,6 +5168,59 @@ def phase_flash_families(torch, reps: int):
                     torch, f"{arch} {shape}", LM_BATCH, Sq, Sk, H, G, D,
                     causal, kvl, n, dtype=dtype)
     return rows
+
+
+#: the bf16 prefill rows (and gemma-7b's decode) that
+#: ``tools/flash_times.py`` times, held in turns against the parent
+#: checkout's: gemma-7b's prefill must run faster than the parent's, and
+#: every other row at most FLASH_TURNS_SLACK times the parent's time
+FLASH_TURNS_SLACK = 1.03
+FLASH_TURNS_FASTER = "gemma-7b prefill"
+
+
+def phase_flash_turns(torch, parent):
+    """With ``parent`` (a checkout of the parent commit): the flash
+    kernel's bf16 prefill at gemma-7b's, llava-next-34b's, starcoder2-3b's,
+    llama4-maverick's and granite-3-2b's full-width shapes, seamless's
+    encoder and gemma-7b's decode, timed by ``tools/flash_times.py`` in
+    the parent checkout and here in turns (parent, this, this, parent), the
+    rows of phases 3d, 3g, 3h and 3i, each the mean of its two turns; fails
+    where gemma-7b's prefill is not faster than the parent's or another
+    row is more than FLASH_TURNS_SLACK times the parent's.  Then gemma-7b's
+    served prefill (phase 15's) in turns, by
+    ``tools/serve_prefill_times.py``: its wall and the flash kernel's
+    device time in it, logged.  Does nothing without ``parent``."""
+    if parent is None:
+        log("flash: the parent's times not measured (run with --parent DIR, "
+            "a checkout of the parent commit)")
+        return
+    before, *mine, after = (_timing_tool("flash_times.py", c)
+                            for c in (parent, ROOT, ROOT, parent))
+    slow = []
+    for name in before:
+        p = (before[name] + after[name]) / 2
+        t = (mine[0][name] + mine[1][name]) / 2
+        limit = 1.0 if name == FLASH_TURNS_FASTER else FLASH_TURNS_SLACK
+        log(f"flash {name} in turns: parent {before[name]:.4f}, this "
+            f"{mine[0][name]:.4f}, this {mine[1][name]:.4f}, parent "
+            f"{after[name]:.4f} ms; this / parent {t / p:.4f} (below "
+            f"{limit:.2f})")
+        if t >= limit * p:
+            slow.append(f"{name} {t / p:.4f}x")
+    if slow:
+        fail(f"flash in turns: slower than the parent's: {slow}")
+    # phase 15's model on the card alone (the earlier phases' memory freed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before, *mine, after = (_timing_tool("serve_prefill_times.py", c)
+                            for c in (parent, ROOT, ROOT, parent))
+    for name, unit in (("prefill wall", "ms"), ("flash device", "ms"),
+                       ("flash launches", "")):
+        turns = [t[name] for t in (before, *mine, after)]
+        log(f"{GEMMA_ARCH} served prefill, {name} in turns (parent, this, "
+            f"this, parent): {', '.join(f'{x:.3f}' for x in turns)} {unit}"
+            + ("; not measured (the profiler saw no flash kernel)"
+               if name == "flash device" and 0 in turns else ""))
 
 
 def phase_probe_families(torch, rounds: int, reps: int) -> None:
@@ -7160,7 +7260,9 @@ def main() -> None:
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: phase 3j times "
                     "its bf16 kernels at batch 8 beside this one's, phase "
-                    "3f its SSD kernel at mamba2-130m's shape")
+                    "3f its SSD kernel at mamba2-130m's shape, and after "
+                    "phase 3i its flash kernel at the LM phases' bf16 "
+                    "prefill shapes, each in turns")
     ap.add_argument("--probe-families", type=int, metavar="N",
                     help="only run phases 3i and 3e, N times over, each "
                     "row logged as it ends; no result line")
@@ -7215,6 +7317,7 @@ def main() -> None:
     code_rows = phase_flash_code(torch, args.reps)
     dim_rows = phase_flash_dims(torch, args.reps)
     fam_rows = phase_flash_families(torch, args.reps)
+    phase_flash_turns(torch, args.parent)
     mrows = phase_matmul(torch, args.reps, max(3, args.reps // 10))
     srows = phase_ssd(torch, args.reps, args.parent)
     if args.kernels:

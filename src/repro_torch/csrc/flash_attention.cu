@@ -12,26 +12,48 @@
 // output is rounded once to q's dtype.
 //
 // Three kernels, chosen by dtype and shape:
-// - bf16, more than kSplitRows flattened rows (prefill): warpgroup MMA.
-//   A block owns 192 rows (D <= 64) or 128 rows (D = 128, 256) of one
-//   (b, h): a producer warpgroup, cut to 24 registers by setmaxnreg, whose
-//   one thread brings 128-key (64-key at D = 256) K and V tiles in by TMA
-//   (one CUtensorMap each over (D, Sk, H, B) with the caller's strides,
-//   128-byte swizzle) into a ring of 3 (2) stages with mbarrier full/empty
-//   pairs; and three (two) consumer warpgroups of 64 rows (16 positions x
-//   G = 4: the G q heads of a KV head share every tile), raised to 160
-//   (240) registers, the most the 65536 of an SM allow. At D = 256 the
-//   64-key tile keeps two stages of K and V (128 KB) and two warpgroups'
-//   Q (64 KB) within the 227 KB of a block, and S (64 x 64) beside the
-//   64 x 256 fp32 O (128 registers a thread) within 240 registers; O += P V
-//   is two m64n128 products per 16 keys. Each loads its Q once
-//   into shared memory (the same swizzle), then per tile S = Q K^T is
-//   wgmma m64n128k16 with both operands in shared memory, the softmax runs
-//   on S in registers (exp2 with scale * log2(e) folded into one FFMA; the
-//   mask only on tiles that cross the causal diagonal or n_valid), and
-//   O += P V is wgmma with P (rounded to bf16: the one rounding this lane
-//   adds beyond the output's) in registers and V read MN-major (the
-//   transpose bit). Blocks start with the longest (last) row tiles.
+// - bf16, more than kSplitRows flattened rows (prefill): warpgroup MMA
+//   (wgmma) on K and V tiles brought in by TMA (one CUtensorMap each over
+//   (D, Sk, H, B) with the caller's strides, 128-byte swizzle) into a
+//   ring of stages with mbarriers. A block owns 64 rows per warpgroup
+//   (16 positions x G = 4: the G q heads of a KV head share every tile)
+//   of one (b, h). Each warpgroup loads its Q once into shared memory
+//   (cp.async, the same swizzle); per tile S = Q K^T is wgmma with both
+//   operands in shared memory, the softmax runs on S in registers (exp2
+//   with scale * log2(e) folded into one FFMA; the mask only on tiles
+//   that cross the causal diagonal or n_valid; fp32 m, l and O), and
+//   O += P V is wgmma with P (rounded to bf16 once: the one rounding this
+//   lane adds beyond the output's) in registers and V read MN-major (the
+//   transpose bit). Blocks take the (b, h) pairs two by two, the longest
+//   (last) row tiles of the two first (prefill_block); the sums run in a
+//   fixed order (the same bits every call).
+//   flash_prefill_kernel (D = 128, 256) has no warp that only loads:
+//   ptxas gives every thread of a block the same registers, and a block
+//   of 2 warpgroups plus one loading warp puts 3 warps on one of an SM's
+//   four 16384-register sub-partitions, capping every thread at 168
+//   registers; setmaxnreg does not lift that cap for ptxas, which then
+//   spills and serializes the wgmma chain. Two warpgroups alone get 255.
+//   Thread 0 loads the first kStages tiles, and the last warp to read a
+//   stage (a shared-memory count) loads the tile kStages on into it, so
+//   no warp waits for a free slot.
+//   * D = 256 (gemma-7b): 128 rows, 80-key tiles, 2 stages, 256 threads.
+//     Shared memory: Q 2 x 64 x 256 x 2 B = 64 KB, K and V 2 stages x
+//     2 x 80 x 256 x 2 B = 160 KB: 224 KB + 48 B of barriers and counts,
+//     of the 227 KB of a block. Registers a thread: O 64 x 256 fp32 / 128
+//     threads = 128, S 64 x 80 / 128 = 40, P 20 (bf16 pairs), all live at
+//     once, and the rest for addresses and row state: ptxas uses 232 of
+//     255, no spill. The warpgroup overlaps its own chain: tile j's S = Q K_j^T
+//     and the previous tile's O += P_{j-1} V_{j-1} are issued together,
+//     the softmax of S_j runs while P_{j-1} V_{j-1} is still on the
+//     tensor cores (wgmma_wait<1>), and O is rescaled once that is done
+//     (only when a row's max has grown by 2^kRescaleLog2, at D = 128 too).
+//     K and V of a stage have mbarriers and counts of their own: K is
+//     freed once S is in, V once P V is done.
+//   * D = 128: 128 rows, 128-key tiles, 2 stages, the serial chain (S,
+//     softmax, P V; one mbarrier and count a stage); 32 + 128 KB.
+//   flash_prefill_wg_kernel (D <= 64, the head dim padded to 64 columns)
+//   keeps a producer warpgroup beside three consumers (its comment says
+//   why): 192 rows, 128-key tiles, 3 stages, the serial chain.
 // - bf16, at most kSplitRows rows (decode): split over the keys in one
 //   launch (flash-decoding). Blocks (split, h, b); a split is whole
 //   kSplitTile-key tiles, planned on the host from B, H, the rows and Sk
@@ -83,7 +105,11 @@
 // D = 64 one exp2 per score costs the MUFU unit as much time as the
 // score's 256 tensor-core operations, which the consumer warpgroups
 // overlap with each other's products (a third warpgroup at D = 64 hides
-// more of each one's serial product-softmax-product chain). At decode
+// more of each one's serial product-softmax-product chain); at D = 256
+// the products are 4x the exp2s' time, and the shared memory's 128 bytes
+// a clock an SM come near their bound too (each warpgroup's m64n80k16
+// reads 2 KB of Q and 2.5 KB of K from shared memory, each m64n128k16 of
+// P V 4 KB of V, besides the TMA writes). At decode
 // (Sq = 1) 4 G D operations per key against 4 D bytes read per key: bound
 // by the bytes of the K/V cache read, so the split puts enough blocks in
 // flight to fill the card.
@@ -103,9 +129,14 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kF32Rows = 32;  // fp32 lane: rows per block (4 threads each)
 constexpr int kF32Keys = 32;  // fp32 lane: keys per tile
-// bf16 prefill: the least rows per block (two consumer warpgroups of 64,
-// at D = 128 and 256; PfSmem<D> gives each head dim's rows and keys)
-constexpr int kPfRows = 128;
+// bf16 prefill: keys per K/V tile at D = 256 (PfTile<D> and PfWgTile<D>
+// give each head dim's geometry)
+constexpr int kD256Keys = 80;
+// flash_prefill_kernel's running row max moves once a new one exceeds it
+// by 2^kRescaleLog2 (in the scores' units: 256x)
+constexpr float kRescaleLog2 = 8.0f;
+// (b, h) pairs whose blocks the prefill runs together (prefill_block)
+constexpr long long kPrefillPairs = 2;
 // bf16 split decode: rows (one mma.sync fragment), the split's unit in
 // keys, warps, stages of a warp's ring (SplitSmem<D> gives a warp's
 // sub-tile in keys)
@@ -275,16 +306,17 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 64, fp32) = A (64 x 16) B (16 x 64) [+ d when scale_d], bf16 in:
+// d (64 x 80, fp32) = A (64 x 16) B (16 x 80) [+ d when scale_d], bf16 in:
 // A and B from shared memory, both K-major (descriptors da, db).
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+__device__ __forceinline__ void wgmma_ss_m64n80(float (&d)[40], uint64_t da,
                                                uint64_t db, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -292,33 +324,479 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------
-// bf16 prefill: wgmma, TMA, a producer warpgroup and two consumers
+// bf16 prefill: wgmma, TMA, a producer warp and two or three consumers
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory of the prefill block, in bytes from a 1024-byte
-// aligned base: each consumer warpgroup's Q (64 rows), then the ring of
-// kStages (K tile, V tile) pairs, then the full and empty mbarriers. A
-// tile is kDP / 64 column blocks of 64 bf16 x rows, each row 128 bytes in
-// the 128-byte swizzle (what TMA writes and wgmma reads). Below D = 64 the
-// head dim is one column block whose columns past D hold zeros.
+// The block's geometry at head dim D = 128 or 256 (tile arithmetic in the
+// file header). Dynamic shared memory, in bytes from a 1024-byte aligned
+// base: each warpgroup's Q (64 rows), then the ring of kStages (K tile, V
+// tile) pairs, then a K and a V mbarrier a stage (the tile has landed)
+// and a K and a V count a stage of the warps that have read it (K is read
+// once S is in, V once P V is done). A tile is D / 64 column blocks of 64
+// bf16 x rows, each row 128 bytes in the 128-byte swizzle (what TMA
+// writes and wgmma reads).
 template <int D>
-struct PfSmem {
-  static constexpr int kDP = D < 64 ? 64 : D;  // the head dim, padded
+struct PfTile {
+  static_assert(D == 128 || D == 256, "flash_prefill_kernel is built for "
+                "D = 128 and 256 (flash_prefill_wg_kernel takes D <= 64)");
+  static constexpr int kDP = D;  // the head dim
+  // two warpgroups of 64 rows, rows and threads per block; ptxas may give
+  // every thread 255 registers under __launch_bounds__(kThreads, 1): each
+  // of an SM's four 16384-register sub-partitions holds 2 of the 8 warps
+  static constexpr int kWGs = 2;
+  static constexpr int kRows = 64 * kWGs;
+  static constexpr int kThreads = 128 * kWGs;
+  static constexpr int kRegs = 255;
+  static constexpr int kKeys = D == 256 ? kD256Keys : 128;  // keys per tile
+  static constexpr int kStages = 2;
+  static constexpr bool kOverlap = D == 256;
+  static constexpr int kDB = kDP / 64;           // 64-column blocks
+  static constexpr int kQBlk = 64 * 128;         // a Q column block
+  static constexpr int kBlk = kKeys * 128;       // a K or V column block
+  static constexpr int kWgQ = kDB * kQBlk;       // one warpgroup's Q
+  static constexpr int kTile = kDB * kBlk;       // one K or V tile
+  static constexpr int kRing = kWGs * kWgQ;
+  static constexpr int kBar = kRing + kStages * 2 * kTile;
+  // + two mbarriers and two arrival counters a stage, + alignment
+  static constexpr int kBytes = kBar + 2 * kStages * (8 + 4) + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
+  // a thread's O (kDP / 2 fp32) and S (kKeys / 2 fp32), and with the
+  // overlap P (kKeys / 4 bf16 pairs) too, live together, with at least 24
+  // registers left for addresses and row state
+  static_assert(kDP / 2 + kKeys / 2 + (kOverlap ? kKeys / 4 : 0) + 24 <= kRegs,
+                "O, S and P do not fit a thread's registers");
+};
+
+// Block -> (row tile r0, b, h) of either prefill kernel: the (b, h) pairs
+// in groups of kPrefillPairs, in a group the last (longest, when causal)
+// row tiles first, of each pair in turn. The blocks in flight then read
+// the K and V of a few pairs, which stay in L2 (with every pair's row
+// tile taken in turn, the blocks in flight span up to 132 pairs, whose K
+// and V L2 does not hold: 4 MB a pair at gemma-7b's 4096 keys).
+__device__ __forceinline__ void prefill_block(long long n_rt, long long BH,
+                                              long long H, int rows,
+                                              long long& r0, long long& b,
+                                              long long& h) {
+  const long long bid = blockIdx.x;
+  const long long g0 = bid / (kPrefillPairs * n_rt) * kPrefillPairs;
+  const long long in_g = bid % (kPrefillPairs * n_rt);
+  const long long g_n = kPrefillPairs < BH - g0 ? kPrefillPairs : BH - g0;
+  const long long bh = g0 + in_g % g_n;
+  r0 = (n_rt - 1 - in_g / g_n) * rows;
+  b = bh / H;
+  h = bh % H;
+}
+
+// The shared-memory descriptors step by their start address: adding
+// bytes / 16 to one moves it that many bytes (no carry out of its 14-bit
+// address field within a block's shared memory).
+
+// S = Q K^T of one warpgroup's 64 rows (64 x kKeys, fp32), both operands
+// in shared memory, K-major (descriptors dq of its Q, dk of the K tile).
+template <int D>
+__device__ __forceinline__ void prefill_qk(float (&s)[PfTile<D>::kKeys / 2],
+                                           uint64_t dq, uint64_t dk) {
+  using L = PfTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t a = dq + ((kk / 4) * L::kQBlk + (kk % 4) * 32) / 16;
+    const uint64_t b = dk + ((kk / 4) * L::kBlk + (kk % 4) * 32) / 16;
+    if constexpr (L::kKeys == 128)
+      wgmma_ss_m64n128(s, a, b, kk > 0);
+    else
+      wgmma_ss_m64n80(s, a, b, kk > 0);
+  }
+}
+
+// O += P V: P from registers (the accumulator layout of S is the
+// A-fragment layout of P), 16 keys per wgmma, the V tile (descriptor dv)
+// read MN-major; at D = 128 one m64n128 a 16 keys, at D = 256 two.
+template <int D>
+__device__ __forceinline__ void prefill_pv(
+    float (&o)[PfTile<D>::kDP / 2],
+    const uint32_t (&p)[PfTile<D>::kKeys / 16][4], uint64_t dv) {
+  using L = PfTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < L::kKeys / 16; ++kk)
+#pragma unroll
+    for (int hh = 0; hh < L::kDP / 128; ++hh)
+      wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(o + 64 * hh), p[kk],
+                       dv + (hh * 2 * L::kBlk + kk * 16 * 128) / 16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(PfTile<D>::kThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const FlashArgs a, const int B) {
+  using L = PfTile<D>;
+  constexpr int kDP = L::kDP;
+  constexpr int kDB = L::kDB;
+  constexpr int kKeys = L::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  // warp-uniform by construction (a lane's broadcast): the barriers' and
+  // descriptors' arithmetic stays in uniform registers
+  const uint32_t sbase = __shfl_sync(0xffffffffu, smem_addr(sm), 0);
+  // stage st's K tile has landed: the mbarrier at kfull + 8 st; its V
+  // tile: vfull + 8 st; the warps that have read its K (V), counted up
+  // without reset: arrivals[st] (arrivals[kStages + st])
+  const uint32_t kfull = sbase + L::kBar;
+  const uint32_t vfull = kfull + 8 * L::kStages;
+  int* arrivals = reinterpret_cast<int*>(sm + L::kBar + 16 * L::kStages);
+
+  const long long M = a.Sq * a.G;
+  const long long BH = static_cast<long long>(B) * a.H;
+  const long long n_rt = (M + L::kRows - 1) / L::kRows;
+  long long r0, b, h;
+  prefill_block(n_rt, BH, a.H, L::kRows, r0, b, h);
+  const int n_valid = static_cast<int>(valid_keys(a, b));
+  const int n_keys = static_cast<int>(loop_keys(a, n_valid, r0, L::kRows));
+  const int n_tiles = (n_keys + kKeys - 1) / kKeys;
+
+  // K_t (kv 0), V_t (kv 1) or both (kv 2) into stage t % kStages, by one
+  // thread; the serial chain waits for both on the K mbarrier.
+  auto load = [&](int kv, int t) {
+    const int st = t % L::kStages;
+    const uint32_t full = (kv == 1 ? vfull : kfull) + 8 * st;
+    mbar_arrive_expect_tx(full, (kv == 2 ? 2 : 1) * L::kTile);
+#pragma unroll
+    for (int i = kv & 1; i < (kv ? 2 : 1); ++i)
+#pragma unroll
+      for (int db = 0; db < kDB; ++db)
+        tma_load_4d(sbase + L::kRing + st * 2 * L::kTile + i * L::kTile +
+                        db * L::kBlk,
+                    i ? &v_map : &k_map, full, db * 64, t * kKeys,
+                    static_cast<int>(h), static_cast<int>(b));
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(kfull + 8 * st, 1);
+      mbar_init(vfull + 8 * st, 1);
+      arrivals[st] = arrivals[L::kStages + st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < L::kStages && t < n_tiles; ++t) {
+      if (L::kOverlap) {
+        load(0, t);
+        load(1, t);
+      } else {
+        load(2, t);
+      }
+    }
+  }
+  __syncthreads();
+
+  // Warpgroup wg owns rows [r0 + 64 wg, r0 + 64 wg + 64).
+  const int ct = threadIdx.x % 128;
+  // warp-uniform by construction, as sbase
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int warp = ct / 32;
+  const int lane = ct % 32;
+  const int g8 = lane >> 2;  // accumulator row within 8
+  const int t4 = lane & 3;   // accumulator column pair
+  const long long wr0 = r0 + wg * 64;
+  // this warpgroup's Q, stage st's K tile and V tile (descriptors made
+  // where they are used, from warp-uniform addresses)
+  const uint32_t qs = sbase + wg * L::kWgQ;
+  auto dk = [&](int st) {
+    return sw128_desc(sbase + L::kRing + st * 2 * L::kTile, 16);
+  };
+  auto dv = [&](int st) {
+    return sw128_desc(sbase + L::kRing + st * 2 * L::kTile + L::kTile,
+                      L::kBlk);
+  };
+  {
+    // Q into shared memory once by cp.async, in the tiles' swizzle; rows
+    // past M are zero-filled.
+    constexpr int kChunks = kDP / 8;  // 16-byte chunks per row
+    const __nv_bfloat16* qb =
+        static_cast<const __nv_bfloat16*>(a.q) + b * a.qsb + h * a.qsh;
+    for (int i = ct; i < 64 * kChunks; i += 128) {
+      const int r = i / kChunks;
+      const int c = i % kChunks;
+      const long long row = wr0 + r;
+      const bool ok = row < M;
+      cp_async16(sm + wg * L::kWgQ + (c / 8) * L::kQBlk + r * 128 +
+                     (((c % 8) ^ (r & 7)) << 4),
+                 ok ? qb + (row / a.G) * a.qss + (row % a.G) * a.qsg + c * 8
+                    : qb,
+                 ok);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
+
+  // This thread's two rows (g8, g8 + 8 of its warp's 16): the last key
+  // each sees when causal; the warpgroup's first row's, for the tiles that
+  // need no causal mask.
+  long long row[2];
+  int last[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = wr0 + warp * 16 + g8 + 8 * i;
+    last[i] = static_cast<int>(a.q_offset + row[i] / a.G);
+  }
+  const int first_last = static_cast<int>(a.q_offset + wr0 / a.G);
+  const int Sk = static_cast<int>(a.Sk);
+  const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
+
+  float o[kDP / 2];  // o[4 j + 2 i + c]: row i, column 8 j + 2 t4 + c
+#pragma unroll
+  for (int e = 0; e < kDP / 2; ++e) o[e] = 0.0f;
+  // S = Q K^T of a tile (64 x kKeys, fp32): s[4 n + 2 i + c] is row i,
+  // key 8 n + 2 t4 + c; after the softmax, P unrounded
+  float s[kKeys / 2];
+  uint32_t p[kKeys / 16][4];  // P in bf16, the A fragments of P V
+  float m_run[2] = {-INFINITY, -INFINITY};  // in units of log2
+  float l_run[2] = {0.0f, 0.0f};  // this thread's share; summed at the end
+  float alpha[2], rs[2];
+  bool rescale = false;  // the warp's last softmax moved its running max
+
+  // The tile holding n_valid: TMA zero-fills only past Sk, and V rows in
+  // [n_valid, Sk) may hold anything (a cache past kv_length). Each
+  // warpgroup zeroes them before its P V of the tile (both write the same
+  // zeros).
+  auto zero_v = [&](int j, int st) {
+    const int key0 = j * kKeys;
+    if (key0 + kKeys > n_valid && n_valid < Sk) {
+      unsigned char* vg = sm + L::kRing + st * 2 * L::kTile + L::kTile;
+      for (int i = ct; i < kKeys * kDB * 8; i += 128) {
+        const int r = i / (kDB * 8);
+        const int c = i % (kDB * 8);
+        if (key0 + r >= n_valid)
+          *reinterpret_cast<uint4*>(vg + (c / 8) * L::kBlk + r * 128 +
+                                    (c % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+    }
+  };
+  // The online softmax of tile j on S in registers, in units of log2:
+  // p = 2^(s sl2 - m) (exp2 with scale * log2(e) folded into one FFMA),
+  // the mask only on tiles that cross n_valid or the causal diagonal.
+  // Leaves P (unrounded) in s, whether O is to be rescaled in rescale,
+  // each row's factor in alpha (1 where not) and its sum of P in rs;
+  // touches no O.
+  auto softmax = [&](int j) {
+    const int key0 = j * kKeys;
+    if (key0 + kKeys > n_valid ||
+        (a.causal && key0 + kKeys - 1 > first_last)) {
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = key0 + n * 8 + t4 * 2 + (c & 1);
+          if (key >= n_valid || (a.causal && key > last[c >> 1]))
+            s[4 * n + c] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[4 * n + c]);
+    float m_new[2], mu[2];
+    bool grow = false;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_new[i] = fmaxf(m_run[i], mx[i] * sl2);
+      grow |= m_new[i] > m_run[i] + kRescaleLog2;
+    }
+    // The running max moves only when a row of the warp outgrows it by
+    // 2^kRescaleLog2: then every row takes its new max and O its rescale
+    // (warp-wide, so the 2 x kDP / 2 multiplies are skipped or done by the
+    // whole warp). Else P is taken against the older max: each p is at most
+    // 2^kRescaleLog2, which fp32 l and O hold and bf16 rounds to the same
+    // relative precision, and O / l is the same sum.
+    rescale = __any_sync(0xffffffffu, grow);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      alpha[i] = 1.0f;
+      if (rescale) {
+        const float m = m_new[i] == -INFINITY ? 0.0f : m_new[i];
+        alpha[i] = ex2(m_run[i] - m);
+        m_run[i] = m_new[i];
+      }
+      mu[i] = m_run[i] == -INFINITY ? 0.0f : m_run[i];  // a row with no key
+      rs[i] = 0.0f;
+    }
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[4 * n + c] = ex2(fmaf(s[4 * n + c], sl2, -mu[c >> 1]));
+        rs[c >> 1] += s[4 * n + c];
+      }
+  };
+  // P rounded to bf16 once: the one rounding this lane adds beyond the
+  // output's.
+  auto round_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  };
+  // This warp has read K_t (kv 0), V_t (kv 1) or both (kv 2): the last
+  // of the block's warps to say so for a stage loads the tile kStages on
+  // into it. No warp only loads (with one, a sub-partition would hold
+  // three warps and ptxas would cap every thread at 168 registers), and
+  // none waits for a free slot. Each warp's reads of the stage are done
+  // (wgmma_wait) before its count, so the load follows all of them.
+  auto release = [&](int kv, int t) {
+    if (lane == 0) {
+      const int before =
+          atomicAdd(arrivals + (kv & 1) * L::kStages + t % L::kStages, 1);
+      if ((before + 1) % (4 * L::kWGs) == 0 && t + L::kStages < n_tiles)
+        load(kv, t + L::kStages);
+    }
+  };
+
+  if (!L::kOverlap) {
+    // The serial chain: S_j, its softmax, then O += P_j V_j.
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % L::kStages;
+      mbar_wait(kfull + 8 * st, (j / L::kStages) & 1);
+      wgmma_fence();
+      prefill_qk<D>(s, sw128_desc(qs, 16), dk(st));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      softmax(j);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
+      if (rescale) {
+#pragma unroll
+        for (int e = 0; e < kDP / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+      }
+      round_p();
+      zero_v(j, st);
+      wgmma_fence();
+      prefill_pv<D>(o, p, dv(st));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(o);
+      release(2, j);
+    }
+  } else if (n_tiles > 0) {
+    // Tile 0: S, then its softmax (O is still 0: nothing to rescale).
+    mbar_wait(kfull, 0);
+    wgmma_fence();
+    prefill_qk<D>(s, sw128_desc(qs, 16), dk(0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    release(0, 0);
+    softmax(0);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_run[i] = rs[i];
+    round_p();
+    // Tile j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} issued together; the
+    // softmax of S_j runs on the CUDA cores and MUFU while the tensor
+    // cores still work on P_{j-1} V_{j-1}; O is rescaled once that is done.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % L::kStages;
+      const int prev = (j - 1) % L::kStages;
+      mbar_wait(kfull + 8 * st, (j / L::kStages) & 1);
+      mbar_wait(vfull + 8 * prev, ((j - 1) / L::kStages) & 1);
+      zero_v(j - 1, prev);
+      wgmma_fence();
+      prefill_qk<D>(s, sw128_desc(qs, 16), dk(st));
+      wgmma_commit();
+      prefill_pv<D>(o, p, dv(prev));
+      wgmma_commit();
+
+      wgmma_wait<1>();  // S_j is in
+      pin(s);
+      release(0, j);
+      softmax(j);
+      wgmma_wait<0>();  // and P_{j-1} V_{j-1}
+      pin(o);
+      release(1, j - 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
+      if (rescale) {
+#pragma unroll
+        for (int e = 0; e < kDP / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+      }
+      round_p();
+    }
+    const int st = (n_tiles - 1) % L::kStages;
+    mbar_wait(vfull + 8 * st, ((n_tiles - 1) / L::kStages) & 1);
+    zero_v(n_tiles - 1, st);
+    wgmma_fence();
+    prefill_pv<D>(o, p, dv(st));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(o);
+    release(1, n_tiles - 1);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (row[i] >= M) continue;
+    const float den = fmaxf(l, 1e-20f);
+    __nv_bfloat16* dst =
+        out +
+        (((b * a.Sq + row[i] / a.G) * a.H + h) * a.G + row[i] % a.G) * D +
+        t4 * 2;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+      *reinterpret_cast<__nv_bfloat162*>(dst + jd * 8) = __floats2bfloat162_rn(
+          o[4 * jd + 2 * i] / den, o[4 * jd + 2 * i + 1] / den);
+  }
+}
+
+// The prefill at D <= 64 (granite-3-2b's and seamless-m4t-large-v2's head
+// dim, 64, and the smoke configs' 8-32, padded to 64 columns): three
+// consumer warpgroups and a producer warpgroup, cut to 24
+// registers by setmaxnreg, whose one thread keeps a 3-stage ring of
+// 128-key K and V tiles full; each consumer runs the serial chain (S, its
+// softmax, P V). ptxas caps the 512 threads at 128 registers, which the
+// serial chain fits. At D = 64 the loop is held by the CUDA cores and
+// MUFU as much as by the tensor cores, and this layout keeps the tile
+// arithmetic (descriptors, barriers) in the producer and the uniform
+// datapath: on the H100 it runs granite-3-2b's and the seamless encoder's
+// prefills faster than a two-warpgroup block without a producer (PERF.md,
+// kernel 5). Below D = 64 every product runs on the padded 64 columns
+// (their Q and K columns past D are zeros), so that the code is D = 64's:
+// skipping the zero slices of S = Q K^T left ptxas 8 bytes short at 128
+// registers. Dynamic shared memory, in bytes from a 1024-byte aligned
+// base: each consumer warpgroup's Q (64 rows), then the ring of kStages
+// (K tile, V tile) pairs, then the full and empty mbarriers, in the layout
+// of PfTile's.
+template <int D>
+struct PfWgTile {
+  static_assert(D <= 64, "the producer-warpgroup prefill is built for "
+                "D <= 64");
+  static constexpr int kDP = 64;  // the head dim, padded
   // consumer warpgroups of 64 rows, rows and threads per block (with the
   // producer warpgroup), registers of a consumer thread after setmaxnreg
   // (the producer keeps 24: 128 x 24 + 128 kWGs x kRegs <= 65536), keys
   // per K/V tile
-  static constexpr int kWGs = D <= 64 ? 3 : 2;
+  static constexpr int kWGs = 3;
   static constexpr int kRows = 64 * kWGs;
   static constexpr int kThreads = 128 * (kWGs + 1);
-  static constexpr int kRegs = kWGs == 3 ? 160 : 240;
-  static constexpr int kStages = D <= 64 ? 3 : 2;
-  static constexpr int kKeys = D == 256 ? 64 : 128;
+  static constexpr int kRegs = 160;
+  static constexpr int kStages = 3;
+  static constexpr int kKeys = 128;
   static constexpr int kDB = kDP / 64;           // 64-column blocks
   static constexpr int kQBlk = 64 * 128;         // a Q column block
   static constexpr int kBlk = kKeys * 128;       // a K or V column block
@@ -331,11 +809,11 @@ struct PfSmem {
 };
 
 template <int D>
-__global__ void __launch_bounds__(PfSmem<D>::kThreads, 1)
-flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
-                     const __grid_constant__ CUtensorMap v_map,
-                     const FlashArgs a, const int B) {
-  using L = PfSmem<D>;
+__global__ void __launch_bounds__(PfWgTile<D>::kThreads, 1)
+flash_prefill_wg_kernel(const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const FlashArgs a, const int B) {
+  using L = PfWgTile<D>;
   constexpr int kDP = L::kDP;
   constexpr int kDB = L::kDB;
   constexpr int kKeys = L::kKeys;
@@ -346,15 +824,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
   const uint32_t full0 = sbase + L::kBar;  // full[st] at full0 + 8 st
   const uint32_t empty0 = full0 + 8 * L::kStages;
 
-  // Block -> (row tile, b, h), the last (longest, when causal) row tiles
-  // of every (b, h) first.
   const long long M = a.Sq * a.G;
   const long long BH = static_cast<long long>(B) * a.H;
   const long long n_rt = (M + L::kRows - 1) / L::kRows;
-  const long long bid = blockIdx.x;
-  const long long r0 = (n_rt - 1 - bid / BH) * L::kRows;
-  const long long b = (bid % BH) / a.H;
-  const long long h = bid % a.H;
+  long long r0, b, h;
+  prefill_block(n_rt, BH, a.H, L::kRows, r0, b, h);
   const int n_valid = static_cast<int>(valid_keys(a, b));
   const int n_keys = static_cast<int>(loop_keys(a, n_valid, r0, L::kRows));
   const int n_tiles = (n_keys + kKeys - 1) / kKeys;
@@ -466,20 +940,16 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
     }
 
     // S = Q K^T (64 x kKeys, fp32): s[4 n + 2 i + c] is row i, key 8 n +
-    // 2 t4 + c of the tile; the 16-column slices of the head dim past D
-    // are all zeros and skipped.
+    // 2 t4 + c of the tile.
     float s[kKeys / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < (D + 15) / 16; ++kk) {
+    for (int kk = 0; kk < kDP / 16; ++kk) {
       const uint64_t dq = sw128_desc(qs + (kk / 4) * L::kQBlk + (kk % 4) * 32,
                                      16);
       const uint64_t dk = sw128_desc(ks + (kk / 4) * L::kBlk + (kk % 4) * 32,
                                      16);
-      if constexpr (kKeys == 128)
-        wgmma_ss_m64n128(s, dq, dk, kk > 0);
-      else
-        wgmma_ss_m64n64(s, dq, dk, kk > 0);
+      wgmma_ss_m64n128(s, dq, dk, kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -528,8 +998,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
     for (int e = 0; e < kDP / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 
     // O += P V: P rounded to bf16 in registers (the accumulator layout of
-    // S is the A-fragment layout of P), 16 keys per wgmma; at D = 256 the
-    // output's two 128-column halves take one wgmma each.
+    // S is the A-fragment layout of P), 16 keys per wgmma.
     uint32_t p[kKeys / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
@@ -539,18 +1008,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap k_map,
     wgmma_fence();
     pin(o);
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      if constexpr (kDP == 64) {
-        wgmma_rs_m64n64(o, p[kk], sw128_desc(vs + kk * 16 * 128, L::kBlk));
-      } else {
-#pragma unroll
-        for (int hh = 0; hh < kDP / 128; ++hh)
-          wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(o + 64 * hh),
-                           p[kk],
-                           sw128_desc(vs + hh * 2 * L::kBlk + kk * 16 * 128,
-                                      L::kBlk));
-      }
-    }
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs_m64n64(o, p[kk], sw128_desc(vs + kk * 16 * 128, L::kBlk));
     wgmma_commit();
     wgmma_wait<0>();
     pin(o);
@@ -1047,25 +1506,33 @@ int encode_kv(CUtensorMap* map, const void* base, int D, int keys,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The prefill at head dim D: flash_prefill_wg_kernel at D <= 64,
+// flash_prefill_kernel at D = 128 and 256.
+template <int D>
+using PrefillTile = std::conditional_t<(D <= 64), PfWgTile<D>, PfTile<D>>;
+
 template <int D>
 int launch_prefill(const FlashArgs& a, long long B, cudaStream_t stream) {
+  using L = PrefillTile<D>;
   CUtensorMap k_map, v_map;
-  constexpr int kKeys = PfSmem<D>::kKeys;
-  int rc = encode_kv(&k_map, a.k, D, kKeys, B, a.Sk, a.H, a.ksb, a.kss,
+  int rc = encode_kv(&k_map, a.k, D, L::kKeys, B, a.Sk, a.H, a.ksb, a.kss,
                      a.ksh);
   if (rc != 0) return rc;
-  rc = encode_kv(&v_map, a.v, D, kKeys, B, a.Sk, a.H, a.vsb, a.vss, a.vsh);
+  rc = encode_kv(&v_map, a.v, D, L::kKeys, B, a.Sk, a.H, a.vsb, a.vss,
+                 a.vsh);
   if (rc != 0) return rc;
-  constexpr int kBytes = PfSmem<D>::kBytes;
+  auto* kernel = [] {
+    if constexpr (D <= 64)
+      return flash_prefill_wg_kernel<D>;
+    else
+      return flash_prefill_kernel<D>;
+  }();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kRows = PfSmem<D>::kRows;
-  const long long blocks = (a.Sq * a.G + kRows - 1) / kRows * B * a.H;
-  flash_prefill_kernel<D><<<static_cast<unsigned>(blocks),
-                            PfSmem<D>::kThreads, kBytes,
-                            stream>>>(k_map, v_map, a, static_cast<int>(B));
+  const long long blocks = (a.Sq * a.G + L::kRows - 1) / L::kRows * B * a.H;
+  kernel<<<static_cast<unsigned>(blocks), L::kThreads, L::kBytes, stream>>>(
+      k_map, v_map, a, static_cast<int>(B));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1112,9 +1579,26 @@ int by_head_dim(int D, Fn fn) {
 
 extern "C" {
 
-// Tiles the wrapper validates against: rows per block of each lane, and
-// the split path's rows and key unit.
-int flash_attention_bf16_tile() { return kPfRows; }
+// Tiles the wrapper validates against: the bf16 prefill's geometry at
+// head dim D into out[7] (rows a block, keys a tile, ring stages, consumer
+// warpgroups, dynamic shared memory bytes, threads a block, registers a
+// thread), returning 0 (or cudaErrorInvalidValue for another D); rows per
+// block of the fp32 lane; the split path's rows and key unit.
+int flash_attention_prefill_tile(int D, int* out) {
+  return by_head_dim(D, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    using L = PrefillTile<D>;
+    // ptxas's registers a thread: a sub-partition's 16384 over its share
+    // of the block's warps, in units of 8, at most 255
+    constexpr int kWarps = (L::kThreads / 32 + 3) / 4;
+    constexpr int kRegs = 16384 / (32 * kWarps) / 8 * 8;
+    const int v[7] = {L::kRows,  L::kKeys,    L::kStages,
+                      L::kWGs,   L::kBytes,   L::kThreads,
+                      kRegs > 255 ? 255 : kRegs};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
+    return 0;
+  });
+}
 int flash_attention_f32_tile() { return kF32Rows; }
 int flash_attention_split_rows() { return kSplitRows; }
 int flash_attention_split_tile() { return kSplitTile; }

@@ -39,7 +39,8 @@ and, when causal, ``c <= q_offset + r``.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from functools import lru_cache
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,12 +58,64 @@ PARTIAL_LAUNCHES = 0
 
 #: Head dims the kernel is compiled for (the Pallas kernel blocks only the
 #: sequence and takes any; these are the LM configs' and their smoke
-#: configs'), and its tiles: flattened (query position, q head) rows and
-#: keys per tile, per dtype (bf16: the warpgroup path's least block, 128
-#: rows at D = 128 and 256, 192 at D <= 64, and its 128-key tiles, 64 keys
-#: at D = 256).
+#: configs'), and the fp32 lane's tile: flattened (query position, q head)
+#: rows a block and keys a tile (the bf16 prefill's: :func:`prefill_tile`).
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-TILES = {torch.bfloat16: (128, 128), torch.float32: (32, 32)}
+F32_TILE = (32, 32)
+#: The bf16 prefill's keys a K/V tile at D = 256 (``kD256Keys`` of the
+#: library), the shared memory a block can have on an H100, and the
+#: registers of each of an SM's four sub-partitions (a block's warps are
+#: spread over them) and of a thread at most.
+D256_KEYS = 80
+SMEM_BYTES = 232448
+SMSP_REGISTERS = 16384
+MAX_THREAD_REGISTERS = 255
+
+
+class PrefillTile(NamedTuple):
+    """The bf16 prefill's block at one head dim (``PfWgTile<D>`` or
+    ``PfTile<D>`` of ``csrc/flash_attention.cu``)."""
+    rows: int        # flattened rows a block: 64 a consumer warpgroup
+    keys: int        # keys a K/V tile
+    stages: int      # (K, V) tile pairs in the TMA ring
+    warpgroups: int  # consumer warpgroups
+    smem_bytes: int  # dynamic shared memory a block
+    threads: int     # 128 a warpgroup, with the producer's at D <= 64
+    regs: int        # registers ptxas may give each thread
+
+
+@lru_cache(maxsize=None)
+def prefill_tile(D: int) -> PrefillTile:
+    """The bf16 prefill's geometry at head dim ``D`` (one of
+    :data:`HEAD_DIMS`).  At D <= 64 (``flash_prefill_wg_kernel``, the head
+    dim padded to 64): three consumer warpgroups (192 rows) and a producer
+    warpgroup, 128-key tiles in a ring of 3 stages, two mbarriers a stage.
+    At D = 128 and 256 (``flash_prefill_kernel``, thread 0 and the last
+    reader of a stage load the tiles): two warpgroups, 128-key tiles
+    (:data:`D256_KEYS` at D = 256) in a ring of 2 stages, two mbarriers and
+    two arrival counts a stage.  Shared memory: each consumer warpgroup's
+    Q (64 rows), the ring of K and V tiles, the barriers and counts, and
+    1024 bytes of alignment.  Registers: a sub-partition's
+    :data:`SMSP_REGISTERS` over the block's warps it holds (a quarter), in
+    units of 8, at most :data:`MAX_THREAD_REGISTERS`.  The library's values
+    are held to these when it is loaded."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel takes {HEAD_DIMS}")
+    wg = D <= 64
+    dp = max(D, 64)
+    wgs = 3 if wg else 2
+    keys = D256_KEYS if D == 256 else 128
+    stages = 3 if wg else 2
+    threads = 128 * (wgs + wg)
+    ring = wgs * dp * 128 + stages * 2 * (dp // 64) * keys * 128
+    bars = 2 * stages * (8 if wg else 8 + 4)
+    return PrefillTile(rows=64 * wgs, keys=keys, stages=stages,
+                       warpgroups=wgs, smem_bytes=ring + bars + 1024,
+                       threads=threads,
+                       regs=min(MAX_THREAD_REGISTERS,
+                                SMSP_REGISTERS // (threads // 4) // 8 * 8))
+
+
 #: The bf16 lane splits the keys of a call of at most SPLIT_ROWS rows
 #: (one mma.sync row fragment: decode) into splits of whole SPLIT_TILE-key
 #: tiles, enough for SPLIT_BLOCKS blocks (two per SM of an H100's 132).
@@ -297,13 +350,22 @@ def load_library() -> ctypes.CDLL:
         lib.flash_attention_ml.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        consts = ("flash_attention_bf16_tile", "flash_attention_f32_tile",
-                  "flash_attention_split_rows", "flash_attention_split_tile")
+        consts = ("flash_attention_f32_tile", "flash_attention_split_rows",
+                  "flash_attention_split_tile")
         for fn in consts:
             getattr(lib, fn).restype = i
+        lib.flash_attention_prefill_tile.argtypes = [i, p]
+        lib.flash_attention_prefill_tile.restype = i
+        tiles = {}
+        for D in HEAD_DIMS:
+            got = (ctypes.c_int * 7)()
+            if lib.flash_attention_prefill_tile(D, got) != 0:
+                raise RuntimeError(f"flash_attention library: no prefill "
+                                   f"tile at D = {D}")
+            tiles[D] = PrefillTile(*got)
         if tuple(getattr(lib, fn)() for fn in consts) != (
-                TILES[torch.bfloat16][0], TILES[torch.float32][0],
-                SPLIT_ROWS, SPLIT_TILE):
+                F32_TILE[0], SPLIT_ROWS, SPLIT_TILE) \
+                or tiles != {D: prefill_tile(D) for D in HEAD_DIMS}:
             raise RuntimeError("flash_attention library constants differ "
                                "from the wrapper's")
         _BOUND.add(lib)
@@ -429,6 +491,15 @@ def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _grid_x(B: int, Sq: int, H: int, G: int, D: int, bf16: bool) -> int:
+    """The launch grid's x extent of a call that is no split decode: the
+    bf16 prefill's blocks, :func:`prefill_tile`'s rows of one (b, h) each
+    (the grid is x alone), or the fp32 lane's row tiles (H and B in y and
+    z)."""
+    rows = prefill_tile(D).rows if bf16 else F32_TILE[0]
+    return -(-Sq * G // rows) * (B * H if bf16 else 1)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, q_offset: int,
             kv_length: Optional[torch.Tensor], stats: bool = False):
@@ -438,7 +509,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     _check(q, k, v, kv_length)
-    if q.dtype not in TILES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must all be float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
@@ -460,13 +532,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"kv_length must be on {q.device}")
         kv_length = kv_length.to(torch.int32).contiguous()
     bf16 = q.dtype == torch.bfloat16
-    rows = TILES[q.dtype][0]
     if H > 65535 or B > 65535 \
-            or -(-Sq * G // rows) * (B * H if bf16 else 1) > 2 ** 31 - 1:
+            or _grid_x(B, Sq, H, G, D, bf16) > 2 ** 31 - 1:
         raise ValueError(f"batch {B} / heads {H} / rows {Sq * G} exceed the "
                          "launch grid")
     if bf16:
-        if Sk + TILES[q.dtype][1] >= 2 ** 31 \
+        if Sk + prefill_tile(D).keys >= 2 ** 31 \
                 or not -2 ** 30 < int(q_offset) < 2 ** 30 - Sq:
             raise ValueError(f"Sk {Sk} / q_offset {q_offset}: the bf16 lane "
                              "indexes keys in 32 bits")

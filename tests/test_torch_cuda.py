@@ -1325,6 +1325,23 @@ FLASH_CASES = [
     (2, 40, 77, 2, 4, 16, False, 0, None),
     (2, 1, 4096, 4, 1, 64, False, 0, None),
     (1, 300, 300, 2, 1, 64, False, 0, None),
+    # the prefill's tile edges (80 keys a tile at D = 256, 128 at D = 128,
+    # 64 rows a warpgroup): Sk one below and one above a whole number of
+    # tiles; kv_length at a tile's last key; q_offset > 0; G = 7 and
+    # G = 12 rows straddling a warpgroup's 64; non-causal Sq != Sk
+    (2, 150, 159, 2, 1, 256, True, 9, None),
+    (2, 150, 161, 2, 1, 256, True, 11, None),
+    (1, 200, 255, 1, 4, 128, True, 55, None),
+    (1, 200, 257, 1, 4, 128, True, 57, None),
+    (2, 170, 300, 2, 1, 256, False, 0, (160, 80)),
+    (2, 170, 300, 1, 4, 128, False, 0, (256, 128)),
+    (1, 100, 400, 2, 1, 256, True, 250, None),
+    (1, 100, 400, 2, 4, 128, True, 300, (390,)),
+    (1, 30, 30, 2, 7, 128, True, 0, None),
+    (1, 20, 25, 1, 12, 128, True, 5, None),
+    (1, 19, 40, 1, 7, 256, True, 21, None),
+    (2, 90, 170, 2, 1, 256, False, 0, None),
+    (2, 130, 300, 1, 4, 128, False, 0, None),
 ]
 FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -1429,6 +1446,36 @@ def test_flash_split_decode_is_bit_equal_over_calls_on_card(case):
     assert torch.equal(first, second)
     assert torch.equal(first, fa.flash_attention(
         q, k, v, causal=causal, q_offset=off, kv_length=length))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", [c for c in FLASH_CASES if c[1] * c[4] > fa_plan.SPLIT_ROWS
+             and c[1] >= 90], ids=_flash_id)
+def test_flash_prefill_is_bit_equal_over_calls_on_card(case):
+    """On a card: the bf16 prefill run twice gives the same bits (each
+    row's sums run in a fixed order, whichever warp loads a tile), one
+    launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, Sk, H, G, D, causal, off, kvl = case
+    gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        _flash_id(case).encode()))
+    q = torch.randn((B, Sq, H, G, D), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    length = None if kvl is None else torch.tensor(kvl, dtype=torch.int32,
+                                                   device="cuda")
+    before = fa.LAUNCHES
+    first = fa.flash_attention(q, k, v, causal=causal, q_offset=off,
+                               kv_length=length)
+    second = fa.flash_attention(q, k, v, causal=causal, q_offset=off,
+                                kv_length=length)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 2
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
