@@ -31,9 +31,10 @@ Phases (any failure exits non-zero and prints no result line):
    gather entry's and the weight gradient's bf16 GEMM entry's
    (``cuobjdump -sass`` on the built library), which fails if an entry is
    missing, spills (the bf16 entries) or has none; the flash kernel's
-   registers and spills per path (bf16 prefill, bf16 split decode, fp32)
-   and head dim (8, 16, 32, 64, 128, 256), failing where an entry is
-   missing, and the ``HGMMA`` count of each bf16 prefill entry
+   registers and spills per path (bf16 prefill, bf16 split decode, fp32
+   prefill, fp32 split decode at each rows bucket) and head dim (8, 16,
+   32, 64, 128, 256), failing where an entry is missing or an fp32 entry
+   spills, and the ``HGMMA`` count of each bf16 prefill entry
    (``flash_prefill_wg_kernel`` at D = 64, ``flash_prefill_kernel`` at
    the others), failing where one spills, has its wgmma serialized by
    ptxas or runs none;
@@ -85,15 +86,16 @@ Phases (any failure exits non-zero and prints no result line):
    kv_length with a row at 0; Sq < Sk with q_offset; D = 128; and
    granite-3-2b's full-width prefill, q (4, 4096, 8, 4, 64) causal, and
    decode, q (4, 1, 8, 4, 64) over a (4, 4128, 8, 64) cache with
-   kv_length 4097 (the bf16 lane's two paths: warpgroup MMA with TMA at
-   the prefill, the split decode in one launch at the decode).  At the two
-   full-width shapes, per dtype: kernel ms, plain ms,
-   ``F.scaled_dot_product_attention`` ms (KV heads repeated; a yardstick
-   the port never calls) and the bound; in bf16 also the kernel's and
-   SDPA's device time under ``torch.profiler``, SDPA with ``enable_gqa``
-   on the unrepeated k/v, the wrapper's host issue time per call, and at
-   the decode all of these with the k/v cache cold in L2 (calls rotating
-   over 4 caches of 33.8 MB);
+   kv_length 4097 (each lane's two paths: the prefill kernel, warpgroup
+   MMA with TMA in bf16 and register-tiled FMAs in fp32, and the split
+   decode in one launch at the decode).  At the two full-width shapes,
+   per dtype: kernel ms, plain ms, ``F.scaled_dot_product_attention`` ms
+   (KV heads repeated; a yardstick the port never calls) and the bound;
+   also the kernel's and SDPA's device time under ``torch.profiler``,
+   SDPA with ``enable_gqa`` on the unrepeated k/v, the wrapper's host
+   issue time per call, and at the decode all of these with the k/v
+   cache cold in L2 (calls rotating over 4 caches of 33.8 MB in bf16,
+   67.6 MB in fp32);
 3e. matmul: ``ops.trim_matmul`` (the entry point) at granite-3-2b's
    full-width projections at a 4 x 4096 prefill, (16384, 2048) @ (2048,
    8192), (16384, 8192) @ (8192, 2048) and (16384, 2048) @ (2048, 2048),
@@ -163,9 +165,12 @@ Phases (any failure exits non-zero and prints no result line):
 3k. with ``--parent DIR``: the flash kernel's bf16 prefill at the rows
    of phases 3d, 3g, 3h and 3i (gemma-7b, llava-next-34b, starcoder2-3b,
    llama4-maverick, granite-3-2b, seamless's encoder) and gemma-7b's
-   decode, timed by ``tools/flash_times.py`` in DIR's checkout and in
-   this one in turns (parent, this, this, parent): gemma-7b's prefill
-   must be faster than the parent's, every other row within
+   decode, and its fp32 lane's prefill (granite-3-2b, gemma-7b,
+   llava-next-34b, seamless's encoder), granite-3-2b's decode and the
+   partial entry at phase 23's shape, timed by ``tools/flash_times.py``
+   in DIR's checkout and in this one in turns (parent, this, this,
+   parent; SDPA, TF32 off, logged beside each row): granite-3-2b's fp32
+   prefill must be faster than the parent's, every other row within
    FLASH_TURNS_SLACK of it; then gemma-7b's served prefill (phase 15's)
    in turns, its wall and the flash kernel's device time in it
    (``tools/serve_prefill_times.py``);
@@ -800,25 +805,30 @@ def _log_conv_build() -> None:
 
 #: The flash kernel's entries, one per path and head dim: mangled-name
 #: fragment -> label; the bf16 prefill's is ``flash_prefill_wg_kernel`` at
-#: D <= 64, ``flash_prefill_kernel`` at D = 128 and 256.
+#: D <= 64, ``flash_prefill_kernel`` at D = 128 and 256; the fp32 split
+#: decode's one per rows bucket (1, 4, 8, 16).
 FLASH_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 FLASH_PREFILL_ENTRIES = {
     f"flash_prefill_{'wg_' if D <= 64 else ''}kernelILi{D}EE":
         f"bf16 prefill D={D}" for D in FLASH_HEAD_DIMS}
-FLASH_ENTRIES = {**FLASH_PREFILL_ENTRIES,
-                 **{f"{entry}ILi{D}EE": f"{path} D={D}"
-                    for entry, path in (("flash_decode_split_kernel",
-                                         "bf16 split decode"),
-                                        ("flash_attention_f32_kernel", "fp32"))
-                    for D in FLASH_HEAD_DIMS}}
+FLASH_F32_ENTRIES = {
+    **{f"flash_prefill_f32_kernelILi{D}EE": f"fp32 prefill D={D}"
+       for D in FLASH_HEAD_DIMS},
+    **{f"flash_decode_split_f32_kernelILi{D}ELi{R}EE":
+       f"fp32 split decode D={D} rows {R}"
+       for D in FLASH_HEAD_DIMS for R in (1, 4, 8, 16)}}
+FLASH_ENTRIES = {**FLASH_PREFILL_ENTRIES, **FLASH_F32_ENTRIES,
+                 **{f"flash_decode_split_kernelILi{D}EE":
+                    f"bf16 split decode D={D}" for D in FLASH_HEAD_DIMS}}
 
 
 def _log_flash_build() -> None:
     """The flash kernel's registers and spills per path and head dim from
     its ``-Xptxas -v`` build log, and the ``HGMMA`` (wgmma) count of each
     bf16 prefill entry's SASS; fails where an entry is missing, where a
-    prefill entry spills, has its wgmma serialized by ptxas ("Potential
-    Performance Loss" in the log) or runs no ``HGMMA``."""
+    bf16 prefill or fp32 entry spills, where a bf16 prefill entry has its
+    wgmma serialized by ptxas ("Potential Performance Loss" in the log) or
+    runs no ``HGMMA``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
@@ -836,6 +846,10 @@ def _log_flash_build() -> None:
                                           found[label])) or serial:
             fail(f"flash kernel {label}: spills or serialized wgmma "
                  f"({found[label]}; {serial[:1]})")
+    for label in FLASH_F32_ENTRIES.values():
+        if any(int(v) for v in re.findall(r"(\d+) bytes spill",
+                                          found[label])):
+            fail(f"flash kernel {label}: spills ({found[label]})")
     hg, sass = _sass_counts(
         _build.library_path(fa._LIB_NAME, fa._SOURCES),
         {k: (v, "HGMMA") for k, v in FLASH_PREFILL_ENTRIES.items()})
@@ -1368,7 +1382,7 @@ def _conv_kernels(kern, x_hw, C, K, F, S, p) -> int:
 def _timing_tool(tool: str, checkout, *args) -> dict:
     """``tools/<tool> --src <checkout>/src ARGS``, one of the timing tools
     (each imports the port from ``--src`` and builds its kernels in that
-    checkout): the ``rows`` of the JSON object it prints."""
+    checkout): the JSON object it prints."""
     src = pathlib.Path(checkout).resolve() / "src"
     if not (src / "repro_torch" / "kernels").is_dir():
         fail(f"{checkout}: no checkout of the port there")
@@ -1381,7 +1395,7 @@ def _timing_tool(tool: str, checkout, *args) -> dict:
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     log(f"tools/{tool} on {checkout}: {time.perf_counter() - t0:.1f} s "
         f"(its build included) on {out['card']}")
-    return out["rows"]
+    return out
 
 
 def _parent_times(parent, reps: int):
@@ -1390,7 +1404,7 @@ def _parent_times(parent, reps: int):
     if parent is None:
         return None
     return _timing_tool("bf16_conv_times.py", parent, "--batch",
-                        TRAIN_BATCH, "--reps", reps)
+                        TRAIN_BATCH, "--reps", reps)["rows"]
 
 
 def phase_bf16_kernels(torch, reps: int, parent=None):
@@ -3176,9 +3190,10 @@ def phase_flash(torch, reps: int):
     kv_length holding NaN for the kernel (zero for the plain version,
     which would sum them).  At the full-width decode (the split path),
     the kernel run with one 64-key tile dropped must fail the bf16 row
-    check.  Timed at granite-3-2b's full-width prefill and decode shapes
-    (bf16: also ``_flash_readings``).  Returns one row per (shape,
-    dtype)."""
+    check.  Timed at granite-3-2b's full-width prefill and decode shapes,
+    with ``_flash_readings`` in both dtypes (the fp32 decode's device time
+    with the cache cold in L2 is the split decode's target).  Returns one
+    row per (shape, dtype)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
 
@@ -3240,9 +3255,8 @@ def phase_flash(torch, reps: int):
                 "shape": name, "dtype": str(dtype).replace("torch.", ""),
                 "q": tuple(q.shape), "kv": tuple(k.shape), "kv_length": kvl,
                 "max_abs_err": err, "row_ulps": ulps, **times}
-            if dtype == torch.bfloat16:
-                row.update(_flash_readings(torch, fa, q, k, v, kw, *sdpa, G,
-                                           reps, cold=name == "decode"))
+            row.update(_flash_readings(torch, fa, q, k, v, kw, *sdpa, G,
+                                       reps, cold=name == "decode"))
             rows.append(row)
     log(f"flash: kernel matches plain at {n} cases x dtypes (fp32 2e-5, "
         f"bf16 2e-2 and per row {BF16_ROW_ULPS} x 2^-7 of max|plain|: the "
@@ -3267,7 +3281,7 @@ def phase_flash(torch, reps: int):
     return rows
 
 
-#: the bf16 flash rows' readings beyond ms / library_ms (events, warm):
+#: the flash rows' readings beyond ms / library_ms (events, warm):
 #: the kernel's and SDPA's device time under ``torch.profiler`` (warm),
 #: SDPA with ``enable_gqa`` on the unrepeated k/v, the wrapper's host
 #: issue time per call, and at decode the same with the k/v cache cold in
@@ -3282,7 +3296,7 @@ FLASH_COLD_CACHES = 4
 
 
 def _flash_readings(torch, fa, q, k, v, kw, qt, kt, vt, G, reps, cold):
-    """The bf16 flash kernel's and SDPA's readings beyond the event times
+    """The flash kernel's and SDPA's readings beyond the event times
     (``FLASH_READINGS``).  With ``cold``, also over FLASH_COLD_CACHES
     fresh k/v caches of k's shape (NaN past kv_length, like k), each call
     taking the next, so each finds its cache out of L2."""
@@ -3346,7 +3360,10 @@ def _flash_readings(torch, fa, q, k, v, kw, qt, kt, vt, G, reps, cold):
 
     out.update({
         "ms_cold": cuda_ms(torch, kern, reps),
-        "device_ms_cold": device_ms(torch, kern, calls),
+        # a second window where CUPTI handed back none (seen once on the
+        # fp32 decode)
+        "device_ms_cold": (device_ms(torch, kern, calls)
+                           or device_ms(torch, kern, calls)),
         "library_ms_cold": cuda_ms(torch, lib, reps),
         "library_device_ms_cold": device_ms(torch, lib, calls),
         "library_gqa_device_ms_cold": (device_ms(torch, lib_gqa, calls)
@@ -3926,7 +3943,7 @@ def phase_ssd(torch, reps: int, parent=None):
         CS, reps, LM_ARCH, 1)
     if parent is not None:
         # the same tool on each checkout, in turns
-        before, *mine, after = (_timing_tool("ssd_times.py", c)
+        before, *mine, after = (_timing_tool("ssd_times.py", c)["rows"]
                                 for c in (parent, ROOT, ROOT, parent))
         for r in rows:
             r["parent_ms"] = (before[r["dtype"]] + after[r["dtype"]]) / 2
@@ -5170,22 +5187,27 @@ def phase_flash_families(torch, reps: int):
     return rows
 
 
-#: the bf16 prefill rows (and gemma-7b's decode) that
-#: ``tools/flash_times.py`` times, held in turns against the parent
-#: checkout's: gemma-7b's prefill must run faster than the parent's, and
+#: the rows that ``tools/flash_times.py`` times (the bf16 prefills and
+#: gemma-7b's decode; the fp32 prefills, granite-3-2b's fp32 decode and
+#: the fp32 partial entry), held in turns against the parent checkout's:
+#: granite-3-2b's fp32 prefill must run faster than the parent's, and
 #: every other row at most FLASH_TURNS_SLACK times the parent's time
 FLASH_TURNS_SLACK = 1.03
-FLASH_TURNS_FASTER = "gemma-7b prefill"
+FLASH_TURNS_FASTER = "granite-3-2b prefill fp32"
 
 
 def phase_flash_turns(torch, parent):
     """With ``parent`` (a checkout of the parent commit): the flash
     kernel's bf16 prefill at gemma-7b's, llava-next-34b's, starcoder2-3b's,
     llama4-maverick's and granite-3-2b's full-width shapes, seamless's
-    encoder and gemma-7b's decode, timed by ``tools/flash_times.py`` in
-    the parent checkout and here in turns (parent, this, this, parent), the
-    rows of phases 3d, 3g, 3h and 3i, each the mean of its two turns; fails
-    where gemma-7b's prefill is not faster than the parent's or another
+    encoder and gemma-7b's decode, and the fp32 lane's prefill at
+    granite-3-2b's, gemma-7b's, llava-next-34b's and seamless's encoder's,
+    granite-3-2b's decode and the partial entry on llava's half cache,
+    timed by ``tools/flash_times.py`` in the parent checkout and here in
+    turns (parent, this, this, parent; SDPA's time, TF32 off, from the
+    first turn here, logged beside each row), the rows of phases 3d, 3g,
+    3h, 3i and 23, each the mean of its two turns; fails where
+    granite-3-2b's fp32 prefill is not faster than the parent's or another
     row is more than FLASH_TURNS_SLACK times the parent's.  Then gemma-7b's
     served prefill (phase 15's) in turns, by
     ``tools/serve_prefill_times.py``: its wall and the flash kernel's
@@ -5194,8 +5216,12 @@ def phase_flash_turns(torch, parent):
         log("flash: the parent's times not measured (run with --parent DIR, "
             "a checkout of the parent commit)")
         return
-    before, *mine, after = (_timing_tool("flash_times.py", c)
-                            for c in (parent, ROOT, ROOT, parent))
+    before, *mine, after = (_timing_tool("flash_times.py", c, *sdpa)
+                            for c, sdpa in ((parent, ()), (ROOT, ("--sdpa",)),
+                                            (ROOT, ()), (parent, ())))
+    lib = mine[0]["sdpa"]
+    before, mine, after = before["rows"], [m["rows"] for m in mine], \
+        after["rows"]
     slow = []
     for name in before:
         p = (before[name] + after[name]) / 2
@@ -5204,7 +5230,8 @@ def phase_flash_turns(torch, parent):
         log(f"flash {name} in turns: parent {before[name]:.4f}, this "
             f"{mine[0][name]:.4f}, this {mine[1][name]:.4f}, parent "
             f"{after[name]:.4f} ms; this / parent {t / p:.4f} (below "
-            f"{limit:.2f})")
+            f"{limit:.2f}); SDPA {lib[name]:.4f} ms, this / SDPA "
+            f"{t / lib[name]:.4f}")
         if t >= limit * p:
             slow.append(f"{name} {t / p:.4f}x")
     if slow:
@@ -5212,7 +5239,7 @@ def phase_flash_turns(torch, parent):
     # phase 15's model on the card alone (the earlier phases' memory freed)
     gc.collect()
     torch.cuda.empty_cache()
-    before, *mine, after = (_timing_tool("serve_prefill_times.py", c)
+    before, *mine, after = (_timing_tool("serve_prefill_times.py", c)["rows"]
                             for c in (parent, ROOT, ROOT, parent))
     for name, unit in (("prefill wall", "ms"), ("flash device", "ms"),
                        ("flash launches", "")):
@@ -7261,8 +7288,8 @@ def main() -> None:
                     help="a checkout of the parent commit: phase 3j times "
                     "its bf16 kernels at batch 8 beside this one's, phase "
                     "3f its SSD kernel at mamba2-130m's shape, and after "
-                    "phase 3i its flash kernel at the LM phases' bf16 "
-                    "prefill shapes, each in turns")
+                    "phase 3i its flash kernel at the LM phases' bf16 and "
+                    "fp32 shapes, each in turns")
     ap.add_argument("--probe-families", type=int, metavar="N",
                     help="only run phases 3i and 3e, N times over, each "
                     "row logged as it ends; no result line")

@@ -69,16 +69,40 @@
 //   call) and resets the counter to 0. The counters are the wrapper's,
 //   one buffer per stream: two launches in flight at once must not share
 //   one.
-// - fp32: IEEE on the CUDA cores (no TF32). A block of 128 threads owns 32
-//   rows, 4 threads per row, each holding a quarter of the row's q and of
-//   its accumulator; a score is the quad's partial dots summed by two
-//   shuffles. K/V tiles of 32 keys (16 at D = 256: 32 KB of static shared
-//   memory either way) in shared memory.
+// - fp32: IEEE FMAs on the CUDA cores (no TF32), register-tiled, on the
+//   head dim padded to 32 columns (F32Tile<D>, F32Split<D>).
+//   * More than kSplitRows rows (prefill, flash_prefill_f32_kernel): a
+//     block of 8 warps owns 128 rows of one (b, h), taken in
+//     prefill_block's order; Q stays in shared memory, K and V come in
+//     tiles (64 keys at D <= 64, 32 at 128, 16 at 256) through a 2-stage
+//     cp.async ring in dynamic shared memory (keys past n_valid and
+//     columns past D zero-filled). A warp owns 16 rows; its lane (rg, kg)
+//     = (lane / 8, lane % 8) holds rows rg + 4 i (i < 4) x keys kg + 8 j of
+//     S = Q K^T and the same rows x columns 4 kg + 32 c (+ 0..3) of O, so
+//     one float4 read from shared memory feeds 4 to 8 FMAs: per 4 columns
+//     of the head dim 4 Q and kKeys / 8 K float4s for 16 kKeys / 8 FMAs;
+//     per 4 keys of P V 4 P float4s and 4 kDP / 32 V float4s for 16 kDP /
+//     8 FMAs. Rows and keys are padded (Q, K rows by 4 floats, P rows by 8)
+//     so that the 4 rows and 8 keys a warp reads at once, and P's writes,
+//     fall in distinct banks. The softmax runs on S in registers (exp2
+//     with scale * log2(e) folded into one FFMA, row max over the 8 lanes
+//     of a row by shuffles), P passes to P V through the warp's own rows
+//     of shared memory (a __syncwarp, no block barrier), one
+//     __syncthreads a tile guards the ring. A warp skips the tiles past
+//     its own rows' causal reach; the mask runs only on tiles that cross
+//     n_valid or the warp's diagonal.
+//   * At most kSplitRows rows (decode, flash_decode_split_f32_kernel): the
+//     bf16 split decode's plan and merge (decode_splits, the last block
+//     merging the fp32 partials in split order), with fp32 sub-tiles: a
+//     warp's sub-tile is 32 segments of 32 floats (32 / (kDP / 32) keys),
+//     one a lane for S (partial dots summed over a key's segments by
+//     shuffles), and for P V a lane owns float4 columns of every row
+//     (with the keys cut among lane groups below kDP = 128).
 //
 // Head dims: 8, 16, 32, 64, 128 and 256, the ones the Pallas kernel is
 // driven at (it blocks only the sequence). Below a lane's unit of the
-// head dim (64 on the prefill, 32 on the split decode, 16 on the fp32
-// lane) a kernel works on the dim padded with zeros to that unit: it
+// head dim (64 on the prefill, 32 on the split decode and the fp32 lane)
+// a kernel works on the dim padded with zeros to that unit: it
 // reads the D real columns of q, k and v (TMA fills the box's columns
 // past D with zeros, cp.async zero-fills, the fp32 loads select 0),
 // writes the D real columns of the output, and scales by D^-0.5 of the
@@ -112,7 +136,10 @@
 // P V 4 KB of V, besides the TMA writes). At decode
 // (Sq = 1) 4 G D operations per key against 4 D bytes read per key: bound
 // by the bytes of the K/V cache read, so the split puts enough blocks in
-// flight to fill the card.
+// flight to fill the card. The fp32 prefill is bound by the FMAs (4 Sq Sk
+// D H G / 2 causal at 67 TFLOP/s); a thread's tile keeps its shared-memory
+// reads below its FMAs (12 float4s for 128 FMAs at D = 64), so that the
+// FMA pipes, not the shared memory, set the pace.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -127,8 +154,6 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
-constexpr int kF32Rows = 32;  // fp32 lane: rows per block (4 threads each)
-constexpr int kF32Keys = 32;  // fp32 lane: keys per tile
 // bf16 prefill: keys per K/V tile at D = 256 (PfTile<D> and PfWgTile<D>
 // give each head dim's geometry)
 constexpr int kD256Keys = 80;
@@ -235,6 +260,12 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Wait until at most N committed cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -1079,6 +1110,94 @@ __device__ __forceinline__ void load_sub(__nv_bfloat16* ks, __nv_bfloat16* vs,
   }
 }
 
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
+// The end of a split decode block (either lane), after its warps' (m, l)
+// (wm, wl: kSplitWarps x kSplitRows, m in units of log2, kNegInf where a
+// row saw no key) and accumulators (wo: kSplitWarps x kSplitRows rows of
+// kDP) are in shared memory: the block's partial, warp by warp in order,
+// goes to the caller's scratch, or with one split is the output; the block
+// that arrives last at its (b, h)'s counter merges every split in split
+// order (the log-sum-exp merge of src/repro/nn/decode_attn.py:128-132: the
+// same bits every call), writes the output (and the partial entry's
+// statistics) and resets the counter to 0. `merging` is a shared flag.
+template <int D, int kDP, typename T>
+__device__ __forceinline__ void split_finish(const FlashArgs& a,
+                                             const SplitArgs& sp, long long b,
+                                             long long h, int split, int M,
+                                             const float* wm, const float* wl,
+                                             const float* wo, T* out,
+                                             int& merging) {
+  const long long bh = b * a.H + h;
+  const int rec = D + 2;  // a partial row: acc[D], m, l
+  float* part = sp.n_split == 1 ? nullptr
+                                : sp.scratch + (bh * sp.n_split + split) *
+                                                   static_cast<long long>(M) *
+                                                   rec;
+  for (int e = threadIdx.x; e < M * D; e += kThreads) {
+    const int r = e / D;
+    const int d = e % D;
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w)
+      mb = fmaxf(mb, wm[w * kSplitRows + r]);
+    float lb = 0.0f, ob = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float wt = ex2(wm[w * kSplitRows + r] - mb);
+      lb += wl[w * kSplitRows + r] * wt;
+      ob += wo[(w * kSplitRows + r) * kDP + d] * wt;
+    }
+    if (sp.n_split == 1) {
+      store_out(out + (((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D +
+                    d,
+                ob / fmaxf(lb, 1e-20f));
+      if (d == 0 && a.m_out != nullptr) write_stats(a, b, h, r, mb, lb);
+    } else {
+      part[r * rec + d] = ob;
+      if (d == 0) {
+        part[r * rec + D] = mb;
+        part[r * rec + D + 1] = lb;
+      }
+    }
+  }
+  if (sp.n_split == 1) return;
+
+  // The last block of (b, h) to arrive merges every split, in split order.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    merging = atomicAdd(sp.counters + bh, 1) == sp.n_split - 1;
+  __syncthreads();
+  if (!merging) return;
+  __threadfence();
+  const float* parts =
+      sp.scratch + bh * sp.n_split * static_cast<long long>(M) * rec;
+  for (int e = threadIdx.x; e < M * D; e += kThreads) {
+    const int r = e / D;
+    const int d = e % D;
+    float mg = kNegInf;
+    for (int q = 0; q < sp.n_split; ++q)
+      mg = fmaxf(mg, __ldcg(parts + (static_cast<long long>(q) * M + r) *
+                                        rec + D));
+    float lg = 0.0f, og = 0.0f;
+    for (int q = 0; q < sp.n_split; ++q) {
+      const float* pr = parts + (static_cast<long long>(q) * M + r) * rec;
+      const float wt = ex2(__ldcg(pr + D) - mg);
+      lg += __ldcg(pr + D + 1) * wt;
+      og += __ldcg(pr + d) * wt;
+    }
+    store_out(out + (((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D + d,
+              og / fmaxf(lg, 1e-20f));
+    if (d == 0 && a.m_out != nullptr) write_stats(a, b, h, r, mg, lg);
+  }
+  if (threadIdx.x == 0) sp.counters[bh] = 0;  // ready for the next launch
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
@@ -1271,206 +1390,520 @@ flash_decode_split_kernel(const FlashArgs a, const SplitArgs sp) {
     }
   }
   __syncthreads();
-
-  // The block's partial, warp by warp in order; with one split it is the
-  // output.
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
-  const long long bh = b * a.H + h;
-  const int rec = D + 2;  // a partial row: acc[D], m, l
-  float* part = sp.n_split == 1 ? nullptr
-                                : sp.scratch + (bh * sp.n_split + split) *
-                                                   static_cast<long long>(M) *
-                                                   rec;
-  for (int e = threadIdx.x; e < M * D; e += kThreads) {
-    const int r = e / D;
-    const int d = e % D;
-    float mb = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kSplitWarps; ++w)
-      mb = fmaxf(mb, wm[w * kSplitRows + r]);
-    float lb = 0.0f, ob = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kSplitWarps; ++w) {
-      const float wt = ex2(wm[w * kSplitRows + r] - mb);
-      lb += wl[w * kSplitRows + r] * wt;
-      ob += wo[(w * kSplitRows + r) * kDP + d] * wt;
-    }
-    if (sp.n_split == 1) {
-      out[(((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D + d] =
-          __float2bfloat16_rn(ob / fmaxf(lb, 1e-20f));
-      if (d == 0 && a.m_out != nullptr) write_stats(a, b, h, r, mb, lb);
-    } else {
-      part[r * rec + d] = ob;
-      if (d == 0) {
-        part[r * rec + D] = mb;
-        part[r * rec + D + 1] = lb;
-      }
-    }
-  }
-  if (sp.n_split == 1) return;
-
-  // The last block of (b, h) to arrive merges every split, in split order.
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    merging = atomicAdd(sp.counters + bh, 1) == sp.n_split - 1;
-  __syncthreads();
-  if (!merging) return;
-  __threadfence();
-  const float* parts =
-      sp.scratch + bh * sp.n_split * static_cast<long long>(M) * rec;
-  for (int e = threadIdx.x; e < M * D; e += kThreads) {
-    const int r = e / D;
-    const int d = e % D;
-    float mg = kNegInf;
-    for (int q = 0; q < sp.n_split; ++q)
-      mg = fmaxf(mg, __ldcg(parts + (static_cast<long long>(q) * M + r) *
-                                        rec + D));
-    float lg = 0.0f, og = 0.0f;
-    for (int q = 0; q < sp.n_split; ++q) {
-      const float* pr = parts + (static_cast<long long>(q) * M + r) * rec;
-      const float wt = ex2(__ldcg(pr + D) - mg);
-      lg += __ldcg(pr + D + 1) * wt;
-      og += __ldcg(pr + d) * wt;
-    }
-    out[(((b * a.Sq + r / a.G) * a.H + h) * a.G + r % a.G) * D + d] =
-        __float2bfloat16_rn(og / fmaxf(lg, 1e-20f));
-    if (d == 0 && a.m_out != nullptr) write_stats(a, b, h, r, mg, lg);
-  }
-  if (threadIdx.x == 0) sp.counters[bh] = 0;  // ready for the next launch
+  split_finish<D, kDP>(a, sp, b, h, split, M, wm, wl, wo,
+                       static_cast<__nv_bfloat16*>(a.out), merging);
 }
 
 // ---------------------------------------------------------------------------
-// fp32 lane: CUDA cores, IEEE
+// fp32 lane: IEEE FMAs on the CUDA cores, register-tiled
 // ---------------------------------------------------------------------------
 
-// The head dim padded to 16 (a float4 for each of a row's 4 threads) and
-// keys per tile (2 x 16 x 256 x 4 bytes at D = 256: 32 KB, within the
-// 48 KB of static shared memory).
+// The fp32 prefill's block at head dim D (file header). Dynamic shared
+// memory, in floats: Q (kRows rows of kQLd), then the ring of kStages (K
+// tile: kKeys rows of kQLd; V tile: kKeys rows of kDP), then P (kRows rows
+// of kPLd, each warp writing and reading only its own 16).
 template <int D>
 struct F32Tile {
-  static constexpr int kDP = D < 16 ? 16 : D;
-  static constexpr int kKeys = D == 256 ? kF32Keys / 2 : kF32Keys;
+  static constexpr int kDP = D < 32 ? 32 : D;  // the head dim, padded
+  static constexpr int kWarps = 8;
+  static constexpr int kKeys = D <= 64 ? 64 : (D == 128 ? 32 : 16);
+  static constexpr int kStages = 2;
+  static constexpr int kTR = 4;  // rows a lane: rg + 4 i
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kWarpRows = 4 * kTR;
+  static constexpr int kRows = kWarpRows * kWarps;
+  static constexpr int kTK = kKeys / 8;   // keys a lane: kg + 8 j
+  static constexpr int kTD = kDP / 32;    // float4 columns a lane: 4 kg + 32 c
+  static constexpr int kQLd = kDP + 4;    // a Q or K row, padded
+  static constexpr int kPLd = kKeys + 8;  // a P row, padded
+  static constexpr int kKTile = kKeys * kQLd;
+  static constexpr int kStage = kKTile + kKeys * kDP;
+  static constexpr int kQ = kRows * kQLd;
+  static constexpr int kP = kQ + kStages * kStage;  // P's offset
+  static constexpr int kBytes = 4 * (kP + kRows * kPLd);
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
+  static_assert(kDP % 32 == 0 && kKeys % 8 == 0, "a warp's 8 lane columns");
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_f32_kernel(const FlashArgs a) {
-  constexpr int kDP = F32Tile<D>::kDP;
-  constexpr int kKeys = F32Tile<D>::kKeys;
-  constexpr int kVec = kDP / 16;  // float4s per thread per row
-  __shared__ __align__(16) float ks[kKeys * kDP];
-  __shared__ __align__(16) float vs[kKeys * kDP];
+__global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
+flash_prefill_f32_kernel(const FlashArgs a, const int B) {
+  using L = F32Tile<D>;
+  constexpr int kDP = L::kDP;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kTR = L::kTR;
+  constexpr int kTK = L::kTK;
+  constexpr int kTD = L::kTD;
+  constexpr int kQLd = L::kQLd;
+  constexpr int kPLd = L::kPLd;
+  extern __shared__ __align__(16) float fsm[];
 
-  const long long b = blockIdx.z;
-  const long long h = blockIdx.y;
   const long long M = a.Sq * a.G;
-  const long long r0 = static_cast<long long>(blockIdx.x) * kF32Rows;
-  const int part = threadIdx.x & 3;  // this thread's quarter of the row
-  const long long row = r0 + threadIdx.x / 4;
-  const bool row_ok = row < M;
-  const long long pos = row_ok ? row / a.G : 0;
-  const long long grp = row_ok ? row % a.G : 0;
-  const long long last = a.q_offset + pos;
-
-  // Elements d = 16 i + 4 part + e (e < 4) of q and of the accumulator;
-  // those past D are 0.
-  float qv[4 * kVec];
-  float acc[4 * kVec];
-  const float* qrow = static_cast<const float*>(a.q) + b * a.qsb +
-                      pos * a.qss + h * a.qsh + grp * a.qsg;
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    const float4 t = row_ok && 16 * i + 4 * part < D
-                         ? *reinterpret_cast<const float4*>(qrow + 16 * i +
-                                                            4 * part)
-                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    qv[4 * i] = t.x;
-    qv[4 * i + 1] = t.y;
-    qv[4 * i + 2] = t.z;
-    qv[4 * i + 3] = t.w;
-    acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.0f;
-  }
-
+  const long long BH = static_cast<long long>(B) * a.H;
+  const long long n_rt = (M + L::kRows - 1) / L::kRows;
+  long long r0, b, h;
+  prefill_block(n_rt, BH, a.H, L::kRows, r0, b, h);
   const long long n_valid = valid_keys(a, b);
-  const long long n_keys = loop_keys(a, n_valid, r0, kF32Rows);
+  const long long n_keys = loop_keys(a, n_valid, r0, L::kRows);
+  const int n_tiles = static_cast<int>((n_keys + kKeys - 1) / kKeys);
+  const float* qb = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
   const float* kb = static_cast<const float*>(a.k) + b * a.ksb + h * a.ksh;
   const float* vb = static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh;
-  float m_run = kNegInf;
-  float l_run = 0.0f;
-  for (long long key0 = 0; key0 < n_keys; key0 += kKeys) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kKeys * (kDP / 4); i += kThreads) {
+  const int tid = threadIdx.x;
+
+  // Q once (rows past M and columns past D zero-filled), in the first
+  // cp.async group with K/V tile 0.
+  for (int i = tid; i < L::kRows * (kDP / 4); i += L::kThreads) {
+    const int r = i / (kDP / 4);
+    const int c = (i % (kDP / 4)) * 4;
+    const long long row = r0 + r;
+    const bool ok = row < M && c < D;
+    cp_async16(fsm + r * kQLd + c,
+               ok ? qb + (row / a.G) * a.qss + (row % a.G) * a.qsg + c : qb,
+               ok);
+  }
+  // K/V tile t into stage t % kStages: keys past n_valid (a cache past
+  // kv_length may hold NaN) and columns past D zero-filled.
+  auto load = [&](int t) {
+    float* ks = fsm + L::kQ + (t % L::kStages) * L::kStage;
+    float* vs = ks + L::kKTile;
+    const long long key0 = static_cast<long long>(t) * kKeys;
+    for (int i = tid; i < kKeys * (kDP / 4); i += L::kThreads) {
       const int r = i / (kDP / 4);
       const int c = (i % (kDP / 4)) * 4;
       const long long key = key0 + r;
-      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       const bool ok = key < n_valid && c < D;
-      *reinterpret_cast<float4*>(&ks[r * kDP + c]) =
-          ok ? *reinterpret_cast<const float4*>(kb + key * a.kss + c) : zero;
-      *reinterpret_cast<float4*>(&vs[r * kDP + c]) =
-          ok ? *reinterpret_cast<const float4*>(vb + key * a.vss + c) : zero;
+      cp_async16(ks + r * kQLd + c, ok ? kb + key * a.kss + c : kb, ok);
+      cp_async16(vs + r * kDP + c, ok ? vb + key * a.vss + c : vb, ok);
     }
+  };
+#pragma unroll
+  for (int t = 0; t < L::kStages - 1; ++t) {
+    if (t < n_tiles) load(t);
+    cp_async_commit();
+  }
+
+  // This lane's rows wr0 + rg + 4 i and keys kg + 8 j of a tile; the
+  // warp's rows' causal reach (w_first: its first row's last key, w_last:
+  // its last row's).
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int rg = lane / 8;
+  const int kg = lane % 8;
+  const long long wr0 = r0 + L::kWarpRows * warp;
+  const long long w_end = wr0 + L::kWarpRows < M ? wr0 + L::kWarpRows : M;
+  const bool w_live = wr0 < M;
+  const long long w_first = a.q_offset + wr0 / a.G;
+  const long long w_last = a.q_offset + (w_end - 1) / a.G;
+  long long last[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) last[i] = a.q_offset + (wr0 + rg + 4 * i) / a.G;
+  const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
+  const float* qw = fsm + (L::kWarpRows * warp + rg) * kQLd;
+  float* pw = fsm + L::kP + (L::kWarpRows * warp + rg) * kPLd;
+
+  float o[kTR][kTD][4];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int c = 0; c < kTD; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.0f;
+  float m_run[kTR], l_run[kTR];  // m in units of log2; l this lane's share
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // Tile t has landed for every thread, and every thread is done with
+    // tile t - 1, whose stage the load kStages - 1 tiles on takes.
+    cp_async_wait<L::kStages - 2>();
     __syncthreads();
+    if (t + L::kStages - 1 < n_tiles) load(t + L::kStages - 1);
+    cp_async_commit();
+    const long long key0 = static_cast<long long>(t) * kKeys;
+    if (!w_live || (a.causal && key0 > w_last)) continue;
+    const float* ks = fsm + L::kQ + (t % L::kStages) * L::kStage;
+    const float* vs = ks + L::kKTile;
 
-    float s[kKeys];
+    // S = Q K^T: per 4 columns 4 Q float4s (rows) and kTK K float4s.
+    float s[kTR][kTK];
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float dot = 0.0f;
+    for (int i = 0; i < kTR; ++i)
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&ks[j * kDP + 16 * i + 4 * part]);
-        dot += qv[4 * i] * t.x + qv[4 * i + 1] * t.y + qv[4 * i + 2] * t.z +
-               qv[4 * i + 3] * t.w;
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      s[j] = visible(a, key0 + j, n_valid, last) ? dot * a.scale : kNegInf;
-    }
-    float mx = m_run;
+      for (int j = 0; j < kTK; ++j) s[i][j] = 0.0f;
+    const float* kt = ks + kg * kQLd;
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) mx = fmaxf(mx, s[j]);
-    const float alpha = expf(m_run - mx);
-    m_run = mx;
-    float rs = 0.0f;
+    for (int c = 0; c < kDP; c += 4) {
+      float4 qa[kTR];
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      s[j] = visible(a, key0 + j, n_valid, last) ? expf(s[j] - mx) : 0.0f;
-      rs += s[j];
-    }
-    l_run = l_run * alpha + rs;
+      for (int i = 0; i < kTR; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(qw + 4 * i * kQLd + c);
 #pragma unroll
-    for (int e = 0; e < 4 * kVec; ++e) acc[e] *= alpha;
+      for (int j = 0; j < kTK; ++j) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(kt + 8 * j * kQLd + c);
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&vs[j * kDP + 16 * i + 4 * part]);
-        acc[4 * i] += s[j] * t.x;
-        acc[4 * i + 1] += s[j] * t.y;
-        acc[4 * i + 2] += s[j] * t.z;
-        acc[4 * i + 3] += s[j] * t.w;
+        for (int i = 0; i < kTR; ++i) {
+          s[i][j] = fmaf(qa[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kv.w, s[i][j]);
+        }
       }
     }
+    // Mask only the tiles that cross n_valid or the warp's diagonal.
+    if (key0 + kKeys > n_valid ||
+        (a.causal && key0 + kKeys - 1 > w_first)) {
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int j = 0; j < kTK; ++j) {
+          const long long key = key0 + kg + 8 * j;
+          if (key >= n_valid || (a.causal && key > last[i]))
+            s[i][j] = -INFINITY;
+        }
+    }
+    // Online softmax in units of log2: p = 2^(s sl2 - m); P into the warp's
+    // rows of shared memory.
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < kTK; ++j) mx = fmaxf(mx, s[i][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m_run[i], mx * sl2);
+      const float mu = m_new == -INFINITY ? 0.0f : m_new;  // no key yet
+      const float alpha = ex2(m_run[i] - mu);
+      m_run[i] = m_new;
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kTK; ++j) {
+        const float p = ex2(fmaf(s[i][j], sl2, -mu));
+        rs += p;
+        pw[4 * i * kPLd + kg + 8 * j] = p;
+      }
+      l_run[i] = l_run[i] * alpha + rs;
+#pragma unroll
+      for (int c = 0; c < kTD; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][c][e] *= alpha;
+    }
+    __syncwarp();
+
+    // O += P V: per 4 keys 4 P float4s (rows) and 4 kTD V float4s.
+    const float* vt = vs + 4 * kg;
+#pragma unroll
+    for (int j = 0; j < kKeys; j += 4) {
+      float4 pa[kTR];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(pw + 4 * i * kPLd + j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int c = 0; c < kTD; ++c) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vt + (j + e) * kDP + 32 * c);
+#pragma unroll
+          for (int i = 0; i < kTR; ++i) {
+            const float p = e == 0 ? pa[i].x
+                            : e == 1 ? pa[i].y
+                            : e == 2 ? pa[i].z
+                                     : pa[i].w;
+            o[i][c][0] = fmaf(p, vv.x, o[i][c][0]);
+            o[i][c][1] = fmaf(p, vv.y, o[i][c][1]);
+            o[i][c][2] = fmaf(p, vv.z, o[i][c][2]);
+            o[i][c][3] = fmaf(p, vv.w, o[i][c][3]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // P is read before the next tile's softmax writes it
+  }
+  cp_async_wait_all();
+
+  float* out = static_cast<float*>(a.out);
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const long long row = wr0 + rg + 4 * i;
+    if (row >= M) continue;
+    const long long idx =
+        ((b * a.Sq + row / a.G) * a.H + h) * a.G + row % a.G;
+    if (a.m_out != nullptr && kg == 0) {
+      // the partial entry's statistics, m in natural-log units
+      a.m_out[idx] =
+          m_run[i] == -INFINITY ? kNegInf : m_run[i] * 0.6931471805599453f;
+      a.l_out[idx] = l;
+    }
+    const float den = fmaxf(l, 1e-20f);
+    float* dst = out + idx * D + 4 * kg;
+#pragma unroll
+    for (int c = 0; c < kTD; ++c)
+      if (4 * kg + 32 * c < D)
+        *reinterpret_cast<float4*>(dst + 32 * c) =
+            make_float4(o[i][c][0] / den, o[i][c][1] / den, o[i][c][2] / den,
+                        o[i][c][3] / den);
+  }
+}
+
+// The fp32 split decode's sub-tiles at head dim D (file header). A row of
+// kDP floats is kSegs segments of 32; a warp's sub-tile holds 32 segments
+// (kSub keys), one a lane in S = Q K^T. Dynamic shared memory, in floats:
+// q (kSplitRows rows of kDP), each warp's P (kSplitRows x kSub), then each
+// warp's ring of kSplitStages (K sub-tile: 32 segments; V sub-tile: kSub
+// rows of kDP); after the loop the warps' (m, l, acc) over all of it. q's
+// and K's 16-byte chunk c of segment g lies at chunk c ^ (g % 8), so that
+// the 8 segments a quarter-warp reads at once fall in distinct banks.
+// kBlocks of them fit an SM's shared memory (228 KB, 1 KB a block
+// reserved) and its registers.
+template <int D>
+struct F32Split {
+  static constexpr int kDP = D < 32 ? 32 : D;
+  static constexpr int kSegs = kDP / 32;
+  static constexpr int kSub = 32 / kSegs;
+  static constexpr int kStage = 32 * 32 + kSub * kDP;
+  static constexpr int kQ = kSplitRows * kDP;
+  static constexpr int kP = kSplitWarps * kSplitRows * kSub;
+  static constexpr int kRing = kSplitWarps * kSplitStages * kStage;
+  static constexpr int kMerge = kSplitWarps * kSplitRows * (kDP + 2);
+  static constexpr int kBytes =
+      4 * (kQ + kP + kRing > kMerge ? kQ + kP + kRing : kMerge);
+  static constexpr int kBlocks = D == 256 ? 2 : 3;
+  // P V: a lane owns kOwn float4 columns (lane % kCw + 32 c) of every row,
+  // over the keys of its group (lane / kCw) of kKG
+  static constexpr int kCh = kDP / 4;
+  static constexpr int kCw = kCh < 32 ? kCh : 32;
+  static constexpr int kOwn = kCh / kCw;
+  static constexpr int kKG = 32 / kCw;
+  static_assert(kSplitTile % kSub == 0 && kSub % kKG == 0, "sub-tiles");
+  static_assert(kBlocks * (kBytes + 1024 + 16) <= 233472,
+                "kBlocks blocks do not fit an SM's shared memory");
+};
+
+// The float offset of 16-byte chunk c (< 8) of 32-float segment g.
+__device__ __forceinline__ int seg_chunk(int g, int c) {
+  return g * 32 + 4 * (c ^ (g & 7));
+}
+
+// R: the rows the block computes, M (= Sq G) rounded up to 1, 4, 8 or
+// kSplitRows (rows past M are zeros, never written). At R = kSplitRows an
+// SM holds 2 blocks (the accumulators of 16 rows need more than the 168
+// registers a thread of 3 blocks may have).
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads,
+                                  R > 8 ? 2 : F32Split<D>::kBlocks)
+flash_decode_split_f32_kernel(const FlashArgs a, const SplitArgs sp) {
+  using L = F32Split<D>;
+  constexpr int kDP = L::kDP;
+  constexpr int kSegs = L::kSegs;
+  constexpr int kSub = L::kSub;
+  constexpr int kCw = L::kCw;
+  constexpr int kOwn = L::kOwn;
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ int merging;
+
+  const int split = blockIdx.x;
+  const long long h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int M = static_cast<int>(a.Sq * a.G);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // q once; rows past M and columns past D are 0.
+  const float* qb = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  for (int i = threadIdx.x; i < R * (kDP / 4); i += kThreads) {
+    const int r = i / (kDP / 4);
+    const int c = (i % (kDP / 4)) * 4;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < M && c < D)
+      val = *reinterpret_cast<const float4*>(qb + (r / a.G) * a.qss +
+                                             (r % a.G) * a.qsg + c);
+    *reinterpret_cast<float4*>(fsm + r * kDP +
+                               seg_chunk(c / 32, (c % 32) / 4)) = val;
+  }
+  __syncthreads();
+
+  // The split's keys [lo, hi), cut at the loop's end; this warp's
+  // sub-tiles are warp, warp + kSplitWarps, ...
+  const long long n_valid = valid_keys(a, b);
+  const long long n_keys = loop_keys(a, n_valid, 0, kSplitRows);
+  const long long lo =
+      static_cast<long long>(split) * sp.split_tiles * kSplitTile;
+  const long long end =
+      lo + static_cast<long long>(sp.split_tiles) * kSplitTile;
+  const long long hi = end < n_keys ? end : n_keys;
+  const int n_sub = hi > lo ? static_cast<int>((hi - lo + kSub - 1) / kSub) : 0;
+  const int mine =
+      n_sub > warp ? (n_sub - warp + kSplitWarps - 1) / kSplitWarps : 0;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ksb + h * a.ksh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh;
+  float* pw = fsm + L::kQ + warp * kSplitRows * kSub;
+  float* ring = fsm + L::kQ + L::kP + warp * kSplitStages * L::kStage;
+  // Keys [key0, key0 + kSub) into a stage; keys at or past hi and columns
+  // past D zero-filled.
+  auto load = [&](float* ks, long long key0) {
+    float* vs = ks + 32 * 32;
+    for (int i = lane; i < kSub * (kDP / 4); i += 32) {
+      const int r = i / (kDP / 4);
+      const int c = (i % (kDP / 4)) * 4;
+      const long long key = key0 + r;
+      const bool ok = key < hi && c < D;
+      cp_async16(ks + seg_chunk(r * kSegs + c / 32, (c % 32) / 4),
+                 ok ? kb + key * a.kss + c : kb, ok);
+      cp_async16(vs + r * kDP + c, ok ? vb + key * a.vss + c : vb, ok);
+    }
+  };
+  const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
+  const int seg = lane % kSegs;  // S: this lane's segment of key lane / kSegs
+  const int col = lane % kCw;    // P V: this lane's first float4 column
+  const int grp = lane / kCw;    // ... and key group
+
+  float m_run[R], l_run[R];  // m in units of log2; l the lanes of segment 0
+  float o[R][kOwn][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kOwn; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[r][c][e] = 0.0f;
   }
 
-  if (!row_ok) return;
-  if (a.m_out != nullptr && part == 0) {
-    const long long i = ((b * a.Sq + pos) * a.H + h) * a.G + grp;
-    a.m_out[i] = m_run;
-    a.l_out[i] = l_run;
-  }
-  const float den = fmaxf(l_run, 1e-20f);
-  float* dst = static_cast<float*>(a.out) +
-               (((b * a.Sq + pos) * a.H + h) * a.G + grp) * D;
+  if (mine > 0) load(ring, lo + static_cast<long long>(warp) * kSub);
+  cp_async_commit();
+  for (int it = 0; it < mine; ++it) {
+    const int st = it & 1;
+    if (it + 1 < mine)
+      load(ring + (st ^ 1) * L::kStage,
+           lo + static_cast<long long>(warp + (it + 1) * kSplitWarps) * kSub);
+    cp_async_commit();
+    cp_async_wait_one();  // sub-tile it has landed
+    __syncwarp();
+    const float* ks = ring + st * L::kStage;
+    const float* vs = ks + 32 * 32;
+    const long long key0 =
+        lo + static_cast<long long>(warp + it * kSplitWarps) * kSub;
+    const long long key = key0 + lane / kSegs;
+    const bool edge = key0 + kSub > hi ||
+                      (a.causal && key0 + kSub - 1 > a.q_offset);
+
+    // S = Q K^T: this lane's segment's dot with each row, summed over the
+    // key's kSegs lanes.
+    float dot[R];
 #pragma unroll
-  for (int i = 0; i < kVec; ++i)
-    if (16 * i + 4 * part < D)
-      *reinterpret_cast<float4*>(dst + 16 * i + 4 * part) =
-          make_float4(acc[4 * i] / den, acc[4 * i + 1] / den,
-                      acc[4 * i + 2] / den, acc[4 * i + 3] / den);
+    for (int r = 0; r < R; ++r) dot[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float4 k4 =
+          *reinterpret_cast<const float4*>(ks + seg_chunk(lane, c));
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 q4 =
+            *reinterpret_cast<const float4*>(fsm + r * kDP + seg_chunk(seg, c));
+        dot[r] = fmaf(q4.x, k4.x, dot[r]);
+        dot[r] = fmaf(q4.y, k4.y, dot[r]);
+        dot[r] = fmaf(q4.z, k4.z, dot[r]);
+        dot[r] = fmaf(q4.w, k4.w, dot[r]);
+      }
+    }
+    // Each row's online softmax in units of log2, P into the warp's
+    // shared memory.
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float s = dot[r];
+#pragma unroll
+      for (int off = 1; off < kSegs; off <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (edge && (key >= hi || (a.causal && key > a.q_offset + r / a.G)))
+        s = -INFINITY;
+      float mx = s;
+#pragma unroll
+      for (int off = kSegs; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[r], mx * sl2);
+      const float mu = m_new == -INFINITY ? 0.0f : m_new;
+      const float alpha = ex2(m_run[r] - mu);
+      m_run[r] = m_new;
+      const float p = ex2(fmaf(s, sl2, -mu));
+      l_run[r] = l_run[r] * alpha + (seg == 0 ? p : 0.0f);
+#pragma unroll
+      for (int c = 0; c < kOwn; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[r][c][e] *= alpha;
+      if (seg == 0) pw[r * kSub + lane / kSegs] = p;
+    }
+    __syncwarp();
+
+    // O += P V over this lane's keys (grp, grp + kKG, ...).
+#pragma unroll
+    for (int t = 0; t < kSub / L::kKG; ++t) {
+      const int j = grp + L::kKG * t;
+      float4 vv[kOwn];
+#pragma unroll
+      for (int c = 0; c < kOwn; ++c)
+        vv[c] = *reinterpret_cast<const float4*>(vs + j * kDP +
+                                                 4 * (col + 32 * c));
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = pw[r * kSub + j];
+#pragma unroll
+        for (int c = 0; c < kOwn; ++c) {
+          o[r][c][0] = fmaf(p, vv[c].x, o[r][c][0]);
+          o[r][c][1] = fmaf(p, vv[c].y, o[r][c][1]);
+          o[r][c][2] = fmaf(p, vv[c].z, o[r][c][2]);
+          o[r][c][3] = fmaf(p, vv[c].w, o[r][c][3]);
+        }
+      }
+    }
+    __syncwarp();  // the stage and P are read before they are written again
+  }
+  cp_async_wait_all();
+
+  // The warps' partials into shared memory (over q, P and the rings: every
+  // warp is done with them): l summed over the lanes, the accumulator over
+  // the key groups, m at kNegInf where a row saw no key.
+  __syncthreads();
+  float* wm = fsm;
+  float* wl = wm + kSplitWarps * kSplitRows;
+  float* wo = wl + kSplitWarps * kSplitRows;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float l = l_run[r];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+#pragma unroll
+    for (int c = 0; c < kOwn; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int off = kCw; off < 32; off <<= 1)
+          o[r][c][e] += __shfl_xor_sync(0xffffffffu, o[r][c][e], off);
+    const int wr = warp * kSplitRows + r;
+    if (lane == 0) {
+      wm[wr] = m_run[r] == -INFINITY ? kNegInf : m_run[r];
+      wl[wr] = l;
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int c = 0; c < kOwn; ++c)
+        *reinterpret_cast<float4*>(wo + wr * kDP + 4 * (col + 32 * c)) =
+            make_float4(o[r][c][0], o[r][c][1], o[r][c][2], o[r][c][3]);
+    }
+  }
+  __syncthreads();
+  split_finish<D, kDP>(a, sp, b, h, split, M, wm, wl, wo,
+                       static_cast<float*>(a.out), merging);
 }
 
 // ---------------------------------------------------------------------------
@@ -1536,26 +1969,52 @@ int launch_prefill(const FlashArgs& a, long long B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+// The split decode (bf16: flash_decode_split_kernel; fp32:
+// flash_decode_split_f32_kernel at the rows bucket R): blocks (split, h,
+// b).
+template <int D, bool kBf16, int R = kSplitRows>
 int launch_split(const FlashArgs& a, const SplitArgs& sp, long long B,
                  cudaStream_t stream) {
-  constexpr int kBytes = SplitSmem<D>::kBytes;
+  constexpr int kBytes =
+      kBf16 ? SplitSmem<D>::kBytes : F32Split<D>::kBytes;
+  auto* kernel = [] {
+    if constexpr (kBf16)
+      return flash_decode_split_kernel<D>;
+    else
+      return flash_decode_split_f32_kernel<D, R>;
+  }();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_split_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(sp.n_split),
                   static_cast<unsigned>(a.H), static_cast<unsigned>(B));
-  flash_decode_split_kernel<D><<<grid, kThreads, kBytes, stream>>>(a, sp);
+  kernel<<<grid, kThreads, kBytes, stream>>>(a, sp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 split decode at the rows bucket of M = Sq G (1, 4, 8 or
+// kSplitRows).
+template <int D>
+int launch_split_f32(const FlashArgs& a, const SplitArgs& sp, long long B,
+                     cudaStream_t stream) {
+  const long long M = a.Sq * a.G;
+  if (M <= 1) return launch_split<D, false, 1>(a, sp, B, stream);
+  if (M <= 4) return launch_split<D, false, 4>(a, sp, B, stream);
+  if (M <= 8) return launch_split<D, false, 8>(a, sp, B, stream);
+  return launch_split<D, false, kSplitRows>(a, sp, B, stream);
 }
 
 template <int D>
 int launch_f32(const FlashArgs& a, long long B, cudaStream_t stream) {
-  const dim3 grid(
-      static_cast<unsigned>((a.Sq * a.G + kF32Rows - 1) / kF32Rows),
-      static_cast<unsigned>(a.H), static_cast<unsigned>(B));
-  flash_attention_f32_kernel<D><<<grid, kThreads, 0, stream>>>(a);
+  using L = F32Tile<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_prefill_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (a.Sq * a.G + L::kRows - 1) / L::kRows * B * a.H;
+  flash_prefill_f32_kernel<D>
+      <<<static_cast<unsigned>(blocks), L::kThreads, L::kBytes, stream>>>(
+          a, static_cast<int>(B));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1582,8 +2041,11 @@ extern "C" {
 // Tiles the wrapper validates against: the bf16 prefill's geometry at
 // head dim D into out[7] (rows a block, keys a tile, ring stages, consumer
 // warpgroups, dynamic shared memory bytes, threads a block, registers a
-// thread), returning 0 (or cudaErrorInvalidValue for another D); rows per
-// block of the fp32 lane; the split path's rows and key unit.
+// thread), returning 0 (or cudaErrorInvalidValue for another D); the fp32
+// lane's at D into out[8] (the prefill's rows a block, keys a tile, ring
+// stages, threads a block and dynamic shared memory bytes; the split
+// decode's keys a warp's sub-tile, dynamic shared memory bytes and blocks
+// an SM); the split path's rows and key unit.
 int flash_attention_prefill_tile(int D, int* out) {
   return by_head_dim(D, [&](auto d) {
     constexpr int D = decltype(d)::value;
@@ -1599,7 +2061,17 @@ int flash_attention_prefill_tile(int D, int* out) {
     return 0;
   });
 }
-int flash_attention_f32_tile() { return kF32Rows; }
+int flash_attention_f32_tile(int D, int* out) {
+  return by_head_dim(D, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    using L = F32Tile<D>;
+    using S = F32Split<D>;
+    const int v[8] = {L::kRows,  L::kKeys, L::kStages, L::kThreads,
+                      L::kBytes, S::kSub,  S::kBytes,  S::kBlocks};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return 0;
+  });
+}
 int flash_attention_split_rows() { return kSplitRows; }
 int flash_attention_split_tile() { return kSplitTile; }
 
@@ -1611,16 +2083,15 @@ const char* flash_attention_error_string(int code) {
 // (B, Sk, H, D) with strides (ksb, kss, ksh, 1) and (vsb, vss, vsh, 1);
 // out (B, Sq, H, G, D) contiguous in q's dtype; kv_length (B,) int32 or
 // null. bf16 != 0 selects bfloat16, else fp32; D is 8, 16, 32, 64, 128 or
-// 256. Every base
-// and stride is 16-byte aligned (the wrapper checks). In bf16, n_split > 0
-// takes the split path (Sq G <= kSplitRows) with n_split splits of
-// split_tiles kSplitTile-key tiles, fp32 scratch (B, H, n_split, Sq G,
-// D + 2) (null when n_split is 1) and (B, H) int32 counters at 0; else the
-// prefill path. m_out and l_out, (B, Sq, H, G) fp32 each, are null but on
-// the bf16 split path and the fp32 lane, which then also write each row's
-// (merged) max, in natural-log units, and sum there: the partials that a
-// sequence-sharded decode merges across ranks. Returns the launch's
-// cudaError_t.
+// 256. Every base and stride is 16-byte aligned (the wrapper checks).
+// n_split > 0 takes the split path (Sq G <= kSplitRows) with n_split
+// splits of split_tiles kSplitTile-key tiles, fp32 scratch (B, H, n_split,
+// Sq G, D + 2) (null when n_split is 1) and (B, H) int32 counters at 0;
+// else the prefill path. m_out and l_out, (B, Sq, H, G) fp32 each, are
+// null but on the split path and the fp32 prefill, which then also write
+// each row's (merged) max, in natural-log units, and sum there: the
+// partials that a sequence-sharded decode merges across ranks. Returns the
+// launch's cudaError_t.
 int flash_attention_ml(const void* q, const void* k, const void* v,
                        void* out, const void* kv_length, int bf16, int causal,
                        int D, long long B, long long Sq, long long Sk,
@@ -1657,7 +2128,7 @@ int flash_attention_ml(const void* q, const void* k, const void* v,
   a.m_out = static_cast<float*>(m_out);
   a.l_out = static_cast<float*>(l_out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16 && n_split > 0) {
+  if (n_split > 0) {
     if (Sq * G > kSplitRows || counters == nullptr ||
         (n_split > 1 && scratch == nullptr) || split_tiles < 1)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1667,7 +2138,9 @@ int flash_attention_ml(const void* q, const void* k, const void* v,
     sp.n_split = n_split;
     sp.split_tiles = split_tiles;
     return by_head_dim(D, [&](auto d) {
-      return launch_split<decltype(d)::value>(a, sp, B, s);
+      constexpr int DD = decltype(d)::value;
+      return bf16 ? launch_split<DD, true>(a, sp, B, s)
+                  : launch_split_f32<DD>(a, sp, B, s);
     });
   }
   if (bf16 && m_out != nullptr)  // the prefill path writes no statistics

@@ -23,10 +23,11 @@ of device memory and what bounds it.
   module (``flash_attention.py:135``) on its (B, H, S, D) layout; its
   causal mask is aligned to the end (``k <= q + Sk - Sq``).
 
-- :func:`decode_splits` is the bf16 lane's plan for a call of at most
-  :data:`SPLIT_ROWS` flattened rows (decode): the keys cut into splits
-  of whole :data:`SPLIT_TILE`-key tiles, from B, H, the rows and Sk
-  alone (never ``kv_length``, which lies on the device).
+- :func:`decode_splits` is the plan for a call of at most
+  :data:`SPLIT_ROWS` flattened rows (decode), in either dtype: the keys
+  cut into splits of whole :data:`SPLIT_TILE`-key tiles, from B, H, the
+  rows, Sk and the lane's grid target (:func:`split_blocks`) alone (never
+  ``kv_length``, which lies on the device).
   :func:`flash_attention_split_plain` runs that plan in plain PyTorch:
   :func:`split_partials` per split, then :func:`merge_partials`, the
   log-sum-exp merge of ``repro/nn/decode_attn.py:128-132``.
@@ -58,16 +59,21 @@ PARTIAL_LAUNCHES = 0
 
 #: Head dims the kernel is compiled for (the Pallas kernel blocks only the
 #: sequence and takes any; these are the LM configs' and their smoke
-#: configs'), and the fp32 lane's tile: flattened (query position, q head)
-#: rows a block and keys a tile (the bf16 prefill's: :func:`prefill_tile`).
+#: configs'); the geometry of each lane's blocks: :func:`prefill_tile`
+#: (bf16), :func:`f32_tile` (fp32).
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-F32_TILE = (32, 32)
 #: The bf16 prefill's keys a K/V tile at D = 256 (``kD256Keys`` of the
-#: library), the shared memory a block can have on an H100, and the
-#: registers of each of an SM's four sub-partitions (a block's warps are
-#: spread over them) and of a thread at most.
+#: library), the shared memory a block can have on an H100, an SM's (its
+#: blocks share it, each taking SM_BLOCK_RESERVED bytes besides its
+#: dynamic shared memory: 1 KB CUDA reserves, 16 the split kernels'
+#: static flag), the SMs, and the registers of each of an SM's four
+#: sub-partitions (a block's warps are spread over them) and of a thread
+#: at most.
 D256_KEYS = 80
 SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
+SM_BLOCK_RESERVED = 1024 + 16
+SMS = 132
 SMSP_REGISTERS = 16384
 MAX_THREAD_REGISTERS = 255
 
@@ -116,12 +122,59 @@ def prefill_tile(D: int) -> PrefillTile:
                                 SMSP_REGISTERS // (threads // 4) // 8 * 8))
 
 
-#: The bf16 lane splits the keys of a call of at most SPLIT_ROWS rows
-#: (one mma.sync row fragment: decode) into splits of whole SPLIT_TILE-key
-#: tiles, enough for SPLIT_BLOCKS blocks (two per SM of an H100's 132).
+#: Either lane splits the keys of a call of at most SPLIT_ROWS rows
+#: (decode) into splits of whole SPLIT_TILE-key tiles over blocks of
+#: SPLIT_WARPS warps, enough for the lane's grid target
+#: (:func:`split_blocks`): SPLIT_BLOCKS in bf16 (two per SM of an H100's
+#: 132).
 SPLIT_ROWS = 16
 SPLIT_TILE = 64
-SPLIT_BLOCKS = 2 * 132
+SPLIT_WARPS = 4
+SPLIT_BLOCKS = 2 * SMS
+
+
+class F32Tile(NamedTuple):
+    """The fp32 lane's blocks at one head dim (``F32Tile<D>`` and
+    ``F32Split<D>`` of ``csrc/flash_attention.cu``)."""
+    rows: int              # prefill: flattened rows a block, 16 a warp
+    keys: int              # prefill: keys a K/V tile
+    stages: int            # prefill: (K, V) tiles in the cp.async ring
+    threads: int           # prefill: threads a block
+    smem_bytes: int        # prefill: dynamic shared memory a block
+    split_keys: int        # split decode: keys a warp's sub-tile
+    split_smem_bytes: int  # split decode: dynamic shared memory a block
+    split_per_sm: int      # split decode: blocks an SM holds at once
+
+
+@lru_cache(maxsize=None)
+def f32_tile(D: int) -> F32Tile:
+    """The fp32 lane's geometry at head dim ``D`` (one of
+    :data:`HEAD_DIMS`), on the head dim padded to 32 columns (dp).  The
+    prefill: 8 warps of 16 rows, keys a tile 64 at D <= 64, 32 at 128 and
+    16 at 256, a 2-stage ring; shared memory (floats) Q and each stage's K
+    in rows of dp + 4, each stage's V in rows of dp, P in rows of keys + 8.
+    The split decode: a warp's sub-tile is 32 segments of 32 floats (32 /
+    (dp / 32) keys); shared memory q (16 rows of dp), each of 4 warps' P
+    (16 x keys) and ring of 2 stages (K: 32 segments; V: keys x dp), or
+    the warps' (m, l, acc) rows after the loop, whichever is larger; as
+    many blocks an SM as its shared memory holds.  The library's values
+    are held to these when it is loaded."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel takes {HEAD_DIMS}")
+    dp = max(D, 32)
+    rows, stages = 128, 2
+    keys = 64 if D <= 64 else 32 if D == 128 else 16
+    prefill = rows * (dp + 4) + stages * keys * (2 * dp + 4) \
+        + rows * (keys + 8)
+    sub = 32 // (dp // 32)
+    ring = SPLIT_WARPS * 2 * (32 * 32 + sub * dp)
+    split = 4 * max(SPLIT_ROWS * dp + SPLIT_WARPS * SPLIT_ROWS * sub + ring,
+                    SPLIT_WARPS * SPLIT_ROWS * (dp + 2))
+    return F32Tile(rows=rows, keys=keys, stages=stages, threads=256,
+                   smem_bytes=4 * prefill, split_keys=sub,
+                   split_smem_bytes=split,
+                   split_per_sm=SM_SMEM_BYTES // (split + SM_BLOCK_RESERVED))
+
 
 _LIB_NAME = "flash_attention"
 _SOURCES = ("flash_attention.cu",)
@@ -235,26 +288,48 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-def decode_splits(B: int, H: int, rows: int, Sk: int) -> Tuple[int, int]:
+def split_blocks(D: int, bf16: bool, rows: int) -> Tuple[int, bool]:
+    """The split decode's grid target at head dim ``D`` and ``rows``
+    flattened rows, and whether the grid is to fit it
+    (:func:`decode_splits`'s ``blocks`` and ``fit``): in bf16
+    SPLIT_BLOCKS, at least; in fp32 what the SMs hold at once at the
+    lane's shared memory a block (:func:`f32_tile`; 2 a block above 8
+    rows, whose accumulators take the registers of a third), at most, so
+    that every block of the grid runs in one wave."""
+    if bf16:
+        return SPLIT_BLOCKS, False
+    per_sm = f32_tile(D).split_per_sm
+    return SMS * (min(per_sm, 2) if rows > 8 else per_sm), True
+
+
+def decode_splits(B: int, H: int, rows: int, Sk: int,
+                  blocks: int = SPLIT_BLOCKS,
+                  fit: bool = False) -> Tuple[int, int]:
     """The split path's plan: ``(n_split, split_tiles)``, the keys [0, Sk)
     cut into ``n_split`` splits of ``split_tiles`` whole SPLIT_TILE-key
-    tiles (the last split ends at Sk), so that the grid of
-    B x H x row tiles x n_split blocks holds at least SPLIT_BLOCKS, or
-    one tile a split where there are fewer tiles; none is empty.  It
-    reads shapes only: ``kv_length`` lies on the device, and reading it
-    would wait for the device once per layer and step."""
+    tiles (the last split ends at Sk); none is empty.  The grid of B x H x
+    row tiles x n_split blocks holds at least ``blocks`` or, with ``fit``,
+    at most ``blocks`` (at least one split); or one tile a split where
+    there are fewer tiles.  The lane's ``blocks`` and ``fit`` are
+    :func:`split_blocks`'.  It reads shapes only: ``kv_length`` lies on
+    the device, and reading it would wait for the device once per layer
+    and step."""
     n_tiles = -(-Sk // SPLIT_TILE)
     if n_tiles == 0:
         return 1, 1
-    row_tiles = max(1, -(-rows // SPLIT_ROWS))
-    want = min(n_tiles, max(1, -(-SPLIT_BLOCKS // (B * H * row_tiles))))
-    per = n_tiles // want
+    grid = B * H * max(1, -(-rows // SPLIT_ROWS))
+    if fit:
+        per = -(-n_tiles // min(n_tiles, max(1, blocks // grid)))
+    else:
+        per = n_tiles // min(n_tiles, max(1, -(-blocks // grid)))
     return -(-n_tiles // per), per
 
 
-def split_ranges(B: int, H: int, rows: int, Sk: int) -> List[Tuple[int, int]]:
+def split_ranges(B: int, H: int, rows: int, Sk: int,
+                 blocks: int = SPLIT_BLOCKS,
+                 fit: bool = False) -> List[Tuple[int, int]]:
     """:func:`decode_splits` as key ranges ``[lo, hi)``, in split order."""
-    n_split, per = decode_splits(B, H, rows, Sk)
+    n_split, per = decode_splits(B, H, rows, Sk, blocks, fit)
     span = per * SPLIT_TILE
     return [(i * span, min((i + 1) * span, Sk)) for i in range(n_split)]
 
@@ -311,12 +386,13 @@ def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
                                 kv_length: Optional[torch.Tensor] = None,
                                 ) -> torch.Tensor:
     """The split path in plain PyTorch: :func:`split_partials` over each
-    range of :func:`split_ranges`, then :func:`merge_partials`; the
-    output in q's dtype."""
-    B, Sq, H, G, _ = q.shape
+    range of :func:`split_ranges` (the plan of q's dtype's lane), then
+    :func:`merge_partials`; the output in q's dtype."""
+    B, Sq, H, G, D = q.shape
+    plan = split_blocks(D, q.dtype == torch.bfloat16, Sq * G)
     parts = [split_partials(q, k, v, lo, hi, causal=causal,
                             q_offset=q_offset, kv_length=kv_length)
-             for lo, hi in split_ranges(B, H, Sq * G, k.shape[1])]
+             for lo, hi in split_ranges(B, H, Sq * G, k.shape[1], *plan)]
     return merge_partials(parts).to(q.dtype)
 
 
@@ -350,22 +426,25 @@ def load_library() -> ctypes.CDLL:
         lib.flash_attention_ml.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        consts = ("flash_attention_f32_tile", "flash_attention_split_rows",
-                  "flash_attention_split_tile")
+        consts = ("flash_attention_split_rows", "flash_attention_split_tile")
         for fn in consts:
             getattr(lib, fn).restype = i
-        lib.flash_attention_prefill_tile.argtypes = [i, p]
-        lib.flash_attention_prefill_tile.restype = i
         tiles = {}
-        for D in HEAD_DIMS:
-            got = (ctypes.c_int * 7)()
-            if lib.flash_attention_prefill_tile(D, got) != 0:
-                raise RuntimeError(f"flash_attention library: no prefill "
-                                   f"tile at D = {D}")
-            tiles[D] = PrefillTile(*got)
+        for fn, kind in (("flash_attention_prefill_tile", PrefillTile),
+                         ("flash_attention_f32_tile", F32Tile)):
+            getattr(lib, fn).argtypes = [i, p]
+            getattr(lib, fn).restype = i
+            for D in HEAD_DIMS:
+                got = (ctypes.c_int * len(kind._fields))()
+                if getattr(lib, fn)(D, got) != 0:
+                    raise RuntimeError(f"flash_attention library: no "
+                                       f"{fn} at D = {D}")
+                tiles[kind, D] = kind(*got)
+        want = {(kind, D): tile(D) for kind, tile in (
+            (PrefillTile, prefill_tile), (F32Tile, f32_tile))
+            for D in HEAD_DIMS}
         if tuple(getattr(lib, fn)() for fn in consts) != (
-                F32_TILE[0], SPLIT_ROWS, SPLIT_TILE) \
-                or tiles != {D: prefill_tile(D) for D in HEAD_DIMS}:
+                SPLIT_ROWS, SPLIT_TILE) or tiles != want:
             raise RuntimeError("flash_attention library constants differ "
                                "from the wrapper's")
         _BOUND.add(lib)
@@ -416,12 +495,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype, D in :data:`HEAD_DIMS`, the head dim contiguous, every other
     stride and every base 16-byte aligned (strided views such as a slice
     of a KV cache are read in place; in bf16 no k/v stride is 0 over more
-    than one element, since their tiles come in by TMA).  In bf16, a call
-    of at most :data:`SPLIT_ROWS` rows (Sq x G: decode) splits the keys as
-    :func:`decode_splits` plans, its fp32 partials in a ``torch.empty``
-    scratch merged by the launch's last block; others take the
-    warpgroup path.  ``chunk_k`` and ``block_causal`` choose how the plain
-    version walks the keys; the kernel walks tiles of its own and always
+    than one element, since their tiles come in by TMA).  A call of at
+    most :data:`SPLIT_ROWS` rows (Sq x G: decode) splits the keys as
+    :func:`decode_splits` plans for its lane, its fp32 partials in a
+    ``torch.empty`` scratch merged by the launch's last block; others take
+    the prefill kernel (bf16: warpgroup MMA; fp32: register-tiled FMAs).
+    ``chunk_k`` and ``block_causal`` choose how the plain version walks
+    the keys; the kernel walks tiles of its own and always
     skips the tiles that causality or ``kv_length`` mask whole.  A call
     that autograd records goes through :class:`FlashAttentionFn`.
     """
@@ -474,9 +554,10 @@ def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
 
     A CPU ``q`` runs :func:`flash_partial_plain`.  A CUDA ``q`` launches
     the kernel once, which writes m and l beside the output, or raises:
-    in bf16 the split decode (at most :data:`SPLIT_ROWS` rows, Sq x G),
-    in fp32 the fp32 lane, with :func:`flash_attention`'s other terms.
-    Counted in :data:`PARTIAL_LAUNCHES`."""
+    the split decode at most :data:`SPLIT_ROWS` rows (Sq x G), in either
+    dtype; in fp32 the prefill kernel above that, with
+    :func:`flash_attention`'s other terms.  Counted in
+    :data:`PARTIAL_LAUNCHES`."""
     global PARTIAL_LAUNCHES
     if q.device.type == "cpu":
         return flash_partial_plain(q, k, v, kv_length)
@@ -492,12 +573,11 @@ def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
 
 
 def _grid_x(B: int, Sq: int, H: int, G: int, D: int, bf16: bool) -> int:
-    """The launch grid's x extent of a call that is no split decode: the
-    bf16 prefill's blocks, :func:`prefill_tile`'s rows of one (b, h) each
-    (the grid is x alone), or the fp32 lane's row tiles (H and B in y and
-    z)."""
-    rows = prefill_tile(D).rows if bf16 else F32_TILE[0]
-    return -(-Sq * G // rows) * (B * H if bf16 else 1)
+    """The launch grid's x extent of a call that is no split decode (the
+    grid is x alone): the prefill's blocks, the rows of one (b, h) each,
+    :func:`prefill_tile`'s in bf16 and :func:`f32_tile`'s in fp32."""
+    rows = prefill_tile(D).rows if bf16 else f32_tile(D).rows
+    return -(-Sq * G // rows) * B * H
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -555,8 +635,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         n_split, tiles, scratch, counters = 0, 0, None, None
-        if bf16 and Sq * G <= SPLIT_ROWS:
-            n_split, tiles = decode_splits(B, H, Sq * G, Sk)
+        if Sq * G <= SPLIT_ROWS:
+            n_split, tiles = decode_splits(B, H, Sq * G, Sk,
+                                           *split_blocks(D, bf16, Sq * G))
             counters = _counters(q.device, stream, B * H).data_ptr()
             if n_split > 1:
                 scratch = torch.empty(B * H * n_split * Sq * G * (D + 2),

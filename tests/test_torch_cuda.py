@@ -1415,24 +1415,34 @@ def test_flash_kernel_matches_plain_on_card(case, dtype):
         assert float(got[list(kvl).index(0)].abs().max()) == 0.0
 
 
+def _splits(c, dtype):
+    """The split decode's splits of FLASH_CASES entry ``c`` in ``dtype``'s
+    lane."""
+    rows = c[1] * c[4]
+    return fa_plan.decode_splits(c[0], c[3], rows, c[2], *fa_plan.split_blocks(
+        c[5], dtype == "bfloat16", rows))[0]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "case", [c for c in FLASH_CASES if c[1] * c[4] <= fa_plan.SPLIT_ROWS
-             and fa_plan.decode_splits(c[0], c[3], c[1] * c[4], c[2])[0] > 1],
-    ids=_flash_id)
-def test_flash_split_decode_is_bit_equal_over_calls_on_card(case):
-    """On a card: the bf16 split decode run twice gives the same bits (the
-    merge walks the splits in order, whichever block arrives last), one
-    launch per call."""
+    "case,dtype", [(c, dt) for dt in ("bfloat16", "float32")
+                   for c in FLASH_CASES if c[1] * c[4] <= fa_plan.SPLIT_ROWS
+                   and _splits(c, dt) > 1],
+    ids=lambda x: x if isinstance(x, str) else _flash_id(x))
+def test_flash_split_decode_is_bit_equal_over_calls_on_card(case, dtype):
+    """On a card: the split decode (bf16 and fp32) run twice gives the same
+    bits (the merge walks the splits in order, whichever block arrives
+    last), one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import flash_attention as fa
 
     B, Sq, Sk, H, G, D, causal, off, kvl = case
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(
         _flash_id(case).encode()))
-    q = torch.randn((B, Sq, H, G, D), generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((B, Sq, H, G, D), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").to(dt)
             for _ in range(2))
     length = None if kvl is None else torch.tensor(kvl, dtype=torch.int32,
                                                    device="cuda")
@@ -1449,22 +1459,24 @@ def test_flash_split_decode_is_bit_equal_over_calls_on_card(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize(
     "case", [c for c in FLASH_CASES if c[1] * c[4] > fa_plan.SPLIT_ROWS
              and c[1] >= 90], ids=_flash_id)
-def test_flash_prefill_is_bit_equal_over_calls_on_card(case):
-    """On a card: the bf16 prefill run twice gives the same bits (each
-    row's sums run in a fixed order, whichever warp loads a tile), one
-    launch per call."""
+def test_flash_prefill_is_bit_equal_over_calls_on_card(case, dtype):
+    """On a card: the prefill (bf16 and fp32) run twice gives the same
+    bits (each row's sums run in a fixed order, whichever warp loads a
+    tile), one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import flash_attention as fa
 
     B, Sq, Sk, H, G, D, causal, off, kvl = case
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(
         _flash_id(case).encode()))
-    q = torch.randn((B, Sq, H, G, D), generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((B, Sq, H, G, D), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").to(dt)
             for _ in range(2))
     length = None if kvl is None else torch.tensor(kvl, dtype=torch.int32,
                                                    device="cuda")
@@ -2812,12 +2824,13 @@ def test_ssd_and_matmul_refuse_a_gradient_on_card():
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("Sk", [40, 2064, 5000])
 def test_flash_partial_entry_on_card(dtype, Sk):
-    """Kernel 5's partial entry (the split decode in bf16 over one, then
-    several splits; the fp32 lane) against ``split_partials`` over all
-    keys: the output within bf16's 4 x 2^-7 of each row's max (fp32:
-    2e-5), the row max and sum within 1e-5 (relative, rows with a visible
-    key); a row with none has l = 0 and o = 0; one launch counted apart
-    from the attention entry's."""
+    """Kernel 5's partial entry (the split decode over one, then several
+    splits, in either dtype; in fp32 also 21 rows, above the
+    split decode's, through the prefill kernel) against ``split_partials``
+    over all keys: the output within bf16's 4 x 2^-7 of each row's max
+    (fp32: 2e-5), the row max and sum within 1e-5 (relative, rows with a
+    visible key); a row with none has l = 0 and o = 0; one launch counted
+    apart from the attention entry's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel runs on the card")
     B, H, G, D = 4, 2, 7, 128
@@ -2829,8 +2842,10 @@ def test_flash_partial_entry_on_card(dtype, Sk):
     n0, p0 = fa_plan.LAUNCHES, fa_plan.PARTIAL_LAUNCHES
     o, m, l = fa_plan.flash_attention_partial(q, k, v, kvl)
     assert (fa_plan.LAUNCHES, fa_plan.PARTIAL_LAUNCHES) == (n0, p0 + 1)
-    if dtype == torch.bfloat16:   # one split at 40 keys, several above
-        assert (fa_plan.decode_splits(B, H, G, Sk)[0] == 1) == (Sk == 40)
+    # one split at 40 keys (one tile), several above, in either lane
+    n_split = fa_plan.decode_splits(B, H, G, Sk, *fa_plan.split_blocks(
+        D, dtype == torch.bfloat16, G))[0]
+    assert (n_split == 1) == (Sk == 40)
     uo, um, ul = fa_plan.split_partials(q, k, v, 0, Sk, causal=False,
                                         kv_length=kvl)
     want = uo / torch.clamp(ul, min=1e-20)[..., None]
@@ -2845,10 +2860,19 @@ def test_flash_partial_entry_on_card(dtype, Sk):
         um[vis].abs().max())
     assert float(((l - ul).abs() / ul.clamp(min=1e-20) * vis).max()) <= 1e-5
     assert bool((l[~vis] == 0).all()) and bool((o[~vis] == 0).all())
-    if dtype == torch.bfloat16:   # more rows than one split-decode block
+    q3 = q.expand(B, 3, H, G, D).contiguous()  # more rows than a split block
+    if dtype == torch.bfloat16:
         with pytest.raises(ValueError, match="split decode"):
-            fa_plan.flash_attention_partial(
-                q.expand(B, 3, H, G, D).contiguous(), k, v, kvl)
+            fa_plan.flash_attention_partial(q3, k, v, kvl)
+    else:
+        o3, m3, l3 = fa_plan.flash_attention_partial(q3, k, v, kvl)
+        wo, wm, wl = fa_plan.flash_partial_plain(q3, k, v, kvl)
+        vis3 = wl > 0
+        assert float((o3 - wo).abs().max()) <= 2e-5
+        assert float(((m3 - wm).abs() * vis3).max()) <= 1e-5 * float(
+            wm[vis3].abs().max())
+        assert float(((l3 - wl).abs() / wl.clamp(min=1e-20) * vis3).max()) \
+            <= 1e-5
 
 
 def _seqshard_two_ranks(rank: int, d: str) -> None:

@@ -1,15 +1,17 @@
 """The flash kernel's split decode, its plain mirror, on the CPU.
 
-The bf16 lane of ``repro_torch/csrc/flash_attention.cu`` runs a call of at
+Both lanes of ``repro_torch/csrc/flash_attention.cu`` run a call of at
 most ``SPLIT_ROWS`` flattened rows (decode) split over the keys:
-``decode_splits`` plans the splits on the host from the shapes alone, each
-block writes a split's fp32 partial (m, l, unnormalised acc) and the last
-block merges them.  The kernel runs only on a card; what surrounds it is
-held here:
+``decode_splits`` plans the splits on the host from the shapes alone (bf16:
+at least ``SPLIT_BLOCKS`` blocks; fp32: at most what the SMs hold at once,
+``split_blocks``), each block writes a split's fp32 partial (m, l,
+unnormalised acc) and the last block merges them in split order.  The
+kernel runs only on a card; what surrounds it is held here:
 
 - the planner covers every key of [0, Sk) exactly once, in whole
   ``SPLIT_TILE``-key tiles, with no empty split, over a grid of (B, H,
-  rows, Sk), and reads no ``kv_length`` (it would wait for the device);
+  rows, Sk), in either lane, and reads no ``kv_length`` (it would wait for
+  the device);
 - ``flash_attention_split_plain`` (the plan run in plain PyTorch) matches
   ``flash_attention_plain``: fp32 within rtol = atol = 2e-5, bf16 within
   2e-2 (the tolerances of ``tests/test_torch_attention.py``);
@@ -18,11 +20,18 @@ held here:
   wholly past ``kv_length`` included, and ``merge_partials`` matches the
   log-sum-exp merge of ``decode_attn.py:128-132`` written in jnp, and the
   single-device ``seqshard_flash_decode``: fp32 within 2e-5, inputs from
-  numpy with a seed.
+  numpy with a seed;
+- the fp32 lane's split-order merge in plain PyTorch (its plan's
+  ``split_partials``, ``merge_partials``, and the merged row max and sum
+  that the kernel's last block writes for the partial entry) matches the
+  partial entry's plain version over every key (``flash_partial_plain``)
+  and the JAX package's decode merge of the same splits, o, m and l within
+  2e-5.
 """
 import inspect
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,13 +100,42 @@ def test_decode_splits_cover_every_key_once_in_whole_tiles(Sk):
 
 
 def test_decode_splits_reads_shapes_only():
-    """The plan takes B, H, the rows and Sk: never ``kv_length``, which
-    lies on the device; the same shapes give the same plan."""
+    """The plan takes B, H, the rows, Sk and the lane's grid target: never
+    ``kv_length``, which lies on the device; the same shapes give the same
+    plan."""
     assert list(inspect.signature(fa.decode_splits).parameters) == [
-        "B", "H", "rows", "Sk"]
+        "B", "H", "rows", "Sk", "blocks", "fit"]
     assert fa.decode_splits(4, 8, 4, 4128) == fa.decode_splits(4, 8, 4, 4128)
-    # granite-3-2b's decode: 32 (b, h) over 65 tiles -> 10 splits of 7
+    # granite-3-2b's decode: 32 (b, h) over 65 tiles -> 10 splits of 7 in
+    # bf16; in fp32 at most 3 x 132 blocks -> 11 splits of 6 (352 blocks)
     assert fa.decode_splits(4, 8, 4, 4128) == (10, 7)
+    assert fa.split_blocks(64, True, 4) == (fa.SPLIT_BLOCKS, False)
+    assert fa.split_blocks(64, False, 4) == (3 * fa.SMS, True)
+    assert fa.decode_splits(4, 8, 4, 4128,
+                            *fa.split_blocks(64, False, 4)) == (11, 6)
+
+
+@pytest.mark.parametrize("D", [8, 64, 128, 256])
+@pytest.mark.parametrize("Sk", [1, 64, 65, 1000, 2064, 4128, 33000])
+def test_f32_decode_splits_fit_one_wave(D, Sk):
+    """The fp32 lane's plan: every key of [0, Sk) once, in whole tiles,
+    none empty, and a grid within what the SMs hold at once (three or two
+    blocks an SM by shared memory, two above 8 rows) unless B x H alone
+    exceeds it (then one split)."""
+    for B in (1, 4, 16):
+        for H in (1, 8, 64):
+            for rows in (1, 7, 16):
+                blocks, fit = fa.split_blocks(D, False, rows)
+                assert fit and blocks == fa.SMS * (
+                    2 if rows > 8 or D == 256 else 3)
+                n_split, per = fa.decode_splits(B, H, rows, Sk, blocks, fit)
+                ranges = fa.split_ranges(B, H, rows, Sk, blocks, fit)
+                assert len(ranges) == n_split >= 1 and per >= 1
+                assert ranges[0][0] == 0 and ranges[-1][1] == Sk
+                for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
+                    assert hi == lo2 and hi - lo == per * fa.SPLIT_TILE
+                assert all(hi > lo for lo, hi in ranges)
+                assert B * H * n_split <= blocks or n_split == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -161,6 +199,57 @@ def test_split_partials_and_merge_match_jax(case):
         rtol=2e-5, atol=2e-5)
     if case[2] == 4128:
         assert empty > 0           # splits wholly past every kv_length
+
+
+def _f32_plan(case):
+    B, Sq, Sk, H, G, D = case[:6]
+    return fa.split_ranges(B, H, Sq * G, Sk,
+                           *fa.split_blocks(D, False, Sq * G))
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[1] == 1
+                                  and not c[6] and c[2] in (300, 4128)],
+                         ids=case_id)
+def test_f32_split_merge_matches_partial_plain_and_jax(case):
+    """The fp32 lane's split decode in plain PyTorch, each split's partial
+    merged in split order with its row max and sum (what the kernel's last
+    block writes for the partial entry), against ``flash_partial_plain``
+    over every key and against the JAX package's merge
+    (``decode_attn.py:128-132``) of ``_local_flash_decode`` over the same
+    splits: o, m and l within 2e-5 (m on the rows with a visible key)."""
+    B, _, Sk, H, G, D, _, _, kvl = case
+    q, k, v = make_inputs(case)
+    kv_len = np.full((B,), Sk, np.int32) if kvl is None else np.asarray(
+        kvl, np.int32)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    length = torch.from_numpy(kv_len)
+    ranges = _f32_plan(case)
+    parts = [fa.split_partials(qt, kt, vt, lo, hi, causal=False,
+                               kv_length=length) for lo, hi in ranges]
+    o = fa.merge_partials(parts)
+    m = torch.stack([pm for _, pm, _ in parts]).amax(dim=0)
+    l = sum(pl * torch.exp(pm - m) for _, pm, pl in parts)
+    po, pm, pl = fa.flash_partial_plain(qt, kt, vt, length)
+    vis = (pl > 0).numpy()
+    np.testing.assert_allclose(o.numpy(), po.numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l.numpy(), pl.numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(m.numpy()[vis], pm.numpy()[vis], rtol=2e-5,
+                               atol=2e-5)
+    qg = jnp.asarray(q[:, 0])
+    local = jax.jit(lambda kk, vv, lo: _local_flash_decode(
+        qg, kk, vv, lo, None, jnp.asarray(kv_len)))   # one trace a length
+    theirs = [local(jnp.asarray(k[:, lo:hi]), jnp.asarray(v[:, lo:hi]), lo)
+              for lo, hi in ranges]
+    np.testing.assert_allclose(o[:, 0].numpy(),
+                               np.asarray(_jax_merge(theirs)), rtol=2e-5,
+                               atol=2e-5)
+    jm = jnp.stack([jm for _, jm, _ in theirs]).max(axis=0)
+    jl = sum(jl * jnp.exp(jm_s - jm) for _, jm_s, jl in theirs)
+    np.testing.assert_allclose(l[:, 0].numpy(), np.asarray(jl), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(m[:, 0].numpy()[vis[:, 0]],
+                               np.asarray(jm)[vis[:, 0]], rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_merge_of_empty_splits_is_zero():

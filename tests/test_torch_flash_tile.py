@@ -1,8 +1,11 @@
-"""The flash kernel's bf16 prefill geometry (``flash_attention.prefill_tile``,
-held to the library's ``PfWgTile<D>`` / ``PfTile<D>`` when it loads) at
-every head dim the kernel takes, on the CPU: shared memory within an H100
-block's, registers within a thread's share of an SM's, tiles that wgmma and
-TMA take, and the wrapper's launch-grid check at each head dim's rows.
+"""The flash kernel's geometry at every head dim the kernel takes, on the
+CPU: the bf16 prefill's (``flash_attention.prefill_tile``, held to the
+library's ``PfWgTile<D>`` / ``PfTile<D>`` when it loads): shared memory
+within an H100 block's, registers within a thread's share of an SM's,
+tiles that wgmma and TMA take; the fp32 lane's (``flash_attention.f32_tile``,
+held to ``F32Tile<D>`` / ``F32Split<D>``): the prefill's and the split
+decode's shared memory, the lane tiles, the split decode's blocks an SM;
+and the wrapper's launch-grid check at each head dim's rows.
 """
 import pytest
 
@@ -72,8 +75,55 @@ def test_prefill_tiles_by_head_dim():
 @pytest.mark.parametrize("Sq,G", [(1, 17), (4096, 1), (4096, 7), (333, 12)])
 def test_grid_counts_the_prefill_rows_of_each_head(D, Sq, G):
     """The wrapper's grid check counts the prefill's blocks at the head
-    dim's rows: every (b, h) gets ceil(Sq G / rows) row tiles."""
+    dim's rows of each lane: every (b, h) gets ceil(Sq G / rows) row
+    tiles."""
     B, H = 3, 5
     rows = fa.prefill_tile(D).rows
     assert fa._grid_x(B, Sq, H, G, D, True) == -(-Sq * G // rows) * B * H
-    assert fa._grid_x(B, Sq, H, G, D, False) == -(-Sq * G // 32)
+    rows = fa.f32_tile(D).rows
+    assert fa._grid_x(B, Sq, H, G, D, False) == -(-Sq * G // rows) * B * H
+
+
+@pytest.mark.parametrize("D", DIMS)
+def test_f32_tile_fits_an_h100_block_and_sm(D):
+    """The fp32 prefill's and split decode's shared memory within a block's
+    227 KB; Q, the K/V ring of two stages and P account for the prefill's
+    (Q and K rows padded by 4 floats, P rows by 8); the split decode's
+    blocks an SM fit its 228 KB, two at least."""
+    t = fa.f32_tile(D)
+    dp = max(D, 32)
+    assert max(t.smem_bytes, t.split_smem_bytes) <= fa.SMEM_BYTES
+    assert t.stages >= 2
+    assert t.smem_bytes == 4 * (t.rows * (dp + 4) + t.stages * t.keys
+                                * (2 * dp + 4) + t.rows * (t.keys + 8))
+    assert 2 <= t.split_per_sm
+    assert t.split_per_sm * (t.split_smem_bytes + fa.SM_BLOCK_RESERVED) \
+        <= fa.SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("D", DIMS)
+def test_f32_tile_lanes_cover_the_tiles(D):
+    """A warp of the prefill owns 16 rows (4 row groups of 4 rows) and each
+    of its 8 lane columns kKeys / 8 keys and 4 of every 32 columns; a warp
+    of the split decode reads 32 segments of 32 floats, one a lane, in
+    whole sub-tiles of the split's 64-key unit."""
+    t = fa.f32_tile(D)
+    dp = max(D, 32)
+    assert t.rows == 16 * (t.threads // 32)
+    assert t.keys % 8 == 0 and dp % 32 == 0
+    assert t.split_keys * dp == 32 * 32
+    assert fa.SPLIT_TILE % t.split_keys == 0
+
+
+def test_f32_tiles_by_head_dim():
+    """The fp32 layout chosen per head dim: 64-key prefill tiles up to
+    D = 64, 32 at 128 and 16 at 256 (Q of 128 rows takes 133 KB there);
+    three split blocks an SM below D = 256, two at 256."""
+    got = {D: fa.f32_tile(D) for D in DIMS}
+    assert {D: t.keys for D, t in got.items()} == {
+        8: 64, 16: 64, 32: 64, 64: 64, 128: 32, 256: 16}
+    assert {D: t.split_per_sm for D, t in got.items()} == {
+        8: 3, 16: 3, 32: 3, 64: 3, 128: 3, 256: 2}
+    assert len({got[D] for D in (8, 16, 32)}) == 1
+    with pytest.raises(ValueError, match="head dim"):
+        fa.f32_tile(48)
