@@ -5,11 +5,12 @@
     python3 chip_smoke.py --kernels  # environment, build and kernel phases
     python3 chip_smoke.py --drift 0,1,2  # environment, build and the drift
                                          # measurement only
-    python3 chip_smoke.py --parent DIR   # every phase; phases 3j, 3f and
-                                         # 3k also time the bf16 conv
-                                         # kernels, the SSD kernel, the
-                                         # flash prefill and gemma-7b's
-                                         # served prefill of the checkout
+    python3 chip_smoke.py --parent DIR   # every phase; phases 3j, 3f,
+                                         # 3k and 3l also time the bf16
+                                         # conv kernels, the SSD kernel,
+                                         # the flash prefill, gemma-7b's
+                                         # served prefill, the conv1d and
+                                         # the fp32 matmul of the checkout
                                          # at DIR (the parent commit's)
 
 Phases (any failure exits non-zero and prints no result line):
@@ -73,10 +74,17 @@ Phases (any failure exits non-zero and prints no result line):
    version on the card, bit for bit: at the full-width Mamba shape x
    (4, 4096, 1792), w (4, 1792) in bf16 and fp32 (as the column slice
    ``proj[..., 1536:3328]`` of in_proj's output, which is what the path
-   passes, and contiguous), the smoke shape (D = 160), and L in
-   {1, 2, 3, 257} x K in {1, 4, 6}.  At full width, per dtype: kernel
-   ms, plain ms, ``F.conv1d`` ms (cuDNN, groups = D, on an input already
-   in (B, D, L); a yardstick the port never calls) and the bound;
+   passes, and contiguous), the smoke shape (D = 160), L in
+   {1, 2, 3, 257} x K in {1, 4, 6}, the training shape (4, 1024, 1792)
+   (the slice, and a slice 3 elements further in whose rows are not
+   16-byte aligned) and a rank's shape (4, 4096, 896).  At full width
+   per dtype, and in bf16 at the training and rank shapes: kernel ms by
+   events, its device time under ``torch.profiler``, the host's issue
+   time a call (where it is not below the device time, the events time
+   measures the host, and the log says so), the event and device times
+   with x cold in L2 (calls rotating over copies of x laid out as x is),
+   plain ms, ``F.conv1d`` ms (cuDNN, groups = D, on an input already in
+   (B, D, L); a yardstick the port never calls) and the bound;
 3d. flash attention: the flash kernel against its plain version on the
    card (TF32 off), fp32 within rtol = atol = 2e-5 and bf16 within 2e-2
    and, per output row, within 4 x 2^-7 of the row's max|plain| (2-4 bf16
@@ -169,11 +177,21 @@ Phases (any failure exits non-zero and prints no result line):
    llava-next-34b, seamless's encoder), granite-3-2b's decode and the
    partial entry at phase 23's shape, timed by ``tools/flash_times.py``
    in DIR's checkout and in this one in turns (parent, this, this,
-   parent; SDPA, TF32 off, logged beside each row): granite-3-2b's fp32
-   prefill must be faster than the parent's, every other row within
-   FLASH_TURNS_SLACK of it; then gemma-7b's served prefill (phase 15's)
+   parent; SDPA, TF32 off, logged beside each row): the row
+   FLASH_TURNS_FASTER names (if any) must be faster than the parent's,
+   every other row within FLASH_TURNS_SLACK of it; then gemma-7b's served prefill (phase 15's)
    in turns, its wall and the flash kernel's device time in it
    (``tools/serve_prefill_times.py``);
+3l. with ``--parent DIR``: kernel 3 at its bf16 path shapes (full
+   width, the training batch, a rank's channels) and fp32 at full width,
+   and kernel 6's fp32 projections (the ``fma`` path) at granite-3-2b's
+   prefill, timed by ``tools/conv1d_matmul_times.py`` in DIR's checkout
+   and in this one in turns (parent, this, this, parent; events and
+   profiler device time; ``F.conv1d`` and ``torch.matmul``, TF32 off,
+   from the first turn here): per row this / parent and this / library;
+   the fp32 projections' sum against 0.8 x the parent's and against
+   cuBLAS's, and conv1d against the parent at every shape, each target
+   logged as met or missed;
 3j. the bf16 lanes: kernel 1 in bf16 (bias + ReLU in fp32, one rounding)
    at VGG-16's 13 convs at batch 1 and 8 and AlexNet's 5 at batch 1, as
    dx at VGG-16's CL2-CL13 at batch 1 and 8, and kernel 2 in bf16 at
@@ -3031,10 +3049,40 @@ def phase_f32exact(torch, reps: int, rows):
     return out, model_launches
 
 
-def _conv1d_row(torch, x, w, reps) -> dict:
+def _conv1d_cold(torch, x, w, reps):
+    """The conv1d kernel's event and profiler device times a call with x
+    cold in L2: calls rotating over copies of x, laid out as x is (a
+    strided view keeps its row stride), enough copies that the x and out
+    bytes of the calls between two reads of one copy pass
+    MATMUL_COLD_BYTES."""
+    from repro_torch.kernels.trim_conv1d import trim_conv1d
+
+    B, L, D = x.shape
+    touched = 2 * B * L * D * x.element_size()
+    n = max(2, -(-int(MATMUL_COLD_BYTES) // touched) + 1)
+    xs = [torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                              device=x.device).copy_(x) for _ in range(n)]
+    turn = [0]
+
+    def call():
+        turn[0] = (turn[0] + 1) % n
+        return trim_conv1d(xs[turn[0]], w)
+
+    calls = max(2 * n, reps)
+    out = {"cold_copies": n, "ms_cold": cuda_ms(torch, call, calls),
+           "device_ms_cold": device_ms(torch, call, calls)}
+    del xs
+    return out
+
+
+def _conv1d_row(torch, x, w, reps, label="full") -> dict:
     """The conv1d kernel's times on x (B, L, D) (the path's view) and w
     (K, D) beside its plain version's, cuDNN's (``F.conv1d``, groups = D,
-    on an input already (B, D, L)) and the bound."""
+    on an input already (B, D, L)) and the bound: by CUDA events over
+    back-to-back calls (``ms``), the profiler's device time (``device_ms``),
+    the host's issue time a call (``issue_ms``; where it is not below the
+    device time, ``ms`` measures the host) and with x cold in L2
+    (``_conv1d_cold``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.trim_conv1d import (trim_conv1d,
@@ -3044,14 +3092,33 @@ def _conv1d_row(torch, x, w, reps) -> dict:
     x_t = x.permute(0, 2, 1).contiguous()                  # (B, D, L)
     w_t = w.t().contiguous()[:, None, :]                   # (D, 1, K)
     return {
+        "label": label,
         "dtype": str(x.dtype).replace("torch.", ""), "shape": (B, L, D, K),
         "launches": 1, "max_abs_err": 0.0,
         "ms": cuda_ms(torch, lambda: trim_conv1d(x, w), reps),
+        "device_ms": device_ms(torch, lambda: trim_conv1d(x, w), reps,
+                               kernels=("trim_conv1d_kernel", 1)),
+        "issue_ms": issue_ms(torch, lambda: trim_conv1d(x, w), reps),
+        **_conv1d_cold(torch, x, w, reps),
         "plain_ms": cuda_ms(torch, lambda: trim_conv1d_plain(x, w), reps),
         "library_ms": cuda_ms(torch, lambda: F.conv1d(
             x_t, w_t, groups=D, padding=K - 1)[..., :L], reps),
         **bound(K * B * L * D, (2 * B * L * D + K * D) * x.element_size(),
                 integer=False)}
+
+
+def _log_conv1d_row(r, what="conv1d") -> None:
+    host = ("" if r["device_ms"] is None or r["issue_ms"] < r["device_ms"]
+            else "; the host's issue time is not below the device time: "
+            "ms measures the host")
+    log(f"{what} {r['label']} {r['dtype']:8s} {tuple(r['shape'])} ms "
+        f"{r['ms']:.4f} device_ms {_fmt(r['device_ms'])} issue_ms "
+        f"{r['issue_ms']:.4f} cold ({r['cold_copies']} copies of x) ms "
+        f"{r['ms_cold']:.4f} device_ms {_fmt(r['device_ms_cold'])} plain_ms "
+        f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
+        f"{r['bound_ms']:.4f} ({r['bound_by']}); bound / device_ms "
+        + ("not measured" if r["device_ms"] is None else
+           f"{r['bound_ms'] / r['device_ms']:.3f}") + host)
 
 
 def phase_conv1d(torch, reps: int):
@@ -3095,12 +3162,25 @@ def phase_conv1d(torch, reps: int):
             for k in (1, 4, 6):
                 check(rnd(2, L, D), rnd(k, D), f"{name} L={L} K={k}")
                 n += 1
+        # the training batch's view and a rank's channels (phase 26), and
+        # rows 3 elements off 16 bytes (the element path)
+        proj_t = rnd(*LM_TRAIN[LM_ARCH][:2], n_proj)
+        x_t = proj_t[..., d_in:d_in + D]
+        x_r = rnd(LM_BATCH, LM_PROMPT, D // SPLIT_RANKS)
+        w_r = rnd(K, D // SPLIT_RANKS) * K ** -0.5
+        check(x_t, w, f"{name} training shape {tuple(x_t.shape)}")
+        check(x_r, w_r, f"{name} a rank's shape {tuple(x_r.shape)}")
+        check(proj_t[..., d_in + 3:d_in + 3 + D], w,
+              f"{name} training shape, rows not 16-byte aligned")
+        n += 3
         rows.append(_conv1d_row(torch, x, w, reps))
+        if dtype == torch.bfloat16:
+            rows.append(_conv1d_row(torch, x_t, w, reps, "train"))
+            rows.append(_conv1d_row(torch, x_r, w_r, reps, "rank"))
+        del proj, proj_t, x_r
     log(f"conv1d: kernel bit-equal to plain at {n} shapes x inputs")
     for r in rows:
-        log(f"conv1d {r['dtype']:8s} {r['shape']} ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+        _log_conv1d_row(r)
     return rows
 
 
@@ -3415,10 +3495,20 @@ def _log_matmul_build() -> None:
             shown = [n.split("::", 1)[-1].rsplit(">(", 1)[0] + (
                 ">" if ">(" in n else "") for n in res.stdout.splitlines()]
     found = _ptxas_by_entry(text, dict(zip(names, shown)))
+    fma = 0
     for name, show in zip(names, shown):
         path = next((v for k, v in MATMUL_ENTRIES.items() if k in name), "?")
+        info = found.get(show)
         log(f"matmul kernel, {path} path, {show}: "
-            f"{found.get(show, 'not in the log')}")
+            f"{info or 'not in the log'}")
+        if path == "fma":
+            fma += 1
+            if info is None or any(
+                    int(v) for v in re.findall(r"(\d+) bytes spill", info)):
+                fail(f"matmul kernel, fma path, {show}: not in the log, or "
+                     f"spills ({info})")
+    if not fma:
+        fail("matmul kernel: no fma entry in the build log")
     for line in lines:
         if "wgmma" in line.lower() and "serializ" in line.lower():
             log(f"matmul kernel, ptxas: {line.strip()}")
@@ -5033,7 +5123,7 @@ def _conv1d_train_row(torch, B, L, reps) -> dict:
          * K ** -0.5).to(torch.bfloat16)
     if not torch.equal(trim_conv1d(x, w), trim_conv1d_plain(x, w)):
         fail(f"conv1d at ({B}, {L}, {D}): kernel != plain")
-    return _conv1d_row(torch, x, w, reps)
+    return _conv1d_row(torch, x, w, reps, "train")
 
 
 def _flash_row(torch, what, B, Sq, Sk, H, G, D, causal, kvl, reps,
@@ -5190,10 +5280,12 @@ def phase_flash_families(torch, reps: int):
 #: the rows that ``tools/flash_times.py`` times (the bf16 prefills and
 #: gemma-7b's decode; the fp32 prefills, granite-3-2b's fp32 decode and
 #: the fp32 partial entry), held in turns against the parent checkout's:
-#: granite-3-2b's fp32 prefill must run faster than the parent's, and
-#: every other row at most FLASH_TURNS_SLACK times the parent's time
+#: the row a commit that changes the flash kernel claims faster must run
+#: faster than the parent's (FLASH_TURNS_FASTER; None where the commit
+#: changes no flash code), every other row at most FLASH_TURNS_SLACK times
+#: the parent's time
 FLASH_TURNS_SLACK = 1.03
-FLASH_TURNS_FASTER = "granite-3-2b prefill fp32"
+FLASH_TURNS_FASTER = None
 
 
 def phase_flash_turns(torch, parent):
@@ -5206,8 +5298,8 @@ def phase_flash_turns(torch, parent):
     timed by ``tools/flash_times.py`` in the parent checkout and here in
     turns (parent, this, this, parent; SDPA's time, TF32 off, from the
     first turn here, logged beside each row), the rows of phases 3d, 3g,
-    3h, 3i and 23, each the mean of its two turns; fails where
-    granite-3-2b's fp32 prefill is not faster than the parent's or another
+    3h, 3i and 23, each the mean of its two turns; fails where the row
+    FLASH_TURNS_FASTER names is not faster than the parent's or another
     row is more than FLASH_TURNS_SLACK times the parent's.  Then gemma-7b's
     served prefill (phase 15's) in turns, by
     ``tools/serve_prefill_times.py``: its wall and the flash kernel's
@@ -5248,6 +5340,67 @@ def phase_flash_turns(torch, parent):
             f"this, parent): {', '.join(f'{x:.3f}' for x in turns)} {unit}"
             + ("; not measured (the profiler saw no flash kernel)"
                if name == "flash device" and 0 in turns else ""))
+
+
+#: Kernel 6's fp32 projections in turns: the rows of
+#: ``tools/conv1d_matmul_times.py`` whose sum is held to the targets
+MATMUL_F32_ROWS = ("matmul gate/up", "matmul down", "matmul q/o")
+#: the fp32 projections' targets: at most this share of the parent's sum
+#: in turns, and no slower than cuBLAS (TF32 off) in the same run
+MATMUL_F32_TARGET = 0.8
+
+
+def phase_conv1d_matmul_turns(torch, parent):
+    """3l. With ``parent`` (a checkout of the parent commit): kernel 3 at
+    its path shapes (bf16 at full width, the training batch and a rank's
+    channels; fp32 at full width) and kernel 6's fp32 projections at
+    granite-3-2b's prefill, timed by ``tools/conv1d_matmul_times.py`` in
+    the parent checkout and here in turns (parent, this, this, parent;
+    ``F.conv1d`` and ``torch.matmul`` with TF32 off from the first turn
+    here, after its kernel rows): per row the event, host issue and
+    profiler device times of each turn, this / parent by each and this / library; the
+    fp32 projections' sum against MATMUL_F32_TARGET x the parent's and
+    against cuBLAS's, each target logged as met or missed (a miss is a
+    finding, not a failure).  Does nothing without ``parent``."""
+    if parent is None:
+        log("conv1d / fp32 matmul: the parent's times not measured (run "
+            "with --parent DIR, a checkout of the parent commit)")
+        return
+    turns = [_timing_tool("conv1d_matmul_times.py", c, *lib)
+             for c, lib in ((parent, ()), (ROOT, ("--library",)),
+                            (ROOT, ()), (parent, ()))]
+    lib = turns[1]["library"]
+
+    def mean(i, j, name, key="rows"):
+        got = [turns[k][key].get(name) for k in (i, j)]
+        return None if None in got else sum(got) / 2
+
+    for name in turns[0]["rows"]:
+        p, t = mean(0, 3, name), mean(1, 2, name)
+        pd, td = mean(0, 3, name, "device"), mean(1, 2, name, "device")
+        log(f"{name} in turns (parent, this, this, parent): events "
+            + ", ".join(f"{x['rows'][name]:.4f}" for x in turns)
+            + " ms; host issue " + ", ".join(_fmt(x["issue"].get(name))
+                                             for x in turns)
+            + " ms; device " + ", ".join(_fmt(x["device"].get(name))
+                                         for x in turns)
+            + f" ms; this / parent {t / p:.4f} by events, "
+            + ("not measured" if None in (pd, td) else f"{td / pd:.4f}")
+            + f" by device time; library {lib[name]:.4f} ms, this / "
+            f"library {t / lib[name]:.4f}")
+    mine = sum(mean(1, 2, n) for n in MATMUL_F32_ROWS)
+    old = sum(mean(0, 3, n) for n in MATMUL_F32_ROWS)
+    cublas = sum(lib[n] for n in MATMUL_F32_ROWS)
+    log(f"matmul fp32 projections, sum of 3 in turns: this {mine:.4f} ms, "
+        f"parent {old:.4f} ({mine / old:.4f}x: target <= "
+        f"{MATMUL_F32_TARGET} "
+        + ("met" if mine <= MATMUL_F32_TARGET * old else "missed")
+        + f"), cuBLAS (TF32 off) {cublas:.4f} ({mine / cublas:.4f}x: target "
+        "<= 1 " + ("met" if mine <= cublas else "missed") + ")")
+    slower = [n for n in turns[0]["rows"] if n.startswith("conv1d")
+              and mean(1, 2, n) > mean(0, 3, n)]
+    log("conv1d in turns: no shape slower than the parent by events: "
+        + ("met" if not slower else f"missed at {slower}"))
 
 
 def phase_probe_families(torch, rounds: int, reps: int) -> None:
@@ -6500,7 +6653,7 @@ def _split_work(torch, rank: int) -> dict:
         from repro_torch.kernels.trim_conv1d import (trim_conv1d,
                                                      trim_conv1d_plain)
         got, want = trim_conv1d(x, w), trim_conv1d_plain(x, w)
-        row = _conv1d_row(torch, x, w, 20)
+        row = _conv1d_row(torch, x, w, 20, "rank")
         row["max_abs_err"] = float((got.float() - want.float()).abs().max())
         row["shape"] = list(row["shape"])
         res["conv_row"] = row
@@ -6561,7 +6714,9 @@ def phase_split_ranks(torch) -> dict:
         f"{r0['one_ms'][0]:.3f} ms; decode steps "
         f"{[round(v, 3) for v in r0['ms'][1:]]} ms")
     row = r0["conv_row"]
-    log(f"conv1d at a rank's shape {row['shape']}: ms {row['ms']:.4f} plain "
+    log(f"conv1d at a rank's shape {row['shape']}: ms {row['ms']:.4f} "
+        f"device_ms {_fmt(row['device_ms'])} issue_ms {row['issue_ms']:.4f} "
+        f"cold device_ms {_fmt(row['device_ms_cold'])} plain "
         f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
         f"{row['bound_ms']:.4f} ({row['bound_by']}); max |kernel - plain| "
         f"{row['max_abs_err']!r}")
@@ -7287,9 +7442,10 @@ def main() -> None:
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: phase 3j times "
                     "its bf16 kernels at batch 8 beside this one's, phase "
-                    "3f its SSD kernel at mamba2-130m's shape, and after "
+                    "3f its SSD kernel at mamba2-130m's shape, after "
                     "phase 3i its flash kernel at the LM phases' bf16 and "
-                    "fp32 shapes, each in turns")
+                    "fp32 shapes, and after phase 3e its conv1d and fp32 "
+                    "matmul at their path shapes, each in turns")
     ap.add_argument("--probe-families", type=int, metavar="N",
                     help="only run phases 3i and 3e, N times over, each "
                     "row logged as it ends; no result line")
@@ -7346,6 +7502,7 @@ def main() -> None:
     fam_rows = phase_flash_families(torch, args.reps)
     phase_flash_turns(torch, args.parent)
     mrows = phase_matmul(torch, args.reps, max(3, args.reps // 10))
+    phase_conv1d_matmul_turns(torch, args.parent)
     srows = phase_ssd(torch, args.reps, args.parent)
     if args.kernels:
         log("stopping after the kernel phases (--kernels): no result line")
@@ -7413,7 +7570,8 @@ def main() -> None:
             for phase, counts in CAPTURES.items()))
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s "
         "(from the environment check, the build included)")
-    c1 = next(r for r in crows if r["dtype"] == "bfloat16")
+    c1 = next(r for r in crows if r["dtype"] == "bfloat16"
+              and r["label"] == "full")
     flash = {r["shape"]: r for r in frows if r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": [
         kernel_entry([r for r in rows if r["lane"] == "f32"

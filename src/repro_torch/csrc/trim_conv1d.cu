@@ -11,24 +11,36 @@
 //
 // What the TPU kernel keeps out of device memory, and how this one does it:
 // - The Pallas kernel reads a second, "previous" tile only for its K-1 halo
-//   and needs a zero-padded copy of x. Here each block loads its own window
-//   of TL + K - 1 positions x Db channels into shared memory once, zero-filled
-//   before position 0 and past L (no padded copy), with 16-byte loads along
-//   D (4 fp32 or 8 bf16 channels) when every row is 16-byte aligned.
-// - The K weights of a channel stay in registers for the whole window.
-// - Each thread sweeps kRowsPerThread consecutive positions of one channel
-//   with a register shift window of K inputs: every input is read from
-//   shared memory once per thread, K times from registers (the triangular
-//   reuse in 1-D). Each output is written once.
+//   and needs a zero-padded copy of x. Here nothing is staged in shared
+//   memory and nothing is padded: a thread owns one 16-byte vector of
+//   channels (8 bf16 or 4 fp32) over a run of `span` consecutive positions
+//   and reads x with 16-byte loads straight into registers, 4 (bf16) or
+//   8 (fp32) rows at a time, all in flight at once, zeros before
+//   position 0. Only the first chunk of a run re-reads the K-1 rows
+//   before it (served from L2); later chunks slide the K-input window on
+//   in registers.
+// - The K weights of the thread's channels stay in registers (fp32) for
+//   the whole run; each input enters the window once and is used K times
+//   from registers (the triangular reuse in 1-D).
+// - Each output row is written once, as one 16-byte store. There is no
+//   __syncthreads and no shared memory.
+// - The grid is fitted to the card from the shape alone: the wrapper
+//   (`kernels/trim_conv1d.py:plan`) picks the span so that B x runs x
+//   (D / 16 bytes) threads fill about one wave of the resident blocks of
+//   132 SMs (blocks_per_sm(K) each), so no shape ends on a short tail
+//   wave.
 //
 // Strides: x's rows (stride_l) and images (stride_b) may be strided, so a
 // column slice of a wider tensor (Mamba's xBC inside in_proj's output) is
 // read in place; only channels d < D of a row are ever read. The channel
-// stride must be 1. The output is contiguous (B, L, D). Offsets are 64-bit.
+// stride must be 1. Where x's rows are not 16-byte aligned, or a thread's
+// vector is cut by D, that thread loads and stores element by element. The
+// output is contiguous (B, L, D). Offsets are 64-bit.
 //
 // What bounds it: 2*K operations per output against 2 elements moved (one
 // read, one write), far below the H100's ridge, so it is bound by bytes:
-// (B*L*D*2 + K*D) * sizeof(T) over 3.35 TB/s.
+// (B*L*D*2 + K*D) * sizeof(T) over 3.35 TB/s. The halo re-reads add
+// (K-1)/span of x's bytes, from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,18 +49,33 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChannels = 64;                          // Db
-constexpr int kGroups = kThreads / kChannels;          // position groups
-constexpr int kRowsPerThread = 32;
-constexpr int kTileL = kGroups * kRowsPerThread;       // TL = 128
 constexpr int kMaxK = 8;
+
+// Positions a thread loads at once: 4 rows of 16 bytes in bf16 (fewer
+// registers held for the loads), 8 in fp32.
+template <typename T>
+__host__ __device__ constexpr int rows_of() {
+  return sizeof(T) == 2 ? 4 : 8;
+}
+
+// Resident blocks an SM the launch bounds ask for: 128 registers a thread
+// up to K = 4, 255 above (the window and weights grow with K).
+__host__ __device__ constexpr int blocks_per_sm(int K) {
+  return K <= 4 ? 2 : 1;
+}
 
 struct Conv1dArgs {
   const void* x;
   const void* w;
   void* out;
   long long L, D, stride_b, stride_l;
-  int vec;  // 1: every row start is 16-byte aligned (16-byte loads)
+  long long span;     // positions a thread owns (the last run may be short)
+  long long runs;     // ceil(L / span)
+  long long dvecs;    // ceil(D / V)
+  long long threads;  // B * runs * dvecs
+  int vec;   // every row of x starts 16-byte aligned
+  int ovec;  // every row of out starts 16-byte aligned
+  int wvec;  // every row of w starts 16-byte aligned
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -65,83 +92,154 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// 16 bytes of x's dtype -> V fp32 values (exact).
+__device__ __forceinline__ void unpack(const uint4 r, float (&v)[4]) {
+  v[0] = __uint_as_float(r.x);
+  v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z);
+  v[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4 r, float (&v)[8]) {
+  const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[2 * q] = __uint_as_float(u[q] << 16);
+    v[2 * q + 1] = __uint_as_float(u[q] & 0xffff0000u);
+  }
+}
+
+// V fp32 values -> 16 bytes of the output dtype, each rounded once.
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+  uint32_t u[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+    u[q] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// The first n channels of p into v (fp32), zeros past them: 16 bytes at
+// once when vec (then n is V).
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(float (&v)[V], const T* p, bool vec,
+                                         int n) {
+  if (vec) {
+    unpack(__ldg(reinterpret_cast<const uint4*>(p)), v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = e < n ? to_f32(p[e]) : 0.0f;
+  }
+}
+
+// One output row from the window (win[k] is x at l - K + 1 + k): the taps
+// summed in order from 0.0f, each product and sum rounded on its own.
+template <typename T, int K, int V>
+__device__ __forceinline__ void put_row(T* p, const float (&win)[K][V],
+                                        const float (&wr)[K][V], bool vec,
+                                        int n) {
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    acc[e] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      acc[e] = __fadd_rn(acc[e], __fmul_rn(win[k][e], wr[k][e]));
+  }
+  if (vec) {
+    *reinterpret_cast<uint4*>(p) = pack(acc);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (e < n) p[e] = from_f32<T>(acc[e]);
+  }
+}
+
+template <int K, int V>
+__device__ __forceinline__ void slide(float (&win)[K][V]) {
+#pragma unroll
+  for (int k = 0; k < K - 1; ++k)
+#pragma unroll
+    for (int e = 0; e < V; ++e) win[k][e] = win[k + 1][e];
+}
+
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(K))
 trim_conv1d_kernel(const Conv1dArgs a) {
-  constexpr int kRows = kTileL + K - 1;
-  constexpr int V = 16 / sizeof(T);             // channels per 16-byte load
-  constexpr int kChunks = kChannels / V;
-  __shared__ __align__(16) float win[kRows * kChannels];
+  constexpr int V = 16 / sizeof(T);  // channels a thread owns
+  constexpr int kRows = rows_of<T>();
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (t >= a.threads) return;
+  // neighbouring threads take neighbouring channel vectors of one run
+  const long long dv = t % a.dvecs;
+  const long long rest = t / a.dvecs;
+  const long long run = rest % a.runs;
+  const long long b = rest / a.runs;
+  const long long d0 = dv * V;
+  const int n = static_cast<int>(a.D - d0 < V ? a.D - d0 : V);
+  const bool xv = a.vec && n == V;
+  const bool ov = a.ovec && n == V;
+  const long long l0 = run * a.span;
+  const long long l1 = l0 + a.span < a.L ? l0 + a.span : a.L;
+  const T* __restrict__ xp = static_cast<const T*>(a.x) + b * a.stride_b + d0;
+  T* __restrict__ op = static_cast<T*>(a.out) + b * a.L * a.D + d0;
 
-  const long long b = blockIdx.z;
-  const long long l0 = static_cast<long long>(blockIdx.x) * kTileL;
-  const long long d0 = static_cast<long long>(blockIdx.y) * kChannels;
-  const T* __restrict__ xb = static_cast<const T*>(a.x) + b * a.stride_b;
+  float wr[K][V];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    load_vec<T, V>(wr[k], static_cast<const T*>(a.w) + k * a.D + d0,
+                   a.wvec && n == V, n);
 
-  // 1. The window: positions l0-(K-1) .. l0+TL-1, channels d0 .. d0+Db-1,
-  //    in fp32, zero outside [0, L) x [0, D).
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int j = (i % kChunks) * V;
-    const long long l = l0 - (K - 1) + r;
-    const long long d = d0 + j;
-    float v[V];
-    if (l < 0 || l >= a.L) {
+  // the window before l0: positions l0-K+1 .. l0-1, zeros before 0
+  float win[K][V];
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[e] = 0.0f;
-    } else if (a.vec && d + V <= a.D) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(xb + l * a.stride_l + d);
-      const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int e = 0; e < V; ++e) v[e] = to_f32(t[e]);
+  for (int k = 0; k < K - 1; ++k) {
+    const long long l = l0 - (K - 1) + k;
+    if (l >= 0) {
+      load_vec<T, V>(win[k], xp + l * a.stride_l, xv, n);
     } else {
 #pragma unroll
-      for (int e = 0; e < V; ++e)
-        v[e] = d + e < a.D ? to_f32(xb[l * a.stride_l + d + e]) : 0.0f;
+      for (int e = 0; e < V; ++e) win[k][e] = 0.0f;
     }
-    float4* dst = reinterpret_cast<float4*>(&win[r * kChannels + j]);
-#pragma unroll
-    for (int q = 0; q < V / 4; ++q)
-      dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
   }
 
-  // 2. This thread's channel and its K weights, in registers.
-  const int c = threadIdx.x % kChannels;
-  const int r0 = (threadIdx.x / kChannels) * kRowsPerThread;
-  const long long d = d0 + c;
-  const T* __restrict__ w = static_cast<const T*>(a.w);
-  float wr[K];
+  long long l = l0;
+  if (xv) {
+    // whole chunks: kRows 16-byte loads in flight, then kRows outputs
+    for (; l + kRows <= l1; l += kRows) {
+      uint4 raw[kRows];
 #pragma unroll
-  for (int k = 0; k < K; ++k) wr[k] = d < a.D ? to_f32(w[k * a.D + d]) : 0.0f;
-  __syncthreads();
-  if (d >= a.D) return;
-
-  // 3. Sweep kRowsPerThread positions with a K-input shift window: the
-  //    output at local row r0+i reads window rows r0+i .. r0+i+K-1.
-  float xr[K];
+      for (int r = 0; r < kRows; ++r)
+        raw[r] = __ldg(reinterpret_cast<const uint4*>(xp +
+                                                      (l + r) * a.stride_l));
 #pragma unroll
-  for (int k = 0; k < K - 1; ++k) xr[k] = win[(r0 + k) * kChannels + c];
-  T* __restrict__ out = static_cast<T*>(a.out) + b * a.L * a.D + d;
-#pragma unroll 4
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const long long l = l0 + r0 + i;
-    if (l >= a.L) break;
-    xr[K - 1] = win[(r0 + i + K - 1) * kChannels + c];
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) acc = __fadd_rn(acc, __fmul_rn(xr[k], wr[k]));
-    out[l * a.D] = from_f32<T>(acc);
-#pragma unroll
-    for (int k = 0; k < K - 1; ++k) xr[k] = xr[k + 1];
+      for (int r = 0; r < kRows; ++r) {
+        unpack(raw[r], win[K - 1]);
+        put_row<T, K, V>(op + (l + r) * a.D, win, wr, ov, n);
+        slide<K, V>(win);
+      }
+    }
+  }
+  // the rest of the run (or all of it where x's rows are not aligned or D
+  // cuts the vector) a row at a time
+  for (; l < l1; ++l) {
+    load_vec<T, V>(win[K - 1], xp + l * a.stride_l, xv, n);
+    put_row<T, K, V>(op + l * a.D, win, wr, ov, n);
+    slide<K, V>(win);
   }
 }
 
 template <typename T>
-int launch(const Conv1dArgs& a, long long B, int K, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((a.L + kTileL - 1) / kTileL),
-                  static_cast<unsigned>((a.D + kChannels - 1) / kChannels),
-                  static_cast<unsigned>(B));
+int launch(const Conv1dArgs& a, int K, cudaStream_t stream) {
+  const long long blocks = (a.threads + kThreads - 1) / kThreads;
+  if (blocks < 1 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   switch (K) {
     case 1: trim_conv1d_kernel<T, 1><<<grid, kThreads, 0, stream>>>(a); break;
     case 2: trim_conv1d_kernel<T, 2><<<grid, kThreads, 0, stream>>>(a); break;
@@ -156,14 +254,21 @@ int launch(const Conv1dArgs& a, long long B, int K, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Limits the wrapper validates against.
+// Limits and geometry the wrapper plans and validates against.
 int trim_conv1d_max_k() { return kMaxK; }
-int trim_conv1d_tile_l() { return kTileL; }
-int trim_conv1d_block_d() { return kChannels; }
+int trim_conv1d_threads() { return kThreads; }
+int trim_conv1d_rows(int bf16) {
+  return bf16 ? rows_of<__nv_bfloat16>() : rows_of<float>();
+}
+int trim_conv1d_blocks_per_sm(int K) { return blocks_per_sm(K); }
 
 const char* trim_conv1d_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -171,11 +276,16 @@ const char* trim_conv1d_error_string(int code) {
 
 // x (B, L, D) with element strides (stride_b, stride_l, 1), w (K, D)
 // contiguous in x's dtype, out (B, L, D) contiguous; bf16 != 0 selects
-// bfloat16, else fp32. Returns the launch's cudaError_t.
+// bfloat16, else fp32; `span` positions a thread (the wrapper's plan).
+// Returns the launch's cudaError_t.
 int trim_conv1d(const void* x, const void* w, void* out, int bf16,
                 long long B, long long L, long long D, int K,
-                long long stride_b, long long stride_l, void* stream) {
-  const size_t elem = bf16 ? 2 : 4;
+                long long stride_b, long long stride_l, long long span,
+                void* stream) {
+  if (B < 1 || L < 1 || D < 1 || span < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long elem = bf16 ? 2 : 4;
+  const long long V = 16 / elem;
   Conv1dArgs a;
   a.x = x;
   a.w = w;
@@ -184,11 +294,17 @@ int trim_conv1d(const void* x, const void* w, void* out, int bf16,
   a.D = D;
   a.stride_b = stride_b;
   a.stride_l = stride_l;
-  a.vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-          (stride_b * elem) % 16 == 0 && (stride_l * elem) % 16 == 0;
+  a.span = span;
+  a.runs = (L + span - 1) / span;
+  a.dvecs = (D + V - 1) / V;
+  a.threads = B * a.runs * a.dvecs;
+  a.vec = aligned16(x) && (stride_b * elem) % 16 == 0 &&
+          (stride_l * elem) % 16 == 0;
+  a.ovec = aligned16(out) && (D * elem) % 16 == 0;
+  a.wvec = aligned16(w) && (D * elem) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(a, B, K, s);
-  return launch<float>(a, B, K, s);
+  if (bf16) return launch<__nv_bfloat16>(a, K, s);
+  return launch<float>(a, K, s);
 }
 
 }  // extern "C"

@@ -43,8 +43,19 @@
 //   block, a 2-stage cp.async ring (element loads where a row start is
 //   not 16-byte aligned), int8 B tiles transposed once in shared memory
 //   with byte permutes (ldmatrix.trans moves 16-bit elements only).
-// - fma (fp32 at M > 16): a 128 x 128 tile, 8 x 8 outputs a thread on
-//   the CUDA cores, K tiles of 8.
+// - fma (fp32 at M > 16): IEEE FMAs on the CUDA cores, each output's sum
+//   in k order; bound by the FMA rate, so the design keeps the FFMA pipes
+//   fed: a 128 x 128 tile a block of 128 threads, 8 x 16 outputs a
+//   thread in registers; K tiles of 16 through a 4-stage ring, one
+//   barrier a tile: b's tiles by cp.async as they lie (16-byte copies;
+//   4-byte ones, zero-filled past the edges, where a row start is not
+//   16-byte aligned or K, N are not whole 16 bytes), a's loaded into
+//   registers three tiles ahead and stored K-major after a tile's FMAs (a
+//   warp writes 32 consecutive rows of one k: no bank conflict), so that
+//   a k's 8 rows and 16 columns of a thread are six broadcast LDS.128 for
+//   128 FFMA, read while the previous k's FFMA run; 64 KB of ring, two
+//   blocks an SM; outputs in 16-byte (fp32) or 8-byte (bf16) stores where
+//   N is a multiple of 4.
 //
 // What the TPU kernel keeps out of device memory, and how this one does it:
 // the Pallas kernel's (bm, bn) accumulator lives in VMEM scratch across
@@ -73,7 +84,6 @@ constexpr int kBM = 128;        // rows of out per block
 constexpr int kBN = 128;        // columns of out per block
 constexpr int kKBytes = 64;     // bytes of K per tile (32 bf16, 64 int8)
 constexpr int kALd = 80;        // bytes per A row in shared memory (padded)
-constexpr int kF32BK = 8;       // fp32 lane: K per tile
 
 struct MatmulArgs {
   const void* a;
@@ -363,70 +373,242 @@ trim_matmul_tc_kernel(const MatmulArgs p) {
       }
 }
 
-// The fp32 lane: a 128 x 128 tile, 8 x 8 outputs per thread (rows
-// ty*4 + {0..3} and 64 + ty*4 + {0..3}, likewise columns), a K tile of 8.
-template <typename O>
-__global__ void __launch_bounds__(kThreads)
-trim_matmul_f32_kernel(const MatmulArgs p) {
-  __shared__ __align__(16) float as[kF32BK][kBM];   // a transposed: [k][m]
-  __shared__ __align__(16) float bs[kF32BK][kBN];
-  const long long m0 = static_cast<long long>(blockIdx.y) * kBM;
-  const long long n0 = static_cast<long long>(blockIdx.x) * kBN;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const float* a = static_cast<const float*>(p.a);
-  const float* b = static_cast<const float*>(p.b);
+// ---------------------------------------------------------------------------
+// fma path: fp32 at M > 16, on the CUDA cores
+// ---------------------------------------------------------------------------
 
-  float acc[8][8];
+constexpr int kFBM = 128;                   // rows of out a block
+constexpr int kFBN = 128;                   // columns of out a block
+constexpr int kFBK = 16;                    // K a stage
+constexpr int kFStages = 4;                 // the ring's stages
+constexpr int kFThreads = 128;              // 8 x 16 outputs a thread
+constexpr int kFA = kFBK * kFBM;            // floats of a's tile, K-major
+constexpr int kFB = kFBK * kFBN;            // floats of b's tile
+constexpr int kFSmem = kFStages * (kFA + kFB) * 4;  // 65536 bytes
+constexpr int kFBlocksPerSM = 2;
+
+// A thread's share of a's K tile: kFAChunks chunks of 4 consecutive k of
+// row threadIdx % kFBM.
+constexpr int kFAChunks = kFBM * kFBK / 4 / kFThreads;
+struct F32AFetch {
+  float4 v[kFAChunks];
+};
+
+__device__ __forceinline__ int f32_a_k(int q) {
+  return (threadIdx.x / kFBM) * 4 + q * 4 * (kFThreads / kFBM);
+}
+
+// a's K tile from device memory into registers (zero outside [0, M) x
+// [0, K)). kVec: 16-byte loads (row starts 16-byte aligned, K whole 16
+// bytes); otherwise element loads.
+template <bool kVec>
+__device__ __forceinline__ F32AFetch f32_fetch_a(const MatmulArgs& p,
+                                                 long long m0, long long k0) {
+  const float* a = static_cast<const float*>(p.a);
+  const long long m = m0 + threadIdx.x % kFBM;
+  F32AFetch f;
+#pragma unroll
+  for (int q = 0; q < kFAChunks; ++q) {
+    const long long k = k0 + f32_a_k(q);
+    if (kVec) {
+      f.v[q] = m < p.M && k < p.K
+                   ? __ldg(reinterpret_cast<const float4*>(a + m * p.lda + k))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      const float* row = a + m * p.lda;
+      const bool ok = m < p.M;
+      f.v[q] = make_float4(ok && k < p.K ? row[k] : 0.0f,
+                           ok && k + 1 < p.K ? row[k + 1] : 0.0f,
+                           ok && k + 2 < p.K ? row[k + 2] : 0.0f,
+                           ok && k + 3 < p.K ? row[k + 3] : 0.0f);
+    }
+  }
+  return f;
+}
+
+// The fetched values into a stage, transposed to K-major ([k][m]): a
+// warp's 32 threads hold 32 consecutive rows of one k chunk, so each of
+// the stores writes 32 consecutive floats (no bank conflict).
+__device__ __forceinline__ void f32_store_a(float* as, const F32AFetch& f) {
+  const int r = threadIdx.x % kFBM;
+#pragma unroll
+  for (int q = 0; q < kFAChunks; ++q) {
+    const int k = f32_a_k(q);
+    as[(k + 0) * kFBM + r] = f.v[q].x;
+    as[(k + 1) * kFBM + r] = f.v[q].y;
+    as[(k + 2) * kFBM + r] = f.v[q].z;
+    as[(k + 3) * kFBM + r] = f.v[q].w;
+  }
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !pred.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// b's K tile (kFBK x kFBN, as it lies) into a stage by cp.async, zero
+// outside [0, K) x [0, N): 16-byte copies when kVec, else 4-byte ones.
+template <bool kVec>
+__device__ __forceinline__ void f32_load_b(float* bs, const MatmulArgs& p,
+                                           long long n0, long long k0) {
+  const float* b = static_cast<const float*>(p.b);
+#pragma unroll
+  for (int q = 0; q < kFBK * kFBN / 4 / kFThreads; ++q) {
+    const int i = threadIdx.x + q * kFThreads;
+    const int r = i / (kFBN / 4), c = (i % (kFBN / 4)) * 4;
+    const long long k = k0 + r, n = n0 + c;
+    float* dst = bs + r * kFBN + c;
+    if (kVec) {
+      const bool ok = k < p.K && n < p.N;
+      cp_async16(dst, ok ? b + k * p.ldb + n : b, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = k < p.K && n + e < p.N;
+        cp_async4(dst + e, ok ? b + k * p.ldb + n + e : b, ok);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kFStages - 2) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four outputs of a row, rounded once each, at p (16-byte aligned for
+// fp32, 8-byte for bf16).
+__device__ __forceinline__ void put4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// One k's fragments of a thread: a's 8 rows (r0 + {0..3}, r0 + 64 +
+// {0..3}) and b's 16 columns (c0 + 32h + {0..3}).
+struct F32Frag {
+  float4 a[2], b[4];
+};
+
+__device__ __forceinline__ void f32_frag(F32Frag& f, const float* at,
+                                         const float* bt, int k, int r0,
+                                         int c0) {
+  f.a[0] = *reinterpret_cast<const float4*>(&at[k * kFBM + r0]);
+  f.a[1] = *reinterpret_cast<const float4*>(&at[k * kFBM + r0 + 64]);
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+    f.b[h] = *reinterpret_cast<const float4*>(&bt[k * kFBN + c0 + h * 32]);
+}
+
+__device__ __forceinline__ void f32_fma(float (&acc)[8][16],
+                                        const F32Frag& f) {
+  const float av[8] = {f.a[0].x, f.a[0].y, f.a[0].z, f.a[0].w,
+                       f.a[1].x, f.a[1].y, f.a[1].z, f.a[1].w};
+  float bv[16];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    bv[4 * h] = f.b[h].x;
+    bv[4 * h + 1] = f.b[h].y;
+    bv[4 * h + 2] = f.b[h].z;
+    bv[4 * h + 3] = f.b[h].w;
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+}
 
-  for (long long k0 = 0; k0 < p.K; k0 += kF32BK) {
+// The fp32 lane: a kFBM x kFBN tile a block of 128 threads (16 x 8), each
+// thread 8 x 16 outputs (rows r0 + {0..3} and r0 + 64 + {0..3}, columns
+// c0 + 32h + {0..3}), summed in k order by IEEE FMAs. K tiles of kFBK
+// through a kFStages ring, one barrier a tile: b's tiles by cp.async as
+// they lie; a's loaded into registers three tiles ahead of use and
+// stored K-major after a tile's FMAs, so that a k's 8 rows are two
+// broadcast LDS.128 and its 16 columns four (each warp's reads one
+// 64- or 128-byte wavefront). Each k's fragments are read while the
+// previous k's 128 FFMA run.
+template <typename O, bool kVec>
+__global__ void __launch_bounds__(kFThreads, kFBlocksPerSM)
+trim_matmul_f32_kernel(const MatmulArgs p) {
+  extern __shared__ __align__(16) float fsm[];
+  float* as = fsm;                      // [kFStages][kFBK][kFBM]
+  float* bs = fsm + kFStages * kFA;     // [kFStages][kFBK][kFBN]
+  const long long m0 = static_cast<long long>(blockIdx.y) * kFBM;
+  const long long n0 = static_cast<long long>(blockIdx.x) * kFBN;
+  const int r0 = (threadIdx.x / 8) * 4;
+  const int c0 = (threadIdx.x % 8) * 4;
+  const int nk = static_cast<int>((p.K + kFBK - 1) / kFBK);
+
+  float acc[8][16];
 #pragma unroll
-    for (int q = 0; q < kBM * kF32BK / kThreads; ++q) {
-      const int i = threadIdx.x + q * kThreads;
-      const int r = i / kF32BK, c = i % kF32BK;
-      const long long m = m0 + r, k = k0 + c;
-      as[c][r] = (m < p.M && k < p.K) ? a[m * p.lda + k] : 0.0f;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.0f;
+
+  // the ring's first kFStages - 1 tiles
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < nk) {
+      f32_store_a(as + s * kFA,
+                  f32_fetch_a<kVec>(p, m0, static_cast<long long>(s) * kFBK));
+      f32_load_b<kVec>(bs + s * kFB, p, n0, static_cast<long long>(s) * kFBK);
     }
-#pragma unroll
-    for (int q = 0; q < kBN * kF32BK / kThreads; ++q) {
-      const int i = threadIdx.x + q * kThreads;
-      const int r = i / kBN, c = i % kBN;
-      const long long k = k0 + r, n = n0 + c;
-      bs[r][c] = (k < p.K && n < p.N) ? b[k * p.ldb + n] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kF32BK; ++k) {
-      float av[8], bv[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[k][64 + tx * 4]);
-      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    cp_async_commit();
   }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait_stages();  // b's tile t has landed (this thread's copies)
+    __syncthreads();         // everyone's, a's too; stage t-1 is free
+    const int nxt = t + kFStages - 1;
+    const bool more = nxt < nk;
+    F32AFetch fa;
+    if (more) {
+      fa = f32_fetch_a<kVec>(p, m0, static_cast<long long>(nxt) * kFBK);
+      f32_load_b<kVec>(bs + (nxt % kFStages) * kFB, p, n0,
+                       static_cast<long long>(nxt) * kFBK);
+    }
+    cp_async_commit();
+    const float* at = as + (t % kFStages) * kFA;
+    const float* bt = bs + (t % kFStages) * kFB;
+    F32Frag f[2];
+    f32_frag(f[0], at, bt, 0, r0, c0);
+#pragma unroll
+    for (int k = 0; k < kFBK; ++k) {
+      if (k + 1 < kFBK) f32_frag(f[(k + 1) & 1], at, bt, k + 1, r0, c0);
+      f32_fma(acc, f[k & 1]);
+    }
+    if (more) f32_store_a(as + (nxt % kFStages) * kFA, fa);
+  }
+  cp_async_wait_all();
 
   O* out = static_cast<O*>(p.out);
+  const bool row4 = p.N % 4 == 0;  // every 4 columns of a row aligned
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
+    const long long m = m0 + r0 + (i >> 2) * 64 + (i & 3);
     if (m >= p.M) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long n = n0 + (j >> 2) * 64 + tx * 4 + (j & 3);
-      if (n < p.N) put(out + m * p.N + n, acc[i][j]);
+    for (int h = 0; h < 4; ++h) {
+      const long long n = n0 + c0 + h * 32;
+      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]};
+      if (row4 && n + 4 <= p.N) {
+        put4(out + m * p.N + n, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < p.N) put(out + m * p.N + n + j, v[j]);
+      }
     }
   }
 }
@@ -1107,10 +1289,21 @@ int launch_tc_any(const MatmulArgs& p, bool vec, cudaStream_t s) {
   return vec ? launch_tc<T, O, true>(p, s) : launch_tc<T, O, false>(p, s);
 }
 
-template <typename O>
+template <typename O, bool kVec>
 int launch_f32(const MatmulArgs& p, cudaStream_t s) {
-  trim_matmul_f32_kernel<O><<<grid_of(p), kThreads, 0, s>>>(p);
+  const cudaError_t err = cudaFuncSetAttribute(
+      trim_matmul_f32_kernel<O, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((p.N + kFBN - 1) / kFBN),
+                  static_cast<unsigned>((p.M + kFBM - 1) / kFBM));
+  trim_matmul_f32_kernel<O, kVec><<<grid, kFThreads, kFSmem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename O>
+int launch_f32_any(const MatmulArgs& p, bool vec, cudaStream_t s) {
+  return vec ? launch_f32<O, true>(p, s) : launch_f32<O, false>(p, s);
 }
 
 // The splits' partials (n_split > 1) merged in split order into out.
@@ -1230,6 +1423,8 @@ extern "C" {
 // The tiles the wrapper plans and checks its grids against.
 int trim_matmul_block_m() { return kBM; }
 int trim_matmul_block_n() { return kBN; }
+int trim_matmul_fma_block_m() { return kFBM; }
+int trim_matmul_fma_block_n() { return kFBN; }
 int trim_matmul_wgmma_block_m() { return kWgBM; }
 int trim_matmul_wgmma_block_n() { return kWgBN; }
 int trim_matmul_stream_rows() { return kSMaxRows; }
@@ -1274,14 +1469,17 @@ int trim_matmul(const void* a, const void* b, void* out, int lane,
   if (!pair) return kBad;
   const long long esz = lane == 0 ? 4 : lane == 1 ? 2 : 1;
   if (path == 0 || path == 1) {  // mma (bf16, int8), fma (fp32)
-    if ((path == 1) != (lane == 0) || (M + kBM - 1) / kBM > 65535)
+    if ((path == 1) != (lane == 0) ||
+        (M + (path == 1 ? kFBM : kBM) - 1) / (path == 1 ? kFBM : kBM) >
+            65535 ||
+        (N + kFBN - 1) / kFBN >= (1ll << 31))
       return kBad;
     const bool vec = aligned16(a) && aligned16(b) && (lda * esz) % 16 == 0 &&
                      (ldb * esz) % 16 == 0 && (K * esz) % 16 == 0 &&
                      (N * esz) % 16 == 0;
     if (lane == 0)
-      return out_kind == 0 ? launch_f32<float>(p, s)
-                           : launch_f32<__nv_bfloat16>(p, s);
+      return out_kind == 0 ? launch_f32_any<float>(p, vec, s)
+                           : launch_f32_any<__nv_bfloat16>(p, vec, s);
     if (lane == 2) return launch_tc_any<int8_t, int>(p, vec, s);
     return out_kind == 0 ? launch_tc_any<__nv_bfloat16, float>(p, vec, s)
                          : launch_tc_any<__nv_bfloat16, __nv_bfloat16>(p, vec,

@@ -20,6 +20,7 @@ device memory and what bounds it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,16 +31,56 @@ from repro_torch.kernels._autograd import needs_grad, plain_vjp
 #: callers set it to 0 before a run and read it after).
 LAUNCHES = 0
 
-#: Most taps the kernel is compiled for, and its tile: positions and
-#: channels per block (one grid axis each, at most 65535 channel tiles).
+#: Most taps the kernel is compiled for.
 MAX_K = 8
-TILE_L = 128
-BLOCK_D = 64
+#: The kernel's geometry: THREADS a block; a thread owns one 16-byte
+#: vector of channels over a run of positions, loaded ROWS[dtype] at a
+#: time; the launch bounds keep BLOCKS_PER_SM[K] blocks resident on each
+#: of an H100's SMS streaming multiprocessors.
+THREADS = 256
+ROWS = {torch.bfloat16: 4, torch.float32: 8}
+SMS = 132
+BLOCKS_PER_SM = {k: 2 if k <= 4 else 1 for k in range(1, MAX_K + 1)}
 
 _LIB_NAME = "trim_conv1d"
 _SOURCES = ("trim_conv1d.cu",)
 _BOUND: set = set()
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the loaded library, kept after the first launch (no lookup per call)
+_LIB = None
+
+
+class Plan(NamedTuple):
+    """One launch's geometry: ``vec`` channels a thread (16 bytes),
+    ``span`` positions a thread, ``runs`` = ceil(L / span), ``dvecs`` =
+    ceil(D / vec), ``threads`` = B x runs x dvecs (thread t: channel
+    vector t % dvecs, run (t // dvecs) % runs, image t // (dvecs x runs))
+    and ``blocks`` of THREADS."""
+    vec: int
+    span: int
+    runs: int
+    dvecs: int
+    threads: int
+    blocks: int
+
+
+def plan(B: int, L: int, D: int, K: int, dtype: torch.dtype) -> Plan:
+    """The launch geometry, from the shape alone: the span (a multiple of
+    ROWS[dtype]) is the shortest that keeps the B x ceil(D / vec)
+    columns' runs within one wave of BLOCKS_PER_SM[K] x SMS resident
+    blocks, so every thread owns about the same number of positions and
+    no shape ends on a short tail wave; where the columns alone pass a
+    wave, one chunk of ROWS[dtype] positions a thread."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    rows = ROWS[dtype]
+    dvecs = -(-D // vec)
+    wave = BLOCKS_PER_SM[K] * SMS * THREADS
+    cols = B * dvecs
+    runs_wanted = wave // cols if cols < wave else L
+    span = -(-max(1, -(-L // runs_wanted)) // rows) * rows
+    runs = -(-L // span)
+    threads = B * runs * dvecs
+    return Plan(vec, span, runs, dvecs, threads, -(-threads // THREADS))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -65,19 +106,31 @@ def load_library() -> ctypes.CDLL:
     lib = _build.load(_LIB_NAME, _SOURCES)
     if lib not in _BOUND:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.trim_conv1d.argtypes = [p, p, p, i, ll, ll, ll, i, ll, ll, p]
+        lib.trim_conv1d.argtypes = [p, p, p, i, ll, ll, ll, i, ll, ll, ll,
+                                    p]
         lib.trim_conv1d.restype = i
         lib.trim_conv1d_error_string.argtypes = [i]
         lib.trim_conv1d_error_string.restype = ctypes.c_char_p
-        for fn in ("trim_conv1d_max_k", "trim_conv1d_tile_l",
-                   "trim_conv1d_block_d"):
+        for fn in ("trim_conv1d_max_k", "trim_conv1d_threads",
+                   "trim_conv1d_rows", "trim_conv1d_blocks_per_sm"):
             getattr(lib, fn).restype = i
-        if (lib.trim_conv1d_max_k(), lib.trim_conv1d_tile_l(),
-                lib.trim_conv1d_block_d()) != (MAX_K, TILE_L, BLOCK_D):
+        lib.trim_conv1d_blocks_per_sm.argtypes = [i]
+        lib.trim_conv1d_rows.argtypes = [i]
+        got = (lib.trim_conv1d_max_k(), lib.trim_conv1d_threads(),
+               {dt: lib.trim_conv1d_rows(int(dt == torch.bfloat16))
+                for dt in ROWS},
+               {k: lib.trim_conv1d_blocks_per_sm(k) for k in BLOCKS_PER_SM})
+        if got != (MAX_K, THREADS, ROWS, BLOCKS_PER_SM):
             raise RuntimeError("trim_conv1d library constants differ from "
                                "the wrapper's")
         _BOUND.add(lib)
     return lib
+
+
+def _load() -> ctypes.CDLL:
+    global _LIB
+    _LIB = load_library()
+    return _LIB
 
 
 class TrimConv1dFn(torch.autograd.Function):
@@ -136,17 +189,19 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          "reads channels contiguously")
     if min(x.stride(0), x.stride(1)) < 0:
         raise ValueError(f"negative strides {x.stride()} are not handled")
-    if B > 65535 or -(-D // BLOCK_D) > 65535:
-        raise ValueError(f"batch {B} / channels {D} exceed the launch grid")
     out = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = load_library()
+    p = plan(B, L, D, K, x.dtype)
+    if p.blocks >= 2 ** 31:
+        raise ValueError(f"x {tuple(x.shape)} exceeds the launch grid")
+    lib = _LIB or _load()
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            int(x.dtype == torch.bfloat16), B, L, D, K, x.stride(0),
+            x.stride(1), p.span)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.trim_conv1d(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             int(x.dtype == torch.bfloat16), B, L, D, K,
-                             x.stride(0), x.stride(1), stream)
+        rc = lib.trim_conv1d(
+            *args, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         msg = lib.trim_conv1d_error_string(rc).decode()
         raise RuntimeError(f"trim_conv1d launch failed: CUDA error {rc} "

@@ -49,10 +49,13 @@ _PATH_CODES = {"mma": 0, "fma": 1, "wgmma": 2, "stream": 3}
 #: Launches per path since the last :func:`reset_launches`.
 LAUNCHES_BY_PATH: Dict[str, int] = dict.fromkeys(PATHS, 0)
 
-#: The mma and fma paths' output tile (rows, columns); their grid's rows
-#: are at most 65535 tiles.
+#: The mma path's output tile (rows, columns); its grid's rows are at
+#: most 65535 tiles.
 BLOCK_M = 128
 BLOCK_N = 128
+#: The fma path's output tile (rows, columns: at most 65535 row tiles and
+#: fewer than 2^31 column tiles).
+FMA_BLOCK = (128, 128)
 #: The wgmma path's output tile.
 WGMMA_BLOCK = (128, 256)
 #: The stream path: at most STREAM_ROWS rows of a; STREAM_COLS columns of
@@ -173,7 +176,8 @@ def check_launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
     every element the rows of a, b and out reach lies inside its storage;
     out is contiguous (M, N); the path takes the lane (fma fp32, wgmma
     bf16, mma bf16 and int8, stream all three); the grid: at most 65535
-    row tiles of BLOCK_M on mma and fma, tiles and extents below 2^31 on
+    row tiles of BLOCK_M on mma and of FMA_BLOCK[0] on fma (column tiles
+    below 2^31), tiles and extents below 2^31 on
     wgmma with TMA-aligned operands (:func:`tma_aligned`); on stream at
     most STREAM_ROWS rows, 1-65535 splits of ``split_tiles`` >= 1 whole K
     tiles of at most STREAM_MAX_K rows that cover K and leave no split
@@ -193,7 +197,8 @@ def check_launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
     if a.dtype not in lanes[path]:
         raise ValueError(f"the {path} path does not take {a.dtype}")
     if path in ("mma", "fma"):
-        if -(-M // BLOCK_M) > 65535 or -(-N // BLOCK_N) >= big:
+        bm, bn = FMA_BLOCK if path == "fma" else (BLOCK_M, BLOCK_N)
+        if -(-M // bm) > 65535 or -(-N // bn) >= big:
             raise ValueError(f"({M}, {N}) exceeds the {path} path's grid")
     elif path == "wgmma":
         tiles = -(-M // WGMMA_BLOCK[0]) * -(-N // WGMMA_BLOCK[1])
@@ -208,8 +213,9 @@ def check_launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
                 or span > STREAM_MAX_K or n_split * span < K
                 or (n_split - 1) * span >= K
                 or -(-N // STREAM_COLS) >= big):
-            raise ValueError(f"stream plan ({n_split} x {split_tiles} "
-                             f"tiles) does not fit M = {M}, K = {K}")
+            raise ValueError(f"the stream path's plan ({n_split} x "
+                             f"{split_tiles} tiles) does not fit M = {M}, "
+                             f"K = {K}")
         if n_split > 1 and (ws is None or tuple(ws.shape) != (n_split, M, N)
                             or ws.dtype != acc or not ws.is_contiguous()):
             raise ValueError(f"the stream path's {n_split} splits need a "
@@ -228,8 +234,9 @@ def load_library() -> ctypes.CDLL:
         lib.trim_matmul.restype = i
         lib.trim_matmul_error_string.argtypes = [i]
         lib.trim_matmul_error_string.restype = ctypes.c_char_p
-        consts = ("block_m", "block_n", "wgmma_block_m", "wgmma_block_n",
-                  "stream_rows", "stream_cols", "stream_max_k")
+        consts = ("block_m", "block_n", "fma_block_m", "fma_block_n",
+                  "wgmma_block_m", "wgmma_block_n", "stream_rows",
+                  "stream_cols", "stream_max_k")
         for fn in consts:
             getattr(lib, f"trim_matmul_{fn}").restype = i
         lib.trim_matmul_stream_k_tile.argtypes = [i]
@@ -237,8 +244,8 @@ def load_library() -> ctypes.CDLL:
         got = [getattr(lib, f"trim_matmul_{fn}")() for fn in consts] + [
             lib.trim_matmul_stream_k_tile(_LANES[dt][0])
             for dt in STREAM_K_TILE]
-        if got != [BLOCK_M, BLOCK_N, *WGMMA_BLOCK, STREAM_ROWS, STREAM_COLS,
-                   STREAM_MAX_K, *STREAM_K_TILE.values()]:
+        if got != [BLOCK_M, BLOCK_N, *FMA_BLOCK, *WGMMA_BLOCK, STREAM_ROWS,
+                   STREAM_COLS, STREAM_MAX_K, *STREAM_K_TILE.values()]:
             raise RuntimeError("trim_matmul library constants differ from "
                                "the wrapper's")
         _BOUND.add(lib)
@@ -289,7 +296,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor,
         n_split, split_tiles = stream_plan(K, N, a.dtype)
         if n_split > 65535:
             raise ValueError(f"K = {K} exceeds the stream path's grid")
-    elif path in ("mma", "fma") and -(-M // BLOCK_M) > 65535:
+    elif path in ("mma", "fma") and -(-M // (
+            FMA_BLOCK[0] if path == "fma" else BLOCK_M)) > 65535:
         raise ValueError(f"M = {M} exceeds the launch grid")
     out = torch.empty((M, N), dtype=out_dt, device=a.device)
     if out.numel() == 0:

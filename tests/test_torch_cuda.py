@@ -1260,6 +1260,83 @@ def test_conv1d_kernel_offsets_past_2_31_on_card():
     assert torch.equal(got, want)
 
 
+# (B, L, D, K): mamba2-130m's xBC at the training batch and on one of two
+# ranks, the column slices of in_proj's output (3352 wide) the path reads
+CONV1D_PATH_CASES = [(4, 1024, 1792, 4), (4, 4096, 896, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CONV1D_PATH_CASES,
+                         ids=lambda c: "B{}-L{}-D{}-K{}".format(*c))
+def test_conv1d_kernel_bit_equal_at_the_path_shapes_on_card(case, dtype):
+    """On a card: the conv1d kernel bit-equal to its plain version at the
+    training and rank shapes, on the path's column slice of a 3352-wide
+    tensor (16-byte rows: the vector loads), on a slice 3 elements further
+    in (rows not 16-byte aligned: the element path inside the kernel) and
+    on a contiguous copy, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_conv1d as k1
+
+    B, L, D, K = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(L + D)
+    proj = torch.randn((B, L, 3352), generator=gen, device="cuda").to(dt)
+    w = (torch.randn((K, D), generator=gen, device="cuda") * K ** -0.5).to(dt)
+    for x in (proj[..., 1536:1536 + D], proj[..., 1539:1539 + D],
+              proj[..., 1536:1536 + D].contiguous()):
+        before = k1.LAUNCHES
+        got = k1.trim_conv1d(x, w)
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES == before + 1
+        assert torch.equal(got, k1.trim_conv1d_plain(x, w))
+
+
+# (M, K, N, a's column offset, b's): the fma path's ring ragged on every
+# side (K past and inside one 16-row tile, M and N cut inside a 128 tile),
+# rows not 16-byte aligned (4-byte copies), N not a multiple of 4 (element
+# stores), and aligned whole tiles (16-byte copies, 16-byte stores)
+FMA_CASES = [
+    (17, 1, 1, 0, 0), (129, 17, 130, 0, 0), (200, 120, 150, 1, 3),
+    (300, 1000, 516, 0, 0), (257, 2048, 384, 2, 0), (512, 33, 1028, 0, 1),
+    (640, 4096, 640, 0, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FMA_CASES,
+                         ids=lambda c: "M{}-K{}-N{}-a{}-b{}".format(*c))
+def test_matmul_fma_ragged_and_unaligned_on_card(case, out):
+    """On a card: the fma path (fp32 operands past 16 rows) at ragged and
+    unaligned shapes against the plain version, TF32 off: fp32 out within
+    rtol 1e-4 / atol 1e-4 x max|plain|, bf16 out within 2 x 2^-7 of each
+    row's max|plain|; one launch on fma each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import trim_matmul as mm
+
+    fp32_ieee()
+    M, K, N, oa, ob = case
+    gen = torch.Generator(device="cuda").manual_seed(M * 7 + N)
+    a = torch.randn((M, K + oa), generator=gen, device="cuda")[:, oa:]
+    b = torch.randn((K, N + ob), generator=gen, device="cuda")[:, ob:]
+    out_dt = getattr(torch, out)
+    assert mm.select_path(a, b) == "fma"
+    before = mm.LAUNCHES_BY_PATH["fma"]
+    got = mm.trim_matmul(a, b, out_dt)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES_BY_PATH["fma"] == before + 1
+    want = mm.trim_matmul_plain(a, b, out_dt)
+    assert got.shape == (M, N) and got.dtype == out_dt
+    if out_dt == torch.float32:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        assert _row_ulps(got, want) <= 2
+
+
 # (B, Sq, Sk, H, G, D, causal, q_offset, kv_length): the chip phase's cases
 # at small size: Sq == Sk causal and not, ragged Sq and Sk against the
 # tiles, GQA G = 4, Sq < Sk with q_offset, a per-row kv_length with a row
@@ -1728,11 +1805,11 @@ def test_matmul_every_path_matches_plain_on_card(M):
 
 @pytest.mark.gpu
 def test_matmul_refuses_a_path_that_cannot_take_the_operands_on_card():
-    """On a card: the library refuses a named path that cannot take the
-    operands -- wgmma on a slice 6 bytes off or on fp32, stream past 16
-    rows, fma on bf16, mma on fp32 -- and the wrapper raises, counting
-    no launch: nothing is swapped for another path or the plain
-    version."""
+    """On a card: a named path that cannot take the operands -- wgmma on
+    a slice 6 bytes off or on fp32, stream past 16 rows, fma on bf16, mma
+    on fp32 -- is refused (by the wrapper's check of the launch or by the
+    library) and the wrapper raises, counting no launch: nothing is
+    swapped for another path or the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import trim_matmul as mm
@@ -1746,7 +1823,10 @@ def test_matmul_refuses_a_path_that_cannot_take_the_operands_on_card():
            (wa[:, :128].float(), b.float(), "mma")]
     mm.reset_launches()
     for a, bb, path in bad:
-        with pytest.raises(RuntimeError, match=f"on the {path} path"):
+        # refused by the host's check of the launch (ValueError) or by
+        # the library (RuntimeError), never launched
+        with pytest.raises((RuntimeError, ValueError),
+                           match=rf"\b{path} path"):
             mm._launch(a, bb, None, path)
     assert mm.LAUNCHES == 0 and set(mm.LAUNCHES_BY_PATH.values()) == {0}
 
@@ -1776,7 +1856,7 @@ def test_matmul_broadcast_and_overlapping_rows_on_card():
         torch.cuda.synchronize()
         assert mm.LAUNCHES_BY_PATH["mma"] == mm.LAUNCHES == 1
         assert _row_ulps(got, mm.trim_matmul_plain(a, b)) <= 2
-        with pytest.raises(RuntimeError, match="on the wgmma path"):
+        with pytest.raises((RuntimeError, ValueError), match=r"\bwgmma path"):
             mm._launch(a, b, None, "wgmma")
 
 

@@ -289,3 +289,25 @@ def test_launch_check_refuses_unaligned_wgmma_and_big_grids():
     one = torch.zeros((1, 1))
     with pytest.raises(ValueError, match="grid"):
         mm.check_launch(tall, one, torch.empty((rows, 1)), "fma")
+
+
+@pytest.mark.parametrize("edge", ["rows", "columns"])
+@pytest.mark.parametrize("past", [False, True])
+def test_launch_check_holds_the_fma_geometry(edge, past):
+    """The fma path's grid: at most 65535 row tiles of FMA_BLOCK[0] and
+    fewer than 2^31 column tiles of FMA_BLOCK[1]; one row or column past
+    either is refused before a launch.  (Broadcast operands, and the
+    output on the meta device: nothing is allocated.)"""
+    bm, bn = mm.FMA_BLOCK
+    M, N = (bm * 65535, 1) if edge == "rows" else (17, bn * (2 ** 31 - 1))
+    if past:
+        M, N = (M + 1, N) if edge == "rows" else (M, N + 1)
+    a = torch.zeros((1, 8)).expand(M, 8)
+    b = torch.zeros((8, 1)).expand(8, N)
+    out = torch.empty((M, N), device="meta")
+    assert mm.select_path(a, b) == "fma"
+    if past:
+        with pytest.raises(ValueError, match="grid"):
+            mm.check_launch(a, b, out, "fma")
+    else:
+        mm.check_launch(a, b, out, "fma")
